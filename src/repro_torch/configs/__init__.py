@@ -1,0 +1,13 @@
+"""Configs of the port: its own copy of the reference's tower and
+dual-encoder configs for the ``basic-*`` entries."""
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig,
+    get_arch,
+    list_archs,
+    register,
+    smoke_variant,
+)
+from repro_torch.configs.dual import (  # noqa: F401
+    DualEncoderConfig,
+    smoke_dual_variant,
+)

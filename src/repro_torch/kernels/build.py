@@ -1,0 +1,153 @@
+"""Building, loading and counting the port's hand-written CUDA kernels.
+
+Each kernel package keeps its CUDA C++ under ``csrc/``. A source is compiled
+by ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds) and loaded with ``ctypes``.
+Libraries are built at first use into ``<repo>/build/repro_torch/`` and
+named by a hash of the source and flags, so an edited kernel is rebuilt and
+an unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
+missing library, all at once.
+
+Nothing here runs at import time: this module imports on hosts with no
+CUDA toolkit, where only the kernels' plain versions run.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional, Sequence
+
+BUILD_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "..", "build",
+    "repro_torch"))
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME or the
+    toolkit's default prefix."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME); the CUDA "
+                           "toolkit is needed to build the kernels")
+    return path
+
+
+class LaunchCounter:
+    """A plain count of kernel launches: a wrapper adds one where it
+    launches its kernel, so a run can show that its path went through it."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def add(self, n: int = 1) -> None:
+        """Count ``n`` more launches."""
+        with self._lock:
+            self._count += n
+
+    def reset(self) -> None:
+        """Set the count back to 0."""
+        with self._lock:
+            self._count = 0
+
+    @property
+    def count(self) -> int:
+        """Launches counted since the last reset."""
+        with self._lock:
+            return self._count
+
+
+class KernelLibrary:
+    """One ``csrc`` source built into a shared library and its C entry
+    points, each declared as ``name -> (restype, [argtypes])``."""
+
+    def __init__(self, name: str, source: str, signatures: Dict[str, tuple]):
+        self.name = name
+        self.source = source
+        self.signatures = dict(signatures)
+        self.build_log = ""
+        self.build_seconds: Optional[float] = None
+        self._lib = None
+        self._lock = threading.Lock()
+
+    @property
+    def path(self) -> str:
+        """Where the library for the current source and flags lives."""
+        h = hashlib.sha256()
+        with open(self.source, "rb") as f:
+            h.update(f.read())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:12]}.so")
+
+    def _start(self) -> Optional[tuple]:
+        """Start nvcc unless the library exists; returns (proc, tmp, t0)."""
+        out = self.path
+        if os.path.exists(out):
+            return None
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                                 self.source], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, time.perf_counter()
+
+    def _finish(self, started: tuple) -> None:
+        proc, tmp, t0 = started
+        log, _ = proc.communicate()
+        self.build_log = log
+        self.build_seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {self.source} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, self.path)
+
+    def lib(self) -> ctypes.CDLL:
+        """The loaded library, built first if needed; argtypes and restype
+        are declared for every entry point."""
+        with self._lock:
+            if self._lib is None:
+                started = self._start()
+                if started is not None:
+                    self._finish(started)
+                lib = ctypes.CDLL(self.path)
+                for fn, (restype, argtypes) in self.signatures.items():
+                    getattr(lib, fn).restype = restype
+                    getattr(lib, fn).argtypes = list(argtypes)
+                self._lib = lib
+            return self._lib
+
+
+def build_all(libraries: Sequence[KernelLibrary]) -> None:
+    """Build every library that is missing, one nvcc each, all started
+    together, then load them all. Raises on the first failed build."""
+    started = []
+    for lib in libraries:
+        with lib._lock:
+            if lib._lib is None:
+                s = lib._start()
+                if s is not None:
+                    started.append((lib, s))
+    for lib, s in started:
+        with lib._lock:
+            lib._finish(s)
+    for lib in libraries:
+        lib.lib()
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

@@ -1,0 +1,132 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs a CUDA card and the CUDA toolkit; on a
+host without a card they skip (the card is looked for inside a fixture,
+never at import). Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: flash f32, 5e-5 (fp32 sums over the keys in another order);
+flash bf16 outputs, 1.6e-2 (one bf16 ulp at |out| < 2 after the same fp32
+result rounds); top-k values, 1e-4 (fp32 dot products of unit vectors
+times 1/0.07), with indices equal wherever the plain version's values are
+further apart than that.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_fwd_ref
+from repro_torch.kernels.similarity_topk import ops as topk_ops
+from repro_torch.kernels.similarity_topk.ref import similarity_topk_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _qkv(gen, bh, bkv, s, d, dtype):
+    q = torch.randn((bh, s, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((bkv, s, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,padded", [
+    (16, 12, 12, 196, 64, False, None, False),   # image tower
+    (64, 16, 16, 16, 64, False, None, True),     # text tower, padding bias
+    (2, 8, 2, 200, 128, False, None, True),      # GQA, head dim 128
+    (2, 4, 4, 131, 64, True, None, False),
+    (2, 4, 4, 131, 64, True, 40, False),
+    (3, 2, 2, 1, 64, False, None, False),        # one token
+])
+def test_flash_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
+                                    padded, dtype, tol):
+    q, k, v = _qkv(gen, b * h, b * kv, s, d, dtype)
+    bias = None
+    if padded:
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+        bias = torch.where(torch.arange(s, device="cuda")[None, :]
+                           < lens[:, None], 0.0, NEG_INF).float()
+    before = fa_ops.COUNTER.count
+    out, lse = fa_ops.flash_fwd(q, k, v, bias, causal=causal, window=window)
+    assert fa_ops.COUNTER.count == before + 1
+    ref_out, ref_lse = flash_fwd_ref(q, k, v, bias, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert float((out.float() - ref_out.float()).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= 5e-5
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(gen):
+    q, k, v = _qkv(gen, 4, 4, 8, 64, torch.float16)
+    with pytest.raises(TypeError):
+        fa_ops.flash_fwd(q, k, v)
+    q, k, v = _qkv(gen, 4, 4, 8, 32, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_ops.flash_fwd(q, k, v)
+    q, k, v = _qkv(gen, 4, 4, 8, 64, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                         k, v)
+
+
+def _unit(n, d, gen, dtype):
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,k", [(16, 512, 5), (64, 21841, 64),
+                                   (5, 137, 1), (70, 3000, 17), (1, 64, 64)])
+def test_topk_kernel_matches_plain(gen, b, n, k, dtype):
+    x, c = _unit(b, 512, gen, dtype), _unit(n, 512, gen, dtype)
+    before = topk_ops.COUNTER.count
+    vals, idx = topk_ops.similarity_topk(x, c, k, inv_tau=1 / 0.07)
+    assert topk_ops.COUNTER.count == before + 1
+    m = min(k + 1, n)
+    ref_v, ref_i = similarity_topk_ref(x, c, m, 1 / 0.07)
+    torch.cuda.synchronize()
+    tol = 1e-4
+    assert float((vals - ref_v[:, :k]).abs().max()) <= tol
+    gap_up = torch.full_like(ref_v, float("inf"))
+    gap_up[:, 1:] = ref_v[:, :-1] - ref_v[:, 1:]
+    gap_down = torch.full_like(ref_v, float("inf"))
+    gap_down[:, :-1] = gap_up[:, 1:]
+    apart = (gap_up > tol) & (gap_down > tol)
+    assert bool(((idx == ref_i[:, :k]) | ~apart[:, :k]).all())
+
+
+@pytest.mark.parametrize("b", [3, 40])
+def test_topk_kernel_ties_go_to_the_lower_id(gen, b):
+    x, c = _unit(b, 64, gen, torch.float32), _unit(5000, 64, gen,
+                                                   torch.float32)
+    dup = [11, 700, 2500, 4999]
+    c[dup] = c[dup[0]].clone()
+    x[0] = c[dup[0]]
+    vals, idx = topk_ops.similarity_topk(x, c, 8, inv_tau=10.0)
+    assert idx[0, :4].tolist() == dup
+    assert len(set(vals[0, :4].tolist())) == 1
+    same = c.clone()
+    same[:] = c[0]
+    _, idx = topk_ops.similarity_topk(x, same, 64)
+    assert idx.tolist() == [list(range(64))] * b
+
+
+@pytest.mark.parametrize("rows", [16, 64])
+def test_topk_kernel_matches_plain_at_each_block_size(gen, rows):
+    x, c = _unit(40, 512, gen, torch.float32), _unit(3000, 512, gen,
+                                                     torch.float32)
+    vals, _ = topk_ops.similarity_topk(x, c, 5, inv_tau=1 / 0.07,
+                                       block_rows=rows)
+    ref_v, _ = similarity_topk_ref(x, c, 5, 1 / 0.07)
+    assert float((vals - ref_v).abs().max()) <= 1e-4
