@@ -17,15 +17,33 @@ repository beside this file; it exits non-zero without them. In order it:
    grid of batch, class-count and k, with planted exact ties, and times
    kernel, plain version and ``torch.topk(x @ c.T)``, and the kernels at
    each row block size they are built for;
-5. serves zero-shot classification with BASIC-S at full width on the card
+5. holds the flash-attention backward kernel against its plain version at
+   the training shapes of one microbatch (image bh 3072, s 196; text
+   bh 4096, s 16 with the padding bias; causal and windowed cases), in f32
+   and bf16, and times kernel, plain version and SDPA's backward;
+6. holds the fused contrastive forward and backward kernels against their
+   plain versions at B = 2048 and a ragged B = 1000 (D = 512, f32 and
+   bf16, and the backward with ``with_diag=False`` and ``b_norm != B``),
+   and times kernel, plain version and the materialising PyTorch calls;
+7. serves zero-shot classification with BASIC-S at full width on the card
    (``repro_torch.launch.serve_zeroshot``: 512 classes × 4 prompt
    templates, 8 requests of 16 raw 224×224×3 images), checks the answers
    against the plain PyTorch path on the same weights and images, and
-   checks that both kernels were launched on that path; then profiles 4
-   warm requests: device time by kernel, and the device kernels that each
-   wrapper call launched;
-6. prints a ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   checks that both serving kernels were launched on that path; then
+   profiles 4 warm requests: device time by kernel, and the device kernels
+   that each wrapper call launched;
+8. training parity: one GradAccum step of BASIC-S at full width and depth
+   in f32 (B = 256, 2 microbatches) on the kernel path (flash attention,
+   fused loss) and on the plain path (materialised attention and loss)
+   from the same weights and batch: loss, every gradient leaf and the
+   parameters after AdaFactorW;
+9. timed training: ``repro_torch.launch.train`` (``main``) at full width
+   and depth, bf16, fused loss, flash attention, remat ``basic``, B = 2048
+   pairs in 8 microbatches, 6 steps: step time, pairs per second, peak
+   memory, losses, and the launches per step of the four training kernels;
+   then profiles one warm step;
+10. prints a ``{"kernels": [...]}`` line and, last, the
+    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
 """
@@ -45,6 +63,11 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:97"
 TOPK_SOURCE = "src/repro_torch/kernels/similarity_topk/csrc/topk.cu"
 TOPK_REPLACES = "src/repro/kernels/similarity_topk/kernel.py:85"
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu"
+FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/kernel.py:230"
+CL_SOURCE = "src/repro_torch/kernels/contrastive_loss/csrc/contrastive.cu"
+CL_FWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:107"
+CL_BWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:185"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # operation rates by input type (fp32 outside the tensor cores)
@@ -65,6 +88,46 @@ TOPK_TOL = 1e-4
 # the flash kernel vs materialised softmax, then logits times 1/0.07
 E2E_LOGIT_TOL = 1e-3
 E2E_CLASS_TOL = 1e-4
+# flash backward f32: 2e-4 abs, the reference's own gradient tolerance
+# (tests/test_attention_backends.py); fp32 sums in another order
+FLASH_BWD_TOL = 2e-4
+# flash backward bf16, per element: 2 bf16 ulps of |ref| (2^-7 relative
+# each) plus 1e-3 of the tensor's max |ref|. Both sides accumulate in fp32
+# and round the same value to bf16, so an element differs by at most the
+# ulp of a rounding-boundary crossing; the 1e-3·max term covers elements
+# near zero, where fp32 sums in another order cancel. At N(0, 1) inputs
+# |dq|, |dk|, |dv| are ~0.1 rms, so the reference's 1e-1 abs (kept in the
+# CPU tests against JAX) would pass a dropped delta or a lost d^-1/2.
+# Plus 1e-5 abs for gradients that are zero by cancellation (one key:
+# ds = dout·v − delta = 0), where both sides keep fp32 rounding residue
+# (~1e-7) in another order
+FLASH_BWD_BF16_ULPS = 2
+FLASH_BWD_BF16_REL_MAX = 1e-3
+FLASH_BWD_BF16_ABS = 1e-5
+BF16_ULP = 2.0 ** -7
+# contrastive kernels: LSE 5e-5 (fp32 sums of B exponentials of values up
+# to ~15 in another order); dX/dY 1e-6 and dlog_tau 1e-4 relative, the
+# reference's f32 tolerances (tests/test_kernels.py). bf16 gradients:
+# 2^-6 of the tensor's max |ref| (|dX| ~ 3e-4 at unit rows, so an absolute
+# 2e-2 would pass any fault); dA rounds to bf16 on both sides, and a
+# rounding-boundary crossing moves one term of a row's sum by one ulp
+CL_LSE_TOL = 5e-5
+CL_GRAD_TOL_F32 = 1e-6
+CL_GRAD_REL_MAX_BF16 = 2.0 ** -6
+CL_DTAU_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# training parity, kernel path vs plain path in f32:
+# loss — embeddings through 8 (6) layers of flash vs materialised softmax
+# differ by ~1e-6, the loss is ~log B
+TRAIN_LOSS_TOL = 1e-4
+# gradients — largest over leaves of max|g_kernel - g_plain| / max|g_plain|:
+# fp32 sums in another order through the backward of every layer
+TRAIN_GRAD_RTOL = 1e-3
+# parameters after AdaFactorW — factored leaves within 2% of the lr: a
+# gradient error of TRAIN_GRAD_RTOL moves an update by about that share of
+# lr. An unfactored leaf's update is ~±lr per element whatever the
+# gradient's size, so an element may differ by up to 2·lr only where its
+# gradient is zero to within TRAIN_GRAD_RTOL of its leaf's largest
+TRAIN_UPDATE_TOL_LR = 0.02
 
 
 def card_line() -> str:
@@ -406,15 +469,74 @@ def phase_main_path():
 # the device kernels each wrapper launches, by name
 WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                    "similarity_topk": ("topk_partial_kernel",
-                                       "topk_merge_kernel")}
+                                       "topk_merge_kernel"),
+                   "flash_bwd": ("flash_bwd_delta_kernel",
+                                 "flash_bwd_dq_kernel",
+                                 "flash_bwd_dkv_kernel"),
+                   "contrastive_fwd": ("contrastive_fwd_tile_kernel",
+                                       "contrastive_fwd_combine_kernel"),
+                   "contrastive_bwd": ("contrastive_grad_kernel",
+                                       "contrastive_dtau_sum_kernel")}
+
+
+# device kernels by group, first match wins: the port's kernels, the
+# library GEMMs, copies; everything else is elementwise or reductions
+KERNEL_GROUPS = (("flash kernels", ("flash_fwd_kernel", "flash_bwd_")),
+                 ("contrastive kernels", ("contrastive_",)),
+                 ("top-k kernels", ("topk_",)),
+                 ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
+                 ("copies and casts", ("copy", "Memcpy", "Memset")))
+
+
+def device_breakdown(prof, label, wall_us, units, calls):
+    """Print the profiled window's device time by kernel and its busy
+    share; return, for each wrapper in ``calls`` (wrapper -> calls in the
+    window), the device kernels the profiler saw per wrapper call."""
+    by_kernel = {}
+    seen = dict.fromkeys(calls, 0)
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = e.time_range.elapsed_us()
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us
+            for wrapper in calls:
+                seen[wrapper] += any(n in e.name
+                                     for n in WRAPPER_KERNELS[wrapper])
+    busy = sum(by_kernel.values())
+    unit = label.split()[-1]
+    print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device time "
+          f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall; the "
+          f"rest is the device idle)", flush=True)
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]:
+        print(f"  {us / 1e3 / units:9.4f} ms/{unit}  "
+              f"{100 * us / max(busy, 1e-9):5.1f}%  {name[:90]}", flush=True)
+    by_group = {}
+    for name, us in by_kernel.items():
+        group = next((g for g, keys in KERNEL_GROUPS if any(
+            k in name for k in keys)), "other (elementwise, reductions)")
+        by_group[group] = by_group.get(group, 0.0) + us
+    print(f"profile {label} by group: " + "; ".join(
+        f"{g} {us / 1e3 / units:.3f} ms/{unit} "
+        f"({100 * us / max(busy, 1e-9):.1f}%)"
+        for g, us in sorted(by_group.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    per_call = {}
+    for wrapper, n in calls.items():
+        if n < 1 or seen[wrapper] < n:
+            raise AssertionError(f"profile {label}: {wrapper} called {n} "
+                                 f"times, the profiler saw {seen[wrapper]} "
+                                 f"of its device kernels")
+        per_call[wrapper] = seen[wrapper] / n
+    print(f"profile {label}: device kernels per wrapper call {per_call} "
+          f"(wrapper calls {calls})", flush=True)
+    return per_call, busy / wall_us
 
 
 def phase_profile(cfg, params, tok, requests: int = 4):
     """Where a warm classify request's device time goes: a torch.profiler
     window over ``requests`` requests (class matrix already built), device
     time summed by kernel, and the sum over the window's wall time. Returns,
-    for each wrapper, the device kernels the profiler saw per wrapper call
-    in the window."""
+    for each serving wrapper, the device kernels the profiler saw per
+    wrapper call in the window."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -440,31 +562,439 @@ def phase_profile(cfg, params, tok, requests: int = 4):
             wall_us = (time.perf_counter() - t0) * 1e6
         for ctr in counters:
             calls[ctr.name] += ctr.count
-    by_kernel = {}
-    seen = dict.fromkeys(WRAPPER_KERNELS, 0)
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = e.time_range.elapsed_us()
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us
-            for wrapper, names in WRAPPER_KERNELS.items():
-                seen[wrapper] += any(n in e.name for n in names)
-    busy = sum(by_kernel.values())
-    print(f"profile: {requests} warm requests, wall {wall_us / 1e3:.3f} ms, "
-          f"device time {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of "
-          f"wall; the rest is the device idle)", flush=True)
-    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {us / 1e3 / requests:9.4f} ms/request  "
-              f"{100 * us / max(busy, 1e-9):5.1f}%  {name[:90]}", flush=True)
-    per_call = {}
-    for wrapper in WRAPPER_KERNELS:
-        if calls[wrapper] < 1 or seen[wrapper] < calls[wrapper]:
-            raise AssertionError(f"profile: {wrapper} called "
-                                 f"{calls[wrapper]} times, the profiler saw "
-                                 f"{seen[wrapper]} of its device kernels")
-        per_call[wrapper] = seen[wrapper] / calls[wrapper]
-    print(f"profile: device kernels per wrapper call {per_call} (wrapper "
-          f"calls {calls})", flush=True)
+    per_call, _ = device_breakdown(prof, f"{requests} warm requests",
+                                   wall_us, requests, calls)
     return per_call
+
+
+# ---------------------------------------------------------------------------
+# phase 5: flash-attention backward
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_limit(ref):
+    """Per-element limit on |kernel − plain| for one flash_bwd output."""
+    import torch
+    if ref.dtype != torch.bfloat16:
+        return FLASH_BWD_TOL
+    r = ref.float().abs()
+    return (FLASH_BWD_BF16_ULPS * BF16_ULP * r
+            + FLASH_BWD_BF16_REL_MAX * r.max() + FLASH_BWD_BF16_ABS)
+
+
+def flash_bwd_tol_text(dt):
+    """The flash_bwd limit for dtype name ``dt``, as printed."""
+    if dt == "float32":
+        return f"{FLASH_BWD_TOL}"
+    return (f"{FLASH_BWD_BF16_ULPS} ulps + {FLASH_BWD_BF16_REL_MAX}"
+            f"·max|ref| + {FLASH_BWD_BF16_ABS}")
+
+
+def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
+                   window=None, timed=True):
+    """Backward kernel vs plain version at one shape; returns the case's
+    record (errors of dq, dk, dv; times when ``timed``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                         flash_bwd_ref,
+                                                         flash_fwd_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bh = b * h
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=dev)
+                     .to(dtype) for _ in range(4))
+    bias = None
+    if padded:   # text-style key padding: 1..s valid keys per example
+        lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
+        keep = torch.arange(s, device=dev)[None, :] < lens[:, None]
+        bias = torch.where(keep, 0.0, NEG_INF).float()
+    out, lse = flash_fwd_ref(q, k, v, bias, causal=causal, window=window)
+    args = (q, k, v, bias, out, lse, dout)
+    got = fa_ops.flash_bwd(*args, causal=causal, window=window)
+    ref = flash_bwd_ref(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    dt = dtype_name(dtype)
+    errs = {}
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        err = (x.float() - r.float()).abs()
+        errs[name] = err.max().item()
+        if not bool((err <= flash_bwd_limit(r)).all()):
+            raise AssertionError(f"flash_bwd {label} {dt}: {name} max abs "
+                                 f"err {errs[name]:.3g} (tol "
+                                 f"{flash_bwd_tol_text(dt)})")
+    rec = {"shape": f"{label} bh={bh} s={s} d={d} {dt}"
+                    + (" padded" if padded else "")
+                    + (" causal" if causal else "")
+                    + (f" window={window}" if window else ""),
+           "max_abs_err": max(errs.values()), "errs": errs}
+    if not timed:
+        print(f"flash_bwd {rec['shape']}: err {errs}", flush=True)
+        return rec
+    rec["ms"] = time_ms(lambda: fa_ops.flash_bwd(*args, causal=causal,
+                                                 window=window))
+    rec["plain_ms"] = time_ms(lambda: flash_bwd_ref(*args, causal=causal,
+                                                    window=window), iters=5)
+    # SDPA's backward: forward + backward through autograd, minus the
+    # forward timed apart on the same inputs
+    q4, k4, v4 = (x.view(b, h, s, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    do4 = dout.view(b, h, s, d)
+    mask4 = None if bias is None else bias.to(dtype)[:, None, None, :]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do4)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(sdpa_fwd)
+    rec["library_ms"] = time_ms(sdpa_fwd_bwd) - fwd_ms
+    item = torch.finfo(dtype).bits // 8
+    nbytes = 8 * bh * s * d * item + bh * s * 4 + (b * s * 4 if padded
+                                                   else 0)
+    # five products of 2·s²·d per head: the q·kᵀ recompute, dout·vᵀ, ds·k,
+    # dsᵀ·q and pᵀ·dout (this design's second q·kᵀ and dout·vᵀ, one each in
+    # the dq and the dk/dv kernel, are its own choice, not the function's)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 5 * 2.0 * bh * s * s * d,
+                                             dt)
+    print(f"flash_bwd {rec['shape']}: err {errs} (tol "
+          f"{flash_bwd_tol_text(dt)}); "
+          f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
+          f"backward {rec['library_ms']:.4f} ms (its forward {fwd_ms:.4f} ms "
+          f"subtracted), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+          flush=True)
+    return rec
+
+
+def phase_flash_bwd():
+    """Backward kernel at one microbatch of the timed run (M = 256): image
+    bh 3072, s 196; text bh 4096, s 16, padded; f32 and bf16; plus causal,
+    windowed and head-dim-128 cases, checked once each."""
+    import torch
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        recs[("image", dtype)] = flash_bwd_case("image", 256, 12, 196, 64,
+                                                dtype, False, 11)
+        recs[("text", dtype)] = flash_bwd_case("text", 256, 16, 16, 64,
+                                               dtype, True, 12)
+    for d, causal, window in ((64, True, None), (64, True, 48),
+                              (128, False, None)):
+        flash_bwd_case("mask", 2, 12, 200, d, torch.float32, False, 13,
+                       causal=causal, window=window, timed=False)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 6: fused contrastive loss
+# ---------------------------------------------------------------------------
+
+
+def cl_grad_tol(ref, dt):
+    """Max-abs limit on a contrastive_bwd gradient (dX or dY, fp32) whose
+    inputs were of dtype name ``dt``."""
+    if dt == "float32":
+        return CL_GRAD_TOL_F32
+    return CL_GRAD_REL_MAX_BF16 * ref.abs().max().item()
+
+
+def contrastive_case(b, d, dtype, seed, timed=True):
+    """Forward and backward kernels vs their plain versions at (B, D);
+    returns the case's records."""
+    import torch
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    from repro_torch.kernels.contrastive_loss.ref import (bwd_fused_ref,
+                                                          fwd_fused_ref,
+                                                          loss_ref)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, y = unit_rows(b, d, g, dtype), unit_rows(b, d, g, dtype)
+    log_tau = torch.tensor(-2.659, device="cuda")          # ~ log 0.07
+    inv_tau = torch.exp(-log_tau)
+    dt = dtype_name(dtype)
+    row, col = cl_ops.fwd_fused(x, y, inv_tau)
+    ref_row, ref_col = fwd_fused_ref(x, y, inv_tau)
+    fwd_err = max((row - ref_row).abs().max().item(),
+                  (col - ref_col).abs().max().item())
+    if not fwd_err <= CL_LSE_TOL:
+        raise AssertionError(f"contrastive_fwd B={b} {dt}: max lse err "
+                             f"{fwd_err:.3g} (tol {CL_LSE_TOL})")
+    bwd_err, bwd_tol = 0.0, float("inf")
+    for b_norm, with_diag in ((None, True), (3 * b, False)):
+        got = cl_ops.bwd_fused(x, y, inv_tau, ref_row, ref_col,
+                               b_norm=b_norm, with_diag=with_diag)
+        ref = bwd_fused_ref(x, y, inv_tau, ref_row, ref_col, b_norm=b_norm,
+                            with_diag=with_diag)
+        gerr = max((got[0] - ref[0]).abs().max().item(),
+                   (got[1] - ref[1]).abs().max().item())
+        terr = abs((got[2] - ref[2]).item())
+        gtol = min(cl_grad_tol(ref[0], dt), cl_grad_tol(ref[1], dt))
+        if not (gerr <= gtol and terr <= CL_DTAU_RTOL[dt]
+                * abs(ref[2].item()) + 1e-6):
+            raise AssertionError(f"contrastive_bwd B={b} {dt} b_norm="
+                                 f"{b_norm} with_diag={with_diag}: max grad "
+                                 f"err {gerr:.3g}, dlog_tau err {terr:.3g}")
+        bwd_err = max(bwd_err, gerr)
+        bwd_tol = min(bwd_tol, gtol)
+    print(f"contrastive B={b} D={d} {dt}: lse err {fwd_err:.3g} (tol "
+          f"{CL_LSE_TOL}), dX/dY err {bwd_err:.3g} (tol {bwd_tol:.3g}; "
+          f"with_diag and b_norm=B, and without diag at b_norm=3B)",
+          flush=True)
+    fwd = {"shape": f"B={b} D={d} {dt}", "max_abs_err": fwd_err}
+    bwd = {"shape": f"B={b} D={d} {dt}", "max_abs_err": bwd_err}
+    if not timed:
+        return fwd, bwd
+    item = torch.finfo(dtype).bits // 8
+    fwd["ms"] = time_ms(lambda: cl_ops.fwd_fused(x, y, inv_tau))
+    fwd["plain_ms"] = time_ms(lambda: fwd_fused_ref(x, y, inv_tau))
+
+    def lib_fwd():
+        a = (x @ y.T).float() * inv_tau
+        return torch.logsumexp(a, 1), torch.logsumexp(a, 0)
+
+    fwd["library_ms"] = time_ms(lib_fwd)
+    fwd["bound_ms"], fwd["bound_by"] = bound(2 * b * d * item + 2 * b * 4,
+                                             2.0 * b * b * d, dt)
+    bargs = (x, y, inv_tau, ref_row, ref_col)
+    bwd["ms"] = time_ms(lambda: cl_ops.bwd_fused(*bargs))
+    bwd["plain_ms"] = time_ms(lambda: bwd_fused_ref(*bargs))
+    # autograd of the materialised loss, minus its forward timed apart
+    xr, yr, lr_ = (t.detach().clone().requires_grad_()
+                   for t in (x, y, log_tau))
+    with torch.no_grad():
+        lfwd_ms = time_ms(lambda: loss_ref(xr, yr, lr_))
+    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        loss_ref(xr, yr, lr_), (xr, yr, lr_))) - lfwd_ms
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        2 * b * d * item + 2 * b * 4 + 2 * b * d * 4 + 4,
+        3 * 2.0 * b * b * d, dt)
+    for name, r in (("contrastive_fwd", fwd), ("contrastive_bwd", bwd)):
+        print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return fwd, bwd
+
+
+def phase_contrastive():
+    """Fused contrastive kernels at the timed run's B = 2048 and a ragged
+    B = 1000 (D = 512): f32 timed, bf16 for correctness."""
+    import torch
+    recs = {}
+    for b in (2048, 1000):
+        recs[(b, torch.float32)] = contrastive_case(b, 512, torch.float32,
+                                                    20 + b)
+        recs[(b, torch.bfloat16)] = contrastive_case(b, 512, torch.bfloat16,
+                                                     21 + b, timed=False)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training parity, kernel path vs plain path
+# ---------------------------------------------------------------------------
+
+
+def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
+    """One GradAccum step + AdaFactorW of BASIC-S (full width and depth,
+    f32) on both paths from the same weights and batch."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.core import remat as remat_lib
+    from repro_torch.core.contrastive import (contrastive_loss,
+                                              fused_kernel_loss)
+    from repro_torch.core.gradaccum import contrastive_step
+    from repro_torch.data import (contrastive_batch, load_tokenizer,
+                                  world_for_tower)
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import dual_encoder as de
+    from repro_torch.optim import apply_updates
+
+    cfg = get_arch("basic-s")
+    rng = np.random.default_rng(0)
+    world = world_for_tower(rng, cfg.image_tower, n_classes=64)
+    batch, _ = contrastive_batch(world, load_tokenizer(), batch_size, rng)
+    batch = batch_to(batch, "cuda")
+    params = interop.init_params(cfg, torch.Generator().manual_seed(1),
+                                 "cuda")
+    opt = make_optimizer()
+    lr = 2.5e-4
+    policy = remat_lib.get_policy("basic")
+    results = {}
+    for path, attn, loss_fn in (("kernel", "pallas", fused_kernel_loss),
+                                ("plain", "naive", contrastive_loss)):
+        pcfg = dataclasses.replace(
+            cfg, image_tower=dataclasses.replace(cfg.image_tower,
+                                                 attn_impl=attn),
+            text_tower=dataclasses.replace(cfg.text_tower, attn_impl=attn))
+        t0 = time.perf_counter()
+        loss, _, grads = contrastive_step(
+            lambda p, im: de.encode_image(pcfg, p, im, precision="f32",
+                                          remat_policy=policy),
+            lambda p, tx: de.encode_text(pcfg, p, tx, precision="f32",
+                                         remat_policy=policy),
+            params, batch, num_micro, loss_fn=loss_fn)
+        updates, _ = opt.update(grads, opt.init(params), params, lr)
+        new = apply_updates(params, updates)
+        torch.cuda.synchronize()
+        results[path] = (loss.item(), dict(interop.leaves(grads)),
+                         dict(interop.leaves(new)),
+                         time.perf_counter() - t0)
+    (lk, gk, pk, tk), (lp, gp, pp, tp) = results["kernel"], results["plain"]
+    loss_err = abs(lk - lp)
+    grad_rel = {path: ((gk[path] - gp[path]).abs().max()
+                       / gp[path].abs().max().clamp(min=1e-30)).item()
+                for path in gp}
+    worst = max(grad_rel, key=grad_rel.get)
+    upd_err, flips = 0.0, 0
+    for path, new_p in pp.items():
+        diff = (pk[path] - new_p).abs()
+        g = gp[path]
+        factored = g.dim() >= 2 and min(g.shape[-2:]) >= 128
+        if factored:
+            upd_err = max(upd_err, diff.max().item())
+            continue
+        off = diff > TRAIN_UPDATE_TOL_LR * lr
+        near_zero = g.abs() <= TRAIN_GRAD_RTOL * g.abs().max()
+        if bool((off & ~near_zero).any()):
+            raise AssertionError(f"train parity: {path} update differs by "
+                                 f"{diff.max().item():.3g} where its "
+                                 f"gradient is not near zero")
+        flips += int(off.sum())
+        upd_err = max(upd_err, diff[~off].max().item() if bool(
+            (~off).any()) else 0.0)
+    print(f"train parity (BASIC-S f32, B={batch_size}, {num_micro} "
+          f"microbatches): loss kernel {lk:.6f} plain {lp:.6f} (|diff| "
+          f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); largest relative gradient "
+          f"error {grad_rel[worst]:.3g} at {worst} (tol {TRAIN_GRAD_RTOL}); "
+          f"updated params max diff {upd_err:.3g} (tol "
+          f"{TRAIN_UPDATE_TOL_LR * lr:.3g} = {TRAIN_UPDATE_TOL_LR}·lr; "
+          f"{flips} unfactored elements with near-zero gradients differ "
+          f"more); step {tk:.2f}s kernel path, {tp:.2f}s plain path",
+          flush=True)
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_rel[worst] <= TRAIN_GRAD_RTOL
+            and upd_err <= TRAIN_UPDATE_TOL_LR * lr):
+        raise AssertionError("train parity: kernel path and plain path "
+                             "disagree beyond the stated tolerances")
+    return {"loss_err": loss_err, "grad_rel_err": grad_rel[worst],
+            "update_err": upd_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: timed training through the trainer's entry point
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--mode", "contrastive", "--arch", "basic-s", "--batch",
+              "2048", "--num-micro", "8", "--steps", "6", "--seed", "0",
+              "--precision", "bf16", "--loss", "fused", "--attn", "pallas",
+              "--remat", "basic"]
+
+
+def train_step_flops(cfg, batch: int, text_len: int = 16):
+    """(dense, attention) FLOP of one training step of the timed run's
+    configuration, from the shapes: every weight matmul twice forward
+    (pass 1, pass 2) and twice backward (remat ``basic`` keeps the matmul
+    outputs); attention three times forward (pass 1, pass 2, the remat
+    recompute) and once backward at 5·2·s²·d per head (the q·kᵀ recompute,
+    dout·vᵀ, ds·k, dsᵀ·q, pᵀ·dout) against the forward's 4·s²·d."""
+    def tower(t, tokens):
+        hd = t.resolved_head_dim
+        per_layer = (t.d_model * (t.n_heads + 2 * t.n_kv_heads) * hd
+                     + t.n_heads * hd * t.d_model + 3 * t.d_model * t.d_ff)
+        dense = 2.0 * tokens * t.n_layers * per_layer
+        attn = t.n_layers * t.n_heads * 4.0 * tokens ** 2 * hd
+        return dense, attn
+    it, tt = cfg.image_tower, cfg.text_tower
+    di, ai = tower(it, it.frontend_len)
+    dt, at = tower(tt, text_len)
+    patch = 2.0 * it.frontend_len * it.patch_size ** 2 * it.channels \
+        * it.d_model
+    proj = 2.0 * (it.d_model + tt.d_model) * cfg.embed_dim
+    dense_fwd = di + dt + patch + proj
+    return batch * 4 * dense_fwd, batch * (3 + 2.5) * (ai + at)
+
+
+def phase_train_timed():
+    """``repro_torch.launch.train.main`` at full width and depth; returns
+    (launches per step, report)."""
+    import math
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+
+    counters = (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
+                cl_ops.BWD_COUNTER)
+    for ctr in counters:
+        ctr.reset()
+    rep = train.main(TRAIN_ARGV)
+    steps = len(rep["losses"])
+    launches = {ctr.name: ctr.count for ctr in counters}
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"train timed: BASIC-S bf16, B=2048 in 8 microbatches, {steps} "
+          f"steps: warm step median {rep['warm_step_median_s']:.4f} s over "
+          f"{len(rep['step_s']) - 1} warm steps, {rep['pairs_per_s']:.1f} "
+          f"pairs/s, max_memory_allocated "
+          f"{rep['max_memory_allocated'] / 2**30:.3f} GiB; step s "
+          f"{[round(t, 4) for t in rep['step_s']]}; data s "
+          f"{[round(t, 3) for t in rep['data_s']]}; losses "
+          f"{[round(v, 5) for v in rep['losses']]}", flush=True)
+    print(f"train timed launches: {launches}, per step {per_step}",
+          flush=True)
+    from repro_torch.configs import get_arch
+    dense, attn = train_step_flops(get_arch("basic-s"), 2048)
+    step_bound = (dense + attn) / PEAK_FLOPS["bfloat16"]
+    print(f"train FLOP model: dense {dense / 1e12:.1f} TFLOP/step, "
+          f"attention {attn / 1e12:.2f} TFLOP/step; bound {step_bound:.4f} "
+          f"s/step at the bf16 peak; the warm median is "
+          f"{rep['warm_step_median_s'] / step_bound:.1f}x that; attention "
+          f"alone bounds at {attn / PEAK_FLOPS['float32']:.4f} s on the fp32 "
+          f"FMA units", flush=True)
+    if not all(math.isfinite(v) for v in rep["losses"]):
+        raise AssertionError(f"non-finite training loss {rep['losses']}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"training path")
+    return launches, per_step, rep
+
+
+def phase_train_profile():
+    """A torch.profiler window over one warm training step (after one
+    unprofiled step) of the timed run's configuration: device time by
+    kernel, busy share, device kernels per wrapper call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import contrastive_batch
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+
+    args = train.parse_args(TRAIN_ARGV)
+    dev = torch.device("cuda")
+    run = train.build_contrastive(args, dev)
+    params, opt_state = run["params"], run["opt_state"]
+    batches = [train.batch_to(contrastive_batch(run["world"], run["tok"],
+                                                args.batch, run["rng"])[0],
+                              dev) for _ in range(2)]
+    params, opt_state, loss, _ = run["step_fn"](params, opt_state,
+                                                batches[0])   # warm
+    float(loss)
+    counters = (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
+                cl_ops.BWD_COUNTER)
+    calls = {ctr.name: -ctr.count for ctr in counters}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = run["step_fn"](params, opt_state,
+                                                    batches[1])
+        float(loss)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    for ctr in counters:
+        calls[ctr.name] += ctr.count
+    return device_breakdown(prof, "1 warm training step", wall_us, 1, calls)
 
 
 def main() -> int:
@@ -475,6 +1005,7 @@ def main() -> int:
         return 1
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.similarity_topk import ops as topk_ops
 
@@ -485,11 +1016,12 @@ def main() -> int:
           flush=True)
     resolve_device("cuda")
 
+    libs = (fa_ops.LIB, fa_ops.BWD_LIB, topk_ops.LIB, cl_ops.LIB)
     t0 = time.perf_counter()
-    kbuild.build_all([fa_ops.LIB, topk_ops.LIB])
+    kbuild.build_all(libs)
     print(f"built kernels in {time.perf_counter() - t0:.1f}s (sm_90a)",
           flush=True)
-    for lib in (fa_ops.LIB, topk_ops.LIB):
+    for lib in libs:
         print(f"  {lib.name}: nvcc {lib.build_seconds or 0.0:.1f}s", flush=True)
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -497,33 +1029,64 @@ def main() -> int:
 
     flash = phase_flash()
     topk, topk_errs = phase_topk()
+    flash_bwd = phase_flash_bwd()
+    contrastive = phase_contrastive()
     launches, cfg, params, tok = phase_main_path()
     per_call = phase_profile(cfg, params, tok)
+    del params
+    phase_train_parity()
+    train_launches, train_per_step, _ = phase_train_timed()
+    train_per_call, busy = phase_train_profile()
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(flash[(s, torch.bfloat16)]["max_abs_err"]
                  for s in ("image", "text"))
     t_main = topk[(16, 512, 5)]
+    b_main = flash_bwd[("image", torch.float32)]
+    b_bf16 = max(flash_bwd[(s, torch.bfloat16)]["max_abs_err"]
+                 for s in ("image", "text"))
+    c_fwd, c_bwd = contrastive[(2048, torch.float32)]
+    timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+
+    def train_entry(name, source, replaces, rec, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": train_launches[name],
+                **{k: rec[k] for k in timing}, "shape": rec["shape"],
+                "launches_per_step": train_per_step[name],
+                "device_kernels_per_call": train_per_call[name], **extra}
+
     kernels = [
         {"name": fa_ops.COUNTER.name, "route": "cuda",
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
          "launches": launches[fa_ops.COUNTER.name],
-         **{k: f_main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
+         **{k: f_main[k] for k in timing},
          "shape": f_main["shape"], "max_abs_err_bf16": f_bf16,
          "text_f32": {k: flash[("text", torch.float32)][k]
                       for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")},
-         "device_kernels_per_call": per_call[fa_ops.COUNTER.name]},
+         "device_kernels_per_call": per_call[fa_ops.COUNTER.name],
+         "train_launches": train_launches[fa_ops.COUNTER.name],
+         "train_launches_per_step": train_per_step[fa_ops.COUNTER.name]},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
-         **{k: t_main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
+         **{k: t_main[k] for k in timing},
          "shape": t_main["shape"], "max_abs_err_bf16": topk_errs["bfloat16"],
          "block_rows_ms": topk["block_rows_ms"],
          "device_kernels_per_call": per_call[topk_ops.COUNTER.name]},
+        train_entry(fa_ops.BWD_COUNTER.name, FLASH_BWD_SOURCE,
+                    FLASH_BWD_REPLACES, b_main, max_abs_err_bf16=b_bf16,
+                    text_f32={k: flash_bwd[("text", torch.float32)][k]
+                              for k in timing}),
+        train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
+                    c_fwd, max_abs_err_bf16=contrastive[
+                        (2048, torch.bfloat16)][0]["max_abs_err"]),
+        train_entry(cl_ops.BWD_COUNTER.name, CL_SOURCE, CL_BWD_REPLACES,
+                    c_bwd, max_abs_err_bf16=contrastive[
+                        (2048, torch.bfloat16)][1]["max_abs_err"]),
     ]
+    print(f"train profile busy share {busy:.4f}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,20 @@
-"""Synthetic open-vocabulary image world (copy of the ``World`` part of
+"""Synthetic open-vocabulary image-text world (copy of
 ``repro/data/synthetic.py``).
 
 Concepts are unit vectors in a latent space, one per adjective-noun class
 name. Images are raw pixels: per patch, the concept vector plus noise goes
 through a fixed random "camera" map into ``patch_size²·C`` pixel values, and
 the patch grid is assembled into the image, the inverse of the model's
-patchify frontend. Everything is numpy, drawn from a caller's
-``np.random.Generator``, so the reference and the port see the same bytes.
+patchify frontend. Captions are templated alt-text over the class names;
+``contrastive_batch`` pairs them with images and ``jft_batch`` gives the
+labelled pretraining pairs. Everything is numpy, drawn from a caller's
+``np.random.Generator`` in the reference's order, so one seed gives the
+reference and the port the same bytes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -23,6 +26,8 @@ NOUNS = ["cat", "dog", "bird", "fish", "tree", "car", "boat", "house",
          "bridge", "tower", "island", "lizard", "rabbit", "wolf", "bear",
          "eagle", "shark", "whale", "rose", "oak", "pine", "truck", "bicycle",
          "kettle", "mirror", "ladder"]
+TEMPLATES = ["a photo of a {} {}", "the {} {}", "{} {} in the wild",
+             "a picture showing a {} {}", "my {} {}", "one {} {}, outdoors"]
 
 
 @dataclasses.dataclass
@@ -90,3 +95,53 @@ def render_images(world: World, cls: np.ndarray, rng: np.random.Generator):
     pix = (z @ world.camera).astype(np.float32)
     pix = pix.reshape(b, g, g, ps, ps, c).transpose(0, 1, 3, 2, 4, 5)
     return np.ascontiguousarray(pix.reshape(b, g * ps, g * ps, c))
+
+
+def render_captions(world: World, cls: np.ndarray, rng: np.random.Generator,
+                    class_names: Optional[List[str]] = None) -> List[str]:
+    """Noisy alt-text: one templated caption per class id in ``cls``,
+    templates drawn from the grammar."""
+    names = class_names or world.class_names
+    out = []
+    for c in cls:
+        t = TEMPLATES[rng.integers(len(TEMPLATES))]
+        out.append(t.format(*names[int(c)].split(" ", 1)))
+    return out
+
+
+def caption_corpus(world: World, rng: np.random.Generator, n=2000):
+    """``n`` sampled captions over the world's classes."""
+    cls = rng.integers(0, world.n_classes, n)
+    return render_captions(world, cls, rng)
+
+
+def grammar_corpus() -> List[str]:
+    """Every caption the template grammar can produce (adjective × noun ×
+    template, in a fixed order): the corpus behind the committed tokenizer
+    artifact."""
+    return [t.format(a, n) for a in ADJECTIVES for n in NOUNS
+            for t in TEMPLATES]
+
+
+def contrastive_batch(world: World, tok, batch: int, rng: np.random.Generator,
+                      text_len=16, classes: Optional[np.ndarray] = None):
+    """Returns ({'images': {'image'}, 'texts': {'tokens', 'attn_mask'}},
+    cls): ``batch`` image-caption pairs of random classes (from ``classes``
+    when given), as numpy arrays."""
+    pool = classes if classes is not None else np.arange(world.n_classes)
+    cls = pool[rng.integers(0, len(pool), batch)]
+    imgs = render_images(world, cls, rng)
+    caps = render_captions(world, cls, rng)
+    ids = [tok.encode(c, max_len=text_len) for c in caps]
+    tokens, mask = tok.pad_batch(ids, max_len=text_len)
+    return ({"images": {"image": imgs},
+             "texts": {"tokens": tokens, "attn_mask": mask}}, cls)
+
+
+def jft_batch(world: World, batch: int, rng: np.random.Generator,
+              classes: Optional[np.ndarray] = None):
+    """Labelled pretraining pairs (paper §8): ({'image', 'labels'}, cls)."""
+    pool = classes if classes is not None else np.arange(world.n_classes)
+    cls = pool[rng.integers(0, len(pool), batch)]
+    return {"image": render_images(world, cls, rng),
+            "labels": cls.astype(np.int32)}, cls

@@ -1,0 +1,114 @@
+"""Step factories of the port (counterpart of ``repro/launch/steps.py``):
+the optimizer and the paper's own contrastive training step.
+
+``make_contrastive_step`` builds Algorithm-1 GradAccum over ``num_micro``
+microbatches followed by one AdaFactorW update, on one device. The LM step
+factories (``make_train_step``, ``make_serve_step``, ``make_prefill_step``)
+wait for the LM slice of the port; the cross-shard losses wait for the
+distributed-training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Union
+
+import torch
+
+from repro_torch.core import remat as remat_lib
+from repro_torch.core.contrastive import contrastive_loss, fused_kernel_loss
+from repro_torch.core.gradaccum import contrastive_step as ga_step
+from repro_torch.models import dual_encoder as de
+from repro_torch.optim.adafactorw import AdaFactorW, apply_updates
+from repro_torch.tree import tree_leaves, tree_map
+
+LOSSES = {"local": contrastive_loss, "fused": fused_kernel_loss}
+DISTRIBUTED_LOSSES = ("allgather", "chunked")
+
+
+def make_optimizer(weight_decay=0.0025) -> AdaFactorW:
+    """The reference trainer's AdaFactorW (beta1 0.9, beta2 0.99)."""
+    return AdaFactorW(beta1=0.9, beta2=0.99, weight_decay=weight_decay)
+
+
+def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
+                          remat: Optional[str] = "basic",
+                          remat_image: Optional[str] = None,
+                          remat_text: Optional[str] = None,
+                          lr: Union[float, Callable] = 2.5e-4,
+                          precision="bf16", attn: Optional[str] = None,
+                          mesh=None, loss: str = "local",
+                          loss_opts: Optional[dict] = None,
+                          skip_nonfinite: bool = False):
+    """The paper's training step: Algorithm-1 GradAccum over ``num_micro``
+    microbatches, then AdaFactorW.
+
+    ``precision`` is a ``models.precision`` policy: the towers run in its
+    compute dtype, the embeddings and the loss land in fp32. ``attn``
+    overrides both towers' attention backend (naive | chunked | flash |
+    pallas | auto; 'pallas' means the flash kernels); None keeps each
+    tower's ``attn_impl``. ``remat`` picks the ``core.remat`` policy of both
+    towers and ``remat_image`` / ``remat_text`` override it per tower.
+    ``loss``: 'local' (the materialising ``contrastive_loss``) or 'fused'
+    (the fused kernels). ``lr`` is a float or a schedule of the step count
+    (``opt_state.step`` before the update).
+
+    ``skip_nonfinite=True`` arms the step guard: the step also computes the
+    global gradient norm and, when the loss or that norm is not finite,
+    keeps the incoming params and optimizer state through an elementwise
+    ``torch.where`` (no host synchronisation); ``metrics`` gains
+    ``grad_norm`` and a 0/1 int32 ``skipped``. Finite steps take exactly
+    the unguarded update.
+
+    Returns (train_step, opt); train_step(params, opt_state, batch) ->
+    (params, opt_state, loss, metrics)."""
+    if loss in DISTRIBUTED_LOSSES or mesh is not None:
+        raise NotImplementedError(
+            f"loss={loss!r} / mesh: the cross-shard losses come with the "
+            f"distributed-training slice of the port")
+    if loss not in LOSSES:
+        raise ValueError(f"unknown loss {loss!r}; have {sorted(LOSSES)}")
+    if attn is not None:
+        dual_cfg = dataclasses.replace(
+            dual_cfg,
+            image_tower=dataclasses.replace(dual_cfg.image_tower,
+                                            attn_impl=attn),
+            text_tower=dataclasses.replace(dual_cfg.text_tower,
+                                           attn_impl=attn))
+    opt = make_optimizer()
+    policy_i = remat_lib.get_policy(remat if remat_image is None
+                                    else remat_image)
+    policy_t = remat_lib.get_policy(remat if remat_text is None
+                                    else remat_text)
+    loss_fn = LOSSES[loss]
+
+    def enc_i(p, images):
+        return de.encode_image(dual_cfg, p, images, precision=precision,
+                               remat_policy=policy_i)
+
+    def enc_t(p, texts):
+        return de.encode_text(dual_cfg, p, texts, precision=precision,
+                              remat_policy=policy_t)
+
+    def train_step(params, opt_state, batch):
+        loss_val, metrics, grads = ga_step(enc_i, enc_t, params, batch,
+                                           num_micro, loss_fn=loss_fn,
+                                           loss_opts=loss_opts)
+        step_lr = lr(opt_state.step) if callable(lr) else lr
+        updates, new_opt = opt.update(grads, opt_state, params, step_lr)
+        new_params = apply_updates(params, updates)
+        if skip_nonfinite:
+            with torch.no_grad():
+                gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                       for g in tree_leaves(grads)))
+                ok = torch.isfinite(loss_val) & torch.isfinite(gnorm)
+
+                def keep(n, o):
+                    return torch.where(ok, n, o)
+                new_params = tree_map(keep, new_params, params)
+                new_opt = type(new_opt)(*(tree_map(keep, n, o) for n, o in
+                                          zip(new_opt, opt_state)))
+            metrics = dict(metrics, grad_norm=gnorm,
+                           skipped=(~ok).to(torch.int32))
+        return new_params, new_opt, loss_val, metrics
+
+    return train_step, opt

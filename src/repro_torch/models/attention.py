@@ -7,8 +7,9 @@ through a backend registry, resolved per ArchConfig (``cfg.attn_impl``):
 
   naive    materialised scores (the paper-era baseline)
   chunked  query blocks, scores live only per block
-  flash    the hand-written Hopper kernel (``kernels/flash_attention``);
-           the reference's ``"pallas"`` resolves to it
+  flash    the hand-written Hopper kernels, forward and backward
+           (``kernels/flash_attention``); the reference's ``"pallas"``
+           resolves to it
   auto     flash on the card, chunked on the CPU
 
 The reference sends a ``pallas`` request to ``chunked`` on an accelerator
@@ -160,9 +161,10 @@ def _chunked_backend(q, k, v, *, cfg, positions, key_mask, block):
 
 @register_backend("flash")
 def _flash_backend(q, k, v, *, cfg, positions, key_mask, block):
-    """The hand-written flash-attention forward kernel (its plain version on
-    a CPU tensor). Assumes positions are the standard arange, true for
-    every encode call."""
+    """The hand-written flash-attention kernels: the forward, and the
+    backward under autograd (their plain versions on a CPU tensor).
+    Assumes positions are the standard arange, true for every encode
+    call."""
     out = fa_ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=cfg.causal, window=cfg.sliding_window, key_mask=key_mask)

@@ -49,22 +49,24 @@ def _norm(z):
                            min=1e-6)
 
 
-def encode_image(cfg: DualEncoderConfig, params, images, *, precision=None):
+def encode_image(cfg: DualEncoderConfig, params, images, *, precision=None,
+                 remat_policy=None):
     """images: dict with 'image' (b, H, W, C) raw pixels. Returns (b, D) on
-    S^D, fp32."""
+    S^D, fp32. ``remat_policy`` (``core.remat``) wraps each block."""
     pol = prec_lib.resolve(precision)
     h = tf.encode(cfg.image_tower, params["image"]["tower"], images,
-                  precision=pol)
+                  precision=pol, remat_policy=remat_policy)
     return _norm(L.dense(pol.project(h), params["image"]["proj"]).float())
 
 
-def encode_text(cfg: DualEncoderConfig, params, texts, *, precision=None):
+def encode_text(cfg: DualEncoderConfig, params, texts, *, precision=None,
+                remat_policy=None):
     """texts: dict with 'tokens' (b, s) and optional 'attn_mask' (b, s)
     bool, which masks padding inside attention and pooling. Returns (b, D)
-    on S^D, fp32."""
+    on S^D, fp32. ``remat_policy`` (``core.remat``) wraps each block."""
     pol = prec_lib.resolve(precision)
     h = tf.encode(cfg.text_tower, params["text"]["tower"], texts,
-                  precision=pol)
+                  precision=pol, remat_policy=remat_policy)
     return _norm(L.dense(pol.project(h), params["text"]["proj"]).float())
 
 

@@ -11,14 +11,20 @@ Entry points:
   init_params(cfg, generator, device)  -> params dict
   encode(cfg, params, batch)           -> pooled (b, d_model)
 
-``lm_loss``, ``prefill``, ``decode_step``, MoE and SSM blocks, and remat
-wait for later slices of the port.
+``forward`` and ``encode`` take a ``remat_policy`` (``core.remat``) that
+wraps each block in a checkpoint, as the reference wraps each period step
+(``repro/models/transformer.py:168-169``). ``lm_loss``, ``prefill``,
+``decode_step``, MoE and SSM blocks, and ``unroll`` wait for later slices
+of the port.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import remat as remat_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import frontends as fe
 from repro_torch.models import layers as L
@@ -84,13 +90,17 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None):
     return h + L.swiglu(hn, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"])
 
 
-def forward(cfg: ArchConfig, params, h, positions, key_mask=None):
+def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
+            remat_policy=None):
     """Run the block stack. h: (b, s, d); key_mask: optional (b, s) bool
-    padding mask threaded into attention. Returns h."""
+    padding mask threaded into attention; remat_policy: optional
+    ``core.remat`` policy applied per block. Returns h."""
     _check_family(cfg)
     stack = params["blocks"][0]
+    block = functools.partial(_apply_block, cfg)
     for i in range(cfg.n_layers):
-        h = _apply_block(cfg, _layer(stack, i), h, positions, key_mask)
+        h = remat_lib.apply(remat_policy, block, _layer(stack, i), h,
+                            positions, key_mask)
     return h
 
 
@@ -124,16 +134,19 @@ def embed_inputs(cfg: ArchConfig, params, batch, dtype):
     return emb, _positions(b, s, emb.device), None
 
 
-def encode(cfg: ArchConfig, params, batch, *, precision=None):
+def encode(cfg: ArchConfig, params, batch, *, precision=None,
+           remat_policy=None):
     """Pooled representation of a dual-encoder tower: (b, d_model) in the
     policy's projection dtype (fp32 under the default policies).
 
     ``batch['attn_mask']`` (b, s) masks padded text positions both inside
-    attention and in the mean pooling; pooling accumulates in fp32."""
+    attention and in the mean pooling; pooling accumulates in fp32.
+    ``remat_policy`` wraps each block (``forward``)."""
     pol = prec_lib.resolve(precision)
     h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
     mask = batch.get("attn_mask")
-    h = forward(cfg, params, h, pos, key_mask=mask)
+    h = forward(cfg, params, h, pos, key_mask=mask,
+                remat_policy=remat_policy)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     h = pol.accum(h)
     if mask is not None:

@@ -65,7 +65,7 @@ def _torch_attn(p, x, mask, fields, impl, dtype):
     cfg = ArchConfig(**fields)
     b, s, _ = x.shape
     pos = torch.arange(s).expand(b, s)
-    out = tattn.attention(interop.from_numpy(p), cfg,
+    out = tattn.attention(interop.from_numpy(p, "cpu"), cfg,
                           torch.tensor(x).to(getattr(torch, dtype)), pos,
                           impl=impl, key_mask=None if mask is None
                           else torch.tensor(mask))

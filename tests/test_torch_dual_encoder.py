@@ -48,8 +48,8 @@ def setup():
         (3, it.image_size, it.image_size, it.channels)).astype(np.float32)
     tokens = rng.integers(4, tt.vocab, (3, 16)).astype(np.int32)
     mask = np.arange(16)[None, :] < np.array([[16], [4], [9]])
-    return jparams, interop.from_numpy(jax.device_get(jparams)), images, \
-        tokens, mask
+    return jparams, interop.from_numpy(jax.device_get(jparams), "cpu"), \
+        images, tokens, mask
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])

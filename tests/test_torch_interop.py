@@ -37,7 +37,7 @@ def _jax_paths(tree):
 def test_params_round_trip_keeps_every_leaf(arch):
     jparams = jax.device_get(jde.init_params(
         jax_smoke_dual(jax_get_arch(arch)), jax.random.key(1)))
-    tparams = interop.from_numpy(jparams)
+    tparams = interop.from_numpy(jparams, "cpu")
     ref = _jax_paths(jparams)
     got = dict(interop.leaves(tparams))
     assert set(got) == set(ref)
@@ -70,6 +70,20 @@ def test_init_params_has_the_reference_layout_and_law(arch):
             sigma = t.shape[-2] ** -0.5
             assert float(t.abs().max()) <= 2 * sigma, path
             assert abs(float(t.std()) / sigma - 0.8796) < 0.05, path
+
+
+def test_from_numpy_names_its_device():
+    """No default device: a conversion onto torch always says where."""
+    tree = {"a": np.ones((2, 3), np.float32), "b": [np.zeros(4, np.int32)]}
+    with pytest.raises(TypeError):
+        interop.from_numpy(tree)
+    got = interop.from_numpy(tree, "cpu")
+    assert got["a"].device.type == "cpu" and got["b"][0].dtype == torch.int32
+    bf16 = jax.device_get(jax.numpy.ones((3,), jax.numpy.bfloat16) * 1.5)
+    t = interop.from_numpy(bf16, "cpu")
+    assert t.dtype == torch.bfloat16 and bool((t == 1.5).all())
+    back = interop.to_numpy(t)
+    assert back.dtype == np.float32 and bool((back == 1.5).all())
 
 
 def test_init_params_is_seeded():

@@ -48,7 +48,7 @@ def world():
     jcfg = _pallas(jax_smoke_dual(jax_get_arch("basic-s")))
     tcfg = _pallas(smoke_dual_variant(get_arch("basic-s")))
     jparams = jde.init_params(jcfg, jax.random.key(0))
-    tparams = interop.from_numpy(jax.device_get(jparams))
+    tparams = interop.from_numpy(jax.device_get(jparams), "cpu")
     rng = np.random.default_rng(0)
     w = world_for_tower(rng, tcfg.image_tower, n_classes=24)
     return jcfg, tcfg, jparams, tparams, w, rng
@@ -348,8 +348,8 @@ def test_params_fingerprint_sensitivity(world):
     _, _, _, tparams, _, _ = world
     fp = params_fingerprint(tparams)
     assert fp == params_fingerprint(interop.from_numpy(
-        interop.to_numpy(tparams)))
-    bumped = interop.from_numpy(interop.to_numpy(tparams))
+        interop.to_numpy(tparams), "cpu"))
+    bumped = interop.from_numpy(interop.to_numpy(tparams), "cpu")
     bumped["text"]["proj"][0, 0] += 1e-3
     assert params_fingerprint(bumped) != fp
     tok = load_tokenizer()
