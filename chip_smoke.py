@@ -42,7 +42,27 @@ repository beside this file; it exits non-zero without them. In order it:
    pairs in 8 microbatches, 6 steps: step time, pairs per second, peak
    memory, losses, and the launches per step of the four training kernels;
    then profiles one warm step;
-10. prints a ``{"kernels": [...]}`` line and, last, the
+10. holds the split-K decode-attention kernel against its plain version at
+    the decode path's shapes (8 slots × 8 kv heads × group 4, d 64, a
+    cache of 8192; one lockstep request; d 128), f32 and bf16, with
+    per-slot lengths 0, 1, ragged and full, a shared mask (bit for bit
+    equal to equal per-slot rows) and stale entries past each length (no
+    change at all), and times kernel, plain version and SDPA; times the
+    flash forward at the prefill shape;
+11. decode parity: Llama-3.2-1B at full width and depth in f32 through
+    ``transformer.prefill`` and ``decode_step`` on the kernel path (flash
+    prefill, decode kernel) and the plain path (chunked prefill, einsum
+    decode), teacher-forced with the same tokens, on a linear cache (4 ×
+    512 tokens, cache 1024) and a ring that has wrapped (8704 tokens,
+    cache 8192); then the continuous engine against the lockstep engine,
+    request by request, on the kernel path;
+12. timed decode serving: ``repro_torch.launch.serve`` (``main``) with the
+    continuous engine at full width and depth, bf16, 8 slots, 16 requests
+    of ~512-token prompts and 64 new tokens, a ring cache of 8192: tokens
+    per second, decode-step median and p90, prefill ms, peak memory, and
+    flash_fwd launches per prefill and decode_attention launches per step
+    (16 each, one per layer); then profiles 4 warm decode steps;
+13. prints a ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -68,6 +88,8 @@ FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/kernel.py:230"
 CL_SOURCE = "src/repro_torch/kernels/contrastive_loss/csrc/contrastive.cu"
 CL_FWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:107"
 CL_BWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:185"
+DEC_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode.cu"
+DEC_REPLACES = "src/repro/kernels/decode_attention/kernel.py:72"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # operation rates by input type (fp32 outside the tensor cores)
@@ -128,6 +150,21 @@ TRAIN_GRAD_RTOL = 1e-3
 # gradient's size, so an element may differ by up to 2·lr only where its
 # gradient is zero to within TRAIN_GRAD_RTOL of its leaf's largest
 TRAIN_UPDATE_TOL_LR = 0.02
+# decode kernel f32: 2e-5 abs, the reference's (tests/test_decode_kernel.py);
+# fp32 sums over the keys in another order
+DEC_TOL_F32 = 2e-5
+# decode kernel bf16, per element: 2 bf16 ulps of |ref| plus 1e-3 of the
+# tensor's max |ref| (the rule of the flash_bwd check above: both sides
+# round the same fp32 value to bf16); the reference's 5e-2 abs is as large
+# as the outputs
+DEC_BF16_ULPS = 2
+DEC_BF16_REL_MAX = 1e-3
+# decode parity, kernel path vs plain path in f32, on logits of ~unit
+# scale: 16 layers of flash vs materialised prefill attention and kernel vs
+# einsum decode, fp32 sums in another order over up to 8192 keys, move a
+# logit by ~1e-5; 1e-3 leaves two orders of margin and still catches a
+# wrong mask, position or cache slot (those move logits by ~1e-1)
+DEC_PARITY_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -476,7 +513,9 @@ WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                    "contrastive_fwd": ("contrastive_fwd_tile_kernel",
                                        "contrastive_fwd_combine_kernel"),
                    "contrastive_bwd": ("contrastive_grad_kernel",
-                                       "contrastive_dtau_sum_kernel")}
+                                       "contrastive_dtau_sum_kernel"),
+                   "decode_attention": ("decode_split_kernel",
+                                        "decode_merge_kernel")}
 
 
 # device kernels by group, first match wins: the port's kernels, the
@@ -484,6 +523,8 @@ WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
 KERNEL_GROUPS = (("flash kernels", ("flash_fwd_kernel", "flash_bwd_")),
                  ("contrastive kernels", ("contrastive_",)),
                  ("top-k kernels", ("topk_",)),
+                 ("decode kernels", ("decode_split_kernel",
+                                     "decode_merge_kernel")),
                  ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("copies and casts", ("copy", "Memcpy", "Memset")))
 
@@ -494,10 +535,12 @@ def device_breakdown(prof, label, wall_us, units, calls):
     window), the device kernels the profiler saw per wrapper call."""
     by_kernel = {}
     seen = dict.fromkeys(calls, 0)
+    n_device = 0
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             us = e.time_range.elapsed_us()
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us
+            n_device += 1
             for wrapper in calls:
                 seen[wrapper] += any(n in e.name
                                      for n in WRAPPER_KERNELS[wrapper])
@@ -505,7 +548,8 @@ def device_breakdown(prof, label, wall_us, units, calls):
     unit = label.split()[-1]
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device time "
           f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall; the "
-          f"rest is the device idle)", flush=True)
+          f"rest is the device idle), {n_device / units:.1f} device "
+          f"kernels and copies per {unit}", flush=True)
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:14]:
         print(f"  {us / 1e3 / units:9.4f} ms/{unit}  "
               f"{100 * us / max(busy, 1e-9):5.1f}%  {name[:90]}", flush=True)
@@ -997,6 +1041,410 @@ def phase_train_profile():
     return device_breakdown(prof, "1 warm training step", wall_us, 1, calls)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: split-K decode attention
+# ---------------------------------------------------------------------------
+
+
+def dec_limit(ref):
+    """Per-element limit on |kernel − plain| for a decode_attention
+    output."""
+    import torch
+    if ref.dtype != torch.bfloat16:
+        return DEC_TOL_F32
+    r = ref.float().abs()
+    return DEC_BF16_ULPS * BF16_ULP * r + DEC_BF16_REL_MAX * r.max()
+
+
+def decode_inputs(b, h, kv, t, d, dtype, seed):
+    """(q, k, v) for one decode call, N(0, 1) in ``dtype``."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, kv, t, d), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def decode_check(label, q, k, v, valid):
+    """Kernel vs plain version on one call; returns the max abs error."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    got = dec_ops.decode_attention(q, k, v, valid)
+    ref = decode_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    if not bool((err <= dec_limit(ref)).all()):
+        raise AssertionError(f"decode_attention {label}: max abs err "
+                             f"{err.max().item():.3g}")
+    return got, err.max().item()
+
+
+def phase_decode_kernel():
+    """The decode kernel at the timed path's shape (b 8 slots, kv 8, g 4,
+    d 64, t 8192), one lockstep request (b 1) and d 128, f32 and bf16:
+    per-slot lengths 0, 1, ragged and t (length 0 exactly zero), a shared
+    mask bit-equal to equal per-slot rows, stale entries that change
+    nothing; times kernel, plain version and SDPA in f32 and bf16, with
+    the bound counted by the valid entries and by the full sweep."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    b, h, kv, t, d = 8, 32, 8, 8192, 64
+    recs, errs = {}, {}
+    ar = torch.arange(t, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = dtype_name(dtype)
+        q, k, v = decode_inputs(b, h, kv, t, d, dtype, 40)
+        lens = torch.tensor([0, 1, 517, t, 3001, t - 5, 64, 1500],
+                            device="cuda")
+        valid = ar[None, :] < lens[:, None]
+        out, err = decode_check(f"b={b} ragged {dt}", q, k, v, valid)
+        if not bool((out[0] == 0).all()):
+            raise AssertionError("decode_attention: a length-0 row is not "
+                                 "exactly zero")
+        keep = valid[:, None, :, None]
+        stale = torch.full((), 1e6, dtype=dtype, device="cuda")
+        dirty = dec_ops.decode_attention(q, torch.where(keep, k, stale),
+                                         torch.where(keep, v, stale), valid)
+        if not torch.equal(out, dirty):
+            raise AssertionError("decode_attention: stale entries moved the "
+                                 "output")
+        shared = ar < 4000
+        a = dec_ops.decode_attention(q, k, v, shared)
+        rows = dec_ops.decode_attention(q, k, v, shared[None].expand(b, t))
+        if not torch.equal(a, rows):
+            raise AssertionError("decode_attention: a shared mask and equal "
+                                 "per-slot rows differ")
+        _, e = decode_check(f"shared {dt}", q, k, v, shared)
+        err = max(err, e)
+        alone = dec_ops.decode_attention(q[3:4].contiguous(), k[3:4],
+                                         v[3:4], valid[3:4])
+        if not torch.equal(alone[0], out[3]):
+            raise AssertionError("decode_attention: a row's result depends "
+                                 "on its batch")
+        for label, shape in (("b=1", (1, h, kv, t, d)),
+                             ("d=128", (2, 16, 2, 3000, 128))):
+            q1, k1, v1 = decode_inputs(*shape, dtype, 41)
+            n = shape[3]
+            lens1 = torch.tensor([n - 7, 1][:shape[0]], device="cuda")
+            _, e = decode_check(f"{label} {dt}", q1, k1, v1,
+                                torch.arange(n, device="cuda")[None, :]
+                                < lens1[:, None])
+            err = max(err, e)
+        errs[dt] = err
+        # timed at the serving state: 8 slots ~512 prompt tokens + up to 64
+        # generated, so ~7% of the 8192 entries are valid
+        lens = torch.tensor([508 + 9 * i for i in range(b)], device="cuda")
+        valid = ar[None, :] < lens[:, None]
+        ms = time_ms(lambda: dec_ops.decode_attention(q, k, v, valid))
+        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, valid))
+        q4 = q[:, :, None, :]
+        mask4 = valid[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask4, enable_gqa=True))
+        item = torch.finfo(dtype).bits // 8
+        n_valid = int(lens.sum())
+        fixed = 2 * b * h * d * item + b * t      # q, out, the bool mask
+        flops = 4.0 * (h // kv) * d * kv * n_valid
+        bound_ms, bound_by = bound(fixed + 2 * kv * d * item * n_valid,
+                                   flops, dt)
+        full_ms, full_by = bound(fixed + 2 * b * kv * t * d * item,
+                                 4.0 * h * d * b * t, dt)
+        recs[dt] = {"shape": f"b={b} h={h} kv={kv} t={t} d={d} {dt}, "
+                             f"{n_valid} valid entries",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bound_full_sweep_ms": full_ms,
+                    "bound_full_sweep_by": full_by}
+        print(f"decode_attention {recs[dt]['shape']}: max err {err:.3g} "
+              f"(lengths 0, 1, ragged, t; shared mask; b=1; d=128); length "
+              f"0 exactly 0, shared mask bit-equal, stale entries no change, "
+              f"row independent of its batch; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: q, out, mask and the valid "
+              f"k/v entries), full-sweep bound {full_ms:.4f} ms ({full_by}: "
+              f"every k/v entry of t)", flush=True)
+    return recs, errs
+
+
+def phase_prefill_flash():
+    """The flash forward at the decode path's prefill shape: b 1, 32
+    heads over 8 kv, s 512, causal, window 8192, bf16 (the timed run) and
+    f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    h, kv, s, d = 32, 8, 512, 64
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = dtype_name(dtype)
+        g = torch.Generator(device="cuda").manual_seed(50)
+        q = torch.randn((h, s, d), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((kv, s, d), generator=g, device="cuda")
+                .to(dtype) for _ in range(2))
+        out, lse = fa_ops.flash_fwd(q, k, v, causal=True, window=8192)
+        ref_out, ref_lse = flash_fwd_ref(q, k, v, causal=True, window=8192)
+        torch.cuda.synchronize()
+        err = max((out.float() - ref_out.float()).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+        if not err <= FLASH_TOL[dt]:
+            raise AssertionError(f"flash_fwd prefill {dt}: max err {err:.3g}")
+        ms = time_ms(lambda: fa_ops.flash_fwd(q, k, v, causal=True,
+                                              window=8192))
+        plain_ms = time_ms(lambda: flash_fwd_ref(q, k, v, causal=True,
+                                                 window=8192))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True))
+        item = torch.finfo(dtype).bits // 8
+        nbytes = (2 * h + 2 * kv) * s * d * item + h * s * 4
+        bound_ms, bound_by = bound(nbytes, 4.0 * h * d * s * (s + 1) / 2, dt)
+        recs[dt] = {"shape": f"prefill bh={h} kv={kv} s={s} d={d} causal "
+                             f"window=8192 {dt}", "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"flash_fwd {recs[dt]['shape']}: err {err:.3g}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: decode parity, kernel path vs plain path
+# ---------------------------------------------------------------------------
+
+
+def top2_gap(logits):
+    """(rows,) gap between each row's two largest logits."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def parity_case(label, cfg, params, toks, plen, clen, steps):
+    """Prefill ``toks[:, :plen]`` and decode ``steps`` tokens on the kernel
+    path and the plain path, both fed the kernel path's greedy token;
+    returns (max |logit diff|, greedy flips where the plain top-2 gap
+    exceeds the tolerance, steps compared)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    paths = {"kernel": dataclasses.replace(cfg, attn_impl="pallas"),
+             "plain": dataclasses.replace(cfg, attn_impl="chunked")}
+    batch = {"tokens": toks[:, :plen]}
+    state = {}
+    t0 = time.perf_counter()
+    for name, pcfg in paths.items():
+        state[name] = tf.prefill(pcfg, params, batch, precision="f32",
+                                 collect_cache_len=clen)
+    worst, flips, compared = 0.0, 0, 0
+    for i in range(steps + 1):
+        lk, lp = (state[n][0][:, 0] for n in paths)
+        worst = max(worst, (lk - lp).abs().max().item())
+        tok = lk.argmax(-1)
+        sep = top2_gap(lp) > DEC_PARITY_TOL
+        flips += int(((tok != lp.argmax(-1)) & sep).sum())
+        compared += tok.numel()
+        if i == steps:
+            break
+        for name, pcfg in paths.items():
+            state[name] = tf.decode_step(pcfg, params, tok[:, None],
+                                         plen + i, state[name][1],
+                                         precision="f32")
+    torch.cuda.synchronize()
+    print(f"decode parity {label}: max |logit diff| kernel vs plain "
+          f"{worst:.3g} (tol {DEC_PARITY_TOL}) over prefill + {steps} "
+          f"steps; greedy tokens that differ where the plain top-2 gap "
+          f"exceeds the tol: {flips} of {compared}; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if not (worst <= DEC_PARITY_TOL and flips == 0):
+        raise AssertionError(f"decode parity {label}: kernel path and plain "
+                             f"path disagree")
+    return worst, flips
+
+
+def engines_case(cfg, params):
+    """The continuous engine (4 slots, 8 ragged requests, greedy) against
+    the lockstep engine run alone per request, both on the kernel path,
+    f32. Where they diverge, the plain path's top-2 gap at that token must
+    be under the parity tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ContinuousEngine, Engine
+    kcfg = dataclasses.replace(cfg, attn_impl="pallas")
+    pcfg = dataclasses.replace(cfg, attn_impl="chunked")
+    rng = np.random.default_rng(7)
+    lens = [100, 37, 250, 64, 180, 12, 300, 90]
+    budgets = [12, 16, 8, 16, 10, 16, 6, 14]
+    prompts = [rng.integers(4, cfg.vocab, (n,)).astype(np.int32)
+               for n in lens]
+    reqs = [(p, m, i) for i, (p, m) in enumerate(zip(prompts, budgets))]
+    got = ContinuousEngine(kcfg, params, cache_len=1024, num_slots=4).run(
+        reqs)
+    eng = Engine(kcfg, params, cache_len=1024)
+    same, divergences = 0, []
+    for p, m, i in reqs:
+        row = eng.generate(p[None, :], m, temperature=0.0)[0]
+        stop = np.nonzero(row == eng.eos_id)[0]
+        want = row[:int(stop[0]) + 1] if stop.size else row
+        if np.array_equal(got[i], want):
+            same += 1
+            continue
+        n = min(got[i].size, want.size)
+        diff = np.nonzero(got[i][:n] != want[:n])[0]
+        j = int(diff[0]) if diff.size else n
+        seq = np.concatenate([p, want[:j]])[None, :]
+        with torch.no_grad():
+            lp = tf.prefill(pcfg, params, {"tokens": torch.from_numpy(
+                seq).cuda()}, precision="f32")[:, 0]
+        gap = top2_gap(lp).item()
+        divergences.append((i, j, gap))
+        print(f"engines: request {i} first differs at token {j}: continuous "
+              f"{got[i][j:j + 1].tolist()} lockstep {want[j:j + 1].tolist()}"
+              f"; plain top-2 gap there {gap:.3g} (tol {DEC_PARITY_TOL})",
+              flush=True)
+    print(f"engines (llama3.2-1b f32, kernel path, 4 slots, 8 requests): "
+          f"{same} of {len(reqs)} requests equal Engine.generate alone",
+          flush=True)
+    if any(gap > DEC_PARITY_TOL for _, _, gap in divergences):
+        raise AssertionError("continuous and lockstep engines diverge away "
+                             "from a near-tie")
+    return {"same": same, "requests": len(reqs), "divergences": divergences}
+
+
+def phase_decode_parity():
+    """Llama-3.2-1B at full width and depth, f32, random weights from a
+    CUDA generator: (a) 4 prompts of 512 with a linear cache of 1024 and
+    16 steps; (b) one prompt of 8704 = 17·512 with a ring of 8192 (wrapped
+    at prefill, wrapping on) and 16 steps; then the engines."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    cfg = get_arch("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = interop.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    print(f"decode parity: llama3.2-1b, {n} params, init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    with torch.no_grad():
+        toks = torch.randint(4, cfg.vocab, (4, 512), generator=g,
+                             device="cuda")
+        out["linear"] = parity_case("(a) 4 x 512, linear cache 1024", cfg,
+                                    params, toks, 512, 1024, 16)
+        toks = torch.randint(4, cfg.vocab, (1, 8704), generator=g,
+                             device="cuda")
+        out["ring"] = parity_case("(b) 1 x 8704, ring 8192", cfg, params,
+                                  toks, 8704, 8192, 16)
+        out["engines"] = engines_case(cfg, params)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: timed decode serving through the launcher
+# ---------------------------------------------------------------------------
+
+SERVE_ARGV = ["--arch", "llama3.2-1b", "--engine", "continuous", "--slots",
+              "8", "--requests", "16", "--arrival", "0", "--prompt-len",
+              "512", "--max-new", "64", "--cache-len", "8192", "--attn",
+              "pallas", "--precision", "bf16", "--temperature", "0",
+              "--seed", "0"]
+
+
+def phase_decode_serve():
+    """``repro_torch.launch.serve.main`` at full width and depth after one
+    untimed warm-up request; returns (launches, per prefill / per step,
+    report)."""
+    import math
+    import numpy as np
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+
+    warm = list(SERVE_ARGV)
+    warm[warm.index("--requests") + 1] = "1"
+    warm[warm.index("--max-new") + 1] = "4"
+    serve.main(warm)
+    counters = (fa_ops.COUNTER, dec_ops.COUNTER)
+    for ctr in counters:
+        ctr.reset()
+    rep = serve.main(SERVE_ARGV)
+    launches = {ctr.name: ctr.count for ctr in counters}
+    per = {"flash_fwd_per_prefill": launches["flash_fwd"] / rep["prefills"],
+           "decode_attention_per_step": (launches["decode_attention"]
+                                         / rep["decode_steps"])}
+    print(f"decode serve (llama3.2-1b bf16, 8 slots, 16 requests x ~512 "
+          f"prompt tokens x 64 new, ring 8192): decode "
+          f"{rep['decode_tokens_per_s']:.1f} tok/s over the warm steps, "
+          f"{rep['tokens_per_s']:.1f} tok/s over the run (prefill "
+          f"included); step median {rep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{rep['step_p90_s'] * 1e3:.3f} ms over {rep['decode_steps']} "
+          f"steps; prefill {rep['prefill_mean_s'] * 1e3:.3f} ms per request; "
+          f"max_memory_allocated {rep['max_memory_allocated'] / 2**30:.3f} "
+          f"GiB", flush=True)
+    print(f"decode serve launches: {launches} over {rep['prefills']} "
+          f"prefills and {rep['decode_steps']} steps: {per}", flush=True)
+    for name, want in (("flash_fwd_per_prefill", 16),
+                       ("decode_attention_per_step", 16)):
+        if per[name] != want:
+            raise AssertionError(f"decode serve: {name} {per[name]}, want "
+                                 f"{want} (one per layer)")
+    for rid, r in rep["results"].items():
+        in_vocab = bool(np.all((r >= 0) & (r < 128256)))
+        if not (in_vocab and (r.size == 64 or r[-1] == 3)):
+            raise AssertionError(f"decode serve: bad tokens for request "
+                                 f"{rid}: {r}")
+    if rep["requests"] != 16:
+        raise AssertionError(f"decode serve: {rep['requests']} of 16 "
+                             f"requests finished")
+    if not math.isfinite(rep["decode_tokens_per_s"]):
+        raise AssertionError("decode serve: no throughput")
+    return launches, per, rep
+
+
+def phase_decode_profile(eng, steps: int = 4):
+    """A torch.profiler window over ``steps`` warm decode steps of the
+    timed run's engine with all 8 slots busy: device busy share, time by
+    kernel group, device kernels per decode_attention call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    rng = np.random.default_rng(9)
+    for i in range(eng.num_slots):
+        eng.submit(rng.integers(4, eng.cfg.vocab, (512,)).astype(np.int32),
+                   steps + 4)
+    eng.step()                        # admits all 8, then one step
+    eng.step()
+    calls = {"decode_attention": -dec_ops.COUNTER.count}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    calls["decode_attention"] += dec_ops.COUNTER.count
+    # where the host's time goes: its launch count and its costliest ops
+    host = sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    launch = [e for e in host if e.key == "cudaLaunchKernel"]
+    print(f"profile {steps} warm decode steps: host cudaLaunchKernel "
+          f"{launch[0].count / steps if launch else 0:.1f} calls per step; "
+          f"host ops by self time per step:", flush=True)
+    for e in host[:10]:
+        print(f"  {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step  "
+              f"{e.count / steps:7.1f} calls/step  {e.key[:70]}", flush=True)
+    return device_breakdown(prof, f"{steps} warm decode steps", wall_us,
+                            steps, calls)
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -1006,6 +1454,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.similarity_topk import ops as topk_ops
 
@@ -1016,7 +1465,8 @@ def main() -> int:
           flush=True)
     resolve_device("cuda")
 
-    libs = (fa_ops.LIB, fa_ops.BWD_LIB, topk_ops.LIB, cl_ops.LIB)
+    libs = (fa_ops.LIB, fa_ops.BWD_LIB, topk_ops.LIB, cl_ops.LIB,
+            dec_ops.LIB)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     print(f"built kernels in {time.perf_counter() - t0:.1f}s (sm_90a)",
@@ -1031,12 +1481,20 @@ def main() -> int:
     topk, topk_errs = phase_topk()
     flash_bwd = phase_flash_bwd()
     contrastive = phase_contrastive()
+    decode, decode_errs = phase_decode_kernel()
+    prefill_flash = phase_prefill_flash()
     launches, cfg, params, tok = phase_main_path()
     per_call = phase_profile(cfg, params, tok)
     del params
     phase_train_parity()
     train_launches, train_per_step, _ = phase_train_timed()
     train_per_call, busy = phase_train_profile()
+    torch.cuda.empty_cache()
+    parity = phase_decode_parity()
+    torch.cuda.empty_cache()
+    dec_launches, dec_per, dec_rep = phase_decode_serve()
+    dec_per_call, dec_busy = phase_decode_profile(dec_rep.pop("engine"))
+    del dec_rep
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(flash[(s, torch.bfloat16)]["max_abs_err"]
@@ -1067,7 +1525,11 @@ def main() -> int:
                                 "bound_by")},
          "device_kernels_per_call": per_call[fa_ops.COUNTER.name],
          "train_launches": train_launches[fa_ops.COUNTER.name],
-         "train_launches_per_step": train_per_step[fa_ops.COUNTER.name]},
+         "train_launches_per_step": train_per_step[fa_ops.COUNTER.name],
+         "decode_launches": dec_launches[fa_ops.COUNTER.name],
+         "decode_launches_per_prefill": dec_per["flash_fwd_per_prefill"],
+         "prefill_bf16": prefill_flash["bfloat16"],
+         "prefill_f32": prefill_flash["float32"]},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -1085,8 +1547,23 @@ def main() -> int:
         train_entry(cl_ops.BWD_COUNTER.name, CL_SOURCE, CL_BWD_REPLACES,
                     c_bwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][1]["max_abs_err"]),
+        {"name": dec_ops.COUNTER.name, "route": "cuda",
+         "source": DEC_SOURCE, "replaces": DEC_REPLACES,
+         "launches": dec_launches[dec_ops.COUNTER.name],
+         **{k: decode["bfloat16"][k] for k in timing},
+         "shape": decode["bfloat16"]["shape"],
+         "max_abs_err_f32": decode_errs["float32"],
+         "bound_full_sweep_ms": decode["bfloat16"]["bound_full_sweep_ms"],
+         "float32": {k: decode["float32"][k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bound_full_sweep_ms")},
+         "launches_per_step": dec_per["decode_attention_per_step"],
+         "device_kernels_per_call": dec_per_call[dec_ops.COUNTER.name],
+         "parity_max_logit_diff": max(parity["linear"][0],
+                                      parity["ring"][0])},
     ]
-    print(f"train profile busy share {busy:.4f}", flush=True)
+    print(f"train profile busy share {busy:.4f}; decode profile busy share "
+          f"{dec_busy:.4f}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

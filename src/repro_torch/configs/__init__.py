@@ -1,5 +1,6 @@
 """Configs of the port: its own copy of the reference's tower and
-dual-encoder configs for the ``basic-*`` entries."""
+dual-encoder configs for the ``basic-*`` entries and of its dense decoder
+LMs (``llama3.2-1b``, ``qwen3-32b``, ``minitron-4b``, ``internlm2-20b``)."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     get_arch,

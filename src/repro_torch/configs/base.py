@@ -1,9 +1,12 @@
 """Architecture config and registry (copy of ``repro/configs/base.py``,
-covering the encoder towers of the BASIC dual encoders).
+covering the encoder towers of the BASIC dual encoders and the dense
+decoder LMs).
 
 Every config is a frozen dataclass built in its own ``configs/<id>.py``
-module and registered here when ``get_arch`` first runs. The LM families
-and their MoE/SSM fields wait for a later slice of the port.
+module and registered here when ``get_arch`` first runs. The dense LMs
+(Llama-3.2-1B, Qwen3-32B, Minitron-4B, InternLM2-20B) serve through the
+decode engines; the MoE, SSM, hybrid, vlm and audio configs and their
+``moe``/``ssm``/``attn_every`` fields wait for later slices of the port.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ class ArchConfig:
     """One transformer tower: widths, masks, attention backend, and the
     vision frontend's geometry (field meanings as in the reference)."""
     name: str
-    family: str                   # 'encoder' for the BASIC towers
+    family: str                   # 'encoder' (BASIC towers) | 'dense' (LMs)
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,7 +59,9 @@ class ArchConfig:
 
 _REGISTRY: dict = {}
 
-_ARCH_MODULES = ["basic_s", "basic_m", "basic_l"]
+_ARCH_MODULES = ["minitron_4b", "internlm2_20b", "qwen3_32b", "llama3_2_1b",
+                 # the paper's own models (dual-encoder towers)
+                 "basic_s", "basic_m", "basic_l"]
 
 
 def register(cfg) -> None:
@@ -87,8 +92,9 @@ def _ensure_loaded():
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """A reduced config of the same family: 2 layers, d_model <= 256,
-    <= 4 heads, and a vision geometry of <= 16 patches (the reference's
-    transform, restricted to the encoder towers)."""
+    <= 4 heads, a vision geometry of <= 16 patches and a sliding window of
+    64 (the reference's transform, restricted to the encoder and dense
+    families)."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
     if heads and cfg.n_kv_heads == cfg.n_heads:

@@ -7,8 +7,10 @@ layers on a leading axis), so each leaf maps one to one and the conversion
 is a copy. The reference's tree comes in as numpy arrays (its caller runs
 ``jax.device_get``); this module imports nothing of the reference.
 
-``init_params`` draws a fresh dual encoder with the reference's init law
-from a ``torch.Generator``. ``opt_state_from_numpy`` / ``opt_state_to_numpy``
+``init_params`` draws a fresh dual encoder or LM with the reference's init
+law from a ``torch.Generator``. An LM's parameters come over through
+``from_numpy`` as they are; ``caches_from_numpy`` / ``caches_to_numpy``
+carry decode caches (the list of stacked ``KVCache``s) both ways. ``opt_state_from_numpy`` / ``opt_state_to_numpy``
 carry an AdaFactorW state (the reference's ``AdaFactorWState`` as numpy
 arrays) both ways, with the same rule: every conversion onto torch names
 its device, there is no default.
@@ -18,9 +20,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.dual_encoder import init_params  # noqa: F401
+from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.dual import DualEncoderConfig
+from repro_torch.models import dual_encoder as de
+from repro_torch.models import transformer as tf
+from repro_torch.models.attention import KVCache
 from repro_torch.optim.adafactorw import AdaFactorWState
 from repro_torch.tree import leaves  # noqa: F401
+
+
+def init_params(cfg, generator: torch.Generator, device) -> dict:
+    """Fresh parameters with the reference's init law: a
+    ``DualEncoderConfig`` gets a dual encoder, an ``ArchConfig`` a tower
+    or LM; drawn from ``generator`` and put on ``device`` (required)."""
+    if isinstance(cfg, DualEncoderConfig):
+        return de.init_params(cfg, generator, device)
+    if isinstance(cfg, ArchConfig):
+        return tf.init_params(cfg, generator, device)
+    raise TypeError(f"no parameters for a {type(cfg).__name__}")
 
 
 def _leaf_from_numpy(x, device) -> torch.Tensor:
@@ -70,6 +87,20 @@ def opt_state_to_numpy(state: AdaFactorWState) -> AdaFactorWState:
     return AdaFactorWState(step=to_numpy(state.step), m=to_numpy(state.m),
                            v_row=to_numpy(state.v_row),
                            v_col=to_numpy(state.v_col))
+
+
+def caches_from_numpy(caches, device) -> list:
+    """The reference's decode caches (a list of ``KVCache``s of numpy
+    arrays, its caller having run ``jax.device_get``) -> the port's, on
+    ``device`` (required), dtypes kept."""
+    return [KVCache(k=_leaf_from_numpy(c.k, device),
+                    v=_leaf_from_numpy(c.v, device)) for c in caches]
+
+
+def caches_to_numpy(caches) -> list:
+    """The port's decode caches -> the same list of ``KVCache``s of numpy
+    arrays (bf16 widened to float32, exactly)."""
+    return [KVCache(k=to_numpy(c.k), v=to_numpy(c.v)) for c in caches]
 
 
 def to_device(tree, device):

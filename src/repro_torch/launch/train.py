@@ -20,8 +20,8 @@ The defaults are the kernel path in the reference trainer's precision:
 It runs on the card unless given ``--device cpu``, and raises without a
 card otherwise. ``--mode finetune`` trains both towers, as ``contrastive``
 does when no pretrained image tower is given (the reference's command line
-gives none). ``--mode lm`` and ``--mode pretrain`` wait for the LM slice of
-the port, ``--ckpt-dir`` for the port of ``checkpoint/io.py``.
+gives none). ``--mode lm`` and ``--mode pretrain`` wait for the LM training
+slice of the port (LM serving is ported: ``launch/serve.py``), ``--ckpt-dir`` for the port of ``checkpoint/io.py``.
 """
 from __future__ import annotations
 
@@ -165,7 +165,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     if args.mode in ("lm", "pretrain"):
         raise NotImplementedError(f"--mode {args.mode} comes with the LM "
-                                  f"slice of the port")
+                                  f"training slice of the port")
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir comes with the port of "
                                   "checkpoint/io.py")

@@ -1,5 +1,5 @@
-"""Full-sequence GQA attention for the encoder towers (port of
-``repro/models/attention.py:25-235``).
+"""GQA attention: full-sequence (encode and prefill) and single-token
+decode over a KV cache (port of ``repro/models/attention.py``).
 
 Supports grouped-query heads, qk-norm, causal / bidirectional /
 sliding-window / key-padding masks and RoPE. The full-sequence path runs
@@ -16,15 +16,32 @@ The reference sends a ``pallas`` request to ``chunked`` on an accelerator
 when ``head_dim % 128`` or ``seq % 8`` is non-zero, a TPU tiling rule that
 would take both BASIC towers (head_dim 64, image sequence 196) off the
 kernel. The Hopper kernel masks its ragged tail, so the port has no such
-rule. The decode half of the reference module waits for a later slice.
+rule.
+
+Decode keeps two cache layouts, as the reference does: a linear cache
+``k/v (batch, kv_heads, S, head_dim)`` written at ``pos``, and a ring
+(sliding window, S = window) written at ``pos % S``. Its backends
+(``resolve_decode_backend``) are ``einsum``, the reference's math, and
+``decode``, the hand-written split-K kernel (``kernels/decode_attention``),
+which ``pallas`` resolves to; the port has no TPU tiling fallback, so any
+cache length and head dims 64 and 128 run on the kernel. Unlike the
+reference, which rewrites the whole cache through ``jnp.where`` at every
+step and donates the old one, the port writes the new k/v rows in place
+with one indexed store per tensor and returns the same cache objects.
+
+A linear cache longer than the window is a reference behaviour the port
+reproduces: prefill honours the window, decode masks only ``idx <= pos``
+and so attends past it (``repro/models/attention.py:356``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
 
@@ -32,6 +49,21 @@ NEG_INF = -1e30
 
 # reference backend names that resolve to a port backend
 ALIASES = {"pallas": "flash"}
+
+
+class KVCache(NamedTuple):
+    """k/v: (batch, kv_heads, cache_len, head_dim), RoPE already applied.
+
+    Whether the cache is a ring is derived, not stored (``is_ring``)."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def is_ring(cfg: ArchConfig, cache: KVCache) -> bool:
+    """True when the cache is ring-addressed: the arch slides a window and
+    the cache length equals it."""
+    return (cfg.sliding_window is not None
+            and cache.k.shape[2] == cfg.sliding_window)
 
 
 def init_attn_params(cfg: ArchConfig, generator: torch.Generator, extra=(),
@@ -191,13 +223,15 @@ def resolve_backend(impl: Optional[str], device: torch.device) -> str:
     return impl
 
 
-def attention(p, cfg: ArchConfig, x, positions, impl: Optional[str] = None,
-              block: Optional[int] = None, key_mask=None):
-    """Full-sequence attention (encode). x: (b, s, d).
+def attention(p, cfg: ArchConfig, x, positions, return_kv: bool = False,
+              impl: Optional[str] = None, block: Optional[int] = None,
+              key_mask=None):
+    """Full-sequence attention (encode and prefill). x: (b, s, d).
 
     impl: backend name ('naive' | 'chunked' | 'flash' | 'pallas' | 'auto');
     None defers to ``cfg.attn_impl``. key_mask: optional (b, s) bool mask
-    (True = real token) masking padded key positions."""
+    (True = real token) masking padded key positions. With ``return_kv``
+    also returns the RoPE'd (k, v), each (b, s, kv, hd)."""
     b, s, _ = x.shape
     impl = resolve_backend(impl if impl is not None else cfg.attn_impl,
                            x.device)
@@ -205,4 +239,156 @@ def attention(p, cfg: ArchConfig, x, positions, impl: Optional[str] = None,
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = ATTN_BACKENDS[impl](q, k, v, cfg=cfg, positions=positions,
                               key_mask=key_mask, block=block)
-    return L.dense(out.reshape(b, s, -1), p["wo"])
+    out = L.dense(out.reshape(b, s, -1), p["wo"])
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def cache_from_prefill(cfg: ArchConfig, k, v, cache_len: int,
+                       dtype=None) -> KVCache:
+    """A decode cache from prefill k/v ((b, s, kv, hd), RoPE applied).
+
+    Linear cache: positions [0, min(s, cache_len)) at their own slots, the
+    rest zeros. Ring (the window equals ``cache_len``) with s >= cache_len:
+    the last ``cache_len`` positions at their ``pos % cache_len`` slots, so
+    decode writes continue the ring."""
+    b, s, kvh, hd = k.shape
+    dtype = dtype or k.dtype
+    k = k.transpose(1, 2).to(dtype)                       # (b, kv, s, hd)
+    v = v.transpose(1, 2).to(dtype)
+    ring = cfg.sliding_window is not None and cache_len == cfg.sliding_window
+    if ring and s >= cache_len:
+        src = np.arange(s - cache_len, s)                 # source positions
+        order = src[np.argsort(src % cache_len)]          # slot i <- order[i]
+        idx = torch.from_numpy(order).to(k.device)
+        return KVCache(k=k.index_select(2, idx), v=v.index_select(2, idx))
+    n = min(s, cache_len)
+    ck = torch.zeros((b, kvh, cache_len, hd), dtype=dtype, device=k.device)
+    cv = torch.zeros_like(ck)
+    ck[:, :, :n] = k[:, :, :n]
+    cv[:, :, :n] = v[:, :, :n]
+    return KVCache(k=ck, v=cv)
+
+
+# ---------------------------------------------------------------------------
+# Decode path
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                  dtype=torch.bfloat16, *, device) -> KVCache:
+    """Zeroed decode cache on ``device`` (required): ring-sized when the
+    window fits in ``seq_len``, else ``seq_len`` long."""
+    hd = cfg.resolved_head_dim
+    ring = cfg.sliding_window is not None and cfg.sliding_window <= seq_len
+    clen = cfg.sliding_window if ring else seq_len
+    shape = (batch, cfg.n_kv_heads, clen, hd)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+DECODE_BACKENDS = ("einsum", "decode")
+
+
+def resolve_decode_backend(impl: Optional[str], device: torch.device) -> str:
+    """Resolve an ``attn_impl`` request to a decode backend: 'einsum' (the
+    reference's math) or 'decode' (the hand-written split-K kernel).
+
+    'auto' (or None) picks 'decode' on the card and 'einsum' on the CPU.
+    'pallas', and the port's own 'flash', mean the kernel path: 'decode'.
+    'naive' and 'chunked' are full-sequence notions and map to 'einsum'.
+    An explicit kernel request stays 'decode' at any cache length and head
+    dim; there is no fallback. Anything else raises ``KeyError``."""
+    if impl in (None, "auto"):
+        return "decode" if device.type == "cuda" else "einsum"
+    if impl in ("naive", "chunked", "einsum"):
+        return "einsum"
+    if impl in ("pallas", "flash", "decode"):
+        return "decode"
+    raise KeyError(f"unknown decode attention impl {impl!r}; have "
+                   f"{DECODE_BACKENDS} + 'auto', 'pallas', 'naive', "
+                   f"'chunked'")
+
+
+def _write_cache(cfg: ArchConfig, cache: KVCache, k_new, v_new, pos,
+                 per_slot: bool):
+    """Write one token's k/v rows ((b, kv, hd)) into ``cache`` in place:
+    slot ``pos % clen`` on a ring, else ``pos``. Past the end of a linear
+    cache the reference's semantics hold: a scalar position clamps to the
+    last slot (``dynamic_update_slice``), a per-slot one writes nothing."""
+    clen = cache.k.shape[2]
+    kn = k_new.to(cache.k.dtype)
+    vn = v_new.to(cache.v.dtype)
+    if not per_slot:
+        slot = pos % clen if is_ring(cfg, cache) else min(pos, clen - 1)
+        cache.k[:, :, slot] = kn
+        cache.v[:, :, slot] = vn
+        return
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    if is_ring(cfg, cache):
+        slot = pos % clen
+    else:
+        slot = pos.clamp(max=clen - 1)
+        inside = (pos < clen)[:, None, None]
+        kn = torch.where(inside, kn, cache.k[rows, :, slot])
+        vn = torch.where(inside, vn, cache.v[rows, :, slot])
+    cache.k[rows, :, slot] = kn
+    cache.v[rows, :, slot] = vn
+
+
+def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
+                     impl: Optional[str] = None):
+    """One-token decode. x: (b, 1, d); pos: an int (every row at one
+    position, the lockstep engine) or a (b,) integer tensor of per-slot
+    positions (the continuous engine: write, RoPE and length mask per
+    row; entries past a slot's position weigh exactly 0).
+
+    The new k/v rows are written into ``cache`` in place, and the same
+    cache comes back: returns (out (b, 1, d), cache). ``impl``: decode
+    backend ('einsum' | 'decode' | 'pallas' | 'auto' | ...); None defers
+    to ``cfg.attn_impl`` through ``resolve_decode_backend``."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    per_slot = torch.is_tensor(pos) and pos.dim() == 1
+    if per_slot:
+        pos = pos.to(device=x.device, dtype=torch.long)
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.full((b, 1), pos, dtype=torch.long,
+                               device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    _write_cache(cfg, cache, k_new[:, 0], v_new[:, 0], pos, per_slot)
+
+    clen = cache.k.shape[2]
+    ring = is_ring(cfg, cache)
+    idx = torch.arange(clen, device=x.device)
+    if per_slot:
+        valid = idx[None, :] <= pos[:, None]                # (b, clen)
+        if ring:
+            # once pos >= clen the ring is full: every slot is in-window
+            valid = valid | (pos >= clen)[:, None]
+    else:
+        valid = idx <= pos                                  # (clen,)
+        if ring and pos >= clen:
+            valid = torch.ones_like(valid)
+
+    impl = resolve_decode_backend(
+        impl if impl is not None else cfg.attn_impl, x.device)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if impl == "decode":
+        out = dec_ops.decode_attention(q.reshape(b, h, hd), cache.k,
+                                       cache.v, valid)
+        return L.dense(out.reshape(b, 1, h * hd), p["wo"]), cache
+
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=x.device)
+    mask = torch.where(valid, zero, neg)
+    mask = mask[:, None, None, :] if per_slot else mask
+    qh = q.reshape(b, kv, h // kv, hd)
+    scores = torch.einsum("bkgd,bktd->bkgt", qh,
+                          cache.k.to(qh.dtype)) * (hd ** -0.5)
+    w = torch.softmax(scores.float() + mask, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgt,bktd->bkgd", w, cache.v.to(w.dtype))
+    return L.dense(out.reshape(b, 1, h * hd), p["wo"]), cache

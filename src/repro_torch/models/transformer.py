@@ -1,25 +1,29 @@
-"""Encoder trunk of the BASIC towers (port of ``repro/models/transformer.py``,
-the encoder family).
+"""Model assembly for the encoder towers and the dense decoder LMs (port of
+``repro/models/transformer.py``, the encoder and dense families).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a list
-with one entry per position of the layer period (one for the encoder
-towers), each a dict whose leaves stack all layers on a leading axis, so a
-reference checkpoint maps onto the port leaf for leaf. ``forward`` runs a
-Python loop over that axis where the reference runs ``lax.scan``.
+with one entry per position of the layer period (one for both families),
+each a dict whose leaves stack all layers on a leading axis, so a
+reference checkpoint maps onto the port leaf for leaf. Decode caches keep
+the same stacking: ``caches`` is a list with one ``KVCache`` whose k/v are
+(n_layers, batch, kv_heads, cache_len, head_dim). ``forward`` runs a
+Python loop over the layer axis where the reference runs ``lax.scan``.
 
 Entry points:
-  init_params(cfg, generator, device)  -> params dict
-  encode(cfg, params, batch)           -> pooled (b, d_model)
+  init_params(cfg, generator, device)            -> params dict
+  encode(cfg, params, batch)                     -> pooled (b, d_model)
+  prefill(cfg, params, batch, collect_cache_len) -> logits [, caches]
+  decode_step(cfg, params, token, pos, caches)   -> (logits, caches)
+  init_caches(cfg, batch, seq_len, device=...)   -> zeroed caches
 
 ``forward`` and ``encode`` take a ``remat_policy`` (``core.remat``) that
 wraps each block in a checkpoint, as the reference wraps each period step
-(``repro/models/transformer.py:168-169``). ``lm_loss``, ``prefill``,
-``decode_step``, MoE and SSM blocks, and ``unroll`` wait for later slices
-of the port.
+(``repro/models/transformer.py:168-169``). ``decode_step`` writes each
+layer's new k/v into the caches in place and returns the same objects.
+``lm_loss`` and ``unroll`` wait for the LM training slice; the MoE, SSM,
+hybrid and vlm families for their own slices.
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -31,11 +35,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import precision as prec_lib
 
 
+# the slice of the port that brings each family it does not run yet
+_LATER = {"moe": "the MoE slice", "ssm": "the SSM slice (ssd_scan)",
+          "hybrid": "the SSM slice (ssd_scan)",
+          "vlm": "the MoE slice, with the vlm frontend"}
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "encoder":
+    if cfg.family not in ("encoder", "dense"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the encoder family only, not "
-            f"{cfg.family!r}")
+            f"{cfg.name}: the port runs the encoder and dense families; "
+            f"{cfg.family!r} comes with "
+            f"{_LATER.get(cfg.family, 'a later slice')}")
 
 
 def _init_block(cfg: ArchConfig, generator: torch.Generator, extra,
@@ -81,27 +92,67 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None):
-    """Pre-norm attention + SwiGLU block."""
+def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
+                 cache=None, decode=False, collect_cache_len=None):
+    """Pre-norm attention + SwiGLU block. Returns (h, the layer's cache:
+    the one given, written in place, when decoding; one built from the
+    prompt with ``collect_cache_len``; else None)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
-    h = h + attn_lib.attention(p["attn"], cfg, hn, positions,
-                               key_mask=key_mask)
+    new_cache = None
+    if decode:
+        mix, new_cache = attn_lib.decode_attention(p["attn"], cfg, hn, cache,
+                                                   positions)
+    elif collect_cache_len is not None:
+        mix, (k, v) = attn_lib.attention(p["attn"], cfg, hn, positions,
+                                         return_kv=True, key_mask=key_mask)
+        new_cache = attn_lib.cache_from_prefill(cfg, k, v, collect_cache_len)
+    else:
+        mix = attn_lib.attention(p["attn"], cfg, hn, positions,
+                                 key_mask=key_mask)
+    h = h + mix
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + L.swiglu(hn, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"])
+    return h + L.swiglu(hn, p["ffn"]["wi"], p["ffn"]["wg"],
+                        p["ffn"]["wo"]), new_cache
 
 
 def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
-            remat_policy=None):
+            remat_policy=None, caches=None, decode=False,
+            collect_cache_len=None):
     """Run the block stack. h: (b, s, d); key_mask: optional (b, s) bool
     padding mask threaded into attention; remat_policy: optional
-    ``core.remat`` policy applied per block. Returns h."""
+    ``core.remat`` policy applied per block (not while decoding or
+    building caches). ``decode``: one token per row against ``caches``
+    at ``positions`` (an int or a (b,) tensor). ``collect_cache_len``:
+    build decode caches of that length from the prompt.
+
+    Returns (h, caches): the caches given (written in place), the ones
+    built, or None."""
     _check_family(cfg)
     stack = params["blocks"][0]
-    block = functools.partial(_apply_block, cfg)
+    if decode:
+        kv = caches[0]
+        for i in range(cfg.n_layers):
+            h, _ = _apply_block(cfg, _layer(stack, i), h, positions,
+                                cache=attn_lib.KVCache(kv.k[i], kv.v[i]),
+                                decode=True)
+        return h, caches
+    if collect_cache_len is not None:
+        built = []
+        for i in range(cfg.n_layers):
+            h, c = _apply_block(cfg, _layer(stack, i), h, positions,
+                                key_mask=key_mask,
+                                collect_cache_len=collect_cache_len)
+            built.append(c)
+        return h, [attn_lib.KVCache(torch.stack([c.k for c in built]),
+                                    torch.stack([c.v for c in built]))]
+
+    def block(p, h, positions, key_mask):
+        return _apply_block(cfg, p, h, positions, key_mask)[0]
+
     for i in range(cfg.n_layers):
         h = remat_lib.apply(remat_policy, block, _layer(stack, i), h,
                             positions, key_mask)
-    return h
+    return h, None
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -145,8 +196,8 @@ def encode(cfg: ArchConfig, params, batch, *, precision=None,
     pol = prec_lib.resolve(precision)
     h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
     mask = batch.get("attn_mask")
-    h = forward(cfg, params, h, pos, key_mask=mask,
-                remat_policy=remat_policy)
+    h, _ = forward(cfg, params, h, pos, key_mask=mask,
+                   remat_policy=remat_policy)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     h = pol.accum(h)
     if mask is not None:
@@ -156,3 +207,64 @@ def encode(cfg: ArchConfig, params, batch, *, precision=None,
     else:
         pooled = torch.mean(h, dim=1)
     return pol.project(pooled)
+
+
+# ---------------------------------------------------------------------------
+# Dense LM: logits, caches, prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def logits_from_h(cfg: ArchConfig, params, h,
+                  pol: prec_lib.Precision = None):
+    """Vocabulary logits from hidden states (b, s, d): the tied head
+    h @ embedᵀ, or ``lm_head``, in the policy's projection dtype (fp32
+    under the default policies)."""
+    if pol is not None:
+        h = pol.project(h)
+    if cfg.tie_embeddings:
+        return torch.matmul(h, params["embed"].to(h.dtype).T)
+    return L.dense(h, params["lm_head"])
+
+
+def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
+                dtype=torch.bfloat16, *, device) -> list:
+    """Zeroed decode caches on ``device`` (required), stacked over the
+    layers: a list with one ``KVCache`` of (n_layers, batch, kv_heads,
+    cache_len, head_dim), ring-sized when the window fits in
+    ``seq_len``."""
+    _check_family(cfg)
+    one = attn_lib.init_kv_cache(cfg, batch, seq_len, dtype, device=device)
+    return [attn_lib.KVCache(
+        one.k[None].expand(cfg.n_layers, *one.k.shape).contiguous(),
+        one.v[None].expand(cfg.n_layers, *one.v.shape).contiguous())]
+
+
+def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
+            precision=None, collect_cache_len=None):
+    """Forward over ``batch['tokens']`` (b, s) emitting the last position's
+    logits (b, 1, vocab); with ``collect_cache_len`` also builds the decode
+    caches (serving prefill) and returns (logits, caches). ``precision``
+    (a policy or its name) wins over the legacy ``dtype``, whose default
+    is bf16, as in the reference."""
+    pol = prec_lib.resolve(precision, dtype)
+    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
+    h, caches = forward(cfg, params, h, pos,
+                        collect_cache_len=collect_cache_len)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = logits_from_h(cfg, params, h[:, -1:, :], pol)
+    if collect_cache_len is not None:
+        return logits, caches
+    return logits
+
+
+def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
+                dtype=torch.bfloat16, precision=None):
+    """One decode step. token: (b, 1) integer tensor; pos: an int (every
+    row at one position, the lockstep engine) or a (b,) integer tensor of
+    per-slot positions (the continuous engine). Writes each layer's new
+    k/v into ``caches`` in place; returns (logits (b, 1, vocab), caches)."""
+    pol = prec_lib.resolve(precision, dtype)
+    h = params["embed"][token.long()].to(pol.compute_dtype)
+    h, caches = forward(cfg, params, h, pos, caches=caches, decode=True)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return logits_from_h(cfg, params, h, pol), caches

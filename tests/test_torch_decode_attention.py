@@ -1,0 +1,154 @@
+"""Port parity: the decode-attention wrapper (its plain version on a CPU
+tensor) against the reference's Pallas kernel in interpret mode and its
+``decode_attention_ref``, from the same numpy inputs.
+
+Tolerances: f32 2e-5 and bf16 5e-2, the reference's own
+(tests/test_decode_kernel.py); the port's plain version and the
+reference's oracle sum in fp32 in another order. A length-0 row is exactly
+zero, and stale entries past each length move nothing, bit for bit.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.ops import decode_attention as jax_decode
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+torch.set_num_threads(1)
+
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+def _inputs(b, h, kv, t, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, kv, t, d)).astype(np.float32)
+    v = rng.standard_normal((b, kv, t, d)).astype(np.float32)
+    return q, k, v
+
+
+def _jax(fn, q, k, v, valid, dtype, **kw):
+    jd = getattr(jnp, dtype)
+    out = fn(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+             jnp.asarray(valid), **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port(q, k, v, valid, dtype):
+    td = getattr(torch, dtype)
+    out = dec_ops.decode_attention(torch.tensor(q).to(td),
+                                   torch.tensor(k).to(td),
+                                   torch.tensor(v).to(td),
+                                   torch.tensor(valid))
+    assert out.dtype == td
+    return out.float().numpy()
+
+
+def _lengths(b, t):
+    """0 (a free slot), 1, ragged middles, t (a full cache)."""
+    lens = [0, 1, t // 2 - 3, t][:b] + [t // 3] * max(0, b - 4)
+    return np.arange(t)[None, :] < np.asarray(lens)[:, None]
+
+
+@pytest.mark.parametrize("b,h,kv,t,d", [
+    (2, 8, 2, 256, 64),
+    (1, 4, 4, 128, 32),
+    (3, 6, 2, 512, 128),
+    (1, 16, 1, 256, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shared_mask_matches_reference(b, h, kv, t, d, dtype):
+    q, k, v = _inputs(b, h, kv, t, d, b * t + h)
+    valid = np.arange(t) < (t * 3 // 4)
+    got = _port(q, k, v, valid, dtype)
+    ref = _jax(jax_ref, q, k, v, valid, dtype)
+    kern = _jax(jax_decode, q, k, v, valid, dtype, block_k=64,
+                interpret=True)
+    np.testing.assert_allclose(got, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    np.testing.assert_allclose(got, kern, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,kv,t,d", [
+    (4, 8, 2, 256, 64),
+    (3, 4, 4, 128, 32),
+    (2, 16, 1, 256, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_per_slot_mask_matches_reference(b, h, kv, t, d, dtype):
+    q, k, v = _inputs(b, h, kv, t, d, 7 * b + t + h)
+    valid = _lengths(b, t)
+    got = _port(q, k, v, valid, dtype)
+    kern = _jax(jax_decode, q, k, v, valid, dtype, block_k=64,
+                interpret=True)
+    np.testing.assert_allclose(got, _jax(jax_ref, q, k, v, valid, dtype),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    np.testing.assert_allclose(got, kern, rtol=TOL[dtype], atol=TOL[dtype])
+    np.testing.assert_array_equal(got[0], np.zeros((h, d), np.float32))
+
+
+def test_shared_mask_equals_equal_per_slot_rows():
+    b, h, kv, t, d = 3, 6, 2, 128, 32
+    q, k, v = (torch.tensor(x) for x in _inputs(b, h, kv, t, d, 11))
+    shared = torch.arange(t) < 77
+    a = dec_ops.decode_attention(q, k, v, shared)
+    rows = dec_ops.decode_attention(q, k, v, shared[None, :].expand(b, t))
+    assert torch.equal(a, rows)
+
+
+def test_stale_entries_never_leak():
+    b, h, kv, t, d = 2, 4, 2, 128, 32
+    q, k, v = (torch.tensor(x) for x in _inputs(b, h, kv, t, d, 12))
+    valid = torch.arange(t)[None, :] < torch.tensor([5, 100])[:, None]
+    clean = dec_ops.decode_attention(q, k, v, valid)
+    keep = valid[:, None, :, None]
+    dirty = dec_ops.decode_attention(q, torch.where(keep, k, 1e6),
+                                     torch.where(keep, v, 1e6), valid)
+    assert torch.equal(clean, dirty)
+
+
+def test_full_ring_matches_reference():
+    b, h, kv, t, d = 2, 4, 2, 128, 32
+    q, k, v = _inputs(b, h, kv, t, d, 0)
+    valid = np.ones((t,), bool)
+    np.testing.assert_allclose(
+        _port(q, k, v, valid, "float32"),
+        _jax(jax_decode, q, k, v, valid, "float32", block_k=32,
+             interpret=True), atol=2e-5)
+
+
+def test_single_valid_slot_returns_its_value_row():
+    b, h, kv, t, d = 1, 2, 2, 64, 16
+    q, k, v = _inputs(b, h, kv, t, d, 1)
+    valid = np.arange(t) == 5
+    got = _port(q, k, v, valid, "float32")
+    np.testing.assert_allclose(got[0, 0], v[0, 0, 5], atol=2e-5)
+    np.testing.assert_allclose(
+        got, _jax(jax_decode, q, k, v, valid, "float32", block_k=32,
+                  interpret=True), atol=2e-5)
+
+
+def test_plain_version_counts_no_launch_and_checks_shapes():
+    q, k, v = (torch.tensor(x) for x in _inputs(2, 4, 2, 16, 8, 2))
+    before = dec_ops.COUNTER.count
+    dec_ops.decode_attention(q, k, v, torch.ones(16, dtype=torch.bool))
+    assert dec_ops.COUNTER.count == before
+    assert torch.equal(
+        dec_ops.decode_attention(q, k, v, torch.ones(16, dtype=torch.bool)),
+        decode_attention_ref(q, k, v, torch.ones(16, dtype=torch.bool)))
+    with pytest.raises(ValueError, match="bool"):
+        dec_ops.decode_attention(q, k, v, torch.ones(16))
+    with pytest.raises(ValueError):
+        dec_ops.decode_attention(q[:, :3], k, v,
+                                 torch.ones(16, dtype=torch.bool))
+
+
+def test_chunk_length_depends_on_t_alone():
+    assert dec_ops.chunk_len(1) == 256
+    assert dec_ops.chunk_len(8192) == 256
+    assert dec_ops.chunk_len(32768) == 512
+    for t in (1, 300, 8192, 10 ** 6):
+        c = dec_ops.chunk_len(t)
+        assert c % dec_ops.TILE == 0 and -(-t // c) <= dec_ops.MAX_CHUNKS

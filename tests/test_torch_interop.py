@@ -14,9 +14,12 @@ import torch
 
 from repro.configs import get_arch as jax_get_arch
 from repro.configs import smoke_dual_variant as jax_smoke_dual
+from repro.configs import smoke_variant as jax_smoke_variant
 from repro.models import dual_encoder as jde
+from repro.models import transformer as jtf
 from repro_torch import interop
-from repro_torch.configs import get_arch, list_archs, smoke_dual_variant
+from repro_torch.configs import (get_arch, list_archs, smoke_dual_variant,
+                                 smoke_variant)
 
 torch.set_num_threads(1)
 
@@ -72,6 +75,27 @@ def test_init_params_has_the_reference_layout_and_law(arch):
             assert abs(float(t.std()) / sigma - 0.8796) < 0.05, path
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-32b"])
+def test_lm_params_have_the_reference_layout_and_round_trip(arch):
+    """An ArchConfig goes to the transformer's init: the reference LM's
+    leaf paths and shapes, and the reference's weights carried over as
+    they are."""
+    jcfg = jax_smoke_variant(jax_get_arch(arch))
+    jparams = jax.device_get(jtf.init_params(jcfg, jax.random.key(0)))
+    ref = _jax_paths(jparams)
+    tparams = interop.init_params(smoke_variant(get_arch(arch)),
+                                  torch.Generator().manual_seed(0), "cpu")
+    got = dict(interop.leaves(tparams))
+    assert {p: tuple(t.shape) for p, t in got.items()} == \
+        {p: a.shape for p, a in ref.items()}
+    carried = dict(interop.leaves(interop.from_numpy(jparams, "cpu")))
+    for path, arr in ref.items():
+        np.testing.assert_array_equal(carried[path].numpy(), arr,
+                                      err_msg=path)
+    with pytest.raises(TypeError):
+        interop.init_params(object(), torch.Generator(), "cpu")
+
+
 def test_from_numpy_names_its_device():
     """No default device: a conversion onto torch always says where."""
     tree = {"a": np.ones((2, 3), np.float32), "b": [np.zeros(4, np.int32)]}
@@ -95,9 +119,25 @@ def test_init_params_is_seeded():
     assert not torch.equal(la["text/proj"], lc["text/proj"])
 
 
+LM_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+             "vocab", "resolved_head_dim", "qk_norm", "sliding_window",
+             "causal", "tie_embeddings", "rope_theta", "norm_eps", "source")
+
+
 def test_configs_copy_the_reference():
-    assert list_archs() == ["basic-l", "basic-m", "basic-s"]
-    for arch in list_archs():
+    lms = ["internlm2-20b", "llama3.2-1b", "minitron-4b", "qwen3-32b"]
+    assert list_archs() == sorted(["basic-l", "basic-m", "basic-s"] + lms)
+    for arch in lms:
+        j, t = jax_get_arch(arch), get_arch(arch)
+        for f in LM_FIELDS:
+            assert getattr(t, f) == getattr(j, f), (arch, f)
+            assert getattr(smoke_variant(t), f) == getattr(
+                jax_smoke_variant(j), f), (arch, f)
+    from repro.configs.llama3_2_1b import FULL_ATTENTION_VARIANT as jfull
+    from repro_torch.configs.llama3_2_1b import FULL_ATTENTION_VARIANT
+    assert FULL_ATTENTION_VARIANT.sliding_window is None
+    assert FULL_ATTENTION_VARIANT.name == jfull.name
+    for arch in ("basic-l", "basic-m", "basic-s"):
         j, t = jax_get_arch(arch), get_arch(arch)
         for tower in ("image_tower", "text_tower"):
             jt, tt = getattr(j, tower), getattr(t, tower)

@@ -329,7 +329,7 @@ def test_trainer_raises_without_a_card_or_for_later_slices():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(argv)
     for mode in ("lm", "pretrain"):
-        with pytest.raises(NotImplementedError, match="LM slice"):
+        with pytest.raises(NotImplementedError, match="LM training slice"):
             ttrain.main(["--mode", mode, "--arch", "basic-s"])
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ttrain.main(argv + ["--ckpt-dir", "x", "--device", "cpu"])
