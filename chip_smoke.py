@@ -62,7 +62,25 @@ repository beside this file; it exits non-zero without them. In order it:
     per second, decode-step median and p90, prefill ms, peak memory, and
     flash_fwd launches per prefill and decode_attention launches per step
     (16 each, one per layer); then profiles 4 warm decode steps;
-13. prints a ``{"kernels": [...]}`` line and, last, the
+13. holds the SSD chunked-scan kernel against its plain version at
+    Mamba-2-130M's shapes (24 heads of 64, state 128; one chunk of 256, a
+    ragged 244, four chunks of b 1 × 1024, b 8 × 256; with and without an
+    initial state; the decay extremes dt 3, A -5 with no NaN), inputs laid
+    out as the mixer's split views, f32 and bf16, y and the final state,
+    and times kernel and plain version (no single PyTorch call computes
+    the scan);
+14. SSM parity: Mamba-2-130M at full width and depth in f32 through
+    ``transformer.prefill`` (2 × 1024 tokens) on the kernel path and on
+    the plain path (the scan's plain version on the card), logits and the
+    SSM and conv caches, then 16 teacher-forced decode steps; then the
+    continuous engine against the lockstep engine, request by request;
+15. timed SSM serving: ``repro_torch.launch.serve`` (``main``) with the
+    continuous engine, Mamba-2-130M bf16, 8 slots, 16 requests of 244–256
+    prompt tokens and 64 new tokens: tokens per second, decode-step median
+    and p90, prefill ms, peak memory, ssd_scan launches per prefill (24,
+    one per layer); then profiles one warm prefill and 4 warm decode
+    steps;
+16. prints a ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -90,6 +108,8 @@ CL_FWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:107"
 CL_BWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:185"
 DEC_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode.cu"
 DEC_REPLACES = "src/repro/kernels/decode_attention/kernel.py:72"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:69"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # operation rates by input type (fp32 outside the tensor cores)
@@ -165,6 +185,16 @@ DEC_BF16_REL_MAX = 1e-3
 # logit by ~1e-5; 1e-3 leaves two orders of margin and still catches a
 # wrong mask, position or cache slot (those move logits by ~1e-1)
 DEC_PARITY_TOL = 1e-3
+# SSD scan kernel, f32 and bf16 inputs alike (both sides read the same
+# values and accumulate in fp32): 2e-5 of max |y| and of max |state|, the
+# reference's own kernel-vs-ssd_chunked tolerance (tests/test_kernels.py);
+# fp32 sums in another order and in 64-token sub-chunks, not 256
+SSD_TOL_REL = 2e-5
+# SSM parity, kernel path vs plain path in f32: logits of ~unit scale
+# through 24 layers that differ only in the scan's summation order (~1e-5);
+# 1e-3 still catches a wrong state, chunk or D (those move logits by
+# ~1e-1). The caches: 1e-3 of each leaf's max |value|
+SSM_PARITY_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -515,7 +545,8 @@ WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                    "contrastive_bwd": ("contrastive_grad_kernel",
                                        "contrastive_dtau_sum_kernel"),
                    "decode_attention": ("decode_split_kernel",
-                                        "decode_merge_kernel")}
+                                        "decode_merge_kernel"),
+                   "ssd_scan": ("ssd_scan_kernel",)}
 
 
 # device kernels by group, first match wins: the port's kernels, the
@@ -525,6 +556,7 @@ KERNEL_GROUPS = (("flash kernels", ("flash_fwd_kernel", "flash_bwd_")),
                  ("top-k kernels", ("topk_",)),
                  ("decode kernels", ("decode_split_kernel",
                                      "decode_merge_kernel")),
+                 ("ssd kernels", ("ssd_scan_kernel",)),
                  ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("copies and casts", ("copy", "Memcpy", "Memset")))
 
@@ -1264,21 +1296,18 @@ def parity_case(label, cfg, params, toks, plen, clen, steps):
     return worst, flips
 
 
-def engines_case(cfg, params):
-    """The continuous engine (4 slots, 8 ragged requests, greedy) against
-    the lockstep engine run alone per request, both on the kernel path,
-    f32. Where they diverge, the plain path's top-2 gap at that token must
-    be under the parity tolerance."""
+def engines_case(kcfg, params, lens, plain_logits):
+    """The continuous engine (4 slots, 8 ragged requests of ``lens``
+    tokens, greedy) against the lockstep engine run alone per request,
+    both on the kernel path (``kcfg``), f32. Where they diverge, the plain
+    path's top-2 gap at that token (``plain_logits(tokens)`` -> (1, vocab))
+    must be under the parity tolerance."""
     import numpy as np
     import torch
-    from repro_torch.models import transformer as tf
     from repro_torch.serving import ContinuousEngine, Engine
-    kcfg = dataclasses.replace(cfg, attn_impl="pallas")
-    pcfg = dataclasses.replace(cfg, attn_impl="chunked")
     rng = np.random.default_rng(7)
-    lens = [100, 37, 250, 64, 180, 12, 300, 90]
     budgets = [12, 16, 8, 16, 10, 16, 6, 14]
-    prompts = [rng.integers(4, cfg.vocab, (n,)).astype(np.int32)
+    prompts = [rng.integers(4, kcfg.vocab, (n,)).astype(np.int32)
                for n in lens]
     reqs = [(p, m, i) for i, (p, m) in enumerate(zip(prompts, budgets))]
     got = ContinuousEngine(kcfg, params, cache_len=1024, num_slots=4).run(
@@ -1297,15 +1326,14 @@ def engines_case(cfg, params):
         j = int(diff[0]) if diff.size else n
         seq = np.concatenate([p, want[:j]])[None, :]
         with torch.no_grad():
-            lp = tf.prefill(pcfg, params, {"tokens": torch.from_numpy(
-                seq).cuda()}, precision="f32")[:, 0]
+            lp = plain_logits(torch.from_numpy(seq).cuda())
         gap = top2_gap(lp).item()
         divergences.append((i, j, gap))
         print(f"engines: request {i} first differs at token {j}: continuous "
               f"{got[i][j:j + 1].tolist()} lockstep {want[j:j + 1].tolist()}"
               f"; plain top-2 gap there {gap:.3g} (tol {DEC_PARITY_TOL})",
               flush=True)
-    print(f"engines (llama3.2-1b f32, kernel path, 4 slots, 8 requests): "
+    print(f"engines ({kcfg.name} f32, kernel path, 4 slots, 8 requests): "
           f"{same} of {len(reqs)} requests equal Engine.generate alone",
           flush=True)
     if any(gap > DEC_PARITY_TOL for _, _, gap in divergences):
@@ -1322,6 +1350,7 @@ def phase_decode_parity():
     import torch
     from repro_torch import interop
     from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
     cfg = get_arch("llama3.2-1b")
     t0 = time.perf_counter()
     params = interop.init_params(
@@ -1341,7 +1370,12 @@ def phase_decode_parity():
                              device="cuda")
         out["ring"] = parity_case("(b) 1 x 8704, ring 8192", cfg, params,
                                   toks, 8704, 8192, 16)
-        out["engines"] = engines_case(cfg, params)
+        pcfg = dataclasses.replace(cfg, attn_impl="chunked")
+        out["engines"] = engines_case(
+            dataclasses.replace(cfg, attn_impl="pallas"), params,
+            [100, 37, 250, 64, 180, 12, 300, 90],
+            lambda seq: tf.prefill(pcfg, params, {"tokens": seq},
+                                   precision="f32")[:, 0])
     return out
 
 
@@ -1407,21 +1441,25 @@ def phase_decode_serve():
     return launches, per, rep
 
 
-def phase_decode_profile(eng, steps: int = 4):
+def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
+                         counters=None):
     """A torch.profiler window over ``steps`` warm decode steps of the
-    timed run's engine with all 8 slots busy: device busy share, time by
-    kernel group, device kernels per decode_attention call."""
+    timed run's engine with all its slots busy (prompts of ``prompt_len``
+    tokens): device busy share, time by kernel group, device kernels per
+    call of each wrapper in ``counters`` (default: decode_attention)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.decode_attention import ops as dec_ops
+    if counters is None:
+        from repro_torch.kernels.decode_attention import ops as dec_ops
+        counters = (dec_ops.COUNTER,)
     rng = np.random.default_rng(9)
     for i in range(eng.num_slots):
-        eng.submit(rng.integers(4, eng.cfg.vocab, (512,)).astype(np.int32),
-                   steps + 4)
-    eng.step()                        # admits all 8, then one step
+        eng.submit(rng.integers(4, eng.cfg.vocab, (prompt_len,)).astype(
+            np.int32), steps + 4)
+    eng.step()                        # admits every slot, then one step
     eng.step()
-    calls = {"decode_attention": -dec_ops.COUNTER.count}
+    calls = {ctr.name: -ctr.count for ctr in counters}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1429,7 +1467,8 @@ def phase_decode_profile(eng, steps: int = 4):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    calls["decode_attention"] += dec_ops.COUNTER.count
+    for ctr in counters:
+        calls[ctr.name] += ctr.count
     # where the host's time goes: its launch count and its costliest ops
     host = sorted((e for e in prof.key_averages()
                    if e.self_cpu_time_total > 0),
@@ -1445,6 +1484,306 @@ def phase_decode_profile(eng, steps: int = 4):
                             steps, calls)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the SSD chunked scan
+# ---------------------------------------------------------------------------
+
+
+def plain_scan(x, dt, A, Bm, Cm, D=None, *, chunk, init_state=None):
+    """The scan's plain version with the wrapper's signature: what the
+    plain path runs in place of the kernel on the card."""
+    from repro_torch.kernels.ssd_scan.ref import chunk_of, ssd_chunked
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk_of(x.shape[1], chunk),
+                       init_state, D)
+
+
+def ssd_inputs(b, l, dtype, seed, init=False, extreme=False, h=24, p=64,
+               n=128):
+    """(x, dt, A, Bm, Cm, D, init_state) at Mamba-2-130M's widths, x, B
+    and C as split views of one (b, l, h·p + 2n) buffer as the mixer
+    passes them; dt softplus'd, A = -exp(N(0, 0.3²)) (or, ``extreme``,
+    dt 3 and A alternating -5 and -0.001)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn((b, l, h * p + 2 * n), generator=g,
+                      device="cuda").to(dtype)
+    x = buf[..., :h * p].reshape(b, l, h, p)
+    Bm, Cm = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    dt = F.softplus(torch.randn((b, l, h), generator=g, device="cuda"))
+    A = -torch.exp(0.3 * torch.randn((h,), generator=g, device="cuda"))
+    if extreme:
+        dt = torch.full((b, l, h), 3.0, device="cuda")
+        A = torch.tensor([-5.0, -0.001] * (h // 2), device="cuda")
+    D = torch.rand((h,), generator=g, device="cuda")
+    s0 = (torch.randn((b, h, p, n), generator=g, device="cuda") if init
+          else None)
+    return x, dt, A, Bm, Cm, D, s0
+
+
+def ssd_least_flops(b, l, h, p, n):
+    """The SSD scan's least FLOP count over its chunked forms. At a chunk
+    of c tokens, per token and (b, h): the causal half of C·Bᵀ and of its
+    product with dt·x, c·(n + p); y's read of the carried state and the
+    state's update, 2·n·p each; the state's decay once a chunk, n·p / c.
+    c = 1 is the sequential recurrence (``ssd_ref``, ~5·n·p); the least is
+    near c = sqrt(n·p / (n + p)), ~4.3·n·p at n 128, p 64."""
+    return b * h * l * min(c * (n + p) + 4.0 * n * p + n * p / c
+                           for c in range(1, l + 1))
+
+
+def ssd_case(label, b, l, dtype, seed, init=False, extreme=False,
+             timed=True):
+    """Kernel vs plain version at one shape: y and the final state within
+    ``SSD_TOL_REL`` of their max |value|, all finite; times both. Returns
+    the case's record."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    h, p, n, chunk = 24, 64, 128, 256
+    args = ssd_inputs(b, l, dtype, seed, init, extreme, h, p, n)
+    x, dt, A, Bm, Cm, D, s0 = args
+    y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0)
+    yr, fr = plain_scan(x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    dt_name = dtype_name(dtype)
+    err_y = (y - yr).abs().max().item()
+    err_f = (f - fr).abs().max().item()
+    lim_y = SSD_TOL_REL * yr.abs().max().item()
+    lim_f = SSD_TOL_REL * fr.abs().max().item()
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(f).all())
+    if not (finite and err_y <= lim_y and err_f <= lim_f):
+        raise AssertionError(f"ssd_scan {label} {dt_name}: finite {finite}, "
+                             f"max |y err| {err_y:.3g} (limit {lim_y:.3g}), "
+                             f"max |state err| {err_f:.3g} (limit "
+                             f"{lim_f:.3g})")
+    rec = {"shape": f"{label}: b={b} l={l} h={h} p={p} n={n} {dt_name}"
+                    + (" init_state" if init else ""),
+           "max_abs_err": max(err_y, err_f), "max_abs_err_y": err_y,
+           "max_abs_err_state": err_f, "tol_y": lim_y, "tol_state": lim_f,
+           "library_ms": None}
+    if timed:
+        rec["ms"] = time_ms(lambda: ssd_ops.ssd_scan(
+            x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0))
+        rec["plain_ms"] = time_ms(lambda: plain_scan(
+            x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0))
+        item = torch.finfo(dtype).bits // 8
+        states = (2 if init else 1) * b * h * p * n * 4
+        nbytes = (b * l * h * p * item + b * l * h * 4 + 2 * b * l * n * item
+                  + b * l * h * p * 4 + states + 2 * h * 4)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            nbytes, ssd_least_flops(b, l, h, p, n), dt_name)
+    print(f"ssd_scan {rec['shape']}: max |y err| {err_y:.3g} (tol "
+          f"{lim_y:.3g}), max |state err| {err_f:.3g} (tol {lim_f:.3g}), "
+          f"finite" + (f"; kernel {rec['ms']:.4f} ms, plain "
+                       f"{rec['plain_ms']:.4f} ms, bound "
+                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+                       if timed else ""), flush=True)
+    return rec
+
+
+def phase_ssd_kernel():
+    """The SSD kernel at Mamba-2-130M's shapes, f32 and bf16: one chunk
+    (l 256), a ragged chunk (l 244) and four chunks (b 1 × 1024), b 8 ×
+    256, with an initial state in the ragged and b 8 cases; the decay
+    extremes; the same inputs twice give the same bits. Returns the
+    records by (label, dtype name)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = dtype_name(dtype)
+        for label, b, l, init in (("l=256", 1, 256, False),
+                                  ("l=244", 1, 244, True),
+                                  ("l=1024", 1, 1024, False),
+                                  ("b=8", 8, 256, True)):
+            recs[(label, dt)] = ssd_case(label, b, l, dtype, 60, init)
+        recs[("extreme", dt)] = ssd_case("decay extremes dt=3 A=-5", 1, 256,
+                                         dtype, 61, extreme=True,
+                                         timed=False)
+    args = ssd_inputs(2, 512, torch.bfloat16, 62, init=True)
+    one = ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
+    two = ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError("ssd_scan: two launches on the same inputs "
+                             "differ")
+    print("ssd_scan: two launches on the same inputs give the same bits",
+          flush=True)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 14: SSM parity, kernel path vs plain path
+# ---------------------------------------------------------------------------
+
+
+def plain_path():
+    """A context in which the Mamba-2 mixer runs the scan's plain version
+    on the card instead of the kernel (the plain path)."""
+    from unittest import mock
+    from repro_torch.models import ssm as ssm_lib
+    return mock.patch.object(ssm_lib, "ssd_scan", plain_scan)
+
+
+def phase_ssm_parity():
+    """Mamba-2-130M at full width and depth, f32, random weights from a
+    CUDA generator: prefill of 2 × 1024 tokens on the kernel path and the
+    plain path (logits, SSM and conv caches), 16 decode steps fed the
+    kernel path's greedy token on both; then the engines."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import transformer as tf
+    cfg = get_arch("mamba2-130m")
+    t0 = time.perf_counter()
+    params = interop.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    print(f"ssm parity: mamba2-130m, {n} params (analytic count "
+          f"{cfg.param_counts()['total']}), init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    plen, steps = 1024, 16
+    toks = torch.randint(4, cfg.vocab, (2, plen), generator=g,
+                         device="cuda")
+    out = {}
+    with torch.no_grad():
+        before = ssd_ops.COUNTER.count
+        kl, kc = tf.prefill(cfg, params, {"tokens": toks}, precision="f32",
+                            collect_cache_len=2048)
+        if ssd_ops.COUNTER.count - before != cfg.n_layers:
+            raise AssertionError("ssm parity: the kernel path did not launch "
+                                 "ssd_scan once per layer")
+        with plain_path():
+            pl, pc = tf.prefill(cfg, params, {"tokens": toks},
+                                precision="f32", collect_cache_len=2048)
+        if ssd_ops.COUNTER.count - before != cfg.n_layers:
+            raise AssertionError("ssm parity: the plain path launched the "
+                                 "kernel")
+        cache_err = {}
+        for leaf in ("ssm", "conv"):
+            a, b = getattr(kc[0], leaf), getattr(pc[0], leaf)
+            cache_err[leaf] = (a - b).abs().max().item()
+            lim = SSM_PARITY_TOL * b.abs().max().item()
+            if not cache_err[leaf] <= lim:
+                raise AssertionError(f"ssm parity: {leaf} cache max err "
+                                     f"{cache_err[leaf]:.3g} > {lim:.3g}")
+        worst, flips, compared = 0.0, 0, 0
+        lk, lp = kl[:, 0], pl[:, 0]
+        for i in range(steps + 1):
+            worst = max(worst, (lk - lp).abs().max().item())
+            tok = lk.argmax(-1)
+            sep = top2_gap(lp) > SSM_PARITY_TOL
+            flips += int(((tok != lp.argmax(-1)) & sep).sum())
+            compared += tok.numel()
+            if i == steps:
+                break
+            lk = tf.decode_step(cfg, params, tok[:, None], plen + i, kc,
+                                precision="f32")[0][:, 0]
+            lp = tf.decode_step(cfg, params, tok[:, None], plen + i, pc,
+                                precision="f32")[0][:, 0]
+        torch.cuda.synchronize()
+        print(f"ssm parity (2 x {plen}, f32): max |logit diff| kernel vs "
+              f"plain {worst:.3g} (tol {SSM_PARITY_TOL}) over prefill + "
+              f"{steps} steps; caches max err ssm {cache_err['ssm']:.3g}, "
+              f"conv {cache_err['conv']:.3g} (tol {SSM_PARITY_TOL} of max "
+              f"|value|); greedy tokens that differ where the plain top-2 "
+              f"gap exceeds the tol: {flips} of {compared}", flush=True)
+        if not (worst <= SSM_PARITY_TOL and flips == 0):
+            raise AssertionError("ssm parity: kernel path and plain path "
+                                 "disagree")
+        out.update(max_logit_diff=worst, cache_err=cache_err, flips=flips)
+
+        def plain_logits(seq):
+            with plain_path():
+                return tf.prefill(cfg, params, {"tokens": seq},
+                                  precision="f32")[:, 0]
+
+        out["engines"] = engines_case(cfg, params,
+                                      [100, 37, 250, 64, 180, 12, 512, 90],
+                                      plain_logits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: timed SSM serving through the launcher
+# ---------------------------------------------------------------------------
+
+SSM_SERVE_ARGV = ["--arch", "mamba2-130m", "--engine", "continuous",
+                  "--slots", "8", "--requests", "16", "--arrival", "0",
+                  "--prompt-len", "248", "--max-new", "64", "--cache-len",
+                  "512", "--precision", "bf16", "--temperature", "0",
+                  "--seed", "0"]
+
+
+def phase_ssm_serve():
+    """``repro_torch.launch.serve.main`` on Mamba-2-130M after one untimed
+    warm-up request; returns (launches, per prefill, report)."""
+    import math
+    import numpy as np
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve
+
+    warm = list(SSM_SERVE_ARGV)
+    warm[warm.index("--requests") + 1] = "1"
+    warm[warm.index("--max-new") + 1] = "4"
+    serve.main(warm)
+    ssd_ops.COUNTER.reset()
+    rep = serve.main(SSM_SERVE_ARGV)
+    launches = {ssd_ops.COUNTER.name: ssd_ops.COUNTER.count}
+    per_prefill = launches["ssd_scan"] / rep["prefills"]
+    print(f"ssm serve (mamba2-130m bf16, 8 slots, 16 requests x 244-256 "
+          f"prompt tokens x 64 new): decode "
+          f"{rep['decode_tokens_per_s']:.1f} tok/s over the warm steps, "
+          f"{rep['tokens_per_s']:.1f} tok/s over the run (prefill "
+          f"included); step median {rep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{rep['step_p90_s'] * 1e3:.3f} ms over {rep['decode_steps']} "
+          f"steps; prefill {rep['prefill_mean_s'] * 1e3:.3f} ms per request; "
+          f"max_memory_allocated {rep['max_memory_allocated'] / 2**30:.3f} "
+          f"GiB", flush=True)
+    print(f"ssm serve launches: {launches} over {rep['prefills']} prefills "
+          f"and {rep['decode_steps']} steps: {per_prefill} ssd_scan per "
+          f"prefill", flush=True)
+    if per_prefill != 24:
+        raise AssertionError(f"ssm serve: {per_prefill} ssd_scan launches "
+                             f"per prefill, want 24 (one per layer)")
+    for rid, r in rep["results"].items():
+        in_vocab = bool(np.all((r >= 0) & (r < 50280)))
+        if not (in_vocab and (r.size == 64 or r[-1] == 3)):
+            raise AssertionError(f"ssm serve: bad tokens for request {rid}: "
+                                 f"{r}")
+    if rep["requests"] != 16:
+        raise AssertionError(f"ssm serve: {rep['requests']} of 16 requests "
+                             f"finished")
+    if not math.isfinite(rep["decode_tokens_per_s"]):
+        raise AssertionError("ssm serve: no throughput")
+    return launches, per_prefill, rep
+
+
+def phase_ssm_prefill_profile(eng):
+    """A torch.profiler window over one warm b = 1 prefill of 248 tokens
+    through the timed run's engine: device time by kernel group and the
+    device kernels per ssd_scan call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    prompt = np.random.default_rng(10).integers(
+        4, eng.cfg.vocab, (248,)).astype(np.int32)
+    with torch.no_grad():
+        eng._prefill(prompt)
+        torch.cuda.synchronize()
+        calls = {"ssd_scan": -ssd_ops.COUNTER.count}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._prefill(prompt)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        calls["ssd_scan"] += ssd_ops.COUNTER.count
+    return device_breakdown(prof, "1 warm prefill", wall_us, 1, calls)
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -1457,6 +1796,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.similarity_topk import ops as topk_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     card = card_line()
     print(card, flush=True)
@@ -1466,7 +1806,7 @@ def main() -> int:
     resolve_device("cuda")
 
     libs = (fa_ops.LIB, fa_ops.BWD_LIB, topk_ops.LIB, cl_ops.LIB,
-            dec_ops.LIB)
+            dec_ops.LIB, ssd_ops.LIB)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     print(f"built kernels in {time.perf_counter() - t0:.1f}s (sm_90a)",
@@ -1483,6 +1823,7 @@ def main() -> int:
     contrastive = phase_contrastive()
     decode, decode_errs = phase_decode_kernel()
     prefill_flash = phase_prefill_flash()
+    ssd = phase_ssd_kernel()
     launches, cfg, params, tok = phase_main_path()
     per_call = phase_profile(cfg, params, tok)
     del params
@@ -1495,6 +1836,14 @@ def main() -> int:
     dec_launches, dec_per, dec_rep = phase_decode_serve()
     dec_per_call, dec_busy = phase_decode_profile(dec_rep.pop("engine"))
     del dec_rep
+    torch.cuda.empty_cache()
+    ssm_parity = phase_ssm_parity()
+    torch.cuda.empty_cache()
+    ssm_launches, ssm_per_prefill, ssm_rep = phase_ssm_serve()
+    ssm_eng = ssm_rep.pop("engine")
+    ssm_per_call, ssm_prefill_busy = phase_ssm_prefill_profile(ssm_eng)
+    _, ssm_busy = phase_decode_profile(ssm_eng, prompt_len=248, counters=())
+    del ssm_eng, ssm_rep
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(flash[(s, torch.bfloat16)]["max_abs_err"]
@@ -1561,9 +1910,26 @@ def main() -> int:
          "device_kernels_per_call": dec_per_call[dec_ops.COUNTER.name],
          "parity_max_logit_diff": max(parity["linear"][0],
                                       parity["ring"][0])},
+        {"name": ssd_ops.COUNTER.name, "route": "cuda",
+         "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+         "launches": ssm_launches[ssd_ops.COUNTER.name],
+         **{k: ssd[("l=256", "bfloat16")][k] for k in timing},
+         "shape": ssd[("l=256", "bfloat16")]["shape"],
+         "max_abs_err_f32": max(r["max_abs_err"] for (_, dt), r in
+                                ssd.items() if dt == "float32"),
+         "cases": [{k: r[k] for k in ("shape", "max_abs_err_y",
+                                      "max_abs_err_state", "tol_y",
+                                      "tol_state", "ms", "plain_ms",
+                                      "bound_ms", "bound_by") if k in r}
+                   for r in ssd.values()],
+         "launches_per_prefill": ssm_per_prefill,
+         "device_kernels_per_call": ssm_per_call[ssd_ops.COUNTER.name],
+         "parity_max_logit_diff": ssm_parity["max_logit_diff"]},
     ]
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
-          f"{dec_busy:.4f}", flush=True)
+          f"{dec_busy:.4f}; ssm prefill profile busy share "
+          f"{ssm_prefill_busy:.4f}; ssm decode profile busy share "
+          f"{ssm_busy:.4f}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,29 @@
 """Architecture config and registry (copy of ``repro/configs/base.py``,
-covering the encoder towers of the BASIC dual encoders and the dense
-decoder LMs).
+covering the encoder towers of the BASIC dual encoders, the dense decoder
+LMs and the attention-free SSM LMs).
 
 Every config is a frozen dataclass built in its own ``configs/<id>.py``
 module and registered here when ``get_arch`` first runs. The dense LMs
-(Llama-3.2-1B, Qwen3-32B, Minitron-4B, InternLM2-20B) serve through the
-decode engines; the MoE, SSM, hybrid, vlm and audio configs and their
-``moe``/``ssm``/``attn_every`` fields wait for later slices of the port.
+(Llama-3.2-1B, Qwen3-32B, Minitron-4B, InternLM2-20B) and Mamba-2-130M
+(``family="ssm"``) serve through the decode engines; the MoE, hybrid, vlm
+and audio configs and their ``moe``/``attn_every`` fields wait for later
+slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """The Mamba-2 (SSD) mixer's widths, as in the reference."""
+    state_dim: int = 128          # N (SSD state size)
+    head_dim: int = 64            # P (channels per SSD head)
+    expand: int = 2               # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk: int = 256              # SSD chunk length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,12 +31,12 @@ class ArchConfig:
     """One transformer tower: widths, masks, attention backend, and the
     vision frontend's geometry (field meanings as in the reference)."""
     name: str
-    family: str                   # 'encoder' (BASIC towers) | 'dense' (LMs)
+    family: str                   # 'encoder' (BASIC towers) | 'dense' | 'ssm'
     n_layers: int
     d_model: int
-    n_heads: int
+    n_heads: int                  # 0 for attention-free
     n_kv_heads: int
-    d_ff: int
+    d_ff: int                     # 0 for attention-free (mamba)
     vocab: int
     head_dim: Optional[int] = None   # default d_model // n_heads
     qk_norm: bool = False
@@ -34,6 +45,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
+    ssm: Optional[SSMConfig] = None
     # attention backend (models.attention registry): 'naive', 'chunked',
     # 'flash' (the hand-written kernel; the reference's 'pallas' maps to
     # it) or 'auto' (flash on the card, chunked on the CPU)
@@ -56,10 +68,45 @@ class ArchConfig:
             raise ValueError(f"{self.name}: no attention heads")
         return self.d_model // self.n_heads
 
+    @property
+    def attention_free(self) -> bool:
+        """True for the SSM family, whose blocks have no attention."""
+        return self.family == "ssm"
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind: 'mamba' for the SSM family, else 'attn'."""
+        kind = "mamba" if self.family == "ssm" else "attn"
+        return tuple(kind for _ in range(self.n_layers))
+
+    def param_counts(self) -> dict:
+        """Total and active parameter counts, analytic (the reference's
+        formula, without its MoE and hybrid terms): per layer the
+        attention or Mamba-2 mixer, two norms and, outside the SSM family,
+        the SwiGLU FFN; then the embedding, final norm and untied head."""
+        d, V = self.d_model, self.vocab
+        hd = self.resolved_head_dim if self.n_heads else 0
+        q, kv = self.n_heads * hd, self.n_kv_heads * hd
+        if self.ssm is not None:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            # in_proj (z, x, B, C, dt), conv, out_proj, A and D per head
+            mixer = d * (2 * d_in + 2 * s.state_dim + nheads) \
+                + s.conv_width * (d_in + 2 * s.state_dim) \
+                + d_in * d + 2 * nheads
+        else:
+            mixer = d * q + 2 * d * kv + q * d        # wq, wk, wv, wo
+        ffn = 0 if self.family == "ssm" else 3 * d * self.d_ff
+        total = self.n_layers * (mixer + 2 * d + ffn) + V * d + d
+        if not self.tie_embeddings:
+            total += V * d
+        return {"total": total, "active": total}
+
 
 _REGISTRY: dict = {}
 
-_ARCH_MODULES = ["minitron_4b", "internlm2_20b", "qwen3_32b", "llama3_2_1b",
+_ARCH_MODULES = ["minitron_4b", "mamba2_130m", "internlm2_20b", "qwen3_32b",
+                 "llama3_2_1b",
                  # the paper's own models (dual-encoder towers)
                  "basic_s", "basic_m", "basic_l"]
 
@@ -92,8 +139,9 @@ def _ensure_loaded():
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """A reduced config of the same family: 2 layers, d_model <= 256,
-    <= 4 heads, a vision geometry of <= 16 patches and a sliding window of
-    64 (the reference's transform, restricted to the encoder and dense
+    <= 4 heads, a vision geometry of <= 16 patches, a sliding window of
+    64 and an SSD state of 16 over heads of 32 in chunks of 32 (the
+    reference's transform, restricted to the encoder, dense and SSM
     families)."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
@@ -119,6 +167,9 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         ps = min(cfg.patch_size or 4, 4)
         changes["patch_size"] = ps
         changes["image_size"] = side * ps
+    if cfg.ssm is not None:
+        changes["ssm"] = dataclasses.replace(
+            cfg.ssm, state_dim=16, head_dim=32, chunk=32)
     if cfg.sliding_window is not None:
         changes["sliding_window"] = 64
     return dataclasses.replace(cfg, **changes)

@@ -10,7 +10,8 @@ is a copy. The reference's tree comes in as numpy arrays (its caller runs
 ``init_params`` draws a fresh dual encoder or LM with the reference's init
 law from a ``torch.Generator``. An LM's parameters come over through
 ``from_numpy`` as they are; ``caches_from_numpy`` / ``caches_to_numpy``
-carry decode caches (the list of stacked ``KVCache``s) both ways. ``opt_state_from_numpy`` / ``opt_state_to_numpy``
+carry decode caches (the list of stacked ``KVCache``s or ``SSMCache``s)
+both ways. ``opt_state_from_numpy`` / ``opt_state_to_numpy``
 carry an AdaFactorW state (the reference's ``AdaFactorWState`` as numpy
 arrays) both ways, with the same rule: every conversion onto torch names
 its device, there is no default.
@@ -25,6 +26,7 @@ from repro_torch.configs.dual import DualEncoderConfig
 from repro_torch.models import dual_encoder as de
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.optim.adafactorw import AdaFactorWState
 from repro_torch.tree import leaves  # noqa: F401
 
@@ -89,18 +91,28 @@ def opt_state_to_numpy(state: AdaFactorWState) -> AdaFactorWState:
                            v_col=to_numpy(state.v_col))
 
 
+def _cache_type(c):
+    """The port's cache class for a reference cache: by its fields, since
+    the reference's classes are not imported here."""
+    for cls in (KVCache, SSMCache):
+        if tuple(getattr(c, "_fields", ())) == cls._fields:
+            return cls
+    raise TypeError(f"not a KVCache or SSMCache: {type(c).__name__}")
+
+
 def caches_from_numpy(caches, device) -> list:
-    """The reference's decode caches (a list of ``KVCache``s of numpy
-    arrays, its caller having run ``jax.device_get``) -> the port's, on
-    ``device`` (required), dtypes kept."""
-    return [KVCache(k=_leaf_from_numpy(c.k, device),
-                    v=_leaf_from_numpy(c.v, device)) for c in caches]
+    """The reference's decode caches (a list of ``KVCache``s or
+    ``SSMCache``s of numpy arrays, its caller having run
+    ``jax.device_get``) -> the port's, on ``device`` (required), dtypes
+    kept."""
+    return [_cache_type(c)(*(_leaf_from_numpy(x, device) for x in c))
+            for c in caches]
 
 
 def caches_to_numpy(caches) -> list:
-    """The port's decode caches -> the same list of ``KVCache``s of numpy
-    arrays (bf16 widened to float32, exactly)."""
-    return [KVCache(k=to_numpy(c.k), v=to_numpy(c.v)) for c in caches]
+    """The port's decode caches -> the same list of ``KVCache``s or
+    ``SSMCache``s of numpy arrays (bf16 widened to float32, exactly)."""
+    return [_cache_type(c)(*(to_numpy(x) for x in c)) for c in caches]
 
 
 def to_device(tree, device):

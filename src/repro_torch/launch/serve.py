@@ -11,6 +11,16 @@ a request-queue loop over the ``ContinuousEngine`` (port of
       --smoke --device cpu --engine continuous --slots 4 --requests 16 \
       --arrival 0.05 --prompt-len 16 --max-new 32
 
+  # Mamba-2 (attention-free; --attn has no effect on it)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --smoke --device cpu --engine continuous
+
+A Mamba-2 prompt must be at most the SSD chunk long (256 tokens; 32 for
+``--smoke``) or a whole number of chunks, the reference's rule; other
+lengths raise ``ValueError``. The continuous loop's ragged lengths
+(``--prompt-len`` + {-4, 0, 4, 8}) therefore need ``--prompt-len`` <= 248
+(<= 24 with ``--smoke``).
+
 Weights are random, drawn from ``--seed`` on the run's device; prompts are
 random token ids. The continuous loop submits ``--requests`` requests
 with Poisson-ish gaps (``--arrival`` mean seconds; 0 = all up front) and

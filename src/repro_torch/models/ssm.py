@@ -1,0 +1,156 @@
+"""Mamba-2 (SSD, state-space duality) mixer block [arXiv:2405.21060] (port
+of ``repro/models/ssm.py``).
+
+The full-sequence mixer splits its projections (z, x, B, C, dt), runs a
+causal depthwise conv over (x, B, C), then the SSD scan through
+``kernels.ssd_scan.ssd_scan``: the hand-written kernel on the card, the
+chunked plain version (``ssd_chunked``, the reference's jnp algorithm) on
+the CPU. The scan adds ``D·x`` itself, so the mixer does not add it again
+as the reference does after its ``ssd_chunked``.
+
+Decode is the O(1) recurrent form in plain PyTorch on both devices (the
+reference has no kernel there): the state (b, heads, head_dim, N) is
+updated per token and a depthwise-conv window of width conv_width - 1
+feeds the (x, B, C) convolution. Unlike the reference, which returns a new
+cache, ``mamba_decode`` writes the new state and window into the cache it
+is given, in place (a layer's slice of the stacked cache).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import layers as L
+
+
+class SSMCache(NamedTuple):
+    """Decode-time SSM state: the SSD state (b, heads, head_dim, N) fp32
+    and the conv window (b, conv_width - 1, d_conv) in the compute dtype."""
+    ssm: torch.Tensor
+    conv: torch.Tensor
+
+
+def dims(cfg: ArchConfig):
+    """Derived SSD dimensions (d_inner, n_heads, d_conv) for the config."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nheads = d_in // s.head_dim
+    d_conv = d_in + 2 * s.state_dim
+    return d_in, nheads, d_conv
+
+
+def init_ssm_params(cfg: ArchConfig, generator: torch.Generator, extra=(),
+                    device=None) -> dict:
+    """Mamba-2 block params with the reference's init law: in/out
+    projections, the conv (truncated normal, σ = conv_width^-1/2), dt_bias
+    0, A_log = log(linspace(1, 16, heads)), D 1."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, nheads, d_conv = dims(cfg)
+    return {
+        "in_z": L.dense_init(generator, d, d_in, extra, device),
+        "in_x": L.dense_init(generator, d, d_in, extra, device),
+        "in_B": L.dense_init(generator, d, s.state_dim, extra, device),
+        "in_C": L.dense_init(generator, d, s.state_dim, extra, device),
+        "in_dt": L.dense_init(generator, d, nheads, extra, device),
+        "conv_w": L.trunc_normal(generator, (*extra, s.conv_width, d_conv),
+                                 s.conv_width ** -0.5, device),
+        "dt_bias": torch.zeros((*extra, nheads), device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads, device=device)
+                           ).expand(*extra, nheads).contiguous(),
+        "D": torch.ones((*extra, nheads), device=device),
+        "out": L.dense_init(generator, d_in, d, extra, device),
+    }
+
+
+def _conv1d(xBC: torch.Tensor, w: torch.Tensor, state=None):
+    """Causal depthwise conv in xBC's dtype. xBC: (b, l, c); w: (cw, c);
+    state: (b, cw-1, c) previous inputs (decode) or None (zero padding).
+    Returns (out (b, l, c), the last cw-1 inputs, the new window)."""
+    cw = w.shape[0]
+    if state is None:
+        pad = torch.zeros((xBC.shape[0], cw - 1, xBC.shape[2]),
+                          dtype=xBC.dtype, device=xBC.device)
+    else:
+        pad = state.to(xBC.dtype)
+    full = torch.cat([pad, xBC], dim=1)
+    l = xBC.shape[1]
+    wc = w.to(xBC.dtype)
+    out = full[:, 0:l, :] * wc[0]
+    for i in range(1, cw):
+        out = out + full[:, i:i + l, :] * wc[i]
+    return out, (full[:, -(cw - 1):, :] if cw > 1 else pad)
+
+
+def _project(p, cfg: ArchConfig, x):
+    """The split input projections and the conv's input: (z, xBC, dt fp32
+    after softplus(· + dt_bias))."""
+    z = L.dense(x, p["in_z"])
+    xBC = torch.cat([L.dense(x, p["in_x"]), L.dense(x, p["in_B"]),
+                     L.dense(x, p["in_C"])], dim=-1)
+    dt = F.softplus(L.dense(x, p["in_dt"]).float() + p["dt_bias"])
+    return z, xBC, dt
+
+
+def mamba_mixer(p, cfg: ArchConfig, x, cache: SSMCache = None):
+    """Full-sequence Mamba-2 mixer. x: (b, l, d); ``cache`` (optional)
+    gives the conv window and SSD state to start from. Returns (out
+    (b, l, d), the new ``SSMCache``: final SSD state fp32, last conv
+    window in x's dtype). l must be at most ``cfg.ssm.chunk`` or a
+    multiple of it (``ValueError`` otherwise, from the scan)."""
+    s = cfg.ssm
+    d_in, nheads, _ = dims(cfg)
+    b, l, _ = x.shape
+    z, xBC, dt = _project(p, cfg, x)
+    xBC, new_conv = _conv1d(xBC, p["conv_w"],
+                            None if cache is None else cache.conv)
+    xBC = F.silu(xBC)
+    xh = xBC[..., :d_in].reshape(b, l, nheads, s.head_dim)
+    Bm = xBC[..., d_in:d_in + s.state_dim]
+    Cm = xBC[..., d_in + s.state_dim:]
+    A = -torch.exp(p["A_log"].float())
+    y, final = ssd_scan(xh, dt, A, Bm, Cm, p["D"].float(), chunk=s.chunk,
+                        init_state=None if cache is None else cache.ssm)
+    y = y.reshape(b, l, d_in).to(x.dtype) * F.silu(z)
+    return L.dense(y, p["out"]), SSMCache(ssm=final, conv=new_conv)
+
+
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, *,
+                   device) -> SSMCache:
+    """Zeroed decode cache for one SSM block on ``device`` (required)."""
+    s = cfg.ssm
+    _, nheads, d_conv = dims(cfg)
+    return SSMCache(
+        ssm=torch.zeros((batch, nheads, s.head_dim, s.state_dim),
+                        dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, s.conv_width - 1, d_conv), dtype=dtype,
+                         device=device))
+
+
+def mamba_decode(p, cfg: ArchConfig, x, cache: SSMCache):
+    """Single-token recurrent step. x: (b, 1, d). Writes the new SSD state
+    and conv window into ``cache`` in place; returns (out (b, 1, d),
+    cache)."""
+    s = cfg.ssm
+    d_in, nheads, _ = dims(cfg)
+    b = x.shape[0]
+    z, xBC, dt = _project(p, cfg, x)                              # dt (b,1,h)
+    xBC, new_conv = _conv1d(xBC, p["conv_w"], cache.conv)
+    xBC = F.silu(xBC)
+    A = -torch.exp(p["A_log"].float())                            # (h,)
+    dt0 = dt[:, 0, :]                                             # (b, h)
+    xh = xBC[:, 0, :d_in].reshape(b, nheads, s.head_dim).float()
+    Bm = xBC[:, 0, d_in:d_in + s.state_dim].float()
+    Cm = xBC[:, 0, d_in + s.state_dim:].float()
+    state = (cache.ssm * torch.exp(dt0 * A)[..., None, None]
+             + (dt0[..., None] * xh)[..., None] * Bm[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", state, Cm)
+    y = y + p["D"].float()[None, :, None] * xh
+    y = y.reshape(b, 1, d_in).to(x.dtype) * F.silu(z)
+    cache.ssm.copy_(state)
+    cache.conv.copy_(new_conv)
+    return L.dense(y, p["out"]), cache

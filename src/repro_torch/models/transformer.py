@@ -1,13 +1,18 @@
-"""Model assembly for the encoder towers and the dense decoder LMs (port of
-``repro/models/transformer.py``, the encoder and dense families).
+"""Model assembly for the encoder towers, the dense decoder LMs and the
+attention-free SSM LMs (port of ``repro/models/transformer.py``, the
+encoder, dense and ssm families).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a list
 with one entry per position of the layer period (one for both families),
 each a dict whose leaves stack all layers on a leading axis, so a
-reference checkpoint maps onto the port leaf for leaf. Decode caches keep
-the same stacking: ``caches`` is a list with one ``KVCache`` whose k/v are
-(n_layers, batch, kv_heads, cache_len, head_dim). ``forward`` runs a
-Python loop over the layer axis where the reference runs ``lax.scan``.
+reference checkpoint maps onto the port leaf for leaf. An attention block
+is ``ln1`` + ``attn`` + ``ln2`` + ``ffn``; a Mamba-2 block (``family="ssm"``)
+is ``ln1`` + ``mamba`` alone. Decode caches keep the same stacking:
+``caches`` is a list with one ``KVCache`` whose k/v are (n_layers, batch,
+kv_heads, cache_len, head_dim), or one ``SSMCache`` whose ssm is
+(n_layers, batch, heads, head_dim, state) fp32 and conv (n_layers, batch,
+conv_width - 1, d_conv). ``forward`` runs a Python loop over the layer
+axis where the reference runs ``lax.scan``.
 
 Entry points:
   init_params(cfg, generator, device)            -> params dict
@@ -19,9 +24,9 @@ Entry points:
 ``forward`` and ``encode`` take a ``remat_policy`` (``core.remat``) that
 wraps each block in a checkpoint, as the reference wraps each period step
 (``repro/models/transformer.py:168-169``). ``decode_step`` writes each
-layer's new k/v into the caches in place and returns the same objects.
-``lm_loss`` and ``unroll`` wait for the LM training slice; the MoE, SSM,
-hybrid and vlm families for their own slices.
+layer's new k/v (or SSD state and conv window) into the caches in place
+and returns the same objects. ``lm_loss`` and ``unroll`` wait for the LM
+training slice; the MoE, hybrid and vlm families for their own slices.
 """
 from __future__ import annotations
 
@@ -33,18 +38,19 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import frontends as fe
 from repro_torch.models import layers as L
 from repro_torch.models import precision as prec_lib
+from repro_torch.models import ssm as ssm_lib
 
 
 # the slice of the port that brings each family it does not run yet
-_LATER = {"moe": "the MoE slice", "ssm": "the SSM slice (ssd_scan)",
-          "hybrid": "the SSM slice (ssd_scan)",
+_LATER = {"moe": "the MoE slice",
+          "hybrid": "the MoE slice, after the SSM family (Jamba needs MoE)",
           "vlm": "the MoE slice, with the vlm frontend"}
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("encoder", "dense"):
+    if cfg.family not in ("encoder", "dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the encoder and dense families; "
+            f"{cfg.name}: the port runs the encoder, dense and ssm families; "
             f"{cfg.family!r} comes with "
             f"{_LATER.get(cfg.family, 'a later slice')}")
 
@@ -52,6 +58,10 @@ def _check_family(cfg: ArchConfig) -> None:
 def _init_block(cfg: ArchConfig, generator: torch.Generator, extra,
                 device) -> dict:
     d = cfg.d_model
+    if cfg.family == "ssm":         # Mamba-2 blocks have no separate FFN
+        return {"ln1": torch.ones((*extra, d), device=device),
+                "mamba": ssm_lib.init_ssm_params(cfg, generator, extra,
+                                                 device)}
     return {
         "ln1": torch.ones((*extra, d), device=device),
         "attn": attn_lib.init_attn_params(cfg, generator, extra, device),
@@ -94,11 +104,19 @@ def _layer(tree, i: int):
 
 def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
                  cache=None, decode=False, collect_cache_len=None):
-    """Pre-norm attention + SwiGLU block. Returns (h, the layer's cache:
-    the one given, written in place, when decoding; one built from the
-    prompt with ``collect_cache_len``; else None)."""
+    """Pre-norm attention + SwiGLU block, or a pre-norm Mamba-2 block for
+    the SSM family. Returns (h, the layer's cache: the one given, written
+    in place, when decoding; one built from the prompt with
+    ``collect_cache_len``; else None)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     new_cache = None
+    if cfg.family == "ssm":
+        if decode:
+            mix, new_cache = ssm_lib.mamba_decode(p["mamba"], cfg, hn, cache)
+        else:
+            mix, new_cache = ssm_lib.mamba_mixer(p["mamba"], cfg, hn)
+        return h + mix, (new_cache if decode or collect_cache_len is not None
+                         else None)
     if decode:
         mix, new_cache = attn_lib.decode_attention(p["attn"], cfg, hn, cache,
                                                    positions)
@@ -130,10 +148,10 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     _check_family(cfg)
     stack = params["blocks"][0]
     if decode:
-        kv = caches[0]
+        c = caches[0]
         for i in range(cfg.n_layers):
             h, _ = _apply_block(cfg, _layer(stack, i), h, positions,
-                                cache=attn_lib.KVCache(kv.k[i], kv.v[i]),
+                                cache=type(c)(*(x[i] for x in c)),
                                 decode=True)
         return h, caches
     if collect_cache_len is not None:
@@ -143,8 +161,8 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
                                 key_mask=key_mask,
                                 collect_cache_len=collect_cache_len)
             built.append(c)
-        return h, [attn_lib.KVCache(torch.stack([c.k for c in built]),
-                                    torch.stack([c.v for c in built]))]
+        return h, [type(built[0])(*(torch.stack(leaf)
+                                    for leaf in zip(*built)))]
 
     def block(p, h, positions, key_mask):
         return _apply_block(cfg, p, h, positions, key_mask)[0]
@@ -210,7 +228,7 @@ def encode(cfg: ArchConfig, params, batch, *, precision=None,
 
 
 # ---------------------------------------------------------------------------
-# Dense LM: logits, caches, prefill and decode
+# Decoder LMs: logits, caches, prefill and decode
 # ---------------------------------------------------------------------------
 
 
@@ -230,13 +248,17 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
                 dtype=torch.bfloat16, *, device) -> list:
     """Zeroed decode caches on ``device`` (required), stacked over the
     layers: a list with one ``KVCache`` of (n_layers, batch, kv_heads,
-    cache_len, head_dim), ring-sized when the window fits in
-    ``seq_len``."""
+    cache_len, head_dim), ring-sized when the window fits in ``seq_len``,
+    or for the SSM family one ``SSMCache`` of (n_layers, batch, ...),
+    whatever ``seq_len``."""
     _check_family(cfg)
-    one = attn_lib.init_kv_cache(cfg, batch, seq_len, dtype, device=device)
-    return [attn_lib.KVCache(
-        one.k[None].expand(cfg.n_layers, *one.k.shape).contiguous(),
-        one.v[None].expand(cfg.n_layers, *one.v.shape).contiguous())]
+    if cfg.family == "ssm":
+        one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device)
+    else:
+        one = attn_lib.init_kv_cache(cfg, batch, seq_len, dtype,
+                                     device=device)
+    return [type(one)(*(x[None].expand(cfg.n_layers, *x.shape).contiguous()
+                        for x in one))]
 
 
 def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
@@ -261,8 +283,9 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
                 dtype=torch.bfloat16, precision=None):
     """One decode step. token: (b, 1) integer tensor; pos: an int (every
     row at one position, the lockstep engine) or a (b,) integer tensor of
-    per-slot positions (the continuous engine). Writes each layer's new
-    k/v into ``caches`` in place; returns (logits (b, 1, vocab), caches)."""
+    per-slot positions (the continuous engine; the SSM family ignores it).
+    Writes each layer's new k/v, or SSD state and conv window, into
+    ``caches`` in place; returns (logits (b, 1, vocab), caches)."""
     pol = prec_lib.resolve(precision, dtype)
     h = params["embed"][token.long()].to(pol.compute_dtype)
     h, caches = forward(cfg, params, h, pos, caches=caches, decode=True)

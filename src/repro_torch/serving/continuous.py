@@ -9,7 +9,8 @@ around a slot-based cache of capacity ``num_slots``:
                      single cache row (zeros past the prompt)
   insert(row, slot)  copy that row into the packed (n_layers, num_slots,
                      ...) cache in place, overwriting the slot's previous
-                     tenant entirely
+                     tenant entirely (KV rows, or SSD state and conv
+                     window rows alike)
   step()             one decode step advancing every slot by one token at
                      its own position (``transformer.decode_step`` with
                      ``pos`` (S,)): RoPE, cache write and length mask per
@@ -84,7 +85,7 @@ class ContinuousEngine:
     token with one decode step, and retires the slots whose request hit
     EOS or its budget, returning them as ``FinishedRequest``s. ``run()``
     is the drain loop. The engine runs on the device of ``params``;
-    ``moe_args`` is accepted and unused (dense models)."""
+    ``moe_args`` is accepted and unused (dense and SSM models)."""
 
     def __init__(self, cfg: ArchConfig, params, *, cache_len: int,
                  num_slots: int, dtype=None, precision=None,

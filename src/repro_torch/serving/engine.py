@@ -2,14 +2,16 @@
 of ``repro/serving/engine.py``).
 
 ``Engine.generate`` prefills the prompt batch once, building the per-layer
-KV caches (a ring under a sliding window whose length is the cache's),
-then decodes one token for every row per step; the caches are written in
+decode caches (KV caches, a ring under a sliding window whose length is
+the cache's; for the SSM family the SSD state and conv window), then
+decodes one token for every row per step; the caches are written in
 place. Prefill and decode run under one ``models.precision`` policy and
 one attention backend: ``attn`` selects the full-sequence backend for
 prefill (``models.attention`` registry; ``pallas`` is the flash kernel)
 and the decode backend (``resolve_decode_backend``; ``pallas`` is the
-split-K decode kernel). The engine runs on the device of the parameters
-it is given.
+split-K decode kernel); it has no effect on an attention-free model,
+whose prefill runs the SSD scan kernel. The engine runs on the device of
+the parameters it is given.
 
 Sampling (``sample_tokens``, shared with the continuous engine): greedy is
 an fp32 host-side ``np.argmax``, the tie-break both engines share;
@@ -73,7 +75,8 @@ class Engine:
     advances together until the slowest finishes. The continuous engine's
     parity oracle.
 
-    ``moe_args`` is accepted and unused: the port serves dense models."""
+    ``moe_args`` is accepted and unused: the port serves dense and SSM
+    models."""
 
     def __init__(self, cfg: ArchConfig, params, *, cache_len: int,
                  dtype=None, precision=None, attn: Optional[str] = None,

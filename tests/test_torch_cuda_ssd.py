@@ -1,0 +1,193 @@
+"""The SSM path's CUDA kernel on the card: the SSD chunked-scan kernel
+against its plain PyTorch version (``ssd_chunked``) and the sequential
+recurrence (``ssd_ref``), and the Mamba-2 model's prefill through the
+kernel against the plain path. Every test here needs a CUDA card and the
+CUDA toolkit; on a host without a card they skip (the card is looked for
+inside a fixture, never at import). Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_ssd.py
+
+Tolerance: 2e-5 of the tensor's max |value|, for y and the final state,
+f32 and bf16 inputs alike: the reference's own kernel-vs-``ssd_chunked``
+tolerance (tests/test_kernels.py). Both sides read the same values and
+accumulate in fp32; the kernel sums in another order and in sub-chunks of
+64 tokens. Two launches on the same inputs give the same bits.
+"""
+import dataclasses
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import chunk_of, ssd_chunked, ssd_ref
+
+pytestmark = pytest.mark.cuda
+
+TOL_REL = 2e-5
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _inputs(gen, b, l, h, p, n, dtype, init=False, split=True):
+    """x, B, C as the mixer's split views of one buffer (or contiguous),
+    dt softplus'd, A negative, D random, optional initial state."""
+    if split:
+        buf = torch.randn((b, l, h * p + 2 * n), generator=gen,
+                          device="cuda").to(dtype)
+        x = buf[..., :h * p].reshape(b, l, h, p)
+        Bm, Cm = buf[..., h * p:h * p + n], buf[..., h * p + n:]
+    else:
+        x = torch.randn((b, l, h, p), generator=gen, device="cuda").to(dtype)
+        Bm, Cm = (torch.randn((b, l, n), generator=gen, device="cuda")
+                  .to(dtype) for _ in range(2))
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device="cuda"))
+    A = -torch.exp(0.3 * torch.randn((h,), generator=gen, device="cuda"))
+    D = torch.rand((h,), generator=gen, device="cuda")
+    s0 = (torch.randn((b, h, p, n), generator=gen, device="cuda") if init
+          else None)
+    return x, dt, A, Bm, Cm, D, s0
+
+
+def _assert_close(got, ref):
+    err = (got - ref).abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert err <= TOL_REL * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,chunk,init", [
+    (1, 256, 24, 64, 128, 256, False),    # one chunk, Mamba-2-130M widths
+    (1, 244, 24, 64, 128, 256, True),     # ragged: a chunk of 244
+    (1, 1024, 24, 64, 128, 256, False),   # four chunks
+    (8, 256, 24, 64, 128, 256, True),     # the timed serving batch
+    (2, 96, 3, 32, 16, 32, True),         # smoke widths, 3 chunks
+    (1, 13, 2, 16, 8, 32, False),         # a 13-token chunk, least widths
+    (1, 65, 2, 16, 8, 65, True),          # one token past a sub-chunk
+    (2, 200, 4, 48, 256, 100, True),      # the largest state, p 48
+])
+def test_ssd_kernel_matches_plain(gen, b, l, h, p, n, chunk, init, dtype):
+    x, dt, A, Bm, Cm, D, s0 = _inputs(gen, b, l, h, p, n, dtype, init)
+    y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0)
+    yr, fr = ssd_chunked(x, dt, A, Bm, Cm, chunk_of(l, chunk), s0, D)
+    assert y.shape == (b, l, h, p) and f.shape == (b, h, p, n)
+    assert y.dtype == f.dtype == torch.float32
+    _assert_close(y, yr)
+    _assert_close(f, fr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_the_recurrence(gen, dtype):
+    x, dt, A, Bm, Cm, D, s0 = _inputs(gen, 2, 128, 4, 32, 16, dtype,
+                                      init=True, split=False)
+    dt = dt * 0.5
+    y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=32, init_state=s0)
+    yr, fr = ssd_ref(x, dt, A, Bm, Cm, D, init_state=s0)
+    _assert_close(y, yr)
+    _assert_close(f, fr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_decay_extremes_stay_finite(gen, dtype):
+    """dt 3 and A -5: exp(cum_i - cum_j) above the diagonal would be
+    inf; the kernel never evaluates it, so no NaN."""
+    x, _, _, Bm, Cm, D, _ = _inputs(gen, 1, 256, 24, 64, 128, dtype)
+    dt = torch.full((1, 256, 24), 3.0, device="cuda")
+    A = torch.tensor([-5.0, -0.001] * 12, device="cuda")
+    y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256)
+    yr, fr = ssd_ref(x, dt, A, Bm, Cm, D)
+    _assert_close(y, yr)
+    _assert_close(f, fr)
+
+
+def test_ssd_kernel_is_bit_identical_across_launches(gen):
+    args = _inputs(gen, 2, 512, 24, 64, 128, torch.bfloat16, init=True)
+    runs = [ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
+            for _ in range(3)]
+    for y, f in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(f, runs[0][1])
+
+
+def test_ssd_kernel_without_d_or_state_and_counts_launches(gen):
+    x, dt, A, Bm, Cm, _, _ = _inputs(gen, 1, 64, 2, 16, 8, torch.float32)
+    before = ssd_ops.COUNTER.count
+    y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    assert ssd_ops.COUNTER.count == before + 1
+    yr, fr = ssd_chunked(x, dt, A, Bm, Cm, 64)
+    _assert_close(y, yr)
+    _assert_close(f, fr)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(gen):
+    x, dt, A, Bm, Cm, D, _ = _inputs(gen, 1, 64, 2, 32, 16, torch.float32)
+    with pytest.raises(ValueError, match="multiple of it"):
+        ssd_ops.ssd_scan(x[:, :40], dt[:, :40], A, Bm[:, :40], Cm[:, :40],
+                         D, chunk=32)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_ops.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), D, chunk=64)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_ops.ssd_scan(x, dt, A, Bm.bfloat16(), Cm, D, chunk=64)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_ops.ssd_scan(x, dt.bfloat16(), A, Bm, Cm, D, chunk=64)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_ops.ssd_scan(x[..., :24], dt, A, Bm, Cm, D, chunk=64)
+    with pytest.raises(ValueError, match="up to 256"):
+        big = torch.zeros((1, 64, 260), device="cuda")
+        ssd_ops.ssd_scan(x, dt, A, big, big, D, chunk=64)
+    with pytest.raises(ValueError, match="contiguous last"):
+        ssd_ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                         A, Bm, Cm, D, chunk=64)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_ops.ssd_scan(x, dt[:, :, :1], A, Bm, Cm, D, chunk=64)
+    with pytest.raises(ValueError, match="one device"):
+        ssd_ops.ssd_scan(x, dt.cpu(), A, Bm, Cm, D, chunk=64)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_mamba_prefill_kernel_path_matches_plain_path(gen, precision):
+    """The smoke Mamba-2 at chunk 256 (so 300 tokens is refused and 512
+    is two chunks): logits and caches of the kernel path against the
+    mixer with the scan's plain version swapped in."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tf
+    cfg = smoke_variant(get_arch("mamba2-130m"))
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           chunk=256))
+    params = interop.init_params(cfg, gen, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        4, cfg.vocab, (2, 512))).cuda()
+
+    def plain(x, dt, A, Bm, Cm, D=None, *, chunk, init_state=None):
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk_of(x.shape[1], chunk),
+                           init_state, D)
+
+    before = ssd_ops.COUNTER.count
+    kl, kc = tf.prefill(cfg, params, {"tokens": toks}, precision=precision,
+                        collect_cache_len=1024)
+    assert ssd_ops.COUNTER.count == before + cfg.n_layers
+    with mock.patch.object(ssm_lib, "ssd_scan", plain):
+        pl, pc = tf.prefill(cfg, params, {"tokens": toks},
+                            precision=precision, collect_cache_len=1024)
+    assert ssd_ops.COUNTER.count == before + cfg.n_layers
+    # f32: fp32 sums in another order through 2 layers; bf16: the two
+    # paths' fp32 y round to bf16 apart at boundary crossings (2^-8
+    # relative), and 2 layers carry that into the logits
+    tol = 1e-4 if precision == "f32" else 5e-2
+    assert (kl - pl).abs().max().item() <= tol * pl.abs().max().item()
+    for leaf in ("ssm", "conv"):
+        a, b = getattr(kc[0], leaf).float(), getattr(pc[0], leaf).float()
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+    with pytest.raises(ValueError, match="multiple of it"):
+        tf.prefill(cfg, params, {"tokens": toks[:, :300]},
+                   precision=precision)

@@ -2,6 +2,7 @@
 law, and the rule that ``repro_torch`` imports neither JAX nor anything of
 the ``repro`` package (its copies of configs, data and obs stand alone).
 """
+import dataclasses
 import os
 import re
 import subprocess
@@ -75,7 +76,7 @@ def test_init_params_has_the_reference_layout_and_law(arch):
             assert abs(float(t.std()) / sigma - 0.8796) < 0.05, path
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-32b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-32b", "mamba2-130m"])
 def test_lm_params_have_the_reference_layout_and_round_trip(arch):
     """An ArchConfig goes to the transformer's init: the reference LM's
     leaf paths and shapes, and the reference's weights carried over as
@@ -94,6 +95,40 @@ def test_lm_params_have_the_reference_layout_and_round_trip(arch):
                                       err_msg=path)
     with pytest.raises(TypeError):
         interop.init_params(object(), torch.Generator(), "cpu")
+
+
+def test_ssm_caches_round_trip():
+    """A list holding the reference's ``SSMCache`` (ssm (L, b, h, p, n)
+    f32, conv (L, b, cw-1, d_conv) bf16) comes over as the port's
+    ``SSMCache`` on the named device, dtypes kept, and goes back as the
+    same arrays; a ``KVCache`` list still does."""
+    from repro.models.attention import KVCache as JKV
+    from repro.models.ssm import SSMCache as JSSM
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMCache
+    jcfg = jax_smoke_variant(jax_get_arch("mamba2-130m"))
+    caches = jax.device_get(jtf.init_caches(jcfg, 2, 16, jax.numpy.bfloat16))
+    rng = np.random.default_rng(0)
+    caches = [JSSM(ssm=rng.standard_normal(caches[0].ssm.shape).astype(
+        np.float32), conv=jax.device_get(jax.numpy.asarray(
+            rng.standard_normal(caches[0].conv.shape),
+            jax.numpy.bfloat16)))]
+    got = interop.caches_from_numpy(caches, "cpu")
+    assert isinstance(got[0], SSMCache)
+    assert got[0].ssm.dtype == torch.float32
+    assert got[0].conv.dtype == torch.bfloat16
+    assert tuple(got[0].ssm.shape) == (2, 2, 16, 32, 16)
+    back = interop.caches_to_numpy(got)
+    assert isinstance(back[0], SSMCache)
+    np.testing.assert_array_equal(back[0].ssm, caches[0].ssm)
+    np.testing.assert_array_equal(back[0].conv,
+                                  np.asarray(caches[0].conv, np.float32))
+    kv = [JKV(k=np.ones((1, 2, 3), np.float32),
+              v=np.zeros((1, 2, 3), np.float32))]
+    (kvt,) = interop.caches_from_numpy(kv, "cpu")
+    assert isinstance(kvt, KVCache) and bool((kvt.k == 1).all())
+    with pytest.raises(TypeError, match="KVCache or SSMCache"):
+        interop.caches_from_numpy([(np.ones(2),)], "cpu")
 
 
 def test_from_numpy_names_its_device():
@@ -125,14 +160,23 @@ LM_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
 
 
 def test_configs_copy_the_reference():
-    lms = ["internlm2-20b", "llama3.2-1b", "minitron-4b", "qwen3-32b"]
+    lms = ["internlm2-20b", "llama3.2-1b", "mamba2-130m", "minitron-4b",
+           "qwen3-32b"]
     assert list_archs() == sorted(["basic-l", "basic-m", "basic-s"] + lms)
     for arch in lms:
         j, t = jax_get_arch(arch), get_arch(arch)
-        for f in LM_FIELDS:
-            assert getattr(t, f) == getattr(j, f), (arch, f)
-            assert getattr(smoke_variant(t), f) == getattr(
-                jax_smoke_variant(j), f), (arch, f)
+        for cj, ct in ((j, t), (jax_smoke_variant(j), smoke_variant(t))):
+            for f in LM_FIELDS:
+                if f == "resolved_head_dim" and not cj.n_heads:
+                    continue            # attention-free: no head dim
+                assert getattr(ct, f) == getattr(cj, f), (arch, f)
+            assert ct.attention_free == cj.attention_free, arch
+            assert ct.layer_kinds() == cj.layer_kinds(), arch
+            assert ct.param_counts() == cj.param_counts(), arch
+            assert (ct.ssm is None) == (cj.ssm is None), arch
+            if cj.ssm is not None:
+                assert dataclasses.asdict(ct.ssm) == dataclasses.asdict(
+                    cj.ssm), arch
     from repro.configs.llama3_2_1b import FULL_ATTENTION_VARIANT as jfull
     from repro_torch.configs.llama3_2_1b import FULL_ATTENTION_VARIANT
     assert FULL_ATTENTION_VARIANT.sliding_window is None
