@@ -25,62 +25,71 @@ repository beside this file; it exits non-zero without them. In order it:
    plain versions at B = 2048 and a ragged B = 1000 (D = 512, f32 and
    bf16, and the backward with ``with_diag=False`` and ``b_norm != B``),
    and times kernel, plain version and the materialising PyTorch calls;
-7. serves zero-shot classification with BASIC-S at full width on the card
+7. holds the legacy 4-pass pair, ``row_col_lse`` and ``grads``, against
+   their plain versions at ``benchmarks/kernel_bench.py``'s six shapes
+   (B 512, 2048, 8192 × D 256, 1024; f32, timed), in bf16 at B = 2048 and
+   at a ragged B = 1000 (f32 and bf16), ``grads`` also without diag at
+   ``b_norm`` = 3B; then drives ``fused_loss_and_lse_4pass`` and
+   ``fused_contrastive_loss_4pass`` at the six shapes (counts set to 0
+   before), holds them against ``fused_contrastive_loss`` and its
+   autograd, prints the bench's ``old4`` / ``fused2`` times under its keys
+   and profiles one 4-pass call;
+8. serves zero-shot classification with BASIC-S at full width on the card
    (``repro_torch.launch.serve_zeroshot``: 512 classes × 4 prompt
    templates, 8 requests of 16 raw 224×224×3 images), checks the answers
    against the plain PyTorch path on the same weights and images, and
    checks that both serving kernels were launched on that path; then
    profiles 4 warm requests: device time by kernel, and the device kernels
    that each wrapper call launched;
-8. training parity: one GradAccum step of BASIC-S at full width and depth
+9. training parity: one GradAccum step of BASIC-S at full width and depth
    in f32 (B = 256, 2 microbatches) on the kernel path (flash attention,
    fused loss) and on the plain path (materialised attention and loss)
    from the same weights and batch: loss, every gradient leaf and the
    parameters after AdaFactorW;
-9. timed training: ``repro_torch.launch.train`` (``main``) at full width
-   and depth, bf16, fused loss, flash attention, remat ``basic``, B = 2048
-   pairs in 8 microbatches, 6 steps: step time, pairs per second, peak
-   memory, losses, and the launches per step of the four training kernels;
-   then profiles one warm step;
-10. holds the split-K decode-attention kernel against its plain version at
+10. timed training: ``repro_torch.launch.train`` (``main``) at full width
+    and depth, bf16, fused loss, flash attention, remat ``basic``, B = 2048
+    pairs in 8 microbatches, 6 steps: step time, pairs per second, peak
+    memory, losses, and the launches per step of the four training kernels;
+    then profiles one warm step;
+11. holds the split-K decode-attention kernel against its plain version at
     the decode path's shapes (8 slots × 8 kv heads × group 4, d 64, a
     cache of 8192; one lockstep request; d 128), f32 and bf16, with
     per-slot lengths 0, 1, ragged and full, a shared mask (bit for bit
     equal to equal per-slot rows) and stale entries past each length (no
     change at all), and times kernel, plain version and SDPA; times the
     flash forward at the prefill shape;
-11. decode parity: Llama-3.2-1B at full width and depth in f32 through
+12. decode parity: Llama-3.2-1B at full width and depth in f32 through
     ``transformer.prefill`` and ``decode_step`` on the kernel path (flash
     prefill, decode kernel) and the plain path (chunked prefill, einsum
     decode), teacher-forced with the same tokens, on a linear cache (4 ×
     512 tokens, cache 1024) and a ring that has wrapped (8704 tokens,
     cache 8192); then the continuous engine against the lockstep engine,
     request by request, on the kernel path;
-12. timed decode serving: ``repro_torch.launch.serve`` (``main``) with the
+13. timed decode serving: ``repro_torch.launch.serve`` (``main``) with the
     continuous engine at full width and depth, bf16, 8 slots, 16 requests
     of ~512-token prompts and 64 new tokens, a ring cache of 8192: tokens
     per second, decode-step median and p90, prefill ms, peak memory, and
     flash_fwd launches per prefill and decode_attention launches per step
     (16 each, one per layer); then profiles 4 warm decode steps;
-13. holds the SSD chunked-scan kernel against its plain version at
+14. holds the SSD chunked-scan kernel against its plain version at
     Mamba-2-130M's shapes (24 heads of 64, state 128; one chunk of 256, a
     ragged 244, four chunks of b 1 × 1024, b 8 × 256; with and without an
     initial state; the decay extremes dt 3, A -5 with no NaN), inputs laid
     out as the mixer's split views, f32 and bf16, y and the final state,
     and times kernel and plain version (no single PyTorch call computes
     the scan);
-14. SSM parity: Mamba-2-130M at full width and depth in f32 through
+15. SSM parity: Mamba-2-130M at full width and depth in f32 through
     ``transformer.prefill`` (2 × 1024 tokens) on the kernel path and on
     the plain path (the scan's plain version on the card), logits and the
     SSM and conv caches, then 16 teacher-forced decode steps; then the
     continuous engine against the lockstep engine, request by request;
-15. timed SSM serving: ``repro_torch.launch.serve`` (``main``) with the
+16. timed SSM serving: ``repro_torch.launch.serve`` (``main``) with the
     continuous engine, Mamba-2-130M bf16, 8 slots, 16 requests of 244–256
     prompt tokens and 64 new tokens: tokens per second, decode-step median
     and p90, prefill ms, peak memory, ssd_scan launches per prefill (24,
     one per layer); then profiles one warm prefill and 4 warm decode
     steps;
-16. prints a ``{"kernels": [...]}`` line and, last, the
+17. prints a ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -106,6 +115,8 @@ FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/kernel.py:230"
 CL_SOURCE = "src/repro_torch/kernels/contrastive_loss/csrc/contrastive.cu"
 CL_FWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:107"
 CL_BWD_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:185"
+CL_LSE_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:295"
+CL_GRADS_REPLACES = "src/repro/kernels/contrastive_loss/kernel.py:337"
 DEC_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode.cu"
 DEC_REPLACES = "src/repro/kernels/decode_attention/kernel.py:72"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd.cu"
@@ -451,7 +462,7 @@ def phase_topk():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phase 8: the main path
 # ---------------------------------------------------------------------------
 
 
@@ -544,6 +555,9 @@ WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                                        "contrastive_fwd_combine_kernel"),
                    "contrastive_bwd": ("contrastive_grad_kernel",
                                        "contrastive_dtau_sum_kernel"),
+                   "contrastive_row_col_lse": ("contrastive_lse_sweep_kernel",),
+                   "contrastive_grads": ("contrastive_grad_kernel",
+                                         "contrastive_dtau_sum_kernel"),
                    "decode_attention": ("decode_split_kernel",
                                         "decode_merge_kernel"),
                    "ssd_scan": ("ssd_scan_kernel",)}
@@ -776,80 +790,98 @@ def cl_grad_tol(ref, dt):
     return CL_GRAD_REL_MAX_BF16 * ref.abs().max().item()
 
 
-def contrastive_case(b, d, dtype, seed, timed=True):
-    """Forward and backward kernels vs their plain versions at (B, D);
-    returns the case's records."""
+def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
+    """Forward and backward kernels vs their plain versions at (B, D): the
+    fused pair, or with ``legacy`` the 4-pass pair (``row_col_lse``,
+    ``grads``); returns the case's records."""
     import torch
     from repro_torch.kernels.contrastive_loss import ops as cl_ops
-    from repro_torch.kernels.contrastive_loss.ref import (bwd_fused_ref,
-                                                          fwd_fused_ref,
-                                                          loss_ref)
+    from repro_torch.kernels.contrastive_loss import ref as cl_ref
+    if legacy:
+        names = ("contrastive_row_col_lse", "contrastive_grads")
+        fwd_k, bwd_k = cl_ops.row_col_lse, cl_ops.grads
+        fwd_ref, bwd_ref = cl_ref.row_col_lse_ref, cl_ref.grads_ref
+    else:
+        names = ("contrastive_fwd", "contrastive_bwd")
+        fwd_k, bwd_k = cl_ops.fwd_fused, cl_ops.bwd_fused
+        fwd_ref, bwd_ref = cl_ref.fwd_fused_ref, cl_ref.bwd_fused_ref
     g = torch.Generator(device="cuda").manual_seed(seed)
     x, y = unit_rows(b, d, g, dtype), unit_rows(b, d, g, dtype)
     log_tau = torch.tensor(-2.659, device="cuda")          # ~ log 0.07
     inv_tau = torch.exp(-log_tau)
     dt = dtype_name(dtype)
-    row, col = cl_ops.fwd_fused(x, y, inv_tau)
-    ref_row, ref_col = fwd_fused_ref(x, y, inv_tau)
+    row, col = fwd_k(x, y, inv_tau)
+    ref_row, ref_col = fwd_ref(x, y, inv_tau)
     fwd_err = max((row - ref_row).abs().max().item(),
                   (col - ref_col).abs().max().item())
     if not fwd_err <= CL_LSE_TOL:
-        raise AssertionError(f"contrastive_fwd B={b} {dt}: max lse err "
+        raise AssertionError(f"{names[0]} B={b} D={d} {dt}: max lse err "
                              f"{fwd_err:.3g} (tol {CL_LSE_TOL})")
     bwd_err, bwd_tol = 0.0, float("inf")
     for b_norm, with_diag in ((None, True), (3 * b, False)):
-        got = cl_ops.bwd_fused(x, y, inv_tau, ref_row, ref_col,
-                               b_norm=b_norm, with_diag=with_diag)
-        ref = bwd_fused_ref(x, y, inv_tau, ref_row, ref_col, b_norm=b_norm,
-                            with_diag=with_diag)
+        got = bwd_k(x, y, inv_tau, ref_row, ref_col, b_norm=b_norm,
+                    with_diag=with_diag)
+        ref = bwd_ref(x, y, inv_tau, ref_row, ref_col, b_norm=b_norm,
+                      with_diag=with_diag)
         gerr = max((got[0] - ref[0]).abs().max().item(),
                    (got[1] - ref[1]).abs().max().item())
         terr = abs((got[2] - ref[2]).item())
         gtol = min(cl_grad_tol(ref[0], dt), cl_grad_tol(ref[1], dt))
         if not (gerr <= gtol and terr <= CL_DTAU_RTOL[dt]
                 * abs(ref[2].item()) + 1e-6):
-            raise AssertionError(f"contrastive_bwd B={b} {dt} b_norm="
+            raise AssertionError(f"{names[1]} B={b} D={d} {dt} b_norm="
                                  f"{b_norm} with_diag={with_diag}: max grad "
                                  f"err {gerr:.3g}, dlog_tau err {terr:.3g}")
         bwd_err = max(bwd_err, gerr)
         bwd_tol = min(bwd_tol, gtol)
-    print(f"contrastive B={b} D={d} {dt}: lse err {fwd_err:.3g} (tol "
-          f"{CL_LSE_TOL}), dX/dY err {bwd_err:.3g} (tol {bwd_tol:.3g}; "
-          f"with_diag and b_norm=B, and without diag at b_norm=3B)",
-          flush=True)
+    print(f"{names[0]} / {names[1]} B={b} D={d} {dt}: lse err "
+          f"{fwd_err:.3g} (tol {CL_LSE_TOL}), dX/dY err {bwd_err:.3g} (tol "
+          f"{bwd_tol:.3g}; with_diag and b_norm=B, and without diag at "
+          f"b_norm=3B)", flush=True)
     fwd = {"shape": f"B={b} D={d} {dt}", "max_abs_err": fwd_err}
     bwd = {"shape": f"B={b} D={d} {dt}", "max_abs_err": bwd_err}
     if not timed:
         return fwd, bwd
     item = torch.finfo(dtype).bits // 8
-    fwd["ms"] = time_ms(lambda: cl_ops.fwd_fused(x, y, inv_tau))
-    fwd["plain_ms"] = time_ms(lambda: fwd_fused_ref(x, y, inv_tau))
+    iters, warmup = cl_iters(b)
+
+    def tm(fn):
+        return time_ms(fn, iters, warmup)
+
+    fwd["ms"] = tm(lambda: fwd_k(x, y, inv_tau))
+    fwd["plain_ms"] = tm(lambda: fwd_ref(x, y, inv_tau))
 
     def lib_fwd():
         a = (x @ y.T).float() * inv_tau
         return torch.logsumexp(a, 1), torch.logsumexp(a, 0)
 
-    fwd["library_ms"] = time_ms(lib_fwd)
+    fwd["library_ms"] = tm(lib_fwd)
     fwd["bound_ms"], fwd["bound_by"] = bound(2 * b * d * item + 2 * b * 4,
                                              2.0 * b * b * d, dt)
     bargs = (x, y, inv_tau, ref_row, ref_col)
-    bwd["ms"] = time_ms(lambda: cl_ops.bwd_fused(*bargs))
-    bwd["plain_ms"] = time_ms(lambda: bwd_fused_ref(*bargs))
+    bwd["ms"] = tm(lambda: bwd_k(*bargs))
+    bwd["plain_ms"] = tm(lambda: bwd_ref(*bargs))
     # autograd of the materialised loss, minus its forward timed apart
     xr, yr, lr_ = (t.detach().clone().requires_grad_()
                    for t in (x, y, log_tau))
     with torch.no_grad():
-        lfwd_ms = time_ms(lambda: loss_ref(xr, yr, lr_))
-    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
-        loss_ref(xr, yr, lr_), (xr, yr, lr_))) - lfwd_ms
+        lfwd_ms = tm(lambda: cl_ref.loss_ref(xr, yr, lr_))
+    bwd["library_ms"] = tm(lambda: torch.autograd.grad(
+        cl_ref.loss_ref(xr, yr, lr_), (xr, yr, lr_))) - lfwd_ms
     bwd["bound_ms"], bwd["bound_by"] = bound(
         2 * b * d * item + 2 * b * 4 + 2 * b * d * 4 + 4,
         3 * 2.0 * b * b * d, dt)
-    for name, r in (("contrastive_fwd", fwd), ("contrastive_bwd", bwd)):
+    for name, r in zip(names, (fwd, bwd)):
         print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return fwd, bwd
+
+
+def cl_iters(b):
+    """(timed launches, warm-ups) of a contrastive call at batch ``b``:
+    few at B = 8192, where a backward takes ~0.2 s."""
+    return (3, 1) if b >= 8192 else (20, 3)
 
 
 def phase_contrastive():
@@ -866,7 +898,120 @@ def phase_contrastive():
 
 
 # ---------------------------------------------------------------------------
-# phase 8: training parity, kernel path vs plain path
+# phase 7: the legacy 4-pass contrastive pair
+# ---------------------------------------------------------------------------
+
+# benchmarks/kernel_bench.py's shapes (B, D) and log_tau
+LEGACY_SHAPES = ((512, 256), (512, 1024), (2048, 256), (2048, 1024),
+                 (8192, 256), (8192, 1024))
+LEGACY_LOG_TAU = -1.0
+
+
+def phase_legacy():
+    """``row_col_lse`` and ``grads`` vs their plain versions at the kernel
+    bench's six shapes (f32, timed), bf16 at B = 2048 and a ragged B = 1000
+    (untimed); then the path: the two 4-pass ops at the six shapes with the
+    counts set to 0 before, held against the fused loss and its autograd;
+    the bench's old4 / fused2 times and a profile of one 4-pass call.
+    Returns (records, launches, device kernels per wrapper call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+
+    recs = {}
+    for i, (b, d) in enumerate(LEGACY_SHAPES):
+        recs[(b, d, "float32")] = contrastive_case(b, d, torch.float32,
+                                                   40 + i, legacy=True)
+    for b, dtype in ((2048, torch.bfloat16), (1000, torch.float32),
+                     (1000, torch.bfloat16)):
+        recs[(b, 512, dtype_name(dtype))] = contrastive_case(
+            b, 512, dtype, 50 + b, timed=False, legacy=True)
+
+    inputs = {}
+    for b, d in LEGACY_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(b + d)
+        inputs[(b, d)] = (unit_rows(b, d, g, torch.float32),
+                          unit_rows(b, d, g, torch.float32),
+                          torch.tensor(LEGACY_LOG_TAU, device="cuda"))
+    counters = (cl_ops.ROW_COL_LSE_COUNTER, cl_ops.GRADS_COUNTER)
+    for ctr in counters:
+        ctr.reset()
+    outs = {key: (cl_ops.fused_loss_and_lse_4pass(*args),
+                  cl_ops.fused_contrastive_loss_4pass(*args))
+            for key, args in inputs.items()}
+    torch.cuda.synchronize()
+    launches = {ctr.name: ctr.count for ctr in counters}
+    print(f"legacy path launches: {launches} (the two 4-pass ops at "
+          f"{len(inputs)} shapes)", flush=True)
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"legacy path")
+
+    errs = {"loss": 0.0, "lse": 0.0, "grad": 0.0, "dtau_rel": 0.0}
+    for (b, d), (x, y, lt) in inputs.items():
+        (l4, r4, c4), (loss4, dx, dy, dtau) = outs[(b, d)]
+        xr, yr, ltr = (t.clone().requires_grad_() for t in (x, y, lt))
+        loss = cl_ops.fused_contrastive_loss(xr, yr, ltr)
+        gx, gy, gt = torch.autograd.grad(loss, (xr, yr, ltr))
+        _, rf, cf = cl_ops.fused_loss_and_lse(x, y, lt)
+        e = {"loss": max(abs((l4 - loss).item()), abs((loss4 - loss).item())),
+             "lse": max((r4 - rf).abs().max().item(),
+                        (c4 - cf).abs().max().item()),
+             "grad": max((dx - gx).abs().max().item(),
+                         (dy - gy).abs().max().item()),
+             "dtau_rel": abs((dtau - gt).item()) / abs(gt.item())}
+        gtol = min(cl_grad_tol(gx, "float32"), cl_grad_tol(gy, "float32"))
+        if not (e["loss"] <= CL_LSE_TOL and e["lse"] <= CL_LSE_TOL
+                and e["grad"] <= gtol and abs((dtau - gt).item())
+                <= CL_DTAU_RTOL["float32"] * abs(gt.item()) + 1e-6):
+            raise AssertionError(f"4-pass vs fused loss at B={b} D={d}: {e}")
+        errs = {k: max(v, e[k]) for k, v in errs.items()}
+    print(f"legacy path vs fused loss + autograd, six shapes f32: max "
+          f"errors {errs} (tols loss/lse {CL_LSE_TOL}, dX/dY "
+          f"{CL_GRAD_TOL_F32}, dlog_tau rel {CL_DTAU_RTOL['float32']})",
+          flush=True)
+
+    bench = {}
+    for (b, d), (x, y, lt) in inputs.items():
+        iters, warmup = cl_iters(b)
+        xr, yr, ltr = (t.clone().requires_grad_() for t in (x, y, lt))
+
+        def fused_fwdbwd():
+            loss = cl_ops.fused_contrastive_loss(xr, yr, ltr)
+            return torch.autograd.grad(loss, (xr, yr, ltr))
+
+        paths = (("old4", lambda: cl_ops.fused_loss_and_lse_4pass(x, y, lt),
+                  lambda: cl_ops.fused_contrastive_loss_4pass(x, y, lt)),
+                 ("fused2", lambda: cl_ops.fused_contrastive_loss(x, y, lt),
+                  fused_fwdbwd))
+        for name, fwd, fwdbwd in paths:
+            for tag, fn in (("fwd", fwd), ("fwdbwd", fwdbwd)):
+                bench[f"{name}/B{b}_D{d}/{tag}"] = 1e3 * time_ms(
+                    fn, iters, warmup)
+    print("legacy kernel_bench (us per call, CUDA events): "
+          + json.dumps(bench), flush=True)
+
+    x, y, lt = inputs[(2048, 1024)]
+    cl_ops.fused_contrastive_loss_4pass(x, y, lt)              # warm
+    torch.cuda.synchronize()
+    calls = {ctr.name: -ctr.count for ctr in counters}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cl_ops.fused_contrastive_loss_4pass(x, y, lt)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    for ctr in counters:
+        calls[ctr.name] += ctr.count
+    per_call, _ = device_breakdown(
+        prof, "fused_contrastive_loss_4pass at B=2048 D=1024, 1 call",
+        wall_us, 1, calls)
+    return recs, launches, per_call
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 
 
@@ -959,7 +1104,7 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: timed training through the trainer's entry point
+# phase 10: timed training through the trainer's entry point
 # ---------------------------------------------------------------------------
 
 TRAIN_ARGV = ["--mode", "contrastive", "--arch", "basic-s", "--batch",
@@ -1074,7 +1219,7 @@ def phase_train_profile():
 
 
 # ---------------------------------------------------------------------------
-# phase 10: split-K decode attention
+# phase 11: split-K decode attention
 # ---------------------------------------------------------------------------
 
 
@@ -1245,7 +1390,7 @@ def phase_prefill_flash():
 
 
 # ---------------------------------------------------------------------------
-# phase 11: decode parity, kernel path vs plain path
+# phase 12: decode parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 
 
@@ -1380,7 +1525,7 @@ def phase_decode_parity():
 
 
 # ---------------------------------------------------------------------------
-# phase 12: timed decode serving through the launcher
+# phase 13: timed decode serving through the launcher
 # ---------------------------------------------------------------------------
 
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--engine", "continuous", "--slots",
@@ -1485,7 +1630,7 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the SSD chunked scan
+# phase 14: the SSD chunked scan
 # ---------------------------------------------------------------------------
 
 
@@ -1612,7 +1757,7 @@ def phase_ssd_kernel():
 
 
 # ---------------------------------------------------------------------------
-# phase 14: SSM parity, kernel path vs plain path
+# phase 15: SSM parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 
 
@@ -1706,7 +1851,7 @@ def phase_ssm_parity():
 
 
 # ---------------------------------------------------------------------------
-# phase 15: timed SSM serving through the launcher
+# phase 16: timed SSM serving through the launcher
 # ---------------------------------------------------------------------------
 
 SSM_SERVE_ARGV = ["--arch", "mamba2-130m", "--engine", "continuous",
@@ -1821,6 +1966,7 @@ def main() -> int:
     topk, topk_errs = phase_topk()
     flash_bwd = phase_flash_bwd()
     contrastive = phase_contrastive()
+    legacy, legacy_launches, legacy_per_call = phase_legacy()
     decode, decode_errs = phase_decode_kernel()
     prefill_flash = phase_prefill_flash()
     ssd = phase_ssd_kernel()
@@ -1863,6 +2009,21 @@ def main() -> int:
                 "launches_per_step": train_per_step[name],
                 "device_kernels_per_call": train_per_call[name], **extra}
 
+    def legacy_entry(i, name, replaces):
+        main = legacy[(2048, 1024, "float32")][i]
+        f32 = [r[i] for (_, _, dt), r in legacy.items() if dt == "float32"]
+        return {"name": name, "route": "cuda", "source": CL_SOURCE,
+                "replaces": replaces, "launches": legacy_launches[name],
+                **{k: main[k] for k in timing},
+                "max_abs_err": max(r["max_abs_err"] for r in f32),
+                "shape": main["shape"],
+                "max_abs_err_bf16": max(r[i]["max_abs_err"] for (_, _, dt), r
+                                        in legacy.items()
+                                        if dt == "bfloat16"),
+                "cases": [{k: r[k] for k in ("shape", *timing)}
+                          for r in f32 if "ms" in r],
+                "device_kernels_per_call": legacy_per_call[name]}
+
     kernels = [
         {"name": fa_ops.COUNTER.name, "route": "cuda",
          "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
@@ -1896,6 +2057,9 @@ def main() -> int:
         train_entry(cl_ops.BWD_COUNTER.name, CL_SOURCE, CL_BWD_REPLACES,
                     c_bwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][1]["max_abs_err"]),
+        *(legacy_entry(i, name, replaces) for i, (name, replaces) in
+          enumerate(((cl_ops.ROW_COL_LSE_COUNTER.name, CL_LSE_REPLACES),
+                     (cl_ops.GRADS_COUNTER.name, CL_GRADS_REPLACES)))),
         {"name": dec_ops.COUNTER.name, "route": "cuda",
          "source": DEC_SOURCE, "replaces": DEC_REPLACES,
          "launches": dec_launches[dec_ops.COUNTER.name],

@@ -2,9 +2,11 @@
 //
 // Replaces: repro/kernels/contrastive_loss/kernel.py, fwd_fused (:107) with
 // its body _fused_fwd_kernel (:77), and bwd_fused (:185) with its body
-// _fused_bwd_kernel (:149), the TPU's single-sweep kernels of paper Eq. 3.
-// Same functions: for A = X·Yᵀ·inv_tau (B × B, never stored) the forward
-// returns the row and column log-sum-exps; the backward recomputes A tile
+// _fused_bwd_kernel (:149), the TPU's single-sweep kernels of paper Eq. 3;
+// and the legacy 4-pass pair, row_col_lse (:295; _row_lse_kernel :229,
+// _col_lse_kernel :241) and grads (:337; _dx_kernel :254, _dy_kernel :277).
+// Same functions: for A = X·Yᵀ·inv_tau (B × B, never stored) the forwards
+// return the row and column log-sum-exps; the backward recomputes A tile
 // by tile from them and returns
 //   dA = (exp(A − row_lse) + exp(A − col_lse) − 2·δ_ij·with_diag) / (2·b_norm)
 //   dX = dA·Y·inv_tau,  dY = dAᵀ·X·inv_tau,  dlog_tau = −Σ dA·A
@@ -13,8 +15,9 @@
 //
 // What bounds it on this card: the arithmetic. At the training shape
 // (B = 2048, D = 512, fp32 from the towers) the forward does 2·B²·D flops
-// and the backward 3·2·B²·D on 2·B·D inputs, far above the card's
-// flops-per-byte line; these SIMT loops run on the FMA units in fp32.
+// (row_col_lse twice that: each sweep computes A once) and the backward
+// 3·2·B²·D on 2·B·D inputs, far above the card's flops-per-byte line; these
+// SIMT loops run on the FMA units in fp32.
 //
 // What the design does about it: the TPU kernels carry full-length column
 // statistics (forward) and a VMEM-resident (B, D) dY (backward) across a
@@ -25,12 +28,22 @@
 //             partial row (max, sum) and partial column (max, sum) of its
 //             tile; a combine kernel folds the partials in a fixed order
 //             into row_lse and col_lse;
+//   row_col_lse  one launch of 2·⌈B/16⌉ CTAs (256 at B = 2048): blockIdx.y
+//             picks the sweep (self = X for row_lse, self = Y for col_lse);
+//             each CTA owns 16 self rows, walks every 128-row tile of the
+//             other matrix with 4×4 register-blocked scores per thread and
+//             keeps each row's online (max, sum) in registers (one warp per
+//             4 rows, reduced by shuffles), then writes the lse: no
+//             partials, no scratch beyond the two (B,) outputs;
 //   backward  a row-parallel launch (16 rows of X per CTA, 128 CTAs at
 //             B = 2048) sweeps all column tiles and accumulates its dX rows
 //             in shared memory, with one dlog_tau partial per CTA; a
 //             column-parallel launch of the same kernel with the roles of X
 //             and Y (and of the two lse vectors) swapped accumulates dY; a
 //             one-CTA kernel sums the dlog_tau partials in a fixed order.
+//             This is also the TPU's grads: its _dx_kernel and _dy_kernel
+//             are the same two sweeps, so repro_contrastive_grads launches
+//             this sequence as it is.
 // Any B >= 1 is taken: rows and columns past B are zero-filled as they are
 // staged and masked out of every statistic. inv_tau is read from device
 // memory, so the host never synchronises. Inputs are f32 or bf16, converted
@@ -44,7 +57,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;     // forward tile edge; backward other-tile rows
-constexpr int kRows = 16;     // backward rows of X (or Y) per CTA
+constexpr int kRows = 16;     // backward and row_col_lse self rows per CTA
+constexpr int kLseTile = 128; // row_col_lse other rows per tile
 constexpr int kDC = 32;       // staged chunk of the embedding dim
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -171,6 +185,95 @@ contrastive_fwd_combine_kernel(const float* __restrict__ row_m,
   for (int p = 0; p < n; ++p)
     s += ps[(size_t)p * B + g] * expf(pm[(size_t)p * B + g] - m);
   (is_row ? row_lse : col_lse)[g] = m + logf(s);
+}
+
+// ---------------------------------------------------------------------------
+// row_col_lse: 16 "self" rows per CTA sweep every 128-row tile of "other"
+// with an online (max, sum) per row; blockIdx.y picks the sweep
+// (0: self = X, other = Y -> row_lse; 1: self = Y, other = X -> col_lse)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+contrastive_lse_sweep_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                             const float* __restrict__ inv_tau_p,
+                             float* __restrict__ row_lse,
+                             float* __restrict__ col_lse, int B, int D) {
+  constexpr int CS = kDC + 1;
+  __shared__ float Ss[kRows * CS];
+  __shared__ float Os[kLseTile * CS];
+
+  const bool is_row = blockIdx.y == 0;
+  const T* self = is_row ? x : y;
+  const T* other = is_row ? y : x;
+  const int s0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int r = tid >> 5;          // warp: self rows r + 4 i
+  const int c = tid & 31;          // lane: other rows c + 32 j of the tile
+  const float inv_tau = *inv_tau_p;
+
+  float m[4], s[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    s[i] = 0.f;
+  }
+  for (int o0 = 0; o0 < B; o0 += kLseTile) {
+    float a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kDC) {
+      __syncthreads();
+      stage_chunk(Ss, self, s0, kRows, d0, B, D);
+      stage_chunk(Os, other, o0, kLseTile, d0, B, D);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kDC; ++d) {
+        float sv[4], ov[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sv[i] = Ss[(r + 4 * i) * CS + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ov[j] = Os[(c + 32 * j) * CS + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[i][j] = fmaf(sv[i], ov[j], a[i][j]);
+      }
+    }
+    // fold this tile's 128 columns into each row's running (max, sum)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v[4];
+      float tm = kNeg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = o0 + c + 32 * j < B ? a[i][j] * inv_tau : kNeg;
+        tm = fmaxf(tm, v[j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tm = fmaxf(tm, __shfl_xor_sync(kFull, tm, off));
+      const float mn = fmaxf(m[i], tm);
+      float ts = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ts += expf(v[j] - mn);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        ts += __shfl_xor_sync(kFull, ts, off);
+      s[i] = s[i] * expf(m[i] - mn) + ts;
+      m[i] = mn;
+    }
+  }
+  if (c == 0) {
+    float* lse = is_row ? row_lse : col_lse;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int g = s0 + r + 4 * i;
+      if (g < B) lse[g] = m[i] + logf(s[i]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -327,6 +430,18 @@ cudaError_t fwd(const void* x, const void* y, const void* inv_tau,
 }
 
 template <typename T>
+cudaError_t row_col_lse(const void* x, const void* y, const void* inv_tau,
+                        void* row_lse, void* col_lse, int B, int D,
+                        cudaStream_t stream) {
+  const int n = (B + kRows - 1) / kRows;
+  contrastive_lse_sweep_kernel<T><<<dim3(n, 2), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const float*>(inv_tau), static_cast<float*>(row_lse),
+      static_cast<float*>(col_lse), B, D);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t bwd(const void* x, const void* y, const void* inv_tau,
                 const void* row_lse, const void* col_lse, void* dx, void* dy,
                 void* dtau, void* part, int B, int D, float two_bn,
@@ -394,4 +509,36 @@ extern "C" int repro_contrastive_bwd(const void* x, const void* y,
     return (int)bwd<__nv_bfloat16>(x, y, inv_tau, row_lse, col_lse, dx, dy,
                                    dtau, part, B, D, two_bn, with_diag, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The legacy pair's forward: row_lse, col_lse (B,) fp32 outputs from two
+// single-reduction sweeps in one launch; no scratch, any D. Returns the CUDA
+// error code.
+extern "C" int repro_contrastive_row_col_lse(const void* x, const void* y,
+                                             const void* inv_tau,
+                                             void* row_lse, void* col_lse,
+                                             int dtype, int B, int D,
+                                             void* stream) {
+  if (B < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)row_col_lse<float>(x, y, inv_tau, row_lse, col_lse, B, D, st);
+  if (dtype == 1)
+    return (int)row_col_lse<__nv_bfloat16>(x, y, inv_tau, row_lse, col_lse,
+                                           B, D, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The legacy pair's backward, the TPU's grads: its dX sweep and dY sweep
+// are the backward's two launches above, so this runs that sequence with
+// the same arguments and limits as repro_contrastive_bwd.
+extern "C" int repro_contrastive_grads(const void* x, const void* y,
+                                       const void* inv_tau,
+                                       const void* row_lse,
+                                       const void* col_lse, void* dx,
+                                       void* dy, void* dtau, void* part,
+                                       int dtype, int B, int D, float two_bn,
+                                       int with_diag, void* stream) {
+  return repro_contrastive_bwd(x, y, inv_tau, row_lse, col_lse, dx, dy, dtau,
+                               part, dtype, B, D, two_bn, with_diag, stream);
 }

@@ -10,17 +10,27 @@ arguments of the reference's ``bwd_fused`` (``kernel.py:185``).
 counterpart of the reference's custom VJP (``ops.py:147-188``): one forward
 call, one backward call, and the B×B matrix never reaches device memory.
 
+The legacy 4-pass pair comes over too: ``row_col_lse`` (``kernel.py:295``)
+returns the same LSEs from two single-reduction sweeps, and ``grads``
+(``kernel.py:337``) the same gradients from a dX sweep and a dY sweep;
+``fused_loss_and_lse_4pass`` and ``fused_contrastive_loss_4pass`` are the
+counterparts of the reference's ``ops.py:240-268``, its public baseline for
+the fused pair.
+
 On a CPU tensor the wrappers run the plain versions in ``ref.py``; on a
 CUDA tensor they launch the kernels or raise. ``inv_tau`` stays on the
 device (a 0-d tensor), so no wrapper synchronises with the host.
 
 What does not carry over from the TPU module: its VMEM block model
-(``pick_blocks``, ``autotune_blocks``, ``bwd_fits_fused``) and the
-compiled-mode fallback to the legacy two-sweep ``kernel.grads`` when the
-VMEM-resident (B, D) dY carrier does not fit (``ops.py:179-184``). The
-Hopper kernels keep no resident dY: dY comes from its own column-parallel
-launch, so there is nothing to fall back from, and any B >= 1 is taken
-(the reference asks for B % 8 == 0).
+(``pick_blocks``, ``autotune_blocks``, ``bwd_fits_fused``), the ``bm`` /
+``bn`` / ``interpret`` arguments of every op and the B % 8 check, and the
+compiled-mode fallback from ``bwd_fused`` to ``grads`` when the
+VMEM-resident (B, D) dY carrier does not fit (``ops.py:179-184``,
+``:231-237``). The Hopper backward keeps no resident dY: ``bwd_fused``
+already computes dX and dY in two launches of one row-parallel kernel (X
+against Y, then Y against X), which is the TPU's ``grads`` loop, so
+``grads`` here launches that same sequence under its own entry and
+counter, and there is nothing to fall back from. Any B >= 1 is taken.
 """
 from __future__ import annotations
 
@@ -32,7 +42,9 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
 from repro_torch.kernels.contrastive_loss.ref import (bwd_fused_ref,
-                                                      fwd_fused_ref)
+                                                      fwd_fused_ref,
+                                                      grads_ref,
+                                                      row_col_lse_ref)
 
 MAX_D = 1024          # the backward keeps its dX / dY rows in shared memory
 FWD_TILE = 64         # edge of the forward's A tile (csrc kTile)
@@ -40,16 +52,21 @@ BWD_ROWS = 16         # rows of X (Y) per backward CTA (csrc kRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_BWD_ARGS = [_P] * 9 + [_I] * 3 + [ctypes.c_float, _I, _P]
 LIB = KernelLibrary(
     "contrastive",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "contrastive.cu"),
     {"repro_contrastive_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _P]),
-     "repro_contrastive_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, ctypes.c_float, _I, _P])})
+     "repro_contrastive_bwd": (_I, _BWD_ARGS),
+     "repro_contrastive_row_col_lse": (_I, [_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _P]),
+     "repro_contrastive_grads": (_I, _BWD_ARGS)})
 FWD_COUNTER = LaunchCounter("contrastive_fwd")
 BWD_COUNTER = LaunchCounter("contrastive_bwd")
+ROW_COL_LSE_COUNTER = LaunchCounter("contrastive_row_col_lse")
+GRADS_COUNTER = LaunchCounter("contrastive_grads")
 
 
 def _inv_tau_tensor(inv_tau: Union[float, torch.Tensor], like: torch.Tensor
@@ -100,21 +117,18 @@ def fwd_fused(x: torch.Tensor, y: torch.Tensor,
     return row_lse, col_lse
 
 
-def bwd_fused(x: torch.Tensor, y: torch.Tensor,
-              inv_tau: Union[float, torch.Tensor], row_lse: torch.Tensor,
-              col_lse: torch.Tensor, *, b_norm: Optional[int] = None,
-              with_diag: bool = True):
-    """Returns (dX, dY, dlog_tau) in fp32 from the forward's row/column LSE.
-    ``b_norm`` overrides the 1/(2B) normalisation batch; ``with_diag=False``
-    drops the -2·δ_ij positive-pair term."""
+def _backward(what, entry, counter, ref, x, y, inv_tau, row_lse, col_lse,
+              b_norm, with_diag):
+    """The backward's dX sweep, dY sweep and dlog_tau sum through C entry
+    ``entry``, counted on ``counter``; ``ref`` on a CPU tensor."""
     inv = _inv_tau_tensor(inv_tau, x)
     if x.device.type == "cpu":
-        return bwd_fused_ref(x, y, inv, row_lse, col_lse, b_norm=b_norm,
-                             with_diag=with_diag)
-    _check_kernel_inputs("bwd_fused", x, y, inv, row_lse, col_lse)
+        return ref(x, y, inv, row_lse, col_lse, b_norm=b_norm,
+                   with_diag=with_diag)
+    _check_kernel_inputs(what, x, y, inv, row_lse, col_lse)
     b, d = x.shape
     if d > MAX_D:
-        raise ValueError(f"bwd_fused kernel takes D <= {MAX_D}, got {d}")
+        raise ValueError(f"{what} kernel takes D <= {MAX_D}, got {d}")
     row_lse = row_lse.float().contiguous()
     col_lse = col_lse.float().contiguous()
     if row_lse.shape != (b,) or col_lse.shape != (b,):
@@ -127,23 +141,71 @@ def bwd_fused(x: torch.Tensor, y: torch.Tensor,
                        device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = LIB.lib().repro_contrastive_bwd(
+        rc = getattr(LIB.lib(), entry)(
             x.data_ptr(), y.data_ptr(), inv.data_ptr(), row_lse.data_ptr(),
             col_lse.data_ptr(), dx.data_ptr(), dy.data_ptr(),
             dtau.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, d,
             float(2.0 * (b if b_norm is None else b_norm)), int(with_diag),
             stream)
-    check(rc, "contrastive bwd_fused launch")
-    BWD_COUNTER.add()
+    check(rc, f"contrastive {what} launch")
+    counter.add()
     return dx, dy, dtau
+
+
+def bwd_fused(x: torch.Tensor, y: torch.Tensor,
+              inv_tau: Union[float, torch.Tensor], row_lse: torch.Tensor,
+              col_lse: torch.Tensor, *, b_norm: Optional[int] = None,
+              with_diag: bool = True):
+    """Returns (dX, dY, dlog_tau) in fp32 from the forward's row/column LSE.
+    ``b_norm`` overrides the 1/(2B) normalisation batch; ``with_diag=False``
+    drops the -2·δ_ij positive-pair term."""
+    return _backward("bwd_fused", "repro_contrastive_bwd", BWD_COUNTER,
+                     bwd_fused_ref, x, y, inv_tau, row_lse, col_lse, b_norm,
+                     with_diag)
+
+
+def row_col_lse(x: torch.Tensor, y: torch.Tensor,
+                inv_tau: Union[float, torch.Tensor]):
+    """The legacy pair's forward: (row_lse, col_lse), each (B,) fp32, of
+    A = X·Yᵀ·inv_tau, from a row sweep and a column sweep (one launch)."""
+    inv = _inv_tau_tensor(inv_tau, x)
+    if x.device.type == "cpu":
+        return row_col_lse_ref(x, y, inv)
+    _check_kernel_inputs("row_col_lse", x, y, inv)
+    b, d = x.shape
+    row_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
+    col_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = LIB.lib().repro_contrastive_row_col_lse(
+            x.data_ptr(), y.data_ptr(), inv.data_ptr(), row_lse.data_ptr(),
+            col_lse.data_ptr(), _DTYPES[x.dtype], b, d, stream)
+    check(rc, "contrastive row_col_lse launch")
+    ROW_COL_LSE_COUNTER.add()
+    return row_lse, col_lse
+
+
+def grads(x: torch.Tensor, y: torch.Tensor,
+          inv_tau: Union[float, torch.Tensor], row_lse: torch.Tensor,
+          col_lse: torch.Tensor, *, b_norm: Optional[int] = None,
+          with_diag: bool = True):
+    """The legacy pair's backward: (dX, dY, dlog_tau) in fp32, the same
+    function as ``bwd_fused`` (and the same device loop)."""
+    return _backward("grads", "repro_contrastive_grads", GRADS_COUNTER,
+                     grads_ref, x, y, inv_tau, row_lse, col_lse, b_norm,
+                     with_diag)
+
+
+def _loss(x, y, inv_tau, row_lse, col_lse):
+    """0.5·(mean(row_lse − diag) + mean(col_lse − diag)), fp32."""
+    diag = torch.sum(x.float() * y.float(), dim=1) * inv_tau
+    return 0.5 * (torch.mean(row_lse - diag) + torch.mean(col_lse - diag))
 
 
 def _fwd(x, y, log_tau):
     inv_tau = torch.exp(-log_tau.float())
     row_lse, col_lse = fwd_fused(x, y, inv_tau)
-    diag = torch.sum(x.float() * y.float(), dim=1) * inv_tau
-    loss = 0.5 * (torch.mean(row_lse - diag) + torch.mean(col_lse - diag))
-    return loss, inv_tau, row_lse, col_lse
+    return _loss(x, y, inv_tau, row_lse, col_lse), inv_tau, row_lse, col_lse
 
 
 class _FusedContrastiveLoss(torch.autograd.Function):
@@ -180,3 +242,26 @@ def fused_loss_and_lse(x: torch.Tensor, y: torch.Tensor,
     with torch.no_grad():
         loss, _, row_lse, col_lse = _fwd(x, y, log_tau)
     return loss, row_lse, col_lse
+
+
+def fused_loss_and_lse_4pass(x: torch.Tensor, y: torch.Tensor,
+                             log_tau: torch.Tensor):
+    """The legacy forward (``row_col_lse``), non-differentiable: returns
+    (loss, row_lse, col_lse), a scalar fp32 loss and two (B,) fp32 LSE
+    vectors."""
+    with torch.no_grad():
+        inv_tau = torch.exp(-log_tau.float())
+        row_lse, col_lse = row_col_lse(x, y, inv_tau)
+        return _loss(x, y, inv_tau, row_lse, col_lse), row_lse, col_lse
+
+
+def fused_contrastive_loss_4pass(x: torch.Tensor, y: torch.Tensor,
+                                 log_tau: torch.Tensor):
+    """The legacy 4-pass path (``row_col_lse`` then ``grads``), not
+    differentiable: returns (loss, dX, dY, dlog_tau), dX and dY (B, D)
+    fp32 and the rest fp32 scalars."""
+    with torch.no_grad():
+        loss, row_lse, col_lse = fused_loss_and_lse_4pass(x, y, log_tau)
+        dx, dy, dtau = grads(x, y, torch.exp(-log_tau.float()), row_lse,
+                             col_lse)
+    return loss, dx, dy, dtau

@@ -4,11 +4,13 @@
 They materialise the B×B similarity matrix, as paper Algorithm 1 line 6
 does. ``contrastive_fwd_ref`` / ``contrastive_grads_ref`` are the
 closed-form oracle of the loss and its gradients; ``fwd_fused_ref`` and
-``bwd_fused_ref`` compute exactly what the kernels' two entry points
+``bwd_fused_ref`` compute exactly what the fused kernels' two entry points
 compute (the CPU path of ``ops.fwd_fused`` / ``ops.bwd_fused`` and the
 yardstick the kernels are held against on the card), including the
 ``b_norm`` / ``with_diag`` arguments and the rounding of dA to bf16 before
-the contractions when the inputs are bf16.
+the contractions when the inputs are bf16. ``row_col_lse_ref`` and
+``grads_ref`` do the same for the legacy 4-pass pair's entry points; they
+compute the same functions as the fused pair.
 """
 from __future__ import annotations
 
@@ -73,3 +75,17 @@ def bwd_fused_ref(x, y, inv_tau, row_lse, col_lse, *,
     dx = (op @ y.float()) * inv_tau
     dy = (op.T @ x.float()) * inv_tau
     return dx, dy, -torch.sum(da * a)
+
+
+def row_col_lse_ref(x, y, inv_tau):
+    """What ``row_col_lse`` computes: (row_lse, col_lse), each (B,) fp32, of
+    A = X·Yᵀ·inv_tau, the same function as ``fwd_fused_ref``."""
+    return fwd_fused_ref(x, y, inv_tau)
+
+
+def grads_ref(x, y, inv_tau, row_lse, col_lse, *,
+              b_norm: Optional[int] = None, with_diag: bool = True):
+    """What ``grads`` computes: (dX, dY, dlog_tau) in fp32, the same
+    function as ``bwd_fused_ref`` with the same arguments."""
+    return bwd_fused_ref(x, y, inv_tau, row_lse, col_lse, b_norm=b_norm,
+                         with_diag=with_diag)
