@@ -17,14 +17,19 @@ repository beside this file; it exits non-zero without them. In order it:
    grid of batch, class-count and k, with planted exact ties, and times
    kernel, plain version and ``torch.topk(x @ c.T)``, and the kernels at
    each row block size they are built for;
-5. holds the flash-attention backward kernel against its plain version at
-   the training shapes of one microbatch (image bh 3072, s 196; text
-   bh 4096, s 16 with the padding bias; causal and windowed cases), in f32
-   and bf16, and times kernel, plain version and SDPA's backward;
+5. holds the flash-attention backward kernels against their plain version
+   at the training shapes of one microbatch (image bh 3072, s 196; text
+   bh 4096, s 16 with the padding bias; causal, windowed and d 128 cases,
+   and a bf16 case whose keys split over CTAs), in f32 (SIMT kernels) and
+   bf16 (the tensor-core kernel, held against the plain version that rounds
+   p and ds to bf16 as the kernel does; its distance from the unrounded
+   fp32 backward is printed, not gated), and times kernel, plain version
+   and SDPA's backward;
 6. holds the fused contrastive forward and backward kernels against their
    plain versions at B = 2048 and a ragged B = 1000 (D = 512, f32 and
    bf16, and the backward with ``with_diag=False`` and ``b_norm != B``),
-   and times kernel, plain version and the materialising PyTorch calls;
+   and times kernel, plain version and the materialising PyTorch calls,
+   printing the backward's launch plan (grid, slices, scratch bytes);
 7. holds the legacy 4-pass pair, ``row_col_lse`` and ``grads``, against
    their plain versions at ``benchmarks/kernel_bench.py``'s six shapes
    (B 512, 2048, 8192 × D 256, 1024; f32, timed), in bf16 at B = 2048 and
@@ -550,13 +555,17 @@ WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                                        "topk_merge_kernel"),
                    "flash_bwd": ("flash_bwd_delta_kernel",
                                  "flash_bwd_dq_kernel",
-                                 "flash_bwd_dkv_kernel"),
+                                 "flash_bwd_dkv_kernel",
+                                 "flash_bwd_tc_kernel",
+                                 "flash_bwd_dq_sum_kernel"),
                    "contrastive_fwd": ("contrastive_fwd_tile_kernel",
                                        "contrastive_fwd_combine_kernel"),
                    "contrastive_bwd": ("contrastive_grad_kernel",
+                                       "contrastive_grad_sum_kernel",
                                        "contrastive_dtau_sum_kernel"),
                    "contrastive_row_col_lse": ("contrastive_lse_sweep_kernel",),
                    "contrastive_grads": ("contrastive_grad_kernel",
+                                         "contrastive_grad_sum_kernel",
                                          "contrastive_dtau_sum_kernel"),
                    "decode_attention": ("decode_split_kernel",
                                         "decode_merge_kernel"),
@@ -719,6 +728,22 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
                     + (" causal" if causal else "")
                     + (f" window={window}" if window else ""),
            "max_abs_err": max(errs.values()), "errs": errs}
+    plan = fa_ops.bwd_plan(bh, s, s, d, dtype)
+    if dtype == torch.bfloat16:
+        # not gated: the distance from the fp32 backward of the same bf16
+        # values with p and ds left unrounded
+        f32 = flash_bwd_ref(*(None if a is None else a.float()
+                              for a in args), causal=causal, window=window)
+        rec["unrounded_err"] = {
+            n: (x.float() - r).abs().max().item()
+            for n, x, r in zip(("dq", "dk", "dv"), got, f32)}
+        rec["unrounded_rel"] = max(
+            (x.float() - r).abs().max().item() / r.abs().max().item()
+            for x, r in zip(got, f32))
+        print(f"flash_bwd {rec['shape']}: plan {tuple(plan)}; distance from "
+              f"the unrounded fp32 backward (not gated) {rec['unrounded_err']}"
+              f", largest relative to max|ref| {rec['unrounded_rel']:.3g}",
+              flush=True)
     if not timed:
         print(f"flash_bwd {rec['shape']}: err {errs}", flush=True)
         return rec
@@ -746,8 +771,8 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
     nbytes = 8 * bh * s * d * item + bh * s * 4 + (b * s * 4 if padded
                                                    else 0)
     # five products of 2·s²·d per head: the q·kᵀ recompute, dout·vᵀ, ds·k,
-    # dsᵀ·q and pᵀ·dout (this design's second q·kᵀ and dout·vᵀ, one each in
-    # the dq and the dk/dv kernel, are its own choice, not the function's)
+    # dsᵀ·q and pᵀ·dout (the f32 design's second q·kᵀ and dout·vᵀ, one each
+    # in its dq and dk/dv kernels, are its own choice, not the function's)
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 5 * 2.0 * bh * s * s * d,
                                              dt)
     print(f"flash_bwd {rec['shape']}: err {errs} (tol "
@@ -770,10 +795,14 @@ def phase_flash_bwd():
                                                 dtype, False, 11)
         recs[("text", dtype)] = flash_bwd_case("text", 256, 16, 16, 64,
                                                dtype, True, 12)
-    for d, causal, window in ((64, True, None), (64, True, 48),
-                              (128, False, None)):
-        flash_bwd_case("mask", 2, 12, 200, d, torch.float32, False, 13,
-                       causal=causal, window=window, timed=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, causal, window in ((64, True, None), (64, True, 48),
+                                  (128, False, None)):
+            flash_bwd_case("mask", 2, 12, 200, d, dtype, False, 13,
+                           causal=causal, window=window, timed=False)
+    # bf16 past one 256-key block: split keys, dq summed from partials
+    flash_bwd_case("split", 2, 12, 520, 64, torch.bfloat16, False, 14,
+                   causal=True, timed=False)
     return recs
 
 
@@ -859,6 +888,10 @@ def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
     fwd["bound_ms"], fwd["bound_by"] = bound(2 * b * d * item + 2 * b * 4,
                                              2.0 * b * b * d, dt)
     bargs = (x, y, inv_tau, ref_row, ref_col)
+    plan = cl_ops.bwd_plan(b, d)
+    bwd["plan"] = {"grid": plan.grid, "slices": plan.slices,
+                   "scratch_bytes": 4 * plan.scratch_floats,
+                   "scratch_over_dx_dy": plan.scratch_floats / (2 * b * d)}
     bwd["ms"] = tm(lambda: bwd_k(*bargs))
     bwd["plain_ms"] = tm(lambda: bwd_ref(*bargs))
     # autograd of the materialised loss, minus its forward timed apart
@@ -874,7 +907,8 @@ def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
     for name, r in zip(names, (fwd, bwd)):
         print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f"; plan {r['plan']}" if "plan" in r else ""), flush=True)
     return fwd, bwd
 
 

@@ -1,0 +1,133 @@
+"""Compare checkouts of the repository on one CUDA card, in turns.
+
+    python3 scripts/chip_ab.py [--train] [--kernels] TREE [TREE ...]
+
+Each TREE is a checkout of the repository (for example the parent commit
+unpacked with ``git archive`` into an ignored directory, and ``.``). Give
+them in the order A B B A: the card's clocks drift over a call, so two
+versions are compared only within one call and in turns. For each TREE the
+script starts a fresh process in it (its own ``src`` first on the path, its
+own kernel build directory) and prints one line ``AB <tree> <json>``:
+
+- ``--kernels``: the training path's backward kernels at the main paths'
+  shapes, mean device ms between CUDA events (``chip_smoke.time_ms``):
+  ``flash_bwd`` bf16 at one image microbatch (bh 3072, s 196) and one text
+  microbatch (bh 4096, s 16, padded), ``bwd_fused`` at B 2048 × D 512 (f32
+  and bf16) and ragged B 1000, ``grads`` at B 2048 × D 1024 and
+  B 8192 × D 256 / 1024 (f32), each with its max abs error against its
+  plain version;
+- ``--train``: ``repro_torch.launch.train.main`` with ``chip_smoke.py``'s
+  timed-training arguments (BASIC-S bf16, B 2048 in 8 microbatches, 6
+  steps): warm step median, pairs/s, peak memory, step times.
+
+Needs a card; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+KERNELS = r'''
+import json
+import torch
+import torch.nn.functional as F
+from chip_smoke import time_ms, unit_rows
+from repro_torch.kernels.contrastive_loss import ops as cl, ref as clr
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention.ref import (NEG_INF, flash_bwd_ref,
+                                                     flash_fwd_ref)
+out = {}
+dev = torch.device("cuda")
+for label, b, h, s, padded in (("image", 256, 12, 196, False),
+                               ("text", 256, 16, 16, True)):
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn((b * h, s, 64), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    bias = None
+    if padded:
+        lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
+        bias = torch.where(torch.arange(s, device=dev)[None, :]
+                           < lens[:, None], 0.0, NEG_INF).float()
+    o, lse = flash_fwd_ref(q, k, v, bias, causal=False)
+    args = (q, k, v, bias, o, lse, do)
+    got = fa.flash_bwd(*args, causal=False)
+    want = flash_bwd_ref(*args, causal=False)
+    err = max((x.float() - r.float()).abs().max().item()
+              for x, r in zip(got, want))
+    ms = time_ms(lambda: fa.flash_bwd(*args, causal=False))
+    out[f"flash_bwd {label} bf16"] = [round(ms, 4), err]
+for fn, b, d, dt in (("bwd_fused", 2048, 512, torch.float32),
+                     ("bwd_fused", 2048, 512, torch.bfloat16),
+                     ("bwd_fused", 1000, 512, torch.float32),
+                     ("grads", 2048, 1024, torch.float32),
+                     ("grads", 8192, 256, torch.float32),
+                     ("grads", 8192, 1024, torch.float32)):
+    g = torch.Generator(device=dev).manual_seed(b + d)
+    x, y = unit_rows(b, d, g, dt), unit_rows(b, d, g, dt)
+    it = torch.tensor(1 / 0.07, device=dev)
+    r, c = clr.fwd_fused_ref(x, y, it)
+    f = getattr(cl, fn)
+    got = f(x, y, it, r, c)
+    want = clr.bwd_fused_ref(x, y, it, r, c)
+    err = max((got[i] - want[i]).abs().max().item() for i in (0, 1))
+    n, w = (3, 1) if b >= 8192 else (20, 3)
+    ms = time_ms(lambda: f(x, y, it, r, c), n, w)
+    out[f"{fn} {b}x{d} {str(dt).removeprefix('torch.')}"] = [round(ms, 4),
+                                                             err]
+print("RESULT", json.dumps(out))
+'''
+
+TRAIN = r'''
+import json
+import chip_smoke
+from repro_torch.launch import train
+rep = train.main(chip_smoke.TRAIN_ARGV)
+print("RESULT", json.dumps({k: rep[k] for k in (
+    "warm_step_median_s", "pairs_per_s", "max_memory_allocated",
+    "step_s")}))
+'''
+
+
+def run(tree: str, code: str) -> dict:
+    """Run ``code`` in a fresh process inside ``tree``; its RESULT line."""
+    env = dict(os.environ)
+    src = os.path.join(os.path.abspath(tree), "src")
+    env["PYTHONPATH"] = src + os.pathsep + os.path.abspath(tree)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, env=env,
+                          capture_output=True, text=True, check=False)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"{tree} failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1].removeprefix("RESULT "))
+
+
+def main(argv=None) -> int:
+    """Run the chosen comparisons over the trees in the order given."""
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("trees", nargs="+")
+    p.add_argument("--train", action="store_true")
+    p.add_argument("--kernels", action="store_true")
+    args = p.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    for what, code in (("kernels", KERNELS), ("train", TRAIN)):
+        if not getattr(args, what):
+            continue
+        for tree in args.trees:
+            print(f"AB {what} {tree} {json.dumps(run(tree, code))}",
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

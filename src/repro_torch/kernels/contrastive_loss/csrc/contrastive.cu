@@ -16,8 +16,10 @@
 // What bounds it on this card: the arithmetic. At the training shape
 // (B = 2048, D = 512, fp32 from the towers) the forward does 2·B²·D flops
 // (row_col_lse twice that: each sweep computes A once) and the backward
-// 3·2·B²·D on 2·B·D inputs, far above the card's flops-per-byte line; these
-// SIMT loops run on the FMA units in fp32.
+// 3·2·B²·D on 2·B·D inputs, far above the card's flops-per-byte line. The
+// f32 limits (dX/dY 1e-6) keep these products on the fp32 FMA units, so
+// what decides the time is how many FMAs each shared-memory load feeds and
+// whether the card is full.
 //
 // What the design does about it: the TPU kernels carry full-length column
 // statistics (forward) and a VMEM-resident (B, D) dY (backward) across a
@@ -35,20 +37,39 @@
 //             keeps each row's online (max, sum) in registers (one warp per
 //             4 rows, reduced by shuffles), then writes the lse: no
 //             partials, no scratch beyond the two (B,) outputs;
-//   backward  a row-parallel launch (16 rows of X per CTA, 128 CTAs at
-//             B = 2048) sweeps all column tiles and accumulates its dX rows
-//             in shared memory, with one dlog_tau partial per CTA; a
-//             column-parallel launch of the same kernel with the roles of X
-//             and Y (and of the two lse vectors) swapped accumulates dY; a
-//             one-CTA kernel sums the dlog_tau partials in a fixed order.
-//             This is also the TPU's grads: its _dx_kernel and _dy_kernel
-//             are the same two sweeps, so repro_contrastive_grads launches
-//             this sequence as it is.
+//   backward  one launch does both sweeps: blockIdx.y picks the roles
+//             (self = X, other = Y for dX; self = Y, other = X for dY) and
+//             blockIdx.z one of a few fixed slices of the other rows, as
+//             many as it takes to give the card about two waves of CTAs
+//             (3 at B = 2048: 384 CTAs; 1 from B = 4193). A CTA of 8 warps
+//             owns 32 self rows and walks its slice's 256-row other tiles.
+//             Per tile it computes the 32 × 256 scores with 8×4 per thread
+//             (16-byte loads of 8 self rows, the same across the warp, and
+//             of 4 other rows feed 128 FMAs), over 16-wide chunks of D that
+//             16-byte cp.async copies stage double-buffered, the next chunk
+//             landing while this one is multiplied; forms dA (rounded to
+//             bf16 as the operand when the inputs are bf16) into shared
+//             memory, transposed; then adds dA · other to the CTA's 32 × D
+//             accumulator in 16-row by 256-column pieces, also
+//             double-buffered, each thread holding an 8×4 block in
+//             registers (three 16-byte loads, two of them broadcast, feed
+//             32 FMAs) and adding it to the shared accumulator once per
+//             piece range and tile. With one slice the CTA writes its dX
+//             (dY) rows itself; with more, each writes an fp32 partial
+//             (scratch: slices × (dX + dY), slices <= 8) and a second
+//             kernel sums them in slice order. dlog_tau: one partial per
+//             dX CTA, summed by a one-CTA kernel in a fixed order. The
+//             TPU's grads (_dx_kernel, _dy_kernel) are the same two sweeps,
+//             so repro_contrastive_grads launches this sequence as it is.
+//             What it does not do: the other tile is staged twice per tile
+//             (for the scores, then for the contraction), since a whole
+//             256 × D fp32 tile beside the 32 × D accumulator does not fit
+//             in shared memory at D = 1024; and A is computed once per
+//             sweep, 4·2·B²·D flops against the 3·2·B²·D least work.
 // Any B >= 1 is taken: rows and columns past B are zero-filled as they are
 // staged and masked out of every statistic. inv_tau is read from device
 // memory, so the host never synchronises. Inputs are f32 or bf16, converted
-// to fp32 as they are staged; every accumulation is fp32. A simple kernel
-// first: wgmma, TMA and pipelining are later work.
+// to fp32 as they are used; every accumulation is fp32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -56,8 +77,8 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 64;     // forward tile edge; backward other-tile rows
-constexpr int kRows = 16;     // backward and row_col_lse self rows per CTA
+constexpr int kTile = 64;     // forward tile edge
+constexpr int kRows = 16;     // row_col_lse self rows per CTA
 constexpr int kLseTile = 128; // row_col_lse other rows per tile
 constexpr int kDC = 32;       // staged chunk of the embedding dim
 constexpr float kNeg = -1e30f;
@@ -277,118 +298,306 @@ contrastive_lse_sweep_kernel(const T* __restrict__ x, const T* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// backward: 16 "self" rows per CTA sweep every 64-row tile of "other"
-// (self = X, other = Y for dX; self = Y, other = X for dY)
+// backward: one launch, blockIdx.y picks the sweep (0: self = X, other = Y
+// -> dX; 1: self = Y, other = X -> dY) and blockIdx.z a slice of the other
+// rows; 32 self rows per CTA walk the slice's 256-row other tiles
 // ---------------------------------------------------------------------------
 
-size_t grad_smem_bytes(int D) {
-  // Ss [kRows][D + 1], acc [kRows][D], Os [kTile][kDC + 1],
-  // dAs [kRows][kTile + 1], lse_self [kRows], warp sums [4]
-  return sizeof(float) *
-         ((size_t)kRows * (D + 1) + (size_t)kRows * D + kTile * (kDC + 1) +
-          kRows * (kTile + 1) + kRows + 4);
+constexpr int kGT = 256;    // threads of the backward CTA
+constexpr int kGS = 32;     // self rows per CTA
+constexpr int kGO = 256;    // other rows per tile
+constexpr int kGC = 16;     // score chunk of the embedding dim
+constexpr int kGP = 16;     // other rows per contraction piece
+constexpr int kGW = 256;    // embedding columns per contraction piece
+constexpr int kMaxD = 1024; // the CTA's dX rows live in shared memory
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four consecutive shared values as fp32 (one 16-byte or 8-byte load).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  using h2 = __nv_bfloat162;
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const h2*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const h2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Stage the rows [r0, r0 + rows) x columns [c0, c0 + cols) of a (B, D)
+// matrix into shared rows of stride ld (elements of T); entries past B or D
+// are zero. 16-byte cp.async when D is a whole number of them (the caller
+// then commits and waits), else plain element copies.
+template <typename T>
+__device__ __forceinline__ void stage_block(T* dst, int ld, const T* src,
+                                            int r0, int rows, int c0,
+                                            int cols, int B, int D,
+                                            bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    const int cv = cols / V;
+    for (int e = threadIdx.x; e < rows * cv; e += kGT) {
+      const int row = e / cv, col = (e % cv) * V;
+      const int g = r0 + row, d = c0 + col;
+      const bool ok = g < B && d < D;
+      cp_async16(dst + row * ld + col,
+                 src + (ok ? (size_t)g * D + d : 0), ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kGT) {
+      const int row = e / cols, col = e % cols;
+      const int g = r0 + row, d = c0 + col;
+      dst[row * ld + col] =
+          (g < B && d < D) ? src[(size_t)g * D + d] : T(0.f);
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-contrastive_grad_kernel(const T* __restrict__ self,
-                        const T* __restrict__ other,
-                        const float* __restrict__ inv_tau_p,
-                        const float* __restrict__ lse_self,
-                        const float* __restrict__ lse_other,
-                        float* __restrict__ grad,
-                        float* __restrict__ dtau_part, int B, int D,
-                        float two_bn, int with_diag) {
-  constexpr int CS = kDC + 1;
-  constexpr int AS = kTile + 1;
-  extern __shared__ float smem[];
-  float* Ss = smem;                              // [kRows][D + 1]
-  float* acc = Ss + kRows * (D + 1);             // [kRows][D]
-  float* Os = acc + kRows * D;                   // [kTile][CS]
-  float* dAs = Os + kTile * CS;                  // [kRows][AS]
-  float* lse_s = dAs + kRows * AS;               // [kRows]
-  float* warp_sum = lse_s + kRows;               // [4]
+struct GradLayout {
+  static constexpr int SLD = kGC + 16 / (int)sizeof(T);  // score chunk rows
+  static constexpr int PLD = kGW + 16 / (int)sizeof(T);  // piece rows
+  static constexpr int ALD = kGS + 4;                    // dAᵀ rows (fp32)
+  static constexpr size_t score_stage = (size_t)(kGS + kGO) * SLD;
+  static constexpr size_t piece_stage = (size_t)kGP * PLD;
+  static constexpr size_t ring =
+      2 * (score_stage > piece_stage ? score_stage : piece_stage);
+  // acc [kGS][dp] fp32, ring (T), dAᵀ [kGO][ALD] fp32, lse [kGS], sums [8]
+  static size_t bytes(int dp) {
+    return sizeof(float) * ((size_t)kGS * dp + (size_t)kGO * ALD + kGS + 8) +
+           sizeof(T) * ring;
+  }
+};
 
-  const int s0 = blockIdx.x * kRows;
+template <typename T>
+__global__ void __launch_bounds__(kGT, 1)
+contrastive_grad_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                        const float* __restrict__ inv_tau_p,
+                        const float* __restrict__ row_lse,
+                        const float* __restrict__ col_lse,
+                        float* __restrict__ dx, float* __restrict__ dy,
+                        float* __restrict__ part,
+                        float* __restrict__ dtau_part, int B, int D,
+                        float two_bn, int with_diag, int tiles_per_slice) {
+  using L = GradLayout<T>;
+  constexpr int SLD = L::SLD, PLD = L::PLD, ALD = L::ALD;
+  const int dp = (D + 3) & ~3;    // acc row stride: whole float4s
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* acc = reinterpret_cast<float*>(smem_raw);              // [kGS][dp]
+  float* dAt = acc + (size_t)kGS * dp;                          // [kGO][ALD]
+  float* lse_s = dAt + kGO * ALD;                               // [kGS]
+  float* warp_sum = lse_s + kGS;                                // [8]
+  T* ring = reinterpret_cast<T*>(warp_sum + 8);
+
+  const int role = blockIdx.y;
+  const int slice = blockIdx.z;
+  const T* self = role ? y : x;
+  const T* other = role ? x : y;
+  const float* lse_self = role ? col_lse : row_lse;
+  const float* lse_other = role ? row_lse : col_lse;
+  const int s0 = blockIdx.x * kGS;
+  const int o_begin = slice * tiles_per_slice * kGO;
+  const int o_end = min(B, o_begin + tiles_per_slice * kGO);
   const int tid = threadIdx.x;
-  const int r = tid >> 3;          // self row of the tile: 0..15
-  const int c = tid & 7;           // other columns c + 8 j
+  const int warp = tid >> 5, lane = tid & 31;
+  const int sg = warp & 3;                      // self row group
+  const int og = 128 * (warp >> 2) + lane;      // first other row (scores)
+  const int cg = 128 * (warp >> 2) + 4 * lane;  // first column (contraction)
+  const bool vec = D % (16 / (int)sizeof(T)) == 0 &&
+                   (((size_t)x | (size_t)y) & 15) == 0;
   const float inv_tau = *inv_tau_p;
 
-  for (int e = tid; e < kRows * D; e += kThreads) {
-    const int row = e / D, d = e % D;
-    const int g = s0 + row;
-    Ss[row * (D + 1) + d] = g < B ? to_f32(self[(size_t)g * D + d]) : 0.f;
-    acc[e] = 0.f;
-  }
-  if (tid < kRows) lse_s[tid] = s0 + tid < B ? lse_self[s0 + tid] : 0.f;
+  for (int e = tid; e < kGS * dp; e += kGT) acc[e] = 0.f;
+  if (tid < kGS) lse_s[tid] = s0 + tid < B ? lse_self[s0 + tid] : 0.f;
 
-  const int srow = s0 + r;
+  const int nc = (D + kGC - 1) / kGC;        // score chunks
+  const int ndr = (D + kGW - 1) / kGW;       // contraction column ranges
   float dtau = 0.f;
-  for (int o0 = 0; o0 < B; o0 += kTile) {
-    // a = self · otherᵀ · inv_tau for 16 rows x 64 columns
-    float a[8];
+  for (int o0 = o_begin; o0 < o_end; o0 += kGO) {
+    const int npc = (min(kGO, o_end - o0) + kGP - 1) / kGP;  // pieces / range
+    // --- a = self · otherᵀ (32 × 256): warp w -> self rows (w & 3) + 4 i
+    // (i < 8, the same for the whole warp, so their loads broadcast), lane
+    // -> other rows 128 (w >> 2) + lane + 32 j (j < 4); each chunk is loaded
+    // while the one before it is multiplied
+    auto stage_chunk = [&](int c, int buf) {
+      T* Ss = ring + buf * L::score_stage;
+      stage_block<T>(Ss, SLD, self, s0, kGS, c * kGC, kGC, B, D, vec);
+      stage_block<T>(Ss + kGS * SLD, SLD, other, o0, kGO, c * kGC, kGC, B, D,
+                     vec);
+      cp_async_commit();
+    };
+    float a[8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) a[j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kDC) {
-      __syncthreads();
-      stage_chunk(Os, other, o0, kTile, d0, B, D);
-      __syncthreads();
-      const int dn = min(kDC, D - d0);
-      for (int d = 0; d < dn; ++d) {
-        const float sv = Ss[r * (D + 1) + d0 + d];
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          a[j] = fmaf(sv, Os[(c + 8 * j) * CS + d], a[j]);
+      for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+    stage_chunk(0, 0);
+    for (int c = 0; c < nc; ++c) {
+      if (c + 1 < nc) {
+        stage_chunk(c + 1, (c + 1) & 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-    }
+      __syncthreads();
+      const T* Ss = ring + (c & 1) * L::score_stage;
+      const T* Os = Ss + kGS * SLD;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int orow = o0 + c + 8 * j;
-      float da = 0.f;
-      if (srow < B && orow < B) {
-        const float av = a[j] * inv_tau;
-        da = expf(av - lse_s[r]) + expf(av - lse_other[orow]);
-        if (with_diag && srow == orow) da -= 2.f;
-        da = da / two_bn;
-        dtau -= da * av;
+      for (int k = 0; k < kGC; k += 4) {
+        float4 sv[8], ov[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sv[i] = load4(Ss + (sg + 4 * i) * SLD + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ov[j] = load4(Os + (og + 32 * j) * SLD + k);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            a[i][j] = fmaf(sv[i].x, ov[j].x, a[i][j]);
+            a[i][j] = fmaf(sv[i].y, ov[j].y, a[i][j]);
+            a[i][j] = fmaf(sv[i].z, ov[j].z, a[i][j]);
+            a[i][j] = fmaf(sv[i].w, ov[j].w, a[i][j]);
+          }
       }
-      dAs[r * AS + c + 8 * j] = as_operand(da, T());
+      __syncthreads();   // this stage is free for the chunk after next
     }
 
-    // acc[row, :] += dA[row, :] · other tile
-    for (int d0 = 0; d0 < D; d0 += kDC) {
-      __syncthreads();  // dA is written; the previous chunk's readers done
-      stage_chunk(Os, other, o0, kTile, d0, B, D);
-      __syncthreads();
+    // the first contraction piece loads while dA is formed
+    auto stage_piece = [&](int p, int buf) {
+      const int dr = p / npc, oc = p % npc;
+      stage_block<T>(ring + buf * L::piece_stage, PLD, other,
+                     o0 + oc * kGP, kGP, dr * kGW, kGW, B, D, vec);
+      cp_async_commit();
+    };
+    stage_piece(0, 0);
+
+    // --- dA, rounded as the contraction's operand, transposed into dAᵀ
 #pragma unroll
-      for (int jj = 0; jj < kDC / 8; ++jj) {
-        const int col = c + 8 * jj;
-        if (d0 + col < D) {
-          float sum = 0.f;
-#pragma unroll 8
-          for (int o = 0; o < kTile; ++o)
-            sum = fmaf(dAs[r * AS + o], Os[o * CS + col], sum);
-          acc[r * D + d0 + col] += sum;
+    for (int i = 0; i < 8; ++i) {
+      const int sl = sg + 4 * i, srow = s0 + sl;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ol = og + 32 * j, orow = o0 + ol;
+        float da = 0.f;
+        if (srow < B && orow < o_end) {
+          const float av = a[i][j] * inv_tau;
+          da = expf(av - lse_s[sl]) + expf(av - lse_other[orow]);
+          if (with_diag && srow == orow) da -= 2.f;
+          da = da / two_bn;
+          dtau -= da * av;
+        }
+        dAt[ol * ALD + sl] = as_operand(da, T());
+      }
+    }
+    __syncthreads();
+
+    // --- acc += dA · other: warp w -> self rows 8 (w & 3).. (their dA
+    // loads broadcast), lane -> columns 128 (w >> 2) + 4 lane.. of each
+    // 256-wide range, 8×4 in registers, added to acc once per range and tile
+    const int np = ndr * npc;
+    float cacc[8][4];
+    for (int p = 0; p < np; ++p) {
+      const int dr = p / npc, oc = p % npc;
+      if (oc == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) cacc[i][j] = 0.f;
+      }
+      if (p + 1 < np) {
+        stage_piece(p + 1, (p + 1) & 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* Ps = ring + (p & 1) * L::piece_stage;
+      const float* dA = dAt + oc * kGP * ALD + 8 * sg;
+#pragma unroll 4
+      for (int o = 0; o < kGP; ++o) {
+        const float4 d0 = load4(dA + o * ALD);
+        const float4 d1 = load4(dA + o * ALD + 4);
+        const float4 ov = load4(Ps + o * PLD + cg);
+        const float d4[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          cacc[i][0] = fmaf(d4[i], ov.x, cacc[i][0]);
+          cacc[i][1] = fmaf(d4[i], ov.y, cacc[i][1]);
+          cacc[i][2] = fmaf(d4[i], ov.z, cacc[i][2]);
+          cacc[i][3] = fmaf(d4[i], ov.w, cacc[i][3]);
         }
       }
+      const int col = dr * kGW + cg;
+      if (oc == npc - 1 && col < D) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float4* r = reinterpret_cast<float4*>(acc + (8 * sg + i) * dp + col);
+          float4 v = *r;
+          v.x += cacc[i][0];
+          v.y += cacc[i][1];
+          v.z += cacc[i][2];
+          v.w += cacc[i][3];
+          *r = v;
+        }
+      }
+      __syncthreads();   // this stage and, after the last piece, dAᵀ free
     }
   }
   __syncthreads();
-  for (int e = tid; e < kRows * D; e += kThreads) {
-    const int g = s0 + e / D;
-    if (g < B) grad[(size_t)s0 * D + e] = acc[e] * inv_tau;
+
+  const size_t slab = (size_t)B * D;
+  const bool split = gridDim.z > 1;
+  float* out = split ? part + ((size_t)slice * 2 + role) * slab
+                     : (role ? dy : dx);
+  const float mul = split ? 1.f : inv_tau;
+  for (int e = tid; e < kGS * D; e += kGT) {
+    const int row = e / D, col = e % D;
+    if (s0 + row < B)
+      out[(size_t)(s0 + row) * D + col] = acc[row * dp + col] * mul;
   }
-  if (dtau_part != nullptr) {
+  if (role == 0) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       dtau += __shfl_xor_sync(kFull, dtau, off);
-    if ((tid & 31) == 0) warp_sum[tid >> 5] = dtau;
+    if (lane == 0) warp_sum[warp] = dtau;
     __syncthreads();
-    if (tid == 0)
-      dtau_part[blockIdx.x] =
-          (warp_sum[0] + warp_sum[1]) + (warp_sum[2] + warp_sum[3]);
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < kGT / 32; ++w) s += warp_sum[w];
+      dtau_part[(size_t)slice * gridDim.x + blockIdx.x] = s;
+    }
   }
+}
+
+// dX, dY = inv_tau · the sum of the slices' partials, in slice order.
+__global__ void __launch_bounds__(256)
+contrastive_grad_sum_kernel(const float* __restrict__ part,
+                            const float* __restrict__ inv_tau_p,
+                            float* __restrict__ dx, float* __restrict__ dy,
+                            size_t slab, int slices) {
+  const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= 2 * slab) return;
+  const int role = idx >= slab;
+  const size_t e = idx - role * slab;
+  float s = 0.f;
+  for (int p = 0; p < slices; ++p) s += part[((size_t)p * 2 + role) * slab + e];
+  (role ? dy : dx)[e] = s * *inv_tau_p;
 }
 
 // dtau = sum of n partials, in a fixed order.
@@ -445,29 +654,41 @@ template <typename T>
 cudaError_t bwd(const void* x, const void* y, const void* inv_tau,
                 const void* row_lse, const void* col_lse, void* dx, void* dy,
                 void* dtau, void* part, int B, int D, float two_bn,
-                int with_diag, cudaStream_t stream) {
-  const size_t smem = grad_smem_bytes(D);
+                int with_diag, int slices, cudaStream_t stream) {
+  const int nb = (B + kGS - 1) / kGS;
+  const int tiles = (B + kGO - 1) / kGO;
+  if (slices < 1 || slices > tiles || slices > 65535)
+    return cudaErrorInvalidValue;
+  const int tps = (tiles + slices - 1) / slices;
+  if ((tiles + tps - 1) / tps != slices) return cudaErrorInvalidValue;
+  const size_t smem = GradLayout<T>::bytes((D + 3) & ~3);
   auto kernel = contrastive_grad_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n = (B + kRows - 1) / kRows;
-  const float* it = static_cast<const float*>(inv_tau);
-  const float* rl = static_cast<const float*>(row_lse);
-  const float* cl = static_cast<const float*>(col_lse);
+  const size_t slab = (size_t)B * D;
   float* p = static_cast<float*>(part);
-  kernel<<<n, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), it, rl, cl,
-      static_cast<float*>(dx), p, B, D, two_bn, with_diag);
+  float* partials = slices > 1 ? p : nullptr;
+  float* dtau_part = p + (slices > 1 ? 2 * slab * slices : 0);
+  const float* it = static_cast<const float*>(inv_tau);
+  kernel<<<dim3(nb, 2, slices), kGT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), it,
+      static_cast<const float*>(row_lse), static_cast<const float*>(col_lse),
+      static_cast<float*>(dx), static_cast<float*>(dy), partials, dtau_part,
+      B, D, two_bn, with_diag, tps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<n, kThreads, smem, stream>>>(
-      static_cast<const T*>(y), static_cast<const T*>(x), it, cl, rl,
-      static_cast<float*>(dy), nullptr, B, D, two_bn, with_diag);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (slices > 1) {
+    contrastive_grad_sum_kernel<<<(unsigned)((2 * slab + 255) / 256), 256, 0,
+                                  stream>>>(partials, it,
+                                            static_cast<float*>(dx),
+                                            static_cast<float*>(dy), slab,
+                                            slices);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   contrastive_dtau_sum_kernel<<<1, 256, 0, stream>>>(
-      p, static_cast<float*>(dtau), n);
+      dtau_part, static_cast<float*>(dtau), nb * slices);
   return cudaGetLastError();
 }
 
@@ -490,24 +711,28 @@ extern "C" int repro_contrastive_fwd(const void* x, const void* y,
   return (int)cudaErrorInvalidValue;
 }
 
-// dx, dy: (B, D) fp32 outputs; dtau: one fp32 output; part: fp32 scratch of
-// ceil(B / 16) entries; two_bn = 2 * b_norm. D may be at most 1024 (the
-// dX/dY rows live in shared memory). Returns the CUDA error code.
+// dx, dy: (B, D) fp32 outputs; dtau: one fp32 output; slices: the number of
+// slices of the other rows (ops.bwd_plan; 1 <= slices <= ceil(B / 256),
+// none empty); part: fp32 scratch of 2 * B * D * slices entries when
+// slices > 1, then ceil(B / 32) * slices more; two_bn = 2 * b_norm. D may be
+// at most 1024 (the dX/dY rows live in shared memory). Returns the CUDA
+// error code.
 extern "C" int repro_contrastive_bwd(const void* x, const void* y,
                                      const void* inv_tau,
                                      const void* row_lse,
                                      const void* col_lse, void* dx, void* dy,
                                      void* dtau, void* part, int dtype, int B,
                                      int D, float two_bn, int with_diag,
-                                     void* stream) {
-  if (B < 1 || D < 1 || D > 1024) return (int)cudaErrorInvalidValue;
+                                     int slices, void* stream) {
+  if (B < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)bwd<float>(x, y, inv_tau, row_lse, col_lse, dx, dy, dtau,
-                           part, B, D, two_bn, with_diag, st);
+                           part, B, D, two_bn, with_diag, slices, st);
   if (dtype == 1)
     return (int)bwd<__nv_bfloat16>(x, y, inv_tau, row_lse, col_lse, dx, dy,
-                                   dtau, part, B, D, two_bn, with_diag, st);
+                                   dtau, part, B, D, two_bn, with_diag,
+                                   slices, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -530,15 +755,17 @@ extern "C" int repro_contrastive_row_col_lse(const void* x, const void* y,
 }
 
 // The legacy pair's backward, the TPU's grads: its dX sweep and dY sweep
-// are the backward's two launches above, so this runs that sequence with
-// the same arguments and limits as repro_contrastive_bwd.
+// are the backward's two roles above, so this runs that launch with the
+// same arguments and limits as repro_contrastive_bwd.
 extern "C" int repro_contrastive_grads(const void* x, const void* y,
                                        const void* inv_tau,
                                        const void* row_lse,
                                        const void* col_lse, void* dx,
                                        void* dy, void* dtau, void* part,
                                        int dtype, int B, int D, float two_bn,
-                                       int with_diag, void* stream) {
+                                       int with_diag, int slices,
+                                       void* stream) {
   return repro_contrastive_bwd(x, y, inv_tau, row_lse, col_lse, dx, dy, dtau,
-                               part, dtype, B, D, two_bn, with_diag, stream);
+                               part, dtype, B, D, two_bn, with_diag, slices,
+                               stream);
 }

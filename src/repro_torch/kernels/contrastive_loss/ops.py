@@ -31,12 +31,14 @@ already computes dX and dY in two launches of one row-parallel kernel (X
 against Y, then Y against X), which is the TPU's ``grads`` loop, so
 ``grads`` here launches that same sequence under its own entry and
 counter, and there is nothing to fall back from. Any B >= 1 is taken.
+``bwd_plan`` is the backward's launch plan (slices of the other rows,
+grid, scratch), worked out here and passed to the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -48,11 +50,14 @@ from repro_torch.kernels.contrastive_loss.ref import (bwd_fused_ref,
 
 MAX_D = 1024          # the backward keeps its dX / dY rows in shared memory
 FWD_TILE = 64         # edge of the forward's A tile (csrc kTile)
-BWD_ROWS = 16         # rows of X (Y) per backward CTA (csrc kRows)
+BWD_ROWS = 32         # rows of X (Y) per backward CTA (csrc kGS)
+BWD_TILE = 256        # other rows per backward tile (csrc kGO)
+MAX_SLICES = 8        # bounds the backward's scratch at 8 × (dX + dY)
+SMS = 132             # the H100's streaming multiprocessors
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_BWD_ARGS = [_P] * 9 + [_I] * 3 + [ctypes.c_float, _I, _P]
+_BWD_ARGS = [_P] * 9 + [_I] * 3 + [ctypes.c_float, _I, _I, _P]
 LIB = KernelLibrary(
     "contrastive",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -117,6 +122,51 @@ def fwd_fused(x: torch.Tensor, y: torch.Tensor,
     return row_lse, col_lse
 
 
+class BwdPlan(NamedTuple):
+    """The backward launch at batch B: ``blocks`` CTAs of 32 self rows per
+    sweep, the other rows cut into ``slices`` runs of ``tiles_per_slice``
+    256-row tiles, grid (blocks, 2 sweeps, slices), and the fp32 scratch:
+    ``partial_floats`` (the slices' dX and dY partials, none with one
+    slice) then ``dtau_floats`` (one dlog_tau partial per dX CTA)."""
+    blocks: int
+    slices: int
+    tiles_per_slice: int
+    grid: tuple
+    partial_floats: int
+    dtau_floats: int
+
+    @property
+    def scratch_floats(self) -> int:
+        """Entries of the one fp32 scratch the wrapper allocates."""
+        return self.partial_floats + self.dtau_floats
+
+
+def bwd_plan(b: int, d: int) -> BwdPlan:
+    """Slices enough that the two sweeps give about two waves of one CTA
+    per SM (2·132 CTAs), at most ``MAX_SLICES`` and no more than the 256-row
+    tiles of B, and none empty. From B = 4193 one slice fills the card and
+    no partials are kept."""
+    blocks = -(-b // BWD_ROWS)
+    tiles = -(-b // BWD_TILE)
+    want = max(1, min(-(-2 * SMS // (2 * blocks)), tiles, MAX_SLICES))
+    per = -(-tiles // want)
+    slices = -(-tiles // per)
+    partial = 2 * b * d * slices if slices > 1 else 0
+    return BwdPlan(blocks, slices, per, (blocks, 2, slices), partial,
+                   blocks * slices)
+
+
+def bwd_buffers(b: int, d: int, device):
+    """(plan, dX, dY, dlog_tau, scratch): what the backward wrapper
+    allocates for one call, all fp32, the scratch as ``bwd_plan`` says."""
+    plan = bwd_plan(b, d)
+
+    def empty(shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return (plan, empty((b, d)), empty((b, d)), empty(()),
+            empty((plan.scratch_floats,)))
+
+
 def _backward(what, entry, counter, ref, x, y, inv_tau, row_lse, col_lse,
               b_norm, with_diag):
     """The backward's dX sweep, dY sweep and dlog_tau sum through C entry
@@ -134,11 +184,7 @@ def _backward(what, entry, counter, ref, x, y, inv_tau, row_lse, col_lse,
     if row_lse.shape != (b,) or col_lse.shape != (b,):
         raise ValueError(f"row/col lse must be ({b},), got "
                          f"{tuple(row_lse.shape)}, {tuple(col_lse.shape)}")
-    dx = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    dy = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    dtau = torch.empty((), dtype=torch.float32, device=x.device)
-    part = torch.empty((-(-b // BWD_ROWS),), dtype=torch.float32,
-                       device=x.device)
+    plan, dx, dy, dtau, part = bwd_buffers(b, d, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = getattr(LIB.lib(), entry)(
@@ -146,7 +192,7 @@ def _backward(what, entry, counter, ref, x, y, inv_tau, row_lse, col_lse,
             col_lse.data_ptr(), dx.data_ptr(), dy.data_ptr(),
             dtau.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, d,
             float(2.0 * (b if b_norm is None else b_norm)), int(with_diag),
-            stream)
+            plan.slices, stream)
     check(rc, f"contrastive {what} launch")
     counter.add()
     return dx, dy, dtau

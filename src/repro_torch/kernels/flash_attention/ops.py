@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,8 +43,34 @@ LIB = KernelLibrary(
 COUNTER = LaunchCounter("flash_fwd")
 BWD_LIB = KernelLibrary(
     "flash_bwd", os.path.join(_CSRC, "flash_bwd.cu"),
-    {"repro_flash_bwd": (_I, [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P])})
+    {"repro_flash_bwd": (_I, [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P])})
 BWD_COUNTER = LaunchCounter("flash_bwd")
+
+
+class BwdPlan(NamedTuple):
+    """How ``flash_bwd`` splits a call: ``key_block`` keys per CTA (0: the
+    f32 SIMT kernels, which need no plan), ``key_blocks`` CTAs per kv row,
+    and the fp32 dq partials (``dq_part_floats`` entries) when there is
+    more than one key block."""
+    key_block: int
+    key_blocks: int
+    dq_part_floats: int
+
+
+def bwd_plan(bh: int, s: int, t: int, d: int, dtype: torch.dtype) -> BwdPlan:
+    """The backward kernel's launch plan for q (bh, s, d) against t keys.
+
+    bf16 runs the tensor-core kernel with 16 keys per warp: 4 warps when
+    t <= 64 (the text tower), else 16 warps at d 64 and 8 at d 128 (the
+    registers of the dk and dv accumulators bound a warp's share). A block
+    of 256 keys at d 64 holds the whole head at the towers' lengths; past
+    it the keys split over ceil(t / key_block) CTAs, each writing an fp32
+    dq partial that a second kernel sums in block order."""
+    if dtype != torch.bfloat16:
+        return BwdPlan(0, 1, 0)
+    key_block = 64 if t <= 64 else (256 if d == 64 else 128)
+    blocks = -(-t // key_block)
+    return BwdPlan(key_block, blocks, blocks * bh * s * d if blocks > 1 else 0)
 
 
 def _check_inputs(q, k, v, bias):
@@ -130,8 +156,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Layouts as ``flash_fwd``, plus its out (bh, s, d) and lse (bh, s)
     fp32 and the upstream gradient dout (bh, s, d) in q's dtype. Returns
     (dq, dk, dv) in the input dtype: dq (bh, s, d), dk/dv (bh // group,
-    t, d) summed over each group's query heads. One call launches three
-    device kernels (delta, dq, dk/dv)."""
+    t, d) summed over each group's query heads. One call launches the
+    delta kernel and then, for f32, the dq and dk/dv kernels; for bf16 the
+    tensor-core kernel (and the dq partial sum when ``bwd_plan`` splits the
+    keys)."""
     _check_inputs(q, k, v, bias)
     if out.shape != q.shape or dout.shape != q.shape or \
             lse.shape != q.shape[:2]:
@@ -148,20 +176,28 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.dtype != torch.float32:
         raise TypeError(f"flash_bwd takes out/dout in q's dtype and fp32 "
                         f"lse, got {out.dtype}/{dout.dtype}/{lse.dtype}")
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in (q, k, v, dout)):
+        raise ValueError("the bf16 flash_bwd kernel copies 16-byte rows: "
+                         "q, k, v and dout must start 16-byte aligned")
     bh, s, d = q.shape
     t = k.shape[1]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    plan = bwd_plan(bh, s, t, d, q.dtype)
+    dq_part = (torch.empty((plan.dq_part_floats,), dtype=torch.float32,
+                           device=q.device) if plan.dq_part_floats else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = BWD_LIB.lib().repro_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
-            bh, s, t, d, bh // k.shape[0],
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dq_part.data_ptr() if dq_part is not None else None,
+            _DTYPES[q.dtype], bh, s, t, d, plan.key_block, bh // k.shape[0],
             bh // bias.shape[0] if bias is not None else 1, int(causal),
             window if window is not None else -1, float(d ** -0.5), stream)
     check(rc, "flash_bwd launch")

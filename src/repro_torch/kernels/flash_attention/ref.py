@@ -65,7 +65,10 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = exp(s − lse) (masked entries give exp(NEG_INF − lse) = 0) and, in
     fp32, delta = rowsum(dout·out), ds = p·(dout·vᵀ − delta); returns
     (dq, dk, dv) in the input dtypes, dk and dv summed over the query heads
-    of each kv row's group."""
+    of each kv row's group. For bf16 inputs p and ds are rounded to bf16
+    before the three products that take them, as the tensor-core kernel
+    feeds them to the mma (and the TPU's MXU takes f32 operands at default
+    precision); for f32 inputs the rounding is the identity."""
     bh, s, d = q.shape
     bkv, t = k.shape[0], k.shape[1]
     qf, kf, vf, scores = _scores(q, k, v, bias, causal, window)
@@ -73,6 +76,8 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do = dout.float()
     delta = torch.sum(do * out.float(), dim=-1)            # (bh, s)
     ds = p * (torch.matmul(do, vf.transpose(1, 2)) - delta[..., None])
+    if q.dtype != torch.float32:
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dq = torch.matmul(ds, kf) * (d ** -0.5)
     # qf is pre-scaled by d^-1/2, so dsᵀ·qf IS dk
     dk = torch.matmul(ds.transpose(1, 2), qf).reshape(bkv, -1, t, d).sum(1)

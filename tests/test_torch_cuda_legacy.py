@@ -65,7 +65,8 @@ def test_row_col_lse_kernel_matches_plain(gen, b, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b_norm,with_diag", [(None, True), ("3B", False),
                                               (None, False), ("3B", True)])
-@pytest.mark.parametrize("b,d", [(2048, 512), (1000, 512), (130, 200)])
+@pytest.mark.parametrize("b,d", [(2048, 512), (1000, 512), (130, 200),
+                                 (1, 24), (1000, 1024), (130, 24)])
 def test_grads_kernel_matches_plain(gen, b, d, b_norm, with_diag, dtype):
     x, y = _unit(b, d, gen, dtype), _unit(b, d, gen, dtype)
     inv_tau = torch.tensor(1 / 0.07, device="cuda")
@@ -84,6 +85,21 @@ def test_grads_kernel_matches_plain(gen, b, d, b_norm, with_diag, dtype):
         assert float((g - r).abs().max()) <= _grad_tol(r, dtype)
     rtol = 1e-4 if dtype == torch.float32 else 2e-2
     assert abs(float(got[2] - ref[2])) <= rtol * abs(float(ref[2])) + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d", [(2048, 1024), (1000, 24)])
+def test_grads_kernel_repeats_bit_for_bit(gen, b, d, dtype):
+    x, y = _unit(b, d, gen, dtype), _unit(b, d, gen, dtype)
+    inv_tau = torch.tensor(1 / 0.07, device="cuda")
+    row, col = row_col_lse_ref(x, y, inv_tau)
+    first = cl_ops.grads(x, y, inv_tau, row, col, b_norm=3 * b,
+                         with_diag=False)
+    second = cl_ops.grads(x, y, inv_tau, row, col, b_norm=3 * b,
+                          with_diag=False)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("b,d", [(2048, 512), (777, 256)])

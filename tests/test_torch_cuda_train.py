@@ -70,6 +70,15 @@ def _close(got, ref, dtype):
     (2, 4, 4, 131, 64, True, None, False),
     (2, 4, 4, 131, 64, True, 40, False),
     (3, 2, 2, 1, 64, False, None, False),        # one token
+    # the bf16 kernel's edges (ops.bwd_plan): 4 warps up to t 64, one
+    # 256-key block at d 64 up to t 256, split keys with dq partials past it
+    (2, 4, 4, 64, 64, False, None, True),
+    (2, 4, 4, 65, 64, False, None, True),
+    (1, 4, 4, 256, 64, True, None, False),
+    (1, 4, 4, 257, 64, True, None, False),
+    (1, 4, 1, 300, 64, False, 70, False),        # GQA 4, split, window
+    (2, 8, 2, 64, 128, True, None, False),       # d 128, GQA 4, 4 warps
+    (1, 8, 2, 131, 128, True, 40, False),        # d 128, GQA 4, split
 ])
 def test_flash_bwd_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
                                         padded, dtype):
@@ -95,6 +104,24 @@ def test_flash_bwd_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
         assert g.dtype == dtype and g.shape == r.shape, name
         ok, err = _close(g, r, dtype)
         assert ok, f"{name}: max abs err {err:.3g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d,kv", [(196, 64, 12), (300, 64, 3),
+                                    (131, 128, 3)])
+def test_flash_bwd_kernel_repeats_bit_for_bit(gen, s, d, kv, dtype):
+    """No atomics: two calls on the same inputs give the same bits, on the
+    one-block and the split (dq partials) paths alike."""
+    q, dout = (torch.randn((12, s, d), generator=gen, device="cuda")
+               .to(dtype) for _ in range(2))
+    k, v = (torch.randn((kv, s, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out, lse = flash_fwd_ref(q, k, v, None, causal=False)
+    first = fa_ops.flash_bwd(q, k, v, None, out, lse, dout, causal=False)
+    second = fa_ops.flash_bwd(q, k, v, None, out, lse, dout, causal=False)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_trains_through_the_kernels(gen):
@@ -124,7 +151,8 @@ def _unit(n, d, gen, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,d", [(2048, 512), (1000, 512), (64, 24),
-                                 (1, 32), (130, 200)])
+                                 (1, 32), (130, 200), (1, 24), (130, 1024),
+                                 (1000, 24), (300, 1024)])
 def test_contrastive_kernels_match_plain(gen, b, d, dtype):
     x, y = _unit(b, d, gen, dtype), _unit(b, d, gen, dtype)
     inv_tau = torch.tensor(1 / 0.07, device="cuda")
@@ -161,6 +189,21 @@ def test_contrastive_bwd_kernel_chunk_arguments(gen, b_norm, with_diag):
     assert abs(float(got[2] - ref[2])) <= 1e-4 * abs(float(ref[2])) + 1e-6
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d", [(2048, 512), (1000, 200), (130, 1024)])
+def test_contrastive_bwd_kernel_repeats_bit_for_bit(gen, b, d, dtype):
+    """No atomics: the sliced partials and the dlog_tau partials are summed
+    in a fixed order, so two calls give the same bits."""
+    x, y = _unit(b, d, gen, dtype), _unit(b, d, gen, dtype)
+    inv_tau = torch.tensor(1 / 0.07, device="cuda")
+    row, col = fwd_fused_ref(x, y, inv_tau)
+    first = cl_ops.bwd_fused(x, y, inv_tau, row, col)
+    second = cl_ops.bwd_fused(x, y, inv_tau, row, col)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
 def test_fused_contrastive_loss_value_and_grads(gen):
     x, y = _unit(300, 128, gen, torch.float32), _unit(300, 128, gen,
                                                       torch.float32)
@@ -187,6 +230,11 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_bwd(q, q, q, None, out, lse,
                          q.transpose(0, 1).contiguous().transpose(0, 1))
+    qb = torch.randn((4 * 8 * 64 + 1,), device="cuda").to(torch.bfloat16)
+    qb = qb[1:].view(4, 8, 64)                     # starts 2 bytes in
+    out, lse = flash_fwd_ref(qb, qb, qb)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_bwd(qb, qb, qb, None, out, lse, out)
 
 
 def test_gradaccum_step_kernel_path_matches_plain_path(gen):
