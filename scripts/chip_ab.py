@@ -9,13 +9,15 @@ versions are compared only within one call and in turns. For each TREE the
 script starts a fresh process in it (its own ``src`` first on the path, its
 own kernel build directory) and prints one line ``AB <tree> <json>``:
 
-- ``--kernels``: the training path's backward kernels at the main paths'
-  shapes, mean device ms between CUDA events (``chip_smoke.time_ms``):
-  ``flash_bwd`` bf16 at one image microbatch (bh 3072, s 196) and one text
-  microbatch (bh 4096, s 16, padded), ``bwd_fused`` at B 2048 × D 512 (f32
-  and bf16) and ragged B 1000, ``grads`` at B 2048 × D 1024 and
-  B 8192 × D 256 / 1024 (f32), each with its max abs error against its
-  plain version;
+- ``--kernels``: kernels at the main paths' shapes, mean device ms
+  between CUDA events (``chip_smoke.time_ms``), each with its max abs
+  error against its plain version: ``flash_fwd`` and ``flash_bwd`` bf16
+  at one image microbatch (bh 3072, s 196) and one text microbatch
+  (bh 4096, s 16, padded), ``flash_fwd`` bf16 also at the Llama prefill
+  (bh 32 over 8 kv heads, s 512, causal); ``bwd_fused`` at B 2048 × D 512
+  (f32 and bf16) and ragged B 1000, ``grads`` at B 2048 × D 1024 and
+  B 8192 × D 256 / 1024 (f32); ``row_col_lse`` at B 2048 and 8192 × D 1024
+  (f32);
 - ``--train``: ``repro_torch.launch.train.main`` with ``chip_smoke.py``'s
   timed-training arguments (BASIC-S bf16, B 2048 in 8 microbatches, 6
   steps): warm step median, pairs/s, peak memory, step times.
@@ -52,6 +54,11 @@ for label, b, h, s, padded in (("image", 256, 12, 196, False),
         bias = torch.where(torch.arange(s, device=dev)[None, :]
                            < lens[:, None], 0.0, NEG_INF).float()
     o, lse = flash_fwd_ref(q, k, v, bias, causal=False)
+    got = fa.flash_fwd(q, k, v, bias, causal=False)
+    err = max((x.float() - r.float()).abs().max().item()
+              for x, r in zip(got, (o, lse)))
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, bias, causal=False))
+    out[f"flash_fwd {label} bf16"] = [round(ms, 4), err]
     args = (q, k, v, bias, o, lse, do)
     got = fa.flash_bwd(*args, causal=False)
     want = flash_bwd_ref(*args, causal=False)
@@ -59,6 +66,26 @@ for label, b, h, s, padded in (("image", 256, 12, 196, False),
               for x, r in zip(got, want))
     ms = time_ms(lambda: fa.flash_bwd(*args, causal=False))
     out[f"flash_bwd {label} bf16"] = [round(ms, 4), err]
+g = torch.Generator(device=dev).manual_seed(50)
+q = torch.randn((32, 512, 64), generator=g, device=dev).to(torch.bfloat16)
+k, v = (torch.randn((8, 512, 64), generator=g, device=dev)
+        .to(torch.bfloat16) for _ in range(2))
+want = flash_fwd_ref(q, k, v, causal=True, window=8192)
+got = fa.flash_fwd(q, k, v, causal=True, window=8192)
+err = max((x.float() - r.float()).abs().max().item()
+          for x, r in zip(got, want))
+ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=True, window=8192))
+out["flash_fwd prefill bf16"] = [round(ms, 4), err]
+for b in (2048, 8192):
+    g = torch.Generator(device=dev).manual_seed(b + 1024)
+    x, y = (unit_rows(b, 1024, g, torch.float32) for _ in range(2))
+    it = torch.tensor(1 / 0.07, device=dev)
+    want = clr.row_col_lse_ref(x, y, it)
+    got = cl.row_col_lse(x, y, it)
+    err = max((a - r).abs().max().item() for a, r in zip(got, want))
+    n, w = (3, 1) if b >= 8192 else (20, 3)
+    ms = time_ms(lambda: cl.row_col_lse(x, y, it), n, w)
+    out[f"row_col_lse {b}x1024 float32"] = [round(ms, 4), err]
 for fn, b, d, dt in (("bwd_fused", 2048, 512, torch.float32),
                      ("bwd_fused", 2048, 512, torch.bfloat16),
                      ("bwd_fused", 1000, 512, torch.float32),

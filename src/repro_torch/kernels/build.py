@@ -4,8 +4,9 @@ Each kernel package keeps its CUDA C++ under ``csrc/``. A source is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds) and loaded with ``ctypes``.
 Libraries are built at first use into ``<repo>/build/repro_torch/`` and
-named by a hash of the source and flags, so an edited kernel is rebuilt and
-an unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
+named by a hash of the source, the ``csrc`` headers it includes and the
+flags, so an edited kernel or header is rebuilt and an unchanged one is
+loaded as it is. ``build_all`` starts one ``nvcc`` per
 missing library, all at once.
 
 Nothing here runs at import time: this module imports on hosts with no
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,6 +44,27 @@ def nvcc_path() -> str:
         raise RuntimeError("nvcc not found (PATH, CUDA_HOME); the CUDA "
                            "toolkit is needed to build the kernels")
     return path
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: str) -> list:
+    """``source`` and, depth first, every header it includes with
+    ``#include "..."`` (resolved beside the including file), each once."""
+    seen = []
+
+    def visit(path):
+        path = os.path.normpath(path)
+        if path in seen:
+            return
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            visit(os.path.join(os.path.dirname(path), name.decode()))
+    visit(source)
+    return seen
 
 
 class LaunchCounter:
@@ -85,10 +108,12 @@ class KernelLibrary:
 
     @property
     def path(self) -> str:
-        """Where the library for the current source and flags lives."""
+        """Where the library for the current source, its included headers
+        and the flags lives."""
         h = hashlib.sha256()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        for path in source_files(self.source):
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:12]}.so")
 

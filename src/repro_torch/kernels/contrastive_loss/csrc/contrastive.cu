@@ -15,7 +15,7 @@
 //
 // What bounds it on this card: the arithmetic. At the training shape
 // (B = 2048, D = 512, fp32 from the towers) the forward does 2·B²·D flops
-// (row_col_lse twice that: each sweep computes A once) and the backward
+// (row_col_lse too: its tiles compute A once) and the backward
 // 3·2·B²·D on 2·B·D inputs, far above the card's flops-per-byte line. The
 // f32 limits (dX/dY 1e-6) keep these products on the fp32 FMA units, so
 // what decides the time is how many FMAs each shared-memory load feeds and
@@ -30,13 +30,27 @@
 //             partial row (max, sum) and partial column (max, sum) of its
 //             tile; a combine kernel folds the partials in a fixed order
 //             into row_lse and col_lse;
-//   row_col_lse  one launch of 2·⌈B/16⌉ CTAs (256 at B = 2048): blockIdx.y
-//             picks the sweep (self = X for row_lse, self = Y for col_lse);
-//             each CTA owns 16 self rows, walks every 128-row tile of the
-//             other matrix with 4×4 register-blocked scores per thread and
-//             keeps each row's online (max, sum) in registers (one warp per
-//             4 rows, reduced by shuffles), then writes the lse: no
-//             partials, no scratch beyond the two (B,) outputs;
+//   row_col_lse  the TPU's two sweeps (_row_lse_kernel, _col_lse_kernel)
+//             each compute all of A; here one sweep over T × T tiles of A
+//             computes it once (2·B²·D flops, half the TPU's work). One CTA
+//             of 256 threads per tile (T = 128, or 64 / 32 where ⌈B/T⌉²
+//             tiles of 128 would leave most of the 132 SMs idle; ops.lse_plan
+//             picks T) holds a (T/16)×(T/16) score block per thread (8×8 at
+//             T = 128: 16-byte loads of 8 X rows, the same across each
+//             half-warp, and of 8 Y rows feed 256 FMAs; two CTAs per SM),
+//             over 32-wide chunks of D that 16-byte cp.async copies stage
+//             double-buffered, the next chunk landing while this one is
+//             multiplied. From its tile
+//             it writes partial row (max, sum) over its T columns (shuffles
+//             within the half-warp that holds a row) and partial column
+//             (max, sum) over its T rows (shuffles, then the 8 warps' values
+//             in warp order through shared memory); a combine kernel folds
+//             the partials in a fixed order into row_lse and col_lse. D is
+//             never split across CTAs or warps: each score is one fmaf per d
+//             in increasing d, then times inv_tau, the order the forward and
+//             backward tiles use too, so A is bit-identical in every kernel
+//             and the backward's dA = exp(A − lse_r) + exp(A − lse_c) − 2
+//             cancels exactly at B = 1;
 //   backward  one launch does both sweeps: blockIdx.y picks the roles
 //             (self = X, other = Y for dX; self = Y, other = X for dY) and
 //             blockIdx.z one of a few fixed slices of the other rows, as
@@ -78,8 +92,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;     // forward tile edge
-constexpr int kRows = 16;     // row_col_lse self rows per CTA
-constexpr int kLseTile = 128; // row_col_lse other rows per tile
 constexpr int kDC = 32;       // staged chunk of the embedding dim
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -186,14 +198,11 @@ contrastive_fwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ y,
 }
 
 // lse = logsumexp over the n partials (max, sum) of each of B rows and B
-// columns, folded in partial order.
-__global__ void __launch_bounds__(kThreads)
-contrastive_fwd_combine_kernel(const float* __restrict__ row_m,
-                               const float* __restrict__ row_s,
-                               const float* __restrict__ col_m,
-                               const float* __restrict__ col_s,
-                               float* __restrict__ row_lse,
-                               float* __restrict__ col_lse, int B, int n) {
+// columns, folded in partial order: one thread per row or column.
+__device__ __forceinline__ void combine_partials(
+    const float* __restrict__ row_m, const float* __restrict__ row_s,
+    const float* __restrict__ col_m, const float* __restrict__ col_s,
+    float* __restrict__ row_lse, float* __restrict__ col_lse, int B, int n) {
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= 2 * B) return;
   const bool is_row = idx < B;
@@ -208,93 +217,26 @@ contrastive_fwd_combine_kernel(const float* __restrict__ row_m,
   (is_row ? row_lse : col_lse)[g] = m + logf(s);
 }
 
-// ---------------------------------------------------------------------------
-// row_col_lse: 16 "self" rows per CTA sweep every 128-row tile of "other"
-// with an online (max, sum) per row; blockIdx.y picks the sweep
-// (0: self = X, other = Y -> row_lse; 1: self = Y, other = X -> col_lse)
-// ---------------------------------------------------------------------------
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-contrastive_lse_sweep_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                             const float* __restrict__ inv_tau_p,
-                             float* __restrict__ row_lse,
-                             float* __restrict__ col_lse, int B, int D) {
-  constexpr int CS = kDC + 1;
-  __shared__ float Ss[kRows * CS];
-  __shared__ float Os[kLseTile * CS];
+contrastive_fwd_combine_kernel(const float* __restrict__ row_m,
+                               const float* __restrict__ row_s,
+                               const float* __restrict__ col_m,
+                               const float* __restrict__ col_s,
+                               float* __restrict__ row_lse,
+                               float* __restrict__ col_lse, int B, int n) {
+  combine_partials(row_m, row_s, col_m, col_s, row_lse, col_lse, B, n);
+}
 
-  const bool is_row = blockIdx.y == 0;
-  const T* self = is_row ? x : y;
-  const T* other = is_row ? y : x;
-  const int s0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int r = tid >> 5;          // warp: self rows r + 4 i
-  const int c = tid & 31;          // lane: other rows c + 32 j of the tile
-  const float inv_tau = *inv_tau_p;
-
-  float m[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    s[i] = 0.f;
-  }
-  for (int o0 = 0; o0 < B; o0 += kLseTile) {
-    float a[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kDC) {
-      __syncthreads();
-      stage_chunk(Ss, self, s0, kRows, d0, B, D);
-      stage_chunk(Os, other, o0, kLseTile, d0, B, D);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kDC; ++d) {
-        float sv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sv[i] = Ss[(r + 4 * i) * CS + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ov[j] = Os[(c + 32 * j) * CS + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a[i][j] = fmaf(sv[i], ov[j], a[i][j]);
-      }
-    }
-    // fold this tile's 128 columns into each row's running (max, sum)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[4];
-      float tm = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = o0 + c + 32 * j < B ? a[i][j] * inv_tau : kNeg;
-        tm = fmaxf(tm, v[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tm = fmaxf(tm, __shfl_xor_sync(kFull, tm, off));
-      const float mn = fmaxf(m[i], tm);
-      float ts = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ts += expf(v[j] - mn);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ts += __shfl_xor_sync(kFull, ts, off);
-      s[i] = s[i] * expf(m[i] - mn) + ts;
-      m[i] = mn;
-    }
-  }
-  if (c == 0) {
-    float* lse = is_row ? row_lse : col_lse;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int g = s0 + r + 4 * i;
-      if (g < B) lse[g] = m[i] + logf(s[i]);
-    }
-  }
+// row_col_lse's fold of its tiles' partials (its own name, so a profile
+// tells it from the fused forward's)
+__global__ void __launch_bounds__(kThreads)
+contrastive_lse_combine_kernel(const float* __restrict__ row_m,
+                               const float* __restrict__ row_s,
+                               const float* __restrict__ col_m,
+                               const float* __restrict__ col_s,
+                               float* __restrict__ row_lse,
+                               float* __restrict__ col_lse, int B, int n) {
+  combine_partials(row_m, row_s, col_m, col_s, row_lse, col_lse, B, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -365,6 +307,166 @@ __device__ __forceinline__ void stage_block(T* dst, int ld, const T* src,
       const int g = r0 + row, d = c0 + col;
       dst[row * ld + col] =
           (g < B && d < D) ? src[(size_t)g * D + d] : T(0.f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// row_col_lse: one T × T tile of A per CTA -> partial row / column (max, sum)
+// ---------------------------------------------------------------------------
+
+constexpr int kLC = 32;     // staged chunk of the embedding dim
+
+template <typename T, int TILE>
+struct LseLayout {
+  static constexpr int SLD = kLC + 16 / (int)sizeof(T);  // staged rows
+  static constexpr size_t stage = (size_t)2 * TILE * SLD; // X rows, Y rows
+  // ring [2 stages] (T), then fp32 column max and sum [8 warps][TILE] each
+  static constexpr size_t bytes =
+      2 * stage * sizeof(T) + sizeof(float) * 2 * 8 * TILE;
+};
+
+template <typename T, int TILE>
+__global__ void __launch_bounds__(kGT, 2)
+contrastive_lse_tile_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                            const float* __restrict__ inv_tau_p,
+                            float* __restrict__ row_m,
+                            float* __restrict__ row_s,
+                            float* __restrict__ col_m,
+                            float* __restrict__ col_s, int B, int D) {
+  using L = LseLayout<T, TILE>;
+  constexpr int TM = TILE / 16;   // score rows and columns per thread
+  constexpr int SLD = L::SLD;
+  static_assert(TILE % 16 == 0 && kGT == 256, "16 × 16 threads");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* red_m = reinterpret_cast<float*>(smem_raw + 2 * L::stage * sizeof(T));
+  float* red_s = red_m + 8 * TILE;                 // [8 warps][TILE] each
+
+  const int i0 = blockIdx.x * TILE;   // rows of A (X)
+  const int j0 = blockIdx.y * TILE;   // columns of A (Y)
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = tid >> 4;            // rows ty + 16 i: one per half-warp
+  const int tx = tid & 15;            // columns tx + 16 j
+  const bool vec = D % (16 / (int)sizeof(T)) == 0 &&
+                   (((size_t)x | (size_t)y) & 15) == 0;
+  const float inv_tau = *inv_tau_p;
+
+  auto stage_chunk = [&](int c, int buf) {
+    T* Xs = ring + buf * L::stage;
+    stage_block<T>(Xs, SLD, x, i0, TILE, c * kLC, kLC, B, D, vec);
+    stage_block<T>(Xs + TILE * SLD, SLD, y, j0, TILE, c * kLC, kLC, B, D,
+                   vec);
+    cp_async_commit();
+  };
+  // each score is one fmaf per d in increasing d (the order of every other
+  // kernel that forms A), so no d is split off
+  float a[TM][TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j) a[i][j] = 0.f;
+  const int nc = (D + kLC - 1) / kLC;
+  stage_chunk(0, 0);
+  for (int c = 0; c < nc; ++c) {
+    if (c + 1 < nc) {
+      stage_chunk(c + 1, (c + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Xs = ring + (c & 1) * L::stage;
+    const T* Ys = Xs + TILE * SLD;
+#pragma unroll
+    for (int k = 0; k < kLC; k += 4) {
+      float4 xv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) xv[i] = load4(Xs + (ty + 16 * i) * SLD + k);
+#pragma unroll
+      for (int j = 0; j < TM; ++j) {
+        const float4 yv = load4(Ys + (tx + 16 * j) * SLD + k);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          a[i][j] = fmaf(xv[i].x, yv.x, a[i][j]);
+          a[i][j] = fmaf(xv[i].y, yv.y, a[i][j]);
+          a[i][j] = fmaf(xv[i].z, yv.z, a[i][j]);
+          a[i][j] = fmaf(xv[i].w, yv.w, a[i][j]);
+        }
+      }
+    }
+    __syncthreads();   // this stage is free for the chunk after next
+  }
+
+  // A of the tile; entries outside B take no part in any statistic
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j)
+      a[i][j] = (i0 + ty + 16 * i < B && j0 + tx + 16 * j < B)
+                    ? a[i][j] * inv_tau
+                    : kNeg;
+
+  // rows: a row's TILE columns lie in the 16 lanes of one half-warp
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float m = kNeg;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) m = fmaxf(m, a[i][j]);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) s += expf(a[i][j] - m);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      s += __shfl_xor_sync(kFull, s, off);
+    const int g = i0 + ty + 16 * i;
+    if (tx == 0 && g < B) {
+      row_m[(size_t)blockIdx.y * B + g] = m;
+      row_s[(size_t)blockIdx.y * B + g] = s;
+    }
+  }
+
+  // columns: a column's TILE rows lie in the two half-warps of each warp
+  // (lane ^ 16), then across the 8 warps, folded in warp order
+  float cm[TM];
+#pragma unroll
+  for (int j = 0; j < TM; ++j) {
+    float m = kNeg;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) m = fmaxf(m, a[i][j]);
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, 16));
+    if (lane < 16) red_m[warp * TILE + tx + 16 * j] = m;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < TM; ++j) {
+    float m = red_m[tx + 16 * j];
+    for (int w = 1; w < 8; ++w) m = fmaxf(m, red_m[w * TILE + tx + 16 * j]);
+    cm[j] = m;
+  }
+#pragma unroll
+  for (int j = 0; j < TM; ++j) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) s += expf(a[i][j] - cm[j]);
+    s += __shfl_xor_sync(kFull, s, 16);
+    if (lane < 16) red_s[warp * TILE + tx + 16 * j] = s;
+  }
+  __syncthreads();
+  if (tid < TILE) {
+    const int g = j0 + tid;
+    if (g < B) {
+      float m = kNeg, s = 0.f;
+      for (int w = 0; w < 8; ++w) {
+        m = fmaxf(m, red_m[w * TILE + tid]);
+        s += red_s[w * TILE + tid];
+      }
+      col_m[(size_t)blockIdx.x * B + g] = m;
+      col_s[(size_t)blockIdx.x * B + g] = s;
     }
   }
 }
@@ -638,16 +740,48 @@ cudaError_t fwd(const void* x, const void* y, const void* inv_tau,
   return cudaGetLastError();
 }
 
+template <typename T, int TILE>
+cudaError_t lse_tiles(const void* x, const void* y, const void* inv_tau,
+                      void* row_lse, void* col_lse, void* part, int B, int D,
+                      cudaStream_t stream) {
+  const int n = (B + TILE - 1) / TILE;
+  if (n > 65535) return cudaErrorInvalidValue;
+  float* p = static_cast<float*>(part);
+  float* row_m = p;
+  float* row_s = p + (size_t)n * B;
+  float* col_m = p + 2 * (size_t)n * B;
+  float* col_s = p + 3 * (size_t)n * B;
+  constexpr size_t smem = LseLayout<T, TILE>::bytes;
+  auto kernel = contrastive_lse_tile_kernel<T, TILE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n, n), kGT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const float*>(inv_tau), row_m, row_s, col_m, col_s, B, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  contrastive_lse_combine_kernel<<<(2 * B + kThreads - 1) / kThreads,
+                                   kThreads, 0, stream>>>(
+      row_m, row_s, col_m, col_s, static_cast<float*>(row_lse),
+      static_cast<float*>(col_lse), B, n);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t row_col_lse(const void* x, const void* y, const void* inv_tau,
-                        void* row_lse, void* col_lse, int B, int D,
-                        cudaStream_t stream) {
-  const int n = (B + kRows - 1) / kRows;
-  contrastive_lse_sweep_kernel<T><<<dim3(n, 2), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const float*>(inv_tau), static_cast<float*>(row_lse),
-      static_cast<float*>(col_lse), B, D);
-  return cudaGetLastError();
+                        void* row_lse, void* col_lse, void* part, int B,
+                        int D, int tile, cudaStream_t stream) {
+  if (tile == 128)
+    return lse_tiles<T, 128>(x, y, inv_tau, row_lse, col_lse, part, B, D,
+                             stream);
+  if (tile == 64)
+    return lse_tiles<T, 64>(x, y, inv_tau, row_lse, col_lse, part, B, D,
+                            stream);
+  if (tile == 32)
+    return lse_tiles<T, 32>(x, y, inv_tau, row_lse, col_lse, part, B, D,
+                            stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -736,21 +870,23 @@ extern "C" int repro_contrastive_bwd(const void* x, const void* y,
   return (int)cudaErrorInvalidValue;
 }
 
-// The legacy pair's forward: row_lse, col_lse (B,) fp32 outputs from two
-// single-reduction sweeps in one launch; no scratch, any D. Returns the CUDA
-// error code.
+// The legacy pair's forward: row_lse, col_lse (B,) fp32 outputs from one
+// sweep over tile × tile tiles of A (tile 128, 64 or 32; ops.lse_plan picks
+// it) and the combine; part: fp32 scratch of 4 * ceil(B / tile) * B
+// entries; any D. Returns the CUDA error code.
 extern "C" int repro_contrastive_row_col_lse(const void* x, const void* y,
                                              const void* inv_tau,
                                              void* row_lse, void* col_lse,
-                                             int dtype, int B, int D,
-                                             void* stream) {
+                                             void* part, int dtype, int B,
+                                             int D, int tile, void* stream) {
   if (B < 1 || D < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)row_col_lse<float>(x, y, inv_tau, row_lse, col_lse, B, D, st);
+    return (int)row_col_lse<float>(x, y, inv_tau, row_lse, col_lse, part, B,
+                                   D, tile, st);
   if (dtype == 1)
     return (int)row_col_lse<__nv_bfloat16>(x, y, inv_tau, row_lse, col_lse,
-                                           B, D, st);
+                                           part, B, D, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,7 +11,7 @@ counterpart of the reference's custom VJP (``ops.py:147-188``): one forward
 call, one backward call, and the B×B matrix never reaches device memory.
 
 The legacy 4-pass pair comes over too: ``row_col_lse`` (``kernel.py:295``)
-returns the same LSEs from two single-reduction sweeps, and ``grads``
+returns the same LSEs, and ``grads``
 (``kernel.py:337``) the same gradients from a dX sweep and a dY sweep;
 ``fused_loss_and_lse_4pass`` and ``fused_contrastive_loss_4pass`` are the
 counterparts of the reference's ``ops.py:240-268``, its public baseline for
@@ -30,9 +30,13 @@ VMEM-resident (B, D) dY carrier does not fit (``ops.py:179-184``,
 already computes dX and dY in two launches of one row-parallel kernel (X
 against Y, then Y against X), which is the TPU's ``grads`` loop, so
 ``grads`` here launches that same sequence under its own entry and
-counter, and there is nothing to fall back from. Any B >= 1 is taken.
+counter, and there is nothing to fall back from. The TPU's
+``row_col_lse`` runs a row sweep and a column sweep, each computing all of
+A; the Hopper kernel computes each tile of A once and folds partial row and
+column statistics, as ``fwd_fused`` does. Any B >= 1 is taken.
 ``bwd_plan`` is the backward's launch plan (slices of the other rows,
-grid, scratch), worked out here and passed to the kernel.
+grid, scratch) and ``lse_plan`` that of ``row_col_lse`` (tile edge, grid,
+scratch), worked out here and passed to the kernels.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ FWD_TILE = 64         # edge of the forward's A tile (csrc kTile)
 BWD_ROWS = 32         # rows of X (Y) per backward CTA (csrc kGS)
 BWD_TILE = 256        # other rows per backward tile (csrc kGO)
 MAX_SLICES = 8        # bounds the backward's scratch at 8 × (dX + dY)
+LSE_TILES = (128, 64, 32)  # row_col_lse tile edges, largest first
 SMS = 132             # the H100's streaming multiprocessors
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,8 +70,8 @@ LIB = KernelLibrary(
     {"repro_contrastive_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _P]),
      "repro_contrastive_bwd": (_I, _BWD_ARGS),
-     "repro_contrastive_row_col_lse": (_I, [_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _P]),
+     "repro_contrastive_row_col_lse": (_I, [_P, _P, _P, _P, _P, _P, _I, _I,
+                                            _I, _I, _P]),
      "repro_contrastive_grads": (_I, _BWD_ARGS)})
 FWD_COUNTER = LaunchCounter("contrastive_fwd")
 BWD_COUNTER = LaunchCounter("contrastive_bwd")
@@ -210,22 +215,49 @@ def bwd_fused(x: torch.Tensor, y: torch.Tensor,
                      with_diag)
 
 
+class LsePlan(NamedTuple):
+    """The ``row_col_lse`` launch at batch B: ``tile`` × ``tile`` tiles of
+    A, ``tiles`` of them along each side, grid (tiles, tiles), and the fp32
+    scratch of partial row and column (max, sum): ``scratch_floats`` =
+    4 · tiles · B."""
+    tile: int
+    tiles: int
+    grid: tuple
+    scratch_floats: int
+
+
+def lse_plan(b: int) -> LsePlan:
+    """The largest tile edge whose ⌈B/T⌉² tiles give every SM a CTA (128
+    from B = 1409), else the smallest (32): more, smaller tiles where 128
+    would leave most of the card idle (B 512 gives 16 tiles of 128, 256 of
+    32)."""
+    tile = next((t for t in LSE_TILES if (-(-b // t)) ** 2 >= SMS),
+                LSE_TILES[-1])
+    n = -(-b // tile)
+    return LsePlan(tile, n, (n, n), 4 * n * b)
+
+
 def row_col_lse(x: torch.Tensor, y: torch.Tensor,
                 inv_tau: Union[float, torch.Tensor]):
     """The legacy pair's forward: (row_lse, col_lse), each (B,) fp32, of
-    A = X·Yᵀ·inv_tau, from a row sweep and a column sweep (one launch)."""
+    A = X·Yᵀ·inv_tau, from one sweep over tiles of A and a combine of the
+    tiles' partials (``lse_plan``)."""
     inv = _inv_tau_tensor(inv_tau, x)
     if x.device.type == "cpu":
         return row_col_lse_ref(x, y, inv)
     _check_kernel_inputs("row_col_lse", x, y, inv)
     b, d = x.shape
+    plan = lse_plan(b)
     row_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
     col_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.scratch_floats,), dtype=torch.float32,
+                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = LIB.lib().repro_contrastive_row_col_lse(
             x.data_ptr(), y.data_ptr(), inv.data_ptr(), row_lse.data_ptr(),
-            col_lse.data_ptr(), _DTYPES[x.dtype], b, d, stream)
+            col_lse.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, d,
+            plan.tile, stream)
     check(rc, "contrastive row_col_lse launch")
     ROW_COL_LSE_COUNTER.add()
     return row_lse, col_lse

@@ -39,12 +39,39 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 LIB = KernelLibrary(
     "flash_fwd", os.path.join(_CSRC, "flash_fwd.cu"),
     {"repro_flash_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _P])})
+                              _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                              _P])})
 COUNTER = LaunchCounter("flash_fwd")
 BWD_LIB = KernelLibrary(
     "flash_bwd", os.path.join(_CSRC, "flash_bwd.cu"),
     {"repro_flash_bwd": (_I, [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P])})
 BWD_COUNTER = LaunchCounter("flash_bwd")
+
+
+class FwdPlan(NamedTuple):
+    """How ``flash_fwd`` launches: ``warps`` per CTA, each owning 16 query
+    rows (0: the f32 SIMT kernel, which needs no plan), ``key_tile`` keys
+    per staged k/v tile, and the grid (heads, query blocks)."""
+    warps: int
+    key_tile: int
+    grid: tuple
+
+
+def fwd_plan(bh: int, s: int, t: int, d: int, dtype: torch.dtype) -> FwdPlan:
+    """The forward kernel's launch plan for q (bh, s, d) against t keys.
+
+    bf16 runs the tensor-core kernel with 16 query rows per warp: 4 warps
+    (64 rows) per CTA, fewer where s <= 48, so that no warp of a short row
+    block idles (the text tower's s = 16 runs one warp per head). k/v
+    arrive in tiles of 64 keys, or of t rounded up to 16 where t < 64, so a
+    short head stages no padding and its CTA holds little shared memory.
+    ``d`` is validated by the kernel (64 or 128)."""
+    del d
+    if dtype != torch.bfloat16:
+        return FwdPlan(0, 0, (bh, -(-s // 64)))
+    warps = min(4, -(-s // 16))
+    key_tile = min(64, -(-t // 16) * 16)
+    return FwdPlan(warps, key_tile, (bh, -(-s // (16 * warps))))
 
 
 class BwdPlan(NamedTuple):
@@ -123,16 +150,22 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias. Returns (out (bh, s, d) in q's dtype, lse (bh, s) fp32).
 
     Every query row must keep at least one valid key. The kernel takes
-    f32 or bf16 inputs (accumulating fp32), head dims 64 and 128, and any
-    s, t >= 1 (the ragged tail is masked, never written)."""
+    f32 (the SIMT kernel) or bf16 (the tensor-core kernel, launched as
+    ``fwd_plan`` says) inputs, accumulating fp32, head dims 64 and 128, and
+    any s, t >= 1 (the ragged tail is masked, never written)."""
     _check_inputs(q, k, v, bias)
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be >= 1")
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, bias, causal=causal, window=window)
     _check_kernel_inputs("flash_fwd", q, k, v, bias)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("the bf16 flash_fwd kernel copies 16-byte rows: "
+                         "q, k and v must start 16-byte aligned")
     bh, s, d = q.shape
     t = k.shape[1]
+    plan = fwd_plan(bh, s, t, d, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -143,7 +176,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], bh, s, t, d,
             bh // k.shape[0], bh // bias.shape[0] if bias is not None else 1,
             int(causal), window if window is not None else -1,
-            float(d ** -0.5), stream)
+            float(d ** -0.5), plan.warps, plan.key_tile, stream)
     check(rc, "flash_fwd launch")
     COUNTER.add()
     return out, lse

@@ -3,7 +3,7 @@ kernels.
 
 Both materialise the (s, t) score matrix on the kernels' flattened-head
 layout. ``flash_fwd_ref`` returns the same ``(out, lse)`` pair the forward
-kernel does; ``flash_bwd_ref`` returns the same ``(dq, dk, dv)`` as the
+kernels do; ``flash_bwd_ref`` returns the same ``(dq, dk, dv)`` as the
 backward kernel, written from the formula (p recomputed from ``lse``,
 delta = rowsum(dout·out)) rather than by autograd of the forward. They are
 the CPU path of ``ops.flash_fwd`` / ``ops.flash_bwd`` and the yardstick the
@@ -48,10 +48,15 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (bh, s, d); k/v: (bh // group, t, d), query row ``i`` reading kv
     row ``i // group``; bias: optional (bh // heads, t) fp32 additive key
     bias, query row ``i`` reading bias row ``i // heads``. Returns
-    (out (bh, s, d) in q's dtype, lse (bh, s) fp32)."""
+    (out (bh, s, d) in q's dtype, lse (bh, s) fp32). For bf16 inputs p is
+    rounded to bf16 before p·v, as the tensor-core kernel feeds it to the
+    mma (and the TPU's MXU takes f32 operands at default precision); for
+    f32 inputs the rounding is the identity."""
     qf, kf, vf, scores = _scores(q, k, v, bias, causal, window)
     lse = torch.logsumexp(scores, dim=-1)
     p = torch.exp(scores - lse[..., None])
+    if q.dtype != torch.float32:
+        p = p.to(q.dtype).float()
     out = torch.matmul(p, vf)
     return out.to(q.dtype), lse
 

@@ -7,7 +7,11 @@ never at import). Run them on the card with
 
 Tolerances: flash f32, 5e-5 (fp32 sums over the keys in another order);
 flash bf16 outputs, 1.6e-2 (one bf16 ulp at |out| < 2 after the same fp32
-result rounds); top-k values, 1e-4 (fp32 dot products of unit vectors
+result rounds), against the plain version that rounds p to bf16 before
+p·v as the tensor-core kernel does (the kernel rounds the running-max p,
+the plain version the normalised p: each term moves by at most 2^-9 of
+itself, far below one output ulp); lse 5e-5 in both dtypes (fp32 on both
+sides); top-k values, 1e-4 (fp32 dot products of unit vectors
 times 1/0.07), with indices equal wherever the plain version's values are
 further apart than that.
 """
@@ -67,6 +71,40 @@ def test_flash_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
     assert float((lse - ref_lse).abs().max()) <= 5e-5
 
 
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,padded", [
+    (256, 12, 12, 196, 196, 64, False, None, False),  # image microbatch
+    (256, 16, 16, 16, 16, 64, False, None, True),     # text microbatch
+    (1, 32, 8, 512, 512, 64, True, 8192, False),      # prefill, GQA 4
+    (2, 8, 2, 200, 200, 128, True, None, False),      # d 128, causal
+    (2, 4, 4, 300, 300, 64, True, 70, False),         # window < tiles
+    (3, 2, 2, 1, 1, 64, False, None, False),          # one token
+    (2, 4, 2, 70, 133, 64, False, None, True),        # t % 64 != 0, s != t
+    (2, 4, 4, 40, 40, 128, False, None, True),        # 3 warps, 48-key tile
+])
+def test_flash_tc_kernel_matches_plain_at_its_edges(gen, b, h, kv, s, t, d,
+                                                    causal, window, padded):
+    """The bf16 tensor-core forward at the main paths' shapes and at the
+    edges of its plan (warps, key tile, ragged s and t, masks)."""
+    q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((b * kv, t, d), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    bias = None
+    if padded:
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        bias = torch.where(torch.arange(t, device="cuda")[None, :]
+                           < lens[:, None], 0.0, NEG_INF).float()
+    before = fa_ops.COUNTER.count
+    out, lse = fa_ops.flash_fwd(q, k, v, bias, causal=causal, window=window)
+    assert fa_ops.COUNTER.count == before + 1
+    ref_out, ref_lse = flash_fwd_ref(q, k, v, bias, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and bool(out.isfinite().all())
+    assert float((out.float() - ref_out.float()).abs().max()) <= 1.6e-2
+    assert float((lse - ref_lse).abs().max()) <= 5e-5
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(gen):
     q, k, v = _qkv(gen, 4, 4, 8, 64, torch.float16)
     with pytest.raises(TypeError):
@@ -78,6 +116,16 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
                          k, v)
+    # the bf16 kernel copies 16-byte rows: an unaligned start is refused
+    q, k, v = _qkv(gen, 4, 4, 8, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = fa_ops.COUNTER.count
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_ops.flash_fwd(shifted, k, v)
+    assert fa_ops.COUNTER.count == before
 
 
 def _unit(n, d, gen, dtype):

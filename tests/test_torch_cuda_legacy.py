@@ -11,7 +11,10 @@ Tolerances are those of the fused pair's card tests
 exponentials of values up to ~15 in another order); dX / dY 1e-6 abs and
 dlog_tau 1e-4 rel in f32, the reference's (tests/test_kernels.py); under
 bf16 inputs dX / dY within 2^-6 of the tensor's max |ref| (dA rounds to
-bf16 on both sides) and dlog_tau 2e-2 rel.
+bf16 on both sides) and dlog_tau 2e-2 rel. At B = 1 and 2 the 4-pass
+path's dX / dY stay within 1e-6 of the plain oracle: the backward recomputes
+A and needs exp(A − row_lse) + exp(A − col_lse) − 2 to cancel exactly at
+B = 1, which holds only while every kernel forms A in the same order.
 """
 import pytest
 import torch
@@ -60,6 +63,53 @@ def test_row_col_lse_kernel_matches_plain(gen, b, d, dtype):
     assert row.dtype == torch.float32 and row.shape == (b,)
     assert float((row - ref_row).abs().max()) <= LSE_TOL
     assert float((col - ref_col).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d", [(1, 64), (32, 40), (33, 40), (512, 256),
+                                 (1000, 256), (1408, 64), (1409, 64),
+                                 (4097, 32)])
+def test_row_col_lse_kernel_at_each_plan_tile(gen, b, d, dtype):
+    """Every tile edge ``lse_plan`` picks (32, 64, 128) and the batch sizes
+    where it changes or a tile turns ragged."""
+    x, y = _unit(b, d, gen, dtype), _unit(b, d, gen, dtype)
+    inv_tau = torch.tensor(1 / 0.07, device="cuda")
+    row, col = cl_ops.row_col_lse(x, y, inv_tau)
+    ref_row, ref_col = row_col_lse_ref(x, y, inv_tau)
+    torch.cuda.synchronize()
+    assert float((row - ref_row).abs().max()) <= LSE_TOL
+    assert float((col - ref_col).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d", [(2048, 1024), (1000, 24), (512, 256)])
+def test_row_col_lse_kernel_repeats_bit_for_bit(gen, b, d, dtype):
+    x, y = _unit(b, d, gen, dtype), _unit(b, d, gen, dtype)
+    inv_tau = torch.tensor(1 / 0.07, device="cuda")
+    first = cl_ops.row_col_lse(x, y, inv_tau)
+    second = cl_ops.row_col_lse(x, y, inv_tau)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("b,d", [(1, 64), (1, 1024), (2, 64), (2, 512)])
+def test_4pass_path_cancels_exactly_at_tiny_batches(gen, b, d):
+    x, y = _unit(b, d, gen, torch.float32), _unit(b, d, gen, torch.float32)
+    lt = torch.tensor(-1.0, device="cuda")
+    loss, dx, dy, dtau = cl_ops.fused_contrastive_loss_4pass(x, y, lt)
+    rx, ry, rt = contrastive_grads_ref(x, y, lt)
+    xr, yr, ltr = (t.clone().requires_grad_() for t in (x, y, lt))
+    gx, gy, _ = torch.autograd.grad(
+        cl_ops.fused_contrastive_loss(xr, yr, ltr), (xr, yr, ltr))
+    torch.cuda.synchronize()
+    assert abs(float(loss - loss_ref(x, y, lt))) <= LSE_TOL
+    for got, r, f in ((dx, rx, gx), (dy, ry, gy)):
+        assert float((got - r).abs().max()) <= 1e-6
+        assert float((got - f).abs().max()) <= 1e-6
+    if b == 1:   # one pair: dA = 1 + 1 − 2 = 0, bit for bit
+        assert not bool(dx.any()) and not bool(dy.any())
+    assert abs(float(dtau - rt)) <= 1e-4 * abs(float(rt)) + 1e-6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
