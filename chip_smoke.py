@@ -17,10 +17,12 @@ repository beside this file; it exits non-zero without them. In order it:
    microbatch (image bh 3072, s 196; text bh 4096, s 16, padded), printing
    each launch plan, and times kernel, plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
-4. holds the similarity→top-k kernels against their plain version over a
+4. holds the similarity→top-k kernel against its plain version over a
    grid of batch, class-count and k, with planted exact ties, and times
-   kernel, plain version and ``torch.topk(x @ c.T)``, and the kernels at
-   each row block size they are built for;
+   kernel (between events, and its device time from the profiler, where
+   it must be one device kernel per call), plain version and
+   ``torch.topk(x @ c.T)`` (events and device time), and the kernel at
+   each row block size it is built for;
 5. holds the flash-attention backward kernels against their plain version
    at the training shapes of one microbatch (image bh 3072, s 196; text
    bh 4096, s 16 with the padding bias; causal, windowed and d 128 cases,
@@ -63,10 +65,12 @@ repository beside this file; it exits non-zero without them. In order it:
     then profiles one warm step;
 11. holds the split-K decode-attention kernel against its plain version at
     the decode path's shapes (8 slots × 8 kv heads × group 4, d 64, a
-    cache of 8192; one lockstep request; d 128), f32 and bf16, with
-    per-slot lengths 0, 1, ragged and full, a shared mask (bit for bit
-    equal to equal per-slot rows) and stale entries past each length (no
-    change at all), and times kernel, plain version and SDPA; holds the
+    cache of 8192; one lockstep request; d 128 with group 8; group 1),
+    f32 and bf16, with per-slot lengths 0, 1, 255, 256, 257, ragged and
+    full, a shared mask (bit for bit equal to equal per-slot rows) and
+    stale entries past each length (no change at all), and times kernel
+    (events and profiler device time), plain version and SDPA at the
+    serving state (~7% of the cache valid) and at a full cache; holds the
     flash forward against its plain version at the prefill shape (out and,
     within 5e-5, lse) and times it;
 12. decode parity: Llama-3.2-1B at full width and depth in f32 through
@@ -107,6 +111,7 @@ Any failure raises; no phase is caught.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -243,6 +248,68 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def profile_window(cpu: bool = True):
+    """A torch.profiler window whose tracing starts one step early, on a
+    small device op (the profiler's warm-up step), so that nothing the
+    window measures falls in the tracer's start-up, which can miss the
+    first records; yields the profiler, whose events are those of the
+    measured step alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities, acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+        torch.cuda.synchronize()
+        prof.step()
+
+
+def device_events(prof):
+    """The device-side events of a ``profile_window``: its kernels and
+    copies, without the step annotation (``ProfilerStep#n``) that spans the
+    whole measured step on the device's timeline."""
+    return [e for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not e.name.startswith("ProfilerStep")]
+
+
+def device_ms(fn, names=None, iters: int = 20):
+    """(device milliseconds per call of ``fn``, device kernels per call):
+    a torch.profiler window over ``iters`` calls after one warm call, over
+    the device kernels whose names hold one of ``names`` (every device
+    kernel and copy when ``names`` is None). Per kernel name, its mean
+    duration times its launches per call, rounded: the profiler now and
+    then drops one event of a window, which would otherwise read as a
+    call without that kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with profile_window(cpu=False) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in device_events(prof):
+        if names is None or any(n in e.name for n in names):
+            us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    if not by_name:
+        raise AssertionError("device_ms: the profiler saw no device time")
+    ms = per_call = 0
+    for us, count in by_name.values():
+        n = max(1, round(count / iters))
+        ms += us / count * n / 1e3
+        per_call += n
+    return ms, per_call
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -472,23 +539,35 @@ def phase_topk():
                   for r, t in block_ms[f"b={b} n={n}"].items()), flush=True)
     recs["block_rows_ms"] = block_ms
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, n, k in ((16, 512, 5), (64, 21841, 5)):
         x = unit_rows(b, d, g, torch.float32)
         c = unit_rows(n, d, g, torch.float32)
-        ms = time_ms(lambda: topk_ops.similarity_topk(x, c, k,
-                                                      inv_tau=inv_tau))
+        plan = topk_ops.topk_plan(b, n, d, k, 4, sms)
+        call = lambda: topk_ops.similarity_topk(x, c, k, inv_tau=inv_tau)
+        library = lambda: torch.topk(x @ c.T * inv_tau, k, dim=1)
+        ms = time_ms(call)
+        dev_ms, per_call = device_ms(call, WRAPPER_KERNELS["similarity_topk"])
+        if per_call != 1:
+            raise AssertionError(f"similarity_topk b={b} n={n}: {per_call} "
+                                 f"device kernels per call, want 1")
         plain_ms = time_ms(lambda: similarity_topk_ref(x, c, k, inv_tau))
-        lib_ms = time_ms(lambda: torch.topk(x @ c.T * inv_tau, k, dim=1))
+        lib_ms = time_ms(library)
+        lib_dev_ms, _ = device_ms(library)
         nbytes = (b + n) * d * 4 + b * k * 8
         bound_ms, bound_by = bound(nbytes, 2.0 * b * n * d, "float32")
         recs[(b, n, k)] = {
             "shape": f"b={b} n={n} d={d} k={k} float32",
-            "max_abs_err": errs["float32"], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms,
+            "plan": plan._asdict(), "max_abs_err": errs["float32"],
+            "ms": ms, "device_ms": dev_ms, "device_kernels_per_call":
+            per_call, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
-        print(f"similarity_topk b={b} n={n} k={k}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, matmul+topk {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        print(f"similarity_topk b={b} n={n} k={k}: plan {plan._asdict()}; "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, {per_call:g} "
+              f"device kernel per call), plain {plain_ms:.4f} ms, "
+              f"matmul+topk {lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms), "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     return recs, errs
 
 
@@ -577,8 +656,7 @@ def phase_main_path():
 
 # the device kernels each wrapper launches, by name
 WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
-                   "similarity_topk": ("topk_partial_kernel",
-                                       "topk_merge_kernel"),
+                   "similarity_topk": ("topk_kernel",),
                    "flash_bwd": ("flash_bwd_delta_kernel",
                                  "flash_bwd_dq_kernel",
                                  "flash_bwd_dkv_kernel",
@@ -619,14 +697,13 @@ def device_breakdown(prof, label, wall_us, units, calls):
     by_kernel = {}
     seen = dict.fromkeys(calls, 0)
     n_device = 0
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = e.time_range.elapsed_us()
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us
-            n_device += 1
-            for wrapper in calls:
-                seen[wrapper] += any(n in e.name
-                                     for n in WRAPPER_KERNELS[wrapper])
+    for e in device_events(prof):
+        us = e.time_range.elapsed_us()
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us
+        n_device += 1
+        for wrapper in calls:
+            seen[wrapper] += any(n in e.name
+                                 for n in WRAPPER_KERNELS[wrapper])
     busy = sum(by_kernel.values())
     unit = label.split()[-1]
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device time "
@@ -666,7 +743,6 @@ def phase_profile(cfg, params, tok, requests: int = 4):
     wrapper call in the window."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import render_images, world_for_tower
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.similarity_topk import ops as topk_ops
@@ -680,8 +756,7 @@ def phase_profile(cfg, params, tok, requests: int = 4):
         svc.classify(batches[0], world.class_names, k=5)      # warm
         counters = (fa_ops.COUNTER, topk_ops.COUNTER)
         calls = {ctr.name: -ctr.count for ctr in counters}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile_window() as prof:
             t0 = time.perf_counter()
             for images in batches[1:]:
                 svc.classify(images, world.class_names, k=5)
@@ -983,7 +1058,6 @@ def phase_legacy():
     the bench's old4 / fused2 times and a profile of one 4-pass call.
     Returns (records, launches, device kernels per wrapper call)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.contrastive_loss import ops as cl_ops
 
     recs = {}
@@ -1064,8 +1138,7 @@ def phase_legacy():
     cl_ops.fused_contrastive_loss_4pass(x, y, lt)              # warm
     torch.cuda.synchronize()
     calls = {ctr.name: -ctr.count for ctr in counters}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         t0 = time.perf_counter()
         cl_ops.fused_contrastive_loss_4pass(x, y, lt)
         torch.cuda.synchronize()
@@ -1254,7 +1327,6 @@ def phase_train_profile():
     unprofiled step) of the timed run's configuration: device time by
     kernel, busy share, device kernels per wrapper call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import contrastive_batch
     from repro_torch.kernels.contrastive_loss import ops as cl_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1273,8 +1345,7 @@ def phase_train_profile():
     counters = (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
                 cl_ops.BWD_COUNTER)
     calls = {ctr.name: -ctr.count for ctr in counters}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         t0 = time.perf_counter()
         params, opt_state, loss, _ = run["step_fn"](params, opt_state,
                                                     batches[1])
@@ -1328,11 +1399,15 @@ def decode_check(label, q, k, v, valid):
 
 def phase_decode_kernel():
     """The decode kernel at the timed path's shape (b 8 slots, kv 8, g 4,
-    d 64, t 8192), one lockstep request (b 1) and d 128, f32 and bf16:
-    per-slot lengths 0, 1, ragged and t (length 0 exactly zero), a shared
-    mask bit-equal to equal per-slot rows, stale entries that change
-    nothing; times kernel, plain version and SDPA in f32 and bf16, with
-    the bound counted by the valid entries and by the full sweep."""
+    d 64, t 8192), one lockstep request (b 1), d 128 with g 8, and g 1, f32
+    and bf16: per-slot lengths 0, 1, 255, 256, 257 (whole dead chunks and
+    units), ragged and t (length 0 exactly zero), a shared mask bit-equal
+    to equal per-slot rows, stale entries that change nothing, a row's
+    result independent of its batch; at the serving state (~7% valid) and
+    at a full cache, times kernel (between events, and its device time
+    from the profiler), plain version and SDPA, with the bound counted by
+    the valid entries and by the full sweep. Returns records keyed by
+    (dtype, state) and the max errors by dtype."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -1343,7 +1418,7 @@ def phase_decode_kernel():
     for dtype in (torch.float32, torch.bfloat16):
         dt = dtype_name(dtype)
         q, k, v = decode_inputs(b, h, kv, t, d, dtype, 40)
-        lens = torch.tensor([0, 1, 517, t, 3001, t - 5, 64, 1500],
+        lens = torch.tensor([0, 1, 255, 256, 257, t, 3001, t - 5],
                             device="cuda")
         valid = ar[None, :] < lens[:, None]
         out, err = decode_check(f"b={b} ragged {dt}", q, k, v, valid)
@@ -1371,7 +1446,8 @@ def phase_decode_kernel():
             raise AssertionError("decode_attention: a row's result depends "
                                  "on its batch")
         for label, shape in (("b=1", (1, h, kv, t, d)),
-                             ("d=128", (2, 16, 2, 3000, 128))):
+                             ("d=128", (2, 16, 2, 3000, 128)),
+                             ("g=1", (2, 8, 8, 1000, 64))):
             q1, k1, v1 = decode_inputs(*shape, dtype, 41)
             n = shape[3]
             lens1 = torch.tensor([n - 7, 1][:shape[0]], device="cuda")
@@ -1380,38 +1456,58 @@ def phase_decode_kernel():
                                 < lens1[:, None])
             err = max(err, e)
         errs[dt] = err
-        # timed at the serving state: 8 slots ~512 prompt tokens + up to 64
-        # generated, so ~7% of the 8192 entries are valid
-        lens = torch.tensor([508 + 9 * i for i in range(b)], device="cuda")
-        valid = ar[None, :] < lens[:, None]
-        ms = time_ms(lambda: dec_ops.decode_attention(q, k, v, valid))
-        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, valid))
-        q4 = q[:, :, None, :]
-        mask4 = valid[:, None, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k, v, attn_mask=mask4, enable_gqa=True))
+        # timed at the serving state (8 slots ~512 prompt tokens + up to 64
+        # generated: ~7% of the 8192 entries are valid) and at a full cache
+        # (a ring that has wrapped: every entry valid)
         item = torch.finfo(dtype).bits // 8
-        n_valid = int(lens.sum())
         fixed = 2 * b * h * d * item + b * t      # q, out, the bool mask
-        flops = 4.0 * (h // kv) * d * kv * n_valid
-        bound_ms, bound_by = bound(fixed + 2 * kv * d * item * n_valid,
-                                   flops, dt)
         full_ms, full_by = bound(fixed + 2 * b * kv * t * d * item,
                                  4.0 * h * d * b * t, dt)
-        recs[dt] = {"shape": f"b={b} h={h} kv={kv} t={t} d={d} {dt}, "
-                             f"{n_valid} valid entries",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bound_full_sweep_ms": full_ms,
-                    "bound_full_sweep_by": full_by}
-        print(f"decode_attention {recs[dt]['shape']}: max err {err:.3g} "
-              f"(lengths 0, 1, ragged, t; shared mask; b=1; d=128); length "
-              f"0 exactly 0, shared mask bit-equal, stale entries no change, "
-              f"row independent of its batch; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: q, out, mask and the valid "
-              f"k/v entries), full-sweep bound {full_ms:.4f} ms ({full_by}: "
-              f"every k/v entry of t)", flush=True)
+        for state, lens in (
+                ("serving", torch.tensor([508 + 9 * i for i in range(b)],
+                                         device="cuda")),
+                ("full", torch.full((b,), t, device="cuda"))):
+            valid = ar[None, :] < lens[:, None]
+            _, e = decode_check(f"{state} {dt}", q, k, v, valid)
+            call = lambda: dec_ops.decode_attention(q, k, v, valid)
+            q4 = q[:, :, None, :]
+            mask4 = valid[:, None, None, :]
+            library = lambda: F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=mask4, enable_gqa=True)
+            ms = time_ms(call)
+            dev_ms, per_call = device_ms(call,
+                                         WRAPPER_KERNELS["decode_attention"])
+            plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, valid))
+            lib_ms = time_ms(library)
+            lib_dev_ms, _ = device_ms(library)
+            n_valid = int(lens.sum())
+            bound_ms, bound_by = bound(
+                fixed + 2 * kv * d * item * n_valid,
+                4.0 * (h // kv) * d * kv * n_valid, dt)
+            plan = dec_ops.launch_plan(q, k)
+            recs[(dt, state)] = {
+                "shape": f"b={b} h={h} kv={kv} t={t} d={d} {dt}, {state}: "
+                         f"{n_valid} valid entries",
+                "plan": plan._asdict(), "max_abs_err": max(err, e),
+                "ms": ms, "device_ms": dev_ms,
+                "device_kernels_per_call": per_call, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_full_sweep_ms": full_ms,
+                "bound_full_sweep_by": full_by}
+            print(f"decode_attention {recs[(dt, state)]['shape']}: plan "
+                  f"{plan._asdict()}; kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f} ms, {per_call:g} device kernels per call), "
+                  f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
+                  f"{lib_dev_ms:.4f} ms), bound {bound_ms:.4f} ms "
+                  f"({bound_by}: q, out, mask and the valid k/v entries), "
+                  f"full-sweep bound {full_ms:.4f} ms ({full_by})",
+                  flush=True)
+        print(f"decode_attention {dt}: max err {err:.3g} (lengths 0, 1, "
+              f"255, 256, 257, ragged, t; shared mask; b=1; d=128, g 8; "
+              f"g 1; full cache); length 0 exactly 0, shared mask "
+              f"bit-equal, stale entries no change, row independent of its "
+              f"batch", flush=True)
     return recs, errs
 
 
@@ -1522,23 +1618,32 @@ def engines_case(kcfg, params, lens, plain_logits):
     tokens, greedy) against the lockstep engine run alone per request,
     both on the kernel path (``kcfg``), f32. Where they diverge, the plain
     path's top-2 gap at that token (``plain_logits(tokens)`` -> (1, vocab))
-    must be under the parity tolerance."""
+    must be under the parity tolerance. Each engine must launch the decode
+    kernel once per layer per decode step (none for an attention-free
+    model)."""
     import numpy as np
     import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.serving import ContinuousEngine, Engine
     rng = np.random.default_rng(7)
     budgets = [12, 16, 8, 16, 10, 16, 6, 14]
     prompts = [rng.integers(4, kcfg.vocab, (n,)).astype(np.int32)
                for n in lens]
     reqs = [(p, m, i) for i, (p, m) in enumerate(zip(prompts, budgets))]
-    got = ContinuousEngine(kcfg, params, cache_len=1024, num_slots=4).run(
-        reqs)
+    ce = ContinuousEngine(kcfg, params, cache_len=1024, num_slots=4)
+    dec_ops.COUNTER.reset()
+    got = ce.run(reqs)
+    per_step = {"continuous": dec_ops.COUNTER.count / len(ce.step_log)}
     eng = Engine(kcfg, params, cache_len=1024)
     same, divergences = 0, []
+    launches = steps = 0
     for p, m, i in reqs:
+        before = dec_ops.COUNTER.count
         row = eng.generate(p[None, :], m, temperature=0.0)[0]
+        launches += dec_ops.COUNTER.count - before
         stop = np.nonzero(row == eng.eos_id)[0]
         want = row[:int(stop[0]) + 1] if stop.size else row
+        steps += want.size - 1           # a decode step after each token
         if np.array_equal(got[i], want):
             same += 1
             continue
@@ -1554,13 +1659,22 @@ def engines_case(kcfg, params, lens, plain_logits):
               f"{got[i][j:j + 1].tolist()} lockstep {want[j:j + 1].tolist()}"
               f"; plain top-2 gap there {gap:.3g} (tol {DEC_PARITY_TOL})",
               flush=True)
+    per_step["lockstep"] = launches / steps
     print(f"engines ({kcfg.name} f32, kernel path, 4 slots, 8 requests): "
-          f"{same} of {len(reqs)} requests equal Engine.generate alone",
+          f"{same} of {len(reqs)} requests equal Engine.generate alone; "
+          f"decode_attention launches per decode step {per_step}",
           flush=True)
+    want = 0 if kcfg.attention_free else kcfg.n_layers
+    for engine, n in per_step.items():
+        if n != want:
+            raise AssertionError(f"engines: the {engine} engine launched "
+                                 f"decode_attention {n} times per step, "
+                                 f"want {want}")
     if any(gap > DEC_PARITY_TOL for _, _, gap in divergences):
         raise AssertionError("continuous and lockstep engines diverge away "
                              "from a near-tie")
-    return {"same": same, "requests": len(reqs), "divergences": divergences}
+    return {"same": same, "requests": len(reqs), "divergences": divergences,
+            "decode_attention_per_step": per_step}
 
 
 def phase_decode_parity():
@@ -1670,7 +1784,6 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
     call of each wrapper in ``counters`` (default: decode_attention)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if counters is None:
         from repro_torch.kernels.decode_attention import ops as dec_ops
         counters = (dec_ops.COUNTER,)
@@ -1681,8 +1794,7 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
     eng.step()                        # admits every slot, then one step
     eng.step()
     calls = {ctr.name: -ctr.count for ctr in counters}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_window() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -1692,7 +1804,8 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
         calls[ctr.name] += ctr.count
     # where the host's time goes: its launch count and its costliest ops
     host = sorted((e for e in prof.key_averages()
-                   if e.self_cpu_time_total > 0),
+                   if e.self_cpu_time_total > 0
+                   and not e.key.startswith("ProfilerStep")),
                   key=lambda e: -e.self_cpu_time_total)
     launch = [e for e in host if e.key == "cudaLaunchKernel"]
     print(f"profile {steps} warm decode steps: host cudaLaunchKernel "
@@ -1987,7 +2100,6 @@ def phase_ssm_prefill_profile(eng):
     device kernels per ssd_scan call."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     prompt = np.random.default_rng(10).integers(
         4, eng.cfg.vocab, (248,)).astype(np.int32)
@@ -1995,8 +2107,7 @@ def phase_ssm_prefill_profile(eng):
         eng._prefill(prompt)
         torch.cuda.synchronize()
         calls = {"ssd_scan": -ssd_ops.COUNTER.count}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile_window() as prof:
             t0 = time.perf_counter()
             eng._prefill(prompt)
             torch.cuda.synchronize()
@@ -2071,6 +2182,7 @@ def main() -> int:
     f_bf16 = max(r["max_abs_err"] for (_, dt), r in flash.items()
                  if dt == torch.bfloat16)
     t_main = topk[(16, 512, 5)]
+    dec_main = decode[("bfloat16", "serving")]
     b_main = flash_bwd[("image", torch.float32)]
     b_bf16 = max(flash_bwd[(s, torch.bfloat16)]["max_abs_err"]
                  for s in ("image", "text"))
@@ -2125,6 +2237,12 @@ def main() -> int:
          "launches": launches[topk_ops.COUNTER.name],
          **{k: t_main[k] for k in timing},
          "shape": t_main["shape"], "max_abs_err_bf16": topk_errs["bfloat16"],
+         **{k: t_main[k] for k in ("device_ms", "library_device_ms",
+                                   "plan")},
+         "cases": [{k: topk[key][k] for k in (
+             "shape", "ms", "device_ms", "plain_ms", "library_ms",
+             "library_device_ms", "bound_ms", "bound_by")}
+             for key in ((16, 512, 5), (64, 21841, 5))],
          "block_rows_ms": topk["block_rows_ms"],
          "device_kernels_per_call": per_call[topk_ops.COUNTER.name]},
         train_entry(fa_ops.BWD_COUNTER.name, FLASH_BWD_SOURCE,
@@ -2143,13 +2261,16 @@ def main() -> int:
         {"name": dec_ops.COUNTER.name, "route": "cuda",
          "source": DEC_SOURCE, "replaces": DEC_REPLACES,
          "launches": dec_launches[dec_ops.COUNTER.name],
-         **{k: decode["bfloat16"][k] for k in timing},
-         "shape": decode["bfloat16"]["shape"],
+         **{k: dec_main[k] for k in timing},
+         "shape": dec_main["shape"],
          "max_abs_err_f32": decode_errs["float32"],
-         "bound_full_sweep_ms": decode["bfloat16"]["bound_full_sweep_ms"],
-         "float32": {k: decode["float32"][k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "bound_full_sweep_ms")},
+         **{k: dec_main[k] for k in ("device_ms", "library_device_ms",
+                                     "bound_full_sweep_ms", "plan")},
+         "cases": [{k: r[k] for k in ("shape", "ms", "device_ms",
+                                      "plain_ms", "library_ms",
+                                      "library_device_ms", "bound_ms",
+                                      "bound_by", "bound_full_sweep_ms")}
+                   for r in decode.values()],
          "launches_per_step": dec_per["decode_attention_per_step"],
          "device_kernels_per_call": dec_per_call[dec_ops.COUNTER.name],
          "parity_max_logit_diff": max(parity["linear"][0],

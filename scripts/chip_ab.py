@@ -11,7 +11,12 @@ own kernel build directory) and prints one line ``AB <tree> <json>``:
 
 - ``--kernels``: kernels at the main paths' shapes, mean device ms
   between CUDA events (``chip_smoke.time_ms``), each with its max abs
-  error against its plain version: ``flash_fwd`` and ``flash_bwd`` bf16
+  error against its plain version (and, for the two serving kernels, the
+  device time of their device kernels per call from ``torch.profiler``):
+  ``decode_attention`` bf16 at Llama-3.2-1B's serving state (8 slots, 32
+  heads over 8, d 64, a cache of 8192 with lengths 508-571) and at a full
+  cache; ``similarity_topk`` f32 at b 16 × n 512 and b 64 × n 21841 (d 512,
+  k 5); ``flash_fwd`` and ``flash_bwd`` bf16
   at one image microbatch (bh 3072, s 196) and one text microbatch
   (bh 4096, s 16, padded), ``flash_fwd`` bf16 also at the Llama prefill
   (bh 32 over 8 kv heads, s 512, causal); ``bwd_fused`` at B 2048 × D 512
@@ -41,8 +46,63 @@ from repro_torch.kernels.contrastive_loss import ops as cl, ref as clr
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, flash_bwd_ref,
                                                      flash_fwd_ref)
+from repro_torch.kernels.decode_attention import ops as dec
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.similarity_topk import ops as tk
+from repro_torch.kernels.similarity_topk.ref import similarity_topk_ref
+from torch.profiler import ProfilerActivity, profile, schedule
+
+
+def device_ms(fn, iters=20):
+    # per kernel name: mean duration x launches per call (rounded); the
+    # tracing starts one step early (a warm-up step on a small op), so that
+    # its start-up cannot miss the first calls' records
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.zeros(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    by_name = {}
+    for e in prof.events():
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not e.name.startswith("ProfilerStep")):
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return sum(us / n * max(1, round(n / iters))
+               for us, n in by_name.values()) / 1e3
+
+
 out = {}
 dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(40)
+q = torch.randn((8, 32, 64), generator=g, device=dev).to(torch.bfloat16)
+k, v = (torch.randn((8, 8, 8192, 64), generator=g, device=dev)
+        .to(torch.bfloat16) for _ in range(2))
+ar = torch.arange(8192, device=dev)
+for state, lens in (("serving", [508 + 9 * i for i in range(8)]),
+                    ("full", [8192] * 8)):
+    valid = ar[None, :] < torch.tensor(lens, device=dev)[:, None]
+    f = lambda: dec.decode_attention(q, k, v, valid)
+    err = (f().float() - decode_attention_ref(q, k, v, valid).float()
+           ).abs().max().item()
+    out[f"decode_attention {state} bf16"] = [round(time_ms(f), 4), err,
+                                             round(device_ms(f), 4)]
+g = torch.Generator(device=dev).manual_seed(4)
+for b, n in ((16, 512), (64, 21841)):
+    x, c = unit_rows(b, 512, g, torch.float32), unit_rows(n, 512, g,
+                                                          torch.float32)
+    f = lambda: tk.similarity_topk(x, c, 5, inv_tau=1 / 0.07)
+    err = (f()[0] - similarity_topk_ref(x, c, 5, 1 / 0.07)[0]
+           ).abs().max().item()
+    out[f"similarity_topk b{b} n{n} float32"] = [round(time_ms(f), 4), err,
+                                                 round(device_ms(f), 4)]
 for label, b, h, s, padded in (("image", 256, 12, 196, False),
                                ("text", 256, 16, 16, True)):
     g = torch.Generator(device=dev).manual_seed(11)

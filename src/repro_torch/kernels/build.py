@@ -14,6 +14,7 @@ CUDA toolkit, where only the kernels' plain versions run.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -170,6 +171,54 @@ def build_all(libraries: Sequence[KernelLibrary]) -> None:
             lib._finish(s)
     for lib in libraries:
         lib.lib()
+
+
+class StreamScratch:
+    """A kernel's scratch per device and stream, kept between calls: an
+    fp32 buffer and an int32 counter buffer that is zero when made. Calls
+    on one stream run in order, so one buffer serves them all; a kernel
+    that counts in it leaves every counter at 0 when it ends."""
+
+    def __init__(self):
+        self._bufs = {}
+        self._lock = threading.Lock()
+
+    def get(self, stream, floats: int, counters: int):
+        """(fp32 buffer of at least ``floats``, zeroed int32 buffer of at
+        least ``counters``) for ``stream`` (a ``torch.cuda.Stream``)."""
+        key = (stream.device_index, stream.cuda_stream)
+        have = self._bufs.get(key)
+        if (have is not None and have[0].numel() >= floats
+                and have[1].numel() >= counters):
+            return have
+        import torch
+        with self._lock:
+            have = self._bufs.get(key)
+            floats = max(floats, have[0].numel() if have else 0)
+            counters = max(counters, have[1].numel() if have else 0)
+            with torch.cuda.stream(stream):
+                have = (torch.empty(floats, dtype=torch.float32,
+                                    device=stream.device),
+                        torch.zeros(counters, dtype=torch.int32,
+                                    device=stream.device))
+            self._bufs[key] = have
+            return have
+
+    def drop(self, stream) -> None:
+        """Forget ``stream``'s buffers (after a failed launch, whose
+        counters may not be 0)."""
+        with self._lock:
+            self._bufs.pop((stream.device_index, stream.cuda_stream), None)
+
+
+def device_scope(device):
+    """``torch.cuda.device(device)`` where ``device`` is not the current
+    card, else a no-op (entering a device scope costs microseconds of host
+    time on every call)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(rc: int, what: str) -> None:

@@ -18,23 +18,32 @@ A (b, t) mask reaches the kernel once per slot and is read as row
 
 The kernel splits each row's sweep into chunks of ``chunk_len(t)`` keys,
 a function of t alone, and a second kernel merges the chunks in order.
-On a CPU tensor the plain version in ``ref.py`` runs instead; on a CUDA
-tensor the kernels launch or it raises.
+``decode_plan`` sizes the rest of the launch: the query heads a CTA takes
+(4, 8 or 16), and how many CTAs share a row's chunks so that the grid
+fills the card once. A CTA skips every chunk and 16-key unit that the mask
+kills. On a CPU tensor the plain version in ``ref.py`` runs instead; on a
+CUDA tensor the kernels launch or it raises.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
+from repro_torch.kernels.build import (KernelLibrary, LaunchCounter,
+                                      StreamScratch, check, device_scope)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (64, 128)
-TILE = 128           # keys per staged tile in the kernel (csrc kTK)
+UNIT = 16            # keys per warp step in the kernel (csrc kUnit)
+CHUNK_ALIGN = 128    # chunk lengths are a multiple of this (csrc)
 MIN_CHUNK = 256      # keys per chunk at least
-MAX_CHUNKS = 64      # chunks per row at most
+MAX_CHUNKS = 64      # chunks per row at most (csrc kMaxChunks)
+MAX_CTA_KEYS = 8192  # keys one CTA may hold validity bits for (csrc)
+GROUPS = (4, 8, 16)  # query heads per CTA the kernel is built for
+MAX_T = MAX_CHUNKS * MAX_CTA_KEYS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,17 +51,103 @@ LIB = KernelLibrary(
     "decode_attention",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "decode.cu"),
-    {"repro_decode_attention": (_I, [_P] * 8 + [_I] * 8
-                                + [ctypes.c_float, _P])})
+    {"repro_decode_attention": (_I, [_P] * 6 + [_I] * 10
+                                + [ctypes.c_float, _P]),
+     "repro_decode_blocks_per_sm": (_I, [_I, _I, _I,
+                                         ctypes.POINTER(ctypes.c_int)])})
 COUNTER = LaunchCounter("decode_attention")
+SCRATCH = StreamScratch()
 
 
 def chunk_len(t: int) -> int:
     """Keys per chunk of the split sweep, from the cache length alone: at
-    least ``MIN_CHUNK``, at most ``MAX_CHUNKS`` chunks, a multiple of the
-    tile."""
+    least ``MIN_CHUNK``, at most ``MAX_CHUNKS`` chunks, a multiple of
+    ``CHUNK_ALIGN``."""
     c = max(MIN_CHUNK, -(-t // MAX_CHUNKS))
-    return -(-c // TILE) * TILE
+    return -(-c // CHUNK_ALIGN) * CHUNK_ALIGN
+
+
+def head_group(g: int) -> int:
+    """Query heads per CTA for a GQA group of ``g``: the smallest of
+    ``GROUPS`` that holds it, else the largest (several CTAs per row)."""
+    return next((gp for gp in GROUPS if g <= gp), GROUPS[-1])
+
+
+class DecodePlan(NamedTuple):
+    """How ``decode_attention`` launches: ``chunk_len`` keys per chunk and
+    ``n_chunks`` chunks per row (from t alone), ``group`` query heads per
+    CTA, ``ctas_per_row`` CTAs sharing a row's chunks (CTA y takes chunks
+    y, y + C, ...), the split kernel's ``grid`` (rows, ctas_per_row, head
+    groups) and the fp32 partials' size (m and l per chunk and head, then
+    acc of d values)."""
+    chunk_len: int
+    n_chunks: int
+    group: int
+    ctas_per_row: int
+    grid: tuple
+    scratch_floats: int
+
+
+def decode_plan(b: int, kv: int, g: int, t: int, d: int, sms: int,
+                blocks_per_sm: int) -> DecodePlan:
+    """The launch plan for ``b`` slots of ``kv`` heads, ``g`` query heads
+    each, over a cache of ``t`` keys of width ``d``, on a card of ``sms``
+    SMs holding ``blocks_per_sm`` split-kernel CTAs each.
+
+    The CTAs per row are the most that still fit the card in one wave
+    (at least one), then as few as keep the largest number of chunks per
+    CTA, so that every CTA sweeps about as much; a CTA holds validity bits
+    for at most ``MAX_CTA_KEYS`` keys. None of it changes a result: a
+    chunk's partial is the same whichever CTA computes it."""
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"decode_attention kernel takes 1 <= t <= {MAX_T},"
+                         f" got {t}")
+    cl = chunk_len(t)
+    n = -(-t // cl)
+    group = head_group(g)
+    groups = -(-g // group)
+    rows = b * kv
+    per_row = max(1, (sms * blocks_per_sm) // (rows * groups))
+    ctas = min(n, max(per_row, -(-n // (MAX_CTA_KEYS // cl))))
+    ctas = -(-n // -(-n // ctas))
+    return DecodePlan(cl, n, group, ctas, (rows, ctas, groups),
+                      rows * g * n * (d + 2))
+
+
+_SMS = {}
+_BLOCKS = {}
+_PLANS = {}
+
+
+def _card(device: torch.device, dtype_code: int, d: int, group: int):
+    """(SMs of the card, resident split-kernel CTAs per SM), cached."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    key = (idx, dtype_code, d, group)
+    if key not in _BLOCKS:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            check(LIB.lib().repro_decode_blocks_per_sm(dtype_code, d, group,
+                                                       ctypes.byref(out)),
+                  "decode_attention occupancy")
+        _BLOCKS[key] = max(1, out.value)
+    return _SMS[idx], _BLOCKS[key]
+
+
+def launch_plan(q: torch.Tensor, k: torch.Tensor) -> DecodePlan:
+    """The plan a call with CUDA q (b, h, d) and cache k (b, kv, t, d)
+    launches with, on q's card (cached per shape)."""
+    key = (q.shape, k.shape, q.dtype, q.device)
+    plan = _PLANS.get(key)
+    if plan is None:
+        b, h, d = q.shape
+        kv, t = k.shape[1], k.shape[2]
+        g = h // kv
+        sms, blocks = _card(q.device, _DTYPES[q.dtype], d, head_group(g))
+        plan = _PLANS[key] = decode_plan(b, kv, g, t, d, sms, blocks)
+    return plan
 
 
 def _check_inputs(q, k, v, valid):
@@ -77,8 +172,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with no valid key are zeros.
 
     The kernel takes f32 or bf16 q and cache of one dtype, head dims 64
-    and 128, any GQA group and any t >= 1, with contiguous q and cache.
-    One call launches two device kernels (split and merge)."""
+    and 128, any GQA group and 1 <= t <= ``MAX_T``, with contiguous q and
+    cache. One call launches two device kernels (split and merge)."""
     _check_inputs(q, k, v, valid)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid)
@@ -104,22 +199,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "and cache")
     g = h // kv
     valid = valid.contiguous()
+    plan = launch_plan(q, k)
+    stream = torch.cuda.current_stream(q.device)
+    part, _ = SCRATCH.get(stream, plan.scratch_floats, 0)
     out = torch.empty_like(q)
-    cl = chunk_len(t)
-    n_chunks = -(-t // cl)
-    part_m = torch.empty((b * kv, g, n_chunks), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b * kv, g, n_chunks, d), dtype=torch.float32,
-                           device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with device_scope(q.device):
         rc = LIB.lib().repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), _DTYPES[q.dtype], b * kv, g, t, d,
-            kv if valid.dim() == 2 else 0, cl, n_chunks, float(d ** -0.5),
-            stream)
+            out.data_ptr(), part.data_ptr(), _DTYPES[q.dtype], b * kv, g, t, d,
+            kv if valid.dim() == 2 else 0, plan.chunk_len, plan.n_chunks,
+            plan.ctas_per_row, plan.group, float(d ** -0.5),
+            stream.cuda_stream)
     check(rc, "decode_attention launch")
     COUNTER.add()
     return out

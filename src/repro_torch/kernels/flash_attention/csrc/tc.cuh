@@ -1,7 +1,8 @@
-// Tensor-core building blocks shared by the flash-attention kernels for
-// Hopper (sm_90a): 16-byte cp.async staging, ldmatrix fragment loads and
-// the mma.sync.m16n8k16 bf16 -> fp32 product. Included by flash_fwd.cu and
-// flash_bwd.cu; kernels/build.py hashes it with each of them.
+// Tensor-core building blocks shared by the port's kernels for Hopper
+// (sm_90a): 16-byte cp.async staging, ldmatrix fragment loads and the
+// mma.sync.m16n8k16 bf16 -> fp32 product. Included by flash_fwd.cu,
+// flash_bwd.cu, decode_attention/csrc/decode.cu and
+// similarity_topk/csrc/topk.cu; kernels/build.py hashes it with each.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -6,308 +6,578 @@
 // function: per row the k largest logits, values descending, ties to the
 // LOWER class id; slots no class filled carry (NEG, IDX_PAD).
 //
-// What bounds it on this card: the class matrix. Its n·d elements are the
-// bytes that must move, and the 2·b·n·d flops run on the FMA units in
-// fp32. At b <= 64 serving rows the flops per class byte are few, so the
-// kernel must keep every SM streaming classes at once; the (b, n) logit
-// matrix itself must never reach device memory.
+// What bounds it on this card: the 2·b·n·d flops on the fp32 FMA units
+// (f32 means full fp32: no TF32), or at small b·n the latency of one
+// launch. The class matrix's n·d elements are the bytes that must move; at
+// b <= 64 serving rows each class element feeds b FMAs, so the FMA units,
+// not memory, set the pace once b passes ~20. The (b, n) logit matrix must
+// never reach device memory.
 //
-// What the design does about it: the TPU grid has one row block and walks
-// the class axis in order (nI = 1 at serving batch sizes: one CTA out of
-// 132 here). This kernel splits the class axis across CTAs instead: each
-// CTA takes a chunk of classes for a block of 16 or 64 rows, computes the
-// logits tile by tile (64 classes, embedding staged 32 deep in shared
-// memory, fp32 FMA), and keeps a sorted running top-k per row in shared
-// memory. A warp owns a row's list; a candidate enters only if it beats the
-// current k-th entry (one ballot per 32 candidates, so after the first
-// tiles almost nothing is inserted), and an insertion is a warp-wide
-// rank-and-shift. Each CTA writes a (b, k) partial with global class ids;
-// a second small kernel merges the partials, one thread per partial,
-// taking k rounds of a block-wide arg-max over the partials' heads. The
-// order (value desc, id asc) is total, so the split cannot change the
-// result. A simple kernel first: tensor cores and pipelined loads are
-// later work.
+// What the design does about it:
+// - The class axis is split across CTAs (the TPU grid walks it in order on
+//   one core): CTA p takes classes [p·chunk, (p+1)·chunk) for a block of
+//   16 or 64 image rows; the wrapper sizes chunk so that the grid fills
+//   the card once.
+// - The CTA's image block stays in shared memory, staged once (with the
+//   first class tile's depth chunks), never re-staged per class tile.
+//   Class tiles of 128 classes stream through a ring of 32-deep chunks
+//   (16-byte cp.async, 3 stages; 4 at 16 rows), so the next chunks load
+//   while the current one is multiplied.
+// - Register blocking: each warp owns 8 (or 4) rows of the block; a lane
+//   holds 4 (or 2) rows × 8 classes of logits in fp32 and does 128 (or 64)
+//   FMAs per 12 (or 10) 16-byte shared-memory reads.
+// - Selection in registers: a warp owns its rows' sorted top-k lists in
+//   shared memory, so no lock is needed. A logit becomes a candidate only
+//   if it beats its row's current k-th entry (read once per tile); a half
+//   warp (one row) extracts its candidates best first into a run of at
+//   most k, then merges the run into the list once (each entry's new rank
+//   by a binary search of the other side), so a row whose list is already
+//   good does nothing past one ballot.
+// - One launch: each CTA writes its (rows, k) partial with global class
+//   ids; the partials merge in a tree of two levels inside the launch: the
+//   last CTA of each group of 16 to finish (a device counter, raised after
+//   __threadfence, which that CTA resets) merges its group, and the last
+//   group merges the groups, a half warp per row, with k rounds of an
+//   arg-max over the partials' heads (one merge of all partials in one
+//   CTA measured slow: it pulls every partial through one SM). The order
+//   (value desc, id asc) is total, so no split and no arrival order can
+//   change the result.
+// bf16 inputs are staged as bf16 and widened to fp32 in registers, so they
+// accumulate in fp32 as f32 inputs do.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <atomic>
+
+#include "../../flash_attention/csrc/tc.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kIdxPad = 1 << 30;
-constexpr int kThreads = 256;
-constexpr int kBC = 64;     // classes per tile
-constexpr int kDK = 32;     // embedding depth per staged chunk
 constexpr int kMaxK = 64;
+constexpr int kMaxParts = 256;     // partials per row at most
+constexpr int kGroup = 16;         // partials a first-level merge takes
+constexpr int kBN = 128;           // classes per tile: 16 lanes × 8
+constexpr int kTN = 8;             // classes per lane
+constexpr int kKC = 32;            // embedding depth per staged chunk
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kSmemMax = 230400;  // dynamic shared memory per CTA
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+template <typename T, int BM>
+struct TopkLayout {
+  static constexpr int kWarps = BM == 64 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int RW = BM / kWarps;      // rows per warp
+  static constexpr int TM = RW / 2;           // rows per lane
+  static constexpr int PAD = 16 / (int)sizeof(T);
+  static constexpr int CLD = kKC + PAD;       // staged class rows
+  static constexpr int S = BM == 16 ? 4 : 3;  // ring stages
+  static constexpr size_t ring = (size_t)S * kBN * CLD * sizeof(T);
+  static __host__ __device__ int xld(int d) {
+    return (d + kKC - 1) / kKC * kKC + PAD;
+  }
+  // image block [BM][xld], ring, the lists (values [BM][k], ids), then
+  // each half warp's run of new candidates (values [k], ids)
+  static __host__ __device__ size_t compute_bytes(int d, int k) {
+    return (size_t)BM * xld(d) * sizeof(T) + ring + (size_t)BM * k * 8 +
+           (size_t)kWarps * 2 * k * 8;
+  }
+  // a merge's per-warp buffers: two rows' kGroup partials (values then
+  // ids), nb sets
+  static __host__ __device__ size_t merge_bytes(int k, int nb) {
+    return (size_t)kWarps * nb * 4 * kGroup * k * 4;
+  }
+  static __host__ __device__ size_t bytes(int d, int k, int nb) {
+    const size_t a = compute_bytes(d, k), b = merge_bytes(k, nb);
+    return a > b ? a : b;
+  }
+};
 
 // the output order: larger value first, then the lower id
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-template <int BM>
-constexpr size_t partial_smem_bytes() {
-  // Xs [BM][DK+1], Cs [BC][DK+1], Ls [BM][BC+1], TV/TI [BM][kMaxK]
-  return sizeof(float) * (size_t)(BM * (kDK + 1) + kBC * (kDK + 1) +
-                                  BM * (kBC + 1) + 2 * BM * kMaxK);
+// The best of N (value, id) pairs and its slot, as a tournament of
+// log2(N) rounds (a short dependency chain, unlike a scan).
+template <int N>
+__device__ __forceinline__ void tourney(const float (&v)[N],
+                                        const int (&id)[N], float& bv,
+                                        int& bi, int& bs) {
+  float tv[N];
+  int ti[N], ts[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    tv[j] = v[j];
+    ti[j] = id[j];
+    ts[j] = j;
+  }
+#pragma unroll
+  for (int w = N / 2; w >= 1; w /= 2) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+      if (better(tv[j + w], ti[j + w], tv[j], ti[j])) {
+        tv[j] = tv[j + w];
+        ti[j] = ti[j + w];
+        ts[j] = ts[j + w];
+      }
+    }
+  }
+  bv = tv[0];
+  bi = ti[0];
+  bs = ts[0];
 }
 
-// Insert (nv, ni) into the sorted list (tv, ti) of length K, if it beats
-// the current last entry. Called by all 32 lanes of one warp.
-__device__ __forceinline__ void insert(float* tv, int* ti, int K, float nv,
-                                       int ni, int lane) {
-  if (!better(nv, ni, tv[K - 1], ti[K - 1])) return;  // warp-uniform
-  const int e0 = lane, e1 = lane + 32;
-  const bool in0 = e0 < K, in1 = e1 < K;
-  const float v0 = in0 ? tv[e0] : kNeg, v1 = in1 ? tv[e1] : kNeg;
-  const int i0 = in0 ? ti[e0] : kIdxPad, i1 = in1 ? ti[e1] : kIdxPad;
-  // the entries better than the candidate are a prefix of the list
-  const int pos = __popc(__ballot_sync(kFull, in0 && better(v0, i0, nv, ni))) +
-                  __popc(__ballot_sync(kFull, in1 && better(v1, i1, nv, ni)));
-  const float pv0 = (in0 && e0 > 0) ? tv[e0 - 1] : 0.f;
-  const int pi0 = (in0 && e0 > 0) ? ti[e0 - 1] : 0;
-  const float pv1 = in1 ? tv[e1 - 1] : 0.f;
-  const int pi1 = in1 ? ti[e1 - 1] : 0;
-  __syncwarp();
-  if (in0 && e0 >= pos) {
-    tv[e0] = e0 == pos ? nv : pv0;
-    ti[e0] = e0 == pos ? ni : pi0;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// rows [r0, r0 + rows) × depth [c0, c0 + kKC) of src (row stride Dm) into
+// dst (row stride ld); rows past rlim and depth past Dm are zero. vec:
+// 16-byte cp.async (the caller commits), else plain element copies.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int ld, const T* src, int r0,
+                                      int rows, int rlim, int c0, int Dm,
+                                      bool vec, int tid, int nthreads) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    constexpr int cv = kKC / V;
+    for (int e = tid; e < rows * cv; e += nthreads) {
+      const int r = e / cv, col = (e % cv) * V;
+      const int g = r0 + r, dd = c0 + col;
+      const bool ok = g < rlim && dd < Dm;
+      cp_async16(dst + r * ld + col, src + (ok ? (size_t)g * Dm + dd : 0),
+                 ok);
+    }
+  } else {
+    for (int e = tid; e < rows * kKC; e += nthreads) {
+      const int r = e / kKC, col = e % kKC;
+      const int g = r0 + r, dd = c0 + col;
+      dst[r * ld + col] =
+          (g < rlim && dd < Dm) ? src[(size_t)g * Dm + dd] : T(0.f);
+    }
   }
-  if (in1 && e1 >= pos) {
-    tv[e1] = e1 == pos ? nv : pv1;
-    ti[e1] = e1 == pos ? ni : pi1;
+}
+
+// The number of entries of arr (sorted best first, n of them) better
+// than (v, i).
+__device__ __forceinline__ int count_better(const float* av, const int* ai,
+                                            int n, float v, int i) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (better(av[mid], ai[mid], v, i))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Merge the run (rv, ri) of R new candidates (sorted best first) into the
+// sorted list (tv, ti) of length K <= 64: the list becomes the best K of
+// both. One half warp per list (lane & 15 takes entries h, h + 16, ...);
+// every key is distinct (empty slots, all (NEG, IDX_PAD), rank below every
+// candidate), so each entry's rank is its index plus the entries of the
+// other side better than it. Called by all 32 lanes.
+__device__ __forceinline__ void merge_half(float* tv, int* ti,
+                                           const float* rv, const int* ri,
+                                           int K, int R, int lane) {
+  const int h = lane & 15;
+  float ov[4], nv[4];
+  int oi[4], ni[4], orank[4], nrank[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int e = h + 16 * s;
+    orank[s] = nrank[s] = K;
+    if (R > 0 && e < K) {
+      ov[s] = tv[e];
+      oi[s] = ti[e];
+      orank[s] = e + count_better(rv, ri, R, ov[s], oi[s]);
+    }
+    if (e < R) {
+      nv[s] = rv[e];
+      ni[s] = ri[e];
+      nrank[s] = e + count_better(tv, ti, K, nv[s], ni[s]);
+    }
   }
   __syncwarp();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (orank[s] < K) {
+      tv[orank[s]] = ov[s];
+      ti[orank[s]] = oi[s];
+    }
+    if (nrank[s] < K) {
+      tv[nrank[s]] = nv[s];
+      ti[nrank[s]] = ni[s];
+    }
+  }
+  __syncwarp();
+}
+
+// acc[i][j] += x row i · class row j over one staged depth chunk, one
+// fmaf per d in increasing d; FULL: every class lane of the tile is live,
+// else only j < jn.
+template <typename T, int TM, int CLD, bool FULL>
+__device__ __forceinline__ void fma_chunk(float (&acc)[TM][kTN],
+                                          const T* xk, int xld,
+                                          const T* cs, int jn) {
+#pragma unroll
+  for (int kk = 0; kk < kKC; kk += 4) {
+    float4 xv[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) xv[i] = ld4(xk + 2 * i * xld + kk);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      if (FULL || j < jn) {
+        const float4 cv = ld4(cs + 16 * j * CLD + kk);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          acc[i][j] = fmaf(xv[i].x, cv.x, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].y, cv.y, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].z, cv.z, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].w, cv.w, acc[i][j]);
+        }
+      }
+    }
+  }
 }
 
 template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-topk_partial_kernel(const T* __restrict__ x, const T* __restrict__ c,
-                    float inv_tau, int B, int N, int Dm, int K, int chunk,
-                    int P, float* __restrict__ part_v,
-                    int* __restrict__ part_i) {
-  constexpr int RM = BM / 16;      // rows per thread: ty + 16 i
-  constexpr int CN = kBC / 16;     // classes per thread: tx + 16 j
-  constexpr int XS = kDK + 1;
-  constexpr int LS = kBC + 1;
-  extern __shared__ float smem[];
-  float* Xs = smem;
-  float* Cs = Xs + BM * XS;
-  float* Ls = Cs + kBC * XS;
-  float* TV = Ls + BM * LS;
-  int* TI = reinterpret_cast<int*>(TV + BM * kMaxK);
+__global__ void __launch_bounds__(TopkLayout<T, BM>::kThreads)
+topk_kernel(const T* __restrict__ x, const T* __restrict__ c, float inv_tau,
+            int B, int N, int Dm, int K, int chunk, int P, int NB,
+            float* __restrict__ part_v, int* __restrict__ part_i,
+            float* __restrict__ group_v, int* __restrict__ group_i,
+            unsigned* __restrict__ counters, float* __restrict__ out_v,
+            int* __restrict__ out_i) {
+  using L = TopkLayout<T, BM>;
+  constexpr int NTH = L::kThreads;
+  constexpr int TM = L::TM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_last;
+  const int XLD = L::xld(Dm);
+  T* Xs = reinterpret_cast<T*>(smem);
+  T* ring = Xs + (size_t)BM * XLD;
+  float* TV = reinterpret_cast<float*>(ring + (size_t)L::S * kBN * L::CLD);
+  int* TI = reinterpret_cast<int*>(TV + BM * K);
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int part = blockIdx.x;
-  const int row0 = blockIdx.y * BM;
-  const int c_lo = part * chunk;
-  const int c_hi = min(N, c_lo + chunk);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ry = lane >> 4, cx = lane & 15;
+  // this half warp's run: values [k], ids [k] (all runs' values first)
+  float* RV = reinterpret_cast<float*>(TI + BM * K) + (warp * 2 + ry) * K;
+  int* RI = reinterpret_cast<int*>(RV + L::kWarps * 2 * K);
+  const int part = blockIdx.x, rb = blockIdx.y, row0 = rb * BM;
+  const int c_lo = part * chunk, c_hi = min(N, c_lo + chunk);
+  const int tiles = (c_hi - c_lo + kBN - 1) / kBN;
+  const int nK = (Dm + kKC - 1) / kKC;
+  const int Q = tiles * nK;               // staged chunks in all
+  const bool vec = (Dm * (int)sizeof(T)) % 16 == 0 &&
+                   (((size_t)x | (size_t)c) & 15) == 0;
 
-  for (int e = tid; e < BM * kMaxK; e += kThreads) {
+  for (int e = tid; e < BM * K; e += NTH) {
     TV[e] = kNeg;
     TI[e] = kIdxPad;
   }
 
-  for (int ct = c_lo; ct < c_hi; ct += kBC) {
-    float acc[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < Dm; d0 += kDK) {
-      __syncthreads();  // the previous chunk's (and tile's) readers are done
-      for (int e = tid; e < BM * kDK; e += kThreads) {
-        const int row = e / kDK, col = d0 + e % kDK;
-        const int gr = row0 + row;
-        Xs[row * XS + e % kDK] =
-            (gr < B && col < Dm) ? to_f32(x[(size_t)gr * Dm + col]) : 0.f;
-      }
-      for (int e = tid; e < kBC * kDK; e += kThreads) {
-        const int row = e / kDK, col = d0 + e % kDK;
-        const int cls = ct + row;
-        Cs[row * XS + e % kDK] =
-            (cls < c_hi && col < Dm) ? to_f32(c[(size_t)cls * Dm + col])
-                                     : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < kDK; ++dd) {
-        float xv[RM], cv[CN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) xv[i] = Xs[(ty + 16 * i) * XS + dd];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) cv[j] = Cs[(tx + 16 * j) * XS + dd];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(xv[i], cv[j], acc[i][j]);
-      }
+  // chunk q: class tile q / nK, depth chunk q % nK (with the image block's
+  // depth chunk during the first tile)
+  auto issue = [&](int q) {
+    if (q < Q) {
+      const int t = q / nK, kc = q % nK;
+      const int cls0 = c_lo + t * kBN;
+      const int rows = min(kBN, (c_hi - cls0 + 15) / 16 * 16);
+      stage<T>(ring + (size_t)(q % L::S) * kBN * L::CLD, L::CLD, c, cls0,
+               rows, c_hi, kc * kKC, Dm, vec, tid, NTH);
+      if (t == 0)
+        stage<T>(Xs + kc * kKC, XLD, x, row0, BM, B, kc * kKC, Dm, vec, tid,
+                 NTH);
     }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        Ls[(ty + 16 * i) * LS + tx + 16 * j] = acc[i][j] * inv_tau;
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // merge the tile into each row's running top-k: one warp per row
-    for (int row = warp; row < BM; row += kThreads / 32) {
-      if (row0 + row >= B) break;  // rows are visited in increasing order
-      float* tv = TV + row * kMaxK;
-      int* ti = TI + row * kMaxK;
+  float acc[TM][kTN];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int col = lane + 32 * half;
-        const int cls = ct + col;
-        const float val = Ls[row * LS + col];
-        const bool live = cls < c_hi;
-        unsigned mask = __ballot_sync(
-            kFull, live && better(val, cls, tv[K - 1], ti[K - 1]));
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float nv = __shfl_sync(kFull, val, src);
-          const int ni = __shfl_sync(kFull, cls, src);
-          insert(tv, ti, K, nv, ni, lane);
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  const T* xrow = Xs + (size_t)(warp * L::RW + ry) * XLD;
+
+  for (int q = 0; q < L::S - 1; ++q) issue(q);
+  for (int q = 0; q < Q; ++q) {
+    cp_async_wait<L::S - 2>();
+    __syncthreads();          // chunk q is in; chunk q - 1's slot is free
+    issue(q + L::S - 1);
+    const int t = q / nK, kc = q % nK;
+    const int cls0 = c_lo + t * kBN;
+    const int jn = min(kTN, (c_hi - cls0 + 15) / 16);   // live class lanes
+    const T* Cs = ring + (size_t)(q % L::S) * kBN * L::CLD + cx * L::CLD;
+    const T* Xk = xrow + kc * kKC;
+    if (jn == kTN)
+      fma_chunk<T, TM, L::CLD, true>(acc, Xk, XLD, Cs, jn);
+    else
+      fma_chunk<T, TM, L::CLD, false>(acc, Xk, XLD, Cs, jn);
+    if (kc != nK - 1) continue;
+
+    // the tile's logits into this warp's rows' lists, a half warp per row:
+    // the candidates that beat the row's k-th entry leave best first into
+    // a run (at most k), which then merges into the list once
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int rl = warp * L::RW + ry + 2 * i;
+      float* tv = TV + rl * K;
+      int* ti = TI + rl * K;
+      const float thv = tv[K - 1];
+      const int thi = ti[K - 1];
+      float val[kTN];
+      int id[kTN];
+      unsigned live = 0;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        val[j] = acc[i][j] * inv_tau;
+        id[j] = cls0 + cx + 16 * j;
+        if (row0 + rl < B && j < jn && id[j] < c_hi &&
+            better(val[j], id[j], thv, thi))
+          live |= 1u << j;
+        acc[i][j] = 0.f;
+      }
+      int nr = 0;                        // the run's length (per half)
+      while (__any_sync(kFull, live != 0u)) {
+        float cv[kTN];
+        int ci[kTN];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          const bool in = (live >> j) & 1u;
+          cv[j] = in ? val[j] : kNeg;
+          ci[j] = in ? id[j] : kIdxPad;
+        }
+        float bv;
+        int bi, bj;
+        tourney<kTN>(cv, ci, bv, bi, bj);
+        if (bi == kIdxPad) bj = -1;
+        float hv = bv;
+        int hi = bi;
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+          const float ov = __shfl_xor_sync(kFull, hv, off);
+          const int oi = __shfl_xor_sync(kFull, hi, off);
+          if (better(ov, oi, hv, hi)) {
+            hv = ov;
+            hi = oi;
+          }
+        }
+        if (bj >= 0 && bi == hi) live &= ~(1u << bj);
+        if (hi != kIdxPad) {             // live only held candidates
+          if (cx == 0) {
+            RV[nr] = hv;
+            RI[nr] = hi;
+          }
+          if (++nr == K) live = 0u;
         }
       }
+      __syncwarp();
+      merge_half(tv, ti, RV, RI, K, nr, lane);
     }
   }
+  cp_async_wait<0>();
+
+  // this CTA's partial: (rows, k) with global class ids
   __syncthreads();
-  for (int e = tid; e < BM * K; e += kThreads) {
-    const int row = e / K, j = e % K;
-    const int gr = row0 + row;
-    if (gr < B) {
-      const size_t o = ((size_t)gr * P + part) * K + j;
-      part_v[o] = TV[row * kMaxK + j];
-      part_i[o] = TI[row * kMaxK + j];
+  const int PKS = (P * K + 3) / 4 * 4;     // a row's partials, 16-B padded
+  for (int e = tid; e < BM * K; e += NTH) {
+    const int rl = e / K, g = row0 + rl;
+    if (g < B) {
+      const size_t o = (size_t)g * PKS + (size_t)part * K + e % K;
+      part_v[o] = TV[e];
+      part_i[o] = TI[e];
     }
   }
-}
-
-// the merge's order: the output order, then the lower partial
-__device__ __forceinline__ bool better3(float va, int ia, int pa, float vb,
-                                        int ib, int pb) {
-  return va > vb || (va == vb && (ia < ib || (ia == ib && pa < pb)));
-}
-
-__global__ void topk_merge_kernel(const float* __restrict__ part_v,
-                                  const int* __restrict__ part_i, int P,
-                                  int K, float* __restrict__ out_v,
-                                  int* __restrict__ out_i) {
-  __shared__ float wv[32];
-  __shared__ int wi[32], wp[32];
-  __shared__ int winner;
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* pv = part_v + ((size_t)row * P + tid) * K;
-  const int* pi = part_i + ((size_t)row * P + tid) * K;
-  int head = 0;
-  float cv = tid < P ? pv[0] : kNeg;
-  int ci = tid < P ? pi[0] : kIdxPad;
-  for (int e = 0; e < K; ++e) {
-    float bv = cv;
-    int bi = ci, bp = tid;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      const int op = __shfl_xor_sync(kFull, bp, off);
-      if (better3(ov, oi, op, bv, bi, bp)) {
-        bv = ov;
-        bi = oi;
-        bp = op;
-      }
-    }
-    if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
-      wp[warp] = bp;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? wv[lane] : kNeg;
-      bi = lane < nwarps ? wi[lane] : kIdxPad;
-      bp = lane < nwarps ? wp[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, bv, off);
-        const int oi = __shfl_xor_sync(kFull, bi, off);
-        const int op = __shfl_xor_sync(kFull, bp, off);
-        if (better3(ov, oi, op, bv, bi, bp)) {
-          bv = ov;
-          bi = oi;
-          bp = op;
+  // the merge, a tree of two levels: the last CTA of each group of kGroup
+  // partials to finish (a device counter per group, raised after
+  // __threadfence, which that CTA resets) merges the group's partials into
+  // a group partial; the last group to finish merges the groups into the
+  // output. Each merging CTA reads at most kGroup partials per row.
+  const int NG = (P + kGroup - 1) / kGroup;
+  const int GKS = (NG * K + 3) / 4 * 4;    // a row's group partials
+  const int grp = part / kGroup;
+  const int gsize = min(kGroup, P - grp * kGroup);
+  unsigned* cnt = counters + (size_t)rb * (NG + 1);
+  const int nrows = min(BM, B - row0);
+  const int npairs = (nrows + 1) / 2;
+  const int h = lane & 15;
+  // rows [row0, row0 + nrows) of src (row stride sks), partials
+  // [first, first + n), into dst (row stride dks) at doff: a half warp per
+  // row, two rows per warp, the rows' partials staged in the warp's buffer
+  // (the next two rows' while these merge, NB = 2); k rounds of an arg-max
+  // over the partials' heads, lane h holding partial h's.
+  auto merge_rows = [&](const float* sv, const int* si, int sks, int first,
+                        int n, float* dv, int* di, int dks, int doff) {
+    const int seg = kGroup * K;              // staged floats per row
+    const int span = (n * K + 3) / 4 * 4;    // of which read
+    float* wbuf = reinterpret_cast<float*>(smem) + (size_t)warp * NB * 4 * seg;
+    auto load_pair = [&](int pr, int buf) {
+      float* bv = wbuf + (size_t)buf * 4 * seg;
+      for (int r = 0; r < 2; ++r) {
+        const int rl = 2 * pr + r;
+        if (rl >= nrows) break;
+        const size_t o = (size_t)(row0 + rl) * sks + (size_t)first * K;
+        for (int e = lane; e < span / 4; e += 32) {
+          cp_async16(bv + r * 2 * seg + 4 * e, sv + o + 4 * e, true);
+          cp_async16(bv + r * 2 * seg + seg + 4 * e, si + o + 4 * e, true);
         }
       }
-      if (lane == 0) {
-        out_v[(size_t)row * K + e] = bv;
-        out_i[(size_t)row * K + e] = bi;
-        winner = bp;
+      cp_async_commit();
+    };
+    if (warp < npairs) load_pair(warp, 0);
+    int buf = 0;
+    for (int pr = warp; pr < npairs; pr += L::kWarps) {
+      const int nx = pr + L::kWarps;
+      if (NB == 2) {
+        if (nx < npairs)
+          load_pair(nx, buf ^ 1);
+        else
+          cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
+      __syncwarp();
+      const int rl = 2 * pr + ry;
+      const bool row_ok = rl < nrows;
+      const float* bv = wbuf + (size_t)buf * 4 * seg + ry * 2 * seg;
+      const int* bi = reinterpret_cast<const int*>(bv + seg);
+      // this lane's partial (lane h takes partial h): its head
+      float cv = kNeg;
+      int ci = kIdxPad, hd = 0;
+      if (row_ok && h < n) {
+        cv = bv[h * K];
+        ci = bi[h * K];
+      }
+      const size_t g = (size_t)(row0 + rl);
+      for (int e = 0; e < K; ++e) {
+        float wv = cv;
+        int wi = ci;
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+          const float ov = __shfl_xor_sync(kFull, wv, off);
+          const int oi = __shfl_xor_sync(kFull, wi, off);
+          if (better(ov, oi, wv, wi)) {
+            wv = ov;
+            wi = oi;
+          }
+        }
+        if (h == 0 && row_ok) {
+          dv[g * dks + doff + e] = wv;
+          di[g * dks + doff + e] = wi;
+        }
+        if (ci != kIdxPad && ci == wi) {   // the winner's partial moves on
+          ++hd;
+          cv = hd < K ? bv[h * K + hd] : kNeg;
+          ci = hd < K ? bi[h * K + hd] : kIdxPad;
+        }
+      }
+      __syncwarp();
+      if (NB == 2)
+        buf ^= 1;
+      else if (nx < npairs)
+        load_pair(nx, 0);
     }
-    __syncthreads();
-    if (tid == winner) {
-      ++head;
-      cv = head < K ? pv[head] : kNeg;
-      ci = head < K ? pi[head] : kIdxPad;
-    }
+    cp_async_wait<0>();
+  };
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(cnt + grp, 1u) == (unsigned)(gsize - 1);
+  __syncthreads();
+  if (!s_last) return;
+  if (tid == 0) cnt[grp] = 0u;          // ready for the next call
+  __threadfence();
+  if (NG == 1) {
+    merge_rows(part_v, part_i, PKS, 0, P, out_v, out_i, K, 0);
+    return;
   }
+  merge_rows(part_v, part_i, PKS, grp * kGroup, gsize, group_v, group_i, GKS,
+             grp * K);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(cnt + NG, 1u) == (unsigned)(NG - 1);
+  __syncthreads();
+  if (!s_last) return;
+  if (tid == 0) cnt[NG] = 0u;
+  __threadfence();
+  merge_rows(group_v, group_i, GKS, 0, NG, out_v, out_i, K, 0);
 }
 
 template <typename T, int BM>
 cudaError_t launch(const void* x, const void* c, int b, int n, int d, int k,
-                   float inv_tau, int chunk, int parts, void* part_v,
-                   void* part_i, void* out_v, void* out_i,
+                   float inv_tau, int chunk, int parts, int nb, void* part_v,
+                   void* part_i, void* group_v, void* group_i,
+                   void* counters, void* out_v, void* out_i,
                    cudaStream_t stream) {
-  constexpr size_t smem = partial_smem_bytes<BM>();
-  auto kernel = topk_partial_kernel<T, BM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = TopkLayout<T, BM>;
+  const size_t smem = L::bytes(d, k, nb);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  // the shared-memory limit, once per instantiation and device
+  static std::atomic<unsigned> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (!(ready.load() & bit)) {
+    err = cudaFuncSetAttribute(topk_kernel<T, BM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemMax);
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit);
+  }
   const dim3 grid(parts, (b + BM - 1) / BM);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  topk_kernel<T, BM><<<grid, L::kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(c), inv_tau, b, n, d,
-      k, chunk, parts, static_cast<float*>(part_v),
-      static_cast<int*>(part_i));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = 32 * ((parts + 31) / 32);
-  topk_merge_kernel<<<b, threads, 0, stream>>>(
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
-      parts, k, static_cast<float*>(out_v), static_cast<int*>(out_i));
+      k, chunk, parts, nb, static_cast<float*>(part_v),
+      static_cast<int*>(part_i), static_cast<float*>(group_v),
+      static_cast<int*>(group_i), static_cast<unsigned*>(counters),
+      static_cast<float*>(out_v), static_cast<int*>(out_i));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. block_m: image rows per CTA, 16 or 64.
-// part_v/part_i: (b, parts, k) scratch; out_v/out_i: (b, k). Returns the
-// CUDA error code of the launches.
+// CTA p takes classes [p·chunk, (p+1)·chunk); parts CTAs cover n. merge_nb: 1 or 2 row buffers
+// per warp in a merge. part_v/part_i: (b, pks) fp32 / int32 scratch, pks =
+// parts·k rounded up to a multiple of 4; group_v/group_i: (b, gks), gks =
+// ceil(parts / 16)·k rounded up likewise; counters: ceil(parts / 16) + 1
+// uint32 per row block, 0 before the call and 0 after it; out_v/out_i:
+// (b, k). Returns the CUDA error code of the launch.
 extern "C" int repro_similarity_topk(const void* x, const void* c, int dtype,
                                      int b, int n, int d, int k,
                                      float inv_tau, int block_m, int chunk,
-                                     int parts, void* part_v, void* part_i,
-                                     void* out_v, void* out_i, void* stream) {
+                                     int parts, int merge_nb,
+                                     void* part_v, void* part_i,
+                                     void* group_v, void* group_i,
+                                     void* counters, void* out_v,
+                                     void* out_i, void* stream) {
   if (b < 1 || n < 1 || d < 1 || k < 1 || k > kMaxK || k > n || chunk < 1 ||
-      parts < 1 || parts > 1024 || (long long)chunk * parts < n ||
-      block_m < 1 || (b + block_m - 1) / block_m > 65535)
+      parts < 1 || parts > kMaxParts || (long long)chunk * parts < n ||
+      (long long)chunk * (parts - 1) >= n || merge_nb < 1 || merge_nb > 2 ||
+      (b + block_m - 1) / block_m > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_TOPK_LAUNCH(T, DT, BM)                                        \
   if (dtype == DT && block_m == BM)                                         \
     return (int)launch<T, BM>(x, c, b, n, d, k, inv_tau, chunk, parts,      \
-                              part_v, part_i, out_v, out_i, st);
+                              merge_nb, part_v, part_i, group_v, group_i,   \
+                              counters, out_v, out_i, st);
   REPRO_TOPK_LAUNCH(float, 0, 16)
   REPRO_TOPK_LAUNCH(float, 0, 64)
   REPRO_TOPK_LAUNCH(__nv_bfloat16, 1, 16)

@@ -8,30 +8,42 @@ ties to the lower class id, as the reference's ``topk_fused`` +
 
 On the card the class axis is split across CTAs: serving batches are at
 most 64 rows, so one CTA per row block (the TPU's grid) would occupy one
-SM of 132. Each CTA writes a (b, k) partial top-k of its class chunk with
-global ids, and a second kernel merges the partials under the
-``merge_topk`` rule, which does not depend on the order of the pool, so the
-split cannot change the result. On a CPU tensor the plain version in
-``ref.py`` runs instead; on a CUDA tensor the kernels launch or it raises.
+SM of 132. Each CTA keeps a (b, k) partial top-k of its class range with
+global ids, and the partials merge under the ``merge_topk`` rule inside
+the same launch, in a tree of two levels: the last CTA of each group of
+``MERGE_GROUP`` to finish merges its group, the last group merges the
+groups. The rule does not depend on the order of the pool, so neither the
+split nor the order of arrival can change the result. ``topk_plan`` sizes
+the launch; the wrapper caches the plan per shape and (``StreamScratch``)
+a zeroed counter and partial scratch per device and stream, so a call
+allocates only its two outputs. On a CPU tensor the plain version in
+``ref.py`` runs instead; on a CUDA tensor the kernel launches or it
+raises.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
+from repro_torch.kernels.build import (KernelLibrary, LaunchCounter,
+                                      StreamScratch, check, device_scope)
 from repro_torch.kernels.similarity_topk.ref import similarity_topk_ref
 
 MAX_K = 64           # the kernel keeps a running top-k of at most 64 slots
 NEG = -1e30          # sentinel value: below any real similarity
 IDX_PAD = 2 ** 30    # sentinel index: above any real class id
 
-CLASS_TILE = 64      # classes per staged tile in the kernel (csrc kBC)
+CLASS_TILE = 128     # classes per tile in the kernel (csrc kBN)
+CLASS_ALIGN = 16     # a CTA's class range is a multiple of this (one lane)
+DEPTH_CHUNK = 32     # embedding depth per staged chunk (csrc kKC)
 BLOCK_ROWS = (16, 64)  # image rows per CTA the kernel is built for
-MAX_PARTIALS = 1024  # the merge kernel runs one thread per partial
+MAX_PARTIALS = 256   # partials per row at most (16 groups of 16)
+MERGE_GROUP = 16     # partials a first-level merge takes (csrc kGroup)
+SMEM_MAX = 230400    # dynamic shared memory per CTA (csrc kSmemMax)
+SM_SMEM = 233472     # shared memory of one SM (228 KB)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,26 +51,104 @@ LIB = KernelLibrary(
     "topk",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "topk.cu"),
-    {"repro_similarity_topk": (_I, [_P, _P, _I, _I, _I, _I, _I,
-                                    ctypes.c_float, _I, _I, _I, _P, _P, _P,
-                                    _P, _P])})
+    {"repro_similarity_topk": (_I, [_P, _P] + [_I] * 5 + [ctypes.c_float]
+                               + [_I] * 4 + [_P] * 8)})
 COUNTER = LaunchCounter("similarity_topk")
+SCRATCH = StreamScratch()
 
 
-def row_block(b: int) -> int:
-    """Rows per CTA: 16 for the smallest batches, else 64."""
-    return 16 if b <= 16 else 64
+def warps(rows: int) -> int:
+    """Warps per CTA for ``rows`` image rows per CTA (csrc TopkLayout)."""
+    return 8 if rows == 64 else 4
 
 
-def class_chunks(n: int, b: int, sm_count: int, rows: int) -> tuple:
-    """Split of the class axis for ``rows`` image rows per CTA: (classes per
-    CTA, number of partials), about two CTAs per SM over all row blocks,
-    chunks a multiple of the tile."""
+def smem_bytes(rows: int, d: int, k: int, itemsize: int,
+               merge_buffers: int = 1) -> int:
+    """Dynamic shared memory of one CTA, as csrc ``TopkLayout::bytes``
+    counts it: the image block, the class ring, the lists and the half
+    warps' runs while it computes; a merge's buffers of two rows'
+    ``MERGE_GROUP`` partials per warp (which reuse them) at its end."""
+    pad = 16 // itemsize
+    xld = -(-d // DEPTH_CHUNK) * DEPTH_CHUNK + pad
+    stages = 4 if rows == 16 else 3
+    compute = (rows * xld * itemsize
+               + stages * CLASS_TILE * (DEPTH_CHUNK + pad) * itemsize
+               + rows * k * 8 + warps(rows) * 2 * k * 8)
+    merge = warps(rows) * merge_buffers * 4 * MERGE_GROUP * k * 4
+    return max(compute, merge)
+
+
+def row_block(b: int, d: int = 512, k: int = 5, itemsize: int = 4) -> int:
+    """Rows per CTA: 16 for the smallest batches, else 64 where a 64-row
+    image block fits in shared memory beside the ring (d up to ~700 in
+    f32), else 16."""
+    if b <= 16 or smem_bytes(64, d, k, itemsize) > SMEM_MAX:
+        return 16
+    return 64
+
+
+class TopkPlan(NamedTuple):
+    """How ``similarity_topk`` launches: ``rows`` image rows per CTA and
+    ``row_blocks`` of them, ``chunk`` classes per CTA and ``parts`` CTAs
+    along the class axis (the partials each row's merge takes, in
+    ``groups`` of ``MERGE_GROUP``), the merges' row buffers per warp (2:
+    the next rows load while two merge), the CTA's dynamic shared memory,
+    and the floats per row of the partials' (``stride``, parts · k rounded
+    up to 4) and the group partials' (``group_stride``) scratch; the
+    kernel counts finished CTAs in ``groups`` + 1 counters per row
+    block."""
+    rows: int
+    row_blocks: int
+    chunk: int
+    parts: int
+    groups: int
+    merge_buffers: int
+    smem: int
+    stride: int
+    group_stride: int
+
+
+def topk_plan(b: int, n: int, d: int, k: int, itemsize: int, sms: int,
+              block_rows: Optional[int] = None) -> TopkPlan:
+    """The launch plan for b image rows against n classes of width d, top
+    k, inputs of ``itemsize`` bytes, on a card of ``sms`` SMs.
+
+    The class axis splits into ranges of a multiple of ``CLASS_ALIGN``
+    classes, as many as fill the card once over all row blocks (the CTAs
+    an SM holds follow from the shared memory), at most ``MAX_PARTIALS``."""
+    rows = block_rows or row_block(b, d, k, itemsize)
+    compute = smem_bytes(rows, d, k, itemsize)
+    if compute > SMEM_MAX:
+        raise ValueError(f"similarity_topk kernel: {rows} image rows of "
+                         f"width {d} do not fit in shared memory")
     row_blocks = -(-b // rows)
-    target = max(1, -(-2 * sm_count // row_blocks))
-    chunk = max(-(-n // target), -(-n // MAX_PARTIALS))
-    chunk = -(-chunk // CLASS_TILE) * CLASS_TILE
-    return chunk, -(-n // chunk)
+    per_sm = max(1, min(2048 // (32 * warps(rows)),
+                        SM_SMEM // (compute + 1024)))
+    want = max(1, min(sms * per_sm // row_blocks, MAX_PARTIALS))
+    chunk = -(-max(-(-n // want), CLASS_ALIGN) // CLASS_ALIGN) * CLASS_ALIGN
+    parts = -(-n // chunk)
+    groups = -(-parts // MERGE_GROUP)
+    nb = 2 if smem_bytes(rows, d, k, itemsize, 2) <= compute else 1
+    return TopkPlan(rows, row_blocks, chunk, parts, groups, nb,
+                    smem_bytes(rows, d, k, itemsize, nb),
+                    -(-parts * k // 4) * 4, -(-groups * k // 4) * 4)
+
+
+_SMS = {}
+_PLANS = {}
+
+
+def _plan(b, n, d, k, itemsize, device, block_rows) -> TopkPlan:
+    """``topk_plan`` on ``device``'s card, cached per shape."""
+    key = (b, n, d, k, itemsize, device, block_rows)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if device not in _SMS:
+            _SMS[device] = torch.cuda.get_device_properties(
+                device).multi_processor_count
+        plan = _PLANS[key] = topk_plan(b, n, d, k, itemsize, _SMS[device],
+                                       block_rows)
+    return plan
 
 
 def merge_topk(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
@@ -97,7 +187,8 @@ def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
     fp32); 1 <= k <= min(n, MAX_K). Returns (values (b, k) fp32, indices
     (b, k) int32), rows sorted descending, ties broken by the lower class
     id. ``block_rows`` (one of ``BLOCK_ROWS``) overrides the kernel's image
-    rows per CTA, which ``row_block(b)`` picks otherwise."""
+    rows per CTA, which ``row_block`` picks otherwise. One call launches
+    one device kernel."""
     if image_emb.dim() != 2 or class_emb.dim() != 2:
         raise ValueError("expected image_emb (b, d) and class_emb (n, d)")
     b, d = image_emb.shape
@@ -125,20 +216,27 @@ def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
     if not (image_emb.is_contiguous() and class_emb.is_contiguous()):
         raise ValueError("similarity_topk kernel needs contiguous inputs")
     dev = image_emb.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = block_rows or row_block(b)
-    chunk, parts = class_chunks(n, b, sms, rows)
-    part_v = torch.empty((b, parts, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, parts, k), dtype=torch.int32, device=dev)
+    plan = _plan(b, n, d, k, image_emb.element_size(), dev, block_rows)
+    stream = torch.cuda.current_stream(dev)
+    per_row = plan.stride + plan.group_stride
+    buf, counters = SCRATCH.get(stream, 2 * b * per_row,
+                                plan.row_blocks * (plan.groups + 1))
+    # fp32 values then int32 ids: partials (b, stride), groups (b,
+    # group_stride)
+    part_v = buf.data_ptr()
+    part_i = part_v + 4 * b * per_row
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with device_scope(dev):
         rc = LIB.lib().repro_similarity_topk(
             image_emb.data_ptr(), class_emb.data_ptr(),
-            _DTYPES[image_emb.dtype], b, n, d, k, float(inv_tau), rows,
-            chunk, parts, part_v.data_ptr(), part_i.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), stream)
+            _DTYPES[image_emb.dtype], b, n, d, k, float(inv_tau), plan.rows,
+            plan.chunk, plan.parts, plan.merge_buffers, part_v, part_i,
+            part_v + 4 * b * plan.stride, part_i + 4 * b * plan.stride,
+            counters.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            stream.cuda_stream)
+    if rc != 0:
+        SCRATCH.drop(stream)
     check(rc, "similarity_topk launch")
     COUNTER.add()
     return vals, idx

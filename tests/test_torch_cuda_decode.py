@@ -18,7 +18,8 @@ Tolerances, each with its reason:
   large as the outputs (~0.05 rms over 1000 keys).
 - A length-0 row is exactly zero; a (b, t) mask with equal rows, stale
   entries past each length, and the batch a row sits in change nothing,
-  bit for bit.
+  bit for bit. The kernel skips the 16-key units and the chunks that the
+  mask kills; skipping them changes no bit.
 """
 import numpy as np
 import pytest
@@ -116,6 +117,34 @@ def test_decode_kernel_bit_identities(gen, dtype):
                                          k[i:i + 1], v[i:i + 1],
                                          valid[i:i + 1])
         assert torch.equal(alone[0], clean[i])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,t,d", [
+    (6, 32, 8, 2048, 64),     # group 4, as Llama-3.2-1B
+    (6, 8, 8, 1000, 64),      # group 1
+    (6, 16, 2, 1300, 128),    # d 128, group 8
+])
+def test_decode_kernel_skips_dead_chunks_and_units_exactly(gen, b, h, kv, t,
+                                                           d, dtype):
+    """Lengths that kill every key, all but one, whole 16-key units and
+    whole 256-key chunks (0, 1, 255, 256, 257, t): the kernel matches its
+    plain version and gives the same bits over a cache whose dead entries
+    hold other values; a full cache matches too."""
+    q, k, v = _qkv(gen, b, h, kv, t, d, dtype)
+    lens = torch.tensor([0, 1, 255, 256, 257, t], device="cuda")
+    valid = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+    got = dec_ops.decode_attention(q, k, v, valid)
+    _assert_close(got, decode_attention_ref(q, k, v, valid))
+    assert bool((got[0] == 0).all())
+    keep = valid[:, None, :, None]
+    other = torch.randn(k.shape, generator=gen, device="cuda").to(dtype)
+    dirty = dec_ops.decode_attention(q, torch.where(keep, k, other),
+                                     torch.where(keep, v, 3 * other), valid)
+    assert torch.equal(got, dirty)
+    full = torch.ones(t, dtype=torch.bool, device="cuda")
+    _assert_close(dec_ops.decode_attention(q, k, v, full),
+                  decode_attention_ref(q, k, v, full))
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(gen):

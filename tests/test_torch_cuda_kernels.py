@@ -141,10 +141,15 @@ def test_topk_kernel_matches_plain(gen, b, n, k, dtype):
     before = topk_ops.COUNTER.count
     vals, idx = topk_ops.similarity_topk(x, c, k, inv_tau=1 / 0.07)
     assert topk_ops.COUNTER.count == before + 1
-    m = min(k + 1, n)
-    ref_v, ref_i = similarity_topk_ref(x, c, m, 1 / 0.07)
+    _assert_topk(vals, idx, x, c, k)
+
+
+def _assert_topk(vals, idx, x, c, k, tol=1e-4):
+    """Values within tol of the plain version's, and the ids equal wherever
+    the plain version's neighbouring values are further apart than tol."""
+    ref_v, ref_i = similarity_topk_ref(x, c, min(k + 1, c.shape[0]),
+                                       1 / 0.07)
     torch.cuda.synchronize()
-    tol = 1e-4
     assert float((vals - ref_v[:, :k]).abs().max()) <= tol
     gap_up = torch.full_like(ref_v, float("inf"))
     gap_up[:, 1:] = ref_v[:, :-1] - ref_v[:, 1:]
@@ -161,13 +166,49 @@ def test_topk_kernel_ties_go_to_the_lower_id(gen, b):
     dup = [11, 700, 2500, 4999]
     c[dup] = c[dup[0]].clone()
     x[0] = c[dup[0]]
-    vals, idx = topk_ops.similarity_topk(x, c, 8, inv_tau=10.0)
-    assert idx[0, :4].tolist() == dup
-    assert len(set(vals[0, :4].tolist())) == 1
+    plan = topk_ops.topk_plan(b, 5000, 64, 8, 4,
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    assert len({i // plan.chunk for i in dup}) == 4   # one tie per CTA
+    for k in (8, 64):
+        vals, idx = topk_ops.similarity_topk(x, c, k, inv_tau=10.0)
+        assert idx[0, :4].tolist() == dup
+        assert len(set(vals[0, :4].tolist())) == 1
     same = c.clone()
     same[:] = c[0]
     _, idx = topk_ops.similarity_topk(x, same, 64)
     assert idx.tolist() == [list(range(64))] * b
+
+
+@pytest.mark.parametrize("b,rows", [(17, 16), (33, 16), (65, 64),
+                                    (70, 64)])
+def test_topk_kernel_rows_past_a_whole_block(gen, b, rows):
+    """b not a multiple of the image rows per CTA, at k 64: the last row
+    block is partial; its rows past b take no part."""
+    x, c = _unit(b, 512, gen, torch.float32), _unit(3000, 512, gen,
+                                                    torch.float32)
+    vals, idx = topk_ops.similarity_topk(x, c, 64, inv_tau=1 / 0.07,
+                                         block_rows=rows)
+    assert vals.shape == (b, 64) and idx.shape == (b, 64)
+    _assert_topk(vals, idx, x, c, 64)
+
+
+def test_topk_kernel_is_one_device_kernel_per_call(gen):
+    """One call: one launch, which also merges the CTAs' partials."""
+    from torch.profiler import ProfilerActivity, profile
+    for b, n in ((16, 512), (64, 21841)):
+        x, c = _unit(b, 512, gen, torch.float32), _unit(n, 512, gen,
+                                                        torch.float32)
+        topk_ops.similarity_topk(x, c, 5)          # scratch made here
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                topk_ops.similarity_topk(x, c, 5)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        assert len(names) == 3, names
+        assert all("topk_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("rows", [16, 64])

@@ -151,4 +151,29 @@ def test_chunk_length_depends_on_t_alone():
     assert dec_ops.chunk_len(32768) == 512
     for t in (1, 300, 8192, 10 ** 6):
         c = dec_ops.chunk_len(t)
-        assert c % dec_ops.TILE == 0 and -(-t // c) <= dec_ops.MAX_CHUNKS
+        assert c % dec_ops.CHUNK_ALIGN == 0 and -(-t // c) <= dec_ops.MAX_CHUNKS
+        assert c % (4 * dec_ops.UNIT) == 0     # whole units for 4 warps
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ring", [False, True])
+def test_dead_chunks_and_units_match_reference(dtype, ring):
+    """Per-slot lengths that kill every key, all but one, whole 16-key
+    units and whole 256-key chunks (0, 1, 255, 256, 257, t), or a full
+    ring: the plain version against the reference's Pallas kernel (256-key
+    blocks, so the dead blocks are swept there) and its oracle."""
+    b, h, kv, t, d = 6, 8, 2, 1024, 64
+    q, k, v = _inputs(b, h, kv, t, d, 21 + ring)
+    if ring:
+        valid = np.ones((t,), bool)
+    else:
+        lens = np.array([0, 1, 255, 256, 257, t])
+        valid = np.arange(t)[None, :] < lens[:, None]
+    got = _port(q, k, v, valid, dtype)
+    np.testing.assert_allclose(got, _jax(jax_ref, q, k, v, valid, dtype),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    np.testing.assert_allclose(
+        got, _jax(jax_decode, q, k, v, valid, dtype, block_k=256,
+                  interpret=True), rtol=TOL[dtype], atol=TOL[dtype])
+    if not ring:
+        np.testing.assert_array_equal(got[0], np.zeros((h, d), np.float32))

@@ -13,6 +13,12 @@ build cache's hash over the headers a kernel source includes.
   mode) at the port's bf16 parity tolerance (2e-2,
   tests/test_torch_attention.py).
 - ``KernelLibrary.path`` changes when an included ``csrc`` header changes.
+- ``decode_attention.ops.decode_plan`` keeps the chunking a function of t
+  alone, sizes the CTAs per row to fill the card once and no further, and
+  sizes the partials' scratch; ``similarity_topk.ops.topk_plan`` splits
+  the class axis into ranges of whole lanes that fill the card once, within
+  the merge's buffers, and counts the CTA's shared memory as the kernel
+  does.
 """
 import os
 
@@ -24,7 +30,9 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_fwd_bh
 from repro_torch.kernels import build
 from repro_torch.kernels.contrastive_loss import ops as cl_ops
+from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.similarity_topk import ops as topk_ops
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, _scores,
                                                      flash_fwd_ref)
 
@@ -170,3 +178,95 @@ def test_flash_libraries_hash_the_shared_header():
         files = build.source_files(lib.source)
         assert files[0] == lib.source
         assert [os.path.basename(f) for f in files[1:]] == ["tc.cuh"]
+
+
+@pytest.mark.parametrize("b,kv,g,t,d,blocks,chunk,chunks,group,ctas", [
+    (8, 8, 4, 8192, 64, 4, 256, 32, 4, 8),      # Llama-3.2-1B, 8 slots
+    (1, 8, 4, 8192, 64, 4, 256, 32, 4, 32),     # one lockstep request
+    (2, 2, 8, 1000, 128, 2, 256, 4, 8, 4),      # d 128, group 8
+    (2, 2, 20, 700, 64, 2, 256, 3, 16, 3),      # group 20: two CTAs per row
+    (2, 8, 1, 1000, 64, 4, 256, 4, 4, 4),       # group 1
+    (3, 4, 1, 1, 64, 4, 256, 1, 4, 1),          # one key
+    (8, 8, 4, 32768, 64, 4, 512, 64, 4, 8),     # long cache
+    (64, 8, 4, 8192, 64, 4, 256, 32, 4, 1),     # a row per CTA fills the card
+    (128, 8, 4, 8192, 64, 4, 256, 32, 4, 1),    # more rows than the card
+    (1, 1, 4, 524288, 64, 4, 8192, 64, 4, 64),  # the longest cache
+])
+def test_decode_plan(b, kv, g, t, d, blocks, chunk, chunks, group, ctas):
+    plan = dec_ops.decode_plan(b, kv, g, t, d, sms=132, blocks_per_sm=blocks)
+    assert (plan.chunk_len, plan.n_chunks, plan.group,
+            plan.ctas_per_row) == (chunk, chunks, group, ctas)
+    assert plan.chunk_len == dec_ops.chunk_len(t)           # t alone
+    assert plan.grid == (b * kv, ctas, -(-g // group))
+    assert plan.scratch_floats == b * kv * g * chunks * (d + 2)
+    per_cta = -(-chunks // ctas)                              # chunks per CTA
+    assert per_cta * plan.chunk_len <= dec_ops.MAX_CTA_KEYS
+    assert ctas == -(-chunks // per_cta)                      # balanced
+    rows = b * kv * plan.grid[2]
+    if rows * ctas > 132 * blocks:                            # one wave
+        assert ctas == 1 or per_cta * plan.chunk_len == dec_ops.MAX_CTA_KEYS
+
+
+def test_decode_plan_refuses_a_cache_past_the_kernel():
+    with pytest.raises(ValueError, match="t <="):
+        dec_ops.decode_plan(1, 1, 4, dec_ops.MAX_T + 1, 64, 132, 4)
+    assert dec_ops.head_group(4) == 4 and dec_ops.head_group(5) == 8
+    assert dec_ops.head_group(16) == 16 and dec_ops.head_group(40) == 16
+
+
+@pytest.mark.parametrize("b,n,d,k,item,rows,chunk,parts,nb", [
+    (16, 512, 512, 5, 4, 16, 16, 32, 2),        # zero-shot serving request
+    (64, 21841, 512, 5, 4, 64, 176, 125, 2),    # 64 images x ImageNet-21k
+    (64, 21841, 512, 64, 4, 64, 176, 125, 1),   # k 64: one merge buffer
+    (16, 21841, 512, 5, 4, 16, 96, 228, 2),     # two CTAs per SM
+    (64, 21841, 512, 5, 2, 64, 96, 228, 2),     # bf16: two CTAs per SM
+    (70, 3000, 512, 17, 4, 64, 48, 63, 2),      # two row blocks
+    (64, 1000, 1024, 5, 4, 16, 32, 32, 2),      # wide rows: 16 per CTA
+    (1, 64, 512, 64, 4, 16, 16, 4, 1),
+    (3, 40000, 8, 5, 4, 16, 160, 250, 2),       # 16 groups of 16
+])
+def test_topk_plan(b, n, d, k, item, rows, chunk, parts, nb):
+    plan = topk_ops.topk_plan(b, n, d, k, item, sms=132)
+    assert (plan.rows, plan.chunk, plan.parts,
+            plan.merge_buffers) == (rows, chunk, parts, nb)
+    assert plan.row_blocks == -(-b // rows)
+    assert plan.chunk % topk_ops.CLASS_ALIGN == 0
+    assert (parts - 1) * chunk < n <= parts * chunk
+    assert parts <= topk_ops.MAX_PARTIALS
+    assert plan.groups == -(-parts // topk_ops.MERGE_GROUP) <= 16
+    assert plan.stride == -(-parts * k // 4) * 4
+    assert plan.group_stride == -(-plan.groups * k // 4) * 4
+    assert plan.smem <= topk_ops.SMEM_MAX
+    # a merge's buffers reuse the sweep's memory and never ask for more
+    assert plan.smem == topk_ops.smem_bytes(rows, d, k, item)
+    assert (topk_ops.warps(rows) * nb * 4 * topk_ops.MERGE_GROUP * k * 4
+            <= plan.smem)
+
+
+def test_topk_plan_smem_and_row_blocks():
+    # the image block (64 x (512 + 4) fp32), a 3-stage ring of 128 classes
+    # x 36 fp32, the lists (64 x 5 x 8 bytes)
+    # and the half warps' runs (8 warps x 2 x 5 x 8 bytes)
+    assert topk_ops.smem_bytes(64, 512, 5, 4) == (
+        64 * 516 * 4 + 3 * 128 * 36 * 4 + 64 * 5 * 8 + 8 * 2 * 5 * 8)
+    assert topk_ops.smem_bytes(16, 512, 5, 2) == (
+        16 * 520 * 2 + 4 * 128 * 40 * 2 + 16 * 5 * 8 + 4 * 2 * 5 * 8)
+    # a merge's buffers: two rows of 16 partials x 64, values and ids, two
+    # sets, per warp (more than the sweep at d 8)
+    assert topk_ops.smem_bytes(64, 8, 64, 4, 2) == 8 * 2 * 4 * 16 * 64 * 4
+    assert topk_ops.row_block(16) == 16 and topk_ops.row_block(17) == 64
+    assert topk_ops.row_block(64, d=1024) == 16
+    forced = topk_ops.topk_plan(64, 21841, 512, 5, 4, 132, block_rows=16)
+    assert forced.rows == 16 and forced.row_blocks == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_ops.topk_plan(64, 100, 1024, 5, 4, 132, block_rows=64)
+
+
+def test_serving_libraries_hash_the_shared_header():
+    """decode.cu and topk.cu take cp.async (and ldmatrix, mma) from the
+    flash kernels' header; an edit to it rebuilds them too."""
+    for lib in (dec_ops.LIB, topk_ops.LIB):
+        files = build.source_files(lib.source)
+        assert files[0] == lib.source
+        assert [os.path.basename(f) for f in files[1:]] == ["tc.cuh"]
+        assert files[1] == build.source_files(fa_ops.LIB.source)[1]

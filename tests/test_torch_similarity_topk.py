@@ -101,9 +101,9 @@ def test_class_split_then_merge_equals_global(b, n, k):
     """The kernel's design in plain PyTorch: per-chunk top-k partials with
     global ids (empty slots NEG / IDX_PAD), merged by ``merge_topk``, give
     the global answer bit for bit, ties included."""
-    chunk, parts = tops.class_chunks(n, b, sm_count=132,
-                                     rows=tops.row_block(b))
-    assert chunk % tops.CLASS_TILE == 0 and parts <= tops.MAX_PARTIALS
+    plan = tops.topk_plan(b, n, 512, k, 4, sms=132)
+    chunk, parts = plan.chunk, plan.parts
+    assert chunk % tops.CLASS_ALIGN == 0 and parts <= tops.MAX_PARTIALS
     assert (parts - 1) * chunk < n <= parts * chunk
     x, c = _pair(n + k, b, n, 8)
     c[n // 2] = c[0]                                # a tie across chunks
@@ -159,13 +159,16 @@ def test_classify_and_validation():
 
 
 def test_block_rows_and_the_class_split():
-    """16 image rows per CTA up to b = 16, else 64; fewer rows per CTA
-    means fewer row blocks to share the SMs; other sizes are refused."""
+    """16 image rows per CTA up to b = 16, else 64 (16 where a 64-row image
+    block of width d does not fit in shared memory); fewer rows per CTA
+    means more row blocks sharing the card, so fewer CTAs along the class
+    axis; other sizes are refused."""
     assert tops.row_block(16) == 16 and tops.row_block(17) == 64
-    assert (tops.class_chunks(21841, 16, 132, 16)
-            == tops.class_chunks(21841, 16, 132, 64))
-    assert (tops.class_chunks(21841, 64, 132, 16)[1]
-            < tops.class_chunks(21841, 64, 132, 64)[1])
+    assert tops.row_block(64, d=1024) == 16
+    at16 = tops.topk_plan(64, 21841, 512, 5, 4, 132, block_rows=16)
+    at64 = tops.topk_plan(64, 21841, 512, 5, 4, 132, block_rows=64)
+    assert (at16.row_blocks, at64.row_blocks) == (4, 1)
+    assert at16.parts < at64.parts
     x, c = _pair(9, 4, 100, 8)
     with pytest.raises(ValueError, match="block_rows"):
         tops.similarity_topk(torch.tensor(x), torch.tensor(c), 5,
