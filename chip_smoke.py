@@ -10,13 +10,15 @@ repository beside this file; it exits non-zero without them. In order it:
 2. builds the hand-written kernels from ``src/repro_torch/kernels/*/csrc``
    for ``sm_90a`` (one ``nvcc`` per source, all at once);
 3. holds the flash-attention forward kernels against their plain PyTorch
-   version at the towers' serving shapes, in f32 (the SIMT kernel) and
-   bf16 (the tensor-core kernel, held against the plain version that
-   rounds p to bf16 as the kernel does; its distance from the unrounded
-   fp32 forward is printed, not gated), and in bf16 at one training
-   microbatch (image bh 3072, s 196; text bh 4096, s 16, padded), printing
-   each launch plan, and times kernel, plain version and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   version at the towers' serving shapes, in f32 (the split 3×TF32
+   tensor-core kernel) and bf16 (the tensor-core kernel, held against the
+   plain version that rounds p to bf16 as the kernel does; its distance
+   from the unrounded fp32 forward is printed, not gated), and in bf16 at
+   one training microbatch (image bh 3072, s 196; text bh 4096, s 16,
+   padded), printing each launch plan, and times kernel (between events,
+   and its device time from the profiler), plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls;
+   events and device time);
 4. holds the similarity→top-k kernel against its plain version over a
    grid of batch, class-count and k, with planted exact ties, and times
    kernel (between events, and its device time from the profiler, where
@@ -26,11 +28,12 @@ repository beside this file; it exits non-zero without them. In order it:
 5. holds the flash-attention backward kernels against their plain version
    at the training shapes of one microbatch (image bh 3072, s 196; text
    bh 4096, s 16 with the padding bias; causal, windowed and d 128 cases,
-   and a bf16 case whose keys split over CTAs), in f32 (SIMT kernels) and
-   bf16 (the tensor-core kernel, held against the plain version that rounds
-   p and ds to bf16 as the kernel does; its distance from the unrounded
-   fp32 backward is printed, not gated), and times kernel, plain version
-   and SDPA's backward;
+   and f32 and bf16 cases whose keys split over CTAs), in f32 (the split
+   3×TF32 tensor-core kernel) and bf16 (the tensor-core kernel, held
+   against the plain version that rounds p and ds to bf16 as the kernel
+   does; its distance from the unrounded fp32 backward is printed, not
+   gated), printing each launch plan, and times kernel (events and device
+   time), plain version and SDPA's backward;
 6. holds the fused contrastive forward and backward kernels against their
    plain versions at B = 2048 and a ragged B = 1000 (D = 512, f32 and
    bf16, and the backward with ``with_diag=False`` and ``b_norm != B``),
@@ -57,7 +60,8 @@ repository beside this file; it exits non-zero without them. In order it:
    in f32 (B = 256, 2 microbatches) on the kernel path (flash attention,
    fused loss) and on the plain path (materialised attention and loss)
    from the same weights and batch: loss, every gradient leaf and the
-   parameters after AdaFactorW;
+   parameters after AdaFactorW; the kernel path must launch both f32
+   flash kernels (counted) and the plain path neither;
 10. timed training: ``repro_torch.launch.train`` (``main``) at full width
     and depth, bf16, fused loss, flash attention, remat ``basic``, B = 2048
     pairs in 8 microbatches, 6 steps: step time, pairs per second, peak
@@ -142,9 +146,16 @@ SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:69"
 # operation rates by input type (fp32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# fp32-accurate work on the tensor cores as split 3×TF32: three tf32
+# products (495 TFLOP/s) per fp32 product. The f32 flash kernels compute
+# so, and their bound is taken at this rate (the card's fastest for work
+# held to fp32 accuracy), not at the FMA units' 67.
+PEAK_3XTF32 = 495e12 / 3
 
 # tolerances, each with its reason:
-# flash f32 — both sides accumulate fp32 over <= 196 keys in another order
+# flash f32 — both sides accumulate fp32 over <= 196 keys in another order,
+# and the kernel's products are split 3×TF32 (about 2^-21 of each product,
+# a few 1e-6 on a score at d 64; tests/test_torch_tf32_split.py)
 FLASH_TOL = {"float32": 5e-5,
              # bf16 — the same fp32 result rounds to bf16 on both sides: a
              # crossing of a rounding boundary moves |out| < 2 by one ulp
@@ -158,7 +169,8 @@ TOPK_TOL = 1e-4
 E2E_LOGIT_TOL = 1e-3
 E2E_CLASS_TOL = 1e-4
 # flash backward f32: 2e-4 abs, the reference's own gradient tolerance
-# (tests/test_attention_backends.py); fp32 sums in another order
+# (tests/test_attention_backends.py); fp32 sums in another order, products
+# split 3×TF32 as in the forward
 FLASH_BWD_TOL = 2e-4
 # flash backward bf16, per element: 2 bf16 ulps of |ref| (2^-7 relative
 # each) plus 1e-3 of the tensor's max |ref|. Both sides accumulate in fp32
@@ -289,19 +301,23 @@ def device_ms(fn, names=None, iters: int = 20):
     kernel and copy when ``names`` is None). Per kernel name, its mean
     duration times its launches per call, rounded: the profiler now and
     then drops one event of a window, which would otherwise read as a
-    call without that kernel."""
+    call without that kernel. A window with no record at all is retaken
+    twice; after that it raises."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with profile_window(cpu=False) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in device_events(prof):
-        if names is None or any(n in e.name for n in names):
-            us, count = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    for _ in range(3):   # a window whose records the tracer lost is retaken
+        with profile_window(cpu=False) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in device_events(prof):
+            if names is None or any(n in e.name for n in names):
+                us, count = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+        if by_name:
+            break
     if not by_name:
         raise AssertionError("device_ms: the profiler saw no device time")
     ms = per_call = 0
@@ -312,12 +328,19 @@ def device_ms(fn, names=None, iters: int = 20):
     return ms, per_call
 
 
-def bound(nbytes: float, flops: float, dtype: str):
-    """(least milliseconds the card could take, what bounds it)."""
+def bound(nbytes: float, flops: float, dtype: str, peak=None):
+    """(least milliseconds the card could take, what bounds it), at the
+    dtype's peak rate or at ``peak`` FLOP/s."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / (peak or PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_peak(dt: str):
+    """The peak a flash kernel's bound is taken at: f32 runs split 3×TF32
+    on the tensor cores, bf16 the dtype's own."""
+    return PEAK_3XTF32 if dt == "float32" else None
 
 
 def dtype_name(dt) -> str:
@@ -366,20 +389,29 @@ def flash_case(label, b, h, s, d, dtype, padded, seed):
         f32_out, _ = flash_fwd_ref(q.float(), k.float(), v.float(), bias,
                                    causal=False)
         unrounded = (out.float() - f32_out).abs().max().item()
-    ms = time_ms(lambda: fa_ops.flash_fwd(q, k, v, bias, causal=False))
+
+    def call():
+        fa_ops.flash_fwd(q, k, v, bias, causal=False)
+    ms = time_ms(call)
+    dev_ms, _ = device_ms(call, WRAPPER_KERNELS["flash_fwd"])
     plain_ms = time_ms(lambda: flash_fwd_ref(q, k, v, bias, causal=False))
     q4, k4, v4 = (x.view(b, h, s, d) for x in (q, k, v))
     mask4 = None if bias is None else bias.to(dtype)[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask4))
+
+    def sdpa():
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4)
+    lib_ms = time_ms(sdpa)
+    lib_dev_ms, _ = device_ms(sdpa)
     item = torch.finfo(dtype).bits // 8
     nbytes = 4 * bh * s * d * item + bh * s * 4 + (b * s * 4 if padded
                                                    else 0)
-    bound_ms, bound_by = bound(nbytes, 4.0 * bh * s * s * d, dt)
+    flops = 4.0 * bh * s * s * d
+    bound_ms, bound_by = bound(nbytes, flops, dt, flash_peak(dt))
     rec = {"shape": f"{label} bh={bh} s={s} d={d} {dt}"
                     + (" padded" if padded else ""),
            "max_abs_err": max(err_out, err_lse), "ms": ms,
-           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_device_ms": lib_dev_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "plan": tuple(plan), "unrounded_err": unrounded}
     print(f"flash_fwd {rec['shape']}: plan {tuple(plan)}; err out "
@@ -388,8 +420,9 @@ def flash_case(label, b, h, s, d, dtype, padded, seed):
           + ("" if unrounded is None else
              f", distance from the unrounded fp32 forward (not gated) "
              f"{unrounded:.3g}")
-          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          + f"; kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
+          f"{lib_dev_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
     return rec
 
@@ -655,11 +688,11 @@ def phase_main_path():
 
 
 # the device kernels each wrapper launches, by name
-WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
+WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_3xtf32_kernel",
+                                 "flash_fwd_tc_kernel"),
                    "similarity_topk": ("topk_kernel",),
                    "flash_bwd": ("flash_bwd_delta_kernel",
-                                 "flash_bwd_dq_kernel",
-                                 "flash_bwd_dkv_kernel",
+                                 "flash_bwd_3xtf32_kernel",
                                  "flash_bwd_tc_kernel",
                                  "flash_bwd_dq_sum_kernel"),
                    "contrastive_fwd": ("contrastive_fwd_tile_kernel",
@@ -832,6 +865,7 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
                     + (f" window={window}" if window else ""),
            "max_abs_err": max(errs.values()), "errs": errs}
     plan = fa_ops.bwd_plan(bh, s, s, d, dtype)
+    rec["plan"] = tuple(plan)
     if dtype == torch.bfloat16:
         # not gated: the distance from the fp32 backward of the same bf16
         # values with p and ds left unrounded
@@ -848,10 +882,15 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
               f", largest relative to max|ref| {rec['unrounded_rel']:.3g}",
               flush=True)
     if not timed:
-        print(f"flash_bwd {rec['shape']}: err {errs}", flush=True)
+        print(f"flash_bwd {rec['shape']}: plan {tuple(plan)}; err {errs}",
+              flush=True)
         return rec
-    rec["ms"] = time_ms(lambda: fa_ops.flash_bwd(*args, causal=causal,
-                                                 window=window))
+
+    def call():
+        fa_ops.flash_bwd(*args, causal=causal, window=window)
+    rec["ms"] = time_ms(call)
+    rec["device_ms"], _ = device_ms(call, WRAPPER_KERNELS["flash_bwd"],
+                                    iters=5)
     rec["plain_ms"] = time_ms(lambda: flash_bwd_ref(*args, causal=causal,
                                                     window=window), iters=5)
     # SDPA's backward: forward + backward through autograd, minus the
@@ -874,13 +913,15 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
     nbytes = 8 * bh * s * d * item + bh * s * 4 + (b * s * 4 if padded
                                                    else 0)
     # five products of 2·s²·d per head: the q·kᵀ recompute, dout·vᵀ, ds·k,
-    # dsᵀ·q and pᵀ·dout (the f32 design's second q·kᵀ and dout·vᵀ, one each
-    # in its dq and dk/dv kernels, are its own choice, not the function's)
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 5 * 2.0 * bh * s * s * d,
-                                             dt)
-    print(f"flash_bwd {rec['shape']}: err {errs} (tol "
+    # dsᵀ·q and pᵀ·dout
+    flops = 5 * 2.0 * bh * s * s * d
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dt,
+                                             flash_peak(dt))
+    print(f"flash_bwd {rec['shape']}: plan {tuple(plan)}; err {errs} (tol "
           f"{flash_bwd_tol_text(dt)}); "
-          f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
+          f"kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms), "
+          f"plain "
+          f"{rec['plain_ms']:.4f} ms, sdpa "
           f"backward {rec['library_ms']:.4f} ms (its forward {fwd_ms:.4f} ms "
           f"subtracted), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})",
           flush=True)
@@ -903,9 +944,11 @@ def phase_flash_bwd():
                                   (128, False, None)):
             flash_bwd_case("mask", 2, 12, 200, d, dtype, False, 13,
                            causal=causal, window=window, timed=False)
-    # bf16 past one 256-key block: split keys, dq summed from partials
-    flash_bwd_case("split", 2, 12, 520, 64, torch.bfloat16, False, 14,
-                   causal=True, timed=False)
+    # past one key block (256 keys in bf16, 208 in f32): split keys, dq
+    # summed from partials
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_bwd_case("split", 2, 12, 520, 64, dtype, False, 14,
+                       causal=True, timed=False)
     return recs
 
 
@@ -1171,6 +1214,7 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
                                   world_for_tower)
     from repro_torch.launch.steps import make_optimizer
     from repro_torch.launch.train import batch_to
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import dual_encoder as de
     from repro_torch.optim import apply_updates
 
@@ -1184,13 +1228,15 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
     opt = make_optimizer()
     lr = 2.5e-4
     policy = remat_lib.get_policy("basic")
-    results = {}
+    results, flash_launches = {}, {}
     for path, attn, loss_fn in (("kernel", "pallas", fused_kernel_loss),
                                 ("plain", "naive", contrastive_loss)):
         pcfg = dataclasses.replace(
             cfg, image_tower=dataclasses.replace(cfg.image_tower,
                                                  attn_impl=attn),
             text_tower=dataclasses.replace(cfg.text_tower, attn_impl=attn))
+        for ctr in (fa_ops.COUNTER, fa_ops.BWD_COUNTER):
+            ctr.reset()
         t0 = time.perf_counter()
         loss, _, grads = contrastive_step(
             lambda p, im: de.encode_image(pcfg, p, im, precision="f32",
@@ -1204,6 +1250,8 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
         results[path] = (loss.item(), dict(interop.leaves(grads)),
                          dict(interop.leaves(new)),
                          time.perf_counter() - t0)
+        flash_launches[path] = {ctr.name: ctr.count for ctr in (
+            fa_ops.COUNTER, fa_ops.BWD_COUNTER)}
     (lk, gk, pk, tk), (lp, gp, pp, tp) = results["kernel"], results["plain"]
     loss_err = abs(lk - lp)
     grad_rel = {path: ((gk[path] - gp[path]).abs().max()
@@ -1234,14 +1282,19 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
           f"updated params max diff {upd_err:.3g} (tol "
           f"{TRAIN_UPDATE_TOL_LR * lr:.3g} = {TRAIN_UPDATE_TOL_LR}·lr; "
           f"{flips} unfactored elements with near-zero gradients differ "
-          f"more); step {tk:.2f}s kernel path, {tp:.2f}s plain path",
-          flush=True)
+          f"more); step {tk:.2f}s kernel path, {tp:.2f}s plain path; "
+          f"f32 flash launches {flash_launches}", flush=True)
+    if (min(flash_launches["kernel"].values()) < 1
+            or max(flash_launches["plain"].values()) > 0):
+        raise AssertionError(f"train parity: the kernel path must launch "
+                             f"both f32 flash kernels and the plain path "
+                             f"neither, got {flash_launches}")
     if not (loss_err <= TRAIN_LOSS_TOL and grad_rel[worst] <= TRAIN_GRAD_RTOL
             and upd_err <= TRAIN_UPDATE_TOL_LR * lr):
         raise AssertionError("train parity: kernel path and plain path "
                              "disagree beyond the stated tolerances")
     return {"loss_err": loss_err, "grad_rel_err": grad_rel[worst],
-            "update_err": upd_err}
+            "update_err": upd_err, "launches": flash_launches["kernel"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1538,24 +1591,29 @@ def phase_prefill_flash():
             raise AssertionError(f"flash_fwd prefill {dt}: max |out err| "
                                  f"{err_out:.3g}, max |lse err| "
                                  f"{err_lse:.3g}")
-        ms = time_ms(lambda: fa_ops.flash_fwd(q, k, v, causal=True,
-                                              window=8192))
+
+        def call():
+            fa_ops.flash_fwd(q, k, v, causal=True, window=8192)
+        ms = time_ms(call)
+        dev_ms, _ = device_ms(call, WRAPPER_KERNELS["flash_fwd"])
         plain_ms = time_ms(lambda: flash_fwd_ref(q, k, v, causal=True,
                                                  window=8192))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True, enable_gqa=True))
         item = torch.finfo(dtype).bits // 8
         nbytes = (2 * h + 2 * kv) * s * d * item + h * s * 4
-        bound_ms, bound_by = bound(nbytes, 4.0 * h * d * s * (s + 1) / 2, dt)
+        bound_ms, bound_by = bound(nbytes, 4.0 * h * d * s * (s + 1) / 2, dt,
+                                   flash_peak(dt))
         plan = tuple(fa_ops.fwd_plan(h, s, s, d, dtype))
         recs[dt] = {"shape": f"prefill bh={h} kv={kv} s={s} d={d} causal "
                              f"window=8192 {dt}", "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "plan": plan}
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "plan": plan}
         print(f"flash_fwd {recs[dt]['shape']}: plan {plan}; err out "
               f"{err_out:.3g} (tol {FLASH_TOL[dt]}) lse {err_lse:.3g} (tol "
-              f"{FLASH_TOL['float32']}); kernel {ms:.4f} ms, plain "
+              f"{FLASH_TOL['float32']}); kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     return recs
@@ -2160,7 +2218,7 @@ def main() -> int:
     launches, cfg, params, tok = phase_main_path()
     per_call = phase_profile(cfg, params, tok)
     del params
-    phase_train_parity()
+    train_parity = phase_train_parity()
     train_launches, train_per_step, _ = phase_train_timed()
     train_per_call, busy = phase_train_profile()
     torch.cuda.empty_cache()
@@ -2218,9 +2276,12 @@ def main() -> int:
          "launches": launches[fa_ops.COUNTER.name],
          **{k: f_main[k] for k in timing},
          "shape": f_main["shape"], "max_abs_err_bf16": f_bf16,
+         **{k: f_main[k] for k in ("device_ms", "library_device_ms",
+                                   "plan")},
          "text_f32": {k: flash[("text", torch.float32)][k]
-                      for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")},
+                      for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                "library_device_ms", "bound_ms", "bound_by",
+                                "plan")},
          "bf16": [{k: r[k] for k in ("shape", "plan", *timing,
                                      "unrounded_err")}
                   for (_, dt), r in flash.items()
@@ -2228,6 +2289,8 @@ def main() -> int:
          "device_kernels_per_call": per_call[fa_ops.COUNTER.name],
          "train_launches": train_launches[fa_ops.COUNTER.name],
          "train_launches_per_step": train_per_step[fa_ops.COUNTER.name],
+         "f32_train_parity_launches": train_parity["launches"][
+             fa_ops.COUNTER.name],
          "decode_launches": dec_launches[fa_ops.COUNTER.name],
          "decode_launches_per_prefill": dec_per["flash_fwd_per_prefill"],
          "prefill_bf16": prefill_flash["bfloat16"],
@@ -2247,8 +2310,11 @@ def main() -> int:
          "device_kernels_per_call": per_call[topk_ops.COUNTER.name]},
         train_entry(fa_ops.BWD_COUNTER.name, FLASH_BWD_SOURCE,
                     FLASH_BWD_REPLACES, b_main, max_abs_err_bf16=b_bf16,
+                    **{k: b_main[k] for k in ("device_ms", "plan")},
+                    f32_train_parity_launches=train_parity["launches"][
+                        fa_ops.BWD_COUNTER.name],
                     text_f32={k: flash_bwd[("text", torch.float32)][k]
-                              for k in timing}),
+                              for k in (*timing, "device_ms", "plan")}),
         train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
                     c_fwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][0]["max_abs_err"]),

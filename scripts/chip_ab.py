@@ -1,6 +1,6 @@
 """Compare checkouts of the repository on one CUDA card, in turns.
 
-    python3 scripts/chip_ab.py [--train] [--kernels] TREE [TREE ...]
+    python3 scripts/chip_ab.py [--train] [--kernels] [--serve] TREE [TREE ...]
 
 Each TREE is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into an ignored directory, and ``.``). Give
@@ -16,16 +16,23 @@ own kernel build directory) and prints one line ``AB <tree> <json>``:
   ``decode_attention`` bf16 at Llama-3.2-1B's serving state (8 slots, 32
   heads over 8, d 64, a cache of 8192 with lengths 508-571) and at a full
   cache; ``similarity_topk`` f32 at b 16 × n 512 and b 64 × n 21841 (d 512,
-  k 5); ``flash_fwd`` and ``flash_bwd`` bf16
+  k 5); ``flash_fwd`` and ``flash_bwd`` bf16 and f32
   at one image microbatch (bh 3072, s 196) and one text microbatch
-  (bh 4096, s 16, padded), ``flash_fwd`` bf16 also at the Llama prefill
-  (bh 32 over 8 kv heads, s 512, causal); ``bwd_fused`` at B 2048 × D 512
+  (bh 4096, s 16, padded), ``flash_fwd`` bf16 and f32 also at the Llama
+  prefill (bh 32 over 8 kv heads, s 512, causal, window 8192), and f32 at
+  the zero-shot serving shapes (image bh 192, s 196; text bh 1024, s 16,
+  padded), with the forward's device time per call from ``torch.profiler``
+  as well; ``bwd_fused`` at B 2048 × D 512
   (f32 and bf16) and ragged B 1000, ``grads`` at B 2048 × D 1024 and
   B 8192 × D 256 / 1024 (f32); ``row_col_lse`` at B 2048 and 8192 × D 1024
   (f32);
 - ``--train``: ``repro_torch.launch.train.main`` with ``chip_smoke.py``'s
   timed-training arguments (BASIC-S bf16, B 2048 in 8 microbatches, 6
-  steps): warm step median, pairs/s, peak memory, step times.
+  steps): warm step median, pairs/s, peak memory, step times;
+- ``--serve``: ``repro_torch.launch.serve_zeroshot.main`` with the
+  arguments of ``chip_smoke.py``'s zero-shot serving phase (BASIC-S f32,
+  512 classes, 8 requests of 16 images, k 5, seed 0): warm p50 and max
+  latency (ms), img/s and each request's latency.
 
 Needs a card; exits non-zero without one.
 """
@@ -57,24 +64,30 @@ def device_ms(fn, iters=20):
     # per kernel name: mean duration x launches per call (rounded); the
     # tracing starts one step early (a warm-up step on a small op), so that
     # its start-up cannot miss the first calls' records
+    # (a window whose records the tracer lost is retaken, twice at most)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        torch.zeros(1, device=dev).add_(1)
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
     by_name = {}
-    for e in prof.events():
-        if (str(getattr(e, "device_type", "")).endswith("CUDA")
-                and not e.name.startswith("ProfilerStep")):
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        for e in prof.events():
+            if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and not e.name.startswith("ProfilerStep")):
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        if by_name:
+            break
+    if not by_name:   # not measured (NaN): the tracer kept losing it
+        return float("nan")
     return sum(us / n * max(1, round(n / iters))
                for us, n in by_name.values()) / 1e3
 
@@ -103,39 +116,50 @@ for b, n in ((16, 512), (64, 21841)):
            ).abs().max().item()
     out[f"similarity_topk b{b} n{n} float32"] = [round(time_ms(f), 4), err,
                                                  round(device_ms(f), 4)]
-for label, b, h, s, padded in (("image", 256, 12, 196, False),
-                               ("text", 256, 16, 16, True)):
-    g = torch.Generator(device=dev).manual_seed(11)
-    q, k, v, do = (torch.randn((b * h, s, 64), generator=g, device=dev)
-                   .to(torch.bfloat16) for _ in range(4))
-    bias = None
-    if padded:
-        lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
-        bias = torch.where(torch.arange(s, device=dev)[None, :]
-                           < lens[:, None], 0.0, NEG_INF).float()
-    o, lse = flash_fwd_ref(q, k, v, bias, causal=False)
-    got = fa.flash_fwd(q, k, v, bias, causal=False)
-    err = max((x.float() - r.float()).abs().max().item()
-              for x, r in zip(got, (o, lse)))
-    ms = time_ms(lambda: fa.flash_fwd(q, k, v, bias, causal=False))
-    out[f"flash_fwd {label} bf16"] = [round(ms, 4), err]
-    args = (q, k, v, bias, o, lse, do)
-    got = fa.flash_bwd(*args, causal=False)
-    want = flash_bwd_ref(*args, causal=False)
+for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+    # [event ms, max abs err vs plain, forward: device ms per call]
+    for label, b, h, s, padded, bwd in (
+            ("image", 256, 12, 196, False, True),
+            ("text", 256, 16, 16, True, True),
+            ("image serving", 16, 12, 196, False, False),
+            ("text serving", 64, 16, 16, True, False)):
+        if not bwd and dt == torch.bfloat16:
+            continue
+        g = torch.Generator(device=dev).manual_seed(11)
+        q, k, v, do = (torch.randn((b * h, s, 64), generator=g, device=dev)
+                       .to(dt) for _ in range(4))
+        bias = None
+        if padded:
+            lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
+            bias = torch.where(torch.arange(s, device=dev)[None, :]
+                               < lens[:, None], 0.0, NEG_INF).float()
+        o, lse = flash_fwd_ref(q, k, v, bias, causal=False)
+        got = fa.flash_fwd(q, k, v, bias, causal=False)
+        err = max((x.float() - r.float()).abs().max().item()
+                  for x, r in zip(got, (o, lse)))
+        f = lambda: fa.flash_fwd(q, k, v, bias, causal=False)
+        out[f"flash_fwd {label} {tag}"] = [round(time_ms(f), 4), err,
+                                           round(device_ms(f), 4)]
+        if not bwd:
+            continue
+        args = (q, k, v, bias, o, lse, do)
+        got = fa.flash_bwd(*args, causal=False)
+        want = flash_bwd_ref(*args, causal=False)
+        err = max((x.float() - r.float()).abs().max().item()
+                  for x, r in zip(got, want))
+        ms = time_ms(lambda: fa.flash_bwd(*args, causal=False))
+        out[f"flash_bwd {label} {tag}"] = [round(ms, 4), err]
+    g = torch.Generator(device=dev).manual_seed(50)
+    q = torch.randn((32, 512, 64), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((8, 512, 64), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    want = flash_fwd_ref(q, k, v, causal=True, window=8192)
+    got = fa.flash_fwd(q, k, v, causal=True, window=8192)
     err = max((x.float() - r.float()).abs().max().item()
               for x, r in zip(got, want))
-    ms = time_ms(lambda: fa.flash_bwd(*args, causal=False))
-    out[f"flash_bwd {label} bf16"] = [round(ms, 4), err]
-g = torch.Generator(device=dev).manual_seed(50)
-q = torch.randn((32, 512, 64), generator=g, device=dev).to(torch.bfloat16)
-k, v = (torch.randn((8, 512, 64), generator=g, device=dev)
-        .to(torch.bfloat16) for _ in range(2))
-want = flash_fwd_ref(q, k, v, causal=True, window=8192)
-got = fa.flash_fwd(q, k, v, causal=True, window=8192)
-err = max((x.float() - r.float()).abs().max().item()
-          for x, r in zip(got, want))
-ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=True, window=8192))
-out["flash_fwd prefill bf16"] = [round(ms, 4), err]
+    f = lambda: fa.flash_fwd(q, k, v, causal=True, window=8192)
+    out[f"flash_fwd prefill {tag}"] = [round(time_ms(f), 4), err,
+                                       round(device_ms(f), 4)]
 for b in (2048, 8192):
     g = torch.Generator(device=dev).manual_seed(b + 1024)
     x, y = (unit_rows(b, 1024, g, torch.float32) for _ in range(2))
@@ -178,6 +202,19 @@ print("RESULT", json.dumps({k: rep[k] for k in (
 '''
 
 
+SERVE = r'''
+import json
+from repro_torch.launch import serve_zeroshot
+rep = serve_zeroshot.main(["--arch", "basic-s", "--classes", "512",
+                           "--batch", "16", "--requests", "8", "--k", "5",
+                           "--seed", "0"])
+print("RESULT", json.dumps({
+    "p50_ms": rep["p50_s"] * 1e3, "max_ms": rep["max_s"] * 1e3,
+    "img_per_s": rep["img_per_s"],
+    "latencies_ms": [x * 1e3 for x in rep["latencies_s"]]}))
+'''
+
+
 def run(tree: str, code: str) -> dict:
     """Run ``code`` in a fresh process inside ``tree``; its RESULT line."""
     env = dict(os.environ)
@@ -198,6 +235,7 @@ def main(argv=None) -> int:
     p.add_argument("trees", nargs="+")
     p.add_argument("--train", action="store_true")
     p.add_argument("--kernels", action="store_true")
+    p.add_argument("--serve", action="store_true")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -207,7 +245,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    for what, code in (("kernels", KERNELS), ("train", TRAIN)):
+    for what, code in (("kernels", KERNELS), ("train", TRAIN),
+                       ("serve", SERVE)):
         if not getattr(args, what):
             continue
         for tree in args.trees:

@@ -16,58 +16,68 @@
 // that is far above the card's flops-per-byte line, so the products must
 // run on the tensor cores, and the work must not be done twice.
 //
-// bf16 inputs (the training path) take the tensor-core design:
+// Both dtypes take one design:
 //   delta  one warp per query row: delta = rowsum(dout·out) in fp32;
 //   main   one CTA per (kv row, block of 16·W keys), W warps, each warp
-//          owning 16 keys. k and v of the block stay in shared memory as
-//          bf16 for the whole CTA; 32-row q and dout tiles of every query
-//          head of the GQA group stream through a double-buffered ring of
-//          16-byte cp.async copies, the next tile loading while the current
-//          one is multiplied. Per tile each warp computes its sᵀ = k·qᵀ and
+//          owning 16 keys. k and v of the block stay in shared memory for
+//          the whole CTA; 32-row q and dout tiles of every query head of the
+//          GQA group stream through a double-buffered ring of 16-byte
+//          cp.async copies, the next tile loading while the current one is
+//          multiplied. Per tile each warp computes its sᵀ = k·qᵀ and
 //          dpᵀ = v·doutᵀ (16 × 32, fp32 accumulators), turns them into pᵀ
-//          and dsᵀ in registers, rounds them to bf16 and feeds them straight
-//          back as the A operands of dv += pᵀ·dout and dk += dsᵀ·q; dsᵀ also
-//          goes to shared memory, where all warps then compute the tile's
-//          dq = ds·k. Every product is mma.sync.m16n8k16 bf16 -> fp32 fed by
-//          ldmatrix from rows padded by 16 bytes against bank conflicts; the
-//          d^-1/2 scale is applied to the fp32 scores and to the dk and dq
-//          accumulators. Each product runs once: nothing is recomputed.
-//          With t <= 16·W (the towers: W 16 at d 64, so t <= 256) the block
-//          holds every key and writes dq itself; longer t splits the keys
-//          over CTAs, each writing an fp32 dq partial, and
+//          and dsᵀ in registers and feeds them straight back as the A
+//          operands of dv += pᵀ·dout and dk += dsᵀ·q; dsᵀ also goes to
+//          shared memory, where all warps then compute the tile's dq = ds·k.
+//          The d^-1/2 scale is applied to the fp32 scores and to the dk and
+//          dq accumulators. Each product runs once: five in all, nothing
+//          recomputed. When one block holds every key it writes dq itself;
+//          longer t splits the keys over CTAs, each writing an fp32 dq
+//          partial, and
 //   dq_sum sums the partials in key-block order (only rows a block can
-//          reach), scales and rounds them.
+//          reach), scales them and writes dq in the input dtype.
 // No atomics anywhere, so every run gives the same bits; masked-out q tiles
 // are skipped, and the ragged tail is zero-filled as it is staged.
-// p and ds are rounded to bf16 where they become mma operands, as the plain
-// version does for bf16 inputs.
 //
-// f32 inputs keep the SIMT design (TF32 would not hold the f32 limit):
-//   dq     one CTA per (head, 64 query rows) keeps q, dout and the fp32 dq
-//          accumulator on chip for the whole sweep over 64-key tiles;
-//   dkv    one CTA per (kv row, 64 keys) keeps k, v and the fp32 dk and dv
-//          accumulators on chip while it sweeps the query tiles of every
-//          query head of its GQA group, the in-kernel counterpart of the
-//          reference's repeat of k and v (whose VJP sums over the group).
-// Each thread owns 4 rows by 8 columns of a score tile; the row statistics
-// come from lse and delta, so no reduction runs inside the tile loop.
-// Shared-memory rows are padded by one word against bank conflicts, and
-// tiles wholly outside a causal or windowed mask are skipped. The ragged
-// tail (s = 196) is masked rather than required to divide a block: rows >= s
-// and key columns >= t are zero-filled as they are staged, their p is
-// forced to 0, lse and delta are never read past s and nothing is written
-// past s or t. Every accumulation is fp32.
+// bf16 inputs (the training path): mma.sync.m16n8k16 bf16 -> fp32 fed by
+// ldmatrix from rows padded by 16 bytes against bank conflicts; p and ds
+// are rounded to bf16 where they become mma operands, as the plain version
+// does for bf16 inputs. W = 4 when t <= 64, else 16 at d 64 (256 keys) and
+// 8 at d 128 (ops.bwd_plan).
+//
+// f32 inputs (--precision f32 training): every product is split 3×TF32 on
+// mma.sync.m16n8k8 tf32 (tc.cuh: each fp32 operand split into tf32 hi and
+// lo by cvt.rna, ah·bl + al·bh + ah·bh summed in fp32, small products
+// first), about 2^-21 of each product's size against 2^-24 for an fp32
+// FMA, inside the f32 limit (2e-4 on dq, dk, dv); plain TF32 would not hold
+// it. Operands stay fp32 in shared memory in rows of D + 4 floats (the
+// 32-bit fragment loads touch 32 banks). Once a q/dout tile lands, the
+// CTA's threads split it together (hi in place, lo beside it), so each of
+// its elements is split once per CTA, not once per warp and product; k and
+// v (A operands, a warp's own 16 rows) and k in dq = ds·k are split as
+// their fragments load, and dsᵀ is stored split, as tf32 hi and lo planes.
+// The C fragment gives a thread columns 2t and 2t + 1, the A fragment
+// wants t and t + 4, so where a C fragment becomes an A fragment (pᵀ, dsᵀ)
+// A's columns stand for the queries in that order and the B operand (dout,
+// q) is read in the same order, as are ds's keys and k's rows in
+// dq = ds·k, whose even and odd k-steps sum into separate accumulators.
+// The key block is t rounded up to 16 while the shared memory allows (208
+// keys at d 64, 96 at d 128: k and v of a whole tower head stay resident,
+// and the image tower's s = 196 costs 208 keys in 13 warps), else 208 / 96
+// with dq partials; q tiles are masked at the row, so s = 196 costs 7
+// tiles of 32 rows. p is exp(s·d^-1/2 + bias − lse) by expf, fp32 as the
+// plain version. What bounds it: the splits left (k, v and the dq
+// phase's k, split per warp) and the dq phase, where 8 of 13 warps work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <atomic>
 
 #include "tc.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBQ = 64;                 // query rows per tile
-constexpr int kBK = 64;                 // keys per tile
+constexpr int kThreads = 128;           // delta kernel: 4 rows per CTA
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -77,29 +87,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-
-// Whether query row qrow may attend key column kcol (the reference's
-// _tile_mask, with the ragged tail of both axes).
-__device__ __forceinline__ bool attends(int qrow, int kcol, int S, int Tk,
-                                        int causal, int window) {
-  bool ok = qrow < S && kcol < Tk;
-  if (causal) ok = ok && kcol <= qrow;
-  if (window > 0) ok = ok && (qrow - kcol) < window;
-  return ok;
-}
-
-// Stage rows [r0, r0 + 64) of a (rows, D) slab into fp32 shared memory
-// with row stride D + 1, times `mul`; rows >= n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
-                                      int n, float mul) {
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
-    const int row = e / D, col = e % D;
-    const int g = r0 + row;
-    dst[row * (D + 1) + col] =
-        g < n ? to_f32(src[(size_t)g * D + col]) * mul : 0.f;
-  }
 }
 
 // delta[row] = sum_d dout[row, d] * out[row, d], one warp per row.
@@ -121,330 +108,6 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Qs, dOs [BQ][D+1]; Ks, Vs [BK][D+1]; Ps [BQ][BK+1]
-  return sizeof(float) *
-         (size_t)(2 * kBQ * (D + 1) + 2 * kBK * (D + 1) + kBQ * (kBK + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ bias,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int Tk, int group, int bias_group, int causal,
-                    int window, float scale) {
-  constexpr int RM = kBQ / 16;  // query rows per thread: r + 16 i
-  constexpr int CN = kBK / 8;   // key columns per thread: c + 8 j
-  constexpr int DN = D / 8;     // dq columns per thread: c + 8 j
-  constexpr int QS = D + 1;
-  constexpr int PS = kBK + 1;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBQ * QS;
-  float* Ks = dOs + kBQ * QS;
-  float* Vs = Ks + kBK * QS;
-  float* Ps = Vs + kBK * QS;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;
-  const int c = tid & 7;
-
-  const T* kb = k + (size_t)(bh / group) * Tk * D;
-  const T* vb = v + (size_t)(bh / group) * Tk * D;
-  const float* brow =
-      bias != nullptr ? bias + (size_t)(bh / bias_group) * Tk : nullptr;
-
-  stage<T, D>(Qs, q + (size_t)bh * S * D, q0, S, scale);
-  stage<T, D>(dOs, dout + (size_t)bh * S * D, q0, S, 1.f);
-
-  float row_lse[RM], row_delta[RM], acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qrow = q0 + r + 16 * i;
-    row_lse[i] = qrow < S ? lse[(size_t)bh * S + qrow] : 0.f;
-    row_delta[i] = qrow < S ? delta[(size_t)bh * S + qrow] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-  }
-
-  int kt_lo = 0;
-  int kt_hi = (Tk + kBK - 1) / kBK;
-  if (causal) kt_hi = min(kt_hi, (min(q0 + kBQ, S) - 1) / kBK + 1);
-  if (window > 0) kt_lo = max(0, (q0 - window + 1) / kBK);
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(Ks, kb, k0, Tk, 1.f);
-    stage<T, D>(Vs, vb, k0, Tk, 1.f);
-    __syncthreads();
-
-    // p = exp(q·kᵀ + bias − lse) on the valid entries, 0 elsewhere
-    float p[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) p[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = Qs[(r + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = Ks[(c + 8 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) p[i][j] = fmaf(qv[i], kv[j], p[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int kcol = k0 + c + 8 * j;
-      const float bj = (brow != nullptr && kcol < Tk) ? brow[kcol] : 0.f;
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int qrow = q0 + r + 16 * i;
-        p[i][j] = attends(qrow, kcol, S, Tk, causal, window)
-                      ? expf(p[i][j] + bj - row_lse[i])
-                      : 0.f;
-      }
-    }
-
-    // ds = p·(dout·vᵀ − delta), staged for the ds·k product
-    float dp[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float gv[RM], vv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) gv[i] = dOs[(r + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) vv[j] = Vs[(c + 8 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        Ps[(r + 16 * i) * PS + c + 8 * j] =
-            p[i][j] * (dp[i][j] - row_delta[i]);
-    __syncwarp();  // a row of ds is written and read by the same 8 lanes
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float sv[RM], kv[DN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) sv[i] = Ps[(r + 16 * i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) kv[j] = Ks[kk * QS + c + 8 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qrow = q0 + r + 16 * i;
-    if (qrow < S) {
-      T* drow = dq + ((size_t)bh * S + qrow) * D;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) store(drow + c + 8 * j, acc[i][j] * scale);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // Ks, Vs [BK][D+1]; Qs, dOs [BQ][D+1]; Pt, dSt [BK][BQ+1];
-  // lse, delta [BQ]; bias [BK]
-  return sizeof(float) * (size_t)(2 * kBK * (D + 1) + 2 * kBQ * (D + 1) +
-                                  2 * kBK * (kBQ + 1) + 2 * kBQ + kBK);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int Tk, int group,
-                     int bias_group, int causal, int window, float scale) {
-  constexpr int RM = kBK / 16;  // key rows per thread: r + 16 i
-  constexpr int CN = kBQ / 8;   // query columns per thread: c + 8 j
-  constexpr int DN = D / 8;     // dk/dv columns per thread: c + 8 j
-  constexpr int QS = D + 1;
-  constexpr int PS = kBQ + 1;
-
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBK * QS;
-  float* Qs = Vs + kBK * QS;
-  float* dOs = Qs + kBQ * QS;
-  float* Pt = dOs + kBQ * QS;
-  float* dSt = Pt + kBK * PS;
-  float* lse_s = dSt + kBK * PS;
-  float* delta_s = lse_s + kBQ;
-  float* bias_s = delta_s + kBQ;
-
-  const int kvr = blockIdx.x;
-  const int k0 = blockIdx.y * kBK;
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;
-  const int c = tid & 7;
-
-  stage<T, D>(Ks, k + (size_t)kvr * Tk * D, k0, Tk, 1.f);
-  stage<T, D>(Vs, v + (size_t)kvr * Tk * D, k0, Tk, 1.f);
-
-  float acc_k[RM][DN], acc_v[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < DN; ++j) {
-      acc_k[i][j] = 0.f;
-      acc_v[i][j] = 0.f;
-    }
-
-  const int nq = (S + kBQ - 1) / kBQ;
-  int qt_lo = 0;
-  int qt_hi = nq;
-  if (causal) qt_lo = min(nq, k0 / kBQ);
-  if (window > 0) qt_hi = min(nq, (k0 + kBK - 1 + window - 1) / kBQ + 1);
-
-  for (int g = 0; g < group; ++g) {
-    const int bh = kvr * group + g;
-    const T* qb = q + (size_t)bh * S * D;
-    const T* gb = dout + (size_t)bh * S * D;
-    const float* brow =
-        bias != nullptr ? bias + (size_t)(bh / bias_group) * Tk : nullptr;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the previous tile's readers are done
-      stage<T, D>(Qs, qb, q0, S, scale);
-      stage<T, D>(dOs, gb, q0, S, 1.f);
-      if (tid < kBQ) {
-        const int qrow = q0 + tid;
-        lse_s[tid] = qrow < S ? lse[(size_t)bh * S + qrow] : 0.f;
-        delta_s[tid] = qrow < S ? delta[(size_t)bh * S + qrow] : 0.f;
-      } else {
-        const int kcol = k0 + tid - kBQ;
-        bias_s[tid - kBQ] =
-            (brow != nullptr && kcol < Tk) ? brow[kcol] : 0.f;
-      }
-      __syncthreads();
-
-      // pᵀ = exp(k·qᵀ + bias − lse) on the valid entries, 0 elsewhere
-      float st[RM][CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) st[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[RM], qv[CN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) kv[i] = Ks[(r + 16 * i) * QS + d];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) qv[j] = Qs[(c + 8 * j) * QS + d];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < CN; ++j) st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int kcol = k0 + r + 16 * i;
-        const float bi = bias_s[r + 16 * i];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          const int qrow = q0 + c + 8 * j;
-          Pt[(r + 16 * i) * PS + c + 8 * j] =
-              attends(qrow, kcol, S, Tk, causal, window)
-                  ? expf(st[i][j] + bi - lse_s[c + 8 * j])
-                  : 0.f;
-        }
-      }
-
-      // dsᵀ = pᵀ·(v·doutᵀ − delta)
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) st[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float vv[RM], gv[CN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) vv[i] = Vs[(r + 16 * i) * QS + d];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) gv[j] = dOs[(c + 8 * j) * QS + d];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < CN; ++j) st[i][j] = fmaf(vv[i], gv[j], st[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          const int e = (r + 16 * i) * PS + c + 8 * j;
-          dSt[e] = Pt[e] * (st[i][j] - delta_s[c + 8 * j]);
-        }
-      __syncwarp();  // rows of pᵀ and dsᵀ are written and read by 8 lanes
-
-      // dv += pᵀ·dout, dk += dsᵀ·q (q is pre-scaled, so this IS dk)
-#pragma unroll 2
-      for (int qq = 0; qq < kBQ; ++qq) {
-        float pv[RM], sv[RM], gv[DN], qv[DN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          pv[i] = Pt[(r + 16 * i) * PS + qq];
-          sv[i] = dSt[(r + 16 * i) * PS + qq];
-        }
-#pragma unroll
-        for (int j = 0; j < DN; ++j) {
-          gv[j] = dOs[qq * QS + c + 8 * j];
-          qv[j] = Qs[qq * QS + c + 8 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < DN; ++j) {
-            acc_v[i][j] = fmaf(pv[i], gv[j], acc_v[i][j]);
-            acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int krow = k0 + r + 16 * i;
-    if (krow < Tk) {
-      T* krow_p = dk + ((size_t)kvr * Tk + krow) * D;
-      T* vrow_p = dv + ((size_t)kvr * Tk + krow) * D;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        store(krow_p + c + 8 * j, acc_k[i][j]);
-        store(vrow_p + c + 8 * j, acc_v[i][j]);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core backward
@@ -764,11 +427,12 @@ flash_bwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // dq = d^-1/2 · the sum, in key-block order, of the partials of the key
-// blocks that hold a key the row attends; one thread per element.
-template <int D>
+// blocks that hold a key the row attends, in dq's dtype T; one thread per
+// element. Shared by the bf16 and f32 designs.
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_sum_kernel(const float* __restrict__ part,
-                        __nv_bfloat16* __restrict__ dq, int rows, int S,
+                        T* __restrict__ dq, int rows, int S,
                         int Tk, int bk, int nkb, int causal, int window,
                         float scale) {
   const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
@@ -781,7 +445,7 @@ flash_bwd_dq_sum_kernel(const float* __restrict__ part,
   if (lo <= hi)
     for (int b = lo / bk; b <= hi / bk && b < nkb; ++b)
       acc += part[(size_t)b * rows * D + idx];
-  dq[idx] = __float2bfloat16(acc * scale);
+  store(dq + idx, acc * scale);
 }
 
 template <int D, int W>
@@ -789,11 +453,13 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* bias, const void* out, const void* dout,
                       const void* lse, void* delta, void* dq, void* dk,
                       void* dv, void* dq_part, int bh, int s, int t,
-                      int group, int bias_group, int causal, int window,
-                      float scale, cudaStream_t stream) {
+                      int smem, int group, int bias_group, int causal,
+                      int window, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const int nkb = (t + 16 * W - 1) / (16 * W);
-  if (nkb > 1 && dq_part == nullptr) return cudaErrorInvalidValue;
+  if ((nkb > 1 && dq_part == nullptr) ||
+      (size_t)smem != TcLayout<D, W>::bytes)
+    return cudaErrorInvalidValue;
   const int rows = bh * s;
   const int rows_per_cta = kThreads / 32;
   flash_bwd_delta_kernel<bf16, D>
@@ -803,7 +469,6 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem = TcLayout<D, W>::bytes;
   auto kernel = flash_bwd_tc_kernel<D, W>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -820,59 +485,417 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess || nkb == 1) return err;
   const size_t n = (size_t)rows * D;
-  flash_bwd_dq_sum_kernel<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(dq_part), static_cast<bf16*>(dq), rows, s, t,
-      16 * W, nkb, causal, window, scale);
+  flash_bwd_dq_sum_kernel<bf16, D>
+      <<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+          static_cast<const float*>(dq_part), static_cast<bf16*>(dq), rows, s,
+          t, 16 * W, nkb, causal, window, scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// f32: the SIMT kernels' launcher
+// f32: the split 3×TF32 tensor-core backward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, const void* out, const void* dout,
-                   const void* lse, void* delta, void* dq, void* dk,
-                   void* dv, int bh, int s, int t, int group, int bias_group,
-                   int causal, int window, float scale,
-                   cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* g_ = static_cast<const T*>(dout);
-  const float* b_ = static_cast<const float*>(bias);
-  const float* l_ = static_cast<const float*>(lse);
-  float* d_ = static_cast<float*>(delta);
+constexpr int kF32BQ = 32;       // query rows per streamed tile
 
+// Shared-memory layout of the f32 main kernel, fp32 rows of D + 4 (the
+// 32-bit fragment loads touch 32 banks): k, v [BK]; q, dout [2 stages][BQ]
+// (a landed tile is split in place: its tf32 hi there, its lo in the next
+// plane); the lo of q and dout [2][BQ]; dsᵀ as tf32 hi and lo planes
+// [BK][BQ + 4]; lse, delta [2][BQ] and bias [BK]. BK = 16·W keys, W at
+// most kMaxW: the largest block that fits one CTA (kSmemLimit), 208 keys
+// at d 64 and 96 at d 128.
+template <int D>
+struct F32Bwd {
+  static constexpr int kMaxW = D == 64 ? 13 : 6;
+  static constexpr int LD = D + 4;
+  static constexpr int LDS = kF32BQ + 4;
+  static constexpr size_t bytes(int bk) {
+    return sizeof(float) * (2 * (size_t)bk * LD + 6 * (size_t)kF32BQ * LD +
+                            2 * (size_t)bk * LDS + 4 * kF32BQ + bk);
+  }
+};
+constexpr size_t kSmemLimit = 232448;   // what one CTA may hold (227 KB)
+static_assert(F32Bwd<64>::bytes(16 * F32Bwd<64>::kMaxW) <= kSmemLimit &&
+                  F32Bwd<64>::bytes(16 * F32Bwd<64>::kMaxW + 16) > kSmemLimit,
+              "kMaxW at d 64 is the largest block that fits");
+static_assert(F32Bwd<128>::bytes(16 * F32Bwd<128>::kMaxW) <= kSmemLimit &&
+                  F32Bwd<128>::bytes(16 * F32Bwd<128>::kMaxW + 16) >
+                      kSmemLimit,
+              "kMaxW at d 128 is the largest block that fits");
+
+template <int D>
+__global__ void __launch_bounds__(32 * F32Bwd<D>::kMaxW, 1)
+flash_bwd_3xtf32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, float* __restrict__ dk,
+                        float* __restrict__ dv, float* __restrict__ dq_part,
+                        int S, int Tk, int group, int bias_group, int causal,
+                        int window, float scale) {
+  using L = F32Bwd<D>;
+  constexpr int BQ = kF32BQ;
+  constexpr int LD = L::LD;
+  constexpr int LDS = L::LDS;
+  constexpr int DN = D / 8;        // n-tiles of d; k-steps of sᵀ and dpᵀ
+  constexpr int QN = BQ / 8;       // n-tiles of a q tile; k-steps of dv, dk
+  constexpr int DQ_UNITS = (BQ / 16) * (DN / 2);   // 16 rows × 16 columns
+  const int W = blockDim.x >> 5;
+  const int BK = 16 * W;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // [BK][LD]
+  float* Vs = Ks + (size_t)BK * LD;                 // [BK][LD]
+  float* Qs = Vs + (size_t)BK * LD;                 // [2][BQ][LD]
+  float* dOs = Qs + 2 * BQ * LD;                    // [2][BQ][LD]
+  unsigned* QDl = reinterpret_cast<unsigned*>(dOs + 2 * BQ * LD);
+  const unsigned* Ql = QDl;                         // [BQ][LD] lo of q
+  const unsigned* dOl = QDl + BQ * LD;              // [BQ][LD] lo of dout
+  unsigned* dSh = QDl + 2 * BQ * LD;
+  unsigned* dSl = dSh + (size_t)BK * LDS;           // [BK][LDS] each
+  float* lse_s = reinterpret_cast<float*>(dSl + (size_t)BK * LDS);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                                  // [2][BQ]
+  float* bias_s = delta_s + 2 * BQ;                                 // [BK]
+
+  const int kvr = blockIdx.x;
+  const int kb = blockIdx.y;
+  const int k0 = kb * BK;
+  const int nk = min(BK, Tk - k0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;     // mma group id: fragment row
+  const int tq = lane & 3;      // thread in group: fragment column
+  const int kw0 = 16 * warp;    // this warp's first key (block-local)
+  const bool active = kw0 < nk;
+  const bool split = gridDim.y > 1;
+
+  stage_rows_f32<D>(Ks, k + (size_t)kvr * Tk * D, k0, BK, Tk);
+  stage_rows_f32<D>(Vs, v + (size_t)kvr * Tk * D, k0, BK, Tk);
+  cp_async_commit();
+
+  // the q tiles this key block can reach
+  const int nq = (S + BQ - 1) / BQ;
+  int qt_lo = 0, qt_hi = nq;
+  if (causal) qt_lo = min(nq, k0 / BQ);
+  if (window > 0) qt_hi = min(nq, (k0 + nk - 2 + window) / BQ + 1);
+  const int per_head = max(0, qt_hi - qt_lo);
+  const int items = group * per_head;
+
+  auto prefetch = [&](int item, int st) {
+    const int bh = kvr * group + item / per_head;
+    const int q0 = (qt_lo + item % per_head) * BQ;
+    stage_rows_f32<D>(Qs + st * BQ * LD, q + (size_t)bh * S * D, q0, BQ, S);
+    stage_rows_f32<D>(dOs + st * BQ * LD, dout + (size_t)bh * S * D, q0, BQ,
+                      S);
+    cp_async_commit();
+    if (tid < BQ) {
+      const int qrow = q0 + tid;
+      lse_s[st * BQ + tid] = qrow < S ? lse[(size_t)bh * S + qrow] : 0.f;
+      delta_s[st * BQ + tid] = qrow < S ? delta[(size_t)bh * S + qrow] : 0.f;
+    }
+  };
+
+  float acc_dk[DN][4], acc_dv[DN][4];
+#pragma unroll
+  for (int j = 0; j < DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+
+  if (items > 0) prefetch(0, 0);
+
+  for (int item = 0; item < items; ++item) {
+    const int st = item & 1;
+    const int bh = kvr * group + item / per_head;
+    const int q0 = (qt_lo + item % per_head) * BQ;
+    if (item % per_head == 0) {
+      // a new query head: its bias row (the last tile's readers finished
+      // at the barrier that ended it)
+      const float* brow =
+          bias != nullptr ? bias + (size_t)(bh / bias_group) * Tk : nullptr;
+      for (int e = tid; e < BK; e += blockDim.x) {
+        const int kcol = k0 + e;
+        bias_s[e] = (brow != nullptr && kcol < Tk) ? brow[kcol] : 0.f;
+      }
+    }
+    if (item + 1 < items) {
+      prefetch(item + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // this tile landed; the last tile's readers are done
+
+    // split q and dout once for every warp: tf32 hi in place, lo beside
+    for (int e = tid; e < 2 * BQ * (D / 4); e += blockDim.x) {
+      const int isd = e >= BQ * (D / 4);
+      const int r = (e / (D / 4)) % BQ, c = (e % (D / 4)) * 4;
+      float* x = (isd ? dOs : Qs) + (st * BQ + r) * LD + c;
+      const float4 f = *reinterpret_cast<const float4*>(x);
+      uint4 h, l;
+      split_tf32(f.x, h.x, l.x);
+      split_tf32(f.y, h.y, l.y);
+      split_tf32(f.z, h.z, l.z);
+      split_tf32(f.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(x) = h;
+      *reinterpret_cast<uint4*>(QDl + (isd * BQ + r) * LD + c) = l;
+    }
+    __syncthreads();
+
+    const unsigned* Qh = reinterpret_cast<const unsigned*>(Qs + st * BQ * LD);
+    const unsigned* dOh =
+        reinterpret_cast<const unsigned*>(dOs + st * BQ * LD);
+    const float* lse_t = lse_s + st * BQ;
+    const float* delta_t = delta_s + st * BQ;
+
+    if (active) {
+      // sᵀ = k·qᵀ and dpᵀ = v·doutᵀ for this warp's 16 keys × BQ queries;
+      // A holds rows g, g + 8 and columns t, t + 4 of each 8-wide k-step
+      float s_acc[QN][4], p_acc[QN][4];
+#pragma unroll
+      for (int j = 0; j < QN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_acc[j][e] = p_acc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DN; ++kk) {
+        const int ar = (kw0 + gq) * LD + kk * 8 + tq;
+        unsigned ah[4], al[4];
+        split_tf32(Ks[ar], ah[0], al[0]);
+        split_tf32(Ks[ar + 8 * LD], ah[1], al[1]);
+        split_tf32(Ks[ar + 4], ah[2], al[2]);
+        split_tf32(Ks[ar + 8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < QN; ++j) {
+          const int br = (8 * j + gq) * LD + kk * 8 + tq;
+          mma_3xtf32(s_acc[j], ah, al, Qh[br], Qh[br + 4], Ql[br],
+                     Ql[br + 4]);
+        }
+        split_tf32(Vs[ar], ah[0], al[0]);
+        split_tf32(Vs[ar + 8 * LD], ah[1], al[1]);
+        split_tf32(Vs[ar + 4], ah[2], al[2]);
+        split_tf32(Vs[ar + 8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < QN; ++j) {
+          const int br = (8 * j + gq) * LD + kk * 8 + tq;
+          mma_3xtf32(p_acc[j], ah, al, dOh[br], dOh[br + 4], dOl[br],
+                     dOl[br + 4]);
+        }
+      }
+
+      // pᵀ = exp(sᵀ·d^-1/2 + bias − lse) on the valid entries (0 elsewhere)
+      // and dsᵀ = pᵀ·(dpᵀ − delta), in place of sᵀ and dpᵀ; dsᵀ also goes
+      // to shared memory as tf32 hi and lo planes for dq = ds·k
+#pragma unroll
+      for (int j = 0; j < QN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = kw0 + gq + (e >> 1) * 8;
+          const int ql = 8 * j + 2 * tq + (e & 1);
+          const int kcol = k0 + kl, qrow = q0 + ql;
+          bool ok = qrow < S && kcol < Tk;
+          if (causal) ok = ok && kcol <= qrow;
+          if (window > 0) ok = ok && (qrow - kcol) < window;
+          const float pv =
+              ok ? expf(s_acc[j][e] * scale + bias_s[kl] - lse_t[ql]) : 0.f;
+          s_acc[j][e] = pv;
+          p_acc[j][e] = pv * (p_acc[j][e] - delta_t[ql]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint2 hi, lo;
+          split_tf32(p_acc[j][2 * h], hi.x, lo.x);
+          split_tf32(p_acc[j][2 * h + 1], hi.y, lo.y);
+          const int off = (kw0 + gq + 8 * h) * LDS + 8 * j + 2 * tq;
+          *reinterpret_cast<uint2*>(dSh + off) = hi;
+          *reinterpret_cast<uint2*>(dSl + off) = lo;
+        }
+      }
+
+      // dv += pᵀ·dout and dk += dsᵀ·q over the 8 queries of each n-tile.
+      // The C fragment gives this thread queries 2t and 2t + 1; A's columns
+      // t and t + 4 stand for them, and dout and q are read in that order
+#pragma unroll
+      for (int j = 0; j < QN; ++j) {
+        unsigned ph[4], pl[4], sh[4], sl[4];
+        split_tf32(s_acc[j][0], ph[0], pl[0]);   // key g,     query 2t
+        split_tf32(s_acc[j][2], ph[1], pl[1]);   // key g + 8, query 2t
+        split_tf32(s_acc[j][1], ph[2], pl[2]);   // key g,     query 2t + 1
+        split_tf32(s_acc[j][3], ph[3], pl[3]);   // key g + 8, query 2t + 1
+        split_tf32(p_acc[j][0], sh[0], sl[0]);
+        split_tf32(p_acc[j][2], sh[1], sl[1]);
+        split_tf32(p_acc[j][1], sh[2], sl[2]);
+        split_tf32(p_acc[j][3], sh[3], sl[3]);
+        const int br = (8 * j + 2 * tq) * LD + gq;
+#pragma unroll
+        for (int dn = 0; dn < DN; ++dn) {
+          const int b0 = br + dn * 8, b1 = br + LD + dn * 8;
+          mma_3xtf32(acc_dv[dn], ph, pl, dOh[b0], dOh[b1], dOl[b0],
+                     dOl[b1]);
+          mma_3xtf32(acc_dk[dn], sh, sl, Qh[b0], Qh[b1], Ql[b0], Ql[b1]);
+        }
+      }
+    }
+    __syncthreads();   // dsᵀ of every warp is in shared memory
+
+    // dq (BQ × D) = ds (BQ × nk) · k in units of 16 queries × 16 columns,
+    // the warps in turn; per 8-key k-step, A's columns t and t + 4 stand for
+    // keys 2t and 2t + 1, and k's B fragment is read in that order. Even and
+    // odd k-steps sum into their own accumulators (two chains of dependent
+    // products, not one), added at the end
+    const int ksteps = (nk + 7) / 8;
+    for (int u = warp; u < DQ_UNITS; u += W) {
+      const int mt = u % (BQ / 16);
+      const int c0 = (u / (BQ / 16)) * 16;
+      float acc[2][2][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][h][e] = 0.f;
+      auto kstep = [&](int ks, float (&a)[2][4]) {
+        const int ar = (8 * ks + 2 * tq) * LDS + mt * 16 + gq;
+        const unsigned ah[4] = {dSh[ar], dSh[ar + 8], dSh[ar + LDS],
+                                dSh[ar + LDS + 8]};
+        const unsigned al[4] = {dSl[ar], dSl[ar + 8], dSl[ar + LDS],
+                                dSl[ar + LDS + 8]};
+        const int br = (8 * ks + 2 * tq) * LD + c0 + gq;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned bh0, bl0, bh1, bl1;
+          split_tf32(Ks[br + 8 * h], bh0, bl0);
+          split_tf32(Ks[br + LD + 8 * h], bh1, bl1);
+          mma_3xtf32(a[h], ah, al, bh0, bh1, bl0, bl1);
+        }
+      };
+      int ks = 0;
+      for (; ks + 1 < ksteps; ks += 2) {
+        kstep(ks, acc[0]);
+        kstep(ks + 1, acc[1]);
+      }
+      if (ks < ksteps) kstep(ks, acc[0]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + 8 * h + 2 * tq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qrow = q0 + mt * 16 + gq + 8 * r;
+          if (qrow >= S) continue;
+          const float x0 = acc[0][h][2 * r] + acc[1][h][2 * r];
+          const float x1 = acc[0][h][2 * r + 1] + acc[1][h][2 * r + 1];
+          const size_t off = ((size_t)bh * S + qrow) * D + col;
+          if (split) {
+            *reinterpret_cast<float2*>(
+                dq_part + (size_t)kb * gridDim.x * group * S * D + off) =
+                make_float2(x0, x1);
+          } else {
+            *reinterpret_cast<float2*>(dq + off) =
+                make_float2(x0 * scale, x1 * scale);
+          }
+        }
+      }
+    }
+    __syncthreads();   // dsᵀ and this stage are free for the next tile
+  }
+  cp_async_wait<0>();
+
+  // a single key block writes every dq row: the rows of unreachable q
+  // tiles (no key of theirs is attended) are zero
+  if (!split) {
+    for (int qt = 0; qt < nq; ++qt) {
+      if (qt >= qt_lo && qt < qt_hi) continue;
+      for (int g = 0; g < group; ++g) {
+        const int bh = kvr * group + g;
+        for (int e = threadIdx.x; e < BQ * D; e += blockDim.x) {
+          const int qrow = qt * BQ + e / D;
+          if (qrow < S) dq[((size_t)bh * S + qrow) * D + e % D] = 0.f;
+        }
+      }
+    }
+  }
+
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      const int col = 8 * j + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int krow = k0 + kw0 + gq + 8 * h;
+        if (krow >= Tk) continue;
+        const size_t off = ((size_t)kvr * Tk + krow) * D + col;
+        *reinterpret_cast<float2*>(dk + off) =
+            make_float2(acc_dk[j][2 * h] * scale, acc_dk[j][2 * h + 1] * scale);
+        *reinterpret_cast<float2*>(dv + off) =
+            make_float2(acc_dv[j][2 * h], acc_dv[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// cudaFuncSetAttribute for the f32 main kernel's largest key block, once
+// per instantiation and device
+template <int D>
+cudaError_t allow_f32_smem() {
+  static std::atomic<unsigned> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (ready.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      flash_bwd_3xtf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)F32Bwd<D>::bytes(16 * F32Bwd<D>::kMaxW));
+  if (err == cudaSuccess) ready.fetch_or(bit);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* bias, const void* out, const void* dout,
+                       const void* lse, void* delta, void* dq, void* dk,
+                       void* dv, void* dq_part, int bh, int s, int t,
+                       int key_block, int smem, int group, int bias_group,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
+  using L = F32Bwd<D>;
+  const int warps = key_block / 16;
+  if (key_block % 16 != 0 || warps < 1 || warps > L::kMaxW ||
+      (size_t)smem != L::bytes(key_block))
+    return cudaErrorInvalidValue;
+  const int nkb = (t + key_block - 1) / key_block;
+  if (nkb > 65535 || (nkb > 1 && dq_part == nullptr))
+    return cudaErrorInvalidValue;
   const int rows = bh * s;
   const int rows_per_cta = kThreads / 32;
-  flash_bwd_delta_kernel<T, D>
+  flash_bwd_delta_kernel<float, D>
       <<<(rows + rows_per_cta - 1) / rows_per_cta, kThreads, 0, stream>>>(
-          static_cast<const T*>(out), g_, d_, rows);
+          static_cast<const float*>(out), static_cast<const float*>(dout),
+          static_cast<float*>(delta), rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t dq_smem = dq_smem_bytes<D>();
-  auto dq_kernel = flash_bwd_dq_kernel<T, D>;
-  err = cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
+  auto kernel = flash_bwd_3xtf32_kernel<D>;
+  err = allow_f32_smem<D>();
   if (err != cudaSuccess) return err;
-  dq_kernel<<<dim3(bh, (s + kBQ - 1) / kBQ), kThreads, dq_smem, stream>>>(
-          q_, k_, v_, b_, g_, l_, d_, static_cast<T*>(dq), s, t, group,
-          bias_group, causal, window, scale);
+  kernel<<<dim3(bh / group, nkb), 32 * warps, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(dq_part), s, t, group, bias_group, causal, window,
+      scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr size_t dkv_smem = dkv_smem_bytes<D>();
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, D>;
-  err = cudaFuncSetAttribute(
-      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem);
-  if (err != cudaSuccess) return err;
-  dkv_kernel<<<dim3(bh / group, (t + kBK - 1) / kBK), kThreads, dkv_smem,
-         stream>>>(q_, k_, v_, b_, g_, l_, d_, static_cast<T*>(dk),
-                   static_cast<T*>(dv), s, t, group, bias_group, causal,
-                   window, scale);
+  if (err != cudaSuccess || nkb == 1) return err;
+  const size_t n = (size_t)rows * D;
+  flash_bwd_dq_sum_kernel<float, D>
+      <<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+          static_cast<const float*>(dq_part), static_cast<float*>(dq), rows, s,
+          t, key_block, nkb, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -881,15 +904,16 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                         const void* bias, const void* out, const void* dout,
                         const void* lse, void* delta, void* dq, void* dk,
                         void* dv, void* dq_part, int bh, int s, int t, int d,
-                        int key_block, int group, int bias_group, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        int key_block, int smem, int group, int bias_group,
+                        int causal, int window, float scale,
+                        cudaStream_t stream) {
   if (key_block < 1 || (t + key_block - 1) / key_block > 65535)
     return cudaErrorInvalidValue;
 #define REPRO_TC(D, W)                                                      \
   if (d == D && key_block == 16 * W)                                        \
     return launch_tc<D, W>(q, k, v, bias, out, dout, lse, delta, dq, dk, dv, \
-                           dq_part, bh, s, t, group, bias_group, causal,     \
-                           window, scale, stream);
+                           dq_part, bh, s, t, smem, group, bias_group,       \
+                           causal, window, scale, stream);
   REPRO_TC(64, 4)
   REPRO_TC(64, 16)
   REPRO_TC(128, 4)
@@ -898,38 +922,45 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// f32 key blocks (16 keys per warp, at most 16 · F32Bwd<D>::kMaxW: 208 at
+// d 64 and 96 at d 128).
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          const void* bias, const void* out, const void* dout,
                          const void* lse, void* delta, void* dq, void* dk,
-                         void* dv, int bh, int s, int t, int d, int group,
-                         int bias_group, int causal, int window, float scale,
+                         void* dv, void* dq_part, int bh, int s, int t, int d,
+                         int key_block, int smem, int group, int bias_group,
+                         int causal, int window, float scale,
                          cudaStream_t stream) {
-  if (s > 65535 * kBQ || t > 65535 * kBK) return cudaErrorInvalidValue;
   if (d == 64)
-    return launch<float, 64>(q, k, v, bias, out, dout, lse, delta, dq, dk,
-                             dv, bh, s, t, group, bias_group, causal, window,
-                             scale, stream);
+    return launch_f32<64>(q, k, v, bias, out, dout, lse, delta, dq, dk, dv,
+                          dq_part, bh, s, t, key_block, smem, group,
+                          bias_group, causal, window, scale, stream);
   if (d == 128)
-    return launch<float, 128>(q, k, v, bias, out, dout, lse, delta, dq, dk,
-                              dv, bh, s, t, group, bias_group, causal, window,
-                              scale, stream);
+    return launch_f32<128>(q, k, v, bias, out, dout, lse, delta, dq, dk, dv,
+                           dq_part, bh, s, t, key_block, smem, group,
+                           bias_group, causal, window, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (SIMT kernels), 1 = bfloat16 (tensor cores). window
-// <= 0: no window. delta is a (bh, s) fp32 scratch the caller allocates.
-// bf16 only: key_block is the keys per CTA (64 or 256 at d 64, 64 or 128 at
-// d 128; ops.bwd_plan picks it), and dq_part an fp32 scratch of
+// dtype: 0 = float32 (split 3×TF32 tensor cores), 1 = bfloat16 (tensor
+// cores). window <= 0: no window. delta is a (bh, s) fp32 scratch the
+// caller allocates. key_block is the keys per CTA (ops.bwd_plan picks it:
+// bf16 64 or 256 at d 64, 64 or 128 at d 128; f32 a multiple of 16 up to
+// 208 at d 64, 96 at d 128), smem the main kernel's dynamic shared memory
+// for that block (ops.bwd_plan too), which must be the bytes of this file's
+// layout (TcLayout, F32Bwd): the launch takes the plan's bytes and refuses
+// any other, before launching anything. dq_part is an fp32 scratch of
 // ceil(t / key_block) * bh * s * d entries when t > key_block, else unused.
-// Returns the CUDA error code of the launches (0 on success).
+// q, k, v and dout must start 16-byte aligned. Returns the CUDA error code
+// of the launches (0 on success).
 extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                const void* bias, const void* out,
                                const void* dout, const void* lse,
                                void* delta, void* dq, void* dk, void* dv,
                                void* dq_part, int dtype, int bh, int s, int t,
-                               int d, int key_block, int group,
+                               int d, int key_block, int smem, int group,
                                int bias_group, int causal, int window,
                                float scale, void* stream) {
   if (bh < 1 || s < 1 || t < 1 || group < 1 || bias_group < 1 ||
@@ -938,11 +969,11 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch_f32(q, k, v, bias, out, dout, lse, delta, dq, dk,
-                             dv, bh, s, t, d, group, bias_group, causal,
-                             window, scale, st);
+                             dv, dq_part, bh, s, t, d, key_block, smem,
+                             group, bias_group, causal, window, scale, st);
   if (dtype == 1)
     return (int)dispatch_tc(q, k, v, bias, out, dout, lse, delta, dq, dk, dv,
-                            dq_part, bh, s, t, d, key_block, group,
+                            dq_part, bh, s, t, d, key_block, smem, group,
                             bias_group, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

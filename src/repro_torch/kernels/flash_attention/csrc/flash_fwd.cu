@@ -13,7 +13,10 @@
 // card's bf16 line (~295), so the bytes set the least time; but on the
 // fp32 FMA units the same flops would take five times as long, so the
 // products must run on the tensor cores, and q, k, v must be read once per
-// CTA. In fp32 (the 'f32' precision policy) the FMA units set the pace.
+// CTA. In fp32 (the 'f32' precision policy) the same flops on the FMA units
+// (67 TFLOP/s) take longer than the bytes (s/4 = 49 flops per byte), so
+// fp32 runs on the tensor cores too, as split 3×TF32 (below): 495 TFLOP/s
+// of tf32 make 165 of fp32-accurate work.
 //
 // bf16 inputs (the training and prefill paths) take the tensor-core
 // design: one CTA per (head, block of 16·W query rows), W warps (W = 4,
@@ -42,227 +45,52 @@
 // streams all of them, which is most of its time at the training
 // microbatch (PERF.md).
 //
-// f32 inputs keep the SIMT design (TF32 would not hold the f32 limits): one
-// CTA per (head, block of 64 query rows) keeps its q block, the running
-// max/sum and the fp32 accumulator on chip for the whole sweep over key
-// tiles staged in shared memory, so nothing of the (s, t) score matrix
-// reaches device memory and q, k, v are read from it once per CTA. Each
-// thread owns 4 query rows by 8 key columns of the score tile and the same
-// rows by d/8 output columns, so the row statistics never leave its
-// registers and the row reductions are three shuffles among 8 lanes.
+// f32 inputs (zero-shot serving, f32 training, the f32 prefills) take the
+// same grid on mma.sync.m16n8k8 tf32, each product in split 3×TF32: every
+// fp32 operand x becomes hi = rna(x) and lo = rna(x − hi) in tf32, and a·b
+// is ah·bl + al·bh + ah·bh summed in fp32, the small products first
+// (CUTLASS's OpMultiplyAddFastF32, the scheme PyTorch's own f32 attention
+// uses). That leaves about 2^-21 of each product against 2^-24 for an fp32
+// FMA: a few 1e-6 on a score at d 64, inside the f32 limits (5e-5 on out
+// and lse); plain TF32 (~2^-11) would not hold them. Each warp splits its
+// 16 q rows once, into A fragments held in registers. k and v tiles of 32
+// keys (t rounded up to 8 where shorter; ops.fwd_plan) arrive in fp32 by
+// 16-byte cp.async into a double-buffered ring, rows padded to D + 4
+// floats; once a tile lands, the CTA's threads split it together into
+// (hi, lo) pairs, so each element is split once per CTA rather than once
+// per warp, and the B fragments load as 64-bit pairs (k rows padded to
+// D + 4 pairs, v rows to D + 2: both fragment patterns then touch 32 banks
+// per half-warp). Keys go in 8-key n-tiles, so s = 196 costs 208 × 200,
+// not 256 × 256; the tile body is instantiated per count of live n-tiles,
+// so no runtime bound sits inside the products and the compiler
+// interleaves them (a loop guarded by the tile's key count was much
+// slower). p stays in
+// registers: the C fragment gives a thread keys 2t and 2t + 1, the A
+// fragment of p·v wants columns t and t + 4, so A's columns stand for the
+// keys in that order and v's B fragment is read in the same order; p is
+// split before p·v. The mask, the online softmax and lse stay fp32, and key
+// tiles outside a causal or windowed mask are skipped as in the bf16
+// kernel. What bounds it: not the tensor cores (a third of their mma.sync
+// rate at the image tower's shape) but the splits, the tile's staging and
+// the chains of dependent products (scripts/flash_fwd_anatomy.py --f32).
 //
 // Both designs, unlike the TPU kernel, mask the ragged tail (s = 196)
 // rather than require it to divide the block, never write rows >= s, and
 // let each query head read its kv head (row / group) in place of a repeat
-// of k and v; key tiles wholly outside a causal or windowed mask are
-// skipped. Every accumulation is fp32.
+// of k and v. Every accumulation is fp32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <atomic>
 
 #include "tc.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kBQ = 64;                 // query rows per CTA
-constexpr int kBK = 64;                 // keys per staged tile
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // Qs [BQ][D+1], Ks [BK][D+1], Vs [BK][D], Ps [BQ][BK+1]
-  return sizeof(float) * (size_t)(kBQ * (D + 1) + kBK * (D + 1) +
-                                  kBK * D + kBQ * (kBK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ out, float* __restrict__ lse, int S,
-                 int Tk, int group, int bias_group, int causal, int window,
-                 float scale) {
-  constexpr int RM = kBQ / 16;   // query rows per thread: r + 16 i
-  constexpr int CN = kBK / 8;   // score columns per thread: c + 8 j
-  constexpr int DN = D / 8;     // output columns per thread: c + 8 j
-  constexpr int QS = D + 1;     // padded strides: no bank conflicts
-  constexpr int PS = kBK + 1;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * QS;
-  float* Vs = Ks + kBK * QS;
-  float* Ps = Vs + kBK * D;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;
-  const int c = tid & 7;
-
-  const float* qb = q + (size_t)bh * S * D;
-  const float* kb = k + (size_t)(bh / group) * Tk * D;
-  const float* vb = v + (size_t)(bh / group) * Tk * D;
-  const float* brow =
-      bias != nullptr ? bias + (size_t)(bh / bias_group) * Tk : nullptr;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int row = e / D, col = e % D;
-    const int qrow = q0 + row;
-    Qs[row * QS + col] = qrow < S ? qb[(size_t)qrow * D + col] * scale : 0.f;
-  }
-
-  float m[RM], l[RM], acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-  }
-
-  int kt_lo = 0;
-  int kt_hi = (Tk + kBK - 1) / kBK;
-  if (causal) kt_hi = min(kt_hi, (min(q0 + kBQ, S) - 1) / kBK + 1);
-  if (window > 0) kt_lo = max(0, (q0 - window + 1) / kBK);
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int row = e / D, col = e % D;
-      const int krow = k0 + row;
-      const bool ok = krow < Tk;
-      Ks[row * QS + col] = ok ? kb[(size_t)krow * D + col] : 0.f;
-      Vs[row * D + col] = ok ? vb[(size_t)krow * D + col] : 0.f;
-    }
-    __syncthreads();
-
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = Qs[(r + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = Ks[(c + 8 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // bias, then the mask (the reference's order), then the online softmax
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int kcol = k0 + c + 8 * j;
-      const float bj = (brow != nullptr && kcol < Tk) ? brow[kcol] : 0.f;
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int qrow = q0 + r + 16 * i;
-        bool valid = kcol < Tk;
-        if (causal) valid = valid && kcol <= qrow;
-        if (window > 0) valid = valid && (qrow - kcol) < window;
-        s[i][j] = valid ? s[i][j] + bj : kNegInf;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int j = 1; j < CN; ++j) mx = fmaxf(mx, s[i][j]);
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        // columns past the last key are padding, not masked keys: weight 0
-        const float p =
-            (k0 + c + 8 * j) < Tk ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        rs += p;
-      }
-      rs += __shfl_xor_sync(kFull, rs, 1);
-      rs += __shfl_xor_sync(kFull, rs, 2);
-      rs += __shfl_xor_sync(kFull, rs, 4);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) Ps[(r + 16 * i) * PS + c + 8 * j] = s[i][j];
-    }
-    __syncwarp();  // a row of P is written and read by the same 8 lanes
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[RM], vv[DN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = Ps[(r + 16 * i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) vv[j] = Vs[kk * D + c + 8 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qrow = q0 + r + 16 * i;
-    if (qrow < S) {
-      const float lc = fmaxf(l[i], 1e-30f);
-      float* orow = out + ((size_t)bh * S + qrow) * D;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) orow[c + 8 * j] = acc[i][j] / lc;
-      if (c == 0) lse[(size_t)bh * S + qrow] = m[i] + logf(lc);
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* out, void* lse, int bh, int s,
-                   int t, int group, int bias_group, int causal, int window,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (s + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(out), static_cast<float*>(lse), s, t, group,
-      bias_group, causal, window, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
-                         const void* bias, void* out, void* lse, int bh,
-                         int s, int t, int d, int group, int bias_group,
-                         int causal, int window, float scale,
-                         cudaStream_t stream) {
-  if (s > 65535 * kBQ) return cudaErrorInvalidValue;
-  if (d == 64)
-    return launch<64>(q, k, v, bias, out, lse, bh, s, t, group, bias_group,
-                      causal, window, scale, stream);
-  if (d == 128)
-    return launch<128>(q, k, v, bias, out, lse, bh, s, t, group, bias_group,
-                       causal, window, scale, stream);
-  return cudaErrorInvalidValue;
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core forward
@@ -514,12 +342,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* bias, void* out, void* lse, int bh, int s,
-                      int t, int warps, int bk, int group, int bias_group,
-                      int causal, int window, float scale,
+                      int t, int warps, int bk, int smem, int group,
+                      int bias_group, int causal, int window, float scale,
                       cudaStream_t stream) {
   const int blocks = (s + 16 * warps - 1) / (16 * warps);
-  if (blocks > 65535) return cudaErrorInvalidValue;
-  const size_t smem = tc_smem_bytes<D>(warps, bk, t > bk ? 2 : 1);
+  if (blocks > 65535 ||
+      (size_t)smem != tc_smem_bytes<D>(warps, bk, t > bk ? 2 : 1))
+    return cudaErrorInvalidValue;
   auto kernel = flash_fwd_tc_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -534,43 +363,366 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 
 cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                         const void* bias, void* out, void* lse, int bh,
-                        int s, int t, int d, int warps, int bk, int group,
-                        int bias_group, int causal, int window, float scale,
-                        cudaStream_t stream) {
+                        int s, int t, int d, int warps, int bk, int smem,
+                        int group, int bias_group, int causal, int window,
+                        float scale, cudaStream_t stream) {
   if (warps < 1 || warps > kTcMaxW || bk < 16 || bk > kTcMaxBK ||
       bk % 16 != 0)
     return cudaErrorInvalidValue;
   if (d == 64)
-    return launch_tc<64>(q, k, v, bias, out, lse, bh, s, t, warps, bk, group,
-                         bias_group, causal, window, scale, stream);
+    return launch_tc<64>(q, k, v, bias, out, lse, bh, s, t, warps, bk, smem,
+                         group, bias_group, causal, window, scale, stream);
   if (d == 128)
     return launch_tc<128>(q, k, v, bias, out, lse, bh, s, t, warps, bk,
+                          smem, group, bias_group, causal, window, scale,
+                          stream);
+  return cudaErrorInvalidValue;
+}
+
+
+// ---------------------------------------------------------------------------
+// f32: the split 3×TF32 tensor-core forward
+// ---------------------------------------------------------------------------
+
+constexpr int kF32MaxW = 4;      // warps per CTA, at most
+constexpr int kF32MaxBK = 32;    // keys per staged tile, at most
+
+// Shared-memory layout: `stages` ring stages of raw fp32 k and v [bk rows
+// of D + 4 floats each], then the current tile split into (hi, lo) tf32
+// pairs, k [bk][D + 4] and v [bk][D + 2] pairs. Those strides keep the
+// 64-bit pair loads of both B fragments (k: rows g, columns t; v: rows 2t,
+// columns g) on 32 distinct banks per half-warp.
+template <int D>
+size_t f32_smem_bytes(int bk, int stages) {
+  return sizeof(float) * (size_t)(D + 4) * 2 * stages * bk +
+         sizeof(uint2) * (size_t)bk * (2 * D + 6);
+}
+
+// One warp's work on one k/v tile whose NJ 8-key n-tiles hold a key:
+// S = q·kᵀ (16 × 8·NJ) from the q fragments and the tile's (hi, lo) pairs,
+// the scale, bias and mask (the reference's order), the online softmax in
+// log2 units as the bf16 kernel does (padding columns past t get weight 0,
+// masked keys 2^(-1e30 − m)), and o += p·v. The C fragment of S gives a
+// thread keys 2t and 2t + 1; the A fragment of p·v wants columns t and
+// t + 4, so A's column t stands for key 2t and t + 4 for key 2t + 1, and
+// v's B fragment is read in that order (rows 2t, 2t + 1): p stays in
+// registers, split into hi and lo.
+template <int D, int NJ>
+__device__ __forceinline__ void f32_tile(
+    const unsigned (&qh)[D / 8][4], const unsigned (&ql)[D / 8][4],
+    float (&o)[D / 8][4], float (&m)[2], float (&l)[2], const uint2* Kp,
+    const uint2* Vp, const float* brow, int k0, int Tk, int qw0, bool full,
+    int causal, int window, float scale_log2, int gq, int tq) {
+  constexpr int LD = D + 4;
+  constexpr int LDV = D + 2;
+  constexpr int DK = D / 8;
+  float sc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const uint2* kp = Kp + (8 * j + gq) * LD + kk * 8 + tq;
+      const uint2 b0 = kp[0], b1 = kp[4];
+      mma_3xtf32(sc[j], qh[kk], ql[kk], b0.x, b1.x, b0.y, b1.y);
+    }
+  }
+
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kcol = k0 + 8 * j + 2 * tq + (e & 1);
+      const float bj =
+          (brow != nullptr && kcol < Tk) ? brow[kcol] * kLog2e : 0.f;
+      float x = fmaf(sc[j][e], scale_log2, bj);
+      if (!full) {
+        const int qrow = qw0 + gq + 8 * (e >> 1);
+        bool ok = kcol < Tk;
+        if (causal) ok = ok && kcol <= qrow;
+        if (window > 0) ok = ok && (qrow - kcol) < window;
+        x = ok ? x : kNegInf;
+      }
+      sc[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2_approx(m[r] - mn);
+    m[r] = mn;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool pad = !full && k0 + 8 * j + 2 * tq + (e & 1) >= Tk;
+      sc[j][e] = pad ? 0.f : exp2_approx(sc[j][e] - m[e >> 1]);
+      l[e >> 1] += sc[j][e];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < DK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    unsigned ph[4], pl[4];
+    split_tf32(sc[j][0], ph[0], pl[0]);   // row g,     key 2t
+    split_tf32(sc[j][2], ph[1], pl[1]);   // row g + 8, key 2t
+    split_tf32(sc[j][1], ph[2], pl[2]);   // row g,     key 2t + 1
+    split_tf32(sc[j][3], ph[3], pl[3]);   // row g + 8, key 2t + 1
+    const uint2* vp = Vp + (8 * j + 2 * tq) * LDV + gq;
+#pragma unroll
+    for (int dn = 0; dn < DK; ++dn) {
+      const uint2 b0 = vp[dn * 8], b1 = vp[LDV + dn * 8];
+      mma_3xtf32(o[dn], ph, pl, b0.x, b1.x, b0.y, b1.y);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kF32MaxW, D == 64 ? 3 : 2)
+flash_fwd_3xtf32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ bias,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        int S, int Tk, int bk, int group, int bias_group,
+                        int causal, int window, float scale) {
+  constexpr int LD = D + 4;           // raw rows (floats), k pairs
+  constexpr int LDV = D + 2;          // v pairs
+  constexpr int DK = D / 8;           // k-steps of q·kᵀ; n-tiles of the output
+  constexpr int C4 = D / 4;           // 16-byte chunks of a row
+  const int BQ = blockDim.x / 2;      // 16 query rows per warp
+  const float scale_log2 = scale * kLog2e;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* KVs = reinterpret_cast<float*>(smem_raw);   // [stage][k, v][bk][LD]
+  const int stages = Tk > bk ? 2 : 1;
+  uint2* Kp = reinterpret_cast<uint2*>(KVs + (size_t)stages * 2 * bk * LD);
+  uint2* Vp = Kp + (size_t)bk * LD;                  // [bk][LDV]
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;     // mma group id: fragment row
+  const int tq = lane & 3;      // thread in group: fragment column
+  const int qw0 = q0 + 16 * warp;        // this warp's first query row
+  const bool rows = qw0 < S;
+  const int w_last = min(qw0 + 15, S - 1);
+
+  const float* kb = k + (size_t)(bh / group) * Tk * D;
+  const float* vb = v + (size_t)(bh / group) * Tk * D;
+  const float* brow =
+      bias != nullptr ? bias + (size_t)(bh / bias_group) * Tk : nullptr;
+
+  int kt_lo = 0;
+  int kt_hi = (Tk + bk - 1) / bk;
+  if (causal) kt_hi = min(kt_hi, (min(q0 + BQ, S) - 1) / bk + 1);
+  if (window > 0) kt_lo = max(0, (q0 - window + 1) / bk);
+
+  // a tile's rows past t are staged (zero) only up to the 8-key step that
+  // the products read
+  auto prefetch = [&](int kt, int st) {
+    const int k0 = kt * bk;
+    const int n = min(bk, (Tk - k0 + 7) & ~7);
+    float* Ks = KVs + (size_t)st * 2 * bk * LD;
+    stage_rows_f32<D>(Ks, kb, k0, n, Tk);
+    stage_rows_f32<D>(Ks + (size_t)bk * LD, vb, k0, n, Tk);
+    cp_async_commit();
+  };
+  if (kt_lo < kt_hi) prefetch(kt_lo, 0);
+
+  // this warp's q rows as A fragments (rows g, g + 8; columns t, t + 4 of
+  // each 8-wide k-step), split once into tf32 hi and lo (rows >= s zero)
+  unsigned qh[DK][4], ql[DK][4];
+  {
+    const float* qr = q + ((size_t)bh * S + qw0 + gq) * D + tq;
+    const bool r0 = qw0 + gq < S, r1 = qw0 + gq + 8 < S;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      split_tf32(r0 ? qr[kk * 8] : 0.f, qh[kk][0], ql[kk][0]);
+      split_tf32(r1 ? qr[8 * D + kk * 8] : 0.f, qh[kk][1], ql[kk][1]);
+      split_tf32(r0 ? qr[kk * 8 + 4] : 0.f, qh[kk][2], ql[kk][2]);
+      split_tf32(r1 ? qr[8 * D + kk * 8 + 4] : 0.f, qh[kk][3], ql[kk][3]);
+    }
+  }
+
+  float o[DK][4];
+#pragma unroll
+  for (int j = 0; j < DK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // rows gq and gq + 8 of the warp: running max (log2 units), and this
+  // thread's share of the running sum (the quad's shares add up at the end)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    // the stage the next tile lands in was split before the last barrier
+    if (kt + 1 < kt_hi) {
+      prefetch(kt + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // this tile landed; the last tile's products ended
+    const int k0 = kt * bk;
+    const int nk = min(bk, Tk - k0);     // keys of this tile
+    {
+      // split the tile once for every warp: (hi, lo) pairs of k and v
+      const int n8 = (nk + 7) & ~7;
+      const float* Ks = KVs + (size_t)st * 2 * bk * LD;
+      for (int e = tid; e < 2 * n8 * C4; e += blockDim.x) {
+        const int isv = e >= n8 * C4;
+        const int r = (e - isv * n8 * C4) / C4, c = (e % C4) * 4;
+        const float4 x = *reinterpret_cast<const float4*>(
+            Ks + ((size_t)isv * bk + r) * LD + c);
+        uint4 a, b;
+        split_tf32(x.x, a.x, a.y);
+        split_tf32(x.y, a.z, a.w);
+        split_tf32(x.z, b.x, b.y);
+        split_tf32(x.w, b.z, b.w);
+        uint2* dst = isv ? Vp + r * LDV + c : Kp + r * LD + c;
+        *reinterpret_cast<uint4*>(dst) = a;
+        *reinterpret_cast<uint4*>(dst + 2) = b;
+      }
+    }
+    __syncthreads();   // the pairs are in shared memory
+    bool attend = rows;
+    if (causal) attend = attend && k0 <= w_last;
+    if (window > 0) attend = attend && k0 + nk - 1 > qw0 - window;
+    if (attend) {
+      // one instantiation per count of live 8-key n-tiles: no runtime
+      // bound inside, so consecutive n-tiles' products interleave
+      const bool full = nk == bk && (!causal || k0 + nk - 1 <= qw0) &&
+                        (window <= 0 || w_last - k0 < window);
+#define REPRO_F32_TILE(NJ)                                                 \
+  f32_tile<D, NJ>(qh, ql, o, m, l, Kp, Vp, brow, k0, Tk, qw0, full, causal, \
+                  window, scale_log2, gq, tq)
+      switch ((nk + 7) / 8) {
+        case 1: REPRO_F32_TILE(1); break;
+        case 2: REPRO_F32_TILE(2); break;
+        case 3: REPRO_F32_TILE(3); break;
+        default: REPRO_F32_TILE(4); break;
+      }
+#undef REPRO_F32_TILE
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    const int qrow = qw0 + gq + 8 * r;
+    if (qrow < S) {
+      const float lc = fmaxf(sum, 1e-30f);
+      float* orow = out + ((size_t)bh * S + qrow) * D;
+#pragma unroll
+      for (int j = 0; j < DK; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * tq) =
+            make_float2(o[j][2 * r] / lc, o[j][2 * r + 1] / lc);
+      if (tq == 0) lse[(size_t)bh * S + qrow] = (m[r] + log2f(lc)) * kLn2;
+    }
+  }
+}
+
+// cudaFuncSetAttribute for the f32 kernel's largest plan, once per
+// instantiation and device (a call per launch costs host time on the
+// serving path's 264 launches per request)
+template <int D>
+cudaError_t allow_f32_smem() {
+  static std::atomic<unsigned> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (ready.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_3xtf32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)f32_smem_bytes<D>(kF32MaxBK, 2));
+  if (err == cudaSuccess) ready.fetch_or(bit);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* bias, void* out, void* lse, int bh, int s,
+                       int t, int warps, int bk, int smem, int group,
+                       int bias_group, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const int blocks = (s + 16 * warps - 1) / (16 * warps);
+  if (blocks > 65535 || (size_t)smem != f32_smem_bytes<D>(bk, t > bk ? 2 : 1))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_3xtf32_kernel<D>;
+  cudaError_t err = allow_f32_smem<D>();
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, blocks), 32 * warps, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(out), static_cast<float*>(lse), s, t, bk, group,
+      bias_group, causal, window, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
+                         const void* bias, void* out, void* lse, int bh,
+                         int s, int t, int d, int warps, int bk, int smem,
+                         int group, int bias_group, int causal, int window,
+                         float scale, cudaStream_t stream) {
+  if (warps < 1 || warps > kF32MaxW || bk < 8 || bk > kF32MaxBK ||
+      bk % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (d == 64)
+    return launch_f32<64>(q, k, v, bias, out, lse, bh, s, t, warps, bk, smem,
                           group, bias_group, causal, window, scale, stream);
+  if (d == 128)
+    return launch_f32<128>(q, k, v, bias, out, lse, bh, s, t, warps, bk,
+                           smem, group, bias_group, causal, window, scale,
+                           stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (tensor cores). window
-// <= 0: no window. bf16 only: warps per CTA (1..4, 16 query rows each) and
-// key_tile, the keys per staged tile (16..64, a multiple of 16); ops.fwd_plan
-// picks both, and q, k, v must start 16-byte aligned. Returns the CUDA error
-// code of the launch (0 on success).
+// dtype: 0 = float32 (split 3×TF32 tensor cores), 1 = bfloat16 (tensor
+// cores). window <= 0: no window. warps per CTA (1..4, 16 query rows each)
+// and key_tile, the keys per staged tile (16..64, a multiple of 16, for
+// bf16; 8..32, a multiple of 8, for f32); ops.fwd_plan picks both and the
+// CTA's dynamic shared memory, smem, which must be the bytes of this
+// file's layout for that plan (tc_smem_bytes, f32_smem_bytes): the launch
+// takes the plan's bytes and refuses any other. q, k, v must start 16-byte
+// aligned. Returns the CUDA error code of the launch (0 on success).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                const void* bias, void* out, void* lse,
                                int dtype, int bh, int s, int t, int d,
                                int group, int bias_group, int causal,
                                int window, float scale, int warps,
-                               int key_tile, void* stream) {
+                               int key_tile, int smem, void* stream) {
   if (bh < 1 || s < 1 || t < 1 || group < 1 || bias_group < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_f32(q, k, v, bias, out, lse, bh, s, t, d, group,
-                             bias_group, causal, window, scale, st);
+    return (int)dispatch_f32(q, k, v, bias, out, lse, bh, s, t, d, warps,
+                             key_tile, smem, group, bias_group, causal,
+                             window, scale, st);
   if (dtype == 1)
     return (int)dispatch_tc(q, k, v, bias, out, lse, bh, s, t, d, warps,
-                            key_tile, group, bias_group, causal, window,
-                            scale, st);
+                            key_tile, smem, group, bias_group, causal,
+                            window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
+from repro_torch.kernels.build import (KernelLibrary, LaunchCounter, check,
+                                      device_scope)
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, flash_bwd_ref,
                                                      flash_fwd_ref)
 
@@ -39,65 +40,113 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 LIB = KernelLibrary(
     "flash_fwd", os.path.join(_CSRC, "flash_fwd.cu"),
     {"repro_flash_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                              _I, _I, _I, _I, ctypes.c_float, _I, _I, _I,
                               _P])})
 COUNTER = LaunchCounter("flash_fwd")
 BWD_LIB = KernelLibrary(
     "flash_bwd", os.path.join(_CSRC, "flash_bwd.cu"),
-    {"repro_flash_bwd": (_I, [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P])})
+    {"repro_flash_bwd": (_I, [_P] * 12 + [_I] * 11 + [ctypes.c_float, _P])})
 BWD_COUNTER = LaunchCounter("flash_bwd")
+
+
+# what one CTA may hold in shared memory on the H100 (227 KB). A plan's
+# ``smem`` is what its launch allocates: the C entries take it and refuse
+# bytes other than their own layout's for that plan.
+SMEM_LIMIT = 232448
+# the f32 backward's streamed q tile (rows)
+_F32_BQ = 32
+
+
+def _f32_bwd_smem(key_block: int, d: int) -> int:
+    """The f32 backward's shared memory for ``key_block`` keys, fp32 rows
+    of d + 4: k, v; two stages of q and dout; the lo halves of q and dout;
+    dsᵀ as tf32 hi and lo planes; lse, delta and the bias."""
+    ld = d + 4
+    return 4 * (2 * key_block * ld + 6 * _F32_BQ * ld
+                + 2 * key_block * (_F32_BQ + 4) + 4 * _F32_BQ + key_block)
+
+
+# the f32 backward's key block at most: the most 16-key steps whose k, v
+# and tiles fit one CTA (208 keys at d 64, 96 at d 128)
+F32_MAX_KEY_BLOCK = {d: 16 * max(w for w in range(1, 64)
+                                 if _f32_bwd_smem(16 * w, d) <= SMEM_LIMIT)
+                     for d in HEAD_DIMS}
+# a CUDA grid's y extent at most: query blocks (forward), key blocks
+# (backward)
+MAX_GRID_Y = 65535
 
 
 class FwdPlan(NamedTuple):
     """How ``flash_fwd`` launches: ``warps`` per CTA, each owning 16 query
-    rows (0: the f32 SIMT kernel, which needs no plan), ``key_tile`` keys
-    per staged k/v tile, and the grid (heads, query blocks)."""
+    rows, ``key_tile`` keys per staged k/v tile, the grid (heads, query
+    blocks) and the CTA's dynamic shared memory in bytes."""
     warps: int
     key_tile: int
     grid: tuple
+    smem: int
 
 
 def fwd_plan(bh: int, s: int, t: int, d: int, dtype: torch.dtype) -> FwdPlan:
     """The forward kernel's launch plan for q (bh, s, d) against t keys.
 
-    bf16 runs the tensor-core kernel with 16 query rows per warp: 4 warps
-    (64 rows) per CTA, fewer where s <= 48, so that no warp of a short row
-    block idles (the text tower's s = 16 runs one warp per head). k/v
-    arrive in tiles of 64 keys, or of t rounded up to 16 where t < 64, so a
-    short head stages no padding and its CTA holds little shared memory.
-    ``d`` is validated by the kernel (64 or 128)."""
-    del d
-    if dtype != torch.bfloat16:
-        return FwdPlan(0, 0, (bh, -(-s // 64)))
+    Both dtypes run a tensor-core kernel with 16 query rows per warp: 4
+    warps (64 rows) per CTA, fewer where s <= 48, so that no warp of a short
+    row block idles (the text tower's s = 16 runs one warp per head). k/v
+    arrive in tiles of 64 keys in bf16 and 32 in f32 (whose CTA also holds
+    the tile split into tf32 pairs: at 32 keys three CTAs fit an SM), or of
+    t rounded up to the kernel's key step (16 in bf16, 8 in f32) where t is
+    shorter, so a short head stages no padding and its CTA holds little
+    shared memory. ``d`` sizes the shared memory (the kernels take 64 and
+    128)."""
     warps = min(4, -(-s // 16))
-    key_tile = min(64, -(-t // 16) * 16)
-    return FwdPlan(warps, key_tile, (bh, -(-s // (16 * warps))))
+    if dtype == torch.bfloat16:
+        key_tile = min(64, -(-t // 16) * 16)
+        stages = 2 if t > key_tile else 1
+        smem = 2 * (d + 8) * (16 * warps + 2 * stages * key_tile)
+    else:
+        key_tile = min(32, -(-t // 8) * 8)
+        stages = 2 if t > key_tile else 1
+        # the raw k/v ring, then the tile's tf32 (hi, lo) pairs
+        smem = (4 * (d + 4) * 2 * stages * key_tile
+                + 8 * key_tile * (2 * d + 6))
+    return FwdPlan(warps, key_tile, (bh, -(-s // (16 * warps))), smem)
 
 
 class BwdPlan(NamedTuple):
-    """How ``flash_bwd`` splits a call: ``key_block`` keys per CTA (0: the
-    f32 SIMT kernels, which need no plan), ``key_blocks`` CTAs per kv row,
-    and the fp32 dq partials (``dq_part_floats`` entries) when there is
-    more than one key block."""
+    """How ``flash_bwd`` splits a call: ``key_block`` keys per CTA (16 per
+    warp), ``key_blocks`` CTAs per kv row, the fp32 dq partials
+    (``dq_part_floats`` entries) when there is more than one key block, and
+    the main kernel's dynamic shared memory in bytes."""
     key_block: int
     key_blocks: int
     dq_part_floats: int
+    smem: int
 
 
 def bwd_plan(bh: int, s: int, t: int, d: int, dtype: torch.dtype) -> BwdPlan:
     """The backward kernel's launch plan for q (bh, s, d) against t keys.
 
-    bf16 runs the tensor-core kernel with 16 keys per warp: 4 warps when
+    bf16 runs its tensor-core kernel with 16 keys per warp: 4 warps when
     t <= 64 (the text tower), else 16 warps at d 64 and 8 at d 128 (the
     registers of the dk and dv accumulators bound a warp's share). A block
-    of 256 keys at d 64 holds the whole head at the towers' lengths; past
-    it the keys split over ceil(t / key_block) CTAs, each writing an fp32
-    dq partial that a second kernel sums in block order."""
-    if dtype != torch.bfloat16:
-        return BwdPlan(0, 1, 0)
-    key_block = 64 if t <= 64 else (256 if d == 64 else 128)
+    of 256 keys at d 64 holds the whole head at the towers' lengths. f32
+    takes t rounded up to 16 keys while k, v, the q/dout ring with the
+    tiles' split halves and the dsᵀ planes fit one CTA's shared memory: up
+    to 208 keys at d 64 (the image tower's 196 in one block of 13 warps)
+    and 96 at d 128. Past one block the keys split over
+    ceil(t / key_block) CTAs, each writing an fp32 dq partial that a second
+    kernel sums in block order."""
+    if dtype == torch.bfloat16:
+        key_block = 64 if t <= 64 else (256 if d == 64 else 128)
+        ld = d + 8
+        smem = (2 * (2 * key_block * ld + 4 * 32 * ld + key_block * 40)
+                + 4 * (4 * 32 + key_block))
+    else:
+        key_block = min(-(-t // 16) * 16, F32_MAX_KEY_BLOCK[d])
+        smem = _f32_bwd_smem(key_block, d)
     blocks = -(-t // key_block)
-    return BwdPlan(key_block, blocks, blocks * bh * s * d if blocks > 1 else 0)
+    return BwdPlan(key_block, blocks,
+                   blocks * bh * s * d if blocks > 1 else 0, smem)
 
 
 def _check_inputs(q, k, v, bias):
@@ -150,33 +199,37 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias. Returns (out (bh, s, d) in q's dtype, lse (bh, s) fp32).
 
     Every query row must keep at least one valid key. The kernel takes
-    f32 (the SIMT kernel) or bf16 (the tensor-core kernel, launched as
-    ``fwd_plan`` says) inputs, accumulating fp32, head dims 64 and 128, and
-    any s, t >= 1 (the ragged tail is masked, never written)."""
+    f32 (split 3×TF32 tensor cores) or bf16 (tensor cores) inputs, launched
+    as ``fwd_plan`` says, accumulating fp32, head dims 64 and 128, and any
+    s, t >= 1 (the ragged tail is masked, never written) that the plan can
+    grid (at most 65535 query blocks)."""
     _check_inputs(q, k, v, bias)
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be >= 1")
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, bias, causal=causal, window=window)
     _check_kernel_inputs("flash_fwd", q, k, v, bias)
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
-                                         for x in (q, k, v)):
-        raise ValueError("the bf16 flash_fwd kernel copies 16-byte rows: "
-                         "q, k and v must start 16-byte aligned")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the flash_fwd kernel copies 16-byte rows: q, k "
+                         "and v must start 16-byte aligned")
     bh, s, d = q.shape
     t = k.shape[1]
     plan = fwd_plan(bh, s, t, d, q.dtype)
+    if plan.grid[1] > MAX_GRID_Y:
+        raise ValueError(f"flash_fwd: s={s} needs {plan.grid[1]} query "
+                         f"blocks of {16 * plan.warps} rows, more than the "
+                         f"grid's {MAX_GRID_Y}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with device_scope(q.device):
         rc = LIB.lib().repro_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], bh, s, t, d,
             bh // k.shape[0], bh // bias.shape[0] if bias is not None else 1,
             int(causal), window if window is not None else -1,
-            float(d ** -0.5), plan.warps, plan.key_tile, stream)
+            float(d ** -0.5), plan.warps, plan.key_tile, plan.smem, stream)
     check(rc, "flash_fwd launch")
     COUNTER.add()
     return out, lse
@@ -190,9 +243,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 and the upstream gradient dout (bh, s, d) in q's dtype. Returns
     (dq, dk, dv) in the input dtype: dq (bh, s, d), dk/dv (bh // group,
     t, d) summed over each group's query heads. One call launches the
-    delta kernel and then, for f32, the dq and dk/dv kernels; for bf16 the
-    tensor-core kernel (and the dq partial sum when ``bwd_plan`` splits the
-    keys)."""
+    delta kernel, then the tensor-core kernel (split 3×TF32 for f32) and,
+    when ``bwd_plan`` splits the keys, the dq partial sum."""
     _check_inputs(q, k, v, bias)
     if out.shape != q.shape or dout.shape != q.shape or \
             lse.shape != q.shape[:2]:
@@ -209,28 +261,32 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.dtype != torch.float32:
         raise TypeError(f"flash_bwd takes out/dout in q's dtype and fp32 "
                         f"lse, got {out.dtype}/{dout.dtype}/{lse.dtype}")
-    if q.dtype == torch.bfloat16 and any(
-            x.data_ptr() % 16 for x in (q, k, v, dout)):
-        raise ValueError("the bf16 flash_bwd kernel copies 16-byte rows: "
-                         "q, k, v and dout must start 16-byte aligned")
+    if any(x.data_ptr() % 16 for x in (q, k, v, dout)):
+        raise ValueError("the flash_bwd kernel copies 16-byte rows: q, k, "
+                         "v and dout must start 16-byte aligned")
     bh, s, d = q.shape
     t = k.shape[1]
+    plan = bwd_plan(bh, s, t, d, q.dtype)
+    if plan.key_blocks > MAX_GRID_Y:
+        raise ValueError(f"flash_bwd: t={t} needs {plan.key_blocks} key "
+                         f"blocks of {plan.key_block}, more than the grid's "
+                         f"{MAX_GRID_Y}")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    plan = bwd_plan(bh, s, t, d, q.dtype)
     dq_part = (torch.empty((plan.dq_part_floats,), dtype=torch.float32,
                            device=q.device) if plan.dq_part_floats else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with device_scope(q.device):
         rc = BWD_LIB.lib().repro_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dq_part.data_ptr() if dq_part is not None else None,
-            _DTYPES[q.dtype], bh, s, t, d, plan.key_block, bh // k.shape[0],
+            _DTYPES[q.dtype], bh, s, t, d, plan.key_block, plan.smem,
+            bh // k.shape[0],
             bh // bias.shape[0] if bias is not None else 1, int(causal),
             window if window is not None else -1, float(d ** -0.5), stream)
     check(rc, "flash_bwd launch")

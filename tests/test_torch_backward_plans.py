@@ -5,8 +5,10 @@
   two sweeps fill the card; the scratch it asks for stays within
   ``MAX_SLICES`` × (dX + dY) plus one dlog_tau partial per dX CTA, no slice
   is empty, and ``bwd_buffers`` (what the wrapper allocates) matches it.
-- ``flash_attention.ops.bwd_plan`` picks the bf16 kernel's key block and
-  the dq partials past one block; f32 needs no plan.
+- ``flash_attention.ops.bwd_plan`` picks the kernels' key block and the dq
+  partials past one block: bf16 64 or 256 (128 at d 128) keys, f32 (the
+  split 3×TF32 kernel) t rounded up to 16 keys, at most 208 at d 64 and
+  96 at d 128.
 - ``flash_bwd_ref`` rounds p and ds to bf16 for bf16 inputs, as the
   tensor-core kernel does; its f32 output is the unrounded formula, bit for
   bit, and its bf16 output still matches the reference's blockwise Pallas
@@ -76,7 +78,30 @@ def test_flash_bwd_plan(t, d, block, blocks):
     assert (plan.key_block, plan.key_blocks) == (block, blocks)
     assert plan.dq_part_floats == (0 if blocks == 1
                                    else blocks * bh * s * d)
-    assert fa_ops.bwd_plan(bh, s, t, d, torch.float32) == (0, 1, 0)
+    # f32: t in 16-key steps up to the largest block that fits
+    f32 = fa_ops.bwd_plan(bh, s, t, d, torch.float32)
+    assert f32.key_block == min(-(-t // 16) * 16,
+                                fa_ops.F32_MAX_KEY_BLOCK[d])
+    assert f32.key_blocks * f32.key_block >= t > (f32.key_blocks - 1) * \
+        f32.key_block
+
+
+@pytest.mark.parametrize("t,d,block,blocks", [
+    (1, 64, 16, 1), (16, 64, 16, 1), (196, 64, 208, 1), (200, 64, 208, 1),
+    (208, 64, 208, 1), (209, 64, 208, 2), (520, 64, 208, 3),
+    (8704, 64, 208, 42), (1, 128, 16, 1), (16, 128, 16, 1),
+    (96, 128, 96, 1), (97, 128, 96, 2), (196, 128, 96, 3),
+    (200, 128, 96, 3), (520, 128, 96, 6), (8704, 128, 96, 91)])
+def test_flash_bwd_f32_plan(t, d, block, blocks):
+    """The split 3×TF32 backward: one block holds a tower head's keys
+    (the image tower's 196 in 208, 13 warps) and writes dq itself; past 208
+    keys at d 64 (96 at d 128) the keys split, with fp32 dq partials."""
+    bh, s = 24, t
+    plan = fa_ops.bwd_plan(bh, s, t, d, torch.float32)
+    assert (plan.key_block, plan.key_blocks) == (block, blocks)
+    assert plan.dq_part_floats == (0 if blocks == 1
+                                   else blocks * bh * s * d)
+    assert plan.smem <= fa_ops.SMEM_LIMIT
 
 
 def _unrounded(q, k, v, bias, out, lse, dout, causal, window):

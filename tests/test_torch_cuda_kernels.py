@@ -5,7 +5,9 @@ never at import). Run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: flash f32, 5e-5 (fp32 sums over the keys in another order);
+Tolerances: flash f32, 5e-5 (fp32 sums over the keys in another order,
+and the kernel's products split 3×TF32: about 2^-21 of each product, a few
+1e-6 on a score at d 64, tests/test_torch_tf32_split.py);
 flash bf16 outputs, 1.6e-2 (one bf16 ulp at |out| < 2 after the same fp32
 result rounds), against the plain version that rounds p to bf16 before
 p·v as the tensor-core kernel does (the kernel rounds the running-max p,
@@ -105,6 +107,46 @@ def test_flash_tc_kernel_matches_plain_at_its_edges(gen, b, h, kv, s, t, d,
     assert float((lse - ref_lse).abs().max()) <= 5e-5
 
 
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,padded", [
+    (2, 4, 4, 1, 1, 64, False, None, False),          # one token
+    (2, 4, 1, 7, 7, 128, False, None, True),          # GQA 4, d 128
+    (2, 4, 4, 8, 8, 64, True, None, False),           # one 8-key step
+    (2, 8, 2, 9, 9, 64, False, None, True),
+    (2, 4, 4, 15, 15, 128, True, 4, False),
+    (2, 4, 1, 16, 16, 64, False, None, True),         # text tower, GQA 4
+    (2, 4, 4, 17, 17, 64, True, None, True),
+    (2, 12, 12, 196, 196, 64, False, None, False),    # image tower
+    (2, 8, 2, 257, 257, 128, True, None, False),
+    (1, 8, 2, 520, 520, 64, True, 100, False),        # window < tiles
+    (2, 4, 4, 9, 17, 64, False, None, True),          # s != t
+    (2, 4, 4, 17, 9, 128, False, None, False),
+    (1, 4, 1, 196, 520, 64, False, None, True),       # t past 8 tiles
+])
+def test_flash_f32_kernel_matches_plain_at_its_edges(gen, b, h, kv, s, t, d,
+                                                     causal, window, padded):
+    """The split 3×TF32 forward at the edges of its 16-row, 8-key tiling
+    (s, t of 1, 7, 8, 9, 15, 16, 17, 196, 257, 520), GQA groups 1 and 4,
+    head dims 64 and 128, causal, windowed and bias masks: out and lse
+    within the f32 limit (5e-5) of the plain fp32 version."""
+    q = torch.randn((b * h, s, d), generator=gen, device="cuda")
+    k, v = (torch.randn((b * kv, t, d), generator=gen, device="cuda")
+            for _ in range(2))
+    bias = None
+    if padded:
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        bias = torch.where(torch.arange(t, device="cuda")[None, :]
+                           < lens[:, None], 0.0, NEG_INF).float()
+    before = fa_ops.COUNTER.count
+    out, lse = fa_ops.flash_fwd(q, k, v, bias, causal=causal, window=window)
+    assert fa_ops.COUNTER.count == before + 1
+    ref_out, ref_lse = flash_fwd_ref(q, k, v, bias, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and bool(out.isfinite().all())
+    assert float((out - ref_out).abs().max()) <= 5e-5
+    assert float((lse - ref_lse).abs().max()) <= 5e-5
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(gen):
     q, k, v = _qkv(gen, 4, 4, 8, 64, torch.float16)
     with pytest.raises(TypeError):
@@ -126,6 +168,67 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa_ops.flash_fwd(shifted, k, v)
     assert fa_ops.COUNTER.count == before
+
+
+def test_flash_kernels_refuse_shapes_the_grid_cannot_hold(gen):
+    """More query blocks (forward) or key blocks (backward) than a grid's
+    65535 rows: a ValueError before anything launches."""
+    q = torch.empty((1, 65535 * 64 + 1, 64), device="cuda")
+    k = torch.empty((1, 1, 64), device="cuda")
+    before = fa_ops.COUNTER.count
+    with pytest.raises(ValueError, match="query blocks"):
+        fa_ops.flash_fwd(q, k, k, causal=False)
+    assert fa_ops.COUNTER.count == before
+    del q
+    t = 65535 * fa_ops.F32_MAX_KEY_BLOCK[64] + 1
+    q = torch.empty((1, 1, 64), device="cuda")
+    k = torch.empty((1, t, 64), device="cuda")
+    lse = torch.zeros((1, 1), device="cuda")
+    before = fa_ops.BWD_COUNTER.count
+    with pytest.raises(ValueError, match="key blocks"):
+        fa_ops.flash_bwd(q, k, k, None, q, lse, q, causal=False)
+    assert fa_ops.BWD_COUNTER.count == before
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launches_take_only_their_plans_bytes(gen, dtype, d):
+    """A plan's ``smem`` is what the launch allocates: each C entry takes
+    it and refuses other bytes than its own layout's for that plan, before
+    anything runs (outputs untouched); the plan's own bytes launch."""
+    bh, s = 4, 196
+    q, k, v = _qkv(gen, bh, bh, s, d, dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd = fa_ops.fwd_plan(bh, s, s, d, dtype)
+    code = 0 if dtype == torch.float32 else 1
+    for smem, ok in ((fwd.smem - 16, False), (fwd.smem + 16, False),
+                     (fwd.smem, True)):
+        out = torch.full_like(q, 7.0)
+        lse = torch.full((bh, s), 7.0, device="cuda")
+        rc = fa_ops.LIB.lib().repro_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+            lse.data_ptr(), code, bh, s, s, d, 1, 1, 0, -1,
+            float(d ** -0.5), fwd.warps, fwd.key_tile, smem, stream)
+        torch.cuda.synchronize()
+        assert (rc == 0) == ok, (smem, rc)
+        assert bool((lse == 7.0).all()) != ok
+    out, lse = fa_ops.flash_fwd(q, k, v, causal=False)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    bwd = fa_ops.bwd_plan(bh, s, s, d, dtype)
+    part = torch.empty((max(bwd.dq_part_floats, 1),), device="cuda")
+    for smem, ok in ((bwd.smem - 16, False), (bwd.smem + 16, False),
+                     (bwd.smem, True)):
+        delta = torch.full((bh, s), 7.0, device="cuda")
+        grads = [torch.full_like(x, 7.0) for x in (q, k, v)]
+        rc = fa_ops.BWD_LIB.lib().repro_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(x.data_ptr() for x in grads), part.data_ptr(), code, bh, s, s,
+            d, bwd.key_block, smem, 1, 1, 0, -1, float(d ** -0.5), stream)
+        torch.cuda.synchronize()
+        assert (rc == 0) == ok, (smem, rc)
+        assert bool((delta == 7.0).all()) != ok
+        assert bool((grads[1] == 7.0).all()) != ok
 
 
 def _unit(n, d, gen, dtype):

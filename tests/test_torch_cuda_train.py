@@ -10,7 +10,8 @@ Run them on the card with
 Tolerances, each with its reason:
 - flash backward f32: 2e-4 abs, the reference's own gradient tolerance
   (tests/test_attention_backends.py); both sides accumulate fp32 in another
-  order.
+  order, and the kernel's products are split 3×TF32 (about 2^-21 of each
+  product; tests/test_torch_tf32_split.py).
 - flash backward bf16, per element: 2 bf16 ulps of |ref| (2^-7 relative
   each) plus 1e-3 of the tensor's max |ref|. Both sides accumulate in fp32
   and round the same value to bf16, so an element moves by at most the ulp
@@ -103,6 +104,78 @@ def test_flash_bwd_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == dtype and g.shape == r.shape, name
         ok, err = _close(g, r, dtype)
+        assert ok, f"{name}: max abs err {err:.3g}"
+
+
+@pytest.mark.parametrize("b,h,kv,s,t,d,causal,window,padded", [
+    (2, 4, 4, 1, 1, 64, False, None, False),          # one token
+    (2, 4, 1, 7, 7, 128, False, None, True),          # GQA 4, d 128
+    (2, 4, 4, 8, 8, 64, True, None, False),
+    (2, 8, 2, 9, 9, 64, False, None, True),
+    (2, 4, 4, 15, 15, 128, True, 4, False),
+    (2, 4, 1, 16, 16, 64, False, None, True),         # text tower, GQA 4
+    (2, 4, 4, 17, 17, 64, True, None, True),
+    (2, 12, 12, 196, 196, 64, False, None, False),    # image: 13 warps
+    (1, 8, 2, 208, 208, 64, True, None, False),       # one 208-key block
+    (1, 8, 2, 209, 209, 64, True, None, False),       # split, dq partials
+    (1, 4, 4, 96, 96, 128, False, None, True),        # one 96-key block
+    (1, 8, 2, 257, 257, 128, True, None, False),      # d 128, split
+    (1, 8, 2, 520, 520, 64, True, 100, False),        # split, window
+    (2, 4, 4, 9, 17, 64, False, None, True),          # s != t
+    (2, 4, 4, 17, 9, 128, False, None, False),
+    (1, 4, 1, 196, 520, 64, False, None, True),
+])
+def test_flash_bwd_f32_kernel_matches_plain_at_its_edges(
+        gen, b, h, kv, s, t, d, causal, window, padded):
+    """The split 3×TF32 backward at the edges of its tiling (16-key warps,
+    32-row q tiles, key blocks of up to 208 / 96 keys, dq partials past
+    them), GQA groups 1 and 4, head dims 64 and 128, causal, windowed and
+    bias masks: dq, dk, dv within 2e-4 of the plain fp32 version."""
+    q, dout = (torch.randn((b * h, s, d), generator=gen, device="cuda")
+               for _ in range(2))
+    k, v = (torch.randn((b * kv, t, d), generator=gen, device="cuda")
+            for _ in range(2))
+    bias = None
+    if padded:
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+        bias = torch.where(torch.arange(t, device="cuda")[None, :]
+                           < lens[:, None], 0.0, NEG_INF).float()
+    out, lse = flash_fwd_ref(q, k, v, bias, causal=causal, window=window)
+    before = fa_ops.BWD_COUNTER.count
+    got = fa_ops.flash_bwd(q, k, v, bias, out, lse, dout, causal=causal,
+                           window=window)
+    assert fa_ops.BWD_COUNTER.count == before + 1
+    ref = flash_bwd_ref(q, k, v, bias, out, lse, dout, causal=causal,
+                        window=window)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape, name
+        ok, err = _close(g, r, torch.float32)
+        assert ok, f"{name}: max abs err {err:.3g}"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_f32_kernel_one_key_rows(gen, causal):
+    """Rows with one valid key (key padding to length 1, or the first row
+    under a causal mask): p = 1 and ds = p·(dout·v − delta) cancels to
+    fp32 rounding residue on both sides; the split 3×TF32 products keep
+    dq, dk, dv within 2e-4 of the plain version."""
+    b, h, s, d = 3, 4, 196, 64
+    q, dout = (torch.randn((b * h, s, d), generator=gen, device="cuda")
+               for _ in range(2))
+    k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda")
+            for _ in range(2))
+    bias = None
+    if not causal:   # every row of example 0 keeps key 0 alone
+        lens = torch.tensor([1, 5, s], device="cuda")
+        bias = torch.where(torch.arange(s, device="cuda")[None, :]
+                           < lens[:, None], 0.0, NEG_INF).float()
+    out, lse = fa_ops.flash_fwd(q, k, v, bias, causal=causal)
+    got = fa_ops.flash_bwd(q, k, v, bias, out, lse, dout, causal=causal)
+    ref = flash_bwd_ref(q, k, v, bias, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        ok, err = _close(g, r, torch.float32)
         assert ok, f"{name}: max abs err {err:.3g}"
 
 

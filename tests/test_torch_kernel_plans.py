@@ -5,8 +5,10 @@ build cache's hash over the headers a kernel source includes.
 - ``contrastive_loss.ops.lse_plan`` picks ``row_col_lse``'s tile edge
   (128, or 64 / 32 where 128 would leave SMs idle); the tiles cover B and
   the scratch is 4 · ⌈B/T⌉ · B floats.
-- ``flash_attention.ops.fwd_plan`` picks the bf16 kernel's warps (16 query
-  rows each) and key tile; f32 needs no plan.
+- ``flash_attention.ops.fwd_plan`` picks the kernels' warps (16 query
+  rows each) and key tile: 16-key steps in bf16, 8-key steps (tiles of at
+  most 32) in f32 (the split 3×TF32 kernel), and every plan's shared memory
+  fits one CTA.
 - ``flash_fwd_ref`` rounds p to bf16 for bf16 inputs, as the tensor-core
   kernel does; its f32 output is the unrounded formula, bit for bit, and
   its bf16 output still matches the reference's Pallas forward (interpret
@@ -76,7 +78,46 @@ def test_flash_fwd_plan(bh, s, t, d, warps, key_tile, blocks):
     assert (plan.warps, plan.key_tile) == (warps, key_tile)
     assert plan.grid == (bh, blocks)
     assert 16 * plan.warps * blocks >= s
-    assert fa_ops.fwd_plan(bh, s, t, d, torch.float32).warps == 0
+    # f32: the same warps and grid, key tiles of 32 in 8-key steps
+    f32 = fa_ops.fwd_plan(bh, s, t, d, torch.float32)
+    assert (f32.warps, f32.grid) == (warps, (bh, blocks))
+    assert f32.key_tile == min(32, -(-t // 8) * 8)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,warps,key_tile,blocks", [
+    (1, 1, 8, 1), (16, 1, 16, 1), (196, 4, 32, 4), (200, 4, 32, 4),
+    (520, 4, 32, 9), (8704, 4, 32, 136)])
+def test_flash_fwd_f32_plan(s, warps, key_tile, blocks, d):
+    """The split 3×TF32 forward: 16 query rows per warp, key tiles of 32 in
+    steps of 8 (s = t = 196 stages 200 keys, not 256), the grid covering s;
+    at d 64 three CTAs of a 32-key plan share an SM (228 KB, 1 KB of it
+    reserved per CTA)."""
+    plan = fa_ops.fwd_plan(32, s, s, d, torch.float32)
+    assert (plan.warps, plan.key_tile, plan.grid) == (warps, key_tile,
+                                                      (32, blocks))
+    assert plan.smem <= fa_ops.SMEM_LIMIT
+    if d == 64:
+        assert 3 * (plan.smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_plans_fit_shared_memory(d, dtype):
+    """Every forward and backward plan, over s and t from 1 to 8704, fits
+    the 227 KB a CTA may hold; the f32 backward's largest key block is the
+    largest multiple of 16 keys that fits, and a longer t splits."""
+    for n in (1, 7, 8, 9, 15, 16, 17, 48, 64, 65, 96, 97, 196, 200, 208,
+              209, 256, 257, 520, 8192, 8704):
+        assert fa_ops.fwd_plan(8, n, n, d, dtype).smem <= fa_ops.SMEM_LIMIT
+        assert fa_ops.bwd_plan(8, n, n, d, dtype).smem <= fa_ops.SMEM_LIMIT
+    if dtype == torch.float32:
+        top = fa_ops.F32_MAX_KEY_BLOCK[d]
+        assert top == {64: 208, 128: 96}[d]
+        assert fa_ops.bwd_plan(8, top, top, d, dtype).key_blocks == 1
+        assert fa_ops.bwd_plan(8, top + 1, top + 1, d,
+                               dtype)[:2] == (top, 2)
+        assert fa_ops._f32_bwd_smem(top + 16, d) > fa_ops.SMEM_LIMIT
 
 
 def _flash_inputs(bh, bkv, s, d, dtype, padded, seed):
