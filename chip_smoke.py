@@ -37,8 +37,11 @@ repository beside this file; it exits non-zero without them. In order it:
 6. holds the fused contrastive forward and backward kernels against their
    plain versions at B = 2048 and a ragged B = 1000 (D = 512, f32 and
    bf16, and the backward with ``with_diag=False`` and ``b_norm != B``),
-   and times kernel, plain version and the materialising PyTorch calls,
-   printing the backward's launch plan (grid, slices, scratch bytes);
+   the forward also against ``row_col_lse`` bit for bit (one launch
+   sequence serves both), and times kernel (the forward also by its device
+   time), plain version and the materialising PyTorch calls, printing the
+   forward's launch plan (``lse_plan``) and the backward's (grid, slices,
+   scratch bytes);
 7. holds the legacy 4-pass pair, ``row_col_lse`` and ``grads``, against
    their plain versions at ``benchmarks/kernel_bench.py``'s six shapes
    (B 512, 2048, 8192 × D 256, 1024; f32, timed), in bf16 at B = 2048 and
@@ -95,8 +98,9 @@ repository beside this file; it exits non-zero without them. In order it:
     ragged 244, four chunks of b 1 × 1024, b 8 × 256; with and without an
     initial state; the decay extremes dt 3, A -5 with no NaN), inputs laid
     out as the mixer's split views, f32 and bf16, y and the final state,
-    and times kernel and plain version (no single PyTorch call computes
-    the scan);
+    printing each launch plan (``ssd_plan``), and times kernel (events,
+    and its device time from the profiler) and plain version (no single
+    PyTorch call computes the scan);
 15. SSM parity: Mamba-2-130M at full width and depth in f32 through
     ``transformer.prefill`` (2 × 1024 tokens) on the kernel path and on
     the plain path (the scan's plain version on the card), logits and the
@@ -338,8 +342,9 @@ def bound(nbytes: float, flops: float, dtype: str, peak=None):
 
 
 def flash_peak(dt: str):
-    """The peak a flash kernel's bound is taken at: f32 runs split 3×TF32
-    on the tensor cores, bf16 the dtype's own."""
+    """The peak a tensor-core kernel's bound is taken at (the flash
+    kernels, the SSD scan): f32 runs split 3×TF32 on the tensor cores,
+    bf16 the dtype's own."""
     return PEAK_3XTF32 if dt == "float32" else None
 
 
@@ -695,8 +700,8 @@ WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_3xtf32_kernel",
                                  "flash_bwd_3xtf32_kernel",
                                  "flash_bwd_tc_kernel",
                                  "flash_bwd_dq_sum_kernel"),
-                   "contrastive_fwd": ("contrastive_fwd_tile_kernel",
-                                       "contrastive_fwd_combine_kernel"),
+                   "contrastive_fwd": ("contrastive_lse_tile_kernel",
+                                       "contrastive_lse_combine_kernel"),
                    "contrastive_bwd": ("contrastive_grad_kernel",
                                        "contrastive_grad_sum_kernel",
                                        "contrastive_dtau_sum_kernel"),
@@ -1009,18 +1014,25 @@ def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
                                  f"err {gerr:.3g}, dlog_tau err {terr:.3g}")
         bwd_err = max(bwd_err, gerr)
         bwd_tol = min(bwd_tol, gtol)
+    if not legacy:
+        # the fused forward runs row_col_lse's launches: the same bits
+        same = all(torch.equal(a, r) for a, r in
+                   zip((row, col), cl_ops.row_col_lse(x, y, inv_tau)))
+        if not same:
+            raise AssertionError(f"{names[0]} B={b} D={d} {dt}: not bit "
+                                 f"for bit equal to row_col_lse")
     print(f"{names[0]} / {names[1]} B={b} D={d} {dt}: lse err "
-          f"{fwd_err:.3g} (tol {CL_LSE_TOL}), dX/dY err {bwd_err:.3g} (tol "
+          f"{fwd_err:.3g} (tol {CL_LSE_TOL})"
+          + ("" if legacy else ", equal to row_col_lse bit for bit")
+          + f", dX/dY err {bwd_err:.3g} (tol "
           f"{bwd_tol:.3g}; with_diag and b_norm=B, and without diag at "
           f"b_norm=3B)", flush=True)
     fwd = {"shape": f"B={b} D={d} {dt}", "max_abs_err": fwd_err}
     bwd = {"shape": f"B={b} D={d} {dt}", "max_abs_err": bwd_err}
-    if legacy:
-        lp = cl_ops.lse_plan(b)
-        fwd["plan"] = {"tile": lp.tile, "grid": lp.grid,
-                       "scratch_bytes": 4 * lp.scratch_floats}
-        print(f"{names[0]} B={b} D={d} {dt}: plan {fwd['plan']}",
-              flush=True)
+    lp = cl_ops.lse_plan(b, dtype)
+    fwd["plan"] = {"tile": lp.tile, "grid": lp.grid,
+                   "scratch_bytes": 4 * lp.scratch_floats}
+    print(f"{names[0]} B={b} D={d} {dt}: plan {fwd['plan']}", flush=True)
     if not timed:
         return fwd, bwd
     item = torch.finfo(dtype).bits // 8
@@ -1030,6 +1042,8 @@ def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
         return time_ms(fn, iters, warmup)
 
     fwd["ms"] = tm(lambda: fwd_k(x, y, inv_tau))
+    fwd["device_ms"], _ = device_ms(lambda: fwd_k(x, y, inv_tau),
+                                    WRAPPER_KERNELS[names[0]], iters)
     fwd["plain_ms"] = tm(lambda: fwd_ref(x, y, inv_tau))
 
     def lib_fwd():
@@ -1057,7 +1071,9 @@ def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
         2 * b * d * item + 2 * b * 4 + 2 * b * d * 4 + 4,
         3 * 2.0 * b * b * d, dt)
     for name, r in zip(names, (fwd, bwd)):
-        print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms"
+              + (f" (device {r['device_ms']:.4f})" if "device_ms" in r
+                 else "") + f", plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               + (f"; plan {r['plan']}" if "plan" in r else ""), flush=True)
@@ -1953,23 +1969,32 @@ def ssd_case(label, b, l, dtype, seed, init=False, extreme=False,
            "max_abs_err": max(err_y, err_f), "max_abs_err_y": err_y,
            "max_abs_err_state": err_f, "tol_y": lim_y, "tol_state": lim_f,
            "library_ms": None}
+    plan = ssd_ops.ssd_plan(b, l, h, p, n, dtype)
+    rec["plan"] = plan._asdict()
     if timed:
-        rec["ms"] = time_ms(lambda: ssd_ops.ssd_scan(
-            x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0))
+        def call():
+            ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0)
+        rec["ms"] = time_ms(call)
+        rec["device_ms"], _ = device_ms(call, WRAPPER_KERNELS["ssd_scan"])
         rec["plain_ms"] = time_ms(lambda: plain_scan(
             x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0))
         item = torch.finfo(dtype).bits // 8
         states = (2 if init else 1) * b * h * p * n * 4
         nbytes = (b * l * h * p * item + b * l * h * 4 + 2 * b * l * n * item
                   + b * l * h * p * 4 + states + 2 * h * 4)
+        # f32 products run split 3×TF32 on the tensor cores: its bound is
+        # taken at that rate, which the kernel cannot beat (bf16 at the
+        # bf16 peak, the fastest of its products)
         rec["bound_ms"], rec["bound_by"] = bound(
-            nbytes, ssd_least_flops(b, l, h, p, n), dt_name)
-    print(f"ssd_scan {rec['shape']}: max |y err| {err_y:.3g} (tol "
-          f"{lim_y:.3g}), max |state err| {err_f:.3g} (tol {lim_f:.3g}), "
-          f"finite" + (f"; kernel {rec['ms']:.4f} ms, plain "
-                       f"{rec['plain_ms']:.4f} ms, bound "
-                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
-                       if timed else ""), flush=True)
+            nbytes, ssd_least_flops(b, l, h, p, n), dt_name,
+            flash_peak(dt_name))
+    print(f"ssd_scan {rec['shape']}: plan {tuple(plan)}; max |y err| "
+          f"{err_y:.3g} (tol {lim_y:.3g}), max |state err| {err_f:.3g} (tol "
+          f"{lim_f:.3g}), finite" + (
+              f"; kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}),"
+              f" plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+              if timed else ""), flush=True)
     return rec
 
 
@@ -2317,7 +2342,11 @@ def main() -> int:
                               for k in (*timing, "device_ms", "plan")}),
         train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
                     c_fwd, max_abs_err_bf16=contrastive[
-                        (2048, torch.bfloat16)][0]["max_abs_err"]),
+                        (2048, torch.bfloat16)][0]["max_abs_err"],
+                    device_ms=c_fwd["device_ms"], plan=c_fwd["plan"],
+                    ragged={k: contrastive[(1000, torch.float32)][0][k]
+                            for k in ("shape", *timing, "device_ms",
+                                      "plan")}),
         train_entry(cl_ops.BWD_COUNTER.name, CL_SOURCE, CL_BWD_REPLACES,
                     c_bwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][1]["max_abs_err"]),
@@ -2348,10 +2377,13 @@ def main() -> int:
          "shape": ssd[("l=256", "bfloat16")]["shape"],
          "max_abs_err_f32": max(r["max_abs_err"] for (_, dt), r in
                                 ssd.items() if dt == "float32"),
-         "cases": [{k: r[k] for k in ("shape", "max_abs_err_y",
+         "device_ms": ssd[("l=256", "bfloat16")]["device_ms"],
+         "plan": ssd[("l=256", "bfloat16")]["plan"],
+         "cases": [{k: r[k] for k in ("shape", "plan", "max_abs_err_y",
                                       "max_abs_err_state", "tol_y",
-                                      "tol_state", "ms", "plain_ms",
-                                      "bound_ms", "bound_by") if k in r}
+                                      "tol_state", "ms", "device_ms",
+                                      "plain_ms", "bound_ms", "bound_by")
+                    if k in r}
                    for r in ssd.values()],
          "launches_per_prefill": ssm_per_prefill,
          "device_kernels_per_call": ssm_per_call[ssd_ops.COUNTER.name],

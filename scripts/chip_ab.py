@@ -25,7 +25,11 @@ own kernel build directory) and prints one line ``AB <tree> <json>``:
   as well; ``bwd_fused`` at B 2048 × D 512
   (f32 and bf16) and ragged B 1000, ``grads`` at B 2048 × D 1024 and
   B 8192 × D 256 / 1024 (f32); ``row_col_lse`` at B 2048 and 8192 × D 1024
-  (f32);
+  (f32); ``fwd_fused`` at B 2048 × D 512 (f32 and bf16) and ragged B 1000
+  (f32), and ``ssd_scan`` at Mamba-2-130M's widths (h 24, p 64, n 128;
+  inputs as the mixer's split views) at b 1 × l 256 (bf16 and f32),
+  b 1 × l 1024 and b 8 × l 256 (f32) and l 244 with an initial state
+  (bf16), these two also with their device time per call;
 - ``--train``: ``repro_torch.launch.train.main`` with ``chip_smoke.py``'s
   timed-training arguments (BASIC-S bf16, B 2048 in 8 microbatches, 6
   steps): warm step median, pairs/s, peak memory, step times;
@@ -188,6 +192,34 @@ for fn, b, d, dt in (("bwd_fused", 2048, 512, torch.float32),
     ms = time_ms(lambda: f(x, y, it, r, c), n, w)
     out[f"{fn} {b}x{d} {str(dt).removeprefix('torch.')}"] = [round(ms, 4),
                                                              err]
+for b, dt in ((2048, torch.float32), (2048, torch.bfloat16),
+              (1000, torch.float32)):
+    g = torch.Generator(device=dev).manual_seed(b + 512)
+    x, y = unit_rows(b, 512, g, dt), unit_rows(b, 512, g, dt)
+    it = torch.tensor(1 / 0.07, device=dev)
+    want = clr.fwd_fused_ref(x, y, it)
+    got = cl.fwd_fused(x, y, it)
+    err = max((a - r).abs().max().item() for a, r in zip(got, want))
+    f = lambda: cl.fwd_fused(x, y, it)
+    out[f"fwd_fused {b}x512 {str(dt).removeprefix('torch.')}"] = [
+        round(time_ms(f), 4), err, round(device_ms(f), 4)]
+from chip_smoke import plain_scan, ssd_inputs
+from repro_torch.kernels.ssd_scan import ops as ssd
+for label, b, l, dt, init in (("b1 l256", 1, 256, torch.bfloat16, False),
+                              ("b1 l256", 1, 256, torch.float32, False),
+                              ("b1 l1024", 1, 1024, torch.float32, False),
+                              ("b8 l256", 8, 256, torch.float32, True),
+                              ("b1 l244 init", 1, 244, torch.bfloat16,
+                               True)):
+    x, dtt, A, Bm, Cm, D, s0 = ssd_inputs(b, l, dt, 60, init)
+    f = lambda: ssd.ssd_scan(x, dtt, A, Bm, Cm, D, chunk=256, init_state=s0)
+    got = f()
+    want = plain_scan(x, dtt, A, Bm, Cm, D, chunk=256, init_state=s0)
+    # max abs error over y and the final state, each over its max |ref|
+    err = max(((a - r).abs().max() / r.abs().max()).item()
+              for a, r in zip(got, want))
+    out[f"ssd_scan {label} {str(dt).removeprefix('torch.')}"] = [
+        round(time_ms(f), 4), err, round(device_ms(f), 4)]
 print("RESULT", json.dumps(out))
 '''
 

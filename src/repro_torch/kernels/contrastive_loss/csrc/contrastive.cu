@@ -26,21 +26,19 @@
 // sequential grid axis; CTAs here run in parallel and in no order, so
 // nothing is carried between them and no fp32 atomics are used, which
 // keeps every result the same from run to run:
-//   forward   one CTA per 64×64 tile of A (B = 2048 gives 1024 CTAs) writes
-//             partial row (max, sum) and partial column (max, sum) of its
-//             tile; a combine kernel folds the partials in a fixed order
-//             into row_lse and col_lse;
-//   row_col_lse  the TPU's two sweeps (_row_lse_kernel, _col_lse_kernel)
-//             each compute all of A; here one sweep over T × T tiles of A
-//             computes it once (2·B²·D flops, half the TPU's work). One CTA
-//             of 256 threads per tile (T = 128, or 64 / 32 where ⌈B/T⌉²
-//             tiles of 128 would leave most of the 132 SMs idle; ops.lse_plan
-//             picks T) holds a (T/16)×(T/16) score block per thread (8×8 at
-//             T = 128: 16-byte loads of 8 X rows, the same across each
-//             half-warp, and of 8 Y rows feed 256 FMAs; two CTAs per SM),
-//             over 32-wide chunks of D that 16-byte cp.async copies stage
-//             double-buffered, the next chunk landing while this one is
-//             multiplied. From its tile
+//   forward   fwd_fused and row_col_lse compute the same function, so one
+//             launch sequence serves both entries. The TPU's row_col_lse
+//             runs two sweeps (_row_lse_kernel, _col_lse_kernel) that each
+//             compute all of A, its fwd_fused one sweep that carries column
+//             statistics; here one sweep over T × T tiles of A computes it
+//             once (2·B²·D flops). One CTA of 256 threads per tile (T =
+//             128, or 64 / 32 where ⌈B/T⌉² tiles of 128 would leave most of
+//             the 132 SMs idle; ops.lse_plan picks T) holds a (T/16)×(T/16)
+//             score block per thread (8×8 at T = 128: 16-byte loads of 8 X
+//             rows, the same across each half-warp, and of 8 Y rows feed 256
+//             FMAs; two CTAs per SM), over 32-wide chunks of D that 16-byte
+//             cp.async copies stage double-buffered, the next chunk landing
+//             while this one is multiplied. From its tile
 //             it writes partial row (max, sum) over its T columns (shuffles
 //             within the half-warp that holds a row) and partial column
 //             (max, sum) over its T rows (shuffles, then the 8 warps' values
@@ -91,118 +89,25 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 64;     // forward tile edge
-constexpr int kDC = 32;       // staged chunk of the embedding dim
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 // The contraction operand: dA as the TPU feeds it to the MXU.
 __device__ __forceinline__ float as_operand(float x, float) { return x; }
 __device__ __forceinline__ float as_operand(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Stage rows [r0, r0 + rows) x columns [d0, d0 + kDC) of a (B, D) matrix
-// into fp32 shared memory with row stride kDC + 1; entries past B or D
-// are zero.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(float* dst, const T* src, int r0,
-                                            int rows, int d0, int B, int D) {
-  for (int e = threadIdx.x; e < rows * kDC; e += kThreads) {
-    const int row = e / kDC, col = e % kDC;
-    const int g = r0 + row, d = d0 + col;
-    dst[row * (kDC + 1) + col] =
-        (g < B && d < D) ? to_f32(src[(size_t)g * D + d]) : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: one 64×64 tile of A per CTA -> partial row / column (max, sum)
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-contrastive_fwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                            const float* __restrict__ inv_tau_p,
-                            float* __restrict__ row_m,
-                            float* __restrict__ row_s,
-                            float* __restrict__ col_m,
-                            float* __restrict__ col_s, int B, int D) {
-  constexpr int CS = kDC + 1;
-  constexpr int AS = kTile + 1;
-  __shared__ float Xs[kTile * CS];
-  __shared__ float Ys[kTile * CS];
-  __shared__ float As[kTile * AS];
-
-  const int i0 = blockIdx.x * kTile;   // rows of A (X)
-  const int j0 = blockIdx.y * kTile;   // columns of A (Y)
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;
-  const int c = tid & 7;
-  const float inv_tau = *inv_tau_p;
-
-  float a[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) a[i][j] = 0.f;
-  for (int d0 = 0; d0 < D; d0 += kDC) {
-    __syncthreads();
-    stage_chunk(Xs, x, i0, kTile, d0, B, D);
-    stage_chunk(Ys, y, j0, kTile, d0, B, D);
-    __syncthreads();
-#pragma unroll 8
-    for (int d = 0; d < kDC; ++d) {
-      float xv[4], yv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = Xs[(r + 16 * i) * CS + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) yv[j] = Ys[(c + 8 * j) * CS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      As[(r + 16 * i) * AS + c + 8 * j] = a[i][j] * inv_tau;
-  __syncthreads();
-
-  // threads 0..63 reduce a row of the tile, 64..127 a column
-  const bool is_row = tid < kTile;
-  const int e = is_row ? tid : tid - kTile;
-  const int g = (is_row ? i0 : j0) + e;      // global row or column
-  const int n_other = min(kTile, B - (is_row ? j0 : i0));
-  if (g < B) {
-    float m = kNeg;
-    for (int o = 0; o < n_other; ++o)
-      m = fmaxf(m, is_row ? As[e * AS + o] : As[o * AS + e]);
-    float s = 0.f;
-    for (int o = 0; o < n_other; ++o)
-      s += expf((is_row ? As[e * AS + o] : As[o * AS + e]) - m);
-    if (is_row) {
-      row_m[(size_t)blockIdx.y * B + g] = m;
-      row_s[(size_t)blockIdx.y * B + g] = s;
-    } else {
-      col_m[(size_t)blockIdx.x * B + g] = m;
-      col_s[(size_t)blockIdx.x * B + g] = s;
-    }
-  }
-}
-
 // lse = logsumexp over the n partials (max, sum) of each of B rows and B
-// columns, folded in partial order: one thread per row or column.
-__device__ __forceinline__ void combine_partials(
-    const float* __restrict__ row_m, const float* __restrict__ row_s,
-    const float* __restrict__ col_m, const float* __restrict__ col_s,
-    float* __restrict__ row_lse, float* __restrict__ col_lse, int B, int n) {
+// columns, folded in partial order: one thread per row or column. The fold
+// of both forwards (fwd_fused's and row_col_lse's launch sequence).
+__global__ void __launch_bounds__(kThreads)
+contrastive_lse_combine_kernel(const float* __restrict__ row_m,
+                               const float* __restrict__ row_s,
+                               const float* __restrict__ col_m,
+                               const float* __restrict__ col_s,
+                               float* __restrict__ row_lse,
+                               float* __restrict__ col_lse, int B, int n) {
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= 2 * B) return;
   const bool is_row = idx < B;
@@ -215,28 +120,6 @@ __device__ __forceinline__ void combine_partials(
   for (int p = 0; p < n; ++p)
     s += ps[(size_t)p * B + g] * expf(pm[(size_t)p * B + g] - m);
   (is_row ? row_lse : col_lse)[g] = m + logf(s);
-}
-
-__global__ void __launch_bounds__(kThreads)
-contrastive_fwd_combine_kernel(const float* __restrict__ row_m,
-                               const float* __restrict__ row_s,
-                               const float* __restrict__ col_m,
-                               const float* __restrict__ col_s,
-                               float* __restrict__ row_lse,
-                               float* __restrict__ col_lse, int B, int n) {
-  combine_partials(row_m, row_s, col_m, col_s, row_lse, col_lse, B, n);
-}
-
-// row_col_lse's fold of its tiles' partials (its own name, so a profile
-// tells it from the fused forward's)
-__global__ void __launch_bounds__(kThreads)
-contrastive_lse_combine_kernel(const float* __restrict__ row_m,
-                               const float* __restrict__ row_s,
-                               const float* __restrict__ col_m,
-                               const float* __restrict__ col_s,
-                               float* __restrict__ row_lse,
-                               float* __restrict__ col_lse, int B, int n) {
-  combine_partials(row_m, row_s, col_m, col_s, row_lse, col_lse, B, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -718,28 +601,6 @@ contrastive_dtau_sum_kernel(const float* __restrict__ part,
   if (threadIdx.x == 0) *dtau = buf[0];
 }
 
-template <typename T>
-cudaError_t fwd(const void* x, const void* y, const void* inv_tau,
-                void* row_lse, void* col_lse, void* part, int B, int D,
-                cudaStream_t stream) {
-  const int n = (B + kTile - 1) / kTile;
-  float* p = static_cast<float*>(part);
-  float* row_m = p;
-  float* row_s = p + (size_t)n * B;
-  float* col_m = p + 2 * (size_t)n * B;
-  float* col_s = p + 3 * (size_t)n * B;
-  contrastive_fwd_tile_kernel<T><<<dim3(n, n), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const float*>(inv_tau), row_m, row_s, col_m, col_s, B, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  contrastive_fwd_combine_kernel<<<(2 * B + kThreads - 1) / kThreads,
-                                   kThreads, 0, stream>>>(
-      row_m, row_s, col_m, col_s, static_cast<float*>(row_lse),
-      static_cast<float*>(col_lse), B, n);
-  return cudaGetLastError();
-}
-
 template <typename T, int TILE>
 cudaError_t lse_tiles(const void* x, const void* y, const void* inv_tau,
                       void* row_lse, void* col_lse, void* part, int B, int D,
@@ -772,9 +633,11 @@ template <typename T>
 cudaError_t row_col_lse(const void* x, const void* y, const void* inv_tau,
                         void* row_lse, void* col_lse, void* part, int B,
                         int D, int tile, cudaStream_t stream) {
-  if (tile == 128)
-    return lse_tiles<T, 128>(x, y, inv_tau, row_lse, col_lse, part, B, D,
-                             stream);
+  if constexpr (sizeof(T) == 4) {   // bf16 at 128 spills (ops.lse_plan)
+    if (tile == 128)
+      return lse_tiles<T, 128>(x, y, inv_tau, row_lse, col_lse, part, B, D,
+                               stream);
+  }
   if (tile == 64)
     return lse_tiles<T, 64>(x, y, inv_tau, row_lse, col_lse, part, B, D,
                             stream);
@@ -829,19 +692,23 @@ cudaError_t bwd(const void* x, const void* y, const void* inv_tau,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, y: (B, D); inv_tau: one fp32 on the
-// device; row_lse, col_lse: (B,) fp32 outputs; part: fp32 scratch of
-// 4 * ceil(B / 64) * B entries. Returns the CUDA error code (0 on success).
+// device; row_lse, col_lse: (B,) fp32 outputs, from one sweep over tile ×
+// tile tiles of A (tile 128 in f32, 64 or 32; ops.lse_plan picks it) and
+// the combine, the launches of repro_contrastive_row_col_lse; part: fp32
+// scratch of 4 * ceil(B / tile) * B entries; any D. Returns the CUDA error
+// code (0 on success).
 extern "C" int repro_contrastive_fwd(const void* x, const void* y,
                                      const void* inv_tau, void* row_lse,
                                      void* col_lse, void* part, int dtype,
-                                     int B, int D, void* stream) {
-  if (B < 1 || D < 1 || B > 65535 * kTile) return (int)cudaErrorInvalidValue;
+                                     int B, int D, int tile, void* stream) {
+  if (B < 1 || D < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)fwd<float>(x, y, inv_tau, row_lse, col_lse, part, B, D, st);
+    return (int)row_col_lse<float>(x, y, inv_tau, row_lse, col_lse, part, B,
+                                   D, tile, st);
   if (dtype == 1)
-    return (int)fwd<__nv_bfloat16>(x, y, inv_tau, row_lse, col_lse, part, B,
-                                   D, st);
+    return (int)row_col_lse<__nv_bfloat16>(x, y, inv_tau, row_lse, col_lse,
+                                           part, B, D, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -870,24 +737,16 @@ extern "C" int repro_contrastive_bwd(const void* x, const void* y,
   return (int)cudaErrorInvalidValue;
 }
 
-// The legacy pair's forward: row_lse, col_lse (B,) fp32 outputs from one
-// sweep over tile × tile tiles of A (tile 128, 64 or 32; ops.lse_plan picks
-// it) and the combine; part: fp32 scratch of 4 * ceil(B / tile) * B
-// entries; any D. Returns the CUDA error code.
+// The legacy pair's forward, the TPU's row_col_lse: the same function as
+// the fused forward, so this runs that sequence with the same arguments and
+// limits as repro_contrastive_fwd.
 extern "C" int repro_contrastive_row_col_lse(const void* x, const void* y,
                                              const void* inv_tau,
                                              void* row_lse, void* col_lse,
                                              void* part, int dtype, int B,
                                              int D, int tile, void* stream) {
-  if (B < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)row_col_lse<float>(x, y, inv_tau, row_lse, col_lse, part, B,
-                                   D, tile, st);
-  if (dtype == 1)
-    return (int)row_col_lse<__nv_bfloat16>(x, y, inv_tau, row_lse, col_lse,
-                                           part, B, D, tile, st);
-  return (int)cudaErrorInvalidValue;
+  return repro_contrastive_fwd(x, y, inv_tau, row_lse, col_lse, part, dtype,
+                               B, D, tile, stream);
 }
 
 // The legacy pair's backward, the TPU's grads: its dX sweep and dY sweep

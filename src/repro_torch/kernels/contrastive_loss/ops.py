@@ -32,11 +32,13 @@ against Y, then Y against X), which is the TPU's ``grads`` loop, so
 ``grads`` here launches that same sequence under its own entry and
 counter, and there is nothing to fall back from. The TPU's
 ``row_col_lse`` runs a row sweep and a column sweep, each computing all of
-A; the Hopper kernel computes each tile of A once and folds partial row and
-column statistics, as ``fwd_fused`` does. Any B >= 1 is taken.
-``bwd_plan`` is the backward's launch plan (slices of the other rows,
-grid, scratch) and ``lse_plan`` that of ``row_col_lse`` (tile edge, grid,
-scratch), worked out here and passed to the kernels.
+A, and its ``fwd_fused`` one sweep that carries column statistics; on
+Hopper both compute each tile of A once and fold partial row and column
+statistics, one launch sequence (tile kernel + combine) that ``fwd_fused``
+and ``row_col_lse`` each run under their own entry and counter. Any B >= 1
+is taken. ``bwd_plan`` is the backward's launch plan (slices of the other
+rows, grid, scratch) and ``lse_plan`` that of both forwards (tile edge,
+grid, scratch), worked out here and passed to the kernels.
 """
 from __future__ import annotations
 
@@ -53,7 +55,6 @@ from repro_torch.kernels.contrastive_loss.ref import (bwd_fused_ref,
                                                       row_col_lse_ref)
 
 MAX_D = 1024          # the backward keeps its dX / dY rows in shared memory
-FWD_TILE = 64         # edge of the forward's A tile (csrc kTile)
 BWD_ROWS = 32         # rows of X (Y) per backward CTA (csrc kGS)
 BWD_TILE = 256        # other rows per backward tile (csrc kGO)
 MAX_SLICES = 8        # bounds the backward's scratch at 8 × (dX + dY)
@@ -68,7 +69,7 @@ LIB = KernelLibrary(
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "contrastive.cu"),
     {"repro_contrastive_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _P]),
+                                    _I, _P]),
      "repro_contrastive_bwd": (_I, _BWD_ARGS),
      "repro_contrastive_row_col_lse": (_I, [_P, _P, _P, _P, _P, _P, _I, _I,
                                             _I, _I, _P]),
@@ -103,28 +104,38 @@ def _check_kernel_inputs(what: str, x, y, *rest):
         raise ValueError(f"{what} kernel needs contiguous x, y")
 
 
+def _lse(what, entry, counter, ref, x, y, inv_tau):
+    """Row and column LSE through C entry ``entry`` (the tile sweep and
+    the combine under ``lse_plan``), counted on ``counter``; ``ref`` on a
+    CPU tensor."""
+    inv = _inv_tau_tensor(inv_tau, x)
+    if x.device.type == "cpu":
+        return ref(x, y, inv)
+    _check_kernel_inputs(what, x, y, inv)
+    b, d = x.shape
+    plan = lse_plan(b, x.dtype)
+    row_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
+    col_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.scratch_floats,), dtype=torch.float32,
+                       device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = getattr(LIB.lib(), entry)(
+            x.data_ptr(), y.data_ptr(), inv.data_ptr(), row_lse.data_ptr(),
+            col_lse.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, d,
+            plan.tile, stream)
+    check(rc, f"contrastive {what} launch")
+    counter.add()
+    return row_lse, col_lse
+
+
 def fwd_fused(x: torch.Tensor, y: torch.Tensor,
               inv_tau: Union[float, torch.Tensor]):
     """x, y: (B, D) f32 or bf16; inv_tau: scalar. Returns (row_lse,
-    col_lse), each (B,) fp32, of A = X·Yᵀ·inv_tau."""
-    inv = _inv_tau_tensor(inv_tau, x)
-    if x.device.type == "cpu":
-        return fwd_fused_ref(x, y, inv)
-    _check_kernel_inputs("fwd_fused", x, y, inv)
-    b, d = x.shape
-    n = -(-b // FWD_TILE)
-    row_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
-    col_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
-    part = torch.empty((4 * n * b,), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = LIB.lib().repro_contrastive_fwd(
-            x.data_ptr(), y.data_ptr(), inv.data_ptr(), row_lse.data_ptr(),
-            col_lse.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, d,
-            stream)
-    check(rc, "contrastive fwd_fused launch")
-    FWD_COUNTER.add()
-    return row_lse, col_lse
+    col_lse), each (B,) fp32, of A = X·Yᵀ·inv_tau, from one sweep over
+    tiles of A and a combine of the tiles' partials (``lse_plan``)."""
+    return _lse("fwd_fused", "repro_contrastive_fwd", FWD_COUNTER,
+                fwd_fused_ref, x, y, inv_tau)
 
 
 class BwdPlan(NamedTuple):
@@ -216,23 +227,25 @@ def bwd_fused(x: torch.Tensor, y: torch.Tensor,
 
 
 class LsePlan(NamedTuple):
-    """The ``row_col_lse`` launch at batch B: ``tile`` × ``tile`` tiles of
-    A, ``tiles`` of them along each side, grid (tiles, tiles), and the fp32
-    scratch of partial row and column (max, sum): ``scratch_floats`` =
-    4 · tiles · B."""
+    """The forwards' launch (``fwd_fused``, ``row_col_lse``) at batch B:
+    ``tile`` × ``tile`` tiles of A, ``tiles`` of them along each side,
+    grid (tiles, tiles), and the fp32 scratch of partial row and column
+    (max, sum): ``scratch_floats`` = 4 · tiles · B."""
     tile: int
     tiles: int
     grid: tuple
     scratch_floats: int
 
 
-def lse_plan(b: int) -> LsePlan:
+def lse_plan(b: int, dtype=torch.float32) -> LsePlan:
     """The largest tile edge whose ⌈B/T⌉² tiles give every SM a CTA (128
     from B = 1409), else the smallest (32): more, smaller tiles where 128
     would leave most of the card idle (B 512 gives 16 tiles of 128, 256 of
-    32)."""
-    tile = next((t for t in LSE_TILES if (-(-b // t)) ** 2 >= SMS),
-                LSE_TILES[-1])
+    32). bf16 inputs take 64 at most: the 8×8 register block of a 128 tile
+    spills when each load widens bf16 to fp32 (1.6× slower at B 2048 × D
+    512 than 64, PERF.md §6)."""
+    tiles = LSE_TILES if dtype == torch.float32 else LSE_TILES[1:]
+    tile = next((t for t in tiles if (-(-b // t)) ** 2 >= SMS), tiles[-1])
     n = -(-b // tile)
     return LsePlan(tile, n, (n, n), 4 * n * b)
 
@@ -240,27 +253,10 @@ def lse_plan(b: int) -> LsePlan:
 def row_col_lse(x: torch.Tensor, y: torch.Tensor,
                 inv_tau: Union[float, torch.Tensor]):
     """The legacy pair's forward: (row_lse, col_lse), each (B,) fp32, of
-    A = X·Yᵀ·inv_tau, from one sweep over tiles of A and a combine of the
-    tiles' partials (``lse_plan``)."""
-    inv = _inv_tau_tensor(inv_tau, x)
-    if x.device.type == "cpu":
-        return row_col_lse_ref(x, y, inv)
-    _check_kernel_inputs("row_col_lse", x, y, inv)
-    b, d = x.shape
-    plan = lse_plan(b)
-    row_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
-    col_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
-    part = torch.empty((plan.scratch_floats,), dtype=torch.float32,
-                       device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = LIB.lib().repro_contrastive_row_col_lse(
-            x.data_ptr(), y.data_ptr(), inv.data_ptr(), row_lse.data_ptr(),
-            col_lse.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, d,
-            plan.tile, stream)
-    check(rc, "contrastive row_col_lse launch")
-    ROW_COL_LSE_COUNTER.add()
-    return row_lse, col_lse
+    A = X·Yᵀ·inv_tau, the same function as ``fwd_fused`` (and the same
+    device launches)."""
+    return _lse("row_col_lse", "repro_contrastive_row_col_lse",
+                ROW_COL_LSE_COUNTER, row_col_lse_ref, x, y, inv_tau)
 
 
 def grads(x: torch.Tensor, y: torch.Tensor,

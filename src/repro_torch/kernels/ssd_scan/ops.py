@@ -10,24 +10,36 @@ final state out. It keeps the mixer's layout, x (b, l, h, p) and y
 The chunk follows the reference's rule, ``min(chunk, l)`` dividing l
 (``ref.chunk_of``); a length it refuses raises ``ValueError`` on every
 device. On a CPU tensor the plain ``ref.ssd_chunked`` runs in that chunk.
-On a CUDA tensor the kernel launches or it raises; it scans in sub-chunks
-of its own 64 tokens, which changes the result only by rounding. It reads
-x, dt, B and C through their strides (the mixer passes split views of its
-conv output, so nothing is copied) and needs only their last dimension
-contiguous.
+On a CUDA tensor the kernel launches or it raises, one device kernel per
+call. It scans in sub-chunks of its own 64 tokens (``SUB``), which changes
+the result only by rounding: the sequence is cut into segments of whole
+sub-chunks, one CTA each, and the segments of one (batch, head, head_dim
+block) form a thread-block cluster that passes the state along in order
+(``ssd_plan`` picks the shape). It reads x, dt, B and C through their
+strides (the mixer passes split views of its conv output, 16-byte aligned
+at Mamba-2-130M, so nothing is copied) and needs only their last
+dimension contiguous; a view of x, B or C whose address or strides are not
+whole 16-byte units is copied to a contiguous tensor first.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
 from repro_torch.kernels.ssd_scan.ref import chunk_of, ssd_chunked
 
-P_BLOCK = 16         # head_dim columns per CTA (csrc kPB)
+SUB = 64             # tokens per sub-chunk (csrc kQ)
+P_BLOCKS = (64, 32, 16)  # head_dim columns per CTA
+MAX_CLUSTER = 8      # CTAs along the sequence in one cluster (csrc)
 MAX_STATE = 256      # largest state size n (csrc kMaxN)
+MAX_SMEM = 232448    # an H100 CTA's dynamic shared memory (csrc kMaxSmem)
+SM_SMEM = 233472     # an H100 SM's shared memory, 1 KB of it kept per CTA
+SMS = 132            # the H100's streaming multiprocessors
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -35,8 +47,111 @@ LIB = KernelLibrary(
     "ssd_scan",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "ssd.cu"),
-    {"repro_ssd_scan": (_I, [_P] * 9 + [_I] * 6 + [_L] * 9 + [_P])})
+    {"repro_ssd_scan": (_I, [_P] * 9 + [_I] * 6 + [_L] * 9 + [_I] * 4
+                        + [_L, _P])})
 COUNTER = LaunchCounter("ssd_scan")
+
+
+class SsdPlan(NamedTuple):
+    """The scan's launch: ``p_block`` head_dim columns per CTA, the
+    sequence's ``subchunks`` 64-token sub-chunks cut into ``cluster``
+    segments of ``per_cta`` (one CTA each, one thread-block cluster per
+    (batch, head, p-block)), ``stages`` staging buffers, grid
+    (cluster · b · h, p / p_block) of 256 threads, and ``smem`` bytes of
+    shared memory per CTA (the kernel's layout; the C entry refuses other
+    bytes)."""
+    p_block: int
+    subchunks: int
+    cluster: int
+    per_cta: int
+    stages: int
+    grid: tuple
+    smem: int
+
+    @property
+    def ctas(self) -> int:
+        """CTAs of the launch."""
+        return self.grid[0] * self.grid[1]
+
+
+def smem_bytes(item: int, p_block: int, n: int, stages: int,
+               per_cta: int) -> int:
+    """Shared memory of one CTA (csrc ``smem_bytes``): per stage B and C
+    (64 × (n16 + 8)) and x (64 × p_block) in the input dtype (``item``
+    bytes), dt and cum (64 fp32 each); then dt·x (64 × (p_block + 4)), the
+    decay (64), the published and the carried state (p_block × (n16 + 8)
+    each) in fp32 and 16 bytes; n16 is n rounded up to 16. With one
+    sub-chunk per CTA the carried state takes the staged B's place when it
+    fits there."""
+    ns = -(-n // 16) * 16 + 8
+    stage = 2 * SUB * ns * item + SUB * p_block * item + 2 * SUB * 4
+    state = p_block * ns * 4
+    in_b = per_cta == 1 and p_block * 4 <= SUB * item
+    return (stages * stage + SUB * (p_block + 4) * 4 + SUB * 4
+            + (1 if in_b else 2) * state + 16)
+
+
+def ctas_per_sm(smem: int, p_block: int) -> int:
+    """CTAs of the kernel an SM holds at once: by shared memory, and by
+    registers (two 256-thread CTAs of at most 128 registers a thread up to
+    32 head_dim columns, csrc ``__launch_bounds__``; one above)."""
+    return max(1, min(SM_SMEM // (smem + 1024), 2 if p_block <= 32 else 1))
+
+
+@functools.lru_cache(maxsize=256)   # host time: a prefill plans 24 calls
+def ssd_plan(b: int, l: int, h: int, p: int, n: int, dtype, *,
+             p_block=None, max_cluster: int = MAX_CLUSTER,
+             stages=None) -> SsdPlan:
+    """The launch at (b, l, h, p, n) and x's dtype. The sequence's
+    ⌈l / 64⌉ sub-chunks go to at most ``max_cluster`` CTAs, as evenly as
+    whole sub-chunks allow (none empty); with two sub-chunks or more a CTA
+    double-buffers its staging when that fits (else it restages one
+    buffer). The head_dim block (64, 32 or 16, dividing p, fitting the
+    shared memory) is the one whose grid takes the fewest waves of the
+    card (``ctas_per_sm`` a SM), of those the narrowest: more CTAs, each
+    shorter (the probes of PERF.md §6 find it fastest). ``p_block``,
+    ``max_cluster`` and ``stages`` force a choice (for probes and
+    tests). Raises ``ValueError`` for a shape the kernel does not
+    take."""
+    if p % 16 or n % 8 or not 8 <= n <= MAX_STATE:
+        raise ValueError(f"ssd_scan kernel needs head_dim a multiple of 16 "
+                         f"and a state size a multiple of 8 up to "
+                         f"{MAX_STATE}, got p={p}, n={n}")
+    if not 1 <= max_cluster <= MAX_CLUSTER:
+        raise ValueError(f"max_cluster must be 1..{MAX_CLUSTER}, got "
+                         f"{max_cluster}")
+    if stages not in (None, 1, 2):
+        raise ValueError(f"stages must be 1 or 2, got {stages}")
+    item = torch.finfo(dtype).bits // 8
+    subchunks = -(-l // SUB)
+    per = -(-subchunks // max_cluster)
+    cluster = -(-subchunks // per)
+    blocks = [pb for pb in P_BLOCKS if p % pb == 0]
+    if p_block is not None:
+        if p_block not in blocks:
+            raise ValueError(f"p_block {p_block} must be one of {P_BLOCKS} "
+                             f"and divide p={p}")
+        blocks = [p_block]
+
+    def stages_for(pb):
+        if stages is not None:
+            return stages
+        two = per > 1 and smem_bytes(item, pb, n, 2, per) <= MAX_SMEM
+        return 2 if two else 1
+
+    def smem_of(pb):
+        return smem_bytes(item, pb, n, stages_for(pb), per)
+    fits = [pb for pb in blocks if smem_of(pb) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"ssd_scan: no head_dim block fits shared memory "
+                         f"at p={p}, n={n}, {dtype}")
+
+    def waves(pb):
+        ctas = cluster * b * h * (p // pb)
+        return -(-ctas // (SMS * ctas_per_sm(smem_of(pb), pb)))
+    pb = min(fits, key=lambda q: (waves(q), q))
+    return SsdPlan(pb, subchunks, cluster, per, stages_for(pb),
+                   (cluster * b * h, p // pb), smem_of(pb))
 
 
 def _check_inputs(x, dt, A, Bm, Cm, D, init_state):
@@ -56,6 +171,17 @@ def _check_inputs(x, dt, A, Bm, Cm, D, init_state):
         raise ValueError("the SSD scan's inputs must be on one device")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its address and its strides but the last are whole 16-byte
+    units (what the kernel's 16-byte copies need), else a contiguous copy
+    (whose rows then are, as the wrapper's shape checks ensure)."""
+    unit = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % unit == 0
+                                      for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, D=None, *, chunk: int,
              init_state=None):
@@ -64,9 +190,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     fp32 with ``D·x`` added, final_state (b, h, p, n) fp32).
 
     The kernel takes x, Bm and Cm of one dtype, f32 or bf16; dt, A, D and
-    init_state in fp32; p a multiple of 16, n a multiple of 4 up to 256;
+    init_state in fp32; p a multiple of 16, n a multiple of 8 up to 256;
     x, dt, Bm, Cm with a contiguous last dimension. One call is one device
-    kernel."""
+    kernel, launched as ``ssd_plan`` says. x, Bm or Cm not laid out in
+    whole 16-byte units (address, strides) is first copied to a contiguous
+    tensor."""
     _check_inputs(x, dt, A, Bm, Cm, D, init_state)
     b, l, h, p = x.shape
     n = Bm.shape[-1]
@@ -82,13 +210,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            for t in (dt, A, D, init_state)):
         raise TypeError("ssd_scan kernel takes dt, A, D and init_state in "
                         "float32")
-    if p % P_BLOCK or n % 4 or n > MAX_STATE:
-        raise ValueError(f"ssd_scan kernel needs head_dim a multiple of "
-                         f"{P_BLOCK} and a state size a multiple of 4 up to "
-                         f"{MAX_STATE}, got p={p}, n={n}")
+    plan = ssd_plan(b, l, h, p, n, x.dtype)
     if any(t.stride(-1) != 1 for t in (x, dt, Bm, Cm)):
         raise ValueError("ssd_scan kernel needs x, dt, Bm and Cm with a "
                          "contiguous last dimension")
+    x, Bm, Cm = _aligned(x), _aligned(Bm), _aligned(Cm)
     A = A.contiguous()
     D = None if D is None else D.contiguous()
     init_state = None if init_state is None else init_state.contiguous()
@@ -103,7 +229,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             y.data_ptr(), final.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n,
             x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
             dt.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
-            Cm.stride(1), stream)
+            Cm.stride(1), plan.p_block, plan.cluster, plan.per_cta,
+            plan.stages, plan.smem, stream)
     check(rc, "ssd_scan launch")
     COUNTER.add()
     return y, final

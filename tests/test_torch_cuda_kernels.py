@@ -15,11 +15,18 @@ the plain version the normalised p: each term moves by at most 2^-9 of
 itself, far below one output ulp); lse 5e-5 in both dtypes (fp32 on both
 sides); top-k values, 1e-4 (fp32 dot products of unit vectors
 times 1/0.07), with indices equal wherever the plain version's values are
-further apart than that.
+further apart than that; the fused contrastive forward, LSE 5e-5 (fp32
+sums of up to 2048 exponentials of values up to ~15 in another order) and
+bit for bit equal to ``row_col_lse`` (one launch sequence serves both); at
+B = 1 the fused backward's dA = exp(A − row_lse) + exp(A − col_lse) − 2
+cancels to exactly 0, which holds only while every kernel forms A in the
+same order.
 """
 import pytest
 import torch
 
+from repro_torch.kernels.contrastive_loss import ops as cl_ops
+from repro_torch.kernels.contrastive_loss.ref import fwd_fused_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_fwd_ref
 from repro_torch.kernels.similarity_topk import ops as topk_ops
@@ -322,3 +329,49 @@ def test_topk_kernel_matches_plain_at_each_block_size(gen, rows):
                                        block_rows=rows)
     ref_v, _ = similarity_topk_ref(x, c, 5, 1 / 0.07)
     assert float((vals - ref_v).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d", [(2048, 512), (1000, 512), (1, 512),
+                                 (130, 200)])
+def test_fwd_fused_kernel_matches_plain_and_row_col_lse(gen, b, d, dtype):
+    x, y = _unit(b, d, gen, dtype), _unit(b, d, gen, dtype)
+    it = torch.tensor(1 / 0.07, device="cuda")
+    before = (cl_ops.FWD_COUNTER.count, cl_ops.ROW_COL_LSE_COUNTER.count)
+    row, col = cl_ops.fwd_fused(x, y, it)
+    assert cl_ops.FWD_COUNTER.count == before[0] + 1
+    assert cl_ops.ROW_COL_LSE_COUNTER.count == before[1]
+    ref_row, ref_col = fwd_fused_ref(x, y, it)
+    assert float((row - ref_row).abs().max()) <= 5e-5
+    assert float((col - ref_col).abs().max()) <= 5e-5
+    lrow, lcol = cl_ops.row_col_lse(x, y, it)
+    assert torch.equal(row, lrow) and torch.equal(col, lcol)
+    again = cl_ops.fwd_fused(x, y, it)
+    assert torch.equal(again[0], row) and torch.equal(again[1], col)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 512, 1024])
+def test_fwd_fused_lets_the_backward_cancel_at_one_pair(gen, d, dtype):
+    """B = 1: row_lse = col_lse = A, so dA = 1 + 1 − 2 = 0 bit for bit
+    when the backward recomputes A in the forward's order."""
+    x, y = _unit(1, d, gen, dtype), _unit(1, d, gen, dtype)
+    it = torch.tensor(1 / 0.07, device="cuda")
+    row, col = cl_ops.fwd_fused(x, y, it)
+    dx, dy, _ = cl_ops.bwd_fused(x, y, it, row, col)
+    assert not bool(dx.any()) and not bool(dy.any())
+
+
+def test_fwd_fused_is_the_tile_sweep_and_its_combine(gen):
+    """One call: the two device kernels of row_col_lse's sequence."""
+    from torch.profiler import ProfilerActivity, profile
+    x, y = (_unit(2048, 512, gen, torch.float32) for _ in range(2))
+    cl_ops.fwd_fused(x, y, 1 / 0.07)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cl_ops.fwd_fused(x, y, 1 / 0.07)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert any("contrastive_lse_tile_kernel" in n for n in names), names
+    assert any("contrastive_lse_combine_kernel" in n for n in names), names

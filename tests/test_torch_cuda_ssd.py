@@ -11,9 +11,15 @@ Tolerance: 2e-5 of the tensor's max |value|, for y and the final state,
 f32 and bf16 inputs alike: the reference's own kernel-vs-``ssd_chunked``
 tolerance (tests/test_kernels.py). Both sides read the same values and
 accumulate in fp32; the kernel sums in another order and in sub-chunks of
-64 tokens. Two launches on the same inputs give the same bits.
+64 tokens, its f32 products split 3×TF32 (about 2^-21 of each product).
+Two launches on the same inputs give the same bits. The edges are those of
+the launch plan (``ops.ssd_plan``): one token, a sub-chunk and one token
+either side of it, a cluster of one to eight CTAs along the sequence, one,
+two and more sub-chunks per CTA, one or two staging buffers, each head_dim
+block.
 """
 import dataclasses
+import functools
 from unittest import mock
 
 import numpy as np
@@ -58,6 +64,17 @@ def _inputs(gen, b, l, h, p, n, dtype, init=False, split=True):
     return x, dt, A, Bm, Cm, D, s0
 
 
+def _ref_chunk(l):
+    """The plain version's chunk for a sequence of l tokens: 256 where the
+    chunk rule takes it, else the largest divisor of l up to 64 (l 513:
+    57). One chunk of 513 tokens would make the plain version's own fp32
+    running sums of dt·A the larger error; the kernel's result does not
+    depend on the chunk but by rounding."""
+    if l <= 256 or l % 256 == 0:
+        return chunk_of(l, 256)
+    return max(c for c in range(1, 65) if l % c == 0)
+
+
 def _assert_close(got, ref):
     err = (got - ref).abs().max().item()
     assert bool(torch.isfinite(got).all())
@@ -86,6 +103,74 @@ def test_ssd_kernel_matches_plain(gen, b, l, h, p, n, chunk, init, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,init,use_d,split", [
+    (1, 1, False, True, True),            # one token
+    (1, 63, True, True, True),            # one sub-chunk, one row short
+    (1, 64, False, False, True),          # exactly one sub-chunk
+    (1, 65, True, True, False),           # one token into a second one
+    (1, 244, True, True, True),           # the serving prefill, ragged
+    (1, 256, False, True, False),
+    (1, 513, True, True, True),           # 9 sub-chunks: 5 CTAs of 2
+    (1, 1024, False, True, True),         # 8 CTAs of 2 sub-chunks
+    (1, 1024, True, False, False),
+    (8, 256, True, True, True),           # the timed serving batch
+])
+def test_ssd_kernel_at_the_plans_edges(gen, b, l, init, use_d, split,
+                                       dtype):
+    x, dt, A, Bm, Cm, D, s0 = _inputs(gen, b, l, 24, 64, 128, dtype, init,
+                                      split)
+    D = D if use_d else None
+    chunk = l if l > 256 and l % 256 else 256   # the chunk rule takes it
+    y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0)
+    yr, fr = ssd_chunked(x, dt, A, Bm, Cm, _ref_chunk(l), s0, D)
+    _assert_close(y, yr)
+    _assert_close(f, fr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,force", [
+    (513, dict(max_cluster=2)),            # 5 sub-chunks a CTA, restaged
+    (513, dict(max_cluster=3, stages=1)),  # one buffer, restaged
+    (1024, dict(max_cluster=1)),           # one CTA walks 16 sub-chunks
+    (256, dict(p_block=64)),
+    (256, dict(p_block=16)),
+    (200, dict(max_cluster=2, p_block=16, stages=1)),
+])
+def test_ssd_kernel_under_each_plan(gen, l, force, dtype):
+    """Plans the shape rule does not pick at Mamba-2-130M's widths: more
+    sub-chunks per CTA than two staging buffers hold, one buffer, one CTA,
+    each head_dim block; the result is the same function."""
+    x, dt, A, Bm, Cm, D, s0 = _inputs(gen, 2, l, 24, 64, 128, dtype, True)
+    plan = functools.partial(ssd_ops.ssd_plan, **force)
+    chunk = l if l > 256 and l % 256 else 256
+    with mock.patch.object(ssd_ops, "ssd_plan", plan):
+        y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                init_state=s0)
+    yr, fr = ssd_chunked(x, dt, A, Bm, Cm, _ref_chunk(l), s0, D)
+    _assert_close(y, yr)
+    _assert_close(f, fr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_copies_a_view_off_16_byte_units(gen, dtype):
+    """x, B and C one element into their buffer: not 16-byte aligned, so
+    the wrapper copies them to contiguous tensors, as its docstring says;
+    the result is the scan of the same values."""
+    b, l, h, p, n = 1, 130, 4, 32, 16
+    buf = torch.randn((b, l, h * p + 2 * n + 1), generator=gen,
+                      device="cuda").to(dtype)
+    x = buf[..., 1:1 + h * p].reshape(b, l, h, p)
+    Bm, Cm = buf[..., 1 + h * p:1 + h * p + n], buf[..., 1 + h * p + n:]
+    assert x.data_ptr() % 16 != 0
+    _, dt, A, _, _, D, s0 = _inputs(gen, b, l, h, p, n, dtype, True)
+    y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=256, init_state=s0)
+    yr, fr = ssd_chunked(x.contiguous(), dt, A, Bm.contiguous(),
+                         Cm.contiguous(), chunk_of(l, 256), s0, D)
+    _assert_close(y, yr)
+    _assert_close(f, fr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_the_recurrence(gen, dtype):
     x, dt, A, Bm, Cm, D, s0 = _inputs(gen, 2, 128, 4, 32, 16, dtype,
                                       init=True, split=False)
@@ -109,8 +194,11 @@ def test_ssd_kernel_decay_extremes_stay_finite(gen, dtype):
     _assert_close(f, fr)
 
 
-def test_ssd_kernel_is_bit_identical_across_launches(gen):
-    args = _inputs(gen, 2, 512, 24, 64, 128, torch.bfloat16, init=True)
+@pytest.mark.parametrize("l,dtype", [(512, torch.bfloat16),
+                                     (1024, torch.float32),
+                                     (244, torch.float32)])
+def test_ssd_kernel_is_bit_identical_across_launches(gen, l, dtype):
+    args = _inputs(gen, 2, l, 24, 64, 128, dtype, init=True)
     runs = [ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
             for _ in range(3)]
     for y, f in runs[1:]:
@@ -143,6 +231,9 @@ def test_ssd_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="up to 256"):
         big = torch.zeros((1, 64, 260), device="cuda")
         ssd_ops.ssd_scan(x, dt, A, big, big, D, chunk=64)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        odd = torch.zeros((1, 64, 12), device="cuda")
+        ssd_ops.ssd_scan(x, dt, A, odd, odd, D, chunk=64)
     with pytest.raises(ValueError, match="contiguous last"):
         ssd_ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
                          A, Bm, Cm, D, chunk=64)
@@ -191,3 +282,18 @@ def test_mamba_prefill_kernel_path_matches_plain_path(gen, precision):
     with pytest.raises(ValueError, match="multiple of it"):
         tf.prefill(cfg, params, {"tokens": toks[:, :300]},
                    precision=precision)
+
+
+def test_ssd_kernel_is_one_device_kernel_per_call(gen):
+    from torch.profiler import ProfilerActivity, profile
+    args = _inputs(gen, 1, 1024, 24, 64, 128, torch.bfloat16, init=True)
+    ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert len(names) == 3 and all("ssd_scan_kernel" in n for n in names), \
+        names

@@ -21,6 +21,14 @@ build cache's hash over the headers a kernel source includes.
   the class axis into ranges of whole lanes that fill the card once, within
   the merge's buffers, and counts the CTA's shared memory as the kernel
   does.
+- ``ssd_scan.ops.ssd_plan`` cuts the sequence's 64-token sub-chunks into
+  at most 8 segments of whole sub-chunks (one CTA each, one cluster per
+  (batch, head, head_dim block)), covers a ragged tail, fits one CTA's
+  shared memory at every state size up to 256 in both dtypes, gives the
+  card at least 132 CTAs at the serving prefill, and refuses what the
+  kernel does not take.
+- ``contrastive_loss.ops.fwd_fused`` runs ``row_col_lse``'s launch
+  sequence: one C signature, ``lse_plan``'s tile and scratch.
 """
 import os
 
@@ -35,6 +43,7 @@ from repro_torch.kernels.contrastive_loss import ops as cl_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.similarity_topk import ops as topk_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, _scores,
                                                      flash_fwd_ref)
 
@@ -61,6 +70,16 @@ def test_lse_plan_covers_b_and_sizes_its_scratch(b):
 def test_lse_plan_at_the_bench_shapes(b, tile, tiles):
     plan = cl_ops.lse_plan(b)
     assert (plan.tile, plan.tiles) == (tile, tiles)
+
+
+@pytest.mark.parametrize("b", [1, 512, 1000, 1408, 1409, 2048, 8192])
+def test_lse_plan_keeps_bf16_tiles_at_64(b):
+    """bf16 takes the f32 plan's edge capped at 64 (a 128 tile spills);
+    the tiles still cover B and the scratch follows the edge."""
+    plan = cl_ops.lse_plan(b, torch.bfloat16)
+    assert plan.tile == min(cl_ops.lse_plan(b).tile, 64)
+    assert (plan.tiles - 1) * plan.tile < b <= plan.tiles * plan.tile
+    assert plan.scratch_floats == 4 * plan.tiles * b
 
 
 @pytest.mark.parametrize("bh,s,t,d,warps,key_tile,blocks", [
@@ -304,10 +323,106 @@ def test_topk_plan_smem_and_row_blocks():
 
 
 def test_serving_libraries_hash_the_shared_header():
-    """decode.cu and topk.cu take cp.async (and ldmatrix, mma) from the
-    flash kernels' header; an edit to it rebuilds them too."""
-    for lib in (dec_ops.LIB, topk_ops.LIB):
+    """decode.cu, topk.cu and ssd.cu take cp.async (and ldmatrix, mma) from
+    the flash kernels' header; an edit to it rebuilds them too."""
+    for lib in (dec_ops.LIB, topk_ops.LIB, ssd_ops.LIB):
         files = build.source_files(lib.source)
         assert files[0] == lib.source
         assert [os.path.basename(f) for f in files[1:]] == ["tc.cuh"]
         assert files[1] == build.source_files(fa_ops.LIB.source)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n", [
+    (1, 1, 24, 64, 128), (1, 63, 24, 64, 128), (1, 64, 24, 64, 128),
+    (1, 65, 24, 64, 128), (1, 244, 24, 64, 128), (1, 256, 24, 64, 128),
+    (1, 513, 24, 64, 128), (1, 1024, 24, 64, 128), (8, 256, 24, 64, 128),
+    (1, 4096, 24, 64, 128), (2, 200, 4, 48, 256), (1, 13, 2, 16, 8),
+    (2, 96, 3, 32, 16)])
+def test_ssd_plan_covers_the_sequence(b, l, h, p, n, dtype):
+    plan = ssd_ops.ssd_plan(b, l, h, p, n, dtype)
+    sub = ssd_ops.SUB
+    assert plan.subchunks == -(-l // sub)
+    # whole sub-chunks, none of the cluster's CTAs empty
+    assert 1 <= plan.cluster <= ssd_ops.MAX_CLUSTER
+    assert plan.cluster * plan.per_cta >= plan.subchunks
+    assert (plan.cluster - 1) * plan.per_cta < plan.subchunks
+    assert plan.per_cta == -(-plan.subchunks // ssd_ops.MAX_CLUSTER)
+    assert p % plan.p_block == 0 and plan.p_block in ssd_ops.P_BLOCKS
+    assert plan.grid == (plan.cluster * b * h, p // plan.p_block)
+    assert plan.ctas == plan.grid[0] * plan.grid[1]
+    assert plan.stages in (1, 2) and (plan.stages == 1 or plan.per_cta > 1)
+    item = torch.finfo(dtype).bits // 8
+    assert plan.smem == ssd_ops.smem_bytes(item, plan.p_block, n,
+                                           plan.stages, plan.per_cta)
+    assert plan.smem <= ssd_ops.MAX_SMEM
+    # no other head_dim block takes fewer waves of the card
+    def waves(q):
+        return -(-q.ctas // (ssd_ops.SMS * ssd_ops.ctas_per_sm(q.smem,
+                                                               q.p_block)))
+    for pb in ssd_ops.P_BLOCKS:
+        if p % pb == 0:
+            assert waves(plan) <= waves(ssd_ops.ssd_plan(b, l, h, p, n, dtype,
+                                                         p_block=pb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8])
+def test_ssd_plan_fills_the_card_at_the_serving_prefill(b, dtype):
+    for l in (244, 256):
+        plan = ssd_ops.ssd_plan(b, l, 24, 64, 128, dtype)
+        assert plan.ctas >= ssd_ops.SMS
+        assert plan.cluster == 4 and plan.per_cta == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [16, 48, 64, 128])
+def test_ssd_plan_fits_shared_memory_at_every_state_size(p, dtype):
+    for n in range(8, 257, 8):
+        for l in (1, 256, 1024, 8192):
+            plan = ssd_ops.ssd_plan(1, l, 24, p, n, dtype)
+            assert plan.smem <= ssd_ops.MAX_SMEM
+    # the layout: staged B, C, x in the input dtype, the states in fp32
+    assert ssd_ops.smem_bytes(4, 32, 128, 1, 2) == (
+        2 * 64 * 136 * 4 + 64 * 32 * 4 + 2 * 64 * 4 + 64 * 36 * 4 + 64 * 4
+        + 2 * 32 * 136 * 4 + 16)
+    assert (ssd_ops.smem_bytes(2, 32, 128, 2, 2) - ssd_ops.smem_bytes(
+        2, 32, 128, 1, 2) == 2 * 64 * 136 * 2 + 64 * 32 * 2 + 2 * 64 * 4)
+    # one sub-chunk a CTA: the carried state in the staged B's place, where
+    # it fits (f32 up to 64 columns, bf16 up to 32)
+    for item, pb, fits in ((4, 64, True), (4, 32, True), (2, 32, True),
+                           (2, 64, False)):
+        saved = (ssd_ops.smem_bytes(item, pb, 128, 1, 2)
+                 - ssd_ops.smem_bytes(item, pb, 128, 1, 1))
+        assert saved == (pb * 136 * 4 if fits else 0)
+
+
+def test_ssd_plan_takes_forced_choices_and_refuses_the_rest():
+    plan = ssd_ops.ssd_plan(1, 513, 24, 64, 128, torch.float32,
+                            max_cluster=2, p_block=16, stages=1)
+    assert (plan.cluster, plan.per_cta, plan.p_block, plan.stages) == (
+        2, 5, 16, 1)
+    for kw in (dict(p_block=48), dict(max_cluster=9), dict(max_cluster=0),
+               dict(stages=3)):
+        with pytest.raises(ValueError):
+            ssd_ops.ssd_plan(1, 256, 24, 64, 128, torch.float32, **kw)
+    for p, n in ((24, 128), (64, 12), (64, 264), (64, 0)):
+        with pytest.raises(ValueError, match="multiple of"):
+            ssd_ops.ssd_plan(1, 256, 24, p, n, torch.float32)
+
+
+def test_fwd_fused_runs_row_col_lses_launches():
+    """One C signature (the tile edge passed in), one plan: the fused
+    forward allocates ``lse_plan``'s scratch, 4 · ⌈B/T⌉ · B floats, and no
+    64-tile forward is left."""
+    sig = cl_ops.LIB.signatures
+    assert sig["repro_contrastive_fwd"] == sig[
+        "repro_contrastive_row_col_lse"]
+    assert not hasattr(cl_ops, "FWD_TILE")
+    for b in (2048, 1000):
+        plan = cl_ops.lse_plan(b)
+        assert plan.scratch_floats == 4 * plan.tiles * b
+    with open(cl_ops.LIB.source) as f:
+        text = f.read()
+    assert "contrastive_fwd_tile_kernel" not in text
+    assert "contrastive_fwd_combine_kernel" not in text
