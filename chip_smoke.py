@@ -38,10 +38,10 @@ repository beside this file; it exits non-zero without them. In order it:
    plain versions at B = 2048 and a ragged B = 1000 (D = 512, f32 and
    bf16, and the backward with ``with_diag=False`` and ``b_norm != B``),
    the forward also against ``row_col_lse`` bit for bit (one launch
-   sequence serves both), and times kernel (the forward also by its device
-   time), plain version and the materialising PyTorch calls, printing the
-   forward's launch plan (``lse_plan``) and the backward's (grid, slices,
-   scratch bytes);
+   sequence serves both), and times kernel (the forward also by its
+   device time), plain version and the materialising PyTorch calls (f32
+   at both batches, bf16 at B = 2048), printing the forward's launch plan
+   (``lse_plan``) and the backward's (grid, slices, scratch bytes);
 7. holds the legacy 4-pass pair, ``row_col_lse`` and ``grads``, against
    their plain versions at ``benchmarks/kernel_bench.py``'s six shapes
    (B 512, 2048, 8192 × D 256, 1024; f32, timed), in bf16 at B = 2048 and
@@ -70,7 +70,25 @@ repository beside this file; it exits non-zero without them. In order it:
     pairs in 8 microbatches, 6 steps: step time, pairs per second, peak
     memory, losses, and the launches per step of the four training kernels;
     then profiles one warm step;
-11. holds the split-K decode-attention kernel against its plain version at
+11. the BASIC recipe through ``repro_torch.launch.train`` at full width
+    and depth (bf16, flash attention, remat ``basic``, 64 classes): phase
+    1 ``--mode pretrain`` (4 steps of B = 1024), phase 2 contrastive with
+    the pretrained image tower frozen (3 steps of B = 2048 in 8
+    microbatches; the tower must equal phase 1's times Π(1 − lr_t·0.0025)),
+    phase 3 finetune (2 steps at lr 5e-4); then ``evaluate_benchmark`` and
+    ``evaluate_with_service`` of the final model on the same 1024 fresh
+    images (the same top-1 on every row whose top-2 cosine gap exceeds
+    1e-5), and the zero-shot table (seen / unseen / shifted) on the card;
+    checks the launches of each part (flash in phase 1, the contrastive
+    kernels in phases 2 and 3, ``topk_fused`` in ``evaluate_with_service``
+    only) and prints step medians, images/s and pairs/s, peak memory and
+    the accuracy rows;
+12. the paper's §4.2 moment accumulation: one f32 step of BASIC-S (B =
+    256 in 2 microbatches, the kernel path) from ``microbatch_grads`` +
+    ``AdaFactorW.update_from_microbatches`` against ``contrastive_step`` +
+    ``update``: mean_K(c) against the gradient, the first moment, and the
+    peak memory of both;
+13. holds the split-K decode-attention kernel against its plain version at
     the decode path's shapes (8 slots × 8 kv heads × group 4, d 64, a
     cache of 8192; one lockstep request; d 128 with group 8; group 1),
     f32 and bf16, with per-slot lengths 0, 1, 255, 256, 257, ragged and
@@ -80,20 +98,20 @@ repository beside this file; it exits non-zero without them. In order it:
     serving state (~7% of the cache valid) and at a full cache; holds the
     flash forward against its plain version at the prefill shape (out and,
     within 5e-5, lse) and times it;
-12. decode parity: Llama-3.2-1B at full width and depth in f32 through
+14. decode parity: Llama-3.2-1B at full width and depth in f32 through
     ``transformer.prefill`` and ``decode_step`` on the kernel path (flash
     prefill, decode kernel) and the plain path (chunked prefill, einsum
     decode), teacher-forced with the same tokens, on a linear cache (4 ×
     512 tokens, cache 1024) and a ring that has wrapped (8704 tokens,
     cache 8192); then the continuous engine against the lockstep engine,
     request by request, on the kernel path;
-13. timed decode serving: ``repro_torch.launch.serve`` (``main``) with the
+15. timed decode serving: ``repro_torch.launch.serve`` (``main``) with the
     continuous engine at full width and depth, bf16, 8 slots, 16 requests
     of ~512-token prompts and 64 new tokens, a ring cache of 8192: tokens
     per second, decode-step median and p90, prefill ms, peak memory, and
     flash_fwd launches per prefill and decode_attention launches per step
     (16 each, one per layer); then profiles 4 warm decode steps;
-14. holds the SSD chunked-scan kernel against its plain version at
+16. holds the SSD chunked-scan kernel against its plain version at
     Mamba-2-130M's shapes (24 heads of 64, state 128; one chunk of 256, a
     ragged 244, four chunks of b 1 × 1024, b 8 × 256; with and without an
     initial state; the decay extremes dt 3, A -5 with no NaN), inputs laid
@@ -101,18 +119,18 @@ repository beside this file; it exits non-zero without them. In order it:
     printing each launch plan (``ssd_plan``), and times kernel (events,
     and its device time from the profiler) and plain version (no single
     PyTorch call computes the scan);
-15. SSM parity: Mamba-2-130M at full width and depth in f32 through
+17. SSM parity: Mamba-2-130M at full width and depth in f32 through
     ``transformer.prefill`` (2 × 1024 tokens) on the kernel path and on
     the plain path (the scan's plain version on the card), logits and the
     SSM and conv caches, then 16 teacher-forced decode steps; then the
     continuous engine against the lockstep engine, request by request;
-16. timed SSM serving: ``repro_torch.launch.serve`` (``main``) with the
+18. timed SSM serving: ``repro_torch.launch.serve`` (``main``) with the
     continuous engine, Mamba-2-130M bf16, 8 slots, 16 requests of 244–256
     prompt tokens and 64 new tokens: tokens per second, decode-step median
     and p90, prefill ms, peak memory, ssd_scan launches per prefill (24,
     one per layer); then profiles one warm prefill and 4 warm decode
     steps;
-17. prints a ``{"kernels": [...]}`` line and, last, the
+19. prints a ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -213,6 +231,9 @@ TRAIN_GRAD_RTOL = 1e-3
 # gradient's size, so an element may differ by up to 2·lr only where its
 # gradient is zero to within TRAIN_GRAD_RTOL of its leaf's largest
 TRAIN_UPDATE_TOL_LR = 0.02
+# §4.2 first moment: the K-step sum (1-β1)/K·c_i against (1-β1)·mean_K(c),
+# the same sum in fp32 in another grouping, a few ulps of each leaf's max
+MOMENT_M_RTOL = 1e-6
 # decode kernel f32: 2e-5 abs, the reference's (tests/test_decode_kernel.py);
 # fp32 sums over the keys in another order
 DEC_TOL_F32 = 2e-5
@@ -289,6 +310,23 @@ def profile_window(cpu: bool = True):
         prof.step()
 
 
+def retaken_window(fn, complete, cpu: bool = True, tries: int = 3):
+    """(profiler, ``fn()``'s result) of the first of up to ``tries``
+    ``profile_window``s over one call of ``fn`` that ``complete(prof,
+    result)`` accepts: the tracer now and then loses some of a window's
+    device records. The last window is returned whatever it holds, and its
+    caller fails on what is missing there."""
+    for attempt in range(tries):
+        with profile_window(cpu) as prof:
+            out = fn()
+        if complete(prof, out):
+            break
+        if attempt + 1 < tries:
+            print("profile: the tracer lost device records of the window; "
+                  "it is taken again", flush=True)
+    return prof, out
+
+
 def device_events(prof):
     """The device-side events of a ``profile_window``: its kernels and
     copies, without the step annotation (``ProfilerStep#n``) that spans the
@@ -306,22 +344,27 @@ def device_ms(fn, names=None, iters: int = 20):
     duration times its launches per call, rounded: the profiler now and
     then drops one event of a window, which would otherwise read as a
     call without that kernel. A window with no record at all is retaken
-    twice; after that it raises."""
+    (``retaken_window``); after the third it raises."""
     import torch
     fn()
     torch.cuda.synchronize()
-    by_name = {}
-    for _ in range(3):   # a window whose records the tracer lost is retaken
-        with profile_window(cpu=False) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    def timed(prof):
+        by_name = {}
         for e in device_events(prof):
             if names is None or any(n in e.name for n in names):
                 us, count = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
-        if by_name:
-            break
+        return by_name
+
+    prof, _ = retaken_window(calls, lambda prof, _: bool(timed(prof)),
+                             cpu=False)
+    by_name = timed(prof)
     if not by_name:
         raise AssertionError("device_ms: the profiler saw no device time")
     ms = per_call = 0
@@ -728,20 +771,28 @@ KERNEL_GROUPS = (("flash kernels", ("flash_fwd_", "flash_bwd_")),
                  ("copies and casts", ("copy", "Memcpy", "Memset")))
 
 
+def wrapper_kernels_seen(prof, wrappers):
+    """For each wrapper name, the device kernels of a ``profile_window``
+    that are its kernels (``WRAPPER_KERNELS``)."""
+    seen = dict.fromkeys(wrappers, 0)
+    for e in device_events(prof):
+        for wrapper in seen:
+            seen[wrapper] += any(n in e.name
+                                 for n in WRAPPER_KERNELS[wrapper])
+    return seen
+
+
 def device_breakdown(prof, label, wall_us, units, calls):
     """Print the profiled window's device time by kernel and its busy
     share; return, for each wrapper in ``calls`` (wrapper -> calls in the
     window), the device kernels the profiler saw per wrapper call."""
     by_kernel = {}
-    seen = dict.fromkeys(calls, 0)
+    seen = wrapper_kernels_seen(prof, calls)
     n_device = 0
     for e in device_events(prof):
         us = e.time_range.elapsed_us()
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + us
         n_device += 1
-        for wrapper in calls:
-            seen[wrapper] += any(n in e.name
-                                 for n in WRAPPER_KERNELS[wrapper])
     busy = sum(by_kernel.values())
     unit = label.split()[-1]
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device time "
@@ -1088,14 +1139,15 @@ def cl_iters(b):
 
 def phase_contrastive():
     """Fused contrastive kernels at the timed run's B = 2048 and a ragged
-    B = 1000 (D = 512): f32 timed, bf16 for correctness."""
+    B = 1000 (D = 512): f32 timed, bf16 timed at B = 2048."""
     import torch
     recs = {}
     for b in (2048, 1000):
         recs[(b, torch.float32)] = contrastive_case(b, 512, torch.float32,
                                                     20 + b)
         recs[(b, torch.bfloat16)] = contrastive_case(b, 512, torch.bfloat16,
-                                                     21 + b, timed=False)
+                                                     21 + b,
+                                                     timed=b == 2048)
     return recs
 
 
@@ -1196,14 +1248,24 @@ def phase_legacy():
     x, y, lt = inputs[(2048, 1024)]
     cl_ops.fused_contrastive_loss_4pass(x, y, lt)              # warm
     torch.cuda.synchronize()
-    calls = {ctr.name: -ctr.count for ctr in counters}
-    with profile_window() as prof:
+
+    def one_call():
+        calls = {ctr.name: -ctr.count for ctr in counters}
         t0 = time.perf_counter()
         cl_ops.fused_contrastive_loss_4pass(x, y, lt)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    for ctr in counters:
-        calls[ctr.name] += ctr.count
+        for ctr in counters:
+            calls[ctr.name] += ctr.count
+        return wall_us, calls
+
+    def complete(prof, out):
+        seen = wrapper_kernels_seen(prof, out[1])
+        return all(seen[w] >= n for w, n in out[1].items())
+
+    # device_breakdown fails if the last window still misses a wrapper's
+    # device kernels
+    prof, (wall_us, calls) = retaken_window(one_call, complete)
     per_call, _ = device_breakdown(
         prof, "fused_contrastive_loss_4pass at B=2048 D=1024, 1 call",
         wall_us, 1, calls)
@@ -1427,7 +1489,331 @@ def phase_train_profile():
 
 
 # ---------------------------------------------------------------------------
-# phase 11: split-K decode attention
+# phase 11: the BASIC recipe (pretrain, frozen-tower contrastive, finetune)
+# and zero-shot evaluation
+# ---------------------------------------------------------------------------
+
+RECIPE_ARGV = ["--arch", "basic-s", "--classes", "64", "--seed", "0",
+               "--precision", "bf16", "--attn", "pallas", "--remat", "basic",
+               "--loss", "fused"]
+PRETRAIN_ARGV = ["--mode", "pretrain", "--batch", "1024", "--steps", "4",
+                 *RECIPE_ARGV]
+FROZEN_ARGV = ["--mode", "contrastive", "--batch", "2048", "--num-micro",
+               "8", "--steps", "3", *RECIPE_ARGV]
+FINETUNE_ARGV = ["--mode", "finetune", "--batch", "2048", "--num-micro",
+                 "8", "--steps", "2", "--lr", "5e-4", *RECIPE_ARGV]
+# the frozen tower after phase 2 against p·Π(1 − lr_t·wd): fp32 rounding of
+# one multiply-add per step, a few ulps of each leaf's largest entry
+FROZEN_TOL_REL = 1e-6
+# the two evaluations' top-1 must agree on rows whose best and second
+# cosine logits differ by more than this (both run the towers in f32 on
+# the flash kernels; the class matrix and products sum in another order)
+EVAL_GAP = 1e-5
+EVAL_IMAGES = 1024
+
+
+def recipe_counters():
+    """The launch counters the recipe phase reads: flash forward and
+    backward, the fused contrastive forward and backward, top-k."""
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.similarity_topk import ops as topk_ops
+    return (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
+            cl_ops.BWD_COUNTER, topk_ops.COUNTER)
+
+
+def counted(fn):
+    """(fn(), {kernel: launches during the call}), the counts set to 0
+    just before."""
+    counters = recipe_counters()
+    for ctr in counters:
+        ctr.reset()
+    out = fn()
+    return out, {ctr.name: ctr.count for ctr in counters}
+
+
+def require_launches(label, launches, needed, absent=()):
+    """Raise unless every kernel in ``needed`` launched and none in
+    ``absent`` did."""
+    print(f"recipe {label} launches: {launches}", flush=True)
+    for name in needed:
+        if launches[name] < 1:
+            raise AssertionError(f"recipe {label}: kernel {name} was not "
+                                 f"launched")
+    for name in absent:
+        if launches[name]:
+            raise AssertionError(f"recipe {label}: kernel {name} launched "
+                                 f"{launches[name]} times")
+
+
+def phase_report(label, rep, unit):
+    """Print a phase's step times, rate, peak memory and losses."""
+    import math
+    print(f"recipe {label}: warm step median {rep['warm_step_median_s']:.4f}"
+          f" s, {rep[f'{unit}_per_s']:.1f} {unit}/s, max_memory_allocated "
+          f"{rep['max_memory_allocated'] / 2**30:.3f} GiB; step s "
+          f"{[round(t, 4) for t in rep['step_s']]}; data s "
+          f"{[round(t, 3) for t in rep['data_s']]}; losses "
+          f"{[round(v, 5) for v in rep['losses']]}", flush=True)
+    if not all(math.isfinite(v) for v in rep["losses"]):
+        raise AssertionError(f"recipe {label}: non-finite loss "
+                             f"{rep['losses']}")
+
+
+def phase_recipe():
+    """BASIC's three phases through ``repro_torch.launch.train`` at full
+    width and depth (bf16, flash attention, remat basic, 64 classes), then
+    ``evaluate_benchmark`` and ``evaluate_with_service`` on the same fresh
+    images and the zero-shot table on the card. Returns (launches by phase,
+    report)."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.data import render_images
+    from repro_torch.eval import (classify, evaluate_benchmark,
+                                  evaluate_with_service, zero_shot_table)
+    from repro_torch.eval.zero_shot import class_embeddings
+    from repro_torch.launch import train
+    from repro_torch.models import dual_encoder as de
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.serving import ZeroShotService
+
+    fa, fb, cf, cb, tk = (c.name for c in recipe_counters())
+    launches, out = {}, {}
+
+    pre, launches["pretrain"] = counted(
+        lambda: train.main(PRETRAIN_ARGV))
+    phase_report("phase 1 (pretrain, B=1024)", pre, "images")
+    require_launches("phase 1", launches["pretrain"], (fa, fb), (cf, cb, tk))
+    tower = pre.pop("params")["tower"]
+    pre.pop("opt_state")
+
+    args2 = train.parse_args(FROZEN_ARGV)
+    p2, launches["frozen"] = counted(lambda: train.run_contrastive(
+        args2, image_tower_init=tower, train_image=False))
+    phase_report("phase 2 (frozen image tower, B=2048 in 8)", p2, "pairs")
+    require_launches("phase 2", launches["frozen"], (cf, cb, fa, fb), (tk,))
+    lr = warmup_cosine(args2.lr, args2.lr / 100, args2.steps // 10 or 1,
+                       args2.steps)
+    factor = math.prod(1.0 - float(lr(t)) * 0.0025
+                       for t in range(args2.steps))
+    frozen_err = 0.0
+    for (path, got), (_, p0) in zip(
+            interop.leaves(p2["params"]["image"]["tower"]),
+            interop.leaves(tower)):
+        want = p0.double() * factor
+        err = ((got.double() - want).abs().max()
+               / want.abs().max().clamp(min=1e-30)).item()
+        frozen_err = max(frozen_err, err)
+    print(f"recipe phase 2: image tower vs phase 1's x {factor:.9f} "
+          f"(= prod(1 - lr_t * 0.0025) over {args2.steps} steps): largest "
+          f"relative error {frozen_err:.3g} (tol {FROZEN_TOL_REL})",
+          flush=True)
+    if not frozen_err <= FROZEN_TOL_REL:
+        raise AssertionError("recipe phase 2: the frozen image tower is not "
+                             "phase 1's times the weight-decay factor")
+    del tower
+    tower2 = p2.pop("params")["image"]["tower"]
+    p2.pop("opt_state")
+    torch.cuda.empty_cache()
+
+    args3 = train.parse_args(FINETUNE_ARGV)
+    p3, launches["finetune"] = counted(lambda: train.run_contrastive(
+        args3, image_tower_init=tower2, train_image=True))
+    phase_report("phase 3 (finetune, B=2048 in 8)", p3, "pairs")
+    require_launches("phase 3", launches["finetune"], (cf, cb, fa, fb),
+                     (tk,))
+    params = p3.pop("params")
+    p3.pop("opt_state")
+    del tower2
+    torch.cuda.empty_cache()
+
+    # evaluation: the final model on the same fresh images, both ways
+    cfg, world, tok, _ = train._build_world(args3)
+    cfg = dataclasses.replace(
+        cfg, image_tower=dataclasses.replace(cfg.image_tower,
+                                             attn_impl="pallas"),
+        text_tower=dataclasses.replace(cfg.text_tower, attn_impl="pallas"))
+    rng = np.random.default_rng(1234)
+    labels = rng.integers(0, world.n_classes, EVAL_IMAGES)
+    images = render_images(world, labels, rng)
+    dev = torch.device("cuda")
+
+    def enc_i(im):
+        with torch.inference_mode():
+            return de.encode_image(cfg, params, {
+                "image": torch.from_numpy(im).to(dev)}, precision="f32")
+
+    def enc_t(tx):
+        with torch.inference_mode():
+            return de.encode_text(cfg, params, {
+                k: torch.from_numpy(v).to(dev) for k, v in tx.items()},
+                precision="f32")
+
+    t0 = time.perf_counter()
+    bench, launches["evaluate_benchmark"] = counted(
+        lambda: evaluate_benchmark(enc_i, enc_t, tok, world.class_names,
+                                   images, labels))
+    bench_s = time.perf_counter() - t0
+    require_launches("evaluate_benchmark", launches["evaluate_benchmark"],
+                     (fa,), (tk,))
+    with ZeroShotService(cfg, params, tok, device="cuda") as svc:
+        t0 = time.perf_counter()
+        served, launches["evaluate_with_service"] = counted(
+            lambda: evaluate_with_service(svc, world.class_names, images,
+                                          labels))
+        served_s = time.perf_counter() - t0
+        require_launches("evaluate_with_service",
+                         launches["evaluate_with_service"], (fa, tk))
+        res = svc.classify(images, world.class_names, k=5)
+    with torch.inference_mode():
+        cemb = class_embeddings(enc_t, tok, world.class_names)
+        pred, logits = classify(enc_i(images), cemb)
+    top2 = torch.topk(logits.float(), 2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    pred = pred.cpu().numpy()
+    near = gap <= EVAL_GAP
+    disagree = (pred != res.indices[:, 0]) & ~near
+    print(f"recipe evaluation ({EVAL_IMAGES} fresh images, 64 classes x 4 "
+          f"templates): evaluate_benchmark {bench_s:.3f}s top1 "
+          f"{bench['top1']:.4f} top5 {bench['top5']:.4f} mean per-class "
+          f"recall {bench['mean_per_class_recall']:.4f}; "
+          f"evaluate_with_service {served_s:.3f}s top1 {served['top1']:.4f} "
+          f"top5 {served['top5']:.4f} mean per-class recall "
+          f"{served['mean_per_class_recall']:.4f}; chance "
+          f"{1 / world.n_classes:.4f}; {int(near.sum())} rows with a top-2 "
+          f"gap <= {EVAL_GAP}; {int(disagree.sum())} other rows disagree",
+          flush=True)
+    if disagree.any() or not bench["n"] == served["n"] == EVAL_IMAGES:
+        raise AssertionError("recipe evaluation: the benchmark row and the "
+                             "served row disagree beyond near-ties")
+    if abs(bench["top1"] - served["top1"]) > near.sum() / EVAL_IMAGES:
+        raise AssertionError("recipe evaluation: top-1 rates differ by more "
+                             "than the near-tie rows")
+    del params
+    torch.cuda.empty_cache()
+
+    (table, launches["zero_shot_table"]) = counted(
+        lambda: zero_shot_table.run("cuda"))
+    for line in zero_shot_table.csv_lines(table):
+        print(f"recipe zero-shot table (card): {line}", flush=True)
+    for name in ("seen", "unseen_openvocab", "shifted_robustness"):
+        if not 0.0 <= table[name] <= 1.0:
+            raise AssertionError(f"zero-shot table: bad {name} {table}")
+    require_launches("zero-shot table", launches["zero_shot_table"],
+                     (fa, fb), (tk,))
+    out = {"pretrain": pre, "frozen": p2, "finetune": p3, "bench": bench,
+           "served": served, "near_ties": int(near.sum()),
+           "frozen_err": frozen_err, "table": table}
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the paper's §4.2 moment accumulation at the training shape
+# ---------------------------------------------------------------------------
+
+
+def phase_moment_accum(batch_size: int = 256, num_micro: int = 2):
+    """One f32 step of BASIC-S (full width and depth, the kernel path) from
+    ``microbatch_grads`` + ``update_from_microbatches`` against
+    ``contrastive_step`` + ``update``: mean_K(c) against the gradient at
+    TRAIN_GRAD_RTOL, the first moment exact (``store_m_bf16=False``), and
+    peak memory of both, printed side by side."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.core import remat as remat_lib
+    from repro_torch.core.contrastive import fused_kernel_loss
+    from repro_torch.core.gradaccum import contrastive_step, microbatch_grads
+    from repro_torch.data import (contrastive_batch, load_tokenizer,
+                                  world_for_tower)
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import dual_encoder as de
+    from repro_torch.optim import AdaFactorW
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch("basic-s")
+    cfg = dataclasses.replace(
+        cfg, image_tower=dataclasses.replace(cfg.image_tower,
+                                             attn_impl="pallas"),
+        text_tower=dataclasses.replace(cfg.text_tower, attn_impl="pallas"))
+    rng = np.random.default_rng(0)
+    world = world_for_tower(rng, cfg.image_tower, n_classes=64)
+    batch = batch_to(contrastive_batch(world, load_tokenizer(), batch_size,
+                                       rng)[0], "cuda")
+    params = interop.init_params(cfg, torch.Generator().manual_seed(1),
+                                 "cuda")
+    policy = remat_lib.get_policy("basic")
+
+    def enc_i(p, im):
+        return de.encode_image(cfg, p, im, precision="f32",
+                               remat_policy=policy)
+
+    def enc_t(p, tx):
+        return de.encode_text(cfg, p, tx, precision="f32",
+                              remat_policy=policy)
+
+    opt = AdaFactorW(beta1=0.9, beta2=0.99, weight_decay=0.0025,
+                     store_m_bf16=False)
+    lr = 2.5e-4
+    peak = {}
+
+    def measured(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peak[label] = torch.cuda.max_memory_allocated() - base
+        return out
+
+    def plain_step():
+        _, _, g = contrastive_step(enc_i, enc_t, params, batch, num_micro,
+                                   loss_fn=fused_kernel_loss)
+        opt.update(g, opt.init(params), params, lr)
+        return tree_map(lambda x: x.cpu(), g)
+
+    def streamed_step():
+        _, _, c = microbatch_grads(enc_i, enc_t, params, batch, num_micro,
+                                   loss_fn=fused_kernel_loss)
+        _, st = opt.update_from_microbatches(c, opt.init(params), params, lr)
+        return tree_map(lambda x: x.mean(dim=0), c), st.m
+
+    g = measured("contrastive_step + update", plain_step)
+    mean, m_mb = measured("microbatch_grads + update_from_microbatches",
+                          streamed_step)
+    gm, gf = dict(interop.leaves(mean)), dict(interop.leaves(g))
+    grad_rel = {k: ((gm[k] - gf[k].to(gm[k].device)).abs().max()
+                    / gf[k].abs().max().clamp(min=1e-30)).item() for k in gf}
+    worst = max(grad_rel, key=grad_rel.get)
+    del g, gf
+    _, st_ref = opt.update(mean, opt.init(params), params, lr)
+    m_rel = 0.0
+    for (path, a), (_, b) in zip(interop.leaves(m_mb),
+                                 interop.leaves(st_ref.m)):
+        m_rel = max(m_rel, ((a - b).abs().max()
+                            / b.abs().max().clamp(min=1e-30)).item())
+    print(f"moment accumulation (BASIC-S f32, B={batch_size}, {num_micro} "
+          f"microbatches, kernel path): mean_K(c) vs contrastive_step's "
+          f"gradient, largest relative error {grad_rel[worst]:.3g} at "
+          f"{worst} (tol {TRAIN_GRAD_RTOL}); first moment of "
+          f"update_from_microbatches vs update on mean_K(c), largest "
+          f"relative error {m_rel:.3g} (tol {MOMENT_M_RTOL}); peak memory "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peak.items())
+          + " (above the params and the batch)", flush=True)
+    if not (grad_rel[worst] <= TRAIN_GRAD_RTOL and m_rel <= MOMENT_M_RTOL):
+        raise AssertionError("moment accumulation: beyond the stated "
+                             "tolerances")
+    return {"grad_rel_err": grad_rel[worst], "m_rel_err": m_rel,
+            "peak_bytes": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: split-K decode attention
 # ---------------------------------------------------------------------------
 
 
@@ -1636,7 +2022,7 @@ def phase_prefill_flash():
 
 
 # ---------------------------------------------------------------------------
-# phase 12: decode parity, kernel path vs plain path
+# phase 14: decode parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 
 
@@ -1789,7 +2175,7 @@ def phase_decode_parity():
 
 
 # ---------------------------------------------------------------------------
-# phase 13: timed decode serving through the launcher
+# phase 15: timed decode serving through the launcher
 # ---------------------------------------------------------------------------
 
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--engine", "continuous", "--slots",
@@ -1893,7 +2279,7 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the SSD chunked scan
+# phase 16: the SSD chunked scan
 # ---------------------------------------------------------------------------
 
 
@@ -2029,7 +2415,7 @@ def phase_ssd_kernel():
 
 
 # ---------------------------------------------------------------------------
-# phase 15: SSM parity, kernel path vs plain path
+# phase 17: SSM parity, kernel path vs plain path
 # ---------------------------------------------------------------------------
 
 
@@ -2123,7 +2509,7 @@ def phase_ssm_parity():
 
 
 # ---------------------------------------------------------------------------
-# phase 16: timed SSM serving through the launcher
+# phase 18: timed SSM serving through the launcher
 # ---------------------------------------------------------------------------
 
 SSM_SERVE_ARGV = ["--arch", "mamba2-130m", "--engine", "continuous",
@@ -2247,6 +2633,10 @@ def main() -> int:
     train_launches, train_per_step, _ = phase_train_timed()
     train_per_call, busy = phase_train_profile()
     torch.cuda.empty_cache()
+    recipe_launches, recipe = phase_recipe()
+    torch.cuda.empty_cache()
+    accum = phase_moment_accum()
+    torch.cuda.empty_cache()
     parity = phase_decode_parity()
     torch.cuda.empty_cache()
     dec_launches, dec_per, dec_rep = phase_decode_serve()
@@ -2273,12 +2663,18 @@ def main() -> int:
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
 
+    def recipe_of(name):
+        """The kernel's launches in each part of the recipe phase."""
+        return {part: counts[name]
+                for part, counts in recipe_launches.items()}
+
     def train_entry(name, source, replaces, rec, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": train_launches[name],
                 **{k: rec[k] for k in timing}, "shape": rec["shape"],
                 "launches_per_step": train_per_step[name],
-                "device_kernels_per_call": train_per_call[name], **extra}
+                "device_kernels_per_call": train_per_call[name],
+                "recipe_launches": recipe_of(name), **extra}
 
     def legacy_entry(i, name, replaces):
         main = legacy[(2048, 1024, "float32")][i]
@@ -2313,6 +2709,7 @@ def main() -> int:
                   if dt == torch.bfloat16],
          "device_kernels_per_call": per_call[fa_ops.COUNTER.name],
          "train_launches": train_launches[fa_ops.COUNTER.name],
+         "recipe_launches": recipe_of(fa_ops.COUNTER.name),
          "train_launches_per_step": train_per_step[fa_ops.COUNTER.name],
          "f32_train_parity_launches": train_parity["launches"][
              fa_ops.COUNTER.name],
@@ -2332,6 +2729,7 @@ def main() -> int:
              "library_device_ms", "bound_ms", "bound_by")}
              for key in ((16, 512, 5), (64, 21841, 5))],
          "block_rows_ms": topk["block_rows_ms"],
+         "recipe_launches": recipe_of(topk_ops.COUNTER.name),
          "device_kernels_per_call": per_call[topk_ops.COUNTER.name]},
         train_entry(fa_ops.BWD_COUNTER.name, FLASH_BWD_SOURCE,
                     FLASH_BWD_REPLACES, b_main, max_abs_err_bf16=b_bf16,
@@ -2343,13 +2741,17 @@ def main() -> int:
         train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
                     c_fwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][0]["max_abs_err"],
+                    bf16={k: contrastive[(2048, torch.bfloat16)][0][k]
+                          for k in ("shape", *timing, "device_ms")},
                     device_ms=c_fwd["device_ms"], plan=c_fwd["plan"],
                     ragged={k: contrastive[(1000, torch.float32)][0][k]
                             for k in ("shape", *timing, "device_ms",
                                       "plan")}),
         train_entry(cl_ops.BWD_COUNTER.name, CL_SOURCE, CL_BWD_REPLACES,
                     c_bwd, max_abs_err_bf16=contrastive[
-                        (2048, torch.bfloat16)][1]["max_abs_err"]),
+                        (2048, torch.bfloat16)][1]["max_abs_err"],
+                    bf16={k: contrastive[(2048, torch.bfloat16)][1][k]
+                          for k in ("shape", *timing)}),
         *(legacy_entry(i, name, replaces) for i, (name, replaces) in
           enumerate(((cl_ops.ROW_COL_LSE_COUNTER.name, CL_LSE_REPLACES),
                      (cl_ops.GRADS_COUNTER.name, CL_GRADS_REPLACES)))),
@@ -2389,6 +2791,16 @@ def main() -> int:
          "device_kernels_per_call": ssm_per_call[ssd_ops.COUNTER.name],
          "parity_max_logit_diff": ssm_parity["max_logit_diff"]},
     ]
+    print(f"recipe: phase 1 {recipe['pretrain']['images_per_s']:.1f} "
+          f"images/s, phase 2 {recipe['frozen']['pairs_per_s']:.1f} pairs/s, "
+          f"phase 3 {recipe['finetune']['pairs_per_s']:.1f} pairs/s; top1 "
+          f"{recipe['bench']['top1']:.4f} (benchmark) / "
+          f"{recipe['served']['top1']:.4f} (served); zero-shot table seen "
+          f"{recipe['table']['seen']:.3f}, unseen "
+          f"{recipe['table']['unseen_openvocab']:.3f}, shifted "
+          f"{recipe['table']['shifted_robustness']:.3f}; §4.2 mean_K(c) "
+          f"error {accum['grad_rel_err']:.3g}, first moment error "
+          f"{accum['m_rel_err']:.3g}", flush=True)
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
           f"{dec_busy:.4f}; ssm prefill profile busy share "
           f"{ssm_prefill_busy:.4f}; ssm decode profile busy share "

@@ -14,9 +14,12 @@ per-microbatch losses cannot be formed independently. Algorithm 1 instead:
                          microbatches' contributions in each ``.grad``.
 
 The result is the exact full-batch gradient, with peak memory that of one
-microbatch's graph instead of the whole batch's. ``microbatch_grads`` (the
-per-microbatch gradient stream of the paper's "Yields" line) waits for the
-port of ``core/moment_accum.py``.
+microbatch's graph instead of the whole batch's.
+
+``microbatch_grads`` is the streaming form (the paper's "Yields" line): it
+returns the per-microbatch gradient stream c_1..c_K that
+``core/moment_accum.py`` folds into the optimizer's moment slots (port of
+``repro/core/gradaccum.py:111-153``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,28 @@ def _split(tree, k: int) -> list:
         raise ValueError(f"batch {b} is not a multiple of num_micro={k}")
     return [tree_map(lambda x, i=i: x[i * (b // k):(i + 1) * (b // k)],
                      tree) for i in range(k)]
+
+
+def _embedding_grads(encode_image: Callable, encode_text: Callable, params,
+                     batch, num_micro: int, loss_fn: Callable,
+                     loss_opts: Optional[dict]):
+    """Algorithm 1 up to pass 2: the microbatches, then (pass 1, lines 2-5)
+    the embeddings alone under ``torch.no_grad``, then (lines 6-12) the
+    full-batch loss on them and d(loss)/d(X, Y, log_tau). Returns (images,
+    texts, loss, metrics, dx, dy, dlog_tau)."""
+    images = _split(batch["images"], num_micro)
+    texts = _split(batch["texts"], num_micro)
+    with torch.no_grad():
+        x = torch.cat([encode_image(params, mb) for mb in images])
+        y = torch.cat([encode_text(params, mb) for mb in texts])
+    x.requires_grad_(True)
+    y.requires_grad_(True)
+    log_tau = params["log_tau"].detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(x, y, torch.exp(log_tau),
+                                **(loss_opts or {}))
+        dx, dy, dlog_tau = torch.autograd.grad(loss, (x, y, log_tau))
+    return images, texts, loss, metrics, dx, dy, dlog_tau
 
 
 def contrastive_step(encode_image: Callable, encode_text: Callable,
@@ -60,22 +85,9 @@ def contrastive_step(encode_image: Callable, encode_text: Callable,
         raise NotImplementedError(
             "emb_sharding: the cross-shard global-batch loss comes with the "
             "distributed-training slice of the port")
-    images = _split(batch["images"], num_micro)
-    texts = _split(batch["texts"], num_micro)
-
-    # ---- pass 1: embeddings only (lines 2-5) ----
-    with torch.no_grad():
-        x = torch.cat([encode_image(params, mb) for mb in images])
-        y = torch.cat([encode_text(params, mb) for mb in texts])
-
-    # ---- lines 6-12: loss on embeddings + d(loss)/d(X, Y, log_tau) ----
-    x.requires_grad_(True)
-    y.requires_grad_(True)
-    log_tau = params["log_tau"].detach().requires_grad_(True)
-    with torch.enable_grad():
-        loss, metrics = loss_fn(x, y, torch.exp(log_tau),
-                                **(loss_opts or {}))
-        dx, dy, dlog_tau = torch.autograd.grad(loss, (x, y, log_tau))
+    images, texts, loss, metrics, dx, dy, dlog_tau = _embedding_grads(
+        encode_image, encode_text, params, batch, num_micro, loss_fn,
+        loss_opts)
 
     # ---- pass 2: recompute per microbatch, backward into the weights ----
     leaves = tree_leaves(params)
@@ -84,7 +96,7 @@ def contrastive_step(encode_image: Callable, encode_text: Callable,
         p.requires_grad_(True)
         p.grad = None
     try:
-        m = x.shape[0] // num_micro
+        m = dx.shape[0] // num_micro
         with torch.enable_grad():
             for i, (img, txt) in enumerate(zip(images, texts)):
                 sl = slice(i * m, (i + 1) * m)
@@ -100,3 +112,41 @@ def contrastive_step(encode_image: Callable, encode_text: Callable,
     # the embeddings' backward gives log_tau nothing; add the direct term
     grads["log_tau"] = grads["log_tau"] + dlog_tau
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def microbatch_grads(encode_image: Callable, encode_text: Callable,
+                     params, batch, num_micro: int,
+                     loss_fn: Callable = contrastive_loss,
+                     loss_opts: Optional[dict] = None):
+    """Streaming form of Algorithm 1: returns (loss, metrics, c), where c
+    is the stacked per-microbatch gradient stream, a tree with the params'
+    leaf paths and leaves (K, ...). Each c_i is K times microbatch i's
+    share of the gradient plus the full ``dlog_tau`` (as the reference
+    adds it, ``repro/core/gradaccum.py:148``), so mean_K(c) is the exact
+    full-batch gradient (paper §4.1).
+
+    Each microbatch's gradients are taken apart by ``torch.autograd.grad``
+    on aliases of the params (nothing accumulates in any ``.grad``, and the
+    params' own flags are left alone)."""
+    images, texts, loss, metrics, dx, dy, dlog_tau = _embedding_grads(
+        encode_image, encode_text, params, batch, num_micro, loss_fn,
+        loss_opts)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    flat = tree_leaves(live)
+    m = dx.shape[0] // num_micro
+    stream = []
+    for i, (img, txt) in enumerate(zip(images, texts)):
+        sl = slice(i * m, (i + 1) * m)
+        with torch.enable_grad():
+            g = torch.autograd.grad(
+                [encode_image(live, img), encode_text(live, txt)], flat,
+                [dx[sl], dy[sl]], allow_unused=True)
+        by_leaf = {id(p): gi for p, gi in zip(flat, g)}
+        # K * grad-share so that mean_K(c_i) is the exact full gradient
+        c = tree_map(lambda p: num_micro * (
+            torch.zeros_like(p) if by_leaf[id(p)] is None
+            else by_leaf[id(p)]), live)
+        c["log_tau"] = c["log_tau"] + dlog_tau
+        stream.append(c)
+    c = tree_map(lambda *cs: torch.stack(cs), stream[0], *stream[1:])
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, c

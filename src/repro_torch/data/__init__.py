@@ -5,6 +5,7 @@ from repro_torch.data.synthetic import (  # noqa: F401
     TEMPLATES,
     World,
     caption_corpus,
+    classification_prompts,
     contrastive_batch,
     grammar_corpus,
     jft_batch,

@@ -138,6 +138,16 @@ def contrastive_batch(world: World, tok, batch: int, rng: np.random.Generator,
              "texts": {"tokens": tokens, "attn_mask": mask}}, cls)
 
 
+def classification_prompts(world: World, tok, text_len=16,
+                           template="a photo of a {} {}"):
+    """CLIP-style class prompts for zero-shot eval: one prompt per class of
+    the world, as a numpy payload {'tokens', 'attn_mask'}."""
+    ids = [tok.encode(template.format(*n.split(" ", 1)), max_len=text_len)
+           for n in world.class_names]
+    tokens, mask = tok.pad_batch(ids, max_len=text_len)
+    return {"tokens": tokens, "attn_mask": mask}
+
+
 def jft_batch(world: World, batch: int, rng: np.random.Generator,
               classes: Optional[np.ndarray] = None):
     """Labelled pretraining pairs (paper §8): ({'image', 'labels'}, cls)."""

@@ -6,5 +6,6 @@ from repro_torch.kernels.similarity_topk.ops import (  # noqa: F401
     similarity_topk,
 )
 from repro_torch.kernels.similarity_topk.ref import (  # noqa: F401
+    classify_ref,
     similarity_topk_ref,
 )

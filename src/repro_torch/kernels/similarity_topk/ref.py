@@ -24,3 +24,11 @@ def similarity_topk_ref(image_emb: torch.Tensor, class_emb: torch.Tensor,
     logits = logits_ref(image_emb, class_emb, inv_tau)
     order = torch.sort(-logits, dim=1, stable=True).indices[:, :k]
     return torch.gather(logits, 1, order), order.to(torch.int32)
+
+
+def classify_ref(image_emb: torch.Tensor, class_emb: torch.Tensor,
+                 inv_tau: float = 1.0) -> torch.Tensor:
+    """argmax class id per row (b,) int32: the top-1 of the plain
+    version."""
+    _, idx = similarity_topk_ref(image_emb, class_emb, 1, inv_tau)
+    return idx[:, 0]

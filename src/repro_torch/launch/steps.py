@@ -1,11 +1,15 @@
 """Step factories of the port (counterpart of ``repro/launch/steps.py``):
-the optimizer and the paper's own contrastive training step.
+the optimizer, the paper's own contrastive training step and the phase-1
+pretraining step of the BASIC recipe.
 
 ``make_contrastive_step`` builds Algorithm-1 GradAccum over ``num_micro``
-microbatches followed by one AdaFactorW update, on one device. The LM step
-factories (``make_train_step``, ``make_serve_step``, ``make_prefill_step``)
-wait for the LM slice of the port; the cross-shard losses wait for the
-distributed-training slice.
+microbatches followed by one AdaFactorW update, on one device, optionally
+with the image tower frozen (phase 2). ``make_pretrain_step`` is phase 1:
+softmax cross-entropy of the image tower plus a linear head (the step of
+the reference's ``run_pretrain``, ``repro/launch/train.py:116-125``). The
+LM step factories (``make_train_step``, ``make_serve_step``,
+``make_prefill_step``) wait for the LM slice of the port; the cross-shard
+losses wait for the distributed-training slice.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from repro_torch.core import remat as remat_lib
 from repro_torch.core.contrastive import contrastive_loss, fused_kernel_loss
 from repro_torch.core.gradaccum import contrastive_step as ga_step
 from repro_torch.models import dual_encoder as de
+from repro_torch.models import transformer as tf
 from repro_torch.optim.adafactorw import AdaFactorW, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -38,7 +43,8 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
                           precision="bf16", attn: Optional[str] = None,
                           mesh=None, loss: str = "local",
                           loss_opts: Optional[dict] = None,
-                          skip_nonfinite: bool = False):
+                          skip_nonfinite: bool = False,
+                          freeze_image: bool = False):
     """The paper's training step: Algorithm-1 GradAccum over ``num_micro``
     microbatches, then AdaFactorW.
 
@@ -51,6 +57,14 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
     ``loss``: 'local' (the materialising ``contrastive_loss``) or 'fused'
     (the fused kernels). ``lr`` is a float or a schedule of the step count
     (``opt_state.step`` before the update).
+
+    ``freeze_image=True`` is phase 2 of the recipe: the image tower's
+    gradients are zeroed before the update, as the reference does
+    (``repro/launch/train.py:157``, ``:164-166``). The image projection and
+    ``log_tau`` still train, and the tower is not left unchanged: with a
+    zero gradient the preconditioned update is zero, but the decoupled
+    weight decay still moves it to p·(1 − lr·weight_decay) each step, and
+    its second-moment slots still take in ``eps``.
 
     ``skip_nonfinite=True`` arms the step guard: the step also computes the
     global gradient norm and, when the loss or that norm is not finite,
@@ -93,6 +107,9 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
         loss_val, metrics, grads = ga_step(enc_i, enc_t, params, batch,
                                            num_micro, loss_fn=loss_fn,
                                            loss_opts=loss_opts)
+        if freeze_image:
+            grads["image"]["tower"] = tree_map(torch.zeros_like,
+                                               grads["image"]["tower"])
         step_lr = lr(opt_state.step) if callable(lr) else lr
         updates, new_opt = opt.update(grads, opt_state, params, step_lr)
         new_params = apply_updates(params, updates)
@@ -110,5 +127,47 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
             metrics = dict(metrics, grad_norm=gnorm,
                            skipped=(~ok).to(torch.int32))
         return new_params, new_opt, loss_val, metrics
+
+    return train_step, opt
+
+
+def make_pretrain_step(image_cfg, *, lr: float = 1e-3,
+                       remat: Optional[str] = "basic", precision="bf16",
+                       attn: Optional[str] = None):
+    """Phase 1 of the BASIC recipe (paper §8): the image tower plus a linear
+    head ``params = {'tower', 'head'}`` under softmax cross-entropy of the
+    class labels, then one update of ``AdaFactorW()`` (weight decay 0, as
+    the reference's ``run_pretrain``) at the constant ``lr`` (the
+    reference's ``args.lr``).
+
+    ``precision``, ``attn`` and ``remat`` as in ``make_contrastive_step``
+    (``attn='pallas'`` runs the tower on the flash kernels).
+
+    Returns (train_step, opt); train_step(params, opt_state, batch) ->
+    (params, opt_state, loss, metrics), ``batch = {'image', 'labels'}``;
+    int32 labels are widened to int64 for the gather."""
+    if attn is not None:
+        image_cfg = dataclasses.replace(image_cfg, attn_impl=attn)
+    opt = AdaFactorW()
+    policy = remat_lib.get_policy(remat)
+
+    def loss_fn(p, images, labels):
+        h = tf.encode(image_cfg, p["tower"], {"image": images},
+                      precision=precision, remat_policy=policy)
+        logits = h @ p["head"].to(h.dtype)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.mean(torch.gather(logp, 1, labels.long()[:, None]))
+
+    def train_step(params, opt_state, batch):
+        # fresh leaves that share the params' storage: the backward fills
+        # their .grad and leaves the params' own flags and .grad alone
+        live = tree_map(lambda x: x.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss = loss_fn(live, batch["image"], batch["labels"])
+            loss.backward()
+        grads = tree_map(lambda x: torch.zeros_like(x) if x.grad is None
+                         else x.grad, live)
+        updates, new_opt = opt.update(grads, opt_state, params, lr)
+        return apply_updates(params, updates), new_opt, loss.detach(), {}
 
     return train_step, opt

@@ -1,45 +1,65 @@
-"""Trainer of the port: BASIC contrastive training on one device
-(counterpart of ``repro/launch/train.py`` in ``--mode contrastive`` and
-``--mode finetune``, ``run_contrastive`` at :404-447).
+"""Trainer of the port: the BASIC three-phase recipe on one device
+(counterpart of ``repro/launch/train.py`` in ``--mode pretrain``,
+``contrastive`` and ``finetune``: ``run_pretrain`` at :104-135,
+``run_contrastive`` at :138-181).
 
-Each step draws a batch of image-caption pairs from the synthetic world,
-runs Algorithm-1 GradAccum over ``--num-micro`` microbatches and one
-AdaFactorW update on the reference's ``warmup_cosine(lr, lr/100,
-steps//10 or 1, steps)`` schedule, built through
-``launch.steps.make_contrastive_step`` with the single-device options of
-``repro/launch/train_distributed.py``: ``--loss local|fused``, ``--attn``,
-``--precision``, ``--remat``, ``--remat-image``, ``--remat-text``.
+- ``--mode pretrain`` (phase 1, paper §8): the image tower plus a linear
+  head under softmax cross-entropy of ``jft_batch``'s labels, one update
+  of ``AdaFactorW()`` per step at the constant ``--lr``
+  (``launch.steps.make_pretrain_step``).
+- ``--mode contrastive`` (phase 2) and ``--mode finetune`` (phase 3): each
+  step draws a batch of image-caption pairs, runs Algorithm-1 GradAccum
+  over ``--num-micro`` microbatches and one AdaFactorW update on the
+  reference's ``warmup_cosine(lr, lr/100, steps//10 or 1, steps)``
+  schedule, built through ``launch.steps.make_contrastive_step`` with the
+  single-device options of ``repro/launch/train_distributed.py``:
+  ``--loss local|fused``, ``--attn``, ``--precision``, ``--remat``,
+  ``--remat-image``, ``--remat-text``.
+
 The defaults are the kernel path in the reference trainer's precision:
 ``--loss fused --attn pallas --precision bf16 --remat basic``.
 
+    python -m repro_torch.launch.train --mode pretrain --arch basic-s \\
+        --batch 1024 --steps 4
     python -m repro_torch.launch.train --mode contrastive --arch basic-s \\
         --batch 2048 --num-micro 8 --steps 6
     python -m repro_torch.launch.train --mode contrastive --arch basic-s \\
         --smoke --device cpu --steps 3 --batch 8 --num-micro 2
 
+Every phase sees one world: ``np.random.default_rng(seed)`` draws the
+synthetic world, then the phase's batches; the pretraining weights come
+from ``seed``, the dual encoder's from ``seed + 1``. The phases chain in
+Python as the reference's (``examples/contrastive_pretrain_torch.py``):
+``run_contrastive(args, image_tower_init=..., train_image=False)`` starts
+from a pretrained tower and keeps its gradients at zero; every run returns
+its params in its report. From the command line no tower is given, so
+``contrastive`` and ``finetune`` both train both towers, as in the
+reference.
+
 It runs on the card unless given ``--device cpu``, and raises without a
-card otherwise. ``--mode finetune`` trains both towers, as ``contrastive``
-does when no pretrained image tower is given (the reference's command line
-gives none). ``--mode lm`` and ``--mode pretrain`` wait for the LM training
-slice of the port (LM serving is ported: ``launch/serve.py``), ``--ckpt-dir`` for the port of ``checkpoint/io.py``.
+card otherwise. ``--mode lm`` waits for the LM training slice of the port
+(LM serving is ported: ``launch/serve.py``), ``--ckpt-dir`` for the port
+of ``checkpoint/io.py``.
 """
 from __future__ import annotations
 
 import argparse
 import statistics
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, smoke_dual_variant
 from repro_torch.core.remat import list_policies
-from repro_torch.data import contrastive_batch, load_tokenizer, \
+from repro_torch.data import contrastive_batch, jft_batch, load_tokenizer, \
     world_for_tower
 from repro_torch.device import resolve_device
 from repro_torch.interop import init_params
-from repro_torch.launch.steps import LOSSES, make_contrastive_step
+from repro_torch.launch.steps import LOSSES, make_contrastive_step, \
+    make_pretrain_step
+from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ALIASES, available_backends
 from repro_torch.models.precision import list_policies as precisions
 from repro_torch.optim import warmup_cosine
@@ -51,12 +71,10 @@ def batch_to(batch, device):
     return tree_map(lambda a: torch.from_numpy(a).to(device), batch)
 
 
-def build_contrastive(args, device: torch.device) -> dict:
-    """Config, synthetic world, tokenizer, data rng, params, optimizer state
-    and step function (on the reference's schedule) of a contrastive run,
-    drawn as the reference draws them: the world and the batches from
-    ``np.random.default_rng(seed)``, the weights from ``seed + 1`` (a
-    ``torch.Generator``)."""
+def _build_world(args):
+    """(config, synthetic world, tokenizer, data rng) of a run, drawn as the
+    reference's ``_build_world`` draws them (``:90-101``): the world from
+    ``np.random.default_rng(seed)``, whose state then draws the batches."""
     rng = np.random.default_rng(args.seed)
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -66,26 +84,51 @@ def build_contrastive(args, device: torch.device) -> dict:
     if tok.vocab_size > cfg.text_tower.vocab and not args.smoke:
         raise ValueError(f"tokenizer {args.tokenizer} has {tok.vocab_size} "
                          f"pieces, the text tower {cfg.text_tower.vocab}")
+    return cfg, world, tok, rng
+
+
+def init_pretrain_params(image_cfg, n_classes: int,
+                         generator: torch.Generator, device) -> dict:
+    """Phase-1 params with the reference's law: the image tower and a head
+    (d_model, n_classes) of standard normals times d_model^-0.5."""
+    tower = tf.init_params(image_cfg, generator, device)
+    head = torch.randn((image_cfg.d_model, n_classes), generator=generator,
+                       device=generator.device) * image_cfg.d_model ** -0.5
+    return {"tower": tower, "head": head.to(device)}
+
+
+def build_contrastive(args, device: torch.device, image_tower_init=None,
+                      train_image: bool = False) -> dict:
+    """Config, world, tokenizer, data rng, params (from ``seed + 1``, with
+    a copy of ``image_tower_init`` in place of the image tower when one is
+    given), optimizer state and step function (on the reference's
+    schedule) of a phase-2/3 run. A tower given and not trained is frozen
+    (``make_contrastive_step(freeze_image=True)``)."""
+    cfg, world, tok, rng = _build_world(args)
     params = init_params(cfg, torch.Generator().manual_seed(args.seed + 1),
                          device)
+    if image_tower_init is not None:
+        params["image"]["tower"] = tree_map(
+            lambda t: t.detach().to(device, copy=True), image_tower_init)
     lr_fn = warmup_cosine(args.lr, args.lr / 100, args.steps // 10 or 1,
                           args.steps)
     step_fn, opt = make_contrastive_step(
         cfg, num_micro=args.num_micro, remat=args.remat,
         remat_image=args.remat_image, remat_text=args.remat_text, lr=lr_fn,
-        precision=args.precision, attn=args.attn, loss=args.loss)
+        precision=args.precision, attn=args.attn, loss=args.loss,
+        freeze_image=image_tower_init is not None and not train_image)
     return {"cfg": cfg, "world": world, "tok": tok, "rng": rng,
             "params": params, "opt_state": opt.init(params),
             "step_fn": step_fn}
 
 
-def run_contrastive(args) -> dict:
-    """Phases 2/3 of the BASIC recipe: contrastive training with
-    Algorithm-1 GradAccum. Returns a report: per-step losses, step and
-    data seconds, the warm step median, steps and pairs per second, and on
+def _run_steps(args, run, device: torch.device, draw: Callable, mode: str,
+               metric: str, unit: str) -> dict:
+    """``args.steps`` timed steps of ``run`` on batches from ``draw()``;
+    prints each logged step and a summary, and returns the report:
+    per-step losses, step and data seconds, the warm step median, steps
+    and ``unit`` per second, the final params and optimizer state, and on
     the card the peak of ``torch.cuda.max_memory_allocated``."""
-    device = resolve_device(args.device)
-    run = build_contrastive(args, device)
     params, opt_state = run["params"], run["opt_state"]
     on_card = device.type == "cuda"
     if on_card:
@@ -93,9 +136,7 @@ def run_contrastive(args) -> dict:
     losses, step_s, data_s = [], [], []
     for i in range(args.steps):
         t0 = time.perf_counter()
-        batch, _ = contrastive_batch(run["world"], run["tok"], args.batch,
-                                     run["rng"])
-        batch = batch_to(batch, device)
+        batch = batch_to(draw(), device)
         if on_card:
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()
@@ -105,22 +146,61 @@ def run_contrastive(args) -> dict:
         data_s.append(t1 - t0)
         step_s.append(t2 - t1)
         if i % args.log_every == 0 or i == args.steps - 1:
-            print(f"contrastive step {i:5d} loss {losses[-1]:.4f} "
+            print(f"{mode} step {i:5d} {metric} {losses[-1]:.4f} "
                   f"({step_s[-1]:.3f}s/step, {1 / step_s[-1]:.3f} steps/s, "
-                  f"{args.batch / step_s[-1]:.1f} pairs/s; data "
+                  f"{args.batch / step_s[-1]:.1f} {unit}/s; data "
                   f"{data_s[-1]:.3f}s)", flush=True)
     warm = step_s[1:] or step_s
     median = statistics.median(warm)
     report = {"losses": losses, "step_s": step_s, "data_s": data_s,
               "warm_step_median_s": median, "steps_per_s": 1 / median,
-              "pairs_per_s": args.batch / median, "device": str(device)}
+              f"{unit}_per_s": args.batch / median, "device": str(device),
+              "params": params, "opt_state": opt_state}
     if on_card:
         report["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device)
-    print(f"contrastive: {args.steps} steps of {args.batch} pairs, warm "
-          f"step median {median:.3f}s, {report['steps_per_s']:.3f} steps/s, "
-          f"{report['pairs_per_s']:.1f} pairs/s", flush=True)
+    print(f"{mode}: {args.steps} steps of {args.batch} {unit}, warm step "
+          f"median {median:.3f}s, {report['steps_per_s']:.3f} steps/s, "
+          f"{report[f'{unit}_per_s']:.1f} {unit}/s", flush=True)
     return report
+
+
+def run_pretrain(args) -> dict:
+    """Phase 1 of the BASIC recipe: the image tower and a linear classifier
+    on the synthetic JFT analog's labels, the weights from ``seed``.
+    Returns the report of ``_run_steps`` (images/s); ``report['params']``
+    is ``{'tower', 'head'}``."""
+    device = resolve_device(args.device)
+    cfg, world, _, rng = _build_world(args)
+    params = init_pretrain_params(cfg.image_tower, world.n_classes,
+                                  torch.Generator().manual_seed(args.seed),
+                                  device)
+    step_fn, opt = make_pretrain_step(
+        cfg.image_tower, lr=args.lr, precision=args.precision,
+        attn=args.attn,
+        remat=args.remat if args.remat_image is None else args.remat_image)
+    run = {"params": params, "opt_state": opt.init(params),
+           "step_fn": step_fn}
+    return _run_steps(
+        args, run, device,
+        lambda: jft_batch(world, args.batch, rng)[0],
+        "pretrain", "xent", "images")
+
+
+def run_contrastive(args, image_tower_init=None,
+                    train_image: bool = False) -> dict:
+    """Phases 2/3 of the BASIC recipe: contrastive training with
+    Algorithm-1 GradAccum, from ``image_tower_init`` when given (frozen
+    unless ``train_image``; never changed in place). Returns the report of
+    ``_run_steps`` (pairs/s); ``report['params']`` is the dual encoder's
+    params."""
+    device = resolve_device(args.device)
+    run = build_contrastive(args, device, image_tower_init, train_image)
+    return _run_steps(
+        args, run, device,
+        lambda: contrastive_batch(run["world"], run["tok"], args.batch,
+                                  run["rng"])[0],
+        "contrastive", "loss", "pairs")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -163,16 +243,18 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse ``argv``, run the mode, return its report."""
     args = parse_args(argv)
-    if args.mode in ("lm", "pretrain"):
-        raise NotImplementedError(f"--mode {args.mode} comes with the LM "
-                                  f"training slice of the port")
+    if args.mode == "lm":
+        raise NotImplementedError("--mode lm comes with the LM training "
+                                  "slice of the port")
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir comes with the port of "
                                   "checkpoint/io.py")
+    if args.mode == "pretrain":
+        return run_pretrain(args)
     if args.batch % args.num_micro:
         raise SystemExit(f"--batch {args.batch} must be divisible by "
                          f"--num-micro {args.num_micro}")
-    return run_contrastive(args)
+    return run_contrastive(args, train_image=args.mode == "finetune")
 
 
 if __name__ == "__main__":

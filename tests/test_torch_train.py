@@ -328,9 +328,12 @@ def test_trainer_raises_without_a_card_or_for_later_slices():
             "--steps", "1", "--batch", "4", "--num-micro", "2"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(argv)
-    for mode in ("lm", "pretrain"):
-        with pytest.raises(NotImplementedError, match="LM training slice"):
-            ttrain.main(["--mode", mode, "--arch", "basic-s"])
+    with pytest.raises(NotImplementedError, match="LM training slice"):
+        ttrain.main(["--mode", "lm", "--arch", "basic-s"])
+    # phase 1 runs now, on the card unless asked for the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--mode", "pretrain", "--arch", "basic-s", "--smoke",
+                     "--steps", "1", "--batch", "4"])
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ttrain.main(argv + ["--ckpt-dir", "x", "--device", "cpu"])
 
