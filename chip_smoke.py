@@ -58,7 +58,9 @@ repository beside this file; it exits non-zero without them. In order it:
    against the plain PyTorch path on the same weights and images, and
    checks that both serving kernels were launched on that path; then
    profiles 4 warm requests: device time by kernel, and the device kernels
-   that each wrapper call launched;
+   that each wrapper call launched; then serves twice more with a registry
+   directory, the second time from a fresh service that must read the
+   class matrix from disk and give the same top-5 ids;
 9. training parity: one GradAccum step of BASIC-S at full width and depth
    in f32 (B = 256, 2 microbatches) on the kernel path (flash attention,
    fused loss) and on the plain path (materialised attention and loss)
@@ -72,9 +74,11 @@ repository beside this file; it exits non-zero without them. In order it:
     then profiles one warm step;
 11. the BASIC recipe through ``repro_torch.launch.train`` at full width
     and depth (bf16, flash attention, remat ``basic``, 64 classes): phase
-    1 ``--mode pretrain`` (4 steps of B = 1024), phase 2 contrastive with
-    the pretrained image tower frozen (3 steps of B = 2048 in 8
-    microbatches; the tower must equal phase 1's times Π(1 − lr_t·0.0025)),
+    1 ``--mode pretrain`` (4 steps of B = 1024, saved with
+    ``--ckpt-dir``), phase 2 contrastive with the pretrained image tower
+    restored from that checkpoint (bit for bit) and frozen (3 steps of B =
+    2048 in 8 microbatches; the tower must equal phase 1's times
+    Π(1 − lr_t·0.0025)),
     phase 3 finetune (2 steps at lr 5e-4); then ``evaluate_benchmark`` and
     ``evaluate_with_service`` of the final model on the same 1024 fresh
     images (the same top-1 on every row whose top-2 cosine gap exceeds
@@ -130,7 +134,27 @@ repository beside this file; it exits non-zero without them. In order it:
     and p90, prefill ms, peak memory, ssd_scan launches per prefill (24,
     one per layer); then profiles one warm prefill and 4 warm decode
     steps;
-19. prints a ``{"kernels": [...]}`` line and, last, the
+19. holds the flash forward and backward kernels against their plain
+    versions at Llama-3.2-1B's training shape (b 4, 32 query heads over 8
+    kv heads, s 1024, d 64, causal, window 8192; f32 and bf16) and times
+    kernel, plain version and SDPA with ``enable_gqa`` (the bound counts
+    the causal lower triangle);
+20. LM parity: one f32 step of Llama-3.2-1B at full width and depth (b 2
+    × s 512, ``lm_loss`` with no remat, then ``run_lm``'s AdaFactorW) on
+    the kernel path and the plain path (chunked attention) from one set of
+    weights and one batch: loss, every gradient leaf, the params after the
+    update; 16 + 16 flash launches on the kernel path, none on the plain;
+21. timed ``--mode lm`` through ``repro_torch.launch.train`` (``main``,
+    Llama-3.2-1B f32, b 4 × s 1024, 4 steps, ``--ckpt-dir``): step median,
+    tokens/s, peak memory, losses, launches per step; the checkpoint
+    verifies and restores onto the card bit for bit (timed); one
+    ``AsyncCheckpointManager.save_async`` of the same tree: its stall and
+    its background write; then profiles one more warm step;
+22. ``make_train_step`` (bf16, remat ``basic``) at the same shape, 3
+    steps: step median, tokens/s, peak memory;
+23. what the card refuses until the SSM training slice: ``ssd_scan`` with
+    an input that requires grad, and ``--mode lm --arch mamba2-130m``;
+24. prints a ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -141,12 +165,16 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+# checkpoints the phases write, inside the checkout (git ignores build/);
+# each phase removes its own
+CKPT_ROOT = os.path.join(HERE, "build", "chip_smoke_ckpt")
 
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:97"
@@ -401,25 +429,60 @@ def dtype_name(dt) -> str:
 # ---------------------------------------------------------------------------
 
 
-def flash_case(label, b, h, s, d, dtype, padded, seed):
-    """Kernel vs plain version at one shape; returns the case's record."""
-    import torch
+def sdpa_call(q, k, v, bias, b, h, kv, causal, window, grad=False):
+    """The library's attention on the flash kernels' inputs: (a callable
+    of ``scaled_dot_product_attention`` over (b, heads, s, d) views,
+    grouped-query through ``enable_gqa``; those q, k, v views, which
+    require grad when ``grad`` is set)."""
     import torch.nn.functional as F
+    s, d = q.shape[1], q.shape[2]
+    if causal and window is not None and window < s:
+        raise ValueError("SDPA has no sliding window: time it only where "
+                         "the window covers the sequence")
+    q4 = q.view(b, h, s, d)
+    k4, v4 = (x.view(b, kv, s, d) for x in (k, v))
+    if grad:
+        q4, k4, v4 = (x.detach().requires_grad_() for x in (q4, k4, v4))
+    mask4 = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, is_causal=causal,
+            enable_gqa=kv != h)
+    return call, (q4, k4, v4)
+
+
+def attended_pairs(s: int, causal: bool, window=None) -> int:
+    """(query, key) pairs a head attends over s tokens: s² without a mask,
+    the causal lower triangle (within ``window`` keys of the query)."""
+    if not causal:
+        return s * s
+    w = s if window is None else min(window, s)
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def flash_case(label, b, h, s, d, dtype, padded, seed, kv=None,
+               causal=False, window=None):
+    """Kernel vs plain version at one shape (``kv`` kv heads, default
+    ``h``; ``causal`` with ``window``); returns the case's record."""
+    import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                          flash_fwd_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    bh = b * h
-    q, k, v = (torch.randn((bh, s, d), generator=g, device=dev).to(dtype)
-               for _ in range(3))
+    bh, kv = b * h, h if kv is None else kv
+    q = torch.randn((bh, s, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b * kv, s, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    mask = dict(causal=causal, window=window)
     bias = None
     if padded:   # text-style key padding: 1..s valid keys per example
         lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
         keep = torch.arange(s, device=dev)[None, :] < lens[:, None]
         bias = torch.where(keep, 0.0, NEG_INF).float()
-    out, lse = fa_ops.flash_fwd(q, k, v, bias, causal=False)
-    ref_out, ref_lse = flash_fwd_ref(q, k, v, bias, causal=False)
+    out, lse = fa_ops.flash_fwd(q, k, v, bias, **mask)
+    ref_out, ref_lse = flash_fwd_ref(q, k, v, bias, **mask)
     torch.cuda.synchronize()
     err_out = (out.float() - ref_out.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
@@ -435,28 +498,28 @@ def flash_case(label, b, h, s, d, dtype, padded, seed):
         # not gated: the distance from the fp32 forward of the same bf16
         # values with p left unrounded
         f32_out, _ = flash_fwd_ref(q.float(), k.float(), v.float(), bias,
-                                   causal=False)
+                                   **mask)
         unrounded = (out.float() - f32_out).abs().max().item()
 
     def call():
-        fa_ops.flash_fwd(q, k, v, bias, causal=False)
+        fa_ops.flash_fwd(q, k, v, bias, **mask)
     ms = time_ms(call)
     dev_ms, _ = device_ms(call, WRAPPER_KERNELS["flash_fwd"])
-    plain_ms = time_ms(lambda: flash_fwd_ref(q, k, v, bias, causal=False))
-    q4, k4, v4 = (x.view(b, h, s, d) for x in (q, k, v))
-    mask4 = None if bias is None else bias.to(dtype)[:, None, None, :]
-
-    def sdpa():
-        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4)
+    plain_ms = time_ms(lambda: flash_fwd_ref(q, k, v, bias, **mask),
+                       iters=5 if s > 512 else 20)
+    sdpa, _ = sdpa_call(q, k, v, bias, b, h, kv, causal, window)
     lib_ms = time_ms(sdpa)
     lib_dev_ms, _ = device_ms(sdpa)
     item = torch.finfo(dtype).bits // 8
-    nbytes = 4 * bh * s * d * item + bh * s * 4 + (b * s * 4 if padded
-                                                   else 0)
-    flops = 4.0 * bh * s * s * d
+    nbytes = (2 * bh + 2 * b * kv) * s * d * item + bh * s * 4 \
+        + (b * s * 4 if padded else 0)
+    flops = 4.0 * bh * d * attended_pairs(s, causal, window)
     bound_ms, bound_by = bound(nbytes, flops, dt, flash_peak(dt))
     rec = {"shape": f"{label} bh={bh} s={s} d={d} {dt}"
-                    + (" padded" if padded else ""),
+                    + (f" kv={b * kv}" if kv != h else "")
+                    + (" padded" if padded else "")
+                    + (" causal" if causal else "")
+                    + (f" window={window}" if window else ""),
            "max_abs_err": max(err_out, err_lse), "ms": ms,
            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_device_ms": lib_dev_ms,
@@ -882,20 +945,22 @@ def flash_bwd_tol_text(dt):
 
 
 def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
-                   window=None, timed=True):
-    """Backward kernel vs plain version at one shape; returns the case's
-    record (errors of dq, dk, dv; times when ``timed``)."""
+                   window=None, timed=True, kv=None):
+    """Backward kernel vs plain version at one shape (``kv`` kv heads,
+    default ``h``: dk and dv then sum each group's query heads); returns
+    the case's record (errors of dq, dk, dv; times when ``timed``)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                          flash_bwd_ref,
                                                          flash_fwd_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    bh = b * h
-    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=dev)
-                     .to(dtype) for _ in range(4))
+    bh, kv = b * h, h if kv is None else kv
+    q, dout = (torch.randn((bh, s, d), generator=g, device=dev).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn((b * kv, s, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
     bias = None
     if padded:   # text-style key padding: 1..s valid keys per example
         lens = torch.randint(1, s + 1, (b,), generator=g, device=dev)
@@ -916,6 +981,7 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
                                  f"err {errs[name]:.3g} (tol "
                                  f"{flash_bwd_tol_text(dt)})")
     rec = {"shape": f"{label} bh={bh} s={s} d={d} {dt}"
+                    + (f" kv={b * kv}" if kv != h else "")
                     + (" padded" if padded else "")
                     + (" causal" if causal else "")
                     + (f" window={window}" if window else ""),
@@ -951,26 +1017,23 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
                                                     window=window), iters=5)
     # SDPA's backward: forward + backward through autograd, minus the
     # forward timed apart on the same inputs
-    q4, k4, v4 = (x.view(b, h, s, d).detach().requires_grad_()
-                  for x in (q, k, v))
+    sdpa_fwd, views = sdpa_call(q, k, v, bias, b, h, kv, causal, window,
+                                grad=True)
     do4 = dout.view(b, h, s, d)
-    mask4 = None if bias is None else bias.to(dtype)[:, None, None, :]
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4)
 
     def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa_fwd(), (q4, k4, v4), do4)
+        torch.autograd.grad(sdpa_fwd(), views, do4)
 
     with torch.no_grad():
         fwd_ms = time_ms(sdpa_fwd)
     rec["library_ms"] = time_ms(sdpa_fwd_bwd) - fwd_ms
     item = torch.finfo(dtype).bits // 8
-    nbytes = 8 * bh * s * d * item + bh * s * 4 + (b * s * 4 if padded
-                                                   else 0)
-    # five products of 2·s²·d per head: the q·kᵀ recompute, dout·vᵀ, ds·k,
-    # dsᵀ·q and pᵀ·dout
-    flops = 5 * 2.0 * bh * s * s * d
+    # q, out, dout, dq; k, v, dk, dv
+    nbytes = (4 * bh + 4 * b * kv) * s * d * item + bh * s * 4 \
+        + (b * s * 4 if padded else 0)
+    # five products of 2·d per attended (query, key) pair: the q·kᵀ
+    # recompute, dout·vᵀ, ds·k, dsᵀ·q and pᵀ·dout
+    flops = 5 * 2.0 * bh * d * attended_pairs(s, causal, window)
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dt,
                                              flash_peak(dt))
     print(f"flash_bwd {rec['shape']}: plan {tuple(plan)}; err {errs} (tol "
@@ -1330,6 +1393,21 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
                          time.perf_counter() - t0)
         flash_launches[path] = {ctr.name: ctr.count for ctr in (
             fa_ops.COUNTER, fa_ops.BWD_COUNTER)}
+    rec = check_step_parity(
+        f"train parity (BASIC-S f32, B={batch_size}, {num_micro} "
+        f"microbatches)", results, lr, flash_launches)
+    return {**rec, "launches": flash_launches["kernel"]}
+
+
+def check_step_parity(label, results, lr, flash_launches, needed=None):
+    """Hold the kernel path's f32 training step against the plain path's:
+    ``results[path] = (loss, gradients by leaf path, params after the
+    update by leaf path, seconds)``. The loss within TRAIN_LOSS_TOL, every
+    gradient leaf within TRAIN_GRAD_RTOL of its largest entry, the updated
+    params within TRAIN_UPDATE_TOL_LR·lr (an unfactored element may differ
+    more only where its gradient is near zero). The kernel path must
+    launch both f32 flash kernels (``needed`` times each, when given) and
+    the plain path neither. Returns the errors."""
     (lk, gk, pk, tk), (lp, gp, pp, tp) = results["kernel"], results["plain"]
     loss_err = abs(lk - lp)
     grad_rel = {path: ((gk[path] - gp[path]).abs().max()
@@ -1347,14 +1425,13 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
         off = diff > TRAIN_UPDATE_TOL_LR * lr
         near_zero = g.abs() <= TRAIN_GRAD_RTOL * g.abs().max()
         if bool((off & ~near_zero).any()):
-            raise AssertionError(f"train parity: {path} update differs by "
+            raise AssertionError(f"{label}: {path} update differs by "
                                  f"{diff.max().item():.3g} where its "
                                  f"gradient is not near zero")
         flips += int(off.sum())
         upd_err = max(upd_err, diff[~off].max().item() if bool(
             (~off).any()) else 0.0)
-    print(f"train parity (BASIC-S f32, B={batch_size}, {num_micro} "
-          f"microbatches): loss kernel {lk:.6f} plain {lp:.6f} (|diff| "
+    print(f"{label}: loss kernel {lk:.6f} plain {lp:.6f} (|diff| "
           f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); largest relative gradient "
           f"error {grad_rel[worst]:.3g} at {worst} (tol {TRAIN_GRAD_RTOL}); "
           f"updated params max diff {upd_err:.3g} (tol "
@@ -1362,17 +1439,21 @@ def phase_train_parity(batch_size: int = 256, num_micro: int = 2):
           f"{flips} unfactored elements with near-zero gradients differ "
           f"more); step {tk:.2f}s kernel path, {tp:.2f}s plain path; "
           f"f32 flash launches {flash_launches}", flush=True)
-    if (min(flash_launches["kernel"].values()) < 1
+    kernel_counts = flash_launches["kernel"].values()
+    if (min(kernel_counts) < 1
+            or (needed is not None and set(kernel_counts) != {needed})
             or max(flash_launches["plain"].values()) > 0):
-        raise AssertionError(f"train parity: the kernel path must launch "
-                             f"both f32 flash kernels and the plain path "
-                             f"neither, got {flash_launches}")
+        raise AssertionError(f"{label}: the kernel path must launch both "
+                             f"f32 flash kernels"
+                             + (f" {needed} times each" if needed else "")
+                             + f" and the plain path neither, got "
+                             f"{flash_launches}")
     if not (loss_err <= TRAIN_LOSS_TOL and grad_rel[worst] <= TRAIN_GRAD_RTOL
             and upd_err <= TRAIN_UPDATE_TOL_LR * lr):
-        raise AssertionError("train parity: kernel path and plain path "
-                             "disagree beyond the stated tolerances")
+        raise AssertionError(f"{label}: kernel path and plain path "
+                             f"disagree beyond the stated tolerances")
     return {"loss_err": loss_err, "grad_rel_err": grad_rel[worst],
-            "update_err": upd_err, "launches": flash_launches["kernel"]}
+            "update_err": upd_err, "flips": flips}
 
 
 # ---------------------------------------------------------------------------
@@ -1546,6 +1627,21 @@ def require_launches(label, launches, needed, absent=()):
                                  f"{launches[name]} times")
 
 
+def require_equal_trees(label, got, want):
+    """Raise unless two trees of tensors have the same leaf paths, dtypes,
+    shapes and bits."""
+    import torch
+    from repro_torch.tree import leaves
+    g, w = list(leaves(got)), list(leaves(want))
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise AssertionError(f"{label}: the trees' leaves differ")
+    for (path, a), (_, b) in zip(g, w):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.reshape(-1).view(torch.uint8),
+                b.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{label}: leaf {path} differs")
+
+
 def phase_report(label, rep, unit):
     """Print a phase's step times, rate, peak memory and losses."""
     import math
@@ -1570,6 +1666,7 @@ def phase_recipe():
 
     import numpy as np
     import torch
+    from repro_torch import checkpoint as ckpt
     from repro_torch import interop
     from repro_torch.data import render_images
     from repro_torch.eval import (classify, evaluate_benchmark,
@@ -1583,12 +1680,28 @@ def phase_recipe():
     fa, fb, cf, cb, tk = (c.name for c in recipe_counters())
     launches, out = {}, {}
 
+    ckpt_dir = os.path.join(CKPT_ROOT, "pretrain")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     pre, launches["pretrain"] = counted(
-        lambda: train.main(PRETRAIN_ARGV))
+        lambda: train.main(PRETRAIN_ARGV + ["--ckpt-dir", ckpt_dir]))
     phase_report("phase 1 (pretrain, B=1024)", pre, "images")
     require_launches("phase 1", launches["pretrain"], (fa, fb), (cf, cb, tk))
-    tower = pre.pop("params")["tower"]
+    # phase 2 starts from the tower restored from phase 1's checkpoint
+    trained = pre.pop("params")
     pre.pop("opt_state")
+    t0 = time.perf_counter()
+    restored = ckpt.restore(ckpt_dir, train.parse_args(PRETRAIN_ARGV).steps,
+                            interop.to_device(trained, "meta"),
+                            device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require_equal_trees("recipe phase 1 checkpoint", restored, trained)
+    print(f"recipe phase 1: saved {pre['ckpt_path']} in "
+          f"{pre['ckpt_save_s']:.3f} s, restored onto the card in "
+          f"{restore_s:.3f} s, bit for bit", flush=True)
+    shutil.rmtree(ckpt_dir)
+    tower = restored["tower"]
+    del trained, restored
 
     args2 = train.parse_args(FROZEN_ARGV)
     p2, launches["frozen"] = counted(lambda: train.run_contrastive(
@@ -2585,6 +2698,312 @@ def phase_ssm_prefill_profile(eng):
     return device_breakdown(prof, "1 warm prefill", wall_us, 1, calls)
 
 
+# ---------------------------------------------------------------------------
+# phases 19-23: LM training (--mode lm), checkpoints, the registry's disk
+# cache, and the paths the card refuses
+# ---------------------------------------------------------------------------
+
+# Llama-3.2-1B's attention at the timed run's shape: b 4 × s 1024, 32 query
+# heads over 8 kv heads, d 64, causal, the window (8192) past the sequence
+LM_ATTN = dict(b=4, h=32, kv=8, s=1024, d=64, causal=True, window=8192)
+LM_ARGV = ["--mode", "lm", "--arch", "llama3.2-1b", "--batch", "4",
+           "--seq", "1024", "--steps", "4", "--seed", "0"]
+
+
+def phase_lm_flash():
+    """The flash kernels at the LM training shape, forward and backward,
+    f32 and bf16, against their plain versions; timed against SDPA with
+    ``enable_gqa``. Returns the records by (direction, dtype)."""
+    import torch
+    a = LM_ATTN
+    recs = {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        recs[("fwd", dtype)] = flash_case(
+            "lm", a["b"], a["h"], a["s"], a["d"], dtype, False, 60 + i,
+            kv=a["kv"], causal=a["causal"], window=a["window"])
+        recs[("bwd", dtype)] = flash_bwd_case(
+            "lm", a["b"], a["h"], a["s"], a["d"], dtype, False, 62 + i,
+            causal=a["causal"], window=a["window"], kv=a["kv"])
+    return recs
+
+
+def lm_counters():
+    """The flash forward and backward launch counters."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return (fa_ops.COUNTER, fa_ops.BWD_COUNTER)
+
+
+def phase_lm_parity(batch: int = 2, seq: int = 512, lr: float = 1e-3):
+    """One f32 step of Llama-3.2-1B at full width and depth (``lm_loss``
+    with no remat, then ``run_lm``'s AdaFactorW(weight_decay=0.0025)) on
+    the kernel path (flash) and the plain path (chunked attention), from
+    one set of weights and one batch: loss, every gradient leaf, the
+    params after the update; 16 + 16 flash launches on the kernel path,
+    none on the plain path."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdaFactorW, apply_updates
+
+    cfg = get_arch("llama3.2-1b")
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(2), "cuda")
+    batch = frontends.synthetic_inputs(cfg, batch, seq,
+                                       np.random.default_rng(2),
+                                       device="cuda")
+    opt = AdaFactorW(weight_decay=0.0025)
+    results, launches = {}, {}
+    for path, attn in (("kernel", "pallas"), ("plain", "chunked")):
+        pcfg = dataclasses.replace(cfg, attn_impl=attn)
+        for ctr in lm_counters():
+            ctr.reset()
+        t0 = time.perf_counter()
+        loss, _, grads = value_and_grad(
+            lambda p: tf.lm_loss(pcfg, p, batch, precision="f32"), params)
+        updates, _ = opt.update(grads, opt.init(params), params, lr)
+        new = apply_updates(params, updates)
+        del updates
+        torch.cuda.synchronize()
+        results[path] = (loss.item(), dict(interop.leaves(grads)),
+                         dict(interop.leaves(new)),
+                         time.perf_counter() - t0)
+        launches[path] = {c.name: c.count for c in lm_counters()}
+        del grads, new
+    rec = check_step_parity(
+        f"lm parity (Llama-3.2-1B f32, b={batch['tokens'].shape[0]} x "
+        f"s={seq})", results, lr, launches, needed=cfg.n_layers)
+    return {**rec, "launches": launches["kernel"]}
+
+
+def phase_lm_timed():
+    """``--mode lm`` through the trainer's ``main`` at full width and
+    depth (f32, b 4 × s 1024, 4 steps, ``--ckpt-dir``); then the
+    checkpoint: ``verify``, a ``restore`` onto the card equal to the
+    returned params bit for bit (timed), and one
+    ``AsyncCheckpointManager.save_async`` of the same tree (its stall and
+    its background write), then a profile of one more warm step. Returns
+    (launches per step, report)."""
+    import math
+
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import interop
+    from repro_torch.launch import train
+
+    ckpt_dir = os.path.join(CKPT_ROOT, "lm")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for ctr in lm_counters():
+        ctr.reset()
+    rep = train.main(LM_ARGV + ["--ckpt-dir", ckpt_dir])
+    steps = len(rep["losses"])
+    per_step = {c.name: c.count / steps for c in lm_counters()}
+    params, opt_state = rep.pop("params"), rep.pop("opt_state")
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in interop.leaves(params))
+    print(f"lm (Llama-3.2-1B f32, b 4 x s 1024): warm step median "
+          f"{rep['warm_step_median_s']:.4f} s, {rep['tokens_per_s']:.1f} "
+          f"tokens/s, max_memory_allocated "
+          f"{rep['max_memory_allocated'] / 2**30:.3f} GiB; step s "
+          f"{[round(t, 4) for t in rep['step_s']]}; losses "
+          f"{[round(v, 5) for v in rep['losses']]}; launches per step "
+          f"{per_step}", flush=True)
+    if not all(math.isfinite(v) for v in rep["losses"]):
+        raise AssertionError(f"lm: non-finite loss {rep['losses']}")
+    if set(per_step.values()) != {16}:
+        raise AssertionError(f"lm: expected 16 flash_fwd and 16 flash_bwd "
+                             f"launches a step, got {per_step}")
+    t0 = time.perf_counter()
+    ckpt.verify(ckpt_dir, steps)   # reads the files the save just wrote
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.restore(ckpt_dir, steps, interop.to_device(params, "meta"),
+                        device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require_equal_trees("lm checkpoint", back, params)
+    del back
+    shutil.rmtree(ckpt_dir)
+    with ckpt.AsyncCheckpointManager(ckpt_dir) as mgr:
+        mgr.save_async(steps, params)
+        stall_s = mgr.metrics.gauge("ckpt/last_stall_s").value
+        mgr.wait()
+        write_s = mgr.metrics.histogram("ckpt/write_latency_s").sum
+    shutil.rmtree(ckpt_dir)
+    rep["device_kernels_per_call"], rep["busy"] = lm_step_profile(params,
+                                                                  opt_state)
+    gb = nbytes / 1e9
+    rep.update(ckpt_bytes=nbytes, ckpt_verify_s=verify_s,
+               ckpt_restore_s=restore_s, ckpt_async_stall_s=stall_s,
+               ckpt_async_write_s=write_s)
+    print(f"lm checkpoint ({gb:.3f} GB, {len(list(interop.leaves(params)))}"
+          f" leaves): blocking save {rep['ckpt_save_s']:.3f} s "
+          f"({gb / rep['ckpt_save_s']:.3f} GB/s), verify {verify_s:.3f} s, "
+          f"restore onto the card {restore_s:.3f} s "
+          f"({gb / restore_s:.3f} GB/s), bit for bit; save_async stall "
+          f"{stall_s:.3f} s ({gb / stall_s:.3f} GB/s), its background "
+          f"write {write_s:.3f} s", flush=True)
+    return per_step, rep
+
+
+def lm_step_profile(params, opt_state):
+    """A torch.profiler window over one more warm ``--mode lm`` step (the
+    trainer's ``lm_step`` at its f32 settings) from the timed run's state:
+    device time by kernel and group, busy share, device kernels per flash
+    call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import lm_step
+    from repro_torch.models import frontends
+    from repro_torch.optim import AdaFactorW
+
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), attn_impl="pallas")
+    step = lm_step(cfg, AdaFactorW(weight_decay=0.0025), 1e-3,
+                   precision="f32")
+    batch = frontends.synthetic_inputs(cfg, 4, 1024, np.random.default_rng(3),
+                                       device="cuda")
+    calls = {}
+
+    def one_step():
+        before = {c.name: c.count for c in lm_counters()}
+        t0 = time.perf_counter()
+        _, _, loss, _ = step(params, opt_state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+        calls.update({c.name: c.count - before[c.name]
+                      for c in lm_counters()})
+        return (time.perf_counter() - t0) * 1e6
+
+    prof, wall_us = retaken_window(
+        one_step, lambda prof, _: all(
+            seen >= calls[w]
+            for w, seen in wrapper_kernels_seen(prof, calls).items()))
+    return device_breakdown(prof, "1 warm lm step", wall_us, 1, calls)
+
+
+def phase_lm_step_bf16(steps: int = 3):
+    """``make_train_step`` (bf16, remat basic, flash attention) on
+    Llama-3.2-1B at the timed run's shape, ``steps`` steps: warm step
+    median, tokens/s, peak memory, flash launches per step."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), attn_impl="pallas")
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), "cuda")
+    step_fn, opt = make_train_step(cfg)
+    opt_state = opt.init(params)
+    rng = np.random.default_rng(0)
+    torch.cuda.reset_peak_memory_stats()
+    for ctr in lm_counters():
+        ctr.reset()
+    step_s, losses = [], []
+    for _ in range(steps):
+        batch = frontends.synthetic_inputs(cfg, 4, 1024, rng, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = step_fn(params, opt_state, batch)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    median = statistics.median(step_s[1:])
+    rec = {"warm_step_median_s": median, "tokens_per_s": 4096 / median,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "step_s": step_s, "losses": losses,
+           "launches_per_step": {c.name: c.count / steps
+                                 for c in lm_counters()}}
+    print(f"lm make_train_step (bf16, remat basic, b 4 x s 1024): warm step "
+          f"median {median:.4f} s, {rec['tokens_per_s']:.1f} tokens/s, "
+          f"max_memory_allocated {rec['max_memory_allocated'] / 2**30:.3f} "
+          f"GiB; step s {[round(t, 4) for t in step_s]}; losses "
+          f"{[round(v, 5) for v in losses]}; launches per step "
+          f"{rec['launches_per_step']}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"lm bf16 step: non-finite loss {losses}")
+    return rec
+
+
+def phase_registry_disk(cfg, params, tok):
+    """Zero-shot serving with ``registry_dir``: once computing the class
+    matrix, then in a fresh service, which must read it from disk
+    (``source == 'disk'``) and give the same top-5 ids."""
+    import numpy as np
+    from repro_torch.kernels.similarity_topk import ops as topk_ops
+    from repro_torch.launch import serve_zeroshot
+
+    reg_dir = os.path.join(CKPT_ROOT, "registry")
+    shutil.rmtree(reg_dir, ignore_errors=True)
+    reps = []
+    for _ in range(2):
+        topk_ops.COUNTER.reset()
+        reps.append(serve_zeroshot.run(
+            cfg, params, tok, classes=512, batch=16, requests=2, k=5,
+            seed=0, device="cuda", registry_dir=reg_dir))
+        reps[-1]["topk_launches"] = topk_ops.COUNTER.count
+    shutil.rmtree(reg_dir)
+    first, second = reps
+    same = np.array_equal(first["last_result"].indices,
+                          second["last_result"].indices)
+    print(f"registry on disk: first service {first['class_matrix_source']} "
+          f"in {first['class_matrix_s']:.3f} s, second "
+          f"{second['class_matrix_source']} in "
+          f"{second['class_matrix_s']:.3f} s; top-5 ids equal: {same}; "
+          f"topk_fused launches {first['topk_launches']} / "
+          f"{second['topk_launches']}", flush=True)
+    if (first["class_matrix_source"], second["class_matrix_source"]) != \
+            ("computed", "disk") or not same or not np.array_equal(
+                first["class_matrix"], second["class_matrix"]):
+        raise AssertionError("registry: the second service did not serve "
+                             "the first's class matrix from disk")
+    if min(first["topk_launches"], second["topk_launches"]) < 1:
+        raise AssertionError("registry: topk_fused was not launched")
+    return {"computed_s": first["class_matrix_s"],
+            "disk_s": second["class_matrix_s"]}
+
+
+def phase_refused_on_card():
+    """What the card refuses until the SSM training slice: ``ssd_scan``
+    with an input that requires grad, and ``--mode lm`` for Mamba-2."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import train
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, l, h, p, n = 1, 64, 2, 64, 16
+    x = torch.randn((b, l, h, p), generator=g, device="cuda",
+                    requires_grad=True)
+    dt = torch.rand((b, l, h), generator=g, device="cuda")
+    A = -torch.ones((h,), device="cuda")
+    Bm, Cm = (torch.randn((b, l, n), generator=g, device="cuda")
+              for _ in range(2))
+    for label, fn in (
+            ("ssd_scan with grad", lambda: ssd_ops.ssd_scan(
+                x, dt, A, Bm, Cm, chunk=64)),
+            ("--mode lm --arch mamba2-130m", lambda: train.main(
+                ["--mode", "lm", "--arch", "mamba2-130m", "--batch", "1",
+                 "--seq", "256", "--steps", "1"]))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            print(f"refused on the card: {label}: {e}", flush=True)
+        else:
+            raise AssertionError(f"{label} ran on the card: the scan has "
+                                 f"no backward there")
+    with torch.no_grad():
+        y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("ssd_scan without grad mode: non-finite y")
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -2628,6 +3047,7 @@ def main() -> int:
     ssd = phase_ssd_kernel()
     launches, cfg, params, tok = phase_main_path()
     per_call = phase_profile(cfg, params, tok)
+    registry = phase_registry_disk(cfg, params, tok)
     del params
     train_parity = phase_train_parity()
     train_launches, train_per_step, _ = phase_train_timed()
@@ -2650,6 +3070,15 @@ def main() -> int:
     ssm_per_call, ssm_prefill_busy = phase_ssm_prefill_profile(ssm_eng)
     _, ssm_busy = phase_decode_profile(ssm_eng, prompt_len=248, counters=())
     del ssm_eng, ssm_rep
+    torch.cuda.empty_cache()
+    lm_flash = phase_lm_flash()
+    lm_parity = phase_lm_parity()
+    torch.cuda.empty_cache()
+    lm_per_step, lm_rep = phase_lm_timed()
+    torch.cuda.empty_cache()
+    lm_bf16 = phase_lm_step_bf16()
+    torch.cuda.empty_cache()
+    phase_refused_on_card()
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(r["max_abs_err"] for (_, dt), r in flash.items()
@@ -2662,6 +3091,18 @@ def main() -> int:
     c_fwd, c_bwd = contrastive[(2048, torch.float32)]
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
+
+    def lm_of(direction, name):
+        """The kernel at the LM training shape and its launches there."""
+        return {"lm_train": [{k: lm_flash[(direction, dt)][k] for k in (
+                    "shape", "plan", *timing, "device_ms")}
+                    for dt in (torch.float32, torch.bfloat16)],
+                "lm_launches_per_step": lm_per_step[name],
+                "lm_device_kernels_per_call": lm_rep[
+                    "device_kernels_per_call"][name],
+                "lm_bf16_launches_per_step": lm_bf16["launches_per_step"][
+                    name],
+                "lm_f32_parity_launches": lm_parity["launches"][name]}
 
     def recipe_of(name):
         """The kernel's launches in each part of the recipe phase."""
@@ -2716,7 +3157,8 @@ def main() -> int:
          "decode_launches": dec_launches[fa_ops.COUNTER.name],
          "decode_launches_per_prefill": dec_per["flash_fwd_per_prefill"],
          "prefill_bf16": prefill_flash["bfloat16"],
-         "prefill_f32": prefill_flash["float32"]},
+         "prefill_f32": prefill_flash["float32"],
+         **lm_of("fwd", fa_ops.COUNTER.name)},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -2737,7 +3179,8 @@ def main() -> int:
                     f32_train_parity_launches=train_parity["launches"][
                         fa_ops.BWD_COUNTER.name],
                     text_f32={k: flash_bwd[("text", torch.float32)][k]
-                              for k in (*timing, "device_ms", "plan")}),
+                              for k in (*timing, "device_ms", "plan")},
+                    **lm_of("bwd", fa_ops.BWD_COUNTER.name)),
         train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
                     c_fwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][0]["max_abs_err"],
@@ -2801,6 +3244,21 @@ def main() -> int:
           f"{recipe['table']['shifted_robustness']:.3f}; §4.2 mean_K(c) "
           f"error {accum['grad_rel_err']:.3g}, first moment error "
           f"{accum['m_rel_err']:.3g}", flush=True)
+    print(f"lm: --mode lm {lm_rep['warm_step_median_s']:.4f} s a step, "
+          f"{lm_rep['tokens_per_s']:.1f} tokens/s, "
+          f"{lm_rep['max_memory_allocated'] / 2**30:.3f} GiB; "
+          f"make_train_step bf16 {lm_bf16['warm_step_median_s']:.4f} s, "
+          f"{lm_bf16['tokens_per_s']:.1f} tokens/s, "
+          f"{lm_bf16['max_memory_allocated'] / 2**30:.3f} GiB; f32 parity "
+          f"loss {lm_parity['loss_err']:.3g}, gradients "
+          f"{lm_parity['grad_rel_err']:.3g}; checkpoint "
+          f"{lm_rep['ckpt_bytes'] / 1e9:.3f} GB: save "
+          f"{lm_rep['ckpt_save_s']:.3f} s, restore "
+          f"{lm_rep['ckpt_restore_s']:.3f} s, async stall "
+          f"{lm_rep['ckpt_async_stall_s']:.3f} s; registry from disk "
+          f"{registry['disk_s']:.3f} s (computed "
+          f"{registry['computed_s']:.3f} s)", flush=True)
+    print(f"lm profile busy share {lm_rep['busy']:.4f}", flush=True)
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
           f"{dec_busy:.4f}; ssm prefill profile busy share "
           f"{ssm_prefill_busy:.4f}; ssm decode profile busy share "

@@ -7,7 +7,8 @@ module and registered here when ``get_arch`` first runs. The dense LMs
 (Llama-3.2-1B, Qwen3-32B, Minitron-4B, InternLM2-20B) and Mamba-2-130M
 (``family="ssm"``) serve through the decode engines; the MoE, hybrid, vlm
 and audio configs and their ``moe``/``attn_every`` fields wait for later
-slices of the port.
+slices of the port. ``InputShape`` / ``INPUT_SHAPES`` name the assigned
+input shapes, and ``applicable_shapes`` says which of them an arch runs.
 """
 from __future__ import annotations
 
@@ -101,6 +102,43 @@ class ArchConfig:
         if not self.tie_embeddings:
             total += V * d
         return {"total": total, "active": total}
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned input shape: sequence length, global batch and what it
+    drives ('train' | 'contrastive' | 'prefill' | 'decode')."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    # the paper's own training shape: B=65536 image-text pairs, 64-token
+    # captions (paper §7.1), Algorithm-1 GradAccum with M=8192 (App. E)
+    "contrastive_64k": InputShape("contrastive_64k", 64, 65536, "contrastive"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig):
+    """The shapes ``cfg`` runs (the reference's skip matrix): train and
+    prefill for every arch; decode for causal ones; the 500k-token decode
+    for the subquadratic ones (SSM, hybrid, sliding window)."""
+    names = ["train_4k", "prefill_32k"]
+    if cfg.causal:  # encoder-only archs have no decode step
+        names.append("decode_32k")
+        subquadratic = (
+            cfg.family in ("ssm", "hybrid")
+            or cfg.sliding_window is not None
+        )
+        if subquadratic:
+            names.append("long_500k")
+    return [INPUT_SHAPES[n] for n in names]
 
 
 _REGISTRY: dict = {}

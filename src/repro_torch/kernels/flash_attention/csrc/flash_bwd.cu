@@ -65,7 +65,10 @@
 // and the image tower's s = 196 costs 208 keys in 13 warps), else 208 / 96
 // with dq partials; q tiles are masked at the row, so s = 196 costs 7
 // tiles of 32 rows. p is exp(s·d^-1/2 + bias − lse) by expf, fp32 as the
-// plain version. What bounds it: the splits left (k, v and the dq
+// plain version. dv and dk sum each q tile from zero in the mma
+// accumulators and add that to their running sums in fp32: the tensor
+// core's accumulation truncates, and a running sum kept in the C operand
+// over every tile of a long causal GQA group drifted (tile_product). What bounds it: the splits left (k, v and the dq
 // phase's k, split per warp) and the dq phase, where 8 of 13 warps work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -524,6 +527,36 @@ static_assert(F32Bwd<128>::bytes(16 * F32Bwd<128>::kMaxW) <= kSmemLimit &&
                       kSmemLimit,
               "kMaxW at d 128 is the largest block that fits");
 
+// out (16 keys × D) = aᵀ · b over one tile's kF32BQ queries, from zero, in
+// split 3×TF32: a is a warp's C fragments (keys × queries, fp32: pᵀ or
+// dsᵀ), b a split q or dout tile (tf32 hi and lo planes, rows of D + 4)
+template <int D>
+__device__ __forceinline__ void tile_product(float (&out)[D / 8][4],
+                                             float (&a)[kF32BQ / 8][4],
+                                             const unsigned* bh,
+                                             const unsigned* bl, int gq,
+                                             int tq) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[dn][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kF32BQ / 8; ++j) {
+    unsigned ah[4], al[4];
+    split_tf32(a[j][0], ah[0], al[0]);   // key g,     query 2t
+    split_tf32(a[j][2], ah[1], al[1]);   // key g + 8, query 2t
+    split_tf32(a[j][1], ah[2], al[2]);   // key g,     query 2t + 1
+    split_tf32(a[j][3], ah[3], al[3]);   // key g + 8, query 2t + 1
+    const int br = (8 * j + 2 * tq) * LD + gq;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int b0 = br + dn * 8, b1 = br + LD + dn * 8;
+      mma_3xtf32(out[dn], ah, al, bh[b0], bh[b1], bl[b0], bl[b1]);
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(32 * F32Bwd<D>::kMaxW, 1)
 flash_bwd_3xtf32_kernel(const float* __restrict__ q,
@@ -717,27 +750,25 @@ flash_bwd_3xtf32_kernel(const float* __restrict__ q,
 
       // dv += pᵀ·dout and dk += dsᵀ·q over the 8 queries of each n-tile.
       // The C fragment gives this thread queries 2t and 2t + 1; A's columns
-      // t and t + 4 stand for them, and dout and q are read in that order
+      // t and t + 4 stand for them, and dout and q are read in that order.
+      // Each product sums this tile's queries from zero in the mma's
+      // accumulators, then joins the running dv / dk by an fp32 add: the
+      // tensor core's accumulating adds truncate, so a running sum kept in
+      // the C operand over every tile of every head of the GQA group
+      // drifts by about an ulp of the sum per mma (dk, dv 2e-4 to 4e-4
+      // from exact at 32 heads over 8, s 1024, the plain fp32 version
+      // 1e-5), where a tile's 32 queries do not
+      float tile[DN][4];
+      tile_product<D>(tile, s_acc, dOh, dOl, gq, tq);
 #pragma unroll
-      for (int j = 0; j < QN; ++j) {
-        unsigned ph[4], pl[4], sh[4], sl[4];
-        split_tf32(s_acc[j][0], ph[0], pl[0]);   // key g,     query 2t
-        split_tf32(s_acc[j][2], ph[1], pl[1]);   // key g + 8, query 2t
-        split_tf32(s_acc[j][1], ph[2], pl[2]);   // key g,     query 2t + 1
-        split_tf32(s_acc[j][3], ph[3], pl[3]);   // key g + 8, query 2t + 1
-        split_tf32(p_acc[j][0], sh[0], sl[0]);
-        split_tf32(p_acc[j][2], sh[1], sl[1]);
-        split_tf32(p_acc[j][1], sh[2], sl[2]);
-        split_tf32(p_acc[j][3], sh[3], sl[3]);
-        const int br = (8 * j + 2 * tq) * LD + gq;
+      for (int dn = 0; dn < DN; ++dn)
 #pragma unroll
-        for (int dn = 0; dn < DN; ++dn) {
-          const int b0 = br + dn * 8, b1 = br + LD + dn * 8;
-          mma_3xtf32(acc_dv[dn], ph, pl, dOh[b0], dOh[b1], dOl[b0],
-                     dOl[b1]);
-          mma_3xtf32(acc_dk[dn], sh, sl, Qh[b0], Qh[b1], Ql[b0], Ql[b1]);
-        }
-      }
+        for (int e = 0; e < 4; ++e) acc_dv[dn][e] += tile[dn][e];
+      tile_product<D>(tile, p_acc, Qh, Ql, gq, tq);
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_dk[dn][e] += tile[dn][e];
     }
     __syncthreads();   // dsᵀ of every warp is in shared memory
 

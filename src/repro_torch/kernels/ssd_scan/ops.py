@@ -194,7 +194,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x, dt, Bm, Cm with a contiguous last dimension. One call is one device
     kernel, launched as ``ssd_plan`` says. x, Bm or Cm not laid out in
     whole 16-byte units (address, strides) is first copied to a contiguous
-    tensor."""
+    tensor. The kernel has no backward yet: on the card, with grad mode on,
+    an input that requires grad raises ``NotImplementedError``."""
     _check_inputs(x, dt, A, Bm, Cm, D, init_state)
     b, l, h, p = x.shape
     n = Bm.shape[-1]
@@ -203,6 +204,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_chunked(x, dt, A, Bm, Cm, c, init_state, D)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, D, init_state)):
+        # the kernel's outputs carry no grad_fn: training through it would
+        # silently leave every parameter upstream of the scan untrained
+        raise NotImplementedError(
+            "ssd_scan has no backward on the card: gradients through the "
+            "SSD scan come with the SSM training slice (ROADMAP.md Queue 1, "
+            "item 6); the plain version on a CPU tensor is differentiable")
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan kernel takes x, Bm, Cm of one dtype, f32 "
                         f"or bf16, got {x.dtype}/{Bm.dtype}/{Cm.dtype}")

@@ -7,13 +7,15 @@ traffic (port of ``repro/launch/serve_zeroshot.py``).
 Builds a BASIC dual encoder (``basic-s`` at full width by default) with
 random weights from ``--seed`` and both towers on the flash-attention
 kernel (``attn_impl="pallas"``, the reference's kernel backend),
-precomputes the class matrix through the registry, then pushes
+precomputes the class matrix through the registry (persisted under
+``--registry-dir`` when given, so a second launch reads it back and skips
+the text tower), then pushes
 ``--requests`` classify batches of raw synthetic images through the
 micro-batcher and the fused similarity→top-k kernel and reports latency
 and throughput. It runs on the card; ``--device cpu`` (with
 ``--smoke`` for a size the CPU can take) runs the plain PyTorch path. The
-reference's registry directory, retrieval modes, SLO and metrics-endpoint
-flags wait for later slices of the port.
+reference's retrieval modes, SLO and metrics-endpoint flags wait for later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -56,17 +58,21 @@ def _sync(device: torch.device) -> None:
 
 def run(cfg, params, tok, *, classes: int = 64, batch: int = 16,
         requests: int = 8, k: int = 5, seed: int = 0, device=None,
-        max_delay_ms: float = 2.0) -> dict:
+        max_delay_ms: float = 2.0, registry_dir: Optional[str] = None
+        ) -> dict:
     """Serve ``requests`` classify calls of ``batch`` images over a
-    ``classes``-name label space; returns the report (timings in seconds,
-    the last request's images and result, the class matrix)."""
+    ``classes``-name label space, the class matrix through a registry that
+    persists under ``registry_dir`` when given; returns the report
+    (timings in seconds, the class matrix and where the registry found it,
+    the last request's images and result)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     world = world_for_tower(rng, cfg.image_tower, n_classes=classes)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     with ZeroShotService(cfg, params, tok, device=dev,
-                         max_delay_ms=max_delay_ms) as svc:
+                         max_delay_ms=max_delay_ms,
+                         registry_dir=registry_dir) as svc:
         t0 = time.perf_counter()
         cm = svc.registry.get(world.class_names, svc.templates,
                               svc.checkpoint_tag, embed_dim=cfg.embed_dim)
@@ -102,6 +108,7 @@ def run(cfg, params, tok, *, classes: int = 64, batch: int = 16,
                                  if dev.type == "cuda" else None),
         "stats": stats,
         "class_matrix": cm.matrix,
+        "class_matrix_source": cm.source,
         "last_images": images,
         "last_result": res,
     }
@@ -119,6 +126,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--k", type=int, default=5)
+    ap.add_argument("--registry-dir", default=None,
+                    help="persist class matrices here (the reference's "
+                         "layout); a later launch reads them back")
     ap.add_argument("--tokenizer", default="v1",
                     help="tokenizer artifact version "
                          "(artifacts/tokenizer_<v>.json)")
@@ -131,9 +141,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     rep = run(cfg, params, load_tokenizer(args.tokenizer),
               classes=args.classes, batch=args.batch,
               requests=args.requests, k=args.k, seed=args.seed,
-              device=args.device, max_delay_ms=args.max_delay_ms)
+              device=args.device, max_delay_ms=args.max_delay_ms,
+              registry_dir=args.registry_dir)
     print(f"device {rep['device']}: class matrix "
-          f"{rep['class_matrix_s']:.3f}s, first classify "
+          f"{rep['class_matrix_s']:.3f}s ({rep['class_matrix_source']}), "
+          f"first classify "
           f"{rep['first_classify_s']:.3f}s")
     mem = rep["max_memory_allocated"]
     print(f"warm: p50 {rep['p50_s'] * 1e3:.2f}ms  max "

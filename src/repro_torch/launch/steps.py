@@ -1,15 +1,19 @@
 """Step factories of the port (counterpart of ``repro/launch/steps.py``):
-the optimizer, the paper's own contrastive training step and the phase-1
-pretraining step of the BASIC recipe.
+the optimizer, the LM train / prefill / decode steps, the paper's own
+contrastive training step and the phase-1 pretraining step of the BASIC
+recipe, and the abstract params, optimizer state and inputs of an
+(arch, input shape), built on the ``meta`` device (torch's
+``eval_shape``: shapes and dtypes, no storage).
 
 ``make_contrastive_step`` builds Algorithm-1 GradAccum over ``num_micro``
 microbatches followed by one AdaFactorW update, on one device, optionally
 with the image tower frozen (phase 2). ``make_pretrain_step`` is phase 1:
 softmax cross-entropy of the image tower plus a linear head (the step of
-the reference's ``run_pretrain``, ``repro/launch/train.py:116-125``). The
-LM step factories (``make_train_step``, ``make_serve_step``,
-``make_prefill_step``) wait for the LM slice of the port; the cross-shard
-losses wait for the distributed-training slice.
+the reference's ``run_pretrain``, ``repro/launch/train.py:116-125``).
+``make_train_step`` is the LM's next-token step (``transformer.lm_loss``
+then AdaFactorW). The cross-shard losses and the input shardings wait
+for the distributed-training slice; the MoE dispatch options for the MoE
+slice.
 """
 from __future__ import annotations
 
@@ -18,10 +22,12 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core import remat as remat_lib
 from repro_torch.core.contrastive import contrastive_loss, fused_kernel_loss
 from repro_torch.core.gradaccum import contrastive_step as ga_step
 from repro_torch.models import dual_encoder as de
+from repro_torch.models import frontends
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adafactorw import AdaFactorW, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
@@ -33,6 +39,97 @@ DISTRIBUTED_LOSSES = ("allgather", "chunked")
 def make_optimizer(weight_decay=0.0025) -> AdaFactorW:
     """The reference trainer's AdaFactorW (beta1 0.9, beta2 0.99)."""
     return AdaFactorW(beta1=0.9, beta2=0.99, weight_decay=weight_decay)
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The LM's params as ``meta`` tensors: every leaf's shape and dtype,
+    nothing allocated or drawn."""
+    return tf.init_params(cfg, torch.Generator(), "meta")
+
+
+def abstract_opt_state(cfg: ArchConfig, opt: AdaFactorW, params_abs):
+    """``opt``'s state for ``params_abs`` as ``meta`` tensors."""
+    return opt.init(params_abs)
+
+
+def value_and_grad(loss_fn, params):
+    """(loss, metrics, gradients) of ``loss_fn(params) -> (loss,
+    metrics)``: fresh leaves share the params' storage, so the backward
+    fills their ``.grad`` and leaves the params' own flags alone; a leaf
+    the loss does not reach gets a zero gradient."""
+    live = tree_map(lambda x: x.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live)
+        loss.backward()
+    grads = tree_map(lambda x: torch.zeros_like(x) if x.grad is None
+                     else x.grad, live)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
+            *, precision, remat_policy=None):
+    """One LM training step: ``transformer.lm_loss`` and its gradients,
+    then one ``opt`` update at ``lr`` (a float, or a schedule of the step
+    count before the update). Returns train_step(params, opt_state,
+    batch) -> (params, opt_state, loss, metrics)."""
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = value_and_grad(
+            lambda p: tf.lm_loss(cfg, p, batch, precision=precision,
+                                 remat_policy=remat_policy), params)
+        step_lr = lr(opt_state.step) if callable(lr) else lr
+        updates, new_opt = opt.update(grads, opt_state, params, step_lr)
+        return apply_updates(params, updates), new_opt, loss, metrics
+
+    return train_step
+
+
+def make_train_step(cfg: ArchConfig, *, remat: Optional[str] = "basic",
+                    lr: Union[float, Callable] = 1e-3, precision="bf16"):
+    """The LM train step: ``transformer.lm_loss`` under the ``precision``
+    policy (default bf16) with the ``remat`` policy per block (default
+    'basic'), then ``make_optimizer``'s AdaFactorW. The attention backend
+    is ``cfg.attn_impl`` ('pallas' runs the flash kernels).
+
+    Returns (train_step, opt); train_step(params, opt_state, batch) ->
+    (params, opt_state, loss, metrics)."""
+    opt = make_optimizer()
+    return lm_step(cfg, opt, lr, precision=precision,
+                   remat_policy=remat_lib.get_policy(remat)), opt
+
+
+def make_prefill_step(cfg: ArchConfig, *, precision="bf16"):
+    """The prefill step: prefill_step(params, batch) -> the last position's
+    logits (b, 1, vocab)."""
+    def prefill_step(params, batch):
+        return tf.prefill(cfg, params, batch, precision=precision)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig, *, precision="bf16"):
+    """The single-token decode step: serve_step(params, caches, token, pos)
+    -> (logits (b, 1, vocab), caches), the caches written in place."""
+    def serve_step(params, caches, token, pos):
+        return tf.decode_step(cfg, params, token, pos, caches,
+                              precision=precision)
+
+    return serve_step
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, *,
+                dtype=torch.bfloat16) -> dict:
+    """``meta`` stand-ins for every model input of ``shape``: a train or
+    prefill batch (``frontends.train_inputs_spec``), or for decode the
+    caches, the token (b, 1) int32 and the position () int32."""
+    if shape.kind in ("train", "prefill"):
+        return frontends.train_inputs_spec(cfg, shape, dtype=dtype)
+    b = shape.global_batch
+    return {
+        "caches": tf.init_caches(cfg, b, shape.seq_len, dtype,
+                                 device="meta"),
+        "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+        "pos": torch.empty((), dtype=torch.int32, device="meta"),
+    }
 
 
 def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
@@ -159,15 +256,10 @@ def make_pretrain_step(image_cfg, *, lr: float = 1e-3,
         return -torch.mean(torch.gather(logp, 1, labels.long()[:, None]))
 
     def train_step(params, opt_state, batch):
-        # fresh leaves that share the params' storage: the backward fills
-        # their .grad and leaves the params' own flags and .grad alone
-        live = tree_map(lambda x: x.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss = loss_fn(live, batch["image"], batch["labels"])
-            loss.backward()
-        grads = tree_map(lambda x: torch.zeros_like(x) if x.grad is None
-                         else x.grad, live)
+        loss, _, grads = value_and_grad(
+            lambda p: (loss_fn(p, batch["image"], batch["labels"]), {}),
+            params)
         updates, new_opt = opt.update(grads, opt_state, params, lr)
-        return apply_updates(params, updates), new_opt, loss.detach(), {}
+        return apply_updates(params, updates), new_opt, loss, {}
 
     return train_step, opt

@@ -1,7 +1,19 @@
-"""Trainer of the port: the BASIC three-phase recipe on one device
-(counterpart of ``repro/launch/train.py`` in ``--mode pretrain``,
-``contrastive`` and ``finetune``: ``run_pretrain`` at :104-135,
-``run_contrastive`` at :138-181).
+"""Trainer of the port: LM next-token training and the BASIC three-phase
+recipe on one device (counterpart of ``repro/launch/train.py``:
+``run_lm`` at :50-82, ``run_pretrain`` at :104-135, ``run_contrastive`` at
+:138-181).
+
+- ``--mode lm``: next-token training of a decoder LM (dense or ssm) on
+  ``frontends.synthetic_inputs`` of ``--batch`` × ``--seq`` tokens, a
+  fresh batch a step from ``np.random.default_rng(seed)``: ``lm_loss`` in
+  f32 with no remat, then ``AdaFactorW(weight_decay=0.0025)`` on
+  ``warmup_cosine(lr, lr/100, steps//10 or 1, steps)``, as the reference
+  computes it. ``--precision`` and ``--remat`` are refused here (the
+  reference's ``run_lm`` has neither); ``--attn`` picks the backend
+  ('pallas', the default, is the flash kernels: on the card, the causal
+  grouped-query forward and backward). The SSM family trains on the CPU,
+  where the scan's plain version is differentiable; on the card its
+  ``ssd_scan`` kernel has no backward yet and raises.
 
 - ``--mode pretrain`` (phase 1, paper §8): the image tower plus a linear
   head under softmax cross-entropy of ``jft_batch``'s labels, one update
@@ -16,9 +28,13 @@
   ``--loss local|fused``, ``--attn``, ``--precision``, ``--remat``,
   ``--remat-image``, ``--remat-text``.
 
-The defaults are the kernel path in the reference trainer's precision:
-``--loss fused --attn pallas --precision bf16 --remat basic``.
+The recipe's defaults are the kernel path in the reference trainer's
+precision: ``--loss fused --attn pallas --precision bf16 --remat basic``.
+``--ckpt-dir`` saves the final params as step ``--steps`` there, in the
+reference's checkpoint format (``repro_torch.checkpoint``), in every mode.
 
+    python -m repro_torch.launch.train --mode lm --arch llama3.2-1b \\
+        --batch 4 --seq 1024 --steps 4 --ckpt-dir /path/to/ckpt
     python -m repro_torch.launch.train --mode pretrain --arch basic-s \\
         --batch 1024 --steps 4
     python -m repro_torch.launch.train --mode contrastive --arch basic-s \\
@@ -37,13 +53,13 @@ its params in its report. From the command line no tower is given, so
 reference.
 
 It runs on the card unless given ``--device cpu``, and raises without a
-card otherwise. ``--mode lm`` waits for the LM training slice of the port
-(LM serving is ported: ``launch/serve.py``), ``--ckpt-dir`` for the port
-of ``checkpoint/io.py``.
+card otherwise. No mode resumes from a checkpoint, as in the reference:
+resuming belongs to the distributed trainer.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import time
 from typing import Callable, Optional, Sequence
@@ -51,18 +67,21 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, smoke_dual_variant
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs import (ArchConfig, get_arch, smoke_dual_variant,
+                                 smoke_variant)
 from repro_torch.core.remat import list_policies
 from repro_torch.data import contrastive_batch, jft_batch, load_tokenizer, \
     world_for_tower
 from repro_torch.device import resolve_device
 from repro_torch.interop import init_params
-from repro_torch.launch.steps import LOSSES, make_contrastive_step, \
-    make_pretrain_step
+from repro_torch.launch.steps import LOSSES, lm_step, \
+    make_contrastive_step, make_pretrain_step
+from repro_torch.models import frontends
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ALIASES, available_backends
 from repro_torch.models.precision import list_policies as precisions
-from repro_torch.optim import warmup_cosine
+from repro_torch.optim import AdaFactorW, warmup_cosine
 from repro_torch.tree import tree_map
 
 
@@ -123,12 +142,18 @@ def build_contrastive(args, device: torch.device, image_tower_init=None,
 
 
 def _run_steps(args, run, device: torch.device, draw: Callable, mode: str,
-               metric: str, unit: str) -> dict:
-    """``args.steps`` timed steps of ``run`` on batches from ``draw()``;
-    prints each logged step and a summary, and returns the report:
-    per-step losses, step and data seconds, the warm step median, steps
-    and ``unit`` per second, the final params and optimizer state, and on
-    the card the peak of ``torch.cuda.max_memory_allocated``."""
+               metric: str, unit: str, per_step: Optional[int] = None
+               ) -> dict:
+    """``args.steps`` timed steps of ``run`` on batches from ``draw()`` (a
+    tree of tensors on ``device``); prints each logged step and a summary,
+    saves the final params as step ``args.steps`` under ``args.ckpt_dir``
+    when one is given, and returns the report: per-step losses, step and
+    data seconds, the warm step median, steps and ``unit`` per second
+    (``per_step`` units a step, default ``args.batch``), the final params
+    and optimizer state, on the card the peak of
+    ``torch.cuda.max_memory_allocated``, and with a checkpoint its path
+    and the seconds the blocking save took."""
+    per_step = args.batch if per_step is None else per_step
     params, opt_state = run["params"], run["opt_state"]
     on_card = device.type == "cuda"
     if on_card:
@@ -136,7 +161,7 @@ def _run_steps(args, run, device: torch.device, draw: Callable, mode: str,
     losses, step_s, data_s = [], [], []
     for i in range(args.steps):
         t0 = time.perf_counter()
-        batch = batch_to(draw(), device)
+        batch = draw()
         if on_card:
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()
@@ -148,21 +173,63 @@ def _run_steps(args, run, device: torch.device, draw: Callable, mode: str,
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"{mode} step {i:5d} {metric} {losses[-1]:.4f} "
                   f"({step_s[-1]:.3f}s/step, {1 / step_s[-1]:.3f} steps/s, "
-                  f"{args.batch / step_s[-1]:.1f} {unit}/s; data "
+                  f"{per_step / step_s[-1]:.1f} {unit}/s; data "
                   f"{data_s[-1]:.3f}s)", flush=True)
     warm = step_s[1:] or step_s
     median = statistics.median(warm)
     report = {"losses": losses, "step_s": step_s, "data_s": data_s,
               "warm_step_median_s": median, "steps_per_s": 1 / median,
-              f"{unit}_per_s": args.batch / median, "device": str(device),
+              f"{unit}_per_s": per_step / median, "device": str(device),
               "params": params, "opt_state": opt_state}
     if on_card:
         report["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device)
-    print(f"{mode}: {args.steps} steps of {args.batch} {unit}, warm step "
+    print(f"{mode}: {args.steps} steps of {per_step} {unit}, warm step "
           f"median {median:.3f}s, {report['steps_per_s']:.3f} steps/s, "
           f"{report[f'{unit}_per_s']:.1f} {unit}/s", flush=True)
+    if args.ckpt_dir:
+        t0 = time.perf_counter()
+        report["ckpt_path"] = ckpt.save(args.ckpt_dir, args.steps, params)
+        report["ckpt_save_s"] = time.perf_counter() - t0
+        print(f"saved: {report['ckpt_path']} "
+              f"({report['ckpt_save_s']:.3f}s)", flush=True)
     return report
+
+
+def run_lm(args, params_init=None) -> dict:
+    """Next-token training of the decoder LM ``args.arch`` (its smoke
+    variant with ``args.smoke``) on synthetic tokens, computing what the
+    reference's ``run_lm`` computes. The weights come from ``seed`` (drawn
+    on the run's device), or are a copy of ``params_init`` when given (the
+    test hook; never changed in place). Returns the report of
+    ``_run_steps`` (tokens/s); ``report['params']`` is the LM's params."""
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if not isinstance(cfg, ArchConfig):
+        raise ValueError(f"--mode lm trains a decoder LM; {args.arch} is a "
+                         f"dual encoder (--mode pretrain, contrastive, "
+                         f"finetune)")
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    cfg = dataclasses.replace(cfg, attn_impl=args.attn)
+    if params_init is not None:
+        params = tree_map(lambda t: t.detach().to(device, copy=True),
+                          params_init)
+    else:
+        params = tf.init_params(
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            device)
+    opt = AdaFactorW(weight_decay=0.0025)
+    lr_fn = warmup_cosine(args.lr, args.lr / 100, args.steps // 10 or 1,
+                          args.steps)
+    run = {"params": params, "opt_state": opt.init(params),
+           "step_fn": lm_step(cfg, opt, lr_fn, precision="f32")}
+    rng = np.random.default_rng(args.seed)
+    return _run_steps(
+        args, run, device,
+        lambda: frontends.synthetic_inputs(cfg, args.batch, args.seq, rng,
+                                           device=device),
+        "lm", "loss", "tokens", per_step=args.batch * args.seq)
 
 
 def run_pretrain(args) -> dict:
@@ -183,7 +250,7 @@ def run_pretrain(args) -> dict:
            "step_fn": step_fn}
     return _run_steps(
         args, run, device,
-        lambda: jft_batch(world, args.batch, rng)[0],
+        lambda: batch_to(jft_batch(world, args.batch, rng)[0], device),
         "pretrain", "xent", "images")
 
 
@@ -198,8 +265,9 @@ def run_contrastive(args, image_tower_init=None,
     run = build_contrastive(args, device, image_tower_init, train_image)
     return _run_steps(
         args, run, device,
-        lambda: contrastive_batch(run["world"], run["tok"], args.batch,
-                                  run["rng"])[0],
+        lambda: batch_to(contrastive_batch(run["world"], run["tok"],
+                                           args.batch, run["rng"])[0],
+                         device),
         "contrastive", "loss", "pairs")
 
 
@@ -212,6 +280,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="tokens per sequence (--mode lm)")
     ap.add_argument("--num-micro", "--micro", dest="num_micro", type=int,
                     default=4, help="GradAccum microbatches")
     ap.add_argument("--classes", type=int, default=64)
@@ -230,25 +300,34 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                                    | {"auto"}),
                     help="attention backend of both towers ('pallas' is "
                          "the flash kernels)")
-    ap.add_argument("--precision", default="bf16", choices=precisions())
+    ap.add_argument("--precision", default=None, choices=precisions(),
+                    help="the recipe's precision policy (default bf16)")
     remat_names = list_policies() + ["off"]
-    ap.add_argument("--remat", default="basic", choices=remat_names)
+    ap.add_argument("--remat", default=None, choices=remat_names,
+                    help="the recipe's remat policy (default basic)")
     ap.add_argument("--remat-image", default=None, choices=remat_names)
     ap.add_argument("--remat-text", default=None, choices=remat_names)
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    tuned = [f for f in ("precision", "remat", "remat_image", "remat_text")
+             if getattr(args, f) is not None]
+    if args.mode == "lm":
+        if tuned:
+            ap.error(f"--mode lm computes the reference's run_lm (f32, no "
+                     f"remat); it takes no "
+                     f"{', '.join('--' + f.replace('_', '-') for f in tuned)}")
+    else:
+        args.precision = args.precision or "bf16"
+        args.remat = args.remat or "basic"
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse ``argv``, run the mode, return its report."""
     args = parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError("--mode lm comes with the LM training "
-                                  "slice of the port")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir comes with the port of "
-                                  "checkpoint/io.py")
+        return run_lm(args)
     if args.mode == "pretrain":
         return run_pretrain(args)
     if args.batch % args.num_micro:

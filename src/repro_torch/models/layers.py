@@ -58,7 +58,10 @@ def trunc_normal(generator: torch.Generator, shape, stddev: float,
                  device=None) -> torch.Tensor:
     """Truncated-normal init at ±2σ, fp32: a standard normal truncated to
     [-2, 2], times ``stddev`` (the reference's law). Drawn on the
-    generator's device (the CPU for ``torch.Generator()``), then moved."""
+    generator's device (the CPU for ``torch.Generator()``), then moved; on
+    the ``meta`` device only the shape is made, nothing is drawn."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(stddev).to(device)

@@ -16,6 +16,7 @@ axis where the reference runs ``lax.scan``.
 
 Entry points:
   init_params(cfg, generator, device)            -> params dict
+  lm_loss(cfg, params, batch)                    -> (loss, metrics)
   encode(cfg, params, batch)                     -> pooled (b, d_model)
   prefill(cfg, params, batch, collect_cache_len) -> logits [, caches]
   decode_step(cfg, params, token, pos, caches)   -> (logits, caches)
@@ -25,8 +26,9 @@ Entry points:
 wraps each block in a checkpoint, as the reference wraps each period step
 (``repro/models/transformer.py:168-169``). ``decode_step`` writes each
 layer's new k/v (or SSD state and conv window) into the caches in place
-and returns the same objects. ``lm_loss`` and ``unroll`` wait for the LM
-training slice; the MoE, hybrid and vlm families for their own slices.
+and returns the same objects. The MoE, hybrid and vlm families wait for
+their own slices; ``lm_loss`` of the encoder family (hubert's masked-frame
+loss) waits for the audio slice.
 """
 from __future__ import annotations
 
@@ -55,6 +57,14 @@ def _check_family(cfg: ArchConfig) -> None:
             f"{_LATER.get(cfg.family, 'a later slice')}")
 
 
+def period_of(cfg: ArchConfig) -> int:
+    """Layer-stack period (the reference's scan unit): 1 for every family
+    the port runs, whose blocks are all of one kind; the hybrid
+    interleave and the MoE term come with their slices."""
+    _check_family(cfg)
+    return 1
+
+
 def _init_block(cfg: ArchConfig, generator: torch.Generator, extra,
                 device) -> dict:
     d = cfg.d_model
@@ -79,9 +89,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Tower params: the stacked block list, final norm, the vision
     frontend and, for a token tower, the embedding table and LM head (the
     reference's leaves, drawn with its init law)."""
-    _check_family(cfg)
+    period = period_of(cfg)
     params = {
-        "blocks": [_init_block(cfg, generator, (cfg.n_layers,), device)],
+        "blocks": [_init_block(cfg, generator, (cfg.n_layers // period,),
+                               device) for _ in range(period)],
         "final_norm": torch.ones((cfg.d_model,), device=device),
     }
     if cfg.frontend == "vision":
@@ -228,7 +239,7 @@ def encode(cfg: ArchConfig, params, batch, *, precision=None,
 
 
 # ---------------------------------------------------------------------------
-# Decoder LMs: logits, caches, prefill and decode
+# Decoder LMs: logits, the training loss, caches, prefill and decode
 # ---------------------------------------------------------------------------
 
 
@@ -242,6 +253,40 @@ def logits_from_h(cfg: ArchConfig, params, h,
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"].to(h.dtype).T)
     return L.dense(h, params["lm_head"])
+
+
+def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
+            precision=None, remat_policy=None):
+    """Training loss of a decoder LM: next-token cross-entropy over
+    ``batch['tokens']`` (b, s), averaged over the (b, s - 1) predicted
+    positions, or over those ``batch['loss_mask'][:, 1:]`` keeps. The
+    logits and the cross-entropy are fp32 whatever the compute dtype.
+    ``precision`` (a policy or its name) wins over the legacy ``dtype``
+    (default f32, as in the reference); ``remat_policy`` wraps each block.
+
+    Returns (loss + aux, {'xent': loss, 'aux': aux}); aux, the MoE load
+    balance term, is 0 for the families the port runs."""
+    _check_family(cfg)
+    if cfg.family == "encoder":
+        raise NotImplementedError(
+            f"{cfg.name}: the masked-frame loss of the encoder family comes "
+            f"with the audio slice (hubert-xlarge)")
+    pol = prec_lib.resolve(precision, dtype)
+    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
+    h, _ = forward(cfg, params, h, pos, remat_policy=remat_policy)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = logits_from_h(cfg, params, h, pol).float()
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    tgt = batch["tokens"][:, 1:].long()
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        m = mask[:, 1:].float()
+        loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    else:
+        loss = torch.mean(nll)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,

@@ -5,7 +5,8 @@ Ties the embedding subsystem together over a BASIC dual encoder:
 
   classify(images, class_names)  image tower via the micro-batcher, class
       matrix via the registry (computed once per label space and
-      checkpoint), then the fused similarity→top-k kernel over the class
+      checkpoint, and read back from ``registry_dir`` when a process
+      before this one put it there), then the fused similarity→top-k kernel over the class
       axis with the learned temperature: the (b, n_classes) logit matrix
       never exists.
   embed_images / embed_texts     unit-norm embeddings, micro-batched.
@@ -74,12 +75,14 @@ class ZeroShotService:
     ``interop.from_numpy`` of a reference checkpoint); it is moved to
     ``device`` if it lies elsewhere. ``precision`` is a policy name
     ('f32' | 'bf16' | 'bf16_pure'). The towers' attention backend is each
-    tower config's ``attn_impl``.
+    tower config's ``attn_impl``. ``registry_dir``: where the registry
+    persists class matrices, in the reference's layout (None: memory only).
     """
 
     def __init__(self, cfg: DualEncoderConfig, params, tok, *,
                  templates: Sequence[str] = DEFAULT_TEMPLATES,
                  text_len: int = 16,
+                 registry_dir: Optional[str] = None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  max_delay_ms: float = 2.0,
                  request_timeout_s: float = 60.0,
@@ -107,7 +110,8 @@ class ZeroShotService:
             buckets=buckets, max_delay_ms=max_delay_ms,
             request_timeout_s=request_timeout_s, autostart=autostart,
             registry=self.metrics)
-        self.registry = ClassEmbeddingRegistry(self._compute_class_matrix)
+        self.registry = ClassEmbeddingRegistry(self._compute_class_matrix,
+                                               cache_dir=registry_dir)
         self._cm_device: dict = {}       # (key, version) -> device matrix
         self._gallery_memo = collections.OrderedDict()  # id -> (ref, handle)
         self._gallery_memo_cap = 4

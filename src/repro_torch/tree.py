@@ -4,11 +4,14 @@ Parameters, gradients and optimizer slots are plain nested dicts and lists
 with tensors at the leaves (the reference's leaf paths). ``tree_map`` walks
 several trees of one structure together; ``leaves`` lists (path, leaf)
 pairs and ``tree_leaves`` the leaves alone, both with dict keys sorted and
-list entries in order.
+list entries in order (JAX's flattening order; a NamedTuple's fields in
+order). ``unflatten`` puts leaves back into a tree's structure, and
+``treedef_str`` writes that structure as JAX's ``str(treedef)`` does, the
+form the checkpoint index and the registry fingerprint record.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterable, Iterator, List, Tuple
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -34,6 +37,53 @@ def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield from leaves(v, f"{prefix}{i}/")
     else:
         yield prefix.rstrip("/"), tree
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def unflatten(like, new_leaves: Iterable):
+    """The structure of ``like`` with its leaves replaced, one by one in the
+    order of ``leaves``, by those of ``new_leaves``: dicts come back with
+    sorted keys, lists as lists, tuples and NamedTuples as their own
+    type."""
+    it = iter(new_leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(t[k]) for k in sorted(t)}
+        if _is_namedtuple(t):
+            return type(t)(*(rebuild(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(rebuild(v) for v in t)
+        return next(it)
+    return rebuild(like)
+
+
+def _structure(tree) -> str:
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    if _is_namedtuple(tree):
+        return (f"CustomNode(namedtuple[{type(tree).__name__}], ["
+                + ", ".join(_structure(v) for v in tree) + "])")
+    if isinstance(tree, list):
+        return "[" + ", ".join(_structure(v) for v in tree) + "]"
+    if isinstance(tree, tuple):
+        inner = ", ".join(_structure(v) for v in tree)
+        return f"({inner},)" if len(tree) == 1 else f"({inner})"
+    return "*"
+
+
+def treedef_str(tree) -> str:
+    """The structure of ``tree`` as JAX 0.9's ``str(treedef)`` writes it:
+    ``PyTreeDef({'a': *, 'b': [*, (*,)]})`` with dict keys sorted, ``*``
+    for a leaf, ``None`` for an empty subtree and
+    ``CustomNode(namedtuple[Name], [...])`` for a NamedTuple."""
+    return f"PyTreeDef({_structure(tree)})"
 
 
 def tree_leaves(tree) -> List:

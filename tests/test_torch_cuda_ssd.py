@@ -215,6 +215,24 @@ def test_ssd_kernel_without_d_or_state_and_counts_launches(gen):
     _assert_close(f, fr)
 
 
+def test_ssd_kernel_refuses_gradients(gen):
+    """The kernel's outputs carry no grad_fn: with grad mode on, an input
+    that requires grad raises rather than train upstream parameters with
+    no gradient; without grad mode (or with no such input) it runs."""
+    x, dt, A, Bm, Cm, D, _ = _inputs(gen, 1, 64, 2, 64, 16, torch.float32,
+                                     split=False)
+    for needs in (x, dt, A, D):
+        needs.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="SSM training slice"):
+            ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+        with torch.no_grad():
+            y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+        assert y.grad_fn is None
+        needs.requires_grad_(False)
+    y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
+    assert bool(torch.isfinite(y).all())
+
+
 def test_ssd_kernel_refuses_what_it_does_not_take(gen):
     x, dt, A, Bm, Cm, D, _ = _inputs(gen, 1, 64, 2, 32, 16, torch.float32)
     with pytest.raises(ValueError, match="multiple of it"):

@@ -139,7 +139,8 @@ def test_evaluate_with_service_matches_reference(setup, tmp_path):
         stats = ts.stats()
     assert got == ref
     assert again["headline"] == got["mean_per_class_recall"]
-    assert stats["registry"] == {"mem_hits": 1, "computes": 1}
+    assert stats["registry"] == {"mem_hits": 1, "disk_hits": 0,
+                                 "computes": 1}
     # the served row and the materialised row agree on the same weights
     bench = teval.evaluate_benchmark(
         lambda im: tde.encode_image(tcfg, tparams,

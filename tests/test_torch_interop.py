@@ -1,6 +1,8 @@
 """The port's boundary with the reference: parameter conversion, the init
-law, and the rule that ``repro_torch`` imports neither JAX nor anything of
-the ``repro`` package (its copies of configs, data and obs stand alone).
+law, and the rule that ``repro_torch`` imports neither JAX, nor
+``ml_dtypes``, nor anything of the ``repro`` package (its copies of
+configs, data and obs stand alone; its checkpoints read and write bf16
+without ``ml_dtypes``).
 """
 import dataclasses
 import os
@@ -199,8 +201,8 @@ def test_import_leaves_out_jax_and_the_reference():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'ml_dtypes', 'repro')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -210,8 +212,8 @@ def test_import_leaves_out_jax_and_the_reference():
     assert int(out.stdout.strip()) >= 30      # every module was imported
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|ml_dtypes|repro)(\.|\s|$)", re.MULTILINE)
 
 
 def _port_sources():
@@ -236,6 +238,25 @@ def test_no_source_imports_jax_or_the_reference():
                 if call in text:
                     offenders.append(f"{path}: calls {call}")
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("part", ["checkpoint", "chip_smoke.py"])
+def test_new_modules_are_in_the_scan(part):
+    """The scan reaches the checkpoint package and chip_smoke.py, and the
+    pattern catches each forbidden import as it would be written there."""
+    scanned = [os.path.relpath(p, ROOT) for p in _port_sources()]
+    if part == "checkpoint":
+        want = {os.path.join("src", "repro_torch", "checkpoint", f) for f in
+                ("__init__.py", "io.py", "faults.py", "manager.py")}
+    else:
+        want = {part}
+    assert want <= set(scanned)
+    for line in ("import ml_dtypes", "from repro.checkpoint import io",
+                 "import jax.numpy as jnp", "    import ml_dtypes"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("from repro_torch.checkpoint import io",
+                 "import numpy as np"):
+        assert not _FORBIDDEN.search(line), line
 
 
 def test_port_modules_are_documented():

@@ -75,7 +75,8 @@ def test_classify_matches_reference_service(world):
                                rtol=0, atol=1e-4)
     assert tres.version == 1 and tres.top_names(0)[0] in w.class_names
     np.testing.assert_array_equal(again.indices, tres.indices)
-    assert stats["registry"] == {"mem_hits": 1, "computes": 1}
+    assert stats["registry"] == {"mem_hits": 1, "disk_hits": 0,
+                                 "computes": 1}
     assert stats["retrieval_mode"] == "fused"
 
 
@@ -337,7 +338,7 @@ def test_registry_memo_invalidation_and_refresh():
     r = reg.refresh(("x", "y"), ("t",), "ck1", embed_dim=4)
     assert r.version == 2 and r.key == a.key
     assert reg.get(("x", "y"), ("t",), "ck1", embed_dim=4).version == 2
-    assert reg.stats == {"mem_hits": 2, "computes": 4}
+    assert reg.stats == {"mem_hits": 2, "disk_hits": 0, "computes": 4}
     with pytest.raises(ValueError):
         reg.get(("x",), ("t",), "ck1", embed_dim=5)
     with pytest.raises(RuntimeError):
