@@ -154,7 +154,29 @@ repository beside this file; it exits non-zero without them. In order it:
     steps: step median, tokens/s, peak memory;
 23. what the card refuses until the SSM training slice: ``ssd_scan`` with
     an input that requires grad, and ``--mode lm --arch mamba2-130m``;
-24. prints a ``{"kernels": [...]}`` line and, last, the
+24. holds the flash forward and the decode kernel against their plain
+    versions at Mixtral-8x22B's shapes (48 query heads over 8 kv heads, d
+    128, window 4096; f32 and bf16): flash over 512 tokens and over 4608,
+    where the window masks; decode over 8 slots of the serving path's
+    linear cache of 8192 and of a ring of 4096, ragged lengths and the
+    serving state (~520-580 valid) and a full ring, the GQA group of 6 in
+    the kernel's 8-head CTA group; times kernel, plain version and SDPA
+    with ``enable_gqa`` (a bool window mask where the window is shorter
+    than the sequence);
+25. MoE parity: Mixtral-8x22B at full width, 2 layers, f32, capacity
+    dispatch, prefill of 8 × 512 tokens and 8 decode steps over 8 slots on
+    the kernel path and the plain path: logits within 1e-3, a row outside
+    it only at a router near-tie on the plain path (gap under 1e-5 between
+    the k-th and (k+1)-th probability) where the paths routed differently;
+26. timed MoE serving: Mixtral-8x22B at full width, 4 of its 56 layers,
+    bf16, the kernels, capacity dispatch, through the launcher's
+    ``run_continuous`` (8 slots, 16 requests of 508-520 prompt tokens, 64
+    new, cache 8192) and ``run_legacy`` (one request), the weights built
+    once: tokens per second, step median and p90, prefill ms, peak memory,
+    4 flash_fwd launches per prefill and 4 decode_attention launches per
+    step; then profiles 4 warm decode steps (by kernel group, by aten op:
+    expert GEMMs, casts, dispatch and combine; busy share);
+27. prints a ``{"kernels": [...]}`` line and, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -434,16 +456,23 @@ def sdpa_call(q, k, v, bias, b, h, kv, causal, window, grad=False):
     of ``scaled_dot_product_attention`` over (b, heads, s, d) views,
     grouped-query through ``enable_gqa``; those q, k, v views, which
     require grad when ``grad`` is set)."""
+    import torch
     import torch.nn.functional as F
     s, d = q.shape[1], q.shape[2]
-    if causal and window is not None and window < s:
-        raise ValueError("SDPA has no sliding window: time it only where "
-                         "the window covers the sequence")
     q4 = q.view(b, h, s, d)
     k4, v4 = (x.view(b, kv, s, d) for x in (k, v))
     if grad:
         q4, k4, v4 = (x.detach().requires_grad_() for x in (q4, k4, v4))
     mask4 = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+    if causal and window is not None and window < s:
+        # SDPA has no sliding window: the causal window as a bool mask
+        if bias is not None:
+            raise ValueError("a window shorter than the sequence and a "
+                             "padding bias together are not timed")
+        i = torch.arange(s, device=q.device)
+        mask4 = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                               < window)
+        causal = False
 
     def call():
         return F.scaled_dot_product_attention(
@@ -845,10 +874,12 @@ def wrapper_kernels_seen(prof, wrappers):
     return seen
 
 
-def device_breakdown(prof, label, wall_us, units, calls):
-    """Print the profiled window's device time by kernel and its busy
-    share; return, for each wrapper in ``calls`` (wrapper -> calls in the
-    window), the device kernels the profiler saw per wrapper call."""
+def device_breakdown(prof, label, wall_us, units, calls,
+                     groups=KERNEL_GROUPS):
+    """Print the profiled window's device time by kernel, by group of
+    ``groups`` and its busy share; return, for each wrapper in ``calls``
+    (wrapper -> calls in the window), the device kernels the profiler saw
+    per wrapper call."""
     by_kernel = {}
     seen = wrapper_kernels_seen(prof, calls)
     n_device = 0
@@ -867,7 +898,7 @@ def device_breakdown(prof, label, wall_us, units, calls):
               f"{100 * us / max(busy, 1e-9):5.1f}%  {name[:90]}", flush=True)
     by_group = {}
     for name, us in by_kernel.items():
-        group = next((g for g, keys in KERNEL_GROUPS if any(
+        group = next((g for g, keys in groups if any(
             k in name for k in keys)), "other (elementwise, reductions)")
         by_group[group] = by_group.get(group, 0.0) + us
     print(f"profile {label} by group: " + "; ".join(
@@ -885,6 +916,22 @@ def device_breakdown(prof, label, wall_us, units, calls):
     print(f"profile {label}: device kernels per wrapper call {per_call} "
           f"(wrapper calls {calls})", flush=True)
     return per_call, busy / wall_us
+
+
+def op_device_ms(prof, ops, units, unit):
+    """Print the device time per ``unit`` that the aten ops named in
+    ``ops`` (label -> op names) launched themselves in a profiled window
+    (``self_device_time_total``, the kernels an op launched directly);
+    return it by label."""
+    out = {}
+    for label, names in ops.items():
+        us = sum(getattr(e, "self_device_time_total", 0.0)
+                 or getattr(e, "self_cuda_time_total", 0.0)
+                 for e in prof.key_averages() if e.key in names)
+        out[label] = us / 1e3 / units
+    print("profile by op: " + "; ".join(
+        f"{k} {v:.3f} ms/{unit}" for k, v in out.items()), flush=True)
+    return out
 
 
 def phase_profile(cfg, params, tok, requests: int = 4):
@@ -1965,6 +2012,60 @@ def decode_check(label, q, k, v, valid):
     return got, err.max().item()
 
 
+def decode_timed(state, q, k, v, lens, err):
+    """The decode kernel at per-slot lengths ``lens``: checked against its
+    plain version, then kernel (between events, and its device time from
+    the profiler), plain version and SDPA timed, with the bound counted by
+    the valid entries and by the full sweep. Returns the record (its
+    ``max_abs_err`` the larger of ``err`` and this call's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    b, h, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    dt = dtype_name(q.dtype)
+    item = torch.finfo(q.dtype).bits // 8
+    fixed = 2 * b * h * d * item + b * t      # q, out, the bool mask
+    full_ms, full_by = bound(fixed + 2 * b * kv * t * d * item,
+                             4.0 * h * d * b * t, dt)
+    valid = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+    _, e = decode_check(f"{state} {dt}", q, k, v, valid)
+    call = lambda: dec_ops.decode_attention(q, k, v, valid)
+    q4 = q[:, :, None, :]
+    mask4 = valid[:, None, None, :]
+    library = lambda: F.scaled_dot_product_attention(
+        q4, k, v, attn_mask=mask4, enable_gqa=True)
+    ms = time_ms(call)
+    dev_ms, per_call = device_ms(call, WRAPPER_KERNELS["decode_attention"])
+    plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, valid))
+    lib_ms = time_ms(library)
+    lib_dev_ms, _ = device_ms(library)
+    n_valid = int(lens.sum())
+    bound_ms, bound_by = bound(
+        fixed + 2 * kv * d * item * n_valid,
+        4.0 * (h // kv) * d * kv * n_valid, dt)
+    plan = dec_ops.launch_plan(q, k)
+    rec = {"shape": f"b={b} h={h} kv={kv} t={t} d={d} {dt}, {state}: "
+                    f"{n_valid} valid entries",
+           "plan": plan._asdict(), "max_abs_err": max(err, e),
+           "ms": ms, "device_ms": dev_ms,
+           "device_kernels_per_call": per_call, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_full_sweep_ms": full_ms,
+           "bound_full_sweep_by": full_by}
+    print(f"decode_attention {rec['shape']}: plan "
+          f"{plan._asdict()}; kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms, {per_call:g} device kernels per call), "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
+          f"{lib_dev_ms:.4f} ms), bound {bound_ms:.4f} ms "
+          f"({bound_by}: q, out, mask and the valid k/v entries), "
+          f"full-sweep bound {full_ms:.4f} ms ({full_by})",
+          flush=True)
+    return rec
+
+
 def phase_decode_kernel():
     """The decode kernel at the timed path's shape (b 8 slots, kv 8, g 4,
     d 64, t 8192), one lockstep request (b 1), d 128 with g 8, and g 1, f32
@@ -1977,9 +2078,7 @@ def phase_decode_kernel():
     the valid entries and by the full sweep. Returns records keyed by
     (dtype, state) and the max errors by dtype."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dec_ops
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     b, h, kv, t, d = 8, 32, 8, 8192, 64
     recs, errs = {}, {}
     ar = torch.arange(t, device="cuda")
@@ -2027,50 +2126,11 @@ def phase_decode_kernel():
         # timed at the serving state (8 slots ~512 prompt tokens + up to 64
         # generated: ~7% of the 8192 entries are valid) and at a full cache
         # (a ring that has wrapped: every entry valid)
-        item = torch.finfo(dtype).bits // 8
-        fixed = 2 * b * h * d * item + b * t      # q, out, the bool mask
-        full_ms, full_by = bound(fixed + 2 * b * kv * t * d * item,
-                                 4.0 * h * d * b * t, dt)
         for state, lens in (
                 ("serving", torch.tensor([508 + 9 * i for i in range(b)],
                                          device="cuda")),
                 ("full", torch.full((b,), t, device="cuda"))):
-            valid = ar[None, :] < lens[:, None]
-            _, e = decode_check(f"{state} {dt}", q, k, v, valid)
-            call = lambda: dec_ops.decode_attention(q, k, v, valid)
-            q4 = q[:, :, None, :]
-            mask4 = valid[:, None, None, :]
-            library = lambda: F.scaled_dot_product_attention(
-                q4, k, v, attn_mask=mask4, enable_gqa=True)
-            ms = time_ms(call)
-            dev_ms, per_call = device_ms(call,
-                                         WRAPPER_KERNELS["decode_attention"])
-            plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, valid))
-            lib_ms = time_ms(library)
-            lib_dev_ms, _ = device_ms(library)
-            n_valid = int(lens.sum())
-            bound_ms, bound_by = bound(
-                fixed + 2 * kv * d * item * n_valid,
-                4.0 * (h // kv) * d * kv * n_valid, dt)
-            plan = dec_ops.launch_plan(q, k)
-            recs[(dt, state)] = {
-                "shape": f"b={b} h={h} kv={kv} t={t} d={d} {dt}, {state}: "
-                         f"{n_valid} valid entries",
-                "plan": plan._asdict(), "max_abs_err": max(err, e),
-                "ms": ms, "device_ms": dev_ms,
-                "device_kernels_per_call": per_call, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bound_full_sweep_ms": full_ms,
-                "bound_full_sweep_by": full_by}
-            print(f"decode_attention {recs[(dt, state)]['shape']}: plan "
-                  f"{plan._asdict()}; kernel {ms:.4f} ms (device "
-                  f"{dev_ms:.4f} ms, {per_call:g} device kernels per call), "
-                  f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
-                  f"{lib_dev_ms:.4f} ms), bound {bound_ms:.4f} ms "
-                  f"({bound_by}: q, out, mask and the valid k/v entries), "
-                  f"full-sweep bound {full_ms:.4f} ms ({full_by})",
-                  flush=True)
+            recs[(dt, state)] = decode_timed(state, q, k, v, lens, err)
         print(f"decode_attention {dt}: max err {err:.3g} (lengths 0, 1, "
               f"255, 256, 257, ragged, t; shared mask; b=1; d=128, g 8; "
               f"g 1; full cache); length 0 exactly 0, shared mask "
@@ -2350,11 +2410,12 @@ def phase_decode_serve():
 
 
 def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
-                         counters=None):
+                         counters=None, groups=KERNEL_GROUPS, ops=()):
     """A torch.profiler window over ``steps`` warm decode steps of the
     timed run's engine with all its slots busy (prompts of ``prompt_len``
-    tokens): device busy share, time by kernel group, device kernels per
-    call of each wrapper in ``counters`` (default: decode_attention)."""
+    tokens): device busy share, time by kernel group (``groups``) and by
+    the aten ops in ``ops``, device kernels per call of each wrapper in
+    ``counters`` (default: decode_attention)."""
     import numpy as np
     import torch
     if counters is None:
@@ -2387,8 +2448,10 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
     for e in host[:10]:
         print(f"  {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step  "
               f"{e.count / steps:7.1f} calls/step  {e.key[:70]}", flush=True)
+    if ops:
+        op_device_ms(prof, ops, steps, "step")
     return device_breakdown(prof, f"{steps} warm decode steps", wall_us,
-                            steps, calls)
+                            steps, calls, groups)
 
 
 # ---------------------------------------------------------------------------
@@ -3004,6 +3067,321 @@ def phase_refused_on_card():
         raise AssertionError("ssd_scan without grad mode: non-finite y")
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: Mixtral-8x22B, the MoE family at full width
+# ---------------------------------------------------------------------------
+
+MIXTRAL = "mixtral-8x22b"
+# Mixtral's attention: 48 query heads over 8 kv heads (a GQA group of 6,
+# which the decode kernel runs in its 8-head CTA group), d 128, a window
+# of 4096
+MOE_ATTN = dict(h=48, kv=8, d=128, window=4096)
+# MoE parity, kernel path vs plain path in f32 at full width: logits of
+# ~unit scale through 2 layers whose attention sums in another order move
+# by ~1e-5; 1e-3 still catches a wrong mask, position, expert or drop
+# (those move logits by ~1e-1)
+MOE_PARITY_TOL = 1e-3
+# a router near-tie: where the plain path's k-th and (k+1)-th probability
+# are closer than this, the kernel path may pick the other expert, and
+# under capacity dispatch move the bucket places of the group after it
+MOE_NEAR_TIE = 1e-5
+# the timed MoE serving run: the decode serving run's traffic (8 slots,
+# 16 requests of 508-520 prompt tokens, 64 new, a cache of 8192), bf16,
+# the kernels, and capacity dispatch (the launcher's default without
+# --smoke); 4 of Mixtral's 56 layers
+MOE_SERVE_ARGV = ["--arch", MIXTRAL, "--engine", "continuous", "--slots",
+                  "8", "--requests", "16", "--arrival", "0", "--prompt-len",
+                  "512", "--max-new", "64", "--cache-len", "8192", "--attn",
+                  "pallas", "--precision", "bf16", "--temperature", "0",
+                  "--seed", "0"]
+MOE_SERVE_LAYERS = 4
+# device kernels by group on the MoE path, first match wins: the MoE's
+# dispatch and combine are gathers, scatters, a sort and a cumsum
+MOE_GROUPS = (KERNEL_GROUPS[0], KERNEL_GROUPS[3], KERNEL_GROUPS[5],
+              ("copies and casts", ("copy", "Memcpy", "Memset")),
+              ("MoE dispatch and combine", ("gather", "scatter", "Sort",
+                                            "sort", "cumsum", "scan")))
+# device time by the aten op that launched it: the experts' products are
+# the batched ones (``bmm``; the combine's small einsum too), the
+# projections and the LM head plain ones (``mm``)
+MOE_OPS = {"expert GEMMs (bmm)": ("aten::bmm",),
+           "projection GEMMs (mm)": ("aten::mm", "aten::addmm"),
+           "casts and copies": ("aten::copy_",),
+           "dispatch and combine": ("aten::gather", "aten::scatter_",
+                                    "aten::scatter", "aten::sort",
+                                    "aten::cumsum", "aten::one_hot")}
+
+
+def phase_moe_kernels():
+    """The two kernels of the MoE serving path at Mixtral's shapes, f32 and
+    bf16: ``flash_fwd`` (b 1, 48 heads over 8 kv, d 128, causal, window
+    4096) over 512 tokens and over 4608, where the window masks; and
+    ``decode_attention`` (8 slots, the same heads; a GQA group of 6 in the
+    kernel's 8-head CTA group) over the serving path's linear cache of 8192
+    at the serving state and over a ring of 4096 at the serving state and
+    full, with ragged lengths (0 exactly zero). Returns the records:
+    flash by (s, dtype), decode by (t, state, dtype)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    a = MOE_ATTN
+    flash, decode = {}, {}
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        dt = dtype_name(dtype)
+        for s in (512, 4608):
+            flash[(s, dt)] = flash_case(
+                "mixtral", 1, a["h"], s, a["d"], dtype, False, 70 + i,
+                kv=a["kv"], causal=True, window=a["window"])
+        b = 8
+        for t, cache, states in ((8192, "linear", ("serving",)),
+                                 (4096, "ring", ("serving", "full"))):
+            q, k, v = decode_inputs(b, a["h"], a["kv"], t, a["d"], dtype,
+                                    72 + i)
+            group = dec_ops.launch_plan(q, k).group
+            if group != 8:
+                raise AssertionError(f"decode_attention: a GQA group of 6 "
+                                     f"ran in a CTA group of {group}")
+            lens = torch.tensor([0, 1, 255, 256, 257, t, 3001, t - 5],
+                                device="cuda")
+            out, err = decode_check(
+                f"mixtral {cache} t={t} ragged {dt}", q, k, v,
+                torch.arange(t, device="cuda")[None, :] < lens[:, None])
+            if not bool((out[0] == 0).all()):
+                raise AssertionError("decode_attention: a length-0 row is "
+                                     "not exactly zero")
+            for state in states:
+                lens = (torch.tensor([516 + 9 * j for j in range(b)],
+                                     device="cuda") if state == "serving"
+                        else torch.full((b,), t, device="cuda"))
+                decode[(t, state, dt)] = decode_timed(
+                    f"mixtral {cache} {state}", q, k, v, lens, err)
+    return flash, decode
+
+
+@contextlib.contextmanager
+def recorded_routes(log):
+    """Within the block, every MoE router call appends (top_idx, the gap
+    between the k-th and (k+1)-th probability) to ``log['now']``'s list
+    in ``log``."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_lib
+    real = moe_lib._router
+
+    def router(p, cfg, x):
+        out = real(p, cfg, x)
+        probs = torch.softmax(L.dense(x, p["router"]).float(), dim=-1)
+        top = probs.sort(dim=-1, descending=True).values
+        k = cfg.moe.top_k
+        log[log["now"]].append((out[1], top[..., k - 1] - top[..., k]))
+        return out
+    moe_lib._router = router
+    try:
+        yield log
+    finally:
+        moe_lib._router = real
+
+
+def routes_diverge(log):
+    """(pairs routed differently on the kernel and the plain path, whether
+    the plain path's gap is under ``MOE_NEAR_TIE`` at every one of them)."""
+    n, near = 0, True
+    for (ik, _), (ip, gap) in zip(log["kernel"], log["plain"]):
+        differ = (ik != ip).any(-1)
+        n += int(differ.sum())
+        near &= bool((gap[differ] < MOE_NEAR_TIE).all())
+    return n, near
+
+
+def phase_moe_parity(layers: int = 2, batch: int = 8, plen: int = 512,
+                     steps: int = 8, clen: int = 8192):
+    """Mixtral-8x22B at full width and ``layers`` layers, f32, capacity
+    dispatch (``moe_ffn``'s defaults), random weights from a CUDA
+    generator: prefill of ``batch`` × ``plen`` tokens, then ``steps``
+    decode steps over the ``batch`` slots fed the kernel path's greedy
+    token, on the kernel path (flash prefill, decode kernel) and the plain
+    path (chunked prefill, einsum decode). Logits agree within
+    ``MOE_PARITY_TOL``; a row outside it passes only where the two paths
+    routed some token differently and the plain path's router gap is under
+    ``MOE_NEAR_TIE`` at each such token (counted and printed)."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch(MIXTRAL), n_layers=layers)
+    t0 = time.perf_counter()
+    params = interop.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    print(f"moe parity: {MIXTRAL} at full width, {layers} layers, {n} "
+          f"params f32, init {time.perf_counter() - t0:.2f}s", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(4, cfg.vocab, (batch, plen), generator=g,
+                         device="cuda")
+    paths = {"kernel": dataclasses.replace(cfg, attn_impl="pallas"),
+             "plain": dataclasses.replace(cfg, attn_impl="chunked")}
+    counters = (fa_ops.COUNTER, dec_ops.COUNTER)
+    launches = {name: dict.fromkeys((c.name for c in counters), 0)
+                for name in paths}
+    log = {"now": None, "kernel": [], "plain": []}
+    worst, near_tie_rows, state = 0.0, [], {}
+    t0 = time.perf_counter()
+    with torch.no_grad(), recorded_routes(log):
+        for i in range(steps + 1):
+            for name, pcfg in paths.items():
+                log["now"] = name
+                before = {c.name: c.count for c in counters}
+                if i == 0:
+                    state[name] = tf.prefill(pcfg, params, {"tokens": toks},
+                                             precision="f32",
+                                             collect_cache_len=clen)
+                else:
+                    state[name] = tf.decode_step(
+                        pcfg, params, tok[:, None], plen + i - 1,
+                        state[name][1], precision="f32")
+                for c in counters:
+                    launches[name][c.name] += c.count - before[c.name]
+            lk, lp = (state[name][0][:, 0] for name in paths)
+            diff = (lk - lp).abs().amax(-1)
+            worst = max(worst, diff.max().item())
+            out = torch.nonzero(diff > MOE_PARITY_TOL).flatten().tolist()
+            if out:
+                n_diff, near = routes_diverge(log)
+                print(f"moe parity: step {i}: rows {out} differ by "
+                      f"{[round(diff[r].item(), 5) for r in out]}; pairs "
+                      f"routed differently so far {n_diff}, each at a "
+                      f"plain-path gap under {MOE_NEAR_TIE}: {near}",
+                      flush=True)
+                if not (n_diff and near):
+                    raise AssertionError(f"moe parity: step {i} rows {out} "
+                                         f"differ with no router near-tie")
+                near_tie_rows += [(i, r) for r in out]
+            tok = lk.argmax(-1)
+    torch.cuda.synchronize()
+    n_diff, _ = routes_diverge(log)
+    want = {"kernel": {"flash_fwd": layers,
+                       "decode_attention": layers * steps},
+            "plain": {"flash_fwd": 0, "decode_attention": 0}}
+    print(f"moe parity ({MIXTRAL} f32, {layers} layers, capacity dispatch, "
+          f"{batch} x {plen} prefill + {steps} steps over {batch} slots): "
+          f"max |logit diff| kernel vs plain {worst:.3g} (tol "
+          f"{MOE_PARITY_TOL}); rows outside it at a router near-tie: "
+          f"{len(near_tie_rows)} of {batch * (steps + 1)}; pairs routed "
+          f"differently {n_diff}; launches {launches}; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if launches != want:
+        raise AssertionError(f"moe parity: launches {launches}, want {want}")
+    return {"max_logit_diff": worst, "near_tie_rows": near_tie_rows,
+            "routed_differently": n_diff, "launches": launches["kernel"]}
+
+
+def phase_moe_serve():
+    """Mixtral-8x22B at full width, ``MOE_SERVE_LAYERS`` of its 56 layers,
+    bf16, the kernels, capacity dispatch, through the launcher's
+    ``run_continuous`` (after one untimed warm-up request) and
+    ``run_legacy`` (one lockstep request), the weights built once for all
+    three: tokens per second, decode-step median and p90, prefill ms, peak
+    memory; flash_fwd launches per prefill and decode_attention launches
+    per step (one per layer), every token in the vocabulary; then profiles
+    4 warm decode steps (device time by group and by op, busy share)."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+
+    def argv(**changes):
+        out = list(MOE_SERVE_ARGV)
+        for flag, value in changes.items():
+            flag = "--" + flag.replace("_", "-")
+            if flag in out:
+                out[out.index(flag) + 1] = str(value)
+            else:
+                out += [flag, str(value)]
+        return serve.parse_args(out)
+
+    args = argv()
+    moe_args = serve.moe_args_for(args)        # None: capacity dispatch
+    cfg = dataclasses.replace(get_arch(MIXTRAL), n_layers=MOE_SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = interop.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(args.seed), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    print(f"moe serve: {MIXTRAL} at full width, {MOE_SERVE_LAYERS} of 56 "
+          f"layers, {n} params ({4 * n / 1e9:.2f} GB f32), init "
+          f"{time.perf_counter() - t0:.2f}s, moe_args {moe_args}",
+          flush=True)
+    serve.run_continuous(cfg, params, argv(requests=1, max_new=4), moe_args)
+    counters = (fa_ops.COUNTER, dec_ops.COUNTER)
+    for ctr in counters:
+        ctr.reset()
+    rep = serve.run_continuous(cfg, params, args, moe_args)
+    launches = {ctr.name: ctr.count for ctr in counters}
+    per = {"flash_fwd_per_prefill": launches["flash_fwd"] / rep["prefills"],
+           "decode_attention_per_step": (launches["decode_attention"]
+                                         / rep["decode_steps"])}
+    print(f"moe serve (continuous, bf16, 8 slots, 16 requests x 508-520 "
+          f"prompt tokens x 64 new, cache 8192): decode "
+          f"{rep['decode_tokens_per_s']:.1f} tok/s over the warm steps, "
+          f"{rep['tokens_per_s']:.1f} tok/s over the run (prefill "
+          f"included); step median {rep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{rep['step_p90_s'] * 1e3:.3f} ms over {rep['decode_steps']} "
+          f"steps; prefill {rep['prefill_mean_s'] * 1e3:.3f} ms per "
+          f"request; launches {launches}: {per}", flush=True)
+    for name in per:
+        if per[name] != MOE_SERVE_LAYERS:
+            raise AssertionError(f"moe serve: {name} {per[name]}, want "
+                                 f"{MOE_SERVE_LAYERS} (one per layer)")
+    for rid, r in rep["results"].items():
+        in_vocab = bool(np.all((r >= 0) & (r < cfg.vocab)))
+        if not (in_vocab and (r.size == args.max_new or r[-1] == 3)):
+            raise AssertionError(f"moe serve: bad tokens for request "
+                                 f"{rid}: {r}")
+    if rep["requests"] != args.requests or not math.isfinite(
+            rep["decode_tokens_per_s"]):
+        raise AssertionError(f"moe serve: {rep['requests']} of "
+                             f"{args.requests} requests finished")
+
+    for ctr in counters:
+        ctr.reset()
+    lock = serve.run_legacy(cfg, params, argv(engine="legacy", batch=1),
+                            moe_args)
+    row = lock["tokens"][0]
+    stop = np.nonzero(row == 3)[0]
+    emitted = int(stop[0]) + 1 if stop.size else row.size
+    lock_launches = {ctr.name: ctr.count for ctr in counters}
+    want = {"flash_fwd": MOE_SERVE_LAYERS,
+            "decode_attention": MOE_SERVE_LAYERS * (emitted - 1)}
+    print(f"moe serve (lockstep, 1 request x 512 prompt tokens): "
+          f"{emitted} tokens, {lock['tokens_per_s']:.1f} tok/s (prefill "
+          f"included); launches {lock_launches}", flush=True)
+    if lock_launches != want or not bool(np.all((row >= 0)
+                                                & (row < cfg.vocab))):
+        raise AssertionError(f"moe serve lockstep: launches {lock_launches}"
+                             f" (want {want}), tokens {row}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe serve: max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"(weights, caches and the warm-up, continuous and lockstep "
+          f"runs)", flush=True)
+    eng = rep.pop("engine")
+    per_call, busy = phase_decode_profile(
+        eng, counters=(dec_ops.COUNTER,), groups=MOE_GROUPS, ops=MOE_OPS)
+    return {"launches": launches, "per": per, "rep": rep,
+            "lockstep": {"launches": lock_launches, "tokens": emitted,
+                         "tokens_per_s": lock["tokens_per_s"]},
+            "max_memory_allocated": peak, "per_call": per_call,
+            "busy": busy}
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -3079,6 +3457,13 @@ def main() -> int:
     lm_bf16 = phase_lm_step_bf16()
     torch.cuda.empty_cache()
     phase_refused_on_card()
+    torch.cuda.empty_cache()
+    moe_flash, moe_decode = phase_moe_kernels()
+    torch.cuda.empty_cache()
+    moe_parity = phase_moe_parity()
+    torch.cuda.empty_cache()
+    moe = phase_moe_serve()
+    torch.cuda.empty_cache()
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(r["max_abs_err"] for (_, dt), r in flash.items()
@@ -3103,6 +3488,19 @@ def main() -> int:
                 "lm_bf16_launches_per_step": lm_bf16["launches_per_step"][
                     name],
                 "lm_f32_parity_launches": lm_parity["launches"][name]}
+
+    def mixtral_of(name, recs, per):
+        """The kernel at Mixtral's shapes and its launches on the MoE
+        paths."""
+        return {"mixtral": [{k: r[k] for k in (
+                    "shape", "plan", *timing, "device_ms",
+                    "library_device_ms")} for r in recs.values()],
+                "mixtral_launches": moe["launches"][name],
+                f"mixtral_launches_{per}": moe["per"][f"{name}_{per}"],
+                "mixtral_lockstep_launches": moe["lockstep"]["launches"][
+                    name],
+                "mixtral_f32_parity_launches": moe_parity["launches"][name],
+                "mixtral_device_kernels_per_call": moe["per_call"].get(name)}
 
     def recipe_of(name):
         """The kernel's launches in each part of the recipe phase."""
@@ -3158,7 +3556,8 @@ def main() -> int:
          "decode_launches_per_prefill": dec_per["flash_fwd_per_prefill"],
          "prefill_bf16": prefill_flash["bfloat16"],
          "prefill_f32": prefill_flash["float32"],
-         **lm_of("fwd", fa_ops.COUNTER.name)},
+         **lm_of("fwd", fa_ops.COUNTER.name),
+         **mixtral_of(fa_ops.COUNTER.name, moe_flash, "per_prefill")},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -3214,7 +3613,9 @@ def main() -> int:
          "launches_per_step": dec_per["decode_attention_per_step"],
          "device_kernels_per_call": dec_per_call[dec_ops.COUNTER.name],
          "parity_max_logit_diff": max(parity["linear"][0],
-                                      parity["ring"][0])},
+                                      parity["ring"][0]),
+         **mixtral_of(dec_ops.COUNTER.name, moe_decode, "per_step"),
+         "mixtral_parity_max_logit_diff": moe_parity["max_logit_diff"]},
         {"name": ssd_ops.COUNTER.name, "route": "cuda",
          "source": SSD_SOURCE, "replaces": SSD_REPLACES,
          "launches": ssm_launches[ssd_ops.COUNTER.name],
@@ -3259,6 +3660,17 @@ def main() -> int:
           f"{registry['disk_s']:.3f} s (computed "
           f"{registry['computed_s']:.3f} s)", flush=True)
     print(f"lm profile busy share {lm_rep['busy']:.4f}", flush=True)
+    mrep = moe["rep"]
+    print(f"moe: Mixtral-8x22B ({MOE_SERVE_LAYERS} of 56 layers) bf16 "
+          f"decode {mrep['decode_tokens_per_s']:.1f} tok/s, step median "
+          f"{mrep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{mrep['step_p90_s'] * 1e3:.3f} ms, prefill "
+          f"{mrep['prefill_mean_s'] * 1e3:.3f} ms, "
+          f"{moe['max_memory_allocated'] / 2**30:.3f} GiB, decode profile "
+          f"busy share {moe['busy']:.4f}; f32 parity max |logit diff| "
+          f"{moe_parity['max_logit_diff']:.3g} ("
+          f"{len(moe_parity['near_tie_rows'])} rows at a router near-tie)",
+          flush=True)
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
           f"{dec_busy:.4f}; ssm prefill profile busy share "
           f"{ssm_prefill_busy:.4f}; ssm decode profile busy share "

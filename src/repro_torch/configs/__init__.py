@@ -1,11 +1,13 @@
 """Configs of the port: its own copy of the reference's tower and
 dual-encoder configs for the ``basic-*`` entries, of its dense decoder
-LMs (``llama3.2-1b``, ``qwen3-32b``, ``minitron-4b``, ``internlm2-20b``)
-and of the attention-free ``mamba2-130m``."""
+LMs (``llama3.2-1b``, ``qwen3-32b``, ``minitron-4b``, ``internlm2-20b``),
+of the attention-free ``mamba2-130m`` and of the MoE LMs
+(``mixtral-8x22b``, ``arctic-480b``)."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     ArchConfig,
     InputShape,
+    MoEConfig,
     SSMConfig,
     applicable_shapes,
     get_arch,

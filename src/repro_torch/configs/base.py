@@ -1,13 +1,14 @@
 """Architecture config and registry (copy of ``repro/configs/base.py``,
 covering the encoder towers of the BASIC dual encoders, the dense decoder
-LMs and the attention-free SSM LMs).
+LMs, the attention-free SSM LMs and the MoE LMs).
 
 Every config is a frozen dataclass built in its own ``configs/<id>.py``
 module and registered here when ``get_arch`` first runs. The dense LMs
-(Llama-3.2-1B, Qwen3-32B, Minitron-4B, InternLM2-20B) and Mamba-2-130M
-(``family="ssm"``) serve through the decode engines; the MoE, hybrid, vlm
-and audio configs and their ``moe``/``attn_every`` fields wait for later
-slices of the port. ``InputShape`` / ``INPUT_SHAPES`` name the assigned
+(Llama-3.2-1B, Qwen3-32B, Minitron-4B, InternLM2-20B), Mamba-2-130M
+(``family="ssm"``) and the MoE LMs (Mixtral-8x22B, Arctic-480B;
+``family="moe"`` with a ``MoEConfig``) serve through the decode engines;
+the hybrid, vlm and audio configs and the ``attn_every`` field wait for
+later slices of the port. ``InputShape`` / ``INPUT_SHAPES`` name the assigned
 input shapes, and ``applicable_shapes`` says which of them an arch runs.
 """
 from __future__ import annotations
@@ -15,6 +16,19 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The MoE FFN's routing, as in the reference: ``num_experts`` SwiGLU
+    experts, ``top_k`` of them per token, an optional dense SwiGLU FFN
+    added beside them (Arctic), the MoE FFN on every ``every``-th block
+    and the load-balance loss's coefficient."""
+    num_experts: int
+    top_k: int = 2
+    dense_residual: bool = False
+    every: int = 1
+    load_balance_coef: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +46,8 @@ class ArchConfig:
     """One transformer tower: widths, masks, attention backend, and the
     vision frontend's geometry (field meanings as in the reference)."""
     name: str
-    family: str                   # 'encoder' (BASIC towers) | 'dense' | 'ssm'
+    family: str                   # 'encoder' (BASIC towers) | 'dense' |
+                                  # 'ssm' | 'moe'
     n_layers: int
     d_model: int
     n_heads: int                  # 0 for attention-free
@@ -46,6 +61,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # attention backend (models.attention registry): 'naive', 'chunked',
     # 'flash' (the hand-written kernel; the reference's 'pallas' maps to
@@ -79,11 +95,22 @@ class ArchConfig:
         kind = "mamba" if self.family == "ssm" else "attn"
         return tuple(kind for _ in range(self.n_layers))
 
+    def moe_layer_mask(self) -> Tuple[bool, ...]:
+        """Per layer: True where the block's FFN is the MoE FFN (every
+        ``moe.every``-th layer, the last of each group of ``every``)."""
+        if self.moe is None:
+            return tuple(False for _ in range(self.n_layers))
+        return tuple((i % self.moe.every) == self.moe.every - 1
+                     for i in range(self.n_layers))
+
     def param_counts(self) -> dict:
         """Total and active parameter counts, analytic (the reference's
-        formula, without its MoE and hybrid terms): per layer the
-        attention or Mamba-2 mixer, two norms and, outside the SSM family,
-        the SwiGLU FFN; then the embedding, final norm and untied head."""
+        formula, without its hybrid term): per layer the attention or
+        Mamba-2 mixer, two norms and, outside the SSM family, the SwiGLU
+        FFN, or on a MoE layer ``num_experts`` of them in the total and
+        ``top_k`` in the active count, plus one for a dense residual (the
+        router is not counted); then the embedding, final norm and untied
+        head."""
         d, V = self.d_model, self.vocab
         hd = self.resolved_head_dim if self.n_heads else 0
         q, kv = self.n_heads * hd, self.n_kv_heads * hd
@@ -98,10 +125,21 @@ class ArchConfig:
         else:
             mixer = d * q + 2 * d * kv + q * d        # wq, wk, wv, wo
         ffn = 0 if self.family == "ssm" else 3 * d * self.d_ff
-        total = self.n_layers * (mixer + 2 * d + ffn) + V * d + d
+        total = active = V * d + d
         if not self.tie_embeddings:
             total += V * d
-        return {"total": total, "active": total}
+            active += V * d
+        for use_moe in self.moe_layer_mask():
+            total += mixer + 2 * d
+            active += mixer + 2 * d
+            if use_moe:
+                m = self.moe
+                total += m.num_experts * ffn + ffn * m.dense_residual
+                active += m.top_k * ffn + ffn * m.dense_residual
+            else:
+                total += ffn
+                active += ffn
+        return {"total": total, "active": active}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,8 +181,8 @@ def applicable_shapes(cfg: ArchConfig):
 
 _REGISTRY: dict = {}
 
-_ARCH_MODULES = ["minitron_4b", "mamba2_130m", "internlm2_20b", "qwen3_32b",
-                 "llama3_2_1b",
+_ARCH_MODULES = ["minitron_4b", "mamba2_130m", "mixtral_8x22b",
+                 "internlm2_20b", "qwen3_32b", "llama3_2_1b", "arctic_480b",
                  # the paper's own models (dual-encoder towers)
                  "basic_s", "basic_m", "basic_l"]
 
@@ -177,10 +215,9 @@ def _ensure_loaded():
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """A reduced config of the same family: 2 layers, d_model <= 256,
-    <= 4 heads, a vision geometry of <= 16 patches, a sliding window of
-    64 and an SSD state of 16 over heads of 32 in chunks of 32 (the
-    reference's transform, restricted to the encoder, dense and SSM
-    families)."""
+    <= 4 heads, a vision geometry of <= 16 patches, <= 4 experts, a
+    sliding window of 64 and an SSD state of 16 over heads of 32 in chunks
+    of 32 (the reference's transform, without its hybrid term)."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
     if heads and cfg.n_kv_heads == cfg.n_heads:
@@ -205,6 +242,9 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         ps = min(cfg.patch_size or 4, 4)
         changes["patch_size"] = ps
         changes["image_size"] = side * ps
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=min(cfg.moe.num_experts, 4))
     if cfg.ssm is not None:
         changes["ssm"] = dataclasses.replace(
             cfg.ssm, state_dim=16, head_dim=32, chunk=32)

@@ -2,9 +2,10 @@
 
 The reference keeps its parameters as a pytree of nested dicts and lists;
 the port keeps the same tree with the same leaf paths, including the
-stacked ``blocks`` layout (one list entry per layer-period position, all
-layers on a leading axis), so each leaf maps one to one and the conversion
-is a copy. The reference's tree comes in as numpy arrays (its caller runs
+stacked ``blocks`` layout (one list entry per layer-period position, its
+layers on a leading axis; a MoE block's ``moe`` subtree with its expert
+axis after the layer axis), so each leaf maps one to one and the
+conversion is a copy. The reference's tree comes in as numpy arrays (its caller runs
 ``jax.device_get``); this module imports nothing of the reference.
 
 ``init_params`` draws a fresh dual encoder or LM with the reference's init

@@ -15,6 +15,10 @@ a request-queue loop over the ``ContinuousEngine`` (port of
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --smoke --device cpu --engine continuous
 
+  # Mixtral-8x22B (MoE; dense dispatch under --smoke, else capacity)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --smoke --device cpu --engine continuous
+
 A Mamba-2 prompt must be at most the SSD chunk long (256 tokens; 32 for
 ``--smoke``) or a whole number of chunks, the reference's rule; other
 lengths raise ``ValueError``. The continuous loop's ragged lengths
@@ -22,7 +26,10 @@ lengths raise ``ValueError``. The continuous loop's ragged lengths
 (<= 24 with ``--smoke``).
 
 Weights are random, drawn from ``--seed`` on the run's device; prompts are
-random token ids. The continuous loop submits ``--requests`` requests
+random token ids. A MoE model's FFNs dispatch densely under ``--smoke``
+and by capacity (``moe_ffn``'s defaults) otherwise, as the reference's
+launcher sets them; ``run_legacy`` and ``run_continuous`` take those
+``moe_args``. The continuous loop submits ``--requests`` requests
 with Poisson-ish gaps (``--arrival`` mean seconds; 0 = all up front) and
 prompt lengths around ``--prompt-len``, as the reference does, and reports
 tokens/s, slot occupancy and admission wait from the engine's registry,
@@ -58,10 +65,17 @@ def build(arch: str, *, smoke: bool = False, seed: int = 0, device=None):
     return cfg, params
 
 
-def run_legacy(cfg, params, args) -> dict:
+def moe_args_for(args):
+    """The MoE dispatch the launcher serves with: dense under ``--smoke``,
+    else None (``moe_ffn``'s capacity defaults), as in the reference."""
+    return {"dispatch": "dense"} if args.smoke else None
+
+
+def run_legacy(cfg, params, args, moe_args=None) -> dict:
     """One lockstep batch of ``--batch`` prompts; returns the report."""
     eng = Engine(cfg, params, cache_len=args.cache_len,
-                 precision=args.precision, attn=args.attn)
+                 precision=args.precision, attn=args.attn,
+                 moe_args=moe_args)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(4, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
@@ -76,13 +90,13 @@ def run_legacy(cfg, params, args) -> dict:
     return {"tokens": out, "seconds": dt, "tokens_per_s": out.size / dt}
 
 
-def run_continuous(cfg, params, args) -> dict:
+def run_continuous(cfg, params, args, moe_args=None) -> dict:
     """Drive ``--requests`` synthetic requests through the continuous
     engine; returns the report (timings in seconds)."""
     eng = ContinuousEngine(cfg, params, cache_len=args.cache_len,
                            num_slots=args.slots, precision=args.precision,
-                           attn=args.attn, temperature=args.temperature,
-                           seed=args.seed)
+                           attn=args.attn, moe_args=moe_args,
+                           temperature=args.temperature, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     # ragged prompts around --prompt-len so admission sees mixed shapes
     lens = np.clip(args.prompt_len + rng.choice([-4, 0, 4, 8], args.requests),
@@ -214,9 +228,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg, params = build(args.arch, smoke=args.smoke, seed=args.seed,
                         device=dev)
     if args.engine == "continuous":
-        rep = run_continuous(cfg, params, args)
+        rep = run_continuous(cfg, params, args, moe_args_for(args))
     else:
-        rep = run_legacy(cfg, params, args)
+        rep = run_legacy(cfg, params, args, moe_args_for(args))
     rep["device"] = str(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -11,9 +11,10 @@ with the image tower frozen (phase 2). ``make_pretrain_step`` is phase 1:
 softmax cross-entropy of the image tower plus a linear head (the step of
 the reference's ``run_pretrain``, ``repro/launch/train.py:116-125``).
 ``make_train_step`` is the LM's next-token step (``transformer.lm_loss``
-then AdaFactorW). The cross-shard losses and the input shardings wait
-for the distributed-training slice; the MoE dispatch options for the MoE
-slice.
+then AdaFactorW). ``moe_args`` pick a MoE model's dispatch: the train
+and prefill steps default to ``DEFAULT_MOE_ARGS`` (capacity dispatch), the
+decode step to dense dispatch, as in the reference. The cross-shard
+losses and the input shardings wait for the distributed-training slice.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from repro_torch.optim.adafactorw import AdaFactorW, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
 LOSSES = {"local": contrastive_loss, "fused": fused_kernel_loss}
+DEFAULT_MOE_ARGS = {"dispatch": "capacity", "group": 4096,
+                    "capacity_factor": 1.25}
 DISTRIBUTED_LOSSES = ("allgather", "chunked")
 
 
@@ -67,15 +70,17 @@ def value_and_grad(loss_fn, params):
 
 
 def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
-            *, precision, remat_policy=None):
-    """One LM training step: ``transformer.lm_loss`` and its gradients,
-    then one ``opt`` update at ``lr`` (a float, or a schedule of the step
-    count before the update). Returns train_step(params, opt_state,
-    batch) -> (params, opt_state, loss, metrics)."""
+            *, precision, remat_policy=None, moe_args=None):
+    """One LM training step: ``transformer.lm_loss`` (with ``moe_args``)
+    and its gradients, then one ``opt`` update at ``lr`` (a float, or a
+    schedule of the step count before the update). Returns
+    train_step(params, opt_state, batch) -> (params, opt_state, loss,
+    metrics)."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(
             lambda p: tf.lm_loss(cfg, p, batch, precision=precision,
-                                 remat_policy=remat_policy), params)
+                                 remat_policy=remat_policy,
+                                 moe_args=moe_args), params)
         step_lr = lr(opt_state.step) if callable(lr) else lr
         updates, new_opt = opt.update(grads, opt_state, params, step_lr)
         return apply_updates(params, updates), new_opt, loss, metrics
@@ -84,34 +89,49 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
 
 
 def make_train_step(cfg: ArchConfig, *, remat: Optional[str] = "basic",
+                    moe_args: Optional[dict] = None,
                     lr: Union[float, Callable] = 1e-3, precision="bf16"):
     """The LM train step: ``transformer.lm_loss`` under the ``precision``
     policy (default bf16) with the ``remat`` policy per block (default
-    'basic'), then ``make_optimizer``'s AdaFactorW. The attention backend
-    is ``cfg.attn_impl`` ('pallas' runs the flash kernels).
+    'basic') and ``moe_args`` (default ``DEFAULT_MOE_ARGS``), then
+    ``make_optimizer``'s AdaFactorW. The attention backend is
+    ``cfg.attn_impl`` ('pallas' runs the flash kernels).
 
     Returns (train_step, opt); train_step(params, opt_state, batch) ->
     (params, opt_state, loss, metrics)."""
     opt = make_optimizer()
+    margs = DEFAULT_MOE_ARGS if moe_args is None else moe_args
     return lm_step(cfg, opt, lr, precision=precision,
-                   remat_policy=remat_lib.get_policy(remat)), opt
+                   remat_policy=remat_lib.get_policy(remat),
+                   moe_args=margs), opt
 
 
-def make_prefill_step(cfg: ArchConfig, *, precision="bf16"):
+def make_prefill_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
+                      precision="bf16"):
     """The prefill step: prefill_step(params, batch) -> the last position's
-    logits (b, 1, vocab)."""
+    logits (b, 1, vocab); ``moe_args`` default to ``DEFAULT_MOE_ARGS``."""
+    margs = DEFAULT_MOE_ARGS if moe_args is None else moe_args
+
     def prefill_step(params, batch):
-        return tf.prefill(cfg, params, batch, precision=precision)
+        return tf.prefill(cfg, params, batch, precision=precision,
+                          moe_args=margs)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig, *, precision="bf16"):
+def make_serve_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
+                    precision="bf16"):
     """The single-token decode step: serve_step(params, caches, token, pos)
-    -> (logits (b, 1, vocab), caches), the caches written in place."""
+    -> (logits (b, 1, vocab), caches), the caches written in place.
+    ``moe_args`` default to ``DEFAULT_MOE_ARGS`` with dense dispatch (the
+    reference's default for one token a row: exact, every expert on every
+    token)."""
+    margs = (dict(DEFAULT_MOE_ARGS, dispatch="dense") if moe_args is None
+             else dict(moe_args))
+
     def serve_step(params, caches, token, pos):
         return tf.decode_step(cfg, params, token, pos, caches,
-                              precision=precision)
+                              precision=precision, moe_args=margs)
 
     return serve_step
 

@@ -3,10 +3,11 @@ recipe on one device (counterpart of ``repro/launch/train.py``:
 ``run_lm`` at :50-82, ``run_pretrain`` at :104-135, ``run_contrastive`` at
 :138-181).
 
-- ``--mode lm``: next-token training of a decoder LM (dense or ssm) on
-  ``frontends.synthetic_inputs`` of ``--batch`` × ``--seq`` tokens, a
+- ``--mode lm``: next-token training of a decoder LM (dense, ssm or moe)
+  on ``frontends.synthetic_inputs`` of ``--batch`` × ``--seq`` tokens, a
   fresh batch a step from ``np.random.default_rng(seed)``: ``lm_loss`` in
-  f32 with no remat, then ``AdaFactorW(weight_decay=0.0025)`` on
+  f32 with no remat (a MoE model's dispatch dense under ``--smoke``, else
+  capacity, as the reference's), then ``AdaFactorW(weight_decay=0.0025)`` on
   ``warmup_cosine(lr, lr/100, steps//10 or 1, steps)``, as the reference
   computes it. ``--precision`` and ``--remat`` are refused here (the
   reference's ``run_lm`` has neither); ``--attn`` picks the backend
@@ -223,7 +224,9 @@ def run_lm(args, params_init=None) -> dict:
     lr_fn = warmup_cosine(args.lr, args.lr / 100, args.steps // 10 or 1,
                           args.steps)
     run = {"params": params, "opt_state": opt.init(params),
-           "step_fn": lm_step(cfg, opt, lr_fn, precision="f32")}
+           "step_fn": lm_step(cfg, opt, lr_fn, precision="f32",
+                              moe_args=({"dispatch": "dense"} if args.smoke
+                                        else None))}
     rng = np.random.default_rng(args.seed)
     return _run_steps(
         args, run, device,

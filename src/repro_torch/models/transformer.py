@@ -1,32 +1,40 @@
-"""Model assembly for the encoder towers, the dense decoder LMs and the
-attention-free SSM LMs (port of ``repro/models/transformer.py``, the
-encoder, dense and ssm families).
+"""Model assembly for the encoder towers, the dense decoder LMs, the
+attention-free SSM LMs and the MoE LMs (port of
+``repro/models/transformer.py``, the encoder, dense, ssm and moe
+families).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a list
-with one entry per position of the layer period (one for both families),
-each a dict whose leaves stack all layers on a leading axis, so a
-reference checkpoint maps onto the port leaf for leaf. An attention block
-is ``ln1`` + ``attn`` + ``ln2`` + ``ffn``; a Mamba-2 block (``family="ssm"``)
-is ``ln1`` + ``mamba`` alone. Decode caches keep the same stacking:
-``caches`` is a list with one ``KVCache`` whose k/v are (n_layers, batch,
-kv_heads, cache_len, head_dim), or one ``SSMCache`` whose ssm is
-(n_layers, batch, heads, head_dim, state) fp32 and conv (n_layers, batch,
-conv_width - 1, d_conv). ``forward`` runs a Python loop over the layer
-axis where the reference runs ``lax.scan``.
+with one entry per position of the layer period (the lcm of the MoE
+interleave; one for every registered config), each a dict whose leaves
+stack that position's layers on a leading axis (n_layers // period), so
+a reference checkpoint maps onto the port leaf for leaf. Layer i is
+position i % period, entry i // period. An attention block is ``ln1`` +
+``attn`` + ``ln2`` + ``ffn``, or + ``moe`` (``models.moe``) where the
+config's MoE mask says so; a Mamba-2 block (``family="ssm"``) is ``ln1``
++ ``mamba`` alone. Decode caches keep the same stacking: ``caches`` is a
+list with one ``KVCache`` per period position whose k/v are (n_layers //
+period, batch, kv_heads, cache_len, head_dim), or one ``SSMCache`` whose
+ssm is (n_layers, batch, heads, head_dim, state) fp32 and conv (n_layers,
+batch, conv_width - 1, d_conv). ``forward`` runs a Python loop over the
+layers where the reference runs ``lax.scan`` over the periods.
 
 Entry points:
   init_params(cfg, generator, device)            -> params dict
-  lm_loss(cfg, params, batch)                    -> (loss, metrics)
+  lm_loss(cfg, params, batch, moe_args)          -> (loss, metrics)
   encode(cfg, params, batch)                     -> pooled (b, d_model)
-  prefill(cfg, params, batch, collect_cache_len) -> logits [, caches]
-  decode_step(cfg, params, token, pos, caches)   -> (logits, caches)
+  prefill(cfg, params, batch, moe_args, collect_cache_len)
+                                                 -> logits [, caches]
+  decode_step(cfg, params, token, pos, caches, moe_args)
+                                                 -> (logits, caches)
   init_caches(cfg, batch, seq_len, device=...)   -> zeroed caches
 
 ``forward`` and ``encode`` take a ``remat_policy`` (``core.remat``) that
 wraps each block in a checkpoint, as the reference wraps each period step
 (``repro/models/transformer.py:168-169``). ``decode_step`` writes each
 layer's new k/v (or SSD state and conv window) into the caches in place
-and returns the same objects. The MoE, hybrid and vlm families wait for
+and returns the same objects. ``moe_args`` (``dispatch``, ``group``,
+``capacity_factor``) go to every MoE FFN; ``lm_loss`` adds the MoE
+load-balance terms of all layers. The hybrid and vlm families wait for
 their own slices; ``lm_loss`` of the encoder family (hubert's masked-frame
 loss) waits for the audio slice.
 """
@@ -39,49 +47,55 @@ from repro_torch.core import remat as remat_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import frontends as fe
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import precision as prec_lib
 from repro_torch.models import ssm as ssm_lib
 
 
 # the slice of the port that brings each family it does not run yet
-_LATER = {"moe": "the MoE slice",
-          "hybrid": "the MoE slice, after the SSM family (Jamba needs MoE)",
-          "vlm": "the MoE slice, with the vlm frontend"}
+_LATER = {"hybrid": "the hybrid slice (Jamba: Mamba-2 and MoE layers)",
+          "vlm": "the vlm slice, with the vlm frontend"}
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("encoder", "dense", "ssm"):
+    if cfg.family not in ("encoder", "dense", "ssm", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the encoder, dense and ssm families; "
-            f"{cfg.family!r} comes with "
+            f"{cfg.name}: the port runs the encoder, dense, ssm and moe "
+            f"families; {cfg.family!r} comes with "
             f"{_LATER.get(cfg.family, 'a later slice')}")
 
 
 def period_of(cfg: ArchConfig) -> int:
-    """Layer-stack period (the reference's scan unit): 1 for every family
-    the port runs, whose blocks are all of one kind; the hybrid
-    interleave and the MoE term come with their slices."""
+    """Layer-stack period (the reference's scan unit): the MoE interleave
+    (``moe.every``; 1 without MoE). The hybrid slice brings the lcm with
+    the attention interleave."""
     _check_family(cfg)
-    return 1
+    p = 1 if cfg.moe is None else cfg.moe.every
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                         f"whole number of periods of {p}")
+    return p
 
 
-def _init_block(cfg: ArchConfig, generator: torch.Generator, extra,
-                device) -> dict:
+def _init_block(cfg: ArchConfig, generator: torch.Generator, use_moe: bool,
+                extra, device) -> dict:
     d = cfg.d_model
     if cfg.family == "ssm":         # Mamba-2 blocks have no separate FFN
         return {"ln1": torch.ones((*extra, d), device=device),
                 "mamba": ssm_lib.init_ssm_params(cfg, generator, extra,
                                                  device)}
-    return {
-        "ln1": torch.ones((*extra, d), device=device),
-        "attn": attn_lib.init_attn_params(cfg, generator, extra, device),
-        "ln2": torch.ones((*extra, d), device=device),
-        "ffn": {
+    p = {"ln1": torch.ones((*extra, d), device=device),
+         "attn": attn_lib.init_attn_params(cfg, generator, extra, device),
+         "ln2": torch.ones((*extra, d), device=device)}
+    if use_moe:
+        p["moe"] = moe_lib.init_moe_params(cfg, generator, extra, device)
+    else:
+        p["ffn"] = {
             "wi": L.dense_init(generator, d, cfg.d_ff, extra, device),
             "wg": L.dense_init(generator, d, cfg.d_ff, extra, device),
             "wo": L.dense_init(generator, cfg.d_ff, d, extra, device),
-        },
-    }
+        }
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -90,9 +104,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     frontend and, for a token tower, the embedding table and LM head (the
     reference's leaves, drawn with its init law)."""
     period = period_of(cfg)
+    moe_mask = cfg.moe_layer_mask()[:period]
     params = {
-        "blocks": [_init_block(cfg, generator, (cfg.n_layers // period,),
-                               device) for _ in range(period)],
+        "blocks": [_init_block(cfg, generator, moe_mask[i],
+                               (cfg.n_layers // period,), device)
+                   for i in range(period)],
         "final_norm": torch.ones((cfg.d_model,), device=device),
     }
     if cfg.frontend == "vision":
@@ -114,11 +130,13 @@ def _layer(tree, i: int):
 
 
 def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
-                 cache=None, decode=False, collect_cache_len=None):
-    """Pre-norm attention + SwiGLU block, or a pre-norm Mamba-2 block for
-    the SSM family. Returns (h, the layer's cache: the one given, written
-    in place, when decoding; one built from the prompt with
-    ``collect_cache_len``; else None)."""
+                 cache=None, decode=False, collect_cache_len=None,
+                 moe_args=None):
+    """Pre-norm attention + SwiGLU (or MoE) block, or a pre-norm Mamba-2
+    block for the SSM family. Returns (h, the layer's cache: the one
+    given, written in place, when decoding; one built from the prompt with
+    ``collect_cache_len``; else None, the MoE load-balance term or
+    None)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     new_cache = None
     if cfg.family == "ssm":
@@ -127,7 +145,7 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
         else:
             mix, new_cache = ssm_lib.mamba_mixer(p["mamba"], cfg, hn)
         return h + mix, (new_cache if decode or collect_cache_len is not None
-                         else None)
+                         else None), None
     if decode:
         mix, new_cache = attn_lib.decode_attention(p["attn"], cfg, hn, cache,
                                                    positions)
@@ -140,48 +158,71 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
                                  key_mask=key_mask)
     h = h + mix
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        out, aux = moe_lib.moe_ffn(p["moe"], cfg, hn, **(moe_args or {}))
+        return h + out, new_cache, aux
     return h + L.swiglu(hn, p["ffn"]["wi"], p["ffn"]["wg"],
-                        p["ffn"]["wo"]), new_cache
+                        p["ffn"]["wo"]), new_cache, None
+
+
+def _layers(cfg: ArchConfig, params):
+    """(period position, entry, that layer's params) for every layer in
+    order: layer i is entry i // period of position i % period."""
+    period = period_of(cfg)
+    for i in range(cfg.n_layers):
+        r, j = i % period, i // period
+        yield r, j, _layer(params["blocks"][r], j)
 
 
 def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
             remat_policy=None, caches=None, decode=False,
-            collect_cache_len=None):
+            collect_cache_len=None, moe_args=None):
     """Run the block stack. h: (b, s, d); key_mask: optional (b, s) bool
     padding mask threaded into attention; remat_policy: optional
     ``core.remat`` policy applied per block (not while decoding or
     building caches). ``decode``: one token per row against ``caches``
     at ``positions`` (an int or a (b,) tensor). ``collect_cache_len``:
-    build decode caches of that length from the prompt.
+    build decode caches of that length from the prompt. ``moe_args`` go
+    to every MoE FFN.
 
-    Returns (h, caches): the caches given (written in place), the ones
-    built, or None."""
+    Returns (h, caches, aux): the caches given (written in place), the
+    ones built, or None; aux the sum of the MoE load-balance terms (an
+    fp32 scalar, 0 without MoE layers)."""
     _check_family(cfg)
-    stack = params["blocks"][0]
+    terms = []
     if decode:
-        c = caches[0]
-        for i in range(cfg.n_layers):
-            h, _ = _apply_block(cfg, _layer(stack, i), h, positions,
-                                cache=type(c)(*(x[i] for x in c)),
-                                decode=True)
-        return h, caches
-    if collect_cache_len is not None:
-        built = []
-        for i in range(cfg.n_layers):
-            h, c = _apply_block(cfg, _layer(stack, i), h, positions,
-                                key_mask=key_mask,
-                                collect_cache_len=collect_cache_len)
-            built.append(c)
-        return h, [type(built[0])(*(torch.stack(leaf)
-                                    for leaf in zip(*built)))]
+        for r, j, p in _layers(cfg, params):
+            c = caches[r]
+            h, _, aux = _apply_block(cfg, p, h, positions,
+                                     cache=type(c)(*(x[j] for x in c)),
+                                     decode=True, moe_args=moe_args)
+            terms.append(aux)
+        out_caches = caches
+    elif collect_cache_len is not None:
+        built = [[] for _ in params["blocks"]]
+        for r, _, p in _layers(cfg, params):
+            h, c, aux = _apply_block(cfg, p, h, positions, key_mask=key_mask,
+                                     collect_cache_len=collect_cache_len,
+                                     moe_args=moe_args)
+            built[r].append(c)
+            terms.append(aux)
+        out_caches = [type(b[0])(*(torch.stack(leaf) for leaf in zip(*b)))
+                      for b in built]
+    else:
+        def block(p, h, positions, key_mask):
+            h, _, aux = _apply_block(cfg, p, h, positions, key_mask,
+                                     moe_args=moe_args)
+            return h, aux
 
-    def block(p, h, positions, key_mask):
-        return _apply_block(cfg, p, h, positions, key_mask)[0]
-
-    for i in range(cfg.n_layers):
-        h = remat_lib.apply(remat_policy, block, _layer(stack, i), h,
-                            positions, key_mask)
-    return h, None
+        for _, _, p in _layers(cfg, params):
+            h, aux = remat_lib.apply(remat_policy, block, p, h, positions,
+                                     key_mask)
+            terms.append(aux)
+        out_caches = None
+    terms = [t for t in terms if t is not None]
+    aux = (torch.stack(terms).sum() if terms
+           else torch.zeros((), dtype=torch.float32, device=h.device))
+    return h, out_caches, aux
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -225,8 +266,8 @@ def encode(cfg: ArchConfig, params, batch, *, precision=None,
     pol = prec_lib.resolve(precision)
     h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
     mask = batch.get("attn_mask")
-    h, _ = forward(cfg, params, h, pos, key_mask=mask,
-                   remat_policy=remat_policy)
+    h, _, _ = forward(cfg, params, h, pos, key_mask=mask,
+                      remat_policy=remat_policy)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     h = pol.accum(h)
     if mask is not None:
@@ -256,16 +297,17 @@ def logits_from_h(cfg: ArchConfig, params, h,
 
 
 def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
-            precision=None, remat_policy=None):
+            precision=None, remat_policy=None, moe_args=None):
     """Training loss of a decoder LM: next-token cross-entropy over
     ``batch['tokens']`` (b, s), averaged over the (b, s - 1) predicted
     positions, or over those ``batch['loss_mask'][:, 1:]`` keeps. The
     logits and the cross-entropy are fp32 whatever the compute dtype.
     ``precision`` (a policy or its name) wins over the legacy ``dtype``
-    (default f32, as in the reference); ``remat_policy`` wraps each block.
+    (default f32, as in the reference); ``remat_policy`` wraps each block;
+    ``moe_args`` go to every MoE FFN.
 
-    Returns (loss + aux, {'xent': loss, 'aux': aux}); aux, the MoE load
-    balance term, is 0 for the families the port runs."""
+    Returns (loss + aux, {'xent': loss, 'aux': aux}); aux is the sum of
+    the MoE load-balance terms over the layers (0 without MoE layers)."""
     _check_family(cfg)
     if cfg.family == "encoder":
         raise NotImplementedError(
@@ -273,7 +315,8 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
             f"with the audio slice (hubert-xlarge)")
     pol = prec_lib.resolve(precision, dtype)
     h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
-    h, _ = forward(cfg, params, h, pos, remat_policy=remat_policy)
+    h, _, aux = forward(cfg, params, h, pos, remat_policy=remat_policy,
+                        moe_args=moe_args)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_from_h(cfg, params, h, pol).float()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
@@ -285,38 +328,38 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
         loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
     else:
         loss = torch.mean(nll)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
                 dtype=torch.bfloat16, *, device) -> list:
     """Zeroed decode caches on ``device`` (required), stacked over the
-    layers: a list with one ``KVCache`` of (n_layers, batch, kv_heads,
-    cache_len, head_dim), ring-sized when the window fits in ``seq_len``,
-    or for the SSM family one ``SSMCache`` of (n_layers, batch, ...),
-    whatever ``seq_len``."""
-    _check_family(cfg)
+    layers: a list with one ``KVCache`` per period position of
+    (n_layers // period, batch, kv_heads, cache_len, head_dim),
+    ring-sized when the window fits in ``seq_len``, or for the SSM family
+    one ``SSMCache`` of (n_layers, batch, ...), whatever ``seq_len``."""
+    period = period_of(cfg)
     if cfg.family == "ssm":
         one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device)
     else:
         one = attn_lib.init_kv_cache(cfg, batch, seq_len, dtype,
                                      device=device)
-    return [type(one)(*(x[None].expand(cfg.n_layers, *x.shape).contiguous()
-                        for x in one))]
+    n = cfg.n_layers // period
+    return [type(one)(*(x[None].expand(n, *x.shape).contiguous()
+                        for x in one)) for _ in range(period)]
 
 
 def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
-            precision=None, collect_cache_len=None):
+            precision=None, moe_args=None, collect_cache_len=None):
     """Forward over ``batch['tokens']`` (b, s) emitting the last position's
     logits (b, 1, vocab); with ``collect_cache_len`` also builds the decode
     caches (serving prefill) and returns (logits, caches). ``precision``
     (a policy or its name) wins over the legacy ``dtype``, whose default
-    is bf16, as in the reference."""
+    is bf16, as in the reference; ``moe_args`` go to every MoE FFN."""
     pol = prec_lib.resolve(precision, dtype)
     h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
-    h, caches = forward(cfg, params, h, pos,
-                        collect_cache_len=collect_cache_len)
+    h, caches, _ = forward(cfg, params, h, pos, moe_args=moe_args,
+                           collect_cache_len=collect_cache_len)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_from_h(cfg, params, h[:, -1:, :], pol)
     if collect_cache_len is not None:
@@ -325,14 +368,18 @@ def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
 
 
 def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
-                dtype=torch.bfloat16, precision=None):
+                dtype=torch.bfloat16, precision=None, moe_args=None):
     """One decode step. token: (b, 1) integer tensor; pos: an int (every
     row at one position, the lockstep engine) or a (b,) integer tensor of
     per-slot positions (the continuous engine; the SSM family ignores it).
     Writes each layer's new k/v, or SSD state and conv window, into
-    ``caches`` in place; returns (logits (b, 1, vocab), caches)."""
+    ``caches`` in place; returns (logits (b, 1, vocab), caches).
+    ``moe_args`` go to every MoE FFN: under capacity dispatch the b rows
+    are one group, so a row's tokens depend on its batch-mates (the
+    reference's behaviour)."""
     pol = prec_lib.resolve(precision, dtype)
     h = params["embed"][token.long()].to(pol.compute_dtype)
-    h, caches = forward(cfg, params, h, pos, caches=caches, decode=True)
+    h, caches, _ = forward(cfg, params, h, pos, caches=caches, decode=True,
+                           moe_args=moe_args)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return logits_from_h(cfg, params, h, pol), caches

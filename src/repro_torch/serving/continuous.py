@@ -84,8 +84,11 @@ class ContinuousEngine:
     into free slots (prefill, insert), advances every active slot one
     token with one decode step, and retires the slots whose request hit
     EOS or its budget, returning them as ``FinishedRequest``s. ``run()``
-    is the drain loop. The engine runs on the device of ``params``;
-    ``moe_args`` is accepted and unused (dense and SSM models)."""
+    is the drain loop. The engine runs on the device of ``params``.
+    ``moe_args`` (stored as ``moe_args or {}``) go to every prefill and
+    decode step; an idle slot feeds token 0 at position 0, as in the
+    reference, and under capacity dispatch takes bucket places like a live
+    row."""
 
     def __init__(self, cfg: ArchConfig, params, *, cache_len: int,
                  num_slots: int, dtype=None, precision=None,
@@ -106,6 +109,7 @@ class ContinuousEngine:
         self.cache_len = int(cache_len)
         self.num_slots = int(num_slots)
         self.precision = prec_lib.resolve(precision, dtype or torch.float32)
+        self.moe_args = moe_args or {}
         self.eos_id = int(eos_id)
         self.temperature = float(temperature)
         self.seed = int(seed)
@@ -137,6 +141,7 @@ class ContinuousEngine:
         tokens = torch.from_numpy(prompt[None, :]).to(self.device)
         logits, row = tf.prefill(self.cfg, self.params, {"tokens": tokens},
                                  precision=self.precision,
+                                 moe_args=self.moe_args,
                                  collect_cache_len=self.cache_len)
         return logits[:, 0], row
 
@@ -234,7 +239,7 @@ class ContinuousEngine:
         logits, self._caches = tf.decode_step(
             self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
             torch.from_numpy(pos).to(self.device), self._caches,
-            precision=self.precision)
+            precision=self.precision, moe_args=self.moe_args)
         logits = logits[:, 0].float().cpu().numpy()
         for i in active:
             s = self._slots[i]

@@ -10,8 +10,12 @@ one attention backend: ``attn`` selects the full-sequence backend for
 prefill (``models.attention`` registry; ``pallas`` is the flash kernel)
 and the decode backend (``resolve_decode_backend``; ``pallas`` is the
 split-K decode kernel); it has no effect on an attention-free model,
-whose prefill runs the SSD scan kernel. The engine runs on the device of
-the parameters it is given.
+whose prefill runs the SSD scan kernel. ``moe_args`` (stored as
+``moe_args or {}``, as the reference stores them) go to every prefill and
+decode step of a MoE model; under capacity dispatch the rows of a step
+share the experts' buckets, so a row's tokens depend on its batch-mates,
+as in the reference. The engine runs on the device of the parameters it
+is given.
 
 Sampling (``sample_tokens``, shared with the continuous engine): greedy is
 an fp32 host-side ``np.argmax``, the tie-break both engines share;
@@ -73,10 +77,7 @@ def check_decoder(cfg: ArchConfig) -> None:
 class Engine:
     """Lockstep fixed-batch decode engine: one prefill, then every row
     advances together until the slowest finishes. The continuous engine's
-    parity oracle.
-
-    ``moe_args`` is accepted and unused: the port serves dense and SSM
-    models."""
+    parity oracle."""
 
     def __init__(self, cfg: ArchConfig, params, *, cache_len: int,
                  dtype=None, precision=None, attn: Optional[str] = None,
@@ -89,6 +90,7 @@ class Engine:
         # an explicit policy wins, a legacy bare dtype maps onto one,
         # default f32 (the engine's historical dtype)
         self.precision = prec_lib.resolve(precision, dtype or torch.float32)
+        self.moe_args = moe_args or {}
         self.eos_id = int(eos_id)
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int, *,
@@ -109,7 +111,8 @@ class Engine:
             logits, caches = tf.prefill(
                 self.cfg, self.params,
                 {"tokens": torch.from_numpy(prompts).to(self.device)},
-                precision=self.precision, collect_cache_len=self.cache_len)
+                precision=self.precision, moe_args=self.moe_args,
+                collect_cache_len=self.cache_len)
             tok = sample_tokens(logits[:, 0], temperature, rng)
             for i in range(max_new_tokens):
                 out[:, i] = np.where(done, 0, tok)
@@ -119,6 +122,7 @@ class Engine:
                 logits, caches = tf.decode_step(
                     self.cfg, self.params,
                     torch.from_numpy(tok[:, None]).to(self.device),
-                    plen + i, caches, precision=self.precision)
+                    plen + i, caches, precision=self.precision,
+                    moe_args=self.moe_args)
                 tok = sample_tokens(logits[:, 0], temperature, rng)
         return out

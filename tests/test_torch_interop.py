@@ -162,8 +162,8 @@ LM_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
 
 
 def test_configs_copy_the_reference():
-    lms = ["internlm2-20b", "llama3.2-1b", "mamba2-130m", "minitron-4b",
-           "qwen3-32b"]
+    lms = ["arctic-480b", "internlm2-20b", "llama3.2-1b", "mamba2-130m",
+           "minitron-4b", "mixtral-8x22b", "qwen3-32b"]
     assert list_archs() == sorted(["basic-l", "basic-m", "basic-s"] + lms)
     for arch in lms:
         j, t = jax_get_arch(arch), get_arch(arch)
@@ -179,6 +179,11 @@ def test_configs_copy_the_reference():
             if cj.ssm is not None:
                 assert dataclasses.asdict(ct.ssm) == dataclasses.asdict(
                     cj.ssm), arch
+            assert (ct.moe is None) == (cj.moe is None), arch
+            if cj.moe is not None:
+                assert dataclasses.asdict(ct.moe) == dataclasses.asdict(
+                    cj.moe), arch
+                assert ct.moe_layer_mask() == cj.moe_layer_mask(), arch
     from repro.configs.llama3_2_1b import FULL_ATTENTION_VARIANT as jfull
     from repro_torch.configs.llama3_2_1b import FULL_ATTENTION_VARIANT
     assert FULL_ATTENTION_VARIANT.sliding_window is None

@@ -262,6 +262,6 @@ def test_resolve_decode_backend():
 
 def test_other_families_name_their_slice():
     cfg = dataclasses.replace(smoke_variant(get_arch("llama3.2-1b")),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
+                              family="hybrid")
+    with pytest.raises(NotImplementedError, match="hybrid slice"):
         ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
