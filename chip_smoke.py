@@ -176,7 +176,34 @@ repository beside this file; it exits non-zero without them. In order it:
     4 flash_fwd launches per prefill and 4 decode_attention launches per
     step; then profiles 4 warm decode steps (by kernel group, by aten op:
     expert GEMMs, casts, dispatch and combine; busy share);
-27. prints a ``{"kernels": [...]}`` line and, last, the
+28. holds the three kernels of the hybrid serving path against their
+    plain versions at Jamba-1.5-Large's shapes (f32 and bf16): the flash
+    forward at 64 query heads over 8 kv heads, d 128, causal, over 256
+    and 512 tokens; the decode kernel over 8 slots of a linear cache of
+    1024, ragged lengths and the serving state (~270 valid), the GQA
+    group of 8 in the kernel's 8-head CTA group; the SSD scan at 256 heads
+    of 64, state 128 (b 1 × l 244 with an initial state and 256, b 8 × l
+    512 without and with one); times kernel, plain version and SDPA with
+    ``enable_gqa`` (none for the scan), printing each launch plan;
+29. hybrid parity: Jamba-1.5-Large at full width, one period (8 layers:
+    7 Mamba-2, 1 attention, MoE on the odd ones), experts 0-3 of each MoE
+    layer's 16 (this card's share when four cards divide each MoE layer),
+    f32, capacity dispatch: prefill of 8 × 512 tokens and 8 decode steps
+    on the kernel path and the plain path (chunked attention, the scan's
+    plain version, einsum decode): logits within 1e-3 (phase 25's
+    near-tie rule), the SSM, conv and KV caches within 1e-3 of each
+    leaf's max; then the continuous engine against the lockstep engine
+    under dense dispatch;
+30. timed hybrid serving on the same weights (built once, 64.6 GB fp32):
+    bf16, the kernels, capacity dispatch over the share, through the
+    launcher's ``run_continuous`` (8 slots, 16 requests of 244-256 prompt
+    tokens, 64 new, cache 1024) and ``run_legacy`` (one request): tokens
+    per second, step median and p90, prefill ms, peak memory, 1 flash_fwd
+    and 7 ssd_scan launches per prefill and 1 decode_attention launch per
+    step; then profiles 4 warm decode steps (by kernel group, by aten op,
+    and the device time of the MoE FFNs' and the Mamba-2 decode's
+    kernels; busy share);
+27. last, after phase 30, prints a ``{"kernels": [...]}`` line and the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -377,13 +404,33 @@ def retaken_window(fn, complete, cpu: bool = True, tries: int = 3):
     return prof, out
 
 
+def on_device(e) -> bool:
+    """Whether a profiler event lies on the device's timeline."""
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
 def device_events(prof):
     """The device-side events of a ``profile_window``: its kernels and
-    copies, without the step annotation (``ProfilerStep#n``) that spans the
-    whole measured step on the device's timeline."""
+    copies, without the step annotation (``ProfilerStep#n``) and the
+    ``spans`` labels, which cover ranges of the device's timeline."""
     return [e for e in prof.events()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and not e.name.startswith("ProfilerStep")]
+            if on_device(e) and not e.name.startswith("ProfilerStep")
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def span_device_ms(prof, labels, units):
+    """(label -> device milliseconds per unit of the kernels inside the
+    label's ``spans`` ranges on the device's timeline, or None where the
+    profiler recorded no such range)."""
+    kernels = [e.time_range for e in device_events(prof)]
+    out = {}
+    for label in labels:
+        ranges = [e.time_range for e in prof.events()
+                  if on_device(e) and e.name == label]
+        out[label] = (sum(k.elapsed_us() for k in kernels if any(
+            r.start <= k.start and k.end <= r.end for r in ranges))
+            / 1e3 / units if ranges else None)
+    return out
 
 
 def device_ms(fn, names=None, iters: int = 20):
@@ -2246,13 +2293,14 @@ def parity_case(label, cfg, params, toks, plen, clen, steps):
     return worst, flips
 
 
-def engines_case(kcfg, params, lens, plain_logits):
+def engines_case(kcfg, params, lens, plain_logits, moe_args=None):
     """The continuous engine (4 slots, 8 ragged requests of ``lens``
     tokens, greedy) against the lockstep engine run alone per request,
-    both on the kernel path (``kcfg``), f32. Where they diverge, the plain
-    path's top-2 gap at that token (``plain_logits(tokens)`` -> (1, vocab))
-    must be under the parity tolerance. Each engine must launch the decode
-    kernel once per layer per decode step (none for an attention-free
+    both on the kernel path (``kcfg``), f32, with ``moe_args``. Where they
+    diverge, the plain path's top-2 gap at that token
+    (``plain_logits(tokens)`` -> (1, vocab)) must be under the parity
+    tolerance. Each engine must launch the decode kernel once per
+    attention layer per decode step (none for an attention-free
     model)."""
     import numpy as np
     import torch
@@ -2263,11 +2311,12 @@ def engines_case(kcfg, params, lens, plain_logits):
     prompts = [rng.integers(4, kcfg.vocab, (n,)).astype(np.int32)
                for n in lens]
     reqs = [(p, m, i) for i, (p, m) in enumerate(zip(prompts, budgets))]
-    ce = ContinuousEngine(kcfg, params, cache_len=1024, num_slots=4)
+    ce = ContinuousEngine(kcfg, params, cache_len=1024, num_slots=4,
+                          moe_args=moe_args)
     dec_ops.COUNTER.reset()
     got = ce.run(reqs)
     per_step = {"continuous": dec_ops.COUNTER.count / len(ce.step_log)}
-    eng = Engine(kcfg, params, cache_len=1024)
+    eng = Engine(kcfg, params, cache_len=1024, moe_args=moe_args)
     same, divergences = 0, []
     launches = steps = 0
     for p, m, i in reqs:
@@ -2297,7 +2346,7 @@ def engines_case(kcfg, params, lens, plain_logits):
           f"{same} of {len(reqs)} requests equal Engine.generate alone; "
           f"decode_attention launches per decode step {per_step}",
           flush=True)
-    want = 0 if kcfg.attention_free else kcfg.n_layers
+    want = kcfg.layer_kinds().count("attn")
     for engine, n in per_step.items():
         if n != want:
             raise AssertionError(f"engines: the {engine} engine launched "
@@ -2409,13 +2458,38 @@ def phase_decode_serve():
     return launches, per, rep
 
 
+@contextlib.contextmanager
+def spans(targets):
+    """Within the block, each function of ``targets`` (label -> (module,
+    function name)) runs inside ``torch.profiler.record_function(label)``,
+    so that a profile can sum the device time of the kernels it
+    launched."""
+    import torch
+    saved = []
+    for label, (mod, name) in targets.items():
+        real = getattr(mod, name)
+
+        def wrapped(*args, _real=real, _label=label, **kwargs):
+            with torch.profiler.record_function(_label):
+                return _real(*args, **kwargs)
+        saved.append((mod, name, real))
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
 def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
-                         counters=None, groups=KERNEL_GROUPS, ops=()):
+                         counters=None, groups=KERNEL_GROUPS, ops=(),
+                         labelled=None):
     """A torch.profiler window over ``steps`` warm decode steps of the
     timed run's engine with all its slots busy (prompts of ``prompt_len``
-    tokens): device busy share, time by kernel group (``groups``) and by
-    the aten ops in ``ops``, device kernels per call of each wrapper in
-    ``counters`` (default: decode_attention)."""
+    tokens): device busy share, time by kernel group (``groups``), by the
+    aten ops in ``ops`` and by the functions in ``labelled`` (``spans``:
+    the device time of the kernels each launched), device kernels per call
+    of each wrapper in ``counters`` (default: decode_attention)."""
     import numpy as np
     import torch
     if counters is None:
@@ -2428,7 +2502,7 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
     eng.step()                        # admits every slot, then one step
     eng.step()
     calls = {ctr.name: -ctr.count for ctr in counters}
-    with profile_window() as prof:
+    with spans(labelled or {}), profile_window() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -2436,6 +2510,13 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
         wall_us = (time.perf_counter() - t0) * 1e6
     for ctr in counters:
         calls[ctr.name] += ctr.count
+    if labelled:
+        by_label = span_device_ms(prof, labelled, steps)
+        print("profile by function (device time of the kernels each "
+              "launched): " + "; ".join(
+                  f"{label} not measured" if ms is None
+                  else f"{label} {ms:.3f} ms/step"
+                  for label, ms in by_label.items()), flush=True)
     # where the host's time goes: its launch count and its costliest ops
     host = sorted((e for e in prof.key_averages()
                    if e.self_cpu_time_total > 0
@@ -2503,13 +2584,14 @@ def ssd_least_flops(b, l, h, p, n):
 
 
 def ssd_case(label, b, l, dtype, seed, init=False, extreme=False,
-             timed=True):
-    """Kernel vs plain version at one shape: y and the final state within
+             timed=True, h=24, p=64, n=128):
+    """Kernel vs plain version at one shape (``h`` heads of ``p``, state
+    ``n``; Mamba-2-130M's by default): y and the final state within
     ``SSD_TOL_REL`` of their max |value|, all finite; times both. Returns
     the case's record."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    h, p, n, chunk = 24, 64, 128, 256
+    chunk = 256
     args = ssd_inputs(b, l, dtype, seed, init, extreme, h, p, n)
     x, dt, A, Bm, Cm, D, s0 = args
     y, f = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0)
@@ -3192,23 +3274,79 @@ def routes_diverge(log):
     return n, near
 
 
+def routed_parity(label, cfg, params, toks, clen, steps, tol, counters,
+                  moe_args=None):
+    """Prefill ``toks`` (b, plen) into caches of ``clen``, then ``steps``
+    decode steps over the b slots fed the kernel path's greedy token, on
+    the kernel path (flash prefill, the scan kernel, decode kernel) and
+    the plain path (chunked prefill, the scan's plain version, einsum
+    decode), f32, with ``moe_args``. Logits agree within ``tol``; a row
+    outside it passes only where the two paths routed some token
+    differently and the plain path's router gap is under
+    ``MOE_NEAR_TIE`` at each such token (counted and printed). Returns
+    (max |logit diff|, the (step, row)s excused by a near-tie, pairs
+    routed differently, the launches of ``counters`` by path, the last
+    (logits, caches) by path)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    plen = toks.shape[1]
+    paths = {"kernel": dataclasses.replace(cfg, attn_impl="pallas"),
+             "plain": dataclasses.replace(cfg, attn_impl="chunked")}
+    launches = {name: dict.fromkeys((c.name for c in counters), 0)
+                for name in paths}
+    log = {"now": None, "kernel": [], "plain": []}
+    worst, near_tie_rows, state = 0.0, [], {}
+    with torch.no_grad(), recorded_routes(log):
+        for i in range(steps + 1):
+            for name, pcfg in paths.items():
+                log["now"] = name
+                before = {c.name: c.count for c in counters}
+                with (plain_path() if name == "plain"
+                      else contextlib.nullcontext()):
+                    if i == 0:
+                        state[name] = tf.prefill(
+                            pcfg, params, {"tokens": toks}, precision="f32",
+                            moe_args=moe_args, collect_cache_len=clen)
+                    else:
+                        state[name] = tf.decode_step(
+                            pcfg, params, tok[:, None], plen + i - 1,
+                            state[name][1], precision="f32",
+                            moe_args=moe_args)
+                for c in counters:
+                    launches[name][c.name] += c.count - before[c.name]
+            lk, lp = (state[name][0][:, 0] for name in paths)
+            diff = (lk - lp).abs().amax(-1)
+            worst = max(worst, diff.max().item())
+            out = torch.nonzero(diff > tol).flatten().tolist()
+            if out:
+                n_diff, near = routes_diverge(log)
+                print(f"{label}: step {i}: rows {out} differ by "
+                      f"{[round(diff[r].item(), 5) for r in out]}; pairs "
+                      f"routed differently so far {n_diff}, each at a "
+                      f"plain-path gap under {MOE_NEAR_TIE}: {near}",
+                      flush=True)
+                if not (n_diff and near):
+                    raise AssertionError(f"{label}: step {i} rows {out} "
+                                         f"differ with no router near-tie")
+                near_tie_rows += [(i, r) for r in out]
+            tok = lk.argmax(-1)
+    torch.cuda.synchronize()
+    n_diff, _ = routes_diverge(log)
+    return worst, near_tie_rows, n_diff, launches, state
+
+
 def phase_moe_parity(layers: int = 2, batch: int = 8, plen: int = 512,
                      steps: int = 8, clen: int = 8192):
     """Mixtral-8x22B at full width and ``layers`` layers, f32, capacity
     dispatch (``moe_ffn``'s defaults), random weights from a CUDA
     generator: prefill of ``batch`` × ``plen`` tokens, then ``steps``
-    decode steps over the ``batch`` slots fed the kernel path's greedy
-    token, on the kernel path (flash prefill, decode kernel) and the plain
-    path (chunked prefill, einsum decode). Logits agree within
-    ``MOE_PARITY_TOL``; a row outside it passes only where the two paths
-    routed some token differently and the plain path's router gap is under
-    ``MOE_NEAR_TIE`` at each such token (counted and printed)."""
+    decode steps over the ``batch`` slots, on the kernel path and the
+    plain path (``routed_parity``, within ``MOE_PARITY_TOL``)."""
     import torch
     from repro_torch import interop
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.models import transformer as tf
     cfg = dataclasses.replace(get_arch(MIXTRAL), n_layers=layers)
     t0 = time.perf_counter()
     params = interop.init_params(
@@ -3220,47 +3358,10 @@ def phase_moe_parity(layers: int = 2, batch: int = 8, plen: int = 512,
     g = torch.Generator(device="cuda").manual_seed(6)
     toks = torch.randint(4, cfg.vocab, (batch, plen), generator=g,
                          device="cuda")
-    paths = {"kernel": dataclasses.replace(cfg, attn_impl="pallas"),
-             "plain": dataclasses.replace(cfg, attn_impl="chunked")}
-    counters = (fa_ops.COUNTER, dec_ops.COUNTER)
-    launches = {name: dict.fromkeys((c.name for c in counters), 0)
-                for name in paths}
-    log = {"now": None, "kernel": [], "plain": []}
-    worst, near_tie_rows, state = 0.0, [], {}
     t0 = time.perf_counter()
-    with torch.no_grad(), recorded_routes(log):
-        for i in range(steps + 1):
-            for name, pcfg in paths.items():
-                log["now"] = name
-                before = {c.name: c.count for c in counters}
-                if i == 0:
-                    state[name] = tf.prefill(pcfg, params, {"tokens": toks},
-                                             precision="f32",
-                                             collect_cache_len=clen)
-                else:
-                    state[name] = tf.decode_step(
-                        pcfg, params, tok[:, None], plen + i - 1,
-                        state[name][1], precision="f32")
-                for c in counters:
-                    launches[name][c.name] += c.count - before[c.name]
-            lk, lp = (state[name][0][:, 0] for name in paths)
-            diff = (lk - lp).abs().amax(-1)
-            worst = max(worst, diff.max().item())
-            out = torch.nonzero(diff > MOE_PARITY_TOL).flatten().tolist()
-            if out:
-                n_diff, near = routes_diverge(log)
-                print(f"moe parity: step {i}: rows {out} differ by "
-                      f"{[round(diff[r].item(), 5) for r in out]}; pairs "
-                      f"routed differently so far {n_diff}, each at a "
-                      f"plain-path gap under {MOE_NEAR_TIE}: {near}",
-                      flush=True)
-                if not (n_diff and near):
-                    raise AssertionError(f"moe parity: step {i} rows {out} "
-                                         f"differ with no router near-tie")
-                near_tie_rows += [(i, r) for r in out]
-            tok = lk.argmax(-1)
-    torch.cuda.synchronize()
-    n_diff, _ = routes_diverge(log)
+    worst, near_tie_rows, n_diff, launches, _ = routed_parity(
+        "moe parity", cfg, params, toks, clen, steps, MOE_PARITY_TOL,
+        (fa_ops.COUNTER, dec_ops.COUNTER))
     want = {"kernel": {"flash_fwd": layers,
                        "decode_attention": layers * steps},
             "plain": {"flash_fwd": 0, "decode_attention": 0}}
@@ -3275,6 +3376,19 @@ def phase_moe_parity(layers: int = 2, batch: int = 8, plen: int = 512,
         raise AssertionError(f"moe parity: launches {launches}, want {want}")
     return {"max_logit_diff": worst, "near_tie_rows": near_tie_rows,
             "routed_differently": n_diff, "launches": launches["kernel"]}
+
+
+def with_flags(argv, **changes):
+    """A copy of the launcher's ``argv`` with each flag of ``changes``
+    (``max_new=4`` is ``--max-new 4``) set, or appended."""
+    out = list(argv)
+    for flag, value in changes.items():
+        flag = "--" + flag.replace("_", "-")
+        if flag in out:
+            out[out.index(flag) + 1] = str(value)
+        else:
+            out += [flag, str(value)]
+    return out
 
 
 def phase_moe_serve():
@@ -3297,14 +3411,7 @@ def phase_moe_serve():
     from repro_torch.launch import serve
 
     def argv(**changes):
-        out = list(MOE_SERVE_ARGV)
-        for flag, value in changes.items():
-            flag = "--" + flag.replace("_", "-")
-            if flag in out:
-                out[out.index(flag) + 1] = str(value)
-            else:
-                out += [flag, str(value)]
-        return serve.parse_args(out)
+        return serve.parse_args(with_flags(MOE_SERVE_ARGV, **changes))
 
     args = argv()
     moe_args = serve.moe_args_for(args)        # None: capacity dispatch
@@ -3375,6 +3482,290 @@ def phase_moe_serve():
     eng = rep.pop("engine")
     per_call, busy = phase_decode_profile(
         eng, counters=(dec_ops.COUNTER,), groups=MOE_GROUPS, ops=MOE_OPS)
+    return {"launches": launches, "per": per, "rep": rep,
+            "lockstep": {"launches": lock_launches, "tokens": emitted,
+                         "tokens_per_s": lock["tokens_per_s"]},
+            "max_memory_allocated": peak, "per_call": per_call,
+            "busy": busy}
+
+
+# ---------------------------------------------------------------------------
+# phases 28-30: Jamba-1.5-Large, the hybrid family at full width
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+# one period of Jamba's 72 layers (7 Mamba-2, 1 attention; MoE on the odd
+# ones), and the experts this card holds: 0-3 of each MoE layer's 16, its
+# share when four cards divide each MoE layer (expert parallel)
+JAMBA_LAYERS = 8
+JAMBA_SHARE = (0, 4)
+# Jamba's attention: 64 query heads over 8 kv heads (a GQA group of 8, the
+# decode kernel's whole 8-head CTA group), d 128, causal, no window; its
+# Mamba-2 layers: 256 heads of 64, state 128
+JAMBA_ATTN = dict(h=64, kv=8, d=128)
+JAMBA_SSD = dict(h=256, p=64, n=128)
+# hybrid parity, kernel path vs plain path in f32 at full width: logits of
+# ~unit scale through 8 layers whose attention and scans sum in another
+# order move by ~1e-5; 1e-3 still catches a wrong mask, position, state,
+# chunk, expert or drop (those move logits by ~1e-1). Caches: 1e-3 of
+# each leaf's max |value| (the SSM parity's rule)
+HYBRID_PARITY_TOL = 1e-3
+# the timed hybrid serving run: 8 slots, 16 requests of 244-256 prompt
+# tokens (--prompt-len 248 + {-4, 0, 4, 8}: one SSD chunk at most, the
+# chunk rule), 64 new, a cache of 1024, bf16, the kernels, capacity
+# dispatch (the launcher's default without --smoke) over the share
+HYBRID_SERVE_ARGV = ["--arch", JAMBA, "--engine", "continuous", "--slots",
+                     "8", "--requests", "16", "--arrival", "0",
+                     "--prompt-len", "248", "--max-new", "64", "--cache-len",
+                     "1024", "--attn", "pallas", "--precision", "bf16",
+                     "--temperature", "0", "--seed", "0"]
+# device kernels by group on the hybrid path, first match wins
+HYBRID_GROUPS = (KERNEL_GROUPS[0], KERNEL_GROUPS[3], KERNEL_GROUPS[4],
+                 *MOE_GROUPS[2:])
+
+
+def jamba_model():
+    """(cfg, params): Jamba at full width, one period, this card's expert
+    share, fp32 weights from a CUDA generator (built once for phases 29
+    and 30)."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(JAMBA), n_layers=JAMBA_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = interop.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        experts=JAMBA_SHARE)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    print(f"hybrid: {JAMBA} at full width, {JAMBA_LAYERS} of 72 layers "
+          f"(kinds {cfg.layer_kinds()}, MoE {cfg.moe_layer_mask()}), "
+          f"experts {JAMBA_SHARE[0]}..{sum(JAMBA_SHARE) - 1} of 16, {n} "
+          f"params ({4 * n / 1e9:.2f} GB f32), init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    return cfg, params
+
+
+def phase_hybrid_kernels():
+    """The three kernels of the hybrid serving path at Jamba's shapes, f32
+    and bf16: ``flash_fwd`` (b 1, 64 heads over 8 kv, d 128, causal) over
+    256 and 512 tokens; ``decode_attention`` (8 slots, the same heads, a
+    GQA group of 8) over the serving path's linear cache of 1024 with
+    ragged lengths (0 exactly zero) and at the serving state; ``ssd_scan``
+    (256 heads of 64, state 128) at b 1 × l 244 (with an initial state)
+    and 256, and b 8 × l 512 (two chunks) without and with an initial
+    state. Returns the records: flash by (s, dtype), decode by dtype, the
+    scan by (label, dtype)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    a = JAMBA_ATTN
+    flash, decode, scan = {}, {}, {}
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        dt = dtype_name(dtype)
+        for s in (256, 512):
+            flash[(s, dt)] = flash_case("jamba", 1, a["h"], s, a["d"], dtype,
+                                        False, 80 + i, kv=a["kv"],
+                                        causal=True)
+        b, t = 8, 1024
+        q, k, v = decode_inputs(b, a["h"], a["kv"], t, a["d"], dtype, 82 + i)
+        group = dec_ops.launch_plan(q, k).group
+        if group != 8:
+            raise AssertionError(f"decode_attention: a GQA group of 8 ran "
+                                 f"in a CTA group of {group}")
+        lens = torch.tensor([0, 1, 255, 256, 257, t, 301, t - 5],
+                            device="cuda")
+        out, err = decode_check(
+            f"jamba linear t={t} ragged {dt}", q, k, v,
+            torch.arange(t, device="cuda")[None, :] < lens[:, None])
+        if not bool((out[0] == 0).all()):
+            raise AssertionError("decode_attention: a length-0 row is not "
+                                 "exactly zero")
+        # the serving state: 244-256 prompt tokens and up to 64 generated
+        decode[dt] = decode_timed(
+            "jamba linear serving", q, k, v,
+            torch.tensor([248 + 7 * j for j in range(b)], device="cuda"),
+            err)
+        for label, b, l, init in (("jamba l=244", 1, 244, True),
+                                  ("jamba l=256", 1, 256, False),
+                                  ("jamba b=8 l=512", 8, 512, False),
+                                  ("jamba b=8 l=512 init", 8, 512, True)):
+            scan[(label, dt)] = ssd_case(label, b, l, dtype, 84 + i, init,
+                                         **JAMBA_SSD)
+    return flash, decode, scan
+
+
+def phase_hybrid_parity(cfg, params, batch: int = 8, plen: int = 512,
+                        steps: int = 8, clen: int = 1024):
+    """Jamba at full width and one period, f32, this card's expert share,
+    capacity dispatch (``moe_ffn``'s defaults): prefill of ``batch`` ×
+    ``plen`` tokens (two SSD chunks), then ``steps`` decode steps over the
+    ``batch`` slots, on the kernel path and the plain path
+    (``routed_parity``, within ``HYBRID_PARITY_TOL``). The SSM, conv and
+    KV caches agree within ``HYBRID_PARITY_TOL`` of each leaf's max
+    |value| over the rows that stayed within the logit tolerance. Then
+    the continuous engine against the lockstep engine, request by
+    request, under dense dispatch (so that a row does not depend on its
+    batch-mates' bucket places)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import transformer as tf
+    margs = {"experts": JAMBA_SHARE}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(4, cfg.vocab, (batch, plen), generator=g,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    worst, near_tie_rows, n_diff, launches, state = routed_parity(
+        "hybrid parity", cfg, params, toks, clen, steps, HYBRID_PARITY_TOL,
+        (fa_ops.COUNTER, dec_ops.COUNTER, ssd_ops.COUNTER), margs)
+    rows = sorted(set(range(batch)) - {r for _, r in near_tie_rows})
+    cache_err = {}
+    for r, (ck, cp) in enumerate(zip(state["kernel"][1], state["plain"][1])):
+        for leaf, a, b in zip(ck._fields, ck, cp):
+            a, b = a[:, rows].float(), b[:, rows].float()
+            err = (a - b).abs().max().item()
+            lim = HYBRID_PARITY_TOL * b.abs().max().item()
+            key = f"{type(ck).__name__}.{leaf}"
+            cache_err[key] = max(cache_err.get(key, 0.0), err)
+            if not err <= lim:
+                raise AssertionError(f"hybrid parity: position {r} {key} "
+                                     f"max err {err:.3g} > {lim:.3g}")
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = cfg.layer_kinds().count("attn")
+    want = {"kernel": {"flash_fwd": n_attn,
+                       "decode_attention": n_attn * steps,
+                       "ssd_scan": cfg.n_layers - n_attn},
+            "plain": {"flash_fwd": 0, "decode_attention": 0, "ssd_scan": 0}}
+    print(f"hybrid parity ({JAMBA} f32, {cfg.n_layers} layers, experts "
+          f"{JAMBA_SHARE}, capacity dispatch, {batch} x {plen} prefill + "
+          f"{steps} steps over {batch} slots): max |logit diff| kernel vs "
+          f"plain {worst:.3g} (tol {HYBRID_PARITY_TOL}); rows outside it at "
+          f"a router near-tie: {len(near_tie_rows)} of "
+          f"{batch * (steps + 1)}; pairs routed differently {n_diff}; "
+          f"caches max err {cache_err} over {len(rows)} rows (tol "
+          f"{HYBRID_PARITY_TOL} of max |value|); launches {launches}; peak "
+          f"{peak / 2**30:.3f} GiB; {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"hybrid parity: launches {launches}, want "
+                             f"{want}")
+    del state
+    torch.cuda.empty_cache()
+    dense = dict(margs, dispatch="dense")
+    pcfg = dataclasses.replace(cfg, attn_impl="chunked")
+
+    def plain_logits(seq):
+        with plain_path():
+            return tf.prefill(pcfg, params, {"tokens": seq},
+                              precision="f32", moe_args=dense)[:, 0]
+
+    with torch.no_grad():
+        engines = engines_case(dataclasses.replace(cfg, attn_impl="pallas"),
+                               params, [100, 37, 250, 64, 180, 12, 256, 90],
+                               plain_logits, dense)
+    return {"max_logit_diff": worst, "near_tie_rows": near_tie_rows,
+            "routed_differently": n_diff, "cache_err": cache_err,
+            "launches": launches["kernel"], "engines": engines,
+            "max_memory_allocated": peak}
+
+
+def phase_hybrid_serve(cfg, params):
+    """Jamba at full width, one period, this card's expert share, bf16,
+    the kernels, capacity dispatch, through the launcher's
+    ``run_continuous`` (after one untimed warm-up request) and
+    ``run_legacy`` (one lockstep request) on the weights of
+    ``jamba_model``: tokens per second, decode-step median and p90,
+    prefill ms, peak memory; flash_fwd and ssd_scan launches per prefill
+    (one per attention and per Mamba layer: 1 and 7) and decode_attention
+    launches per step (1), every token in
+    the vocabulary; then profiles 4 warm decode steps (device time by
+    group, by op and by function: the MoE FFN, the Mamba-2 decode; busy
+    share)."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import ssm as ssm_lib
+
+    def argv(**changes):
+        return serve.parse_args(with_flags(HYBRID_SERVE_ARGV, **changes))
+
+    args = argv()
+    # capacity dispatch (the launcher's default without --smoke) over the
+    # experts this card holds
+    moe_args = {**(serve.moe_args_for(args) or {}), "experts": JAMBA_SHARE}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve.run_continuous(cfg, params, argv(requests=1, max_new=4), moe_args)
+    counters = (fa_ops.COUNTER, ssd_ops.COUNTER, dec_ops.COUNTER)
+    for ctr in counters:
+        ctr.reset()
+    rep = serve.run_continuous(cfg, params, args, moe_args)
+    launches = {ctr.name: ctr.count for ctr in counters}
+    per = {"flash_fwd_per_prefill": launches["flash_fwd"] / rep["prefills"],
+           "ssd_scan_per_prefill": launches["ssd_scan"] / rep["prefills"],
+           "decode_attention_per_step": (launches["decode_attention"]
+                                         / rep["decode_steps"])}
+    print(f"hybrid serve (continuous, bf16, experts {JAMBA_SHARE}, 8 slots, "
+          f"16 requests x 244-256 prompt tokens x 64 new, cache 1024): "
+          f"decode {rep['decode_tokens_per_s']:.1f} tok/s over the warm "
+          f"steps, {rep['tokens_per_s']:.1f} tok/s over the run (prefill "
+          f"included); step median {rep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{rep['step_p90_s'] * 1e3:.3f} ms over {rep['decode_steps']} "
+          f"steps; prefill {rep['prefill_mean_s'] * 1e3:.3f} ms per "
+          f"request; launches {launches}: {per}", flush=True)
+    n_attn = cfg.layer_kinds().count("attn")         # 1 and 7 a period
+    n_mamba = cfg.n_layers - n_attn
+    want = {"flash_fwd_per_prefill": n_attn, "ssd_scan_per_prefill": n_mamba,
+            "decode_attention_per_step": n_attn}
+    if per != want:
+        raise AssertionError(f"hybrid serve: launches {per}, want {want}")
+    for rid, r in rep["results"].items():
+        in_vocab = bool(np.all((r >= 0) & (r < cfg.vocab)))
+        if not (in_vocab and (r.size == args.max_new or r[-1] == 3)):
+            raise AssertionError(f"hybrid serve: bad tokens for request "
+                                 f"{rid}: {r}")
+    if rep["requests"] != args.requests or not math.isfinite(
+            rep["decode_tokens_per_s"]):
+        raise AssertionError(f"hybrid serve: {rep['requests']} of "
+                             f"{args.requests} requests finished")
+
+    for ctr in counters:
+        ctr.reset()
+    lock = serve.run_legacy(cfg, params, argv(engine="legacy", batch=1),
+                            moe_args)
+    row = lock["tokens"][0]
+    stop = np.nonzero(row == 3)[0]
+    emitted = int(stop[0]) + 1 if stop.size else row.size
+    lock_launches = {ctr.name: ctr.count for ctr in counters}
+    want = {"flash_fwd": n_attn, "ssd_scan": n_mamba,
+            "decode_attention": n_attn * (emitted - 1)}
+    print(f"hybrid serve (lockstep, 1 request x 248 prompt tokens): "
+          f"{emitted} tokens, {lock['tokens_per_s']:.1f} tok/s (prefill "
+          f"included); launches {lock_launches}", flush=True)
+    if lock_launches != want or not bool(np.all((row >= 0)
+                                                & (row < cfg.vocab))):
+        raise AssertionError(f"hybrid serve lockstep: launches "
+                             f"{lock_launches} (want {want}), tokens {row}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"hybrid serve: max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"(weights, caches and the warm-up, continuous and lockstep "
+          f"runs)", flush=True)
+    eng = rep.pop("engine")
+    per_call, busy = phase_decode_profile(
+        eng, prompt_len=248, counters=(dec_ops.COUNTER,),
+        groups=HYBRID_GROUPS, ops=MOE_OPS,
+        labelled={"MoE FFN (4 layers)": (moe_lib, "moe_ffn"),
+                  "Mamba-2 decode (7 layers)": (ssm_lib, "mamba_decode")})
     return {"launches": launches, "per": per, "rep": rep,
             "lockstep": {"launches": lock_launches, "tokens": emitted,
                          "tokens_per_s": lock["tokens_per_s"]},
@@ -3464,6 +3855,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_moe_serve()
     torch.cuda.empty_cache()
+    jamba_flash, jamba_decode, jamba_scan = phase_hybrid_kernels()
+    torch.cuda.empty_cache()
+    print(f"hybrid: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held "
+          f"before the model is built", flush=True)
+    jamba_cfg, jamba_params = jamba_model()
+    hybrid_parity = phase_hybrid_parity(jamba_cfg, jamba_params)
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid_serve(jamba_cfg, jamba_params)
+    del jamba_params
+    torch.cuda.empty_cache()
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(r["max_abs_err"] for (_, dt), r in flash.items()
@@ -3501,6 +3902,20 @@ def main() -> int:
                     name],
                 "mixtral_f32_parity_launches": moe_parity["launches"][name],
                 "mixtral_device_kernels_per_call": moe["per_call"].get(name)}
+
+    def jamba_of(name, recs, per):
+        """The kernel at Jamba's shapes and its launches on the hybrid
+        paths."""
+        return {"jamba": [{k: r[k] for k in (
+                    "shape", "plan", *timing, "device_ms")
+                    if k in r} for r in recs],
+                "jamba_launches": hybrid["launches"][name],
+                f"jamba_launches_{per}": hybrid["per"][f"{name}_{per}"],
+                "jamba_lockstep_launches": hybrid["lockstep"]["launches"][
+                    name],
+                "jamba_f32_parity_launches": hybrid_parity["launches"][name],
+                "jamba_device_kernels_per_call": hybrid["per_call"].get(
+                    name)}
 
     def recipe_of(name):
         """The kernel's launches in each part of the recipe phase."""
@@ -3557,7 +3972,9 @@ def main() -> int:
          "prefill_bf16": prefill_flash["bfloat16"],
          "prefill_f32": prefill_flash["float32"],
          **lm_of("fwd", fa_ops.COUNTER.name),
-         **mixtral_of(fa_ops.COUNTER.name, moe_flash, "per_prefill")},
+         **mixtral_of(fa_ops.COUNTER.name, moe_flash, "per_prefill"),
+         **jamba_of(fa_ops.COUNTER.name, jamba_flash.values(),
+                    "per_prefill")},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -3615,7 +4032,9 @@ def main() -> int:
          "parity_max_logit_diff": max(parity["linear"][0],
                                       parity["ring"][0]),
          **mixtral_of(dec_ops.COUNTER.name, moe_decode, "per_step"),
-         "mixtral_parity_max_logit_diff": moe_parity["max_logit_diff"]},
+         "mixtral_parity_max_logit_diff": moe_parity["max_logit_diff"],
+         **jamba_of(dec_ops.COUNTER.name, jamba_decode.values(), "per_step"),
+         "jamba_parity_max_logit_diff": hybrid_parity["max_logit_diff"]},
         {"name": ssd_ops.COUNTER.name, "route": "cuda",
          "source": SSD_SOURCE, "replaces": SSD_REPLACES,
          "launches": ssm_launches[ssd_ops.COUNTER.name],
@@ -3633,7 +4052,12 @@ def main() -> int:
                    for r in ssd.values()],
          "launches_per_prefill": ssm_per_prefill,
          "device_kernels_per_call": ssm_per_call[ssd_ops.COUNTER.name],
-         "parity_max_logit_diff": ssm_parity["max_logit_diff"]},
+         "parity_max_logit_diff": ssm_parity["max_logit_diff"],
+         **jamba_of(ssd_ops.COUNTER.name, jamba_scan.values(),
+                    "per_prefill"),
+         "jamba_max_abs_err_f32": max(r["max_abs_err"] for (_, dt), r in
+                                      jamba_scan.items()
+                                      if dt == "float32")},
     ]
     print(f"recipe: phase 1 {recipe['pretrain']['images_per_s']:.1f} "
           f"images/s, phase 2 {recipe['frozen']['pairs_per_s']:.1f} pairs/s, "
@@ -3670,6 +4094,20 @@ def main() -> int:
           f"busy share {moe['busy']:.4f}; f32 parity max |logit diff| "
           f"{moe_parity['max_logit_diff']:.3g} ("
           f"{len(moe_parity['near_tie_rows'])} rows at a router near-tie)",
+          flush=True)
+    hrep = hybrid["rep"]
+    print(f"hybrid: Jamba-1.5-Large ({JAMBA_LAYERS} of 72 layers, experts "
+          f"{JAMBA_SHARE[0]}-{sum(JAMBA_SHARE) - 1} of 16) bf16 decode "
+          f"{hrep['decode_tokens_per_s']:.1f} tok/s, step median "
+          f"{hrep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{hrep['step_p90_s'] * 1e3:.3f} ms, prefill "
+          f"{hrep['prefill_mean_s'] * 1e3:.3f} ms, "
+          f"{hybrid['max_memory_allocated'] / 2**30:.3f} GiB, decode profile "
+          f"busy share {hybrid['busy']:.4f}; f32 parity max |logit diff| "
+          f"{hybrid_parity['max_logit_diff']:.3g} ("
+          f"{len(hybrid_parity['near_tie_rows'])} rows at a router near-tie)"
+          f", engines {hybrid_parity['engines']['same']} of "
+          f"{hybrid_parity['engines']['requests']} requests equal",
           flush=True)
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
           f"{dec_busy:.4f}; ssm prefill profile busy share "

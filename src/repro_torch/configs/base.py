@@ -5,11 +5,13 @@ LMs, the attention-free SSM LMs and the MoE LMs).
 Every config is a frozen dataclass built in its own ``configs/<id>.py``
 module and registered here when ``get_arch`` first runs. The dense LMs
 (Llama-3.2-1B, Qwen3-32B, Minitron-4B, InternLM2-20B), Mamba-2-130M
-(``family="ssm"``) and the MoE LMs (Mixtral-8x22B, Arctic-480B;
-``family="moe"`` with a ``MoEConfig``) serve through the decode engines;
-the hybrid, vlm and audio configs and the ``attn_every`` field wait for
-later slices of the port. ``InputShape`` / ``INPUT_SHAPES`` name the assigned
-input shapes, and ``applicable_shapes`` says which of them an arch runs.
+(``family="ssm"``), the MoE LMs (Mixtral-8x22B, Arctic-480B;
+``family="moe"`` with a ``MoEConfig``) and the hybrid Jamba-1.5-Large
+(``family="hybrid"``: Mamba-2 layers with attention every ``attn_every``
+layers, and a MoE FFN every ``moe.every``) serve through the decode
+engines; the vlm and audio configs wait for later slices of the port.
+``InputShape`` / ``INPUT_SHAPES`` name the assigned input shapes, and
+``applicable_shapes`` says which of them an arch runs.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ class ArchConfig:
     vision frontend's geometry (field meanings as in the reference)."""
     name: str
     family: str                   # 'encoder' (BASIC towers) | 'dense' |
-                                  # 'ssm' | 'moe'
+                                  # 'ssm' | 'moe' | 'hybrid'
     n_layers: int
     d_model: int
     n_heads: int                  # 0 for attention-free
@@ -63,6 +65,9 @@ class ArchConfig:
     norm_eps: float = 1e-5
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # hybrid: attention on layer i where i % attn_every == attn_every - 1,
+    # Mamba-2 on every other layer; 1 means attention on every layer
+    attn_every: int = 1
     # attention backend (models.attention registry): 'naive', 'chunked',
     # 'flash' (the hand-written kernel; the reference's 'pallas' maps to
     # it) or 'auto' (flash on the card, chunked on the CPU)
@@ -91,9 +96,15 @@ class ArchConfig:
         return self.family == "ssm"
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer block kind: 'mamba' for the SSM family, else 'attn'."""
-        kind = "mamba" if self.family == "ssm" else "attn"
-        return tuple(kind for _ in range(self.n_layers))
+        """Per-layer block kind: 'mamba' for the SSM family; for the hybrid
+        family 'attn' on the last layer of each group of ``attn_every`` and
+        'mamba' elsewhere; else 'attn'."""
+        if self.family == "ssm":
+            return tuple("mamba" for _ in range(self.n_layers))
+        if self.family == "hybrid":
+            return tuple("attn" if i % self.attn_every == self.attn_every - 1
+                         else "mamba" for i in range(self.n_layers))
+        return tuple("attn" for _ in range(self.n_layers))
 
     def moe_layer_mask(self) -> Tuple[bool, ...]:
         """Per layer: True where the block's FFN is the MoE FFN (every
@@ -105,33 +116,33 @@ class ArchConfig:
 
     def param_counts(self) -> dict:
         """Total and active parameter counts, analytic (the reference's
-        formula, without its hybrid term): per layer the attention or
-        Mamba-2 mixer, two norms and, outside the SSM family, the SwiGLU
-        FFN, or on a MoE layer ``num_experts`` of them in the total and
-        ``top_k`` in the active count, plus one for a dense residual (the
-        router is not counted); then the embedding, final norm and untied
-        head."""
+        formula): per layer its attention or Mamba-2 mixer, two norms and,
+        outside the SSM family, the SwiGLU FFN, or on a MoE layer
+        ``num_experts`` of them in the total and ``top_k`` in the active
+        count, plus one for a dense residual (the router is not counted);
+        then the embedding, final norm and untied head. As in the
+        reference, a Mamba-2 mixer counts 2·heads per-head parameters,
+        though it holds three per-head leaves (A_log, D, dt_bias)."""
         d, V = self.d_model, self.vocab
         hd = self.resolved_head_dim if self.n_heads else 0
         q, kv = self.n_heads * hd, self.n_kv_heads * hd
+        mixer = {"attn": d * q + 2 * d * kv + q * d}  # wq, wk, wv, wo
         if self.ssm is not None:
             s = self.ssm
             d_in = s.expand * d
             nheads = d_in // s.head_dim
             # in_proj (z, x, B, C, dt), conv, out_proj, A and D per head
-            mixer = d * (2 * d_in + 2 * s.state_dim + nheads) \
+            mixer["mamba"] = d * (2 * d_in + 2 * s.state_dim + nheads) \
                 + s.conv_width * (d_in + 2 * s.state_dim) \
                 + d_in * d + 2 * nheads
-        else:
-            mixer = d * q + 2 * d * kv + q * d        # wq, wk, wv, wo
         ffn = 0 if self.family == "ssm" else 3 * d * self.d_ff
         total = active = V * d + d
         if not self.tie_embeddings:
             total += V * d
             active += V * d
-        for use_moe in self.moe_layer_mask():
-            total += mixer + 2 * d
-            active += mixer + 2 * d
+        for kind, use_moe in zip(self.layer_kinds(), self.moe_layer_mask()):
+            total += mixer[kind] + 2 * d
+            active += mixer[kind] + 2 * d
             if use_moe:
                 m = self.moe
                 total += m.num_experts * ffn + ffn * m.dense_residual
@@ -182,7 +193,8 @@ def applicable_shapes(cfg: ArchConfig):
 _REGISTRY: dict = {}
 
 _ARCH_MODULES = ["minitron_4b", "mamba2_130m", "mixtral_8x22b",
-                 "internlm2_20b", "qwen3_32b", "llama3_2_1b", "arctic_480b",
+                 "internlm2_20b", "jamba_1_5_large_398b", "qwen3_32b",
+                 "llama3_2_1b", "arctic_480b",
                  # the paper's own models (dual-encoder towers)
                  "basic_s", "basic_m", "basic_l"]
 
@@ -216,8 +228,9 @@ def _ensure_loaded():
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """A reduced config of the same family: 2 layers, d_model <= 256,
     <= 4 heads, a vision geometry of <= 16 patches, <= 4 experts, a
-    sliding window of 64 and an SSD state of 16 over heads of 32 in chunks
-    of 32 (the reference's transform, without its hybrid term)."""
+    sliding window of 64, an SSD state of 16 over heads of 32 in chunks
+    of 32 and, for the hybrid family, attention every 2 layers (the
+    reference's transform)."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
     if heads and cfg.n_kv_heads == cfg.n_heads:
@@ -248,6 +261,8 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     if cfg.ssm is not None:
         changes["ssm"] = dataclasses.replace(
             cfg.ssm, state_dim=16, head_dim=32, chunk=32)
+    if cfg.family == "hybrid":
+        changes["attn_every"] = 2
     if cfg.sliding_window is not None:
         changes["sliding_window"] = 64
     return dataclasses.replace(cfg, **changes)

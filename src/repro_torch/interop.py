@@ -12,7 +12,9 @@ conversion is a copy. The reference's tree comes in as numpy arrays (its caller 
 law from a ``torch.Generator``. An LM's parameters come over through
 ``from_numpy`` as they are; ``caches_from_numpy`` / ``caches_to_numpy``
 carry decode caches (the list of stacked ``KVCache``s or ``SSMCache``s)
-both ways. ``opt_state_from_numpy`` / ``opt_state_to_numpy``
+both ways, a hybrid model's list holding both kinds. ``cut_experts``
+cuts a parameter tree to an expert share (``models.moe``).
+``opt_state_from_numpy`` / ``opt_state_to_numpy``
 carry an AdaFactorW state (the reference's ``AdaFactorWState`` as numpy
 arrays) both ways, with the same rule: every conversion onto torch names
 its device, there is no default.
@@ -32,14 +34,19 @@ from repro_torch.optim.adafactorw import AdaFactorWState
 from repro_torch.tree import leaves  # noqa: F401
 
 
-def init_params(cfg, generator: torch.Generator, device) -> dict:
+def init_params(cfg, generator: torch.Generator, device,
+                experts=None) -> dict:
     """Fresh parameters with the reference's init law: a
     ``DualEncoderConfig`` gets a dual encoder, an ``ArchConfig`` a tower
-    or LM; drawn from ``generator`` and put on ``device`` (required)."""
+    or LM (with ``experts`` = (first, count), only that share of every MoE
+    layer's experts); drawn from ``generator`` and put on ``device``
+    (required)."""
     if isinstance(cfg, DualEncoderConfig):
+        if experts is not None:
+            raise ValueError("a dual encoder has no experts to share")
         return de.init_params(cfg, generator, device)
     if isinstance(cfg, ArchConfig):
-        return tf.init_params(cfg, generator, device)
+        return tf.init_params(cfg, generator, device, experts)
     raise TypeError(f"no parameters for a {type(cfg).__name__}")
 
 
@@ -72,6 +79,29 @@ def to_numpy(tree):
         return [to_numpy(v) for v in tree]
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def cut_experts(tree, experts):
+    """The parameter tree of an LM (the reference's as numpy, or the
+    port's) cut to the expert share ``experts`` = (first, count): ``wi``,
+    ``wg`` and ``wo`` of every ``moe`` subtree sliced along the expert
+    axis, the one after the layer axis; every other leaf as it is (not
+    copied)."""
+    first, count = (int(v) for v in experts)
+
+    def cut(name, x):
+        if x.shape[1] < first + count:
+            raise ValueError(f"moe/{name} holds {x.shape[1]} experts, not "
+                             f"{first} + {count}")
+        return x[:, first:first + count]
+    if isinstance(tree, dict):
+        return {k: ({n: cut(n, x) if n in ("wi", "wg", "wo") else x
+                     for n, x in v.items()} if k == "moe"
+                    else cut_experts(v, experts))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cut_experts(v, experts) for v in tree]
+    return tree
 
 
 def opt_state_from_numpy(state, device) -> AdaFactorWState:

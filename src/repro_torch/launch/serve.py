@@ -19,17 +19,24 @@ a request-queue loop over the ``ContinuousEngine`` (port of
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --smoke --device cpu --engine continuous
 
-A Mamba-2 prompt must be at most the SSD chunk long (256 tokens; 32 for
-``--smoke``) or a whole number of chunks, the reference's rule; other
-lengths raise ``ValueError``. The continuous loop's ragged lengths
-(``--prompt-len`` + {-4, 0, 4, 8}) therefore need ``--prompt-len`` <= 248
-(<= 24 with ``--smoke``).
+  # Jamba-1.5-Large (hybrid: Mamba-2 layers, attention every 8th, MoE
+  # every 2nd; dense dispatch under --smoke, else capacity)
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --smoke --device cpu --engine continuous
+
+A prompt of a model with Mamba-2 layers (Mamba-2, Jamba) must be at most
+the SSD chunk long (256 tokens; 32 for ``--smoke``) or a whole number of
+chunks, the reference's rule; other lengths raise ``ValueError``. The
+continuous loop's ragged lengths (``--prompt-len`` + {-4, 0, 4, 8})
+therefore need ``--prompt-len`` <= 248 (<= 24 with ``--smoke``).
 
 Weights are random, drawn from ``--seed`` on the run's device; prompts are
 random token ids. A MoE model's FFNs dispatch densely under ``--smoke``
 and by capacity (``moe_ffn``'s defaults) otherwise, as the reference's
 launcher sets them; ``run_legacy`` and ``run_continuous`` take those
-``moe_args``. The continuous loop submits ``--requests`` requests
+``moe_args``, which may name an expert share (``experts``: (first,
+count), the experts ``build(..., experts=...)`` drew; there is no flag
+for it). The continuous loop submits ``--requests`` requests
 with Poisson-ish gaps (``--arrival`` mean seconds; 0 = all up front) and
 prompt lengths around ``--prompt-len``, as the reference does, and reports
 tokens/s, slot occupancy and admission wait from the engine's registry,
@@ -53,15 +60,18 @@ from repro_torch.device import resolve_device
 from repro_torch.serving import ContinuousEngine, Engine
 
 
-def build(arch: str, *, smoke: bool = False, seed: int = 0, device=None):
+def build(arch: str, *, smoke: bool = False, seed: int = 0, device=None,
+          experts=None):
     """(cfg, params): the LM ``arch`` (its smoke variant with ``smoke``),
-    weights drawn from ``seed`` by a generator on the run's device."""
+    weights drawn from ``seed`` by a generator on the run's device; with
+    ``experts`` = (first, count) only that share of every MoE layer's
+    experts (serve it with ``moe_args`` naming the same share)."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if smoke:
         cfg = smoke_variant(cfg)
     params = interop.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev, experts)
     return cfg, params
 
 

@@ -3,7 +3,8 @@ recipe on one device (counterpart of ``repro/launch/train.py``:
 ``run_lm`` at :50-82, ``run_pretrain`` at :104-135, ``run_contrastive`` at
 :138-181).
 
-- ``--mode lm``: next-token training of a decoder LM (dense, ssm or moe)
+- ``--mode lm``: next-token training of a decoder LM (dense, ssm, moe or
+  hybrid)
   on ``frontends.synthetic_inputs`` of ``--batch`` × ``--seq`` tokens, a
   fresh batch a step from ``np.random.default_rng(seed)``: ``lm_loss`` in
   f32 with no remat (a MoE model's dispatch dense under ``--smoke``, else
@@ -12,9 +13,10 @@ recipe on one device (counterpart of ``repro/launch/train.py``:
   computes it. ``--precision`` and ``--remat`` are refused here (the
   reference's ``run_lm`` has neither); ``--attn`` picks the backend
   ('pallas', the default, is the flash kernels: on the card, the causal
-  grouped-query forward and backward). The SSM family trains on the CPU,
-  where the scan's plain version is differentiable; on the card its
-  ``ssd_scan`` kernel has no backward yet and raises.
+  grouped-query forward and backward). The SSM and hybrid families train
+  on the CPU, where the scan's plain version is differentiable; on the
+  card their ``ssd_scan`` kernel has no backward yet and raises
+  (ROADMAP.md Queue 1, item 6).
 
 - ``--mode pretrain`` (phase 1, paper §8): the image tower plus a linear
   head under softmax cross-entropy of ``jft_batch``'s labels, one update

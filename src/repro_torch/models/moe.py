@@ -23,6 +23,20 @@ zeroed router ties every probability, and bf16 router logits tie often.
 Arctic's dense residual FFN (``dense_residual``) is added to the MoE
 output. Expert products are ``torch.bmm`` over the expert axis; the
 reference computes its MoE outside any Pallas kernel.
+
+The expert share, ``experts=(first, count)``: the layer holds experts
+first .. first + count - 1 of ``num_experts`` (their ``wi``, ``wg``,
+``wo``; the expert axis has ``count`` entries), as one card of an
+expert-parallel deployment does. The router keeps its published width and
+picks the top-k over all experts; the bucket places and the capacity are
+counted over all of them; only the held experts' buckets are computed,
+and the combine sums only their part. The load-balance term and the dense
+residual are the whole layer's, as every card computes them. The sum of
+the shares' expert parts is the whole layer's; the reference's
+counterpart is its expert-parallel layout (``repro/core/sharding.py:116-119``,
+the expert axis over the ``model`` mesh axis), where each device's part
+before the combine's reduction is its share's. ``None`` (the default)
+holds every expert and computes what the layer computes without a share.
 """
 from __future__ import annotations
 
@@ -32,19 +46,35 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
 
+def held_experts(cfg: ArchConfig, experts=None):
+    """(first, count) of the share ``experts`` (None: every expert);
+    raises ``ValueError`` unless 0 <= first and 1 <= count and first +
+    count <= num_experts."""
+    E = cfg.moe.num_experts
+    if experts is None:
+        return 0, E
+    first, count = (int(v) for v in experts)
+    if first < 0 or count < 1 or first + count > E:
+        raise ValueError(f"{cfg.name}: expert share (first {first}, count "
+                         f"{count}) is not within its {E} experts")
+    return first, count
+
+
 def init_moe_params(cfg: ArchConfig, generator: torch.Generator, extra=(),
-                    device=None) -> dict:
+                    device=None, experts=None) -> dict:
     """Router (…, d, E), experts ``wi``/``wg`` (…, E, d, f) and ``wo``
     (…, E, f, d), plus ``dense_wi``/``dense_wg``/``dense_wo`` for a dense
     residual; the reference's leaves and init law, ``extra`` stack axes
-    first."""
+    first. With ``experts`` = (first, count) only those experts are drawn:
+    the expert axis has ``count`` entries."""
     m = cfg.moe
     d, f, E = cfg.d_model, cfg.d_ff, m.num_experts
+    _, count = held_experts(cfg, experts)
     p = {
         "router": L.dense_init(generator, d, E, extra, device),
-        "wi": L.dense_init(generator, d, f, (*extra, E), device),
-        "wg": L.dense_init(generator, d, f, (*extra, E), device),
-        "wo": L.dense_init(generator, f, d, (*extra, E), device),
+        "wi": L.dense_init(generator, d, f, (*extra, count), device),
+        "wg": L.dense_init(generator, d, f, (*extra, count), device),
+        "wo": L.dense_init(generator, f, d, (*extra, count), device),
     }
     if m.dense_residual:
         p["dense_wi"] = L.dense_init(generator, d, f, extra, device)
@@ -86,15 +116,17 @@ def _experts(p, xe):
     return torch.bmm(h * torch.nn.functional.silu(g), p["wo"].to(dt))
 
 
-def _dense_dispatch(p, cfg: ArchConfig, x, top_p, top_idx):
-    """Every expert on every token, combined with the top-k weights."""
+def _dense_dispatch(p, cfg: ArchConfig, x, top_p, top_idx, first: int,
+                    count: int):
+    """Every held expert on every token, combined with the top-k
+    weights."""
     E = cfg.moe.num_experts
     b, s, d = x.shape
     combine = torch.zeros((b, s, E), dtype=x.dtype, device=x.device)
     combine.scatter_(-1, top_idx, top_p.to(x.dtype))
-    eout = _experts(p, x.reshape(1, b * s, d).expand(E, -1, -1))
-    return torch.einsum("end,ne->nd", eout,
-                        combine.reshape(b * s, E)).reshape(b, s, d)
+    eout = _experts(p, x.reshape(1, b * s, d).expand(count, -1, -1))
+    return torch.einsum("end,ne->nd", eout, combine.reshape(b * s, E)[
+        :, first:first + count]).reshape(b, s, d)
 
 
 def capacity(k: int, group: int, num_experts: int,
@@ -118,8 +150,9 @@ def bucket_positions(top_idx: torch.Tensor, num_experts: int, cap: int):
 
 
 def _capacity_dispatch(p, cfg: ArchConfig, x, top_p, top_idx, group: int,
-                       capacity_factor: float):
-    """GShard capacity dispatch over groups of ``group`` tokens; x (b, s,
+                       capacity_factor: float, first: int, count: int):
+    """GShard capacity dispatch over groups of ``group`` tokens, the
+    buckets of experts first .. first + count - 1 computed; x (b, s,
     d)."""
     m = cfg.moe
     b, s, d = x.shape
@@ -131,8 +164,12 @@ def _capacity_dispatch(p, cfg: ArchConfig, x, top_p, top_idx, group: int,
     cap = capacity(k, group, E, capacity_factor)
     ti = top_idx.reshape(n, group, k)
     pos, keep = bucket_positions(ti, E, cap)
-    spare = E * cap                  # a zero row: empty slots, dropped pairs
-    slot = torch.where(keep, ti * cap + pos, spare).reshape(n, group * k)
+    # the held buckets' slots; pairs dropped or routed to an expert not
+    # held point at the spare zero row
+    held = keep & (ti >= first) & (ti < first + count)
+    spare = count * cap
+    slot = torch.where(held, (ti - first) * cap + pos, spare).reshape(
+        n, group * k)
     # the token that fills each (expert, slot); the spare row past the group
     token = torch.arange(group, device=x.device).repeat_interleave(k)
     src = torch.full((n, spare + 1), group, dtype=torch.long,
@@ -142,8 +179,9 @@ def _capacity_dispatch(p, cfg: ArchConfig, x, top_p, top_idx, group: int,
                     x.new_zeros((n, 1, d))], dim=1)            # (n, g+1, d)
     xe = torch.gather(xg, 1, src[:, :spare, None].expand(-1, -1, d))
     # expert-major rows, so each weight is read once for all the groups
-    xe = xe.reshape(n, E, cap, d).transpose(0, 1).reshape(E, n * cap, d)
-    eout = _experts(p, xe).reshape(E, n, cap, d).transpose(0, 1)
+    xe = xe.reshape(n, count, cap, d).transpose(0, 1).reshape(
+        count, n * cap, d)
+    eout = _experts(p, xe).reshape(count, n, cap, d).transpose(0, 1)
     eout = torch.cat([eout.reshape(n, spare, d),
                       eout.new_zeros((n, 1, d))], dim=1)
     picked = torch.gather(eout, 1, slot[..., None].expand(-1, -1, d))
@@ -153,17 +191,25 @@ def _capacity_dispatch(p, cfg: ArchConfig, x, top_p, top_idx, group: int,
 
 
 def moe_ffn(p, cfg: ArchConfig, x, *, dispatch: str = "capacity",
-            group: int = 4096, capacity_factor: float = 1.25):
+            group: int = 4096, capacity_factor: float = 1.25, experts=None):
     """x (b, s, d) -> (out (b, s, d), the load-balance aux scalar, fp32).
     ``dispatch``: 'capacity' (groups of min(group, b·s) tokens) or
-    'dense'."""
+    'dense'. ``experts`` = (first, count): the share the weights hold
+    (None: every expert); ``ValueError`` when their expert axis is not
+    ``count`` long or the share is not within the layer's experts."""
+    first, count = held_experts(cfg, experts)
+    for name in ("wi", "wg", "wo"):
+        if p[name].shape[-3] != count:
+            raise ValueError(f"{cfg.name}: {name} holds "
+                             f"{p[name].shape[-3]} experts, the share "
+                             f"{count}")
     top_p, top_idx, aux = _router(p, cfg, x)
     if dispatch == "dense":
-        out = _dense_dispatch(p, cfg, x, top_p, top_idx)
+        out = _dense_dispatch(p, cfg, x, top_p, top_idx, first, count)
     elif dispatch == "capacity":
         g = min(group, x.shape[0] * x.shape[1])
         out = _capacity_dispatch(p, cfg, x, top_p, top_idx, g,
-                                 capacity_factor)
+                                 capacity_factor, first, count)
     else:
         raise ValueError(f"unknown MoE dispatch {dispatch!r}; have "
                          f"'capacity', 'dense'")

@@ -1,25 +1,28 @@
 """Model assembly for the encoder towers, the dense decoder LMs, the
-attention-free SSM LMs and the MoE LMs (port of
-``repro/models/transformer.py``, the encoder, dense, ssm and moe
+attention-free SSM LMs, the MoE LMs and the hybrid LMs (port of
+``repro/models/transformer.py``, the encoder, dense, ssm, moe and hybrid
 families).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a list
-with one entry per position of the layer period (the lcm of the MoE
-interleave; one for every registered config), each a dict whose leaves
-stack that position's layers on a leading axis (n_layers // period), so
-a reference checkpoint maps onto the port leaf for leaf. Layer i is
-position i % period, entry i // period. An attention block is ``ln1`` +
-``attn`` + ``ln2`` + ``ffn``, or + ``moe`` (``models.moe``) where the
-config's MoE mask says so; a Mamba-2 block (``family="ssm"``) is ``ln1``
-+ ``mamba`` alone. Decode caches keep the same stacking: ``caches`` is a
-list with one ``KVCache`` per period position whose k/v are (n_layers //
-period, batch, kv_heads, cache_len, head_dim), or one ``SSMCache`` whose
-ssm is (n_layers, batch, heads, head_dim, state) fp32 and conv (n_layers,
-batch, conv_width - 1, d_conv). ``forward`` runs a Python loop over the
-layers where the reference runs ``lax.scan`` over the periods.
+with one entry per position of the layer period (the lcm of the hybrid
+family's attention interleave and the MoE interleave: 8 for Jamba, 1 or
+2 for the others), each a dict whose leaves stack that position's layers
+on a leading axis (n_layers // period), so a reference checkpoint maps
+onto the port leaf for leaf. Layer i is position i % period, entry
+i // period. A block is ``ln1`` + its mixer (``attn``, or ``mamba`` where
+``cfg.layer_kinds()`` says so) + ``ln2`` + ``ffn``, or + ``moe``
+(``models.moe``) where the config's MoE mask says so; a block of the SSM
+family (Mamba-2) is ``ln1`` + ``mamba`` alone. Decode caches keep the
+same stacking: ``caches`` is a list with one entry per period position, a
+``KVCache`` for an attention position, whose k/v are (n_layers // period,
+batch, kv_heads, cache_len, head_dim), or an ``SSMCache`` for a Mamba
+position, whose ssm is (n_layers // period, batch, heads, head_dim,
+state) fp32 and conv (n_layers // period, batch, conv_width - 1, d_conv);
+a hybrid model's list holds both kinds. ``forward`` runs a Python loop
+over the layers where the reference runs ``lax.scan`` over the periods.
 
 Entry points:
-  init_params(cfg, generator, device)            -> params dict
+  init_params(cfg, generator, device, experts)   -> params dict
   lm_loss(cfg, params, batch, moe_args)          -> (loss, metrics)
   encode(cfg, params, batch)                     -> pooled (b, d_model)
   prefill(cfg, params, batch, moe_args, collect_cache_len)
@@ -33,12 +36,17 @@ wraps each block in a checkpoint, as the reference wraps each period step
 (``repro/models/transformer.py:168-169``). ``decode_step`` writes each
 layer's new k/v (or SSD state and conv window) into the caches in place
 and returns the same objects. ``moe_args`` (``dispatch``, ``group``,
-``capacity_factor``) go to every MoE FFN; ``lm_loss`` adds the MoE
-load-balance terms of all layers. The hybrid and vlm families wait for
-their own slices; ``lm_loss`` of the encoder family (hubert's masked-frame
-loss) waits for the audio slice.
+``capacity_factor`` and the expert share ``experts``) go to every MoE
+FFN; ``lm_loss`` adds the MoE load-balance terms of all layers.
+``init_params(..., experts=(first, count))`` draws only those experts of
+every MoE layer (``models.moe``: the share one card of an
+expert-parallel deployment holds). The vlm family waits for its own
+slice; ``lm_loss`` of the encoder family (hubert's masked-frame loss)
+waits for the audio slice.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -53,42 +61,45 @@ from repro_torch.models import ssm as ssm_lib
 
 
 # the slice of the port that brings each family it does not run yet
-_LATER = {"hybrid": "the hybrid slice (Jamba: Mamba-2 and MoE layers)",
-          "vlm": "the vlm slice, with the vlm frontend"}
+_LATER = {"vlm": "the vlm slice, with the vlm frontend"}
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("encoder", "dense", "ssm", "moe"):
+    if cfg.family not in ("encoder", "dense", "ssm", "moe", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the encoder, dense, ssm and moe "
-            f"families; {cfg.family!r} comes with "
+            f"{cfg.name}: the port runs the encoder, dense, ssm, moe and "
+            f"hybrid families; {cfg.family!r} comes with "
             f"{_LATER.get(cfg.family, 'a later slice')}")
 
 
 def period_of(cfg: ArchConfig) -> int:
-    """Layer-stack period (the reference's scan unit): the MoE interleave
-    (``moe.every``; 1 without MoE). The hybrid slice brings the lcm with
-    the attention interleave."""
+    """Layer-stack period (the reference's scan unit): the lcm of the
+    hybrid family's attention interleave (``attn_every``) and the MoE
+    interleave (``moe.every``); 1 for a model with neither."""
     _check_family(cfg)
-    p = 1 if cfg.moe is None else cfg.moe.every
+    p = cfg.attn_every if cfg.family == "hybrid" else 1
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.every)
     if cfg.n_layers % p:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
                          f"whole number of periods of {p}")
     return p
 
 
-def _init_block(cfg: ArchConfig, generator: torch.Generator, use_moe: bool,
-                extra, device) -> dict:
+def _init_block(cfg: ArchConfig, generator: torch.Generator, kind: str,
+                use_moe: bool, extra, device, experts=None) -> dict:
     d = cfg.d_model
+    p = {"ln1": torch.ones((*extra, d), device=device)}
+    if kind == "attn":
+        p["attn"] = attn_lib.init_attn_params(cfg, generator, extra, device)
+    else:
+        p["mamba"] = ssm_lib.init_ssm_params(cfg, generator, extra, device)
     if cfg.family == "ssm":         # Mamba-2 blocks have no separate FFN
-        return {"ln1": torch.ones((*extra, d), device=device),
-                "mamba": ssm_lib.init_ssm_params(cfg, generator, extra,
-                                                 device)}
-    p = {"ln1": torch.ones((*extra, d), device=device),
-         "attn": attn_lib.init_attn_params(cfg, generator, extra, device),
-         "ln2": torch.ones((*extra, d), device=device)}
+        return p
+    p["ln2"] = torch.ones((*extra, d), device=device)
     if use_moe:
-        p["moe"] = moe_lib.init_moe_params(cfg, generator, extra, device)
+        p["moe"] = moe_lib.init_moe_params(cfg, generator, extra, device,
+                                           experts=experts)
     else:
         p["ffn"] = {
             "wi": L.dense_init(generator, d, cfg.d_ff, extra, device),
@@ -99,15 +110,17 @@ def _init_block(cfg: ArchConfig, generator: torch.Generator, use_moe: bool,
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device) -> dict:
+                device, experts=None) -> dict:
     """Tower params: the stacked block list, final norm, the vision
     frontend and, for a token tower, the embedding table and LM head (the
-    reference's leaves, drawn with its init law)."""
+    reference's leaves, drawn with its init law). ``experts`` = (first,
+    count) draws only those experts of every MoE layer (None: all)."""
     period = period_of(cfg)
+    kinds = cfg.layer_kinds()[:period]
     moe_mask = cfg.moe_layer_mask()[:period]
     params = {
-        "blocks": [_init_block(cfg, generator, moe_mask[i],
-                               (cfg.n_layers // period,), device)
+        "blocks": [_init_block(cfg, generator, kinds[i], moe_mask[i],
+                               (cfg.n_layers // period,), device, experts)
                    for i in range(period)],
         "final_norm": torch.ones((cfg.d_model,), device=device),
     }
@@ -132,21 +145,21 @@ def _layer(tree, i: int):
 def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
                  cache=None, decode=False, collect_cache_len=None,
                  moe_args=None):
-    """Pre-norm attention + SwiGLU (or MoE) block, or a pre-norm Mamba-2
-    block for the SSM family. Returns (h, the layer's cache: the one
-    given, written in place, when decoding; one built from the prompt with
-    ``collect_cache_len``; else None, the MoE load-balance term or
-    None)."""
+    """Pre-norm block: attention or the Mamba-2 mixer (by the block's
+    leaves), then, outside the SSM family, a pre-norm SwiGLU or MoE FFN.
+    Returns (h, the layer's cache: the one given, written in place, when
+    decoding; one built from the prompt with ``collect_cache_len``; else
+    None, the MoE load-balance term or None)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     new_cache = None
-    if cfg.family == "ssm":
+    if "mamba" in p:
         if decode:
             mix, new_cache = ssm_lib.mamba_decode(p["mamba"], cfg, hn, cache)
         else:
             mix, new_cache = ssm_lib.mamba_mixer(p["mamba"], cfg, hn)
-        return h + mix, (new_cache if decode or collect_cache_len is not None
-                         else None), None
-    if decode:
+            if collect_cache_len is None:
+                new_cache = None
+    elif decode:
         mix, new_cache = attn_lib.decode_attention(p["attn"], cfg, hn, cache,
                                                    positions)
     elif collect_cache_len is not None:
@@ -157,6 +170,8 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
         mix = attn_lib.attention(p["attn"], cfg, hn, positions,
                                  key_mask=key_mask)
     h = h + mix
+    if cfg.family == "ssm":         # Mamba-2 blocks have no separate FFN
+        return h, new_cache, None
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         out, aux = moe_lib.moe_ffn(p["moe"], cfg, hn, **(moe_args or {}))
@@ -334,19 +349,23 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
                 dtype=torch.bfloat16, *, device) -> list:
     """Zeroed decode caches on ``device`` (required), stacked over the
-    layers: a list with one ``KVCache`` per period position of
-    (n_layers // period, batch, kv_heads, cache_len, head_dim),
-    ring-sized when the window fits in ``seq_len``, or for the SSM family
-    one ``SSMCache`` of (n_layers, batch, ...), whatever ``seq_len``."""
+    layers: a list with one entry per period position, by its layers'
+    kind: a ``KVCache`` of (n_layers // period, batch, kv_heads,
+    cache_len, head_dim), ring-sized when the window fits in ``seq_len``,
+    or an ``SSMCache`` of (n_layers // period, batch, ...), whatever
+    ``seq_len``."""
     period = period_of(cfg)
-    if cfg.family == "ssm":
-        one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device)
-    else:
-        one = attn_lib.init_kv_cache(cfg, batch, seq_len, dtype,
-                                     device=device)
     n = cfg.n_layers // period
-    return [type(one)(*(x[None].expand(n, *x.shape).contiguous()
-                        for x in one)) for _ in range(period)]
+    caches = []
+    for kind in cfg.layer_kinds()[:period]:
+        if kind == "attn":
+            one = attn_lib.init_kv_cache(cfg, batch, seq_len, dtype,
+                                         device=device)
+        else:
+            one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device)
+        caches.append(type(one)(*(x[None].expand(n, *x.shape).contiguous()
+                                  for x in one)))
+    return caches
 
 
 def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
@@ -371,7 +390,7 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
                 dtype=torch.bfloat16, precision=None, moe_args=None):
     """One decode step. token: (b, 1) integer tensor; pos: an int (every
     row at one position, the lockstep engine) or a (b,) integer tensor of
-    per-slot positions (the continuous engine; the SSM family ignores it).
+    per-slot positions (the continuous engine; Mamba layers ignore it).
     Writes each layer's new k/v, or SSD state and conv window, into
     ``caches`` in place; returns (logits (b, 1, vocab), caches).
     ``moe_args`` go to every MoE FFN: under capacity dispatch the b rows

@@ -10,11 +10,12 @@ around a slot-based cache of capacity ``num_slots``:
   insert(row, slot)  copy that row into the packed (n_layers, num_slots,
                      ...) cache in place, overwriting the slot's previous
                      tenant entirely (KV rows, or SSD state and conv
-                     window rows alike)
+                     window rows alike, both in one hybrid model's list)
   step()             one decode step advancing every slot by one token at
                      its own position (``transformer.decode_step`` with
                      ``pos`` (S,)): RoPE, cache write and length mask per
-                     row
+                     row in the attention layers (Mamba-2 layers need no
+                     position)
 
 Host-side per-slot state (request id, position, emitted tokens, budget)
 retires finished slots and refills them from the FIFO queue at the top of

@@ -3,14 +3,16 @@ of ``repro/serving/engine.py``).
 
 ``Engine.generate`` prefills the prompt batch once, building the per-layer
 decode caches (KV caches, a ring under a sliding window whose length is
-the cache's; for the SSM family the SSD state and conv window), then
+the cache's; for Mamba-2 layers the SSD state and conv window; a hybrid
+model's list holds both kinds), then
 decodes one token for every row per step; the caches are written in
 place. Prefill and decode run under one ``models.precision`` policy and
 one attention backend: ``attn`` selects the full-sequence backend for
 prefill (``models.attention`` registry; ``pallas`` is the flash kernel)
 and the decode backend (``resolve_decode_backend``; ``pallas`` is the
 split-K decode kernel); it has no effect on an attention-free model,
-whose prefill runs the SSD scan kernel. ``moe_args`` (stored as
+whose prefill runs the SSD scan kernel (a hybrid model's Mamba-2 layers
+run it beside its attention layers). ``moe_args`` (stored as
 ``moe_args or {}``, as the reference stores them) go to every prefill and
 decode step of a MoE model; under capacity dispatch the rows of a step
 share the experts' buckets, so a row's tokens depend on its batch-mates,

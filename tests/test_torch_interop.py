@@ -158,12 +158,14 @@ def test_init_params_is_seeded():
 
 LM_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
              "vocab", "resolved_head_dim", "qk_norm", "sliding_window",
-             "causal", "tie_embeddings", "rope_theta", "norm_eps", "source")
+             "causal", "tie_embeddings", "rope_theta", "norm_eps",
+             "attn_every", "source")
 
 
 def test_configs_copy_the_reference():
-    lms = ["arctic-480b", "internlm2-20b", "llama3.2-1b", "mamba2-130m",
-           "minitron-4b", "mixtral-8x22b", "qwen3-32b"]
+    lms = ["arctic-480b", "internlm2-20b", "jamba-1.5-large-398b",
+           "llama3.2-1b", "mamba2-130m", "minitron-4b", "mixtral-8x22b",
+           "qwen3-32b"]
     assert list_archs() == sorted(["basic-l", "basic-m", "basic-s"] + lms)
     for arch in lms:
         j, t = jax_get_arch(arch), get_arch(arch)

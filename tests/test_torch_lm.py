@@ -32,6 +32,7 @@ from repro_torch.configs import get_arch, smoke_variant
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttf
+from repro_torch.tree import leaves
 
 torch.set_num_threads(1)
 
@@ -261,7 +262,15 @@ def test_resolve_decode_backend():
 
 
 def test_other_families_name_their_slice():
-    cfg = dataclasses.replace(smoke_variant(get_arch("llama3.2-1b")),
-                              family="hybrid")
-    with pytest.raises(NotImplementedError, match="hybrid slice"):
+    """vlm still names its slice; hybrid builds now (a hybrid config with
+    attention every layer is the dense model with its blocks' leaves)."""
+    base = smoke_variant(get_arch("llama3.2-1b"))
+    cfg = dataclasses.replace(base, family="vlm")
+    with pytest.raises(NotImplementedError, match="vlm slice"):
         ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    hybrid = dataclasses.replace(base, family="hybrid")
+    assert hybrid.layer_kinds() == ("attn", "attn")
+    tp = ttf.init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
+    dense = ttf.init_params(base, torch.Generator().manual_seed(0), "cpu")
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(leaves(tp), leaves(dense)))

@@ -214,7 +214,12 @@ def test_per_slot_positions_change_nothing_for_the_ssm(model):
 
 
 def test_later_families_still_name_their_slice():
-    for fam, words in (("hybrid", "hybrid slice"), ("vlm", "vlm slice")):
-        cfg = dataclasses.replace(get_arch("llama3.2-1b"), family=fam)
-        with pytest.raises(NotImplementedError, match=words):
-            ttf.init_params(cfg, torch.Generator(), "cpu")
+    """vlm still names its slice; the hybrid family builds now: Mamba-2
+    blocks with an FFN, attention every ``attn_every`` layers."""
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), family="vlm")
+    with pytest.raises(NotImplementedError, match="vlm slice"):
+        ttf.init_params(cfg, torch.Generator(), "cpu")
+    hybrid = smoke_variant(get_arch("jamba-1.5-large-398b"))
+    tp = ttf.init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
+    assert [sorted(b) for b in tp["blocks"]] == [
+        ["ffn", "ln1", "ln2", "mamba"], ["attn", "ln1", "ln2", "moe"]]
