@@ -152,8 +152,26 @@ repository beside this file; it exits non-zero without them. In order it:
     its background write; then profiles one more warm step;
 22. ``make_train_step`` (bf16, remat ``basic``) at the same shape, 3
     steps: step median, tokens/s, peak memory;
-23. what the card refuses until the SSM training slice: ``ssd_scan`` with
-    an input that requires grad, and ``--mode lm --arch mamba2-130m``;
+23. holds the SSD scan's backward kernel (``csrc/ssd_bwd.cu``, the
+    forward kernel saving the state entering each 64-token sub-chunk)
+    against the plain backward ``ssd_chunked_bwd`` (in 64-token chunks
+    where they divide l) and against autograd through ``ssd_chunked``, f32
+    and bf16, at Mamba-2-130M's shapes (b 2 × l 4096; b 1 × l 244 with an
+    initial state and a final-state gradient) and Jamba's (256 heads, b 1
+    × l 4096): each gradient within 2e-5 of its max (dA, dD 1e-4, with
+    the plain f32 version's distance from an fp64 evaluation printed
+    beside), all finite, two runs bit for bit; prints each plan and times
+    kernel (events and device time) and plain version against the bound;
+31. SSM training parity: one f32 step of Mamba-2-130M at full width and
+    depth (b 2 × s 1024) on the kernel path (24 + 24 scan launches) and
+    the plain path (none) by phase 9's limits; then one full-width Jamba
+    Mamba-2 mixer layer (d 8192, 256 heads) forward and backward at b 1 ×
+    l 4096: every leaf's gradient within 1e-3 of its max;
+32. timed SSM training: ``--mode lm --arch mamba2-130m`` through the
+    trainer's ``main`` (f32, b 2 × s 4096, 4 steps): step median,
+    tokens/s, peak memory, 24 + 24 scan launches a step; a profile of one
+    warm step (the scan's forward and backward share, busy share); then
+    ``make_train_step`` (bf16, remat ``basic``) for 3 steps;
 24. holds the flash forward and the decode kernel against their plain
     versions at Mixtral-8x22B's shapes (48 query heads over 8 kv heads, d
     128, window 4096; f32 and bf16): flash over 512 tokens and over 4608,
@@ -176,6 +194,17 @@ repository beside this file; it exits non-zero without them. In order it:
     4 flash_fwd launches per prefill and 4 decode_attention launches per
     step; then profiles 4 warm decode steps (by kernel group, by aten op:
     expert GEMMs, casts, dispatch and combine; busy share);
+33. holds the flash forward and backward against their plain versions at
+    Mixtral's training shapes (b 1, 48 query heads over 8 kv, d 128,
+    causal, window 4096; s 4096, and s 4608 where the window masks; f32
+    and bf16), timed against SDPA with ``enable_gqa``, printing the
+    backward's dq-partial bytes;
+34. MoE training at full width: Mixtral-8x22B, 1 of its 56 layers (2.907G
+    parameters): one f32 step (b 1 × s 1024, capacity dispatch) on the
+    kernel path and the plain path by phase 9's limits, one path's
+    gradients on the card at a time; then ``run_lm``'s f32 ``lm_step``
+    (4 steps) and ``make_train_step`` bf16 (3 steps) at b 1 × s 4096:
+    step median, tokens/s, peak memory, flash launches a step;
 28. holds the three kernels of the hybrid serving path against their
     plain versions at Jamba-1.5-Large's shapes (f32 and bf16): the flash
     forward at 64 query heads over 8 kv heads, d 128, causal, over 256
@@ -203,8 +232,12 @@ repository beside this file; it exits non-zero without them. In order it:
     step; then profiles 4 warm decode steps (by kernel group, by aten op,
     and the device time of the MoE FFNs' and the Mamba-2 decode's
     kernels; busy share);
-27. last, after phase 30, prints a ``{"kernels": [...]}`` line and the
-    ``{"ok": true, "device": {...}}`` line.
+35. hybrid training: one f32 step of the smoke Jamba on the kernel path
+    (flash forward and backward, the scan's forward and backward, all
+    launched) against the plain path, then ``--mode lm --smoke`` through
+    the trainer's ``main``;
+27. last, after phase 35, prints the script's seconds, a ``{"kernels":
+    [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
 """
@@ -212,6 +245,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -365,12 +399,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 @contextlib.contextmanager
-def profile_window(cpu: bool = True):
+def profile_window(cpu: bool = True, settle: float = 0.0):
     """A torch.profiler window whose tracing starts one step early, on a
     small device op (the profiler's warm-up step), so that nothing the
     window measures falls in the tracer's start-up, which can miss the
     first records; yields the profiler, whose events are those of the
-    measured step alone."""
+    measured step alone. Each step ends ``settle`` seconds after the
+    device is idle (``scripts/profile_window_probe.py`` measures whether
+    such a pause keeps a window's records: it does not)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     activities = [ProfilerActivity.CUDA]
@@ -381,18 +417,21 @@ def profile_window(cpu: bool = True):
                                    repeat=1)) as prof:
         torch.zeros(1, device="cuda").add_(1)
         torch.cuda.synchronize()
+        time.sleep(settle)
         prof.step()
         yield prof
         torch.cuda.synchronize()
+        time.sleep(settle)
         prof.step()
 
 
-def retaken_window(fn, complete, cpu: bool = True, tries: int = 3):
+def retaken_window(fn, complete, cpu: bool = True, tries: int = 8):
     """(profiler, ``fn()``'s result) of the first of up to ``tries``
     ``profile_window``s over one call of ``fn`` that ``complete(prof,
-    result)`` accepts: the tracer now and then loses some of a window's
-    device records. The last window is returned whatever it holds, and its
-    caller fails on what is missing there."""
+    result)`` accepts: the tracer now and then loses some or all of a
+    window's device records, at times in several windows in a row. The
+    last window is returned whatever it holds, and its caller fails on
+    what is missing there."""
     for attempt in range(tries):
         with profile_window(cpu) as prof:
             out = fn()
@@ -441,15 +480,20 @@ def device_ms(fn, names=None, iters: int = 20):
     duration times its launches per call, rounded: the profiler now and
     then drops one event of a window, which would otherwise read as a
     call without that kernel. A window with no record at all is retaken
-    (``retaken_window``); after the third it raises."""
+    (``retaken_window``) over twice the calls, up to 8 × ``iters`` (the
+    probe never saw a window of 0.5 s lose all its records); if the last
+    window has none, it raises."""
     import torch
     fn()
     torch.cuda.synchronize()
+    windows = (iters * min(8, 2 ** k) for k in itertools.count())
 
     def calls():
-        for _ in range(iters):
+        n = next(windows)
+        for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        return n
 
     def timed(prof):
         by_name = {}
@@ -459,14 +503,14 @@ def device_ms(fn, names=None, iters: int = 20):
                 by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
         return by_name
 
-    prof, _ = retaken_window(calls, lambda prof, _: bool(timed(prof)),
-                             cpu=False)
+    prof, n_calls = retaken_window(
+        calls, lambda prof, _: bool(timed(prof)), cpu=False)
     by_name = timed(prof)
     if not by_name:
         raise AssertionError("device_ms: the profiler saw no device time")
     ms = per_call = 0
     for us, count in by_name.values():
-        n = max(1, round(count / iters))
+        n = max(1, round(count / n_calls))
         ms += us / count * n / 1e3
         per_call += n
     return ms, per_call
@@ -895,7 +939,8 @@ WRAPPER_KERNELS = {"flash_fwd": ("flash_fwd_3xtf32_kernel",
                                          "contrastive_dtau_sum_kernel"),
                    "decode_attention": ("decode_split_kernel",
                                         "decode_merge_kernel"),
-                   "ssd_scan": ("ssd_scan_kernel",)}
+                   "ssd_scan": ("ssd_scan_kernel",),
+                   "ssd_scan_bwd": ("ssd_bwd_",)}
 
 
 # device kernels by group, first match wins: the port's kernels, the
@@ -905,7 +950,7 @@ KERNEL_GROUPS = (("flash kernels", ("flash_fwd_", "flash_bwd_")),
                  ("top-k kernels", ("topk_",)),
                  ("decode kernels", ("decode_split_kernel",
                                      "decode_merge_kernel")),
-                 ("ssd kernels", ("ssd_scan_kernel",)),
+                 ("ssd kernels", ("ssd_scan_kernel", "ssd_bwd_")),
                  ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
                  ("copies and casts", ("copy", "Memcpy", "Memset")))
 
@@ -922,11 +967,12 @@ def wrapper_kernels_seen(prof, wrappers):
 
 
 def device_breakdown(prof, label, wall_us, units, calls,
-                     groups=KERNEL_GROUPS):
+                     groups=KERNEL_GROUPS, by_group_out=None):
     """Print the profiled window's device time by kernel, by group of
     ``groups`` and its busy share; return, for each wrapper in ``calls``
     (wrapper -> calls in the window), the device kernels the profiler saw
-    per wrapper call."""
+    per wrapper call. ``by_group_out`` (a dict), when given, receives the
+    device milliseconds per unit by group."""
     by_kernel = {}
     seen = wrapper_kernels_seen(prof, calls)
     n_device = 0
@@ -948,6 +994,9 @@ def device_breakdown(prof, label, wall_us, units, calls,
         group = next((g for g, keys in groups if any(
             k in name for k in keys)), "other (elementwise, reductions)")
         by_group[group] = by_group.get(group, 0.0) + us
+    if by_group_out is not None:
+        by_group_out.update({g: us / 1e3 / units
+                             for g, us in by_group.items()})
     print(f"profile {label} by group: " + "; ".join(
         f"{g} {us / 1e3 / units:.3f} ms/{unit} "
         f"({100 * us / max(busy, 1e-9):.1f}%)"
@@ -1499,9 +1548,10 @@ def check_step_parity(label, results, lr, flash_launches, needed=None):
     update by leaf path, seconds)``. The loss within TRAIN_LOSS_TOL, every
     gradient leaf within TRAIN_GRAD_RTOL of its largest entry, the updated
     params within TRAIN_UPDATE_TOL_LR·lr (an unfactored element may differ
-    more only where its gradient is near zero). The kernel path must
-    launch both f32 flash kernels (``needed`` times each, when given) and
-    the plain path neither. Returns the errors."""
+    more only where its gradient is near zero). ``flash_launches[path]``
+    counts the path's kernels (the f32 flash kernels, or the others the
+    step runs): the kernel path must launch each (``needed`` times, when
+    given) and the plain path none. Returns the errors."""
     (lk, gk, pk, tk), (lp, gp, pp, tp) = results["kernel"], results["plain"]
     loss_err = abs(lk - lp)
     grad_rel = {path: ((gk[path] - gp[path]).abs().max()
@@ -1532,13 +1582,13 @@ def check_step_parity(label, results, lr, flash_launches, needed=None):
           f"{TRAIN_UPDATE_TOL_LR * lr:.3g} = {TRAIN_UPDATE_TOL_LR}·lr; "
           f"{flips} unfactored elements with near-zero gradients differ "
           f"more); step {tk:.2f}s kernel path, {tp:.2f}s plain path; "
-          f"f32 flash launches {flash_launches}", flush=True)
+          f"f32 kernel launches {flash_launches}", flush=True)
     kernel_counts = flash_launches["kernel"].values()
     if (min(kernel_counts) < 1
             or (needed is not None and set(kernel_counts) != {needed})
             or max(flash_launches["plain"].values()) > 0):
-        raise AssertionError(f"{label}: the kernel path must launch both "
-                             f"f32 flash kernels"
+        raise AssertionError(f"{label}: the kernel path must launch each "
+                             f"of its kernels"
                              + (f" {needed} times each" if needed else "")
                              + f" and the plain path neither, got "
                              f"{flash_launches}")
@@ -2844,7 +2894,7 @@ def phase_ssm_prefill_profile(eng):
 
 
 # ---------------------------------------------------------------------------
-# phases 19-23: LM training (--mode lm), checkpoints, the registry's disk
+# phases 19-22: LM training (--mode lm), checkpoints, the registry's disk
 # cache, and the paths the card refuses
 # ---------------------------------------------------------------------------
 
@@ -2887,12 +2937,9 @@ def phase_lm_parity(batch: int = 2, seq: int = 512, lr: float = 1e-3):
     none on the plain path."""
     import numpy as np
     import torch
-    from repro_torch import interop
     from repro_torch.configs import get_arch
-    from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import frontends
     from repro_torch.models import transformer as tf
-    from repro_torch.optim import AdaFactorW, apply_updates
 
     cfg = get_arch("llama3.2-1b")
     params = tf.init_params(cfg, torch.Generator(device="cuda")
@@ -2900,24 +2947,11 @@ def phase_lm_parity(batch: int = 2, seq: int = 512, lr: float = 1e-3):
     batch = frontends.synthetic_inputs(cfg, batch, seq,
                                        np.random.default_rng(2),
                                        device="cuda")
-    opt = AdaFactorW(weight_decay=0.0025)
     results, launches = {}, {}
     for path, attn in (("kernel", "pallas"), ("plain", "chunked")):
         pcfg = dataclasses.replace(cfg, attn_impl=attn)
-        for ctr in lm_counters():
-            ctr.reset()
-        t0 = time.perf_counter()
-        loss, _, grads = value_and_grad(
-            lambda p: tf.lm_loss(pcfg, p, batch, precision="f32"), params)
-        updates, _ = opt.update(grads, opt.init(params), params, lr)
-        new = apply_updates(params, updates)
-        del updates
-        torch.cuda.synchronize()
-        results[path] = (loss.item(), dict(interop.leaves(grads)),
-                         dict(interop.leaves(new)),
-                         time.perf_counter() - t0)
-        launches[path] = {c.name: c.count for c in lm_counters()}
-        del grads, new
+        results[path], launches[path] = lm_step_results(
+            pcfg, params, batch, lr, lm_counters())
     rec = check_step_parity(
         f"lm parity (Llama-3.2-1B f32, b={batch['tokens'].shape[0]} x "
         f"s={seq})", results, lr, launches, needed=cfg.n_layers)
@@ -2994,11 +3028,15 @@ def phase_lm_timed():
     return per_step, rep
 
 
-def lm_step_profile(params, opt_state):
+def lm_step_profile(params, opt_state, arch="llama3.2-1b", batch=4,
+                    seq=1024, counters=None, groups=KERNEL_GROUPS,
+                    by_group=None):
     """A torch.profiler window over one more warm ``--mode lm`` step (the
-    trainer's ``lm_step`` at its f32 settings) from the timed run's state:
-    device time by kernel and group, busy share, device kernels per flash
-    call."""
+    trainer's ``lm_step`` at its f32 settings) of ``arch`` from the timed
+    run's state at ``batch`` × ``seq``: device time by kernel and group of
+    ``groups`` (into ``by_group`` when given), busy share, device kernels
+    per call of each of ``counters``' wrappers (the flash kernels by
+    default)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -3006,75 +3044,49 @@ def lm_step_profile(params, opt_state):
     from repro_torch.models import frontends
     from repro_torch.optim import AdaFactorW
 
-    cfg = dataclasses.replace(get_arch("llama3.2-1b"), attn_impl="pallas")
+    counters = lm_counters() if counters is None else counters
+    cfg = dataclasses.replace(get_arch(arch), attn_impl="pallas")
     step = lm_step(cfg, AdaFactorW(weight_decay=0.0025), 1e-3,
                    precision="f32")
-    batch = frontends.synthetic_inputs(cfg, 4, 1024, np.random.default_rng(3),
-                                       device="cuda")
+    data = frontends.synthetic_inputs(cfg, batch, seq,
+                                      np.random.default_rng(3),
+                                      device="cuda")
     calls = {}
 
     def one_step():
-        before = {c.name: c.count for c in lm_counters()}
+        before = {c.name: c.count for c in counters}
         t0 = time.perf_counter()
-        _, _, loss, _ = step(params, opt_state, batch)
+        _, _, loss, _ = step(params, opt_state, data)
         float(loss)
         torch.cuda.synchronize()
         calls.update({c.name: c.count - before[c.name]
-                      for c in lm_counters()})
+                      for c in counters})
         return (time.perf_counter() - t0) * 1e6
 
     prof, wall_us = retaken_window(
         one_step, lambda prof, _: all(
             seen >= calls[w]
             for w, seen in wrapper_kernels_seen(prof, calls).items()))
-    return device_breakdown(prof, "1 warm lm step", wall_us, 1, calls)
+    return device_breakdown(prof, "1 warm lm step", wall_us, 1, calls,
+                            groups, by_group)
 
 
 def phase_lm_step_bf16(steps: int = 3):
     """``make_train_step`` (bf16, remat basic, flash attention) on
     Llama-3.2-1B at the timed run's shape, ``steps`` steps: warm step
     median, tokens/s, peak memory, flash launches per step."""
-    import math
-    import statistics
-
-    import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import frontends
     from repro_torch.models import transformer as tf
 
     cfg = dataclasses.replace(get_arch("llama3.2-1b"), attn_impl="pallas")
     params = tf.init_params(cfg, torch.Generator(device="cuda")
                             .manual_seed(0), "cuda")
     step_fn, opt = make_train_step(cfg)
-    opt_state = opt.init(params)
-    rng = np.random.default_rng(0)
-    torch.cuda.reset_peak_memory_stats()
-    for ctr in lm_counters():
-        ctr.reset()
-    step_s, losses = [], []
-    for _ in range(steps):
-        batch = frontends.synthetic_inputs(cfg, 4, 1024, rng, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, loss, _ = step_fn(params, opt_state, batch)
-        losses.append(loss.item())
-        step_s.append(time.perf_counter() - t0)
-    median = statistics.median(step_s[1:])
-    rec = {"warm_step_median_s": median, "tokens_per_s": 4096 / median,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "step_s": step_s, "losses": losses,
-           "launches_per_step": {c.name: c.count / steps
-                                 for c in lm_counters()}}
-    print(f"lm make_train_step (bf16, remat basic, b 4 x s 1024): warm step "
-          f"median {median:.4f} s, {rec['tokens_per_s']:.1f} tokens/s, "
-          f"max_memory_allocated {rec['max_memory_allocated'] / 2**30:.3f} "
-          f"GiB; step s {[round(t, 4) for t in step_s]}; losses "
-          f"{[round(v, 5) for v in losses]}; launches per step "
-          f"{rec['launches_per_step']}", flush=True)
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"lm bf16 step: non-finite loss {losses}")
+    rec, _, _ = timed_steps("lm make_train_step (bf16, remat basic)", cfg,
+                            params, opt.init(params), step_fn, 4, 1024,
+                            steps, lm_counters())
     return rec
 
 
@@ -3114,39 +3126,6 @@ def phase_registry_disk(cfg, params, tok):
         raise AssertionError("registry: topk_fused was not launched")
     return {"computed_s": first["class_matrix_s"],
             "disk_s": second["class_matrix_s"]}
-
-
-def phase_refused_on_card():
-    """What the card refuses until the SSM training slice: ``ssd_scan``
-    with an input that requires grad, and ``--mode lm`` for Mamba-2."""
-    import torch
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.launch import train
-    g = torch.Generator(device="cuda").manual_seed(7)
-    b, l, h, p, n = 1, 64, 2, 64, 16
-    x = torch.randn((b, l, h, p), generator=g, device="cuda",
-                    requires_grad=True)
-    dt = torch.rand((b, l, h), generator=g, device="cuda")
-    A = -torch.ones((h,), device="cuda")
-    Bm, Cm = (torch.randn((b, l, n), generator=g, device="cuda")
-              for _ in range(2))
-    for label, fn in (
-            ("ssd_scan with grad", lambda: ssd_ops.ssd_scan(
-                x, dt, A, Bm, Cm, chunk=64)),
-            ("--mode lm --arch mamba2-130m", lambda: train.main(
-                ["--mode", "lm", "--arch", "mamba2-130m", "--batch", "1",
-                 "--seq", "256", "--steps", "1"]))):
-        try:
-            fn()
-        except NotImplementedError as e:
-            print(f"refused on the card: {label}: {e}", flush=True)
-        else:
-            raise AssertionError(f"{label} ran on the card: the scan has "
-                                 f"no backward there")
-    with torch.no_grad():
-        y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
-    if not bool(torch.isfinite(y).all()):
-        raise AssertionError("ssd_scan without grad mode: non-finite y")
 
 
 # ---------------------------------------------------------------------------
@@ -3773,6 +3752,574 @@ def phase_hybrid_serve(cfg, params):
             "busy": busy}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the SSD scan's backward kernel
+# ---------------------------------------------------------------------------
+
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu"
+SSD_BWD_REPLACES = ("none: the reference differentiates the jnp ssd_chunked "
+                    "(src/repro/models/ssm.py:71) through XLA")
+# the backward's sums over b·l (dA) and b·l·p (dD) take terms of either
+# sign whose fp32 sums, in any order, carry ~1e-5 of the largest term
+# (each case prints the plain fp32 version's own distance from an fp64
+# evaluation beside the kernel's); the other gradients hold SSD_TOL_REL
+SSD_GRAD_SUM_TOL_REL = 1e-4
+SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+# bf16 dx, dB, dC are the fp32 result rounded to bf16: one bf16 ulp (up to
+# 2^-7 of |ref|) more per element, where autograd's bf16 gradient and the
+# kernel's round across a boundary apart (half that against an fp32 ref)
+BF16_GRAD_ULP = 2.0 ** -7
+
+
+def ssd_grad_errs(label, got, ref, what):
+    """Hold the seven gradients ``got`` against ``ref`` (plain, f32 or
+    fp64): within SSD_TOL_REL of each one's max |ref| (dA, dD within
+    SSD_GRAD_SUM_TOL_REL), a bf16 one within BF16_GRAD_ULP·|ref| more per
+    element, all finite; returns the max abs errors by name."""
+    import torch
+    errs = {}
+    for name, g, r in zip(SSD_GRAD_NAMES, got, ref):
+        if r is None:
+            if g is not None:
+                raise AssertionError(f"{label}: {name} should be None")
+            continue
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"{label}: {name} is not finite")
+        r = r.to(torch.float64)
+        err = (g.to(torch.float64) - r).abs()
+        errs[name] = err.max().item()
+        rel = SSD_GRAD_SUM_TOL_REL if name in ("dA", "dD") else SSD_TOL_REL
+        lim = rel * r.abs().max().item()
+        excess = err - (BF16_GRAD_ULP * r.abs() if g.dtype == torch.bfloat16
+                        else 0.0)
+        if not excess.max().item() <= lim:
+            raise AssertionError(f"{label}: {name} max err {errs[name]:.3g} "
+                                 f"against {what} (limit {rel}·max|ref| = "
+                                 f"{lim:.3g})")
+    return errs
+
+
+def ssd_bwd_bytes(b, l, h, p, n, item, init, dfinal):
+    """Bytes the backward must move: x, B, C (``item`` bytes), dt, dy, the
+    saved states (one per 64-token sub-chunk) and the final state read;
+    dx, dB, dC (``item``), ddt, dA, dD (and d(init)) written; each once."""
+    states = b * h * (-(-l // 64) + 1 + (1 if dfinal else 0)) * p * n * 4
+    inputs = (b * l * h * p + 2 * b * l * n) * item + b * l * h * 4
+    grads = (b * l * h * p + 2 * b * l * n) * item + b * l * h * 4 + 2 * h * 4
+    return (inputs + b * l * h * p * 4 + states + grads
+            + (b * h * p * n * 4 * 2 if init else 0) + 2 * h * 4)
+
+
+def ssd_bwd_case(label, b, l, dtype, seed, init=False, dfinal=False, h=24,
+                 p=64, n=128, timed=True):
+    """The backward kernel against the plain backward ``ssd_chunked_bwd``
+    (in the kernel's 64-token chunks where they divide l) and against
+    autograd through ``ssd_chunked``, inputs as the mixer's split views;
+    the plain version's and the kernel's distance from an fp64 evaluation
+    printed beside; times kernel (events and device time) and plain
+    version. Returns the case's record."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import (chunk_of, ssd_chunked,
+                                                  ssd_chunked_bwd)
+    args = ssd_inputs(b, l, dtype, seed, init, False, h, p, n)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dy = torch.randn((b, l, h, p), generator=g, device="cuda")
+    df = (torch.randn((b, h, p, n), generator=g, device="cuda") if dfinal
+          else None)
+    chunk = 64 if l % 64 == 0 else chunk_of(l, 256)
+    _, final, states = ssd_ops._launch(*args, save_states=True)
+    got = ssd_ops.ssd_scan_bwd(*args, states, final, dy, df)
+    torch.cuda.synchronize()
+    dt_name = dtype_name(dtype)
+    shape = (f"{label}: b={b} l={l} h={h} p={p} n={n} {dt_name}"
+             + (" init_state" if init else "") + (" dfinal" if dfinal
+                                                  else ""))
+    ref = ssd_chunked_bwd(*args, dy, df, chunk)
+    errs = ssd_grad_errs(f"ssd_scan_bwd {shape}", got, ref,
+                         "the plain backward")
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in args]
+    yr, fr = ssd_chunked(*leaves[:5], chunk, leaves[6], leaves[5])
+    loss = (yr * dy).sum() + ((fr * df).sum() if dfinal else 0)
+    wanted = [t for t in leaves if t is not None]
+    auto = iter(torch.autograd.grad(loss, wanted))
+    auto = [None if t is None else next(auto) for t in leaves]
+    del yr, fr, loss
+    auto_errs = ssd_grad_errs(f"ssd_scan_bwd {shape}", got, auto,
+                              "autograd through ssd_chunked")
+    del auto
+    ref64 = ssd_chunked_bwd(*(None if t is None else t.double()
+                              for t in args), dy.double(),
+                            None if df is None else df.double(), chunk)
+    rel64 = {}
+    for name, k, r32, r in zip(SSD_GRAD_NAMES, got, ref, ref64):
+        if r is not None:
+            scale = r.abs().max().item()
+            rel64[name] = ((k.double() - r).abs().max().item() / scale,
+                           (r32.double() - r).abs().max().item() / scale)
+    del ref64
+    plan = ssd_ops.ssd_bwd_plan(b, l, h, p, n)
+    rec = {"shape": shape, "plan": plan._asdict(),
+           "max_abs_err": max(errs.values()), "errs": errs,
+           "autograd_errs": auto_errs,
+           "fp64_rel": {k: {"kernel": v[0], "plain_f32": v[1]}
+                        for k, v in rel64.items()},
+           "library_ms": None}
+    if timed:
+        def call():
+            ssd_ops.ssd_scan_bwd(*args, states, final, dy, df)
+        rec["ms"] = time_ms(call, iters=10)
+        rec["device_ms"], rec["device_kernels"] = device_ms(
+            call, WRAPPER_KERNELS["ssd_scan_bwd"], iters=5)
+        rec["plain_ms"] = time_ms(lambda: ssd_chunked_bwd(
+            *args, dy, df, chunk), iters=3, warmup=1)
+        item = torch.finfo(dtype).bits // 8
+        # the backward's least work is twice the forward's: each product
+        # of the chunked form has two gradient products; fp32-accurate
+        # (dy and the states are fp32 in both dtypes), so at split 3×TF32
+        rec["bound_ms"], rec["bound_by"] = bound(
+            ssd_bwd_bytes(b, l, h, p, n, item, init, dfinal),
+            2 * ssd_least_flops(b, l, h, p, n), dt_name, PEAK_3XTF32)
+    print(f"ssd_scan_bwd {shape}: plan {tuple(plan)}; max abs err vs plain "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
+          f"{SSD_TOL_REL}·max, dA and dD {SSD_GRAD_SUM_TOL_REL}·max), vs "
+          f"autograd {max(auto_errs.values()):.3g}; relative to fp64 "
+          f"(kernel, plain f32) "
+          f"{ {k: (float(f'{a:.3g}'), float(f'{c:.3g}')) for k, (a, c) in rel64.items()} }"
+          + (f"; kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f} "
+             f"ms, {rec['device_kernels']} device kernels), plain "
+             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+             f"({rec['bound_by']})" if timed else ""), flush=True)
+    return rec
+
+
+def phase_ssd_bwd_kernel():
+    """The SSD backward kernel at Mamba-2-130M's shapes (b 2 × l 4096, 16
+    chunks of 256; b 1 × l 244 with an initial state and a final-state
+    gradient) and Jamba's (256 heads, b 1 × l 4096), f32 and bf16, against
+    the plain backward and autograd; the same inputs twice give the same
+    bits. Returns the records by (label, dtype name)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    recs = {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        dt = dtype_name(dtype)
+        recs[("mamba2", dt)] = ssd_bwd_case("mamba2", 2, 4096, dtype, 80 + i)
+        recs[("mamba2 l=244", dt)] = ssd_bwd_case(
+            "mamba2 ragged", 1, 244, dtype, 82 + i, init=True, dfinal=True)
+        recs[("jamba", dt)] = ssd_bwd_case("jamba", 1, 4096, dtype, 84 + i,
+                                           **JAMBA_SSD)
+        args = ssd_inputs(2, 4096, dtype, 86 + i, init=True)
+        dy = torch.randn((2, 4096, 24, 64), device="cuda")
+        df = torch.randn((2, 24, 64, 128), device="cuda")
+        _, final, states = ssd_ops._launch(*args, save_states=True)
+        one = ssd_ops.ssd_scan_bwd(*args, states, final, dy, df)
+        two = ssd_ops.ssd_scan_bwd(*args, states, final, dy, df)
+        if not all(torch.equal(a, b) for a, b in zip(one, two)):
+            raise AssertionError(f"ssd_scan_bwd {dt}: two runs on the same "
+                                 f"inputs differ")
+        print(f"ssd_scan_bwd {dt}: two runs on the same inputs give the "
+              f"same bits (b 2 x l 4096, state in and out)", flush=True)
+        del one, two, args, states, final
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phases 31-32: SSM training on the card
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-130m"
+# the timed SSM training run: INPUT_SHAPES["train_4k"]'s sequence at b 2
+SSM_TRAIN_ARGV = ["--mode", "lm", "--arch", MAMBA, "--batch", "2", "--seq",
+                  "4096", "--steps", "4", "--seed", "0"]
+# device kernels by group on the SSM training path, first match wins
+SSM_TRAIN_GROUPS = (("ssd scan forward", ("ssd_scan_kernel",)),
+                    ("ssd scan backward", ("ssd_bwd_",)),
+                    *KERNEL_GROUPS[5:])
+
+
+def ssd_counters():
+    """The SSD scan's forward and backward launch counters."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return (ssd_ops.COUNTER, ssd_ops.BWD_COUNTER)
+
+
+def lm_step_results(cfg, params, batch, lr, counters, moe_args=None,
+                    to_host=False):
+    """One f32 ``lm_loss`` step and ``run_lm``'s AdaFactorW update: (loss,
+    gradients by leaf path, params after the update by leaf path,
+    seconds), and the launches of ``counters`` in it. With ``to_host`` the
+    trees go to host memory (a full-width MoE layer's gradients and
+    updated params are 23 GB: one path's at a time on the card)."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdaFactorW, apply_updates
+    for ctr in counters:
+        ctr.reset()
+    t0 = time.perf_counter()
+    loss, _, grads = value_and_grad(
+        lambda p: tf.lm_loss(cfg, p, batch, precision="f32",
+                             moe_args=moe_args), params)
+    opt = AdaFactorW(weight_decay=0.0025)
+    updates, _ = opt.update(grads, opt.init(params), params, lr)
+    new = apply_updates(params, updates)
+    del updates
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    move = (lambda t: t.to("cpu")) if to_host else (lambda t: t)
+    out = (loss.item(), {k: move(v) for k, v in interop.leaves(grads)},
+           {k: move(v) for k, v in interop.leaves(new)}, secs)
+    return out, launches
+
+
+class OnCard(dict):
+    """Leaves kept in host memory, each brought to the card when read."""
+
+    def __getitem__(self, key):
+        return super().__getitem__(key).to("cuda")
+
+
+def phase_ssm_train_parity(batch: int = 2, seq: int = 1024,
+                           lr: float = 1e-3):
+    """One f32 step of Mamba-2-130M at full width and depth (b 2 × s
+    1024) on the kernel path (the scan's forward and backward kernels) and
+    the plain path (the scan's plain version, autograd), from one set of
+    weights and one batch, held by ``check_step_parity``: 24 + 24 launches
+    on the kernel path, none on the plain. Then one full-width Jamba
+    Mamba-2 mixer layer (d 8192, 256 heads) forward and backward at b 1 ×
+    l 4096 on both paths: every mixer leaf's gradient and the input's
+    within TRAIN_GRAD_RTOL of its max."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import frontends
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(MAMBA)
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(9), "cuda")
+    data = frontends.synthetic_inputs(cfg, batch, seq,
+                                      np.random.default_rng(9),
+                                      device="cuda")
+    results, launches = {}, {}
+    for path in ("kernel", "plain"):
+        with plain_path() if path == "plain" else contextlib.nullcontext():
+            results[path], launches[path] = lm_step_results(
+                cfg, params, data, lr, ssd_counters())
+    rec = check_step_parity(f"ssm train parity (Mamba-2-130M f32, b={batch} "
+                            f"x s={seq})", results, lr, launches,
+                            needed=cfg.n_layers)
+    del results, params
+    torch.cuda.empty_cache()
+
+    jcfg = get_arch(JAMBA)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    mixer = ssm_lib.init_ssm_params(jcfg, g, device="cuda")
+    x = torch.randn((1, 4096, jcfg.d_model), generator=g, device="cuda")
+    cot = torch.randn((1, 4096, jcfg.d_model), generator=g, device="cuda")
+    grads, mix_launches = {}, {}
+    for path in ("kernel", "plain"):
+        for ctr in ssd_counters():
+            ctr.reset()
+        live = {k: v.detach().requires_grad_() for k, v in mixer.items()}
+        xin = x.detach().requires_grad_()
+        with plain_path() if path == "plain" else contextlib.nullcontext():
+            out, _ = ssm_lib.mamba_mixer(live, jcfg, xin)
+            (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        grads[path] = {**{k: v.grad for k, v in live.items()}, "x": xin.grad}
+        mix_launches[path] = {c.name: c.count for c in ssd_counters()}
+        del live, xin, out
+    rel = {k: ((grads["kernel"][k] - g).abs().max()
+               / g.abs().max().clamp(min=1e-30)).item()
+           for k, g in grads["plain"].items()}
+    worst = max(rel, key=rel.get)
+    print(f"jamba mixer layer (d {jcfg.d_model}, 256 heads, b 1 x l 4096, "
+          f"f32): largest relative gradient error {rel[worst]:.3g} at "
+          f"{worst} (tol {TRAIN_GRAD_RTOL}) over {sorted(rel)}; launches "
+          f"{mix_launches}", flush=True)
+    if set(mix_launches["kernel"].values()) != {1} or max(
+            mix_launches["plain"].values()) > 0:
+        raise AssertionError(f"jamba mixer: the kernel path must launch the "
+                             f"scan forward and backward once each and the "
+                             f"plain path neither, got {mix_launches}")
+    if not (rel[worst] <= TRAIN_GRAD_RTOL
+            and all(bool((g.abs() > 0).any()) and bool(
+                torch.isfinite(g).all()) for g in grads["kernel"].values())):
+        raise AssertionError("jamba mixer: kernel path and plain path "
+                             "gradients disagree, or one is zero or not "
+                             "finite")
+    del grads, mixer
+    torch.cuda.empty_cache()
+    return {**rec, "launches": launches["kernel"],
+            "jamba_mixer_grad_rel_err": rel[worst]}
+
+
+def timed_steps(label, cfg, params, opt_state, step_fn, batch, seq, steps,
+                counters, seed=0):
+    """``steps`` steps of ``step_fn`` on fresh synthetic batches of
+    ``batch`` × ``seq`` tokens: warm step median, tokens/s, peak memory,
+    losses, launches per step of ``counters``. Returns (record, params,
+    opt_state)."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.models import frontends
+    rng = np.random.default_rng(seed)
+    torch.cuda.reset_peak_memory_stats()
+    for ctr in counters:
+        ctr.reset()
+    step_s, losses = [], []
+    for _ in range(steps):
+        data = frontends.synthetic_inputs(cfg, batch, seq, rng,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = step_fn(params, opt_state, data)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    median = statistics.median(step_s[1:])
+    rec = {"warm_step_median_s": median,
+           "tokens_per_s": batch * seq / median,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "step_s": step_s, "losses": losses,
+           "launches_per_step": {c.name: c.count / steps for c in counters}}
+    print(f"{label} (b {batch} x s {seq}): warm step median {median:.4f} s, "
+          f"{rec['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+          f"{rec['max_memory_allocated'] / 2**30:.3f} GiB; step s "
+          f"{[round(t, 4) for t in step_s]}; losses "
+          f"{[round(v, 5) for v in losses]}; launches per step "
+          f"{rec['launches_per_step']}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    return rec, params, opt_state
+
+
+def phase_ssm_train_timed():
+    """``--mode lm --arch mamba2-130m`` through the trainer's ``main`` at
+    b 2 × s 4096, 4 steps (24 + 24 scan launches a step); a profile of one
+    more warm step (by kernel group: the scan's forward and backward
+    share, busy share); then ``make_train_step`` (bf16, remat basic) for 3
+    steps at the same shape. Returns (total launches of the trainer's run,
+    report)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+
+    for ctr in ssd_counters():
+        ctr.reset()
+    rep = train.main(SSM_TRAIN_ARGV)
+    steps = len(rep["losses"])
+    launches = {c.name: c.count for c in ssd_counters()}
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"ssm train (Mamba-2-130M --mode lm f32, b 2 x s 4096): warm step "
+          f"median {rep['warm_step_median_s']:.4f} s, "
+          f"{rep['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+          f"{rep['max_memory_allocated'] / 2**30:.3f} GiB; step s "
+          f"{[round(t, 4) for t in rep['step_s']]}; losses "
+          f"{[round(v, 5) for v in rep['losses']]}; launches per step "
+          f"{per_step}", flush=True)
+    if set(per_step.values()) != {24}:
+        raise AssertionError(f"ssm train: expected 24 ssd_scan and 24 "
+                             f"ssd_scan_bwd launches a step, got {per_step}")
+    rep["launches_per_step"] = per_step
+    params, opt_state = rep.pop("params"), rep.pop("opt_state")
+    by_group = {}
+    rep["device_kernels_per_call"], rep["busy"] = lm_step_profile(
+        params, opt_state, arch=MAMBA, batch=2, seq=4096,
+        counters=ssd_counters(), groups=SSM_TRAIN_GROUPS, by_group=by_group)
+    rep["profile_ms_by_group"] = by_group
+    del params, opt_state
+    torch.cuda.empty_cache()
+    cfg = get_arch(MAMBA)
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), "cuda")
+    step_fn, opt = make_train_step(cfg)
+    rep["bf16"], _, _ = timed_steps(
+        "ssm make_train_step (bf16, remat basic)", cfg, params,
+        opt.init(params), step_fn, 2, 4096, 3, ssd_counters())
+    # remat basic runs each block's forward again in the backward
+    if rep["bf16"]["launches_per_step"] != {"ssd_scan": 48,
+                                            "ssd_scan_bwd": 24}:
+        raise AssertionError(f"ssm bf16 step: expected 48 ssd_scan and 24 "
+                             f"ssd_scan_bwd launches a step, got "
+                             f"{rep['bf16']['launches_per_step']}")
+    return launches, rep
+
+
+# ---------------------------------------------------------------------------
+# phases 33-34: MoE training at full width (Mixtral-8x22B, 1 of 56 layers)
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS = 1
+# the timed MoE training runs: run_lm's f32 computation (capacity
+# dispatch) and make_train_step bf16, at b 1 × INPUT_SHAPES["train_4k"]'s
+# sequence
+MOE_TRAIN_SEQ = 4096
+
+
+def phase_moe_train_flash():
+    """The flash forward and backward at Mixtral's training shapes (b 1, 48
+    heads over 8 kv, d 128, causal, window 4096) over 4096 tokens and over
+    4608, where the window masks; f32 and bf16, against their plain
+    versions, timed against SDPA with ``enable_gqa``; prints the backward
+    plan's dq-partial bytes. Returns the records by (direction, s,
+    dtype)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    a = MOE_ATTN
+    recs = {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        dt = dtype_name(dtype)
+        for s in (MOE_TRAIN_SEQ, 4608):
+            recs[("fwd", s, dt)] = flash_case(
+                "mixtral train", 1, a["h"], s, a["d"], dtype, False, 90 + i,
+                kv=a["kv"], causal=True, window=a["window"])
+            plan = fa_ops.bwd_plan(a["h"], s, s, a["d"], dtype)
+            print(f"flash_bwd mixtral train s={s} {dt}: {plan.key_blocks} "
+                  f"key blocks of {plan.key_block}, dq partial "
+                  f"{plan.dq_part_floats * 4 / 1e9:.3f} GB", flush=True)
+            recs[("bwd", s, dt)] = flash_bwd_case(
+                "mixtral train", 1, a["h"], s, a["d"], dtype, False, 92 + i,
+                causal=True, window=a["window"], kv=a["kv"])
+            recs[("bwd", s, dt)]["dq_part_bytes"] = plan.dq_part_floats * 4
+            torch.cuda.empty_cache()
+    return recs
+
+
+def phase_moe_train(parity_seq: int = 1024, lr: float = 1e-3):
+    """Mixtral-8x22B at full width, 1 of its 56 layers (2.907G params,
+    11.63 GB f32), weights built once: one f32 step at b 1 × s 1024 on the
+    kernel path and the plain path (chunked attention), capacity dispatch,
+    held by ``check_step_parity`` (one path's gradients on the card at a
+    time); then ``run_lm``'s f32 ``lm_step`` (4 steps) and
+    ``make_train_step`` bf16 with remat basic (3 steps) at b 1 × s 4096:
+    step median, tokens/s, peak memory, flash launches per step."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import lm_step, make_train_step
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdaFactorW, warmup_cosine
+
+    cfg = dataclasses.replace(get_arch(MIXTRAL), n_layers=MOE_TRAIN_LAYERS,
+                              attn_impl="pallas")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(11), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    print(f"moe train: {MIXTRAL} at full width, {MOE_TRAIN_LAYERS} of 56 "
+          f"layers, {n} params ({4 * n / 1e9:.2f} GB f32), init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    data = frontends.synthetic_inputs(cfg, 1, parity_seq,
+                                      np.random.default_rng(11),
+                                      device="cuda")
+    results, launches = {}, {}
+    for path, attn in (("kernel", "pallas"), ("plain", "chunked")):
+        pcfg = dataclasses.replace(cfg, attn_impl=attn)
+        results[path], launches[path] = lm_step_results(
+            pcfg, params, data, lr, lm_counters(), to_host=path == "kernel")
+        if path == "kernel":
+            lk, gk, pk, tk = results[path]
+            results[path] = (lk, OnCard(gk), OnCard(pk), tk)
+        torch.cuda.empty_cache()
+    parity = check_step_parity(
+        f"moe train parity ({MIXTRAL} 1 layer f32, b=1 x s={parity_seq}, "
+        f"capacity dispatch)", results, lr, launches,
+        needed=MOE_TRAIN_LAYERS)
+    del results
+    torch.cuda.empty_cache()
+
+    opt = AdaFactorW(weight_decay=0.0025)
+    step = lm_step(cfg, opt, warmup_cosine(lr, lr / 100, 1, 4),
+                   precision="f32")
+    f32, params, _ = timed_steps(
+        "moe train (Mixtral-8x22B 1 layer, lm_step f32, capacity)", cfg,
+        params, opt.init(params), step, 1, MOE_TRAIN_SEQ, 4, lm_counters())
+    if set(f32["launches_per_step"].values()) != {MOE_TRAIN_LAYERS}:
+        raise AssertionError(f"moe train: expected 1 flash_fwd and 1 "
+                             f"flash_bwd launch a step, got "
+                             f"{f32['launches_per_step']}")
+    torch.cuda.empty_cache()
+    step_fn, bopt = make_train_step(cfg)
+    bf16, params, _ = timed_steps(
+        "moe train (Mixtral-8x22B 1 layer, make_train_step bf16, remat "
+        "basic)", cfg, params, bopt.init(params), step_fn, 1, MOE_TRAIN_SEQ,
+        3, lm_counters())
+    if bf16["launches_per_step"] != {"flash_fwd": 2, "flash_bwd": 1}:
+        raise AssertionError(f"moe train bf16: expected 2 flash_fwd (remat "
+                             f"basic) and 1 flash_bwd launch a step, got "
+                             f"{bf16['launches_per_step']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"parity": {**parity, "launches": launches["kernel"]},
+            "f32": f32, "bf16": bf16, "params": n}
+
+
+# ---------------------------------------------------------------------------
+# phase 35: hybrid training on the card (Jamba-1.5-Large, smoke variant)
+# ---------------------------------------------------------------------------
+
+
+def phase_hybrid_train_parity(lr: float = 1e-3):
+    """One f32 step of ``smoke_variant(jamba-1.5-large-398b)`` (b 2 × s
+    64, dense dispatch, as ``--mode lm --smoke``) on the kernel path (flash
+    forward and backward, the scan's forward and backward) and the plain
+    path, held by ``check_step_parity``: every kernel of the path
+    launches; then ``--mode lm --smoke`` through the trainer's ``main``, 2
+    steps."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.launch import train
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+
+    cfg = smoke_variant(get_arch(JAMBA))
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(12), "cuda")
+    data = frontends.synthetic_inputs(cfg, 2, 64, np.random.default_rng(12),
+                                      device="cuda")
+    counters = (*lm_counters(), *ssd_counters())
+    results, launches = {}, {}
+    for path, attn in (("kernel", "pallas"), ("plain", "chunked")):
+        pcfg = dataclasses.replace(cfg, attn_impl=attn)
+        with plain_path() if path == "plain" else contextlib.nullcontext():
+            results[path], launches[path] = lm_step_results(
+                pcfg, params, data, lr, counters,
+                moe_args={"dispatch": "dense"})
+    rec = check_step_parity(f"hybrid train parity (smoke {JAMBA} f32, b=2 "
+                            f"x s=64)", results, lr, launches)
+    for ctr in counters:
+        ctr.reset()
+    rep = train.main(["--mode", "lm", "--arch", JAMBA, "--smoke", "--steps",
+                      "2", "--batch", "2", "--seq", "64"])
+    cli = {c.name: c.count for c in counters}
+    print(f"hybrid --mode lm --smoke on the card: losses {rep['losses']}; "
+          f"launches {cli}", flush=True)
+    if not all(math.isfinite(v) for v in rep["losses"]) or min(
+            cli.values()) < 1:
+        raise AssertionError(f"hybrid --mode lm --smoke: losses "
+                             f"{rep['losses']}, launches {cli}")
+    return {**rec, "launches": launches["kernel"], "cli_launches": cli}
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -3787,6 +4334,7 @@ def main() -> int:
     from repro_torch.kernels.similarity_topk import ops as topk_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3795,7 +4343,7 @@ def main() -> int:
     resolve_device("cuda")
 
     libs = (fa_ops.LIB, fa_ops.BWD_LIB, topk_ops.LIB, cl_ops.LIB,
-            dec_ops.LIB, ssd_ops.LIB)
+            dec_ops.LIB, ssd_ops.LIB, ssd_ops.BWD_LIB)
     t0 = time.perf_counter()
     kbuild.build_all(libs)
     print(f"built kernels in {time.perf_counter() - t0:.1f}s (sm_90a)",
@@ -3847,13 +4395,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_bf16 = phase_lm_step_bf16()
     torch.cuda.empty_cache()
-    phase_refused_on_card()
+    ssd_bwd = phase_ssd_bwd_kernel()
+    torch.cuda.empty_cache()
+    ssm_train_parity = phase_ssm_train_parity()
+    torch.cuda.empty_cache()
+    ssm_train_launches, ssm_train = phase_ssm_train_timed()
     torch.cuda.empty_cache()
     moe_flash, moe_decode = phase_moe_kernels()
     torch.cuda.empty_cache()
     moe_parity = phase_moe_parity()
     torch.cuda.empty_cache()
     moe = phase_moe_serve()
+    torch.cuda.empty_cache()
+    moe_train_flash = phase_moe_train_flash()
+    torch.cuda.empty_cache()
+    moe_train = phase_moe_train()
     torch.cuda.empty_cache()
     jamba_flash, jamba_decode, jamba_scan = phase_hybrid_kernels()
     torch.cuda.empty_cache()
@@ -3864,6 +4420,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid = phase_hybrid_serve(jamba_cfg, jamba_params)
     del jamba_params
+    torch.cuda.empty_cache()
+    hybrid_train = phase_hybrid_train_parity()
     torch.cuda.empty_cache()
 
     f_main = flash[("image", torch.float32)]
@@ -3902,6 +4460,22 @@ def main() -> int:
                     name],
                 "mixtral_f32_parity_launches": moe_parity["launches"][name],
                 "mixtral_device_kernels_per_call": moe["per_call"].get(name)}
+
+    def mixtral_train_of(direction, name):
+        """The kernel at Mixtral's training shapes and its launches on the
+        MoE and hybrid training paths."""
+        return {"mixtral_train": [{k: r[k] for k in (
+                    "shape", "plan", *timing, "device_ms", "dq_part_bytes")
+                    if k in r} for (d, _, _), r in moe_train_flash.items()
+                    if d == direction],
+                "mixtral_train_f32_launches_per_step": moe_train["f32"][
+                    "launches_per_step"][name],
+                "mixtral_train_bf16_launches_per_step": moe_train["bf16"][
+                    "launches_per_step"][name],
+                "mixtral_train_f32_parity_launches": moe_train["parity"][
+                    "launches"][name],
+                "jamba_smoke_train_parity_launches": hybrid_train[
+                    "launches"][name]}
 
     def jamba_of(name, recs, per):
         """The kernel at Jamba's shapes and its launches on the hybrid
@@ -3974,7 +4548,8 @@ def main() -> int:
          **lm_of("fwd", fa_ops.COUNTER.name),
          **mixtral_of(fa_ops.COUNTER.name, moe_flash, "per_prefill"),
          **jamba_of(fa_ops.COUNTER.name, jamba_flash.values(),
-                    "per_prefill")},
+                    "per_prefill"),
+         **mixtral_train_of("fwd", fa_ops.COUNTER.name)},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -3996,7 +4571,8 @@ def main() -> int:
                         fa_ops.BWD_COUNTER.name],
                     text_f32={k: flash_bwd[("text", torch.float32)][k]
                               for k in (*timing, "device_ms", "plan")},
-                    **lm_of("bwd", fa_ops.BWD_COUNTER.name)),
+                    **lm_of("bwd", fa_ops.BWD_COUNTER.name),
+                    **mixtral_train_of("bwd", fa_ops.BWD_COUNTER.name)),
         train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
                     c_fwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][0]["max_abs_err"],
@@ -4057,7 +4633,38 @@ def main() -> int:
                     "per_prefill"),
          "jamba_max_abs_err_f32": max(r["max_abs_err"] for (_, dt), r in
                                       jamba_scan.items()
-                                      if dt == "float32")},
+                                      if dt == "float32"),
+         "ssm_train_launches_per_step": ssm_train["launches_per_step"][
+             ssd_ops.COUNTER.name],
+         "ssm_train_device_kernels_per_call": ssm_train[
+             "device_kernels_per_call"][ssd_ops.COUNTER.name],
+         "ssm_train_f32_parity_launches": ssm_train_parity["launches"][
+             ssd_ops.COUNTER.name],
+         "jamba_smoke_train_parity_launches": hybrid_train["launches"][
+             ssd_ops.COUNTER.name]},
+        {"name": ssd_ops.BWD_COUNTER.name, "route": "cuda",
+         "source": SSD_BWD_SOURCE, "replaces": SSD_BWD_REPLACES,
+         "launches": ssm_train_launches[ssd_ops.BWD_COUNTER.name],
+         **{k: ssd_bwd[("mamba2", "float32")][k] for k in timing},
+         **{k: ssd_bwd[("mamba2", "float32")][k] for k in (
+             "shape", "device_ms", "plan", "errs", "fp64_rel")},
+         "max_abs_err_bf16": max(r["max_abs_err"] for (_, dt), r in
+                                 ssd_bwd.items() if dt == "bfloat16"),
+         "cases": [{k: r[k] for k in ("shape", "plan", "max_abs_err", "ms",
+                                      "device_ms", "device_kernels",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "fp64_rel")}
+                   for r in ssd_bwd.values()],
+         "launches_per_step": ssm_train["launches_per_step"][
+             ssd_ops.BWD_COUNTER.name],
+         "device_kernels_per_call": ssm_train["device_kernels_per_call"][
+             ssd_ops.BWD_COUNTER.name],
+         "bf16_launches_per_step": ssm_train["bf16"]["launches_per_step"][
+             ssd_ops.BWD_COUNTER.name],
+         "f32_parity_launches": ssm_train_parity["launches"][
+             ssd_ops.BWD_COUNTER.name],
+         "jamba_smoke_train_parity_launches": hybrid_train["launches"][
+             ssd_ops.BWD_COUNTER.name]},
     ]
     print(f"recipe: phase 1 {recipe['pretrain']['images_per_s']:.1f} "
           f"images/s, phase 2 {recipe['frozen']['pairs_per_s']:.1f} pairs/s, "
@@ -4109,10 +4716,34 @@ def main() -> int:
           f", engines {hybrid_parity['engines']['same']} of "
           f"{hybrid_parity['engines']['requests']} requests equal",
           flush=True)
+    srep, mt = ssm_train, moe_train
+    print(f"ssm train: Mamba-2-130M --mode lm f32 (b 2 x s 4096) "
+          f"{srep['warm_step_median_s']:.4f} s a step, "
+          f"{srep['tokens_per_s']:.1f} tokens/s, "
+          f"{srep['max_memory_allocated'] / 2**30:.3f} GiB, profile busy "
+          f"share {srep['busy']:.4f}, device ms by group "
+          f"{ {k: round(v, 3) for k, v in srep['profile_ms_by_group'].items()} }"
+          f"; make_train_step bf16 "
+          f"{srep['bf16']['warm_step_median_s']:.4f} s, "
+          f"{srep['bf16']['tokens_per_s']:.1f} tokens/s, "
+          f"{srep['bf16']['max_memory_allocated'] / 2**30:.3f} GiB; f32 "
+          f"parity gradients {ssm_train_parity['grad_rel_err']:.3g}, Jamba "
+          f"mixer layer {ssm_train_parity['jamba_mixer_grad_rel_err']:.3g}",
+          flush=True)
+    print(f"moe train: {MIXTRAL} 1 layer ({mt['params']} params) lm_step f32 "
+          f"(b 1 x s {MOE_TRAIN_SEQ}) {mt['f32']['warm_step_median_s']:.4f} "
+          f"s, {mt['f32']['tokens_per_s']:.1f} tokens/s, "
+          f"{mt['f32']['max_memory_allocated'] / 2**30:.3f} GiB; "
+          f"make_train_step bf16 {mt['bf16']['warm_step_median_s']:.4f} s, "
+          f"{mt['bf16']['tokens_per_s']:.1f} tokens/s, "
+          f"{mt['bf16']['max_memory_allocated'] / 2**30:.3f} GiB; f32 parity "
+          f"gradients {mt['parity']['grad_rel_err']:.3g}; hybrid smoke "
+          f"parity gradients {hybrid_train['grad_rel_err']:.3g}", flush=True)
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
           f"{dec_busy:.4f}; ssm prefill profile busy share "
           f"{ssm_prefill_busy:.4f}; ssm decode profile busy share "
           f"{ssm_busy:.4f}", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,6 +64,10 @@
 // - Layout. x (b, l, h, p) and dt (b, l, h) are read in place through their
 //   batch, token and head strides (the mixer's split views, no copy), B and
 //   C through batch and token strides; y is written as (b, l, h, p).
+// - States for the backward. Given a `states` buffer (b, h, ⌈l / 64⌉, p, n)
+//   fp32 (under grad mode; ssd_bwd.cu reads it), the output pass also writes
+//   the state entering each sub-chunk there, as it carries it. Without one
+//   (serving) nothing more is written.
 // Inputs x, B, C are f32 or bf16 (one dtype); dt, A, D and the states are
 // fp32; y is fp32. Everything accumulates in fp32 with no atomic adds and
 // the segments' states fold in a fixed order, so a result is the same on
@@ -149,6 +153,7 @@ struct Params {
   const float* init_state;
   float* y;
   float* final_state;
+  float* states;   // (b, h, nsub, P, N): the state entering each sub-chunk
   int L, H, P, N, NP, nsub, per_cta, stages;
   long long xs_b, xs_t, xs_h, dts_b, dts_t, bs_b, bs_t, cs_b, cs_t;
 };
@@ -615,6 +620,18 @@ ssd_scan_kernel(const Params pr) {
         dtx[(e / PB) * XS + e % PB] = to_f32(Xs[e]) * dts[e / PB];
       if (tid < kQ) dcy[tid] = expf(last - cum[tid]);
     }
+    if (pr.states != nullptr) {
+      // Scur is the state entering sub-chunk sub0 + k until the update
+      // below, which follows a barrier
+      float* sp = pr.states +
+                  (((size_t)bi * H + hi) * pr.nsub + sub0 + k) * pr.P * pr.N +
+                  (size_t)p0 * pr.N;
+      for (int e = tid; e < PB * (pr.N / 4); e += kThreads) {
+        const int pp = e / (pr.N / 4), c = (e % (pr.N / 4)) * 4;
+        *reinterpret_cast<float4*>(sp + (size_t)pp * pr.N + c) =
+            *reinterpret_cast<const float4*>(Scur + pp * NS + c);
+      }
+    }
     const int t0 = (sub0 + k) * kQ;
     float2 yv[2][DN];
 #pragma unroll
@@ -725,7 +742,9 @@ bool aligned16(const void* p, int item, long long s0, long long s1,
 // fp32 with strides (dts_b, dts_t, 1); A, D (h,) fp32 (D may be null:
 // zeros); Bm, Cm (b, l, n) with strides (bs_b, bs_t, 1), (cs_b, cs_t, 1);
 // init_state (b, h, p, n) fp32 contiguous or null (zeros); y (b, l, h, p)
-// and final_state (b, h, p, n) fp32 contiguous. x, Bm, Cm share a dtype:
+// and final_state (b, h, p, n) fp32 contiguous; states (b, h, ceil(l / 64),
+// p, n) fp32 contiguous, or null: where given, the state entering each
+// 64-token sub-chunk is written there (for the backward). x, Bm, Cm share a dtype:
 // 0 = float32, 1 = bfloat16, each 16-byte aligned with strides of whole
 // 16-byte units. The launch plan (ops.ssd_plan): p_block head_dim columns
 // per CTA (16, 32 or 64, dividing p), `cluster` CTAs along the sequence of
@@ -737,7 +756,8 @@ bool aligned16(const void* p, int item, long long s0, long long s1,
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, const void* D,
                               const void* init_state, void* y,
-                              void* final_state, int dtype, int b, int l,
+                              void* final_state, void* states, int dtype,
+                              int b, int l,
                               int h, int p, int n, long long xs_b,
                               long long xs_t, long long xs_h, long long dts_b,
                               long long dts_t, long long bs_b, long long bs_t,
@@ -759,7 +779,8 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
       !aligned16(x, item, xs_b, xs_t, xs_h) ||
       !aligned16(Bm, item, bs_b, bs_t, 0) ||
       !aligned16(Cm, item, cs_b, cs_t, 0) ||
-      reinterpret_cast<uintptr_t>(y) % 8 != 0)
+      reinterpret_cast<uintptr_t>(y) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(states) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Params pr;
   pr.x = x;
@@ -771,6 +792,7 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   pr.init_state = static_cast<const float*>(init_state);
   pr.y = static_cast<float*>(y);
   pr.final_state = static_cast<float*>(final_state);
+  pr.states = static_cast<float*>(states);
   pr.L = l;
   pr.H = h;
   pr.P = p;

@@ -20,6 +20,14 @@ strides (the mixer passes split views of its conv output, 16-byte aligned
 at Mamba-2-130M, so nothing is copied) and needs only their last
 dimension contiguous; a view of x, B or C whose address or strides are not
 whole 16-byte units is copied to a contiguous tensor first.
+
+Under grad mode, with an input that requires grad, the scan is a
+``torch.autograd.Function`` (``_Scan``): on the card the forward kernel
+also writes the state entering each sub-chunk, and the backward is
+``ssd_scan_bwd``, the hand-written ``csrc/ssd_bwd.cu``; on the CPU the
+forward is ``ssd_chunked`` and the backward its plain counterpart
+``ref.ssd_chunked_bwd``. Without grad mode nothing is saved and the
+forward launches as it does for serving.
 """
 from __future__ import annotations
 
@@ -31,7 +39,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
-from repro_torch.kernels.ssd_scan.ref import chunk_of, ssd_chunked
+from repro_torch.kernels.ssd_scan.ref import (chunk_of, ssd_chunked,
+                                              ssd_chunked_bwd)
 
 SUB = 64             # tokens per sub-chunk (csrc kQ)
 P_BLOCKS = (64, 32, 16)  # head_dim columns per CTA
@@ -47,9 +56,16 @@ LIB = KernelLibrary(
     "ssd_scan",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "ssd.cu"),
-    {"repro_ssd_scan": (_I, [_P] * 9 + [_I] * 6 + [_L] * 9 + [_I] * 4
+    {"repro_ssd_scan": (_I, [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I] * 4
                         + [_L, _P])})
 COUNTER = LaunchCounter("ssd_scan")
+BWD_LIB = KernelLibrary(
+    "ssd_scan_bwd",
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                 "ssd_bwd.cu"),
+    {"repro_ssd_scan_bwd": (_I, [_P] * 24 + [_I] * 6 + [_L] * 9
+                            + [_I, _L, _P])})
+BWD_COUNTER = LaunchCounter("ssd_scan_bwd")
 
 
 class SsdPlan(NamedTuple):
@@ -182,6 +198,216 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+class SsdBwdPlan(NamedTuple):
+    """The backward's launch: ``p_block`` head_dim columns per CTA, grid
+    (sub-chunks, b·h, p / p_block) of 256 threads for the local and the
+    main kernel, ``smem`` bytes of shared memory per main-kernel CTA (its
+    layout; the C entry refuses other bytes) and ``scratch``, the floats
+    of each fp32 scratch part the call allocates, in the C entry's order:
+    the carried gradient R, the sub-chunks' log-decays, the dB and dC
+    partials by head and p-block, ddt's by p-block, dA's and dD's by
+    CTA."""
+    p_block: int
+    grid: tuple
+    smem: int
+    scratch: tuple
+
+
+def bwd_smem_bytes(p_block: int, n: int) -> int:
+    """Shared memory of one main-kernel CTA (csrc ``main_floats``): B and C
+    (64 × (n + 1)), x, dy, dt·x and a scratch plane (64 × (p_block + 1)),
+    one state (p_block × (n + 1)), three (64 × 65) planes, 7 vectors of 64
+    and 32 floats, all fp32."""
+    return 4 * (2 * SUB * (n + 1) + 4 * SUB * (p_block + 1)
+                + p_block * (n + 1) + 3 * SUB * (SUB + 1) + 7 * SUB + 32)
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_bwd_plan(b: int, l: int, h: int, p: int, n: int) -> SsdBwdPlan:
+    """The backward's launch at (b, l, h, p, n): the widest head_dim block
+    (64, 32, 16, dividing p) whose main-kernel CTA fits the shared memory
+    (64 at n 128, 16 at n 256). Raises ``ValueError`` for a shape the
+    kernel does not take."""
+    if p % 16 or n % 8 or not 8 <= n <= MAX_STATE:
+        raise ValueError(f"ssd_scan backward needs head_dim a multiple of 16 "
+                         f"and a state size a multiple of 8 up to "
+                         f"{MAX_STATE}, got p={p}, n={n}")
+    if b * h > 65535:
+        raise ValueError(f"ssd_scan backward takes b·h <= 65535, got "
+                         f"{b * h}")
+    blocks = [pb for pb in P_BLOCKS if p % pb == 0
+              and bwd_smem_bytes(pb, n) <= MAX_SMEM]
+    if not blocks:
+        raise ValueError(f"ssd_scan backward: no head_dim block fits shared "
+                         f"memory at p={p}, n={n}")
+    pb = blocks[0]
+    nsub = -(-l // SUB)
+    npb = p // pb
+    scratch = (b * h * nsub * p * n, b * h * nsub, h * npb * b * l * n,
+               h * npb * b * l * n, npb * b * l * h, b * nsub * npb * h,
+               b * nsub * npb * h)
+    return SsdBwdPlan(pb, (nsub, b * h, npb), bwd_smem_bytes(pb, n), scratch)
+
+
+def _strides(x, dt, Bm, Cm):
+    return (x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+            dt.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
+            Cm.stride(1))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kernel_inputs(x, dt, A, Bm, Cm, D, init_state):
+    """The inputs as both kernels read them: x, Bm, Cm of one dtype (f32 or
+    bf16) in whole 16-byte units (``_aligned``), dt, A, D, init_state fp32
+    (A, D, init_state contiguous), x, dt, Bm, Cm with a contiguous last
+    dimension; raises ``TypeError`` / ``ValueError`` otherwise."""
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_scan kernel takes x, Bm, Cm of one dtype, f32 "
+                        f"or bf16, got {x.dtype}/{Bm.dtype}/{Cm.dtype}")
+    if any(t is not None and t.dtype != torch.float32
+           for t in (dt, A, D, init_state)):
+        raise TypeError("ssd_scan kernel takes dt, A, D and init_state in "
+                        "float32")
+    if any(t.stride(-1) != 1 for t in (x, dt, Bm, Cm)):
+        raise ValueError("ssd_scan kernel needs x, dt, Bm and Cm with a "
+                         "contiguous last dimension")
+    return (_aligned(x), dt, A.contiguous(), _aligned(Bm), _aligned(Cm),
+            None if D is None else D.contiguous(),
+            None if init_state is None else init_state.contiguous())
+
+
+def _launch(x, dt, A, Bm, Cm, D, init_state, save_states: bool):
+    """The forward kernel on checked CUDA inputs: (y, final, the state
+    entering each sub-chunk (b, h, ⌈l / 64⌉, p, n) fp32 when
+    ``save_states``, else None)."""
+    b, l, h, p = x.shape
+    n = Bm.shape[-1]
+    x, dt, A, Bm, Cm, D, init_state = _kernel_inputs(x, dt, A, Bm, Cm, D,
+                                                     init_state)
+    plan = ssd_plan(b, l, h, p, n, x.dtype)
+    y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    states = (torch.empty((b, h, plan.subchunks, p, n), dtype=torch.float32,
+                          device=x.device) if save_states else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = LIB.lib().repro_ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), _ptr(D), _ptr(init_state), y.data_ptr(),
+            final.data_ptr(), _ptr(states), _DTYPES[x.dtype], b, l, h, p,
+            n, *_strides(x, dt, Bm, Cm), plan.p_block, plan.cluster,
+            plan.per_cta, plan.stages, plan.smem, stream)
+    check(rc, "ssd_scan launch")
+    COUNTER.add()
+    return y, final, states
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
+                 dfinal=None):
+    """The scan's backward on the card (``csrc/ssd_bwd.cu``): the
+    gradients (dx, ddt, dA, dBm, dCm, dD, d_init_state) of ``ssd_scan``'s
+    y (with ``D·x``) and final state, given the forward's inputs, the
+    state entering each 64-token sub-chunk and the final state (from the
+    forward kernel, ``_launch(..., save_states=True)``), dy (b, l, h, p)
+    and dfinal (b, h, p, n) or None (zeros). dx, dBm and dCm come in x's
+    dtype, the rest in fp32; dD is None when D is, d_init_state when
+    init_state is. One call is one counted launch sequence (the local,
+    carry and main kernels and five fixed-order sums, ``ssd_bwd_plan``);
+    there is no CPU path here (``ref.ssd_chunked_bwd`` is the plain
+    version)."""
+    _check_inputs(x, dt, A, Bm, Cm, D, init_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd runs on cuda, not {x.device}")
+    b, l, h, p = x.shape
+    n = Bm.shape[-1]
+    want = {"states": (states, (b, h, -(-l // SUB), p, n)),
+            "final": (final, (b, h, p, n)), "dy": (dy, (b, l, h, p)),
+            "dfinal": (dfinal, (b, h, p, n))}
+    for name, (t, shape) in want.items():
+        if t is not None and (tuple(t.shape) != shape
+                              or t.device != x.device):
+            raise ValueError(f"ssd_scan_bwd: {name} is {tuple(t.shape)} on "
+                             f"{t.device}, want {shape} on {x.device}")
+    if any(t is not None and t.dtype != torch.float32
+           for t in (states, final, dy, dfinal)):
+        raise TypeError("ssd_scan_bwd takes the states, dy and dfinal in "
+                        "float32")
+    plan = ssd_bwd_plan(b, l, h, p, n)
+    x, dt, A, Bm, Cm, D, init_state = _kernel_inputs(x, dt, A, Bm, Cm, D,
+                                                     init_state)
+    states, final, dy = states.contiguous(), final.contiguous(), \
+        dy.contiguous()
+    dfinal = None if dfinal is None else dfinal.contiguous()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
+    dB = torch.empty((b, l, n), dtype=x.dtype, device=dev)
+    dC = torch.empty((b, l, n), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, l, h), **f32)
+    dA = torch.empty((h,), **f32)
+    dD = None if D is None else torch.empty((h,), **f32)
+    dinit = None if init_state is None else torch.empty((b, h, p, n), **f32)
+    parts = torch.split(torch.empty((sum(plan.scratch),), **f32),
+                        plan.scratch)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = BWD_LIB.lib().repro_ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), _ptr(D), states.data_ptr(), final.data_ptr(),
+            dy.data_ptr(), _ptr(dfinal), dx.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), ddt.data_ptr(), dA.data_ptr(), _ptr(dD),
+            _ptr(dinit), *(t.data_ptr() for t in parts), _DTYPES[x.dtype],
+            b, l, h, p, n, *_strides(x, dt, Bm, Cm), plan.p_block,
+            plan.smem, stream)
+    check(rc, "ssd_scan_bwd launch")
+    BWD_COUNTER.add()
+    return dx, ddt, dA, dB, dC, dD, dinit
+
+
+class _Scan(torch.autograd.Function):
+    """The differentiable scan: forward and backward both kernels on the
+    card, both plain versions on the CPU (the same Function either way,
+    so the CPU tests drive what the card runs). The final state's gradient
+    is None when training does not read it
+    (``set_materialize_grads(False)``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            y, final = ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state, D)
+            states = None
+        else:
+            y, final, states = _launch(x, dt, A, Bm, Cm, D, init_state,
+                                       save_states=True)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, init_state, states,
+                              final)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm, D, init_state, states, final = ctx.saved_tensors
+        if dy is None and dfinal is None:
+            return (None,) * 8
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=final.dtype, device=x.device)
+        if x.device.type == "cpu":
+            grads = ssd_chunked_bwd(x, dt, A, Bm, Cm, D, init_state, dy,
+                                    dfinal, ctx.chunk)
+        else:
+            grads = ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states,
+                                 final, dy.float(),
+                                 None if dfinal is None else dfinal.float())
+        ins = (x, dt, A, Bm, Cm, D, init_state)
+        return (*(g.to(t.dtype) if need and g is not None else None
+                  for g, t, need in zip(grads, ins, ctx.needs_input_grad)),
+                None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, D=None, *, chunk: int,
              init_state=None):
@@ -194,53 +420,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x, dt, Bm, Cm with a contiguous last dimension. One call is one device
     kernel, launched as ``ssd_plan`` says. x, Bm or Cm not laid out in
     whole 16-byte units (address, strides) is first copied to a contiguous
-    tensor. The kernel has no backward yet: on the card, with grad mode on,
-    an input that requires grad raises ``NotImplementedError``."""
+    tensor. With grad mode on and an input that requires grad, the call is
+    differentiable (``_Scan``): the backward is ``ssd_scan_bwd`` on the
+    card, ``ssd_chunked_bwd`` on the CPU."""
     _check_inputs(x, dt, A, Bm, Cm, D, init_state)
-    b, l, h, p = x.shape
-    n = Bm.shape[-1]
-    c = chunk_of(l, chunk)
-    if x.device.type == "cpu":
-        return ssd_chunked(x, dt, A, Bm, Cm, c, init_state, D)
-    if x.device.type != "cuda":
+    c = chunk_of(x.shape[1], chunk)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, D, init_state)):
-        # the kernel's outputs carry no grad_fn: training through it would
-        # silently leave every parameter upstream of the scan untrained
-        raise NotImplementedError(
-            "ssd_scan has no backward on the card: gradients through the "
-            "SSD scan come with the SSM training slice (ROADMAP.md Queue 1, "
-            "item 6); the plain version on a CPU tensor is differentiable")
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise TypeError(f"ssd_scan kernel takes x, Bm, Cm of one dtype, f32 "
-                        f"or bf16, got {x.dtype}/{Bm.dtype}/{Cm.dtype}")
-    if any(t is not None and t.dtype != torch.float32
-           for t in (dt, A, D, init_state)):
-        raise TypeError("ssd_scan kernel takes dt, A, D and init_state in "
-                        "float32")
-    plan = ssd_plan(b, l, h, p, n, x.dtype)
-    if any(t.stride(-1) != 1 for t in (x, dt, Bm, Cm)):
-        raise ValueError("ssd_scan kernel needs x, dt, Bm and Cm with a "
-                         "contiguous last dimension")
-    x, Bm, Cm = _aligned(x), _aligned(Bm), _aligned(Cm)
-    A = A.contiguous()
-    D = None if D is None else D.contiguous()
-    init_state = None if init_state is None else init_state.contiguous()
-    y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
-    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = LIB.lib().repro_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), None if D is None else D.data_ptr(),
-            None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), final.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n,
-            x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
-            dt.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
-            Cm.stride(1), plan.p_block, plan.cluster, plan.per_cta,
-            plan.stages, plan.smem, stream)
-    check(rc, "ssd_scan launch")
-    COUNTER.add()
+        return _Scan.apply(x, dt, A, Bm, Cm, D, init_state, c)
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, Bm, Cm, c, init_state, D)
+    y, final, _ = _launch(x, dt, A, Bm, Cm, D, init_state, save_states=False)
     return y, final

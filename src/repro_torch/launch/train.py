@@ -13,10 +13,9 @@ recipe on one device (counterpart of ``repro/launch/train.py``:
   computes it. ``--precision`` and ``--remat`` are refused here (the
   reference's ``run_lm`` has neither); ``--attn`` picks the backend
   ('pallas', the default, is the flash kernels: on the card, the causal
-  grouped-query forward and backward). The SSM and hybrid families train
-  on the CPU, where the scan's plain version is differentiable; on the
-  card their ``ssd_scan`` kernel has no backward yet and raises
-  (ROADMAP.md Queue 1, item 6).
+  grouped-query forward and backward). The SSM and hybrid families'
+  Mamba-2 layers train through ``ssd_scan``'s autograd Function: on the
+  card its forward and backward kernels, on the CPU their plain versions.
 
 - ``--mode pretrain`` (phase 1, paper §8): the image tower plus a linear
   head under softmax cross-entropy of ``jft_batch``'s labels, one update

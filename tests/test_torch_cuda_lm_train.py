@@ -1,7 +1,8 @@
 """LM training on the card: the flash kernels' causal grouped-query
 backward against its plain version, one Llama step on the kernel path
-against the plain path at smoke size, ``--mode lm`` with a checkpoint, and
-the SSM family refused on the card (its scan has no backward yet).
+against the plain path at smoke size, and ``--mode lm`` with a checkpoint
+(the SSM family's training on the card is tested in
+tests/test_torch_cuda_ssd.py).
 Every test here needs a CUDA card and the CUDA toolkit; on a host without
 a card they skip (the card is looked for inside a fixture, never at
 import). Run them on the card with
@@ -122,9 +123,3 @@ def test_mode_lm_trains_saves_and_restores_on_the_card(gen, tmp_path):
     for (path, a), (_, b) in zip(interop.leaves(back),
                                  interop.leaves(rep["params"])):
         assert torch.equal(a, b), path
-
-
-def test_ssm_lm_training_is_refused_on_the_card(gen):
-    with pytest.raises(NotImplementedError, match="SSM training slice"):
-        ttrain.main(["--mode", "lm", "--arch", "mamba2-130m", "--smoke",
-                     "--steps", "1", "--batch", "1", "--seq", "32"])

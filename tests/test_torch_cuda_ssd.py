@@ -3,7 +3,12 @@ against its plain PyTorch version (``ssd_chunked``) and the sequential
 recurrence (``ssd_ref``), and the Mamba-2 model's prefill through the
 kernel against the plain path. Every test here needs a CUDA card and the
 CUDA toolkit; on a host without a card they skip (the card is looked for
-inside a fixture, never at import). Run them on the card with
+inside a fixture, never at import). The backward kernel
+(``csrc/ssd_bwd.cu``) is held against the plain backward
+``ssd_chunked_bwd`` in float64, bit for bit on a rerun, and through the
+differentiable ``ssd_scan``; the smoke Mamba-2 trains through
+``--mode lm`` on the card, and a smoke Mixtral step runs the flash
+backward against the plain path. Run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_ssd.py
 
@@ -28,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import chunk_of, ssd_chunked, ssd_ref
+from repro_torch.kernels.ssd_scan.ref import (chunk_of, ssd_chunked,
+                                              ssd_chunked_bwd, ssd_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -215,22 +221,159 @@ def test_ssd_kernel_without_d_or_state_and_counts_launches(gen):
     _assert_close(f, fr)
 
 
-def test_ssd_kernel_refuses_gradients(gen):
-    """The kernel's outputs carry no grad_fn: with grad mode on, an input
-    that requires grad raises rather than train upstream parameters with
-    no gradient; without grad mode (or with no such input) it runs."""
-    x, dt, A, Bm, Cm, D, _ = _inputs(gen, 1, 64, 2, 64, 16, torch.float32,
-                                     split=False)
-    for needs in (x, dt, A, D):
-        needs.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="SSM training slice"):
-            ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
-        with torch.no_grad():
-            y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
-        assert y.grad_fn is None
-        needs.requires_grad_(False)
-    y, _ = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=64)
-    assert bool(torch.isfinite(y).all())
+# the backward kernel against the plain backward evaluated in float64 (so
+# the error is the kernel's own): 2e-5 of each gradient's max |value|
+# (TOL_REL) for dx, ddt, dB, dC and d(init); dA and dD are sums over b·l
+# (and p) of terms that cancel, where fp32 sums in any order carry ~1e-5
+# of the largest term, so 1e-4 of their max. bf16 dx, dB, dC are the fp32
+# result rounded: 2^-8 of |ref| more per element (one ulp at a boundary)
+GRAD_SUM_TOL_REL = 1e-4
+BF16_ULP = 2.0 ** -8
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+
+
+def _bwd_case(gen, b, l, h, p, n, dtype, init, dfinal, split=True):
+    x, dt, A, Bm, Cm, D, s0 = _inputs(gen, b, l, h, p, n, dtype, init,
+                                      split)
+    dy = torch.randn((b, l, h, p), generator=gen, device="cuda")
+    df = (torch.randn((b, h, p, n), generator=gen, device="cuda") if dfinal
+          else None)
+    return (x, dt, A, Bm, Cm, D, s0), dy, df
+
+
+def _kernel_grads(args, dy, df):
+    """The forward kernel with its saved states, then the backward kernel:
+    the seven gradients."""
+    y, final, states = ssd_ops._launch(*args, save_states=True)
+    return ssd_ops.ssd_scan_bwd(*args, states, final, dy, df)
+
+
+def _assert_grads_close(got, args, dy, df, chunk):
+    x, dt, A, Bm, Cm, D, s0 = args
+    ref = ssd_chunked_bwd(
+        *(None if t is None else t.double() for t in args), dy.double(),
+        None if df is None else df.double(), chunk)
+    for name, g, r in zip(GRAD_NAMES, got, ref):
+        if r is None:
+            assert g is None, name
+            continue
+        assert bool(torch.isfinite(g.float()).all()), name
+        scale = r.abs().max().item()
+        lim = (GRAD_SUM_TOL_REL if name in ("dA", "dD") else TOL_REL) * scale
+        err = (g.double() - r).abs()
+        if g.dtype == torch.bfloat16:
+            err = err - BF16_ULP * r.abs()
+        assert err.max().item() <= lim, (name, err.max().item(), lim)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,init,dfinal", [
+    (1, 256, 24, 64, 128, False, False),   # one chunk, Mamba-2-130M
+    (1, 244, 24, 64, 128, True, True),     # ragged, state in and out
+    (2, 1024, 24, 64, 128, False, False),  # 16 sub-chunks a sequence
+    (1, 1, 2, 16, 8, True, True),          # one token
+    (1, 65, 2, 16, 8, True, False),        # one token past a sub-chunk
+    (2, 200, 4, 48, 256, True, True),      # the largest state: p_block 16
+    (1, 128, 8, 32, 64, False, True),      # p_block 32
+])
+def test_ssd_backward_kernel_matches_plain(gen, b, l, h, p, n, init, dfinal,
+                                           dtype):
+    args, dy, df = _bwd_case(gen, b, l, h, p, n, dtype, init, dfinal)
+    before = ssd_ops.BWD_COUNTER.count
+    got = _kernel_grads(args, dy, df)
+    assert ssd_ops.BWD_COUNTER.count == before + 1
+    assert got[0].dtype == got[3].dtype == got[4].dtype == dtype
+    _assert_grads_close(got, args, dy, df, _ref_chunk(l))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_is_bit_identical_across_runs(gen, dtype):
+    args, dy, df = _bwd_case(gen, 2, 1024, 24, 64, 128, dtype, True, True)
+    one = _kernel_grads(args, dy, df)
+    two = _kernel_grads(args, dy, df)
+    for name, a, b in zip(GRAD_NAMES, one, two):
+        assert torch.equal(a, b), name
+
+
+def test_ssd_scan_under_grad_mode_runs_both_kernels(gen):
+    """With an input that requires grad, ssd_scan is differentiable on the
+    card: the forward kernel once (no plain version), the backward kernel
+    once on backward, and the gradients autograd takes through the plain
+    forward; the mixer's split views get theirs without a copy."""
+    b, l, h, p, n = 2, 512, 4, 64, 128
+    args, dy, df = _bwd_case(gen, b, l, h, p, n, torch.float32, True, True)
+    leaves = [t.detach().requires_grad_() for t in args]
+    counts = (ssd_ops.COUNTER.count, ssd_ops.BWD_COUNTER.count)
+    y, final = ssd_ops.ssd_scan(*leaves[:6], chunk=256, init_state=leaves[6])
+    assert type(y.grad_fn).__name__ == "_ScanBackward"
+    ((y * dy).sum() + (final * df).sum()).backward()
+    assert (ssd_ops.COUNTER.count, ssd_ops.BWD_COUNTER.count) == (
+        counts[0] + 1, counts[1] + 1)
+    got = [t.grad for t in leaves]
+    _assert_grads_close(got, args, dy, df, 256)
+    plain = [t.detach().requires_grad_() for t in args]
+    yr, fr = ssd_chunked(*plain[:5], 64, plain[6], plain[5])
+    ((yr * dy).sum() + (fr * df).sum()).backward()
+    for name, g, t in zip(GRAD_NAMES, got, plain):
+        scale = t.grad.abs().max().item()
+        tol = GRAD_SUM_TOL_REL if name in ("dA", "dD") else 1e-4
+        assert (g - t.grad).abs().max().item() <= tol * scale, name
+
+
+def test_mamba_lm_command_line_trains_on_the_card(gen):
+    """``--mode lm --arch mamba2-130m --smoke`` on the card: every layer
+    launches the scan forward and backward once a step, and the losses are
+    those of the plain path (the scan's plain version, autograd) to fp32
+    summation order."""
+    from repro_torch.launch import train
+    from repro_torch.models import ssm as ssm_lib
+    argv = ["--mode", "lm", "--arch", "mamba2-130m", "--smoke", "--steps",
+            "3", "--batch", "2", "--seq", "64"]
+    counts = (ssd_ops.COUNTER.count, ssd_ops.BWD_COUNTER.count)
+    rep = train.main(argv)
+    layers = 2
+    assert (ssd_ops.COUNTER.count - counts[0],
+            ssd_ops.BWD_COUNTER.count - counts[1]) == (3 * layers,
+                                                       3 * layers)
+
+    def plain(x, dt, A, Bm, Cm, D=None, *, chunk, init_state=None):
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk_of(x.shape[1], chunk),
+                           init_state, D)
+    with mock.patch.object(ssm_lib, "ssd_scan", plain):
+        ref = train.main(argv)
+    assert np.all(np.isfinite(rep["losses"]))
+    np.testing.assert_allclose(rep["losses"], ref["losses"], rtol=1e-5)
+
+
+def test_mixtral_smoke_training_step_matches_plain_path(gen):
+    """One f32 ``lm_step`` of the smoke Mixtral on the card, the flash
+    kernels against chunked attention from the same weights and batch:
+    loss and every gradient leaf within 1e-4 of its max."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+    cfg = smoke_variant(get_arch("mixtral-8x22b"))
+    params = interop.init_params(cfg, gen, "cuda")
+    batch = frontends.synthetic_inputs(cfg, 2, 64, np.random.default_rng(0),
+                                       device="cuda")
+    out = {}
+    for attn in ("pallas", "chunked"):
+        pcfg = dataclasses.replace(cfg, attn_impl=attn)
+        before = fa_ops.BWD_COUNTER.count
+        loss, _, grads = value_and_grad(
+            lambda p: tf.lm_loss(pcfg, p, batch, precision="f32",
+                                 moe_args={"dispatch": "dense"}), params)
+        out[attn] = (loss.item(), dict(interop.leaves(grads)),
+                     fa_ops.BWD_COUNTER.count - before)
+    (lk, gk, nk), (lp, gp, npl) = out["pallas"], out["chunked"]
+    assert nk == cfg.n_layers and npl == 0
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for path, g in gp.items():
+        assert (gk[path] - g).abs().max().item() <= 1e-4 * max(
+            g.abs().max().item(), 1e-30), path
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(gen):
