@@ -117,7 +117,8 @@ repository beside this file; it exits non-zero without them. In order it:
     (16 each, one per layer); then profiles 4 warm decode steps;
 16. holds the SSD chunked-scan kernel against its plain version at
     Mamba-2-130M's shapes (24 heads of 64, state 128; one chunk of 256, a
-    ragged 244, four chunks of b 1 × 1024, b 8 × 256; with and without an
+    ragged 244, four chunks of b 1 × 1024, b 8 × 256, the training shape
+    b 2 × 4096; with and without an
     initial state; the decay extremes dt 3, A -5 with no NaN), inputs laid
     out as the mixer's split views, f32 and bf16, y and the final state,
     printing each launch plan (``ssd_plan``), and times kernel (events,
@@ -161,17 +162,20 @@ repository beside this file; it exits non-zero without them. In order it:
     × l 4096): each gradient within 2e-5 of its max (dA, dD 1e-4, with
     the plain f32 version's distance from an fp64 evaluation printed
     beside), all finite, two runs bit for bit; prints each plan and times
-    kernel (events and device time) and plain version against the bound;
+    kernel (events, and device time over a profiler window that sees all
+    four device kernels of a call) and plain version against the bound;
 31. SSM training parity: one f32 step of Mamba-2-130M at full width and
     depth (b 2 × s 1024) on the kernel path (24 + 24 scan launches) and
     the plain path (none) by phase 9's limits; then one full-width Jamba
     Mamba-2 mixer layer (d 8192, 256 heads) forward and backward at b 1 ×
-    l 4096: every leaf's gradient within 1e-3 of its max;
+    l 4096: every leaf's gradient within 1e-3 of its max; both held, leaf
+    by leaf, against a float64 plain path too (printed);
 32. timed SSM training: ``--mode lm --arch mamba2-130m`` through the
     trainer's ``main`` (f32, b 2 × s 4096, 4 steps): step median,
     tokens/s, peak memory, 24 + 24 scan launches a step; a profile of one
     warm step (the scan's forward and backward share, busy share); then
-    ``make_train_step`` (bf16, remat ``basic``) for 3 steps;
+    ``make_train_step`` (bf16, remat ``basic``) for 3 steps and a profile
+    of one more;
 24. holds the flash forward and the decode kernel against their plain
     versions at Mixtral-8x22B's shapes (48 query heads over 8 kv heads, d
     128, window 4096; f32 and bf16): flash over 512 tokens and over 4608,
@@ -234,8 +238,9 @@ repository beside this file; it exits non-zero without them. In order it:
     kernels; busy share);
 35. hybrid training: one f32 step of the smoke Jamba on the kernel path
     (flash forward and backward, the scan's forward and backward, all
-    launched) against the plain path, then ``--mode lm --smoke`` through
-    the trainer's ``main``;
+    launched) against the plain path, each also against a float64 plain
+    path (printed), then ``--mode lm --smoke`` through the trainer's
+    ``main``;
 27. last, after phase 35, prints the script's seconds, a ``{"kernels":
     [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
@@ -472,17 +477,19 @@ def span_device_ms(prof, labels, units):
     return out
 
 
-def device_ms(fn, names=None, iters: int = 20):
+def device_ms(fn, names=None, iters: int = 20, expect=None):
     """(device milliseconds per call of ``fn``, device kernels per call):
     a torch.profiler window over ``iters`` calls after one warm call, over
     the device kernels whose names hold one of ``names`` (every device
     kernel and copy when ``names`` is None). Per kernel name, its mean
     duration times its launches per call, rounded: the profiler now and
     then drops one event of a window, which would otherwise read as a
-    call without that kernel. A window with no record at all is retaken
+    call without that kernel. A window with no record at all, or, given
+    ``expect``, one that does not show ``expect`` device kernels a call
+    (the tracer lost every record of one of them), is retaken
     (``retaken_window``) over twice the calls, up to 8 × ``iters`` (the
     probe never saw a window of 0.5 s lose all its records); if the last
-    window has none, it raises."""
+    window still falls short, it raises."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -503,8 +510,14 @@ def device_ms(fn, names=None, iters: int = 20):
                 by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
         return by_name
 
+    def kernels_per_call(by_name, n_calls):
+        return sum(max(1, round(count / n_calls))
+                   for _, count in by_name.values())
+
     prof, n_calls = retaken_window(
-        calls, lambda prof, _: bool(timed(prof)), cpu=False)
+        calls, lambda prof, n: bool(timed(prof)) and (
+            expect is None or kernels_per_call(timed(prof), n) == expect),
+        cpu=False)
     by_name = timed(prof)
     if not by_name:
         raise AssertionError("device_ms: the profiler saw no device time")
@@ -513,6 +526,9 @@ def device_ms(fn, names=None, iters: int = 20):
         n = max(1, round(count / n_calls))
         ms += us / count * n / 1e3
         per_call += n
+    if expect is not None and per_call != expect:
+        raise AssertionError(f"device_ms: {per_call} device kernels a call "
+                             f"seen ({sorted(by_name)}), want {expect}")
     return ms, per_call
 
 
@@ -2695,7 +2711,8 @@ def ssd_case(label, b, l, dtype, seed, init=False, extreme=False,
 def phase_ssd_kernel():
     """The SSD kernel at Mamba-2-130M's shapes, f32 and bf16: one chunk
     (l 256), a ragged chunk (l 244) and four chunks (b 1 × 1024), b 8 ×
-    256, with an initial state in the ragged and b 8 cases; the decay
+    256, with an initial state in the ragged and b 8 cases, and the
+    training shape (b 2 × 4096, ``SSM_TRAIN_ARGV``'s); the decay
     extremes; the same inputs twice give the same bits. Returns the
     records by (label, dtype name)."""
     import torch
@@ -2706,7 +2723,8 @@ def phase_ssd_kernel():
         for label, b, l, init in (("l=256", 1, 256, False),
                                   ("l=244", 1, 244, True),
                                   ("l=1024", 1, 1024, False),
-                                  ("b=8", 8, 256, True)):
+                                  ("b=8", 8, 256, True),
+                                  ("train b=2 l=4096", 2, 4096, False)):
             recs[(label, dt)] = ssd_case(label, b, l, dtype, 60, init)
         recs[("extreme", dt)] = ssd_case("decay extremes dt=3 A=-5", 1, 256,
                                          dtype, 61, extreme=True,
@@ -3030,13 +3048,13 @@ def phase_lm_timed():
 
 def lm_step_profile(params, opt_state, arch="llama3.2-1b", batch=4,
                     seq=1024, counters=None, groups=KERNEL_GROUPS,
-                    by_group=None):
+                    by_group=None, step=None, label="1 warm lm step"):
     """A torch.profiler window over one more warm ``--mode lm`` step (the
-    trainer's ``lm_step`` at its f32 settings) of ``arch`` from the timed
-    run's state at ``batch`` × ``seq``: device time by kernel and group of
-    ``groups`` (into ``by_group`` when given), busy share, device kernels
-    per call of each of ``counters``' wrappers (the flash kernels by
-    default)."""
+    trainer's ``lm_step`` at its f32 settings, or ``step``) of ``arch``
+    from the timed run's state at ``batch`` × ``seq``: device time by
+    kernel and group of ``groups`` (into ``by_group`` when given), busy
+    share, device kernels per call of each of ``counters``' wrappers (the
+    flash kernels by default)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -3046,8 +3064,9 @@ def lm_step_profile(params, opt_state, arch="llama3.2-1b", batch=4,
 
     counters = lm_counters() if counters is None else counters
     cfg = dataclasses.replace(get_arch(arch), attn_impl="pallas")
-    step = lm_step(cfg, AdaFactorW(weight_decay=0.0025), 1e-3,
-                   precision="f32")
+    if step is None:
+        step = lm_step(cfg, AdaFactorW(weight_decay=0.0025), 1e-3,
+                       precision="f32")
     data = frontends.synthetic_inputs(cfg, batch, seq,
                                       np.random.default_rng(3),
                                       device="cuda")
@@ -3067,8 +3086,8 @@ def lm_step_profile(params, opt_state, arch="llama3.2-1b", batch=4,
         one_step, lambda prof, _: all(
             seen >= calls[w]
             for w, seen in wrapper_kernels_seen(prof, calls).items()))
-    return device_breakdown(prof, "1 warm lm step", wall_us, 1, calls,
-                            groups, by_group)
+    return device_breakdown(prof, label, wall_us, 1, calls, groups,
+                            by_group)
 
 
 def phase_lm_step_bf16(steps: int = 3):
@@ -3765,6 +3784,9 @@ SSD_BWD_REPLACES = ("none: the reference differentiates the jnp ssd_chunked "
 # evaluation beside the kernel's); the other gradients hold SSD_TOL_REL
 SSD_GRAD_SUM_TOL_REL = 1e-4
 SSD_GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+# device kernels of one ssd_scan_bwd call (ops.ssd_scan_bwd's docstring):
+# local term, carry, main kernel, sums
+SSD_BWD_DEVICE_KERNELS = 4
 # bf16 dx, dB, dC are the fp32 result rounded to bf16: one bf16 ulp (up to
 # 2^-7 of |ref|) more per element, where autograd's bf16 gradient and the
 # kernel's round across a boundary apart (half that against an fp32 ref)
@@ -3859,7 +3881,7 @@ def ssd_bwd_case(label, b, l, dtype, seed, init=False, dfinal=False, h=24,
             rel64[name] = ((k.double() - r).abs().max().item() / scale,
                            (r32.double() - r).abs().max().item() / scale)
     del ref64
-    plan = ssd_ops.ssd_bwd_plan(b, l, h, p, n)
+    plan = ssd_ops.ssd_bwd_plan(b, l, h, p, n, dtype)
     rec = {"shape": shape, "plan": plan._asdict(),
            "max_abs_err": max(errs.values()), "errs": errs,
            "autograd_errs": auto_errs,
@@ -3870,8 +3892,10 @@ def ssd_bwd_case(label, b, l, dtype, seed, init=False, dfinal=False, h=24,
         def call():
             ssd_ops.ssd_scan_bwd(*args, states, final, dy, df)
         rec["ms"] = time_ms(call, iters=10)
+        # every device kernel of a call is seen, or the window is retaken
         rec["device_ms"], rec["device_kernels"] = device_ms(
-            call, WRAPPER_KERNELS["ssd_scan_bwd"], iters=5)
+            call, WRAPPER_KERNELS["ssd_scan_bwd"], iters=5,
+            expect=SSD_BWD_DEVICE_KERNELS)
         rec["plain_ms"] = time_ms(lambda: ssd_chunked_bwd(
             *args, dy, df, chunk), iters=3, warmup=1)
         item = torch.finfo(dtype).bits // 8
@@ -3898,8 +3922,9 @@ def phase_ssd_bwd_kernel():
     """The SSD backward kernel at Mamba-2-130M's shapes (b 2 × l 4096, 16
     chunks of 256; b 1 × l 244 with an initial state and a final-state
     gradient) and Jamba's (256 heads, b 1 × l 4096), f32 and bf16, against
-    the plain backward and autograd; the same inputs twice give the same
-    bits. Returns the records by (label, dtype name)."""
+    the plain backward and autograd, each call's four device kernels all
+    seen by the profiler; the same inputs twice give the same bits.
+    Returns the records by (label, dtype name)."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     recs = {}
@@ -3984,6 +4009,92 @@ class OnCard(dict):
         return super().__getitem__(key).to("cuda")
 
 
+def f64_policy():
+    """The precision policy of the float64 yardstick: parameters, compute,
+    accumulation and projections in float64."""
+    import torch
+    from repro_torch.models.precision import Precision
+    return Precision("f64", param_dtype=torch.float64,
+                     compute_dtype=torch.float64,
+                     accum_dtype=torch.float64, fp32_projections=False)
+
+
+@contextlib.contextmanager
+def fp64_plain_path():
+    """The plain path (the scan's plain version, ``plain_path``) in
+    float64, the yardstick of the f32 training parities: while it lasts,
+    ``Tensor.float()``, with which the models keep their fp32 islands
+    (dt, A, norms, logits, router), gives float64."""
+    import torch
+
+    def as_f64(self, memory_format=torch.preserve_format):
+        return self.to(torch.float64, memory_format=memory_format)
+    torch.Tensor.float = as_f64
+    try:
+        with plain_path():
+            yield
+    finally:
+        del torch.Tensor.float
+
+
+def lm_grads_f64(cfg, params, batch, moe_args=None):
+    """(loss, gradients by leaf path) of one ``lm_loss`` of ``cfg`` (its
+    ``attn_impl`` as given) in float64 on the plain path, from ``params``
+    cast to float64."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    p64 = tree_map(lambda t: t.double(), params)
+    with fp64_plain_path():
+        loss, _, grads = value_and_grad(
+            lambda p: tf.lm_loss(cfg, p, batch, precision=f64_policy(),
+                                 moe_args=moe_args), p64)
+    torch.cuda.synchronize()
+    if loss.dtype != torch.float64:
+        raise AssertionError(f"the float64 yardstick computed its loss in "
+                             f"{loss.dtype}")
+    return loss.item(), dict(interop.leaves(grads))
+
+
+def fp64_distances(label, grads, g64):
+    """Each path's f32 gradients (``grads[path]``: leaf path -> tensor)
+    against the float64 plain path's ``g64``, leaf by leaf: max |g − g64|
+    / max |g64|. Prints each path's worst leaf, both distances at the
+    leaf where the two paths differ most from each other, and which path
+    is farther from float64 (more than twice the other's distance);
+    returns the summary."""
+    rel = {path: {k: ((g[k].double() - r).abs().max()
+                      / r.abs().max().clamp(min=1e-300)).item()
+                  for k, r in g64.items()}
+           for path, g in grads.items()}
+    between = {k: ((grads["kernel"][k].double()
+                    - grads["plain"][k].double()).abs().max()
+                   / g64[k].abs().max().clamp(min=1e-300)).item()
+               for k in g64}
+    apart = max(between, key=between.get)
+    out = {"between_worst_leaf": apart, "between": between[apart]}
+    for path, r in rel.items():
+        worst = max(r, key=r.get)
+        out[f"{path}_vs_f64"] = r[worst]
+        out[f"{path}_vs_f64_leaf"] = worst
+        out[f"{path}_vs_f64_at_between_leaf"] = r[apart]
+    k64, p64 = out["kernel_vs_f64"], out["plain_vs_f64"]
+    far = ("the kernel path" if k64 > 2 * p64 else "the plain path"
+           if p64 > 2 * k64 else "neither (within 2x of each other)")
+    out["farther_from_f64"] = far
+    print(f"{label} against a float64 plain path, leaf by leaf (max |g - "
+          f"g64| / max |g64|): kernel path {out['kernel_vs_f64']:.3g} at "
+          f"{out['kernel_vs_f64_leaf']}, plain path "
+          f"{out['plain_vs_f64']:.3g} at {out['plain_vs_f64_leaf']}; the "
+          f"paths differ most at {apart} ({between[apart]:.3g}), where the "
+          f"kernel path is {out['kernel_vs_f64_at_between_leaf']:.3g} and "
+          f"the plain path {out['plain_vs_f64_at_between_leaf']:.3g} from "
+          f"float64; farther from float64: {far}", flush=True)
+    return out
+
+
 def phase_ssm_train_parity(batch: int = 2, seq: int = 1024,
                            lr: float = 1e-3):
     """One f32 step of Mamba-2-130M at full width and depth (b 2 × s
@@ -3993,7 +4104,9 @@ def phase_ssm_train_parity(batch: int = 2, seq: int = 1024,
     on the kernel path, none on the plain. Then one full-width Jamba
     Mamba-2 mixer layer (d 8192, 256 heads) forward and backward at b 1 ×
     l 4096 on both paths: every mixer leaf's gradient and the input's
-    within TRAIN_GRAD_RTOL of its max."""
+    within TRAIN_GRAD_RTOL of its max. Both steps also hold each path
+    against a float64 plain path, leaf by leaf (``fp64_distances``;
+    printed, not gated)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -4015,7 +4128,11 @@ def phase_ssm_train_parity(batch: int = 2, seq: int = 1024,
     rec = check_step_parity(f"ssm train parity (Mamba-2-130M f32, b={batch} "
                             f"x s={seq})", results, lr, launches,
                             needed=cfg.n_layers)
-    del results, params
+    _, g64 = lm_grads_f64(cfg, params, data)
+    rec["fp64"] = fp64_distances(
+        f"ssm train parity (Mamba-2-130M f32, b={batch} x s={seq})",
+        {path: r[1] for path, r in results.items()}, g64)
+    del results, params, g64
     torch.cuda.empty_cache()
 
     jcfg = get_arch(JAMBA)
@@ -4024,18 +4141,28 @@ def phase_ssm_train_parity(batch: int = 2, seq: int = 1024,
     x = torch.randn((1, 4096, jcfg.d_model), generator=g, device="cuda")
     cot = torch.randn((1, 4096, jcfg.d_model), generator=g, device="cuda")
     grads, mix_launches = {}, {}
-    for path in ("kernel", "plain"):
+    for path in ("kernel", "plain", "fp64"):
         for ctr in ssd_counters():
             ctr.reset()
-        live = {k: v.detach().requires_grad_() for k, v in mixer.items()}
-        xin = x.detach().requires_grad_()
-        with plain_path() if path == "plain" else contextlib.nullcontext():
+        cast = (lambda t: t.double()) if path == "fp64" else (lambda t: t)
+        live = {k: cast(v).detach().requires_grad_()
+                for k, v in mixer.items()}
+        xin = cast(x).detach().requires_grad_()
+        ctx = {"kernel": contextlib.nullcontext(), "plain": plain_path(),
+               "fp64": fp64_plain_path()}[path]
+        with ctx:
             out, _ = ssm_lib.mamba_mixer(live, jcfg, xin)
-            (out * cot).sum().backward()
+            (out * cast(cot)).sum().backward()
         torch.cuda.synchronize()
         grads[path] = {**{k: v.grad for k, v in live.items()}, "x": xin.grad}
         mix_launches[path] = {c.name: c.count for c in ssd_counters()}
         del live, xin, out
+    g64 = grads.pop("fp64")
+    del mix_launches["fp64"]
+    mixer_fp64 = fp64_distances(
+        f"jamba mixer layer (d {jcfg.d_model}, 256 heads, b 1 x l 4096, "
+        f"f32)", grads, g64)
+    del g64
     rel = {k: ((grads["kernel"][k] - g).abs().max()
                / g.abs().max().clamp(min=1e-30)).item()
            for k, g in grads["plain"].items()}
@@ -4058,7 +4185,8 @@ def phase_ssm_train_parity(batch: int = 2, seq: int = 1024,
     del grads, mixer
     torch.cuda.empty_cache()
     return {**rec, "launches": launches["kernel"],
-            "jamba_mixer_grad_rel_err": rel[worst]}
+            "jamba_mixer_grad_rel_err": rel[worst],
+            "jamba_mixer_fp64": mixer_fp64}
 
 
 def timed_steps(label, cfg, params, opt_state, step_fn, batch, seq, steps,
@@ -4108,8 +4236,8 @@ def phase_ssm_train_timed():
     b 2 × s 4096, 4 steps (24 + 24 scan launches a step); a profile of one
     more warm step (by kernel group: the scan's forward and backward
     share, busy share); then ``make_train_step`` (bf16, remat basic) for 3
-    steps at the same shape. Returns (total launches of the trainer's run,
-    report)."""
+    steps at the same shape and a profile of one more of them by kernel
+    group. Returns (total launches of the trainer's run, report)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
@@ -4145,9 +4273,17 @@ def phase_ssm_train_timed():
     params = tf.init_params(cfg, torch.Generator(device="cuda")
                             .manual_seed(0), "cuda")
     step_fn, opt = make_train_step(cfg)
-    rep["bf16"], _, _ = timed_steps(
+    rep["bf16"], params, opt_state = timed_steps(
         "ssm make_train_step (bf16, remat basic)", cfg, params,
         opt.init(params), step_fn, 2, 4096, 3, ssd_counters())
+    bf16_groups = {}
+    rep["bf16"]["device_kernels_per_call"], rep["bf16"]["busy"] = \
+        lm_step_profile(params, opt_state, arch=MAMBA, batch=2, seq=4096,
+                        counters=ssd_counters(), groups=SSM_TRAIN_GROUPS,
+                        by_group=bf16_groups, step=step_fn,
+                        label="1 warm bf16 make_train_step step")
+    rep["bf16"]["profile_ms_by_group"] = bf16_groups
+    del params, opt_state
     # remat basic runs each block's forward again in the backward
     if rep["bf16"]["launches_per_step"] != {"ssd_scan": 48,
                                             "ssd_scan_bwd": 24}:
@@ -4280,8 +4416,9 @@ def phase_hybrid_train_parity(lr: float = 1e-3):
     64, dense dispatch, as ``--mode lm --smoke``) on the kernel path (flash
     forward and backward, the scan's forward and backward) and the plain
     path, held by ``check_step_parity``: every kernel of the path
-    launches; then ``--mode lm --smoke`` through the trainer's ``main``, 2
-    steps."""
+    launches, and each path against a float64 plain path
+    (``fp64_distances``); then ``--mode lm --smoke`` through the trainer's
+    ``main``, 2 steps."""
     import math
 
     import numpy as np
@@ -4306,6 +4443,12 @@ def phase_hybrid_train_parity(lr: float = 1e-3):
                 moe_args={"dispatch": "dense"})
     rec = check_step_parity(f"hybrid train parity (smoke {JAMBA} f32, b=2 "
                             f"x s=64)", results, lr, launches)
+    _, g64 = lm_grads_f64(dataclasses.replace(cfg, attn_impl="chunked"),
+                          params, data, moe_args={"dispatch": "dense"})
+    rec["fp64"] = fp64_distances(
+        f"hybrid train parity (smoke {JAMBA} f32, b=2 x s=64)",
+        {path: r[1] for path, r in results.items()}, g64)
+    del g64
     for ctr in counters:
         ctr.reset()
     rep = train.main(["--mode", "lm", "--arch", JAMBA, "--smoke", "--steps",

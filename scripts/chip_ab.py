@@ -1,6 +1,7 @@
 """Compare checkouts of the repository on one CUDA card, in turns.
 
-    python3 scripts/chip_ab.py [--train] [--kernels] [--serve] TREE [TREE ...]
+    python3 scripts/chip_ab.py [--train] [--kernels] [--serve] [--ssd]
+                               [--ssm-train] TREE [TREE ...]
 
 Each TREE is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into an ignored directory, and ``.``). Give
@@ -29,10 +30,19 @@ own kernel build directory) and prints one line ``AB <tree> <json>``:
   (f32), and ``ssd_scan`` at Mamba-2-130M's widths (h 24, p 64, n 128;
   inputs as the mixer's split views) at b 1 × l 256 (bf16 and f32),
   b 1 × l 1024 and b 8 × l 256 (f32) and l 244 with an initial state
-  (bf16), these two also with their device time per call;
+  (bf16), these two also with their device time per call; and the SSD
+  scan at its training shapes (as ``--ssd``);
+- ``--ssd``: only the SSD scan at its training shapes: ``ssd_scan`` at
+  Mamba-2-130M's (b 2 × l 4096, h 24, p 64, n 128) and ``ssd_scan_bwd``
+  there and at Jamba's 256 heads (b 1 × l 4096), f32 and bf16, each with
+  its error against the plain version (max over the outputs of max |err|
+  / max |ref|) and its device time per call;
 - ``--train``: ``repro_torch.launch.train.main`` with ``chip_smoke.py``'s
   timed-training arguments (BASIC-S bf16, B 2048 in 8 microbatches, 6
   steps): warm step median, pairs/s, peak memory, step times;
+- ``--ssm-train``: the same with ``chip_smoke.py``'s SSM training
+  arguments (Mamba-2-130M ``--mode lm`` f32, b 2 × s 4096, 4 steps):
+  warm step median, tokens/s, peak memory, step times;
 - ``--serve``: ``repro_torch.launch.serve_zeroshot.main`` with the
   arguments of ``chip_smoke.py``'s zero-shot serving phase (BASIC-S f32,
   512 classes, 8 requests of 16 images, k 5, seed 0): warm p50 and max
@@ -48,7 +58,7 @@ import os
 import subprocess
 import sys
 
-KERNELS = r'''
+HEAD = r'''
 import json
 import torch
 import torch.nn.functional as F
@@ -98,6 +108,9 @@ def device_ms(fn, iters=20):
 
 out = {}
 dev = torch.device("cuda")
+'''
+
+KERNELS = r'''
 g = torch.Generator(device=dev).manual_seed(40)
 q = torch.randn((8, 32, 64), generator=g, device=dev).to(torch.bfloat16)
 k, v = (torch.randn((8, 8, 8192, 64), generator=g, device=dev)
@@ -220,6 +233,42 @@ for label, b, l, dt, init in (("b1 l256", 1, 256, torch.bfloat16, False),
               for a, r in zip(got, want))
     out[f"ssd_scan {label} {str(dt).removeprefix('torch.')}"] = [
         round(time_ms(f), 4), err, round(device_ms(f), 4)]
+'''
+
+SSD = r'''
+from chip_smoke import plain_scan, ssd_inputs
+from repro_torch.kernels.ssd_scan import ops as ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
+for label, b, l, h in (("train b2 l4096", 2, 4096, 24),
+                       ("jamba b1 l4096 h256", 1, 4096, 256)):
+    for dt in (torch.float32, torch.bfloat16):
+        tag = f"{label} {str(dt).removeprefix('torch.')}"
+        x, dtt, A, Bm, Cm, D, s0 = ssd_inputs(b, l, dt, 80, h=h)
+        args = (x, dtt, A, Bm, Cm, D, None)
+        if h == 24:
+            f = lambda: ssd.ssd_scan(x, dtt, A, Bm, Cm, D, chunk=256)
+            want = plain_scan(x, dtt, A, Bm, Cm, D, chunk=256)
+            err = max(((a - r).abs().max() / r.abs().max()).item()
+                      for a, r in zip(f(), want))
+            del want
+            out[f"ssd_scan {tag}"] = [round(time_ms(f), 4), err,
+                                      round(device_ms(f), 4)]
+        _, final, states = ssd._launch(*args, save_states=True)
+        g = torch.Generator(device=dev).manual_seed(81)
+        dy = torch.randn((b, l, h, 64), generator=g, device=dev)
+        f = lambda: ssd.ssd_scan_bwd(*args, states, final, dy)
+        want = ssd_chunked_bwd(*args, dy, None, 64)
+        # max over the gradients of max |err| / max |ref|
+        err = max(((a.float() - r).abs().max() / r.abs().max()).item()
+                  for a, r in zip(f(), want) if r is not None)
+        del want
+        out[f"ssd_scan_bwd {tag}"] = [round(time_ms(f, 10), 4), err,
+                                      round(device_ms(f, 5), 4)]
+        del states, final, dy
+        torch.cuda.empty_cache()
+'''
+
+TAIL = r'''
 print("RESULT", json.dumps(out))
 '''
 
@@ -230,6 +279,16 @@ from repro_torch.launch import train
 rep = train.main(chip_smoke.TRAIN_ARGV)
 print("RESULT", json.dumps({k: rep[k] for k in (
     "warm_step_median_s", "pairs_per_s", "max_memory_allocated",
+    "step_s")}))
+'''
+
+SSM_TRAIN = r'''
+import json
+import chip_smoke
+from repro_torch.launch import train
+rep = train.main(chip_smoke.SSM_TRAIN_ARGV)
+print("RESULT", json.dumps({k: rep[k] for k in (
+    "warm_step_median_s", "tokens_per_s", "max_memory_allocated",
     "step_s")}))
 '''
 
@@ -268,6 +327,8 @@ def main(argv=None) -> int:
     p.add_argument("--train", action="store_true")
     p.add_argument("--kernels", action="store_true")
     p.add_argument("--serve", action="store_true")
+    p.add_argument("--ssd", action="store_true")
+    p.add_argument("--ssm-train", action="store_true")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -277,8 +338,9 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    for what, code in (("kernels", KERNELS), ("train", TRAIN),
-                       ("serve", SERVE)):
+    for what, code in (("kernels", HEAD + KERNELS + SSD + TAIL),
+                       ("ssd", HEAD + SSD + TAIL), ("train", TRAIN),
+                       ("ssm_train", SSM_TRAIN), ("serve", SERVE)):
         if not getattr(args, what):
             continue
         for tree in args.trees:

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import os
 from typing import NamedTuple
 
@@ -63,8 +64,8 @@ BWD_LIB = KernelLibrary(
     "ssd_scan_bwd",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "ssd_bwd.cu"),
-    {"repro_ssd_scan_bwd": (_I, [_P] * 24 + [_I] * 6 + [_L] * 9
-                            + [_I, _L, _P])})
+    {"repro_ssd_scan_bwd": (_I, [_P] * 23 + [_I] * 6 + [_L] * 9
+                            + [_I, _I, _L, _P])})
 BWD_COUNTER = LaunchCounter("ssd_scan_bwd")
 
 
@@ -199,35 +200,59 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 class SsdBwdPlan(NamedTuple):
-    """The backward's launch: ``p_block`` head_dim columns per CTA, grid
-    (sub-chunks, b·h, p / p_block) of 256 threads for the local and the
-    main kernel, ``smem`` bytes of shared memory per main-kernel CTA (its
-    layout; the C entry refuses other bytes) and ``scratch``, the floats
-    of each fp32 scratch part the call allocates, in the C entry's order:
-    the carried gradient R, the sub-chunks' log-decays, the dB and dC
-    partials by head and p-block, ddt's by p-block, dA's and dD's by
-    CTA."""
+    """The backward's launch: ``p_block`` head_dim columns per slab (the
+    local kernel's grid (sub-chunks, b·h, p / p_block); the main kernel
+    loops over a head's slabs), ``group`` heads per main-kernel CTA, the
+    main kernel's ``grid`` (sub-chunks, b·h / group) of 512 threads and
+    ``smem`` bytes of shared memory per CTA (its layout; the C entry
+    refuses other bytes), and ``scratch``, the floats of each fp32 scratch
+    part the call allocates, in the C entry's order: the carried gradient
+    R, the sub-chunks' log-decays, the dB and dC partials by head group,
+    dA's and dD's by (batch, sub-chunk)."""
     p_block: int
+    group: int
     grid: tuple
     smem: int
     scratch: tuple
 
 
-def bwd_smem_bytes(p_block: int, n: int) -> int:
-    """Shared memory of one main-kernel CTA (csrc ``main_floats``): B and C
-    (64 × (n + 1)), x, dy, dt·x and a scratch plane (64 × (p_block + 1)),
-    one state (p_block × (n + 1)), three (64 × 65) planes, 7 vectors of 64
-    and 32 floats, all fp32."""
-    return 4 * (2 * SUB * (n + 1) + 4 * SUB * (p_block + 1)
-                + p_block * (n + 1) + 3 * SUB * (SUB + 1) + 7 * SUB + 32)
+BWD_VEC_FLOATS = 3264   # the main kernel's vectors (csrc kVFloats)
+MAX_GROUP = 8           # heads per main-kernel CTA (csrc kMaxGroup)
+
+
+def bwd_smem_bytes(item: int, p_block: int, n: int) -> int:
+    """Shared memory of one main-kernel CTA (csrc ``MainLayout``) for
+    inputs of ``item`` bytes: B and C (64 × (nmax + 8)) in the input
+    dtype; C·Bᵀ, later Σ V (64 × 68); dy in two buffers and x (64 ×
+    (p_block + 8)); R and S0 (p_block × (nmax + 4)); for bf16 x's staging
+    (64 × p_block, 2 bytes); and 3264 floats of vectors and partial sums;
+    nmax is 128 up to n 128, else 256."""
+    nmax = 128 if n <= 128 else MAX_STATE
+    return (2 * SUB * (nmax + 8) * item + SUB * (SUB + 4) * 4
+            + 3 * SUB * (p_block + 8) * 4 + 2 * p_block * (nmax + 4) * 4
+            + (SUB * p_block * 2 if item == 2 else 0) + 4 * BWD_VEC_FLOATS)
+
+
+def bwd_group(b: int, l: int, h: int) -> int:
+    """Heads per main-kernel CTA: the largest divisor of h up to 8 whose
+    grid still gives every SM a CTA (more heads a CTA share C·Bᵀ and
+    the dB / dC products; fewer CTAs than SMs would leave the card
+    part idle), else 1."""
+    nsub = -(-l // SUB)
+    fill = [d for d in range(MAX_GROUP, 0, -1)
+            if h % d == 0 and nsub * b * (h // d) >= SMS]
+    return fill[0] if fill else 1
 
 
 @functools.lru_cache(maxsize=256)
-def ssd_bwd_plan(b: int, l: int, h: int, p: int, n: int) -> SsdBwdPlan:
-    """The backward's launch at (b, l, h, p, n): the widest head_dim block
-    (64, 32, 16, dividing p) whose main-kernel CTA fits the shared memory
-    (64 at n 128, 16 at n 256). Raises ``ValueError`` for a shape the
-    kernel does not take."""
+def ssd_bwd_plan(b: int, l: int, h: int, p: int, n: int,
+                 dtype=torch.float32) -> SsdBwdPlan:
+    """The backward's launch at (b, l, h, p, n) and x's dtype: the widest
+    head_dim slab (64, 32, 16, dividing p) whose main-kernel CTA fits the
+    shared memory (64 at n 128; at n 256 16 in f32, 32 in bf16) and the
+    head group of ``bwd_group``. Raises ``ValueError`` for a shape the
+    kernel does not take (b·h is the local kernel's grid rows, at most
+    65535)."""
     if p % 16 or n % 8 or not 8 <= n <= MAX_STATE:
         raise ValueError(f"ssd_scan backward needs head_dim a multiple of 16 "
                          f"and a state size a multiple of 8 up to "
@@ -235,18 +260,20 @@ def ssd_bwd_plan(b: int, l: int, h: int, p: int, n: int) -> SsdBwdPlan:
     if b * h > 65535:
         raise ValueError(f"ssd_scan backward takes b·h <= 65535, got "
                          f"{b * h}")
+    item = torch.finfo(dtype).bits // 8
     blocks = [pb for pb in P_BLOCKS if p % pb == 0
-              and bwd_smem_bytes(pb, n) <= MAX_SMEM]
+              and bwd_smem_bytes(item, pb, n) <= MAX_SMEM]
     if not blocks:
         raise ValueError(f"ssd_scan backward: no head_dim block fits shared "
                          f"memory at p={p}, n={n}")
     pb = blocks[0]
+    group = bwd_group(b, l, h)
     nsub = -(-l // SUB)
-    npb = p // pb
-    scratch = (b * h * nsub * p * n, b * h * nsub, h * npb * b * l * n,
-               h * npb * b * l * n, npb * b * l * h, b * nsub * npb * h,
-               b * nsub * npb * h)
-    return SsdBwdPlan(pb, (nsub, b * h, npb), bwd_smem_bytes(pb, n), scratch)
+    scratch = (b * h * nsub * p * n, b * h * nsub,
+               h // group * b * l * n, h // group * b * l * n,
+               b * nsub * h, b * nsub * h)
+    return SsdBwdPlan(pb, group, (nsub, b * h // group),
+                      bwd_smem_bytes(item, pb, n), scratch)
 
 
 def _strides(x, dt, Bm, Cm):
@@ -314,9 +341,12 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
     forward kernel, ``_launch(..., save_states=True)``), dy (b, l, h, p)
     and dfinal (b, h, p, n) or None (zeros). dx, dBm and dCm come in x's
     dtype, the rest in fp32; dD is None when D is, d_init_state when
-    init_state is. One call is one counted launch sequence (the local,
-    carry and main kernels and five fixed-order sums, ``ssd_bwd_plan``);
-    there is no CPU path here (``ref.ssd_chunked_bwd`` is the plain
+    init_state is. One call is one counted launch sequence of four device
+    kernels, as ``ssd_bwd_plan`` says: ``ssd_bwd_local_kernel``,
+    ``ssd_bwd_carry_kernel``, ``ssd_bwd_main_kernel`` (one CTA per
+    sub-chunk, batch and group of heads) and ``ssd_bwd_sum_kernel`` (the
+    fixed-order sums of the head groups' dB and dC and of dA and dD).
+    There is no CPU path here (``ref.ssd_chunked_bwd`` is the plain
     version)."""
     _check_inputs(x, dt, A, Bm, Cm, D, init_state)
     if x.device.type != "cuda":
@@ -335,12 +365,12 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
            for t in (states, final, dy, dfinal)):
         raise TypeError("ssd_scan_bwd takes the states, dy and dfinal in "
                         "float32")
-    plan = ssd_bwd_plan(b, l, h, p, n)
     x, dt, A, Bm, Cm, D, init_state = _kernel_inputs(x, dt, A, Bm, Cm, D,
                                                      init_state)
-    states, final, dy = states.contiguous(), final.contiguous(), \
-        dy.contiguous()
-    dfinal = None if dfinal is None else dfinal.contiguous()
+    plan = ssd_bwd_plan(b, l, h, p, n, x.dtype)
+    states, final, dy = (_aligned(t.contiguous())
+                         for t in (states, final, dy))
+    dfinal = None if dfinal is None else _aligned(dfinal.contiguous())
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
@@ -350,8 +380,11 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
     dA = torch.empty((h,), **f32)
     dD = None if D is None else torch.empty((h,), **f32)
     dinit = None if init_state is None else torch.empty((b, h, p, n), **f32)
-    parts = torch.split(torch.empty((sum(plan.scratch),), **f32),
-                        plan.scratch)
+    # each part starts on a 16-byte boundary
+    sizes = [-(-c // 4) * 4 for c in plan.scratch]
+    buf = torch.empty((sum(sizes),), **f32)
+    parts = [buf[o:o + c] for o, c in zip(
+        itertools.accumulate([0] + sizes[:-1]), plan.scratch)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = BWD_LIB.lib().repro_ssd_scan_bwd(
@@ -361,7 +394,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
             dC.data_ptr(), ddt.data_ptr(), dA.data_ptr(), _ptr(dD),
             _ptr(dinit), *(t.data_ptr() for t in parts), _DTYPES[x.dtype],
             b, l, h, p, n, *_strides(x, dt, Bm, Cm), plan.p_block,
-            plan.smem, stream)
+            plan.group, plan.smem, stream)
     check(rc, "ssd_scan_bwd launch")
     BWD_COUNTER.add()
     return dx, ddt, dA, dB, dC, dD, dinit

@@ -32,6 +32,8 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_fwd_ref
 from repro_torch.kernels.similarity_topk import ops as topk_ops
 from repro_torch.kernels.similarity_topk.ref import similarity_topk_ref
 
+from profile_windows import device_kernel_names
+
 pytestmark = pytest.mark.cuda
 
 
@@ -305,18 +307,17 @@ def test_topk_kernel_rows_past_a_whole_block(gen, b, rows):
 
 def test_topk_kernel_is_one_device_kernel_per_call(gen):
     """One call: one launch, which also merges the CTAs' partials."""
-    from torch.profiler import ProfilerActivity, profile
     for b, n in ((16, 512), (64, 21841)):
         x, c = _unit(b, 512, gen, torch.float32), _unit(n, 512, gen,
                                                         torch.float32)
         topk_ops.similarity_topk(x, c, 5)          # scratch made here
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def three_calls():
             for _ in range(3):
                 topk_ops.similarity_topk(x, c, 5)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        # a window whose device records the tracer lost is taken again
+        names = device_kernel_names(three_calls)
         assert len(names) == 3, names
         assert all("topk_kernel" in n for n in names), names
 
@@ -364,14 +365,10 @@ def test_fwd_fused_lets_the_backward_cancel_at_one_pair(gen, d, dtype):
 
 def test_fwd_fused_is_the_tile_sweep_and_its_combine(gen):
     """One call: the two device kernels of row_col_lse's sequence."""
-    from torch.profiler import ProfilerActivity, profile
     x, y = (_unit(2048, 512, gen, torch.float32) for _ in range(2))
     cl_ops.fwd_fused(x, y, 1 / 0.07)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cl_ops.fwd_fused(x, y, 1 / 0.07)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    # a window whose device records the tracer lost is taken again
+    names = device_kernel_names(lambda: cl_ops.fwd_fused(x, y, 1 / 0.07))
     assert any("contrastive_lse_tile_kernel" in n for n in names), names
     assert any("contrastive_lse_combine_kernel" in n for n in names), names

@@ -25,6 +25,7 @@ block.
 """
 import dataclasses
 import functools
+import re
 from unittest import mock
 
 import numpy as np
@@ -35,6 +36,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import (chunk_of, ssd_chunked,
                                               ssd_chunked_bwd, ssd_ref)
+
+from profile_windows import device_kernel_names
 
 pytestmark = pytest.mark.cuda
 
@@ -275,6 +278,8 @@ def _assert_grads_close(got, args, dy, df, chunk):
     (1, 65, 2, 16, 8, True, False),        # one token past a sub-chunk
     (2, 200, 4, 48, 256, True, True),      # the largest state: p_block 16
     (1, 128, 8, 32, 64, False, True),      # p_block 32
+    (1, 4096, 6, 64, 128, True, True),     # 8 does not divide h: 2 heads a CTA
+    (1, 2048, 24, 64, 256, False, True),   # n 256, 4 heads a CTA, 4 slabs
 ])
 def test_ssd_backward_kernel_matches_plain(gen, b, l, h, p, n, init, dfinal,
                                            dtype):
@@ -446,24 +451,30 @@ def test_mamba_prefill_kernel_path_matches_plain_path(gen, precision):
 
 
 def test_ssd_kernel_is_one_device_kernel_per_call(gen):
-    from torch.profiler import ProfilerActivity, profile, schedule
     args = _inputs(gen, 1, 1024, 24, 64, 128, torch.bfloat16, init=True)
     ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
     torch.cuda.synchronize()
-    # tracing starts one step early, on a small op: the tracer's start-up
-    # can miss the first records of a window
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        torch.zeros(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        prof.step()
+
+    def three_calls():
         for _ in range(3):
             ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
-        torch.cuda.synchronize()
-        prof.step()
-    names = [e.name for e in prof.events()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")
-             and not e.name.startswith("ProfilerStep")]
+    # a window whose device records the tracer lost is taken again
+    names = device_kernel_names(three_calls)
     assert len(names) == 3 and all("ssd_scan_kernel" in n for n in names), \
         names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_is_four_device_kernels_per_call(gen, dtype):
+    """One ``ssd_scan_bwd`` call launches the four device kernels its
+    docstring names, each once: the local term, the carry, the main
+    kernel and the sums."""
+    args, dy, df = _bwd_case(gen, 2, 1024, 24, 64, 128, dtype, True, True)
+    _, final, states = ssd_ops._launch(*args, save_states=True)
+    ssd_ops.ssd_scan_bwd(*args, states, final, dy, df)
+    torch.cuda.synchronize()
+    names = device_kernel_names(
+        lambda: ssd_ops.ssd_scan_bwd(*args, states, final, dy, df))
+    kinds = sorted(re.search(r"ssd_bwd_(\w+?)_kernel", n).group(1)
+                   if "ssd_bwd_" in n else n for n in names)
+    assert kinds == ["carry", "local", "main", "sum"], names

@@ -244,21 +244,58 @@ def test_mixer_gradients_reach_every_leaf(arch):
 @pytest.mark.parametrize("n,p,want", [(128, 64, 64), (256, 64, 16),
                                       (64, 32, 32), (16, 16, 16)])
 def test_backward_plan_fits_shared_memory(n, p, want):
+    """f32 at b 2 × l 4096, h 24: the widest head_dim slab whose main-kernel
+    CTA fits (at n 256 only 16); 8 heads a CTA, grid (sub-chunks, b·h /
+    8); the scratch parts: R, the log-decays, dB and dC by head group, dA
+    and dD by (batch, sub-chunk)."""
     plan = ssd_ops.ssd_bwd_plan(2, 4096, 24, p, n)
-    assert plan.p_block == want
-    assert plan.smem == ssd_ops.bwd_smem_bytes(want, n) <= ssd_ops.MAX_SMEM
-    assert plan.grid == (64, 48, p // want)
-    nsub, npb = 64, p // want
+    assert plan.p_block == want and plan.group == 8
+    assert plan.smem == ssd_ops.bwd_smem_bytes(4, want, n) <= ssd_ops.MAX_SMEM
+    assert plan.grid == (64, 2 * 24 // 8)
+    nsub = 64
     assert plan.scratch == (48 * nsub * p * n, 48 * nsub,
-                            24 * npb * 2 * 4096 * n, 24 * npb * 2 * 4096 * n,
-                            npb * 2 * 4096 * 24, 2 * nsub * npb * 24,
-                            2 * nsub * npb * 24)
+                            3 * 2 * 4096 * n, 3 * 2 * 4096 * n,
+                            2 * nsub * 24, 2 * nsub * 24)
+
+
+@pytest.mark.parametrize("dtype,n,p,want,smem", [
+    (torch.float32, 128, 64, 64, 222976),       # the training shape
+    (torch.bfloat16, 128, 64, 64, 196352),
+    (torch.float32, 256, 64, 16, 217344),       # the largest state
+    (torch.bfloat16, 256, 64, 32, 199424),      # bf16 B, C: a wider slab
+    (torch.float32, 256, 48, 16, 217344),       # p 48: 16 divides it
+])
+def test_backward_plan_slab_by_dtype(dtype, n, p, want, smem):
+    plan = ssd_ops.ssd_bwd_plan(2, 4096, 24, p, n, dtype)
+    assert (plan.p_block, plan.smem) == (want, smem)
+    assert smem == ssd_ops.bwd_smem_bytes(torch.finfo(dtype).bits // 8,
+                                          want, n) <= ssd_ops.MAX_SMEM
+
+
+@pytest.mark.parametrize("b,l,h,want", [
+    (2, 4096, 24, 8),      # Mamba-2-130M training: 384 CTAs
+    (1, 4096, 256, 8),     # Jamba's 256 heads: 2048 CTAs
+    (2, 4096, 6, 3),       # 8 does not divide 6; 6 would leave 128 CTAs
+    (2, 4096, 3, 1),       # 3 would leave 128 CTAs, fewer than the SMs
+    (2, 4096, 12, 6),
+    (2, 4096, 7, 1),       # 7: 128 CTAs
+    (1, 244, 24, 1),       # 4 sub-chunks: 96 CTAs even one head a CTA
+])
+def test_backward_plan_head_group(b, l, h, want):
+    """The head group is the largest divisor of h up to 8 that still
+    gives every SM a CTA (ssd_ops.SMS), else 1."""
+    plan = ssd_ops.ssd_bwd_plan(b, l, h, 64, 128)
+    assert plan.group == want and h % want == 0
+    assert plan.grid == (-(-l // 64), b * h // want)
+    assert plan.scratch[2] == h // want * b * l * 128
 
 
 def test_backward_plan_refuses_what_the_kernel_does_not_take():
     for p, n in ((24, 128), (64, 12), (64, 264)):
         with pytest.raises(ValueError, match="multiple"):
             ssd_ops.ssd_bwd_plan(1, 64, 2, p, n)
+    # b·h rows of the local kernel's grid, even where the main kernel's
+    # (b·h / 8) would fit
     with pytest.raises(ValueError, match="65535"):
         ssd_ops.ssd_bwd_plan(512, 64, 256, 64, 128)
 
