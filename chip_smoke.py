@@ -241,7 +241,32 @@ repository beside this file; it exits non-zero without them. In order it:
     launched) against the plain path, each also against a float64 plain
     path (printed), then ``--mode lm --smoke`` through the trainer's
     ``main``;
-27. last, after phase 35, prints the script's seconds, a ``{"kernels":
+36. holds the cross-shard loss's chunk kernels against their plain
+    versions at BASIC-S's width (D 512), B_local 1024 and 2048, f32 and
+    bf16: ``chunk_row_col_lse`` (one ``fwd_fused`` launch) and
+    ``chunk_grads`` (one ``bwd_fused`` launch) from global LSEs, ``b_norm``
+    R·B_local for R 2 and 4, with and without the diagonal; times each
+    against its plain version, the library call (logsumexp of one matmul;
+    autograd of the materialised loss) and the bound;
+37. the cross-shard loss (``allgather`` and ``chunked``) on 2 and 4 gloo
+    ranks sharing the card, B_local 2048 (global 4096, 8192), f32 and
+    bf16, against the single-device fused loss on the same global
+    embeddings (loss, dX, dY, dlog_tau), every rank launching both
+    contrastive kernels; not timed;
+38. the distributed trainer (``repro_torch.launch.train_distributed``'s
+    ``main``) at one rank: BASIC-S full width, bf16, B 2048 in 8
+    microbatches, the chunked loss (the fused loss at one rank), flash
+    attention, 6 steps; then 6 steps cut at 4 (checkpoints every 2) and
+    resumed with ``--resume auto``, equal to the uninterrupted run within
+    rtol 1e-4: step median, pairs/s, peak memory, the last checkpoint's
+    stall and the runlog's data-wait / device-step / ckpt-stall split;
+39. the trainer on 2 gloo ranks sharing the card (BASIC-S f32, global B
+    256, 3 steps), each rank's losses against the one-rank step on the
+    same global batch (rtol 1e-4); not timed;
+40. ``train_lm`` through the trainer's ``main``: Llama-3.2-1B full width,
+    f32, b 4 × s 1024, 3 steps, a checkpoint of params and optimizer state,
+    1 resumed step, against 4 uninterrupted: step, tokens/s, peak memory;
+27. last, after phase 40, prints the script's seconds, a ``{"kernels":
     [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -4463,6 +4488,462 @@ def phase_hybrid_train_parity(lr: float = 1e-3):
     return {**rec, "launches": launches["kernel"], "cli_launches": cli}
 
 
+# ---------------------------------------------------------------------------
+# phases 36-40: the distributed trainer
+# ---------------------------------------------------------------------------
+
+DIST_D = 512                       # BASIC-S's embedding width
+DIST_CHUNKS = (1024, 2048)         # B_local of the chunk kernels
+DIST_RANKS = (2, 4)
+DIST_LOG_TAU = -2.659              # ~ log 0.07
+DIST_LOSS_B_LOCAL = 2048           # phase 37: global 4096 at R 2, 8192 at 4
+DIST_TRAIN_ARGV = ["--arch", "basic-s", "--batch", "2048", "--num-micro",
+                   "8", "--loss", "chunked", "--attn", "pallas", "--seq",
+                   "16", "--steps", "6", "--quiet"]
+DIST_GLOO_ARGV = ["--arch", "basic-s", "--batch", "256", "--num-micro", "2",
+                  "--loss", "chunked", "--attn", "pallas", "--seq", "16",
+                  "--precision", "f32", "--steps", "3", "--quiet"]
+DIST_LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "1024",
+                "--attn", "pallas",
+                "--steps", "4", "--quiet"]
+DIST_RESUME_RTOL = 1e-4            # tests/test_train_distributed.py:56
+# the cross-shard loss against the single-device fused loss: the
+# reference's own limits (tests/distributed_checks.py:79-83, :99-103), and
+# under bf16 1e-3 on the loss, 2e-2 on dX
+DIST_LOSS_TOL = {"float32": {"loss": 2e-6, "rtol": 1e-5, "atol": 1e-6,
+                             "dtau": 1e-5},
+                 "bfloat16": {"loss": 1e-3, "rtol": 0.0, "atol": 2e-2,
+                              "dtau": 2e-2}}
+# dX / dY of a chunk, and of the cross-shard loss, also within this share
+# of the reference's largest entry: at a global b_norm without the
+# diagonal a chunk's gradients are a few 1e-6, the size of the fused
+# pair's f32 limit (CL_GRAD_TOL_F32); in bf16 the fused pair's own share
+CHUNK_GRAD_SHARE = {"float32": 1e-5, "bfloat16": CL_GRAD_REL_MAX_BF16}
+
+
+def chunk_grad_tol(ref, dt):
+    """Max-abs limit on a chunk's or the cross-shard loss's dX or dY whose
+    inputs were of dtype name ``dt``: CHUNK_GRAD_SHARE of max |ref|."""
+    return CHUNK_GRAD_SHARE[dt] * ref.abs().max().item() + 1e-12
+
+
+def cl_counters():
+    """The fused contrastive pair's launch counters."""
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    return (cl_ops.FWD_COUNTER, cl_ops.BWD_COUNTER)
+
+
+def dist_counters():
+    """The kernels of the distributed trainer's contrastive path."""
+    return (*lm_counters(), *cl_counters())
+
+
+def chunk_case(b, dtype, seed):
+    """``chunk_row_col_lse`` and ``chunk_grads`` at (B_local, 512) against
+    their plain versions: the chunk's LSEs, then the gradients from global
+    LSEs (the chunk's plus log R: R - 1 other chunks of like mass) at
+    ``b_norm`` R·B_local, with and without the diagonal, R 2 and 4; times
+    each (``with_diag=False``, R 4 for the backward) against its plain
+    version, the library call and the bound."""
+    import math
+
+    import torch
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    from repro_torch.kernels.contrastive_loss import ref as cl_ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, y = unit_rows(b, DIST_D, g, dtype), unit_rows(b, DIST_D, g, dtype)
+    log_tau = torch.tensor(DIST_LOG_TAU, device="cuda")
+    inv_tau = torch.exp(-log_tau)
+    dt = dtype_name(dtype)
+    shape = f"B_local={b} D={DIST_D} {dt}"
+    row, col = cl_ops.chunk_row_col_lse(x, y, inv_tau)
+    ref_row, ref_col = cl_ref.fwd_fused_ref(x, y, inv_tau)
+    fwd_err = max((row - ref_row).abs().max().item(),
+                  (col - ref_col).abs().max().item())
+    if not fwd_err <= CL_LSE_TOL:
+        raise AssertionError(f"chunk_row_col_lse {shape}: max lse err "
+                             f"{fwd_err:.3g} (tol {CL_LSE_TOL})")
+    bwd_err, bwd_share, cases = 0.0, 0.0, {}
+    for ranks in DIST_RANKS:
+        grow, gcol = ref_row + math.log(ranks), ref_col + math.log(ranks)
+        for with_diag in (False, True):
+            args = (x, y, inv_tau, grow, gcol)
+            kw = dict(b_norm=ranks * b, with_diag=with_diag)
+            got = cl_ops.chunk_grads(*args, **kw)
+            ref = cl_ref.bwd_fused_ref(*args, **kw)
+            gerr = max((got[0] - ref[0]).abs().max().item(),
+                       (got[1] - ref[1]).abs().max().item())
+            terr = abs((got[2] - ref[2]).item())
+            gtol = min(chunk_grad_tol(ref[0], dt), chunk_grad_tol(ref[1], dt))
+            gmax = min(ref[0].abs().max().item(), ref[1].abs().max().item())
+            print(f"chunk_grads {shape} b_norm={ranks}B with_diag="
+                  f"{with_diag}: max grad err {gerr:.3g} = {gerr / gmax:.3g}"
+                  f" of max|ref| {gmax:.3g} (tol {gtol:.3g}), dlog_tau err "
+                  f"{terr:.3g}", flush=True)
+            if not (gerr <= gtol and terr <= CL_DTAU_RTOL[dt]
+                    * abs(ref[2].item()) + 1e-6):
+                raise AssertionError(f"chunk_grads {shape} b_norm={ranks}B "
+                                     f"with_diag={with_diag}: max grad err "
+                                     f"{gerr:.3g} (tol {gtol:.3g}), dlog_tau "
+                                     f"err {terr:.3g}")
+            bwd_err = max(bwd_err, gerr)
+            bwd_share = max(bwd_share, gerr / gmax)
+            cases[(ranks, with_diag)] = args, kw
+    item = torch.finfo(dtype).bits // 8
+    fwd = {"shape": shape, "max_abs_err": fwd_err,
+           "ms": time_ms(lambda: cl_ops.chunk_row_col_lse(x, y, inv_tau)),
+           "plain_ms": time_ms(lambda: cl_ref.fwd_fused_ref(x, y, inv_tau))}
+
+    def lib_fwd():
+        a = (x @ y.T).float() * inv_tau
+        return torch.logsumexp(a, 1), torch.logsumexp(a, 0)
+
+    fwd["library_ms"] = time_ms(lib_fwd)
+    fwd["bound_ms"], fwd["bound_by"] = bound(2 * b * DIST_D * item + 2 * b * 4,
+                                             2.0 * b * b * DIST_D, dt)
+    args, kw = cases[(4, False)]
+    bwd = {"shape": f"{shape}, b_norm=4B_local, with_diag=False",
+           "max_abs_err": bwd_err, "max_err_share": bwd_share,
+           "ms": time_ms(lambda: cl_ops.chunk_grads(*args, **kw)),
+           "plain_ms": time_ms(lambda: cl_ref.bwd_fused_ref(*args, **kw))}
+    xr, yr, lr_ = (t.detach().clone().requires_grad_()
+                   for t in (x, y, log_tau))
+    with torch.no_grad():
+        lfwd_ms = time_ms(lambda: cl_ref.loss_ref(xr, yr, lr_))
+    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        cl_ref.loss_ref(xr, yr, lr_), (xr, yr, lr_))) - lfwd_ms
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        2 * b * DIST_D * item + 2 * b * 4 + 2 * b * DIST_D * 4 + 4,
+        3 * 2.0 * b * b * DIST_D, dt)
+    for name, r in (("chunk_row_col_lse", fwd), ("chunk_grads", bwd)):
+        print(f"{name} {r['shape']}: err {r['max_abs_err']:.3g}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    return fwd, bwd
+
+
+def phase_chunk_kernels():
+    """Phase 36: the chunk kernels at B_local 1024 and 2048, f32 and
+    bf16."""
+    import torch
+    return {(b, dtype_name(dt)): chunk_case(b, dt, seed=80 + i)
+            for i, (b, dt) in enumerate(itertools.product(
+                DIST_CHUNKS, (torch.float32, torch.bfloat16)))}
+
+
+def cross_shard_worker(rank, world, b_local, seed):
+    """One gloo rank of phase 37 on the card: the global embeddings drawn
+    from ``seed`` (the same on every rank), the single-device fused loss
+    and its gradients on all of them, and the rank's ``allgather`` and
+    ``chunked`` losses on its rows, f32 and bf16. Returns, by (method,
+    dtype), the loss, the reference loss, the dX / dY blocks' largest
+    excess over the limit (<= 0 passes), distance and its share of max
+    |ref|, the dlog_tau partial and the reference's, and the rank's
+    contrastive launches in that case's cross-shard call only."""
+    import torch
+    from repro_torch.core import distributed_loss as dl
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.contrastive_loss import ops as cl_ops
+    from repro_torch.launch.mesh import make_local_mesh
+    resolve_device("cuda")
+    mesh = make_local_mesh()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xg = unit_rows(world * b_local, DIST_D, g, torch.float32)
+    yg = unit_rows(world * b_local, DIST_D, g, torch.float32)
+    rows = slice(rank * b_local, (rank + 1) * b_local)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = DIST_LOSS_TOL[dtype_name(dt)]
+        xf, yf = (t.to(dt, copy=True).requires_grad_() for t in (xg, yg))
+        lt = torch.tensor(DIST_LOG_TAU, device="cuda", requires_grad=True)
+        ref = cl_ops.fused_contrastive_loss(xf, yf, lt)
+        rdx, rdy, rdt = torch.autograd.grad(ref, (xf, yf, lt))
+        for method in dl.METHODS:
+            xl = xg[rows].to(dt, copy=True).requires_grad_()
+            yl = yg[rows].to(dt, copy=True).requires_grad_()
+            ll = torch.tensor(DIST_LOG_TAU, device="cuda",
+                              requires_grad=True)
+            for c in cl_counters():
+                c.reset()
+            loss, _ = dl.make_global_loss_fn(mesh, method)(
+                xl, yl, torch.exp(ll))
+            dx, dy, dtau = torch.autograd.grad(loss, (xl, yl, ll))
+            torch.cuda.synchronize()
+            rec = {"loss": loss.item(), "ref_loss": ref.item(),
+                   "dtau": dtau.item(), "ref_dtau": rdt.item(),
+                   "launches": {c.name: c.count for c in cl_counters()}}
+            for name, got, want in (("dx", dx, rdx[rows]),
+                                    ("dy", dy, rdy[rows])):
+                diff = (got.float() - want.float()).abs()
+                want = want.float()
+                rec[f"{name}_err"] = diff.max().item()
+                rec[f"{name}_share"] = (rec[f"{name}_err"]
+                                        / want.abs().max().item())
+                rec[f"{name}_excess"] = max(
+                    (diff - tol["atol"] - tol["rtol"]
+                     * want.abs()).max().item(),
+                    rec[f"{name}_err"] - chunk_grad_tol(want,
+                                                        dtype_name(dt)))
+            out[(method, dtype_name(dt))] = rec
+    return out
+
+
+def phase_cross_shard_loss():
+    """Phase 37: ``allgather`` and ``chunked`` on 2 and 4 gloo ranks sharing
+    the card (B_local 2048: global 4096 and 8192), against the
+    single-device fused loss on the same global embeddings; every rank must
+    have launched, for each dtype, one forward and one backward kernel for
+    ``allgather`` and one of each per chunk (R) for ``chunked``. Not
+    timed: the ranks share one card and gloo stages its collectives
+    through the host."""
+    from repro_torch.launch.spawn import run_world
+    out = {}
+    for world in DIST_RANKS:
+        t0 = time.perf_counter()
+        ranks = run_world(cross_shard_worker, world,
+                          os.path.join(CKPT_ROOT, "rdv"), DIST_LOSS_B_LOCAL,
+                          90 + world, timeout=300)
+        for (method, dt), r0 in ranks[0].items():
+            tol = DIST_LOSS_TOL[dt]
+            recs = [r[(method, dt)] for r in ranks]
+            losses = {r["loss"] for r in recs}
+            dtau = sum(r["dtau"] for r in recs)
+            loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+            dtau_rel = abs(dtau - r0["ref_dtau"]) / abs(r0["ref_dtau"])
+            excess = max(max(r["dx_excess"], r["dy_excess"]) for r in recs)
+            rec = {"shape": f"R={world} B={world * DIST_LOSS_B_LOCAL} "
+                            f"D={DIST_D} {dt}",
+                   "loss_rel_err": loss_rel, "dtau_rel_err": dtau_rel,
+                   "dx_max_abs_err": max(r["dx_err"] for r in recs),
+                   "dy_max_abs_err": max(r["dy_err"] for r in recs),
+                   "grad_err_share": max(max(r["dx_share"], r["dy_share"])
+                                         for r in recs)}
+            want = {c.name: 1 if method == "allgather" else world
+                    for c in cl_counters()}
+            launches = [r["launches"] for r in recs]
+            print(f"cross-shard {method} {rec['shape']}: loss rel err "
+                  f"{loss_rel:.3g} (tol {tol['loss']}), dX max err "
+                  f"{rec['dx_max_abs_err']:.3g}, dY {rec['dy_max_abs_err']:.3g}"
+                  f" (at most {rec['grad_err_share']:.3g} of max|ref|, tol "
+                  f"{CHUNK_GRAD_SHARE[dt]:.3g}), dlog_tau rel err "
+                  f"{dtau_rel:.3g}; launches per rank {launches[0]}",
+                  flush=True)
+            if len(losses) != 1 or loss_rel > tol["loss"] or excess > 0 or \
+                    dtau_rel > tol["dtau"]:
+                raise AssertionError(f"cross-shard {method} {rec['shape']}: "
+                                     f"{rec}, losses {losses}, excess "
+                                     f"{excess:.3g}")
+            if any(lr != want for lr in launches):
+                raise AssertionError(f"cross-shard {method} {rec['shape']}: "
+                                     f"launches per rank {launches}, want "
+                                     f"{want} on each")
+            out[(world, method, dt)] = dict(rec, launches=launches[0])
+        print(f"cross-shard R={world}: {time.perf_counter() - t0:.1f} s, "
+              f"untimed", flush=True)
+    return out
+
+
+def runlog_split(path):
+    """From a trainer runlog: the step records' warm median (the first
+    step of each segment left out), and each phase's share of the summed
+    step time."""
+    import statistics
+    from repro_torch.obs import runlog
+    recs = runlog.read_runlog(path)
+    steps = [r for r in recs if r["kind"] == "step"]
+    starts = {r["resumed_from"] for r in recs if r["kind"] == "resume"}
+    warm = [r["step_s"] for i, r in enumerate(steps)
+            if i and r["step"] not in starts] or [r["step_s"] for r in steps]
+    total = sum(r["step_s"] for r in steps)
+    split = {k: sum(r[k] for r in steps) / total
+             for k in ("data_wait_s", "device_step_s", "ckpt_stall_s")}
+    metrics = [r for r in recs if r["kind"] == "metrics"]
+    stall = metrics[-1]["gauges"].get("ckpt/last_stall_s") if metrics \
+        else None
+    # the loader's own draw of a block on its prefetch thread (contrastive)
+    draw = metrics[-1]["histograms"].get("data/gen_seconds{host=0}") \
+        if metrics else None
+    device = [r["device_step_s"] for i, r in enumerate(steps)
+              if i and r["step"] not in starts]
+    return {"warm_step_median_s": statistics.median(warm), "split": split,
+            "ckpt_last_stall_s": stall, "steps": len(steps),
+            "warm_device_step_median_s": statistics.median(device)
+            if device else None,
+            "draw_s": None if not draw or not draw["count"] else
+            {"mean": draw["sum"] / draw["count"], "min": draw["min"],
+             "max": draw["max"], "count": draw["count"]}}
+
+
+def phase_dist_train():
+    """Phase 38: the distributed trainer at R = 1 through its ``main``, at
+    full width: BASIC-S, B 2048 in 8 microbatches, the chunked loss (the
+    fused loss at one rank), bf16, 6 steps uninterrupted; then 6 steps cut
+    at 4 (``--stop-after 4 --ckpt-every 2``) and ``--resume auto`` to 6,
+    whose losses must equal the uninterrupted run's. Prints step median,
+    pairs/s, peak memory, the last checkpoint stall and the runlog's
+    data-wait / device-step / ckpt-stall split."""
+    import math
+
+    import torch
+    from repro_torch.launch import train_distributed as td
+
+    root = os.path.join(CKPT_ROOT, "dist_r1")
+    shutil.rmtree(root, ignore_errors=True)
+    for c in dist_counters():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    full = td.main(DIST_TRAIN_ARGV + ["--run-dir",
+                                      os.path.join(root, "full")])
+    peak = torch.cuda.max_memory_allocated()
+    launches = {c.name: c.count for c in dist_counters()}
+    d = os.path.join(root, "ck")
+    cut = td.main(DIST_TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "2",
+                                     "--stop-after", "4"])
+    rest = td.main(DIST_TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "2"])
+    clean = runlog_split(os.path.join(root, "full", "runlog.jsonl"))
+    resumed = runlog_split(os.path.join(d, "runlog.jsonl"))
+    rep = {"losses": full, "resumed_losses": cut + rest,
+           "launches": launches,
+           "launches_per_step": {k: v / len(full)
+                                 for k, v in launches.items()},
+           "max_memory_allocated": peak, **clean,
+           "pairs_per_s": 2048 / clean["warm_step_median_s"],
+           "resumed_split": resumed["split"],
+           "ckpt_last_stall_s": resumed["ckpt_last_stall_s"]}
+    print(f"dist train R=1 (BASIC-S bf16, B=2048 in 8, chunked): losses "
+          f"{[round(v, 5) for v in full]}; cut at 4 and resumed "
+          f"{[round(v, 5) for v in cut + rest]}; warm step median "
+          f"{rep['warm_step_median_s']:.4f} s, {rep['pairs_per_s']:.1f} "
+          f"pairs/s, max_memory_allocated {peak / 2**30:.3f} GiB; runlog "
+          f"split {clean['split']} (resumed run {resumed['split']}); "
+          f"ckpt/last_stall_s {rep['ckpt_last_stall_s']}; warm device "
+          f"step median {clean['warm_device_step_median_s']:.4f} s; the "
+          f"loader's draw of a block on its thread {clean['draw_s']}; "
+          f"launches per step {rep['launches_per_step']}", flush=True)
+    if not all(math.isfinite(v) for v in full) or len(cut) != 4 or \
+            len(rest) != 2:
+        raise AssertionError(f"dist train R=1: losses {full}, {cut}, {rest}")
+    bad = [i for i, (a, b) in enumerate(zip(cut + rest, full))
+           if abs(a - b) > DIST_RESUME_RTOL * abs(b)]
+    if bad or min(launches.values()) < 1:
+        raise AssertionError(f"dist train R=1: resumed steps {bad} differ "
+                             f"from the uninterrupted run, or a kernel did "
+                             f"not launch: {launches}")
+    shutil.rmtree(root)
+    return rep
+
+
+def dist_train_worker(rank, world, argv):
+    """One gloo rank of phase 39 on the card: the trainer's ``main``;
+    returns its losses and its kernel launches."""
+    from repro_torch.launch import train_distributed as td
+    for c in dist_counters():
+        c.reset()
+    losses = td.main(argv)
+    return losses, {c.name: c.count for c in dist_counters()}
+
+
+def same_batch_r1_losses(argv):
+    """The R = 1 run of phase 39's global batch: the trainer's state
+    (``build_state`` from the seed) and step (``make_contrastive_step``, the
+    fused loss at one rank) on the batch a 2-rank run consumes, its two
+    blocks joined (``ShardedLoader.global_batch_at`` of the 2-host layout);
+    returns the per-step losses."""
+    from repro_torch.configs import get_arch, smoke_dual_variant
+    from repro_torch.data.sharded import HostLayout, device_put_global
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    args = td.parse_args(argv)
+    device, mesh = td.setup(args)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = smoke_dual_variant(cfg)
+    step_fn, opt = st.make_contrastive_step(
+        cfg, num_micro=args.num_micro, remat=args.remat,
+        precision=args.precision, attn=args.attn, lr=args.lr, mesh=mesh,
+        loss=args.loss)
+    params, opt_state = td.build_state(cfg, opt, args.seed, device)
+    loader = td.make_loader(args, cfg, HostLayout(2, 0))
+    losses = []
+    for step in range(args.steps):
+        batch = device_put_global(loader.global_batch_at(step), device)
+        params, opt_state, loss, _ = step_fn(params, opt_state, batch)
+        losses.append(loss.item())
+    return losses
+
+
+def phase_dist_train_gloo():
+    """Phase 39: the trainer on 2 gloo ranks sharing the card (BASIC-S full
+    width, f32, global B 256 in 2 microbatches a rank, 3 steps); every
+    rank's losses must match the R = 1 run of the same global batch within
+    rtol 1e-4, and every rank must launch the flash and contrastive
+    kernels. Not timed (two ranks on one card)."""
+    from repro_torch.launch.spawn import run_world
+    argv = DIST_GLOO_ARGV + ["--device", "cuda"]
+    t0 = time.perf_counter()
+    ranks = run_world(dist_train_worker, 2, os.path.join(CKPT_ROOT, "rdv"),
+                      argv, timeout=600)
+    r1 = same_batch_r1_losses(argv)
+    print(f"dist train R=2 gloo (BASIC-S f32, B=256): losses per rank "
+          f"{[r[0] for r in ranks]}, R=1 on the same batch {r1}; launches "
+          f"per rank {[r[1] for r in ranks]} "
+          f"({time.perf_counter() - t0:.1f} s, untimed)", flush=True)
+    for losses, launches in ranks:
+        if len(losses) != len(r1) or any(
+                abs(a - b) > DIST_RESUME_RTOL * abs(b)
+                for a, b in zip(losses, r1)) or min(launches.values()) < 1:
+            raise AssertionError(f"dist train R=2: losses {losses} vs R=1 "
+                                 f"{r1}, launches {launches}")
+    return {"losses": [r[0] for r in ranks], "r1_losses": r1,
+            "launches": [r[1] for r in ranks]}
+
+
+def phase_dist_train_lm():
+    """Phase 40: ``train_lm`` through the trainer's ``main`` at R = 1,
+    Llama-3.2-1B full width, f32, b 4 × s 1024: 3 steps then a checkpoint
+    (params and AdaFactorW state), 1 resumed step, against 4 steps
+    uninterrupted. Prints step, tokens/s, peak memory."""
+    import math
+
+    import torch
+    from repro_torch.launch import train_distributed as td
+
+    root = os.path.join(CKPT_ROOT, "dist_lm")
+    shutil.rmtree(root, ignore_errors=True)
+    for c in lm_counters():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    full = td.main(DIST_LM_ARGV + ["--run-dir", os.path.join(root, "full")])
+    peak = torch.cuda.max_memory_allocated()
+    launches = {c.name: c.count for c in lm_counters()}
+    d = os.path.join(root, "ck")
+    cut = td.main(DIST_LM_ARGV + ["--ckpt-dir", d, "--stop-after", "3",
+                                  "--ckpt-keep", "1"])
+    rest = td.main(DIST_LM_ARGV + ["--ckpt-dir", d, "--ckpt-keep", "1"])
+    clean = runlog_split(os.path.join(root, "full", "runlog.jsonl"))
+    rep = {"losses": full, "resumed_losses": cut + rest, **clean,
+           "tokens_per_s": 4 * 1024 / clean["warm_step_median_s"],
+           "max_memory_allocated": peak, "launches": launches,
+           "ckpt_last_stall_s": runlog_split(os.path.join(
+               d, "runlog.jsonl"))["ckpt_last_stall_s"]}
+    print(f"dist train_lm R=1 (Llama-3.2-1B f32, b 4 x s 1024): losses "
+          f"{[round(v, 5) for v in full]}, 3 + 1 resumed "
+          f"{[round(v, 5) for v in cut + rest]}; warm step median "
+          f"{rep['warm_step_median_s']:.4f} s, {rep['tokens_per_s']:.1f} "
+          f"tokens/s, max_memory_allocated {peak / 2**30:.3f} GiB; split "
+          f"{clean['split']}; last checkpoint stall "
+          f"{rep['ckpt_last_stall_s']}; launches {launches}", flush=True)
+    if not all(math.isfinite(v) for v in full) or len(cut) != 3 or any(
+            abs(a - b) > DIST_RESUME_RTOL * abs(b)
+            for a, b in zip(cut + rest, full)) or min(
+            launches.values()) < 1:
+        raise AssertionError(f"dist train_lm: {full} vs {cut} + {rest}, "
+                             f"launches {launches}")
+    shutil.rmtree(root)
+    return rep
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -4566,6 +5047,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_train = phase_hybrid_train_parity()
     torch.cuda.empty_cache()
+    chunk = phase_chunk_kernels()
+    torch.cuda.empty_cache()
+    cross_shard = phase_cross_shard_loss()
+    dist_train = phase_dist_train()
+    torch.cuda.empty_cache()
+    dist_gloo = phase_dist_train_gloo()
+    torch.cuda.empty_cache()
+    dist_lm = phase_dist_train_lm()
+    torch.cuda.empty_cache()
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(r["max_abs_err"] for (_, dt), r in flash.items()
@@ -4634,6 +5124,24 @@ def main() -> int:
                 "jamba_device_kernels_per_call": hybrid["per_call"].get(
                     name)}
 
+    def dist_of(name, i=None):
+        """The kernel's launches on the distributed trainer's paths and,
+        for the contrastive pair (``i``: 0 forward, 1 backward), its chunk
+        shapes."""
+        out = {"dist_r1_launches_per_step": dist_train["launches_per_step"][
+                   name],
+               "dist_gloo_launches_per_rank": [
+                   lc[name] for lc in dist_gloo["launches"]]}
+        if i is None:
+            return {**out, "dist_lm_launches": dist_lm["launches"][name]}
+        return {**out, "chunk": [{k: r[i][k] for k in ("shape", *timing)}
+                                 for r in chunk.values()],
+                "cross_shard_launches_per_rank": {
+                    f"R={w} {m} {dt}": cross_shard[(w, m, dt)]["launches"][
+                        name]
+                    for w in DIST_RANKS for m in ("allgather", "chunked")
+                    for dt in ("float32", "bfloat16")}}
+
     def recipe_of(name):
         """The kernel's launches in each part of the recipe phase."""
         return {part: counts[name]
@@ -4692,7 +5200,8 @@ def main() -> int:
          **mixtral_of(fa_ops.COUNTER.name, moe_flash, "per_prefill"),
          **jamba_of(fa_ops.COUNTER.name, jamba_flash.values(),
                     "per_prefill"),
-         **mixtral_train_of("fwd", fa_ops.COUNTER.name)},
+         **mixtral_train_of("fwd", fa_ops.COUNTER.name),
+         **dist_of(fa_ops.COUNTER.name)},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -4715,7 +5224,8 @@ def main() -> int:
                     text_f32={k: flash_bwd[("text", torch.float32)][k]
                               for k in (*timing, "device_ms", "plan")},
                     **lm_of("bwd", fa_ops.BWD_COUNTER.name),
-                    **mixtral_train_of("bwd", fa_ops.BWD_COUNTER.name)),
+                    **mixtral_train_of("bwd", fa_ops.BWD_COUNTER.name),
+                    **dist_of(fa_ops.BWD_COUNTER.name)),
         train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
                     c_fwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][0]["max_abs_err"],
@@ -4724,12 +5234,14 @@ def main() -> int:
                     device_ms=c_fwd["device_ms"], plan=c_fwd["plan"],
                     ragged={k: contrastive[(1000, torch.float32)][0][k]
                             for k in ("shape", *timing, "device_ms",
-                                      "plan")}),
+                                      "plan")},
+                    **dist_of(cl_ops.FWD_COUNTER.name, 0)),
         train_entry(cl_ops.BWD_COUNTER.name, CL_SOURCE, CL_BWD_REPLACES,
                     c_bwd, max_abs_err_bf16=contrastive[
                         (2048, torch.bfloat16)][1]["max_abs_err"],
                     bf16={k: contrastive[(2048, torch.bfloat16)][1][k]
-                          for k in ("shape", *timing)}),
+                          for k in ("shape", *timing)},
+                    **dist_of(cl_ops.BWD_COUNTER.name, 1)),
         *(legacy_entry(i, name, replaces) for i, (name, replaces) in
           enumerate(((cl_ops.ROW_COL_LSE_COUNTER.name, CL_LSE_REPLACES),
                      (cl_ops.GRADS_COUNTER.name, CL_GRADS_REPLACES)))),
@@ -4882,6 +5394,19 @@ def main() -> int:
           f"{mt['bf16']['max_memory_allocated'] / 2**30:.3f} GiB; f32 parity "
           f"gradients {mt['parity']['grad_rel_err']:.3g}; hybrid smoke "
           f"parity gradients {hybrid_train['grad_rel_err']:.3g}", flush=True)
+    print(f"distributed: R=1 BASIC-S bf16 B 2048 "
+          f"{dist_train['warm_step_median_s']:.4f} s a step, "
+          f"{dist_train['pairs_per_s']:.1f} pairs/s, "
+          f"{dist_train['max_memory_allocated'] / 2**30:.3f} GiB, split "
+          f"{ {k: round(v, 4) for k, v in dist_train['split'].items()} }, "
+          f"last checkpoint stall {dist_train['ckpt_last_stall_s']}; "
+          f"train_lm Llama-3.2-1B {dist_lm['warm_step_median_s']:.4f} s, "
+          f"{dist_lm['tokens_per_s']:.1f} tokens/s, "
+          f"{dist_lm['max_memory_allocated'] / 2**30:.3f} GiB; cross-shard "
+          f"loss worst f32 loss rel err "
+          f"{max(r['loss_rel_err'] for k, r in cross_shard.items() if k[-1] == 'float32'):.3g}"
+          f"; R=2 gloo trainer losses {dist_gloo['losses'][0]} vs R=1 "
+          f"{dist_gloo['r1_losses']}", flush=True)
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
           f"{dec_busy:.4f}; ssm prefill profile busy share "
           f"{ssm_prefill_busy:.4f}; ssm decode profile busy share "

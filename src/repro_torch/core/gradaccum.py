@@ -76,15 +76,18 @@ def contrastive_step(encode_image: Callable, encode_text: Callable,
     ...} with the batch dim B leading every leaf, B a multiple of
     ``num_micro``. ``loss_opts`` is forwarded to ``loss_fn(x, y, tau)``.
 
+    ``loss_fn`` may be a cross-shard GLOBAL-batch loss
+    (``core.distributed_loss.make_global_loss_fn(mesh, ...)``): ``batch`` is
+    then the rank's block of the global batch, the embeddings and dX / dY
+    are the rank's blocks, and the returned gradients are the rank's
+    partials, which the caller sums over the ranks. ``emb_sharding``
+    (``distributed_loss.emb_sharding(mesh)``) names that layout; the
+    reference pins the embeddings to it, but here each rank holds only its
+    own block already, so it is accepted and nothing is pinned.
+
     Returns (loss, metrics, grads): grads is a fresh tree with the params'
     leaf paths, equal to the gradient of the monolithic loss. The params'
-    ``requires_grad`` flags and ``.grad`` are restored as they were.
-    ``emb_sharding`` belongs to the cross-shard loss, which comes with the
-    distributed-training slice of the port."""
-    if emb_sharding is not None:
-        raise NotImplementedError(
-            "emb_sharding: the cross-shard global-batch loss comes with the "
-            "distributed-training slice of the port")
+    ``requires_grad`` flags and ``.grad`` are restored as they were."""
     images, texts, loss, metrics, dx, dy, dlog_tau = _embedding_grads(
         encode_image, encode_text, params, batch, num_micro, loss_fn,
         loss_opts)

@@ -1,6 +1,12 @@
-"""Data layer of the port: tokenizer, the committed tokenizer artifact, and
-the synthetic image-text world (numpy, copied from the reference)."""
-from repro_torch.data.artifact import load_tokenizer  # noqa: F401
+"""Data layer of the port: tokenizer, the synthetic image-text world, the
+prefetching pipeline and the sharded data subsystem (the committed
+tokenizer artifact, augmentation, the resumable loader); numpy, copied
+from the reference."""
+from repro_torch.data.pipeline import (  # noqa: F401
+    Prefetcher,
+    contrastive_stream,
+    host_rng,
+)
 from repro_torch.data.synthetic import (  # noqa: F401
     TEMPLATES,
     World,
@@ -13,5 +19,11 @@ from repro_torch.data.synthetic import (  # noqa: F401
     render_captions,
     render_images,
     world_for_tower,
+)
+from repro_torch.data.sharded import (  # noqa: F401
+    HostLayout,
+    ShardedLoader,
+    default_augmentations,
+    load_tokenizer,
 )
 from repro_torch.data.tokenizer import Tokenizer  # noqa: F401

@@ -24,7 +24,8 @@ class Tokenizer:
     """Greedy longest-match word-piece tokenizer over a trained piece list.
 
     ``version`` names the artifact the pieces came from ("v1" when loaded
-    through ``repro_torch.data.artifact``, "unversioned" otherwise)."""
+    through ``repro_torch.data.sharded.artifact``, "unversioned"
+    otherwise)."""
 
     def __init__(self, pieces: List[str], version: str = "unversioned"):
         self.pieces = list(SPECIALS) + [p for p in pieces if p not in SPECIALS]

@@ -226,6 +226,39 @@ def bwd_fused(x: torch.Tensor, y: torch.Tensor,
                      with_diag)
 
 
+def chunk_row_col_lse(x: torch.Tensor, y_chunk: torch.Tensor,
+                      inv_tau: Union[float, torch.Tensor]):
+    """Row and column LSE of one square chunk X·Y_chunkᵀ·inv_tau: the
+    streaming unit of the cross-shard chunked loss
+    (``core/distributed_loss.py``, reference ``ops.py:200``). ``x`` is the
+    rank's local (B_local, D) block, ``y_chunk`` one rank's (B_local, D)
+    block. Returns ((B_local,) fp32 partial row LSE over this chunk's
+    columns, (B_local,) fp32 partial column LSE over the local rows), from
+    one ``fwd_fused`` call (its launch and counter)."""
+    return fwd_fused(x, y_chunk, inv_tau)
+
+
+def chunk_grads(x: torch.Tensor, y_chunk: torch.Tensor,
+                inv_tau: Union[float, torch.Tensor], row_lse: torch.Tensor,
+                col_lse_chunk: torch.Tensor, *, b_norm: int,
+                with_diag: bool = False):
+    """dX, dY and dlog_tau contributions of one square chunk of the
+    cross-shard loss (reference ``ops.py:215``): ``row_lse`` is the GLOBAL
+    row LSE of the local rows, ``col_lse_chunk`` the GLOBAL column LSE of
+    this chunk's columns, ``b_norm`` the global batch, and ``with_diag``
+    True only on the rank's own chunk, where the positive pairs are.
+    Returns ((B_local, D) fp32 dX partial, (B_local, D) fp32 dY partial for
+    this chunk's columns, scalar fp32 dlog_tau partial).
+
+    Always one ``bwd_fused`` call. The reference takes its two-sweep
+    ``grads`` kernel only when the fused backward's VMEM residency does not
+    fit (``bwd_fits_fused``); the Hopper ``bwd_fused`` keeps no resident dY
+    and runs the same device loop as ``grads``, so there is nothing to fall
+    back from (module docstring)."""
+    return bwd_fused(x, y_chunk, inv_tau, row_lse, col_lse_chunk,
+                     b_norm=b_norm, with_diag=with_diag)
+
+
 class LsePlan(NamedTuple):
     """The forwards' launch (``fwd_fused``, ``row_col_lse``) at batch B:
     ``tile`` × ``tile`` tiles of A, ``tiles`` of them along each side,

@@ -13,8 +13,10 @@ the reference's ``run_pretrain``, ``repro/launch/train.py:116-125``).
 ``make_train_step`` is the LM's next-token step (``transformer.lm_loss``
 then AdaFactorW). ``moe_args`` pick a MoE model's dispatch: the train
 and prefill steps default to ``DEFAULT_MOE_ARGS`` (capacity dispatch), the
-decode step to dense dispatch, as in the reference. The cross-shard
-losses and the input shardings wait for the distributed-training slice.
+decode step to dense dispatch, as in the reference. Across
+``torch.distributed`` ranks (a ``launch.mesh`` mesh) the contrastive step
+takes the cross-shard global-batch losses ('allgather', 'chunked') and
+sums the ranks' gradients with one all-reduce before the update.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core import remat as remat_lib
+from repro_torch.core import distributed_loss as dist_loss
 from repro_torch.core.contrastive import contrastive_loss, fused_kernel_loss
 from repro_torch.core.gradaccum import contrastive_step as ga_step
+from repro_torch.launch.mesh import all_reduce_tree
 from repro_torch.models import dual_encoder as de
 from repro_torch.models import frontends
 from repro_torch.models import transformer as tf
@@ -36,7 +40,7 @@ from repro_torch.tree import tree_leaves, tree_map
 LOSSES = {"local": contrastive_loss, "fused": fused_kernel_loss}
 DEFAULT_MOE_ARGS = {"dispatch": "capacity", "group": 4096,
                     "capacity_factor": 1.25}
-DISTRIBUTED_LOSSES = ("allgather", "chunked")
+DISTRIBUTED_LOSSES = dist_loss.METHODS
 
 
 def make_optimizer(weight_decay=0.0025) -> AdaFactorW:
@@ -70,17 +74,29 @@ def value_and_grad(loss_fn, params):
 
 
 def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
-            *, precision, remat_policy=None, moe_args=None):
+            *, precision, remat_policy=None, moe_args=None, mesh=None):
     """One LM training step: ``transformer.lm_loss`` (with ``moe_args``)
     and its gradients, then one ``opt`` update at ``lr`` (a float, or a
-    schedule of the step count before the update). Returns
-    train_step(params, opt_state, batch) -> (params, opt_state, loss,
-    metrics)."""
+    schedule of the step count before the update). With a ``mesh``
+    (``launch.mesh``; the distributed trainer's) ``batch`` is the rank's
+    block: the gradients and the loss are averaged over its ranks (one
+    all-reduce of the gradients) and ``metrics`` gains the global gradient
+    norm ``grad_norm``. Returns train_step(params, opt_state, batch) ->
+    (params, opt_state, loss, metrics)."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(
             lambda p: tf.lm_loss(cfg, p, batch, precision=precision,
                                  remat_policy=remat_policy,
                                  moe_args=moe_args), params)
+        if mesh is not None:
+            if mesh.distributed:
+                n = mesh.data_size
+                grads = tree_map(lambda g: g / n, all_reduce_tree(grads, mesh))
+                loss = mesh.all_reduce(loss) / n
+            with torch.no_grad():
+                metrics = dict(metrics, grad_norm=torch.sqrt(
+                    sum(torch.sum(g.float() ** 2)
+                        for g in tree_leaves(grads))))
         step_lr = lr(opt_state.step) if callable(lr) else lr
         updates, new_opt = opt.update(grads, opt_state, params, step_lr)
         return apply_updates(params, updates), new_opt, loss, metrics
@@ -172,7 +188,15 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
     tower's ``attn_impl``. ``remat`` picks the ``core.remat`` policy of both
     towers and ``remat_image`` / ``remat_text`` override it per tower.
     ``loss``: 'local' (the materialising ``contrastive_loss``) or 'fused'
-    (the fused kernels). ``lr`` is a float or a schedule of the step count
+    (the fused kernels), both on one device's batch; or 'allgather' /
+    'chunked', the cross-shard GLOBAL-batch loss over the data axis of
+    ``mesh`` (required; ``core.distributed_loss``): each rank's ``batch``
+    is then its block of the global batch, its gradients are summed over
+    the ranks by one all-reduce (``launch.mesh.all_reduce_tree``, every
+    leaf with log_tau's) before the update, and every rank takes the same
+    update. On a mesh of one rank both reduce to the fused loss. 'local'
+    and 'fused' refuse a mesh of several ranks: they would train on each
+    rank's block alone. ``lr`` is a float or a schedule of the step count
     (``opt_state.step`` before the update).
 
     ``freeze_image=True`` is phase 2 of the recipe: the image tower's
@@ -192,12 +216,19 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
 
     Returns (train_step, opt); train_step(params, opt_state, batch) ->
     (params, opt_state, loss, metrics)."""
-    if loss in DISTRIBUTED_LOSSES or mesh is not None:
-        raise NotImplementedError(
-            f"loss={loss!r} / mesh: the cross-shard losses come with the "
-            f"distributed-training slice of the port")
-    if loss not in LOSSES:
-        raise ValueError(f"unknown loss {loss!r}; have {sorted(LOSSES)}")
+    if loss in LOSSES:
+        if mesh is not None and mesh.distributed:
+            raise ValueError(f"loss={loss!r} trains on one device's batch; "
+                             f"across {mesh.data_size} ranks use one of "
+                             f"{DISTRIBUTED_LOSSES}")
+        loss_fn = LOSSES[loss]
+    elif loss in DISTRIBUTED_LOSSES:
+        if mesh is None:
+            raise ValueError(f"loss={loss!r} needs a mesh")
+        loss_fn = dist_loss.make_global_loss_fn(mesh, loss)
+    else:
+        raise ValueError(f"unknown loss {loss!r}; have "
+                         f"{sorted(LOSSES) + list(DISTRIBUTED_LOSSES)}")
     if attn is not None:
         dual_cfg = dataclasses.replace(
             dual_cfg,
@@ -210,7 +241,6 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
                                     else remat_image)
     policy_t = remat_lib.get_policy(remat if remat_text is None
                                     else remat_text)
-    loss_fn = LOSSES[loss]
 
     def enc_i(p, images):
         return de.encode_image(dual_cfg, p, images, precision=precision,
@@ -224,6 +254,8 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
         loss_val, metrics, grads = ga_step(enc_i, enc_t, params, batch,
                                            num_micro, loss_fn=loss_fn,
                                            loss_opts=loss_opts)
+        if mesh is not None:
+            grads = all_reduce_tree(grads, mesh)
         if freeze_image:
             grads["image"]["tower"] = tree_map(torch.zeros_like,
                                                grads["image"]["tower"])

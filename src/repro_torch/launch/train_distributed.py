@@ -1,0 +1,588 @@
+"""Distributed trainer of the port (counterpart of
+``repro/launch/train_distributed.py``): the production loop over any
+number of ``torch.distributed`` ranks, one rank per mesh device.
+
+The same code path drives one card and many: each rank of the data axis
+(``launch.mesh.make_local_mesh``) holds the whole model (parameters are
+drawn from ``--seed`` identically on every rank, or restored from one
+checkpoint, and placed by the ``--sharding`` rule, which replicates every
+leaf with one model rank) and its block of the GLOBAL batch; the step's
+gradients are summed over the ranks by one all-reduce, so every rank
+takes the same update. Two objectives share the loop (``--objective
+auto`` picks by arch):
+
+  lm           — next-token loss of a decoder LM; every rank draws the
+                 global batch of step i from ``host_rng(seed, 0, i)`` and
+                 trains on its rows; the loss and the gradients are the
+                 means over the ranks' equal blocks
+  contrastive  — the paper's dual-encoder objective: Algorithm-1
+                 GradAccum (``--num-micro``, over each rank's block) with
+                 the cross-shard global-batch loss (``--loss allgather`` or
+                 ``--loss chunked``, ``core.distributed_loss``), so the
+                 contrastive batch does not shrink with the number of
+                 ranks; per-tower remat via ``--remat-image`` /
+                 ``--remat-text``. Images are raw pixels through the
+                 patchify frontend.
+
+With one rank (no process group, or a world of 1) the contrastive loss is
+the single-device fused loss, as the reference's on a data extent of 1.
+``--precision`` (default f32 for lm, bf16 for contrastive) and ``--attn``
+('pallas', the flash kernels) as in the reference.
+
+The contrastive input is the sharded data subsystem (``data.sharded``):
+the versioned tokenizer artifact (``--tokenizer v1``), one block of the
+global batch per rank (rank r draws block r from ``host_rng(seed, r,
+step)``, the same bytes as the reference's block r), optional ``--augment
+on``, read through the loader's cursor stream (``ShardedLoader.stream``),
+and the loader's state in every checkpoint's meta, so a resumed run
+replays the exact batch sequence. The ``%8`` per-shard batch rule of the
+reference (its TPU kernel's tiling) does not apply; each rank's block must
+divide into ``--num-micro`` microbatches.
+
+    python -m repro_torch.launch.train_distributed --arch basic-s \\
+        --batch 2048 --num-micro 8 --loss chunked --steps 100 \\
+        --ckpt-dir /path/to/ckpt --ckpt-every 10
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train_distributed \\
+        --arch basic-s --batch 8192 --num-micro 8 --loss chunked ...
+    python -m repro_torch.launch.train_distributed --arch llama3.2-1b \\
+        --smoke --device cpu --steps 4 --batch 4 --seq 64
+
+Under ``torchrun`` (WORLD_SIZE > 1) ``main`` starts the process group:
+NCCL when every local rank has its own card, else gloo (several ranks on
+one card, or ``--device cpu``). A caller that has started a group already
+(tests, ``chip_smoke.py``) calls ``train`` and the group is used as it is.
+It runs on the card (``cuda:LOCAL_RANK``) unless given ``--device cpu``,
+and raises without a card otherwise.
+
+Fault tolerance: checkpoints (rank 0 writes them, in the reference's
+format, params and AdaFactorW state as one tree) go through
+``checkpoint.AsyncCheckpointManager`` (``--ckpt-sync`` for blocking
+writes, ``--ckpt-keep`` / ``--ckpt-keep-every`` retention); ``--resume
+auto`` restores from the newest checkpoint that verifies, ``latest`` the
+newest, ``off`` starts fresh. SIGTERM (or ``--preempt-after N``) ends the
+run after the step in flight with a final sync checkpoint, every rank
+agreeing on the step; persistent async-write failures degrade to sync
+checkpoints. ``--stop-after`` halts early and keeps the ``--steps`` LR
+horizon.
+
+Telemetry: with ``--run-dir`` (default ``--ckpt-dir``) rank 0 streams one
+schema-v1 JSONL record a step to ``<run-dir>/runlog.jsonl`` (loss,
+grad-norm where the step has one, examples/s, and the data-wait /
+device-step / ckpt-stall split; data-wait includes the copy of the batch
+to the card), checkpoint and resume markers, and a final metrics snapshot,
+and exports a Chrome trace (``trace.json``). Summarise with ``python -m
+repro_torch.obs.report <run-dir>/runlog.jsonl``. ``--memstats`` (the
+compiled memory report) waits for the port's tooling, ``--health`` and
+``--metrics-port`` for its health tier: they raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import signal
+import threading
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs import (ArchConfig, get_arch, smoke_dual_variant,
+                                 smoke_variant)
+from repro_torch.core import sharding as shd
+from repro_torch.core.remat import get_policy, list_policies
+from repro_torch.data.pipeline import Prefetcher, host_rng
+from repro_torch.data.sharded.loader import device_put_global
+from repro_torch.device import resolve_device
+from repro_torch.interop import init_params
+from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import frontends
+from repro_torch.models import transformer as tf
+from repro_torch.models.attention import ALIASES, available_backends
+from repro_torch.models.precision import list_policies as precisions
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import runlog as obs_runlog
+from repro_torch.obs import trace as obs_trace
+from repro_torch.optim import AdaFactorW, warmup_cosine
+from repro_torch.tree import tree_map
+
+
+def build_state(cfg, opt, seed: int, device, mesh=None,
+                sharding: str = "basic_ws"):
+    """Params drawn from ``seed`` on ``device`` (the same on every rank: a
+    generator of the device's type seeded alike), placed on ``mesh`` by
+    ``core.sharding.params_specs`` under the ``sharding`` rule (with one
+    model rank, the port's only, every rule replicates, so every rank
+    holds them whole), and their optimizer state. Returns (params,
+    opt_state)."""
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device)
+    if mesh is not None:
+        params = shd.shard(params, shd.params_specs(params, mesh, sharding),
+                           mesh)
+    return params, opt.init(params)
+
+
+def _make_manager(args, registry=None):
+    """The run's AsyncCheckpointManager (None without ``--ckpt-dir``):
+    ``--ckpt-sync`` starts in blocking mode, ``--ckpt-keep`` /
+    ``--ckpt-keep-every`` set the retention."""
+    if not args.ckpt_dir:
+        return None
+    return ckpt.AsyncCheckpointManager(
+        args.ckpt_dir, sync=bool(getattr(args, "ckpt_sync", False)),
+        keep_last=int(getattr(args, "ckpt_keep", 0) or 0),
+        keep_every=int(getattr(args, "ckpt_keep_every", 0) or 0),
+        registry=registry)
+
+
+def _make_obs(args, resumed_from, mesh):
+    """The run's telemetry: a metrics Registry on every rank, and on rank
+    0, when the run has a directory (``--run-dir``, default
+    ``--ckpt-dir``), a span Tracer and a RunLogger. A resumed run APPENDS
+    to the runlog with a ``resume`` marker. Returns (registry, tracer,
+    runlog, run_dir)."""
+    run_dir = getattr(args, "run_dir", None) or args.ckpt_dir
+    registry = obs_metrics.Registry()
+    tracer = runlog = None
+    if run_dir and mesh.data_index == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        tracer = obs_trace.Tracer()
+        meta = {"arch": args.arch,
+                "objective": getattr(args, "objective", "auto"),
+                "batch": args.batch, "steps": args.steps, "seed": args.seed,
+                "ranks": mesh.data_size}
+        runlog = obs_runlog.RunLogger(os.path.join(run_dir, "runlog.jsonl"),
+                                      meta=meta,
+                                      resumed_from=resumed_from or None)
+    return registry, tracer, runlog, run_dir
+
+
+def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
+              device, ckpt_meta_fn=None, registry=None, tracer=None,
+              runlog=None, run_dir=None):
+    """The step / log / checkpoint loop from step ``start``; returns the
+    per-step losses. ``stream`` yields the rank's numpy block of each step
+    from ``start`` on (drawn ahead on a prefetch thread, moved to
+    ``device`` on the loop's thread) and is closed when the loop ends;
+    ``ckpt_meta_fn(next_step) -> dict`` is the user meta of every
+    checkpoint (the loader's state).
+
+    Every rank runs the same steps; rank 0 writes checkpoints, the runlog
+    and the trace. SIGTERM (the preemption signal) is caught: the step in
+    flight finishes, the ranks agree (a max all-reduce of the flag each
+    step), rank 0 writes a final SYNC checkpoint, and the loop returns, so
+    a preempted run resumes from its last step. A persistent async-write
+    failure degrades the run to synchronous checkpoints."""
+    stop = getattr(args, "stop_after", None) or args.steps
+    lead = mesh.data_index == 0
+    quiet = bool(getattr(args, "quiet", False)) or not lead
+    t0, losses = time.time(), []
+    manager = _make_manager(args, registry) if lead else None
+    preempted = threading.Event()
+    prev_handler = None
+    if threading.current_thread() is threading.main_thread():
+        prev_handler = signal.signal(
+            signal.SIGTERM, lambda signum, frame: preempted.set())
+    preempt_after = getattr(args, "preempt_after", None)
+    flag = torch.zeros((1,), dtype=torch.float32, device=device)
+
+    def save(step, *, final=False, event="save"):
+        """Checkpoint (rank 0) with degrade-on-failure; returns the loop's
+        stall in seconds."""
+        if manager is None:
+            return 0.0
+        meta = ckpt_meta_fn(step) if ckpt_meta_fn else None
+        tree = (params, opt_state)
+        t_save = time.perf_counter()
+        try:
+            if final:
+                manager.save_sync(step, tree, meta=meta)
+            else:
+                manager.save(step, tree, meta=meta)
+        except ckpt.CheckpointError as e:
+            # a previous async write died after its retries: keep training
+            # only with durability, so go blocking and write this step now
+            print(f"ckpt: async write failed ({e}); degrading to sync")
+            manager.degrade_to_sync()
+            if runlog:
+                runlog.log("checkpoint", step=step, event="degrade_to_sync",
+                           error=str(e))
+            manager.save_sync(step, tree, meta=meta)
+        stall = time.perf_counter() - t_save
+        if runlog:
+            runlog.log("checkpoint", step=step, event=event,
+                       sync=bool(final or manager.sync), stall_s=stall)
+        return stall
+
+    final_saved = False
+    try:
+        for i in range(start, min(args.steps, stop)):
+            t_iter = time.perf_counter()
+            with obs_trace.span(tracer, "data_wait", step=i):
+                batch = device_put_global(next(stream), device)
+            t_data = time.perf_counter()
+            with obs_trace.span(tracer, "device_step", step=i):
+                params, opt_state, loss, metrics = step_fn(params, opt_state,
+                                                           batch)
+                loss_f = float(loss)   # waits for the device step
+            t_device = time.perf_counter()
+            losses.append(loss_f)
+            ckpt_stall, breaking = 0.0, False
+            if preempt_after is not None and i - start + 1 == preempt_after:
+                # simulated preemption: a REAL SIGTERM to ourselves, so the
+                # exact signal path runs
+                os.kill(os.getpid(), signal.SIGTERM)
+            flag.fill_(float(preempted.is_set()))
+            if float(mesh.all_reduce(flag, "max")[0]):
+                if args.ckpt_dir and lead:
+                    print(f"SIGTERM: preemption checkpoint at step {i + 1}")
+                with obs_trace.span(tracer, "ckpt_stall", step=i):
+                    ckpt_stall += save(i + 1, final=True,
+                                       event="preempt_save")
+                final_saved = breaking = True
+            elif args.ckpt_dir and args.ckpt_every and \
+                    (i + 1) % args.ckpt_every == 0:
+                with obs_trace.span(tracer, "ckpt_stall", step=i):
+                    ckpt_stall += save(i + 1)
+            step_s = time.perf_counter() - t_iter
+            gnorm = metrics.get("grad_norm")
+            gnorm_f = None if gnorm is None else float(gnorm)
+            if runlog:
+                extra = {} if gnorm_f is None else {"grad_norm": gnorm_f}
+                runlog.log_step(i, loss=loss_f, data_wait_s=t_data - t_iter,
+                                device_step_s=t_device - t_data,
+                                ckpt_stall_s=ckpt_stall, step_s=step_s,
+                                examples_per_sec=args.batch / step_s,
+                                **extra)
+            if not quiet and (i % args.log_every == 0
+                              or i == args.steps - 1):
+                gtxt = "" if gnorm_f is None else f"gnorm {gnorm_f:.2f} "
+                print(f"step {i:5d} loss {loss_f:.4f} {gtxt}"
+                      f"{(time.time() - t0) / max(1, i - start + 1):.2f}"
+                      f"s/step", flush=True)
+            if breaking:
+                break
+    finally:
+        stream.close()
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+    if args.ckpt_dir and not final_saved:
+        with obs_trace.span(tracer, "ckpt_stall"):
+            save(min(args.steps, stop), final=True, event="final_save")
+    if manager is not None:
+        manager.close()
+    trace_path = None
+    if tracer is not None:
+        trace_path = tracer.export(os.path.join(run_dir, "trace.json"))
+    if runlog:
+        if trace_path:
+            runlog.log("event", event="trace_export", path=trace_path,
+                       dropped=tracer.dropped)
+        runlog.log("metrics", **registry.snapshot())
+        runlog.close()
+    if trace_path and not quiet:
+        print(f"obs: trace -> {trace_path} (open in Perfetto)")
+    mesh.barrier()       # rank 0's last checkpoint is on disk for every rank
+    return losses
+
+
+def _restore(args, params, opt_state, mesh, device):
+    """Resume per ``--resume``: ``auto`` (default) from
+    ``latest_verified_step`` (torn or corrupt step dirs skipped, stale
+    temporary dirs removed by rank 0), ``latest`` from the newest step dir,
+    ``off`` fresh. Every rank restores the same checkpoint. Returns
+    (params, opt_state, start)."""
+    start = 0
+    resume = getattr(args, "resume", None) or "auto"
+    if args.ckpt_dir and resume != "off":
+        latest = (ckpt.latest_verified_step(args.ckpt_dir,
+                                            gc=mesh.data_index == 0)
+                  if resume == "auto" else ckpt.latest_step(args.ckpt_dir))
+        if latest:
+            def meta(tree):
+                return tree_map(lambda t: torch.empty_like(t, device="meta"),
+                                tree)
+            like = (meta(params), type(opt_state)(*map(meta, opt_state)))
+            params, opt_state = ckpt.restore(args.ckpt_dir, latest, like,
+                                             device=device)
+            start = latest
+            if mesh.data_index == 0:
+                print(f"resumed from step {start} (--resume {resume})")
+    mesh.barrier()
+    return params, opt_state, start
+
+
+def setup(args):
+    """(device, mesh) of a run: the card ``cuda:LOCAL_RANK`` (modulo the
+    cards present, so ranks may share one) unless ``--device cpu``, and
+    the data mesh of the live ranks."""
+    for flag, what in (("memstats", "--memstats: the compiled memory "
+                        "report (launch/memstats.py) comes with the port's "
+                        "tooling slice"),
+                       ("health", "--health: anomaly detection "
+                        "(obs/health.py) comes with the port's health tier"),
+                       ("metrics_port", "--metrics-port: the live metrics "
+                        "endpoint (obs/export.py) comes with the port's "
+                        "health tier")):
+        value = getattr(args, flag, None)
+        if value is not None and value is not False:
+            raise NotImplementedError(what)
+    device = resolve_device(getattr(args, "device", None))
+    mesh = make_local_mesh(model=getattr(args, "model_parallel", 1))
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", mesh.data_index))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device, mesh
+
+
+def train_lm(args):
+    """LM objective over the live ranks; returns the per-step losses."""
+    device, mesh = setup(args)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    if getattr(args, "attn", None):
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn)
+    opt = AdaFactorW(weight_decay=0.0025)
+    lr_fn = warmup_cosine(args.lr, args.lr / 100, max(1, args.steps // 10),
+                          args.steps)
+    moe_args = {"dispatch": "dense"} if args.smoke else None
+    params, opt_state = build_state(cfg, opt, args.seed, device, mesh,
+                                    args.sharding)
+    params, opt_state, start = _restore(args, params, opt_state, mesh,
+                                        device)
+    registry, tracer, runlog, run_dir = _make_obs(args, start, mesh)
+    step_fn = st.lm_step(cfg, opt, lr_fn,
+                         precision=getattr(args, "precision", None) or "f32",
+                         remat_policy=get_policy(args.remat),
+                         moe_args=moe_args, mesh=mesh)
+
+    def make_batch(step):
+        # every rank draws the global batch of the step and keeps its rows
+        b = frontends.synthetic_inputs(cfg, args.batch, args.seq,
+                                       host_rng(args.seed, 0, step),
+                                       device="cpu")
+        return tree_map(lambda t: t.numpy(),
+                        shd.shard(b, shd.batch_specs(b, mesh), mesh))
+
+    return _run_loop(args, step_fn, params, opt_state,
+                     Prefetcher(make_batch, depth=2, start=start), start,
+                     mesh=mesh, device=device, registry=registry,
+                     tracer=tracer, runlog=runlog, run_dir=run_dir)
+
+
+def make_loader(args, cfg, layout, registry=None, tracer=None):
+    """The contrastive run's ``data.sharded.ShardedLoader`` under
+    ``layout``: the synthetic world drawn from
+    ``np.random.default_rng(seed)`` (16 classes, noise 0.2, as the
+    reference's trainer draws it), the tokenizer artifact ``--tokenizer``,
+    and ``--augment``'s ops."""
+    from repro_torch.data import world_for_tower
+    from repro_torch.data.sharded import (ShardedLoader,
+                                          default_augmentations,
+                                          load_tokenizer)
+    world = world_for_tower(np.random.default_rng(args.seed), cfg.image_tower,
+                            n_classes=16, noise=0.2)
+    tok = load_tokenizer(getattr(args, "tokenizer", None) or "v1")
+    augment = default_augmentations() \
+        if getattr(args, "augment", "off") == "on" else ()
+    return ShardedLoader(world, tok, args.batch, layout=layout,
+                         seed=args.seed, text_len=args.seq, augment=augment,
+                         registry=registry, tracer=tracer)
+
+
+def train_contrastive(args):
+    """The paper's objective: GradAccum over each rank's block × data
+    parallelism, with the cross-shard global-batch contrastive loss.
+    Returns the per-step losses.
+
+    Input (DESIGN.md §9): the versioned tokenizer artifact, a
+    ``data.sharded.ShardedLoader`` with one block per rank
+    (``HostLayout(ranks, rank)``), optional ``--augment``, and the loader's
+    state as checkpoint meta: rank 0 records its state, and on resume every
+    rank checks it against its own loader (with its own host id), so a
+    changed tokenizer, layout, seed or augmentation stops the run instead
+    of replaying other batches."""
+    from repro_torch.data.sharded import HostLayout
+    from repro_torch.data.sharded.loader import LoaderState
+
+    device, mesh = setup(args)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = smoke_dual_variant(cfg)
+    num_micro = getattr(args, "num_micro", 2)
+    loss = getattr(args, "loss", "chunked")
+    ranks = mesh.data_size
+    if args.batch % ranks:
+        raise SystemExit(f"--batch {args.batch} must be divisible by the "
+                         f"{ranks} ranks (one equal block each)")
+    if (args.batch // ranks) % num_micro:
+        raise SystemExit(f"each rank's block of {args.batch // ranks} must "
+                         f"be divisible by --num-micro {num_micro}")
+
+    step_fn, opt = st.make_contrastive_step(
+        cfg, num_micro=num_micro, remat=args.remat,
+        remat_image=getattr(args, "remat_image", None),
+        remat_text=getattr(args, "remat_text", None),
+        precision=getattr(args, "precision", None) or "bf16",
+        attn=getattr(args, "attn", None), lr=args.lr, mesh=mesh, loss=loss)
+    params, opt_state = build_state(cfg, opt, args.seed, device, mesh,
+                                    args.sharding)
+    params, opt_state, start = _restore(args, params, opt_state, mesh,
+                                        device)
+
+    registry, tracer, runlog, run_dir = _make_obs(args, start, mesh)
+    if tracer is not None:
+        tracer.set_process_name(1, "host 0")
+    loader = make_loader(args, cfg, HostLayout(ranks, mesh.data_index),
+                         registry, tracer)
+    if start and args.ckpt_dir and \
+            (meta := ckpt.load_meta(args.ckpt_dir, start)) \
+            and "loader" in meta:
+        state = LoaderState.from_json(meta["loader"])
+        loader.restore(dataclasses.replace(state, host_id=mesh.data_index))
+    else:
+        loader.restore(loader.state(step=start))
+
+    def ckpt_meta_fn(next_step):
+        # the stream advanced the cursor once for each block the loop took
+        state = loader.state()
+        assert state.step == next_step, (state.step, next_step)
+        return {"loader": state.to_json()}
+
+    return _run_loop(args, step_fn, params, opt_state, loader.stream(depth=2),
+                     start, mesh=mesh, device=device,
+                     ckpt_meta_fn=ckpt_meta_fn, registry=registry,
+                     tracer=tracer, runlog=runlog, run_dir=run_dir)
+
+
+def train(args):
+    """Dispatch on ``--objective`` (``auto``: lm for decoder LMs,
+    contrastive for dual encoders); returns the per-step losses."""
+    objective = getattr(args, "objective", "auto")
+    if objective == "auto":
+        objective = ("lm" if isinstance(get_arch(args.arch), ArchConfig)
+                     else "contrastive")
+    if objective == "lm":
+        return train_lm(args)
+    return train_contrastive(args)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    """The trainer's command line: the reference's flags and ``--device``."""
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True,
+                    help="arch name (decoder LMs train the lm objective; "
+                         "basic-{s,m,l} contrastive)")
+    ap.add_argument("--objective", default="auto",
+                    choices=["auto", "lm", "contrastive"])
+    ap.add_argument("--smoke", action="store_true",
+                    help="CPU-sized variant of the arch")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="GLOBAL batch (split over the ranks)")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="sequence length (lm) / caption length "
+                         "(contrastive)")
+    ap.add_argument("--lr", type=float, default=1e-3,
+                    help="peak LR (lm: warmup-cosine; contrastive: "
+                         "constant)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sharding", default="basic_ws",
+                    choices=["basic_ws", "tp", "replicated"],
+                    help="weight-sharding rule (core.sharding."
+                         "params_specs) the params are placed by; with one "
+                         "model rank, the port's only, every rule "
+                         "replicates")
+    remat_names = list_policies() + ["off"]
+    ap.add_argument("--remat", default="basic", choices=remat_names)
+    ap.add_argument("--remat-image", default=None, choices=remat_names,
+                    help="override --remat for the image tower")
+    ap.add_argument("--remat-text", default=None, choices=remat_names,
+                    help="override --remat for the text tower")
+    ap.add_argument("--precision", default=None, choices=precisions(),
+                    help="precision policy (default f32 for lm, bf16 for "
+                         "contrastive)")
+    ap.add_argument("--attn", default=None,
+                    choices=sorted(set(available_backends()) | set(ALIASES)
+                                   | {"auto"}),
+                    help="attention backend of every tower ('pallas' is "
+                         "the flash kernels)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis size; only 1 (tensor parallelism "
+                         "comes with a later slice)")
+    ap.add_argument("--num-micro", type=int, default=2,
+                    help="GradAccum microbatches of each rank's block")
+    ap.add_argument("--loss", default="chunked",
+                    choices=sorted(st.LOSSES) + list(st.DISTRIBUTED_LOSSES),
+                    help="contrastive loss: 'allgather' / 'chunked' over "
+                         "the global batch, 'local' / 'fused' on one rank")
+    ap.add_argument("--memstats", action="store_true",
+                    help="not in the port yet (raises)")
+    ap.add_argument("--augment", default="off", choices=["on", "off"],
+                    help="train-time image augmentation (contrastive)")
+    ap.add_argument("--tokenizer", default="v1",
+                    help="tokenizer artifact version "
+                         "(artifacts/tokenizer_<v>.json)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--quiet", action="store_true",
+                    help="no per-step stdout lines")
+    ap.add_argument("--health", action="store_true",
+                    help="not in the port yet (raises)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="not in the port yet (raises)")
+    ap.add_argument("--run-dir", default=None,
+                    help="directory of runlog.jsonl and trace.json "
+                         "(default --ckpt-dir)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--ckpt-sync", action="store_true",
+                    help="blocking checkpoint writes (default async)")
+    ap.add_argument("--ckpt-keep", type=int, default=0,
+                    help="keep only the newest K checkpoints (0 = all)")
+    ap.add_argument("--ckpt-keep-every", type=int, default=0,
+                    help="also keep every Nth step (0 = none)")
+    ap.add_argument("--resume", default="auto",
+                    choices=["auto", "latest", "off"])
+    ap.add_argument("--preempt-after", type=int, default=None,
+                    help="SIGTERM ourselves after N steps (the preemption "
+                         "path)")
+    ap.add_argument("--stop-after", type=int, default=None,
+                    help="halt early but keep the --steps LR horizon")
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (the default) or 'cpu'")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse ``argv``; under ``torchrun`` start the process group (NCCL
+    when each local rank has a card of its own, else gloo); train; return
+    the per-step losses."""
+    args = parse_args(argv)
+    started = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
+            not dist.is_initialized():
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                         os.environ["WORLD_SIZE"]))
+        own_card = (args.device in (None, "cuda")
+                    and torch.cuda.is_available()
+                    and torch.cuda.device_count() >= local_world)
+        dist.init_process_group("nccl" if own_card else "gloo")
+        started = True
+    try:
+        return train(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

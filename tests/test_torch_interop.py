@@ -247,14 +247,27 @@ def test_no_source_imports_jax_or_the_reference():
     assert not offenders, offenders
 
 
-@pytest.mark.parametrize("part", ["checkpoint", "chip_smoke.py"])
+_DISTRIBUTED = ("core/distributed_loss.py", "core/sharding.py",
+                "launch/mesh.py", "launch/train_distributed.py",
+                "data/pipeline.py", "data/sharded/__init__.py",
+                "data/sharded/artifact.py", "data/sharded/augment.py",
+                "data/sharded/loader.py", "obs/runlog.py", "obs/report.py")
+
+
+@pytest.mark.parametrize("part", ["checkpoint", "chip_smoke.py",
+                                  "distributed"])
 def test_new_modules_are_in_the_scan(part):
-    """The scan reaches the checkpoint package and chip_smoke.py, and the
-    pattern catches each forbidden import as it would be written there."""
+    """The scan reaches the checkpoint package, chip_smoke.py and the
+    distributed tier (mesh, sharding, the cross-shard loss, the sharded
+    data subsystem, the runlog, the trainer), and the pattern catches each
+    forbidden import as it would be written there."""
     scanned = [os.path.relpath(p, ROOT) for p in _port_sources()]
     if part == "checkpoint":
         want = {os.path.join("src", "repro_torch", "checkpoint", f) for f in
                 ("__init__.py", "io.py", "faults.py", "manager.py")}
+    elif part == "distributed":
+        want = {os.path.join("src", "repro_torch", *f.split("/"))
+                for f in _DISTRIBUTED}
     else:
         want = {part}
     assert want <= set(scanned)

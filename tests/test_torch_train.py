@@ -126,13 +126,13 @@ def _jax_ga(jcfg, jparams, batch, num_micro, attn="naive", fused=False):
 
 
 def _port_ga(tcfg, tparams, batch, num_micro, attn="naive", fused=False,
-             policy=None):
+             policy=None, **kw):
     cfg = _with_attn(tcfg, attn)
     loss_fn = tcl.fused_kernel_loss if fused else tcl.contrastive_loss
     loss, _, grads = tga.contrastive_step(
         lambda p, im: tde.encode_image(cfg, p, im, remat_policy=policy),
         lambda p, tx: tde.encode_text(cfg, p, tx, remat_policy=policy),
-        tparams, _torch_batch(batch), num_micro, loss_fn=loss_fn)
+        tparams, _torch_batch(batch), num_micro, loss_fn=loss_fn, **kw)
     return float(loss), _port_paths(grads)
 
 
@@ -172,10 +172,21 @@ def test_gradaccum_on_the_kernel_path_matches_reference(setup):
 
 
 def test_gradaccum_refuses_what_waits_for_later_slices(setup):
+    """``emb_sharding`` (the cross-shard loss's layout) is taken since the
+    distributed slice and pins nothing: the step is unchanged with it."""
+    from repro_torch.core import distributed_loss
+    from repro_torch.launch.mesh import make_local_mesh
     _, tcfg, jparams, batch = setup
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tga.contrastive_step(None, None, interop.from_numpy(jparams, "cpu"),
-                             _torch_batch(batch), 2, emb_sharding="data")
+    shd = distributed_loss.emb_sharding(make_local_mesh())
+    assert shd == ("data", None)
+    loss, grads = _port_ga(tcfg, interop.from_numpy(jparams, "cpu"), batch,
+                           2)
+    loss_s, grads_s = _port_ga(tcfg, interop.from_numpy(jparams, "cpu"),
+                               batch, 2, emb_sharding=shd)
+    assert loss_s == loss
+    assert grads_s.keys() == grads.keys()
+    for path, g in grads.items():
+        np.testing.assert_array_equal(grads_s[path], g, err_msg=path)
     with pytest.raises(ValueError, match="multiple"):
         tga.contrastive_step(None, None, {}, _torch_batch(batch), 3)
 
@@ -301,9 +312,11 @@ def test_step_factory_tracks_reference_losses(setup):
 
 
 def test_step_factory_refuses_the_distributed_losses(setup):
+    """The cross-shard losses need a mesh (since the distributed slice;
+    tests/test_torch_train_distributed.py runs them)."""
     _, tcfg, _, _ = setup
     for loss in ("allgather", "chunked"):
-        with pytest.raises(NotImplementedError, match="distributed"):
+        with pytest.raises(ValueError, match="needs a mesh"):
             tsteps.make_contrastive_step(tcfg, loss=loss)
     with pytest.raises(ValueError, match="unknown loss"):
         tsteps.make_contrastive_step(tcfg, loss="nope")
