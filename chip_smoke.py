@@ -4507,6 +4507,16 @@ DIST_LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "1024",
                 "--attn", "pallas",
                 "--steps", "4", "--quiet"]
 DIST_RESUME_RTOL = 1e-4            # tests/test_train_distributed.py:56
+# phase 41: (world, model extent, --sharding) of the weight-sharded trainer,
+# on BASIC-S at full width with 2 layers a tower (of 8 and 6)
+WS_GRIDS = ((2, 2, "basic_ws"), (4, 2, "basic_ws"), (2, 2, "replicated"))
+WS_ARCH = ("basic-s", "basic-s-2layers", 2)
+WS_ARGV = ["--arch", WS_ARCH[1]] + DIST_GLOO_ARGV[2:]
+WS_MOVED_SHARE = 1e-3          # tests/test_torch_train_distributed.py:120-131
+# phase 42: Llama-3.2-1B at full width on 2 of its 16 layers, at (1, 2)
+WS_LM_ARCH = "llama3.2-1b-2of16"
+WS_LM_ARGV = ["--arch", WS_LM_ARCH, "--batch", "2", "--seq", "1024",
+              "--attn", "pallas", "--steps", "2", "--quiet", "--lr", "3e-3"]
 # the cross-shard loss against the single-device fused loss: the
 # reference's own limits (tests/distributed_checks.py:79-83, :99-103), and
 # under bf16 1e-3 on the loss, 2e-2 on dX
@@ -4844,16 +4854,18 @@ def dist_train_worker(rank, world, argv):
     return losses, {c.name: c.count for c in dist_counters()}
 
 
-def same_batch_r1_losses(argv):
-    """The R = 1 run of phase 39's global batch: the trainer's state
-    (``build_state`` from the seed) and step (``make_contrastive_step``, the
-    fused loss at one rank) on the batch a 2-rank run consumes, its two
-    blocks joined (``ShardedLoader.global_batch_at`` of the 2-host layout);
-    returns the per-step losses."""
+def same_batch_r1(argv, n_hosts):
+    """The one-rank run of a global batch: the trainer's state
+    (``build_state`` from the seed) and step (``make_contrastive_step``,
+    the fused loss at one rank) on the batches the loader's layout of
+    ``n_hosts`` blocks gives (``ShardedLoader.global_batch_at``, its
+    blocks joined in host order); returns (per-step losses, the initial
+    and the final (params, opt_state) on the host)."""
     from repro_torch.configs import get_arch, smoke_dual_variant
     from repro_torch.data.sharded import HostLayout, device_put_global
     from repro_torch.launch import steps as st
     from repro_torch.launch import train_distributed as td
+    from repro_torch.tree import tree_leaves, unflatten
     args = td.parse_args(argv)
     device, mesh = td.setup(args)
     cfg = get_arch(args.arch)
@@ -4864,13 +4876,23 @@ def same_batch_r1_losses(argv):
         precision=args.precision, attn=args.attn, lr=args.lr, mesh=mesh,
         loss=args.loss)
     params, opt_state = td.build_state(cfg, opt, args.seed, device)
-    loader = td.make_loader(args, cfg, HostLayout(2, 0))
+
+    def host(tree):
+        return unflatten(tree, [x.cpu() for x in tree_leaves(tree)])
+    init = host((params, opt_state))
+    loader = td.make_loader(args, cfg, HostLayout(n_hosts, 0))
     losses = []
     for step in range(args.steps):
         batch = device_put_global(loader.global_batch_at(step), device)
         params, opt_state, loss, _ = step_fn(params, opt_state, batch)
         losses.append(loss.item())
-    return losses
+    return losses, init, host((params, opt_state))
+
+
+def same_batch_r1_losses(argv):
+    """The R = 1 run of phase 39's global batch (``same_batch_r1`` of the
+    2-rank run's 2-host layout); returns the per-step losses."""
+    return same_batch_r1(argv, 2)[0]
 
 
 def phase_dist_train_gloo():
@@ -4942,6 +4964,222 @@ def phase_dist_train_lm():
                              f"launches {launches}")
     shutil.rmtree(root)
     return rep
+
+
+def ws_train_worker(rank, world, argvs, archs=()):
+    """One gloo rank of phases 41-42 on the card: the trainer's ``main``
+    on each argv of ``argvs`` in turn (``archs``: depth-cut configs to
+    register first, since a spawned rank imports this module afresh);
+    returns, for each, its losses, its kernel launches in that run, and
+    the bytes its resident params and optimizer state take
+    (``build_state`` on the same mesh, measured on the card, then
+    freed)."""
+    import torch
+    from repro_torch.configs import (get_arch, smoke_dual_variant,
+                                     smoke_variant)
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.tree import tree_leaves
+    for arch in archs:
+        register_cut_arch(*arch)
+    out = []
+    for argv in argvs:
+        for c in dist_counters():
+            c.reset()
+        losses = td.main(argv)
+        launches = {c.name: c.count for c in dist_counters()}
+        args = td.parse_args(argv)
+        device, mesh = td.setup(args)
+        cfg = get_arch(args.arch)
+        if args.smoke:
+            cfg = smoke_dual_variant(cfg) if hasattr(cfg, "image_tower") \
+                else smoke_variant(cfg)
+        params, state = td.build_state(cfg, st.make_optimizer(), args.seed,
+                                       device, mesh, args.sharding)
+        nbytes = [sum(x.numel() * x.element_size() for x in tree_leaves(t))
+                  for t in (params, state)]
+        del params, state
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out.append({"losses": losses, "launches": launches,
+                    "params_bytes": nbytes[0], "state_bytes": nbytes[1]})
+    return out
+
+
+def register_cut_arch(base, name, layers):
+    """Register ``base`` cut to its first ``layers`` layers (each tower's,
+    for a dual encoder) as ``name``, at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import register
+    cfg = get_arch(base)
+    if hasattr(cfg, "image_tower"):
+        register(dataclasses.replace(
+            cfg, name=name, image_tower=dataclasses.replace(
+                cfg.image_tower, n_layers=layers),
+            text_tower=dataclasses.replace(cfg.text_tower, n_layers=layers)))
+    else:
+        register(dataclasses.replace(cfg, name=name, n_layers=layers))
+
+
+def expected_bytes(cfg, grid, sharding):
+    """Per-rank bytes of the trainer's f32 params and bf16 first moment
+    on a (data, model) ``grid`` under ``sharding``: 1/M of every leaf
+    ``params_specs`` splits over the model axis plus the whole leaves."""
+    import torch
+    from repro_torch.core import sharding as shd
+    from repro_torch.interop import init_params
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.tree import leaves
+    whole = init_params(cfg, torch.Generator(), "meta")
+    specs = dict(shd.spec_leaves(shd.params_specs(
+        whole, Mesh({"data": grid[0], "model": grid[1]}), sharding)))
+    p = m = 0
+    for path, x in leaves(whole):
+        share = grid[1] if "model" in specs[path] else 1
+        p += x.numel() * 4 // share
+        m += x.numel() * 2 // share
+    return p, m
+
+
+def leaf_distances(got, want, init):
+    """Leaves of ``got`` farther from ``want`` than WS_MOVED_SHARE of the
+    change the steps made (``want - init``): [(index, distance, moved)]."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    bad = []
+    for i, (g, w, s) in enumerate(zip(*(tree_leaves(t)
+                                         for t in (got, want, init)))):
+        g, w, s = (t.double() for t in (g, w, s))
+        moved = torch.linalg.vector_norm(w - s).item()
+        dist = torch.linalg.vector_norm(g - w).item()
+        if dist > WS_MOVED_SHARE * moved + 1e-7:
+            bad.append((i, dist, moved))
+    return bad
+
+
+def phase_weight_sharding(base=WS_ARGV, lm_base=WS_LM_ARGV,
+                          device="cuda"):
+    """Phases 41-42: the trainer with the paper's §5.1 weight sharding on
+    gloo ranks sharing the card (untimed; two spawned worlds: one of 2
+    ranks runs the three (1, 2) runs in turn, one of 4 the (2, 2) run).
+
+    Phase 41: BASIC-S at full width on 2 layers a tower (``WS_ARCH``; the
+    gloo collectives go through the host), f32, global B 256, 3 steps, at
+    (data 1, model 2) and (2, 2) under ``basic_ws`` and (1, 2) under
+    ``replicated``. Each rank's losses must match the one-rank run on the
+    same global batch within rtol 1e-4; each rank's resident params and
+    first moment are 1/M of the split leaves plus the whole ones, in
+    bytes (the optimizer state less than the whole state); the final
+    checkpoint's whole leaves match the one-rank run's within 1e-3 of the
+    change the steps made; every rank launches the flash and contrastive
+    kernels.
+
+    Phase 42: ``train_lm`` at (1, 2), Llama-3.2-1B at full width on 2 of
+    its 16 layers, f32, b 2 x s 1024, 2 steps; each rank's losses against
+    the one-rank run within rtol 1e-4, its params' bytes, and every rank
+    launches the flash kernels.
+
+    ``base``, ``lm_base`` and ``device`` set the runs (a CPU rehearsal
+    passes ``--smoke`` and 'cpu'). Returns (phase 41's records by grid,
+    phase 42's record)."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import (get_arch, smoke_dual_variant,
+                                     smoke_variant)
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.launch.spawn import run_world
+    from repro_torch.tree import tree_leaves
+    archs = (WS_ARCH, ("llama3.2-1b", WS_LM_ARCH, 2))
+    for arch in archs:
+        register_cut_arch(*arch)
+    cfg, lm_cfg = get_arch(WS_ARCH[1]), get_arch(WS_LM_ARCH)
+    if "--smoke" in base:
+        cfg, lm_cfg = smoke_dual_variant(cfg), smoke_variant(lm_cfg)
+    t0 = time.perf_counter()
+
+    def run(world, model, sharding):
+        d = os.path.join(CKPT_ROOT, f"ws_{world // model}x{model}_{sharding}")
+        shutil.rmtree(d, ignore_errors=True)
+        return d, base + ["--device", device, "--model-parallel", str(model),
+                          "--sharding", sharding, "--ckpt-dir", d]
+    runs = {(w, m, sh): run(w, m, sh) for w, m, sh in WS_GRIDS}
+    lm_argv = lm_base + ["--device", device, "--model-parallel", "2"]
+    worlds = {}
+    for world in sorted({w for w, _, _ in WS_GRIDS}):
+        keys = [k for k in WS_GRIDS if k[0] == world]
+        argvs = [runs[k][1] for k in keys] + ([lm_argv] if world == 2 else [])
+        t_world = time.perf_counter()
+        ranks = run_world(ws_train_worker, world,
+                          os.path.join(CKPT_ROOT, "rdv"), argvs, archs,
+                          timeout=900)
+        print(f"weight sharding world of {world}: "
+              f"{time.perf_counter() - t_world:.1f} s", flush=True)
+        for i, k in enumerate(keys):
+            worlds[k] = [r[i] for r in ranks]
+        if world == 2:
+            lm_ranks = [r[-1] for r in ranks]
+    r1, out = {}, {}
+    for world, model, sharding in WS_GRIDS:
+        data = world // model
+        d = runs[(world, model, sharding)][0]
+        ranks = worlds[(world, model, sharding)]
+        if data not in r1:
+            r1[data] = same_batch_r1(base + ["--device", device], data)
+        losses, init, final = r1[data]
+        got = ckpt.restore(d, 3, final, device="cpu")
+        bad_leaves = leaf_distances(got, final, init)
+        want_p, want_m = expected_bytes(cfg, (data, model), sharding)
+        whole_state = sum(x.numel() * x.element_size() for x in tree_leaves(
+            init[1]))
+        key = f"{data}x{model} {sharding}"
+        out[key] = {"losses": [r["losses"] for r in ranks],
+                    "r1_losses": losses,
+                    "launches": [r["launches"] for r in ranks],
+                    "params_bytes": [r["params_bytes"] for r in ranks],
+                    "state_bytes": [r["state_bytes"] for r in ranks],
+                    "expected_params_bytes": want_p,
+                    "first_moment_bytes": want_m,
+                    "whole_state_bytes": whole_state,
+                    "checkpoint_leaves_off": bad_leaves}
+        print(f"weight sharding {key} (BASIC-S 2 layers a tower f32, "
+              f"B=256): losses per rank {out[key]['losses']}, R=1 on the "
+              f"same batch {losses}; params bytes per rank "
+              f"{out[key]['params_bytes']} (expected {want_p}); optimizer "
+              f"state bytes per rank {out[key]['state_bytes']} (first "
+              f"moment {want_m}, whole state {whole_state}); checkpoint "
+              f"leaves beyond {WS_MOVED_SHARE} of their move: {bad_leaves}; "
+              f"launches per rank {out[key]['launches']}", flush=True)
+        shutil.rmtree(d)
+        for r in ranks:
+            split = sharding == "basic_ws"
+            if len(r["losses"]) != len(losses) or any(
+                    abs(a - b) > DIST_RESUME_RTOL * abs(b)
+                    for a, b in zip(r["losses"], losses)) or \
+                    min(r["launches"].values()) < 1 or \
+                    r["params_bytes"] != want_p or bad_leaves or \
+                    not (want_m < r["state_bytes"] <= whole_state) or \
+                    split != (r["state_bytes"] < whole_state):
+                raise AssertionError(f"weight sharding {key}: {out[key]}")
+    lm_r1 = td.main(lm_base + ["--device", device])
+    want_p, _ = expected_bytes(lm_cfg, (1, 2), "basic_ws")
+    lm = {"losses": [r["losses"] for r in lm_ranks], "r1_losses": lm_r1,
+          "launches": [{k: v for k, v in r["launches"].items()
+                        if k in {c.name for c in lm_counters()}}
+                       for r in lm_ranks],
+          "params_bytes": [r["params_bytes"] for r in lm_ranks],
+          "expected_params_bytes": want_p}
+    print(f"weight sharding train_lm 1x2 (Llama-3.2-1B 2 of 16 layers f32, "
+          f"b 2 x s 1024): losses per rank {lm['losses']}, R=1 {lm_r1}; "
+          f"params bytes per rank {lm['params_bytes']} (expected {want_p}); "
+          f"launches per rank {lm['launches']}", flush=True)
+    for r, launches in zip(lm_ranks, lm["launches"]):
+        if any(abs(a - b) > DIST_RESUME_RTOL * abs(b)
+               for a, b in zip(r["losses"], lm_r1)) or \
+                len(r["losses"]) != len(lm_r1) or \
+                min(launches.values()) < 1 or r["params_bytes"] != want_p:
+            raise AssertionError(f"weight sharding train_lm: {lm}")
+    print(f"weight sharding phases 41-42: {time.perf_counter() - t0:.1f} s "
+          f"(untimed)", flush=True)
+    return out, lm
 
 
 def main() -> int:
@@ -5056,6 +5294,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_lm = phase_dist_train_lm()
     torch.cuda.empty_cache()
+    ws, ws_lm = phase_weight_sharding()
+    torch.cuda.empty_cache()
 
     f_main = flash[("image", torch.float32)]
     f_bf16 = max(r["max_abs_err"] for (_, dt), r in flash.items()
@@ -5131,9 +5371,14 @@ def main() -> int:
         out = {"dist_r1_launches_per_step": dist_train["launches_per_step"][
                    name],
                "dist_gloo_launches_per_rank": [
-                   lc[name] for lc in dist_gloo["launches"]]}
+                   lc[name] for lc in dist_gloo["launches"]],
+               "weight_sharding_launches_per_rank": {
+                   k: [lc[name] for lc in r["launches"]]
+                   for k, r in ws.items()}}
         if i is None:
-            return {**out, "dist_lm_launches": dist_lm["launches"][name]}
+            return {**out, "dist_lm_launches": dist_lm["launches"][name],
+                    "weight_sharding_lm_launches_per_rank": [
+                        lc[name] for lc in ws_lm["launches"]]}
         return {**out, "chunk": [{k: r[i][k] for k in ("shape", *timing)}
                                  for r in chunk.values()],
                 "cross_shard_launches_per_rank": {

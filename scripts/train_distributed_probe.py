@@ -3,6 +3,9 @@
     torchrun --nproc-per-node 4 scripts/train_distributed_probe.py
     torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
         --device cpu --smoke              # the same checks on gloo ranks
+    torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
+        --arch basic-l --model-parallel 2,4 --batch 4096 --steps 3 \\
+        --remat full --f32-batch 256      # paper §5.1 weight sharding
 
 ``chip_smoke.py`` runs several ranks on one card over gloo; this script
 runs the path that exists only across cards: one rank a card, the NCCL
@@ -17,11 +20,21 @@ branch of ``launch/mesh.py`` (``all_gather_into_tensor``,
    dY 2e-2; then times each (forward and backward between CUDA events,
    ``--iters`` calls) against the single-device fused loss at the global
    batch, one card alone;
-2. runs ``repro_torch.launch.train_distributed.main`` (BASIC-S, global
-   ``--batch`` in 8 microbatches a rank, the chunked loss, flash
-   attention, bf16, ``--steps``): every rank's losses equal, and rank 0
-   prints the runlog's warm step median, pairs/s and the data-wait /
-   device-step / ckpt-stall split, and each rank's peak memory.
+2. runs ``repro_torch.launch.train_distributed.main`` (``--arch``, global
+   ``--batch`` in 8 microbatches a rank, the chunked loss,
+   flash attention, bf16, ``--remat``, ``--steps``) once for each model
+   extent M of ``--model-parallel`` (a comma list; the ranks form a
+   (R / M, M) grid under ``--sharding basic_ws``): every rank's losses
+   equal, and rank 0 prints, per grid, the runlog's warm step median,
+   pairs/s and the data-wait / device-step / ckpt-stall split, and each
+   rank's peak memory (counted from after the whole init tree is freed)
+   and the bytes of its resident params and optimizer state
+   (``build_state`` on the same mesh, measured, then freed);
+3. with ``--f32-batch N``: the same grids in f32 at global batch N for 3
+   steps, each trainer run held against the next grid's step (another
+   model extent) on the same global batch (the loader's layout of R / M
+   blocks), losses within rtol 1e-4. (BASIC-L's whole f32 training state
+   does not fit one 80 GB card, so one card alone is no reference there.)
 
 Rank 0 prints the card's name and power limit first and one ``PROBE
 {json}`` line last; it exits non-zero when a check fails.
@@ -82,7 +95,7 @@ def loss_checks(mesh, device, b_local, iters):
     import torch
     from repro_torch.core import distributed_loss as dl
     from repro_torch.kernels.contrastive_loss import ops as cl_ops
-    n, r = mesh.data_size, mesh.data_index
+    n, r = mesh.ranks, mesh.rank
     g = torch.Generator(device=device).manual_seed(7)
 
     def unit(rows):
@@ -131,6 +144,71 @@ def loss_checks(mesh, device, b_local, iters):
     return out
 
 
+def state_bytes(targs, device, mesh):
+    """Bytes of this rank's resident params and optimizer state when the
+    trainer's ``build_state`` places them on ``mesh`` (measured on the
+    tensors, then freed)."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_dual_variant
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.tree import tree_leaves
+    cfg = get_arch(targs.arch)
+    if targs.smoke:
+        cfg = smoke_dual_variant(cfg)
+    trees = td.build_state(cfg, st.make_optimizer(), targs.seed, device,
+                           mesh, targs.sharding)
+    out = [sum(x.numel() * x.element_size() for x in tree_leaves(t))
+           for t in trees]
+    del trees
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_losses(argv, n_hosts, device):
+    """The trainer's state and step on the grid of ``argv``'s
+    ``--model-parallel`` over the global batches of the loader's layout
+    of ``n_hosts`` blocks (rank r takes rows block r of the ranks',
+    ``device_put_global``), which need not be the grid's own; returns the
+    per-step losses. Every rank of the world calls it."""
+    from repro_torch.configs import get_arch, smoke_dual_variant
+    from repro_torch.data.sharded import HostLayout, device_put_global
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    args = td.parse_args(argv)
+    _, mesh = td.setup(args)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = smoke_dual_variant(cfg)
+    step_fn, opt = st.make_contrastive_step(
+        cfg, num_micro=args.num_micro, remat=args.remat,
+        precision=args.precision, attn=args.attn, lr=args.lr, mesh=mesh,
+        loss=args.loss, layout=td.param_layout(cfg, mesh, args.sharding))
+    params, opt_state = td.build_state(cfg, opt, args.seed, device, mesh,
+                                       args.sharding)
+    loader = td.make_loader(args, cfg, HostLayout(n_hosts, 0))
+    losses = []
+    for step in range(args.steps):
+        batch = device_put_global(loader.global_batch_at(step), device,
+                                  (mesh.rank, mesh.ranks))
+        params, opt_state, loss, _ = step_fn(params, opt_state, batch)
+        losses.append(loss.item())
+    return losses
+
+
+def run_split(run_dir):
+    """(warm step median, the data-wait / device-step / ckpt-stall shares
+    of the summed step time) of a runlog."""
+    from repro_torch.obs import runlog
+    recs = runlog.read_runlog(os.path.join(run_dir, "runlog.jsonl"))
+    step_recs = [x for x in recs if x["kind"] == "step"]
+    warm = statistics.median(x["step_s"] for x in step_recs[1:])
+    total = sum(x["step_s"] for x in step_recs)
+    return warm, {k: sum(x[k] for x in step_recs) / total
+                  for k in ("data_wait_s", "device_step_s", "ckpt_stall_s")}
+
+
 def main(argv=None) -> int:
     """Parse, run the two steps, print; the exit code (0: all checks
     held)."""
@@ -143,12 +221,18 @@ def main(argv=None) -> int:
                     help="the trainer's global batch")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--arch", default="basic-s",
+                    choices=["basic-s", "basic-m", "basic-l"])
+    ap.add_argument("--model-parallel", default="1",
+                    help="comma list of model extents, one trainer run each")
+    ap.add_argument("--remat", default="basic")
+    ap.add_argument("--f32-batch", type=int, default=0,
+                    help="global batch of step 3's f32 check (0: skip)")
     args = ap.parse_args(argv)
 
     import torch
     import torch.distributed as dist
     from repro_torch.launch import train_distributed as td
-    from repro_torch.obs import runlog
     on_card = args.device in (None, "cuda")
     dist.init_process_group("nccl" if on_card else "gloo")
     try:
@@ -158,7 +242,7 @@ def main(argv=None) -> int:
         device, mesh = td.setup(targs)
         if rank == 0:
             print(card_line(), f"torch {torch.__version__}",
-                  f"{mesh.data_size} ranks, {mesh.backend}", flush=True)
+                  f"{mesh.ranks} ranks, {mesh.backend}", flush=True)
         if on_card:
             from repro_torch.kernels import build as kbuild
             from repro_torch.kernels.contrastive_loss import ops as cl_ops
@@ -171,56 +255,95 @@ def main(argv=None) -> int:
                 lib.lib()
         b_local = 16 if args.smoke else args.b_local
         losses = loss_checks(mesh, device, b_local, args.iters)
-        run_dir = None
-        if rank == 0:
-            run_dir = os.path.join(ROOT, "build", "train_distributed_probe")
-            shutil.rmtree(run_dir, ignore_errors=True)
+        checks = [None] * mesh.ranks
+        dist.all_gather_object(checks, losses)
         batch = 64 if args.smoke else args.batch
-        argv_t = ["--arch", "basic-s", "--batch", str(batch), "--num-micro",
-                  "8",
-                  "--loss", "chunked", "--attn", "pallas", "--steps",
-                  str(args.steps), "--quiet", "--seq", "16"]
-        argv_t += ["--smoke", "--device", "cpu"] if args.smoke else []
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        steps = td.main(argv_t + (["--run-dir", run_dir] if run_dir else []))
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(device) if on_card else None
-        everyone = [None] * mesh.data_size
-        dist.all_gather_object(everyone, {"losses": steps, "peak": peak,
-                                          "checks": losses})
+        base = ["--arch", args.arch, "--num-micro", "8",
+                "--loss", "chunked", "--attn", "pallas", "--quiet", "--seq",
+                "16", "--remat", args.remat, "--sharding", "basic_ws"]
+        base += ["--smoke", "--device", "cpu"] if args.smoke else []
+        models = [int(m) for m in args.model_parallel.split(",")]
+        run_dir = os.path.join(ROOT, "build", "train_distributed_probe")
+        grids = []
+        for model in models:
+            argv_t = base + ["--batch", str(batch), "--steps",
+                             str(args.steps), "--model-parallel", str(model)]
+            targs = td.parse_args(argv_t)
+            _, gmesh = td.setup(targs)
+            nbytes = state_bytes(targs, device, gmesh)
+            if rank == 0:
+                shutil.rmtree(run_dir, ignore_errors=True)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            steps = td.main(argv_t + (["--run-dir", run_dir]
+                                      if rank == 0 else []))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(device) if on_card \
+                else None
+            everyone = [None] * mesh.ranks
+            dist.all_gather_object(everyone, {"losses": steps, "peak": peak,
+                                              "bytes": nbytes})
+            rec = {"grid": [mesh.ranks // model, model],
+                   "losses": everyone[0]["losses"],
+                   "losses_equal": all(e["losses"] == everyone[0]["losses"]
+                                       for e in everyone),
+                   "wall_s": wall,
+                   "peak_gib": [e["peak"] / 2**30 if e["peak"] else None
+                                for e in everyone],
+                   "params_bytes": [e["bytes"][0] for e in everyone],
+                   "state_bytes": [e["bytes"][1] for e in everyone]}
+            if rank == 0:
+                warm, split = run_split(run_dir)
+                rec.update(warm_step_median_s=warm,
+                           pairs_per_s=batch / warm, split=split)
+                print(f"grid {rec['grid']}: {json.dumps(rec)}", flush=True)
+            grids.append(rec)
+            if on_card:
+                torch.cuda.empty_cache()
+        f32 = []
+        if args.f32_batch:
+            # each grid's trainer run against the next grid's step on the
+            # same global batch (the loader's layout of R / M blocks)
+            f32_argv = base + ["--batch", str(args.f32_batch), "--steps", "3",
+                               "--precision", "f32"]
+            for i, model in enumerate(models):
+                other = models[(i + 1) % len(models)]
+                rec = {"grid": [mesh.ranks // model, model],
+                       "losses": td.main(f32_argv + [
+                           "--model-parallel", str(model)]),
+                       "against_grid": [mesh.ranks // other, other],
+                       "against_losses": grid_losses(
+                           f32_argv + ["--model-parallel", str(other)],
+                           mesh.ranks // model, device)}
+                rec["max_rel_err"] = max(
+                    abs(a - b) / abs(b) for a, b in
+                    zip(rec["losses"], rec["against_losses"]))
+                rec["ok"] = rec["max_rel_err"] <= 1e-4
+                f32.append(rec)
+                if on_card:
+                    torch.cuda.empty_cache()
         if rank != 0:
             return 0
-        recs = runlog.read_runlog(os.path.join(run_dir, "runlog.jsonl"))
-        step_recs = [x for x in recs if x["kind"] == "step"]
-        warm = statistics.median(x["step_s"] for x in step_recs[1:])
-        total = sum(x["step_s"] for x in step_recs)
-        split = {k: sum(x[k] for x in step_recs) / total
-                 for k in ("data_wait_s", "device_step_s", "ckpt_stall_s")}
-        ok = all(rec["ok"] for e in everyone for k, rec in e["checks"].items()
+        ok = all(rec["ok"] for e in checks for k, rec in e.items()
                  if k[1] != "single") and \
-            all(e["losses"] == everyone[0]["losses"] for e in everyone)
+            all(g["losses_equal"] for g in grids) and \
+            all(r["ok"] for r in f32)
         report = {
-            "ranks": mesh.data_size, "backend": mesh.backend,
-            "card": card_line(), "ok": ok,
+            "ranks": mesh.ranks, "backend": mesh.backend,
+            "card": card_line(), "ok": ok, "arch": args.arch,
             "loss": {f"{k[0]} {k[1]}": {
-                "ms_rank0": everyone[0]["checks"][k]["ms"],
+                "ms_rank0": losses[k]["ms"],
                 **({} if k[1] == "single" else {
-                    "worst_loss_rel_err": max(e["checks"][k]["loss_rel_err"]
-                                              for e in everyone),
-                    "dtau_rel_err": everyone[0]["checks"][k]["dtau_rel_err"],
-                    "worst_dx_max_abs_err": max(
-                        e["checks"][k]["dx_max_abs_err"] for e in everyone),
-                    "worst_dy_max_abs_err": max(
-                        e["checks"][k]["dy_max_abs_err"] for e in everyone)})}
-                for k in everyone[0]["checks"]},
-            "train": {"losses": everyone[0]["losses"],
-                      "warm_step_median_s": warm,
-                      "pairs_per_s": batch / warm, "split": split,
-                      "wall_s": wall,
-                      "peak_gib": [e["peak"] / 2**30 if e["peak"] else None
-                                   for e in everyone]}}
+                    "worst_loss_rel_err": max(e[k]["loss_rel_err"]
+                                              for e in checks),
+                    "dtau_rel_err": losses[k]["dtau_rel_err"],
+                    "worst_dx_max_abs_err": max(e[k]["dx_max_abs_err"]
+                                                for e in checks),
+                    "worst_dy_max_abs_err": max(e[k]["dy_max_abs_err"]
+                                                for e in checks)})}
+                for k in losses},
+            "train": grids, "f32_check": f32}
         print("PROBE " + json.dumps(report), flush=True)
         return 0 if ok else 1
     finally:

@@ -117,12 +117,19 @@ def to_host(leaf) -> HostLeaf:
     return HostLeaf(str(arr.dtype), arr)
 
 
-def snapshot(tree):
+def snapshot(tree, whole=None):
     """Copy every leaf of ``tree`` to host memory: the only part of a save
     that must run synchronously with the training loop (the next in-place
-    step must not change what is being written). Returns ``(host leaves,
-    treedef string)`` ready for ``write_snapshot`` on any thread."""
-    return ([to_host(x) for _, x in _leaf_pairs(tree)], treedef_str(tree))
+    step must not change what is being written). ``whole(i, leaf)``, when
+    given, returns leaf ``i`` whole from this rank's part of it (paper
+    §5.1 weight sharding: a gather over the model group,
+    ``core.weight_sharding.gather_leaf``), so the checkpoint holds whole
+    leaves in the reference's format; each leaf is copied to the host
+    before the next is gathered. Returns ``(host leaves, treedef
+    string)`` ready for ``write_snapshot`` on any thread."""
+    return ([to_host(x if whole is None else whole(i, x))
+             for i, (_, x) in enumerate(_leaf_pairs(tree))],
+            treedef_str(tree))
 
 
 def write_snapshot(directory: str, step: int, arrs, treedef,
@@ -164,13 +171,13 @@ def write_snapshot(directory: str, step: int, arrs, treedef,
     return final
 
 
-def save(directory: str, step: int, tree, meta=None) -> str:
+def save(directory: str, step: int, tree, meta=None, whole=None) -> str:
     """Write ``tree`` as ``<directory>/step_<N>/`` atomically, blocking
     (snapshot, serialize and rename on the calling thread; the async path
     is ``checkpoint.manager.AsyncCheckpointManager``). ``meta``: optional
-    JSON-serializable dict stored as ``user_meta.json`` in the same rename.
-    Returns the step dir."""
-    arrs, treedef = snapshot(tree)
+    JSON-serializable dict stored as ``user_meta.json`` in the same rename;
+    ``whole`` as in ``snapshot``. Returns the step dir."""
+    arrs, treedef = snapshot(tree, whole)
     return write_snapshot(directory, step, arrs, treedef, meta=meta)
 
 

@@ -125,21 +125,23 @@ class AsyncCheckpointManager:
         return False
 
     # -- saving ------------------------------------------------------------
-    def save(self, step: int, tree, meta=None):
+    def save(self, step: int, tree, meta=None, whole=None):
         """Checkpoint ``tree`` at ``step``: asynchronously unless the
         manager is in ``sync`` mode. Joins (and surfaces errors of) any
-        previous write first."""
+        previous write first. ``whole``: the gather of a sharded leaf
+        (``io.snapshot``); it runs once per save that reaches its
+        snapshot, after any deferred error has been raised."""
         if self.sync:
-            return self.save_sync(step, tree, meta=meta)
-        return self.save_async(step, tree, meta=meta)
+            return self.save_sync(step, tree, meta=meta, whole=whole)
+        return self.save_async(step, tree, meta=meta, whole=whole)
 
-    def save_sync(self, step: int, tree, meta=None) -> str:
+    def save_sync(self, step: int, tree, meta=None, whole=None) -> str:
         """Blocking save (the degraded/final-checkpoint path): join any
         in-flight write, then snapshot + serialize + rename on the calling
         thread, with the same retry/backoff. Returns the step-dir path."""
         t0 = time.perf_counter()
         self.wait()
-        arrs, treedef = io.snapshot(tree)
+        arrs, treedef = io.snapshot(tree, whole)
         path = self._write_with_retry(step, arrs, treedef, meta)
         self._gc()
         self._c["saves"].inc()
@@ -147,14 +149,14 @@ class AsyncCheckpointManager:
         self._g_stall.set(time.perf_counter() - t0)
         return path
 
-    def save_async(self, step: int, tree, meta=None) -> None:
+    def save_async(self, step: int, tree, meta=None, whole=None) -> None:
         """Snapshot leaves to host now; serialize + atomically rename on a
         background thread. Raises a previous write's deferred failure
         before snapshotting (in which case THIS save does not start —
         callers fall back, e.g. to ``save_sync``)."""
         t0 = time.perf_counter()
         self.wait()
-        arrs, treedef = io.snapshot(tree)
+        arrs, treedef = io.snapshot(tree, whole)
 
         def work():
             try:

@@ -2,11 +2,11 @@
 ``repro/core/distributed_loss.py``; DESIGN.md §7).
 
 The paper's quality lever is the GLOBAL contrastive batch: every example
-sees every other example of the batch as a negative, across all
-data-parallel ranks. Each rank holds the (B_local, D) embedding blocks of
-its rows of the global batch (rank r: rows r·B_local ... (r+1)·B_local),
-and this module computes the loss of the whole (B, B) problem from them,
-two ways:
+sees every other example of the batch as a negative, across all the
+ranks the batch is split over. Each rank holds the (B_local, D) embedding
+blocks of its rows of the global batch (rank r: rows r·B_local ...
+(r+1)·B_local), and this module computes the loss of the whole (B, B)
+problem from them, two ways:
 
 ``all_gather_loss``
     Gather X and Y from every rank and run the fused loss
@@ -40,8 +40,11 @@ convention, so nothing is scaled here.)
 ``make_global_loss_fn(mesh, method)`` wraps either into the
 ``loss_fn(x, y, tau) -> (loss, metrics)`` that ``core.gradaccum`` takes;
 with one rank it returns the single-device fused loss, as the reference
-does on a data extent of 1. The collectives are the mesh's
-(``launch.mesh.Mesh``).
+does on a data extent of 1. The ranks are the mesh's batch group
+(``launch.mesh.Mesh``: every rank, data and model, in rank order, since
+the global batch is split over all of them, paper §5.1): R, the rank's
+index and the collectives are the group's, so ``b_norm`` is the global
+batch and the diagonal falls in the chunk of the rank's place in it.
 """
 from __future__ import annotations
 
@@ -77,8 +80,8 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
-        b = g.shape[0] // mesh.data_size
-        return g[mesh.data_index * b:(mesh.data_index + 1) * b], None
+        b = g.shape[0] // mesh.ranks
+        return g[mesh.rank * b:(mesh.rank + 1) * b], None
 
 
 class _Share(torch.autograd.Function):
@@ -107,7 +110,7 @@ def all_gather_loss(x_l: torch.Tensor, y_l: torch.Tensor,
     x_g = _GatherRows.apply(x_l, mesh)
     y_g = _GatherRows.apply(y_l, mesh)
     return ops.fused_contrastive_loss(x_g, y_g,
-                                      _Share.apply(log_tau, mesh.data_size))
+                                      _Share.apply(log_tau, mesh.ranks))
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +125,7 @@ class _ChunkedLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_l, y_l, log_tau, mesh):
         x_l, y_l = x_l.detach().contiguous(), y_l.detach().contiguous()
-        n, own = mesh.data_size, mesh.data_index
+        n, own = mesh.ranks, mesh.rank
         inv_tau = torch.exp(-log_tau.detach().float())
         y_all = mesh.all_gather(y_l)                     # (R, B_local, D)
         row_lse, col_parts = None, []
@@ -154,7 +157,7 @@ class _ChunkedLoss(torch.autograd.Function):
             # the positive pairs (the -δ_ij / B term) live in the own chunk
             dx_r, dy_r, dtau_r = ops.chunk_grads(
                 x_l, y_all[r], inv_tau, row_lse, col_lse[r], b_norm=n * b_l,
-                with_diag=r == mesh.data_index)
+                with_diag=r == mesh.rank)
             dx, dtau = dx + dx_r, dtau + dtau_r
             dy_parts.append(dy_r)
         # each rank holds dY partials of ALL columns (from its rows): sum
@@ -183,18 +186,18 @@ def make_global_loss_fn(mesh, method: str = "chunked"):
     """``loss_fn(x, y, tau) -> (loss, metrics)`` of the cross-shard GLOBAL
     batch, for ``core.gradaccum.contrastive_step(loss_fn=...)``: x, y are
     the rank's (B_local, D) blocks. ``method``: 'allgather' or 'chunked'.
-    On a data extent of 1 the single-device fused loss is returned (the
+    On a mesh of one rank the single-device fused loss is returned (the
     same value and gradients: the distributed paths reduce to it). Metrics
     are zeros, as in the reference (the argmax metric has no blockwise
     form)."""
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-    if mesh.data_size == 1:
+    if mesh.ranks == 1:
         return fused_kernel_loss
     if not mesh.distributed:
-        raise ValueError(f"{mesh} has a data extent of {mesh.data_size} but "
-                         f"no ranks to run it (make_local_mesh under "
-                         f"torch.distributed)")
+        raise ValueError(f"{mesh} splits its batch over {mesh.ranks} ranks "
+                         f"but has no ranks to run them (no process group: "
+                         f"make_local_mesh under torch.distributed)")
     fn = all_gather_loss if method == "allgather" else chunked_loss
 
     def loss_fn(x, y, tau):

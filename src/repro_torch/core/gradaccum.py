@@ -16,6 +16,13 @@ per-microbatch losses cannot be formed independently. Algorithm 1 instead:
 The result is the exact full-batch gradient, with peak memory that of one
 microbatch's graph instead of the whole batch's.
 
+Under the paper's §5.1 weight sharding the params are this rank's parts
+(``core.weight_sharding``) and the encoders gather each layer's weights
+as they use them: both passes run on the sharded tree, and pass 2's
+backward reduce-scatters each layer's whole gradient as soon as that
+layer is done, so the gradients accumulate in part form and a rank holds
+a whole gradient only for the layer being reduce-scattered.
+
 ``microbatch_grads`` is the streaming form (the paper's "Yields" line): it
 returns the per-microbatch gradient stream c_1..c_K that
 ``core/moment_accum.py`` folds into the optimizer's moment slots (port of

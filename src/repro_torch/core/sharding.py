@@ -21,12 +21,15 @@ Functions here map a params / batch / cache tree to a tree of
 axis name, or a tuple of names), so a replicated leaf of n dims is n
 Nones. A mesh is anything with a ``shape`` mapping of axis name to size
 (``launch.mesh.Mesh``). ``shard`` places a tree by its specs: each rank
-keeps its part of every leaf. The port's trainer places its params by
-``params_specs`` and its LM batch by ``batch_specs``; only the data axis
-spans live ranks, so the batch splits over them and, with a model axis of
-1, every ``basic_ws`` and ``tp`` param spec is replicated. The rules for a
-model axis above 1 are here, tested against the reference's, for the
-tensor-parallel slice.
+keeps its part of every leaf. The port's trainer places its params and
+optimizer state by ``params_specs`` (a leaf split over 'model' is kept
+as 1/M on each rank of the model axis and gathered on use by
+``core.weight_sharding``) and its LM batch by ``batch_specs`` over
+('data', 'model'), strictly: a batch that does not divide over every
+rank raises instead of being replicated over the model axis. ``tp``
+executes only with a model axis of 1 (Megatron execution comes with its
+own slice of the port); its rules are here, tested against the
+reference's.
 """
 from __future__ import annotations
 
@@ -195,13 +198,16 @@ def _tp_leaf_spec(name: str, shape, msize: int, skip) -> P:
 # ---------------------------------------------------------------------------
 
 
-def batch_specs(batch, mesh, *, batch_axes=None):
+def batch_specs(batch, mesh, *, batch_axes=None, strict: bool = False):
     """Shard the leading (batch) dim of every input leaf over the data
-    axes, dropping axes that do not divide it."""
+    axes (or ``batch_axes``), dropping axes that do not divide it, as the
+    reference does. ``strict=True`` raises ValueError instead of dropping
+    an axis: the trainer's rule, since a batch replicated over the model
+    axis would compute every example M times."""
     if batch_axes is None:
         batch_axes = data_axes(mesh)
 
-    def leaf(_, x):
+    def leaf(path, x):
         shape = _shape(x)
         if not shape:
             return P()
@@ -211,6 +217,11 @@ def batch_specs(batch, mesh, *, batch_axes=None):
             if shape[0] % (prod * n) == 0:
                 axes.append(a)
                 prod *= n
+            elif strict:
+                raise ValueError(
+                    f"batch leaf {path or 'the root'} of {shape[0]} rows "
+                    f"does not divide over the mesh axes {tuple(batch_axes)}"
+                    f" ({prod * n} ranks would take equal blocks)")
         return P(tuple(axes) if axes else None, *([None] * (len(shape) - 1)))
 
     return _map_with_path(leaf, batch)
@@ -262,12 +273,14 @@ def cache_specs(caches, mesh, *, seq_axis_names=(MODEL,)):
 
 def local_part(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """This rank's part of ``x`` under ``spec``: each dim split over mesh
-    axes is cut into equal blocks, one per position along those axes, and
-    the rank keeps its own (``x`` itself when nothing is split over an axis
-    of more than one). Only the data axes can be split over live ranks
-    (``launch.mesh.make_local_mesh`` refuses a model axis above 1); a dim
-    split over the model axis of a mesh that has one raises
-    NotImplementedError."""
+    axes is cut into equal blocks, one per position along those axes (the
+    first axis named major), and the rank keeps its own (``x`` itself when
+    nothing is split over an axis of more than one). The rank's position
+    is ``mesh.data_index`` along the data axes (pod-major) and
+    ``mesh.model_index`` along the model axis. A view of ``x``."""
+    coord = {POD: mesh.data_index // mesh_axis_size(mesh, DATA),
+             DATA: mesh.data_index % mesh_axis_size(mesh, DATA),
+             MODEL: getattr(mesh, "model_index", 0)}
     for dim, part in enumerate(spec):
         names = () if part is None else \
             (part if isinstance(part, tuple) else (part,))
@@ -276,16 +289,9 @@ def local_part(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
             n *= mesh_axis_size(mesh, a)
         if n == 1:
             continue
-        if MODEL in names and mesh_axis_size(mesh, MODEL) > 1:
-            raise NotImplementedError(
-                "a leaf split over the model axis: tensor parallelism "
-                "comes with the tensor-parallel slice of the port")
-        # the rank's position along ``names``: data_index is pod-major
-        coord = {POD: mesh.data_index // mesh_axis_size(mesh, DATA),
-                 DATA: mesh.data_index % mesh_axis_size(mesh, DATA)}
         index = 0
         for a in names:
-            index = index * mesh_axis_size(mesh, a) + coord.get(a, 0)
+            index = index * mesh_axis_size(mesh, a) + coord[a]
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} is not "
                              f"divisible by the extent {n} of {names}")

@@ -59,7 +59,8 @@ class HostLayout:
     """One process's coordinates in the input decomposition: ``n_hosts``
     equal blocks per global batch, this process owning block ``host_id``.
     In the port n_hosts is the mesh's data extent and host_id the rank's
-    data index, so block h lands on rank h."""
+    data index, so block h lands on the model ranks of data shard h, each
+    keeping its sub-block (``device_put_global``)."""
     n_hosts: int = 1
     host_id: int = 0
 
@@ -272,13 +273,24 @@ class _CursorStream:
         self._pf.close()
 
 
-def device_put_global(block, device):
-    """This rank's block of a global batch (the numpy tree
+def device_put_global(block, device, part=(0, 1)):
+    """This rank's rows of a global batch (the numpy tree
     ``local_batch_at`` draws) as torch tensors on ``device``: the port's
     counterpart of the reference's ``device_put_global``, which splits the
-    whole global batch over the mesh's data axes. Rank r of the port has
-    drawn only block r (its loader laid out as ``HostLayout(ranks, r)``)
-    and moves only that."""
+    whole global batch over the mesh. Rank r of the port has drawn only
+    the block of its data shard (its loader laid out as
+    ``HostLayout(data extent, data index)``); ``part = (index, count)``
+    keeps sub-block ``index`` of ``count`` equal ones (the rank's model
+    index and the model extent: the M ranks of a data shard split its
+    block, paper §5.1) and moves only that."""
     import torch
-    return tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
-        device), block)
+    index, count = part
+
+    def rows(a):
+        b = a.shape[0] // count
+        if b * count != a.shape[0]:
+            raise ValueError(f"a block of {a.shape[0]} rows does not split "
+                             f"into {count} equal sub-blocks")
+        return torch.from_numpy(np.ascontiguousarray(
+            a[index * b:(index + 1) * b])).to(device)
+    return tree_map(rows, block)

@@ -3,18 +3,29 @@
 
 A ``Mesh`` names its axes and their sizes, as a JAX mesh does
 (``mesh.shape["data"]``), so the sharding rules (``core.sharding``) read
-it the same way. A mesh made by ``make_local_mesh`` also carries the
-process group of its data axis and this rank's index along it, and runs
-the collectives the cross-shard loss and the trainer need: ``all_gather``,
-``all_reduce``, ``reduce_scatter`` and ``barrier``. With
-one rank (no process group, or a world of 1) they are identities, so the
-single-device path issues no collective at all.
+it the same way. A mesh made by ``make_local_mesh`` lays the live ranks
+out as the (data D, model M) grid of ``jax.make_mesh((D, M))``: rank r is
+(data r // M, model r % M). It carries three groups of ranks, each an
+``Axis`` with its process group, its extent, this rank's index in it and
+its collectives (``all_gather``, ``all_reduce``, ``reduce_scatter``,
+``barrier``):
 
-The port applies only the data axis: the batch is split over the ranks
-and every parameter is replicated. A model axis larger than 1 (Megatron
-tensor parallelism, the paper's §5.1 weight sharding) is refused here and
-comes with the tensor-parallel slice of the port. ``make_production_mesh``
-keeps the reference's pod shapes as metadata for the sharding rules.
+  ``mesh.batch``  every rank, in rank order: the global batch is split
+                  over all D·M of them (paper §5.1, "each core processes
+                  B/2048 examples, regardless of R"), so the cross-shard
+                  loss and the gradient sums of replicated leaves run here;
+  ``mesh.data``   the ranks of this rank's model index, one per data
+                  shard: a part of a weight split over the model axis has
+                  its gradient summed over them;
+  ``mesh.model``  the ranks of this rank's data index: a weight split over
+                  the model axis is gathered, and its gradient
+                  reduce-scattered, over them (``core.weight_sharding``).
+
+The mesh's own collectives are the batch group's. An axis of one rank (or
+a mesh without a process group) runs no collective: its operations are
+identities, so the single-device path issues none.
+``make_production_mesh`` keeps the reference's pod shapes as metadata for
+the sharding rules.
 
 NCCL runs one rank per card. Several ranks sharing one card (NCCL refuses
 that) use gloo, whose collectives on CUDA tensors are limited (no
@@ -36,43 +47,25 @@ POD, DATA, MODEL = "pod", "data", "model"
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-class Mesh:
-    """Axis sizes (``shape``, ordered like a JAX mesh's) and, for a mesh of
-    live ranks, the data axis's process ``group`` and this rank's
-    ``data_index`` on it. ``group=None`` is a mesh of one rank, or a
-    metadata-only mesh (``make_production_mesh``) that runs no
-    collective."""
+class Axis:
+    """A group of live ranks: its process ``group`` (None: no ranks to
+    talk to), its ``size``, this rank's ``index`` in it, and the
+    collectives over it. With one rank, or no group, every collective is
+    an identity."""
 
-    def __init__(self, shape: Dict[str, int], group=None,
-                 data_index: int = 0):
-        self.shape = dict(shape)
-        self.group = group
-        self.data_index = int(data_index)
-
-    @property
-    def data_size(self) -> int:
-        """Ranks the batch is split over (the data axes' product)."""
-        n = 1
-        for a in (POD, DATA):
-            n *= self.shape.get(a, 1)
-        return n
+    def __init__(self, group=None, size: int = 1, index: int = 0):
+        self.group, self.size, self.index = group, int(size), int(index)
 
     @property
     def distributed(self) -> bool:
-        """True when the data axis spans more than one live rank."""
-        return self.group is not None and self.data_size > 1
+        """True when the group spans more than one live rank."""
+        return self.group is not None and self.size > 1
 
     @property
     def backend(self) -> Optional[str]:
-        """'nccl' or 'gloo' for a distributed mesh, else None."""
+        """'nccl' or 'gloo' for a distributed axis, else None."""
         return dist.get_backend(self.group) if self.distributed else None
 
-    def __repr__(self) -> str:
-        axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
-        return (f"Mesh({axes}; rank {self.data_index}"
-                f"{', ' + self.backend if self.distributed else ''})")
-
-    # -- collectives over the data axis -------------------------------------
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
         # gloo takes CUDA tensors in few collectives: stage them on the host
         if self.backend == "gloo" and t.device.type != "cpu":
@@ -80,16 +73,16 @@ class Mesh:
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` stacked in rank order: (R, *t.shape) on
+        """Every rank's ``t`` stacked in rank order: (size, *t.shape) on
         ``t``'s device (``t[None]`` with one rank)."""
         if not self.distributed:
             return t[None]
         src = self._staged(t.contiguous())
         if self.backend == "gloo":
-            parts = [torch.empty_like(src) for _ in range(self.data_size)]
+            parts = [torch.empty_like(src) for _ in range(self.size)]
             dist.all_gather(parts, src, group=self.group)
             return torch.stack(parts).to(t.device)
-        out = torch.empty((self.data_size, *t.shape), dtype=t.dtype,
+        out = torch.empty((self.size, *t.shape), dtype=t.dtype,
                           device=t.device)
         dist.all_gather_into_tensor(out, src, group=self.group)
         return out
@@ -104,13 +97,13 @@ class Mesh:
         return buf.to(t.device)
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
-        """t: (R, *block) on every rank; returns the sum over ranks of
-        ``t[own rank]``, shaped ``block``."""
+        """t: (size, *block) on every rank; returns the sum over ranks of
+        ``t[own index]``, shaped ``block``."""
         if not self.distributed:
             return t[0]
         if self.backend == "gloo":
             # gloo has no reduce-scatter: sum everything, keep the own block
-            return self.all_reduce(t)[self.data_index]
+            return self.all_reduce(t)[self.index]
         out = torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
         dist.reduce_scatter_tensor(out, t.contiguous(), group=self.group)
         return out
@@ -121,19 +114,111 @@ class Mesh:
             dist.barrier(group=self.group)
 
 
-def all_reduce_tree(tree, mesh, op: str = "sum"):
-    """``op`` of every leaf of ``tree`` over the mesh's ranks: the leaves
-    of one dtype and device flattened into one buffer, one all-reduce per
-    buffer, cut back into ``tree``'s structure (``tree`` itself with one
-    rank)."""
+class Mesh:
+    """Axis sizes (``shape``, ordered like a JAX mesh's) and, for a mesh of
+    live ranks, the batch group ``group`` (every rank), this rank's
+    ``data_index`` along the data axes (pod-major) and ``model_index``
+    along the model axis, and the process groups of the data and model
+    axes (by default the batch group, which each equals when the other
+    axis has one rank). ``group=None`` is a mesh of one rank, or a
+    metadata-only mesh (``make_production_mesh``) that runs no
+    collective."""
+
+    def __init__(self, shape: Dict[str, int], group=None,
+                 data_index: int = 0, model_index: int = 0, *,
+                 data_group=None, model_group=None):
+        self.shape = dict(shape)
+        self.group = group
+        self.data_index = int(data_index)
+        self.model_index = int(model_index)
+        self.batch = Axis(group, self.data_size * self.model_size,
+                          self.data_index * self.model_size
+                          + self.model_index)
+        self.data = Axis(group if data_group is None else data_group,
+                         self.data_size, self.data_index)
+        self.model = Axis(group if model_group is None else model_group,
+                          self.model_size, self.model_index)
+
+    @property
+    def data_size(self) -> int:
+        """Data shards (the data axes' product)."""
+        n = 1
+        for a in (POD, DATA):
+            n *= self.shape.get(a, 1)
+        return n
+
+    @property
+    def model_size(self) -> int:
+        """Extent of the model axis (1 when the mesh has none)."""
+        return self.shape.get(MODEL, 1)
+
+    @property
+    def ranks(self) -> int:
+        """Ranks the batch is split over: data shards × model ranks."""
+        return self.batch.size
+
+    @property
+    def rank(self) -> int:
+        """This rank's place in the batch group, data_index · model_size +
+        model_index: the row-major order of the (data, model) grid."""
+        return self.batch.index
+
+    @property
+    def distributed(self) -> bool:
+        """True when the mesh spans more than one live rank."""
+        return self.batch.distributed
+
+    @property
+    def backend(self) -> Optional[str]:
+        """'nccl' or 'gloo' for a distributed mesh, else None."""
+        return self.batch.backend
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return (f"Mesh({axes}; rank {self.rank}"
+                f"{', ' + self.backend if self.distributed else ''})")
+
+    # -- collectives over the batch group (every rank) ----------------------
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``Axis.all_gather`` over every rank."""
+        return self.batch.all_gather(t)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``Axis.all_reduce`` over every rank."""
+        return self.batch.all_reduce(t, op)
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``Axis.reduce_scatter`` over every rank."""
+        return self.batch.reduce_scatter(t)
+
+    def barrier(self) -> None:
+        """Wait for every rank (no-op with one)."""
+        self.batch.barrier()
+
+
+def all_reduce_tree(tree, mesh, op: str = "sum",
+                    bucket_bytes: int = 1 << 30):
+    """``op`` of every leaf of ``tree`` over the ranks of ``mesh`` (a
+    ``Mesh``, whose collectives are its batch group's, or one ``Axis``):
+    the leaves of one dtype and device, in order, flattened into buckets
+    of about ``bucket_bytes``, one all-reduce per bucket, cut back into
+    ``tree``'s structure (``tree`` itself with one rank). The leaves come
+    back as views of their bucket, so a bucket is freed once its leaves
+    are (``AdaFactorW.apply`` releases them leaf by leaf)."""
     if not mesh.distributed:
         return tree
     flat = tree_leaves(tree)
-    buckets = {}
+    buckets, size = {}, {}
     for i, t in enumerate(flat):
-        buckets.setdefault((t.dtype, t.device), []).append(i)
+        key = (t.dtype, t.device)
+        nbytes = t.numel() * t.element_size()
+        if key not in buckets or size[key] + nbytes > bucket_bytes:
+            buckets.setdefault(key, []).append([])
+            size[key] = 0
+        buckets[key][-1].append(i)
+        size[key] += nbytes
     out = [None] * len(flat)
-    for idx in buckets.values():
+    for idx in (b for runs in buckets.values() for b in runs):
         summed = mesh.all_reduce(torch.cat([flat[i].reshape(-1)
                                             for i in idx]), op)
         for i, part in zip(idx, torch.split(summed, [flat[i].numel()
@@ -151,17 +236,33 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_local_mesh(model: int = 1) -> Mesh:
-    """The mesh of the live ranks: (data = world size / model, model), the
-    data axis over the default process group (a mesh of one rank when no
-    group is initialised). ``model > 1`` raises NotImplementedError: tensor
-    parallelism comes with the tensor-parallel slice of the port."""
-    if model != 1:
-        raise NotImplementedError(
-            f"model={model}: tensor parallelism and weight sharding across "
-            f"ranks come with the tensor-parallel slice of the port; this "
-            f"port runs a data axis only (model=1)")
-    if not (dist.is_available() and dist.is_initialized()):
+    """The mesh of the live ranks: (data = world size / ``model``,
+    ``model``), rank r at (data r // model, model r % model), as
+    ``jax.make_mesh((data, model))`` orders its devices. Every rank creates
+    the process groups of every data and model axis in the same order
+    (``dist.new_group`` is collective); an axis that spans the whole world
+    uses the default group. Without a process group the world is one
+    rank. Raises ValueError when the world does not divide by ``model``."""
+    if model < 1:
+        raise ValueError(f"model={model}: the model axis needs at least "
+                         f"one rank")
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+    else:
+        world, rank = 1, 0
+    if world % model:
+        raise ValueError(f"model={model}: the world of {world} rank(s) does "
+                         f"not divide into model groups of {model}")
+    if world == 1:
         return Mesh({DATA: 1, MODEL: 1})
-    world = dist.get_world_size()
-    return Mesh({DATA: world, MODEL: 1}, group=dist.group.WORLD,
-                data_index=dist.get_rank())
+    data, whole = world // model, dist.group.WORLD
+    data_groups = [whole if model == 1 else
+                   dist.new_group([d * model + m for d in range(data)])
+                   for m in range(model)]
+    model_groups = [whole if data == 1 else
+                    dist.new_group([d * model + m for m in range(model)])
+                    for d in range(data)]
+    return Mesh({DATA: data, MODEL: model}, group=whole,
+                data_index=rank // model, model_index=rank % model,
+                data_group=data_groups[rank % model],
+                model_group=model_groups[rank // model])

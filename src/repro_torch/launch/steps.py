@@ -14,9 +14,14 @@ the reference's ``run_pretrain``, ``repro/launch/train.py:116-125``).
 then AdaFactorW). ``moe_args`` pick a MoE model's dispatch: the train
 and prefill steps default to ``DEFAULT_MOE_ARGS`` (capacity dispatch), the
 decode step to dense dispatch, as in the reference. Across
-``torch.distributed`` ranks (a ``launch.mesh`` mesh) the contrastive step
-takes the cross-shard global-batch losses ('allgather', 'chunked') and
-sums the ranks' gradients with one all-reduce before the update.
+``torch.distributed`` ranks (a ``launch.mesh`` mesh) the global batch is
+split over every rank, the contrastive step takes the cross-shard
+global-batch losses ('allgather', 'chunked') and the gradients are summed
+over the ranks before the update. With a weight-sharding ``layout``
+(``core.weight_sharding``, paper §5.1) the params and the optimizer slots
+are this rank's parts, the models gather them on use, and a split leaf's
+gradient arrives as a part summed over its model group and is then summed
+over the data axis; a whole leaf's is summed over every rank.
 """
 from __future__ import annotations
 
@@ -28,14 +33,14 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core import remat as remat_lib
 from repro_torch.core import distributed_loss as dist_loss
+from repro_torch.core import weight_sharding as ws
 from repro_torch.core.contrastive import contrastive_loss, fused_kernel_loss
 from repro_torch.core.gradaccum import contrastive_step as ga_step
-from repro_torch.launch.mesh import all_reduce_tree
 from repro_torch.models import dual_encoder as de
 from repro_torch.models import frontends
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adafactorw import AdaFactorW, apply_updates
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map
 
 LOSSES = {"local": contrastive_loss, "fused": fused_kernel_loss}
 DEFAULT_MOE_ARGS = {"dispatch": "capacity", "group": 4096,
@@ -74,32 +79,36 @@ def value_and_grad(loss_fn, params):
 
 
 def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
-            *, precision, remat_policy=None, moe_args=None, mesh=None):
+            *, precision, remat_policy=None, moe_args=None, mesh=None,
+            layout=None):
     """One LM training step: ``transformer.lm_loss`` (with ``moe_args``)
     and its gradients, then one ``opt`` update at ``lr`` (a float, or a
     schedule of the step count before the update). With a ``mesh``
     (``launch.mesh``; the distributed trainer's) ``batch`` is the rank's
-    block: the gradients and the loss are averaged over its ranks (one
-    all-reduce of the gradients) and ``metrics`` gains the global gradient
-    norm ``grad_norm``. Returns train_step(params, opt_state, batch) ->
-    (params, opt_state, loss, metrics)."""
+    block of the global batch: the gradients and the loss are averaged
+    over all its ranks (``weight_sharding.sum_grads``, then a division by
+    the rank count) and ``metrics`` gains the global gradient norm
+    ``grad_norm``. ``layout``: the params' weight-sharding layout when
+    they are this rank's parts. Returns train_step(params, opt_state,
+    batch) -> (params, opt_state, loss, metrics)."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(
             lambda p: tf.lm_loss(cfg, p, batch, precision=precision,
                                  remat_policy=remat_policy,
-                                 moe_args=moe_args), params)
+                                 moe_args=moe_args, layout=layout), params)
         if mesh is not None:
             if mesh.distributed:
-                n = mesh.data_size
-                grads = tree_map(lambda g: g / n, all_reduce_tree(grads, mesh))
+                n = mesh.ranks
+                grads = tree_map(lambda g: g / n,
+                                 ws.sum_grads(grads, mesh, layout))
                 loss = mesh.all_reduce(loss) / n
             with torch.no_grad():
                 metrics = dict(metrics, grad_norm=torch.sqrt(
-                    sum(torch.sum(g.float() ** 2)
-                        for g in tree_leaves(grads))))
+                    ws.sq_norm(grads, layout)))
         step_lr = lr(opt_state.step) if callable(lr) else lr
-        updates, new_opt = opt.update(grads, opt_state, params, step_lr)
-        return apply_updates(params, updates), new_opt, loss, metrics
+        new_params, new_opt = opt.apply(grads, opt_state, params, step_lr,
+                                        layout)
+        return new_params, new_opt, loss, metrics
 
     return train_step
 
@@ -177,7 +186,7 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
                           mesh=None, loss: str = "local",
                           loss_opts: Optional[dict] = None,
                           skip_nonfinite: bool = False,
-                          freeze_image: bool = False):
+                          freeze_image: bool = False, layout=None):
     """The paper's training step: Algorithm-1 GradAccum over ``num_micro``
     microbatches, then AdaFactorW.
 
@@ -189,14 +198,20 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
     towers and ``remat_image`` / ``remat_text`` override it per tower.
     ``loss``: 'local' (the materialising ``contrastive_loss``) or 'fused'
     (the fused kernels), both on one device's batch; or 'allgather' /
-    'chunked', the cross-shard GLOBAL-batch loss over the data axis of
+    'chunked', the cross-shard GLOBAL-batch loss over every rank of
     ``mesh`` (required; ``core.distributed_loss``): each rank's ``batch``
     is then its block of the global batch, its gradients are summed over
-    the ranks by one all-reduce (``launch.mesh.all_reduce_tree``, every
-    leaf with log_tau's) before the update, and every rank takes the same
-    update. On a mesh of one rank both reduce to the fused loss. 'local'
-    and 'fused' refuse a mesh of several ranks: they would train on each
-    rank's block alone. ``lr`` is a float or a schedule of the step count
+    the ranks (``weight_sharding.sum_grads``: one all-reduce per dtype
+    over every rank, log_tau's included, or over the data axis for the
+    parts of split leaves) before the update, and every rank takes the
+    same update. On a mesh of one rank both reduce to the fused loss.
+    'local' and 'fused' on a mesh of several ranks run as 'allgather'
+    when the data extent is 1 (the ranks are one data shard's model
+    ranks, and the gathered batch is the single-device batch); across
+    data shards they are refused: they would train on each shard's block
+    alone. ``layout``: the params' weight-sharding layout when they are
+    this rank's parts (the towers gather them on use, the update works on
+    parts). ``lr`` is a float or a schedule of the step count
     (``opt_state.step`` before the update).
 
     ``freeze_image=True`` is phase 2 of the recipe: the image tower's
@@ -218,10 +233,14 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
     (params, opt_state, loss, metrics)."""
     if loss in LOSSES:
         if mesh is not None and mesh.distributed:
-            raise ValueError(f"loss={loss!r} trains on one device's batch; "
-                             f"across {mesh.data_size} ranks use one of "
-                             f"{DISTRIBUTED_LOSSES}")
-        loss_fn = LOSSES[loss]
+            if mesh.data_size > 1:
+                raise ValueError(
+                    f"loss={loss!r} trains on one device's batch; across "
+                    f"{mesh.data_size} data shards use one of "
+                    f"{DISTRIBUTED_LOSSES}")
+            loss_fn = dist_loss.make_global_loss_fn(mesh, "allgather")
+        else:
+            loss_fn = LOSSES[loss]
     elif loss in DISTRIBUTED_LOSSES:
         if mesh is None:
             raise ValueError(f"loss={loss!r} needs a mesh")
@@ -244,28 +263,29 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
 
     def enc_i(p, images):
         return de.encode_image(dual_cfg, p, images, precision=precision,
-                               remat_policy=policy_i)
+                               remat_policy=policy_i, layout=layout)
 
     def enc_t(p, texts):
         return de.encode_text(dual_cfg, p, texts, precision=precision,
-                              remat_policy=policy_t)
+                              remat_policy=policy_t, layout=layout)
 
     def train_step(params, opt_state, batch):
         loss_val, metrics, grads = ga_step(enc_i, enc_t, params, batch,
                                            num_micro, loss_fn=loss_fn,
                                            loss_opts=loss_opts)
         if mesh is not None:
-            grads = all_reduce_tree(grads, mesh)
+            grads = ws.sum_grads(grads, mesh, layout)
         if freeze_image:
             grads["image"]["tower"] = tree_map(torch.zeros_like,
                                                grads["image"]["tower"])
         step_lr = lr(opt_state.step) if callable(lr) else lr
-        updates, new_opt = opt.update(grads, opt_state, params, step_lr)
-        new_params = apply_updates(params, updates)
         if skip_nonfinite:
             with torch.no_grad():
-                gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                       for g in tree_leaves(grads)))
+                gnorm = torch.sqrt(ws.sq_norm(grads, layout))
+        new_params, new_opt = opt.apply(grads, opt_state, params, step_lr,
+                                        layout)
+        if skip_nonfinite:
+            with torch.no_grad():
                 ok = torch.isfinite(loss_val) & torch.isfinite(gnorm)
 
                 def keep(n, o):

@@ -2,19 +2,30 @@
 ``repro/launch/train_distributed.py``): the production loop over any
 number of ``torch.distributed`` ranks, one rank per mesh device.
 
-The same code path drives one card and many: each rank of the data axis
-(``launch.mesh.make_local_mesh``) holds the whole model (parameters are
-drawn from ``--seed`` identically on every rank, or restored from one
-checkpoint, and placed by the ``--sharding`` rule, which replicates every
-leaf with one model rank) and its block of the GLOBAL batch; the step's
-gradients are summed over the ranks by one all-reduce, so every rank
-takes the same update. Two objectives share the loop (``--objective
-auto`` picks by arch):
+The same code path drives one card and many. The ranks form the (data
+D, model M) grid of ``launch.mesh.make_local_mesh`` (``--model-parallel
+M``; rank r is data shard r // M, model index r % M) and the GLOBAL batch
+is split over all D·M of them in rank order (paper §5.1: "each core
+processes B/2048 examples, regardless of R"). Parameters are drawn from
+``--seed`` identically on every rank (or restored from one checkpoint)
+and placed by the ``--sharding`` rule (``core.sharding.params_specs``):
+under ``basic_ws`` with M > 1 each rank keeps 1/M of every leaf the rule
+splits over the model axis, and of its optimizer slots, and the models
+gather a layer's weights while they use it (``core.weight_sharding``);
+under ``replicated``, or with M = 1, every rank holds the whole model.
+The step's gradients are summed over the ranks (a split leaf's part over
+its model group by the gather's backward, then over the data axis; a
+whole leaf over every rank), so every rank takes the same update.
+``--sharding tp`` (Megatron execution) runs at M = 1 only. Two
+objectives share the loop (``--objective auto`` picks by arch):
 
   lm           — next-token loss of a decoder LM; every rank draws the
                  global batch of step i from ``host_rng(seed, 0, i)`` and
-                 trains on its rows; the loss and the gradients are the
-                 means over the ranks' equal blocks
+                 trains on its rows (``batch_specs`` over (data, model),
+                 strictly: the batch must divide over every rank); the
+                 loss and the gradients are the means over the ranks'
+                 equal blocks; a MoE model's capacity groups must fall on
+                 a rank's rows as on the whole batch
   contrastive  — the paper's dual-encoder objective: Algorithm-1
                  GradAccum (``--num-micro``, over each rank's block) with
                  the cross-shard global-batch loss (``--loss allgather`` or
@@ -31,19 +42,22 @@ the single-device fused loss, as the reference's on a data extent of 1.
 
 The contrastive input is the sharded data subsystem (``data.sharded``):
 the versioned tokenizer artifact (``--tokenizer v1``), one block of the
-global batch per rank (rank r draws block r from ``host_rng(seed, r,
-step)``, the same bytes as the reference's block r), optional ``--augment
-on``, read through the loader's cursor stream (``ShardedLoader.stream``),
-and the loader's state in every checkpoint's meta, so a resumed run
-replays the exact batch sequence. The ``%8`` per-shard batch rule of the
-reference (its TPU kernel's tiling) does not apply; each rank's block must
-divide into ``--num-micro`` microbatches.
+global batch per data shard (the M ranks of data shard d draw block d
+from ``host_rng(seed, d, step)``, the same bytes as the reference's block
+d, and keep sub-block r % M of it), optional ``--augment on``, read
+through the loader's cursor stream (``ShardedLoader.stream``), and the
+loader's state (the reference's layout of D blocks) in every checkpoint's
+meta, so a resumed run replays the exact batch sequence. The ``%8``
+per-shard batch rule of the reference (its TPU kernel's tiling) does not
+apply; each rank's block must divide into ``--num-micro`` microbatches.
 
     python -m repro_torch.launch.train_distributed --arch basic-s \\
         --batch 2048 --num-micro 8 --loss chunked --steps 100 \\
         --ckpt-dir /path/to/ckpt --ckpt-every 10
     torchrun --nproc-per-node 4 -m repro_torch.launch.train_distributed \\
         --arch basic-s --batch 8192 --num-micro 8 --loss chunked ...
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train_distributed \\
+        --arch basic-l --model-parallel 4 --sharding basic_ws ...
     python -m repro_torch.launch.train_distributed --arch llama3.2-1b \\
         --smoke --device cpu --steps 4 --batch 4 --seq 64
 
@@ -55,7 +69,9 @@ It runs on the card (``cuda:LOCAL_RANK``) unless given ``--device cpu``,
 and raises without a card otherwise.
 
 Fault tolerance: checkpoints (rank 0 writes them, in the reference's
-format, params and AdaFactorW state as one tree) go through
+format, params and AdaFactorW state as one tree of whole leaves: the
+ranks of rank 0's model group gather each split leaf, one at a time,
+through the host; a checkpoint restores at any model extent) go through
 ``checkpoint.AsyncCheckpointManager`` (``--ckpt-sync`` for blocking
 writes, ``--ckpt-keep`` / ``--ckpt-keep-every`` retention); ``--resume
 auto`` restores from the newest checkpoint that verifies, ``latest`` the
@@ -93,6 +109,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.configs import (ArchConfig, get_arch, smoke_dual_variant,
                                  smoke_variant)
 from repro_torch.core import sharding as shd
+from repro_torch.core import weight_sharding as ws
 from repro_torch.core.remat import get_policy, list_policies
 from repro_torch.data.pipeline import Prefetcher, host_rng
 from repro_torch.data.sharded.loader import device_put_global
@@ -108,23 +125,61 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import runlog as obs_runlog
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import AdaFactorW, warmup_cosine
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, unflatten
+
+
+_TP_LATER = ("--sharding tp at --model-parallel {model}: Megatron execution "
+             "(column and row splits, one all-reduce per block, expert "
+             "parallelism) comes with the tensor-parallel slice of the port; "
+             "basic_ws and replicated run at any model extent")
+
+
+def param_layout(cfg, mesh, sharding: str = "basic_ws"):
+    """The ``core.weight_sharding`` layout of ``cfg``'s params on ``mesh``
+    under the ``sharding`` rule (``core.sharding.params_specs``), or None
+    when every leaf stays whole (one model rank, or ``replicated``).
+    ``tp`` with a model axis above 1 raises NotImplementedError."""
+    if sharding == "tp" and mesh.model_size > 1:
+        raise NotImplementedError(_TP_LATER.format(model=mesh.model_size))
+    like = init_params(cfg, torch.Generator(), "meta")
+    return ws.from_specs(shd.params_specs(like, mesh, sharding), mesh)
+
+
+def state_layout(opt, params, layout):
+    """The layout of ``opt``'s state over ``params`` (this rank's parts,
+    under ``layout``): ``AdaFactorW.split_dims`` of the whole shapes."""
+    if layout is None:
+        return None
+    return ws.Layout(opt.split_dims(ws.whole_like(params, layout), layout),
+                     layout.axis)
+
+
+def _on(tree, device):
+    """``tree`` with every leaf moved to ``device`` (NamedTuples kept)."""
+    return unflatten(tree, [x.to(device) for x in tree_leaves(tree)])
 
 
 def build_state(cfg, opt, seed: int, device, mesh=None,
                 sharding: str = "basic_ws"):
     """Params drawn from ``seed`` on ``device`` (the same on every rank: a
-    generator of the device's type seeded alike), placed on ``mesh`` by
-    ``core.sharding.params_specs`` under the ``sharding`` rule (with one
-    model rank, the port's only, every rule replicates, so every rank
-    holds them whole), and their optimizer state. Returns (params,
-    opt_state)."""
+    generator of the device's type seeded alike) and their optimizer
+    state, placed on ``mesh`` under the ``sharding`` rule: with a split
+    over the model axis (``param_layout``) each rank keeps its parts of
+    the split leaves and slots, and the whole trees are freed (on a card
+    the peak-memory counter is reset after that, so it counts the run).
+    Returns (params, opt_state)."""
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         seed), device)
-    if mesh is not None:
-        params = shd.shard(params, shd.params_specs(params, mesh, sharding),
-                           mesh)
-    return params, opt.init(params)
+    opt_state = opt.init(params)
+    layout = None if mesh is None else param_layout(cfg, mesh, sharding)
+    if layout is None:
+        return params, opt_state
+    slayout = ws.Layout(opt.split_dims(params, layout), layout.axis)
+    params, opt_state = ws.cut(params, layout), ws.cut(opt_state, slayout)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    return params, opt_state
 
 
 def _make_manager(args, registry=None):
@@ -149,13 +204,14 @@ def _make_obs(args, resumed_from, mesh):
     run_dir = getattr(args, "run_dir", None) or args.ckpt_dir
     registry = obs_metrics.Registry()
     tracer = runlog = None
-    if run_dir and mesh.data_index == 0:
+    if run_dir and mesh.rank == 0:
         os.makedirs(run_dir, exist_ok=True)
         tracer = obs_trace.Tracer()
         meta = {"arch": args.arch,
                 "objective": getattr(args, "objective", "auto"),
                 "batch": args.batch, "steps": args.steps, "seed": args.seed,
-                "ranks": mesh.data_size}
+                "ranks": mesh.ranks, "data": mesh.data_size,
+                "model": mesh.model_size}
         runlog = obs_runlog.RunLogger(os.path.join(run_dir, "runlog.jsonl"),
                                       meta=meta,
                                       resumed_from=resumed_from or None)
@@ -164,22 +220,25 @@ def _make_obs(args, resumed_from, mesh):
 
 def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
               device, ckpt_meta_fn=None, registry=None, tracer=None,
-              runlog=None, run_dir=None):
+              runlog=None, run_dir=None, part=(0, 1), dims=None):
     """The step / log / checkpoint loop from step ``start``; returns the
-    per-step losses. ``stream`` yields the rank's numpy block of each step
-    from ``start`` on (drawn ahead on a prefetch thread, moved to
-    ``device`` on the loop's thread) and is closed when the loop ends;
-    ``ckpt_meta_fn(next_step) -> dict`` is the user meta of every
-    checkpoint (the loader's state).
+    per-step losses. ``stream`` yields a numpy block of each step from
+    ``start`` on (drawn ahead on a prefetch thread; its sub-block ``part``
+    is moved to ``device`` on the loop's thread) and is closed when the
+    loop ends; ``ckpt_meta_fn(next_step) -> dict`` is the user meta of
+    every checkpoint (the loader's state); ``dims`` the split dims of the
+    leaves of (params, opt_state) when they are parts (None: whole).
 
     Every rank runs the same steps; rank 0 writes checkpoints, the runlog
-    and the trace. SIGTERM (the preemption signal) is caught: the step in
-    flight finishes, the ranks agree (a max all-reduce of the flag each
-    step), rank 0 writes a final SYNC checkpoint, and the loop returns, so
-    a preempted run resumes from its last step. A persistent async-write
-    failure degrades the run to synchronous checkpoints."""
+    and the trace. A checkpoint holds whole leaves: the other ranks of
+    rank 0's model group join its gather of each split leaf. SIGTERM (the
+    preemption signal) is caught: the step in flight finishes, the ranks
+    agree (a max all-reduce of the flag each step), rank 0 writes a final
+    SYNC checkpoint, and the loop returns, so a preempted run resumes
+    from its last step. A persistent async-write failure degrades the run
+    to synchronous checkpoints."""
     stop = getattr(args, "stop_after", None) or args.steps
-    lead = mesh.data_index == 0
+    lead = mesh.rank == 0
     quiet = bool(getattr(args, "quiet", False)) or not lead
     t0, losses = time.time(), []
     manager = _make_manager(args, registry) if lead else None
@@ -190,20 +249,27 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
             signal.SIGTERM, lambda signum, frame: preempted.set())
     preempt_after = getattr(args, "preempt_after", None)
     flag = torch.zeros((1,), dtype=torch.float32, device=device)
+    whole = None if dims is None else \
+        (lambda i, x: ws.gather_leaf(x, dims[i], mesh.model))
 
     def save(step, *, final=False, event="save"):
         """Checkpoint (rank 0) with degrade-on-failure; returns the loop's
-        stall in seconds."""
+        stall in seconds. Each save that reaches its snapshot gathers the
+        split leaves once, so the other ranks of rank 0's model group
+        gather along once per call."""
+        tree = (params, opt_state)
         if manager is None:
+            if whole is not None and args.ckpt_dir and mesh.data_index == 0:
+                for i, x in enumerate(tree_leaves(tree)):
+                    whole(i, x)
             return 0.0
         meta = ckpt_meta_fn(step) if ckpt_meta_fn else None
-        tree = (params, opt_state)
         t_save = time.perf_counter()
         try:
             if final:
-                manager.save_sync(step, tree, meta=meta)
+                manager.save_sync(step, tree, meta=meta, whole=whole)
             else:
-                manager.save(step, tree, meta=meta)
+                manager.save(step, tree, meta=meta, whole=whole)
         except ckpt.CheckpointError as e:
             # a previous async write died after its retries: keep training
             # only with durability, so go blocking and write this step now
@@ -212,7 +278,7 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
             if runlog:
                 runlog.log("checkpoint", step=step, event="degrade_to_sync",
                            error=str(e))
-            manager.save_sync(step, tree, meta=meta)
+            manager.save_sync(step, tree, meta=meta, whole=whole)
         stall = time.perf_counter() - t_save
         if runlog:
             runlog.log("checkpoint", step=step, event=event,
@@ -224,7 +290,7 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
         for i in range(start, min(args.steps, stop)):
             t_iter = time.perf_counter()
             with obs_trace.span(tracer, "data_wait", step=i):
-                batch = device_put_global(next(stream), device)
+                batch = device_put_global(next(stream), device, part)
             t_data = time.perf_counter()
             with obs_trace.span(tracer, "device_step", step=i):
                 params, opt_state, loss, metrics = step_fn(params, opt_state,
@@ -291,27 +357,33 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
     return losses
 
 
-def _restore(args, params, opt_state, mesh, device):
+def _restore(args, params, opt_state, mesh, device, layout=None,
+             slayout=None):
     """Resume per ``--resume``: ``auto`` (default) from
     ``latest_verified_step`` (torn or corrupt step dirs skipped, stale
     temporary dirs removed by rank 0), ``latest`` from the newest step dir,
-    ``off`` fresh. Every rank restores the same checkpoint. Returns
-    (params, opt_state, start)."""
+    ``off`` fresh. Every rank restores the same checkpoint of whole
+    leaves; with the params' ``layout`` and the state's ``slayout`` it
+    reads them on the host and keeps its parts (so a checkpoint written at
+    any model extent restores at any other). Returns (params, opt_state,
+    start)."""
     start = 0
     resume = getattr(args, "resume", None) or "auto"
     if args.ckpt_dir and resume != "off":
         latest = (ckpt.latest_verified_step(args.ckpt_dir,
-                                            gc=mesh.data_index == 0)
+                                            gc=mesh.rank == 0)
                   if resume == "auto" else ckpt.latest_step(args.ckpt_dir))
         if latest:
-            def meta(tree):
-                return tree_map(lambda t: torch.empty_like(t, device="meta"),
-                                tree)
-            like = (meta(params), type(opt_state)(*map(meta, opt_state)))
-            params, opt_state = ckpt.restore(args.ckpt_dir, latest, like,
-                                             device=device)
+            like = (ws.whole_like(params, layout),
+                    ws.whole_like(opt_state, slayout))
+            params, opt_state = ckpt.restore(
+                args.ckpt_dir, latest, like,
+                device=device if layout is None else "cpu")
+            if layout is not None:
+                params = _on(ws.cut(params, layout), device)
+                opt_state = _on(ws.cut(opt_state, slayout), device)
             start = latest
-            if mesh.data_index == 0:
+            if mesh.rank == 0:
                 print(f"resumed from step {start} (--resume {resume})")
     mesh.barrier()
     return params, opt_state, start
@@ -320,7 +392,8 @@ def _restore(args, params, opt_state, mesh, device):
 def setup(args):
     """(device, mesh) of a run: the card ``cuda:LOCAL_RANK`` (modulo the
     cards present, so ranks may share one) unless ``--device cpu``, and
-    the data mesh of the live ranks."""
+    the (data, model) mesh of the live ranks (``--model-parallel``; a
+    world that does not divide by it raises ValueError)."""
     for flag, what in (("memstats", "--memstats: the compiled memory "
                         "report (launch/memstats.py) comes with the port's "
                         "tooling slice"),
@@ -333,9 +406,12 @@ def setup(args):
         if value is not None and value is not False:
             raise NotImplementedError(what)
     device = resolve_device(getattr(args, "device", None))
-    mesh = make_local_mesh(model=getattr(args, "model_parallel", 1))
+    model = getattr(args, "model_parallel", 1)
+    if getattr(args, "sharding", "basic_ws") == "tp" and model > 1:
+        raise NotImplementedError(_TP_LATER.format(model=model))
+    mesh = make_local_mesh(model=model)
     if device.type == "cuda" and device.index is None:
-        local = int(os.environ.get("LOCAL_RANK", mesh.data_index))
+        local = int(os.environ.get("LOCAL_RANK", mesh.rank))
         device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
     return device, mesh
@@ -353,28 +429,60 @@ def train_lm(args):
     lr_fn = warmup_cosine(args.lr, args.lr / 100, max(1, args.steps // 10),
                           args.steps)
     moe_args = {"dispatch": "dense"} if args.smoke else None
+    if args.batch % mesh.ranks:
+        raise SystemExit(f"--batch {args.batch} must be divisible by the "
+                         f"{mesh.ranks} ranks (data {mesh.data_size} x model "
+                         f"{mesh.model_size}; one equal block each)")
+    _check_moe_groups(cfg, moe_args, args.batch, args.seq, mesh.ranks)
+    layout = param_layout(cfg, mesh, args.sharding)
     params, opt_state = build_state(cfg, opt, args.seed, device, mesh,
                                     args.sharding)
+    slayout = state_layout(opt, params, layout)
     params, opt_state, start = _restore(args, params, opt_state, mesh,
-                                        device)
+                                        device, layout, slayout)
     registry, tracer, runlog, run_dir = _make_obs(args, start, mesh)
     step_fn = st.lm_step(cfg, opt, lr_fn,
                          precision=getattr(args, "precision", None) or "f32",
                          remat_policy=get_policy(args.remat),
-                         moe_args=moe_args, mesh=mesh)
+                         moe_args=moe_args, mesh=mesh, layout=layout)
+    axes = (shd.DATA, shd.MODEL)
 
     def make_batch(step):
         # every rank draws the global batch of the step and keeps its rows
         b = frontends.synthetic_inputs(cfg, args.batch, args.seq,
                                        host_rng(args.seed, 0, step),
                                        device="cpu")
-        return tree_map(lambda t: t.numpy(),
-                        shd.shard(b, shd.batch_specs(b, mesh), mesh))
+        specs = shd.batch_specs(b, mesh, batch_axes=axes, strict=True)
+        return tree_map(lambda t: t.numpy(), shd.shard(b, specs, mesh))
 
     return _run_loop(args, step_fn, params, opt_state,
                      Prefetcher(make_batch, depth=2, start=start), start,
                      mesh=mesh, device=device, registry=registry,
-                     tracer=tracer, runlog=runlog, run_dir=run_dir)
+                     tracer=tracer, runlog=runlog, run_dir=run_dir,
+                     dims=_dims(layout, slayout))
+
+
+def _dims(layout, slayout):
+    """The split dims of the leaves of (params, opt_state), or None."""
+    return None if layout is None else layout.flat_dims + slayout.flat_dims
+
+
+def _check_moe_groups(cfg, moe_args, batch: int, seq: int, ranks: int):
+    """A MoE model under capacity dispatch cuts the tokens into groups of
+    min(group, b·s) (reference ``repro/models/moe.py:104-112``); the ranks
+    must cut theirs as the whole batch would be cut, or the routing would
+    differ from the single-device run's. Raises ValueError otherwise."""
+    margs = dict(st.DEFAULT_MOE_ARGS, **(moe_args or {}))
+    if cfg.moe is None or margs["dispatch"] != "capacity" or ranks == 1:
+        return
+    whole = min(margs["group"], batch * seq)
+    mine = (batch // ranks) * seq
+    if min(margs["group"], mine) != whole or mine % whole:
+        raise ValueError(
+            f"{cfg.name}: capacity groups of {whole} tokens of the global "
+            f"batch ({batch} x {seq}) do not fall on a rank's "
+            f"{batch // ranks} rows ({mine} tokens) over {ranks} ranks; "
+            f"use a batch whose rows per rank hold whole groups")
 
 
 def make_loader(args, cfg, layout, registry=None, tracer=None):
@@ -403,8 +511,9 @@ def train_contrastive(args):
     Returns the per-step losses.
 
     Input (DESIGN.md §9): the versioned tokenizer artifact, a
-    ``data.sharded.ShardedLoader`` with one block per rank
-    (``HostLayout(ranks, rank)``), optional ``--augment``, and the loader's
+    ``data.sharded.ShardedLoader`` with one block per data shard
+    (``HostLayout(data extent, data index)``; the shard's M model ranks
+    each keep their sub-block), optional ``--augment``, and the loader's
     state as checkpoint meta: rank 0 records its state, and on resume every
     rank checks it against its own loader (with its own host id), so a
     changed tokenizer, layout, seed or augmentation stops the run instead
@@ -418,29 +527,34 @@ def train_contrastive(args):
         cfg = smoke_dual_variant(cfg)
     num_micro = getattr(args, "num_micro", 2)
     loss = getattr(args, "loss", "chunked")
-    ranks = mesh.data_size
+    ranks = mesh.ranks
     if args.batch % ranks:
         raise SystemExit(f"--batch {args.batch} must be divisible by the "
-                         f"{ranks} ranks (one equal block each)")
+                         f"{ranks} ranks (data {mesh.data_size} x model "
+                         f"{mesh.model_size}; one equal block each)")
     if (args.batch // ranks) % num_micro:
         raise SystemExit(f"each rank's block of {args.batch // ranks} must "
                          f"be divisible by --num-micro {num_micro}")
 
+    layout = param_layout(cfg, mesh, args.sharding)
     step_fn, opt = st.make_contrastive_step(
         cfg, num_micro=num_micro, remat=args.remat,
         remat_image=getattr(args, "remat_image", None),
         remat_text=getattr(args, "remat_text", None),
         precision=getattr(args, "precision", None) or "bf16",
-        attn=getattr(args, "attn", None), lr=args.lr, mesh=mesh, loss=loss)
+        attn=getattr(args, "attn", None), lr=args.lr, mesh=mesh, loss=loss,
+        layout=layout)
     params, opt_state = build_state(cfg, opt, args.seed, device, mesh,
                                     args.sharding)
+    slayout = state_layout(opt, params, layout)
     params, opt_state, start = _restore(args, params, opt_state, mesh,
-                                        device)
+                                        device, layout, slayout)
 
     registry, tracer, runlog, run_dir = _make_obs(args, start, mesh)
     if tracer is not None:
         tracer.set_process_name(1, "host 0")
-    loader = make_loader(args, cfg, HostLayout(ranks, mesh.data_index),
+    loader = make_loader(args, cfg,
+                         HostLayout(mesh.data_size, mesh.data_index),
                          registry, tracer)
     if start and args.ckpt_dir and \
             (meta := ckpt.load_meta(args.ckpt_dir, start)) \
@@ -459,7 +573,9 @@ def train_contrastive(args):
     return _run_loop(args, step_fn, params, opt_state, loader.stream(depth=2),
                      start, mesh=mesh, device=device,
                      ckpt_meta_fn=ckpt_meta_fn, registry=registry,
-                     tracer=tracer, runlog=runlog, run_dir=run_dir)
+                     tracer=tracer, runlog=runlog, run_dir=run_dir,
+                     part=(mesh.model_index, mesh.model_size),
+                     dims=_dims(layout, slayout))
 
 
 def train(args):
@@ -499,9 +615,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--sharding", default="basic_ws",
                     choices=["basic_ws", "tp", "replicated"],
                     help="weight-sharding rule (core.sharding."
-                         "params_specs) the params are placed by; with one "
-                         "model rank, the port's only, every rule "
-                         "replicates")
+                         "params_specs) the params are placed by: basic_ws "
+                         "splits weights and their optimizer slots over the "
+                         "model axis (paper §5.1), replicated keeps them "
+                         "whole; tp runs at --model-parallel 1 only")
     remat_names = list_policies() + ["off"]
     ap.add_argument("--remat", default="basic", choices=remat_names)
     ap.add_argument("--remat-image", default=None, choices=remat_names,
@@ -517,8 +634,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="attention backend of every tower ('pallas' is "
                          "the flash kernels)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model-axis size; only 1 (tensor parallelism "
-                         "comes with a later slice)")
+                    help="model-axis size M: the world is a (world / M, M) "
+                         "grid; the batch splits over every rank")
     ap.add_argument("--num-micro", type=int, default=2,
                     help="GradAccum microbatches of each rank's block")
     ap.add_argument("--loss", default="chunked",

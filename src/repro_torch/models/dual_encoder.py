@@ -5,7 +5,10 @@ Paper §3: F(x), G(y) live on the D-dimensional unit sphere; similarity
 A = (X^T Y)/tau with a learnable temperature stored as ``log_tau``. Text
 pooling is the mean over positions. The towers run in the precision
 policy's compute dtype; the embedding projections and the unit norm land
-in fp32 under the default policies.
+in fp32 under the default policies. ``layout`` (``core.weight_sharding``)
+is given when the params are this rank's parts of weights split over the
+model axis: the towers gather theirs per block, and ``image/proj`` and
+``text/proj`` are gathered on use; ``log_tau`` is never split.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import math
 import torch
 
 from repro_torch.configs.dual import DualEncoderConfig
+from repro_torch.core import weight_sharding as ws
 from repro_torch.models import layers as L
 from repro_torch.models import precision as prec_lib
 from repro_torch.models import transformer as tf
@@ -50,24 +54,30 @@ def _norm(z):
 
 
 def encode_image(cfg: DualEncoderConfig, params, images, *, precision=None,
-                 remat_policy=None):
+                 remat_policy=None, layout=None):
     """images: dict with 'image' (b, H, W, C) raw pixels. Returns (b, D) on
-    S^D, fp32. ``remat_policy`` (``core.remat``) wraps each block."""
+    S^D, fp32. ``remat_policy`` (``core.remat``) wraps each block;
+    ``layout`` gathers split weights on use."""
     pol = prec_lib.resolve(precision)
     h = tf.encode(cfg.image_tower, params["image"]["tower"], images,
-                  precision=pol, remat_policy=remat_policy)
-    return _norm(L.dense(pol.project(h), params["image"]["proj"]).float())
+                  precision=pol, remat_policy=remat_policy,
+                  layout=ws.sub(layout, "image", "tower"))
+    proj = ws.gather(params["image"]["proj"], ws.sub(layout, "image", "proj"))
+    return _norm(L.dense(pol.project(h), proj).float())
 
 
 def encode_text(cfg: DualEncoderConfig, params, texts, *, precision=None,
-                remat_policy=None):
+                remat_policy=None, layout=None):
     """texts: dict with 'tokens' (b, s) and optional 'attn_mask' (b, s)
     bool, which masks padding inside attention and pooling. Returns (b, D)
-    on S^D, fp32. ``remat_policy`` (``core.remat``) wraps each block."""
+    on S^D, fp32. ``remat_policy`` (``core.remat``) wraps each block;
+    ``layout`` gathers split weights on use."""
     pol = prec_lib.resolve(precision)
     h = tf.encode(cfg.text_tower, params["text"]["tower"], texts,
-                  precision=pol, remat_policy=remat_policy)
-    return _norm(L.dense(pol.project(h), params["text"]["proj"]).float())
+                  precision=pol, remat_policy=remat_policy,
+                  layout=ws.sub(layout, "text", "tower"))
+    proj = ws.gather(params["text"]["proj"], ws.sub(layout, "text", "proj"))
+    return _norm(L.dense(pol.project(h), proj).float())
 
 
 def temperature(params):

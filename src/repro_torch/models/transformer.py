@@ -33,9 +33,13 @@ Entry points:
 
 ``forward`` and ``encode`` take a ``remat_policy`` (``core.remat``) that
 wraps each block in a checkpoint, as the reference wraps each period step
-(``repro/models/transformer.py:168-169``). ``decode_step`` writes each
-layer's new k/v (or SSD state and conv window) into the caches in place
-and returns the same objects. ``moe_args`` (``dispatch``, ``group``,
+(``repro/models/transformer.py:168-169``). ``forward``, ``encode`` and
+``lm_loss`` take a ``layout`` (``core.weight_sharding``) when the params
+are this rank's parts of weights split over the model axis (paper §5.1):
+each block gathers its layer's weights inside the function remat wraps,
+and the embedding, the LM head and the vision frontend are gathered where
+they are used. ``decode_step`` writes each layer's new k/v (or SSD state
+and conv window) into the caches in place and returns the same objects. ``moe_args`` (``dispatch``, ``group``,
 ``capacity_factor`` and the expert share ``experts``) go to every MoE
 FFN; ``lm_loss`` adds the MoE load-balance terms of all layers.
 ``init_params(..., experts=(first, count))`` draws only those experts of
@@ -52,6 +56,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import remat as remat_lib
+from repro_torch.core import weight_sharding as ws
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import frontends as fe
 from repro_torch.models import layers as L
@@ -191,24 +196,29 @@ def _layers(cfg: ArchConfig, params):
 
 def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
             remat_policy=None, caches=None, decode=False,
-            collect_cache_len=None, moe_args=None):
+            collect_cache_len=None, moe_args=None, layout=None):
     """Run the block stack. h: (b, s, d); key_mask: optional (b, s) bool
     padding mask threaded into attention; remat_policy: optional
     ``core.remat`` policy applied per block (not while decoding or
     building caches). ``decode``: one token per row against ``caches``
     at ``positions`` (an int or a (b,) tensor). ``collect_cache_len``:
     build decode caches of that length from the prompt. ``moe_args`` go
-    to every MoE FFN.
+    to every MoE FFN. ``layout``: the ``core.weight_sharding`` layout of
+    ``params`` when its block leaves are parts; each layer's leaves are
+    gathered whole inside the block (within the remat wrapper, so a
+    recomputed block gathers them again).
 
     Returns (h, caches, aux): the caches given (written in place), the
     ones built, or None; aux the sum of the MoE load-balance terms (an
     fp32 scalar, 0 without MoE layers)."""
     _check_family(cfg)
     terms = []
+    lays = [ws.layer(ws.sub(layout, "blocks", r))
+            for r in range(len(params["blocks"]))]
     if decode:
         for r, j, p in _layers(cfg, params):
             c = caches[r]
-            h, _, aux = _apply_block(cfg, p, h, positions,
+            h, _, aux = _apply_block(cfg, ws.gather(p, lays[r]), h, positions,
                                      cache=type(c)(*(x[j] for x in c)),
                                      decode=True, moe_args=moe_args)
             terms.append(aux)
@@ -216,7 +226,8 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     elif collect_cache_len is not None:
         built = [[] for _ in params["blocks"]]
         for r, _, p in _layers(cfg, params):
-            h, c, aux = _apply_block(cfg, p, h, positions, key_mask=key_mask,
+            h, c, aux = _apply_block(cfg, ws.gather(p, lays[r]), h, positions,
+                                     key_mask=key_mask,
                                      collect_cache_len=collect_cache_len,
                                      moe_args=moe_args)
             built[r].append(c)
@@ -224,14 +235,14 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
         out_caches = [type(b[0])(*(torch.stack(leaf) for leaf in zip(*b)))
                       for b in built]
     else:
-        def block(p, h, positions, key_mask):
-            h, _, aux = _apply_block(cfg, p, h, positions, key_mask,
-                                     moe_args=moe_args)
+        def block(lay, p, h, positions, key_mask):
+            h, _, aux = _apply_block(cfg, ws.gather(p, lay), h, positions,
+                                     key_mask, moe_args=moe_args)
             return h, aux
 
-        for _, _, p in _layers(cfg, params):
-            h, aux = remat_lib.apply(remat_policy, block, p, h, positions,
-                                     key_mask)
+        for r, _, p in _layers(cfg, params):
+            h, aux = remat_lib.apply(remat_policy, block, lays[r], p, h,
+                                     positions, key_mask)
             terms.append(aux)
         out_caches = None
     terms = [t for t in terms if t is not None]
@@ -244,19 +255,23 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def embed_inputs(cfg: ArchConfig, params, batch, dtype):
+def embed_inputs(cfg: ArchConfig, params, batch, dtype, layout=None):
     """Returns (h (b, s, d), positions (b, s), text_mask (b, s) or None).
 
     Vision towers consume raw ``batch['image']`` (b, H, W, C) through the
     linear-patchify frontend; with ``batch['tokens']`` too, token
-    embeddings follow the patches. Token towers embed ``batch['tokens']``."""
+    embeddings follow the patches. Token towers embed ``batch['tokens']``.
+    ``layout``: the frontend and the embedding are gathered on use
+    (``forward``)."""
     if cfg.frontend == "vision" and "image" in batch:
-        patches = fe.patch_embed(params["frontend"], cfg, batch["image"],
-                                 dtype)
+        patches = fe.patch_embed(
+            ws.gather(params["frontend"], ws.sub(layout, "frontend")), cfg,
+            batch["image"], dtype)
         b, p = patches.shape[:2]
         if cfg.vocab > 0 and "tokens" in batch:
             tok = batch["tokens"]
-            emb = params["embed"][tok.long()].to(dtype)
+            embed = ws.gather(params["embed"], ws.sub(layout, "embed"))
+            emb = embed[tok.long()].to(dtype)
             h = torch.cat([patches, emb], dim=1)
             text_mask = torch.cat(
                 [torch.zeros((b, p), dtype=torch.bool, device=h.device),
@@ -265,24 +280,26 @@ def embed_inputs(cfg: ArchConfig, params, batch, dtype):
             return h, _positions(b, h.shape[1], h.device), text_mask
         return patches, _positions(b, p, patches.device), None
     tok = batch["tokens"]
-    emb = params["embed"][tok.long()].to(dtype)
+    embed = ws.gather(params["embed"], ws.sub(layout, "embed"))
+    emb = embed[tok.long()].to(dtype)
     b, s = tok.shape
     return emb, _positions(b, s, emb.device), None
 
 
 def encode(cfg: ArchConfig, params, batch, *, precision=None,
-           remat_policy=None):
+           remat_policy=None, layout=None):
     """Pooled representation of a dual-encoder tower: (b, d_model) in the
     policy's projection dtype (fp32 under the default policies).
 
     ``batch['attn_mask']`` (b, s) masks padded text positions both inside
     attention and in the mean pooling; pooling accumulates in fp32.
-    ``remat_policy`` wraps each block (``forward``)."""
+    ``remat_policy`` wraps each block and ``layout`` gathers split
+    weights on use (``forward``)."""
     pol = prec_lib.resolve(precision)
-    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
+    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype, layout)
     mask = batch.get("attn_mask")
     h, _, _ = forward(cfg, params, h, pos, key_mask=mask,
-                      remat_policy=remat_policy)
+                      remat_policy=remat_policy, layout=layout)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     h = pol.accum(h)
     if mask is not None:
@@ -300,26 +317,29 @@ def encode(cfg: ArchConfig, params, batch, *, precision=None,
 
 
 def logits_from_h(cfg: ArchConfig, params, h,
-                  pol: prec_lib.Precision = None):
+                  pol: prec_lib.Precision = None, layout=None):
     """Vocabulary logits from hidden states (b, s, d): the tied head
     h @ embedᵀ, or ``lm_head``, in the policy's projection dtype (fp32
-    under the default policies)."""
+    under the default policies); ``layout`` gathers the head on use."""
     if pol is not None:
         h = pol.project(h)
     if cfg.tie_embeddings:
-        return torch.matmul(h, params["embed"].to(h.dtype).T)
-    return L.dense(h, params["lm_head"])
+        embed = ws.gather(params["embed"], ws.sub(layout, "embed"))
+        return torch.matmul(h, embed.to(h.dtype).T)
+    return L.dense(h, ws.gather(params["lm_head"],
+                                ws.sub(layout, "lm_head")))
 
 
 def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
-            precision=None, remat_policy=None, moe_args=None):
+            precision=None, remat_policy=None, moe_args=None, layout=None):
     """Training loss of a decoder LM: next-token cross-entropy over
     ``batch['tokens']`` (b, s), averaged over the (b, s - 1) predicted
     positions, or over those ``batch['loss_mask'][:, 1:]`` keeps. The
     logits and the cross-entropy are fp32 whatever the compute dtype.
     ``precision`` (a policy or its name) wins over the legacy ``dtype``
     (default f32, as in the reference); ``remat_policy`` wraps each block;
-    ``moe_args`` go to every MoE FFN.
+    ``moe_args`` go to every MoE FFN; ``layout`` gathers split weights on
+    use (``forward``).
 
     Returns (loss + aux, {'xent': loss, 'aux': aux}); aux is the sum of
     the MoE load-balance terms over the layers (0 without MoE layers)."""
@@ -329,11 +349,11 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
             f"{cfg.name}: the masked-frame loss of the encoder family comes "
             f"with the audio slice (hubert-xlarge)")
     pol = prec_lib.resolve(precision, dtype)
-    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
+    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype, layout)
     h, _, aux = forward(cfg, params, h, pos, remat_policy=remat_policy,
-                        moe_args=moe_args)
+                        moe_args=moe_args, layout=layout)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = logits_from_h(cfg, params, h, pol).float()
+    logits = logits_from_h(cfg, params, h, pol, layout).float()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     tgt = batch["tokens"][:, 1:].long()
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]

@@ -136,8 +136,8 @@ def test_meshes():
     local = tmesh.make_local_mesh()
     assert local.shape == {"data": 1, "model": 1} and not local.distributed
     assert local.all_gather(torch.ones(3)).shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tmesh.make_local_mesh(model=2)
+    with pytest.raises(ValueError, match="does not divide"):
+        tmesh.make_local_mesh(model=2)       # a world of one rank
     assert tmesh.make_production_mesh().shape == {"data": 16, "model": 16}
     pod = tmesh.make_production_mesh(multi_pod=True)
     assert tuple(pod.shape) == ("pod", "data", "model")
@@ -154,8 +154,9 @@ def test_meshes():
 
 def test_shard_places_a_tree_by_its_specs():
     """``shard`` keeps each rank's part: the batch's rows of rank 3 of
-    (pod 2, data 2), every param whole under each rule at model 1, and a
-    split over a model axis of 2 refused."""
+    (pod 2, data 2), every param whole under each rule at model 1, and on
+    a model axis of 2 the model rank's half of each leaf ``basic_ws``
+    splits (never the stacked layer axis), the 1-D leaf whole."""
     pod = tmesh.Mesh({"pod": 2, "data": 2, "model": 1}, data_index=3)
     batch = {"tokens": torch.arange(16).reshape(8, 2),
              "pos": torch.tensor(0)}
@@ -171,6 +172,11 @@ def test_shard_places_a_tree_by_its_specs():
         assert all(a is b for a, b in zip(
             (placed["w"], placed["blocks"][0], placed["b"]),
             (params["w"], params["blocks"][0], params["b"])))
-    tp = tmesh.Mesh({"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        shd.shard(params, shd.params_specs(params, tp, "basic_ws"), tp)
+    for m in range(2):
+        ws = tmesh.Mesh({"data": 1, "model": 2}, model_index=m)
+        placed = shd.shard(params, shd.params_specs(params, ws, "basic_ws"),
+                           ws)
+        assert torch.equal(placed["w"], params["w"][:, 3 * m:3 * m + 3])
+        assert torch.equal(placed["blocks"][0],
+                           params["blocks"][0][:, 2 * m:2 * m + 2])
+        assert placed["b"] is params["b"]

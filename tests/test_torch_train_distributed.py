@@ -228,8 +228,8 @@ def test_runlog_passes_the_schema_gate_and_reports(port_r1):
 
 @pytest.mark.parametrize("flags,match", [
     (["--health"], "health"), (["--metrics-port", "0"], "health"),
-    (["--memstats"], "tooling"), (["--model-parallel", "2"],
-                                  "tensor-parallel")])
+    (["--memstats"], "tooling"),
+    (["--model-parallel", "2", "--sharding", "tp"], "tensor-parallel")])
 def test_refuses_what_later_slices_bring(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         td.main(CONTRASTIVE + ["--device", "cpu", "--steps", "1"] + flags)

@@ -49,3 +49,205 @@ def worker_train(rank, world, argvs):
     per-step losses."""
     from repro_torch.launch import train_distributed as td
     return [td.main(argv) for argv in argvs]
+
+
+def worker_mesh(rank, world, model):
+    """This rank's place on the (world / model, model) mesh and the
+    results of each axis's collectives (batch, data, model) on small
+    tensors that name the rank."""
+    import torch
+
+    from repro_torch.launch.mesh import all_reduce_tree, make_local_mesh
+    from repro_torch.tree import tree_leaves
+    mesh = make_local_mesh(model=model)
+    t = torch.tensor([float(rank)])
+    out = {"index": (mesh.data_index, mesh.model_index, mesh.rank),
+           "sizes": (mesh.data_size, mesh.model_size, mesh.ranks)}
+    for name, axis in (("batch", mesh.batch), ("data", mesh.data),
+                       ("model", mesh.model)):
+        blocks = torch.arange(axis.size, dtype=torch.float32)[:, None]
+        out[name] = {"gather": axis.all_gather(t).flatten().tolist(),
+                     "sum": axis.all_reduce(t).item(),
+                     "max": axis.all_reduce(t, "max").item(),
+                     "scatter": axis.reduce_scatter(
+                         blocks * (rank + 1)).tolist()}
+    # a tree summed in buckets of at most 12 bytes: one leaf a bucket
+    tree = {"a": torch.full((3,), float(rank)), "b": [t.double(), t + 1]}
+    out["tree"] = {k: [x.tolist() for x in tree_leaves(v)] for k, v in
+                   all_reduce_tree(tree, mesh, bucket_bytes=12).items()}
+    return out
+
+
+def worker_gather(rank, world, model, cases):
+    """For each (whole, dim, upstream) of ``cases``:
+    ``weight_sharding.gather`` of this rank's part of ``whole`` (split over
+    the model axis along ``dim``) and the part's gradient when the
+    gathered leaf is multiplied by ``upstream[rank]`` and summed. Returns
+    [(gathered leaf, gradient of the part)] as numpy."""
+    import torch
+
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(model=model)
+    out = []
+    for whole, dim, upstream in cases:
+        layout = ws.Layout({"w": dim}, mesh.model)
+        part = ws.cut({"w": torch.from_numpy(whole)}, layout)["w"]
+        part.requires_grad_()
+        full = ws.gather({"w": part}, layout)["w"]
+        (g,) = torch.autograd.grad(
+            torch.sum(full * torch.from_numpy(upstream[rank])), part)
+        out.append((full.detach().numpy(), g.numpy()))
+    return out
+
+
+def worker_adafactor(rank, world, model, params, grads, stream, dims,
+                     lr):
+    """AdaFactorW on this rank's parts: ``params`` (numpy leaves, whole)
+    cut by ``dims`` over the model axis, one ``update`` per whole gradient
+    of ``grads``, then one ``update_from_microbatches`` on ``stream``
+    (leaves (K, ...), cut along each leaf's dim + 1). Returns the parts
+    of the params and of every slot (the first moment widened to
+    float32), as numpy, after the updates and after the stream step."""
+    import torch
+
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adafactorw import AdaFactorW, apply_updates
+    from repro_torch.tree import tree_map
+    mesh = make_local_mesh(model=model)
+    opt = AdaFactorW(weight_decay=0.0025)
+    layout = ws.Layout(dims, mesh.model)
+    whole = tree_map(torch.from_numpy, params)
+    slayout = ws.Layout(opt.split_dims(whole, layout), mesh.model)
+    p, state = ws.cut(whole, layout), ws.cut(opt.init(whole), slayout)
+
+    def numpy(p, state):
+        out = {"params": p, "m": state.m, "v_row": state.v_row,
+               "v_col": state.v_col}
+        return tree_map(lambda t: t.float().numpy(), out)
+    for g in grads:
+        g = ws.cut(tree_map(torch.from_numpy, g), layout)
+        updates, state = opt.update(g, state, p, lr, layout)
+        p = apply_updates(p, updates)
+    after = numpy(p, state)
+    cstream = ws.cut(tree_map(torch.from_numpy, stream), ws.Layout(
+        tree_map(lambda d: None if d is None else d + 1, dims), mesh.model))
+    updates, state = opt.update_from_microbatches(cstream, state, p, lr,
+                                                  layout=layout)
+    return after, numpy(apply_updates(p, updates), state)
+
+
+def worker_grid(rank, world, model, gather_cases):
+    """One world's checks of the (world / model, model) grid:
+    ``worker_mesh``, ``worker_gather`` on ``gather_cases`` and
+    ``worker_resident`` under 'basic_ws' and 'replicated'."""
+    return {"mesh": worker_mesh(rank, world, model),
+            "gather": worker_gather(rank, world, model, gather_cases),
+            "resident": {s: worker_resident(rank, world, model, s)
+                         for s in ("basic_ws", "replicated")}}
+
+
+def worker_resident(rank, world, model, sharding):
+    """The trainer's state on this rank for BASIC-S smoke at (world /
+    model, model) under ``sharding``: the params' and the optimizer
+    state's resident bytes, and the shapes of the parts, of the first
+    moment and of one GradAccum step's gradients (through the towers'
+    gather on use), each by leaf path."""
+    import torch
+
+    from repro_torch.configs import get_arch, smoke_dual_variant
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.core.distributed_loss import make_global_loss_fn
+    from repro_torch.core.gradaccum import contrastive_step
+    from repro_torch.data.sharded import HostLayout, device_put_global
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.models import dual_encoder as de
+    from repro_torch.tree import leaves
+    args = td.parse_args(["--arch", "basic-s", "--smoke", "--device", "cpu",
+                          "--model-parallel", str(model), "--sharding",
+                          sharding, "--batch", "16", "--seq", "16"])
+    device, mesh = td.setup(args)
+    cfg = smoke_dual_variant(get_arch("basic-s"))
+    opt = st.make_optimizer()
+    layout = td.param_layout(cfg, mesh, sharding)
+    params, state = td.build_state(cfg, opt, 0, device, mesh, sharding)
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for _, x in leaves(tree))
+    loader = td.make_loader(args, cfg, HostLayout(mesh.data_size,
+                                                  mesh.data_index))
+    batch = device_put_global(loader.local_batch_at(0), device,
+                              (mesh.model_index, mesh.model_size))
+    _, _, grads = contrastive_step(
+        lambda p, x: de.encode_image(cfg, p, x, layout=layout),
+        lambda p, x: de.encode_text(cfg, p, x, layout=layout),
+        params, batch, 2, loss_fn=make_global_loss_fn(mesh, "chunked"))
+
+    def shapes(tree):
+        return {k: tuple(x.shape) for k, x in leaves(tree)}
+    return {"params_bytes": nbytes(params), "state_bytes": nbytes(state),
+            "params": shapes(params), "m": shapes(state.m),
+            "grads": shapes(grads),
+            "split": None if layout is None else
+            [k for (k, _), d in zip(leaves(params), layout.flat_dims)
+             if d is not None]}
+
+
+def worker_checkpoint(rank, world, model, save_dir, restore_dir):
+    """The trainer's seeded BASIC-S smoke state at (world / model, model):
+    saved whole into ``save_dir`` at step 1 by rank 0, the model group's
+    ranks gathering each split leaf (``io.save`` with
+    ``weight_sharding.gather_leaf``), then the checkpoint at step 1 of
+    ``restore_dir`` restored into this rank's parts (``_restore``).
+    Returns the restored parts as numpy, by leaf path (bf16 as its bits)."""
+    import types
+
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_arch, smoke_dual_variant
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.tree import leaves, tree_leaves
+    mesh = make_local_mesh(model=model)
+    cfg = smoke_dual_variant(get_arch("basic-s"))
+    opt = st.make_optimizer()
+    layout = td.param_layout(cfg, mesh, "basic_ws")
+    params, state = td.build_state(cfg, opt, 0, "cpu", mesh, "basic_ws")
+    slayout = td.state_layout(opt, params, layout)
+    dims = td._dims(layout, slayout)
+    tree = (params, state)
+    if rank == 0:
+        ckpt.save(save_dir, 1, tree, whole=lambda i, x: ws.gather_leaf(
+            x, dims[i], mesh.model))
+    elif mesh.data_index == 0:
+        for i, x in enumerate(tree_leaves(tree)):
+            ws.gather_leaf(x, dims[i], mesh.model)
+    mesh.barrier()
+    params, state, start = td._restore(
+        types.SimpleNamespace(ckpt_dir=restore_dir, resume="latest"),
+        params, state, mesh, "cpu", layout, slayout)
+
+    def host(x):
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16
+                else x).numpy()
+    return start, {k: host(x) for k, x in leaves((params, state))}
+
+
+def worker_refusals(rank, world, argvs):
+    """``repro_torch.launch.train_distributed.main(argv)`` for each argv,
+    each expected to refuse its setup: the exception's type name and
+    message of each (None where a run did not raise)."""
+    from repro_torch.launch import train_distributed as td
+    out = []
+    for argv in argvs:
+        try:
+            td.main(argv)
+            out.append(None)
+        except (SystemExit, ValueError, NotImplementedError) as e:
+            out.append((type(e).__name__, str(e)))
+    return out
