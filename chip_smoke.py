@@ -266,7 +266,22 @@ repository beside this file; it exits non-zero without them. In order it:
 40. ``train_lm`` through the trainer's ``main``: Llama-3.2-1B full width,
     f32, b 4 × s 1024, 3 steps, a checkpoint of params and optimizer state,
     1 resumed step, against 4 uninterrupted: step, tokens/s, peak memory;
-27. last, after phase 40, prints the script's seconds, a ``{"kernels":
+41. the paper's §5.1 weight sharding on gloo ranks sharing the card
+    (two spawned worlds, of 2 and 4 ranks): BASIC-S at full width on 1
+    layer a tower, f32, global B 256, 2 steps at (data 1, model 2) and
+    (2, 2) under ``basic_ws`` and (1, 2) under ``replicated``: each rank's
+    losses against the one-rank run on the same global batch (rtol 1e-4),
+    its params' and optimizer state's bytes, the final checkpoint's whole
+    leaves within 1e-3 of their move; not timed;
+42. ``train_lm`` at (1, 2) under ``basic_ws`` in the world of 2:
+    Llama-3.2-1B at full width on 1 of its 16 layers, f32, b 2 × s 1024;
+43. Megatron execution (``--sharding tp``) in the same two worlds: BASIC-S
+    on 2 layers a tower for 3 steps at (1, 2) and (2, 2), and
+    Llama-3.2-1B on 2 of 16 layers at (1, 2), with the same checks (each
+    rank's params 1/M of the rule's split leaves plus the whole ones);
+    every rank launches the flash kernels, and at (1, 2) the fused loss's
+    pair;
+27. last, after phase 43, prints the script's seconds, a ``{"kernels":
     [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises; no phase is caught.
@@ -4507,16 +4522,25 @@ DIST_LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "1024",
                 "--attn", "pallas",
                 "--steps", "4", "--quiet"]
 DIST_RESUME_RTOL = 1e-4            # tests/test_train_distributed.py:56
-# phase 41: (world, model extent, --sharding) of the weight-sharded trainer,
-# on BASIC-S at full width with 2 layers a tower (of 8 and 6)
-WS_GRIDS = ((2, 2, "basic_ws"), (4, 2, "basic_ws"), (2, 2, "replicated"))
-WS_ARCH = ("basic-s", "basic-s-2layers", 2)
-WS_ARGV = ["--arch", WS_ARCH[1]] + DIST_GLOO_ARGV[2:]
+# phases 41-43: (world, model extent, --sharding) of the trainer on gloo
+# ranks sharing the card: BASIC-S at full width on 1 layer a tower (of 8
+# and 6), f32, global B 256, 2 steps, and Llama-3.2-1B at full width on 1
+# of its 16 layers, b 2 x s 1024, 2 steps, at (1, 2). The script's time
+# limit keeps them this shallow: on an H100 41-43 took 461.7 s at 2
+# layers and 3 steps, and the script 1078.4 s with phase 43 alone there
+WS_GRIDS = ((2, 2, "basic_ws"), (4, 2, "basic_ws"), (2, 2, "replicated"),
+            (2, 2, "tp"), (4, 2, "tp"))
 WS_MOVED_SHARE = 1e-3          # tests/test_torch_train_distributed.py:120-131
-# phase 42: Llama-3.2-1B at full width on 2 of its 16 layers, at (1, 2)
-WS_LM_ARCH = "llama3.2-1b-2of16"
-WS_LM_ARGV = ["--arch", WS_LM_ARCH, "--batch", "2", "--seq", "1024",
+# the depth-cut configs: (base, name, layers) for register_cut_arch
+WS_ARCHS = (("basic-s", "basic-s-1layer", 1),
+            ("llama3.2-1b", "llama3.2-1b-1of16", 1))
+WS_ARGV = ["--arch", WS_ARCHS[0][1]] + DIST_GLOO_ARGV[2:-3] + [
+    "--steps", "2", "--quiet"]
+WS_LM_ARGV = ["--arch", WS_ARCHS[1][1], "--batch", "2", "--seq", "1024",
               "--attn", "pallas", "--steps", "2", "--quiet", "--lr", "3e-3"]
+# the runs of each rule: --sharding -> (contrastive argv, LM argv or None)
+WS_RUNS = {"basic_ws": (WS_ARGV, WS_LM_ARGV), "replicated": (WS_ARGV, None),
+           "tp": (WS_ARGV, WS_LM_ARGV)}
 # the cross-shard loss against the single-device fused loss: the
 # reference's own limits (tests/distributed_checks.py:79-83, :99-103), and
 # under bf16 1e-3 on the loss, 2e-2 on dX
@@ -4967,7 +4991,7 @@ def phase_dist_train_lm():
 
 
 def ws_train_worker(rank, world, argvs, archs=()):
-    """One gloo rank of phases 41-42 on the card: the trainer's ``main``
+    """One gloo rank of phases 41-43 on the card: the trainer's ``main``
     on each argv of ``argvs`` in turn (``archs``: depth-cut configs to
     register first, since a spawned rank imports this module afresh);
     returns, for each, its losses, its kernel launches in that run, and
@@ -5057,75 +5081,88 @@ def leaf_distances(got, want, init):
     return bad
 
 
-def phase_weight_sharding(base=WS_ARGV, lm_base=WS_LM_ARGV,
-                          device="cuda"):
-    """Phases 41-42: the trainer with the paper's §5.1 weight sharding on
-    gloo ranks sharing the card (untimed; two spawned worlds: one of 2
-    ranks runs the three (1, 2) runs in turn, one of 4 the (2, 2) run).
+def ws_config(argv):
+    """The config of a phase 41-43 run's ``argv`` (its ``--smoke`` variant
+    in a CPU rehearsal)."""
+    from repro_torch.launch import train_distributed as td
+    return td.arch_config(td.parse_args(argv))
 
-    Phase 41: BASIC-S at full width on 2 layers a tower (``WS_ARCH``; the
-    gloo collectives go through the host), f32, global B 256, 3 steps, at
-    (data 1, model 2) and (2, 2) under ``basic_ws`` and (1, 2) under
-    ``replicated``. Each rank's losses must match the one-rank run on the
-    same global batch within rtol 1e-4; each rank's resident params and
-    first moment are 1/M of the split leaves plus the whole ones, in
-    bytes (the optimizer state less than the whole state); the final
-    checkpoint's whole leaves match the one-rank run's within 1e-3 of the
-    change the steps made; every rank launches the flash and contrastive
-    kernels.
 
-    Phase 42: ``train_lm`` at (1, 2), Llama-3.2-1B at full width on 2 of
+def phase_weight_sharding(runs=WS_RUNS, device="cuda"):
+    """Phases 41-43: the trainer with the paper's §5.1 weight sharding and
+    with Megatron execution on gloo ranks sharing the card (untimed; two
+    spawned worlds: one of 2 ranks runs the (1, 2) runs in turn, one of 4
+    the (2, 2) runs; the gloo collectives go through the host).
+
+    Phase 41: BASIC-S at full width on 1 layer a tower (``WS_RUNS``),
+    f32, global B 256, 2 steps, at (data 1, model 2) and (2, 2) under
+    ``basic_ws`` and (1, 2) under ``replicated``. Each rank's losses must
+    match the one-rank run on the same global batch within rtol 1e-4;
+    each rank's resident params and first moment are 1/M of the split
+    leaves plus the whole ones, in bytes (the optimizer state less than
+    the whole state); the final checkpoint's whole leaves match the
+    one-rank run's within 1e-3 of the change the steps made; every rank
+    launches the flash and contrastive kernels.
+
+    Phase 42: ``train_lm`` at (1, 2), Llama-3.2-1B at full width on 1 of
     its 16 layers, f32, b 2 x s 1024, 2 steps; each rank's losses against
     the one-rank run within rtol 1e-4, its params' bytes, and every rank
     launches the flash kernels.
 
-    ``base``, ``lm_base`` and ``device`` set the runs (a CPU rehearsal
-    passes ``--smoke`` and 'cpu'). Returns (phase 41's records by grid,
-    phase 42's record)."""
+    Phase 43: the same under ``--sharding tp`` (``WS_GRIDS``' 'tp' grids),
+    contrastive and LM, with the same checks (the params' bytes
+    ``expected_bytes(cfg, grid, 'tp')``).
+
+    ``runs`` maps each rule to its (contrastive argv, LM argv or None)
+    (``WS_RUNS``; a CPU rehearsal passes ``--smoke`` ones and ``device``
+    'cpu'). Returns (the contrastive records by "<data>x<model>
+    <sharding>", the LM records by sharding)."""
     from repro_torch import checkpoint as ckpt
-    from repro_torch.configs import (get_arch, smoke_dual_variant,
-                                     smoke_variant)
     from repro_torch.launch import train_distributed as td
     from repro_torch.launch.spawn import run_world
     from repro_torch.tree import tree_leaves
-    archs = (WS_ARCH, ("llama3.2-1b", WS_LM_ARCH, 2))
-    for arch in archs:
+    for arch in WS_ARCHS:
         register_cut_arch(*arch)
-    cfg, lm_cfg = get_arch(WS_ARCH[1]), get_arch(WS_LM_ARCH)
-    if "--smoke" in base:
-        cfg, lm_cfg = smoke_dual_variant(cfg), smoke_variant(lm_cfg)
     t0 = time.perf_counter()
 
     def run(world, model, sharding):
         d = os.path.join(CKPT_ROOT, f"ws_{world // model}x{model}_{sharding}")
         shutil.rmtree(d, ignore_errors=True)
-        return d, base + ["--device", device, "--model-parallel", str(model),
-                          "--sharding", sharding, "--ckpt-dir", d]
-    runs = {(w, m, sh): run(w, m, sh) for w, m, sh in WS_GRIDS}
-    lm_argv = lm_base + ["--device", device, "--model-parallel", "2"]
+        return d, runs[sharding][0] + [
+            "--device", device, "--model-parallel", str(model),
+            "--sharding", sharding, "--ckpt-dir", d]
+    grid_runs = {(w, m, sh): run(w, m, sh) for w, m, sh in WS_GRIDS}
+    lm_shardings = [sh for sh, (_, lm) in runs.items() if lm is not None]
+    lm_argvs = [runs[sh][1] + ["--device", device, "--model-parallel", "2",
+                               "--sharding", sh] for sh in lm_shardings]
     worlds = {}
     for world in sorted({w for w, _, _ in WS_GRIDS}):
         keys = [k for k in WS_GRIDS if k[0] == world]
-        argvs = [runs[k][1] for k in keys] + ([lm_argv] if world == 2 else [])
+        argvs = [grid_runs[k][1] for k in keys] + (
+            lm_argvs if world == 2 else [])
         t_world = time.perf_counter()
         ranks = run_world(ws_train_worker, world,
-                          os.path.join(CKPT_ROOT, "rdv"), argvs, archs,
-                          timeout=900)
+                          os.path.join(CKPT_ROOT, "rdv"), argvs,
+                          WS_ARCHS, timeout=900)
         print(f"weight sharding world of {world}: "
               f"{time.perf_counter() - t_world:.1f} s", flush=True)
         for i, k in enumerate(keys):
             worlds[k] = [r[i] for r in ranks]
         if world == 2:
-            lm_ranks = [r[-1] for r in ranks]
+            lm_ranks = {sh: [r[len(keys) + i] for r in ranks]
+                        for i, sh in enumerate(lm_shardings)}
     r1, out = {}, {}
     for world, model, sharding in WS_GRIDS:
         data = world // model
-        d = runs[(world, model, sharding)][0]
+        base = runs[sharding][0]
+        cfg, steps = ws_config(base), td.parse_args(base).steps
+        d = grid_runs[(world, model, sharding)][0]
         ranks = worlds[(world, model, sharding)]
-        if data not in r1:
-            r1[data] = same_batch_r1(base + ["--device", device], data)
-        losses, init, final = r1[data]
-        got = ckpt.restore(d, 3, final, device="cpu")
+        if (data, tuple(base)) not in r1:
+            r1[(data, tuple(base))] = same_batch_r1(
+                base + ["--device", device], data)
+        losses, init, final = r1[(data, tuple(base))]
+        got = ckpt.restore(d, steps, final, device="cpu")
         bad_leaves = leaf_distances(got, final, init)
         want_p, want_m = expected_bytes(cfg, (data, model), sharding)
         whole_state = sum(x.numel() * x.element_size() for x in tree_leaves(
@@ -5140,8 +5177,8 @@ def phase_weight_sharding(base=WS_ARGV, lm_base=WS_LM_ARGV,
                     "first_moment_bytes": want_m,
                     "whole_state_bytes": whole_state,
                     "checkpoint_leaves_off": bad_leaves}
-        print(f"weight sharding {key} (BASIC-S 2 layers a tower f32, "
-              f"B=256): losses per rank {out[key]['losses']}, R=1 on the "
+        print(f"weight sharding {key} ({cfg.name} f32, B=256, {steps} "
+              f"steps): losses per rank {out[key]['losses']}, R=1 on the "
               f"same batch {losses}; params bytes per rank "
               f"{out[key]['params_bytes']} (expected {want_p}); optimizer "
               f"state bytes per rank {out[key]['state_bytes']} (first "
@@ -5150,7 +5187,7 @@ def phase_weight_sharding(base=WS_ARGV, lm_base=WS_LM_ARGV,
               f"launches per rank {out[key]['launches']}", flush=True)
         shutil.rmtree(d)
         for r in ranks:
-            split = sharding == "basic_ws"
+            split = sharding != "replicated"
             if len(r["losses"]) != len(losses) or any(
                     abs(a - b) > DIST_RESUME_RTOL * abs(b)
                     for a, b in zip(r["losses"], losses)) or \
@@ -5159,25 +5196,33 @@ def phase_weight_sharding(base=WS_ARGV, lm_base=WS_LM_ARGV,
                     not (want_m < r["state_bytes"] <= whole_state) or \
                     split != (r["state_bytes"] < whole_state):
                 raise AssertionError(f"weight sharding {key}: {out[key]}")
-    lm_r1 = td.main(lm_base + ["--device", device])
-    want_p, _ = expected_bytes(lm_cfg, (1, 2), "basic_ws")
-    lm = {"losses": [r["losses"] for r in lm_ranks], "r1_losses": lm_r1,
-          "launches": [{k: v for k, v in r["launches"].items()
-                        if k in {c.name for c in lm_counters()}}
-                       for r in lm_ranks],
-          "params_bytes": [r["params_bytes"] for r in lm_ranks],
-          "expected_params_bytes": want_p}
-    print(f"weight sharding train_lm 1x2 (Llama-3.2-1B 2 of 16 layers f32, "
-          f"b 2 x s 1024): losses per rank {lm['losses']}, R=1 {lm_r1}; "
-          f"params bytes per rank {lm['params_bytes']} (expected {want_p}); "
-          f"launches per rank {lm['launches']}", flush=True)
-    for r, launches in zip(lm_ranks, lm["launches"]):
-        if any(abs(a - b) > DIST_RESUME_RTOL * abs(b)
-               for a, b in zip(r["losses"], lm_r1)) or \
-                len(r["losses"]) != len(lm_r1) or \
-                min(launches.values()) < 1 or r["params_bytes"] != want_p:
-            raise AssertionError(f"weight sharding train_lm: {lm}")
-    print(f"weight sharding phases 41-42: {time.perf_counter() - t0:.1f} s "
+    lm, lm_r1s = {}, {}
+    for sh, sh_ranks in lm_ranks.items():
+        argv = tuple(runs[sh][1])
+        if argv not in lm_r1s:
+            lm_r1s[argv] = td.main(list(argv) + ["--device", device])
+        lm_r1 = lm_r1s[argv]
+        lm_cfg = ws_config(runs[sh][1])
+        want_p, _ = expected_bytes(lm_cfg, (1, 2), sh)
+        rec = lm[sh] = {
+            "losses": [r["losses"] for r in sh_ranks], "r1_losses": lm_r1,
+            "launches": [{k: v for k, v in r["launches"].items()
+                          if k in {c.name for c in lm_counters()}}
+                         for r in sh_ranks],
+            "params_bytes": [r["params_bytes"] for r in sh_ranks],
+            "expected_params_bytes": want_p}
+        print(f"weight sharding train_lm 1x2 {sh} ({lm_cfg.name} f32, b 2 x "
+              f"s 1024): losses per rank {rec['losses']}, R=1 {lm_r1}; "
+              f"params bytes per rank {rec['params_bytes']} (expected "
+              f"{want_p}); launches per rank {rec['launches']}", flush=True)
+        for r, launches in zip(sh_ranks, rec["launches"]):
+            if any(abs(a - b) > DIST_RESUME_RTOL * abs(b)
+                   for a, b in zip(r["losses"], lm_r1)) or \
+                    len(r["losses"]) != len(lm_r1) or \
+                    min(launches.values()) < 1 or \
+                    r["params_bytes"] != want_p:
+                raise AssertionError(f"weight sharding train_lm {sh}: {rec}")
+    print(f"weight sharding phases 41-43: {time.perf_counter() - t0:.1f} s "
           f"(untimed)", flush=True)
     return out, lm
 
@@ -5374,11 +5419,16 @@ def main() -> int:
                    lc[name] for lc in dist_gloo["launches"]],
                "weight_sharding_launches_per_rank": {
                    k: [lc[name] for lc in r["launches"]]
-                   for k, r in ws.items()}}
+                   for k, r in ws.items() if not k.endswith(" tp")},
+               "tensor_parallel_launches_per_rank": {
+                   k: [lc[name] for lc in r["launches"]]
+                   for k, r in ws.items() if k.endswith(" tp")}}
         if i is None:
+            out["tensor_parallel_launches_per_rank"]["lm 1x2 tp"] = [
+                lc[name] for lc in ws_lm["tp"]["launches"]]
             return {**out, "dist_lm_launches": dist_lm["launches"][name],
                     "weight_sharding_lm_launches_per_rank": [
-                        lc[name] for lc in ws_lm["launches"]]}
+                        lc[name] for lc in ws_lm["basic_ws"]["launches"]]}
         return {**out, "chunk": [{k: r[i][k] for k in ("shape", *timing)}
                                  for r in chunk.values()],
                 "cross_shard_launches_per_rank": {

@@ -6,6 +6,12 @@
     torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
         --arch basic-l --model-parallel 2,4 --batch 4096 --steps 3 \\
         --remat full --f32-batch 256      # paper §5.1 weight sharding
+    torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
+        --arch basic-l --model-parallel 2,4 --sharding basic_ws,tp \\
+        --batch 4096 --steps 3 --remat full --f32-batch 256
+    torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
+        --objective lm --arch mixtral-8x22b --layers 1 --model-parallel 4 \\
+        --sharding tp --batch 1 --seq 4096 --steps 4   # expert parallelism
 
 ``chip_smoke.py`` runs several ranks on one card over gloo; this script
 runs the path that exists only across cards: one rank a card, the NCCL
@@ -23,18 +29,27 @@ branch of ``launch/mesh.py`` (``all_gather_into_tensor``,
 2. runs ``repro_torch.launch.train_distributed.main`` (``--arch``, global
    ``--batch`` in 8 microbatches a rank, the chunked loss,
    flash attention, bf16, ``--remat``, ``--steps``) once for each model
-   extent M of ``--model-parallel`` (a comma list; the ranks form a
-   (R / M, M) grid under ``--sharding basic_ws``): every rank's losses
-   equal, and rank 0 prints, per grid, the runlog's warm step median,
-   pairs/s and the data-wait / device-step / ckpt-stall split, and each
-   rank's peak memory (counted from after the whole init tree is freed)
-   and the bytes of its resident params and optimizer state
-   (``build_state`` on the same mesh, measured, then freed);
+   extent M of ``--model-parallel`` and each rule of ``--sharding`` (comma
+   lists; the ranks form a (R / M, M) grid; under ``tp`` the M ranks of a
+   data shard share its block): every rank's losses equal, and rank 0
+   prints, per grid, the runlog's warm step median, pairs/s and the
+   data-wait / device-step / ckpt-stall split, and each rank's peak memory
+   (counted from after the whole init tree is freed), its launches of the
+   flash and contrastive kernels in the run, and the bytes of its
+   resident params and optimizer state (``build_state`` on the same mesh,
+   measured, then freed);
 3. with ``--f32-batch N``: the same grids in f32 at global batch N for 3
-   steps, each trainer run held against the next grid's step (another
-   model extent) on the same global batch (the loader's layout of R / M
+   steps, a ``basic_ws`` run held against the next grid's step (another
+   model extent), a ``tp`` run against the ``basic_ws`` step of its own
+   grid, each on the same global batch (the loader's layout of R / M
    blocks), losses within rtol 1e-4. (BASIC-L's whole f32 training state
    does not fit one 80 GB card, so one card alone is no reference there.)
+
+With ``--objective lm`` step 1 is skipped and step 2 runs ``train_lm``
+(f32, flash attention, capacity dispatch for a MoE model) on ``--arch``
+cut to its first ``--layers`` layers at full width, global ``--batch`` ×
+``--seq`` tokens, printing the warm step median, tokens/s and the peak
+memory and bytes of each rank.
 
 Rank 0 prints the card's name and power limit first and one ``PROBE
 {json}`` line last; it exits non-zero when a check fails.
@@ -149,13 +164,10 @@ def state_bytes(targs, device, mesh):
     trainer's ``build_state`` places them on ``mesh`` (measured on the
     tensors, then freed)."""
     import torch
-    from repro_torch.configs import get_arch, smoke_dual_variant
     from repro_torch.launch import steps as st
     from repro_torch.launch import train_distributed as td
     from repro_torch.tree import tree_leaves
-    cfg = get_arch(targs.arch)
-    if targs.smoke:
-        cfg = smoke_dual_variant(cfg)
+    cfg = td.arch_config(targs)
     trees = td.build_state(cfg, st.make_optimizer(), targs.seed, device,
                            mesh, targs.sharding)
     out = [sum(x.numel() * x.element_size() for x in tree_leaves(t))
@@ -166,21 +178,31 @@ def state_bytes(targs, device, mesh):
     return out
 
 
+def cut_arch(base, layers):
+    """The name of ``base`` cut to its first ``layers`` layers at full
+    width (``chip_smoke.register_cut_arch``), registered; ``base`` itself
+    when ``layers`` is 0."""
+    if not layers:
+        return base
+    sys.path.insert(0, ROOT)
+    from chip_smoke import register_cut_arch
+    name = f"{base}-{layers}layers"
+    register_cut_arch(base, name, layers)
+    return name
+
+
 def grid_losses(argv, n_hosts, device):
     """The trainer's state and step on the grid of ``argv``'s
     ``--model-parallel`` over the global batches of the loader's layout
     of ``n_hosts`` blocks (rank r takes rows block r of the ranks',
     ``device_put_global``), which need not be the grid's own; returns the
     per-step losses. Every rank of the world calls it."""
-    from repro_torch.configs import get_arch, smoke_dual_variant
     from repro_torch.data.sharded import HostLayout, device_put_global
     from repro_torch.launch import steps as st
     from repro_torch.launch import train_distributed as td
     args = td.parse_args(argv)
     _, mesh = td.setup(args)
-    cfg = get_arch(args.arch)
-    if args.smoke:
-        cfg = smoke_dual_variant(cfg)
+    cfg = td.arch_config(args)
     step_fn, opt = st.make_contrastive_step(
         cfg, num_micro=args.num_micro, remat=args.remat,
         precision=args.precision, attn=args.attn, lr=args.lr, mesh=mesh,
@@ -221,10 +243,18 @@ def main(argv=None) -> int:
                     help="the trainer's global batch")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--arch", default="basic-s",
-                    choices=["basic-s", "basic-m", "basic-l"])
+    ap.add_argument("--arch", default="basic-s")
+    ap.add_argument("--objective", default="contrastive",
+                    choices=["contrastive", "lm"])
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut --arch to its first N layers (0: all)")
+    ap.add_argument("--seq", type=int, default=16,
+                    help="caption length (contrastive) / sequence (lm)")
     ap.add_argument("--model-parallel", default="1",
                     help="comma list of model extents, one trainer run each")
+    ap.add_argument("--sharding", default="basic_ws",
+                    help="comma list of rules (basic_ws, tp), one trainer "
+                         "run each per model extent")
     ap.add_argument("--remat", default="basic")
     ap.add_argument("--f32-batch", type=int, default=0,
                     help="global batch of step 3's f32 check (0: skip)")
@@ -253,21 +283,31 @@ def main(argv=None) -> int:
             mesh.barrier()
             for lib in libs:
                 lib.lib()
-        b_local = 16 if args.smoke else args.b_local
-        losses = loss_checks(mesh, device, b_local, args.iters)
+        from repro_torch.kernels.contrastive_loss import ops as cl_ops
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        counters = (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
+                    cl_ops.BWD_COUNTER)
+        lm = args.objective == "lm"
+        losses = {} if lm else loss_checks(
+            mesh, device, 16 if args.smoke else args.b_local, args.iters)
         checks = [None] * mesh.ranks
         dist.all_gather_object(checks, losses)
-        batch = 64 if args.smoke else args.batch
-        base = ["--arch", args.arch, "--num-micro", "8",
-                "--loss", "chunked", "--attn", "pallas", "--quiet", "--seq",
-                "16", "--remat", args.remat, "--sharding", "basic_ws"]
+        batch = 64 if args.smoke and not lm else args.batch
+        arch = cut_arch(args.arch, args.layers)
+        base = ["--arch", arch, "--attn", "pallas", "--quiet", "--seq",
+                str(args.seq), "--objective", args.objective, "--remat",
+                args.remat]
+        base += (["--precision", "f32"] if lm else
+                 ["--num-micro", "8", "--loss", "chunked"])
         base += ["--smoke", "--device", "cpu"] if args.smoke else []
         models = [int(m) for m in args.model_parallel.split(",")]
+        shardings = args.sharding.split(",")
         run_dir = os.path.join(ROOT, "build", "train_distributed_probe")
         grids = []
-        for model in models:
+        for model, sharding in ((m, sh) for m in models for sh in shardings):
             argv_t = base + ["--batch", str(batch), "--steps",
-                             str(args.steps), "--model-parallel", str(model)]
+                             str(args.steps), "--model-parallel", str(model),
+                             "--sharding", sharding]
             targs = td.parse_args(argv_t)
             _, gmesh = td.setup(targs)
             nbytes = state_bytes(targs, device, gmesh)
@@ -275,6 +315,8 @@ def main(argv=None) -> int:
                 shutil.rmtree(run_dir, ignore_errors=True)
             if on_card:
                 torch.cuda.reset_peak_memory_stats(device)
+            for c in counters:
+                c.reset()
             t0 = time.perf_counter()
             steps = td.main(argv_t + (["--run-dir", run_dir]
                                       if rank == 0 else []))
@@ -282,39 +324,51 @@ def main(argv=None) -> int:
             peak = torch.cuda.max_memory_allocated(device) if on_card \
                 else None
             everyone = [None] * mesh.ranks
-            dist.all_gather_object(everyone, {"losses": steps, "peak": peak,
-                                              "bytes": nbytes})
+            dist.all_gather_object(everyone, {
+                "losses": steps, "peak": peak, "bytes": nbytes,
+                "launches": {c.name: c.count for c in counters}})
             rec = {"grid": [mesh.ranks // model, model],
-                   "losses": everyone[0]["losses"],
+                   "sharding": sharding, "losses": everyone[0]["losses"],
                    "losses_equal": all(e["losses"] == everyone[0]["losses"]
                                        for e in everyone),
                    "wall_s": wall,
                    "peak_gib": [e["peak"] / 2**30 if e["peak"] else None
                                 for e in everyone],
+                   "launches": [e["launches"] for e in everyone],
                    "params_bytes": [e["bytes"][0] for e in everyone],
                    "state_bytes": [e["bytes"][1] for e in everyone]}
             if rank == 0:
                 warm, split = run_split(run_dir)
-                rec.update(warm_step_median_s=warm,
-                           pairs_per_s=batch / warm, split=split)
-                print(f"grid {rec['grid']}: {json.dumps(rec)}", flush=True)
+                rec.update(warm_step_median_s=warm, split=split)
+                if lm:
+                    rec["tokens_per_s"] = batch * args.seq / warm
+                else:
+                    rec["pairs_per_s"] = batch / warm
+                print(f"grid {rec['grid']} {sharding}: {json.dumps(rec)}",
+                      flush=True)
             grids.append(rec)
             if on_card:
                 torch.cuda.empty_cache()
         f32 = []
-        if args.f32_batch:
-            # each grid's trainer run against the next grid's step on the
-            # same global batch (the loader's layout of R / M blocks)
+        if args.f32_batch and not lm:
+            # a basic_ws run against the next grid's step, a tp run against
+            # the basic_ws step of its grid, on the same global batch (the
+            # loader's layout of R / M blocks)
             f32_argv = base + ["--batch", str(args.f32_batch), "--steps", "3",
                                "--precision", "f32"]
-            for i, model in enumerate(models):
-                other = models[(i + 1) % len(models)]
+            for i, (model, sharding) in enumerate(
+                    (m, sh) for m in models for sh in shardings):
+                other = models[(models.index(model) + 1) % len(models)] \
+                    if sharding == "basic_ws" else model
                 rec = {"grid": [mesh.ranks // model, model],
+                       "sharding": sharding,
                        "losses": td.main(f32_argv + [
-                           "--model-parallel", str(model)]),
+                           "--model-parallel", str(model), "--sharding",
+                           sharding]),
                        "against_grid": [mesh.ranks // other, other],
                        "against_losses": grid_losses(
-                           f32_argv + ["--model-parallel", str(other)],
+                           f32_argv + ["--model-parallel", str(other),
+                                       "--sharding", "basic_ws"],
                            mesh.ranks // model, device)}
                 rec["max_rel_err"] = max(
                     abs(a - b) / abs(b) for a, b in
@@ -331,7 +385,7 @@ def main(argv=None) -> int:
             all(r["ok"] for r in f32)
         report = {
             "ranks": mesh.ranks, "backend": mesh.backend,
-            "card": card_line(), "ok": ok, "arch": args.arch,
+            "card": card_line(), "ok": ok, "arch": arch,
             "loss": {f"{k[0]} {k[1]}": {
                 "ms_rank0": losses[k]["ms"],
                 **({} if k[1] == "single" else {

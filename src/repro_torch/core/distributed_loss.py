@@ -45,6 +45,10 @@ does on a data extent of 1. The ranks are the mesh's batch group
 the global batch is split over all of them, paper §5.1): R, the rank's
 index and the collectives are the group's, so ``b_norm`` is the global
 batch and the diagonal falls in the chunk of the rank's place in it.
+Under ``tp`` the M ranks of a model group hold the same block, and the
+loss runs over the data group instead (``mesh.data``, an
+``launch.mesh.Axis``, which answers to the same names; the trainer's
+``launch.steps.batch_group``), so no rank's rows are taken M times.
 """
 from __future__ import annotations
 

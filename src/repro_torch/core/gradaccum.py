@@ -21,7 +21,11 @@ Under the paper's §5.1 weight sharding the params are this rank's parts
 as they use them: both passes run on the sharded tree, and pass 2's
 backward reduce-scatters each layer's whole gradient as soon as that
 layer is done, so the gradients accumulate in part form and a rank holds
-a whole gradient only for the layer being reduce-scattered.
+a whole gradient only for the layer being reduce-scattered. Under
+Megatron execution (``core.tensor_parallel``) both passes, and pass 2's
+backward, issue the model group's all-reduces; the M ranks of a group
+hold the same block and run its microbatches in the same order, so their
+collectives pair up.
 
 ``microbatch_grads`` is the streaming form (the paper's "Yields" line): it
 returns the per-microbatch gradient stream c_1..c_K that

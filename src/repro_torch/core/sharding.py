@@ -26,10 +26,11 @@ optimizer state by ``params_specs`` (a leaf split over 'model' is kept
 as 1/M on each rank of the model axis and gathered on use by
 ``core.weight_sharding``) and its LM batch by ``batch_specs`` over
 ('data', 'model'), strictly: a batch that does not divide over every
-rank raises instead of being replicated over the model axis. ``tp``
-executes only with a model axis of 1 (Megatron execution comes with its
-own slice of the port); its rules are here, tested against the
-reference's.
+rank raises instead of being replicated over the model axis. Under
+``tp`` the same placement is executed Megatron-style
+(``core.tensor_parallel``: the models compute with the parts, and the
+batch is split over the data axes only); its rules are here, tested
+against the reference's.
 """
 from __future__ import annotations
 

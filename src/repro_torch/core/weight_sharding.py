@@ -22,7 +22,10 @@ tree can be freed), ``whole_like`` the whole shapes of a tree of parts as
 checkpoint's save), ``sum_grads`` the step's gradient sum over the ranks
 and ``sq_norm`` the squared norm of a tree whose split leaves are parts.
 Every function takes ``layout=None`` for a tree of whole leaves and then
-does nothing.
+does nothing. A layout of mode 'tp' places the leaves the same way, but
+the models do not gather them (``core.tensor_parallel``); ``cut``,
+``whole_like``, ``gather_leaf``, ``sq_norm`` and the optimizer's parts
+serve both rules.
 """
 from __future__ import annotations
 
@@ -39,13 +42,17 @@ class Layout:
     """Where a tree's leaves live over the model axis: ``dims`` is a tree
     with the params' structure holding, per leaf, the dim split over
     ``axis`` (an int) or None; ``axis`` is the model axis
-    (``launch.mesh.Axis``). ``layout[key]`` is the layout of a subtree."""
+    (``launch.mesh.Axis``); ``mode`` the rule that placed them:
+    'basic_ws' (the models gather the parts on use, this module) or 'tp'
+    (the models compute with the parts as they lie,
+    ``core.tensor_parallel``). ``layout[key]`` is the layout of a
+    subtree."""
 
-    def __init__(self, dims, axis):
-        self.dims, self.axis = dims, axis
+    def __init__(self, dims, axis, mode: str = "basic_ws"):
+        self.dims, self.axis, self.mode = dims, axis, mode
 
     def __getitem__(self, key) -> "Layout":
-        return Layout(self.dims[key], self.axis)
+        return Layout(self.dims[key], self.axis, self.mode)
 
     @property
     def flat_dims(self) -> list:
@@ -53,11 +60,11 @@ class Layout:
         return tree_leaves(self.dims)
 
 
-def from_specs(specs, mesh) -> Optional[Layout]:
+def from_specs(specs, mesh, mode: str = "basic_ws") -> Optional[Layout]:
     """The layout of a params tree placed by ``core.sharding.params_specs``
-    on ``mesh``: each leaf's dim whose spec names the model axis. None
-    when the model axis has one rank or no leaf is split (every leaf is
-    then whole on every rank)."""
+    on ``mesh`` under the rule ``mode``: each leaf's dim whose spec names
+    the model axis. None when the model axis has one rank or no leaf is
+    split (every leaf is then whole on every rank)."""
     def dim_of(spec):
         for d, part in enumerate(spec):
             names = part if isinstance(part, tuple) else (part,)
@@ -67,7 +74,7 @@ def from_specs(specs, mesh) -> Optional[Layout]:
     dims = _map_specs(dim_of, specs)
     if mesh.model_size == 1 or all(d is None for d in tree_leaves(dims)):
         return None
-    return Layout(dims, mesh.model)
+    return Layout(dims, mesh.model, mode)
 
 
 def _map_specs(fn, specs):
@@ -93,7 +100,7 @@ def layer(layout: Optional[Layout]) -> Optional[Layout]:
     if layout is None:
         return None
     return Layout(tree_map(lambda d: None if d is None else d - 1,
-                           layout.dims), layout.axis)
+                           layout.dims), layout.axis, layout.mode)
 
 
 class _Gather(torch.autograd.Function):
@@ -178,9 +185,14 @@ def whole_like(tree, layout: Optional[Layout]):
 def sum_grads(grads, mesh, layout: Optional[Layout]):
     """The step's gradients summed over every rank of ``mesh``: a split
     leaf's part (already summed over its model group by ``_Gather``'s
-    backward) over the data axis, a whole leaf over the batch group."""
+    backward) over the data axis, a whole leaf over the batch group.
+    Under ``tp`` the M ranks of a model group ran the same examples: a
+    part's gradient is complete on its rank and a whole leaf's is the same
+    on the M ranks, so every leaf is summed over the data axis alone."""
     if layout is None:
         return all_reduce_tree(grads, mesh)
+    if layout.mode == "tp":
+        return all_reduce_tree(grads, mesh.data)
     flat, dims = tree_leaves(grads), layout.flat_dims
     split = [i for i, d in enumerate(dims) if d is not None]
     whole = [i for i, d in enumerate(dims) if d is None]

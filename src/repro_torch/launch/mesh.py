@@ -19,7 +19,14 @@ its collectives (``all_gather``, ``all_reduce``, ``reduce_scatter``,
                   its gradient summed over them;
   ``mesh.model``  the ranks of this rank's data index: a weight split over
                   the model axis is gathered, and its gradient
-                  reduce-scattered, over them (``core.weight_sharding``).
+                  reduce-scattered, over them (``core.weight_sharding``);
+                  under ``tp`` its ranks run the same examples and
+                  all-reduce activations (``core.tensor_parallel``).
+
+Under ``tp`` the global batch is split over the data group alone, so
+that group takes the batch group's part: an ``Axis`` answers to
+``ranks`` and ``rank`` as a mesh does, and the cross-shard loss runs over
+``mesh.data``.
 
 The mesh's own collectives are the batch group's. An axis of one rank (or
 a mesh without a process group) runs no collective: its operations are
@@ -55,6 +62,18 @@ class Axis:
 
     def __init__(self, group=None, size: int = 1, index: int = 0):
         self.group, self.size, self.index = group, int(size), int(index)
+
+    @property
+    def ranks(self) -> int:
+        """``size``, under the name a ``Mesh`` gives its batch group's
+        extent: an axis is a group the cross-shard loss can run over
+        (``core.distributed_loss``; the data group under ``tp``)."""
+        return self.size
+
+    @property
+    def rank(self) -> int:
+        """``index``, under the name a ``Mesh`` gives it."""
+        return self.index
 
     @property
     def distributed(self) -> bool:

@@ -21,7 +21,10 @@ over the ranks before the update. With a weight-sharding ``layout``
 (``core.weight_sharding``, paper §5.1) the params and the optimizer slots
 are this rank's parts, the models gather them on use, and a split leaf's
 gradient arrives as a part summed over its model group and is then summed
-over the data axis; a whole leaf's is summed over every rank.
+over the data axis; a whole leaf's is summed over every rank. Under a
+'tp' layout (Megatron execution, ``core.tensor_parallel``) the models
+compute with the parts, the batch is split over the data axis only, and
+every gradient is summed over the data axis.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core import remat as remat_lib
 from repro_torch.core import distributed_loss as dist_loss
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.core import weight_sharding as ws
 from repro_torch.core.contrastive import contrastive_loss, fused_kernel_loss
 from repro_torch.core.gradaccum import contrastive_step as ga_step
@@ -64,6 +68,15 @@ def abstract_opt_state(cfg: ArchConfig, opt: AdaFactorW, params_abs):
     return opt.init(params_abs)
 
 
+def batch_group(mesh, layout=None):
+    """The ranks the global batch is split over: every rank of ``mesh``,
+    or under a 'tp' layout (``core.tensor_parallel``) the data group, as
+    the M ranks of a model group run the same examples. Either answers
+    to ``ranks``, ``rank`` and the collectives the cross-shard loss
+    uses."""
+    return mesh.data if tp.active(layout) else mesh
+
+
 def value_and_grad(loss_fn, params):
     """(loss, metrics, gradients) of ``loss_fn(params) -> (loss,
     metrics)``: fresh leaves share the params' storage, so the backward
@@ -87,7 +100,8 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
     (``launch.mesh``; the distributed trainer's) ``batch`` is the rank's
     block of the global batch: the gradients and the loss are averaged
     over all its ranks (``weight_sharding.sum_grads``, then a division by
-    the rank count) and ``metrics`` gains the global gradient norm
+    the rank count; under a 'tp' layout over the data shards, whose model
+    ranks share a block) and ``metrics`` gains the global gradient norm
     ``grad_norm``. ``layout``: the params' weight-sharding layout when
     they are this rank's parts. Returns train_step(params, opt_state,
     batch) -> (params, opt_state, loss, metrics)."""
@@ -98,10 +112,11 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
                                  moe_args=moe_args, layout=layout), params)
         if mesh is not None:
             if mesh.distributed:
-                n = mesh.ranks
+                group = batch_group(mesh, layout)
+                n = group.ranks
                 grads = tree_map(lambda g: g / n,
                                  ws.sum_grads(grads, mesh, layout))
-                loss = mesh.all_reduce(loss) / n
+                loss = group.all_reduce(loss) / n
             with torch.no_grad():
                 metrics = dict(metrics, grad_norm=torch.sqrt(
                     ws.sq_norm(grads, layout)))
@@ -211,8 +226,13 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
     data shards they are refused: they would train on each shard's block
     alone. ``layout``: the params' weight-sharding layout when they are
     this rank's parts (the towers gather them on use, the update works on
-    parts). ``lr`` is a float or a schedule of the step count
-    (``opt_state.step`` before the update).
+    parts). Under a 'tp' layout (``core.tensor_parallel``) the towers
+    compute with their parts, the M ranks of a model group hold their
+    data shard's whole block, and the batch group is the data group
+    (``batch_group``): 'local' and 'fused' at a data extent of 1 run as
+    they are, 'allgather' and 'chunked' over the data shards, and the
+    gradients are summed over the data axis. ``lr`` is a float or a
+    schedule of the step count (``opt_state.step`` before the update).
 
     ``freeze_image=True`` is phase 2 of the recipe: the image tower's
     gradients are zeroed before the update, as the reference does
@@ -231,20 +251,21 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
 
     Returns (train_step, opt); train_step(params, opt_state, batch) ->
     (params, opt_state, loss, metrics)."""
+    group = None if mesh is None else batch_group(mesh, layout)
     if loss in LOSSES:
-        if mesh is not None and mesh.distributed:
+        if group is not None and group.distributed:
             if mesh.data_size > 1:
                 raise ValueError(
                     f"loss={loss!r} trains on one device's batch; across "
                     f"{mesh.data_size} data shards use one of "
                     f"{DISTRIBUTED_LOSSES}")
-            loss_fn = dist_loss.make_global_loss_fn(mesh, "allgather")
+            loss_fn = dist_loss.make_global_loss_fn(group, "allgather")
         else:
             loss_fn = LOSSES[loss]
     elif loss in DISTRIBUTED_LOSSES:
         if mesh is None:
             raise ValueError(f"loss={loss!r} needs a mesh")
-        loss_fn = dist_loss.make_global_loss_fn(mesh, loss)
+        loss_fn = dist_loss.make_global_loss_fn(group, loss)
     else:
         raise ValueError(f"unknown loss {loss!r}; have "
                          f"{sorted(LOSSES) + list(DISTRIBUTED_LOSSES)}")

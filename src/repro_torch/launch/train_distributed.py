@@ -16,16 +16,26 @@ under ``replicated``, or with M = 1, every rank holds the whole model.
 The step's gradients are summed over the ranks (a split leaf's part over
 its model group by the gather's backward, then over the data axis; a
 whole leaf over every rank), so every rank takes the same update.
-``--sharding tp`` (Megatron execution) runs at M = 1 only. Two
-objectives share the loop (``--objective auto`` picks by arch):
+Under ``--sharding tp`` with M > 1 (Megatron execution,
+``core.tensor_parallel``) each rank keeps the same 1/M of the rule's
+split leaves but computes with them as they lie: the M ranks of a model
+group run their data shard's whole block, column- and row-split
+attention and FFN with one all-reduce per sub-block, the MoE experts by
+expert parallelism, the embedding and the LM loss vocab-parallel; the
+global batch is split over the D data shards only, and every gradient is
+summed over the data axis. A model whose heads or ff dim do not divide
+by M is refused (ValueError), and so are the SSM and hybrid families
+(NotImplementedError; their own slice). Two objectives share the loop
+(``--objective auto`` picks by arch):
 
   lm           — next-token loss of a decoder LM; every rank draws the
                  global batch of step i from ``host_rng(seed, 0, i)`` and
                  trains on its rows (``batch_specs`` over (data, model),
-                 strictly: the batch must divide over every rank); the
-                 loss and the gradients are the means over the ranks'
-                 equal blocks; a MoE model's capacity groups must fall on
-                 a rank's rows as on the whole batch
+                 or over (data,) under ``tp``, strictly: the batch must
+                 divide over those ranks); the loss and the gradients are
+                 the means over the ranks' equal blocks; a MoE model's
+                 capacity groups must fall on a rank's rows as on the
+                 whole batch
   contrastive  — the paper's dual-encoder objective: Algorithm-1
                  GradAccum (``--num-micro``, over each rank's block) with
                  the cross-shard global-batch loss (``--loss allgather`` or
@@ -44,10 +54,11 @@ The contrastive input is the sharded data subsystem (``data.sharded``):
 the versioned tokenizer artifact (``--tokenizer v1``), one block of the
 global batch per data shard (the M ranks of data shard d draw block d
 from ``host_rng(seed, d, step)``, the same bytes as the reference's block
-d, and keep sub-block r % M of it), optional ``--augment on``, read
-through the loader's cursor stream (``ShardedLoader.stream``), and the
-loader's state (the reference's layout of D blocks) in every checkpoint's
-meta, so a resumed run replays the exact batch sequence. The ``%8``
+d, and keep sub-block r % M of it, or under ``tp`` all of it), optional
+``--augment on``, read through the loader's cursor stream
+(``ShardedLoader.stream``), and the loader's state (the reference's
+layout of D blocks) in every checkpoint's meta, so a resumed run replays
+the exact batch sequence. The ``%8``
 per-shard batch rule of the reference (its TPU kernel's tiling) does not
 apply; each rank's block must divide into ``--num-micro`` microbatches.
 
@@ -58,6 +69,8 @@ apply; each rank's block must divide into ``--num-micro`` microbatches.
         --arch basic-s --batch 8192 --num-micro 8 --loss chunked ...
     torchrun --nproc-per-node 4 -m repro_torch.launch.train_distributed \\
         --arch basic-l --model-parallel 4 --sharding basic_ws ...
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train_distributed \\
+        --arch basic-l --model-parallel 2 --sharding tp ...
     python -m repro_torch.launch.train_distributed --arch llama3.2-1b \\
         --smoke --device cpu --steps 4 --batch 4 --seq 64
 
@@ -109,6 +122,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.configs import (ArchConfig, get_arch, smoke_dual_variant,
                                  smoke_variant)
 from repro_torch.core import sharding as shd
+from repro_torch.core import tensor_parallel as tpl
 from repro_torch.core import weight_sharding as ws
 from repro_torch.core.remat import get_policy, list_policies
 from repro_torch.data.pipeline import Prefetcher, host_rng
@@ -128,20 +142,16 @@ from repro_torch.optim import AdaFactorW, warmup_cosine
 from repro_torch.tree import tree_leaves, tree_map, unflatten
 
 
-_TP_LATER = ("--sharding tp at --model-parallel {model}: Megatron execution "
-             "(column and row splits, one all-reduce per block, expert "
-             "parallelism) comes with the tensor-parallel slice of the port; "
-             "basic_ws and replicated run at any model extent")
-
-
 def param_layout(cfg, mesh, sharding: str = "basic_ws"):
     """The ``core.weight_sharding`` layout of ``cfg``'s params on ``mesh``
     under the ``sharding`` rule (``core.sharding.params_specs``), or None
     when every leaf stays whole (one model rank, or ``replicated``).
-    ``tp`` with a model axis above 1 raises NotImplementedError."""
-    if sharding == "tp" and mesh.model_size > 1:
-        raise NotImplementedError(_TP_LATER.format(model=mesh.model_size))
+    Under ``tp`` a layout of mode 'tp' (``core.tensor_parallel.layout``,
+    which refuses heads or ff dims that do not divide, and the SSM and
+    hybrid families)."""
     like = init_params(cfg, torch.Generator(), "meta")
+    if sharding == "tp":
+        return tpl.layout(cfg, like, mesh)
     return ws.from_specs(shd.params_specs(like, mesh, sharding), mesh)
 
 
@@ -211,7 +221,8 @@ def _make_obs(args, resumed_from, mesh):
                 "objective": getattr(args, "objective", "auto"),
                 "batch": args.batch, "steps": args.steps, "seed": args.seed,
                 "ranks": mesh.ranks, "data": mesh.data_size,
-                "model": mesh.model_size}
+                "model": mesh.model_size,
+                "sharding": getattr(args, "sharding", "basic_ws")}
         runlog = obs_runlog.RunLogger(os.path.join(run_dir, "runlog.jsonl"),
                                       meta=meta,
                                       resumed_from=resumed_from or None)
@@ -389,11 +400,23 @@ def _restore(args, params, opt_state, mesh, device, layout=None,
     return params, opt_state, start
 
 
+def arch_config(args):
+    """The run's config: ``--arch``, its ``--smoke`` variant."""
+    cfg = get_arch(args.arch)
+    if getattr(args, "smoke", False):
+        cfg = (smoke_variant(cfg) if isinstance(cfg, ArchConfig)
+               else smoke_dual_variant(cfg))
+    return cfg
+
+
 def setup(args):
     """(device, mesh) of a run: the card ``cuda:LOCAL_RANK`` (modulo the
     cards present, so ranks may share one) unless ``--device cpu``, and
     the (data, model) mesh of the live ranks (``--model-parallel``; a
-    world that does not divide by it raises ValueError)."""
+    world that does not divide by it raises ValueError). Under ``--sharding
+    tp`` the model is checked first (``tensor_parallel.check``): heads or
+    an ff dim that do not divide by M raise ValueError, the SSM and hybrid
+    families NotImplementedError."""
     for flag, what in (("memstats", "--memstats: the compiled memory "
                         "report (launch/memstats.py) comes with the port's "
                         "tooling slice"),
@@ -405,10 +428,10 @@ def setup(args):
         value = getattr(args, flag, None)
         if value is not None and value is not False:
             raise NotImplementedError(what)
-    device = resolve_device(getattr(args, "device", None))
     model = getattr(args, "model_parallel", 1)
-    if getattr(args, "sharding", "basic_ws") == "tp" and model > 1:
-        raise NotImplementedError(_TP_LATER.format(model=model))
+    if getattr(args, "sharding", "basic_ws") == "tp":
+        tpl.check(arch_config(args), model)
+    device = resolve_device(getattr(args, "device", None))
     mesh = make_local_mesh(model=model)
     if device.type == "cuda" and device.index is None:
         local = int(os.environ.get("LOCAL_RANK", mesh.rank))
@@ -420,21 +443,16 @@ def setup(args):
 def train_lm(args):
     """LM objective over the live ranks; returns the per-step losses."""
     device, mesh = setup(args)
-    cfg = get_arch(args.arch)
-    if args.smoke:
-        cfg = smoke_variant(cfg)
+    cfg = arch_config(args)
     if getattr(args, "attn", None):
         cfg = dataclasses.replace(cfg, attn_impl=args.attn)
     opt = AdaFactorW(weight_decay=0.0025)
     lr_fn = warmup_cosine(args.lr, args.lr / 100, max(1, args.steps // 10),
                           args.steps)
     moe_args = {"dispatch": "dense"} if args.smoke else None
-    if args.batch % mesh.ranks:
-        raise SystemExit(f"--batch {args.batch} must be divisible by the "
-                         f"{mesh.ranks} ranks (data {mesh.data_size} x model "
-                         f"{mesh.model_size}; one equal block each)")
-    _check_moe_groups(cfg, moe_args, args.batch, args.seq, mesh.ranks)
     layout = param_layout(cfg, mesh, args.sharding)
+    ranks = _split_ranks(args, mesh, layout)
+    _check_moe_groups(cfg, moe_args, args.batch, args.seq, ranks)
     params, opt_state = build_state(cfg, opt, args.seed, device, mesh,
                                     args.sharding)
     slayout = state_layout(opt, params, layout)
@@ -445,7 +463,7 @@ def train_lm(args):
                          precision=getattr(args, "precision", None) or "f32",
                          remat_policy=get_policy(args.remat),
                          moe_args=moe_args, mesh=mesh, layout=layout)
-    axes = (shd.DATA, shd.MODEL)
+    axes = (shd.DATA,) if tpl.active(layout) else (shd.DATA, shd.MODEL)
 
     def make_batch(step):
         # every rank draws the global batch of the step and keeps its rows
@@ -460,6 +478,21 @@ def train_lm(args):
                      mesh=mesh, device=device, registry=registry,
                      tracer=tracer, runlog=runlog, run_dir=run_dir,
                      dims=_dims(layout, slayout))
+
+
+def _split_ranks(args, mesh, layout) -> int:
+    """The ranks the global batch is split over (every rank, or under
+    ``tp`` the data shards, whose model ranks share a block); SystemExit
+    when ``--batch`` does not divide into equal blocks over them."""
+    n = st.batch_group(mesh, layout).ranks
+    if args.batch % n:
+        what = (f"{n} data shards (tp: the {mesh.model_size} model ranks "
+                f"of a shard share its block)" if tpl.active(layout) else
+                f"{n} ranks (data {mesh.data_size} x model "
+                f"{mesh.model_size}; one equal block each)")
+        raise SystemExit(f"--batch {args.batch} must be divisible by the "
+                         f"{what}")
+    return n
 
 
 def _dims(layout, slayout):
@@ -522,21 +555,14 @@ def train_contrastive(args):
     from repro_torch.data.sharded.loader import LoaderState
 
     device, mesh = setup(args)
-    cfg = get_arch(args.arch)
-    if args.smoke:
-        cfg = smoke_dual_variant(cfg)
+    cfg = arch_config(args)
     num_micro = getattr(args, "num_micro", 2)
     loss = getattr(args, "loss", "chunked")
-    ranks = mesh.ranks
-    if args.batch % ranks:
-        raise SystemExit(f"--batch {args.batch} must be divisible by the "
-                         f"{ranks} ranks (data {mesh.data_size} x model "
-                         f"{mesh.model_size}; one equal block each)")
+    layout = param_layout(cfg, mesh, args.sharding)
+    ranks = _split_ranks(args, mesh, layout)
     if (args.batch // ranks) % num_micro:
         raise SystemExit(f"each rank's block of {args.batch // ranks} must "
                          f"be divisible by --num-micro {num_micro}")
-
-    layout = param_layout(cfg, mesh, args.sharding)
     step_fn, opt = st.make_contrastive_step(
         cfg, num_micro=num_micro, remat=args.remat,
         remat_image=getattr(args, "remat_image", None),
@@ -574,7 +600,8 @@ def train_contrastive(args):
                      start, mesh=mesh, device=device,
                      ckpt_meta_fn=ckpt_meta_fn, registry=registry,
                      tracer=tracer, runlog=runlog, run_dir=run_dir,
-                     part=(mesh.model_index, mesh.model_size),
+                     part=((0, 1) if tpl.active(layout) else
+                           (mesh.model_index, mesh.model_size)),
                      dims=_dims(layout, slayout))
 
 
@@ -617,8 +644,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="weight-sharding rule (core.sharding."
                          "params_specs) the params are placed by: basic_ws "
                          "splits weights and their optimizer slots over the "
-                         "model axis (paper §5.1), replicated keeps them "
-                         "whole; tp runs at --model-parallel 1 only")
+                         "model axis and gathers them on use (paper §5.1), "
+                         "tp splits them Megatron-style and computes with "
+                         "the parts (the model ranks of a data shard share "
+                         "its block), replicated keeps them whole")
     remat_names = list_policies() + ["off"]
     ap.add_argument("--remat", default="basic", choices=remat_names)
     ap.add_argument("--remat-image", default=None, choices=remat_names,
@@ -635,7 +664,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "the flash kernels)")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="model-axis size M: the world is a (world / M, M) "
-                         "grid; the batch splits over every rank")
+                         "grid; the batch splits over every rank (under tp "
+                         "over the world / M data shards)")
     ap.add_argument("--num-micro", type=int, default=2,
                     help="GradAccum microbatches of each rank's block")
     ap.add_argument("--loss", default="chunked",

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
@@ -225,21 +226,33 @@ def resolve_backend(impl: Optional[str], device: torch.device) -> str:
 
 def attention(p, cfg: ArchConfig, x, positions, return_kv: bool = False,
               impl: Optional[str] = None, block: Optional[int] = None,
-              key_mask=None):
+              key_mask=None, axis=None):
     """Full-sequence attention (encode and prefill). x: (b, s, d).
 
     impl: backend name ('naive' | 'chunked' | 'flash' | 'pallas' | 'auto');
     None defers to ``cfg.attn_impl``. key_mask: optional (b, s) bool mask
     (True = real token) masking padded key positions. With ``return_kv``
-    also returns the RoPE'd (k, v), each (b, s, kv, hd)."""
+    also returns the RoPE'd (k, v), each (b, s, kv, hd). With the model
+    ``axis`` (``core.tensor_parallel``) ``wq``/``wk``/``wv`` are this
+    rank's column parts (its H/M query and KV/M kv heads) and ``wo`` its
+    row part: the rank attends over its heads, and the input's gradient
+    and the output are summed over the group; ``q_norm``/``k_norm``, shared
+    by every head, have their gradients summed too."""
     b, s, _ = x.shape
     impl = resolve_backend(impl if impl is not None else cfg.attn_impl,
                            x.device)
     block = block if block is not None else cfg.attn_block
+    if axis is not None:
+        cfg = tp.local_heads(cfg, axis.size)
+        x = tp.copy_to_model(x, axis)
+        p = {k: tp.copy_to_model(w, axis) if k in ("q_norm", "k_norm")
+             else w for k, w in p.items()}
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = ATTN_BACKENDS[impl](q, k, v, cfg=cfg, positions=positions,
                               key_mask=key_mask, block=block)
     out = L.dense(out.reshape(b, s, -1), p["wo"])
+    if axis is not None:
+        out = tp.reduce_from_model(out, axis)
     if return_kv:
         return out, (k, v)
     return out

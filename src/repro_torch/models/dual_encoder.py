@@ -8,7 +8,10 @@ policy's compute dtype; the embedding projections and the unit norm land
 in fp32 under the default policies. ``layout`` (``core.weight_sharding``)
 is given when the params are this rank's parts of weights split over the
 model axis: the towers gather theirs per block, and ``image/proj`` and
-``text/proj`` are gathered on use; ``log_tau`` is never split.
+``text/proj`` are gathered on use; ``log_tau`` is never split. Under a
+'tp' layout the towers compute with their parts (``core.tensor_parallel``)
+and each rank projects onto its ``embed_dim`` columns, joined over the
+model group before the unit norm.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import math
 import torch
 
 from repro_torch.configs.dual import DualEncoderConfig
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.core import weight_sharding as ws
 from repro_torch.models import layers as L
 from repro_torch.models import precision as prec_lib
@@ -53,6 +57,22 @@ def _norm(z):
                            min=1e-6)
 
 
+def _project(pol, h, proj, lay):
+    """The unit-norm embedding of the pooled ``h`` through ``proj`` (its
+    part under ``lay``): gathered on use, or under 'tp' with the columns
+    split over ``embed_dim`` each rank's columns joined over the group
+    before the norm of the whole row (a ``proj`` split over d is made
+    whole)."""
+    h = pol.project(h)
+    axis = tp.split_axis(lay, 1)
+    if axis is not None:
+        z = tp.gather_from_model(L.dense(tp.copy_to_model(h, axis), proj),
+                                 axis)
+    else:
+        z = L.dense(h, tp.resolve(proj, lay))
+    return _norm(z.float())
+
+
 def encode_image(cfg: DualEncoderConfig, params, images, *, precision=None,
                  remat_policy=None, layout=None):
     """images: dict with 'image' (b, H, W, C) raw pixels. Returns (b, D) on
@@ -62,8 +82,8 @@ def encode_image(cfg: DualEncoderConfig, params, images, *, precision=None,
     h = tf.encode(cfg.image_tower, params["image"]["tower"], images,
                   precision=pol, remat_policy=remat_policy,
                   layout=ws.sub(layout, "image", "tower"))
-    proj = ws.gather(params["image"]["proj"], ws.sub(layout, "image", "proj"))
-    return _norm(L.dense(pol.project(h), proj).float())
+    return _project(pol, h, params["image"]["proj"],
+                    ws.sub(layout, "image", "proj"))
 
 
 def encode_text(cfg: DualEncoderConfig, params, texts, *, precision=None,
@@ -76,8 +96,8 @@ def encode_text(cfg: DualEncoderConfig, params, texts, *, precision=None,
     h = tf.encode(cfg.text_tower, params["text"]["tower"], texts,
                   precision=pol, remat_policy=remat_policy,
                   layout=ws.sub(layout, "text", "tower"))
-    proj = ws.gather(params["text"]["proj"], ws.sub(layout, "text", "proj"))
-    return _norm(L.dense(pol.project(h), proj).float())
+    return _project(pol, h, params["text"]["proj"],
+                    ws.sub(layout, "text", "proj"))
 
 
 def temperature(params):

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tensor_parallel as tp
+
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with the weight cast to x's dtype: (..., i) x (i, o) -> (..., o)."""
@@ -27,10 +29,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return (y * scale.float()).to(dt)
 
 
-def swiglu(x, wi, wg, wo):
-    """SwiGLU FFN: ((x@wi) * silu(x@wg)) @ wo."""
+def swiglu(x, wi, wg, wo, axis=None):
+    """SwiGLU FFN: ((x@wi) * silu(x@wg)) @ wo. With the model ``axis``
+    (``core.tensor_parallel``) ``wi``/``wg`` are this rank's column parts
+    and ``wo`` its row part: the input's gradient and the output are
+    summed over the group, one all-reduce each way."""
+    if axis is not None:
+        x = tp.copy_to_model(x, axis)
     h = dense(x, wi) * torch.nn.functional.silu(dense(x, wg))
-    return dense(h, wo)
+    out = dense(h, wo)
+    return out if axis is None else tp.reduce_from_model(out, axis)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

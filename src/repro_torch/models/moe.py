@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.models import layers as L
 
 
@@ -191,12 +192,22 @@ def _capacity_dispatch(p, cfg: ArchConfig, x, top_p, top_idx, group: int,
 
 
 def moe_ffn(p, cfg: ArchConfig, x, *, dispatch: str = "capacity",
-            group: int = 4096, capacity_factor: float = 1.25, experts=None):
+            group: int = 4096, capacity_factor: float = 1.25, experts=None,
+            axis=None):
     """x (b, s, d) -> (out (b, s, d), the load-balance aux scalar, fp32).
     ``dispatch``: 'capacity' (groups of min(group, b·s) tokens) or
     'dense'. ``experts`` = (first, count): the share the weights hold
     (None: every expert); ``ValueError`` when their expert axis is not
-    ``count`` long or the share is not within the layer's experts."""
+    ``count`` long or the share is not within the layer's experts.
+
+    With the model ``axis`` (``core.tensor_parallel``) the experts, and
+    the dense residual, are this rank's parts: its share of the experts
+    (expert parallelism) or, with ``experts`` None, every expert's ff
+    columns; the router is whole and every rank routes every token. The
+    input and the combine weights enter the experts through
+    ``copy_to_model`` (each rank's experts give a part of their
+    gradients) and the ranks' partial outputs are summed. The aux term,
+    from the whole router, is the same on every rank."""
     first, count = held_experts(cfg, experts)
     for name in ("wi", "wg", "wo"):
         if p[name].shape[-3] != count:
@@ -204,6 +215,8 @@ def moe_ffn(p, cfg: ArchConfig, x, *, dispatch: str = "capacity",
                              f"{p[name].shape[-3]} experts, the share "
                              f"{count}")
     top_p, top_idx, aux = _router(p, cfg, x)
+    if axis is not None:
+        x, top_p = tp.copy_to_model(x, axis), tp.copy_to_model(top_p, axis)
     if dispatch == "dense":
         out = _dense_dispatch(p, cfg, x, top_p, top_idx, first, count)
     elif dispatch == "capacity":
@@ -215,4 +228,6 @@ def moe_ffn(p, cfg: ArchConfig, x, *, dispatch: str = "capacity",
                          f"'capacity', 'dense'")
     if cfg.moe.dense_residual:
         out = out + L.swiglu(x, p["dense_wi"], p["dense_wg"], p["dense_wo"])
+    if axis is not None:
+        out = tp.reduce_from_model(out, axis)
     return out, aux

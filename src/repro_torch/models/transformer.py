@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import remat as remat_lib
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.core import weight_sharding as ws
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import frontends as fe
@@ -149,12 +150,14 @@ def _layer(tree, i: int):
 
 def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
                  cache=None, decode=False, collect_cache_len=None,
-                 moe_args=None):
+                 moe_args=None, axis=None):
     """Pre-norm block: attention or the Mamba-2 mixer (by the block's
     leaves), then, outside the SSM family, a pre-norm SwiGLU or MoE FFN.
-    Returns (h, the layer's cache: the one given, written in place, when
-    decoding; one built from the prompt with ``collect_cache_len``; else
-    None, the MoE load-balance term or None)."""
+    ``axis``: the model axis when ``p`` holds this rank's Megatron parts
+    (``core.tensor_parallel.block_params``). Returns (h, the layer's
+    cache: the one given, written in place, when decoding; one built from
+    the prompt with ``collect_cache_len``; else None, the MoE load-balance
+    term or None)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     new_cache = None
     if "mamba" in p:
@@ -173,16 +176,30 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
         new_cache = attn_lib.cache_from_prefill(cfg, k, v, collect_cache_len)
     else:
         mix = attn_lib.attention(p["attn"], cfg, hn, positions,
-                                 key_mask=key_mask)
+                                 key_mask=key_mask, axis=axis)
     h = h + mix
     if cfg.family == "ssm":         # Mamba-2 blocks have no separate FFN
         return h, new_cache, None
     hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        out, aux = moe_lib.moe_ffn(p["moe"], cfg, hn, **(moe_args or {}))
+        out, aux = moe_lib.moe_ffn(p["moe"], cfg, hn, **(moe_args or {}),
+                                   axis=axis)
         return h + out, new_cache, aux
     return h + L.swiglu(hn, p["ffn"]["wi"], p["ffn"]["wg"],
-                        p["ffn"]["wo"]), new_cache, None
+                        p["ffn"]["wo"], axis), new_cache, None
+
+
+def _megatron_block(cfg: ArchConfig, p, lay, moe_args):
+    """(params, moe_args, axis) of one layer under a 'tp' layout ``lay``:
+    the leaves Megatron consumes split kept as parts, the rest made whole,
+    and a MoE layer's expert share when the rule splits the expert axis;
+    under any other layout the layer's leaves gathered whole."""
+    if not tp.active(lay):
+        return tp.resolve(p, lay), moe_args, None
+    if "moe" in p:
+        moe_args = dict(moe_args or {},
+                        experts=tp.expert_share(cfg, lay["moe"]))
+    return tp.block_params(p, lay), moe_args, lay.axis
 
 
 def _layers(cfg: ArchConfig, params):
@@ -206,7 +223,10 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     to every MoE FFN. ``layout``: the ``core.weight_sharding`` layout of
     ``params`` when its block leaves are parts; each layer's leaves are
     gathered whole inside the block (within the remat wrapper, so a
-    recomputed block gathers them again).
+    recomputed block gathers them again), or, under a 'tp' layout, the
+    block computes with its parts (``core.tensor_parallel``) and its
+    all-reduces run inside the remat wrapper, so a recomputed block
+    issues them again in the same order on every rank of the group.
 
     Returns (h, caches, aux): the caches given (written in place), the
     ones built, or None; aux the sum of the MoE load-balance terms (an
@@ -218,7 +238,7 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     if decode:
         for r, j, p in _layers(cfg, params):
             c = caches[r]
-            h, _, aux = _apply_block(cfg, ws.gather(p, lays[r]), h, positions,
+            h, _, aux = _apply_block(cfg, tp.resolve(p, lays[r]), h, positions,
                                      cache=type(c)(*(x[j] for x in c)),
                                      decode=True, moe_args=moe_args)
             terms.append(aux)
@@ -226,7 +246,7 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     elif collect_cache_len is not None:
         built = [[] for _ in params["blocks"]]
         for r, _, p in _layers(cfg, params):
-            h, c, aux = _apply_block(cfg, ws.gather(p, lays[r]), h, positions,
+            h, c, aux = _apply_block(cfg, tp.resolve(p, lays[r]), h, positions,
                                      key_mask=key_mask,
                                      collect_cache_len=collect_cache_len,
                                      moe_args=moe_args)
@@ -236,8 +256,9 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
                       for b in built]
     else:
         def block(lay, p, h, positions, key_mask):
-            h, _, aux = _apply_block(cfg, ws.gather(p, lay), h, positions,
-                                     key_mask, moe_args=moe_args)
+            p, margs, axis = _megatron_block(cfg, p, lay, moe_args)
+            h, _, aux = _apply_block(cfg, p, h, positions, key_mask,
+                                     moe_args=margs, axis=axis)
             return h, aux
 
         for r, _, p in _layers(cfg, params):
@@ -262,16 +283,18 @@ def embed_inputs(cfg: ArchConfig, params, batch, dtype, layout=None):
     linear-patchify frontend; with ``batch['tokens']`` too, token
     embeddings follow the patches. Token towers embed ``batch['tokens']``.
     ``layout``: the frontend and the embedding are gathered on use
-    (``forward``)."""
+    (``forward``); under a 'tp' layout a vocab-split embedding is looked
+    up vocab-parallel (each rank its own rows, summed over the group) and
+    the frontend is made whole."""
     if cfg.frontend == "vision" and "image" in batch:
         patches = fe.patch_embed(
-            ws.gather(params["frontend"], ws.sub(layout, "frontend")), cfg,
+            tp.resolve(params["frontend"], ws.sub(layout, "frontend")), cfg,
             batch["image"], dtype)
         b, p = patches.shape[:2]
         if cfg.vocab > 0 and "tokens" in batch:
             tok = batch["tokens"]
-            embed = ws.gather(params["embed"], ws.sub(layout, "embed"))
-            emb = embed[tok.long()].to(dtype)
+            emb = tp.vocab_embed(params["embed"], ws.sub(layout, "embed"),
+                                 tok, dtype)
             h = torch.cat([patches, emb], dim=1)
             text_mask = torch.cat(
                 [torch.zeros((b, p), dtype=torch.bool, device=h.device),
@@ -280,8 +303,8 @@ def embed_inputs(cfg: ArchConfig, params, batch, dtype, layout=None):
             return h, _positions(b, h.shape[1], h.device), text_mask
         return patches, _positions(b, p, patches.device), None
     tok = batch["tokens"]
-    embed = ws.gather(params["embed"], ws.sub(layout, "embed"))
-    emb = embed[tok.long()].to(dtype)
+    emb = tp.vocab_embed(params["embed"], ws.sub(layout, "embed"), tok,
+                         dtype)
     b, s = tok.shape
     return emb, _positions(b, s, emb.device), None
 
@@ -316,18 +339,34 @@ def encode(cfg: ArchConfig, params, batch, *, precision=None,
 # ---------------------------------------------------------------------------
 
 
+def vocab_axis(cfg: ArchConfig, layout):
+    """The model axis when a 'tp' layout splits the head over the vocab
+    (``lm_head``'s columns, or the tied ``embed``'s rows), else None."""
+    tied = cfg.tie_embeddings
+    return tp.split_axis(ws.sub(layout, "embed" if tied else "lm_head"),
+                         0 if tied else 1)
+
+
 def logits_from_h(cfg: ArchConfig, params, h,
                   pol: prec_lib.Precision = None, layout=None):
     """Vocabulary logits from hidden states (b, s, d): the tied head
     h @ embedᵀ, or ``lm_head``, in the policy's projection dtype (fp32
-    under the default policies); ``layout`` gathers the head on use."""
+    under the default policies); ``layout`` gathers the head on use.
+    Where ``vocab_axis`` names an axis the result is this rank's vocab
+    slice (b, s, V/M), slices in rank order; a head the rule splits over
+    d is made whole."""
     if pol is not None:
         h = pol.project(h)
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    axis = vocab_axis(cfg, layout)
+    if axis is not None:
+        h = tp.copy_to_model(h, axis)
+        w = params[key]
+    else:
+        w = tp.resolve(params[key], ws.sub(layout, key))
     if cfg.tie_embeddings:
-        embed = ws.gather(params["embed"], ws.sub(layout, "embed"))
-        return torch.matmul(h, embed.to(h.dtype).T)
-    return L.dense(h, ws.gather(params["lm_head"],
-                                ws.sub(layout, "lm_head")))
+        return torch.matmul(h, w.to(h.dtype).T)
+    return L.dense(h, w)
 
 
 def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
@@ -339,7 +378,9 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
     ``precision`` (a policy or its name) wins over the legacy ``dtype``
     (default f32, as in the reference); ``remat_policy`` wraps each block;
     ``moe_args`` go to every MoE FFN; ``layout`` gathers split weights on
-    use (``forward``).
+    use (``forward``), or under 'tp' computes with the parts, the
+    cross-entropy vocab-parallel where the head is split on the vocab
+    (the whole (b, s, V) logits are never formed).
 
     Returns (loss + aux, {'xent': loss, 'aux': aux}); aux is the sum of
     the MoE load-balance terms over the layers (0 without MoE layers)."""
@@ -354,9 +395,13 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
                         moe_args=moe_args, layout=layout)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_from_h(cfg, params, h, pol, layout).float()
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
     tgt = batch["tokens"][:, 1:].long()
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    axis = vocab_axis(cfg, layout)
+    if axis is not None:
+        nll = tp.vocab_xent(logits[:, :-1], tgt, axis)
+    else:
+        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     mask = batch.get("loss_mask")
     if mask is not None:
         m = mask[:, 1:].float()

@@ -229,8 +229,11 @@ def test_runlog_passes_the_schema_gate_and_reports(port_r1):
 @pytest.mark.parametrize("flags,match", [
     (["--health"], "health"), (["--metrics-port", "0"], "health"),
     (["--memstats"], "tooling"),
-    (["--model-parallel", "2", "--sharding", "tp"], "tensor-parallel")])
+    (["--arch", "mamba2-130m", "--model-parallel", "2", "--sharding", "tp"],
+     "tensor-parallel")])
 def test_refuses_what_later_slices_bring(flags, match):
+    """The health tier, the tooling, and ``tp`` for Mamba-2 and the hybrid
+    family (Megatron execution runs the dense, MoE and encoder families)."""
     with pytest.raises(NotImplementedError, match=match):
         td.main(CONTRASTIVE + ["--device", "cpu", "--steps", "1"] + flags)
 

@@ -12,9 +12,12 @@ the same (data, model) grid (``tests/torch_spawn.py``), each rank keeping
 1/M of every split leaf, and must give the reference's losses for steps 2
 and 3 within rtol 1e-4 and its step-4 parameters and AdaFactorW slots,
 written back as whole leaves, within 1e-3 of the change steps 2-3 made.
-The refusals that remain: ``--sharding tp`` with a model axis above 1, a
-world that does not divide by the model axis, and a batch that does not
-divide over every rank.
+The refusals that remain: ``--sharding tp`` for the SSM and hybrid
+families and for heads that do not divide by the model axis (Megatron
+execution itself is held to the reference in
+``tests/test_torch_train_tensor_parallel.py``), a world that does not
+divide by the model axis, and a batch that does not divide over every
+rank.
 """
 import json
 import os
@@ -126,12 +129,19 @@ def test_2x2_resumes_the_references_checkpoint(reference, tmp_path):
 
 
 def test_refuses_tp_and_indivisible_worlds_and_batches(tmp_path):
-    """``tp`` at a model axis of 2, a world of 1 at a model axis of 2, and
-    on two ranks (1 x 2) a batch of 15 and a per-rank block that does not
-    divide into the microbatches: each raises naming the reason."""
+    """``tp`` at a model axis of 2 for Mamba-2 and Jamba (their own
+    slice) and at 4 for the smoke Llama (2 kv heads), a world of 1 at a
+    model axis of 2, and on two ranks (1 x 2) a batch of 15 and a
+    per-rank block that does not divide into the microbatches: each raises
+    naming the reason."""
     run = CONTRASTIVE + ["--device", "cpu", "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        td.main(run + ["--model-parallel", "2", "--sharding", "tp"])
+    for arch in ("mamba2-130m", "jamba-1.5-large-398b"):
+        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+            td.main(run + ["--arch", arch, "--model-parallel", "2",
+                           "--sharding", "tp"])
+    with pytest.raises(ValueError, match="kv heads do not both divide"):
+        td.main(LM + ["--device", "cpu", "--steps", "1", "--model-parallel",
+                      "4", "--sharding", "tp"])
     with pytest.raises(ValueError, match="does not divide"):
         td.main(run + ["--model-parallel", "2"])
     lm = LM + ["--device", "cpu", "--steps", "1", "--model-parallel", "2"]

@@ -178,12 +178,15 @@ def worker_resident(rank, world, model, sharding):
         return sum(x.numel() * x.element_size() for _, x in leaves(tree))
     loader = td.make_loader(args, cfg, HostLayout(mesh.data_size,
                                                   mesh.data_index))
-    batch = device_put_global(loader.local_batch_at(0), device,
-                              (mesh.model_index, mesh.model_size))
+    # under tp the model ranks of a data shard share its whole block
+    part = (0, 1) if sharding == "tp" else (mesh.model_index,
+                                            mesh.model_size)
+    batch = device_put_global(loader.local_batch_at(0), device, part)
     _, _, grads = contrastive_step(
         lambda p, x: de.encode_image(cfg, p, x, layout=layout),
         lambda p, x: de.encode_text(cfg, p, x, layout=layout),
-        params, batch, 2, loss_fn=make_global_loss_fn(mesh, "chunked"))
+        params, batch, 2, loss_fn=make_global_loss_fn(
+            st.batch_group(mesh, layout), "chunked"))
 
     def shapes(tree):
         return {k: tuple(x.shape) for k, x in leaves(tree)}
@@ -195,13 +198,15 @@ def worker_resident(rank, world, model, sharding):
              if d is not None]}
 
 
-def worker_checkpoint(rank, world, model, save_dir, restore_dir):
-    """The trainer's seeded BASIC-S smoke state at (world / model, model):
-    saved whole into ``save_dir`` at step 1 by rank 0, the model group's
-    ranks gathering each split leaf (``io.save`` with
+def worker_checkpoint(rank, world, model, save_dir, restore_dir,
+                      sharding="basic_ws", restore_sharding=None):
+    """The trainer's seeded BASIC-S smoke state at (world / model, model)
+    under ``sharding``: saved whole into ``save_dir`` at step 1 by rank 0,
+    the model group's ranks gathering each split leaf (``io.save`` with
     ``weight_sharding.gather_leaf``), then the checkpoint at step 1 of
-    ``restore_dir`` restored into this rank's parts (``_restore``).
-    Returns the restored parts as numpy, by leaf path (bf16 as its bits)."""
+    ``restore_dir`` restored into this rank's parts under
+    ``restore_sharding`` (default ``sharding``; ``_restore``). Returns the
+    restored parts as numpy, by leaf path (bf16 as its bits)."""
     import types
 
     import torch
@@ -216,8 +221,8 @@ def worker_checkpoint(rank, world, model, save_dir, restore_dir):
     mesh = make_local_mesh(model=model)
     cfg = smoke_dual_variant(get_arch("basic-s"))
     opt = st.make_optimizer()
-    layout = td.param_layout(cfg, mesh, "basic_ws")
-    params, state = td.build_state(cfg, opt, 0, "cpu", mesh, "basic_ws")
+    layout = td.param_layout(cfg, mesh, sharding)
+    params, state = td.build_state(cfg, opt, 0, "cpu", mesh, sharding)
     slayout = td.state_layout(opt, params, layout)
     dims = td._dims(layout, slayout)
     tree = (params, state)
@@ -228,6 +233,11 @@ def worker_checkpoint(rank, world, model, save_dir, restore_dir):
         for i, x in enumerate(tree_leaves(tree)):
             ws.gather_leaf(x, dims[i], mesh.model)
     mesh.barrier()
+    if restore_sharding not in (None, sharding):
+        layout = td.param_layout(cfg, mesh, restore_sharding)
+        params, state = td.build_state(cfg, opt, 0, "cpu", mesh,
+                                       restore_sharding)
+        slayout = td.state_layout(opt, params, layout)
     params, state, start = td._restore(
         types.SimpleNamespace(ckpt_dir=restore_dir, resume="latest"),
         params, state, mesh, "cpu", layout, slayout)
@@ -251,3 +261,156 @@ def worker_refusals(rank, world, argvs):
         except (SystemExit, ValueError, NotImplementedError) as e:
             out.append((type(e).__name__, str(e)))
     return out
+
+
+def worker_tp_ops(rank, world, model, case):
+    """``core.tensor_parallel``'s four operators on this rank's parts of
+    one computation: h = x · n, y = relu(h A) B, z = h C, loss = Σ uy·y +
+    Σ uz·z, with ``n`` (d,) made ``whole`` from its part, ``A`` (d, f)
+    and ``C`` (d, e) split on their columns, ``B`` (f, d) on its rows: h
+    enters through ``copy_to_model``, y leaves through
+    ``reduce_from_model``, z through ``gather_from_model``. ``case``:
+    numpy x, n, A, B, C, uy, uz. Returns (y, z, and the gradients of x
+    and of this rank's parts of n, A, B, C) as numpy."""
+    import torch
+
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(model=model)
+    axis, i = mesh.model, mesh.model_index
+
+    def part(a, dim):
+        b = a.shape[dim] // model
+        return torch.from_numpy(a.take(range(i * b, (i + 1) * b), axis=dim)
+                                ).requires_grad_()
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    n, A, B, C = (part(case[k], d) for k, d in (("n", 0), ("A", 1),
+                                                ("B", 0), ("C", 1)))
+    h = tp.copy_to_model(x * tp.whole(n, 0, axis), axis)
+    y = tp.reduce_from_model(torch.relu(h @ A) @ B, axis)
+    z = tp.gather_from_model(h @ C, axis)
+    loss = torch.sum(torch.from_numpy(case["uy"]) * y) + torch.sum(
+        torch.from_numpy(case["uz"]) * z)
+    grads = torch.autograd.grad(loss, (x, n, A, B, C))
+    return [t.detach().numpy() for t in (y, z, *grads)]
+
+
+def _tp_cfg(arch, changes):
+    import dataclasses
+
+    from repro_torch.configs import get_arch, smoke_variant
+    cfg = smoke_variant(get_arch(arch))
+    changes = dict(changes)
+    if "num_experts" in changes:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=changes.pop("num_experts"))
+    return dataclasses.replace(cfg, **changes)
+
+
+def worker_tp_layer(rank, world, model, cases):
+    """One layer of Megatron execution a case on this rank's parts:
+    ``cases`` holds (kind, arch, config changes, the layer's whole weights
+    as numpy ({'attn': ...}, {'ffn': ...} or {'moe': ...}), numpy input x
+    (b, s, d), upstream u, ``moe_ffn`` keywords). The weights are placed
+    by ``params_specs(..., 'tp')``; 'attn' runs ``attention`` on the flash
+    backend (its plain version here), 'ffn' ``swiglu``, 'moe' ``moe_ffn``
+    with the rule's expert share (None when it splits the ff dim). Returns
+    per case {out, aux, dx, grads: this rank's part gradients by leaf
+    name, dims: their split dims, experts: the share}."""
+    import torch
+
+    from repro_torch.core import sharding as shd
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+    mesh = make_local_mesh(model=model)
+    out = []
+    for kind, arch, changes, weights, x, up, kwargs in cases:
+        cfg = _tp_cfg(arch, changes)
+        whole = tree_map(torch.from_numpy, weights)
+        lay = ws.from_specs(shd.params_specs(whole, mesh, "tp"), mesh,
+                            "tp")[kind]
+        p = tree_map(lambda t: t.requires_grad_(), ws.cut(whole[kind], lay))
+        xt = torch.from_numpy(x).requires_grad_()
+        aux, share = None, None
+        if kind == "attn":
+            b, s = x.shape[:2]
+            pos = torch.arange(s).expand(b, s)
+            y = attn.attention(p, cfg, xt, pos, impl="flash",
+                               axis=mesh.model)
+        elif kind == "ffn":
+            y = L.swiglu(xt, p["wi"], p["wg"], p["wo"], mesh.model)
+        else:
+            share = tp.expert_share(cfg, lay)
+            y, aux = moe.moe_ffn(p, cfg, xt, experts=share, axis=mesh.model,
+                                 **kwargs)
+        loss = torch.sum(y * torch.from_numpy(up))
+        if aux is not None:
+            loss = loss + aux
+        names = list(p)
+        g = torch.autograd.grad(loss, [xt] + [p[k] for k in names])
+        out.append({"out": y.detach().numpy(),
+                    "aux": None if aux is None else aux.item(),
+                    "dx": g[0].numpy(),
+                    "grads": {k: t.numpy() for k, t in zip(names, g[1:])},
+                    "dims": dict(lay.dims), "experts": share})
+    return out
+
+
+def worker_tp_lm(rank, world, model, arch, weights, tokens, moe_args):
+    """``transformer.lm_loss`` under Megatron execution on this rank's
+    parts of the smoke ``arch``'s whole weights (numpy, as
+    ``interop.from_numpy`` takes them) placed by ``tensor_parallel.layout``
+    on a (1, ``model``) mesh, for the numpy token batch. Records every
+    leaf made ``whole`` (its part's shape and dim), the expert count each
+    MoE expert product runs over, and refuses ``weight_sharding``'s
+    gather. Returns {loss, xent, aux, grads by leaf path, dims by leaf
+    path, whole, experts}."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves, tree_map
+    mesh = make_local_mesh(model=model)
+    cfg = _tp_cfg(arch, {})
+    whole = interop.from_numpy(weights, "cpu")
+    lay = tp.layout(cfg, whole, mesh)
+    p = tree_map(lambda t: t.requires_grad_(), ws.cut(whole, lay))
+    made_whole, experts = [], []
+    real_whole, real_experts = tp.whole, moe._experts
+
+    def recording_whole(part, dim, axis):
+        if dim is not None:
+            made_whole.append((tuple(part.shape), dim))
+        return real_whole(part, dim, axis)
+
+    def recording_experts(w, xe):
+        experts.append(int(xe.shape[0]))
+        return real_experts(w, xe)
+
+    def refused(*args):
+        raise AssertionError("weight_sharding's gather under tp")
+    tp.whole, moe._experts = recording_whole, recording_experts
+    real_gather, ws._Gather.apply = ws._Gather.apply, refused
+    try:
+        loss, metrics = tf.lm_loss(
+            cfg, p, {"tokens": torch.from_numpy(tokens)},
+            moe_args=moe_args, layout=lay)
+        paths = [k for k, _ in leaves(p)]
+        grads = torch.autograd.grad(loss, [x for _, x in leaves(p)])
+    finally:
+        tp.whole, moe._experts = real_whole, real_experts
+        ws._Gather.apply = real_gather
+    return {"loss": loss.item(), "xent": metrics["xent"].item(),
+            "aux": metrics["aux"].item(),
+            "grads": {k: g.numpy() for k, g in zip(paths, grads)},
+            "dims": dict(zip(paths, lay.flat_dims)),
+            "whole": made_whole, "experts": experts}
