@@ -268,19 +268,44 @@ repository beside this file; it exits non-zero without them. In order it:
     1 resumed step, against 4 uninterrupted: step, tokens/s, peak memory;
 41. the paper's §5.1 weight sharding on gloo ranks sharing the card
     (two spawned worlds, of 2 and 4 ranks): BASIC-S at full width on 1
-    layer a tower, f32, global B 256, 2 steps at (data 1, model 2) and
+    layer a tower, f32, global B 256, 1 step at (data 1, model 2) and
     (2, 2) under ``basic_ws`` and (1, 2) under ``replicated``: each rank's
     losses against the one-rank run on the same global batch (rtol 1e-4),
     its params' and optimizer state's bytes, the final checkpoint's whole
     leaves within 1e-3 of their move; not timed;
 42. ``train_lm`` at (1, 2) under ``basic_ws`` in the world of 2:
-    Llama-3.2-1B at full width on 1 of its 16 layers, f32, b 2 × s 1024;
+    Llama-3.2-1B at full width on 1 of its 16 layers, f32, b 2 × s 1024,
+    2 steps (the first at the warmup's lr 0);
 43. Megatron execution (``--sharding tp``) in the same two worlds: BASIC-S
-    on 2 layers a tower for 3 steps at (1, 2) and (2, 2), and
-    Llama-3.2-1B on 2 of 16 layers at (1, 2), with the same checks (each
+    on 1 layer a tower for 1 step at (1, 2) and (2, 2), and
+    Llama-3.2-1B on 1 of 16 layers at (1, 2), with the same checks (each
     rank's params 1/M of the rule's split leaves plus the whole ones);
     every rank launches the flash kernels, and at (1, 2) the fused loss's
     pair;
+44. right after phase 8's registry check, on its BASIC-S weights: the
+    top-k kernel with ``n_valid`` against its plain version (f32 and bf16,
+    b 64 × n 21841, k 5, n_valid 0, 3, 20841, 21841; one shard of the
+    gallery below, b 64 × 250,000, k 10, n_valid 249,999): ids, values
+    within 1e-4, sentinels exact; times kernel, plain version and
+    ``torch.topk`` over the valid rows;
+45. zero-shot retrieval at scale: a 999,999 × 512 fp32 gallery of 1000
+    clusters made on the card, 64 text queries through the full-width
+    text tower, k 10, through ``ZeroShotService`` in each mode (fused;
+    sharded over [cuda:0] × 4; two-stage over 1000 blocks at nprobe "all"
+    and 8): sharded and two-stage "all" equal fused bit for bit, p50 / p90
+    of 20 calls per mode, the kernel's launches per call, recall@10, prune
+    ratio and stage seconds at nprobe 8, the index build, one upload per
+    gallery;
+46. the live endpoint of phase 45's fused service (10 s SLO): /metrics
+    with the serve/slo_* and serve/retrieval_* series, /healthz 200 and
+    /snapshot.json mid-run; a service whose target is half the fused p50
+    turns /healthz to 503; phase 15's continuous server runs with a 60 s
+    request SLO and reports its decode/slo_* series;
+47. after phase 38: ``train_distributed.main --health --metrics-port 0``
+    at one rank, BASIC-S full width f32, B 256, 3 steps, a NaN image
+    batch at step 1 (``set_step_fault_hook``): exactly that step skipped,
+    params and optimizer state unchanged through it, the nonfinite
+    detector critical, a flight dump, /healthz 200 mid-run;
 27. last, after phase 43, prints the script's seconds, a ``{"kernels":
     [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
@@ -486,6 +511,32 @@ def retaken_window(fn, complete, cpu: bool = True, tries: int = 8):
             print("profile: the tracer lost device records of the window; "
                   "it is taken again", flush=True)
     return prof, out
+
+
+def counted_window(fn, counters, cpu: bool = True):
+    """(profiler, host microseconds of one ``fn()``, wrapper -> its
+    launches in that call) of the first ``retaken_window`` over one
+    ``fn()`` in which the profiler saw at least one device kernel per
+    launch of each wrapper in ``counters``: the tracer now and then drops
+    one record of a window (once, one of a training step's 336 flash_fwd
+    kernels). The last window is returned whatever it holds, and
+    ``device_breakdown`` fails on what it misses."""
+    import torch
+
+    def run():
+        before = {c.name: c.count for c in counters}
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        return wall_us, {c.name: c.count - before[c.name] for c in counters}
+
+    def complete(prof, out):
+        seen = wrapper_kernels_seen(prof, out[1])
+        return all(seen[w] >= n for w, n in out[1].items())
+
+    prof, (wall_us, calls) = retaken_window(run, complete, cpu)
+    return prof, wall_us, calls
 
 
 def on_device(e) -> bool:
@@ -1105,16 +1156,10 @@ def phase_profile(cfg, params, tok, requests: int = 4):
                for _ in range(requests + 1)]
     with ZeroShotService(cfg, params, tok, device="cuda") as svc:
         svc.classify(batches[0], world.class_names, k=5)      # warm
-        counters = (fa_ops.COUNTER, topk_ops.COUNTER)
-        calls = {ctr.name: -ctr.count for ctr in counters}
-        with profile_window() as prof:
-            t0 = time.perf_counter()
-            for images in batches[1:]:
-                svc.classify(images, world.class_names, k=5)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        for ctr in counters:
-            calls[ctr.name] += ctr.count
+        prof, wall_us, calls = counted_window(
+            lambda: [svc.classify(images, world.class_names, k=5)
+                     for images in batches[1:]],
+            (fa_ops.COUNTER, topk_ops.COUNTER))
     per_call, _ = device_breakdown(prof, f"{requests} warm requests",
                                    wall_us, requests, calls)
     return per_call
@@ -1747,25 +1792,19 @@ def phase_train_profile():
     args = train.parse_args(TRAIN_ARGV)
     dev = torch.device("cuda")
     run = train.build_contrastive(args, dev)
-    params, opt_state = run["params"], run["opt_state"]
     batches = [train.batch_to(contrastive_batch(run["world"], run["tok"],
                                                 args.batch, run["rng"])[0],
                               dev) for _ in range(2)]
-    params, opt_state, loss, _ = run["step_fn"](params, opt_state,
-                                                batches[0])   # warm
-    float(loss)
-    counters = (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
-                cl_ops.BWD_COUNTER)
-    calls = {ctr.name: -ctr.count for ctr in counters}
-    with profile_window() as prof:
-        t0 = time.perf_counter()
-        params, opt_state, loss, _ = run["step_fn"](params, opt_state,
-                                                    batches[1])
+    out = run["step_fn"](run["params"], run["opt_state"], batches[0])  # warm
+    float(out[2])
+    state = list(out[:2])
+
+    def step():
+        state[0], state[1], loss, _ = run["step_fn"](*state, batches[1])
         float(loss)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    for ctr in counters:
-        calls[ctr.name] += ctr.count
+    prof, wall_us, calls = counted_window(
+        step, (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
+               cl_ops.BWD_COUNTER))
     return device_breakdown(prof, "1 warm training step", wall_us, 1, calls)
 
 
@@ -2506,6 +2545,7 @@ def phase_decode_parity():
 # phase 15: timed decode serving through the launcher
 # ---------------------------------------------------------------------------
 
+DECODE_SLO_MS = 60000               # phase 15's request SLO (submit to finish)
 SERVE_ARGV = ["--arch", "llama3.2-1b", "--engine", "continuous", "--slots",
               "8", "--requests", "16", "--arrival", "0", "--prompt-len",
               "512", "--max-new", "64", "--cache-len", "8192", "--attn",
@@ -2530,7 +2570,7 @@ def phase_decode_serve():
     counters = (fa_ops.COUNTER, dec_ops.COUNTER)
     for ctr in counters:
         ctr.reset()
-    rep = serve.main(SERVE_ARGV)
+    rep = serve.main(SERVE_ARGV + ["--slo-ms", str(DECODE_SLO_MS)])
     launches = {ctr.name: ctr.count for ctr in counters}
     per = {"flash_fwd_per_prefill": launches["flash_fwd"] / rep["prefills"],
            "decode_attention_per_step": (launches["decode_attention"]
@@ -2559,6 +2599,17 @@ def phase_decode_serve():
     if rep["requests"] != 16:
         raise AssertionError(f"decode serve: {rep['requests']} of 16 "
                              f"requests finished")
+    slo = rep["slo"]
+    series = rep["engine"].registry.snapshot()["gauges"]
+    print(f"decode serve SLO ({DECODE_SLO_MS} ms a request, submit to "
+          f"finish): p99 {slo['p99_s'] * 1e3:.3f} ms over "
+          f"{slo['requests']} requests, {slo['violations']} violations, "
+          f"burn {slo['error_budget_burn']:.3f}, ready {slo['healthy']}; "
+          f"decode/slo_* gauges "
+          f"{ {k: v for k, v in series.items() if '/slo_' in k} }",
+          flush=True)
+    if slo["requests"] != 16 or "decode/slo_ready" not in series:
+        raise AssertionError(f"decode serve: SLO tracker saw {slo}")
     if not math.isfinite(rep["decode_tokens_per_s"]):
         raise AssertionError("decode serve: no throughput")
     return launches, per, rep
@@ -2602,20 +2653,14 @@ def phase_decode_profile(eng, steps: int = 4, prompt_len: int = 512,
         from repro_torch.kernels.decode_attention import ops as dec_ops
         counters = (dec_ops.COUNTER,)
     rng = np.random.default_rng(9)
-    for i in range(eng.num_slots):
+    for i in range(eng.num_slots):                # busy through 8 windows
         eng.submit(rng.integers(4, eng.cfg.vocab, (prompt_len,)).astype(
-            np.int32), steps + 4)
+            np.int32), 8 * steps + 4)
     eng.step()                        # admits every slot, then one step
     eng.step()
-    calls = {ctr.name: -ctr.count for ctr in counters}
-    with spans(labelled or {}), profile_window() as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    for ctr in counters:
-        calls[ctr.name] += ctr.count
+    with spans(labelled or {}):
+        prof, wall_us, calls = counted_window(
+            lambda: [eng.step() for _ in range(steps)], counters)
     if labelled:
         by_label = span_device_ms(prof, labelled, steps)
         print("profile by function (device time of the kernels each "
@@ -2940,14 +2985,8 @@ def phase_ssm_prefill_profile(eng):
         4, eng.cfg.vocab, (248,)).astype(np.int32)
     with torch.no_grad():
         eng._prefill(prompt)
-        torch.cuda.synchronize()
-        calls = {"ssd_scan": -ssd_ops.COUNTER.count}
-        with profile_window() as prof:
-            t0 = time.perf_counter()
-            eng._prefill(prompt)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        calls["ssd_scan"] += ssd_ops.COUNTER.count
+        prof, wall_us, calls = counted_window(lambda: eng._prefill(prompt),
+                                              (ssd_ops.COUNTER,))
     return device_breakdown(prof, "1 warm prefill", wall_us, 1, calls)
 
 
@@ -3185,6 +3224,426 @@ def phase_registry_disk(cfg, params, tok):
         raise AssertionError("registry: topk_fused was not launched")
     return {"computed_s": first["class_matrix_s"],
             "disk_s": second["class_matrix_s"]}
+
+
+# ---------------------------------------------------------------------------
+# phases 44-46: topk_fused with n_valid, retrieval at scale, SLOs
+# ---------------------------------------------------------------------------
+
+NV_SHAPES = ((64, 21841, 5, (0, 3, 20841, 21841)),)
+NV_SHARD = (64, 250_000, 10, 249_999)   # one shard of the 1M gallery
+RETRIEVAL_N = 999_999                   # gallery rows: 4 shards, a padded tail
+RETRIEVAL_D = 512                       # BASIC-S's embedding width
+RETRIEVAL_CLUSTERS = 1000
+RETRIEVAL_BLOCKS = 1000                 # centroids of the two-stage index
+RETRIEVAL_K = 10
+RETRIEVAL_CALLS = 20
+RETRIEVAL_NPROBE = 8
+RETRIEVAL_SLO_S = 10.0
+
+
+def check_n_valid(label, vals, idx, ref_v, ref_i, k, tol):
+    """``check_topk`` on the live entries, and the masked tail exact: where
+    the plain version's value is NEG, the kernel's value is NEG and its id
+    the plain version's. Returns the max abs value error."""
+    from repro_torch.kernels.similarity_topk.ops import NEG
+    err = check_topk(label, vals, idx, ref_v, ref_i, k, tol)
+    tail = ref_v[:, :k] <= NEG / 2
+    if not (bool((vals[tail] == ref_v[:, :k][tail]).all())
+            and bool((idx[tail] == ref_i[:, :k][tail]).all())
+            and bool((vals[~tail] > NEG / 2).all())):
+        raise AssertionError(f"{label}: the masked tail differs from the "
+                             f"plain version's sentinels")
+    return err
+
+
+def phase_topk_n_valid():
+    """Phase 44: the top-k kernel with ``n_valid`` against its plain
+    version: f32 and bf16 at b 64 × n 21841 × d 512, k 5, n_valid in {0,
+    3, 20841, 21841}; and one shard of the retrieval phase's gallery, f32
+    b 64 × n_local 250,000, k 10, n_valid 249,999: ids where the values
+    are apart, values within TOPK_TOL, sentinels exact. Times the kernel,
+    the plain version and ``torch.topk`` over the valid columns at the two
+    timed shapes; returns the records."""
+    import torch
+    from repro_torch.kernels.similarity_topk import ops as topk_ops
+    from repro_torch.kernels.similarity_topk.ref import similarity_topk_ref
+    inv_tau = 1.0 / 0.07
+    d = RETRIEVAL_D
+    g = torch.Generator(device="cuda").manual_seed(44)
+    recs, errs = {}, {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(b, n, k, nv, dt) for b, n, k, nvs in NV_SHAPES for nv in nvs
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((*NV_SHARD, torch.float32))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, n, k, nv, dt in cases:
+        x, c = unit_rows(b, d, g, dt), unit_rows(n, d, g, dt)
+        ref_v, ref_i = similarity_topk_ref(x, c, k + 1, inv_tau, nv)
+        vals, idx = topk_ops.similarity_topk(x, c, k, inv_tau=inv_tau,
+                                             n_valid=nv)
+        label = f"topk n_valid b={b} n={n} k={k} n_valid={nv} " \
+                f"{dtype_name(dt)}"
+        e = check_n_valid(label, vals, idx, ref_v, ref_i, k, TOPK_TOL)
+        errs[dtype_name(dt)] = max(errs[dtype_name(dt)], e)
+        if dt != torch.float32 or nv not in (20841, NV_SHARD[3]):
+            continue
+        call = lambda: topk_ops.similarity_topk(x, c, k, inv_tau=inv_tau,
+                                                n_valid=nv)
+        ms = time_ms(call)
+        plain_ms = time_ms(lambda: similarity_topk_ref(x, c, k, inv_tau, nv))
+        live = c[:nv]
+        lib_ms = time_ms(lambda: torch.topk(x @ live.T * inv_tau, k, dim=1))
+        bound_ms, bound_by = bound((b + nv) * d * 4 + b * k * 8,
+                                   2.0 * b * nv * d, "float32")
+        recs[(b, n, k, nv)] = {
+            "shape": f"b={b} n={n} n_valid={nv} d={d} k={k} float32",
+            "plan": topk_ops.topk_plan(b, n, d, k, 4, sms)._asdict(),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"matmul+topk over the valid rows {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    print(f"similarity_topk n_valid: {len(cases)} cases match, sentinels "
+          f"exact; max |value err| f32 {errs['float32']:.3g}, bf16 "
+          f"{errs['bfloat16']:.3g} (tol {TOPK_TOL})", flush=True)
+    for r in recs.values():
+        r["max_abs_err"] = errs["float32"]
+    return recs, errs
+
+
+def fill_clustered(block, centres, seed: int, noise: float = 0.03,
+                   chunk: int = 1 << 20):
+    """Fill ``block`` (rows, d) in place with unit rows: a random row of
+    ``centres`` plus Gaussian noise of ``noise`` per coordinate,
+    re-normalised; drawn on the block's device from ``seed``, ``chunk``
+    rows at a time (no temporary of the block's size)."""
+    import torch
+    g = torch.Generator(device=block.device).manual_seed(seed)
+    for lo in range(0, block.shape[0], chunk):
+        part = block[lo:lo + chunk]
+        part.normal_(0.0, noise, generator=g)
+        pick = torch.randint(0, centres.shape[0], (part.shape[0],),
+                             generator=g, device=block.device)
+        part += centres[pick]
+        part /= part.norm(dim=1, keepdim=True)
+
+
+def unit_centres(n, d, seed):
+    """(n, d) random unit rows on the host from ``seed``."""
+    import torch
+    c = torch.randn((n, d), generator=torch.Generator().manual_seed(seed))
+    return c / c.norm(dim=1, keepdim=True)
+
+
+def scrape(url, path):
+    """(status, body) of GET ``url + path`` on the local endpoint; an HTTP
+    error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url + path, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def retrieval_calls(svc, handle, queries, counter, **kw):
+    """``retrieve`` once warm, once counting the top-k kernel's launches,
+    then RETRIEVAL_CALLS timed calls; returns (result, launches per call,
+    p50 s, p90 s)."""
+    import numpy as np
+    svc.retrieve(queries, handle, k=RETRIEVAL_K, **kw)
+    before = counter.count
+    res = svc.retrieve(queries, handle, k=RETRIEVAL_K, **kw)
+    per_call = counter.count - before
+    lat = []
+    for _ in range(RETRIEVAL_CALLS):
+        t0 = time.perf_counter()
+        svc.retrieve(queries, handle, k=RETRIEVAL_K, **kw)
+        lat.append(time.perf_counter() - t0)
+    return res, per_call, float(np.percentile(lat, 50)), \
+        float(np.percentile(lat, 90))
+
+
+def phase_retrieval(cfg, params, tok):
+    """Phases 45-46: zero-shot retrieval at scale with BASIC-S at full
+    width: a 999,999 × 512 fp32 gallery of 1000 clusters made on the card,
+    64 text queries through the text tower, k 10, through
+    ``ZeroShotService`` in each retrieval mode (fused; sharded over
+    [cuda:0] × 4, the last shard padded; two-stage at nprobe "all" and 8
+    over 1000 blocks), every service with a 10 s SLO. Sharded and
+    two-stage at "all" must equal fused bit for bit; nprobe 8 prints
+    recall@10 against fused, its prune ratio and stage seconds; each
+    gallery is prepared once. Then the live endpoint: /metrics (the
+    serve/slo_* and serve/retrieval_* series), /healthz 200 and
+    /snapshot.json mid-run, and a service whose target is half the fused
+    p50 must answer 503 within its window. Returns the report (the top-k
+    kernel's launches over the modes' calls included)."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.similarity_topk import ops as topk_ops
+    from repro_torch.serving import ZeroShotService
+    from repro_torch.serving import retrieval as rtv
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gallery = torch.empty((RETRIEVAL_N, RETRIEVAL_D), device=dev)
+    fill_clustered(gallery, unit_centres(RETRIEVAL_CLUSTERS, RETRIEVAL_D,
+                                         0).to(dev), seed=1)
+    torch.cuda.synchronize()
+    queries = [f"a photo of item {i}" for i in range(64)]
+    modes = {"fused": {}, "sharded": {"mesh": [dev] * 4},
+             "twostage": {"index_blocks": RETRIEVAL_BLOCKS}}
+    counter = topk_ops.COUNTER
+    counter.reset()
+    out, results = {}, {}
+    for mode, kw in modes.items():
+        with ZeroShotService(cfg, params, tok, device=dev, retrieval=mode,
+                             latency_slo_s=RETRIEVAL_SLO_S, **kw) as svc:
+            t0 = time.perf_counter()
+            handle = svc.prepare_gallery(gallery)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            server = svc.serve_metrics(port=0) if mode == "fused" else None
+            res, per_call, p50, p90 = retrieval_calls(svc, handle, queries,
+                                                      counter)
+            rec = {"prepare_s": prep_s, "p50_s": p50, "p90_s": p90,
+                   "launches_per_call": per_call}
+            results[mode] = res
+            if server is not None:
+                rec["scrape"] = {p: scrape(server.url, p) for p in (
+                    "/metrics", "/healthz", "/snapshot.json")}
+                server.stop()
+            if mode == "twostage":
+                res8, per8, p50_8, p90_8 = retrieval_calls(
+                    svc, handle, queries, counter, nprobe=RETRIEVAL_NPROBE)
+                results["twostage_8"] = res8
+                qemb = torch.as_tensor(svc.embed_texts(queries), device=dev)
+                infos = [rtv.two_stage_topk(qemb, handle.data, handle.index,
+                                            RETRIEVAL_K,
+                                            nprobe=RETRIEVAL_NPROBE)[2]
+                         for _ in range(5)]
+                out["twostage_8"] = {
+                    "p50_s": p50_8, "p90_s": p90_8,
+                    "launches_per_call": per8,
+                    **{k: float(np.median([i[k] for i in infos])) for k in (
+                        "prune_ratio", "coarse_s", "gather_s",
+                        "rerank_s")},
+                    "n_blocks_probed": infos[0]["n_blocks_probed"]}
+            st = svc.stats()
+            rec["uploads"] = st["metrics"]["counters"]["serve/gallery_uploads"]
+            rec["slo"] = st["slo"]
+            out[mode] = rec
+            if mode == "twostage":
+                rec["index_build_s"] = prep_s
+    launches = counter.count
+    fv, fi = results["fused"]
+    exact = {m: bool(np.array_equal(results[m][0], fv)
+                     and np.array_equal(results[m][1], fi))
+             for m in ("sharded", "twostage")}
+    ids8 = results["twostage_8"][1]
+    recall = float(np.mean([len(set(a) & set(b)) / RETRIEVAL_K
+                            for a, b in zip(ids8, fi)]))
+    out["twostage_8"]["recall_at_10"] = recall
+    for mode in ("fused", "sharded", "twostage", "twostage_8"):
+        r = out[mode]
+        print(f"retrieval {mode} (BASIC-S text tower, 64 queries x "
+              f"{RETRIEVAL_N} x {RETRIEVAL_D} f32, k {RETRIEVAL_K}): p50 "
+              f"{r['p50_s'] * 1e3:.3f} ms, p90 {r['p90_s'] * 1e3:.3f} ms "
+              f"over {RETRIEVAL_CALLS} calls; topk_fused launches a call "
+              f"{r['launches_per_call']}"
+              + (f"; prepared in {r['prepare_s']:.3f} s, gallery uploads "
+                 f"{r['uploads']}" if "prepare_s" in r else ""),
+              flush=True)
+    t8 = out["twostage_8"]
+    print(f"retrieval twostage nprobe {RETRIEVAL_NPROBE}: recall@10 vs fused "
+          f"{recall:.4f}, prune ratio {t8['prune_ratio']:.4f} "
+          f"({t8['n_blocks_probed']} of {RETRIEVAL_BLOCKS} blocks), coarse "
+          f"{t8['coarse_s'] * 1e3:.3f} ms, gather {t8['gather_s'] * 1e3:.3f} "
+          f"ms, rerank {t8['rerank_s'] * 1e3:.3f} ms; index build "
+          f"{out['twostage']['index_build_s']:.3f} s; sharded / twostage "
+          f"'all' equal fused bit for bit: {exact}", flush=True)
+    if not all(exact.values()):
+        raise AssertionError(f"retrieval: a mode differs from fused: {exact}")
+    want = {"fused": 1, "sharded": 4, "twostage": 1, "twostage_8": 1}
+    got = {m: out[m]["launches_per_call"] for m in want}
+    if got != want or any(out[m]["uploads"] != 1 for m in modes):
+        raise AssertionError(f"retrieval: launches a call {got} (want "
+                             f"{want}) or a gallery uploaded twice")
+    if not (fv.shape == (64, RETRIEVAL_K) and np.isfinite(fv).all()
+            and (fi >= 0).all() and (fi < RETRIEVAL_N).all()):
+        raise AssertionError("retrieval: malformed fused result")
+
+    # phase 46: the live endpoint, and an SLO the service cannot meet
+    scraped = out["fused"].pop("scrape")
+    code, text = scraped["/metrics"]
+    series = ("serve_slo_requests", "serve_slo_p99_s",
+              "serve_slo_error_budget_burn", "serve_slo_ready",
+              "serve_retrieval_latency_s_bucket")
+    missing = [s for s in series if s not in text]
+    health_code, health = scraped["/healthz"]
+    snap_code, snap = scraped["/snapshot.json"]
+    snap = _json.loads(snap)
+    if code != 200 or missing or health_code != 200 or snap_code != 200 \
+            or "serve/slo_requests" not in snap["counters"]:
+        raise AssertionError(f"live endpoint: /metrics {code} missing "
+                             f"{missing}, /healthz {health_code}, "
+                             f"/snapshot.json {snap_code}")
+    tight = out["fused"]["p50_s"] / 2
+    with ZeroShotService(cfg, params, tok, device=dev,
+                         latency_slo_s=tight) as svc:
+        handle = svc.prepare_gallery(gallery)
+        server = svc.serve_metrics(port=0)
+        before = scrape(server.url, "/healthz")[0]
+        for _ in range(4):
+            svc.retrieve(queries, handle, k=RETRIEVAL_K)
+        after_code, after = scrape(server.url, "/healthz")
+        server.stop()
+    print(f"live endpoint: /metrics 200 with {series}, /healthz "
+          f"{health_code} {health.strip()}; at a target of "
+          f"{tight * 1e3:.3f} ms (half the fused p50) /healthz went "
+          f"{before} -> {after_code} {after.strip()}", flush=True)
+    if (before, after_code) != (200, 503):
+        raise AssertionError(f"live endpoint: /healthz {before} -> "
+                             f"{after_code} under an unmet SLO")
+    out["healthz_flip"] = [before, after_code]
+    out["exact"] = exact
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"retrieval phases: {out['seconds']:.1f} s", flush=True)
+    del gallery
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 47: the trainer's health tier on the card
+# ---------------------------------------------------------------------------
+
+HEALTH_ARGV = ["--arch", "basic-s", "--batch", "256", "--num-micro", "2",
+               "--loss", "chunked", "--precision", "f32", "--attn", "pallas",
+               "--steps", "3", "--lr", "1e-3", "--seed", "0", "--quiet",
+               "--health", "--metrics-port", "0"]
+HEALTH_NAN_STEP = 1
+
+
+@contextlib.contextmanager
+def step_inputs(log):
+    """Within the block, the contrastive step that
+    ``launch.steps.make_contrastive_step`` builds appends each call's
+    incoming (params, opt_state) to ``log``."""
+    from repro_torch.launch import steps as st
+    make = st.make_contrastive_step
+
+    def recording(*a, **kw):
+        step_fn, opt = make(*a, **kw)
+
+        def step(params, opt_state, batch):
+            log.append((params, opt_state))
+            return step_fn(params, opt_state, batch)
+        return step, opt
+    st.make_contrastive_step = recording
+    try:
+        yield log
+    finally:
+        st.make_contrastive_step = make
+
+
+def nan_batch_hook(run_dir, probes, nan_step=HEALTH_NAN_STEP,
+                   probe_step=HEALTH_NAN_STEP + 1):
+    """A step fault hook: the image batch of ``nan_step`` times NaN, and at
+    ``probe_step`` a scrape of the run's live /healthz (its port read from
+    ``<run_dir>/metrics_port``) into ``probes``."""
+    def hook(step, batch):
+        if step == nan_step:
+            images = dict(batch["images"])
+            images["image"] = batch["images"]["image"] * float("nan")
+            batch = dict(batch, images=images)
+        if step == probe_step:
+            with open(os.path.join(run_dir, "metrics_port")) as f:
+                port = int(f.read())
+            probes["healthz"] = scrape(f"http://127.0.0.1:{port}",
+                                       "/healthz")
+        return batch
+    return hook
+
+
+def health_outcome(run_dir, losses, inputs, probes,
+                   nan_step=HEALTH_NAN_STEP):
+    """The checks of a ``--health`` run with a NaN batch at ``nan_step``:
+    only that step's loss is not finite, ``health/steps_skipped`` is 1, the
+    nonfinite detector fired critical at that step, a flight dump exists,
+    the params and optimizer state after the step equal those before it
+    (and step 0 changed them), and /healthz answered 200 mid-run. Returns
+    the summary; raises on a failed check."""
+    import math
+
+    import torch
+    from repro_torch.obs import runlog
+    from repro_torch.tree import tree_leaves
+    recs = runlog.read_runlog(os.path.join(run_dir, "runlog.jsonl"))
+    anomalies = [r for r in recs if r["kind"] == "anomaly"]
+    final = [r for r in recs if r["kind"] == "metrics"][-1]
+    skipped = final["counters"].get("health/steps_skipped")
+    steps = {r["step"]: r for r in recs if r["kind"] == "step"}
+    dumps = sorted(os.listdir(os.path.join(run_dir, "flight"))) \
+        if os.path.isdir(os.path.join(run_dir, "flight")) else []
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+    kept = same(inputs[nan_step], inputs[nan_step + 1])
+    moved = not same(inputs[0][0], inputs[1][0])
+    finite = [math.isfinite(v) for v in losses]
+    out = {"losses": losses, "steps_skipped": skipped,
+           "anomalies": [(a["detector"], a["step"], a["severity"])
+                         for a in anomalies],
+           "flight_dumps": dumps, "state_kept": kept,
+           "step0_moved": moved, "healthz": probes.get("healthz", (None,))[0],
+           "skipped_record": steps[nan_step].get("skipped")}
+    ok = (finite == [i != nan_step for i in range(len(losses))]
+          and skipped == 1 and kept and moved and out["healthz"] == 200
+          and anomalies and all(a == ("nonfinite", nan_step, "critical")
+                                for a in out["anomalies"])
+          and dumps == [f"step{nan_step:06d}_nonfinite"]
+          and out["skipped_record"] == 1)
+    if not ok:
+        raise AssertionError(f"health run: {out}")
+    return out
+
+
+def phase_train_health():
+    """Phase 47: ``train_distributed.main --health --metrics-port 0`` at one
+    rank, BASIC-S at full width, f32, B 256 in 2 microbatches, 3 steps,
+    with a NaN image batch at step 1 through ``set_step_fault_hook``: the
+    guard skips exactly that step (params and optimizer state unchanged),
+    the nonfinite detector fires critical, a flight dump is written, steps
+    0 and 2 are finite and /healthz answers 200 mid-run."""
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.obs import health
+    run_dir = os.path.join(CKPT_ROOT, "health")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    probes, inputs = {}, []
+    t0 = time.perf_counter()
+    health.set_step_fault_hook(nan_batch_hook(run_dir, probes))
+    try:
+        with step_inputs(inputs):
+            losses = td.main(HEALTH_ARGV + ["--run-dir", run_dir])
+    finally:
+        health.set_step_fault_hook(None)
+    out = health_outcome(run_dir, losses, inputs, probes)
+    del inputs
+    out["seconds"] = time.perf_counter() - t0
+    print(f"train health (BASIC-S f32, B 256, NaN batch at step "
+          f"{HEALTH_NAN_STEP}): losses {losses}; health/steps_skipped "
+          f"{out['steps_skipped']}, anomalies {out['anomalies']}, flight "
+          f"dumps {out['flight_dumps']}, params and optimizer state kept "
+          f"through the skipped step: {out['state_kept']}, /healthz "
+          f"mid-run {out['healthz']} ({out['seconds']:.1f} s)", flush=True)
+    shutil.rmtree(run_dir)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4524,10 +4983,12 @@ DIST_LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "1024",
 DIST_RESUME_RTOL = 1e-4            # tests/test_train_distributed.py:56
 # phases 41-43: (world, model extent, --sharding) of the trainer on gloo
 # ranks sharing the card: BASIC-S at full width on 1 layer a tower (of 8
-# and 6), f32, global B 256, 2 steps, and Llama-3.2-1B at full width on 1
-# of its 16 layers, b 2 x s 1024, 2 steps, at (1, 2). The script's time
-# limit keeps them this shallow: on an H100 41-43 took 461.7 s at 2
-# layers and 3 steps, and the script 1078.4 s with phase 43 alone there
+# and 6), f32, global B 256, 1 step (its lr is constant, so the step
+# moves every leaf), and Llama-3.2-1B at full width on 1 of its 16 layers,
+# b 2 x s 1024, 2 steps (the warmup's lr is 0 at step 0), at (1, 2). The
+# script's time limit keeps them this shallow: on an H100 41-43 took
+# 461.7 s at 2 layers and 3 steps, the script 1078.4 s with phase 43
+# alone there, and 1165.6 s at 2 steps with phases 44-47 added
 WS_GRIDS = ((2, 2, "basic_ws"), (4, 2, "basic_ws"), (2, 2, "replicated"),
             (2, 2, "tp"), (4, 2, "tp"))
 WS_MOVED_SHARE = 1e-3          # tests/test_torch_train_distributed.py:120-131
@@ -4535,7 +4996,7 @@ WS_MOVED_SHARE = 1e-3          # tests/test_torch_train_distributed.py:120-131
 WS_ARCHS = (("basic-s", "basic-s-1layer", 1),
             ("llama3.2-1b", "llama3.2-1b-1of16", 1))
 WS_ARGV = ["--arch", WS_ARCHS[0][1]] + DIST_GLOO_ARGV[2:-3] + [
-    "--steps", "2", "--quiet"]
+    "--steps", "1", "--quiet"]
 WS_LM_ARGV = ["--arch", WS_ARCHS[1][1], "--batch", "2", "--seq", "1024",
               "--attn", "pallas", "--steps", "2", "--quiet", "--lr", "3e-3"]
 # the runs of each rule: --sharding -> (contrastive argv, LM argv or None)
@@ -5095,7 +5556,7 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda"):
     the (2, 2) runs; the gloo collectives go through the host).
 
     Phase 41: BASIC-S at full width on 1 layer a tower (``WS_RUNS``),
-    f32, global B 256, 2 steps, at (data 1, model 2) and (2, 2) under
+    f32, global B 256, 1 step, at (data 1, model 2) and (2, 2) under
     ``basic_ws`` and (1, 2) under ``replicated``. Each rank's losses must
     match the one-rank run on the same global batch within rtol 1e-4;
     each rank's resident params and first moment are 1/M of the split
@@ -5272,6 +5733,8 @@ def main() -> int:
     launches, cfg, params, tok = phase_main_path()
     per_call = phase_profile(cfg, params, tok)
     registry = phase_registry_disk(cfg, params, tok)
+    n_valid, n_valid_errs = phase_topk_n_valid()
+    retrieval = phase_retrieval(cfg, params, tok)
     del params
     train_parity = phase_train_parity()
     train_launches, train_per_step, _ = phase_train_timed()
@@ -5334,6 +5797,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cross_shard = phase_cross_shard_loss()
     dist_train = phase_dist_train()
+    torch.cuda.empty_cache()
+    train_health = phase_train_health()
     torch.cuda.empty_cache()
     dist_gloo = phase_dist_train_gloo()
     torch.cuda.empty_cache()
@@ -5511,6 +5976,16 @@ def main() -> int:
          "block_rows_ms": topk["block_rows_ms"],
          "recipe_launches": recipe_of(topk_ops.COUNTER.name),
          "device_kernels_per_call": per_call[topk_ops.COUNTER.name]},
+        {"name": "topk_fused (n_valid)", "route": "cuda",
+         "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
+         "launches": retrieval["launches"],
+         **{k: n_valid[NV_SHARD][k] for k in (*timing, "shape", "plan")},
+         "max_abs_err_bf16": n_valid_errs["bfloat16"],
+         "cases": [{k: r[k] for k in ("shape", *timing)}
+                   for r in n_valid.values()],
+         "retrieval_launches_per_call": {
+             m: retrieval[m]["launches_per_call"]
+             for m in ("fused", "sharded", "twostage", "twostage_8")}},
         train_entry(fa_ops.BWD_COUNTER.name, FLASH_BWD_SOURCE,
                     FLASH_BWD_REPLACES, b_main, max_abs_err_bf16=b_bf16,
                     **{k: b_main[k] for k in ("device_ms", "plan")},
@@ -5702,6 +6177,16 @@ def main() -> int:
           f"{max(r['loss_rel_err'] for k, r in cross_shard.items() if k[-1] == 'float32'):.3g}"
           f"; R=2 gloo trainer losses {dist_gloo['losses'][0]} vs R=1 "
           f"{dist_gloo['r1_losses']}", flush=True)
+    t8 = retrieval["twostage_8"]
+    print(f"retrieval: BASIC-S 64 queries x {RETRIEVAL_N} rows, k "
+          f"{RETRIEVAL_K}, p50 / p90 ms: " + ", ".join(
+              f"{m} {retrieval[m]['p50_s'] * 1e3:.3f} / "
+              f"{retrieval[m]['p90_s'] * 1e3:.3f}"
+              for m in ("fused", "sharded", "twostage", "twostage_8"))
+          + f"; nprobe {RETRIEVAL_NPROBE} recall@10 {t8['recall_at_10']:.4f}"
+          f"; /healthz {retrieval['healthz_flip']} under an unmet SLO; "
+          f"train health: skipped {train_health['steps_skipped']} step, "
+          f"state kept {train_health['state_kept']}", flush=True)
     print(f"train profile busy share {busy:.4f}; decode profile busy share "
           f"{dec_busy:.4f}; ssm prefill profile busy share "
           f"{ssm_prefill_busy:.4f}; ssm decode profile busy share "

@@ -256,7 +256,7 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[TM][kTN],
 template <typename T, int BM>
 __global__ void __launch_bounds__(TopkLayout<T, BM>::kThreads)
 topk_kernel(const T* __restrict__ x, const T* __restrict__ c, float inv_tau,
-            int B, int N, int Dm, int K, int chunk, int P, int NB,
+            int B, int N, int NV, int Dm, int K, int chunk, int P, int NB,
             float* __restrict__ part_v, int* __restrict__ part_i,
             float* __restrict__ group_v, int* __restrict__ group_i,
             unsigned* __restrict__ counters, float* __restrict__ out_v,
@@ -344,8 +344,9 @@ topk_kernel(const T* __restrict__ x, const T* __restrict__ c, float inv_tau,
       unsigned live = 0;
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
-        val[j] = acc[i][j] * inv_tau;
         id[j] = cls0 + cx + 16 * j;
+        // a column at or past n_valid scores kNeg under its own id
+        val[j] = id[j] < NV ? acc[i][j] * inv_tau : kNeg;
         if (row0 + rl < B && j < jn && id[j] < c_hi &&
             better(val[j], id[j], thv, thi))
           live |= 1u << j;
@@ -519,9 +520,10 @@ topk_kernel(const T* __restrict__ x, const T* __restrict__ c, float inv_tau,
 }
 
 template <typename T, int BM>
-cudaError_t launch(const void* x, const void* c, int b, int n, int d, int k,
-                   float inv_tau, int chunk, int parts, int nb, void* part_v,
-                   void* part_i, void* group_v, void* group_i,
+cudaError_t launch(const void* x, const void* c, int b, int n, int n_valid,
+                   int d, int k, float inv_tau, int chunk, int parts,
+                   int nb, void* part_v, void* part_i, void* group_v,
+                   void* group_i,
                    void* counters, void* out_v, void* out_i,
                    cudaStream_t stream) {
   using L = TopkLayout<T, BM>;
@@ -542,8 +544,8 @@ cudaError_t launch(const void* x, const void* c, int b, int n, int d, int k,
   }
   const dim3 grid(parts, (b + BM - 1) / BM);
   topk_kernel<T, BM><<<grid, L::kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(c), inv_tau, b, n, d,
-      k, chunk, parts, nb, static_cast<float*>(part_v),
+      static_cast<const T*>(x), static_cast<const T*>(c), inv_tau, b, n,
+      n_valid, d, k, chunk, parts, nb, static_cast<float*>(part_v),
       static_cast<int*>(part_i), static_cast<float*>(group_v),
       static_cast<int*>(group_i), static_cast<unsigned*>(counters),
       static_cast<float*>(out_v), static_cast<int*>(out_i));
@@ -553,6 +555,8 @@ cudaError_t launch(const void* x, const void* c, int b, int n, int d, int k,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. block_m: image rows per CTA, 16 or 64.
+// n_valid in [0, n]: classes at or past it score -1e30 under their own id
+// (the reference's runtime mask; n_valid = n masks nothing).
 // CTA p takes classes [p·chunk, (p+1)·chunk); parts CTAs cover n. merge_nb: 1 or 2 row buffers
 // per warp in a merge. part_v/part_i: (b, pks) fp32 / int32 scratch, pks =
 // parts·k rounded up to a multiple of 4; group_v/group_i: (b, gks), gks =
@@ -561,13 +565,14 @@ cudaError_t launch(const void* x, const void* c, int b, int n, int d, int k,
 // (b, k). Returns the CUDA error code of the launch.
 extern "C" int repro_similarity_topk(const void* x, const void* c, int dtype,
                                      int b, int n, int d, int k,
-                                     float inv_tau, int block_m, int chunk,
+                                     int n_valid, float inv_tau, int block_m, int chunk,
                                      int parts, int merge_nb,
                                      void* part_v, void* part_i,
                                      void* group_v, void* group_i,
                                      void* counters, void* out_v,
                                      void* out_i, void* stream) {
-  if (b < 1 || n < 1 || d < 1 || k < 1 || k > kMaxK || k > n || chunk < 1 ||
+  if (b < 1 || n < 1 || d < 1 || k < 1 || k > kMaxK || k > n || n_valid < 0 ||
+      n_valid > n || chunk < 1 ||
       parts < 1 || parts > kMaxParts || (long long)chunk * parts < n ||
       (long long)chunk * (parts - 1) >= n || merge_nb < 1 || merge_nb > 2 ||
       (b + block_m - 1) / block_m > 65535)
@@ -575,9 +580,9 @@ extern "C" int repro_similarity_topk(const void* x, const void* c, int dtype,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_TOPK_LAUNCH(T, DT, BM)                                        \
   if (dtype == DT && block_m == BM)                                         \
-    return (int)launch<T, BM>(x, c, b, n, d, k, inv_tau, chunk, parts,      \
-                              merge_nb, part_v, part_i, group_v, group_i,   \
-                              counters, out_v, out_i, st);
+    return (int)launch<T, BM>(x, c, b, n, n_valid, d, k, inv_tau, chunk,   \
+                              parts, merge_nb, part_v, part_i, group_v,     \
+                              group_i, counters, out_v, out_i, st);
   REPRO_TOPK_LAUNCH(float, 0, 16)
   REPRO_TOPK_LAUNCH(float, 0, 64)
   REPRO_TOPK_LAUNCH(__nv_bfloat16, 1, 16)

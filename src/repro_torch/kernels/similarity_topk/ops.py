@@ -5,6 +5,10 @@
 indices)`` of ``image_emb @ class_emb.T * inv_tau`` per row, descending,
 ties to the lower class id, as the reference's ``topk_fused`` +
 ``ops.similarity_topk`` do (``repro/kernels/similarity_topk/kernel.py:85``).
+``n_valid`` is the reference's runtime mask: classes at or past it score
+``NEG`` under their own ids (the sharded path masks each shard's padded
+tail with it), so with fewer than k valid classes the tail of a row is
+``(NEG, masked id)``, ahead of the empty slots' ``(NEG, IDX_PAD)``.
 
 On the card the class axis is split across CTAs: serving batches are at
 most 64 rows, so one CTA per row block (the TPU's grid) would occupy one
@@ -30,10 +34,9 @@ import torch
 
 from repro_torch.kernels.build import (KernelLibrary, LaunchCounter,
                                       StreamScratch, check, device_scope)
-from repro_torch.kernels.similarity_topk.ref import similarity_topk_ref
+from repro_torch.kernels.similarity_topk.ref import NEG, similarity_topk_ref
 
 MAX_K = 64           # the kernel keeps a running top-k of at most 64 slots
-NEG = -1e30          # sentinel value: below any real similarity
 IDX_PAD = 2 ** 30    # sentinel index: above any real class id
 
 CLASS_TILE = 128     # classes per tile in the kernel (csrc kBN)
@@ -51,7 +54,7 @@ LIB = KernelLibrary(
     "topk",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "topk.cu"),
-    {"repro_similarity_topk": (_I, [_P, _P] + [_I] * 5 + [ctypes.c_float]
+    {"repro_similarity_topk": (_I, [_P, _P] + [_I] * 6 + [ctypes.c_float]
                                + [_I] * 4 + [_P] * 8)})
 COUNTER = LaunchCounter("similarity_topk")
 SCRATCH = StreamScratch()
@@ -180,15 +183,17 @@ def merge_topk(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
 
 def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
                     *, inv_tau: float = 1.0,
-                    block_rows: Optional[int] = None):
+                    block_rows: Optional[int] = None,
+                    n_valid: Optional[int] = None):
     """Top-k similarities of each image row against every class row.
 
     image_emb: (b, d); class_emb: (n, d), f32 or bf16 (accumulated in
     fp32); 1 <= k <= min(n, MAX_K). Returns (values (b, k) fp32, indices
     (b, k) int32), rows sorted descending, ties broken by the lower class
-    id. ``block_rows`` (one of ``BLOCK_ROWS``) overrides the kernel's image
-    rows per CTA, which ``row_block`` picks otherwise. One call launches
-    one device kernel."""
+    id. ``n_valid`` (an int in [0, n]; None means n): classes at or past
+    it score ``NEG`` and keep their ids. ``block_rows`` (one of
+    ``BLOCK_ROWS``) overrides the kernel's image rows per CTA, which
+    ``row_block`` picks otherwise. One call launches one device kernel."""
     if image_emb.dim() != 2 or class_emb.dim() != 2:
         raise ValueError("expected image_emb (b, d) and class_emb (n, d)")
     b, d = image_emb.shape
@@ -202,8 +207,12 @@ def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
         raise ValueError(f"k={k} > MAX_K={MAX_K}")
     if block_rows is not None and block_rows not in BLOCK_ROWS:
         raise ValueError(f"block_rows={block_rows} not in {BLOCK_ROWS}")
+    n_valid = n if n_valid is None else int(n_valid)
+    if not 0 <= n_valid <= n:
+        raise ValueError(f"n_valid={n_valid} must be in [0, n={n}]")
     if image_emb.device.type == "cpu":
-        return similarity_topk_ref(image_emb, class_emb, k, inv_tau)
+        return similarity_topk_ref(image_emb, class_emb, k, inv_tau,
+                                   n_valid)
     if image_emb.device.type != "cuda":
         raise ValueError(f"similarity_topk runs on cpu or cuda, not "
                          f"{image_emb.device}")
@@ -230,9 +239,10 @@ def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
     with device_scope(dev):
         rc = LIB.lib().repro_similarity_topk(
             image_emb.data_ptr(), class_emb.data_ptr(),
-            _DTYPES[image_emb.dtype], b, n, d, k, float(inv_tau), plan.rows,
-            plan.chunk, plan.parts, plan.merge_buffers, part_v, part_i,
-            part_v + 4 * b * plan.stride, part_i + 4 * b * plan.stride,
+            _DTYPES[image_emb.dtype], b, n, d, k, n_valid, float(inv_tau),
+            plan.rows, plan.chunk, plan.parts, plan.merge_buffers, part_v,
+            part_i, part_v + 4 * b * plan.stride,
+            part_i + 4 * b * plan.stride,
             counters.data_ptr(), vals.data_ptr(), idx.data_ptr(),
             stream.cuda_stream)
     if rc != 0:

@@ -42,8 +42,12 @@ prompt lengths around ``--prompt-len``, as the reference does, and reports
 tokens/s, slot occupancy and admission wait from the engine's registry,
 and the decode-step median and p90 (host clock around each step, which
 ends when the logits are on the host). It runs on the card unless given
-``--device cpu`` and raises without a card otherwise. ``--slo-ms`` and
-``--metrics-port`` wait for the serving-leftovers slice of the port.
+``--device cpu`` and raises without a card otherwise. ``--slo-ms`` arms
+the continuous engine's SLO tracker (end-to-end request latency against
+the target: windowed p99, error-budget burn and readiness under
+``decode/slo_*``, and an ``slo:`` report line); ``--metrics-port P``
+serves ``/metrics``, ``/healthz`` and ``/snapshot.json`` on 127.0.0.1:P
+(0 picks a free port) while the requests run.
 """
 from __future__ import annotations
 
@@ -102,11 +106,19 @@ def run_legacy(cfg, params, args, moe_args=None) -> dict:
 
 def run_continuous(cfg, params, args, moe_args=None) -> dict:
     """Drive ``--requests`` synthetic requests through the continuous
-    engine; returns the report (timings in seconds)."""
+    engine; returns the report (timings in seconds; ``slo``, the
+    tracker's status, under ``--slo-ms``)."""
+    slo_ms = getattr(args, "slo_ms", None)
     eng = ContinuousEngine(cfg, params, cache_len=args.cache_len,
                            num_slots=args.slots, precision=args.precision,
                            attn=args.attn, moe_args=moe_args,
-                           temperature=args.temperature, seed=args.seed)
+                           temperature=args.temperature, seed=args.seed,
+                           latency_slo_s=slo_ms / 1e3 if slo_ms else None)
+    server = None
+    if getattr(args, "metrics_port", None) is not None:
+        server = eng.serve_metrics(port=args.metrics_port)
+        print(f"obs: serving /metrics /healthz /snapshot.json on "
+              f"{server.url}")
     rng = np.random.default_rng(args.seed)
     # ragged prompts around --prompt-len so admission sees mixed shapes
     lens = np.clip(args.prompt_len + rng.choice([-4, 0, 4, 8], args.requests),
@@ -174,8 +186,16 @@ def run_continuous(cfg, params, args, moe_args=None) -> dict:
           f"{(hist['p50'] or 0.0) * 1e3:.3f}ms p90~"
           f"{(hist['p90'] or 0.0) * 1e3:.3f}ms); prefill mean "
           f"{rep['prefill_mean_s'] * 1e3:.3f}ms per request")
+    if "slo" in snap:
+        s = rep["slo"] = snap["slo"]
+        print(f"slo: p99 {s['p99_s'] * 1e3:.1f}ms vs target "
+              f"{s['target_s'] * 1e3:.1f}ms  burn "
+              f"{s['error_budget_burn']:.2f}  "
+              f"{'READY' if s['healthy'] else 'NOT READY'}")
     for rid in sorted(done)[:4]:
         print(f"  req {rid}:", done[rid][:16].tolist(), "...")
+    if server is not None:
+        server.stop()
     return rep
 
 
@@ -214,9 +234,14 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "kernel), decode through resolve_decode_backend "
                          "('pallas' = the split-K decode kernel)")
     ap.add_argument("--slo-ms", type=float, default=None,
-                    help="[continuous] latency SLO (not ported yet)")
+                    help="[continuous] end-to-end request latency SLO "
+                         "target in ms (submit to finish, queue wait "
+                         "included): windowed p99 + error-budget burn "
+                         "under decode/slo_*")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="[continuous] live /metrics (not ported yet)")
+                    help="[continuous] serve live /metrics /healthz "
+                         "/snapshot.json on 127.0.0.1:PORT "
+                         "(0 = ephemeral)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -226,12 +251,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     report (with ``device`` and, on the card, ``max_memory_allocated``
     over the whole run, weights included)."""
     args = parse_args(argv)
-    for flag, value in (("--slo-ms", args.slo_ms),
-                        ("--metrics-port", args.metrics_port)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag} comes with the serving-leftovers slice of the port "
-                f"(obs/health.py, obs/export.py)")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

@@ -91,9 +91,25 @@ def value_and_grad(loss_fn, params):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def guard_nonfinite(loss, gnorm, new_params, new_opt, params, opt_state):
+    """The step guard: where ``loss`` or the gradient norm ``gnorm`` is
+    not finite, the incoming params and optimizer state, else the new ones
+    (an elementwise ``torch.where``, no host synchronisation). Returns
+    (params, opt_state, skipped: 0/1 int32)."""
+    with torch.no_grad():
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+
+        def keep(n, o):
+            return torch.where(ok, n, o)
+        new_params = tree_map(keep, new_params, params)
+        new_opt = type(new_opt)(*(tree_map(keep, n, o) for n, o in
+                                  zip(new_opt, opt_state)))
+    return new_params, new_opt, (~ok).to(torch.int32)
+
+
 def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
             *, precision, remat_policy=None, moe_args=None, mesh=None,
-            layout=None):
+            layout=None, skip_nonfinite: bool = False):
     """One LM training step: ``transformer.lm_loss`` (with ``moe_args``)
     and its gradients, then one ``opt`` update at ``lr`` (a float, or a
     schedule of the step count before the update). With a ``mesh``
@@ -103,8 +119,12 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
     the rank count; under a 'tp' layout over the data shards, whose model
     ranks share a block) and ``metrics`` gains the global gradient norm
     ``grad_norm``. ``layout``: the params' weight-sharding layout when
-    they are this rank's parts. Returns train_step(params, opt_state,
-    batch) -> (params, opt_state, loss, metrics)."""
+    they are this rank's parts. ``skip_nonfinite=True`` arms the step
+    guard (``guard_nonfinite``): a step whose loss or gradient norm is not
+    finite keeps the incoming state, and ``metrics`` gains ``grad_norm``
+    and a 0/1 int32 ``skipped``; finite steps take exactly the unguarded
+    update. Returns train_step(params, opt_state, batch) -> (params,
+    opt_state, loss, metrics)."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(
             lambda p: tf.lm_loss(cfg, p, batch, precision=precision,
@@ -117,12 +137,18 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
                 grads = tree_map(lambda g: g / n,
                                  ws.sum_grads(grads, mesh, layout))
                 loss = group.all_reduce(loss) / n
+        if mesh is not None or skip_nonfinite:
             with torch.no_grad():
                 metrics = dict(metrics, grad_norm=torch.sqrt(
                     ws.sq_norm(grads, layout)))
         step_lr = lr(opt_state.step) if callable(lr) else lr
         new_params, new_opt = opt.apply(grads, opt_state, params, step_lr,
                                         layout)
+        if skip_nonfinite:
+            new_params, new_opt, skipped = guard_nonfinite(
+                loss, metrics["grad_norm"], new_params, new_opt, params,
+                opt_state)
+            metrics = dict(metrics, skipped=skipped)
         return new_params, new_opt, loss, metrics
 
     return train_step
@@ -242,12 +268,11 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
     weight decay still moves it to p·(1 − lr·weight_decay) each step, and
     its second-moment slots still take in ``eps``.
 
-    ``skip_nonfinite=True`` arms the step guard: the step also computes the
-    global gradient norm and, when the loss or that norm is not finite,
-    keeps the incoming params and optimizer state through an elementwise
-    ``torch.where`` (no host synchronisation); ``metrics`` gains
-    ``grad_norm`` and a 0/1 int32 ``skipped``. Finite steps take exactly
-    the unguarded update.
+    ``skip_nonfinite=True`` arms the step guard (``guard_nonfinite``): the
+    step also computes the global gradient norm and, when the loss or that
+    norm is not finite, keeps the incoming params and optimizer state;
+    ``metrics`` gains ``grad_norm`` and a 0/1 int32 ``skipped``. Finite
+    steps take exactly the unguarded update.
 
     Returns (train_step, opt); train_step(params, opt_state, batch) ->
     (params, opt_state, loss, metrics)."""
@@ -306,16 +331,9 @@ def make_contrastive_step(dual_cfg, *, num_micro: int = 8,
         new_params, new_opt = opt.apply(grads, opt_state, params, step_lr,
                                         layout)
         if skip_nonfinite:
-            with torch.no_grad():
-                ok = torch.isfinite(loss_val) & torch.isfinite(gnorm)
-
-                def keep(n, o):
-                    return torch.where(ok, n, o)
-                new_params = tree_map(keep, new_params, params)
-                new_opt = type(new_opt)(*(tree_map(keep, n, o) for n, o in
-                                          zip(new_opt, opt_state)))
-            metrics = dict(metrics, grad_norm=gnorm,
-                           skipped=(~ok).to(torch.int32))
+            new_params, new_opt, skipped = guard_nonfinite(
+                loss_val, gnorm, new_params, new_opt, params, opt_state)
+            metrics = dict(metrics, grad_norm=gnorm, skipped=skipped)
         return new_params, new_opt, loss_val, metrics
 
     return train_step, opt

@@ -101,13 +101,29 @@ device-step / ckpt-stall split; data-wait includes the copy of the batch
 to the card), checkpoint and resume markers, and a final metrics snapshot,
 and exports a Chrome trace (``trace.json``). Summarise with ``python -m
 repro_torch.obs.report <run-dir>/runlog.jsonl``. ``--memstats`` (the
-compiled memory report) waits for the port's tooling, ``--health`` and
-``--metrics-port`` for its health tier: they raise NotImplementedError.
+compiled memory report) waits for the port's tooling: it raises
+NotImplementedError.
+
+Health (DESIGN.md §14): ``--health`` arms the anomaly detectors on rank 0
+(non-finite loss or gradient norm, gradient-norm and loss spikes by a
+windowed MAD z-score, loss plateau, data-wait stall, per-host straggler
+skew): anomalies become runlog records, trace instants, ``health/*``
+counters and flight-recorder dumps under ``<run-dir>/flight/``. It also
+arms the step guard on every rank (``steps.guard_nonfinite``): a step
+whose global loss or gradient norm is not finite keeps the incoming
+params and optimizer state on the device, and finite steps are bit for
+bit the unguarded ones. ``--metrics-port P`` serves ``/metrics``,
+``/healthz`` (the monitor's status) and ``/snapshot.json`` from rank 0
+on 127.0.0.1:P for the whole run (0 picks a free port, written to
+``<run-dir>/metrics_port``). The step fault hook
+(``obs.health.set_step_fault_hook``) sees every rank's batch on the
+device right before the step: the seam the NaN-injection checks drive.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import signal
 import threading
@@ -135,6 +151,8 @@ from repro_torch.models import frontends
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ALIASES, available_backends
 from repro_torch.models.precision import list_policies as precisions
+from repro_torch.obs import export as obs_export
+from repro_torch.obs import health as obs_health
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import runlog as obs_runlog
 from repro_torch.obs import trace as obs_trace
@@ -229,16 +247,43 @@ def _make_obs(args, resumed_from, mesh):
     return registry, tracer, runlog, run_dir
 
 
+def _make_health(args, registry, tracer, runlog, run_dir, mesh):
+    """Rank 0's active monitoring: a ``HealthMonitor`` under ``--health``
+    (the default detector set, its flight recorder writing into the run
+    dir) and a started ``MetricsServer`` under ``--metrics-port`` (0 =
+    ephemeral; the bound port is written to ``<run_dir>/metrics_port``).
+    Either can be on without the other; ``/healthz`` reports the
+    monitor's status when both are. Returns (monitor, server), None on
+    the other ranks."""
+    monitor = server = None
+    if mesh.rank != 0:
+        return monitor, server
+    if getattr(args, "health", False):
+        monitor = obs_health.HealthMonitor(registry=registry, tracer=tracer,
+                                           runlog=runlog, run_dir=run_dir)
+    port = getattr(args, "metrics_port", None)
+    if port is not None:
+        server = obs_export.MetricsServer(
+            registry, health=monitor.status if monitor else None,
+            port=int(port), run_dir=run_dir).start()
+        if not getattr(args, "quiet", False):
+            print(f"obs: serving /metrics /healthz /snapshot.json on "
+                  f"{server.url}")
+    return monitor, server
+
+
 def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
               device, ckpt_meta_fn=None, registry=None, tracer=None,
-              runlog=None, run_dir=None, part=(0, 1), dims=None):
+              runlog=None, run_dir=None, part=(0, 1), dims=None,
+              monitor=None, server=None):
     """The step / log / checkpoint loop from step ``start``; returns the
     per-step losses. ``stream`` yields a numpy block of each step from
     ``start`` on (drawn ahead on a prefetch thread; its sub-block ``part``
-    is moved to ``device`` on the loop's thread) and is closed when the
-    loop ends; ``ckpt_meta_fn(next_step) -> dict`` is the user meta of
-    every checkpoint (the loader's state); ``dims`` the split dims of the
-    leaves of (params, opt_state) when they are parts (None: whole).
+    is moved to ``device`` on the loop's thread, then passed through the
+    step fault hook) and is closed when the loop ends;
+    ``ckpt_meta_fn(next_step) -> dict`` is the user meta of every
+    checkpoint (the loader's state); ``dims`` the split dims of the leaves
+    of (params, opt_state) when they are parts (None: whole).
 
     Every rank runs the same steps; rank 0 writes checkpoints, the runlog
     and the trace. A checkpoint holds whole leaves: the other ranks of
@@ -247,7 +292,11 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
     agree (a max all-reduce of the flag each step), rank 0 writes a final
     SYNC checkpoint, and the loop returns, so a preempted run resumes
     from its last step. A persistent async-write failure degrades the run
-    to synchronous checkpoints."""
+    to synchronous checkpoints.
+
+    With a ``monitor`` (rank 0) every step's host-side floats feed the
+    anomaly detectors, and a step the guard skipped is marked ``skipped``
+    in its runlog record; a ``server`` is stopped when the loop ends."""
     stop = getattr(args, "stop_after", None) or args.steps
     lead = mesh.rank == 0
     quiet = bool(getattr(args, "quiet", False)) or not lead
@@ -302,6 +351,7 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
             t_iter = time.perf_counter()
             with obs_trace.span(tracer, "data_wait", step=i):
                 batch = device_put_global(next(stream), device, part)
+            batch = obs_health.apply_step_fault_hook(i, batch)
             t_data = time.perf_counter()
             with obs_trace.span(tracer, "device_step", step=i):
                 params, opt_state, loss, metrics = step_fn(params, opt_state,
@@ -329,13 +379,24 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
             step_s = time.perf_counter() - t_iter
             gnorm = metrics.get("grad_norm")
             gnorm_f = None if gnorm is None else float(gnorm)
+            skipped = bool(int(metrics.get("skipped", 0)))
+            step_rec = None
             if runlog:
                 extra = {} if gnorm_f is None else {"grad_norm": gnorm_f}
-                runlog.log_step(i, loss=loss_f, data_wait_s=t_data - t_iter,
-                                device_step_s=t_device - t_data,
-                                ckpt_stall_s=ckpt_stall, step_s=step_s,
-                                examples_per_sec=args.batch / step_s,
-                                **extra)
+                if skipped:
+                    extra["skipped"] = 1
+                step_rec = runlog.log_step(
+                    i, loss=loss_f, data_wait_s=t_data - t_iter,
+                    device_step_s=t_device - t_data, ckpt_stall_s=ckpt_stall,
+                    step_s=step_s, examples_per_sec=args.batch / step_s,
+                    **extra)
+            if monitor is not None:
+                monitor.observe_step(obs_health.StepSample(
+                    step=i, loss=loss_f,
+                    grad_norm=math.nan if gnorm_f is None else gnorm_f,
+                    data_wait_s=t_data - t_iter,
+                    device_step_s=t_device - t_data, step_s=step_s,
+                    skipped=skipped), record=step_rec)
             if not quiet and (i % args.log_every == 0
                               or i == args.steps - 1):
                 gtxt = "" if gnorm_f is None else f"gnorm {gnorm_f:.2f} "
@@ -364,6 +425,8 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
         runlog.close()
     if trace_path and not quiet:
         print(f"obs: trace -> {trace_path} (open in Perfetto)")
+    if server is not None:
+        server.stop()
     mesh.barrier()       # rank 0's last checkpoint is on disk for every rank
     return losses
 
@@ -416,18 +479,12 @@ def setup(args):
     world that does not divide by it raises ValueError). Under ``--sharding
     tp`` the model is checked first (``tensor_parallel.check``): heads or
     an ff dim that do not divide by M raise ValueError, the SSM and hybrid
-    families NotImplementedError."""
-    for flag, what in (("memstats", "--memstats: the compiled memory "
-                        "report (launch/memstats.py) comes with the port's "
-                        "tooling slice"),
-                       ("health", "--health: anomaly detection "
-                        "(obs/health.py) comes with the port's health tier"),
-                       ("metrics_port", "--metrics-port: the live metrics "
-                        "endpoint (obs/export.py) comes with the port's "
-                        "health tier")):
-        value = getattr(args, flag, None)
-        if value is not None and value is not False:
-            raise NotImplementedError(what)
+    families NotImplementedError. ``--memstats`` raises
+    NotImplementedError."""
+    if getattr(args, "memstats", False):
+        raise NotImplementedError(
+            "--memstats: the compiled memory report (launch/memstats.py) "
+            "comes with the port's tooling slice")
     model = getattr(args, "model_parallel", 1)
     if getattr(args, "sharding", "basic_ws") == "tp":
         tpl.check(arch_config(args), model)
@@ -459,10 +516,13 @@ def train_lm(args):
     params, opt_state, start = _restore(args, params, opt_state, mesh,
                                         device, layout, slayout)
     registry, tracer, runlog, run_dir = _make_obs(args, start, mesh)
+    monitor, server = _make_health(args, registry, tracer, runlog, run_dir,
+                                   mesh)
     step_fn = st.lm_step(cfg, opt, lr_fn,
                          precision=getattr(args, "precision", None) or "f32",
                          remat_policy=get_policy(args.remat),
-                         moe_args=moe_args, mesh=mesh, layout=layout)
+                         moe_args=moe_args, mesh=mesh, layout=layout,
+                         skip_nonfinite=bool(getattr(args, "health", False)))
     axes = (shd.DATA,) if tpl.active(layout) else (shd.DATA, shd.MODEL)
 
     def make_batch(step):
@@ -477,7 +537,8 @@ def train_lm(args):
                      Prefetcher(make_batch, depth=2, start=start), start,
                      mesh=mesh, device=device, registry=registry,
                      tracer=tracer, runlog=runlog, run_dir=run_dir,
-                     dims=_dims(layout, slayout))
+                     dims=_dims(layout, slayout), monitor=monitor,
+                     server=server)
 
 
 def _split_ranks(args, mesh, layout) -> int:
@@ -569,7 +630,7 @@ def train_contrastive(args):
         remat_text=getattr(args, "remat_text", None),
         precision=getattr(args, "precision", None) or "bf16",
         attn=getattr(args, "attn", None), lr=args.lr, mesh=mesh, loss=loss,
-        layout=layout)
+        layout=layout, skip_nonfinite=bool(getattr(args, "health", False)))
     params, opt_state = build_state(cfg, opt, args.seed, device, mesh,
                                     args.sharding)
     slayout = state_layout(opt, params, layout)
@@ -577,6 +638,8 @@ def train_contrastive(args):
                                         device, layout, slayout)
 
     registry, tracer, runlog, run_dir = _make_obs(args, start, mesh)
+    monitor, server = _make_health(args, registry, tracer, runlog, run_dir,
+                                   mesh)
     if tracer is not None:
         tracer.set_process_name(1, "host 0")
     loader = make_loader(args, cfg,
@@ -602,7 +665,8 @@ def train_contrastive(args):
                      tracer=tracer, runlog=runlog, run_dir=run_dir,
                      part=((0, 1) if tpl.active(layout) else
                            (mesh.model_index, mesh.model_size)),
-                     dims=_dims(layout, slayout))
+                     dims=_dims(layout, slayout), monitor=monitor,
+                     server=server)
 
 
 def train(args):
@@ -673,7 +737,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="contrastive loss: 'allgather' / 'chunked' over "
                          "the global batch, 'local' / 'fused' on one rank")
     ap.add_argument("--memstats", action="store_true",
-                    help="not in the port yet (raises)")
+                    help="the compiled memory report: not in the port yet "
+                         "(raises)")
     ap.add_argument("--augment", default="off", choices=["on", "off"],
                     help="train-time image augmentation (contrastive)")
     ap.add_argument("--tokenizer", default="v1",
@@ -683,9 +748,17 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--quiet", action="store_true",
                     help="no per-step stdout lines")
     ap.add_argument("--health", action="store_true",
-                    help="not in the port yet (raises)")
+                    help="active monitoring: anomaly detectors on loss / "
+                         "grad / data-wait (anomaly runlog records and "
+                         "flight-recorder dumps into the run dir) and the "
+                         "non-finite step guard: a NaN loss or gradient "
+                         "keeps the incoming params instead of poisoning "
+                         "them")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="not in the port yet (raises)")
+                    help="serve live /metrics (Prometheus), /healthz and "
+                         "/snapshot.json on 127.0.0.1:PORT for the whole "
+                         "run (0 = ephemeral; the bound port is written "
+                         "to <run-dir>/metrics_port)")
     ap.add_argument("--run-dir", default=None,
                     help="directory of runlog.jsonl and trace.json "
                          "(default --ckpt-dir)")

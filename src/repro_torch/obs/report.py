@@ -6,10 +6,10 @@ trajectory (§11.3): loss first → last, throughput, and EXACT p50/p90/p99
 of every step-time component (from the raw per-step records), plus
 checkpoint / resume / degrade events. A runlog with a ``run_start`` but
 zero ``step`` records (a run that died before step 1) reports "no steps"
-instead of crashing. ``--health`` (the anomaly trail and the health / SLO
-series) and ``--serving`` (a serving metrics snapshot) need the port's
-health tier (``obs/{windows,health,export}.py``), which is not ported:
-they raise NotImplementedError.
+instead of crashing. ``--health`` adds the run's anomaly trail and the
+``health/*`` / SLO series of the final metrics snapshot; ``--serving``
+reads a serving metrics snapshot (``Registry.snapshot()`` or
+``ZeroShotService.stats()`` as JSON) and reports the retrieval series.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import sys
 from typing import List, Sequence
 
 from repro_torch.obs import runlog as rl
+from repro_torch.obs import windows as _windows
 
 _PCTS = (50, 90, 99)
 _PHASES = rl.STEP_BREAKDOWN_KEYS + ("step_s",)
@@ -26,17 +27,9 @@ _PHASES = rl.STEP_BREAKDOWN_KEYS + ("step_s",)
 
 def _percentile(values: Sequence[float], q: float) -> float:
     """Exact linear-interpolated percentile of ``values`` (numpy 'linear'
-    convention; the reference's ``obs.windows.percentile``); NaN for an
-    empty sequence — a zero-step runlog must summarise, not crash."""
-    if not 0 <= q <= 100:
-        raise ValueError(f"percentile q={q} outside [0, 100]")
-    xs = sorted(values)
-    if not xs:
-        return math.nan
-    pos = q / 100.0 * (len(xs) - 1)
-    lo = int(pos)
-    hi = min(lo + 1, len(xs) - 1)
-    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+    convention); NaN for an empty sequence — a zero-step runlog must
+    summarise, not crash."""
+    return _windows.percentile(values, q)
 
 
 def summarize(records: List[dict]) -> dict:
@@ -121,6 +114,79 @@ def format_report(summary: dict) -> str:
     return "\n".join(lines)
 
 
+def format_health(summary: dict) -> str:
+    """``--health`` rendering: the run's anomaly trail plus the
+    ``health/*`` and ``*/slo_*`` series from the final metrics record."""
+    lines = []
+    anomalies = summary.get("anomalies", [])
+    lines.append(f"health: {len(anomalies)} anomaly record(s)")
+    for a in anomalies:
+        msg = a.get("message", "")
+        lines.append(f"  [{a['severity']:>8}] step {a['step']:>6} "
+                     f"{a['detector']}: value={a['value']:.4g}"
+                     + (f"  {msg}" if msg else ""))
+    snap = summary.get("final_metrics", {})
+    rows = []
+    for table in ("counters", "gauges"):
+        for name, v in sorted(snap.get(table, {}).items()):
+            if name.startswith("health/") or "/slo_" in name:
+                rows.append(f"  {name} = {v:g}" if isinstance(v, float)
+                            else f"  {name} = {v}")
+    if rows:
+        lines.append("health/SLO series (final metrics snapshot):")
+        lines.extend(rows)
+    burn = snap.get("gauges", {}).get("serve/slo_error_budget_burn")
+    if burn is not None and math.isfinite(burn):
+        lines.append(f"error budget: {'EXHAUSTED' if burn >= 1 else 'ok'} "
+                     f"(burn {burn:.2f}; >=1 flips readiness)")
+    return "\n".join(lines)
+
+
+def format_serving(snapshot: dict) -> str:
+    """Render a serving metrics snapshot (``Registry.snapshot()`` JSON, or
+    the full ``ZeroShotService.stats()`` dict — the ``metrics`` key is
+    unwrapped automatically) with the retrieval path front and centre:
+    per-stage latency percentiles, the two-stage prune ratio, and
+    per-shard winner skew (``serve/retrieval_shard_share`` records the
+    MAX per-shard share of top-k winners each call; 1/S is perfectly
+    balanced, 1.0 means one shard owns every winner)."""
+    snap = snapshot.get("metrics", snapshot)
+    hists = snap.get("histograms", {})
+    counters = snap.get("counters", {})
+    lines = []
+
+    latency = {k: v for k, v in sorted(hists.items())
+               if k.startswith("serve/retrieval_latency_s")}
+    if latency:
+        lines.append(f"{'retrieval latency':<34}{'count':>7}"
+                     + "".join(f"{f'p{q}':>12}" for q in _PCTS))
+        for name, h in latency.items():
+            lines.append(f"{name:<34}{h['count']:>7}"
+                         + "".join(f"{h[f'p{q}'] * 1e3:10.2f}ms"
+                                   for q in _PCTS))
+    for name, h in sorted(hists.items()):
+        if name.startswith("serve/retrieval_prune_ratio") and h["count"]:
+            mean = h["sum"] / h["count"]
+            lines.append(f"prune ratio ({name}): mean {mean:.3f} "
+                         f"p50 {h['p50']:.3f} p99 {h['p99']:.3f} "
+                         f"over {h['count']} calls "
+                         f"(fraction of gallery reranked; lower = "
+                         f"coarser stage pruned more)")
+        elif name.startswith("serve/retrieval_shard_share") and h["count"]:
+            mean = h["sum"] / h["count"]
+            lines.append(f"shard skew ({name}): max-share mean {mean:.3f} "
+                         f"p99 {h['p99']:.3f} over {h['count']} calls "
+                         f"(1/S balanced, 1.0 one shard wins all)")
+    serve_counters = {k: v for k, v in sorted(counters.items())
+                      if k.startswith("serve/")}
+    if serve_counters:
+        lines.append("counters: " + " ".join(f"{k}={v}" for k, v in
+                                             serve_counters.items()))
+    if not lines:
+        lines.append("no serve/retrieval_* series in snapshot")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     """CLI entry: summarize one runlog; non-zero on schema failures."""
     ap = argparse.ArgumentParser(
@@ -139,11 +205,11 @@ def main(argv=None) -> int:
                     help="also render the run's anomaly records and "
                          "health/SLO series (obs/health.py)")
     args = ap.parse_args(argv)
-    if args.serving or args.health:
-        raise NotImplementedError(
-            "--serving / --health read the health tier's series "
-            "(obs/{windows,health,export}.py), which comes with the port's "
-            "health-tier slice")
+    if args.serving:
+        import json
+        with open(args.runlog) as f:
+            print(format_serving(json.load(f)))
+        return 0
     try:
         records = rl.read_runlog(args.runlog, strict=not args.lenient)
     except rl.RunlogError as e:
@@ -151,6 +217,8 @@ def main(argv=None) -> int:
         return 1
     summary = summarize(records)
     print(format_report(summary))
+    if args.health:
+        print(format_health(summary))
     return 0
 
 

@@ -31,10 +31,13 @@ histogram ``decode/slot_occupancy_ratio``), ``decode/queue_depth``,
 ``decode/admission_wait_s``, ``decode/prefill_s``, ``decode/step_s``,
 ``decode/tokens``, ``decode/requests`` and ``decode/admissions``.
 ``step_log`` keeps every decode tick's (host seconds, active slots) as
-well, for exact percentiles and decode throughput. The SLO tracker and
-the live metrics endpoint (``latency_slo_s``, ``serve_metrics``) wait for
-the serving-leftovers slice, which ports ``obs/health.py`` and
-``obs/export.py``.
+well, for exact percentiles and decode throughput.
+
+SLO: ``latency_slo_s`` arms an ``obs.health.SLOTracker`` on the engine's
+registry: every request's end-to-end latency (submit to finish, queue
+wait included) feeds a windowed p99 against the target, an error-budget
+burn and a readiness bit under ``decode/slo_*``; ``serve_metrics()``
+serves them live (``/metrics``, ``/healthz``, ``/snapshot.json``).
 """
 from __future__ import annotations
 
@@ -49,11 +52,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import precision as prec_lib
 from repro_torch.models import transformer as tf
+from repro_torch.obs import export as obs_export
+from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import RATIO_BUCKETS, Registry
 from repro_torch.serving.engine import check_decoder, sample_tokens, with_attn
-
-_LATER = ("the serving-leftovers slice of the port (obs/health.py, "
-          "obs/export.py)")
 
 
 @dataclasses.dataclass
@@ -76,6 +78,7 @@ class _Slot:
     max_new: int = 0
     prompt_len: int = 0
     rng: Optional[np.random.Generator] = None
+    t_sub: float = 0.0           # submit time, for the SLO
 
 
 class ContinuousEngine:
@@ -101,9 +104,6 @@ class ContinuousEngine:
         check_decoder(cfg)
         if num_slots < 1:
             raise ValueError(f"num_slots={num_slots} must be >= 1")
-        if latency_slo_s is not None:
-            raise NotImplementedError(f"latency_slo_s: the SLO tracker "
-                                      f"comes with {_LATER}")
         self.device = params["embed"].device
         self.cfg = with_attn(cfg, attn, self.device)
         self.params = params
@@ -134,6 +134,11 @@ class ContinuousEngine:
         self._m_tokens = self.registry.counter("decode/tokens")
         self._m_requests = self.registry.counter("decode/requests")
         self._m_admitted = self.registry.counter("decode/admissions")
+        self.slo = None
+        if latency_slo_s is not None:
+            self.slo = obs_health.SLOTracker(
+                target_s=float(latency_slo_s), registry=self.registry,
+                name="decode")
 
     # -- device work ---------------------------------------------------------
     def _prefill(self, prompt: np.ndarray):
@@ -205,12 +210,15 @@ class ContinuousEngine:
                     request_id=rid, prompt_len=prompt.size,
                     tokens=np.asarray([tok], np.int32)))
                 self._m_prefill.observe(time.time() - t0)
+                if self.slo is not None:
+                    self.slo.observe(time.time() - t_sub)
                 continue
             self._insert(row, slot_idx)
             s.request_id, s.active = rid, True
             s.pos, s.next_token = prompt.size, tok
             s.emitted, s.max_new = [tok], max_new
             s.prompt_len, s.rng = prompt.size, rng
+            s.t_sub = t_sub
             self._m_prefill.observe(time.time() - t0)
         self._m_queue.set(len(self._queue))
 
@@ -256,6 +264,8 @@ class ContinuousEngine:
                     tokens=np.asarray(s.emitted, np.int32)))
                 s.active = False
                 s.emitted, s.rng = None, None
+                if self.slo is not None:
+                    self.slo.observe(time.time() - s.t_sub)
         dt = time.time() - t0
         self._m_step.observe(dt)
         self.step_log.append((dt, len(active)))
@@ -293,8 +303,17 @@ class ContinuousEngine:
                                if elapsed > 0 else 0.0),
             "elapsed_s": elapsed,
         }
+        if self.slo is not None:
+            snap["slo"] = self.slo.status()
         return snap
 
     def serve_metrics(self, *, port: int = 0, host: str = "127.0.0.1"):
-        """The live metrics endpoint: not ported yet; raises."""
-        raise NotImplementedError(f"serve_metrics comes with {_LATER}")
+        """Start a live HTTP endpoint over the engine's registry:
+        ``/metrics`` (Prometheus), ``/healthz`` (SLO readiness when
+        ``latency_slo_s`` was set: 503 while the error budget is
+        exhausted), ``/snapshot.json``. Localhost-only by default; the
+        caller owns the returned ``MetricsServer`` (``stop()`` it)."""
+        return obs_export.MetricsServer(
+            self.registry,
+            health=self.slo.status if self.slo is not None else None,
+            host=host, port=port).start()

@@ -1,4 +1,4 @@
-"""Class-embedding registry (port of ``repro/serving/embed/registry.py:30-150``).
+"""Class-embedding registry (port of ``repro/serving/embed/registry.py``).
 
 Deployment of a zero-shot classifier hinges on computing the
 prompt-ensembled class matrix once per label space and amortising it over
@@ -13,8 +13,8 @@ serving replicas and evaluation jobs of either package share one on-disk
 artifact instead of re-encoding the label space per process. Each key
 directory holds versions as checkpoint steps: ``refresh()`` writes
 version + 1 and ``get()`` serves the latest; the version travels with the
-matrix. The two-stage retrieval's centroid index comes with that retrieval
-mode.
+matrix. ``get_centroid_index`` caches the two-stage retrieval's index
+beside its matrix, keyed on the matrix's key and version.
 """
 from __future__ import annotations
 
@@ -89,7 +89,9 @@ class ClassEmbeddingRegistry:
         self._compute = compute_fn
         self.cache_dir = cache_dir
         self._mem: dict = {}
-        self.stats = {"mem_hits": 0, "disk_hits": 0, "computes": 0}
+        self._index_mem: dict = {}
+        self.stats = {"mem_hits": 0, "disk_hits": 0, "computes": 0,
+                      "index_hits": 0, "index_builds": 0}
 
     @staticmethod
     def key(class_names: Sequence[str], templates: Sequence[str],
@@ -163,3 +165,39 @@ class ClassEmbeddingRegistry:
         cm = ClassMatrix(key, version, matrix, "computed")
         self._mem[key] = cm
         return cm
+
+    def get_centroid_index(self, cm: ClassMatrix, *,
+                           n_blocks: Optional[int] = None, device="cpu"):
+        """The two-stage coarse index of a registry artifact, built once
+        per (key, version, n_blocks) on ``device`` and cached next to the
+        class matrix; returned on ``device``.
+
+        The memo and disk key hold the ClassMatrix's own key and version,
+        so whatever invalidates the matrix (new checkpoint, retrained
+        tokenizer, ``refresh()``) invalidates the index by construction.
+        Persists as ``index_v{version}_p{n_blocks}.npz`` in the key
+        directory when the registry has a cache_dir (the reference's
+        file, which either package reads)."""
+        from repro_torch.serving.retrieval import twostage
+
+        ikey = (cm.key, cm.version, n_blocks)
+        hit = self._index_mem.get(ikey)
+        if hit is not None:
+            self.stats["index_hits"] += 1
+            return hit.to(device)
+        kdir = self._key_dir(cm.key)
+        path = (os.path.join(kdir, f"index_v{cm.version}_p{n_blocks}.npz")
+                if kdir else None)
+        if path is not None and os.path.exists(path):
+            index = twostage.CentroidIndex.load(path, device)
+            self._index_mem[ikey] = index
+            self.stats["index_hits"] += 1
+            return index
+        index = twostage.build_centroid_index(cm.matrix, n_blocks=n_blocks,
+                                              device=device)
+        self.stats["index_builds"] += 1
+        if path is not None:
+            os.makedirs(kdir, exist_ok=True)
+            index.save(path)
+        self._index_mem[ikey] = index
+        return index

@@ -251,11 +251,14 @@ def test_capacity_occupancy_and_counters(shared):
         reg.counter("decode/tokens").value - 4
     occ = reg.histogram("decode/slot_occupancy_ratio").summary()
     assert occ["count"] == len(occupancies) and occ["max"] == 1.0
-    with pytest.raises(NotImplementedError, match="serving-leftovers"):
-        ContinuousEngine(cfg, params, cache_len=CACHE_LEN, num_slots=2,
-                         latency_slo_s=1.0)
-    with pytest.raises(NotImplementedError, match="serving-leftovers"):
-        ce.serve_metrics()
+    # the SLO tracker sees each request once, submit to finish
+    slo_eng = ContinuousEngine(cfg, params, cache_len=CACHE_LEN,
+                               num_slots=2, latency_slo_s=60.0)
+    slo_eng.run([(p, 3) for p in _prompts(6, 3, cfg.vocab, [5, 6, 7])])
+    slo = slo_eng.stats()["slo"]
+    assert slo["requests"] == 3 and slo["healthy"] and "slo" not in snap
+    server = ce.serve_metrics()
+    server.stop()
 
 
 def test_sampled_decoding_is_reproducible_per_request(shared):
@@ -287,13 +290,17 @@ def test_launcher_serves_on_the_cpu(engine, capsys):
         assert rep["step_p90_s"] >= rep["step_median_s"] > 0
 
 
-def test_launcher_raises_without_a_card_or_for_later_slices():
+def test_launcher_raises_without_a_card_or_for_later_slices(capsys):
+    """No card and no CPU request: it raises. The SLO and live-endpoint
+    flags, once refused, now serve."""
     if torch.cuda.is_available():
         pytest.skip("checks the card-less host")
     argv = ["--arch", "llama3.2-1b", "--smoke", "--max-new", "2"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(argv)
-    for flag in (["--slo-ms", "100"], ["--metrics-port", "0"]):
-        with pytest.raises(NotImplementedError, match="serving-leftovers"):
-            tserve.main(argv + ["--device", "cpu", "--engine", "continuous"]
-                        + flag)
+    rep = tserve.main(argv + ["--device", "cpu", "--engine", "continuous",
+                              "--requests", "2", "--slo-ms", "60000",
+                              "--metrics-port", "0"])
+    out = capsys.readouterr().out
+    assert rep["slo"]["requests"] == 2 and "slo: p99" in out
+    assert "obs: serving /metrics" in out

@@ -140,7 +140,8 @@ def test_evaluate_with_service_matches_reference(setup, tmp_path):
     assert got == ref
     assert again["headline"] == got["mean_per_class_recall"]
     assert stats["registry"] == {"mem_hits": 1, "disk_hits": 0,
-                                 "computes": 1}
+                                 "computes": 1, "index_hits": 0,
+                                 "index_builds": 0}
     # the served row and the materialised row agree on the same weights
     bench = teval.evaluate_benchmark(
         lambda im: tde.encode_image(tcfg, tparams,

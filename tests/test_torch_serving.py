@@ -76,7 +76,8 @@ def test_classify_matches_reference_service(world):
     assert tres.version == 1 and tres.top_names(0)[0] in w.class_names
     np.testing.assert_array_equal(again.indices, tres.indices)
     assert stats["registry"] == {"mem_hits": 1, "disk_hits": 0,
-                                 "computes": 1}
+                                 "computes": 1, "index_hits": 0,
+                                 "index_builds": 0}
     assert stats["retrieval_mode"] == "fused"
 
 
@@ -338,7 +339,8 @@ def test_registry_memo_invalidation_and_refresh():
     r = reg.refresh(("x", "y"), ("t",), "ck1", embed_dim=4)
     assert r.version == 2 and r.key == a.key
     assert reg.get(("x", "y"), ("t",), "ck1", embed_dim=4).version == 2
-    assert reg.stats == {"mem_hits": 2, "disk_hits": 0, "computes": 4}
+    assert reg.stats == {"mem_hits": 2, "disk_hits": 0, "computes": 4,
+                         "index_hits": 0, "index_builds": 0}
     with pytest.raises(ValueError):
         reg.get(("x",), ("t",), "ck1", embed_dim=5)
     with pytest.raises(RuntimeError):

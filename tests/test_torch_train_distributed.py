@@ -222,18 +222,27 @@ def test_runlog_passes_the_schema_gate_and_reports(port_r1):
     assert out.stdout.strip() == jreport.format_report(
         jreport.summarize(records))
     assert "resumed at step(s): 2" in out.stdout
-    with pytest.raises(NotImplementedError, match="health"):
-        report.main([path, "--health"])
+    health = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                             path, "--health"], capture_output=True,
+                            text=True, timeout=120, env=env)
+    assert health.returncode == 0, health.stderr
+    assert health.stdout.strip() == (jreport.format_report(
+        jreport.summarize(records)) + "\n" + jreport.format_health(
+        jreport.summarize(records))).strip()
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--health"], "health"), (["--metrics-port", "0"], "health"),
+    (["--memstats", "--health"], "tooling"),
+    (["--memstats", "--metrics-port", "0"], "tooling"),
     (["--memstats"], "tooling"),
     (["--arch", "mamba2-130m", "--model-parallel", "2", "--sharding", "tp"],
      "tensor-parallel")])
 def test_refuses_what_later_slices_bring(flags, match):
-    """The health tier, the tooling, and ``tp`` for Mamba-2 and the hybrid
-    family (Megatron execution runs the dense, MoE and encoder families)."""
+    """The tooling (``--memstats``, with or without the health tier's
+    flags, which the trainer serves since the health-tier slice:
+    ``tests/test_torch_train_health.py``), and ``tp`` for Mamba-2 and the
+    hybrid family (Megatron execution runs the dense, MoE and encoder
+    families)."""
     with pytest.raises(NotImplementedError, match=match):
         td.main(CONTRASTIVE + ["--device", "cpu", "--steps", "1"] + flags)
 
