@@ -118,7 +118,8 @@ repository beside this file; it exits non-zero without them. In order it:
 16. holds the SSD chunked-scan kernel against its plain version at
     Mamba-2-130M's shapes (24 heads of 64, state 128; one chunk of 256, a
     ragged 244, four chunks of b 1 × 1024, b 8 × 256, the training shape
-    b 2 × 4096; with and without an
+    b 2 × 4096; a rank's heads under ``tp``: 12 at b 2 × 1024, 6 at b 2 ×
+    4096, Jamba's 64 at b 1 × 4096; with and without an
     initial state; the decay extremes dt 3, A -5 with no NaN), inputs laid
     out as the mixer's split views, f32 and bf16, y and the final state,
     printing each launch plan (``ssd_plan``), and times kernel (events,
@@ -158,8 +159,9 @@ repository beside this file; it exits non-zero without them. In order it:
     against the plain backward ``ssd_chunked_bwd`` (in 64-token chunks
     where they divide l) and against autograd through ``ssd_chunked``, f32
     and bf16, at Mamba-2-130M's shapes (b 2 × l 4096; b 1 × l 244 with an
-    initial state and a final-state gradient) and Jamba's (256 heads, b 1
-    × l 4096): each gradient within 2e-5 of its max (dA, dD 1e-4, with
+    initial state and a final-state gradient), Jamba's (256 heads, b 1
+    × l 4096) and a rank's under ``tp`` (phase 16's three): each gradient
+    within 2e-5 of its max (dA, dD 1e-4, with
     the plain f32 version's distance from an fp64 evaluation printed
     beside), all finite, two runs bit for bit; prints each plan and times
     kernel (events, and device time over a profiler window that sees all
@@ -281,7 +283,13 @@ repository beside this file; it exits non-zero without them. In order it:
     Llama-3.2-1B on 1 of 16 layers at (1, 2), with the same checks (each
     rank's params 1/M of the rule's split leaves plus the whole ones);
     every rank launches the flash kernels, and at (1, 2) the fused loss's
-    pair;
+    pair; then, in the world of 2, the Mamba-2 mixer split by heads:
+    Mamba-2-130M at full width on 2 of 24 layers (b 2 × s 1024, f32, 2
+    steps) and the smoke Jamba (mixer, attention and expert-parallel MoE)
+    under ``tp`` at (1, 2), each rank's losses within 1e-5 of one rank's,
+    params' bytes, checkpoint leaves within 1e-3 of their move, and the
+    SSD scan and its backward launched on every rank at H/M heads only (12
+    for Mamba-2-130M), read from the shapes the wrapper saw;
 44. right after phase 8's registry check, on its BASIC-S weights: the
     top-k kernel with ``n_valid`` against its plain version (f32 and bf16,
     b 64 × n 21841, k 5, n_valid 0, 3, 20841, 21841; one shard of the
@@ -2793,13 +2801,22 @@ def ssd_case(label, b, l, dtype, seed, init=False, extreme=False,
     return rec
 
 
+# a rank's scan under --sharding tp (H/M heads of 64, state 128 whole):
+# Mamba-2-130M at M 2 on phase 43's b 2 x s 1024, at M 4 on the four-card
+# probe's b 2 x s 4096, and Jamba-1.5-Large at M 4 (b 1 x s 4096)
+SSD_TP_SHAPES = (("tp rank mamba2 M=2", 2, 1024, 12),
+                 ("tp rank mamba2 M=4", 2, 4096, 6),
+                 ("tp rank jamba M=4", 1, 4096, 64))
+
+
 def phase_ssd_kernel():
     """The SSD kernel at Mamba-2-130M's shapes, f32 and bf16: one chunk
     (l 256), a ragged chunk (l 244) and four chunks (b 1 × 1024), b 8 ×
     256, with an initial state in the ragged and b 8 cases, and the
     training shape (b 2 × 4096, ``SSM_TRAIN_ARGV``'s); the decay
-    extremes; the same inputs twice give the same bits. Returns the
-    records by (label, dtype name)."""
+    extremes; a rank's shapes under ``tp`` (``SSD_TP_SHAPES``); the same
+    inputs twice give the same bits. Returns the records by (label, dtype
+    name)."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     recs = {}
@@ -2814,6 +2831,8 @@ def phase_ssd_kernel():
         recs[("extreme", dt)] = ssd_case("decay extremes dt=3 A=-5", 1, 256,
                                          dtype, 61, extreme=True,
                                          timed=False)
+        for label, b, l, h in SSD_TP_SHAPES:
+            recs[(label, dt)] = ssd_case(label, b, l, dtype, 63, h=h)
     args = ssd_inputs(2, 512, torch.bfloat16, 62, init=True)
     one = ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
     two = ssd_ops.ssd_scan(*args[:6], chunk=256, init_state=args[6])
@@ -4420,7 +4439,8 @@ def ssd_bwd_case(label, b, l, dtype, seed, init=False, dfinal=False, h=24,
 def phase_ssd_bwd_kernel():
     """The SSD backward kernel at Mamba-2-130M's shapes (b 2 × l 4096, 16
     chunks of 256; b 1 × l 244 with an initial state and a final-state
-    gradient) and Jamba's (256 heads, b 1 × l 4096), f32 and bf16, against
+    gradient), Jamba's (256 heads, b 1 × l 4096) and a rank's under ``tp``
+    (``SSD_TP_SHAPES``), f32 and bf16, against
     the plain backward and autograd, each call's four device kernels all
     seen by the profiler; the same inputs twice give the same bits.
     Returns the records by (label, dtype name)."""
@@ -4434,6 +4454,8 @@ def phase_ssd_bwd_kernel():
             "mamba2 ragged", 1, 244, dtype, 82 + i, init=True, dfinal=True)
         recs[("jamba", dt)] = ssd_bwd_case("jamba", 1, 4096, dtype, 84 + i,
                                            **JAMBA_SSD)
+        for label, b, l, h in SSD_TP_SHAPES:
+            recs[(label, dt)] = ssd_bwd_case(label, b, l, dtype, 88 + i, h=h)
         args = ssd_inputs(2, 4096, dtype, 86 + i, init=True)
         dy = torch.randn((2, 4096, 24, 64), device="cuda")
         df = torch.randn((2, 24, 64, 128), device="cuda")
@@ -4994,7 +5016,8 @@ WS_GRIDS = ((2, 2, "basic_ws"), (4, 2, "basic_ws"), (2, 2, "replicated"),
 WS_MOVED_SHARE = 1e-3          # tests/test_torch_train_distributed.py:120-131
 # the depth-cut configs: (base, name, layers) for register_cut_arch
 WS_ARCHS = (("basic-s", "basic-s-1layer", 1),
-            ("llama3.2-1b", "llama3.2-1b-1of16", 1))
+            ("llama3.2-1b", "llama3.2-1b-1of16", 1),
+            ("mamba2-130m", "mamba2-130m-2of24", 2))
 WS_ARGV = ["--arch", WS_ARCHS[0][1]] + DIST_GLOO_ARGV[2:-3] + [
     "--steps", "1", "--quiet"]
 WS_LM_ARGV = ["--arch", WS_ARCHS[1][1], "--batch", "2", "--seq", "1024",
@@ -5002,6 +5025,18 @@ WS_LM_ARGV = ["--arch", WS_ARCHS[1][1], "--batch", "2", "--seq", "1024",
 # the runs of each rule: --sharding -> (contrastive argv, LM argv or None)
 WS_RUNS = {"basic_ws": (WS_ARGV, WS_LM_ARGV), "replicated": (WS_ARGV, None),
            "tp": (WS_ARGV, WS_LM_ARGV)}
+# phase 43's Mamba-2 mixer split by heads, train_lm under tp at (1, 2) in
+# the world of 2, each with a checkpoint: Mamba-2-130M at full width on 2
+# of its 24 layers, b 2 x s 1024, f32, 2 steps (12 of its 24 heads a
+# rank), and the smoke Jamba (mixer, attention and expert-parallel MoE in
+# one model; no full-width Jamba cut fits one card twice)
+WS_SSM_RUNS = {
+    "mamba2 1x2 tp": ["--arch", WS_ARCHS[2][1], "--batch", "2", "--seq",
+                      "1024", "--steps", "2", "--quiet", "--lr", "3e-3"],
+    "jamba smoke 1x2 tp": ["--arch", "jamba-1.5-large-398b", "--smoke",
+                           "--batch", "4", "--seq", "64", "--attn",
+                           "pallas", "--steps", "2", "--quiet", "--lr",
+                           "3e-3"]}
 # the cross-shard loss against the single-device fused loss: the
 # reference's own limits (tests/distributed_checks.py:79-83, :99-103), and
 # under bf16 1e-3 on the loss, 2e-2 on dX
@@ -5455,8 +5490,9 @@ def ws_train_worker(rank, world, argvs, archs=()):
     """One gloo rank of phases 41-43 on the card: the trainer's ``main``
     on each argv of ``argvs`` in turn (``archs``: depth-cut configs to
     register first, since a spawned rank imports this module afresh);
-    returns, for each, its losses, its kernel launches in that run, and
-    the bytes its resident params and optimizer state take
+    returns, for each, its losses, its kernel launches in that run (the
+    SSD scan's also by the shape its wrapper launched at, "b x l x h x p
+    x n"), and the bytes its resident params and optimizer state take
     (``build_state`` on the same mesh, measured on the card, then
     freed)."""
     import torch
@@ -5469,10 +5505,13 @@ def ws_train_worker(rank, world, argvs, archs=()):
         register_cut_arch(*arch)
     out = []
     for argv in argvs:
-        for c in dist_counters():
+        for c in (*dist_counters(), *ssd_counters()):
             c.reset()
         losses = td.main(argv)
         launches = {c.name: c.count for c in dist_counters()}
+        ssd = {c.name: {"launches": c.count, "shapes": {
+            "x".join(map(str, k)): v for k, v in c.shapes.items()}}
+            for c in ssd_counters()}
         args = td.parse_args(argv)
         device, mesh = td.setup(args)
         cfg = get_arch(args.arch)
@@ -5486,7 +5525,7 @@ def ws_train_worker(rank, world, argvs, archs=()):
         del params, state
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        out.append({"losses": losses, "launches": launches,
+        out.append({"losses": losses, "launches": launches, "ssd": ssd,
                     "params_bytes": nbytes[0], "state_bytes": nbytes[1]})
     return out
 
@@ -5549,7 +5588,7 @@ def ws_config(argv):
     return td.arch_config(td.parse_args(argv))
 
 
-def phase_weight_sharding(runs=WS_RUNS, device="cuda"):
+def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS):
     """Phases 41-43: the trainer with the paper's §5.1 weight sharding and
     with Megatron execution on gloo ranks sharing the card (untimed; two
     spawned worlds: one of 2 ranks runs the (1, 2) runs in turn, one of 4
@@ -5572,12 +5611,20 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda"):
 
     Phase 43: the same under ``--sharding tp`` (``WS_GRIDS``' 'tp' grids),
     contrastive and LM, with the same checks (the params' bytes
-    ``expected_bytes(cfg, grid, 'tp')``).
+    ``expected_bytes(cfg, grid, 'tp')``); and the Mamba-2 mixer split by
+    heads (``WS_SSM_RUNS``, ``train_lm`` under ``tp`` at (1, 2), in the
+    world of 2): each rank's losses within 1e-5 of the one-rank run's,
+    its params' bytes, its checkpoint's whole leaves within 1e-3 of the
+    change the one-rank run made, and on every rank the SSD scan and its
+    backward launched, every launch at the rank's H/M heads (12 for
+    Mamba-2-130M), read from the shapes the wrapper saw; the hybrid's
+    flash kernels too.
 
     ``runs`` maps each rule to its (contrastive argv, LM argv or None)
-    (``WS_RUNS``; a CPU rehearsal passes ``--smoke`` ones and ``device``
-    'cpu'). Returns (the contrastive records by "<data>x<model>
-    <sharding>", the LM records by sharding)."""
+    (``WS_RUNS``; a CPU rehearsal passes ``--smoke`` ones, ``ssm_runs``
+    to match, and ``device`` 'cpu'). Returns (the
+    contrastive records by "<data>x<model> <sharding>", the LM records by
+    sharding, and the SSM runs' by their ``ssm_runs`` label)."""
     from repro_torch import checkpoint as ckpt
     from repro_torch.launch import train_distributed as td
     from repro_torch.launch.spawn import run_world
@@ -5596,11 +5643,19 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda"):
     lm_shardings = [sh for sh, (_, lm) in runs.items() if lm is not None]
     lm_argvs = [runs[sh][1] + ["--device", device, "--model-parallel", "2",
                                "--sharding", sh] for sh in lm_shardings]
+
+    def ssm_dir(label, ranks):
+        d = os.path.join(CKPT_ROOT, f"ws_{label.replace(' ', '_')}_{ranks}")
+        shutil.rmtree(d, ignore_errors=True)
+        return d
+    ssm_argvs = [argv + ["--device", device, "--model-parallel", "2",
+                         "--sharding", "tp", "--ckpt-dir", ssm_dir(k, 2)]
+                 for k, argv in ssm_runs.items()]
     worlds = {}
     for world in sorted({w for w, _, _ in WS_GRIDS}):
         keys = [k for k in WS_GRIDS if k[0] == world]
         argvs = [grid_runs[k][1] for k in keys] + (
-            lm_argvs if world == 2 else [])
+            lm_argvs + ssm_argvs if world == 2 else [])
         t_world = time.perf_counter()
         ranks = run_world(ws_train_worker, world,
                           os.path.join(CKPT_ROOT, "rdv"), argvs,
@@ -5612,6 +5667,9 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda"):
         if world == 2:
             lm_ranks = {sh: [r[len(keys) + i] for r in ranks]
                         for i, sh in enumerate(lm_shardings)}
+            ssm_ranks = {k: [r[len(keys) + len(lm_shardings) + i]
+                             for r in ranks]
+                         for i, k in enumerate(ssm_runs)}
     r1, out = {}, {}
     for world, model, sharding in WS_GRIDS:
         data = world // model
@@ -5683,9 +5741,79 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda"):
                     min(launches.values()) < 1 or \
                     r["params_bytes"] != want_p:
                 raise AssertionError(f"weight sharding train_lm {sh}: {rec}")
+    ssm = {label: ws_ssm_check(label, ssm_runs[label], r, device,
+                               ssm_dir(label, 1))
+           for label, r in ssm_ranks.items()}
+    for i, label in enumerate(ssm_runs):
+        shutil.rmtree(ssm_argvs[i][-1], ignore_errors=True)
     print(f"weight sharding phases 41-43: {time.perf_counter() - t0:.1f} s "
           f"(untimed)", flush=True)
-    return out, lm
+    return out, lm, ssm
+
+
+# each rank of a phase 43 SSM run against the one-rank run: losses
+WS_SSM_RTOL = 1e-5
+
+
+def ws_ssm_check(label, argv, ranks, device, r1_dir):
+    """Phase 43's checks of one ``WS_SSM_RUNS`` run at (1, 2) under
+    ``tp`` (``ranks``: each rank's ``ws_train_worker`` record; its
+    checkpoint in the ``--ckpt-dir`` of its argv) against the one-rank
+    run of ``argv`` (checkpoint under ``r1_dir``): losses within
+    WS_SSM_RTOL, params' bytes, the checkpoint's leaves within
+    WS_MOVED_SHARE of the change the one-rank run made from the seeded
+    state, the SSD scan and its backward launched on every rank at H/M
+    heads only, the flash kernels where the model has attention. Returns
+    the record."""
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.optim import AdaFactorW
+    from repro_torch.tree import tree_leaves, unflatten
+    args = td.parse_args(argv)
+    cfg = td.arch_config(args)
+    want_heads = ssm_lib.dims(cfg)[1] // 2
+    r1 = td.main(argv + ["--device", device, "--ckpt-dir", r1_dir])
+    init = td.build_state(cfg, AdaFactorW(weight_decay=0.0025), args.seed,
+                          device)
+    init = unflatten(init, [x.cpu() for x in tree_leaves(init)])
+    final = ckpt.restore(r1_dir, args.steps, init, device="cpu")
+    d = os.path.join(CKPT_ROOT, f"ws_{label.replace(' ', '_')}_2")
+    got = ckpt.restore(d, args.steps, init, device="cpu")
+    bad_leaves = leaf_distances(got, final, init)
+    shutil.rmtree(r1_dir)
+    want_p, _ = expected_bytes(cfg, (1, 2), "tp")
+    kernels = {c.name for c in ssd_counters()} | (
+        {c.name for c in lm_counters()} if cfg.family == "hybrid" else set())
+    rec = {"losses": [r["losses"] for r in ranks], "r1_losses": r1,
+           "launches": [{**{k: v for k, v in r["launches"].items()
+                            if k in kernels},
+                         **{k: v["launches"] for k, v in r["ssd"].items()}}
+                        for r in ranks],
+           "ssd_shapes": [{k: v["shapes"] for k, v in r["ssd"].items()}
+                          for r in ranks],
+           "heads": want_heads,
+           "params_bytes": [r["params_bytes"] for r in ranks],
+           "expected_params_bytes": want_p,
+           "checkpoint_leaves_off": bad_leaves}
+    print(f"weight sharding train_lm {label} ({cfg.name} "
+          f"{args.batch} x {args.seq}, {args.steps} steps): losses per rank "
+          f"{rec['losses']}, R=1 {r1}; params bytes per rank "
+          f"{rec['params_bytes']} (expected {want_p}); checkpoint leaves "
+          f"beyond {WS_MOVED_SHARE} of their move: {bad_leaves}; launches "
+          f"per rank {rec['launches']}; ssd shapes per rank (b x l x h x p "
+          f"x n) {rec['ssd_shapes']}", flush=True)
+    for r, launches, shapes in zip(ranks, rec["launches"],
+                                   rec["ssd_shapes"]):
+        seen = {int(k.split("x")[2]) for by in shapes.values() for k in by}
+        if len(r["losses"]) != len(r1) or any(
+                abs(a - b) > WS_SSM_RTOL * abs(b)
+                for a, b in zip(r["losses"], r1)) or \
+                min(launches.values()) < 1 or seen != {want_heads} or \
+                r["params_bytes"] != want_p or bad_leaves:
+            raise AssertionError(f"weight sharding train_lm {label}: {rec}")
+    return rec
 
 
 def main() -> int:
@@ -5804,7 +5932,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_lm = phase_dist_train_lm()
     torch.cuda.empty_cache()
-    ws, ws_lm = phase_weight_sharding()
+    ws, ws_lm, ws_ssm = phase_weight_sharding()
     torch.cuda.empty_cache()
 
     f_main = flash[("image", torch.float32)]
@@ -5891,6 +6019,7 @@ def main() -> int:
         if i is None:
             out["tensor_parallel_launches_per_rank"]["lm 1x2 tp"] = [
                 lc[name] for lc in ws_lm["tp"]["launches"]]
+            out["tensor_parallel_launches_per_rank"].update(ssm_tp_of(name))
             return {**out, "dist_lm_launches": dist_lm["launches"][name],
                     "weight_sharding_lm_launches_per_rank": [
                         lc[name] for lc in ws_lm["basic_ws"]["launches"]]}
@@ -5901,6 +6030,20 @@ def main() -> int:
                         name]
                     for w in DIST_RANKS for m in ("allgather", "chunked")
                     for dt in ("float32", "bfloat16")}}
+
+    def ssm_tp_of(name):
+        """The kernel's launches on each rank of phase 43's Mamba-2 and
+        hybrid runs under ``tp``, where it ran there."""
+        return {label: [lc[name] for lc in r["launches"]]
+                for label, r in ws_ssm.items() if name in r["launches"][0]}
+
+    def ssd_tp_of(name):
+        """The SSD kernel's launches and the shapes it launched at (b x l
+        x h x p x n) on each rank of phase 43's runs under ``tp``."""
+        return {"tensor_parallel_launches_per_rank": ssm_tp_of(name),
+                "tensor_parallel_shapes_per_rank": {
+                    label: [sh[name] for sh in r["ssd_shapes"]]
+                    for label, r in ws_ssm.items()}}
 
     def recipe_of(name):
         """The kernel's launches in each part of the recipe phase."""
@@ -6066,7 +6209,8 @@ def main() -> int:
          "ssm_train_f32_parity_launches": ssm_train_parity["launches"][
              ssd_ops.COUNTER.name],
          "jamba_smoke_train_parity_launches": hybrid_train["launches"][
-             ssd_ops.COUNTER.name]},
+             ssd_ops.COUNTER.name],
+         **ssd_tp_of(ssd_ops.COUNTER.name)},
         {"name": ssd_ops.BWD_COUNTER.name, "route": "cuda",
          "source": SSD_BWD_SOURCE, "replaces": SSD_BWD_REPLACES,
          "launches": ssm_train_launches[ssd_ops.BWD_COUNTER.name],
@@ -6089,7 +6233,8 @@ def main() -> int:
          "f32_parity_launches": ssm_train_parity["launches"][
              ssd_ops.BWD_COUNTER.name],
          "jamba_smoke_train_parity_launches": hybrid_train["launches"][
-             ssd_ops.BWD_COUNTER.name]},
+             ssd_ops.BWD_COUNTER.name],
+         **ssd_tp_of(ssd_ops.BWD_COUNTER.name)},
     ]
     print(f"recipe: phase 1 {recipe['pretrain']['images_per_s']:.1f} "
           f"images/s, phase 2 {recipe['frozen']['pairs_per_s']:.1f} pairs/s, "

@@ -12,6 +12,13 @@
     torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
         --objective lm --arch mixtral-8x22b --layers 1 --model-parallel 4 \\
         --sharding tp --batch 1 --seq 4096 --steps 4   # expert parallelism
+    torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
+        --objective lm --arch mamba2-130m --model-parallel 4 --sharding tp \\
+        --batch 2 --seq 4096 --steps 4      # the Mamba-2 mixer by heads
+    torchrun --nproc-per-node 4 scripts/train_distributed_probe.py \\
+        --objective lm --arch jamba-1.5-large-398b --layers 8 --experts 4 \\
+        --model-parallel 4 --sharding tp --batch 1 --seq 4096 \\
+        --precision bf16 --steps 4          # one full-width Jamba period
 
 ``chip_smoke.py`` runs several ranks on one card over gloo; this script
 runs the path that exists only across cards: one rank a card, the NCCL
@@ -46,10 +53,15 @@ branch of ``launch/mesh.py`` (``all_gather_into_tensor``,
    does not fit one 80 GB card, so one card alone is no reference there.)
 
 With ``--objective lm`` step 1 is skipped and step 2 runs ``train_lm``
-(f32, flash attention, capacity dispatch for a MoE model) on ``--arch``
-cut to its first ``--layers`` layers at full width, global ``--batch`` ×
+(``--precision``, f32 by default, flash attention, capacity dispatch for
+a MoE model) on ``--arch`` cut to its first ``--layers`` layers and its
+first ``--experts`` experts at full width, global ``--batch`` ×
 ``--seq`` tokens, printing the warm step median, tokens/s and the peak
-memory and bytes of each rank.
+memory and bytes of each rank, its launches of the SSD scan and its
+backward too, and the bytes each rank passed to the collectives of
+``launch/mesh.py`` a step, by operation. A run that runs out of device
+memory is recorded with the error's text (its allocation) and the probe
+goes on.
 
 Rank 0 prints the card's name and power limit first and one ``PROBE
 {json}`` line last; it exits non-zero when a check fails.
@@ -178,17 +190,54 @@ def state_bytes(targs, device, mesh):
     return out
 
 
-def cut_arch(base, layers):
-    """The name of ``base`` cut to its first ``layers`` layers at full
-    width (``chip_smoke.register_cut_arch``), registered; ``base`` itself
-    when ``layers`` is 0."""
-    if not layers:
+def cut_arch(base, layers, experts=0):
+    """The name of ``base`` cut to its first ``layers`` layers and, for a
+    MoE model, its first ``experts`` experts, at full width, registered;
+    ``base`` itself when both are 0."""
+    if not layers and not experts:
         return base
-    sys.path.insert(0, ROOT)
-    from chip_smoke import register_cut_arch
-    name = f"{base}-{layers}layers"
-    register_cut_arch(base, name, layers)
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import register
+    cfg = get_arch(base)
+    name = base + (f"-{layers}layers" if layers else "") + (
+        f"-{experts}experts" if experts else "")
+    changes = {"name": name}
+    if layers:
+        changes["n_layers"] = layers
+    if experts:
+        changes["moe"] = dataclasses.replace(cfg.moe, num_experts=experts)
+    register(dataclasses.replace(cfg, **changes))
     return name
+
+
+class CollectiveBytes:
+    """Bytes this rank hands to the collectives of ``launch/mesh.py``
+    (``Axis.all_reduce``, ``all_gather``, ``reduce_scatter`` over more
+    than one rank), by operation, counted while it is installed."""
+
+    OPS = ("all_reduce", "all_gather", "reduce_scatter")
+
+    def __init__(self):
+        from repro_torch.launch import mesh
+        self.axis, self.real = mesh.Axis, {}
+        self.bytes = dict.fromkeys(self.OPS, 0)
+
+    def __enter__(self):
+        for op in self.OPS:
+            real = self.real[op] = getattr(self.axis, op)
+
+            def counted(axis, t, *args, _op=op, _real=real, **kw):
+                if axis.distributed:
+                    self.bytes[_op] += t.numel() * t.element_size()
+                return _real(axis, t, *args, **kw)
+            setattr(self.axis, op, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for op, real in self.real.items():
+            setattr(self.axis, op, real)
 
 
 def grid_losses(argv, n_hosts, device):
@@ -248,6 +297,11 @@ def main(argv=None) -> int:
                     choices=["contrastive", "lm"])
     ap.add_argument("--layers", type=int, default=0,
                     help="cut --arch to its first N layers (0: all)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="cut a MoE --arch to its first N experts (0: all)")
+    ap.add_argument("--precision", default=None,
+                    help="the trainer's --precision (default f32 for lm, "
+                         "the trainer's own for contrastive)")
     ap.add_argument("--seq", type=int, default=16,
                     help="caption length (contrastive) / sequence (lm)")
     ap.add_argument("--model-parallel", default="1",
@@ -277,7 +331,9 @@ def main(argv=None) -> int:
             from repro_torch.kernels import build as kbuild
             from repro_torch.kernels.contrastive_loss import ops as cl_ops
             from repro_torch.kernels.flash_attention import ops as fa_ops
-            libs = (fa_ops.LIB, fa_ops.BWD_LIB, cl_ops.LIB)
+            from repro_torch.kernels.ssd_scan import ops as ssd_ops
+            libs = (fa_ops.LIB, fa_ops.BWD_LIB, cl_ops.LIB, ssd_ops.LIB,
+                    ssd_ops.BWD_LIB)
             if rank == 0:
                 kbuild.build_all(libs)
             mesh.barrier()
@@ -285,20 +341,22 @@ def main(argv=None) -> int:
                 lib.lib()
         from repro_torch.kernels.contrastive_loss import ops as cl_ops
         from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
         counters = (fa_ops.COUNTER, fa_ops.BWD_COUNTER, cl_ops.FWD_COUNTER,
-                    cl_ops.BWD_COUNTER)
+                    cl_ops.BWD_COUNTER, ssd_ops.COUNTER, ssd_ops.BWD_COUNTER)
         lm = args.objective == "lm"
         losses = {} if lm else loss_checks(
             mesh, device, 16 if args.smoke else args.b_local, args.iters)
         checks = [None] * mesh.ranks
         dist.all_gather_object(checks, losses)
         batch = 64 if args.smoke and not lm else args.batch
-        arch = cut_arch(args.arch, args.layers)
+        arch = cut_arch(args.arch, args.layers, args.experts)
         base = ["--arch", arch, "--attn", "pallas", "--quiet", "--seq",
                 str(args.seq), "--objective", args.objective, "--remat",
                 args.remat]
-        base += (["--precision", "f32"] if lm else
-                 ["--num-micro", "8", "--loss", "chunked"])
+        base += ([] if lm else ["--num-micro", "8", "--loss", "chunked"])
+        if args.precision or lm:
+            base += ["--precision", args.precision or "f32"]
         base += ["--smoke", "--device", "cpu"] if args.smoke else []
         models = [int(m) for m in args.model_parallel.split(",")]
         shardings = args.sharding.split(",")
@@ -310,33 +368,57 @@ def main(argv=None) -> int:
                              "--sharding", sharding]
             targs = td.parse_args(argv_t)
             _, gmesh = td.setup(targs)
-            nbytes = state_bytes(targs, device, gmesh)
             if rank == 0:
                 shutil.rmtree(run_dir, ignore_errors=True)
-            if on_card:
-                torch.cuda.reset_peak_memory_stats(device)
             for c in counters:
                 c.reset()
+            oom, steps, nbytes, peak = None, None, None, None
             t0 = time.perf_counter()
-            steps = td.main(argv_t + (["--run-dir", run_dir]
-                                      if rank == 0 else []))
+            try:
+                nbytes = state_bytes(targs, device, gmesh)
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(device)
+                with CollectiveBytes() as moved:
+                    steps = td.main(argv_t + (["--run-dir", run_dir]
+                                              if rank == 0 else []))
+            except torch.cuda.OutOfMemoryError as e:
+                oom = str(e)
             wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated(device) if on_card \
-                else None
+            if on_card:
+                peak = torch.cuda.max_memory_allocated(device)
+                torch.cuda.empty_cache()
             everyone = [None] * mesh.ranks
             dist.all_gather_object(everyone, {
-                "losses": steps, "peak": peak, "bytes": nbytes,
-                "launches": {c.name: c.count for c in counters}})
+                "losses": steps, "peak": peak, "bytes": nbytes, "oom": oom,
+                "collective_bytes_per_step": None if oom else {
+                    k: v / args.steps for k, v in moved.bytes.items()},
+                "launches": {c.name: c.count for c in counters},
+                "ssd_shapes": {c.name: {"x".join(map(str, k)): v
+                                        for k, v in c.shapes.items()}
+                               for c in counters[-2:]}})
             rec = {"grid": [mesh.ranks // model, model],
-                   "sharding": sharding, "losses": everyone[0]["losses"],
+                   "sharding": sharding, "batch": batch,
+                   "losses": everyone[0]["losses"],
                    "losses_equal": all(e["losses"] == everyone[0]["losses"]
                                        for e in everyone),
                    "wall_s": wall,
                    "peak_gib": [e["peak"] / 2**30 if e["peak"] else None
                                 for e in everyone],
                    "launches": [e["launches"] for e in everyone],
-                   "params_bytes": [e["bytes"][0] for e in everyone],
-                   "state_bytes": [e["bytes"][1] for e in everyone]}
+                   "ssd_shapes": [e["ssd_shapes"] for e in everyone],
+                   "collective_bytes_per_step": [
+                       e["collective_bytes_per_step"] for e in everyone],
+                   "params_bytes": [e["bytes"] and e["bytes"][0]
+                                    for e in everyone],
+                   "state_bytes": [e["bytes"] and e["bytes"][1]
+                                   for e in everyone],
+                   "out_of_memory": [e["oom"] for e in everyone]}
+            if any(rec["out_of_memory"]):
+                if rank == 0:
+                    print(f"grid {rec['grid']} {sharding}: out of memory "
+                          f"{json.dumps(rec)}", flush=True)
+                grids.append(rec)
+                continue
             if rank == 0:
                 warm, split = run_split(run_dir)
                 rec.update(warm_step_median_s=warm, split=split)

@@ -9,7 +9,7 @@ them. The params are placed by ``core.sharding.params_specs(..., "tp")``
 q/k/v and FFN-in split their output dim, o and FFN-out their input dim,
 the MoE experts their expert axis (or, when the experts do not divide,
 their ff dim), the embedding and the LM head the vocab. The M ranks of a
-model group run the same examples, and the models use four operators
+model group run the same examples, and the models use five operators
 over the group (``launch.mesh.Axis``, ``mesh.model``):
 
   ``copy_to_model``      identity forward; the backward all-reduces the
@@ -21,6 +21,8 @@ over the group (``launch.mesh.Axis``, ``mesh.model``):
                          dim; the backward keeps this rank's slice
   ``whole``              gathers a split leaf on use; the backward keeps
                          this rank's slice and never reduce-scatters
+  ``gathered``           gathers a split leaf on use; the backward
+                         reduce-scatters (sums the ranks' gradients)
 
 so a transformer block is copy, column-split q/k/v (H/M query heads, KV/M
 kv heads), row-split o, reduce; copy, column-split FFN-in, row-split
@@ -32,9 +34,20 @@ head the rule splits over d. Their gradient is the same on the M ranks,
 since the block's activations and their gradients are; ``_Gather``'s
 reduce-scatter (``core.weight_sharding``) would count it M times.
 
+The Mamba-2 mixer (``models.ssm.mamba_mixer``) is split by heads: z, x
+and dt are this rank's H/M heads (``in_z``, ``in_x``, ``in_dt`` split on
+their columns, ``A_log``, ``D``, ``dt_bias`` per head), ``out`` is
+row-split, so a mixer is copy, its H/M heads, reduce: one all-reduce
+forward and one backward. The scan needs B and C whole on every rank,
+and the rule's even split of ``conv_w``'s d_inner + 2n channels does
+not fall on a rank's x channels, so ``in_B``, ``in_C`` and ``conv_w``
+are made whole by ``gathered``: each rank's heads give a part of their
+gradient, which the backward sums over the group (``_Gather``'s
+reduce-scatter) before it keeps the rank's slice.
+
 Every split must fall on whole heads and kv groups: ``check`` refuses a
-model whose heads (or ff dim) do not divide by M, and the SSM and hybrid
-families, whose mixer splits need collectives of their own.
+model whose heads (attention or SSD), kv heads, ff dim or state dim do
+not divide by M.
 """
 from __future__ import annotations
 
@@ -46,14 +59,6 @@ import torch
 from repro_torch.core import sharding as shd
 from repro_torch.core import weight_sharding as ws
 from repro_torch.tree import tree_map
-
-_SSM_LATER = ("{name}: --sharding tp at model extent {m} for the {family} "
-              "family comes with the tensor-parallel slice for Mamba-2 and "
-              "the hybrid family (in_B / in_C split the state dim the SSD "
-              "scan needs whole, A_log / D / dt_bias split per head and the "
-              "gated norm spans d_inner, each needing its own collective); "
-              "basic_ws and replicated run it at any model extent")
-
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
@@ -115,6 +120,14 @@ def whole(part: torch.Tensor, dim: Optional[int], axis) -> torch.Tensor:
     return part if dim is None else _Slice.apply(part, dim, axis)
 
 
+def gathered(part: torch.Tensor, dim: Optional[int], axis) -> torch.Tensor:
+    """The whole leaf from its parts split along ``dim`` (``part`` itself
+    when ``dim`` is None) for a leaf whose gradient differs by rank: the
+    backward sums the ranks' gradients over the group and keeps this
+    rank's part (``weight_sharding._Gather``)."""
+    return part if dim is None else ws._Gather.apply(part, dim, axis)
+
+
 def active(layout: Optional[ws.Layout]) -> bool:
     """True when ``layout`` places parts that the models compute with as
     they lie (mode 'tp')."""
@@ -146,25 +159,33 @@ def _towers(cfg) -> tuple:
             else (cfg,))
 
 
+def _need(t, m: int, what: str, n: int) -> None:
+    if n % m:
+        raise ValueError(f"{t.name}: --sharding tp at model extent {m} needs "
+                         f"{what} to divide by {m}")
+
+
 def check(cfg, m: int) -> None:
-    """Raise unless every split of ``cfg`` (an LM or a dual encoder) under
-    ``tp`` at model extent ``m`` falls on whole heads, kv groups and ff
-    columns: NotImplementedError for the SSM and hybrid families,
-    ValueError naming the arch and ``m`` otherwise."""
+    """Raise ValueError, naming the arch and ``m``, unless every split of
+    ``cfg`` (an LM or a dual encoder) under ``tp`` at model extent ``m``
+    falls on whole heads, kv groups and ff columns and, for a Mamba-2
+    mixer, on whole SSD heads (so d_inner) and state dims."""
     if m == 1:
         return
     for t in _towers(cfg):
-        if t.family in ("ssm", "hybrid"):
-            raise NotImplementedError(_SSM_LATER.format(
-                name=t.name, m=m, family=t.family))
+        if t.family in ("ssm", "hybrid"):       # d_inner is heads × p
+            s = t.ssm
+            heads = s.expand * t.d_model // s.head_dim
+            _need(t, m, f"its {heads} SSD heads", heads)
+            _need(t, m, f"its state dim {s.state_dim}", s.state_dim)
+        if t.family == "ssm":
+            continue
         if t.n_heads % m or t.n_kv_heads % m:
             raise ValueError(
                 f"{t.name}: --sharding tp at model extent {m} needs whole "
                 f"heads on every rank, but its {t.n_heads} query and "
                 f"{t.n_kv_heads} kv heads do not both divide by {m}")
-        if t.d_ff % m:
-            raise ValueError(f"{t.name}: --sharding tp at model extent {m} "
-                             f"needs its d_ff {t.d_ff} to divide by {m}")
+        _need(t, m, f"its d_ff {t.d_ff}", t.d_ff)
 
 
 def layout(cfg, like, mesh) -> Optional[ws.Layout]:
@@ -188,15 +209,21 @@ def local_heads(cfg, m: int):
 _SPLIT = {("attn", "wq"): 1, ("attn", "wk"): 1, ("attn", "wv"): 1,
           ("attn", "wo"): 0, ("ffn", "wi"): 1, ("ffn", "wg"): 1,
           ("ffn", "wo"): 0, ("moe", "dense_wi"): 1, ("moe", "dense_wg"): 1,
-          ("moe", "dense_wo"): 0}
+          ("moe", "dense_wo"): 0, ("mamba", "in_z"): 1, ("mamba", "in_x"): 1,
+          ("mamba", "in_dt"): 1, ("mamba", "out"): 0, ("mamba", "A_log"): 0,
+          ("mamba", "D"): 0, ("mamba", "dt_bias"): 0}
+# the mixer's leaves every rank needs whole, whose gradient each rank's
+# heads give a part of (``gathered``)
+_SUMMED = {("mamba", "in_B"), ("mamba", "in_C"), ("mamba", "conv_w")}
 # MoE experts (E, d, f) / (E, f, d): the expert axis, or the ff dim
 _EXPERT = {"wi": (0, 2), "wg": (0, 2), "wo": (0, 1)}
 
 
 def block_params(p: dict, lay: ws.Layout) -> dict:
     """One layer's params for Megatron execution: the leaves a block
-    consumes split stay this rank's parts, every other split leaf is made
-    ``whole``. Raises ValueError for a consumed leaf split on another dim
+    consumes split stay this rank's parts, the mixer's ``in_B``, ``in_C``
+    and ``conv_w`` are made whole by ``gathered``, every other split leaf
+    by ``whole``. Raises ValueError for a consumed leaf split on another dim
     (``check`` keeps the rule's splits on the Megatron ones)."""
     out = {}
     for group, sub in p.items():
@@ -210,7 +237,9 @@ def block_params(p: dict, lay: ws.Layout) -> dict:
             want = (_EXPERT.get(name) if group == "moe" else None) or \
                 ((_SPLIT[(group, name)],) if (group, name) in _SPLIT
                  else None)
-            if want is None:
+            if (group, name) in _SUMMED:
+                x = gathered(x, d, lay.axis)
+            elif want is None:
                 x = whole(x, d, lay.axis)
             elif d not in want:
                 raise ValueError(f"{group}/{name}: split on dim {d}, not on "

@@ -147,23 +147,25 @@ def gather_leaf(x: torch.Tensor, dim: Optional[int], axis) -> torch.Tensor:
 
 
 @torch.no_grad()
+def cut_leaf(x: torch.Tensor, d: Optional[int], axis) -> torch.Tensor:
+    """This rank's part of the whole leaf ``x`` split on ``d`` over
+    ``axis``, as a fresh tensor (``x`` itself when ``d`` is None)."""
+    if d is None:
+        return x
+    if x.shape[d] % axis.size:
+        raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide "
+                         f"over {axis.size} model ranks")
+    b = x.shape[d] // axis.size
+    return x.narrow(d, axis.index * b, b).clone()
+
+
 def cut(tree, layout: Optional[Layout]):
     """This rank's part of every split leaf of ``tree`` (whole leaves), as
     a fresh tensor, so the whole leaf can be freed; whole leaves are kept
     as they are (and the tree's structure, NamedTuples included)."""
     if layout is None:
         return tree
-    axis = layout.axis
-
-    def part(x, d):
-        if d is None:
-            return x
-        if x.shape[d] % axis.size:
-            raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide "
-                             f"over {axis.size} model ranks")
-        b = x.shape[d] // axis.size
-        return x.narrow(d, axis.index * b, b).clone()
-    return unflatten(tree, [part(x, d) for x, d in
+    return unflatten(tree, [cut_leaf(x, d, layout.axis) for x, d in
                             zip(tree_leaves(tree), layout.flat_dims)])
 
 

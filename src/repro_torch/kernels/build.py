@@ -70,28 +70,41 @@ def source_files(source: str) -> list:
 
 class LaunchCounter:
     """A plain count of kernel launches: a wrapper adds one where it
-    launches its kernel, so a run can show that its path went through it."""
+    launches its kernel, so a run can show that its path went through it.
+    A wrapper may name the shape it launched at; ``shapes`` counts the
+    launches by shape."""
 
     def __init__(self, name: str):
         self.name = name
         self._count = 0
+        self._shapes: Dict[tuple, int] = {}
         self._lock = threading.Lock()
 
-    def add(self, n: int = 1) -> None:
-        """Count ``n`` more launches."""
+    def add(self, n: int = 1, shape: Optional[tuple] = None) -> None:
+        """Count ``n`` more launches (at ``shape``, when given)."""
         with self._lock:
             self._count += n
+            if shape is not None:
+                key = tuple(shape)
+                self._shapes[key] = self._shapes.get(key, 0) + n
 
     def reset(self) -> None:
         """Set the count back to 0."""
         with self._lock:
             self._count = 0
+            self._shapes = {}
 
     @property
     def count(self) -> int:
         """Launches counted since the last reset."""
         with self._lock:
             return self._count
+
+    @property
+    def shapes(self) -> Dict[tuple, int]:
+        """Launches since the last reset by the shape the wrapper named."""
+        with self._lock:
+            return dict(self._shapes)
 
 
 class KernelLibrary:

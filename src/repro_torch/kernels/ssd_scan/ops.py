@@ -328,7 +328,7 @@ def _launch(x, dt, A, Bm, Cm, D, init_state, save_states: bool):
             n, *_strides(x, dt, Bm, Cm), plan.p_block, plan.cluster,
             plan.per_cta, plan.stages, plan.smem, stream)
     check(rc, "ssd_scan launch")
-    COUNTER.add()
+    COUNTER.add(shape=(b, l, h, p, n))
     return y, final, states
 
 
@@ -396,7 +396,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
             b, l, h, p, n, *_strides(x, dt, Bm, Cm), plan.p_block,
             plan.group, plan.smem, stream)
     check(rc, "ssd_scan_bwd launch")
-    BWD_COUNTER.add()
+    BWD_COUNTER.add(shape=(b, l, h, p, n))
     return dx, ddt, dA, dB, dC, dD, dinit
 
 

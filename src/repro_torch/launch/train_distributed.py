@@ -20,12 +20,15 @@ Under ``--sharding tp`` with M > 1 (Megatron execution,
 ``core.tensor_parallel``) each rank keeps the same 1/M of the rule's
 split leaves but computes with them as they lie: the M ranks of a model
 group run their data shard's whole block, column- and row-split
-attention and FFN with one all-reduce per sub-block, the MoE experts by
-expert parallelism, the embedding and the LM loss vocab-parallel; the
-global batch is split over the D data shards only, and every gradient is
-summed over the data axis. A model whose heads or ff dim do not divide
-by M is refused (ValueError), and so are the SSM and hybrid families
-(NotImplementedError; their own slice). Two objectives share the loop
+attention and FFN with one all-reduce per sub-block, the Mamba-2 mixer
+on H/M of its heads with one all-reduce (its B, C and conv weights
+gathered whole), the MoE experts by expert parallelism, the embedding
+and the LM loss vocab-parallel; the global batch is split over the D
+data shards only, and every gradient is summed over the data axis.
+``tp`` covers every family the port trains (encoder, dense, ssm, moe,
+hybrid; vlm waits for its slice). A model whose heads (attention or
+SSD), kv heads, ff dim, d_inner or state dim do not divide by M is
+refused (ValueError). Two objectives share the loop
 (``--objective auto`` picks by arch):
 
   lm           — next-token loss of a decoder LM; every rank draws the
@@ -165,8 +168,8 @@ def param_layout(cfg, mesh, sharding: str = "basic_ws"):
     under the ``sharding`` rule (``core.sharding.params_specs``), or None
     when every leaf stays whole (one model rank, or ``replicated``).
     Under ``tp`` a layout of mode 'tp' (``core.tensor_parallel.layout``,
-    which refuses heads or ff dims that do not divide, and the SSM and
-    hybrid families)."""
+    which refuses heads, ff dims, d_inner or state dims that do not
+    divide)."""
     like = init_params(cfg, torch.Generator(), "meta")
     if sharding == "tp":
         return tpl.layout(cfg, like, mesh)
@@ -193,17 +196,27 @@ def build_state(cfg, opt, seed: int, device, mesh=None,
     generator of the device's type seeded alike) and their optimizer
     state, placed on ``mesh`` under the ``sharding`` rule: with a split
     over the model axis (``param_layout``) each rank keeps its parts of
-    the split leaves and slots, and the whole trees are freed (on a card
-    the peak-memory counter is reset after that, so it counts the run).
-    Returns (params, opt_state)."""
+    the split leaves and slots. The whole params are cut leaf by leaf,
+    each whole leaf freed once its part is taken, and the zeroed slots
+    are made at their parts' shapes only, so a rank never holds more than
+    the whole params (on a card the peak-memory counter is reset after
+    that, so it counts the run). Returns (params, opt_state)."""
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         seed), device)
-    opt_state = opt.init(params)
     layout = None if mesh is None else param_layout(cfg, mesh, sharding)
     if layout is None:
-        return params, opt_state
-    slayout = ws.Layout(opt.split_dims(params, layout), layout.axis)
-    params, opt_state = ws.cut(params, layout), ws.cut(opt_state, slayout)
+        return params, opt.init(params)
+    like = ws.whole_like(params, None)
+    flat = tree_leaves(params)
+    del params
+    for i, d in enumerate(layout.flat_dims):
+        flat[i] = ws.cut_leaf(flat[i], d, layout.axis)
+    params = unflatten(like, flat)
+    # the slots are zeros: cut their meta stand-ins, then make the parts
+    slots = ws.cut(opt.init(like), ws.Layout(opt.split_dims(like, layout),
+                                             layout.axis))
+    opt_state = unflatten(slots, [torch.zeros_like(t, device=device)
+                                  for t in tree_leaves(slots)])
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -477,10 +490,9 @@ def setup(args):
     cards present, so ranks may share one) unless ``--device cpu``, and
     the (data, model) mesh of the live ranks (``--model-parallel``; a
     world that does not divide by it raises ValueError). Under ``--sharding
-    tp`` the model is checked first (``tensor_parallel.check``): heads or
-    an ff dim that do not divide by M raise ValueError, the SSM and hybrid
-    families NotImplementedError. ``--memstats`` raises
-    NotImplementedError."""
+    tp`` the model is checked first (``tensor_parallel.check``): heads,
+    an ff dim, d_inner or a state dim that do not divide by M raise
+    ValueError. ``--memstats`` raises NotImplementedError."""
     if getattr(args, "memstats", False):
         raise NotImplementedError(
             "--memstats: the compiled memory report (launch/memstats.py) "
@@ -711,7 +723,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "model axis and gathers them on use (paper §5.1), "
                          "tp splits them Megatron-style and computes with "
                          "the parts (the model ranks of a data shard share "
-                         "its block), replicated keeps them whole")
+                         "its block; every family but vlm), replicated "
+                         "keeps them whole")
     remat_names = list_policies() + ["off"]
     ap.add_argument("--remat", default="basic", choices=remat_names)
     ap.add_argument("--remat-image", default=None, choices=remat_names,

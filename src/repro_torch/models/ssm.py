@@ -8,6 +8,15 @@ chunked plain version (``ssd_chunked``, the reference's jnp algorithm) on
 the CPU. The scan adds ``D·x`` itself, so the mixer does not add it again
 as the reference does after its ``ssd_chunked``.
 
+Under a model axis (``--sharding tp``, ``core.tensor_parallel``) the
+mixer runs on this rank's H/M heads: x enters through ``copy_to_model``,
+z, x and dt come from the rank's columns of ``in_z``, ``in_x`` and
+``in_dt``, B and C whole from the whole ``in_B`` and ``in_C``, the conv
+runs on the rank's x channels and all of B and C with the matching
+columns of the whole ``conv_w``, the scan on H/M heads with the rank's
+``A_log``, ``D`` and ``dt_bias``, and the row-split ``out`` is summed
+over the group by ``reduce_from_model``.
+
 Decode is the O(1) recurrent form in plain PyTorch on both devices (the
 reference has no kernel there): the state (b, heads, head_dim, N) is
 updated per token and a depthwise-conv window of width conv_width - 1
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import layers as L
 
@@ -96,18 +106,55 @@ def _project(p, cfg: ArchConfig, x):
     return z, xBC, dt
 
 
-def mamba_mixer(p, cfg: ArchConfig, x, cache: SSMCache = None):
+def _rank_split(p, cfg: ArchConfig, axis):
+    """(d_inner, heads, conv weight) of this rank's share of the mixer
+    under ``axis``: the rank's x channels of the whole ``conv_w`` and all
+    of its B and C channels. Raises ValueError unless ``p`` holds the
+    rank's parts of the head-split leaves and the whole B, C and conv."""
+    s = cfg.ssm
+    d_all, h_all, c_all = dims(cfg)
+    m, r = axis.size, axis.index
+    d_in, nheads = d_all // m, h_all // m
+    want = {"in_z": d_in, "in_x": d_in, "in_dt": nheads, "A_log": nheads,
+            "D": nheads, "dt_bias": nheads, "in_B": s.state_dim,
+            "in_C": s.state_dim, "conv_w": c_all}
+    for name, n in want.items():
+        if p[name].shape[-1] != n:
+            raise ValueError(f"{cfg.name}: mamba_mixer on {m} model ranks "
+                             f"wants {name}'s last dim {n}, got "
+                             f"{tuple(p[name].shape)}")
+    if p["out"].shape[0] != d_in:
+        raise ValueError(f"{cfg.name}: mamba_mixer on {m} model ranks wants "
+                         f"out's rows {d_in}, got {tuple(p['out'].shape)}")
+    w = p["conv_w"]
+    return d_in, nheads, torch.cat([w[:, r * d_in:(r + 1) * d_in],
+                                    w[:, d_all:]], dim=-1)
+
+
+def mamba_mixer(p, cfg: ArchConfig, x, cache: SSMCache = None, axis=None):
     """Full-sequence Mamba-2 mixer. x: (b, l, d); ``cache`` (optional)
     gives the conv window and SSD state to start from. Returns (out
     (b, l, d), the new ``SSMCache``: final SSD state fp32, last conv
     window in x's dtype). l must be at most ``cfg.ssm.chunk`` or a
-    multiple of it (``ValueError`` otherwise, from the scan)."""
+    multiple of it (``ValueError`` otherwise, from the scan).
+
+    ``axis``: the model axis when ``p`` holds this rank's Megatron parts
+    (``core.tensor_parallel.block_params``); the rank computes its H/M
+    heads and the output is summed over the group. The returned cache is
+    then the rank's (its heads' state, its conv channels); a ``cache``
+    cannot be given."""
     s = cfg.ssm
     d_in, nheads, _ = dims(cfg)
     b, l, _ = x.shape
+    w = p["conv_w"]
+    if axis is not None:
+        if cache is not None:
+            raise ValueError(f"{cfg.name}: mamba_mixer on a model axis "
+                             f"takes no cache")
+        d_in, nheads, w = _rank_split(p, cfg, axis)
+        x = tp.copy_to_model(x, axis)
     z, xBC, dt = _project(p, cfg, x)
-    xBC, new_conv = _conv1d(xBC, p["conv_w"],
-                            None if cache is None else cache.conv)
+    xBC, new_conv = _conv1d(xBC, w, None if cache is None else cache.conv)
     xBC = F.silu(xBC)
     xh = xBC[..., :d_in].reshape(b, l, nheads, s.head_dim)
     Bm = xBC[..., d_in:d_in + s.state_dim]
@@ -116,7 +163,10 @@ def mamba_mixer(p, cfg: ArchConfig, x, cache: SSMCache = None):
     y, final = ssd_scan(xh, dt, A, Bm, Cm, p["D"].float(), chunk=s.chunk,
                         init_state=None if cache is None else cache.ssm)
     y = y.reshape(b, l, d_in).to(x.dtype) * F.silu(z)
-    return L.dense(y, p["out"]), SSMCache(ssm=final, conv=new_conv)
+    out = L.dense(y, p["out"])
+    if axis is not None:
+        out = tp.reduce_from_model(out, axis)
+    return out, SSMCache(ssm=final, conv=new_conv)
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, *,

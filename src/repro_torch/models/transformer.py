@@ -164,7 +164,8 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
         if decode:
             mix, new_cache = ssm_lib.mamba_decode(p["mamba"], cfg, hn, cache)
         else:
-            mix, new_cache = ssm_lib.mamba_mixer(p["mamba"], cfg, hn)
+            mix, new_cache = ssm_lib.mamba_mixer(p["mamba"], cfg, hn,
+                                                 axis=axis)
             if collect_cache_len is None:
                 new_cache = None
     elif decode:
@@ -191,7 +192,9 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
 
 def _megatron_block(cfg: ArchConfig, p, lay, moe_args):
     """(params, moe_args, axis) of one layer under a 'tp' layout ``lay``:
-    the leaves Megatron consumes split kept as parts, the rest made whole,
+    the leaves Megatron consumes split kept as parts, the rest made whole
+    (``tensor_parallel.block_params``: a mixer's B, C and conv weights by
+    the gather whose backward sums the ranks' parts),
     and a MoE layer's expert share when the rule splits the expert axis;
     under any other layout the layer's leaves gathered whole."""
     if not tp.active(lay):

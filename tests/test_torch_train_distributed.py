@@ -235,14 +235,14 @@ def test_runlog_passes_the_schema_gate_and_reports(port_r1):
     (["--memstats", "--health"], "tooling"),
     (["--memstats", "--metrics-port", "0"], "tooling"),
     (["--memstats"], "tooling"),
-    (["--arch", "mamba2-130m", "--model-parallel", "2", "--sharding", "tp"],
-     "tensor-parallel")])
+    (["--memstats", "--arch", "mamba2-130m", "--model-parallel", "2",
+      "--sharding", "tp"], "tooling")])
 def test_refuses_what_later_slices_bring(flags, match):
     """The tooling (``--memstats``, with or without the health tier's
     flags, which the trainer serves since the health-tier slice:
-    ``tests/test_torch_train_health.py``), and ``tp`` for Mamba-2 and the
-    hybrid family (Megatron execution runs the dense, MoE and encoder
-    families)."""
+    ``tests/test_torch_train_health.py``, and under ``tp`` for Mamba-2,
+    which Megatron execution runs since the Mamba-2 tensor-parallel slice:
+    ``tests/test_torch_train_tensor_parallel_ssm.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         td.main(CONTRASTIVE + ["--device", "cpu", "--steps", "1"] + flags)
 

@@ -13,8 +13,10 @@ checkpoint on spawned gloo ranks at the same grid (``tests/torch_spawn.py``),
 each rank computing with its parts, and must give the reference's losses
 for steps 2 and 3 within rtol 1e-4 and its step-4 parameters and
 AdaFactorW slots, written back as whole leaves, within 1e-3 of the change
-steps 2-3 made. The refusals that remain under ``tp``: the SSM and hybrid
-families, and heads that do not divide by the model extent.
+steps 2-3 made. The refusals that remain under ``tp``: heads (attention
+or SSD) that do not divide by the model extent; the SSM and hybrid
+families under ``tp`` are held to the reference in
+``tests/test_torch_train_tensor_parallel_ssm.py``.
 """
 import json
 import os
@@ -130,13 +132,14 @@ def test_2x2_resumes_the_references_checkpoint(reference, tmp_path):
 
 
 @pytest.mark.parametrize("arch,model,error,match", [
-    ("mamba2-130m", 2, NotImplementedError, "tensor-parallel slice"),
-    ("jamba-1.5-large-398b", 2, NotImplementedError, "tensor-parallel slice"),
+    ("mamba2-130m", 3, ValueError, "its 16 SSD heads to divide by 3"),
+    ("jamba-1.5-large-398b", 3, ValueError,
+     "its 16 SSD heads to divide by 3"),
     ("llama3.2-1b", 4, ValueError, "2 kv heads do not both divide by 4")])
 def test_refuses_what_tp_cannot_split(arch, model, error, match):
-    """The SSM and hybrid families under ``tp`` wait for their own slice;
-    the smoke Llama's 2 kv heads do not divide over 4 model ranks. The
-    trainer refuses both before it builds a mesh."""
+    """The smoke Mamba-2's and the smoke Jamba's 16 SSD heads do not
+    divide over 3 model ranks, the smoke Llama's 2 kv heads not over 4.
+    The trainer refuses each before it builds a mesh."""
     with pytest.raises(error, match=match):
         tpl.check(smoke_variant(get_arch(arch)), model)
     with pytest.raises(error, match=match):

@@ -12,10 +12,12 @@ the same (data, model) grid (``tests/torch_spawn.py``), each rank keeping
 1/M of every split leaf, and must give the reference's losses for steps 2
 and 3 within rtol 1e-4 and its step-4 parameters and AdaFactorW slots,
 written back as whole leaves, within 1e-3 of the change steps 2-3 made.
-The refusals that remain: ``--sharding tp`` for the SSM and hybrid
-families and for heads that do not divide by the model axis (Megatron
-execution itself is held to the reference in
-``tests/test_torch_train_tensor_parallel.py``), a world that does not
+Under ``--sharding replicated`` at (1, 2) (every rank the whole model, the
+batch split over both) the port resumes the reference's step-2 checkpoint
+the same way. The refusals that remain: ``--sharding tp`` for heads that
+do not divide by the model axis (Megatron execution itself is held to the
+reference in ``tests/test_torch_train_tensor_parallel.py`` and
+``tests/test_torch_train_tensor_parallel_ssm.py``), a world that does not
 divide by the model axis, and a batch that does not divide over every
 rank.
 """
@@ -62,20 +64,24 @@ base = dict(objective="auto", smoke=True, steps=4, seed=0,
 contrastive = dict(arch="basic-s", batch=16, seq=16, lr=3e-4, num_micro=2,
                    loss="chunked", precision="f32")
 lm = dict(arch="llama3.2-1b", batch=4, seq=32, lr=3e-3)
+replicated = dict(sharding="replicated")
 out = {}
 for name, n, kw in (("contrastive_1x2", 1, contrastive),
                     ("contrastive_2x2", 2, contrastive),
-                    ("lm_1x2", 1, lm)):
+                    ("lm_1x2", 1, lm),
+                    ("replicated_contrastive_1x2", 1,
+                     dict(contrastive, **replicated)),
+                    ("replicated_lm_1x2", 1, dict(lm, **replicated))):
     rtd.make_local_mesh = mesh_of(n)
     out[name] = rtd.train(types.SimpleNamespace(
-        **base, **kw, ckpt_dir=f"{sys.argv[1]}/{name}"))
+        **dict(base, **kw), ckpt_dir=f"{sys.argv[1]}/{name}"))
 print("LOSSES " + json.dumps(out))
 """
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """{run: (losses, checkpoint dir)} of the reference's three runs."""
+    """{run: (losses, checkpoint dir)} of the reference's five runs."""
     root = str(tmp_path_factory.mktemp("reference"))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(ROOT, "src"),
@@ -91,9 +97,9 @@ def reference(tmp_path_factory):
             for k, v in json.loads(line[len("LOSSES "):]).items()}
 
 
-def _resumed(ref_dir, d, argv):
+def _resumed(ref_dir, d, argv, sharding="basic_ws"):
     return argv + ["--device", "cpu", "--steps", "4", "--quiet",
-                   "--model-parallel", "2", "--sharding", "basic_ws",
+                   "--model-parallel", "2", "--sharding", sharding,
                    "--ckpt-dir", _from_step2(ref_dir, d)]
 
 
@@ -116,6 +122,31 @@ def test_1x2_resumes_the_references_checkpoints(reference, tmp_path):
     assert (meta["ranks"], meta["data"], meta["model"]) == (2, 1, 2)
 
 
+def test_replicated_1x2_resumes_the_references_checkpoints(reference,
+                                                           tmp_path):
+    """``replicated`` at (1, 2): each rank the whole model and its half of
+    the batch; the contrastive run and the LM run from the reference's
+    step 2 (so the AdaFactorW slots carried into steps 2-3 are the
+    reference's), its losses and step-4 state."""
+    runs = (("replicated_contrastive_1x2", CONTRASTIVE),
+            ("replicated_lm_1x2", LM))
+    dirs = {name: str(tmp_path / name) for name, _ in runs}
+    ranks = run_world(worker_train, 2, str(tmp_path / "rdv"),
+                      [_resumed(reference[name][1], dirs[name], argv,
+                                "replicated") for name, argv in runs],
+                      timeout=300)
+    for got in ranks:
+        for (name, _), losses in zip(runs, got):
+            np.testing.assert_allclose(losses, reference[name][0][2:],
+                                       rtol=1e-4, err_msg=name)
+    for name, _ in runs:
+        _assert_step4_matches(dirs[name], reference[name][1])
+    with open(os.path.join(dirs["replicated_lm_1x2"], "runlog.jsonl")) as f:
+        meta = json.loads(f.readline())["meta"]
+    assert (meta["ranks"], meta["data"], meta["model"], meta["sharding"]) \
+        == (2, 1, 2, "replicated")
+
+
 def test_2x2_resumes_the_references_checkpoint(reference, tmp_path):
     """Four ranks, two data shards of two model ranks: the loader's two
     host blocks, each split over its shard's model ranks."""
@@ -129,15 +160,15 @@ def test_2x2_resumes_the_references_checkpoint(reference, tmp_path):
 
 
 def test_refuses_tp_and_indivisible_worlds_and_batches(tmp_path):
-    """``tp`` at a model axis of 2 for Mamba-2 and Jamba (their own
-    slice) and at 4 for the smoke Llama (2 kv heads), a world of 1 at a
+    """``tp`` at a model axis of 3 for the smoke Mamba-2 and Jamba (16 SSD
+    heads) and at 4 for the smoke Llama (2 kv heads), a world of 1 at a
     model axis of 2, and on two ranks (1 x 2) a batch of 15 and a
     per-rank block that does not divide into the microbatches: each raises
     naming the reason."""
     run = CONTRASTIVE + ["--device", "cpu", "--steps", "1"]
     for arch in ("mamba2-130m", "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            td.main(run + ["--arch", arch, "--model-parallel", "2",
+        with pytest.raises(ValueError, match="16 SSD heads to divide by 3"):
+            td.main(run + ["--arch", arch, "--model-parallel", "3",
                            "--sharding", "tp"])
     with pytest.raises(ValueError, match="kv heads do not both divide"):
         td.main(LM + ["--device", "cpu", "--steps", "1", "--model-parallel",

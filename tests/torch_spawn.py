@@ -7,6 +7,9 @@ and ``repro_torch`` only, never in a test module that imports JAX.
 """
 from __future__ import annotations
 
+import contextlib
+
+
 def worker_losses(rank, world, cases, device="cpu"):
     """The cross-shard losses on this rank's rows of each case's global
     embeddings on ``device``: ``cases`` maps a name to (method, dtype name,
@@ -384,8 +387,9 @@ def worker_tp_lm(rank, world, model, arch, weights, tokens, moe_args):
     whole = interop.from_numpy(weights, "cpu")
     lay = tp.layout(cfg, whole, mesh)
     p = tree_map(lambda t: t.requires_grad_(), ws.cut(whole, lay))
-    made_whole, experts = [], []
+    made_whole, experts, summed = [], [], []
     real_whole, real_experts = tp.whole, moe._experts
+    real_gathered = tp.gathered
 
     def recording_whole(part, dim, axis):
         if dim is not None:
@@ -396,21 +400,87 @@ def worker_tp_lm(rank, world, model, arch, weights, tokens, moe_args):
         experts.append(int(xe.shape[0]))
         return real_experts(w, xe)
 
+    def recording_gathered(part, dim, axis):
+        if dim is None:
+            return part
+        summed.append((tuple(part.shape), dim))
+        return real_gather(part, dim, axis)
+
     def refused(*args):
         raise AssertionError("weight_sharding's gather under tp")
     tp.whole, moe._experts = recording_whole, recording_experts
+    tp.gathered = recording_gathered
     real_gather, ws._Gather.apply = ws._Gather.apply, refused
     try:
-        loss, metrics = tf.lm_loss(
-            cfg, p, {"tokens": torch.from_numpy(tokens)},
-            moe_args=moe_args, layout=lay)
-        paths = [k for k, _ in leaves(p)]
-        grads = torch.autograd.grad(loss, [x for _, x in leaves(p)])
+        with _scan_heads() as heads:
+            loss, metrics = tf.lm_loss(
+                cfg, p, {"tokens": torch.from_numpy(tokens)},
+                moe_args=moe_args, layout=lay)
+            paths = [k for k, _ in leaves(p)]
+            grads = torch.autograd.grad(loss, [x for _, x in leaves(p)])
     finally:
         tp.whole, moe._experts = real_whole, real_experts
+        tp.gathered = real_gathered
         ws._Gather.apply = real_gather
     return {"loss": loss.item(), "xent": metrics["xent"].item(),
             "aux": metrics["aux"].item(),
             "grads": {k: g.numpy() for k, g in zip(paths, grads)},
             "dims": dict(zip(paths, lay.flat_dims)),
-            "whole": made_whole, "experts": experts}
+            "whole": made_whole, "experts": experts, "summed": summed,
+            "scan_heads": heads}
+
+
+@contextlib.contextmanager
+def _scan_heads():
+    """A context in which the Mamba-2 mixer's scan records the heads of
+    every call (x's third dim) in the list it yields."""
+    from repro_torch.models import ssm
+
+    heads, real = [], ssm.ssd_scan
+
+    def recording(x, *args, **kw):
+        heads.append(int(x.shape[2]))
+        return real(x, *args, **kw)
+    ssm.ssd_scan = recording
+    try:
+        yield heads
+    finally:
+        ssm.ssd_scan = real
+
+
+def worker_tp_mixer(rank, world, model, arch, weights, x, up):
+    """The Mamba-2 mixer of the smoke ``arch`` under Megatron execution:
+    ``weights`` is one layer's whole mixer leaves as numpy, each stacked
+    on a leading layer axis of 1 (so the rule sees the trainer's leaves);
+    they are placed by ``params_specs(..., 'tp')`` on a (1, ``model``)
+    mesh, ``block_params`` gives the layer's parts and gathered leaves,
+    and ``mamba_mixer`` runs with the model axis on x (b, l, d), for the
+    loss Σ up · out. Returns {out, dx, grads: this rank's part gradients
+    by leaf name, dims: their split dims in one layer's view, heads: the
+    scan's heads per call}."""
+    import torch
+
+    from repro_torch.core import sharding as shd
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import ssm
+    from repro_torch.tree import tree_map
+    mesh = make_local_mesh(model=model)
+    cfg = _tp_cfg(arch, {})
+    whole = {"blocks": [{"mamba": tree_map(torch.from_numpy, weights)}]}
+    stacked = ws.from_specs(shd.params_specs(whole, mesh, "tp"), mesh,
+                            "tp")["blocks"][0]
+    lay = ws.layer(stacked)
+    p = tree_map(lambda t: t[0].clone().requires_grad_(),
+                 ws.cut(whole["blocks"][0], stacked))
+    xt = torch.from_numpy(x).requires_grad_()
+    with _scan_heads() as heads:
+        bp = tp.block_params(p, lay)
+        y, _ = ssm.mamba_mixer(bp["mamba"], cfg, xt, axis=mesh.model)
+        loss = torch.sum(y * torch.from_numpy(up))
+        names = list(p["mamba"])
+        g = torch.autograd.grad(loss, [xt] + [p["mamba"][k] for k in names])
+    return {"out": y.detach().numpy(), "dx": g[0].numpy(),
+            "grads": {k: t.numpy() for k, t in zip(names, g[1:])},
+            "dims": dict(lay.dims["mamba"]), "heads": heads}
