@@ -258,7 +258,7 @@ repository beside this file; it exits non-zero without them. In order it:
 38. the distributed trainer (``repro_torch.launch.train_distributed``'s
     ``main``) at one rank: BASIC-S full width, bf16, B 2048 in 8
     microbatches, the chunked loss (the fused loss at one rank), flash
-    attention, 6 steps; then 6 steps cut at 4 (checkpoints every 2) and
+    attention, 4 steps; then 4 steps cut at 2 (checkpoints every 2) and
     resumed with ``--resume auto``, equal to the uninterrupted run within
     rtol 1e-4: step median, pairs/s, peak memory, the last checkpoint's
     stall and the runlog's data-wait / device-step / ckpt-stall split;
@@ -314,6 +314,36 @@ repository beside this file; it exits non-zero without them. In order it:
     batch at step 1 (``set_step_fault_hook``): exactly that step skipped,
     params and optimizer state unchanged through it, the nonfinite
     detector critical, a flight dump, /healthz 200 mid-run;
+48. after phase 35: both flash kernels at head dim 80, HuBERT-XLarge's
+    training shape (b 2, 16 heads = kv, s 4096, bidirectional), f32 and
+    bf16, against their plain versions, timed against SDPA; then a causal
+    case with a window of 70 and one with GQA 4 at s 520, forward and
+    backward, untimed;
+49. Arctic-480B's GQA 7 (56 query heads over 8 kv, d 128) in the flash
+    forward and backward (b 1 × s 1024, causal) and in
+    ``decode_attention`` (8 slots, a linear cache of 4096, ragged lengths,
+    then timed at the serving state), f32 and bf16, each against its
+    plain version;
+50. HuBERT-XLarge at full width and depth (48 layers, d 1280, 16 heads of
+    80): one f32 masked-frame step (``lm_loss`` and AdaFactorW) on the
+    kernel path against the plain path (chunked attention) from one set
+    of weights and one batch (b 2 × s 1024): loss, every gradient leaf,
+    the updated params, 48 + 48 flash launches on the kernel path and
+    none on the plain path; then ``train.main(["--mode", "lm", "--arch",
+    "hubert-xlarge", ...])`` at b 2 × s 4096 f32, 4 steps: step median,
+    frames/s, peak memory, 48 + 48 launches a step;
+51. InternVL2-76B at full width on 1 of its 80 layers (a depth cut;
+    11.8 GB f32; 2 layers ran out of memory in the f32 update), 256×256
+    images and text: the f32 parity step at b 1 × s 512, then ``run_lm``'s
+    f32 ``lm_step``, 3 steps at b 1 × s 4096 (256 patches, 3840 tokens):
+    step median, tokens/s, peak memory, 1 + 1 flash launches a step;
+52. InternVL2-76B at full width on 8 of its 80 layers (a depth cut; 35.8
+    GB f32) served on token prompts: f32 decode parity of the kernel path
+    against the plain path (4 × 512, a linear cache of 1024, 8 steps),
+    then bf16 through ``serve.run_continuous`` (8 slots, 16 requests of
+    508–520 tokens, 64 new) and ``run_legacy``: tok/s, step median and
+    p90, prefill ms, peak memory, one flash_fwd launch a layer a prefill
+    and one decode_attention launch a layer a step;
 27. last, after phase 43, prints the script's seconds, a ``{"kernels":
     [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
@@ -697,9 +727,10 @@ def attended_pairs(s: int, causal: bool, window=None) -> int:
 
 
 def flash_case(label, b, h, s, d, dtype, padded, seed, kv=None,
-               causal=False, window=None):
+               causal=False, window=None, timed=True):
     """Kernel vs plain version at one shape (``kv`` kv heads, default
-    ``h``; ``causal`` with ``window``); returns the case's record."""
+    ``h``; ``causal`` with ``window``); returns the case's record (times
+    when ``timed``)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (NEG_INF,
@@ -735,6 +766,11 @@ def flash_case(label, b, h, s, d, dtype, padded, seed, kv=None,
         f32_out, _ = flash_fwd_ref(q.float(), k.float(), v.float(), bias,
                                    **mask)
         unrounded = (out.float() - f32_out).abs().max().item()
+    if not timed:
+        print(f"flash_fwd {label} bh={bh} s={s} d={d} {dt} kv={b * kv} "
+              f"{mask}: plan {tuple(plan)}; err out {err_out:.3g} lse "
+              f"{err_lse:.3g} (tol {tol})", flush=True)
+        return {"max_abs_err": max(err_out, err_lse), "plan": tuple(plan)}
 
     def call():
         fa_ops.flash_fwd(q, k, v, bias, **mask)
@@ -4995,7 +5031,7 @@ DIST_LOG_TAU = -2.659              # ~ log 0.07
 DIST_LOSS_B_LOCAL = 2048           # phase 37: global 4096 at R 2, 8192 at 4
 DIST_TRAIN_ARGV = ["--arch", "basic-s", "--batch", "2048", "--num-micro",
                    "8", "--loss", "chunked", "--attn", "pallas", "--seq",
-                   "16", "--steps", "6", "--quiet"]
+                   "16", "--steps", "4", "--quiet"]
 DIST_GLOO_ARGV = ["--arch", "basic-s", "--batch", "256", "--num-micro", "2",
                   "--loss", "chunked", "--attn", "pallas", "--seq", "16",
                   "--precision", "f32", "--steps", "3", "--quiet"]
@@ -5308,9 +5344,10 @@ def runlog_split(path):
 def phase_dist_train():
     """Phase 38: the distributed trainer at R = 1 through its ``main``, at
     full width: BASIC-S, B 2048 in 8 microbatches, the chunked loss (the
-    fused loss at one rank), bf16, 6 steps uninterrupted; then 6 steps cut
-    at 4 (``--stop-after 4 --ckpt-every 2``) and ``--resume auto`` to 6,
-    whose losses must equal the uninterrupted run's. Prints step median,
+    fused loss at one rank), bf16, 4 steps uninterrupted; then 4 steps cut
+    at 2 (``--stop-after 2 --ckpt-every 2``) and ``--resume auto`` to 4,
+    whose losses must equal the uninterrupted run's (6 steps cut at 4
+    until the audio and vlm phases needed the script's time). Prints step median,
     pairs/s, peak memory, the last checkpoint stall and the runlog's
     data-wait / device-step / ckpt-stall split."""
     import math
@@ -5329,7 +5366,7 @@ def phase_dist_train():
     launches = {c.name: c.count for c in dist_counters()}
     d = os.path.join(root, "ck")
     cut = td.main(DIST_TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "2",
-                                     "--stop-after", "4"])
+                                     "--stop-after", "2"])
     rest = td.main(DIST_TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "2"])
     clean = runlog_split(os.path.join(root, "full", "runlog.jsonl"))
     resumed = runlog_split(os.path.join(d, "runlog.jsonl"))
@@ -5342,7 +5379,7 @@ def phase_dist_train():
            "resumed_split": resumed["split"],
            "ckpt_last_stall_s": resumed["ckpt_last_stall_s"]}
     print(f"dist train R=1 (BASIC-S bf16, B=2048 in 8, chunked): losses "
-          f"{[round(v, 5) for v in full]}; cut at 4 and resumed "
+          f"{[round(v, 5) for v in full]}; cut at 2 and resumed "
           f"{[round(v, 5) for v in cut + rest]}; warm step median "
           f"{rep['warm_step_median_s']:.4f} s, {rep['pairs_per_s']:.1f} "
           f"pairs/s, max_memory_allocated {peak / 2**30:.3f} GiB; runlog "
@@ -5351,7 +5388,7 @@ def phase_dist_train():
           f"step median {clean['warm_device_step_median_s']:.4f} s; the "
           f"loader's draw of a block on its thread {clean['draw_s']}; "
           f"launches per step {rep['launches_per_step']}", flush=True)
-    if not all(math.isfinite(v) for v in full) or len(cut) != 4 or \
+    if not all(math.isfinite(v) for v in full) or len(cut) != 2 or \
             len(rest) != 2:
         raise AssertionError(f"dist train R=1: losses {full}, {cut}, {rest}")
     bad = [i for i, (a, b) in enumerate(zip(cut + rest, full))
@@ -5816,6 +5853,357 @@ def ws_ssm_check(label, argv, ranks, device, r1_dir):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 48-52: head dim 80, GQA 7, the audio encoder and the vlm
+# ---------------------------------------------------------------------------
+
+HUBERT = "hubert-xlarge"
+# HuBERT-XLarge's attention: 16 heads of 80 (kv = heads), bidirectional,
+# at its training shape (INPUT_SHAPES["train_4k"]'s 4096 frames)
+HUBERT_ATTN = dict(h=16, d=80, s=4096)
+# the timed HuBERT run through the trainer: f32, b 2 × s 4096. --mode lm
+# has no remat: a layer keeps ~30K floats of activations a frame (its
+# norms, q/k/v, attention out, the three 5120-wide FFN tensors), 5.9 MB a
+# frame over 48 layers, 48 GB at b 2; b 3 (72 GB) with the 5 GB of params,
+# their gradients and AdaFactorW's slots would pass the card's 80 GB
+HUBERT_ARGV = ["--mode", "lm", "--arch", HUBERT, "--batch", "2", "--seq",
+               "4096", "--steps", "4", "--seed", "0"]
+# Arctic-480B's attention: 56 query heads over 8 kv heads (a GQA group of
+# 7), d 128, causal
+ARCTIC_ATTN = dict(h=56, kv=8, d=128)
+INTERNVL2 = "internvl2-76b"
+# InternVL2-76B at full width: the embedding and the untied head are
+# 2.10G params (8.4 GB f32), a layer 0.856G (3.42 GB). Training holds 1 of
+# its 80 layers (2.96G, 11.8 GB f32), at b 1 × s 4096 (256 patches of a
+# 256×256 image, then 3840 tokens): 2 layers (15.28 GB) ran out of memory
+# in the f32 step's AdaFactorW update (the old and the new params, the
+# gradients and the slots at once: 66.8 GiB allocated, 3.9 GiB asked for
+# the embedding's update). Serving holds 8 layers (8.95G, 35.8 GB f32).
+VLM_TRAIN_LAYERS = 1
+VLM_TRAIN_SEQ = 4096
+VLM_SERVE_LAYERS = 8
+# the timed vlm serving run: 8 slots, 16 token requests of 508-520 prompt
+# tokens, 64 new, a linear cache of 1024, bf16, the kernels (the engines
+# serve a vlm on tokens, as the reference's)
+VLM_SERVE_ARGV = ["--arch", INTERNVL2, "--engine", "continuous", "--slots",
+                  "8", "--requests", "16", "--arrival", "0", "--prompt-len",
+                  "512", "--max-new", "64", "--cache-len", "1024", "--attn",
+                  "pallas", "--precision", "bf16", "--temperature", "0",
+                  "--seed", "0"]
+
+
+def phase_flash_d80():
+    """Both flash kernels at head dim 80, HuBERT-XLarge's training shape
+    (b 2, 16 heads = kv, s 4096, bidirectional), f32 and bf16, against
+    their plain versions, timed against SDPA; then, untimed, a causal
+    case with a window of 70 and a bidirectional one with GQA 4, both at
+    s 520 (past one key block of the backward), forward and backward.
+    Returns the timed records by (direction, dtype name)."""
+    import torch
+    a = HUBERT_ATTN
+    recs = {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        dt = dtype_name(dtype)
+        recs[("fwd", dt)] = flash_case("hubert", 2, a["h"], a["s"], a["d"],
+                                       dtype, False, 100 + i)
+        torch.cuda.empty_cache()
+        recs[("bwd", dt)] = flash_bwd_case("hubert", 2, a["h"], a["s"],
+                                           a["d"], dtype, False, 102 + i)
+        torch.cuda.empty_cache()
+        for label, kv, causal, window in (("d80 window", 8, True, 70),
+                                          ("d80 gqa", 2, False, None)):
+            flash_case(label, 2, 8, 520, a["d"], dtype, False, 104 + i,
+                       kv=kv, causal=causal, window=window, timed=False)
+            flash_bwd_case(label, 2, 8, 520, a["d"], dtype, False, 106 + i,
+                           causal=causal, window=window, kv=kv,
+                           timed=False)
+    return recs
+
+
+def phase_gqa7_kernels():
+    """Arctic-480B's grouping, 56 query heads over 8 kv heads (a GQA group
+    of 7, d 128), in the kernels, f32 and bf16: the flash forward and
+    backward at b 1 × s 1024, causal, against their plain versions and
+    timed against SDPA; ``decode_attention`` over 8 slots of a linear
+    cache of 4096 with ragged lengths (0 exactly zero), then timed at the
+    serving state. Returns (flash records by (direction, dtype name),
+    decode records by dtype name)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    a = ARCTIC_ATTN
+    flash, decode = {}, {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        dt = dtype_name(dtype)
+        flash[("fwd", dt)] = flash_case("arctic", 1, a["h"], 1024, a["d"],
+                                        dtype, False, 110 + i, kv=a["kv"],
+                                        causal=True)
+        flash[("bwd", dt)] = flash_bwd_case("arctic", 1, a["h"], 1024,
+                                            a["d"], dtype, False, 112 + i,
+                                            causal=True, kv=a["kv"])
+        b, t = 8, 4096
+        q, k, v = decode_inputs(b, a["h"], a["kv"], t, a["d"], dtype, 114 + i)
+        lens = torch.tensor([0, 1, 255, 256, 257, t, 3001, t - 5],
+                            device="cuda")
+        out, err = decode_check(
+            f"arctic g=7 t={t} ragged {dt}", q, k, v,
+            torch.arange(t, device="cuda")[None, :] < lens[:, None])
+        if not bool((out[0] == 0).all()):
+            raise AssertionError("decode_attention: a length-0 row is not "
+                                 "exactly zero")
+        decode[dt] = decode_timed(
+            f"arctic g=7 (CTA group {dec_ops.launch_plan(q, k).group}) "
+            f"serving", q, k, v,
+            torch.tensor([516 + 9 * j for j in range(b)], device="cuda"),
+            err)
+    return flash, decode
+
+
+def phase_hubert_train(parity_batch: int = 2, parity_seq: int = 1024,
+                       lr: float = 1e-3):
+    """HuBERT-XLarge at full width and depth (48 layers, d 1280, 16 heads
+    of 80, 1.26G params): one f32 step of ``lm_loss`` (the masked-frame
+    loss, no remat) and ``run_lm``'s AdaFactorW on the kernel path (the
+    flash kernels at d 80) and the plain path (chunked attention), from
+    one set of weights and one batch of b 2 × s 1024 frames, held by
+    ``check_step_parity``: 48 + 48 flash launches on the kernel path, none
+    on the plain path; then ``--mode lm`` through the trainer's ``main``
+    (``HUBERT_ARGV``: f32, b 2 × s 4096, 4 steps): step median, tokens/s,
+    peak memory, 48 + 48 flash launches a step."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(HUBERT)
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(12), "cuda")
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    batch = frontends.synthetic_inputs(cfg, parity_batch, parity_seq,
+                                       np.random.default_rng(12),
+                                       device="cuda")
+    results, launches = {}, {}
+    for path, attn in (("kernel", "pallas"), ("plain", "chunked")):
+        pcfg = dataclasses.replace(cfg, attn_impl=attn)
+        results[path], launches[path] = lm_step_results(
+            pcfg, params, batch, lr, lm_counters())
+    parity = check_step_parity(
+        f"hubert parity ({HUBERT} f32, {cfg.n_layers} layers, {n} params, "
+        f"b={parity_batch} x s={parity_seq}, "
+        f"{int(batch['mask'].sum())} masked frames)", results, lr,
+        launches, needed=cfg.n_layers)
+    del results, params, batch
+    torch.cuda.empty_cache()
+    for ctr in lm_counters():
+        ctr.reset()
+    rep = train.main(HUBERT_ARGV)
+    steps = len(rep["losses"])
+    per_step = {c.name: c.count / steps for c in lm_counters()}
+    del rep["params"], rep["opt_state"]
+    print(f"hubert train ({HUBERT} f32 --mode lm, full width and depth, b 2 "
+          f"x s 4096): warm step median {rep['warm_step_median_s']:.4f} s, "
+          f"{rep['tokens_per_s']:.1f} frames/s, max_memory_allocated "
+          f"{rep['max_memory_allocated'] / 2**30:.3f} GiB; step s "
+          f"{[round(t, 4) for t in rep['step_s']]}; losses "
+          f"{[round(v, 5) for v in rep['losses']]}; launches per step "
+          f"{per_step}", flush=True)
+    if not all(math.isfinite(v) for v in rep["losses"]):
+        raise AssertionError(f"hubert train: non-finite loss "
+                             f"{rep['losses']}")
+    if set(per_step.values()) != {cfg.n_layers}:
+        raise AssertionError(f"hubert train: expected {cfg.n_layers} "
+                             f"flash_fwd and flash_bwd launches a step, got "
+                             f"{per_step}")
+    torch.cuda.empty_cache()
+    return {"parity": {**parity, "launches": launches["kernel"]},
+            "rep": rep, "launches_per_step": per_step, "params": n}
+
+
+def vlm_model(layers: int, seed: int):
+    """(cfg, params): InternVL2-76B at full width on ``layers`` of its 80
+    layers, fp32 weights from a CUDA generator, the flash kernels."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch(INTERNVL2), n_layers=layers,
+                              attn_impl="pallas")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for _, p in interop.leaves(params))
+    print(f"vlm: {INTERNVL2} at full width, {layers} of 80 layers, {n} "
+          f"params ({4 * n / 1e9:.2f} GB f32), init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    return cfg, params, n
+
+
+def phase_vlm_train(parity_seq: int = 512, lr: float = 1e-3):
+    """InternVL2-76B at full width on ``VLM_TRAIN_LAYERS`` layer(s),
+    weights built once: one f32 step of ``lm_loss`` (256×256 images
+    through the patchify frontend, the text tail's next-token loss) and
+    ``run_lm``'s AdaFactorW at b 1 × s 512 (256 patches, 256 tokens),
+    kernel path against plain path (chunked attention), held by
+    ``check_step_parity`` (the kernel path's trees parked in host memory);
+    then ``run_lm``'s f32 ``lm_step``, 3 steps at b 1 × s 4096: step
+    median, tokens/s, peak memory, one flash_fwd and one flash_bwd launch
+    a layer a step."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import lm_step
+    from repro_torch.models import frontends
+    from repro_torch.optim import AdaFactorW, warmup_cosine
+
+    cfg, params, n = vlm_model(VLM_TRAIN_LAYERS, 13)
+    data = frontends.synthetic_inputs(cfg, 1, parity_seq,
+                                      np.random.default_rng(13),
+                                      device="cuda")
+    results, launches = {}, {}
+    for path, attn in (("kernel", "pallas"), ("plain", "chunked")):
+        results[path], launches[path] = lm_step_results(
+            dataclasses.replace(cfg, attn_impl=attn), params, data, lr,
+            lm_counters(), to_host=path == "kernel")
+        if path == "kernel":
+            lk, gk, pk, tk = results[path]
+            results[path] = (lk, OnCard(gk), OnCard(pk), tk)
+        torch.cuda.empty_cache()
+    parity = check_step_parity(
+        f"vlm train parity ({INTERNVL2} f32, {VLM_TRAIN_LAYERS} of 80 "
+        f"layers, b=1 x s={parity_seq}: 256 patches, {parity_seq - 256} "
+        f"tokens)", results, lr, launches, needed=VLM_TRAIN_LAYERS)
+    del results, data
+    torch.cuda.empty_cache()
+    opt = AdaFactorW(weight_decay=0.0025)
+    step = lm_step(cfg, opt, warmup_cosine(lr, lr / 100, 1, 3),
+                   precision="f32")
+    f32, params, _ = timed_steps(
+        f"vlm train ({INTERNVL2} {VLM_TRAIN_LAYERS} of 80 layers, lm_step "
+        f"f32, 256 patches + {VLM_TRAIN_SEQ - 256} tokens)", cfg, params,
+        opt.init(params), step, 1, VLM_TRAIN_SEQ, 3, lm_counters())
+    if set(f32["launches_per_step"].values()) != {VLM_TRAIN_LAYERS}:
+        raise AssertionError(f"vlm train: expected {VLM_TRAIN_LAYERS} "
+                             f"flash_fwd and flash_bwd launches a step, got "
+                             f"{f32['launches_per_step']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"parity": {**parity, "launches": launches["kernel"]},
+            "f32": f32, "params": n}
+
+
+def phase_vlm_serve():
+    """InternVL2-76B at full width on ``VLM_SERVE_LAYERS`` layers, weights
+    built once: f32 decode parity (4 token prompts of 512, a linear cache
+    of 1024, 8 greedy steps) of the kernel path against the plain path
+    (``parity_case``), with one flash_fwd launch a layer at the prefill and
+    one decode_attention launch a layer a step; then the same weights
+    served in bf16 through the launcher's ``run_continuous`` (after one
+    untimed warm-up request; ``VLM_SERVE_ARGV``) and ``run_legacy`` (one
+    lockstep request): tokens per second, decode-step median and p90,
+    prefill ms, peak memory, flash_fwd launches per prefill and
+    decode_attention launches per step (one a layer), every token in the
+    vocabulary."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+
+    cfg, params, n = vlm_model(VLM_SERVE_LAYERS, 14)
+    counters = (fa_ops.COUNTER, dec_ops.COUNTER)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for ctr in counters:
+        ctr.reset()
+    steps = 8
+    with torch.no_grad():
+        toks = torch.randint(4, cfg.vocab, (4, 512), generator=g,
+                             device="cuda")
+        worst, flips = parity_case(
+            f"vlm ({INTERNVL2} f32, {VLM_SERVE_LAYERS} of 80 layers, 4 x "
+            f"512 tokens, linear cache 1024)", cfg, params, toks, 512, 1024,
+            steps)
+    parity_launches = {ctr.name: ctr.count for ctr in counters}
+    want = {"flash_fwd": cfg.n_layers, "decode_attention":
+            cfg.n_layers * steps}
+    if parity_launches != want:
+        raise AssertionError(f"vlm parity: launches {parity_launches}, "
+                             f"want {want}")
+    torch.cuda.empty_cache()
+
+    def argv(**changes):
+        return serve.parse_args(with_flags(VLM_SERVE_ARGV, **changes))
+
+    args = argv()
+    torch.cuda.reset_peak_memory_stats()
+    serve.run_continuous(cfg, params, argv(requests=1, max_new=4))
+    for ctr in counters:
+        ctr.reset()
+    rep = serve.run_continuous(cfg, params, args)
+    launches = {ctr.name: ctr.count for ctr in counters}
+    per = {"flash_fwd_per_prefill": launches["flash_fwd"] / rep["prefills"],
+           "decode_attention_per_step": (launches["decode_attention"]
+                                         / rep["decode_steps"])}
+    print(f"vlm serve ({INTERNVL2} {VLM_SERVE_LAYERS} of 80 layers, "
+          f"continuous, bf16, 8 slots, 16 requests x 508-520 prompt tokens "
+          f"x 64 new, cache 1024): decode {rep['decode_tokens_per_s']:.1f} "
+          f"tok/s over the warm steps, {rep['tokens_per_s']:.1f} tok/s over "
+          f"the run (prefill included); step median "
+          f"{rep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{rep['step_p90_s'] * 1e3:.3f} ms over {rep['decode_steps']} "
+          f"steps; prefill {rep['prefill_mean_s'] * 1e3:.3f} ms per "
+          f"request; launches {launches}: {per}", flush=True)
+    want = {"flash_fwd_per_prefill": cfg.n_layers,
+            "decode_attention_per_step": cfg.n_layers}
+    if per != want:
+        raise AssertionError(f"vlm serve: launches {per}, want {want}")
+    for rid, r in rep["results"].items():
+        if not (bool(np.all((r >= 0) & (r < cfg.vocab)))
+                and (r.size == args.max_new or r[-1] == 3)):
+            raise AssertionError(f"vlm serve: bad tokens for request "
+                                 f"{rid}: {r}")
+    if rep["requests"] != args.requests or not math.isfinite(
+            rep["decode_tokens_per_s"]):
+        raise AssertionError(f"vlm serve: {rep['requests']} of "
+                             f"{args.requests} requests finished")
+    for ctr in counters:
+        ctr.reset()
+    lock = serve.run_legacy(cfg, params, argv(engine="legacy", batch=1))
+    row = lock["tokens"][0]
+    stop = np.nonzero(row == 3)[0]
+    emitted = int(stop[0]) + 1 if stop.size else row.size
+    lock_launches = {ctr.name: ctr.count for ctr in counters}
+    want = {"flash_fwd": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (emitted - 1)}
+    print(f"vlm serve (lockstep, 1 request x 512 prompt tokens): {emitted} "
+          f"tokens, {lock['tokens_per_s']:.1f} tok/s (prefill included); "
+          f"launches {lock_launches}", flush=True)
+    if lock_launches != want or not bool(np.all((row >= 0)
+                                                & (row < cfg.vocab))):
+        raise AssertionError(f"vlm serve lockstep: launches {lock_launches} "
+                             f"(want {want}), tokens {row}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"vlm serve: max_memory_allocated {peak / 2**30:.3f} GiB (weights, "
+          f"caches and the warm-up, continuous and lockstep runs)",
+          flush=True)
+    rep.pop("engine", None)
+    del params
+    torch.cuda.empty_cache()
+    return {"parity": {"max_logit_diff": worst, "flips": flips},
+            "parity_launches": parity_launches, "launches": launches,
+            "per": per, "rep": rep,
+            "lockstep": {"launches": lock_launches, "tokens": emitted,
+                         "tokens_per_s": lock["tokens_per_s"]},
+            "max_memory_allocated": peak, "params": n}
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -5921,6 +6309,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_train = phase_hybrid_train_parity()
     torch.cuda.empty_cache()
+    flash_d80 = phase_flash_d80()
+    torch.cuda.empty_cache()
+    gqa7_flash, gqa7_decode = phase_gqa7_kernels()
+    torch.cuda.empty_cache()
+    hubert = phase_hubert_train()
+    torch.cuda.empty_cache()
+    vlm_train = phase_vlm_train()
+    torch.cuda.empty_cache()
+    vlm_serve = phase_vlm_serve()
+    torch.cuda.empty_cache()
     chunk = phase_chunk_kernels()
     torch.cuda.empty_cache()
     cross_shard = phase_cross_shard_loss()
@@ -6001,6 +6399,34 @@ def main() -> int:
                 "jamba_f32_parity_launches": hybrid_parity["launches"][name],
                 "jamba_device_kernels_per_call": hybrid["per_call"].get(
                     name)}
+
+    def families_of(direction, name):
+        """The kernel at head dim 80 (HuBERT's training shape) and at
+        Arctic's GQA 7, and its launches on the HuBERT and InternVL2
+        paths."""
+        def recs(table):
+            return [{k: table[(direction, dt)][k] for k in (
+                "shape", "plan", *timing, "device_ms")}
+                for dt in ("float32", "bfloat16")]
+        out = {"hubert_d80": recs(flash_d80),
+               "hubert_launches_per_step": hubert["launches_per_step"][name],
+               "hubert_f32_parity_launches": hubert["parity"]["launches"][
+                   name],
+               "arctic_gqa7": recs(gqa7_flash),
+               "internvl2_train_launches_per_step": vlm_train["f32"][
+                   "launches_per_step"][name],
+               "internvl2_train_f32_parity_launches": vlm_train["parity"][
+                   "launches"][name]}
+        if direction == "fwd":
+            out.update(
+                internvl2_serve_launches=vlm_serve["launches"][name],
+                internvl2_launches_per_prefill=vlm_serve["per"][
+                    "flash_fwd_per_prefill"],
+                internvl2_lockstep_launches=vlm_serve["lockstep"][
+                    "launches"][name],
+                internvl2_f32_parity_launches=vlm_serve["parity_launches"][
+                    name])
+        return out
 
     def dist_of(name, i=None):
         """The kernel's launches on the distributed trainer's paths and,
@@ -6104,6 +6530,7 @@ def main() -> int:
          **jamba_of(fa_ops.COUNTER.name, jamba_flash.values(),
                     "per_prefill"),
          **mixtral_train_of("fwd", fa_ops.COUNTER.name),
+         **families_of("fwd", fa_ops.COUNTER.name),
          **dist_of(fa_ops.COUNTER.name)},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
@@ -6138,6 +6565,7 @@ def main() -> int:
                               for k in (*timing, "device_ms", "plan")},
                     **lm_of("bwd", fa_ops.BWD_COUNTER.name),
                     **mixtral_train_of("bwd", fa_ops.BWD_COUNTER.name),
+                    **families_of("bwd", fa_ops.BWD_COUNTER.name),
                     **dist_of(fa_ops.BWD_COUNTER.name)),
         train_entry(cl_ops.FWD_COUNTER.name, CL_SOURCE, CL_FWD_REPLACES,
                     c_fwd, max_abs_err_bf16=contrastive[
@@ -6178,7 +6606,19 @@ def main() -> int:
          **mixtral_of(dec_ops.COUNTER.name, moe_decode, "per_step"),
          "mixtral_parity_max_logit_diff": moe_parity["max_logit_diff"],
          **jamba_of(dec_ops.COUNTER.name, jamba_decode.values(), "per_step"),
-         "jamba_parity_max_logit_diff": hybrid_parity["max_logit_diff"]},
+         "jamba_parity_max_logit_diff": hybrid_parity["max_logit_diff"],
+         "arctic_gqa7": [{k: gqa7_decode[dt][k] for k in (
+             "shape", "plan", *timing, "device_ms")}
+             for dt in ("float32", "bfloat16")],
+         "internvl2_launches": vlm_serve["launches"][dec_ops.COUNTER.name],
+         "internvl2_launches_per_step": vlm_serve["per"][
+             "decode_attention_per_step"],
+         "internvl2_lockstep_launches": vlm_serve["lockstep"]["launches"][
+             dec_ops.COUNTER.name],
+         "internvl2_f32_parity_launches": vlm_serve["parity_launches"][
+             dec_ops.COUNTER.name],
+         "internvl2_parity_max_logit_diff": vlm_serve["parity"][
+             "max_logit_diff"]},
         {"name": ssd_ops.COUNTER.name, "route": "cuda",
          "source": SSD_SOURCE, "replaces": SSD_REPLACES,
          "launches": ssm_launches[ssd_ops.COUNTER.name],
@@ -6322,6 +6762,25 @@ def main() -> int:
           f"{max(r['loss_rel_err'] for k, r in cross_shard.items() if k[-1] == 'float32'):.3g}"
           f"; R=2 gloo trainer losses {dist_gloo['losses'][0]} vs R=1 "
           f"{dist_gloo['r1_losses']}", flush=True)
+    hr, vr, vs = hubert["rep"], vlm_train["f32"], vlm_serve["rep"]
+    print(f"audio: {HUBERT} --mode lm f32 (48 layers, b 2 x s 4096) "
+          f"{hr['warm_step_median_s']:.4f} s a step, "
+          f"{hr['tokens_per_s']:.1f} frames/s, "
+          f"{hr['max_memory_allocated'] / 2**30:.3f} GiB; f32 parity "
+          f"gradients {hubert['parity']['grad_rel_err']:.3g}; vlm: "
+          f"{INTERNVL2} lm_step f32 ({VLM_TRAIN_LAYERS} of 80 layers, b 1 x "
+          f"s {VLM_TRAIN_SEQ}) {vr['warm_step_median_s']:.4f} s, "
+          f"{vr['tokens_per_s']:.1f} tokens/s, "
+          f"{vr['max_memory_allocated'] / 2**30:.3f} GiB; f32 parity "
+          f"gradients {vlm_train['parity']['grad_rel_err']:.3g}; serving "
+          f"({VLM_SERVE_LAYERS} of 80 layers) bf16 decode "
+          f"{vs['decode_tokens_per_s']:.1f} tok/s, step median "
+          f"{vs['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{vs['step_p90_s'] * 1e3:.3f} ms, prefill "
+          f"{vs['prefill_mean_s'] * 1e3:.3f} ms, "
+          f"{vlm_serve['max_memory_allocated'] / 2**30:.3f} GiB; f32 parity "
+          f"max |logit diff| {vlm_serve['parity']['max_logit_diff']:.3g}",
+          flush=True)
     t8 = retrieval["twostage_8"]
     print(f"retrieval: BASIC-S 64 queries x {RETRIEVAL_N} rows, k "
           f"{RETRIEVAL_K}, p50 / p90 ms: " + ", ".join(

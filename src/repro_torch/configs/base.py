@@ -1,6 +1,7 @@
 """Architecture config and registry (copy of ``repro/configs/base.py``,
-covering the encoder towers of the BASIC dual encoders, the dense decoder
-LMs, the attention-free SSM LMs and the MoE LMs).
+covering every config of the reference: the encoder towers of the BASIC
+dual encoders and HuBERT, the dense decoder LMs, the attention-free SSM
+LMs, the MoE LMs, the hybrid LM and the vlm).
 
 Every config is a frozen dataclass built in its own ``configs/<id>.py``
 module and registered here when ``get_arch`` first runs. The dense LMs
@@ -9,7 +10,11 @@ module and registered here when ``get_arch`` first runs. The dense LMs
 ``family="moe"`` with a ``MoEConfig``) and the hybrid Jamba-1.5-Large
 (``family="hybrid"``: Mamba-2 layers with attention every ``attn_every``
 layers, and a MoE FFN every ``moe.every``) serve through the decode
-engines; the vlm and audio configs wait for later slices of the port.
+engines, as does InternVL2-76B (``family="vlm"``: the vision frontend's
+patches before the text, on token batches when it serves); HuBERT-XLarge
+(``family="encoder"``, ``frontend="audio"``: precomputed frame embeddings,
+not causal) trains on the masked-frame loss and is refused by the
+engines.
 ``InputShape`` / ``INPUT_SHAPES`` name the assigned input shapes, and
 ``applicable_shapes`` says which of them an arch runs.
 """
@@ -48,8 +53,9 @@ class ArchConfig:
     """One transformer tower: widths, masks, attention backend, and the
     vision frontend's geometry (field meanings as in the reference)."""
     name: str
-    family: str                   # 'encoder' (BASIC towers) | 'dense' |
-                                  # 'ssm' | 'moe' | 'hybrid'
+    family: str                   # 'encoder' (BASIC towers, HuBERT) |
+                                  # 'dense' | 'ssm' | 'moe' | 'hybrid' |
+                                  # 'vlm'
     n_layers: int
     d_model: int
     n_heads: int                  # 0 for attention-free
@@ -59,7 +65,7 @@ class ArchConfig:
     head_dim: Optional[int] = None   # default d_model // n_heads
     qk_norm: bool = False
     sliding_window: Optional[int] = None   # tokens; None = full attention
-    causal: bool = True
+    causal: bool = True           # False for the encoder-only HuBERT
     tie_embeddings: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
@@ -73,7 +79,8 @@ class ArchConfig:
     # it) or 'auto' (flash on the card, chunked on the CPU)
     attn_impl: str = "naive"
     attn_block: int = 512
-    # 'vision': raw images linear-patchified by models.frontends
+    # 'vision': raw images linear-patchified by models.frontends;
+    # 'audio': precomputed frame embeddings (the reference's stub)
     frontend: Optional[str] = None
     frontend_len: int = 0         # number of vision patches
     image_size: int = 0           # square input side, pixels
@@ -192,9 +199,10 @@ def applicable_shapes(cfg: ArchConfig):
 
 _REGISTRY: dict = {}
 
-_ARCH_MODULES = ["minitron_4b", "mamba2_130m", "mixtral_8x22b",
-                 "internlm2_20b", "jamba_1_5_large_398b", "qwen3_32b",
-                 "llama3_2_1b", "arctic_480b",
+_ARCH_MODULES = ["hubert_xlarge", "internvl2_76b", "minitron_4b",
+                 "mamba2_130m", "mixtral_8x22b", "internlm2_20b",
+                 "jamba_1_5_large_398b", "qwen3_32b", "llama3_2_1b",
+                 "arctic_480b",
                  # the paper's own models (dual-encoder towers)
                  "basic_s", "basic_m", "basic_l"]
 

@@ -41,8 +41,12 @@
 // bf16 inputs (the training path): mma.sync.m16n8k16 bf16 -> fp32 fed by
 // ldmatrix from rows padded by 16 bytes against bank conflicts; p and ds
 // are rounded to bf16 where they become mma operands, as the plain version
-// does for bf16 inputs. W = 4 when t <= 64, else 16 at d 64 (256 keys) and
-// 8 at d 128 (ops.bwd_plan).
+// does for bf16 inputs. W = 4 when t <= 64, else 16 at d 64 (256 keys),
+// 10 at d 80 (160 keys: the dq phase gives each pair of warps an equal
+// share of d's ten 8-wide n-tiles) and 8 at d 128 (ops.bwd_plan).
+// At d 80 a row is 160 bytes in bf16 and 320 in fp32: every stride here is
+// a multiple of 16 bytes, and the padded rows (D + 8 bf16, D + 4 fp32)
+// keep the fragment loads on 32 banks as at d 64 and 128.
 //
 // f32 inputs (--precision f32 training): every product is split 3×TF32 on
 // mma.sync.m16n8k8 tf32 (tc.cuh: each fp32 operand split into tf32 hi and
@@ -61,8 +65,9 @@
 // q) is read in the same order, as are ds's keys and k's rows in
 // dq = ds·k, whose even and odd k-steps sum into separate accumulators.
 // The key block is t rounded up to 16 while the shared memory allows (208
-// keys at d 64, 96 at d 128: k and v of a whole tower head stay resident,
-// and the image tower's s = 196 costs 208 keys in 13 warps), else 208 / 96
+// keys at d 64, 160 at d 80, 96 at d 128: k and v of a whole tower head
+// stay resident, and the image tower's s = 196 costs 208 keys in 13
+// warps), else 208 / 160 / 96
 // with dq partials; q tiles are masked at the row, so s = 196 costs 7
 // tiles of 32 rows. p is exp(s·d^-1/2 + bias − lse) by expf, fp32 as the
 // plain version. dv and dk sum each q tile from zero in the mma
@@ -507,10 +512,10 @@ constexpr int kF32BQ = 32;       // query rows per streamed tile
 // plane); the lo of q and dout [2][BQ]; dsᵀ as tf32 hi and lo planes
 // [BK][BQ + 4]; lse, delta [2][BQ] and bias [BK]. BK = 16·W keys, W at
 // most kMaxW: the largest block that fits one CTA (kSmemLimit), 208 keys
-// at d 64 and 96 at d 128.
+// at d 64, 160 at d 80 and 96 at d 128.
 template <int D>
 struct F32Bwd {
-  static constexpr int kMaxW = D == 64 ? 13 : 6;
+  static constexpr int kMaxW = D == 64 ? 13 : D == 80 ? 10 : 6;
   static constexpr int LD = D + 4;
   static constexpr int LDS = kF32BQ + 4;
   static constexpr size_t bytes(int bk) {
@@ -522,6 +527,9 @@ constexpr size_t kSmemLimit = 232448;   // what one CTA may hold (227 KB)
 static_assert(F32Bwd<64>::bytes(16 * F32Bwd<64>::kMaxW) <= kSmemLimit &&
                   F32Bwd<64>::bytes(16 * F32Bwd<64>::kMaxW + 16) > kSmemLimit,
               "kMaxW at d 64 is the largest block that fits");
+static_assert(F32Bwd<80>::bytes(16 * F32Bwd<80>::kMaxW) <= kSmemLimit &&
+                  F32Bwd<80>::bytes(16 * F32Bwd<80>::kMaxW + 16) > kSmemLimit,
+              "kMaxW at d 80 is the largest block that fits");
 static_assert(F32Bwd<128>::bytes(16 * F32Bwd<128>::kMaxW) <= kSmemLimit &&
                   F32Bwd<128>::bytes(16 * F32Bwd<128>::kMaxW + 16) >
                       kSmemLimit,
@@ -947,6 +955,8 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                            causal, window, scale, stream);
   REPRO_TC(64, 4)
   REPRO_TC(64, 16)
+  REPRO_TC(80, 4)
+  REPRO_TC(80, 10)
   REPRO_TC(128, 4)
   REPRO_TC(128, 8)
 #undef REPRO_TC
@@ -954,7 +964,7 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
 }
 
 // f32 key blocks (16 keys per warp, at most 16 · F32Bwd<D>::kMaxW: 208 at
-// d 64 and 96 at d 128).
+// d 64, 160 at d 80 and 96 at d 128).
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          const void* bias, const void* out, const void* dout,
                          const void* lse, void* delta, void* dq, void* dk,
@@ -964,6 +974,10 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
   if (d == 64)
     return launch_f32<64>(q, k, v, bias, out, dout, lse, delta, dq, dk, dv,
+                          dq_part, bh, s, t, key_block, smem, group,
+                          bias_group, causal, window, scale, stream);
+  if (d == 80)
+    return launch_f32<80>(q, k, v, bias, out, dout, lse, delta, dq, dk, dv,
                           dq_part, bh, s, t, key_block, smem, group,
                           bias_group, causal, window, scale, stream);
   if (d == 128)
@@ -978,10 +992,11 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 // dtype: 0 = float32 (split 3×TF32 tensor cores), 1 = bfloat16 (tensor
 // cores). window <= 0: no window. delta is a (bh, s) fp32 scratch the
 // caller allocates. key_block is the keys per CTA (ops.bwd_plan picks it:
-// bf16 64 or 256 at d 64, 64 or 128 at d 128; f32 a multiple of 16 up to
-// 208 at d 64, 96 at d 128), smem the main kernel's dynamic shared memory
-// for that block (ops.bwd_plan too), which must be the bytes of this file's
-// layout (TcLayout, F32Bwd): the launch takes the plan's bytes and refuses
+// bf16 64 or 256 at d 64, 64 or 160 at d 80, 64 or 128 at d 128; f32 a
+// multiple of 16 up to 208 at d 64, 160 at d 80, 96 at d 128), smem the
+// main kernel's dynamic shared memory for that block (ops.bwd_plan too),
+// which must be the bytes of this file's layout (TcLayout, F32Bwd): the
+// launch takes the plan's bytes and refuses
 // any other, before launching anything. dq_part is an fp32 scratch of
 // ceil(t / key_block) * bh * s * d entries when t > key_block, else unused.
 // q, k, v and dout must start 16-byte aligned. Returns the CUDA error code

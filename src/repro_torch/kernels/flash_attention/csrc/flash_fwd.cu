@@ -74,6 +74,18 @@
 // rate at the image tower's shape) but the splits, the tile's staging and
 // the chains of dependent products (scripts/flash_fwd_anatomy.py --f32).
 //
+// Both designs are instantiated at head dims 64, 80 (HuBERT-XLarge) and
+// 128. At d 80 a row is 160 bytes in bf16 (five 16-wide k-steps of q·kᵀ,
+// ten 8-wide n-tiles of p·v) and 320 in fp32 (ten 8-wide tf32 k-steps):
+// not a power of two, but every row stride stays a multiple of 16 bytes,
+// and the padded strides (D + 8 bf16; D + 4 and D + 2 pairs in fp32) put
+// the fragment loads on 32 banks as at 64 and 128. d 80 takes d 128's
+// register bound (__launch_bounds__ minimum of 2 CTAs an SM, up to 255
+// registers a thread), which leaves room for its 60 (bf16) or 120 (f32)
+// registers of q fragments and output accumulators; whether d 64's bound
+// would hold them is untried (the build log prints each instantiation's
+// registers).
+//
 // Both designs, unlike the TPU kernel, mask the ragged tail (s = 196)
 // rather than require it to divide the block, never write rows >= s, and
 // let each query head read its kv head (row / group) in place of a repeat
@@ -371,6 +383,9 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   if (d == 64)
     return launch_tc<64>(q, k, v, bias, out, lse, bh, s, t, warps, bk, smem,
+                         group, bias_group, causal, window, scale, stream);
+  if (d == 80)
+    return launch_tc<80>(q, k, v, bias, out, lse, bh, s, t, warps, bk, smem,
                          group, bias_group, causal, window, scale, stream);
   if (d == 128)
     return launch_tc<128>(q, k, v, bias, out, lse, bh, s, t, warps, bk,
@@ -689,6 +704,9 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   if (d == 64)
     return launch_f32<64>(q, k, v, bias, out, lse, bh, s, t, warps, bk, smem,
+                          group, bias_group, causal, window, scale, stream);
+  if (d == 80)
+    return launch_f32<80>(q, k, v, bias, out, lse, bh, s, t, warps, bk, smem,
                           group, bias_group, causal, window, scale, stream);
   if (d == 128)
     return launch_f32<128>(q, k, v, bias, out, lse, bh, s, t, warps, bk,

@@ -32,7 +32,7 @@ from repro_torch.kernels.build import (KernelLibrary, LaunchCounter, check,
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, flash_bwd_ref,
                                                      flash_fwd_ref)
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -67,10 +67,12 @@ def _f32_bwd_smem(key_block: int, d: int) -> int:
 
 
 # the f32 backward's key block at most: the most 16-key steps whose k, v
-# and tiles fit one CTA (208 keys at d 64, 96 at d 128)
+# and tiles fit one CTA (208 keys at d 64, 160 at d 80, 96 at d 128)
 F32_MAX_KEY_BLOCK = {d: 16 * max(w for w in range(1, 64)
                                  if _f32_bwd_smem(16 * w, d) <= SMEM_LIMIT)
                      for d in HEAD_DIMS}
+# the bf16 backward's key block past t = 64, by head dim (16 keys a warp)
+_BF16_KEY_BLOCK = {64: 256, 80: 160, 128: 128}
 # a CUDA grid's y extent at most: query blocks (forward), key blocks
 # (backward)
 MAX_GRID_Y = 65535
@@ -96,8 +98,8 @@ def fwd_plan(bh: int, s: int, t: int, d: int, dtype: torch.dtype) -> FwdPlan:
     the tile split into tf32 pairs: at 32 keys three CTAs fit an SM), or of
     t rounded up to the kernel's key step (16 in bf16, 8 in f32) where t is
     shorter, so a short head stages no padding and its CTA holds little
-    shared memory. ``d`` sizes the shared memory (the kernels take 64 and
-    128)."""
+    shared memory. ``d`` sizes the shared memory (the kernels take 64, 80
+    and 128)."""
     warps = min(4, -(-s // 16))
     if dtype == torch.bfloat16:
         key_tile = min(64, -(-t // 16) * 16)
@@ -127,17 +129,18 @@ def bwd_plan(bh: int, s: int, t: int, d: int, dtype: torch.dtype) -> BwdPlan:
     """The backward kernel's launch plan for q (bh, s, d) against t keys.
 
     bf16 runs its tensor-core kernel with 16 keys per warp: 4 warps when
-    t <= 64 (the text tower), else 16 warps at d 64 and 8 at d 128 (the
-    registers of the dk and dv accumulators bound a warp's share). A block
-    of 256 keys at d 64 holds the whole head at the towers' lengths. f32
-    takes t rounded up to 16 keys while k, v, the q/dout ring with the
-    tiles' split halves and the dsᵀ planes fit one CTA's shared memory: up
-    to 208 keys at d 64 (the image tower's 196 in one block of 13 warps)
-    and 96 at d 128. Past one block the keys split over
-    ceil(t / key_block) CTAs, each writing an fp32 dq partial that a second
-    kernel sums in block order."""
+    t <= 64 (the text tower), else 16 warps at d 64, 10 at d 80 and 8 at
+    d 128 (the registers of the dk and dv accumulators bound a warp's
+    share; at d 80 the dq phase needs W / 2 to divide d's ten 8-wide
+    n-tiles). A block of 256 keys at d 64 holds the whole head at the
+    towers' lengths. f32 takes t rounded up to 16 keys while k, v, the
+    q/dout ring with the tiles' split halves and the dsᵀ planes fit one
+    CTA's shared memory: up to 208 keys at d 64 (the image tower's 196 in
+    one block of 13 warps), 160 at d 80 and 96 at d 128. Past one block
+    the keys split over ceil(t / key_block) CTAs, each writing an fp32 dq
+    partial that a second kernel sums in block order."""
     if dtype == torch.bfloat16:
-        key_block = 64 if t <= 64 else (256 if d == 64 else 128)
+        key_block = 64 if t <= 64 else _BF16_KEY_BLOCK[d]
         ld = d + 8
         smem = (2 * (2 * key_block * ld + 4 * 32 * ld + key_block * 40)
                 + 4 * (4 * 32 + key_block))
@@ -171,7 +174,7 @@ def _check_inputs(q, k, v, bias):
 
 def _check_kernel_inputs(what, q, k, v, bias, *rest):
     """What both kernels take: f32 or bf16 q/k/v of one dtype, head dims
-    64 and 128, contiguous tensors on one CUDA device, fp32 bias."""
+    64, 80 and 128, contiguous tensors on one CUDA device, fp32 bias."""
     if q.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
     d = q.shape[2]
@@ -200,9 +203,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Every query row must keep at least one valid key. The kernel takes
     f32 (split 3×TF32 tensor cores) or bf16 (tensor cores) inputs, launched
-    as ``fwd_plan`` says, accumulating fp32, head dims 64 and 128, and any
-    s, t >= 1 (the ragged tail is masked, never written) that the plan can
-    grid (at most 65535 query blocks)."""
+    as ``fwd_plan`` says, accumulating fp32, head dims 64, 80 and 128, and
+    any s, t >= 1 (the ragged tail is masked, never written) that the plan
+    can grid (at most 65535 query blocks)."""
     _check_inputs(q, k, v, bias)
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be >= 1")

@@ -24,6 +24,11 @@ a request-queue loop over the ``ContinuousEngine`` (port of
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch jamba-1.5-large-398b --smoke --device cpu --engine continuous
 
+  # InternVL2-76B (vlm: served on token prompts, as the reference's
+  # engines serve it; HuBERT-XLarge, an encoder, is refused)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b \
+      --smoke --device cpu --engine continuous
+
 A prompt of a model with Mamba-2 layers (Mamba-2, Jamba) must be at most
 the SSD chunk long (256 tokens; 32 for ``--smoke``) or a whole number of
 chunks, the reference's rule; other lengths raise ``ValueError``. The

@@ -107,6 +107,23 @@ def guard_nonfinite(loss, gnorm, new_params, new_opt, params, opt_state):
     return new_params, new_opt, (~ok).to(torch.int32)
 
 
+def masked_share(cfg: ArchConfig, batch, group):
+    """This rank's weight in the global loss where ``lm_loss`` is a masked
+    mean (the encoder family's frame ``mask``, or a ``loss_mask``): its
+    masked count over the group's, clamped at 1 as the loss's own
+    divisor, so that the ranks' weighted means sum to the mean over the
+    global batch, as the reference's loss over the global batch is.
+    None for an unmasked mean over equal blocks (each rank weighs 1/n)."""
+    if cfg.family == "encoder":
+        m = batch["mask"]
+    elif batch.get("loss_mask") is not None:
+        m = batch["loss_mask"][:, 1:]
+    else:
+        return None
+    count = m.float().sum()
+    return count / torch.clamp(group.all_reduce(count), min=1.0)
+
+
 def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
             *, precision, remat_policy=None, moe_args=None, mesh=None,
             layout=None, skip_nonfinite: bool = False):
@@ -117,8 +134,9 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
     block of the global batch: the gradients and the loss are averaged
     over all its ranks (``weight_sharding.sum_grads``, then a division by
     the rank count; under a 'tp' layout over the data shards, whose model
-    ranks share a block) and ``metrics`` gains the global gradient norm
-    ``grad_norm``. ``layout``: the params' weight-sharding layout when
+    ranks share a block), a masked loss weighing each rank by its masked
+    count (``masked_share``), and ``metrics`` gains the global gradient
+    norm ``grad_norm``. ``layout``: the params' weight-sharding layout when
     they are this rank's parts. ``skip_nonfinite=True`` arms the step
     guard (``guard_nonfinite``): a step whose loss or gradient norm is not
     finite keeps the incoming state, and ``metrics`` gains ``grad_norm``
@@ -126,17 +144,27 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
     update. Returns train_step(params, opt_state, batch) -> (params,
     opt_state, loss, metrics)."""
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = value_and_grad(
-            lambda p: tf.lm_loss(cfg, p, batch, precision=precision,
-                                 remat_policy=remat_policy,
-                                 moe_args=moe_args, layout=layout), params)
-        if mesh is not None:
-            if mesh.distributed:
-                group = batch_group(mesh, layout)
+        group = share = None
+        if mesh is not None and mesh.distributed:
+            group = batch_group(mesh, layout)
+            share = masked_share(cfg, batch, group)
+
+        def loss_fn(p):
+            loss, metrics = tf.lm_loss(cfg, p, batch, precision=precision,
+                                       remat_policy=remat_policy,
+                                       moe_args=moe_args, layout=layout)
+            # weighted before the backward, whose collectives (the gathers'
+            # reduce-scatters, tp's all-reduces) sum the ranks' gradients
+            return (loss if share is None else loss * share), metrics
+
+        loss, metrics, grads = value_and_grad(loss_fn, params)
+        if group is not None:
+            grads = ws.sum_grads(grads, mesh, layout)
+            loss = group.all_reduce(loss)
+            if share is None:
                 n = group.ranks
-                grads = tree_map(lambda g: g / n,
-                                 ws.sum_grads(grads, mesh, layout))
-                loss = group.all_reduce(loss) / n
+                grads = tree_map(lambda g: g / n, grads)
+                loss = loss / n
         if mesh is not None or skip_nonfinite:
             with torch.no_grad():
                 metrics = dict(metrics, grad_norm=torch.sqrt(

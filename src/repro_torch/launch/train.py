@@ -4,7 +4,10 @@ recipe on one device (counterpart of ``repro/launch/train.py``:
 :138-181).
 
 - ``--mode lm``: next-token training of a decoder LM (dense, ssm, moe or
-  hybrid)
+  hybrid), of a vlm on its text tail (InternVL2: ``--seq`` counts the 256
+  patches of a 256×256 image, then ``--seq`` - 256 tokens), or the
+  masked-frame training of the audio encoder (HuBERT: frame embeddings,
+  cluster targets and a mask),
   on ``frontends.synthetic_inputs`` of ``--batch`` × ``--seq`` tokens, a
   fresh batch a step from ``np.random.default_rng(seed)``: ``lm_loss`` in
   f32 with no remat (a MoE model's dispatch dense under ``--smoke``, else
@@ -13,7 +16,8 @@ recipe on one device (counterpart of ``repro/launch/train.py``:
   computes it. ``--precision`` and ``--remat`` are refused here (the
   reference's ``run_lm`` has neither); ``--attn`` picks the backend
   ('pallas', the default, is the flash kernels: on the card, the causal
-  grouped-query forward and backward). The SSM and hybrid families'
+  grouped-query forward and backward; HuBERT's are bidirectional at head
+  dim 80). The SSM and hybrid families'
   Mamba-2 layers train through ``ssd_scan``'s autograd Function: on the
   card its forward and backward kernels, on the CPU their plain versions.
 
@@ -37,6 +41,10 @@ reference's checkpoint format (``repro_torch.checkpoint``), in every mode.
 
     python -m repro_torch.launch.train --mode lm --arch llama3.2-1b \\
         --batch 4 --seq 1024 --steps 4 --ckpt-dir /path/to/ckpt
+    python -m repro_torch.launch.train --mode lm --arch hubert-xlarge \\
+        --batch 4 --seq 4096 --steps 4
+    python -m repro_torch.launch.train --mode lm --arch internvl2-76b \\
+        --smoke --device cpu --batch 2 --seq 40 --steps 3
     python -m repro_torch.launch.train --mode pretrain --arch basic-s \\
         --batch 1024 --steps 4
     python -m repro_torch.launch.train --mode contrastive --arch basic-s \\
@@ -199,8 +207,9 @@ def _run_steps(args, run, device: torch.device, draw: Callable, mode: str,
 
 
 def run_lm(args, params_init=None) -> dict:
-    """Next-token training of the decoder LM ``args.arch`` (its smoke
-    variant with ``args.smoke``) on synthetic tokens, computing what the
+    """LM training of ``args.arch`` (its smoke variant with
+    ``args.smoke``): next-token on synthetic tokens, a vlm's text tail,
+    or HuBERT's masked frames, computing what the
     reference's ``run_lm`` computes. The weights come from ``seed`` (drawn
     on the run's device), or are a copy of ``params_init`` when given (the
     test hook; never changed in place). Returns the report of

@@ -25,18 +25,21 @@ on H/M of its heads with one all-reduce (its B, C and conv weights
 gathered whole), the MoE experts by expert parallelism, the embedding
 and the LM loss vocab-parallel; the global batch is split over the D
 data shards only, and every gradient is summed over the data axis.
-``tp`` covers every family the port trains (encoder, dense, ssm, moe,
-hybrid; vlm waits for its slice). A model whose heads (attention or
+``tp`` covers every family (encoder, dense, ssm, moe, hybrid, vlm; a
+vlm's vision frontend is made whole on every rank, its text tail's loss
+vocab-parallel). A model whose heads (attention or
 SSD), kv heads, ff dim, d_inner or state dim do not divide by M is
 refused (ValueError). Two objectives share the loop
 (``--objective auto`` picks by arch):
 
-  lm           — next-token loss of a decoder LM; every rank draws the
+  lm           — next-token loss of a decoder LM or a vlm's text, or an
+                 audio encoder's masked-frame loss; every rank draws the
                  global batch of step i from ``host_rng(seed, 0, i)`` and
                  trains on its rows (``batch_specs`` over (data, model),
                  or over (data,) under ``tp``, strictly: the batch must
                  divide over those ranks); the loss and the gradients are
-                 the means over the ranks' equal blocks; a MoE model's
+                 the means over the ranks' equal blocks (a masked loss
+                 weighing each block by its masked count); a MoE model's
                  capacity groups must fall on a rank's rows as on the
                  whole batch
   contrastive  — the paper's dual-encoder objective: Algorithm-1
@@ -723,7 +726,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "model axis and gathers them on use (paper §5.1), "
                          "tp splits them Megatron-style and computes with "
                          "the parts (the model ranks of a data shard share "
-                         "its block; every family but vlm), replicated "
+                         "its block; every family), replicated "
                          "keeps them whole")
     remat_names = list_policies() + ["off"]
     ap.add_argument("--remat", default="basic", choices=remat_names)

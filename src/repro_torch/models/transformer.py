@@ -1,7 +1,7 @@
-"""Model assembly for the encoder towers, the dense decoder LMs, the
-attention-free SSM LMs, the MoE LMs and the hybrid LMs (port of
-``repro/models/transformer.py``, the encoder, dense, ssm, moe and hybrid
-families).
+"""Model assembly for the encoder towers (BASIC's and the audio encoder
+HuBERT), the dense decoder LMs, the attention-free SSM LMs, the MoE LMs,
+the hybrid LMs and the vlm (port of ``repro/models/transformer.py``, every
+family of the reference).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a list
 with one entry per position of the layer period (the lcm of the hybrid
@@ -44,9 +44,10 @@ and conv window) into the caches in place and returns the same objects. ``moe_ar
 FFN; ``lm_loss`` adds the MoE load-balance terms of all layers.
 ``init_params(..., experts=(first, count))`` draws only those experts of
 every MoE layer (``models.moe``: the share one card of an
-expert-parallel deployment holds). The vlm family waits for its own
-slice; ``lm_loss`` of the encoder family (hubert's masked-frame loss)
-waits for the audio slice.
+expert-parallel deployment holds). A vlm (InternVL2) puts its vision
+frontend's patches before the token embeddings and trains on the text
+tail; an audio encoder (HuBERT) takes precomputed frame embeddings and
+trains on the masked-frame cross-entropy (``lm_loss``).
 """
 from __future__ import annotations
 
@@ -66,23 +67,10 @@ from repro_torch.models import precision as prec_lib
 from repro_torch.models import ssm as ssm_lib
 
 
-# the slice of the port that brings each family it does not run yet
-_LATER = {"vlm": "the vlm slice, with the vlm frontend"}
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("encoder", "dense", "ssm", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the encoder, dense, ssm, moe and "
-            f"hybrid families; {cfg.family!r} comes with "
-            f"{_LATER.get(cfg.family, 'a later slice')}")
-
-
 def period_of(cfg: ArchConfig) -> int:
     """Layer-stack period (the reference's scan unit): the lcm of the
     hybrid family's attention interleave (``attn_every``) and the MoE
     interleave (``moe.every``); 1 for a model with neither."""
-    _check_family(cfg)
     p = cfg.attn_every if cfg.family == "hybrid" else 1
     if cfg.moe is not None:
         p = math.lcm(p, cfg.moe.every)
@@ -118,9 +106,11 @@ def _init_block(cfg: ArchConfig, generator: torch.Generator, kind: str,
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device, experts=None) -> dict:
     """Tower params: the stacked block list, final norm, the vision
-    frontend and, for a token tower, the embedding table and LM head (the
-    reference's leaves, drawn with its init law). ``experts`` = (first,
-    count) draws only those experts of every MoE layer (None: all)."""
+    frontend and, for a model with a vocabulary, the embedding table
+    (not for an audio encoder, which takes frame embeddings) and the
+    untied LM head (the reference's leaves, drawn with its init law).
+    ``experts`` = (first, count) draws only those experts of every MoE
+    layer (None: all)."""
     period = period_of(cfg)
     kinds = cfg.layer_kinds()[:period]
     moe_mask = cfg.moe_layer_mask()[:period]
@@ -132,12 +122,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     }
     if cfg.frontend == "vision":
         params["frontend"] = fe.init_vision_frontend(cfg, generator, device)
-    if cfg.vocab > 0:
+    if cfg.vocab > 0 and cfg.frontend != "audio":
         params["embed"] = L.trunc_normal(generator, (cfg.vocab, cfg.d_model),
                                          cfg.d_model ** -0.5, device)
-        if not cfg.tie_embeddings:
-            params["lm_head"] = L.dense_init(generator, cfg.d_model,
-                                             cfg.vocab, device=device)
+    if cfg.vocab > 0 and not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab,
+                                         device=device)
     return params
 
 
@@ -234,7 +224,6 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     Returns (h, caches, aux): the caches given (written in place), the
     ones built, or None; aux the sum of the MoE load-balance terms (an
     fp32 scalar, 0 without MoE layers)."""
-    _check_family(cfg)
     terms = []
     lays = [ws.layer(ws.sub(layout, "blocks", r))
             for r in range(len(params["blocks"]))]
@@ -283,12 +272,19 @@ def embed_inputs(cfg: ArchConfig, params, batch, dtype, layout=None):
     """Returns (h (b, s, d), positions (b, s), text_mask (b, s) or None).
 
     Vision towers consume raw ``batch['image']`` (b, H, W, C) through the
-    linear-patchify frontend; with ``batch['tokens']`` too, token
-    embeddings follow the patches. Token towers embed ``batch['tokens']``.
+    linear-patchify frontend; with ``batch['tokens']`` too (a vlm), token
+    embeddings follow the patches and ``text_mask`` marks them; a vlm's
+    token-only batch (serving) embeds its tokens alone. Audio encoders
+    take the precomputed frame embeddings ``batch['embeddings']`` (b, s,
+    d), cast to ``dtype``. Token towers embed ``batch['tokens']``.
     ``layout``: the frontend and the embedding are gathered on use
     (``forward``); under a 'tp' layout a vocab-split embedding is looked
     up vocab-parallel (each rank its own rows, summed over the group) and
     the frontend is made whole."""
+    if cfg.frontend == "audio":
+        h = batch["embeddings"].to(dtype)
+        b, s = h.shape[:2]
+        return h, _positions(b, s, h.device), None
     if cfg.frontend == "vision" and "image" in batch:
         patches = fe.patch_embed(
             tp.resolve(params["frontend"], ws.sub(layout, "frontend")), cfg,
@@ -374,9 +370,13 @@ def logits_from_h(cfg: ArchConfig, params, h,
 
 def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
             precision=None, remat_policy=None, moe_args=None, layout=None):
-    """Training loss of a decoder LM: next-token cross-entropy over
+    """Training loss: for a decoder LM the next-token cross-entropy over
     ``batch['tokens']`` (b, s), averaged over the (b, s - 1) predicted
-    positions, or over those ``batch['loss_mask'][:, 1:]`` keeps. The
+    positions, or over those ``batch['loss_mask'][:, 1:]`` keeps; for a
+    vlm the same over the text tail (the logits past the
+    ``cfg.frontend_len`` patches); for the encoder family (HuBERT) the
+    masked-frame cross-entropy of ``batch['targets']`` (b, s) where
+    ``batch['mask']`` is set, divided by max(mask count, 1). The
     logits and the cross-entropy are fp32 whatever the compute dtype.
     ``precision`` (a policy or its name) wins over the legacy ``dtype``
     (default f32, as in the reference); ``remat_policy`` wraps each block;
@@ -387,27 +387,30 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
 
     Returns (loss + aux, {'xent': loss, 'aux': aux}); aux is the sum of
     the MoE load-balance terms over the layers (0 without MoE layers)."""
-    _check_family(cfg)
-    if cfg.family == "encoder":
-        raise NotImplementedError(
-            f"{cfg.name}: the masked-frame loss of the encoder family comes "
-            f"with the audio slice (hubert-xlarge)")
     pol = prec_lib.resolve(precision, dtype)
-    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype, layout)
+    h, pos, text_mask = embed_inputs(cfg, params, batch, pol.compute_dtype,
+                                     layout)
     h, _, aux = forward(cfg, params, h, pos, remat_policy=remat_policy,
                         moe_args=moe_args, layout=layout)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_from_h(cfg, params, h, pol, layout).float()
-    tgt = batch["tokens"][:, 1:].long()
+    if cfg.family == "encoder":
+        tgt, mask = batch["targets"].long(), batch["mask"]
+    else:
+        if text_mask is not None:               # vlm: the text tail only
+            logits = logits[:, cfg.frontend_len:]
+        logits = logits[:, :-1]
+        tgt, mask = batch["tokens"][:, 1:].long(), batch.get("loss_mask")
+        if mask is not None:
+            mask = mask[:, 1:]
     axis = vocab_axis(cfg, layout)
     if axis is not None:
-        nll = tp.vocab_xent(logits[:, :-1], tgt, axis)
+        nll = tp.vocab_xent(logits, tgt, axis)
     else:
-        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    mask = batch.get("loss_mask")
     if mask is not None:
-        m = mask[:, 1:].float()
+        m = mask.float()
         loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
     else:
         loss = torch.mean(nll)

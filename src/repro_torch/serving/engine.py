@@ -69,11 +69,11 @@ def with_attn(cfg: ArchConfig, attn: Optional[str], device) -> ArchConfig:
 
 
 def check_decoder(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a causal decoder the port can serve."""
+    """Raise unless ``cfg`` is a causal decoder (an encoder has no decode
+    step)."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only; it has no decode "
                          f"step")
-    tf._check_family(cfg)
 
 
 class Engine:

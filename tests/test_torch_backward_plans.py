@@ -71,7 +71,8 @@ def test_contrastive_bwd_buffers_are_what_the_plan_says(b, d):
     (1, 64, 64, 1), (16, 64, 64, 1), (64, 64, 64, 1), (65, 64, 256, 1),
     (196, 64, 256, 1), (256, 64, 256, 1), (257, 64, 256, 2),
     (8192, 64, 256, 32), (64, 128, 64, 1), (65, 128, 128, 1),
-    (200, 128, 128, 2)])
+    (200, 128, 128, 2), (64, 80, 64, 1), (65, 80, 160, 1),
+    (160, 80, 160, 1), (161, 80, 160, 2), (4096, 80, 160, 26)])
 def test_flash_bwd_plan(t, d, block, blocks):
     bh, s = 24, 300
     plan = fa_ops.bwd_plan(bh, s, t, d, torch.bfloat16)
@@ -91,11 +92,14 @@ def test_flash_bwd_plan(t, d, block, blocks):
     (208, 64, 208, 1), (209, 64, 208, 2), (520, 64, 208, 3),
     (8704, 64, 208, 42), (1, 128, 16, 1), (16, 128, 16, 1),
     (96, 128, 96, 1), (97, 128, 96, 2), (196, 128, 96, 3),
-    (200, 128, 96, 3), (520, 128, 96, 6), (8704, 128, 96, 91)])
+    (200, 128, 96, 3), (520, 128, 96, 6), (8704, 128, 96, 91),
+    (1, 80, 16, 1), (160, 80, 160, 1), (161, 80, 160, 2),
+    (4096, 80, 160, 26)])
 def test_flash_bwd_f32_plan(t, d, block, blocks):
     """The split 3×TF32 backward: one block holds a tower head's keys
     (the image tower's 196 in 208, 13 warps) and writes dq itself; past 208
-    keys at d 64 (96 at d 128) the keys split, with fp32 dq partials."""
+    keys at d 64 (160 at d 80, 96 at d 128) the keys split, with fp32 dq
+    partials."""
     bh, s = 24, t
     plan = fa_ops.bwd_plan(bh, s, t, d, torch.float32)
     assert (plan.key_block, plan.key_blocks) == (block, blocks)

@@ -62,6 +62,9 @@ def _qkv(gen, bh, bkv, s, d, dtype):
     (2, 4, 4, 131, 64, True, None, False),
     (2, 4, 4, 131, 64, True, 40, False),
     (3, 2, 2, 1, 64, False, None, False),        # one token
+    (2, 16, 16, 300, 80, False, None, True),     # head dim 80 (HuBERT)
+    (2, 4, 4, 131, 80, True, 40, False),         # d 80, causal window
+    (1, 56, 8, 200, 128, True, None, False),     # GQA 7 (Arctic)
 ])
 def test_flash_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
                                     padded, dtype, tol):
@@ -91,6 +94,10 @@ def test_flash_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
     (3, 2, 2, 1, 1, 64, False, None, False),          # one token
     (2, 4, 2, 70, 133, 64, False, None, True),        # t % 64 != 0, s != t
     (2, 4, 4, 40, 40, 128, False, None, True),        # 3 warps, 48-key tile
+    (1, 16, 16, 1024, 1024, 80, False, None, False),  # d 80, HuBERT heads
+    (2, 4, 4, 40, 40, 80, False, None, True),         # d 80, 3 warps
+    (2, 8, 2, 200, 200, 80, True, 64, False),         # d 80, GQA 4, window
+    (2, 4, 2, 70, 133, 80, False, None, True),        # d 80, s != t
 ])
 def test_flash_tc_kernel_matches_plain_at_its_edges(gen, b, h, kv, s, t, d,
                                                     causal, window, padded):
@@ -130,12 +137,17 @@ def test_flash_tc_kernel_matches_plain_at_its_edges(gen, b, h, kv, s, t, d,
     (2, 4, 4, 9, 17, 64, False, None, True),          # s != t
     (2, 4, 4, 17, 9, 128, False, None, False),
     (1, 4, 1, 196, 520, 64, False, None, True),       # t past 8 tiles
+    (2, 4, 4, 7, 7, 80, False, None, True),           # head dim 80
+    (2, 4, 1, 17, 17, 80, True, None, True),          # d 80, GQA 4
+    (2, 16, 16, 196, 196, 80, False, None, False),    # d 80, 16 heads
+    (1, 8, 2, 257, 257, 80, True, 100, False),        # d 80, window
+    (2, 4, 4, 17, 9, 80, False, None, False),         # d 80, s != t
 ])
 def test_flash_f32_kernel_matches_plain_at_its_edges(gen, b, h, kv, s, t, d,
                                                      causal, window, padded):
     """The split 3×TF32 forward at the edges of its 16-row, 8-key tiling
     (s, t of 1, 7, 8, 9, 15, 16, 17, 196, 257, 520), GQA groups 1 and 4,
-    head dims 64 and 128, causal, windowed and bias masks: out and lse
+    head dims 64, 80 and 128, causal, windowed and bias masks: out and lse
     within the f32 limit (5e-5) of the plain fp32 version."""
     q = torch.randn((b * h, s, d), generator=gen, device="cuda")
     k, v = (torch.randn((b * kv, t, d), generator=gen, device="cuda")

@@ -82,6 +82,13 @@ def _close(got, ref, dtype):
     (1, 4, 1, 300, 64, False, 70, False),        # GQA 4, split, window
     (2, 8, 2, 64, 128, True, None, False),       # d 128, GQA 4, 4 warps
     (1, 8, 2, 131, 128, True, 40, False),        # d 128, GQA 4, split
+    # d 80 (HuBERT): 4 warps up to t 64, one 160-key block up to t 160,
+    # split keys past it
+    (2, 4, 4, 64, 80, False, None, True),
+    (1, 4, 4, 160, 80, True, None, False),
+    (1, 4, 4, 161, 80, True, None, False),
+    (1, 8, 2, 300, 80, False, 70, False),        # d 80, GQA 4, split
+    (1, 56, 8, 200, 128, True, None, False),     # GQA 7 (Arctic)
 ])
 def test_flash_bwd_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
                                         padded, dtype):
@@ -126,12 +133,18 @@ def test_flash_bwd_kernel_matches_plain(gen, b, h, kv, s, d, causal, window,
     (2, 4, 4, 9, 17, 64, False, None, True),          # s != t
     (2, 4, 4, 17, 9, 128, False, None, False),
     (1, 4, 1, 196, 520, 64, False, None, True),
+    (2, 4, 4, 9, 9, 80, False, None, True),           # head dim 80
+    (1, 4, 4, 160, 160, 80, False, None, True),       # one 160-key block
+    (1, 8, 2, 161, 161, 80, True, None, False),       # d 80, split
+    (1, 16, 16, 300, 300, 80, False, None, False),    # d 80, 16 heads
+    (2, 4, 4, 17, 9, 80, False, None, False),         # d 80, s != t
 ])
 def test_flash_bwd_f32_kernel_matches_plain_at_its_edges(
         gen, b, h, kv, s, t, d, causal, window, padded):
     """The split 3×TF32 backward at the edges of its tiling (16-key warps,
-    32-row q tiles, key blocks of up to 208 / 96 keys, dq partials past
-    them), GQA groups 1 and 4, head dims 64 and 128, causal, windowed and
+    32-row q tiles, key blocks of up to 208 / 160 / 96 keys, dq partials
+    past them), GQA groups 1 and 4, head dims 64, 80 and 128, causal,
+    windowed and
     bias masks: dq, dk, dv within 2e-4 of the plain fp32 version."""
     q, dout = (torch.randn((b * h, s, d), generator=gen, device="cuda")
                for _ in range(2))

@@ -163,9 +163,9 @@ LM_FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
 
 
 def test_configs_copy_the_reference():
-    lms = ["arctic-480b", "internlm2-20b", "jamba-1.5-large-398b",
-           "llama3.2-1b", "mamba2-130m", "minitron-4b", "mixtral-8x22b",
-           "qwen3-32b"]
+    lms = ["arctic-480b", "hubert-xlarge", "internlm2-20b",
+           "internvl2-76b", "jamba-1.5-large-398b", "llama3.2-1b",
+           "mamba2-130m", "minitron-4b", "mixtral-8x22b", "qwen3-32b"]
     assert list_archs() == sorted(["basic-l", "basic-m", "basic-s"] + lms)
     for arch in lms:
         j, t = jax_get_arch(arch), get_arch(arch)

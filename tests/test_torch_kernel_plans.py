@@ -89,6 +89,7 @@ def test_lse_plan_keeps_bf16_tiles_at_64(b):
     (1024, 16, 16, 64, 1, 16, 1),      # text tower, serving
     (32, 512, 512, 64, 4, 64, 8),      # Llama-3.2-1B prefill
     (16, 200, 200, 128, 4, 64, 4),     # head dim 128
+    (16, 4096, 4096, 80, 4, 64, 64),   # head dim 80, HuBERT at s 4096
     (6, 1, 1, 64, 1, 16, 1),           # one token
     (8, 40, 40, 64, 3, 48, 1),
     (8, 70, 33, 64, 4, 48, 2)])
@@ -103,7 +104,7 @@ def test_flash_fwd_plan(bh, s, t, d, warps, key_tile, blocks):
     assert f32.key_tile == min(32, -(-t // 8) * 8)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("s,warps,key_tile,blocks", [
     (1, 1, 8, 1), (16, 1, 16, 1), (196, 4, 32, 4), (200, 4, 32, 4),
     (520, 4, 32, 9), (8704, 4, 32, 136)])
@@ -121,7 +122,7 @@ def test_flash_fwd_f32_plan(s, warps, key_tile, blocks, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_plans_fit_shared_memory(d, dtype):
     """Every forward and backward plan, over s and t from 1 to 8704, fits
     the 227 KB a CTA may hold; the f32 backward's largest key block is the
@@ -132,7 +133,7 @@ def test_flash_plans_fit_shared_memory(d, dtype):
         assert fa_ops.bwd_plan(8, n, n, d, dtype).smem <= fa_ops.SMEM_LIMIT
     if dtype == torch.float32:
         top = fa_ops.F32_MAX_KEY_BLOCK[d]
-        assert top == {64: 208, 128: 96}[d]
+        assert top == {64: 208, 80: 160, 128: 96}[d]
         assert fa_ops.bwd_plan(8, top, top, d, dtype).key_blocks == 1
         assert fa_ops.bwd_plan(8, top + 1, top + 1, d,
                                dtype)[:2] == (top, 2)

@@ -261,16 +261,18 @@ def test_resolve_decode_backend():
         r("bogus", cpu)
 
 
-def test_other_families_name_their_slice():
-    """vlm still names its slice; hybrid builds now (a hybrid config with
-    attention every layer is the dense model with its blocks' leaves)."""
+def test_vlm_and_hybrid_families_build_on_the_dense_blocks():
+    """Every family of the reference builds now: a vlm config without a
+    vision frontend, and a hybrid config with attention every layer, are
+    the dense model with its blocks' leaves."""
     base = smoke_variant(get_arch("llama3.2-1b"))
-    cfg = dataclasses.replace(base, family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm slice"):
-        ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    vlm = ttf.init_params(dataclasses.replace(base, family="vlm"),
+                          torch.Generator().manual_seed(0), "cpu")
     hybrid = dataclasses.replace(base, family="hybrid")
     assert hybrid.layer_kinds() == ("attn", "attn")
     tp = ttf.init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
     dense = ttf.init_params(base, torch.Generator().manual_seed(0), "cpu")
-    assert all(torch.equal(a, b) for (_, a), (_, b) in
-               zip(leaves(tp), leaves(dense)))
+    for tree in (tp, vlm):
+        assert [p for p, _ in leaves(tree)] == [p for p, _ in leaves(dense)]
+        assert all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(leaves(tree), leaves(dense)))

@@ -157,10 +157,24 @@ def test_lm_loss_and_grads_match_reference(reference_grads, arch, attn,
     assert all(np.abs(g).max() > 0 for g in _paths(grads).values())
 
 
-def test_lm_loss_refuses_the_families_of_later_slices():
-    enc = get_arch("basic-s").text_tower
-    with pytest.raises(NotImplementedError, match="audio slice"):
-        ttf.lm_loss(smoke_variant(enc), {}, {})
+def test_lm_loss_runs_the_encoder_family_s_masked_frame_loss():
+    """The encoder family's loss is the masked-frame cross-entropy, also
+    for a token tower (BASIC-S's text tower): its embeddings of
+    ``tokens``, then the targets where ``mask`` is set, as the
+    reference's ``lm_loss`` computes it."""
+    jenc = jax_smoke_variant(jax_get_arch("basic-s").text_tower)
+    enc = smoke_variant(get_arch("basic-s").text_tower)
+    jparams = jax.device_get(jtf.init_params(jenc, jax.random.key(2)))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, enc.vocab, (2, 16)).astype(np.int32),
+             "targets": rng.integers(0, enc.vocab, (2, 16)).astype(np.int32),
+             "mask": rng.random((2, 16)) < 0.3}
+    jl, _ = jtf.lm_loss(jenc, jax.tree.map(jnp.asarray, jparams),
+                        jax.tree.map(jnp.asarray, batch))
+    loss, metrics = ttf.lm_loss(enc, interop.from_numpy(jparams, "cpu"),
+                                interop.from_numpy(batch, "cpu"))
+    assert float(loss) == pytest.approx(float(jl), rel=GA_RTOL)
+    assert float(metrics["aux"]) == 0.0
     assert ttf.period_of(smoke_variant(get_arch("llama3.2-1b"))) == 1
 
 

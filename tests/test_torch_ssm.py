@@ -213,12 +213,17 @@ def test_per_slot_positions_change_nothing_for_the_ssm(model):
     assert torch.equal(outs[0], outs[1])
 
 
-def test_later_families_still_name_their_slice():
-    """vlm still names its slice; the hybrid family builds now: Mamba-2
+def test_vlm_and_hybrid_families_build_their_blocks():
+    """The vlm builds its vision frontend beside the dense blocks, the
+    embedding and the untied head; the hybrid family builds Mamba-2
     blocks with an FFN, attention every ``attn_every`` layers."""
-    cfg = dataclasses.replace(get_arch("llama3.2-1b"), family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm slice"):
-        ttf.init_params(cfg, torch.Generator(), "cpu")
+    cfg = get_arch("internvl2-76b")
+    full = ttf.init_params(cfg, torch.Generator(), "meta")
+    assert sorted(full) == ["blocks", "embed", "final_norm", "frontend",
+                            "lm_head"]
+    assert tuple(full["frontend"]["patch_proj"].shape) == (16 * 16 * 3, 8192)
+    assert [sorted(b) for b in full["blocks"]] == [
+        ["attn", "ffn", "ln1", "ln2"]]
     hybrid = smoke_variant(get_arch("jamba-1.5-large-398b"))
     tp = ttf.init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
     assert [sorted(b) for b in tp["blocks"]] == [
