@@ -344,6 +344,34 @@ repository beside this file; it exits non-zero without them. In order it:
     508–520 tokens, 64 new) and ``run_legacy``: tok/s, step median and
     p90, prefill ms, peak memory, one flash_fwd launch a layer a prefill
     and one decode_attention launch a layer a step;
+53. after phase 52: Arctic-480B (56 query heads over 8 kv heads, GQA 7,
+    d 128, 128 experts top-2 beside a dense residual FFN) at full width on
+    2 of its 35 layers with experts 0-15 of each layer's 128 (one card's
+    share when eight cards split them), f32, capacity dispatch: prefill
+    of 8 × 512 tokens into a linear cache of 4096 and 8 decode steps on
+    the kernel path and the plain path: logits within 1e-3 (phase 25's
+    near-tie rule), the caches within 1e-3 of each leaf's max; phase 25
+    checks the caches so too;
+54. timed Arctic serving on 4 of its 35 layers with the same share (8.0G
+    params, ~32 GB f32): bf16, the kernels, capacity dispatch over the
+    share, ``run_continuous`` (8 slots, 16 requests of 508-520 prompt
+    tokens, 64 new, a linear cache of 4096) and ``run_legacy``: tokens per
+    second, step median and p90, prefill ms, peak memory, 4 flash_fwd
+    launches a prefill and 4 decode_attention launches a step at GQA 7;
+    then a 4-step decode profile;
+55. last, the tooling (``launch/{roofline,memstats,dryrun}.py``):
+    (a) ``train_distributed --memstats`` at one rank, phase 38's run for
+    1 step: the printed row's peak equals ``max_memory_allocated``; (b)
+    the dry runs (traced on ``meta`` in a process that runs beside the
+    untimed gloo worlds of phases 41-43, after every timed phase)
+    of phase 38's contrastive step at mesh (1, 1) and of Llama-3.2-1B's
+    ``make_train_step`` (bf16, remat ``basic``, the flash kernels) at b 4
+    × s 1024, each held to the same step function run once on the card
+    under ``memstats.step_stats``: FLOPs equal, the predicted peak within
+    15% of the card's, printed beside the roofline's terms and the
+    measured step time; (c) BASIC-L's contrastive step at
+    ``contrastive_64k`` on the pod mesh (16, 16), meta only: params,
+    optimizer state and peak a rank, and the roofline's bottleneck;
 27. last, after phase 43, prints the script's seconds, a ``{"kernels":
     [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
@@ -383,15 +411,16 @@ DEC_REPLACES = "src/repro/kernels/decode_attention/kernel.py:72"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:69"
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
-# operation rates by input type (fp32 outside the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# fp32-accurate work on the tensor cores as split 3×TF32: three tf32
-# products (495 TFLOP/s) per fp32 product. The f32 flash kernels compute
-# so, and their bound is taken at this rate (the card's fastest for work
-# held to fp32 accuracy), not at the FMA units' 67.
-PEAK_3XTF32 = 495e12 / 3
+# the H100 SXM's published peaks (HBM bytes/s; operation rates by input
+# type, fp32 outside the tensor cores, split 3×TF32 for fp32-accurate
+# tensor-core work), ``bound`` and the kernels' least work live in one
+# place, the port's roofline module
+from repro_torch.launch.roofline import (  # noqa: E402
+    PEAK_3XTF32, PEAK_FLOPS, bound, contrastive_bwd_work,
+    contrastive_fwd_work, decode_work, flash_bwd_work, flash_fwd_work,
+    ssd_bwd_work, ssd_scan_work, topk_work)
+from repro_torch.launch.roofline import \
+    tensor_core_peak as flash_peak  # noqa: E402
 
 # tolerances, each with its reason:
 # flash f32 — both sides accumulate fp32 over <= 196 keys in another order,
@@ -661,22 +690,6 @@ def device_ms(fn, names=None, iters: int = 20, expect=None):
     return ms, per_call
 
 
-def bound(nbytes: float, flops: float, dtype: str, peak=None):
-    """(least milliseconds the card could take, what bounds it), at the
-    dtype's peak rate or at ``peak`` FLOP/s."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (peak or PEAK_FLOPS[dtype])
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def flash_peak(dt: str):
-    """The peak a tensor-core kernel's bound is taken at (the flash
-    kernels, the SSD scan): f32 runs split 3×TF32 on the tensor cores,
-    bf16 the dtype's own."""
-    return PEAK_3XTF32 if dt == "float32" else None
-
-
 def dtype_name(dt) -> str:
     """'float32' / 'bfloat16'."""
     return str(dt).removeprefix("torch.")
@@ -715,15 +728,6 @@ def sdpa_call(q, k, v, bias, b, h, kv, causal, window, grad=False):
             q4, k4, v4, attn_mask=mask4, is_causal=causal,
             enable_gqa=kv != h)
     return call, (q4, k4, v4)
-
-
-def attended_pairs(s: int, causal: bool, window=None) -> int:
-    """(query, key) pairs a head attends over s tokens: s² without a mask,
-    the causal lower triangle (within ``window`` keys of the query)."""
-    if not causal:
-        return s * s
-    w = s if window is None else min(window, s)
-    return sum(min(i + 1, w) for i in range(s))
 
 
 def flash_case(label, b, h, s, d, dtype, padded, seed, kv=None,
@@ -782,9 +786,9 @@ def flash_case(label, b, h, s, d, dtype, padded, seed, kv=None,
     lib_ms = time_ms(sdpa)
     lib_dev_ms, _ = device_ms(sdpa)
     item = torch.finfo(dtype).bits // 8
-    nbytes = (2 * bh + 2 * b * kv) * s * d * item + bh * s * 4 \
-        + (b * s * 4 if padded else 0)
-    flops = 4.0 * bh * d * attended_pairs(s, causal, window)
+    nbytes, flops = flash_fwd_work(bh, b * kv, s, s, d, item, causal=causal,
+                                   window=window,
+                                   bias_rows=b if padded else 0)
     bound_ms, bound_by = bound(nbytes, flops, dt, flash_peak(dt))
     rec = {"shape": f"{label} bh={bh} s={s} d={d} {dt}"
                     + (f" kv={b * kv}" if kv != h else "")
@@ -969,8 +973,7 @@ def phase_topk():
         plain_ms = time_ms(lambda: similarity_topk_ref(x, c, k, inv_tau))
         lib_ms = time_ms(library)
         lib_dev_ms, _ = device_ms(library)
-        nbytes = (b + n) * d * 4 + b * k * 8
-        bound_ms, bound_by = bound(nbytes, 2.0 * b * n * d, "float32")
+        bound_ms, bound_by = bound(*topk_work(b, n, d, k), "float32")
         recs[(b, n, k)] = {
             "shape": f"b={b} n={n} d={d} k={k} float32",
             "plan": plan._asdict(), "max_abs_err": errs["float32"],
@@ -1316,12 +1319,11 @@ def flash_bwd_case(label, b, h, s, d, dtype, padded, seed, causal=False,
         fwd_ms = time_ms(sdpa_fwd)
     rec["library_ms"] = time_ms(sdpa_fwd_bwd) - fwd_ms
     item = torch.finfo(dtype).bits // 8
-    # q, out, dout, dq; k, v, dk, dv
-    nbytes = (4 * bh + 4 * b * kv) * s * d * item + bh * s * 4 \
-        + (b * s * 4 if padded else 0)
-    # five products of 2·d per attended (query, key) pair: the q·kᵀ
-    # recompute, dout·vᵀ, ds·k, dsᵀ·q and pᵀ·dout
-    flops = 5 * 2.0 * bh * d * attended_pairs(s, causal, window)
+    # q, out, dout, dq; k, v, dk, dv; five products of 2·d per attended
+    # (query, key) pair: the q·kᵀ recompute, dout·vᵀ, ds·k, dsᵀ·q, pᵀ·dout
+    nbytes, flops = flash_bwd_work(bh, b * kv, s, s, d, item, causal=causal,
+                                   window=window,
+                                   bias_rows=b if padded else 0)
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dt,
                                              flash_peak(dt))
     print(f"flash_bwd {rec['shape']}: plan {tuple(plan)}; err {errs} (tol "
@@ -1453,8 +1455,8 @@ def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
         return torch.logsumexp(a, 1), torch.logsumexp(a, 0)
 
     fwd["library_ms"] = tm(lib_fwd)
-    fwd["bound_ms"], fwd["bound_by"] = bound(2 * b * d * item + 2 * b * 4,
-                                             2.0 * b * b * d, dt)
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        *contrastive_fwd_work(b, b, d, item), dt)
     bargs = (x, y, inv_tau, ref_row, ref_col)
     plan = cl_ops.bwd_plan(b, d)
     bwd["plan"] = {"grid": plan.grid, "slices": plan.slices,
@@ -1470,8 +1472,7 @@ def contrastive_case(b, d, dtype, seed, timed=True, legacy=False):
     bwd["library_ms"] = tm(lambda: torch.autograd.grad(
         cl_ref.loss_ref(xr, yr, lr_), (xr, yr, lr_))) - lfwd_ms
     bwd["bound_ms"], bwd["bound_by"] = bound(
-        2 * b * d * item + 2 * b * 4 + 2 * b * d * 4 + 4,
-        3 * 2.0 * b * b * d, dt)
+        *contrastive_bwd_work(b, b, d, item), dt)
     for name, r in zip(names, (fwd, bwd)):
         print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms"
               + (f" (device {r['device_ms']:.4f})" if "device_ms" in r
@@ -2262,9 +2263,8 @@ def decode_timed(state, q, k, v, lens, err):
     kv, t = k.shape[1], k.shape[2]
     dt = dtype_name(q.dtype)
     item = torch.finfo(q.dtype).bits // 8
-    fixed = 2 * b * h * d * item + b * t      # q, out, the bool mask
-    full_ms, full_by = bound(fixed + 2 * b * kv * t * d * item,
-                             4.0 * h * d * b * t, dt)
+    # q, out, the bool mask and every cache entry
+    full_ms, full_by = bound(*decode_work(b, h, kv, t, d, item), dt)
     valid = torch.arange(t, device="cuda")[None, :] < lens[:, None]
     _, e = decode_check(f"{state} {dt}", q, k, v, valid)
     call = lambda: dec_ops.decode_attention(q, k, v, valid)
@@ -2279,8 +2279,7 @@ def decode_timed(state, q, k, v, lens, err):
     lib_dev_ms, _ = device_ms(library)
     n_valid = int(lens.sum())
     bound_ms, bound_by = bound(
-        fixed + 2 * kv * d * item * n_valid,
-        4.0 * (h // kv) * d * kv * n_valid, dt)
+        *decode_work(b, h, kv, t, d, item, n_valid), dt)
     plan = dec_ops.launch_plan(q, k)
     rec = {"shape": f"b={b} h={h} kv={kv} t={t} d={d} {dt}, {state}: "
                     f"{n_valid} valid entries",
@@ -2412,9 +2411,9 @@ def phase_prefill_flash():
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True, enable_gqa=True))
         item = torch.finfo(dtype).bits // 8
-        nbytes = (2 * h + 2 * kv) * s * d * item + h * s * 4
-        bound_ms, bound_by = bound(nbytes, 4.0 * h * d * s * (s + 1) / 2, dt,
-                                   flash_peak(dt))
+        bound_ms, bound_by = bound(
+            *flash_fwd_work(h, kv, s, s, d, item, causal=True, window=8192),
+            dt, flash_peak(dt))
         plan = tuple(fa_ops.fwd_plan(h, s, s, d, dtype))
         recs[dt] = {"shape": f"prefill bh={h} kv={kv} s={s} d={d} causal "
                              f"window=8192 {dt}", "max_abs_err": err,
@@ -2767,17 +2766,6 @@ def ssd_inputs(b, l, dtype, seed, init=False, extreme=False, h=24, p=64,
     return x, dt, A, Bm, Cm, D, s0
 
 
-def ssd_least_flops(b, l, h, p, n):
-    """The SSD scan's least FLOP count over its chunked forms. At a chunk
-    of c tokens, per token and (b, h): the causal half of C·Bᵀ and of its
-    product with dt·x, c·(n + p); y's read of the carried state and the
-    state's update, 2·n·p each; the state's decay once a chunk, n·p / c.
-    c = 1 is the sequential recurrence (``ssd_ref``, ~5·n·p); the least is
-    near c = sqrt(n·p / (n + p)), ~4.3·n·p at n 128, p 64."""
-    return b * h * l * min(c * (n + p) + 4.0 * n * p + n * p / c
-                           for c in range(1, l + 1))
-
-
 def ssd_case(label, b, l, dtype, seed, init=False, extreme=False,
              timed=True, h=24, p=64, n=128):
     """Kernel vs plain version at one shape (``h`` heads of ``p``, state
@@ -2818,14 +2806,11 @@ def ssd_case(label, b, l, dtype, seed, init=False, extreme=False,
         rec["plain_ms"] = time_ms(lambda: plain_scan(
             x, dt, A, Bm, Cm, D, chunk=chunk, init_state=s0))
         item = torch.finfo(dtype).bits // 8
-        states = (2 if init else 1) * b * h * p * n * 4
-        nbytes = (b * l * h * p * item + b * l * h * 4 + 2 * b * l * n * item
-                  + b * l * h * p * 4 + states + 2 * h * 4)
         # f32 products run split 3×TF32 on the tensor cores: its bound is
         # taken at that rate, which the kernel cannot beat (bf16 at the
         # bf16 peak, the fastest of its products)
         rec["bound_ms"], rec["bound_by"] = bound(
-            nbytes, ssd_least_flops(b, l, h, p, n), dt_name,
+            *ssd_scan_work(b, l, h, p, n, item, init), dt_name,
             flash_peak(dt_name))
     print(f"ssd_scan {rec['shape']}: plan {tuple(plan)}; max |y err| "
           f"{err_y:.3g} (tol {lim_y:.3g}), max |state err| {err_f:.3g} (tol "
@@ -3348,8 +3333,8 @@ def phase_topk_n_valid():
         plain_ms = time_ms(lambda: similarity_topk_ref(x, c, k, inv_tau, nv))
         live = c[:nv]
         lib_ms = time_ms(lambda: torch.topk(x @ live.T * inv_tau, k, dim=1))
-        bound_ms, bound_by = bound((b + nv) * d * 4 + b * k * 8,
-                                   2.0 * b * nv * d, "float32")
+        bound_ms, bound_by = bound(*topk_work(b, n, d, k, n_valid=nv),
+                                   "float32")
         recs[(b, n, k, nv)] = {
             "shape": f"b={b} n={n} n_valid={nv} d={d} k={k} float32",
             "plan": topk_ops.topk_plan(b, n, d, k, 4, sms)._asdict(),
@@ -3888,37 +3873,59 @@ def routed_parity(label, cfg, params, toks, clen, steps, tol, counters,
 
 
 def phase_moe_parity(layers: int = 2, batch: int = 8, plen: int = 512,
-                     steps: int = 8, clen: int = 8192):
-    """Mixtral-8x22B at full width and ``layers`` layers, f32, capacity
+                     steps: int = 8, clen: int = 8192, arch: str = MIXTRAL,
+                     experts=None):
+    """A MoE model (Mixtral-8x22B; Arctic-480B with its card's expert
+    share ``experts``) at full width and ``layers`` layers, f32, capacity
     dispatch (``moe_ffn``'s defaults), random weights from a CUDA
-    generator: prefill of ``batch`` × ``plen`` tokens, then ``steps``
-    decode steps over the ``batch`` slots, on the kernel path and the
-    plain path (``routed_parity``, within ``MOE_PARITY_TOL``)."""
+    generator: prefill of ``batch`` × ``plen`` tokens into caches of
+    ``clen``, then ``steps`` decode steps over the ``batch`` slots, on the
+    kernel path and the plain path (``routed_parity``, within
+    ``MOE_PARITY_TOL``); the caches of the rows within it agree within
+    ``MOE_PARITY_TOL`` of each leaf's max |value|."""
     import torch
     from repro_torch import interop
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    cfg = dataclasses.replace(get_arch(MIXTRAL), n_layers=layers)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    margs = None if experts is None else {"experts": experts}
     t0 = time.perf_counter()
     params = interop.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda",
+        experts=experts)
     torch.cuda.synchronize()
     n = sum(p.numel() for _, p in interop.leaves(params))
-    print(f"moe parity: {MIXTRAL} at full width, {layers} layers, {n} "
-          f"params f32, init {time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"moe parity: {arch} at full width, {layers} layers, experts "
+          f"{experts or 'all'}, {n} params f32, init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
     g = torch.Generator(device="cuda").manual_seed(6)
     toks = torch.randint(4, cfg.vocab, (batch, plen), generator=g,
                          device="cuda")
     t0 = time.perf_counter()
-    worst, near_tie_rows, n_diff, launches, _ = routed_parity(
+    worst, near_tie_rows, n_diff, launches, state = routed_parity(
         "moe parity", cfg, params, toks, clen, steps, MOE_PARITY_TOL,
-        (fa_ops.COUNTER, dec_ops.COUNTER))
+        (fa_ops.COUNTER, dec_ops.COUNTER), margs)
+    rows = sorted(set(range(batch)) - {r for _, r in near_tie_rows})
+    cache_err = {}
+    for ck, cp in zip(state["kernel"][1], state["plain"][1]):
+        for leaf, a, b in zip(ck._fields, ck, cp):
+            a, b = a[:, rows].float(), b[:, rows].float()
+            err = (a - b).abs().max().item()
+            lim = MOE_PARITY_TOL * b.abs().max().item()
+            cache_err[leaf] = max(cache_err.get(leaf, 0.0), err)
+            if not err <= lim:
+                raise AssertionError(f"moe parity: cache {leaf} max err "
+                                     f"{err:.3g} > {lim:.3g}")
+    del state
     want = {"kernel": {"flash_fwd": layers,
                        "decode_attention": layers * steps},
             "plain": {"flash_fwd": 0, "decode_attention": 0}}
-    print(f"moe parity ({MIXTRAL} f32, {layers} layers, capacity dispatch, "
-          f"{batch} x {plen} prefill + {steps} steps over {batch} slots): "
+    print(f"moe parity ({arch} f32, {layers} layers, experts "
+          f"{experts or 'all'}, capacity dispatch, "
+          f"{batch} x {plen} prefill + {steps} steps over {batch} slots, "
+          f"cache {clen}): caches max err {cache_err} over {len(rows)} rows "
+          f"(tol {MOE_PARITY_TOL} of max |value|); "
           f"max |logit diff| kernel vs plain {worst:.3g} (tol "
           f"{MOE_PARITY_TOL}); rows outside it at a router near-tie: "
           f"{len(near_tie_rows)} of {batch * (steps + 1)}; pairs routed "
@@ -3927,7 +3934,8 @@ def phase_moe_parity(layers: int = 2, batch: int = 8, plen: int = 512,
     if launches != want:
         raise AssertionError(f"moe parity: launches {launches}, want {want}")
     return {"max_logit_diff": worst, "near_tie_rows": near_tie_rows,
-            "routed_differently": n_diff, "launches": launches["kernel"]}
+            "routed_differently": n_diff, "launches": launches["kernel"],
+            "cache_err": cache_err}
 
 
 def with_flags(argv, **changes):
@@ -3943,9 +3951,12 @@ def with_flags(argv, **changes):
     return out
 
 
-def phase_moe_serve():
-    """Mixtral-8x22B at full width, ``MOE_SERVE_LAYERS`` of its 56 layers,
-    bf16, the kernels, capacity dispatch, through the launcher's
+def phase_moe_serve(arch: str = MIXTRAL, layers: int = MOE_SERVE_LAYERS,
+                    serve_argv=MOE_SERVE_ARGV, experts=None):
+    """A MoE model at full width on ``layers`` of its layers (Mixtral-8x22B
+    4 of 56; Arctic-480B 4 of 35 with its card's expert share
+    ``experts``, drawn and served alone), bf16, the kernels, capacity
+    dispatch (over the share), through the launcher's
     ``run_continuous`` (after one untimed warm-up request) and
     ``run_legacy`` (one lockstep request), the weights built once for all
     three: tokens per second, decode-step median and p90, prefill ms, peak
@@ -3963,19 +3974,24 @@ def phase_moe_serve():
     from repro_torch.launch import serve
 
     def argv(**changes):
-        return serve.parse_args(with_flags(MOE_SERVE_ARGV, **changes))
+        return serve.parse_args(with_flags(serve_argv, **changes))
 
     args = argv()
     moe_args = serve.moe_args_for(args)        # None: capacity dispatch
-    cfg = dataclasses.replace(get_arch(MIXTRAL), n_layers=MOE_SERVE_LAYERS)
+    if experts is not None:
+        moe_args = {**(moe_args or {}), "experts": experts}
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = interop.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(args.seed), "cuda")
+        cfg, torch.Generator(device="cuda").manual_seed(args.seed), "cuda",
+        experts=experts)
     torch.cuda.synchronize()
     n = sum(p.numel() for _, p in interop.leaves(params))
-    print(f"moe serve: {MIXTRAL} at full width, {MOE_SERVE_LAYERS} of 56 "
-          f"layers, {n} params ({4 * n / 1e9:.2f} GB f32), init "
+    print(f"moe serve: {arch} at full width, {layers} of {full.n_layers} "
+          f"layers, experts {experts or 'all'}, {n} params "
+          f"({4 * n / 1e9:.2f} GB f32), init "
           f"{time.perf_counter() - t0:.2f}s, moe_args {moe_args}",
           flush=True)
     serve.run_continuous(cfg, params, argv(requests=1, max_new=4), moe_args)
@@ -3987,8 +4003,8 @@ def phase_moe_serve():
     per = {"flash_fwd_per_prefill": launches["flash_fwd"] / rep["prefills"],
            "decode_attention_per_step": (launches["decode_attention"]
                                          / rep["decode_steps"])}
-    print(f"moe serve (continuous, bf16, 8 slots, 16 requests x 508-520 "
-          f"prompt tokens x 64 new, cache 8192): decode "
+    print(f"moe serve ({arch}, continuous, bf16, 8 slots, 16 requests x "
+          f"508-520 prompt tokens x 64 new, cache {args.cache_len}): decode "
           f"{rep['decode_tokens_per_s']:.1f} tok/s over the warm steps, "
           f"{rep['tokens_per_s']:.1f} tok/s over the run (prefill "
           f"included); step median {rep['step_median_s'] * 1e3:.3f} ms, p90 "
@@ -3996,9 +4012,9 @@ def phase_moe_serve():
           f"steps; prefill {rep['prefill_mean_s'] * 1e3:.3f} ms per "
           f"request; launches {launches}: {per}", flush=True)
     for name in per:
-        if per[name] != MOE_SERVE_LAYERS:
+        if per[name] != layers:
             raise AssertionError(f"moe serve: {name} {per[name]}, want "
-                                 f"{MOE_SERVE_LAYERS} (one per layer)")
+                                 f"{layers} (one per layer)")
     for rid, r in rep["results"].items():
         in_vocab = bool(np.all((r >= 0) & (r < cfg.vocab)))
         if not (in_vocab and (r.size == args.max_new or r[-1] == 3)):
@@ -4017,8 +4033,7 @@ def phase_moe_serve():
     stop = np.nonzero(row == 3)[0]
     emitted = int(stop[0]) + 1 if stop.size else row.size
     lock_launches = {ctr.name: ctr.count for ctr in counters}
-    want = {"flash_fwd": MOE_SERVE_LAYERS,
-            "decode_attention": MOE_SERVE_LAYERS * (emitted - 1)}
+    want = {"flash_fwd": layers, "decode_attention": layers * (emitted - 1)}
     print(f"moe serve (lockstep, 1 request x 512 prompt tokens): "
           f"{emitted} tokens, {lock['tokens_per_s']:.1f} tok/s (prefill "
           f"included); launches {lock_launches}", flush=True)
@@ -4375,17 +4390,6 @@ def ssd_grad_errs(label, got, ref, what):
     return errs
 
 
-def ssd_bwd_bytes(b, l, h, p, n, item, init, dfinal):
-    """Bytes the backward must move: x, B, C (``item`` bytes), dt, dy, the
-    saved states (one per 64-token sub-chunk) and the final state read;
-    dx, dB, dC (``item``), ddt, dA, dD (and d(init)) written; each once."""
-    states = b * h * (-(-l // 64) + 1 + (1 if dfinal else 0)) * p * n * 4
-    inputs = (b * l * h * p + 2 * b * l * n) * item + b * l * h * 4
-    grads = (b * l * h * p + 2 * b * l * n) * item + b * l * h * 4 + 2 * h * 4
-    return (inputs + b * l * h * p * 4 + states + grads
-            + (b * h * p * n * 4 * 2 if init else 0) + 2 * h * 4)
-
-
 def ssd_bwd_case(label, b, l, dtype, seed, init=False, dfinal=False, h=24,
                  p=64, n=128, timed=True):
     """The backward kernel against the plain backward ``ssd_chunked_bwd``
@@ -4457,8 +4461,8 @@ def ssd_bwd_case(label, b, l, dtype, seed, init=False, dfinal=False, h=24,
         # of the chunked form has two gradient products; fp32-accurate
         # (dy and the states are fp32 in both dtypes), so at split 3×TF32
         rec["bound_ms"], rec["bound_by"] = bound(
-            ssd_bwd_bytes(b, l, h, p, n, item, init, dfinal),
-            2 * ssd_least_flops(b, l, h, p, n), dt_name, PEAK_3XTF32)
+            *ssd_bwd_work(b, l, h, p, n, item, init, dfinal), dt_name,
+            PEAK_3XTF32)
     print(f"ssd_scan_bwd {shape}: plan {tuple(plan)}; max abs err vs plain "
           f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
           f"{SSD_TOL_REL}·max, dA and dD {SSD_GRAD_SUM_TOL_REL}·max), vs "
@@ -5165,8 +5169,8 @@ def chunk_case(b, dtype, seed):
         return torch.logsumexp(a, 1), torch.logsumexp(a, 0)
 
     fwd["library_ms"] = time_ms(lib_fwd)
-    fwd["bound_ms"], fwd["bound_by"] = bound(2 * b * DIST_D * item + 2 * b * 4,
-                                             2.0 * b * b * DIST_D, dt)
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        *contrastive_fwd_work(b, b, DIST_D, item), dt)
     args, kw = cases[(4, False)]
     bwd = {"shape": f"{shape}, b_norm=4B_local, with_diag=False",
            "max_abs_err": bwd_err, "max_err_share": bwd_share,
@@ -5179,8 +5183,7 @@ def chunk_case(b, dtype, seed):
     bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
         cl_ref.loss_ref(xr, yr, lr_), (xr, yr, lr_))) - lfwd_ms
     bwd["bound_ms"], bwd["bound_by"] = bound(
-        2 * b * DIST_D * item + 2 * b * 4 + 2 * b * DIST_D * 4 + 4,
-        3 * 2.0 * b * b * DIST_D, dt)
+        *contrastive_bwd_work(b, b, DIST_D, item), dt)
     for name, r in (("chunk_row_col_lse", fwd), ("chunk_grads", bwd)):
         print(f"{name} {r['shape']}: err {r['max_abs_err']:.3g}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -5871,6 +5874,21 @@ HUBERT_ARGV = ["--mode", "lm", "--arch", HUBERT, "--batch", "2", "--seq",
 # Arctic-480B's attention: 56 query heads over 8 kv heads (a GQA group of
 # 7), d 128, causal
 ARCTIC_ATTN = dict(h=56, kv=8, d=128)
+# Arctic-480B served on one card (phases 53-54): full width (d 7168, d_ff
+# 4864 an expert, vocab 32000), 4 of its 35 layers (the depth Mixtral's
+# serving phase takes) and experts 0-15 of each layer's 128, one card's
+# share when eight cards split the experts: a layer is ~0.22G params
+# outside its experts and 16 × 0.105G inside, 8.0G with the embedding and
+# the head (~32 GB f32). The parity phase holds 2 of those layers with the
+# same share (~17 GB f32), built before the served model and freed first.
+ARCTIC = "arctic-480b"
+ARCTIC_LAYERS = 4
+ARCTIC_PARITY_LAYERS = 2
+ARCTIC_SHARE = (0, 16)
+# the MoE serving run's traffic (8 slots, 16 requests of 508-520 prompt
+# tokens, 64 new) on a linear cache of 4096 (Arctic has no window)
+ARCTIC_SERVE_ARGV = with_flags(MOE_SERVE_ARGV, arch=ARCTIC, cache_len=4096)
+ARCTIC_CACHE = 4096
 INTERNVL2 = "internvl2-76b"
 # InternVL2-76B at full width: the embedding and the untied head are
 # 2.10G params (8.4 GB f32), a layer 0.856G (3.42 GB). Training holds 1 of
@@ -6204,6 +6222,252 @@ def phase_vlm_serve():
             "max_memory_allocated": peak, "params": n}
 
 
+# ---------------------------------------------------------------------------
+# phase 55: the tooling (roofline, memstats, dryrun) held to the card
+# ---------------------------------------------------------------------------
+
+# a dry run's predicted peak against the same step's peak on the card: the
+# trace counts live storages (rounded to the allocator's 512-byte blocks)
+# and the kernels' per-call workspaces; it does not see the caching
+# allocator's larger blocks and splits, cuBLAS workspaces or the per-stream
+# scratch the decode and top-k kernels keep
+TOOL_PEAK_SHARE = 0.15
+TOOL_DRY_RUNS = os.path.join(HERE, "build", "chip_smoke_dryrun.json")
+# (a) the distributed trainer at one rank, the run of phase 38 for 1 step
+TOOL_TRAIN_ARGV = with_flags(DIST_TRAIN_ARGV, steps=1) + ["--memstats"]
+# (b) the shapes of the dry runs held to the card: phase 38's contrastive
+# step (BASIC-S, B 2048 in 8, captions of 16) and Llama-3.2-1B's
+# ``make_train_step`` at b 4 x s 1024
+TOOL_CONTRASTIVE = ("contrastive_b2048", 16, 2048, "contrastive")
+TOOL_LM = ("train_b4_s1024", 1024, 4, "train")
+
+
+def dry_run_worker(path):
+    """The three dry runs (meta tensors only, this process's CPU), run in a
+    spawned process while the card's phases run; the results go to
+    ``path`` as JSON: (b) phase 38's contrastive step and Llama-3.2-1B's
+    ``make_train_step`` (bf16, remat basic, the flash kernels) at one rank
+    (mesh (1, 1)), and (c) BASIC-L's contrastive step at the paper's
+    ``contrastive_64k`` on the pod mesh (16, 16), the batch over every
+    rank (paper §5.1, the trainer's layout: 256 pairs a rank)."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    out = {
+        "contrastive": dryrun.run_contrastive_dryrun(
+            "basic-s", InputShape(*TOOL_CONTRASTIVE), mesh=(1, 1),
+            attn="pallas", verbose=False),
+        "lm": dryrun.run_one("llama3.2-1b", InputShape(*TOOL_LM),
+                             mesh=(1, 1), attn="pallas", verbose=False),
+        "pod": dryrun.run_contrastive_dryrun(
+            "basic-l", "contrastive_64k", batch_over="all", verbose=False)}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dry_runs():
+    """``dry_run_worker`` in a spawned process (daemonic: it ends with the
+    script); returns the process."""
+    import multiprocessing
+    if os.path.exists(TOOL_DRY_RUNS):
+        os.remove(TOOL_DRY_RUNS)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=dry_run_worker, args=(TOOL_DRY_RUNS,), daemon=True)
+    proc.start()
+    return proc
+
+
+def printed_peak_gb(text, label):
+    """The peak GB column of ``format_rows``' row ``label`` in ``text``."""
+    for line in text.splitlines():
+        if line.startswith(label):
+            return float(line[len(label):].split()[0])
+    raise AssertionError(f"tooling: no memstats row {label!r} in {text!r}")
+
+
+def held_to_card(name, predicted, fn, abstract, args, base):
+    """Run ``fn`` once on the card's inputs ``args`` (made after the card
+    held ``base`` bytes; the shapes and dtypes of the dry run's
+    ``abstract`` inputs) under ``memstats.step_stats`` and hold the
+    dry run's ``predicted`` result to it: the FLOPs equal, the peak within
+    ``TOOL_PEAK_SHARE`` of the step's own peak on the card
+    (``max_memory_allocated`` less what the card held before the inputs
+    were made); then times one more run and prints the roofline terms
+    beside it. Returns the record."""
+    import torch
+    from repro_torch.launch import memstats
+    from repro_torch.launch import roofline as rf
+    from repro_torch.tree import tree_leaves
+    pairs = list(zip(tree_leaves(abstract), tree_leaves(args)))
+    if len(pairs) != len(tree_leaves(args)) or any(
+            a.shape != r.shape or a.dtype != r.dtype for a, r in pairs):
+        raise AssertionError(f"tooling {name}: the card's inputs are not "
+                             f"the dry run's shapes and dtypes")
+    row = memstats.step_stats(fn, args, label=name)
+    peak = torch.cuda.max_memory_allocated()
+    own = peak - base
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del out
+    want = predicted["roofline"]["flops_per_device"]
+    got = row["flops_per_device"]
+    pred = predicted["memory"]["peak_bytes_per_device"]
+    terms = rf.roofline_terms({"flops": got, "bytes accessed":
+                               row["bytes_accessed_per_device"]},
+                              row["collectives"])
+    rec = {"flops_predicted": want, "flops_measured": got,
+           "peak_predicted_bytes": pred, "peak_measured_bytes": own,
+           "max_memory_allocated": peak, "peak_share": pred / own - 1,
+           "step_s": step_s, "roofline": terms,
+           "trace_s": predicted["lower_s"], "row": row}
+    print(f"tooling {name}: FLOPs dry run {want:.6e}, card {got:.6e}; peak "
+          f"dry run {pred / 2**30:.4f} GiB, card {own / 2**30:.4f} GiB "
+          f"(max_memory_allocated {peak / 2**30:.4f} GiB, of which held "
+          f"before {base / 2**30:.4f}), {100 * rec['peak_share']:+.2f}%; "
+          f"bytes accessed {row['bytes_accessed_per_device'] / 1e9:.3f} GB; "
+          f"step {step_s:.4f} s against the roofline's compute "
+          f"{terms['compute_s']:.4f} s, memory {terms['memory_s']:.4f} s, "
+          f"collective {terms['collective_s']:.4f} s (bottleneck "
+          f"{terms['bottleneck']}); traced in {predicted['lower_s']} s",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"tooling {name}: the dry run counts {want} "
+                             f"FLOPs, the card's step {got}")
+    if not abs(rec["peak_share"]) <= TOOL_PEAK_SHARE:
+        raise AssertionError(f"tooling {name}: the predicted peak is "
+                             f"{100 * rec['peak_share']:+.2f}% off the "
+                             f"card's (limit {100 * TOOL_PEAK_SHARE}%)")
+    return rec
+
+
+def phase_tooling(proc):
+    """Phase 55. (a) ``train_distributed --memstats`` at one rank (phase
+    38's run, 1 step): its printed row's peak equals
+    ``max_memory_allocated`` over the run, and its runlog holds the row;
+    (b) the dry runs of ``dry_run_worker`` (joined here) of phase 38's
+    contrastive step and of Llama-3.2-1B's ``make_train_step``, each held
+    to the same step function run once on the card on real inputs of the
+    same shapes (``held_to_card``); (c) BASIC-L at ``contrastive_64k`` on
+    the pod mesh: the params, optimizer state and peak a rank, and the
+    roofline's bottleneck."""
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models import frontends
+    from repro_torch.obs import runlog
+
+    # joined first: no step below is timed beside the dry runs
+    proc.join(timeout=900)
+    if proc.is_alive() or proc.exitcode != 0:
+        proc.kill()
+        raise AssertionError(f"tooling: the dry runs' process ended with "
+                             f"{proc.exitcode}")
+    with open(TOOL_DRY_RUNS) as f:
+        dry = json.load(f)
+    root = os.path.join(CKPT_ROOT, "tooling")
+    shutil.rmtree(root, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        td.main(TOOL_TRAIN_ARGV + ["--run-dir", root])
+    peak = torch.cuda.max_memory_allocated()
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    rows = [r["row"] for r in runlog.read_runlog(
+        os.path.join(root, "runlog.jsonl"))
+        if r["kind"] == "event" and r.get("event") == "memstats"]
+    if len(rows) != 1:
+        raise AssertionError(f"tooling: {len(rows)} memstats rows in the "
+                             f"runlog, want 1")
+    train = rows[0]
+    printed = printed_peak_gb(text, train["label"])
+    print(f"tooling (a): train_distributed --memstats peak "
+          f"{train['memory']['peak_bytes_per_device']} bytes (printed "
+          f"{printed} GB), max_memory_allocated {peak} bytes; "
+          f"{train['flops_per_device'] / 1e12:.3f} TFLOP, collectives "
+          f"{train['collectives']['total']} bytes", flush=True)
+    if train["memory"]["peak_bytes_per_device"] != peak or \
+            printed != round(peak / 2**30, 4):
+        raise AssertionError(f"tooling (a): the row's peak "
+                             f"{train['memory']['peak_bytes_per_device']} "
+                             f"(printed {printed}) is not "
+                             f"max_memory_allocated {peak}")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+    out = {"train_memstats": {"peak": peak, "row": train}, "dry": dry}
+
+    # (b) the contrastive step: BASIC-S at full width, bf16, the fused loss
+    cfg = get_arch("basic-s")
+    shape = InputShape(*TOOL_CONTRASTIVE)
+    with fake_world((1, 1)) as mesh:
+        fn, abstract = dryrun.contrastive_step(cfg, shape, mesh,
+                                               attn="pallas")
+        base = torch.cuda.memory_allocated()
+        params = interop.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        g = torch.Generator(device="cuda").manual_seed(1)
+        spec = abstract[2]
+        batch = {"images": {"image": torch.rand(
+            spec["images"]["image"].shape, generator=g, device="cuda")},
+            "texts": {"tokens": torch.randint(
+                4, cfg.text_tower.vocab, spec["texts"]["tokens"].shape,
+                generator=g, device="cuda", dtype=torch.int32)}}
+        args = (params, st.make_optimizer().init(params), batch)
+        out["contrastive"] = held_to_card(
+            "(b) BASIC-S contrastive B=2048 micro=8 bf16", dry["contrastive"],
+            fn, abstract, args, base)
+        del params, batch, args
+    torch.cuda.empty_cache()
+
+    # (b) Llama-3.2-1B's make_train_step, bf16, remat basic, flash kernels
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), attn_impl="pallas")
+    shape = InputShape(*TOOL_LM)
+    with fake_world((1, 1)) as mesh:
+        fn, abstract = dryrun.lm_step(cfg, shape, mesh)
+        base = torch.cuda.memory_allocated()
+        params = interop.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        batch = frontends.synthetic_inputs(
+            cfg, shape.global_batch, shape.seq_len,
+            np.random.default_rng(0), device="cuda")
+        args = (params, st.make_optimizer().init(params), batch)
+        out["lm"] = held_to_card("(b) Llama-3.2-1B make_train_step b4 s1024",
+                                 dry["lm"], fn, abstract, args, base)
+        del params, batch, args
+    torch.cuda.empty_cache()
+
+    # (c) the paper's step per rank on the pod mesh
+    pod = dry["pod"]
+    m = pod["memory"]
+    print(f"tooling (c): basic-l x contrastive_64k x {pod['mesh']} x "
+          f"{pod['sharding']} (the batch over every rank: 256 pairs, 8 "
+          f"microbatches of 32): params {m['params_bytes_per_device'] / 1e9:.4f} "
+          f"GB, optimizer state {m['opt_state_bytes_per_device'] / 1e9:.4f} "
+          f"GB, peak {m['peak_gb_per_device']} GB a rank; roofline compute "
+          f"{pod['roofline']['compute_s']:.4f} s, memory "
+          f"{pod['roofline']['memory_s']:.4f} s, collective "
+          f"{pod['roofline']['collective_s']:.4f} s: bottleneck "
+          f"{pod['roofline']['bottleneck']}; collectives "
+          f"{pod['collectives']['total'] / 1e9:.3f} GB in "
+          f"{pod['collectives']['count']} calls; traced in {pod['lower_s']} "
+          f"s", flush=True)
+    if not pod["ok"] or m["params_bytes_per_device"] <= 0:
+        raise AssertionError(f"tooling (c): {pod}")
+    return out
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     import torch
@@ -6319,6 +6583,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     vlm_serve = phase_vlm_serve()
     torch.cuda.empty_cache()
+    arctic_parity = phase_moe_parity(ARCTIC_PARITY_LAYERS, clen=ARCTIC_CACHE,
+                                     arch=ARCTIC, experts=ARCTIC_SHARE)
+    torch.cuda.empty_cache()
+    arctic = phase_moe_serve(ARCTIC, ARCTIC_LAYERS, ARCTIC_SERVE_ARGV,
+                             ARCTIC_SHARE)
+    torch.cuda.empty_cache()
     chunk = phase_chunk_kernels()
     torch.cuda.empty_cache()
     cross_shard = phase_cross_shard_loss()
@@ -6330,7 +6600,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_lm = phase_dist_train_lm()
     torch.cuda.empty_cache()
+    # the dry runs are the host's work alone: they run beside the untimed
+    # gloo worlds, after every phase that times the card or the host
+    dry_runs = start_dry_runs()
     ws, ws_lm, ws_ssm = phase_weight_sharding()
+    torch.cuda.empty_cache()
+    tooling = phase_tooling(dry_runs)
     torch.cuda.empty_cache()
 
     f_main = flash[("image", torch.float32)]
@@ -6398,6 +6673,17 @@ def main() -> int:
                     name],
                 "jamba_f32_parity_launches": hybrid_parity["launches"][name],
                 "jamba_device_kernels_per_call": hybrid["per_call"].get(
+                    name)}
+
+    def arctic_of(name, per):
+        """The kernel's launches on Arctic-480B's serving and parity
+        paths (GQA 7)."""
+        return {"arctic_launches": arctic["launches"][name],
+                f"arctic_launches_{per}": arctic["per"][f"{name}_{per}"],
+                "arctic_lockstep_launches": arctic["lockstep"]["launches"][
+                    name],
+                "arctic_f32_parity_launches": arctic_parity["launches"][name],
+                "arctic_device_kernels_per_call": arctic["per_call"].get(
                     name)}
 
     def families_of(direction, name):
@@ -6531,6 +6817,7 @@ def main() -> int:
                     "per_prefill"),
          **mixtral_train_of("fwd", fa_ops.COUNTER.name),
          **families_of("fwd", fa_ops.COUNTER.name),
+         **arctic_of(fa_ops.COUNTER.name, "per_prefill"),
          **dist_of(fa_ops.COUNTER.name)},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
@@ -6618,7 +6905,9 @@ def main() -> int:
          "internvl2_f32_parity_launches": vlm_serve["parity_launches"][
              dec_ops.COUNTER.name],
          "internvl2_parity_max_logit_diff": vlm_serve["parity"][
-             "max_logit_diff"]},
+             "max_logit_diff"],
+         **arctic_of(dec_ops.COUNTER.name, "per_step"),
+         "arctic_parity_max_logit_diff": arctic_parity["max_logit_diff"]},
         {"name": ssd_ops.COUNTER.name, "route": "cuda",
          "source": SSD_SOURCE, "replaces": SSD_REPLACES,
          "launches": ssm_launches[ssd_ops.COUNTER.name],
@@ -6781,6 +7070,31 @@ def main() -> int:
           f"{vlm_serve['max_memory_allocated'] / 2**30:.3f} GiB; f32 parity "
           f"max |logit diff| {vlm_serve['parity']['max_logit_diff']:.3g}",
           flush=True)
+    arep = arctic["rep"]
+    print(f"moe: {ARCTIC} ({ARCTIC_LAYERS} of 35 layers, experts "
+          f"{ARCTIC_SHARE[0]}-{sum(ARCTIC_SHARE) - 1} of 128) bf16 decode "
+          f"{arep['decode_tokens_per_s']:.1f} tok/s, step median "
+          f"{arep['step_median_s'] * 1e3:.3f} ms, p90 "
+          f"{arep['step_p90_s'] * 1e3:.3f} ms, prefill "
+          f"{arep['prefill_mean_s'] * 1e3:.3f} ms, "
+          f"{arctic['max_memory_allocated'] / 2**30:.3f} GiB, decode profile "
+          f"busy share {arctic['busy']:.4f}; f32 parity "
+          f"({ARCTIC_PARITY_LAYERS} layers) max |logit diff| "
+          f"{arctic_parity['max_logit_diff']:.3g} ("
+          f"{len(arctic_parity['near_tie_rows'])} rows at a router "
+          f"near-tie)", flush=True)
+    tc, tl, tp_ = tooling["contrastive"], tooling["lm"], tooling["dry"]["pod"]
+    print(f"tooling: train_distributed --memstats peak "
+          f"{tooling['train_memstats']['peak'] / 2**30:.4f} GiB = "
+          f"max_memory_allocated; dry runs against the card: BASIC-S "
+          f"contrastive peak {100 * tc['peak_share']:+.2f}%, FLOPs equal, "
+          f"step {tc['step_s']:.4f} s vs compute bound "
+          f"{tc['roofline']['compute_s']:.4f} s; Llama-3.2-1B peak "
+          f"{100 * tl['peak_share']:+.2f}%, FLOPs equal, step "
+          f"{tl['step_s']:.4f} s vs compute bound "
+          f"{tl['roofline']['compute_s']:.4f} s; BASIC-L contrastive_64k on "
+          f"16x16: {tp_['memory']['peak_gb_per_device']} GB a rank, "
+          f"bottleneck {tp_['roofline']['bottleneck']}", flush=True)
     t8 = retrieval["twostage_8"]
     print(f"retrieval: BASIC-S 64 queries x {RETRIEVAL_N} rows, k "
           f"{RETRIEVAL_K}, p50 / p90 ms: " + ", ".join(

@@ -80,6 +80,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.launch.roofline import CollectiveBytes  # noqa: E402
+
 LOG_TAU = -2.659
 D = 512
 TOL = {"float32": {"loss": 2e-6, "rtol": 1e-5, "atol": 1e-6, "dtau": 1e-5},
@@ -210,34 +212,6 @@ def cut_arch(base, layers, experts=0):
         changes["moe"] = dataclasses.replace(cfg.moe, num_experts=experts)
     register(dataclasses.replace(cfg, **changes))
     return name
-
-
-class CollectiveBytes:
-    """Bytes this rank hands to the collectives of ``launch/mesh.py``
-    (``Axis.all_reduce``, ``all_gather``, ``reduce_scatter`` over more
-    than one rank), by operation, counted while it is installed."""
-
-    OPS = ("all_reduce", "all_gather", "reduce_scatter")
-
-    def __init__(self):
-        from repro_torch.launch import mesh
-        self.axis, self.real = mesh.Axis, {}
-        self.bytes = dict.fromkeys(self.OPS, 0)
-
-    def __enter__(self):
-        for op in self.OPS:
-            real = self.real[op] = getattr(self.axis, op)
-
-            def counted(axis, t, *args, _op=op, _real=real, **kw):
-                if axis.distributed:
-                    self.bytes[_op] += t.numel() * t.element_size()
-                return _real(axis, t, *args, **kw)
-            setattr(self.axis, op, counted)
-        return self
-
-    def __exit__(self, *exc):
-        for op, real in self.real.items():
-            setattr(self.axis, op, real)
 
 
 def grid_losses(argv, n_hosts, device):

@@ -9,6 +9,13 @@ flags, so an edited kernel or header is rebuilt and an unchanged one is
 loaded as it is. ``build_all`` starts one ``nvcc`` per
 missing library, all at once.
 
+A wrapper given ``meta`` (or fake) tensors launches nothing: it returns
+empty outputs of the kernel's shapes and dtypes, allocates the kernel's
+per-call workspaces, and records the kernel's work (``record_work``, by
+the formulas of ``kernels.work``) into every open ``WorkCount``; a CUDA
+launch records the same while one is open, so a traced step and a run one
+count a kernel's work alike (``launch.memstats``).
+
 Nothing here runs at import time: this module imports on hosts with no
 CUDA toolkit, where only the kernels' plain versions run.
 """
@@ -105,6 +112,81 @@ class LaunchCounter:
         """Launches since the last reset by the shape the wrapper named."""
         with self._lock:
             return dict(self._shapes)
+
+
+class WorkCount:
+    """The kernels' work while it is open (a context manager; counts may
+    nest): FLOP and bytes by kernel name, as the wrappers record them
+    (``record_work``), and the calls recorded."""
+
+    def __init__(self):
+        self.flops: Dict[str, float] = {}
+        self.bytes: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+
+    def __enter__(self) -> "WorkCount":
+        with _OPEN_LOCK:
+            _OPEN_COUNTS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with _OPEN_LOCK:
+            _OPEN_COUNTS.remove(self)
+
+    def add(self, name: str, nbytes: float, flops: float) -> None:
+        """Count one call of kernel ``name``."""
+        self.flops[name] = self.flops.get(name, 0.0) + float(flops)
+        self.bytes[name] = self.bytes.get(name, 0.0) + float(nbytes)
+        self.calls[name] = self.calls.get(name, 0) + 1
+
+    @property
+    def total_flops(self) -> float:
+        """FLOP of every recorded call."""
+        return sum(self.flops.values())
+
+    @property
+    def total_bytes(self) -> float:
+        """Bytes of every recorded call."""
+        return sum(self.bytes.values())
+
+
+_OPEN_COUNTS: list = []
+_OPEN_LOCK = threading.Lock()
+
+
+def record_work(name: str, work) -> None:
+    """Add one call of kernel ``name`` to every open ``WorkCount``:
+    ``work()`` gives its (bytes, FLOP), and is not called when no count is
+    open."""
+    if _OPEN_COUNTS:
+        nbytes, flops = work()
+        with _OPEN_LOCK:
+            for count in _OPEN_COUNTS:
+                count.add(name, nbytes, flops)
+
+
+def is_abstract(t) -> bool:
+    """True for a tensor with no data to launch on: ``meta``, or a
+    ``FakeTensor`` (whose device names the card it stands for)."""
+    global _is_fake
+    if t.is_meta:
+        return True
+    if _is_fake is None:
+        from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return _is_fake(t)
+
+
+_is_fake = None
+
+
+def misaligned(t, unit: int = 16) -> bool:
+    """True where ``t``'s first element would not start on a ``unit``-byte
+    boundary: its address on a tensor with data, its offset into its
+    storage on an abstract one (the card's allocator hands out storages
+    on 512-byte boundaries)."""
+    if is_abstract(t):
+        return (t.storage_offset() * t.element_size()) % unit != 0
+    return t.data_ptr() % unit != 0
 
 
 class KernelLibrary:

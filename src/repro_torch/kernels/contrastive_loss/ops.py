@@ -18,7 +18,9 @@ counterparts of the reference's ``ops.py:240-268``, its public baseline for
 the fused pair.
 
 On a CPU tensor the wrappers run the plain versions in ``ref.py``; on a
-CUDA tensor they launch the kernels or raise. ``inv_tau`` stays on the
+CUDA tensor they launch the kernels or raise; on a ``meta`` (or fake)
+tensor they launch nothing, allocate what the launch would and record the
+kernel's work (``kernels.build.record_work``). ``inv_tau`` stays on the
 device (a 0-d tensor), so no wrapper synchronises with the host.
 
 What does not carry over from the TPU module: its VMEM block model
@@ -48,11 +50,14 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
+from repro_torch.kernels.build import (KernelLibrary, LaunchCounter, check,
+                                      is_abstract, record_work)
 from repro_torch.kernels.contrastive_loss.ref import (bwd_fused_ref,
                                                       fwd_fused_ref,
                                                       grads_ref,
                                                       row_col_lse_ref)
+from repro_torch.kernels.work import (contrastive_bwd_work,
+                                      contrastive_fwd_work)
 
 MAX_D = 1024          # the backward keeps its dX / dY rows in shared memory
 BWD_ROWS = 32         # rows of X (Y) per backward CTA (csrc kGS)
@@ -93,7 +98,7 @@ def _check_kernel_inputs(what: str, x, y, *rest):
     if x.dim() != 2 or y.shape != x.shape or x.shape[0] < 1:
         raise ValueError(f"{what}: expected x, y of one (B, D) shape, got "
                          f"{tuple(x.shape)}, {tuple(y.shape)}")
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not is_abstract(x):
         raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
     if x.dtype not in _DTYPES or y.dtype != x.dtype:
         raise TypeError(f"{what} kernel takes f32 or bf16 x/y of one dtype, "
@@ -109,7 +114,7 @@ def _lse(what, entry, counter, ref, x, y, inv_tau):
     the combine under ``lse_plan``), counted on ``counter``; ``ref`` on a
     CPU tensor."""
     inv = _inv_tau_tensor(inv_tau, x)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_abstract(x):
         return ref(x, y, inv)
     _check_kernel_inputs(what, x, y, inv)
     b, d = x.shape
@@ -118,6 +123,12 @@ def _lse(what, entry, counter, ref, x, y, inv_tau):
     col_lse = torch.empty((b,), dtype=torch.float32, device=x.device)
     part = torch.empty((plan.scratch_floats,), dtype=torch.float32,
                        device=x.device)
+
+    def work():
+        return contrastive_fwd_work(b, b, d, x.element_size())
+    if is_abstract(x):
+        record_work(counter.name, work)
+        return row_lse, col_lse
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = getattr(LIB.lib(), entry)(
@@ -126,6 +137,7 @@ def _lse(what, entry, counter, ref, x, y, inv_tau):
             plan.tile, stream)
     check(rc, f"contrastive {what} launch")
     counter.add()
+    record_work(counter.name, work)
     return row_lse, col_lse
 
 
@@ -172,6 +184,27 @@ def bwd_plan(b: int, d: int) -> BwdPlan:
                    blocks * slices)
 
 
+def lse_smem_bytes(tile: int, itemsize: int) -> int:
+    """Dynamic shared memory of one forward tile CTA (csrc ``LseLayout``):
+    two stages of ``tile`` X and Y rows of a 32-wide embedding chunk (16
+    bytes of padding a row), then the fp32 column max and sum of 8
+    warps."""
+    sld = 32 + 16 // itemsize
+    return 2 * (2 * tile * sld) * itemsize + 4 * 2 * 8 * tile
+
+
+def bwd_smem_bytes(d: int, itemsize: int) -> int:
+    """Dynamic shared memory of one backward CTA (csrc ``GradLayout``): the
+    fp32 accumulator of its ``BWD_ROWS`` rows at D rounded up to 4, the
+    ring of score chunks or contraction pieces, dAᵀ, the LSEs and sums.
+    Past ``MAX_D`` it does not fit a CTA."""
+    sld, pld = 16 + 16 // itemsize, 256 + 16 // itemsize
+    ring = 2 * max((BWD_ROWS + BWD_TILE) * sld, 16 * pld)
+    dp = (d + 3) & ~3
+    return 4 * (BWD_ROWS * dp + BWD_TILE * (BWD_ROWS + 4) + BWD_ROWS + 8) \
+        + itemsize * ring
+
+
 def bwd_buffers(b: int, d: int, device):
     """(plan, dX, dY, dlog_tau, scratch): what the backward wrapper
     allocates for one call, all fp32, the scratch as ``bwd_plan`` says."""
@@ -188,7 +221,7 @@ def _backward(what, entry, counter, ref, x, y, inv_tau, row_lse, col_lse,
     """The backward's dX sweep, dY sweep and dlog_tau sum through C entry
     ``entry``, counted on ``counter``; ``ref`` on a CPU tensor."""
     inv = _inv_tau_tensor(inv_tau, x)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_abstract(x):
         return ref(x, y, inv, row_lse, col_lse, b_norm=b_norm,
                    with_diag=with_diag)
     _check_kernel_inputs(what, x, y, inv, row_lse, col_lse)
@@ -201,6 +234,12 @@ def _backward(what, entry, counter, ref, x, y, inv_tau, row_lse, col_lse,
         raise ValueError(f"row/col lse must be ({b},), got "
                          f"{tuple(row_lse.shape)}, {tuple(col_lse.shape)}")
     plan, dx, dy, dtau, part = bwd_buffers(b, d, x.device)
+
+    def work():
+        return contrastive_bwd_work(b, b, d, x.element_size())
+    if is_abstract(x):
+        record_work(counter.name, work)
+        return dx, dy, dtau
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = getattr(LIB.lib(), entry)(
@@ -211,6 +250,7 @@ def _backward(what, entry, counter, ref, x, y, inv_tau, row_lse, col_lse,
             plan.slices, stream)
     check(rc, f"contrastive {what} launch")
     counter.add()
+    record_work(counter.name, work)
     return dx, dy, dtau
 
 

@@ -22,7 +22,11 @@ a function of t alone, and a second kernel merges the chunks in order.
 (4, 8 or 16), and how many CTAs share a row's chunks so that the grid
 fills the card once. A CTA skips every chunk and 16-key unit that the mask
 kills. On a CPU tensor the plain version in ``ref.py`` runs instead; on a
-CUDA tensor the kernels launch or it raises.
+CUDA tensor the kernels launch or it raises. On a ``meta`` (or fake)
+tensor nothing launches: the wrapper returns the output's shape and
+records the kernel's work over the whole cache
+(``kernels.build.record_work``; the per-stream scratch it keeps between
+calls is not a call's allocation).
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import (KernelLibrary, LaunchCounter,
-                                      StreamScratch, check, device_scope)
+                                      StreamScratch, check, device_scope,
+                                      is_abstract, misaligned, record_work)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.work import decode_work
 
 HEAD_DIMS = (64, 128)
 UNIT = 16            # keys per warp step in the kernel (csrc kUnit)
@@ -175,9 +181,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and 128, any GQA group and 1 <= t <= ``MAX_T``, with contiguous q and
     cache. One call launches two device kernels (split and merge)."""
     _check_inputs(q, k, v, valid)
-    if q.device.type == "cpu":
+    abstract = is_abstract(q)
+    if q.device.type == "cpu" and not abstract:
         return decode_attention_ref(q, k, v, valid)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not abstract:
         raise ValueError(f"decode_attention runs on cpu or cuda, not "
                          f"{q.device}")
     b, h, d = q.shape
@@ -194,9 +201,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention kernel needs contiguous q and "
                          "cache (a copy would move the whole cache)")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
+    if any(misaligned(x) for x in (q, k, v)):
         raise ValueError("decode_attention kernel needs 16-byte aligned q "
                          "and cache")
+
+    def work():
+        # the kernel skips masked chunks: the mask's count is on the
+        # device, so the whole cache is recorded (an upper bound)
+        return decode_work(b, h, kv, t, d, q.element_size())
+    if abstract:
+        record_work(COUNTER.name, work)
+        return torch.empty_like(q)
     g = h // kv
     valid = valid.contiguous()
     plan = launch_plan(q, k)
@@ -212,4 +227,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream.cuda_stream)
     check(rc, "decode_attention launch")
     COUNTER.add()
+    record_work(COUNTER.name, work)
     return out

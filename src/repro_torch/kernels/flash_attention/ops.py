@@ -17,7 +17,9 @@ kernels, and a (b, t) key-padding mask rides in as one bias row per example;
 the bias is a constant of the computation (its gradient is None).
 
 On a CPU tensor the wrappers run the plain versions in ``ref.py``; on a
-CUDA tensor they launch the kernels or raise.
+CUDA tensor they launch the kernels or raise. On a ``meta`` (or fake)
+tensor they launch nothing: they allocate what the launch would and
+record the kernel's work (``kernels.build.record_work``).
 """
 from __future__ import annotations
 
@@ -28,9 +30,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.build import (KernelLibrary, LaunchCounter, check,
-                                      device_scope)
+                                      device_scope, is_abstract, misaligned,
+                                      record_work)
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, flash_bwd_ref,
                                                      flash_fwd_ref)
+from repro_torch.kernels.work import flash_bwd_work, flash_fwd_work
 
 HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -174,8 +178,9 @@ def _check_inputs(q, k, v, bias):
 
 def _check_kernel_inputs(what, q, k, v, bias, *rest):
     """What both kernels take: f32 or bf16 q/k/v of one dtype, head dims
-    64, 80 and 128, contiguous tensors on one CUDA device, fp32 bias."""
-    if q.device.type != "cuda":
+    64, 80 and 128, contiguous tensors on one CUDA device (or abstract
+    ones), fp32 bias."""
+    if q.device.type != "cuda" and not is_abstract(q):
         raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
     d = q.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -209,10 +214,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_inputs(q, k, v, bias)
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be >= 1")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_abstract(q):
         return flash_fwd_ref(q, k, v, bias, causal=causal, window=window)
     _check_kernel_inputs("flash_fwd", q, k, v, bias)
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
+    if any(misaligned(x) for x in (q, k, v)):
         raise ValueError("the flash_fwd kernel copies 16-byte rows: q, k "
                          "and v must start 16-byte aligned")
     bh, s, d = q.shape
@@ -224,6 +229,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"grid's {MAX_GRID_Y}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+
+    def work():
+        return flash_fwd_work(bh, k.shape[0], s, t, d, q.element_size(),
+                              causal=causal, window=window,
+                              bias_rows=0 if bias is None else bias.shape[0])
+    if is_abstract(q):
+        record_work(COUNTER.name, work)
+        return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with device_scope(q.device):
         rc = LIB.lib().repro_flash_fwd(
@@ -235,6 +248,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             float(d ** -0.5), plan.warps, plan.key_tile, plan.smem, stream)
     check(rc, "flash_fwd launch")
     COUNTER.add()
+    record_work(COUNTER.name, work)
     return out, lse
 
 
@@ -256,7 +270,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"not match q {tuple(q.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be >= 1")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_abstract(q):
         return flash_bwd_ref(q, k, v, bias, out, lse, dout, causal=causal,
                              window=window)
     _check_kernel_inputs("flash_bwd", q, k, v, bias, out, lse, dout)
@@ -264,7 +278,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.dtype != torch.float32:
         raise TypeError(f"flash_bwd takes out/dout in q's dtype and fp32 "
                         f"lse, got {out.dtype}/{dout.dtype}/{lse.dtype}")
-    if any(x.data_ptr() % 16 for x in (q, k, v, dout)):
+    if any(misaligned(x) for x in (q, k, v, dout)):
         raise ValueError("the flash_bwd kernel copies 16-byte rows: q, k, "
                          "v and dout must start 16-byte aligned")
     bh, s, d = q.shape
@@ -280,6 +294,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     dq_part = (torch.empty((plan.dq_part_floats,), dtype=torch.float32,
                            device=q.device) if plan.dq_part_floats else None)
+
+    def work():
+        return flash_bwd_work(bh, k.shape[0], s, t, d, q.element_size(),
+                              causal=causal, window=window,
+                              bias_rows=0 if bias is None else bias.shape[0])
+    if is_abstract(q):
+        record_work(BWD_COUNTER.name, work)
+        return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with device_scope(q.device):
         rc = BWD_LIB.lib().repro_flash_bwd(
@@ -294,6 +316,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             window if window is not None else -1, float(d ** -0.5), stream)
     check(rc, "flash_bwd launch")
     BWD_COUNTER.add()
+    record_work(BWD_COUNTER.name, work)
     return dq, dk, dv
 
 

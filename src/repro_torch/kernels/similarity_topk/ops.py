@@ -22,7 +22,9 @@ the launch; the wrapper caches the plan per shape and (``StreamScratch``)
 a zeroed counter and partial scratch per device and stream, so a call
 allocates only its two outputs. On a CPU tensor the plain version in
 ``ref.py`` runs instead; on a CUDA tensor the kernel launches or it
-raises.
+raises; on a ``meta`` (or fake) tensor nothing launches: the wrapper
+returns the two outputs' shapes and records the kernel's work
+(``kernels.build.record_work``).
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.build import (KernelLibrary, LaunchCounter,
-                                      StreamScratch, check, device_scope)
+                                      StreamScratch, check, device_scope,
+                                      is_abstract, record_work)
 from repro_torch.kernels.similarity_topk.ref import NEG, similarity_topk_ref
+from repro_torch.kernels.work import topk_work
 
 MAX_K = 64           # the kernel keeps a running top-k of at most 64 slots
 IDX_PAD = 2 ** 30    # sentinel index: above any real class id
@@ -210,10 +214,11 @@ def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
     n_valid = n if n_valid is None else int(n_valid)
     if not 0 <= n_valid <= n:
         raise ValueError(f"n_valid={n_valid} must be in [0, n={n}]")
-    if image_emb.device.type == "cpu":
+    abstract = is_abstract(image_emb)
+    if image_emb.device.type == "cpu" and not abstract:
         return similarity_topk_ref(image_emb, class_emb, k, inv_tau,
                                    n_valid)
-    if image_emb.device.type != "cuda":
+    if image_emb.device.type != "cuda" and not abstract:
         raise ValueError(f"similarity_topk runs on cpu or cuda, not "
                          f"{image_emb.device}")
     if class_emb.device != image_emb.device:
@@ -225,6 +230,13 @@ def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
     if not (image_emb.is_contiguous() and class_emb.is_contiguous()):
         raise ValueError("similarity_topk kernel needs contiguous inputs")
     dev = image_emb.device
+
+    def work():
+        return topk_work(b, n, d, k, image_emb.element_size(), n_valid)
+    if abstract:
+        record_work(COUNTER.name, work)
+        return (torch.empty((b, k), dtype=torch.float32, device=dev),
+                torch.empty((b, k), dtype=torch.int32, device=dev))
     plan = _plan(b, n, d, k, image_emb.element_size(), dev, block_rows)
     stream = torch.cuda.current_stream(dev)
     per_row = plan.stride + plan.group_stride
@@ -249,6 +261,7 @@ def similarity_topk(image_emb: torch.Tensor, class_emb: torch.Tensor, k: int,
         SCRATCH.drop(stream)
     check(rc, "similarity_topk launch")
     COUNTER.add()
+    record_work(COUNTER.name, work)
     return vals, idx
 
 

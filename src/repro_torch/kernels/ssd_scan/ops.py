@@ -11,7 +11,9 @@ The chunk follows the reference's rule, ``min(chunk, l)`` dividing l
 (``ref.chunk_of``); a length it refuses raises ``ValueError`` on every
 device. On a CPU tensor the plain ``ref.ssd_chunked`` runs in that chunk.
 On a CUDA tensor the kernel launches or it raises, one device kernel per
-call. It scans in sub-chunks of its own 64 tokens (``SUB``), which changes
+call. On a ``meta`` (or fake) tensor nothing launches: the wrappers
+allocate what the launch would and record the kernel's work
+(``kernels.build.record_work``). It scans in sub-chunks of its own 64 tokens (``SUB``), which changes
 the result only by rounding: the sequence is cut into segments of whole
 sub-chunks, one CTA each, and the segments of one (batch, head, head_dim
 block) form a thread-block cluster that passes the state along in order
@@ -39,9 +41,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, LaunchCounter, check
+from repro_torch.kernels.build import (KernelLibrary, LaunchCounter, check,
+                                      is_abstract, misaligned, record_work)
 from repro_torch.kernels.ssd_scan.ref import (chunk_of, ssd_chunked,
                                               ssd_chunked_bwd)
+from repro_torch.kernels.work import ssd_bwd_work, ssd_scan_work
 
 SUB = 64             # tokens per sub-chunk (csrc kQ)
 P_BLOCKS = (64, 32, 16)  # head_dim columns per CTA
@@ -193,8 +197,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     units (what the kernel's 16-byte copies need), else a contiguous copy
     (whose rows then are, as the wrapper's shape checks ensure)."""
     unit = 16 // t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s % unit == 0
-                                      for s in t.stride()[:-1]):
+    if not misaligned(t) and all(s % unit == 0 for s in t.stride()[:-1]):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -319,6 +322,13 @@ def _launch(x, dt, A, Bm, Cm, D, init_state, save_states: bool):
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     states = (torch.empty((b, h, plan.subchunks, p, n), dtype=torch.float32,
                           device=x.device) if save_states else None)
+
+    def work():
+        return ssd_scan_work(b, l, h, p, n, x.element_size(),
+                             init_state is not None)
+    if is_abstract(x):
+        record_work(COUNTER.name, work)
+        return y, final, states
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = LIB.lib().repro_ssd_scan(
@@ -329,6 +339,7 @@ def _launch(x, dt, A, Bm, Cm, D, init_state, save_states: bool):
             plan.per_cta, plan.stages, plan.smem, stream)
     check(rc, "ssd_scan launch")
     COUNTER.add(shape=(b, l, h, p, n))
+    record_work(COUNTER.name, work)
     return y, final, states
 
 
@@ -349,7 +360,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
     There is no CPU path here (``ref.ssd_chunked_bwd`` is the plain
     version)."""
     _check_inputs(x, dt, A, Bm, Cm, D, init_state)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not is_abstract(x):
         raise ValueError(f"ssd_scan_bwd runs on cuda, not {x.device}")
     b, l, h, p = x.shape
     n = Bm.shape[-1]
@@ -385,6 +396,13 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
     buf = torch.empty((sum(sizes),), **f32)
     parts = [buf[o:o + c] for o, c in zip(
         itertools.accumulate([0] + sizes[:-1]), plan.scratch)]
+
+    def work():
+        return ssd_bwd_work(b, l, h, p, n, x.element_size(),
+                            init_state is not None, dfinal is not None)
+    if is_abstract(x):
+        record_work(BWD_COUNTER.name, work)
+        return dx, ddt, dA, dB, dC, dD, dinit
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = BWD_LIB.lib().repro_ssd_scan_bwd(
@@ -397,6 +415,7 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, states, final, dy,
             plan.group, plan.smem, stream)
     check(rc, "ssd_scan_bwd launch")
     BWD_COUNTER.add(shape=(b, l, h, p, n))
+    record_work(BWD_COUNTER.name, work)
     return dx, ddt, dA, dB, dC, dD, dinit
 
 
@@ -410,7 +429,7 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, init_state, chunk):
         ctx.set_materialize_grads(False)
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not is_abstract(x):
             y, final = ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state, D)
             states = None
         else:
@@ -428,7 +447,7 @@ class _Scan(torch.autograd.Function):
             return (None,) * 8
         if dy is None:
             dy = torch.zeros(x.shape, dtype=final.dtype, device=x.device)
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not is_abstract(x):
             grads = ssd_chunked_bwd(x, dt, A, Bm, Cm, D, init_state, dy,
                                     dfinal, ctx.chunk)
         else:
@@ -458,13 +477,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     card, ``ssd_chunked_bwd`` on the CPU."""
     _check_inputs(x, dt, A, Bm, Cm, D, init_state)
     c = chunk_of(x.shape[1], chunk)
-    if x.device.type not in ("cpu", "cuda"):
+    abstract = is_abstract(x)
+    if x.device.type not in ("cpu", "cuda") and not abstract:
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, D, init_state)):
         return _Scan.apply(x, dt, A, Bm, Cm, D, init_state, c)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not abstract:
         return ssd_chunked(x, dt, A, Bm, Cm, c, init_state, D)
     y, final, _ = _launch(x, dt, A, Bm, Cm, D, init_state, save_states=False)
     return y, final

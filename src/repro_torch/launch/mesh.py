@@ -32,7 +32,11 @@ The mesh's own collectives are the batch group's. An axis of one rank (or
 a mesh without a process group) runs no collective: its operations are
 identities, so the single-device path issues none.
 ``make_production_mesh`` keeps the reference's pod shapes as metadata for
-the sharding rules.
+the sharding rules. ``fake_world`` stands one process in as rank 0 of a
+world of any size, through torch's ``fake`` process group, whose
+collectives move nothing: the dry run (``launch.dryrun``) and
+``launch.memstats --devices`` trace a rank's step on ``meta`` tensors
+there.
 
 NCCL runs one rank per card. Several ranks sharing one card (NCCL refuses
 that) use gloo, whose collectives on CUDA tensors are limited (no
@@ -44,6 +48,9 @@ the device.
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import contextlib
+import math
 
 import torch
 import torch.distributed as dist
@@ -285,3 +292,28 @@ def make_local_mesh(model: int = 1) -> Mesh:
                 data_index=rank // model, model_index=rank % model,
                 data_group=data_groups[rank % model],
                 model_group=model_groups[rank // model])
+
+
+@contextlib.contextmanager
+def fake_world(shape):
+    """This process as rank 0 of a world of ``prod(shape)`` ranks on a
+    ``fake`` process group (``torch.testing``'s ``FakeStore``): yields the
+    (data, model) mesh of ``make_local_mesh(model=shape[-1])`` (the data
+    axes' product as the data extent), whose collectives return at once
+    and leave their outputs as they were allocated. A world of one rank
+    starts no group. The group is destroyed on exit. Raises RuntimeError
+    where a process group is running already."""
+    ranks = math.prod(shape)
+    if ranks == 1:
+        yield make_local_mesh()
+        return
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a process "
+                           "group; one is running")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
+    try:
+        yield make_local_mesh(model=shape[-1])
+    finally:
+        dist.destroy_process_group()

@@ -3,7 +3,8 @@ the optimizer, the LM train / prefill / decode steps, the paper's own
 contrastive training step and the phase-1 pretraining step of the BASIC
 recipe, and the abstract params, optimizer state and inputs of an
 (arch, input shape), built on the ``meta`` device (torch's
-``eval_shape``: shapes and dtypes, no storage).
+``eval_shape``: shapes and dtypes, no storage), with one rank's parts of
+them on a mesh (``shardings_for``, which the dry run traces).
 
 ``make_contrastive_step`` builds Algorithm-1 GradAccum over ``num_micro``
 microbatches followed by one AdaFactorW update, on one device, optionally
@@ -57,10 +58,11 @@ def make_optimizer(weight_decay=0.0025) -> AdaFactorW:
     return AdaFactorW(beta1=0.9, beta2=0.99, weight_decay=weight_decay)
 
 
-def abstract_params(cfg: ArchConfig) -> dict:
-    """The LM's params as ``meta`` tensors: every leaf's shape and dtype,
-    nothing allocated or drawn."""
-    return tf.init_params(cfg, torch.Generator(), "meta")
+def abstract_params(cfg) -> dict:
+    """The params of an LM or a dual encoder as ``meta`` tensors: every
+    leaf's shape and dtype, nothing allocated or drawn."""
+    from repro_torch.interop import init_params
+    return init_params(cfg, torch.Generator(), "meta")
 
 
 def abstract_opt_state(cfg: ArchConfig, opt: AdaFactorW, params_abs):
@@ -184,12 +186,15 @@ def lm_step(cfg: ArchConfig, opt: AdaFactorW, lr: Union[float, Callable],
 
 def make_train_step(cfg: ArchConfig, *, remat: Optional[str] = "basic",
                     moe_args: Optional[dict] = None,
-                    lr: Union[float, Callable] = 1e-3, precision="bf16"):
+                    lr: Union[float, Callable] = 1e-3, precision="bf16",
+                    mesh=None, layout=None):
     """The LM train step: ``transformer.lm_loss`` under the ``precision``
     policy (default bf16) with the ``remat`` policy per block (default
     'basic') and ``moe_args`` (default ``DEFAULT_MOE_ARGS``), then
     ``make_optimizer``'s AdaFactorW. The attention backend is
-    ``cfg.attn_impl`` ('pallas' runs the flash kernels).
+    ``cfg.attn_impl`` ('pallas' runs the flash kernels). With a ``mesh``
+    and a weight-sharding ``layout`` the step is one rank's, as in
+    ``lm_step`` (the dry run's rank on its world).
 
     Returns (train_step, opt); train_step(params, opt_state, batch) ->
     (params, opt_state, loss, metrics)."""
@@ -197,7 +202,7 @@ def make_train_step(cfg: ArchConfig, *, remat: Optional[str] = "basic",
     margs = DEFAULT_MOE_ARGS if moe_args is None else moe_args
     return lm_step(cfg, opt, lr, precision=precision,
                    remat_policy=remat_lib.get_policy(remat),
-                   moe_args=margs), opt
+                   moe_args=margs, mesh=mesh, layout=layout), opt
 
 
 def make_prefill_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
@@ -244,6 +249,94 @@ def input_specs(cfg: ArchConfig, shape: InputShape, *,
         "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
         "pos": torch.empty((), dtype=torch.int32, device="meta"),
     }
+
+
+def contrastive_input_specs(dual_cfg, shape: InputShape, *,
+                            dtype=torch.float32) -> dict:
+    """``meta`` stand-ins of the contrastive batch of ``shape``: raw images
+    (b, size, size, channels) for the patchify frontend in ``dtype`` and
+    caption tokens (b, seq_len) int32, b the shape's global batch."""
+    b = shape.global_batch
+    it = dual_cfg.image_tower
+    return {
+        "images": {"image": torch.empty(
+            (b, it.image_size, it.image_size, it.channels), dtype=dtype,
+            device="meta")},
+        "texts": {"tokens": torch.empty((b, shape.seq_len),
+                                        dtype=torch.int32, device="meta")},
+    }
+
+
+def batch_rows(global_batch: int, mesh, layout=None,
+               batch_over: str = "data") -> int:
+    """The rows of a global batch one rank of ``mesh`` holds: the batch
+    split over the data axes (``batch_over='all'``: and the model axis,
+    the paper's §5.1 input over every core; under a 'tp' layout over the
+    data axes only), an axis that does not divide it dropped, as the
+    reference's ``batch_specs`` drops it."""
+    from repro_torch.core import sharding as shd
+    axes = shd.data_axes(mesh)
+    if batch_over == "all" and not tp.active(layout):
+        axes = (*axes, shd.MODEL)
+    n = 1
+    for a in axes:
+        size = shd.mesh_axis_size(mesh, a)
+        if global_batch % (n * size) == 0:
+            n *= size
+    return global_batch // n
+
+
+def shardings_for(cfg, shape: InputShape, mesh, mode: str, params_abs,
+                  opt_abs=None, *, dtype=torch.bfloat16,
+                  batch_over: str = "data"):
+    """One rank's abstract inputs of the step of ``shape`` on ``mesh``
+    under the ``mode`` rule (``core.sharding.params_specs``: basic_ws |
+    tp | replicated).
+
+    torch has no shardings. Where the reference returns the in_shardings
+    of one GSPMD program and its whole abstract inputs, the port runs one
+    program a rank, so this returns what rank ``mesh.rank`` is handed:
+    its parts of ``params_abs`` and of the optimizer state ``opt_abs``
+    under the rule (``train_distributed.param_layout``) and its rows of
+    the batch (``batch_rows``), all ``meta``. A train or contrastive step
+    takes (params, opt_state, batch); the port's prefill and decode steps
+    take whole params (its servers run in one process) and the rank's
+    rows: (params, batch) and (params, caches, token, pos), pos the rows'
+    positions (b,) int32.
+
+    Returns (layouts, inputs): the (params, opt_state) weight-sharding
+    layouts (None where every leaf is whole; give the params' layout to
+    the step) and the tuple of the step's inputs."""
+    import dataclasses as dc
+
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.tree import tree_leaves, unflatten
+    if shape.kind not in ("train", "contrastive"):
+        rows = batch_rows(shape.global_batch, mesh, None, batch_over)
+        ins = input_specs(cfg, dc.replace(shape, global_batch=rows),
+                          dtype=dtype)
+        if shape.kind == "prefill":
+            return (None, None), (params_abs, ins)
+        # per-slot positions (the continuous engine's), which a trace on
+        # meta tensors can carry: one position for every row is a host int
+        pos = torch.empty((rows,), dtype=torch.int32, device="meta")
+        return (None, None), (params_abs, ins["caches"], ins["token"], pos)
+    layout = td.param_layout(cfg, mesh, mode)
+    rows = dc.replace(shape, global_batch=batch_rows(
+        shape.global_batch, mesh, layout, batch_over))
+    batch = (contrastive_input_specs(cfg, rows) if shape.kind == "contrastive"
+             else input_specs(cfg, rows, dtype=dtype))
+    if layout is None:
+        return (None, None), (params_abs, opt_abs, batch)
+    slayout = ws.Layout(make_optimizer().split_dims(params_abs, layout),
+                        layout.axis)
+    params = unflatten(params_abs, [
+        ws.cut_leaf(x, d, layout.axis)
+        for x, d in zip(tree_leaves(params_abs), layout.flat_dims)])
+    opt_state = unflatten(opt_abs, [
+        ws.cut_leaf(x, d, layout.axis)
+        for x, d in zip(tree_leaves(opt_abs), slayout.flat_dims)])
+    return (layout, slayout), (params, opt_state, batch)
 
 
 def make_contrastive_step(dual_cfg, *, num_micro: int = 8,

@@ -106,9 +106,12 @@ grad-norm where the step has one, examples/s, and the data-wait /
 device-step / ckpt-stall split; data-wait includes the copy of the batch
 to the card), checkpoint and resume markers, and a final metrics snapshot,
 and exports a Chrome trace (``trace.json``). Summarise with ``python -m
-repro_torch.obs.report <run-dir>/runlog.jsonl``. ``--memstats`` (the
-compiled memory report) waits for the port's tooling: it raises
-NotImplementedError.
+repro_torch.obs.report <run-dir>/runlog.jsonl``. ``--memstats`` prints one
+``launch.memstats`` row for the first step (its memory, FLOPs, bytes
+accessed and collectives, measured as ``memstats.step_stats`` measures:
+on the card its peak is ``torch.cuda.max_memory_allocated`` over the
+step) from rank 0, and into the runlog as an ``event`` record
+(``event: memstats``), and the loop goes on from that step's state.
 
 Health (DESIGN.md §14): ``--health`` arms the anomaly detectors on rank 0
 (non-finite loss or gradient norm, gradient-norm and loss spikes by a
@@ -291,7 +294,7 @@ def _make_health(args, registry, tracer, runlog, run_dir, mesh):
 def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
               device, ckpt_meta_fn=None, registry=None, tracer=None,
               runlog=None, run_dir=None, part=(0, 1), dims=None,
-              monitor=None, server=None):
+              monitor=None, server=None, memstats_label=None):
     """The step / log / checkpoint loop from step ``start``; returns the
     per-step losses. ``stream`` yields a numpy block of each step from
     ``start`` on (drawn ahead on a prefetch thread; its sub-block ``part``
@@ -312,7 +315,9 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
 
     With a ``monitor`` (rank 0) every step's host-side floats feed the
     anomaly detectors, and a step the guard skipped is marked ``skipped``
-    in its runlog record; a ``server`` is stopped when the loop ends."""
+    in its runlog record; a ``server`` is stopped when the loop ends.
+    With a ``memstats_label`` the first step runs under
+    ``memstats.measured_step`` and rank 0 prints its row."""
     stop = getattr(args, "stop_after", None) or args.steps
     lead = mesh.rank == 0
     quiet = bool(getattr(args, "quiet", False)) or not lead
@@ -370,8 +375,20 @@ def _run_loop(args, step_fn, params, opt_state, stream, start, *, mesh,
             batch = obs_health.apply_step_fault_hook(i, batch)
             t_data = time.perf_counter()
             with obs_trace.span(tracer, "device_step", step=i):
-                params, opt_state, loss, metrics = step_fn(params, opt_state,
-                                                           batch)
+                if memstats_label is not None and i == start:
+                    from repro_torch.launch import memstats
+                    (params, opt_state, loss, metrics), row = \
+                        memstats.measured_step(
+                            step_fn, (params, opt_state, batch),
+                            label=memstats_label)
+                    if lead:
+                        print(memstats.format_rows([row]), flush=True)
+                    if runlog:
+                        runlog.log("event", event="memstats", step=i,
+                                   row=row)
+                else:
+                    params, opt_state, loss, metrics = step_fn(
+                        params, opt_state, batch)
                 loss_f = float(loss)   # waits for the device step
             t_device = time.perf_counter()
             losses.append(loss_f)
@@ -495,11 +512,7 @@ def setup(args):
     world that does not divide by it raises ValueError). Under ``--sharding
     tp`` the model is checked first (``tensor_parallel.check``): heads,
     an ff dim, d_inner or a state dim that do not divide by M raise
-    ValueError. ``--memstats`` raises NotImplementedError."""
-    if getattr(args, "memstats", False):
-        raise NotImplementedError(
-            "--memstats: the compiled memory report (launch/memstats.py) "
-            "comes with the port's tooling slice")
+    ValueError."""
     model = getattr(args, "model_parallel", 1)
     if getattr(args, "sharding", "basic_ws") == "tp":
         tpl.check(arch_config(args), model)
@@ -553,7 +566,15 @@ def train_lm(args):
                      mesh=mesh, device=device, registry=registry,
                      tracer=tracer, runlog=runlog, run_dir=run_dir,
                      dims=_dims(layout, slayout), monitor=monitor,
-                     server=server)
+                     server=server, memstats_label=_memstats_label(
+                         args, f"seq={args.seq}"))
+
+
+def _memstats_label(args, what: str):
+    """The ``--memstats`` row's label (None without the flag)."""
+    if not getattr(args, "memstats", False):
+        return None
+    return f"{args.arch} B={args.batch} {what} remat={args.remat}"
 
 
 def _split_ranks(args, mesh, layout) -> int:
@@ -681,7 +702,8 @@ def train_contrastive(args):
                      part=((0, 1) if tpl.active(layout) else
                            (mesh.model_index, mesh.model_size)),
                      dims=_dims(layout, slayout), monitor=monitor,
-                     server=server)
+                     server=server, memstats_label=_memstats_label(
+                         args, f"micro={num_micro} loss={loss}"))
 
 
 def train(args):
@@ -753,8 +775,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="contrastive loss: 'allgather' / 'chunked' over "
                          "the global batch, 'local' / 'fused' on one rank")
     ap.add_argument("--memstats", action="store_true",
-                    help="the compiled memory report: not in the port yet "
-                         "(raises)")
+                    help="print the per-step memory/FLOPs report of the "
+                         "first step (launch/memstats.py)")
     ap.add_argument("--augment", default="off", choices=["on", "off"],
                     help="train-time image augmentation (contrastive)")
     ap.add_argument("--tokenizer", default="v1",

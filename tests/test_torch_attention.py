@@ -194,9 +194,14 @@ def test_flash_wrapper_validates():
         fa_ops.flash_fwd(q, q, q, torch.zeros((4, 9)))
     with pytest.raises(ValueError):
         fa_ops.flash_fwd(q, q, q, window=0)
+    # a meta tensor launches nothing: the outputs' shapes and dtypes (the
+    # dry run's branch), after the same checks
     meta = torch.zeros((4, 8, 64), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fa_ops.flash_fwd(meta, meta, meta)
+    out, lse = fa_ops.flash_fwd(meta, meta, meta)
+    assert out.is_meta and out.shape == (4, 8, 64) and lse.shape == (4, 8)
+    assert lse.dtype == torch.float32
+    with pytest.raises(ValueError):
+        fa_ops.flash_fwd(meta, meta, meta, window=0)
 
 
 def test_encode_tower_backends_agree():

@@ -1,0 +1,140 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on the CPU: rank 0's
+step of an (arch × input shape × mesh) traced on ``meta`` tensors over a
+``fake`` process group.
+
+- Llama-3.2-1B's ``train_4k`` on the pod mesh (16, 16) finishes with
+  ``ok: true`` within ``POD_SECONDS``, under the reference's keys.
+- A rank's params and optimizer-state bytes in a dry run equal the parts
+  the trainer places on a rank of a gloo world (``tests/torch_spawn.py``)
+  at (1, 2) and (2, 2) under ``basic_ws`` and at (1, 2) under ``tp`` and
+  ``replicated`` (smoke BASIC-S).
+- With the flash kernels' backend the trace counts each flash call as the
+  kernel's work (``launch.roofline``), not as the plain version's
+  products.
+- The CLI writes one JSON per combo under the reference's file names,
+  skips a cached one, records ``--unroll``, and writes ``ok: false`` with
+  the error for a combo that fails (its exit code 1).
+"""
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import pytest
+
+from repro_torch.configs import get_arch, smoke_dual_variant, smoke_variant
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.launch import memstats
+from repro_torch.launch import roofline as rf
+from repro_torch.launch.mesh import fake_world
+from repro_torch.launch.spawn import run_world
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from torch_spawn import worker_parts_bytes  # noqa: E402
+
+# the trace takes ~5 s on one CPU core; the limit leaves room for a slower
+# host under six test workers
+POD_SECONDS = 120
+# the reference's result keys (src/repro/launch/dryrun.py, run_one)
+REFERENCE_KEYS = {
+    "arch", "shape", "mesh", "chips", "sharding", "remat", "attn",
+    "moe_group", "dispatch", "param_dtype", "batch_over", "ssm_chunk", "ok",
+    "lower_s", "compile_s", "memory", "collectives", "roofline",
+    "model_flops_global", "hlo_flops_global", "useful_flops_ratio"}
+
+
+def test_llama_train_4k_on_the_pod_mesh():
+    t0 = time.time()
+    r = dryrun.run_one("llama3.2-1b", "train_4k", verbose=False)
+    assert time.time() - t0 < POD_SECONDS
+    assert r["ok"] and set(r) >= REFERENCE_KEYS
+    assert (r["mesh"], r["chips"]) == ("16x16", 256)
+    m = r["memory"]
+    # basic_ws over 16 model ranks: ~1/16 of the 1.24G f32 params a rank
+    n = get_arch("llama3.2-1b").param_counts()["total"]
+    assert 4 * n / 16 <= m["params_bytes_per_device"] < 4 * n / 8
+    assert m["peak_gb_per_device"] > m["argument_bytes_per_device"] / 2**30
+    # the weights' gathers and the gradients' reduce-scatters a step
+    c = r["collectives"]
+    assert c["all-gather"] > 0 and c["reduce-scatter"] > 0
+    assert r["hlo_flops_global"] == 256 * r["roofline"]["flops_per_device"]
+    assert 0 < r["useful_flops_ratio"] < 1
+
+
+GRIDS = [((1, 2), "basic_ws"), ((2, 2), "basic_ws"), ((1, 2), "tp"),
+         ((1, 2), "replicated")]
+
+
+@pytest.mark.parametrize("grid,sharding", GRIDS,
+                         ids=[f"{g[0]}x{g[1]}-{s}" for g, s in GRIDS])
+def test_parts_bytes_equal_a_gloo_worlds(grid, sharding, tmp_path):
+    cfg = smoke_dual_variant(get_arch("basic-s"))
+    r = dryrun.run_contrastive_dryrun(
+        cfg, InputShape("c", 16, 16, "contrastive"), mesh=grid,
+        sharding=sharding, num_micro=2, verbose=False)
+    ranks = run_world(worker_parts_bytes, grid[0] * grid[1],
+                      str(tmp_path / "rdv"), grid[1], "basic-s", sharding)
+    assert all(rank == ranks[0] for rank in ranks)
+    assert [r["memory"]["params_bytes_per_device"],
+            r["memory"]["opt_state_bytes_per_device"]] == ranks[0]
+    whole = dryrun.run_contrastive_dryrun(
+        cfg, InputShape("c", 16, 16, "contrastive"), mesh=(1, 1),
+        num_micro=2, verbose=False)["memory"]["params_bytes_per_device"]
+    if sharding == "replicated":
+        assert ranks[0][0] == whole
+    else:
+        assert ranks[0][0] < whole
+
+
+def test_a_flash_call_counts_as_the_kernels_work():
+    cfg = smoke_variant(get_arch("llama3.2-1b"))
+    shape = InputShape("t", 64, 2, "train")
+    rows = {}
+    for attn in ("naive", "pallas"):
+        c = dataclasses.replace(cfg, attn_impl=attn)
+        with fake_world((1, 1)) as mesh:
+            fn, inputs = dryrun.lm_step(c, shape, mesh)
+            rows[attn] = memstats.step_stats(fn, inputs)
+    work = rows["pallas"]["kernel_work"]
+    # remat 'basic': the forward, its recompute, then the backward
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    assert work["calls"] == {"flash_fwd": 2 * cfg.n_layers,
+                             "flash_bwd": cfg.n_layers}
+    fwd = rf.flash_fwd_work(2 * h, 2 * kv, 64, 64, d, 2, causal=True,
+                            window=cfg.sliding_window)
+    assert work["flops"]["flash_fwd"] == 2 * cfg.n_layers * fwd[1]
+    # the naive trace counts q·kᵀ and p·v as products where the kernel's
+    # work stands in the pallas trace: the rest of the step is the same
+    naive = rows["naive"]["flops_per_device"]
+    pallas = rows["pallas"]["flops_per_device"]
+    assert pallas != naive and abs(pallas - naive) < 0.5 * naive
+
+
+def test_cli_writes_caches_and_records_failures(tmp_path, capsys):
+    out = str(tmp_path / "out")
+    argv = ["--arch", "llama3.2-1b", "--shape", "decode_32k", "--out", out,
+            "--unroll", "2"]
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(argv)
+    assert e.value.code == 0
+    path = os.path.join(out, "llama3.2-1b_decode_32k_16x16_basic_ws_basic"
+                             ".json")
+    res = json.load(open(path))
+    assert res["ok"] and res["unroll"] == 2 and set(res) >= REFERENCE_KEYS
+    assert res["roofline"]["bottleneck"] in ("compute", "memory",
+                                            "collective")
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(argv)
+    assert e.value.code == 0 and "[skip cached]" in capsys.readouterr().out
+    # tp splits heads over the 16 model ranks: Llama-3.2-1B's 8 kv heads
+    # do not divide, so the trainer refuses and the combo fails
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "llama3.2-1b", "--shape", "train_4k",
+                     "--sharding", "tp", "--out", out])
+    assert e.value.code == 1
+    bad = json.load(open(os.path.join(
+        out, "llama3.2-1b_train_4k_16x16_tp_basic.json")))
+    assert not bad["ok"] and bad["error"].startswith("ValueError")

@@ -392,20 +392,61 @@ def test_lockstep_engine_matches_reference(shared, margs):
                                   want)
 
 
-@pytest.mark.parametrize("margs", [DENSE, CAPACITY], ids=["dense",
-                                                          "capacity"])
-def test_continuous_engine_matches_reference(shared, margs):
+# Arctic's smoke variant served with an expert share, as a card of a
+# deployment that splits each layer's experts holds it: the port draws
+# and computes experts 1-2 of the 4 (``interop.cut_experts``); the
+# reference, which has no share, computes the whole layer from the same
+# weights with every expert outside the share giving zeros (its ``wo``
+# zeroed), so that both route over all 4, count the capacity over all 4
+# and add the dense residual once
+ARCTIC_SHARE = (1, 2)
+
+
+@pytest.fixture(scope="module")
+def arctic_share():
+    """(reference cfg, port cfg, reference params with the experts outside
+    ``ARCTIC_SHARE`` silenced, the port's share of them) of Arctic's smoke
+    variant."""
+    jcfg, tcfg = _pair("arctic-480b")
+    jp, _ = _lm_weights(jcfg, seed=6)
+    first, count = ARCTIC_SHARE
+    for block in jp["blocks"]:
+        if "moe" in block:
+            wo = np.array(block["moe"]["wo"])
+            wo[:, :first] = 0
+            wo[:, first + count:] = 0
+            block["moe"]["wo"] = wo
+    tp = interop.from_numpy(interop.cut_experts(jp, ARCTIC_SHARE), "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+ENGINE_CASES = [("shared", DENSE), ("shared", CAPACITY),
+                ("arctic_share", DENSE), ("arctic_share", CAPACITY)]
+
+
+@pytest.mark.parametrize("model,margs", ENGINE_CASES,
+                         ids=["dense", "capacity", "arctic-share-dense",
+                              "arctic-share-capacity"])
+def test_continuous_engine_matches_reference(model, margs, request):
     """Same arrivals and slots on both sides: 5 ragged requests through 2
     slots, so slots are reused and stand idle; under capacity dispatch an
-    idle slot's token 0 and a batch-mate take bucket places."""
-    jcfg, tcfg, jp, tp = shared
+    idle slot's token 0 and a batch-mate take bucket places. Mixtral's
+    smoke variant, and Arctic's with an expert share (``arctic_share``:
+    the port computes its 2 experts and the dense residual, the reference
+    the whole layer whose other experts give zeros)."""
+    jcfg, tcfg, jp, tp = request.getfixturevalue(model)
+    share = {"experts": ARCTIC_SHARE} if model == "arctic_share" else {}
+    if share:
+        held = [b["moe"]["wo"].shape[1] for b in tp["blocks"] if "moe" in b]
+        assert tcfg.moe.dense_residual and held and \
+            set(held) == {ARCTIC_SHARE[1]}
     budgets = [5, 3, 6, 2, 4]
     reqs = [(p, m, i) for i, (p, m) in enumerate(zip(
         _prompts(4, tcfg.vocab, [8, 5, 8, 12, 5]), budgets))]
     want = JaxContinuousEngine(jcfg, jp, cache_len=CACHE_LEN, num_slots=2,
                                moe_args=margs).run(reqs)
     ce = ContinuousEngine(tcfg, tp, cache_len=CACHE_LEN, num_slots=2,
-                          moe_args=margs)
+                          moe_args=dict(margs, **share))
     got = ce.run(reqs)
     assert sorted(got) == sorted(want)
     for rid in want:

@@ -153,9 +153,15 @@ def test_classify_and_validation():
         tops.similarity_topk(xt, torch.zeros((200, 16)), tops.MAX_K + 1)
     with pytest.raises(ValueError):
         tops.similarity_topk(xt, ct[:, :8], 3)       # widths differ
+    # a meta tensor launches nothing: the outputs' shapes and dtypes (the
+    # dry run's branch), after the same checks
     meta = torch.zeros((7, 16), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tops.similarity_topk(meta, meta, 3)
+    vals, idx = tops.similarity_topk(meta, meta, 3)
+    assert vals.is_meta and (vals.shape, vals.dtype) == ((7, 3),
+                                                         torch.float32)
+    assert (idx.shape, idx.dtype) == ((7, 3), torch.int32)
+    with pytest.raises(ValueError):
+        tops.similarity_topk(meta, meta[:, :8], 3)
 
 
 def test_block_rows_and_the_class_split():

@@ -172,9 +172,14 @@ def test_wrapper_refuses_bad_shapes_and_devices():
                          init_state=torch.zeros(1, 2, 16, 4))
     with pytest.raises(ValueError, match="expected x"):
         ssd_ops.ssd_scan(x[0], dt, A, Bm, Cm, D, chunk=32)
+    # a meta tensor launches nothing: the outputs' shapes and dtypes (the
+    # dry run's branch), after the same checks
     meta = [t.to("meta") for t in (x, dt, A, Bm, Cm, D)]
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ssd_ops.ssd_scan(*meta, chunk=32)
+    y, final = ssd_ops.ssd_scan(*meta, chunk=32)
+    assert y.is_meta and (y.shape, y.dtype) == (x.shape, torch.float32)
+    assert final.shape == (1, 2, 16, 8)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_ops.ssd_scan(meta[0], meta[1][..., :1], *meta[2:], chunk=32)
 
 
 def test_bf16_inputs_accumulate_in_f32():

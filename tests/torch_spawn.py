@@ -54,6 +54,64 @@ def worker_train(rank, world, argvs):
     return [td.main(argv) for argv in argvs]
 
 
+def worker_train_printed(rank, world, argvs):
+    """``worker_train`` with what each run printed on this rank: a list of
+    (per-step losses, stdout text)."""
+    import io
+
+    from repro_torch.launch import train_distributed as td
+    out = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            losses = td.main(argv)
+        out.append((losses, buf.getvalue()))
+    return out
+
+
+def worker_collectives(rank, world, model, sizes):
+    """``roofline.CollectiveBytes`` over one all-gather, one all-reduce and
+    one reduce-scatter of float32 tensors of ``sizes`` elements (each) on
+    every axis of the (world / model, model) mesh, and the bytes the
+    calls were handed, counted here from the tensors' sizes: (the count's
+    bytes and calls, the bytes handed by operation)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.roofline import CollectiveBytes
+    mesh = make_local_mesh(model=model)
+    handed = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0}
+    with CollectiveBytes() as count:
+        for axis in (mesh.batch, mesh.data, mesh.model):
+            for n in sizes:
+                t = torch.full((n,), float(rank))
+                axis.all_gather(t)
+                axis.all_reduce(t)
+                blocks = torch.zeros((axis.size, n))
+                axis.reduce_scatter(blocks)
+                if axis.distributed:
+                    handed["all_gather"] += 4 * n
+                    handed["all_reduce"] += 4 * n
+                    handed["reduce_scatter"] += 4 * n * axis.size
+    return dict(count.bytes), dict(count.calls), handed
+
+
+def worker_parts_bytes(rank, world, model, arch, sharding):
+    """The bytes of this rank's params and optimizer state as the trainer
+    places them (``train_distributed.build_state``) on the (world /
+    model, model) mesh, for the smoke variant of ``arch``."""
+    from repro_torch.configs import get_arch, smoke_dual_variant
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train_distributed as td
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.tree import tree_leaves
+    cfg = smoke_dual_variant(get_arch(arch))
+    trees = td.build_state(cfg, st.make_optimizer(), 0, "cpu",
+                           make_local_mesh(model=model), sharding)
+    return [sum(x.numel() * x.element_size() for x in tree_leaves(t))
+            for t in trees]
+
+
 def worker_mesh(rank, world, model):
     """This rank's place on the (world / model, model) mesh and the
     results of each axis's collectives (batch, data, model) on small
