@@ -5057,7 +5057,8 @@ WS_MOVED_SHARE = 1e-3          # tests/test_torch_train_distributed.py:120-131
 # the depth-cut configs: (base, name, layers) for register_cut_arch
 WS_ARCHS = (("basic-s", "basic-s-1layer", 1),
             ("llama3.2-1b", "llama3.2-1b-1of16", 1),
-            ("mamba2-130m", "mamba2-130m-2of24", 2))
+            ("mamba2-130m", "mamba2-130m-2of24", 2),
+            ("llama3.2-1b", "llama3.2-1b-2of16", 2))
 WS_ARGV = ["--arch", WS_ARCHS[0][1]] + DIST_GLOO_ARGV[2:-3] + [
     "--steps", "1", "--quiet"]
 WS_LM_ARGV = ["--arch", WS_ARCHS[1][1], "--batch", "2", "--seq", "1024",
@@ -5077,6 +5078,22 @@ WS_SSM_RUNS = {
                            "--batch", "4", "--seq", "64", "--attn",
                            "pallas", "--steps", "2", "--quiet", "--lr",
                            "3e-3"]}
+# phase 56: the sharded serving steps (steps.make_prefill_step /
+# make_serve_step on a rank's parts) on phase 43's world of 2, each case
+# against the one-rank whole-weight steps on the plain path (the CPU,
+# attention 'naive', the scan's plain version): (label, arch, its layers at
+# full width (0: the smoke variant), rule, greedy decode steps), f32, b 4
+# prompts of 512 into a linear cache of 1024. The basic_ws case takes 2
+# steps, not 8: each of its passes all-gathers 2.6 GB of f32 leaves (the
+# tied 1.05 GB embedding twice) through the host on the shared card, and
+# its 9 passes took 60.4 s of the phase's 77.7 s (M9)
+SERVE_SHARD_CASES = (
+    ("llama 1x2 tp", "llama3.2-1b", 2, "tp", 8),
+    ("llama 1x2 basic_ws", "llama3.2-1b", 2, "basic_ws", 2),
+    ("mamba2 1x2 tp", "mamba2-130m", 2, "tp", 8),
+    ("jamba smoke 1x2 tp", "jamba-1.5-large-398b", 0, "tp", 8))
+SERVE_SHARD_SHAPE = {"batch": 4, "prompt": 512, "cache": 1024}
+SERVE_SHARD_TOL = 1e-4      # of the plain one-rank step's largest |logit|
 # the cross-shard loss against the single-device fused loss: the
 # reference's own limits (tests/distributed_checks.py:79-83, :99-103), and
 # under bf16 1e-3 on the loss, 2e-2 on dX
@@ -5526,7 +5543,7 @@ def phase_dist_train_lm():
     return rep
 
 
-def ws_train_worker(rank, world, argvs, archs=()):
+def ws_train_worker(rank, world, argvs, archs=(), serving=None):
     """One gloo rank of phases 41-43 on the card: the trainer's ``main``
     on each argv of ``argvs`` in turn (``archs``: depth-cut configs to
     register first, since a spawned rank imports this module afresh);
@@ -5534,7 +5551,8 @@ def ws_train_worker(rank, world, argvs, archs=()):
     SSD scan's also by the shape its wrapper launched at, "b x l x h x p
     x n"), and the bytes its resident params and optimizer state take
     (``build_state`` on the same mesh, measured on the card, then
-    freed)."""
+    freed). With ``serving`` = (cases, device) phase 56 runs after them
+    on the same ranks (``serve_shard_rank``), its records last."""
     import torch
     from repro_torch.configs import (get_arch, smoke_dual_variant,
                                      smoke_variant)
@@ -5567,6 +5585,8 @@ def ws_train_worker(rank, world, argvs, archs=()):
             torch.cuda.empty_cache()
         out.append({"losses": losses, "launches": launches, "ssd": ssd,
                     "params_bytes": nbytes[0], "state_bytes": nbytes[1]})
+    if serving is not None:
+        out.append(serve_shard_rank(*serving))
     return out
 
 
@@ -5628,7 +5648,8 @@ def ws_config(argv):
     return td.arch_config(td.parse_args(argv))
 
 
-def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS):
+def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS,
+                          serve_cases=SERVE_SHARD_CASES):
     """Phases 41-43: the trainer with the paper's §5.1 weight sharding and
     with Megatron execution on gloo ranks sharing the card (untimed; two
     spawned worlds: one of 2 ranks runs the (1, 2) runs in turn, one of 4
@@ -5660,11 +5681,16 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS):
     Mamba-2-130M), read from the shapes the wrapper saw; the hybrid's
     flash kernels too.
 
+    Phase 56 runs in the world of 2 after its trainer runs
+    (``serve_cases``, ``serve_shard_rank``); its checks are
+    ``phase_serve_shard``'s, on what this returns.
+
     ``runs`` maps each rule to its (contrastive argv, LM argv or None)
     (``WS_RUNS``; a CPU rehearsal passes ``--smoke`` ones, ``ssm_runs``
-    to match, and ``device`` 'cpu'). Returns (the
-    contrastive records by "<data>x<model> <sharding>", the LM records by
-    sharding, and the SSM runs' by their ``ssm_runs`` label)."""
+    and smoke ``serve_cases`` to match, and ``device`` 'cpu'). Returns
+    (the contrastive records by "<data>x<model> <sharding>", the LM
+    records by sharding, the SSM runs' by their ``ssm_runs`` label, and
+    each rank's phase 56 records with the world's seconds in them)."""
     from repro_torch import checkpoint as ckpt
     from repro_torch.launch import train_distributed as td
     from repro_torch.launch.spawn import run_world
@@ -5699,9 +5725,12 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS):
         t_world = time.perf_counter()
         ranks = run_world(ws_train_worker, world,
                           os.path.join(CKPT_ROOT, "rdv"), argvs,
-                          WS_ARCHS, timeout=900)
+                          WS_ARCHS, (serve_cases, device) if world == 2
+                          else None, timeout=900)
         print(f"weight sharding world of {world}: "
               f"{time.perf_counter() - t_world:.1f} s", flush=True)
+        if world == 2:
+            serving = [r.pop() for r in ranks]
         for i, k in enumerate(keys):
             worlds[k] = [r[i] for r in ranks]
         if world == 2:
@@ -5788,7 +5817,7 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS):
         shutil.rmtree(ssm_argvs[i][-1], ignore_errors=True)
     print(f"weight sharding phases 41-43: {time.perf_counter() - t0:.1f} s "
           f"(untimed)", flush=True)
-    return out, lm, ssm
+    return out, lm, ssm, serving
 
 
 # each rank of a phase 43 SSM run against the one-rank run: losses
@@ -5854,6 +5883,264 @@ def ws_ssm_check(label, argv, ranks, device, r1_dir):
                 r["params_bytes"] != want_p or bad_leaves:
             raise AssertionError(f"weight sharding train_lm {label}: {rec}")
     return rec
+
+
+def serve_shard_model(arch, layers, device):
+    """(cfg, whole params) of a phase 56 case: ``arch`` cut to its first
+    ``layers`` layers at full width (0: its smoke variant) on the kernels
+    ('pallas'), f32 params drawn from seed 0 on ``device``."""
+    import torch
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.interop import init_params
+    cfg = get_arch(arch)
+    cfg = (dataclasses.replace(cfg, n_layers=layers) if layers
+           else smoke_variant(cfg))
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, init_params(cfg, gen, device)
+
+
+def serve_shard_prompt(cfg, device):
+    """Phase 56's prompts: (b, prompt) int32 tokens from seed 0."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    return torch.randint(4, cfg.vocab, (SERVE_SHARD_SHAPE["batch"],
+                                        SERVE_SHARD_SHAPE["prompt"]),
+                         generator=g, dtype=torch.int32).to(device)
+
+
+def serve_shard_steps(cfg, params, prompt, steps, feed=None, mesh=None,
+                      layout=None):
+    """The prefill and ``steps`` decode steps at SERVE_SHARD_SHAPE, f32,
+    each step fed the last greedy token (or ``feed``'s tokens (steps + 1,
+    b)): returns the last-position logits (steps + 1, b, vocab) and the
+    tokens fed (steps + 1, b), on the CPU."""
+    import torch
+    from repro_torch.launch import steps as st
+    kw = {"precision": "f32", "mesh": mesh, "layout": layout}
+    shape = SERVE_SHARD_SHAPE
+    with torch.no_grad():
+        logits, caches = st.make_prefill_step(
+            cfg, collect_cache_len=shape["cache"], **kw)(
+            params, {"tokens": prompt})
+        serve = st.make_serve_step(cfg, **kw)
+        out, fed = [logits[:, 0].cpu()], []
+        for i in range(steps + 1):
+            tok = (logits[:, 0].argmax(-1) if feed is None
+                   else feed[i].to(logits.device)).to(torch.int32)
+            fed.append(tok.cpu())
+            if i == steps:
+                break
+            logits, caches = serve(params, caches, tok[:, None],
+                                   shape["prompt"] + i)
+            out.append(logits[:, 0].cpu())
+    return torch.stack(out), torch.stack(fed)
+
+
+def serve_shard_rank(cases, device):
+    """Phase 56 on this rank of phase 43's world of 2: for each case the
+    whole params are drawn and cut to the rank's parts under the case's
+    rule (``steps.serving_layout`` on the (1, 2) mesh), then
+    prefill and greedy decode on them (``serve_shard_steps``). Returns
+    {"serving": {label: {logits, tokens (numpy), launches and shapes by kernel,
+    params_bytes, cache_bytes, seconds}}}."""
+    import torch
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+    mesh = make_local_mesh(model=2)
+    counters = (fa_ops.COUNTER, dec_ops.COUNTER, ssd_ops.COUNTER)
+    out = {}
+    for label, arch, layers, rule, steps in cases:
+        t0 = time.perf_counter()
+        cfg, whole = serve_shard_model(arch, layers, device)
+        layout = st.serving_layout(cfg, mesh, rule)
+        params = ws.cut(whole, layout)
+        del whole
+        placed = time.perf_counter() - t0
+        caches = tf.init_caches(cfg, SERVE_SHARD_SHAPE["batch"],
+                                SERVE_SHARD_SHAPE["cache"], torch.float32,
+                                device="meta", layout=layout)
+        for c in counters:
+            c.reset()
+        logits, tokens = serve_shard_steps(
+            cfg, params, serve_shard_prompt(cfg, device), steps, mesh=mesh,
+            layout=layout)
+        # numpy: a tensor sent to the parent would share a storage that
+        # ends with this process
+        out[label] = {
+            "logits": logits.numpy(), "tokens": tokens.numpy(),
+            "launches": {c.name: c.count for c in counters},
+            "shapes": {c.name: {"x".join(map(str, k)): v
+                                for k, v in c.shapes.items()}
+                       for c in counters},
+            "params_bytes": sum(x.numel() * x.element_size()
+                                for x in tree_leaves(params)),
+            "cache_bytes": sum(x.numel() * x.element_size()
+                               for x in tree_leaves(caches)),
+            "seconds": time.perf_counter() - t0, "place_seconds": placed}
+        del params
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return {"serving": out}
+
+
+def serve_shard_want(cfg, rule):
+    """The (flash "bh x bkv", decode "h x kv", SSD heads) a rank of phase
+    56 launches at under ``rule`` at (1, 2), batch b: its H/2 query and
+    KV/2 kv heads and H_ssd/2 SSD heads under 'tp', all of them under
+    ``basic_ws``; None where the model has no such layer."""
+    from repro_torch.models import ssm as ssm_lib
+    m = 2 if rule == "tp" else 1
+    b = SERVE_SHARD_SHAPE["batch"]
+    attn = cfg.family != "ssm"
+    return ((f"{b * cfg.n_heads // m}x{b * cfg.n_kv_heads // m}"
+             if attn else None),
+            f"{cfg.n_heads // m}x{cfg.n_kv_heads // m}" if attn else None,
+            ssm_lib.dims(cfg)[1] // m if cfg.ssm is not None else None)
+
+
+def phase_serve_shard(ranks, device="cuda", cases=SERVE_SHARD_CASES):
+    """Phase 56: the port's sharded serving steps on two gloo ranks sharing
+    the card (run in phase 43's world, ``serve_shard_rank``; ``ranks``:
+    each rank's records), each case held to the one-rank whole-weight
+    steps on the plain path: the same weights (drawn on ``device``) and
+    prompts on the CPU, attention 'naive' (the reference's einsum decode
+    and plain prefill) and the SSD scan's plain version, fed the same
+    greedy tokens. So each rank's kernels, at its local shapes, are held
+    to their plain versions on the same inputs: every rank's logits
+    within SERVE_SHARD_TOL of the plain step's largest |logit|, both
+    ranks' greedy tokens alike and equal to the plain step's wherever its
+    top-2 gap exceeds the error, and every rank launched the flash and
+    decode kernels (and the scan, for a Mamba layer) at its local heads,
+    read from the launch counters' shapes. ``cases``: the
+    ``serve_cases`` phase 43's world ran (smoke ones in a CPU rehearsal,
+    with ``device`` 'cpu'). Returns the records by label."""
+    import torch
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    out = {}
+    for label, arch, layers, rule, steps in cases:
+        recs = [dict(r["serving"][label], **{
+            k: torch.from_numpy(r["serving"][label][k])
+            for k in ("logits", "tokens")}) for r in ranks]
+        cfg, whole = serve_shard_model(arch, layers, device)
+        whole = tree_map(lambda x: x.cpu(), whole)
+        tw = time.perf_counter()
+        want, _ = serve_shard_steps(
+            dataclasses.replace(cfg, attn_impl="naive"), whole,
+            serve_shard_prompt(cfg, "cpu"), steps, feed=recs[0]["tokens"])
+        want_s = time.perf_counter() - tw
+        del whole
+        scale = want.abs().max().item()
+        errs = [(r["logits"] - want).abs().max().item() for r in recs]
+        sep = top2_gap(want) > max(errs)
+        flips = [int(((r["tokens"] != want.argmax(-1)) & sep).sum())
+                 for r in recs]
+        flash, dec, heads = serve_shard_want(cfg, rule)
+        seen = [({k.rsplit("x", 3)[0] for k in r["shapes"]["flash_fwd"]},
+                 {"x".join(k.split("x")[1:3])
+                  for k in r["shapes"]["decode_attention"]},
+                 {int(k.split("x")[2]) for k in r["shapes"]["ssd_scan"]})
+                for r in recs]
+        rec = out[label] = {
+            "max_logit_diff": errs, "max_abs_logit": scale,
+            "greedy_flips": flips,
+            "ranks_tokens_equal": bool(torch.equal(recs[0]["tokens"],
+                                                   recs[1]["tokens"])),
+            "launches": [r["launches"] for r in recs],
+            "shapes": [r["shapes"] for r in recs],
+            "params_bytes": [r["params_bytes"] for r in recs],
+            "cache_bytes": [r["cache_bytes"] for r in recs],
+            "rank_seconds": [r["seconds"] for r in recs],
+            "plain_seconds": want_s}
+        print(f"sharded serving {label} ({cfg.name}, {cfg.n_layers} layers, "
+              f"f32, b {SERVE_SHARD_SHAPE['batch']} x "
+              f"{SERVE_SHARD_SHAPE['prompt']}, {steps} steps): max |logit "
+              f"diff| vs one rank's plain path on the CPU ({want_s:.1f} s) "
+              f"{errs} (tol "
+              f"{SERVE_SHARD_TOL} x {scale:.4g}); greedy flips past the "
+              f"error {flips}; ranks' tokens equal "
+              f"{rec['ranks_tokens_equal']}; launches per rank "
+              f"{rec['launches']}; shapes per rank {rec['shapes']}; params "
+              f"bytes {rec['params_bytes']}, cache bytes "
+              f"{rec['cache_bytes']}; seconds a rank "
+              f"{[round(x, 2) for x in rec['rank_seconds']]} (placing the "
+              f"params {[round(r['place_seconds'], 2) for r in recs]})",
+              flush=True)
+        launched = all(
+            (flash is None or (r["launches"]["flash_fwd"] > 0
+                               and got[0] == {flash}))
+            and (dec is None or (r["launches"]["decode_attention"] > 0
+                                 and got[1] == {dec}))
+            and (heads is None or (r["launches"]["ssd_scan"] > 0
+                                   and got[2] == {heads}))
+            for r, got in zip(recs, seen))
+        if device == "cpu":     # the plain versions launch nothing
+            launched = True
+        if not (max(errs) <= SERVE_SHARD_TOL * scale and not any(flips)
+                and rec["ranks_tokens_equal"] and launched):
+            raise AssertionError(f"sharded serving {label}: {rec}")
+    world_s = max(sum(r["seconds"] for r in x["serving"].values())
+                  for x in ranks)
+    print(f"phase 56 sharded serving: {time.perf_counter() - t0:.1f} s here "
+          f"+ {world_s:.1f} s in the world of 2", flush=True)
+    return out
+
+
+# the kernels at a rank's shapes under --sharding tp on the sharded serving
+# paths (label, dtype name, b, query heads, kv heads, d, prompt s, cache t,
+# the rows' valid entries at the serving state): phase 56's Llama-3.2-1B at
+# M 2 (f32, b 4 x 512 prompts, a cache of 1024, 8 steps), and
+# scripts/serve_sharded_probe.py's InternVL2-76B and Jamba-1.5-Large at M 4
+# (bf16, b 8 x 512, a cache of 4096, 64 steps; both 16 query heads over 2
+# kv heads of 128 a rank)
+SERVE_TP_ATTN = (("llama tp rank M=2", "float32", 4, 16, 4, 64, 512, 1024,
+                  516),
+                 ("internvl2 / jamba tp rank M=4", "bfloat16", 8, 16, 2, 128,
+                  512, 4096, 544))
+# the scan there: phase 56's Mamba-2-130M at M 2 (f32, 12 heads) and the
+# probe's Jamba-1.5-Large at M 4 (bf16, 64 heads of 64, state 128)
+SERVE_TP_SSD = (("mamba2 tp rank M=2 serving", "float32", 4, 512, 12),
+                ("jamba tp rank M=4 serving", "bfloat16", 8, 512, 64))
+
+
+def phase_serve_shard_kernels():
+    """Phase 56's kernels at a rank's shapes on the sharded serving paths
+    (``SERVE_TP_ATTN``, ``SERVE_TP_SSD``), against their plain versions on
+    the same inputs and timed: ``flash_fwd`` causal over the prompt,
+    ``decode_attention`` over the rank's kv heads of a linear cache with
+    ragged lengths (0 exactly zero), then at the serving state, and
+    ``ssd_scan`` over the prompt. Returns the records (flash, decode,
+    scan), each a list."""
+    import torch
+    flash, decode, scan = [], [], []
+    for i, (label, dt, b, h, kv, d, s, t, state) in enumerate(SERVE_TP_ATTN):
+        dtype = getattr(torch, dt)
+        flash.append(flash_case(label, b, h, s, d, dtype, False, 130 + i,
+                                kv=kv, causal=True))
+        q, k, v = decode_inputs(b, h, kv, t, d, dtype, 132 + i)
+        lens = torch.tensor([0, 1, 255, t, 257, 301, t - 5, 511][:b],
+                            device="cuda")
+        out, err = decode_check(
+            f"{label} t={t} ragged {dt}", q, k, v,
+            torch.arange(t, device="cuda")[None, :] < lens[:, None])
+        if not bool((out[0] == 0).all()):
+            raise AssertionError("decode_attention: a length-0 row is not "
+                                 "exactly zero")
+        decode.append(decode_timed(f"{label} serving", q, k, v,
+                                   torch.full((b,), state, device="cuda"),
+                                   err))
+        del q, k, v
+    for i, (label, dt, b, l, h) in enumerate(SERVE_TP_SSD):
+        scan.append(ssd_case(label, b, l, getattr(torch, dt), 134 + i, h=h))
+    torch.cuda.empty_cache()
+    return flash, decode, scan
 
 
 # ---------------------------------------------------------------------------
@@ -6576,6 +6863,7 @@ def main() -> int:
     flash_d80 = phase_flash_d80()
     torch.cuda.empty_cache()
     gqa7_flash, gqa7_decode = phase_gqa7_kernels()
+    serve_tp_kernels = phase_serve_shard_kernels()
     torch.cuda.empty_cache()
     hubert = phase_hubert_train()
     torch.cuda.empty_cache()
@@ -6603,7 +6891,9 @@ def main() -> int:
     # the dry runs are the host's work alone: they run beside the untimed
     # gloo worlds, after every phase that times the card or the host
     dry_runs = start_dry_runs()
-    ws, ws_lm, ws_ssm = phase_weight_sharding()
+    ws, ws_lm, ws_ssm, ws_serving = phase_weight_sharding()
+    torch.cuda.empty_cache()
+    serve_shard = phase_serve_shard(ws_serving)
     torch.cuda.empty_cache()
     tooling = phase_tooling(dry_runs)
     torch.cuda.empty_cache()
@@ -6757,6 +7047,17 @@ def main() -> int:
                     label: [sh[name] for sh in r["ssd_shapes"]]
                     for label, r in ws_ssm.items()}}
 
+    def serving_of(name, recs):
+        """The kernel's launches on each rank of phase 56's sharded
+        serving cases, where it ran there, and its records at a rank's
+        shapes there and on the four-card probe's paths."""
+        return {"sharded_serving_launches_per_rank": {
+            label: [lc[name] for lc in r["launches"]]
+            for label, r in serve_shard.items() if r["launches"][0][name]},
+            "sharded_serving_shapes": [
+                {k: r[k] for k in ("shape", "max_abs_err", *timing,
+                                   "device_ms") if k in r} for r in recs]}
+
     def recipe_of(name):
         """The kernel's launches in each part of the recipe phase."""
         return {part: counts[name]
@@ -6818,7 +7119,8 @@ def main() -> int:
          **mixtral_train_of("fwd", fa_ops.COUNTER.name),
          **families_of("fwd", fa_ops.COUNTER.name),
          **arctic_of(fa_ops.COUNTER.name, "per_prefill"),
-         **dist_of(fa_ops.COUNTER.name)},
+         **dist_of(fa_ops.COUNTER.name),
+         **serving_of(fa_ops.COUNTER.name, serve_tp_kernels[0])},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -6907,7 +7209,8 @@ def main() -> int:
          "internvl2_parity_max_logit_diff": vlm_serve["parity"][
              "max_logit_diff"],
          **arctic_of(dec_ops.COUNTER.name, "per_step"),
-         "arctic_parity_max_logit_diff": arctic_parity["max_logit_diff"]},
+         "arctic_parity_max_logit_diff": arctic_parity["max_logit_diff"],
+         **serving_of(dec_ops.COUNTER.name, serve_tp_kernels[1])},
         {"name": ssd_ops.COUNTER.name, "route": "cuda",
          "source": SSD_SOURCE, "replaces": SSD_REPLACES,
          "launches": ssm_launches[ssd_ops.COUNTER.name],
@@ -6939,7 +7242,8 @@ def main() -> int:
              ssd_ops.COUNTER.name],
          "jamba_smoke_train_parity_launches": hybrid_train["launches"][
              ssd_ops.COUNTER.name],
-         **ssd_tp_of(ssd_ops.COUNTER.name)},
+         **ssd_tp_of(ssd_ops.COUNTER.name),
+         **serving_of(ssd_ops.COUNTER.name, serve_tp_kernels[2])},
         {"name": ssd_ops.BWD_COUNTER.name, "route": "cuda",
          "source": SSD_BWD_SOURCE, "replaces": SSD_BWD_REPLACES,
          "launches": ssm_train_launches[ssd_ops.BWD_COUNTER.name],

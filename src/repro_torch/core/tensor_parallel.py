@@ -32,7 +32,9 @@ stacked norm scales (``ln1``/``ln2``, ``q_norm``/``k_norm``, split over d
 by the largest-dim fallback), the vision frontend, and an embedding or a
 head the rule splits over d. Their gradient is the same on the M ranks,
 since the block's activations and their gradients are; ``_Gather``'s
-reduce-scatter (``core.weight_sharding``) would count it M times.
+reduce-scatter (``core.weight_sharding``) would count it M times. A
+serving step's params are placed by ``serving``'s layout, which holds
+those leaves whole, so a prefill or decode step gathers no weight.
 
 The Mamba-2 mixer (``models.ssm.mamba_mixer``) is split by heads: z, x
 and dt are this rank's H/M heads (``in_z``, ``in_x``, ``in_dt`` split on
@@ -219,12 +221,26 @@ _SUMMED = {("mamba", "in_B"), ("mamba", "in_C"), ("mamba", "conv_w")}
 _EXPERT = {"wi": (0, 2), "wg": (0, 2), "wo": (0, 1)}
 
 
+# the dim a vocab-split embedding and head are consumed split on
+_VOCAB = {"embed": 0, "lm_head": 1}
+
+
+def _megatron_dims(group: str, name: str):
+    """The dims a block consumes its leaf ``group``/``name`` split on, or
+    None for a leaf it uses whole (``block_params`` makes it whole)."""
+    if group == "moe" and name in _EXPERT:
+        return _EXPERT[name]
+    return (_SPLIT[(group, name)],) if (group, name) in _SPLIT else None
+
+
 def block_params(p: dict, lay: ws.Layout) -> dict:
     """One layer's params for Megatron execution: the leaves a block
     consumes split stay this rank's parts, the mixer's ``in_B``, ``in_C``
     and ``conv_w`` are made whole by ``gathered``, every other split leaf
-    by ``whole``. Raises ValueError for a consumed leaf split on another dim
-    (``check`` keeps the rule's splits on the Megatron ones)."""
+    by ``whole`` (a leaf ``lay`` holds whole, as ``serving`` places them,
+    is used as it is). Raises ValueError for a consumed leaf split on
+    another dim (``check`` keeps the rule's splits on the Megatron
+    ones)."""
     out = {}
     for group, sub in p.items():
         dims = lay.dims[group]
@@ -234,9 +250,7 @@ def block_params(p: dict, lay: ws.Layout) -> dict:
         out[group] = {}
         for name, x in sub.items():
             d = dims[name]
-            want = (_EXPERT.get(name) if group == "moe" else None) or \
-                ((_SPLIT[(group, name)],) if (group, name) in _SPLIT
-                 else None)
+            want = _megatron_dims(group, name)
             if (group, name) in _SUMMED:
                 x = gathered(x, d, lay.axis)
             elif want is None:
@@ -246,6 +260,43 @@ def block_params(p: dict, lay: ws.Layout) -> dict:
                                  f"the Megatron dim {want}")
             out[group][name] = x
     return out
+
+
+def _held_whole(dims):
+    """``dims`` (a subtree of split dims) with every leaf None."""
+    if isinstance(dims, dict):
+        return {k: _held_whole(v) for k, v in dims.items()}
+    if isinstance(dims, (list, tuple)):
+        return type(dims)(_held_whole(v) for v in dims)
+    return None
+
+
+def serving(layout: Optional[ws.Layout]) -> Optional[ws.Layout]:
+    """The layout a serving step's params are placed by under the 'tp'
+    ``layout``: the leaves Megatron consumes split stay split as
+    ``layout`` places them (a block's q/k/v, o, FFN, expert and mixer
+    head leaves, a vocab-split embedding and head), and every other leaf
+    is held whole (its dim None): the norm scales, the mixer's B, C and
+    conv weights, the vision frontend. A training step makes those whole
+    on use, a collective a leaf a layer at every step; a serving step's
+    weights never change, so they are joined once, where they are placed,
+    and a prefill or decode step gathers no weight. Any other layout is
+    returned as it is (``basic_ws`` gathers each layer on use: that is
+    its rule)."""
+    if not active(layout):
+        return layout
+    dims = {}
+    for key, d in layout.dims.items():
+        if key == "blocks":
+            dims[key] = type(d)(
+                {g: ({n: None if _megatron_dims(g, n) is None else x
+                      for n, x in sub.items()} if isinstance(sub, dict)
+                     else None) for g, sub in block.items()}
+                for block in d)
+        else:
+            dims[key] = d if d is not None and d == _VOCAB.get(key) \
+                else _held_whole(d)
+    return ws.Layout(dims, layout.axis, layout.mode)
 
 
 def expert_share(cfg, lay: ws.Layout):

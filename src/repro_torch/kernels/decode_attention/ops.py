@@ -226,6 +226,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             plan.ctas_per_row, plan.group, float(d ** -0.5),
             stream.cuda_stream)
     check(rc, "decode_attention launch")
-    COUNTER.add()
+    COUNTER.add(shape=(b, h, kv, t, d))
     record_work(COUNTER.name, work)
     return out

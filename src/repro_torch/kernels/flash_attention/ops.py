@@ -247,7 +247,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), window if window is not None else -1,
             float(d ** -0.5), plan.warps, plan.key_tile, plan.smem, stream)
     check(rc, "flash_fwd launch")
-    COUNTER.add()
+    COUNTER.add(shape=(bh, k.shape[0], s, t, d))
     record_work(COUNTER.name, work)
     return out, lse
 

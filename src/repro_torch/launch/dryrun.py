@@ -31,9 +31,13 @@ reference extrapolates a scanned layer stack's cost from unroll 1 and 2,
 because XLA costs a loop body once, while the port's trace runs every
 layer; the value is accepted and recorded in the JSON. ``--attn pallas``
 traces the flash kernels' wrappers (their ``meta`` branches), which
-count the kernels' work. The port's prefill and decode steps take whole
-params (its servers run in one process), so those shapes trace a rank's
-rows on whole weights. A combo that fails (a shape the port's step
+count the kernels' work. The prefill and decode shapes trace a rank's
+serving step on its parts and its rows' caches, as the train shapes
+trace its training step (``steps.shardings_for``: under ``tp`` it
+computes with the parts and holds its kv and SSD heads' caches, under
+``basic_ws`` it gathers each layer on use and holds its rows' caches
+whole); ``memory`` records the rank's params bytes and, for decode, its
+cache bytes. A combo that fails (a shape the port's step
 refuses, a data-dependent shape under ``meta``) writes ``ok: false``
 with the error, and the exit code counts it.
 """
@@ -79,9 +83,9 @@ def lm_step(cfg, shape: InputShape, mesh, *, sharding="basic_ws",
             remat="basic", moe_group=4096, dispatch=None, param_dtype=None,
             batch_over="data"):
     """(step_fn, inputs) of rank ``mesh.rank``'s step of ``shape`` for the
-    LM ``cfg``: ``steps.make_train_step`` (bf16, ``remat``, on the rank's
-    parts under ``sharding``), ``make_prefill_step`` or
-    ``make_serve_step``, the inputs ``meta`` (``steps.shardings_for``)."""
+    LM ``cfg``: ``steps.make_train_step`` (bf16, ``remat``),
+    ``make_prefill_step`` or ``make_serve_step``, each on the rank's parts
+    under ``sharding``, the inputs ``meta`` (``steps.shardings_for``)."""
     import torch
     margs = dict(st.DEFAULT_MOE_ARGS, group=moe_group)
     serve_margs = None
@@ -102,11 +106,13 @@ def lm_step(cfg, shape: InputShape, mesh, *, sharding="basic_ws",
             cfg, remat=remat, moe_args=margs,
             mesh=mesh if mesh.distributed else None, layout=layout)
         return fn, inputs
-    _, inputs = st.shardings_for(cfg, shape, mesh, sharding, params_abs,
-                                 batch_over=batch_over)
+    (layout, _), inputs = st.shardings_for(cfg, shape, mesh, sharding,
+                                           params_abs, batch_over=batch_over)
     if shape.kind == "prefill":
-        return st.make_prefill_step(cfg, moe_args=margs), inputs
-    return st.make_serve_step(cfg, moe_args=serve_margs), inputs
+        return st.make_prefill_step(cfg, moe_args=margs, mesh=mesh,
+                                    layout=layout), inputs
+    return st.make_serve_step(cfg, moe_args=serve_margs, mesh=mesh,
+                              layout=layout), inputs
 
 
 def contrastive_step(dual_cfg, shape: InputShape, mesh, *,
@@ -126,29 +132,35 @@ def contrastive_step(dual_cfg, shape: InputShape, mesh, *,
     return fn, inputs
 
 
-def _traced(fn, inputs, label):
-    """(row, seconds) of ``memstats.step_stats`` on the meta inputs, with
-    the bytes of the params and the optimizer state (the inputs' first
-    two) in ``memory``."""
+# the inputs whose bytes a row records, by the step's kind: (params,
+# opt_state, batch), (params, batch) or (params, caches, token, pos)
+_HELD = {"train": ("params", "opt_state"), "contrastive": ("params",
+         "opt_state"), "prefill": ("params",), "decode": ("params", "caches")}
+
+
+def _traced(fn, inputs, label, kind):
+    """(row, seconds) of ``memstats.step_stats`` on the meta inputs of a
+    step of ``kind``, with the bytes of the params and of the optimizer
+    state or the decode caches (``_HELD``) in ``memory``."""
     t0 = time.time()
     row = memstats.step_stats(fn, inputs, label=label)
     secs = time.time() - t0
-    if len(inputs) == 3:
-        for key, tree in (("params", inputs[0]), ("opt_state", inputs[1])):
-            row["memory"][f"{key}_bytes_per_device"] = sum(
-                t.numel() * t.element_size() for t in tree_leaves(tree))
+    for key, tree in zip(_HELD[kind], inputs):
+        row["memory"][f"{key}_bytes_per_device"] = sum(
+            t.numel() * t.element_size() for t in tree_leaves(tree))
     return row, secs
 
 
-def run_one(arch: str, shape_name, *, multi_pod=False, sharding="basic_ws",
+def run_one(arch, shape_name, *, multi_pod=False, sharding="basic_ws",
             remat="basic", verbose=True, unroll=None, attn="naive",
             moe_group=4096, dispatch=None, param_dtype=None,
             batch_over="data", ssm_chunk=None, mesh=None) -> dict:
-    """Trace rank 0's step of (``arch``, ``shape_name``: a name of
-    ``INPUT_SHAPES`` or an ``InputShape``) on the mesh (``mesh``: axis
-    sizes, default the production mesh) and return the reference's
-    result dict."""
-    cfg = get_arch(arch)
+    """Trace rank 0's step of (``arch``: a name or a config,
+    ``shape_name``: a name of ``INPUT_SHAPES`` or an ``InputShape``) on
+    the mesh (``mesh``: axis sizes, default the production mesh) and
+    return the reference's result dict."""
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
+    arch = cfg.name
     if not hasattr(cfg, "family"):      # dual-encoder (basic-{s,m,l})
         return run_contrastive_dryrun(
             cfg, shape_name, multi_pod=multi_pod, sharding=sharding,
@@ -166,7 +178,7 @@ def run_one(arch: str, shape_name, *, multi_pod=False, sharding="basic_ws",
                              remat=remat, moe_group=moe_group,
                              dispatch=dispatch, param_dtype=param_dtype,
                              batch_over=batch_over)
-        row, secs = _traced(fn, inputs, f"{arch} {shape.name}")
+        row, secs = _traced(fn, inputs, f"{arch} {shape.name}", shape.kind)
         del inputs
     terms = rf.roofline_terms({"flops": row["flops_per_device"],
                                "bytes accessed":
@@ -227,7 +239,8 @@ def run_contrastive_dryrun(dual_cfg, shape_name, *, multi_pod=False,
         fn, inputs = contrastive_step(
             dual_cfg, shape, live, sharding=sharding, remat=remat,
             num_micro=num_micro, batch_over=batch_over, attn=attn)
-        row, secs = _traced(fn, inputs, f"{dual_cfg.name} {shape.name}")
+        row, secs = _traced(fn, inputs, f"{dual_cfg.name} {shape.name}",
+                            shape.kind)
         del inputs
     terms = rf.roofline_terms({"flops": row["flops_per_device"],
                                "bytes accessed":

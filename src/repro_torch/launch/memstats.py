@@ -36,8 +36,11 @@ CLI (``--devices N`` traces one rank of an N-rank world on ``meta``, on a
       --smoke --devices 8 --model-parallel 2 --batch 64 --num-micro 2 \\
       --remat basic,none,full,dots --loss chunked
 
-Library: ``step_stats(step_fn, example_inputs)`` for one report row (also
-printed by ``train_distributed --memstats`` for its first step);
+Library: ``step_stats(step_fn, example_inputs)`` for one report row of any
+step (also printed by ``train_distributed --memstats`` for its first step,
+and taken by the dry run of every training, prefill and decode step on a
+rank's parts, counted alike: the parts and caches are the arguments, the
+gathers or all-reduces the collectives);
 ``measured_step`` gives the step's outputs beside the row;
 ``contrastive_report(...)`` for the policy sweep; ``format_rows`` to
 render. All rows are plain dicts, JSON-ready (``--json PATH``).

@@ -25,7 +25,9 @@ gradient arrives as a part summed over its model group and is then summed
 over the data axis; a whole leaf's is summed over every rank. Under a
 'tp' layout (Megatron execution, ``core.tensor_parallel``) the models
 compute with the parts, the batch is split over the data axis only, and
-every gradient is summed over the data axis.
+every gradient is summed over the data axis. The prefill and decode
+steps run on a rank's parts under either rule (``shardings_for``): the
+reference's sharded serving steps, one program a rank.
 """
 from __future__ import annotations
 
@@ -205,47 +207,84 @@ def make_train_step(cfg: ArchConfig, *, remat: Optional[str] = "basic",
                    moe_args=margs, mesh=mesh, layout=layout), opt
 
 
+def serving_layout(cfg: ArchConfig, mesh, mode: str):
+    """The weight-sharding layout of a serving step's params on ``mesh``
+    under the rule ``mode``: ``train_distributed.param_layout``'s, where
+    under 'tp' every leaf Megatron uses whole is held whole
+    (``tensor_parallel.serving``), so a step gathers no weight."""
+    from repro_torch.launch import train_distributed as td
+    return tp.serving(td.param_layout(cfg, mesh, mode))
+
+
+def _serving_layout(mesh, layout):
+    """``layout``, after checking that it lies over ``mesh``'s model axis
+    (a serving step issues collectives over that axis alone: a rank
+    computes its own rows). The mesh's data axis is not used yet: the
+    sequence split of the caches over it (ROADMAP) will be."""
+    if layout is not None and mesh is not None and \
+            layout.axis.size != mesh.model_size:
+        raise ValueError(f"the layout splits over {layout.axis.size} model "
+                         f"ranks, the mesh has {mesh.model_size}")
+    return layout
+
+
 def make_prefill_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
-                      precision="bf16"):
+                      precision="bf16", collect_cache_len=None, mesh=None,
+                      layout=None):
     """The prefill step: prefill_step(params, batch) -> the last position's
-    logits (b, 1, vocab); ``moe_args`` default to ``DEFAULT_MOE_ARGS``."""
+    logits (b, 1, vocab), or with ``collect_cache_len`` (logits, the
+    decode caches built from the prompt); ``moe_args`` default to
+    ``DEFAULT_MOE_ARGS``. With a ``mesh`` and the params' weight-sharding
+    ``layout`` (``serving_layout``, as ``shardings_for`` places them) the
+    step is one rank's on its parts, its caches the rank's, its logits
+    the whole vocab (``transformer.prefill``); it issues collectives over
+    the layout's model group alone, and ``mesh`` is checked against it
+    (``mesh`` is kept, as ``make_train_step`` has it, for the data axis
+    the caches' sequence split will need)."""
     margs = DEFAULT_MOE_ARGS if moe_args is None else moe_args
+    layout = _serving_layout(mesh, layout)
 
     def prefill_step(params, batch):
         return tf.prefill(cfg, params, batch, precision=precision,
-                          moe_args=margs)
+                          moe_args=margs, collect_cache_len=collect_cache_len,
+                          layout=layout)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
-                    precision="bf16"):
+                    precision="bf16", mesh=None, layout=None):
     """The single-token decode step: serve_step(params, caches, token, pos)
     -> (logits (b, 1, vocab), caches), the caches written in place.
     ``moe_args`` default to ``DEFAULT_MOE_ARGS`` with dense dispatch (the
     reference's default for one token a row: exact, every expert on every
-    token)."""
+    token). With a ``mesh`` and a ``layout`` as in ``make_prefill_step``:
+    the rank's parts, the rank's caches (``transformer.init_caches(...,
+    layout=)``), the whole logits."""
     margs = (dict(DEFAULT_MOE_ARGS, dispatch="dense") if moe_args is None
              else dict(moe_args))
+    layout = _serving_layout(mesh, layout)
 
     def serve_step(params, caches, token, pos):
         return tf.decode_step(cfg, params, token, pos, caches,
-                              precision=precision, moe_args=margs)
+                              precision=precision, moe_args=margs,
+                              layout=layout)
 
     return serve_step
 
 
 def input_specs(cfg: ArchConfig, shape: InputShape, *,
-                dtype=torch.bfloat16) -> dict:
+                dtype=torch.bfloat16, layout=None) -> dict:
     """``meta`` stand-ins for every model input of ``shape``: a train or
     prefill batch (``frontends.train_inputs_spec``), or for decode the
-    caches, the token (b, 1) int32 and the position () int32."""
+    caches (one rank's under a 'tp' ``layout``), the token (b, 1) int32
+    and the position () int32."""
     if shape.kind in ("train", "prefill"):
         return frontends.train_inputs_spec(cfg, shape, dtype=dtype)
     b = shape.global_batch
     return {
         "caches": tf.init_caches(cfg, b, shape.seq_len, dtype,
-                                 device="meta"),
+                                 device="meta", layout=layout),
         "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
         "pos": torch.empty((), dtype=torch.int32, device="meta"),
     }
@@ -295,44 +334,53 @@ def shardings_for(cfg, shape: InputShape, mesh, mode: str, params_abs,
 
     torch has no shardings. Where the reference returns the in_shardings
     of one GSPMD program and its whole abstract inputs, the port runs one
-    program a rank, so this returns what rank ``mesh.rank`` is handed:
-    its parts of ``params_abs`` and of the optimizer state ``opt_abs``
-    under the rule (``train_distributed.param_layout``) and its rows of
-    the batch (``batch_rows``), all ``meta``. A train or contrastive step
-    takes (params, opt_state, batch); the port's prefill and decode steps
-    take whole params (its servers run in one process) and the rank's
-    rows: (params, batch) and (params, caches, token, pos), pos the rows'
-    positions (b,) int32.
+    program a rank, so this returns what rank ``mesh.rank`` is handed,
+    all ``meta``: its parts of ``params_abs`` under the rule
+    (``train_distributed.param_layout``; for a prefill or decode step
+    ``serving_layout``, which under 'tp' holds whole the norm scales, the
+    mixer's B, C and conv weights and the vision frontend, so a rank
+    holds (M - 1)/M of those leaves more than the reference's
+    ``params_specs`` place on a device), of the optimizer state
+    ``opt_abs`` for a train or contrastive step, and its rows of the
+    batch (``batch_rows``). A train or contrastive step takes (params,
+    opt_state, batch), prefill (params, batch), decode (params, caches,
+    token, pos), pos the rows' positions (b,) int32, and the caches the
+    rank's rows' (``transformer.init_caches(..., layout=)``: under 'tp'
+    its KV/M kv heads and H/M SSD heads, else whole). So under 'tp' a
+    rank's cache bytes are 1/M of its rows' (the SSD conv window keeps all
+    of B and C); the reference's ``cache_specs`` split the sequence or
+    state axis over the model axis instead, and under ``basic_ws`` a rank
+    here holds its rows' caches whole, M times the reference's bytes.
 
     Returns (layouts, inputs): the (params, opt_state) weight-sharding
-    layouts (None where every leaf is whole; give the params' layout to
-    the step) and the tuple of the step's inputs."""
+    layouts (None where every leaf is whole, and the state's for a
+    serving step; give the params' layout to the step) and the tuple of
+    the step's inputs."""
     import dataclasses as dc
 
     from repro_torch.launch import train_distributed as td
     from repro_torch.tree import tree_leaves, unflatten
-    if shape.kind not in ("train", "contrastive"):
-        rows = batch_rows(shape.global_batch, mesh, None, batch_over)
-        ins = input_specs(cfg, dc.replace(shape, global_batch=rows),
-                          dtype=dtype)
-        if shape.kind == "prefill":
-            return (None, None), (params_abs, ins)
-        # per-slot positions (the continuous engine's), which a trace on
-        # meta tensors can carry: one position for every row is a host int
-        pos = torch.empty((rows,), dtype=torch.int32, device="meta")
-        return (None, None), (params_abs, ins["caches"], ins["token"], pos)
-    layout = td.param_layout(cfg, mesh, mode)
+    serving = shape.kind in ("prefill", "decode")
+    layout = (serving_layout(cfg, mesh, mode) if serving
+              else td.param_layout(cfg, mesh, mode))
     rows = dc.replace(shape, global_batch=batch_rows(
         shape.global_batch, mesh, layout, batch_over))
+    params = ws.cut(params_abs, layout)
+    if serving:
+        ins = input_specs(cfg, rows, dtype=dtype, layout=layout)
+        if shape.kind == "prefill":
+            return (layout, None), (params, ins)
+        # per-slot positions (the continuous engine's), which a trace on
+        # meta tensors can carry: one position for every row is a host int
+        pos = torch.empty((rows.global_batch,), dtype=torch.int32,
+                          device="meta")
+        return (layout, None), (params, ins["caches"], ins["token"], pos)
     batch = (contrastive_input_specs(cfg, rows) if shape.kind == "contrastive"
              else input_specs(cfg, rows, dtype=dtype))
     if layout is None:
         return (None, None), (params_abs, opt_abs, batch)
     slayout = ws.Layout(make_optimizer().split_dims(params_abs, layout),
                         layout.axis)
-    params = unflatten(params_abs, [
-        ws.cut_leaf(x, d, layout.axis)
-        for x, d in zip(tree_leaves(params_abs), layout.flat_dims)])
     opt_state = unflatten(opt_abs, [
         ws.cut_leaf(x, d, layout.axis)
         for x, d in zip(tree_leaves(opt_abs), slayout.flat_dims)])

@@ -29,6 +29,10 @@ reference, which rewrites the whole cache through ``jnp.where`` at every
 step and donates the old one, the port writes the new k/v rows in place
 with one indexed store per tensor and returns the same cache objects.
 
+Under a model axis (``--sharding tp``, ``core.tensor_parallel``) a rank's
+cache holds its KV/M kv heads: prefill gives the rank's k/v and decode
+attends its H/M query heads over them, on the same kernels.
+
 A linear cache longer than the window is a reference behaviour the port
 reproduces: prefill honours the window, decode masks only ``idx <= pos``
 and so attends past it (``repro/models/attention.py:356``).
@@ -237,7 +241,9 @@ def attention(p, cfg: ArchConfig, x, positions, return_kv: bool = False,
     rank's column parts (its H/M query and KV/M kv heads) and ``wo`` its
     row part: the rank attends over its heads, and the input's gradient
     and the output are summed over the group; ``q_norm``/``k_norm``, shared
-    by every head, have their gradients summed too."""
+    by every head, have their gradients summed too. The (k, v) returned
+    are then the rank's KV/M heads, from which ``cache_from_prefill``
+    builds the rank's cache."""
     b, s, _ = x.shape
     impl = resolve_backend(impl if impl is not None else cfg.attn_impl,
                            x.device)
@@ -351,7 +357,7 @@ def _write_cache(cfg: ArchConfig, cache: KVCache, k_new, v_new, pos,
 
 
 def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
-                     impl: Optional[str] = None):
+                     impl: Optional[str] = None, axis=None):
     """One-token decode. x: (b, 1, d); pos: an int (every row at one
     position, the lockstep engine) or a (b,) integer tensor of per-slot
     positions (the continuous engine: write, RoPE and length mask per
@@ -360,8 +366,16 @@ def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
     The new k/v rows are written into ``cache`` in place, and the same
     cache comes back: returns (out (b, 1, d), cache). ``impl``: decode
     backend ('einsum' | 'decode' | 'pallas' | 'auto' | ...); None defers
-    to ``cfg.attn_impl`` through ``resolve_decode_backend``."""
+    to ``cfg.attn_impl`` through ``resolve_decode_backend``. With the
+    model ``axis`` (``core.tensor_parallel``) ``wq``/``wk``/``wv`` are
+    this rank's column parts and ``wo`` its row part, as in
+    ``attention``: ``cache`` holds the rank's KV/M kv heads, the rank
+    attends its H/M query heads over them (the group count unchanged),
+    and the output is summed over the group."""
     b = x.shape[0]
+    if axis is not None:
+        cfg = tp.local_heads(cfg, axis.size)
+        x = tp.copy_to_model(x, axis)
     hd = cfg.resolved_head_dim
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
     if per_slot:
@@ -393,15 +407,17 @@ def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
     if impl == "decode":
         out = dec_ops.decode_attention(q.reshape(b, h, hd), cache.k,
                                        cache.v, valid)
-        return L.dense(out.reshape(b, 1, h * hd), p["wo"]), cache
-
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=x.device)
-    mask = torch.where(valid, zero, neg)
-    mask = mask[:, None, None, :] if per_slot else mask
-    qh = q.reshape(b, kv, h // kv, hd)
-    scores = torch.einsum("bkgd,bktd->bkgt", qh,
-                          cache.k.to(qh.dtype)) * (hd ** -0.5)
-    w = torch.softmax(scores.float() + mask, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgt,bktd->bkgd", w, cache.v.to(w.dtype))
-    return L.dense(out.reshape(b, 1, h * hd), p["wo"]), cache
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        neg = torch.full((), NEG_INF, dtype=torch.float32, device=x.device)
+        mask = torch.where(valid, zero, neg)
+        mask = mask[:, None, None, :] if per_slot else mask
+        qh = q.reshape(b, kv, h // kv, hd)
+        scores = torch.einsum("bkgd,bktd->bkgt", qh,
+                              cache.k.to(qh.dtype)) * (hd ** -0.5)
+        w = torch.softmax(scores.float() + mask, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgt,bktd->bkgd", w, cache.v.to(w.dtype))
+    out = L.dense(out.reshape(b, 1, h * hd), p["wo"])
+    if axis is not None:
+        out = tp.reduce_from_model(out, axis)
+    return out, cache

@@ -15,7 +15,9 @@ z, x and dt come from the rank's columns of ``in_z``, ``in_x`` and
 runs on the rank's x channels and all of B and C with the matching
 columns of the whole ``conv_w``, the scan on H/M heads with the rank's
 ``A_log``, ``D`` and ``dt_bias``, and the row-split ``out`` is summed
-over the group by ``reduce_from_model``.
+over the group by ``reduce_from_model``. Its cache is the rank's: its
+heads' SSD state and the conv window of its x channels and all of B and
+C; decode steps the same share.
 
 Decode is the O(1) recurrent form in plain PyTorch on both devices (the
 reference has no kernel there): the state (b, heads, head_dim, N) is
@@ -120,11 +122,11 @@ def _rank_split(p, cfg: ArchConfig, axis):
             "in_C": s.state_dim, "conv_w": c_all}
     for name, n in want.items():
         if p[name].shape[-1] != n:
-            raise ValueError(f"{cfg.name}: mamba_mixer on {m} model ranks "
+            raise ValueError(f"{cfg.name}: the mixer on {m} model ranks "
                              f"wants {name}'s last dim {n}, got "
                              f"{tuple(p[name].shape)}")
     if p["out"].shape[0] != d_in:
-        raise ValueError(f"{cfg.name}: mamba_mixer on {m} model ranks wants "
+        raise ValueError(f"{cfg.name}: the mixer on {m} model ranks wants "
                          f"out's rows {d_in}, got {tuple(p['out'].shape)}")
     w = p["conv_w"]
     return d_in, nheads, torch.cat([w[:, r * d_in:(r + 1) * d_in],
@@ -170,26 +172,36 @@ def mamba_mixer(p, cfg: ArchConfig, x, cache: SSMCache = None, axis=None):
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, *,
-                   device) -> SSMCache:
-    """Zeroed decode cache for one SSM block on ``device`` (required)."""
+                   device, model: int = 1) -> SSMCache:
+    """Zeroed decode cache for one SSM block on ``device`` (required); at
+    ``model`` > 1 one rank's under ``tp``: its H/M heads' state and the
+    conv window of its d_inner/M x channels and all of B and C."""
     s = cfg.ssm
-    _, nheads, d_conv = dims(cfg)
+    d_in, nheads, _ = dims(cfg)
     return SSMCache(
-        ssm=torch.zeros((batch, nheads, s.head_dim, s.state_dim),
+        ssm=torch.zeros((batch, nheads // model, s.head_dim, s.state_dim),
                         dtype=torch.float32, device=device),
-        conv=torch.zeros((batch, s.conv_width - 1, d_conv), dtype=dtype,
+        conv=torch.zeros((batch, s.conv_width - 1,
+                          d_in // model + 2 * s.state_dim), dtype=dtype,
                          device=device))
 
 
-def mamba_decode(p, cfg: ArchConfig, x, cache: SSMCache):
+def mamba_decode(p, cfg: ArchConfig, x, cache: SSMCache, axis=None):
     """Single-token recurrent step. x: (b, 1, d). Writes the new SSD state
     and conv window into ``cache`` in place; returns (out (b, 1, d),
-    cache)."""
+    cache). With the model ``axis`` the step runs on this rank's H/M
+    heads as ``mamba_mixer`` does (``_rank_split``): ``cache`` is the
+    rank's (``init_ssm_cache(..., model=M)``, or the one its prefill
+    built), and the output is summed over the group."""
     s = cfg.ssm
     d_in, nheads, _ = dims(cfg)
     b = x.shape[0]
+    w = p["conv_w"]
+    if axis is not None:
+        d_in, nheads, w = _rank_split(p, cfg, axis)
+        x = tp.copy_to_model(x, axis)
     z, xBC, dt = _project(p, cfg, x)                              # dt (b,1,h)
-    xBC, new_conv = _conv1d(xBC, p["conv_w"], cache.conv)
+    xBC, new_conv = _conv1d(xBC, w, cache.conv)
     xBC = F.silu(xBC)
     A = -torch.exp(p["A_log"].float())                            # (h,)
     dt0 = dt[:, 0, :]                                             # (b, h)
@@ -203,4 +215,7 @@ def mamba_decode(p, cfg: ArchConfig, x, cache: SSMCache):
     y = y.reshape(b, 1, d_in).to(x.dtype) * F.silu(z)
     cache.ssm.copy_(state)
     cache.conv.copy_(new_conv)
-    return L.dense(y, p["out"]), cache
+    out = L.dense(y, p["out"])
+    if axis is not None:
+        out = tp.reduce_from_model(out, axis)
+    return out, cache

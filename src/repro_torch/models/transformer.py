@@ -25,21 +25,26 @@ Entry points:
   init_params(cfg, generator, device, experts)   -> params dict
   lm_loss(cfg, params, batch, moe_args)          -> (loss, metrics)
   encode(cfg, params, batch)                     -> pooled (b, d_model)
-  prefill(cfg, params, batch, moe_args, collect_cache_len)
+  prefill(cfg, params, batch, moe_args, collect_cache_len, layout)
                                                  -> logits [, caches]
-  decode_step(cfg, params, token, pos, caches, moe_args)
+  decode_step(cfg, params, token, pos, caches, moe_args, layout)
                                                  -> (logits, caches)
-  init_caches(cfg, batch, seq_len, device=...)   -> zeroed caches
+  init_caches(cfg, batch, seq_len, device=..., layout=...)
+                                                 -> zeroed caches
 
 ``forward`` and ``encode`` take a ``remat_policy`` (``core.remat``) that
 wraps each block in a checkpoint, as the reference wraps each period step
-(``repro/models/transformer.py:168-169``). ``forward``, ``encode`` and
-``lm_loss`` take a ``layout`` (``core.weight_sharding``) when the params
-are this rank's parts of weights split over the model axis (paper §5.1):
-each block gathers its layer's weights inside the function remat wraps,
-and the embedding, the LM head and the vision frontend are gathered where
-they are used. ``decode_step`` writes each layer's new k/v (or SSD state
-and conv window) into the caches in place and returns the same objects. ``moe_args`` (``dispatch``, ``group``,
+(``repro/models/transformer.py:168-169``). ``forward``, ``encode``,
+``lm_loss``, ``prefill`` and ``decode_step`` take a ``layout``
+(``core.weight_sharding``) when the params are this rank's parts of
+weights split over the model axis (paper §5.1): each block gathers its
+layer's weights inside the function remat wraps, and the embedding, the
+LM head and the vision frontend are gathered where they are used; under
+a 'tp' layout each block computes with its parts
+(``core.tensor_parallel``), and a serving step holds the rank's caches
+and returns the whole logits on every rank. ``decode_step`` writes each
+layer's new k/v (or SSD state and conv window) into the caches in place
+and returns the same objects. ``moe_args`` (``dispatch``, ``group``,
 ``capacity_factor`` and the expert share ``experts``) go to every MoE
 FFN; ``lm_loss`` adds the MoE load-balance terms of all layers.
 ``init_params(..., experts=(first, count))`` draws only those experts of
@@ -144,15 +149,17 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
     """Pre-norm block: attention or the Mamba-2 mixer (by the block's
     leaves), then, outside the SSM family, a pre-norm SwiGLU or MoE FFN.
     ``axis``: the model axis when ``p`` holds this rank's Megatron parts
-    (``core.tensor_parallel.block_params``). Returns (h, the layer's
-    cache: the one given, written in place, when decoding; one built from
-    the prompt with ``collect_cache_len``; else None, the MoE load-balance
-    term or None)."""
+    (``core.tensor_parallel.block_params``); a cache is then the rank's
+    (its kv heads, or its SSD heads and conv channels). Returns (h, the
+    layer's cache: the one given, written in place, when decoding; one
+    built from the prompt with ``collect_cache_len``; else None, the MoE
+    load-balance term or None)."""
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     new_cache = None
     if "mamba" in p:
         if decode:
-            mix, new_cache = ssm_lib.mamba_decode(p["mamba"], cfg, hn, cache)
+            mix, new_cache = ssm_lib.mamba_decode(p["mamba"], cfg, hn, cache,
+                                                  axis=axis)
         else:
             mix, new_cache = ssm_lib.mamba_mixer(p["mamba"], cfg, hn,
                                                  axis=axis)
@@ -160,10 +167,11 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
                 new_cache = None
     elif decode:
         mix, new_cache = attn_lib.decode_attention(p["attn"], cfg, hn, cache,
-                                                   positions)
+                                                   positions, axis=axis)
     elif collect_cache_len is not None:
         mix, (k, v) = attn_lib.attention(p["attn"], cfg, hn, positions,
-                                         return_kv=True, key_mask=key_mask)
+                                         return_kv=True, key_mask=key_mask,
+                                         axis=axis)
         new_cache = attn_lib.cache_from_prefill(cfg, k, v, collect_cache_len)
     else:
         mix = attn_lib.attention(p["attn"], cfg, hn, positions,
@@ -219,7 +227,11 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     recomputed block gathers them again), or, under a 'tp' layout, the
     block computes with its parts (``core.tensor_parallel``) and its
     all-reduces run inside the remat wrapper, so a recomputed block
-    issues them again in the same order on every rank of the group.
+    issues them again in the same order on every rank of the group. The
+    decode and cache-building passes run each layer the same way: under
+    'tp' on its parts, with the rank's caches (``init_caches(...,
+    layout=)``), under any other layout on its leaves gathered whole for
+    that layer alone.
 
     Returns (h, caches, aux): the caches given (written in place), the
     ones built, or None; aux the sum of the MoE load-balance terms (an
@@ -230,18 +242,19 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     if decode:
         for r, j, p in _layers(cfg, params):
             c = caches[r]
-            h, _, aux = _apply_block(cfg, tp.resolve(p, lays[r]), h, positions,
+            p, margs, axis = _megatron_block(cfg, p, lays[r], moe_args)
+            h, _, aux = _apply_block(cfg, p, h, positions,
                                      cache=type(c)(*(x[j] for x in c)),
-                                     decode=True, moe_args=moe_args)
+                                     decode=True, moe_args=margs, axis=axis)
             terms.append(aux)
         out_caches = caches
     elif collect_cache_len is not None:
         built = [[] for _ in params["blocks"]]
         for r, _, p in _layers(cfg, params):
-            h, c, aux = _apply_block(cfg, tp.resolve(p, lays[r]), h, positions,
-                                     key_mask=key_mask,
+            p, margs, axis = _megatron_block(cfg, p, lays[r], moe_args)
+            h, c, aux = _apply_block(cfg, p, h, positions, key_mask=key_mask,
                                      collect_cache_len=collect_cache_len,
-                                     moe_args=moe_args)
+                                     moe_args=margs, axis=axis)
             built[r].append(c)
             terms.append(aux)
         out_caches = [type(b[0])(*(torch.stack(leaf) for leaf in zip(*b)))
@@ -418,47 +431,68 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
-                dtype=torch.bfloat16, *, device) -> list:
+                dtype=torch.bfloat16, *, device, layout=None) -> list:
     """Zeroed decode caches on ``device`` (required), stacked over the
     layers: a list with one entry per period position, by its layers'
     kind: a ``KVCache`` of (n_layers // period, batch, kv_heads,
     cache_len, head_dim), ring-sized when the window fits in ``seq_len``,
     or an ``SSMCache`` of (n_layers // period, batch, ...), whatever
-    ``seq_len``."""
+    ``seq_len``. Under a 'tp' ``layout`` of M model ranks they are one
+    rank's: KV/M kv heads, and the state of H/M SSD heads with the conv
+    window of their x channels (``ssm.init_ssm_cache``); under any other
+    layout whole."""
     period = period_of(cfg)
     n = cfg.n_layers // period
+    m = layout.axis.size if tp.active(layout) else 1
     caches = []
     for kind in cfg.layer_kinds()[:period]:
         if kind == "attn":
-            one = attn_lib.init_kv_cache(cfg, batch, seq_len, dtype,
-                                         device=device)
+            one = attn_lib.init_kv_cache(
+                cfg if m == 1 else tp.local_heads(cfg, m), batch, seq_len,
+                dtype, device=device)
         else:
-            one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device)
+            one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device,
+                                         model=m)
         caches.append(type(one)(*(x[None].expand(n, *x.shape).contiguous()
                                   for x in one)))
     return caches
 
 
+def _served_logits(cfg: ArchConfig, params, h, pol, layout):
+    """``logits_from_h`` with the whole vocab on every rank: where a 'tp'
+    layout splits the head on the vocab, the ranks' slices are joined
+    (``tensor_parallel.gather_from_model``)."""
+    logits = logits_from_h(cfg, params, h, pol, layout)
+    axis = vocab_axis(cfg, layout)
+    return logits if axis is None else tp.gather_from_model(logits, axis)
+
+
 def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
-            precision=None, moe_args=None, collect_cache_len=None):
+            precision=None, moe_args=None, collect_cache_len=None,
+            layout=None):
     """Forward over ``batch['tokens']`` (b, s) emitting the last position's
     logits (b, 1, vocab); with ``collect_cache_len`` also builds the decode
     caches (serving prefill) and returns (logits, caches). ``precision``
     (a policy or its name) wins over the legacy ``dtype``, whose default
-    is bf16, as in the reference; ``moe_args`` go to every MoE FFN."""
+    is bf16, as in the reference; ``moe_args`` go to every MoE FFN.
+    ``layout``: the params are this rank's parts (``forward``); the
+    caches built are then the rank's (``init_caches``' shapes) and the
+    logits are the whole vocab on every rank."""
     pol = prec_lib.resolve(precision, dtype)
-    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype)
+    h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype, layout)
     h, caches, _ = forward(cfg, params, h, pos, moe_args=moe_args,
-                           collect_cache_len=collect_cache_len)
+                           collect_cache_len=collect_cache_len,
+                           layout=layout)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = logits_from_h(cfg, params, h[:, -1:, :], pol)
+    logits = _served_logits(cfg, params, h[:, -1:, :], pol, layout)
     if collect_cache_len is not None:
         return logits, caches
     return logits
 
 
 def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
-                dtype=torch.bfloat16, precision=None, moe_args=None):
+                dtype=torch.bfloat16, precision=None, moe_args=None,
+                layout=None):
     """One decode step. token: (b, 1) integer tensor; pos: an int (every
     row at one position, the lockstep engine) or a (b,) integer tensor of
     per-slot positions (the continuous engine; Mamba layers ignore it).
@@ -466,10 +500,14 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
     ``caches`` in place; returns (logits (b, 1, vocab), caches).
     ``moe_args`` go to every MoE FFN: under capacity dispatch the b rows
     are one group, so a row's tokens depend on its batch-mates (the
-    reference's behaviour)."""
+    reference's behaviour). ``layout``: the params are this rank's parts
+    and ``caches`` the rank's (``init_caches(..., layout=)``); the token
+    is embedded vocab-parallel under 'tp' (``tensor_parallel.vocab_embed``)
+    and the logits are the whole vocab on every rank."""
     pol = prec_lib.resolve(precision, dtype)
-    h = params["embed"][token.long()].to(pol.compute_dtype)
+    h = tp.vocab_embed(params["embed"], ws.sub(layout, "embed"), token,
+                       pol.compute_dtype)
     h, caches, _ = forward(cfg, params, h, pos, caches=caches, decode=True,
-                           moe_args=moe_args)
+                           moe_args=moe_args, layout=layout)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return logits_from_h(cfg, params, h, pol), caches
+    return _served_logits(cfg, params, h, pol, layout), caches

@@ -7,7 +7,14 @@ step of an (arch × input shape × mesh) traced on ``meta`` tensors over a
 - A rank's params and optimizer-state bytes in a dry run equal the parts
   the trainer places on a rank of a gloo world (``tests/torch_spawn.py``)
   at (1, 2) and (2, 2) under ``basic_ws`` and at (1, 2) under ``tp`` and
-  ``replicated`` (smoke BASIC-S).
+  ``replicated`` (smoke BASIC-S); so do a serving step's params (smoke
+  Llama-3.2-1B's prefill and decode under ``tp`` and ``basic_ws`` at (1,
+  2)), whose peak is below the whole-weight trace's and whose decode
+  caches are the rank's kv heads' under ``tp``.
+- Llama-3.2-1B's ``prefill_32k`` and ``decode_32k`` under ``tp`` and
+  ``basic_ws`` on a (16, 8) mesh trace a rank's parts; a ``tp`` decode
+  step's collectives are two all-reduces a block, the embedding's, and
+  the logits' gather (the norm scales are held whole).
 - With the flash kernels' backend the trace counts each flash call as the
   kernel's work (``launch.roofline``), not as the plain version's
   products.
@@ -22,14 +29,18 @@ import sys
 import time
 
 import pytest
+import torch
 
 from repro_torch.configs import get_arch, smoke_dual_variant, smoke_variant
 from repro_torch.configs.base import InputShape
+from repro_torch.core import sharding as shd
+from repro_torch.interop import init_params
 from repro_torch.launch import dryrun
 from repro_torch.launch import memstats
 from repro_torch.launch import roofline as rf
-from repro_torch.launch.mesh import fake_world
+from repro_torch.launch.mesh import Mesh, fake_world
 from repro_torch.launch.spawn import run_world
+from repro_torch.tree import leaves
 
 sys.path.insert(0, os.path.dirname(__file__))
 
@@ -64,29 +75,102 @@ def test_llama_train_4k_on_the_pod_mesh():
     assert 0 < r["useful_flops_ratio"] < 1
 
 
-GRIDS = [((1, 2), "basic_ws"), ((2, 2), "basic_ws"), ((1, 2), "tp"),
-         ((1, 2), "replicated")]
+# (grid, sharding, step kind): smoke BASIC-S's contrastive step, or smoke
+# Llama-3.2-1B's serving step of that kind on the rank's parts
+GRIDS = [((1, 2), "basic_ws", "contrastive"),
+         ((2, 2), "basic_ws", "contrastive"), ((1, 2), "tp", "contrastive"),
+         ((1, 2), "replicated", "contrastive"), ((1, 2), "tp", "decode"),
+         ((1, 2), "basic_ws", "decode"), ((1, 2), "tp", "prefill"),
+         ((1, 2), "basic_ws", "prefill")]
 
 
-@pytest.mark.parametrize("grid,sharding", GRIDS,
-                         ids=[f"{g[0]}x{g[1]}-{s}" for g, s in GRIDS])
-def test_parts_bytes_equal_a_gloo_worlds(grid, sharding, tmp_path):
-    cfg = smoke_dual_variant(get_arch("basic-s"))
-    r = dryrun.run_contrastive_dryrun(
-        cfg, InputShape("c", 16, 16, "contrastive"), mesh=grid,
-        sharding=sharding, num_micro=2, verbose=False)
-    ranks = run_world(worker_parts_bytes, grid[0] * grid[1],
-                      str(tmp_path / "rdv"), grid[1], "basic-s", sharding)
+def _smoke_dry_run(grid, sharding, kind):
+    """The dry run's memory of the smoke step of ``kind`` on ``grid``."""
+    if kind == "contrastive":
+        return dryrun.run_contrastive_dryrun(
+            smoke_dual_variant(get_arch("basic-s")),
+            InputShape("c", 16, 16, "contrastive"), mesh=grid,
+            sharding=sharding, num_micro=2, verbose=False)["memory"]
+    return dryrun.run_one(smoke_variant(get_arch("llama3.2-1b")),
+                          InputShape(kind, 64, 4, kind), mesh=grid,
+                          sharding=sharding, verbose=False)["memory"]
+
+
+@pytest.fixture(scope="module")
+def gloo_bytes(tmp_path_factory):
+    """(grid, sharding, arch, serving) -> each rank's
+    ``worker_parts_bytes`` on a spawned gloo world, one world per key."""
+    done = {}
+
+    def get(grid, sharding, arch, serving):
+        key = (grid, sharding, arch, serving)
+        if key not in done:
+            done[key] = run_world(
+                worker_parts_bytes, grid[0] * grid[1],
+                str(tmp_path_factory.mktemp("rdv")), grid[1], arch, sharding,
+                serving)
+        return done[key]
+    return get
+
+
+@pytest.mark.parametrize(
+    "grid,sharding,kind", GRIDS,
+    ids=[f"{g[0]}x{g[1]}-{s}" + ("" if k == "contrastive" else f"-{k}")
+         for g, s, k in GRIDS])
+def test_parts_bytes_equal_a_gloo_worlds(grid, sharding, kind, gloo_bytes):
+    r = _smoke_dry_run(grid, sharding, kind)
+    ranks = gloo_bytes(grid, sharding, "basic-s" if kind == "contrastive"
+                       else "llama3.2-1b", kind != "contrastive")
     assert all(rank == ranks[0] for rank in ranks)
-    assert [r["memory"]["params_bytes_per_device"],
-            r["memory"]["opt_state_bytes_per_device"]] == ranks[0]
-    whole = dryrun.run_contrastive_dryrun(
-        cfg, InputShape("c", 16, 16, "contrastive"), mesh=(1, 1),
-        num_micro=2, verbose=False)["memory"]["params_bytes_per_device"]
+    whole = _smoke_dry_run((1, 1), sharding, kind)
+    if kind == "contrastive":
+        assert [r["params_bytes_per_device"],
+                r["opt_state_bytes_per_device"]] == ranks[0]
+    else:                       # a serving step: its parts, no slots
+        assert r["params_bytes_per_device"] == ranks[0][0]
+        assert r["peak_bytes_per_device"] < whole["peak_bytes_per_device"]
     if sharding == "replicated":
-        assert ranks[0][0] == whole
+        assert ranks[0][0] == whole["params_bytes_per_device"]
     else:
-        assert ranks[0][0] < whole
+        assert ranks[0][0] < whole["params_bytes_per_device"]
+    if kind == "decode":        # tp: the rank's kv heads; basic_ws: whole
+        share = 2 if sharding == "tp" else 1
+        assert r["caches_bytes_per_device"] * share == \
+            whole["caches_bytes_per_device"]
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("sharding", ["tp", "basic_ws"])
+def test_serving_combos_trace_a_ranks_parts(shape, sharding):
+    """Llama-3.2-1B's serving combos at full size on a (16, 8) mesh: the
+    rank's params are 1/8 of every split leaf plus the whole ones (under
+    ``tp`` the norm scales held whole); under ``tp`` a decode step hands
+    its collectives two all-reduces of the rows' (b, 1, d) bf16
+    activations a block plus the embedding's, and all-gathers the logits'
+    vocab slices once; under ``basic_ws`` it all-gathers weights and
+    reduces nothing."""
+    cfg = get_arch("llama3.2-1b")
+    r = dryrun.run_one("llama3.2-1b", shape, mesh=(16, 8), sharding=sharding,
+                       verbose=False)
+    assert r["ok"] and set(r) >= REFERENCE_KEYS
+    specs = dict(shd.spec_leaves(shd.params_specs(
+        init_params(cfg, torch.Generator(), "meta"),
+        Mesh({"data": 16, "model": 8}), sharding)))
+    held = ("ln1", "ln2") if sharding == "tp" else ()
+    want = sum(x.numel() * 4 // (8 if "model" in specs[p]
+                                 and p.rsplit("/", 1)[-1] not in held else 1)
+               for p, x in leaves(init_params(cfg, torch.Generator(),
+                                              "meta")))
+    assert r["memory"]["params_bytes_per_device"] == want
+    c = r["collectives"]
+    if sharding == "basic_ws":
+        assert c["all-reduce"] == 0 and c["all-gather"] > 0
+        return
+    if shape == "decode_32k":
+        rows, n, d = 128 // 16, cfg.n_layers, cfg.d_model
+        assert c["all-reduce"] == (2 * n + 1) * rows * d * 2
+        assert c["all-gather"] == rows * cfg.vocab // 8 * 4
+        assert c["count"] == 2 * n + 2
 
 
 def test_a_flash_call_counts_as_the_kernels_work():

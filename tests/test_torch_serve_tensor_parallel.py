@@ -1,0 +1,428 @@
+"""The port's sharded serving steps (``steps.make_prefill_step`` /
+``make_serve_step`` on a rank's parts, ``transformer.prefill`` /
+``decode_step`` with a ``layout``) on spawned gloo worlds, against the
+reference's ``make_prefill_step`` / ``make_serve_step`` on the whole
+weights, f32, logits rtol 1e-5 / atol 1e-6 of their largest entry (the
+tp tests' tolerance).
+
+- Each case: the reference's smoke params (``repro_torch.interop``) cut by
+  the rule on the (world / M, M) mesh, the prefill with
+  ``collect_cache_len`` and 4 decode steps, lockstep (an int) or per-slot
+  ((b,) positions): smoke Llama-3.2-1B under ``tp`` at (1, 2) and
+  (2, 2) and under ``basic_ws`` at (1, 2), smoke
+  Mixtral-8x22B under ``tp`` (experts split, dense dispatch), smoke
+  Mamba-2-130M and smoke Jamba under ``tp``, smoke InternVL2 from image
+  patches and tokens under ``tp``.
+- Every rank's logits are the whole vocab and the reference's; its caches
+  after the prefill and after the last step are its rows' and, under
+  ``tp``, its kv heads' (or SSD heads' and their conv channels') slice of
+  the reference's caches.
+- Under ``tp`` no rank gathers a weight: the params are placed by
+  ``steps.serving_layout``, which holds the norm scales, the mixer's B, C
+  and conv weights and the vision frontend whole, and every expert
+  product runs over E/M experts.
+- ``scripts/serve_sharded_probe.py --device cpu --smoke`` on two gloo
+  ranks: smoke Llama under ``tp`` serves the tokens one rank serves, its
+  prefill logits within 1e-5 of the largest, and a decode step hands its
+  collectives 2 all-reduces a block and the embedding's, and all-gathers
+  the logits alone.
+- A rank's params and cache bytes follow the rule (under ``tp`` the
+  leaves held whole, whole); against the
+  reference's ``cache_specs`` at full size they are equal under ``tp``
+  where the batch splits over the data axes (the SSD conv window keeps
+  all of B and C), M times under ``basic_ws``, and at ``long_500k`` (b 1)
+  the data ranks repeat the row (the differences by design).
+"""
+import functools
+import math
+import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh
+
+from repro.configs import get_arch as jax_get_arch
+from repro.configs import smoke_variant as jax_smoke_variant
+from repro.core import sharding as jshd
+from repro.launch import steps as jsteps
+from repro.models import frontends as jfe
+from repro.models import transformer as jtf
+from repro_torch.configs import get_arch, smoke_variant
+from repro_torch.configs.base import INPUT_SHAPES
+from repro_torch.core import sharding as shd
+from repro_torch.interop import init_params
+from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.spawn import run_world
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.tree import leaves, tree_leaves
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+from torch_spawn import worker_serve_probe, worker_tp_serve  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-6
+DENSE = {"dispatch": "dense"}
+PROMPT, CACHE_LEN, STEPS = 32, 48, 4
+# name: (arch, sharding, (data, model), per-slot positions)
+CASES = {
+    "llama-tp-1x2": ("llama3.2-1b", "tp", (1, 2), False),
+    "llama-tp-2x2-slots": ("llama3.2-1b", "tp", (2, 2), True),
+    "llama-basic_ws-1x2-slots": ("llama3.2-1b", "basic_ws", (1, 2), True),
+    "mixtral-tp-1x2-slots": ("mixtral-8x22b", "tp", (1, 2), True),
+    "mamba2-tp-1x2": ("mamba2-130m", "tp", (1, 2), False),
+    "jamba-tp-1x2-slots": ("jamba-1.5-large-398b", "tp", (1, 2), True),
+    "internvl2-tp-1x2": ("internvl2-76b", "tp", (1, 2), False),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(arch):
+    """The reference's smoke params of ``arch`` from key 0, numpy."""
+    jcfg = jax_smoke_variant(jax_get_arch(arch))
+    return jax.device_get(jax.jit(functools.partial(jtf.init_params, jcfg))(
+        jax.random.key(0)))
+
+
+def _case(name):
+    """The worker's case of ``name``: the reference's smoke weights, a
+    numpy batch (2 rows a data shard), the decode tokens and positions."""
+    arch, sharding, (data, _), slots = CASES[name]
+    jcfg = jax_smoke_variant(jax_get_arch(arch))
+    weights = _weights(arch)
+    rng = np.random.default_rng(len(name))
+    b = 2 * data
+    if jcfg.family == "vlm":     # 16 patches, then 16 tokens
+        full = jax.device_get(jfe.synthetic_inputs(jcfg, b, PROMPT, rng))
+        batch = {k: np.asarray(full[k]) for k in ("image", "tokens")}
+    else:
+        batch = {"tokens": rng.integers(0, jcfg.vocab, (b, PROMPT)).astype(
+            np.int32)}
+    start = PROMPT
+    # per-slot: each row at its own depth, writing over the prompt's tail
+    positions = (start - np.arange(b, dtype=np.int64) % 3 if slots
+                 else start)
+    tokens = rng.integers(0, jcfg.vocab, (STEPS, b, 1)).astype(np.int32)
+    return {"arch": arch, "sharding": sharding, "weights": weights,
+            "batch": batch, "tokens": tokens, "positions": positions,
+            "cache_len": CACHE_LEN, "moe_args": DENSE}
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """name -> (the case, each rank's ``worker_tp_serve`` record). The
+    spawned worlds, one per grid running its cases, start at once in
+    threads, so the reference's steps in this process overlap them."""
+    cases = {n: _case(n) for n in CASES}
+    grids = sorted({c[2] for c in CASES.values()})
+    pool = ThreadPoolExecutor(len(grids))
+    worlds = {}
+    for grid in grids:
+        names = [n for n, c in CASES.items() if c[2] == grid]
+        worlds[grid] = names, pool.submit(
+            run_world, worker_tp_serve, grid[0] * grid[1],
+            str(tmp_path_factory.mktemp("rdv")), grid[1],
+            [cases[n] for n in names], timeout=240)
+
+    def get(name):
+        names, world = worlds[CASES[name][2]]
+        return cases[name], [r[names.index(name)] for r in world.result()]
+    yield get
+    pool.shutdown()
+
+
+def _reference(case):
+    """The reference's prefill logits and caches from the prompt (its
+    ``prefill``, which its ``make_prefill_step`` calls, with
+    ``collect_cache_len``), each ``make_serve_step`` step's logits and
+    the caches after the last step, all numpy."""
+    jcfg = jax_smoke_variant(jax_get_arch(case["arch"]))
+    p = jax.tree.map(jnp.asarray, case["weights"])
+    batch = jax.tree.map(jnp.asarray, case["batch"])
+    margs = case["moe_args"]
+    out, caches = jtf.prefill(jcfg, p, batch, precision="f32",
+                              moe_args=margs,
+                              collect_cache_len=case["cache_len"])
+    logits = [out]
+    pre = jax.device_get(caches)
+    serve = jax.jit(jsteps.make_serve_step(jcfg, precision="f32",
+                                           moe_args=margs))
+    pos = case["positions"]
+    for i, tok in enumerate(case["tokens"]):
+        at = jnp.asarray(pos + i, jnp.int32)
+        out, caches = serve(p, caches, jnp.asarray(tok), at)
+        logits.append(out)
+    return [np.asarray(x) for x in logits], pre, jax.device_get(caches)
+
+
+# the SSM and hybrid families' own tests hold the one-rank port to the
+# reference at these (tests/test_torch_ssm.py, tests/test_torch_hybrid.py):
+# the mixer's scan sums in another order, so the one-rank port's smoke
+# Jamba logits are 4.6e-6 off (1.7e-6 of the largest)
+FAMILY_TOL = {"ssm": dict(rtol=1e-4, atol=1e-5),
+              "hybrid": dict(rtol=2e-4, atol=1e-5)}
+
+
+def _close(got, want, what, cache=False, family=None):
+    """rtol 1e-5 and atol 1e-6 of the largest entry for logits; a cache's
+    atol is 1e-5 of its largest entry, as the tp tests give gradients:
+    the one-rank port's own caches are up to 1.3e-6 of the largest entry
+    off the reference's (smoke Llama's k and v), as its products sum in
+    another order. ``family`` 'ssm' or 'hybrid': that family's tolerance
+    against the reference (``FAMILY_TOL``)."""
+    want = np.asarray(want)
+    if family in FAMILY_TOL:
+        np.testing.assert_allclose(got, want, err_msg=what,
+                                   **FAMILY_TOL[family])
+        return
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=RTOL,
+                               atol=(RTOL if cache else ATOL) * scale,
+                               err_msg=what)
+
+
+def _one_rank(case):
+    """The port's own steps on the whole weights and every row, as
+    ``_reference`` returns the reference's (the sharding's error is
+    measured against these)."""
+    from repro_torch import interop
+    cfg = smoke_variant(get_arch(case["arch"]))
+    p = interop.from_numpy(case["weights"], "cpu")
+    kw = dict(precision="f32", moe_args=case["moe_args"])
+    with torch.no_grad():
+        out, caches = st.make_prefill_step(
+            cfg, collect_cache_len=case["cache_len"], **kw)(
+            p, {k: torch.from_numpy(v) for k, v in case["batch"].items()})
+        logits = [out.numpy()]
+        pre = [type(c)(*(a.copy() for a in c))
+               for c in interop.caches_to_numpy(caches)]
+        serve = st.make_serve_step(cfg, **kw)
+        pos = case["positions"]
+        for i, tok in enumerate(case["tokens"]):
+            at = torch.from_numpy(pos + i) if hasattr(pos, "shape") \
+                else pos + i
+            out, caches = serve(p, caches, torch.from_numpy(tok), at)
+            logits.append(out.numpy())
+    return logits, pre, interop.caches_to_numpy(caches)
+
+
+def _rank_slice(cfg, cache, rows, model, index, tp):
+    """The reference cache's leaves (L, b, ...) that rank ``index`` of
+    ``model`` holds: its rows and, under tp, its kv heads, or its SSD
+    heads and the conv window of its x channels and all of B and C."""
+    first, n = rows
+    out = [np.asarray(x)[:, first:first + n] for x in cache]
+    if not tp or model == 1:
+        return out
+    if type(cache).__name__ == "KVCache":
+        kv = cfg.n_kv_heads // model
+        return [x[:, :, index * kv:(index + 1) * kv] for x in out]
+    d_in, heads, _ = ssm_lib.dims(cfg)
+    h, c = heads // model, d_in // model
+    ssm, conv = out
+    return [ssm[:, :, index * h:(index + 1) * h],
+            np.concatenate([conv[..., index * c:(index + 1) * c],
+                            conv[..., d_in:]], axis=-1)]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_steps_are_the_references(served, name):
+    """Every rank's logits and caches against the reference's (at the tp
+    tolerance, or the SSM families' own) and against the one-rank port's
+    (at the tp tolerance, where the sharding's rounding alone shows)."""
+    case, ranks = served(name)
+    arch, sharding, (_, model), _ = CASES[name]
+    cfg = smoke_variant(get_arch(arch))
+    for against, (logits, pre, post), family in (
+            ("reference", _reference(case), cfg.family),
+            ("one rank", _one_rank(case), None)):
+        for r, rec in enumerate(ranks):
+            first, n = rec["rows"]
+            assert len(rec["logits"]) == STEPS + 1
+            for i, (got, want) in enumerate(zip(rec["logits"], logits)):
+                assert got.shape == (n, 1, cfg.vocab)
+                _close(got, want[first:first + n],
+                       f"{against}: rank {r} logits {i}", family=family)
+            for what, got, want in (("prefill", rec["prefill_caches"], pre),
+                                    ("last step", rec["caches"], post)):
+                for j, (g, w) in enumerate(zip(got, want)):
+                    for k, (gl, wl) in enumerate(zip(g, _rank_slice(
+                            cfg, w, rec["rows"], model, r % model,
+                            sharding == "tp"))):
+                        _close(gl, wl, f"{against}: rank {r} {what} cache "
+                               f"{j} leaf {k}", cache=True, family=family)
+
+
+TP = [n for n, c in CASES.items() if c[1] == "tp"]
+
+
+@pytest.mark.parametrize("name", TP)
+def test_no_rank_gathers_a_block_weight_under_tp(served, name):
+    _, ranks = served(name)
+    cfg = smoke_variant(get_arch(CASES[name][0]))
+    model = CASES[name][2][1]
+    for rec in ranks:
+        # the leaves a block uses whole are held whole where they are
+        # placed: no step makes a leaf whole
+        assert rec["whole"] == [] and rec["gathered"] == [], rec
+        if cfg.moe is not None:
+            assert rec["experts"] and set(rec["experts"]) == {
+                cfg.moe.num_experts // model}
+        if cfg.ssm is not None:     # the prefill's scan on H/M heads
+            assert set(rec["scan_heads"]) == {ssm_lib.dims(cfg)[1] // model}
+
+
+# the leaves a serving step's params hold whole under tp, where the rule
+# splits them: the norm scales (over d), the mixer's B, C and conv
+# weights, the vision frontend
+HELD_WHOLE = ("ln1", "ln2", "in_B", "in_C", "conv_w")
+
+
+def _params_bytes(cfg, grid, sharding):
+    """Bytes of a rank's f32 parts: 1/M of every leaf the rule splits but,
+    under ``tp``, ``HELD_WHOLE`` and the frontend."""
+    whole = init_params(cfg, torch.Generator(), "meta")
+    specs = dict(shd.spec_leaves(shd.params_specs(
+        whole, Mesh({"data": grid[0], "model": grid[1]}), sharding)))
+
+    def held(p):
+        return sharding == "tp" and (p.rsplit("/", 1)[-1] in HELD_WHOLE
+                                     or p.startswith("frontend/"))
+    return sum(x.numel() * 4 // (grid[1] if "model" in specs[p]
+                                 and not held(p) else 1)
+               for p, x in leaves(whole))
+
+
+def _rank_caches(cfg, batch, model):
+    """A rank's f32 caches of ``batch`` rows at ``CACHE_LEN`` on ``meta``
+    under 'tp' at (1, ``model``) (whole at 1)."""
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.models import transformer as ttf
+    lay = None if model == 1 else tp.layout(
+        cfg, init_params(cfg, torch.Generator(), "meta"),
+        Mesh({"data": 1, "model": model}))
+    return ttf.init_caches(cfg, batch, CACHE_LEN, torch.float32,
+                           device="meta", layout=lay)
+
+
+def _nbytes(tree):
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_bytes_follow_the_rule(served, name):
+    _, ranks = served(name)
+    arch, sharding, grid, _ = CASES[name]
+    cfg = smoke_variant(get_arch(arch))
+    for rec in ranks:
+        n = rec["rows"][1]
+        whole = _nbytes(_rank_caches(cfg, n, 1))
+        want = whole if sharding != "tp" else _nbytes(
+            _rank_caches(cfg, n, grid[1]))
+        assert rec["params_bytes"] == _params_bytes(cfg, grid, sharding)
+        assert rec["cache_bytes"] == want
+        if sharding == "tp" and cfg.ssm is None:
+            assert want * grid[1] == whole
+
+
+# ---------------------------------------------------------------------------
+# the rank's cache bytes against the reference's cache_specs, full size
+# ---------------------------------------------------------------------------
+
+
+def _reference_bytes(arch, shape, grid):
+    """Per-device bytes of the reference's decode caches of ``shape``
+    under its ``cache_specs`` on an ``AbstractMesh`` of ``grid``, by
+    leaf kind ('kv', 'ssm', 'conv')."""
+    jcfg = jax_get_arch(arch)
+    caches = jax.eval_shape(lambda: jtf.init_caches(
+        jcfg, shape.global_batch, shape.seq_len, jnp.bfloat16))
+    mesh = AbstractMesh(grid, ("data", "model"))
+    sizes = dict(zip(("data", "model"), grid))
+    out = {}
+    for c, spec in zip(caches, jshd.cache_specs(caches, mesh)):
+        kinds = ("kv", "kv") if type(c).__name__ == "KVCache" \
+            else ("ssm", "conv")
+        for kind, x, s in zip(kinds, c, spec):
+            split = 1
+            for part in s:
+                for a in (part if isinstance(part, tuple) else (part,)):
+                    split *= sizes.get(a, 1)
+            out[kind] = out.get(kind, 0) + \
+                math.prod(x.shape) * x.dtype.itemsize // split
+    return out
+
+
+def _port_bytes(arch, shape, grid, sharding):
+    """Bytes of rank 0's decode caches of ``shape`` as
+    ``steps.shardings_for`` hands them out, by leaf kind."""
+    cfg = get_arch(arch)
+    mesh = Mesh({"data": grid[0], "model": grid[1]})
+    _, (_, caches, _, _) = st.shardings_for(
+        cfg, shape, mesh, sharding, st.abstract_params(cfg))
+    out = {}
+    for c in caches:
+        kinds = ("kv", "kv") if type(c).__name__ == "KVCache" \
+            else ("ssm", "conv")
+        for kind, x in zip(kinds, c):
+            out[kind] = out.get(kind, 0) + x.numel() * x.element_size()
+    return out
+
+
+# (arch, shape, grid): decode_32k's 128 rows split over the data axis;
+# long_500k's one row does not, and the reference splits its sequence
+BYTES = [("llama3.2-1b", "decode_32k", (4, 2)),
+         ("llama3.2-1b", "long_500k", (4, 2)),
+         ("jamba-1.5-large-398b", "decode_32k", (2, 4)),
+         ("mamba2-130m", "long_500k", (2, 4))]
+
+
+@pytest.mark.parametrize("arch,shape,grid", BYTES,
+                         ids=[f"{a}-{s}-{g[0]}x{g[1]}" for a, s, g in BYTES])
+@pytest.mark.parametrize("sharding", ["tp", "basic_ws"])
+def test_cache_bytes_against_the_references_cache_specs(arch, shape, grid,
+                                                        sharding):
+    shape = INPUT_SHAPES[shape]
+    data, model = grid
+    ref = _reference_bytes(arch, shape, grid)
+    got = _port_bytes(arch, shape, grid, sharding)
+    assert set(got) == set(ref)
+    cfg = get_arch(arch)
+    # the ranks the reference spreads a row's cache over that the port
+    # does not: the data ranks when the batch does not split over them,
+    # and under basic_ws the model ranks too
+    spread = (1 if shape.global_batch % data == 0 else data) * (
+        model if sharding == "basic_ws" else 1)
+    for kind in ("kv", "ssm"):
+        if kind in ref:
+            assert got[kind] == spread * ref[kind], (kind, got, ref)
+    if "conv" in ref:
+        # the conv window of the rank's x channels and all of B and C
+        # (under basic_ws all channels), where the reference splits the
+        # channels evenly over the model axis
+        d_in, _, d_conv = ssm_lib.dims(cfg)
+        channels = ((d_in // model + 2 * cfg.ssm.state_dim) * model
+                    if sharding == "tp" else d_conv)
+        assert got["conv"] * d_conv == spread * ref["conv"] * channels, \
+            (got, ref)
+
+
+def test_the_probe_serves_one_ranks_tokens_on_gloo_ranks(tmp_path):
+    argv = ["--device", "cpu", "--smoke", "--runs",
+            "llama3.2-1b:tp,llama3.2-1b:one"]
+    reports = run_world(worker_serve_probe, 2, str(tmp_path / "rdv"), argv,
+                        timeout=240)
+    rep = reports[0]
+    assert rep["ok"] and rep["backend"] == "gloo"
+    tp_run, one = rep["runs"]
+    assert tp_run["ranks_agree"] and one["tokens_equal_vs_sharded"] == 1.0
+    assert one["max_logit_diff_vs_sharded"] <= 1e-5 * one["max_abs_logit"]
+    n = smoke_variant(get_arch("llama3.2-1b")).n_layers
+    for calls in tp_run["step_collective_calls"]:
+        assert calls == {"all_reduce": 2 * n + 1, "all_gather": 1,
+                         "reduce_scatter": 0}

@@ -96,18 +96,34 @@ def worker_collectives(rank, world, model, sizes):
     return dict(count.bytes), dict(count.calls), handed
 
 
-def worker_parts_bytes(rank, world, model, arch, sharding):
+def worker_parts_bytes(rank, world, model, arch, sharding, serving=False):
     """The bytes of this rank's params and optimizer state as the trainer
     places them (``train_distributed.build_state``) on the (world /
-    model, model) mesh, for the smoke variant of ``arch``."""
-    from repro_torch.configs import get_arch, smoke_dual_variant
+    model, model) mesh, for the smoke variant of ``arch`` (a dual encoder
+    or an LM); with ``serving`` the bytes of the params alone, drawn
+    whole and cut by ``steps.serving_layout``, as a serving step takes
+    them."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import (get_arch, smoke_dual_variant,
+                                     smoke_variant)
+    from repro_torch.core import weight_sharding as ws
     from repro_torch.launch import steps as st
     from repro_torch.launch import train_distributed as td
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.tree import tree_leaves
-    cfg = smoke_dual_variant(get_arch(arch))
-    trees = td.build_state(cfg, st.make_optimizer(), 0, "cpu",
-                           make_local_mesh(model=model), sharding)
+    cfg = get_arch(arch)
+    cfg = (smoke_dual_variant(cfg) if hasattr(cfg, "image_tower")
+           else smoke_variant(cfg))
+    mesh = make_local_mesh(model=model)
+    if serving:
+        trees = [ws.cut(interop.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"),
+            st.serving_layout(cfg, mesh, sharding))]
+    else:
+        trees = td.build_state(cfg, st.make_optimizer(), 0, "cpu", mesh,
+                               sharding)
     return [sum(x.numel() * x.element_size() for x in tree_leaves(t))
             for t in trees]
 
@@ -542,3 +558,112 @@ def worker_tp_mixer(rank, world, model, arch, weights, x, up):
     return {"out": y.detach().numpy(), "dx": g[0].numpy(),
             "grads": {k: t.numpy() for k, t in zip(names, g[1:])},
             "dims": dict(lay.dims["mamba"]), "heads": heads}
+
+
+def worker_tp_serve(rank, world, model, cases):
+    """The sharded serving steps on this rank's parts, a case each: the
+    smoke ``arch``'s whole weights (numpy, as ``interop.from_numpy`` takes
+    them) placed by ``steps.serving_layout`` under the case's
+    ``sharding`` on the (world / model, ``model``) mesh, then
+    ``steps.make_prefill_step`` (f32, ``collect_cache_len``) on the rank's
+    rows of the numpy ``batch`` and ``make_serve_step`` on each of the
+    case's decode ``tokens`` (n, b, 1) at its ``positions`` (an int, or a
+    (b,) numpy array of per-slot positions, a step each). Under 'tp'
+    ``weight_sharding``'s gather is refused but through
+    ``tensor_parallel.gathered``; every leaf made whole is recorded by its
+    path. Returns per case {rows: the rank's first row and count, logits:
+    the prefill's and each step's, prefill_caches and caches (after the
+    last step) as numpy lists, params_bytes, cache_bytes, whole and
+    gathered: the paths made whole, experts: the expert count of each
+    expert product, scan_heads}."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.tree import leaves, tree_leaves
+    mesh = make_local_mesh(model=model)
+    out = []
+    for case in cases:
+        cfg = _tp_cfg(case["arch"], {})
+        lay = st.serving_layout(cfg, mesh, case["sharding"])
+        params = ws.cut(interop.from_numpy(case["weights"], "cpu"), lay)
+        owner = {x.untyped_storage().data_ptr(): path
+                 for path, x in leaves(params)}
+        b = case["batch"]["tokens"].shape[0]
+        n = st.batch_rows(b, mesh, lay)
+        first = (mesh.data_index * n) % b
+        batch = {k: torch.from_numpy(v[first:first + n])
+                 for k, v in case["batch"].items()}
+        rec = {"whole": set(), "gathered": set(), "experts": []}
+        real = (tp.whole, tp.gathered, moe._experts, ws._Gather.apply)
+
+        def recording_whole(part, dim, axis):
+            if dim is not None:
+                rec["whole"].add(owner[part.untyped_storage().data_ptr()])
+            return real[0](part, dim, axis)
+
+        def recording_gathered(part, dim, axis):
+            if dim is None:
+                return part
+            rec["gathered"].add(owner[part.untyped_storage().data_ptr()])
+            return real[3](part, dim, axis)
+
+        def recording_experts(w, xe):
+            rec["experts"].append(int(xe.shape[0]))
+            return real[2](w, xe)
+
+        def refused(*args):
+            raise AssertionError("weight_sharding's gather under tp")
+        tp.whole, tp.gathered = recording_whole, recording_gathered
+        moe._experts = recording_experts
+        if tp.active(lay):
+            ws._Gather.apply = refused
+        kw = dict(precision="f32", moe_args=case["moe_args"], mesh=mesh,
+                  layout=lay)
+        try:
+            with torch.no_grad(), _scan_heads() as heads:
+                logits, caches = st.make_prefill_step(
+                    cfg, collect_cache_len=case["cache_len"], **kw)(params,
+                                                                    batch)
+                got = [logits.numpy()]
+                # a copy: the steps write the caches in place
+                pre = [type(c)(*(a.copy() for a in c))
+                       for c in interop.caches_to_numpy(caches)]
+                serve = st.make_serve_step(cfg, **kw)
+                for i, tok in enumerate(case["tokens"]):
+                    pos = case["positions"]
+                    pos = (torch.from_numpy(pos[first:first + n] + i)
+                           if hasattr(pos, "shape") else pos + i)
+                    logits, caches = serve(params, caches, torch.from_numpy(
+                        tok[first:first + n]), pos)
+                    got.append(logits.numpy())
+        finally:
+            tp.whole, tp.gathered, moe._experts, ws._Gather.apply = real
+        out.append({"rows": (first, n), "logits": got,
+                    "prefill_caches": pre,
+                    "caches": interop.caches_to_numpy(caches),
+                    "params_bytes": sum(x.numel() * x.element_size()
+                                        for x in tree_leaves(params)),
+                    "cache_bytes": sum(x.numel() * x.element_size()
+                                       for x in tree_leaves(caches)),
+                    "whole": sorted(rec["whole"]),
+                    "gathered": sorted(rec["gathered"]),
+                    "experts": rec["experts"], "scan_heads": heads})
+    return out
+
+
+def worker_serve_probe(rank, world, argv):
+    """``scripts/serve_sharded_probe.py``'s ``run(argv)`` on this rank, in
+    the world's gloo group; returns its report."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts", "serve_sharded_probe.py")
+    spec = importlib.util.spec_from_file_location("serve_sharded_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe.run(argv)
