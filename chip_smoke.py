@@ -372,6 +372,27 @@ repository beside this file; it exits non-zero without them. In order it:
     measured step time; (c) BASIC-L's contrastive step at
     ``contrastive_64k`` on the pod mesh (16, 16), meta only: params,
     optimizer state and peak a rank, and the roofline's bottleneck;
+56. in the world of 2 of phases 41-43, the sharded serving steps
+    (``steps.make_prefill_step`` / ``make_serve_step`` on a rank's parts)
+    at (1, 2): Llama-3.2-1B on 2 of 16 layers at full width under ``tp``
+    and ``basic_ws``, Mamba-2-130M on 2 of 24 and smoke Jamba under
+    ``tp``, f32, b 4 × 512 prompts into a linear cache of 1024, greedy
+    steps, each held to the one-rank steps on the plain path (1e-4 of the
+    largest |logit|, no greedy flip past the error, both ranks' tokens
+    alike) and every rank's kernels launched at its local heads; the
+    kernels at a rank's shapes there against their plain versions, timed;
+57. in the same world, a KV cache's sequence split over the ranks
+    (context-parallel decode, ``steps.cache_seq_axis``), f32, b 1:
+    Llama-3.2-1B on 2 of 16 layers at full width at (2, 1) on its ring of
+    8192 after an 8704-token prompt and on a linear cache of 16384 after
+    1000 tokens (rank 1 sweeps no valid key), smoke Jamba under
+    ``basic_ws`` at (1, 2) on 256 slots, each held to the one-rank steps
+    on the plain path as phase 56's, every rank holding half the KV bytes
+    and launching the decode kernel at its slice's length; before the
+    untimed worlds, the decode kernel's lse output at the slices' shapes
+    (Llama's, and Jamba-1.5-Large's rank shape at (1, 4): t 131072, 4160
+    and 0 valid keys) against its plain version, timed beside its plain
+    version, SDPA over the valid keys and the bound;
 27. last, after phase 43, prints the script's seconds, a ``{"kernels":
     [...]}`` line and the ``{"ok": true, "device": {...}}`` line.
 
@@ -5094,6 +5115,39 @@ SERVE_SHARD_CASES = (
     ("jamba smoke 1x2 tp", "jamba-1.5-large-398b", 0, "tp", 8))
 SERVE_SHARD_SHAPE = {"batch": 4, "prompt": 512, "cache": 1024}
 SERVE_SHARD_TOL = 1e-4      # of the plain one-rank step's largest |logit|
+# phase 57: a KV cache's sequence split over the ranks of phase 56's world
+# (context-parallel decode, steps.cache_seq_axis), f32, b 1, each case
+# against the one-rank steps on the plain path on ``plain_device``: (label,
+# arch, layers at full width (0: the smoke variant), rule, (data, model),
+# prompt tokens, cache slots, greedy steps, plain_device). Llama-3.2-1B at
+# (2, 1): the one row does not split over the two data ranks, so its
+# cache's sequence lies over both and no weight is gathered; on its ring
+# of 8192 (the window) after a prompt that wrapped it, and on a linear
+# cache of 16384 after 1000 tokens (rank 1 sweeps no valid key). Smoke
+# Jamba under basic_ws at (1, 2), a cache of 256 slots (past the head dim
+# of 64, so the rule splits the sequence): its KV cache split, its SSM
+# state whole; its plain path on the CPU (the scan's plain version). The
+# prompts are whole 512-query blocks of 'chunked' or short enough for the
+# materialised scores
+SPLIT_CASES = (
+    ("llama ring 2x1", "llama3.2-1b", 2, "basic_ws", (2, 1), 8704, 8192, 8,
+     "cuda"),
+    ("llama linear 2x1", "llama3.2-1b", 2, "basic_ws", (2, 1), 1000, 16384,
+     8, "cuda"),
+    ("jamba smoke basic_ws 1x2", "jamba-1.5-large-398b", 0, "basic_ws",
+     (1, 2), 160, 256, 8, "cpu"))
+# the decode kernel's lse output against its plain version, at the slice
+# shapes of the split paths: (label, b, h, kv, t, d, dtype, valid keys a
+# row): Llama-3.2-1B's slice of its ring over 2 (full), and Jamba-1.5-Large's
+# rank shape at (1, 4) of a 524,288-slot cache after a 4096-token prompt
+# and 64 steps (rank 0: 4160 valid keys; ranks 1-3: none)
+SPLIT_LSE = (("llama ring slice", 1, 32, 8, 4096, 64, "float32", 4096),
+             ("llama ring slice", 1, 32, 8, 4096, 64, "bfloat16", 4096),
+             ("jamba rank 0 of 4", 1, 64, 8, 131072, 128, "bfloat16", 4160),
+             ("jamba rank 1 of 4", 1, 64, 8, 131072, 128, "bfloat16", 0))
+# lse against the plain version's: fp32 sums of exponentials in another
+# order (bf16 products are exact in fp32), on values of ~log t
+SPLIT_LSE_TOL = 2e-5
 # the cross-shard loss against the single-device fused loss: the
 # reference's own limits (tests/distributed_checks.py:79-83, :99-103), and
 # under bf16 1e-3 on the loss, 2e-2 on dX
@@ -5551,8 +5605,9 @@ def ws_train_worker(rank, world, argvs, archs=(), serving=None):
     SSD scan's also by the shape its wrapper launched at, "b x l x h x p
     x n"), and the bytes its resident params and optimizer state take
     (``build_state`` on the same mesh, measured on the card, then
-    freed). With ``serving`` = (cases, device) phase 56 runs after them
-    on the same ranks (``serve_shard_rank``), its records last."""
+    freed). With ``serving`` = (cases, device, phase 57's cases) phases 56
+    and 57 run after them on the same ranks (``serve_shard_rank``), their
+    records last."""
     import torch
     from repro_torch.configs import (get_arch, smoke_dual_variant,
                                      smoke_variant)
@@ -5649,7 +5704,8 @@ def ws_config(argv):
 
 
 def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS,
-                          serve_cases=SERVE_SHARD_CASES):
+                          serve_cases=SERVE_SHARD_CASES,
+                          split_cases=SPLIT_CASES):
     """Phases 41-43: the trainer with the paper's §5.1 weight sharding and
     with Megatron execution on gloo ranks sharing the card (untimed; two
     spawned worlds: one of 2 ranks runs the (1, 2) runs in turn, one of 4
@@ -5681,9 +5737,10 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS,
     Mamba-2-130M), read from the shapes the wrapper saw; the hybrid's
     flash kernels too.
 
-    Phase 56 runs in the world of 2 after its trainer runs
-    (``serve_cases``, ``serve_shard_rank``); its checks are
-    ``phase_serve_shard``'s, on what this returns.
+    Phases 56 and 57 run in the world of 2 after its trainer runs
+    (``serve_cases``, ``split_cases``, ``serve_shard_rank``); their checks
+    are ``phase_serve_shard``'s and ``phase_serve_split``'s, on what this
+    returns.
 
     ``runs`` maps each rule to its (contrastive argv, LM argv or None)
     (``WS_RUNS``; a CPU rehearsal passes ``--smoke`` ones, ``ssm_runs``
@@ -5725,8 +5782,8 @@ def phase_weight_sharding(runs=WS_RUNS, device="cuda", ssm_runs=WS_SSM_RUNS,
         t_world = time.perf_counter()
         ranks = run_world(ws_train_worker, world,
                           os.path.join(CKPT_ROOT, "rdv"), argvs,
-                          WS_ARCHS, (serve_cases, device) if world == 2
-                          else None, timeout=900)
+                          WS_ARCHS, (serve_cases, device, split_cases)
+                          if world == 2 else None, timeout=900)
         print(f"weight sharding world of {world}: "
               f"{time.perf_counter() - t_world:.1f} s", flush=True)
         if world == 2:
@@ -5910,19 +5967,22 @@ def serve_shard_prompt(cfg, device):
 
 
 def serve_shard_steps(cfg, params, prompt, steps, feed=None, mesh=None,
-                      layout=None):
-    """The prefill and ``steps`` decode steps at SERVE_SHARD_SHAPE, f32,
-    each step fed the last greedy token (or ``feed``'s tokens (steps + 1,
-    b)): returns the last-position logits (steps + 1, b, vocab) and the
-    tokens fed (steps + 1, b), on the CPU."""
+                      layout=None, cache=SERVE_SHARD_SHAPE["cache"],
+                      seq_axis=None, out_caches=None):
+    """The prefill of ``prompt`` (b, s) into a cache of ``cache`` slots and
+    ``steps`` decode steps at positions s, s + 1, ..., f32, each step fed
+    the last greedy token (or ``feed``'s tokens (steps + 1, b)), the KV
+    caches' sequence over ``seq_axis``: returns the last-position logits
+    (steps + 1, b, vocab) and the tokens fed (steps + 1, b), on the CPU
+    (and the caches after the last step into the list ``out_caches``)."""
     import torch
     from repro_torch.launch import steps as st
-    kw = {"precision": "f32", "mesh": mesh, "layout": layout}
-    shape = SERVE_SHARD_SHAPE
+    kw = {"precision": "f32", "mesh": mesh, "layout": layout,
+          "seq_axis": seq_axis}
+    start = prompt.shape[1]
     with torch.no_grad():
         logits, caches = st.make_prefill_step(
-            cfg, collect_cache_len=shape["cache"], **kw)(
-            params, {"tokens": prompt})
+            cfg, collect_cache_len=cache, **kw)(params, {"tokens": prompt})
         serve = st.make_serve_step(cfg, **kw)
         out, fed = [logits[:, 0].cpu()], []
         for i in range(steps + 1):
@@ -5931,19 +5991,21 @@ def serve_shard_steps(cfg, params, prompt, steps, feed=None, mesh=None,
             fed.append(tok.cpu())
             if i == steps:
                 break
-            logits, caches = serve(params, caches, tok[:, None],
-                                   shape["prompt"] + i)
+            logits, caches = serve(params, caches, tok[:, None], start + i)
             out.append(logits[:, 0].cpu())
+    if out_caches is not None:
+        out_caches.extend(caches)
     return torch.stack(out), torch.stack(fed)
 
 
-def serve_shard_rank(cases, device):
+def serve_shard_rank(cases, device, split_cases=()):
     """Phase 56 on this rank of phase 43's world of 2: for each case the
     whole params are drawn and cut to the rank's parts under the case's
     rule (``steps.serving_layout`` on the (1, 2) mesh), then
-    prefill and greedy decode on them (``serve_shard_steps``). Returns
+    prefill and greedy decode on them (``serve_shard_steps``); then phase
+    57's ``split_cases`` (``serve_split_rank``). Returns
     {"serving": {label: {logits, tokens (numpy), launches and shapes by kernel,
-    params_bytes, cache_bytes, seconds}}}."""
+    params_bytes, cache_bytes, seconds}}, "split": phase 57's records}."""
     import torch
     from repro_torch.core import weight_sharding as ws
     from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -5987,7 +6049,7 @@ def serve_shard_rank(cases, device):
         del params
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
-    return {"serving": out}
+    return {"serving": out, "split": serve_split_rank(split_cases, device)}
 
 
 def serve_shard_want(cfg, rule):
@@ -6141,6 +6203,225 @@ def phase_serve_shard_kernels():
         scan.append(ssd_case(label, b, l, getattr(torch, dt), 134 + i, h=h))
     torch.cuda.empty_cache()
     return flash, decode, scan
+
+
+def serve_split_rank(cases, device):
+    """Phase 57 on this rank of phase 56's world of 2: for each case (its
+    model drawn once for the cases that share it) the params cut to the
+    rank's parts under the case's rule on its (data, model) mesh, the KV
+    caches placed by ``steps.cache_seq_axis`` for b 1 and the case's
+    cache, then prefill and greedy decode (``serve_shard_steps``). Returns
+    {label: {logits, tokens (numpy), seq (the mesh axis, this rank's slice
+    and the slice count), launches and shapes by kernel, kv_bytes (after
+    the last step), seconds}}."""
+    import torch
+    from repro_torch.core import weight_sharding as ws
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_local_mesh
+    counters = (fa_ops.COUNTER, dec_ops.COUNTER, ssd_ops.COUNTER)
+    out, model = {}, None
+    for label, arch, layers, rule, grid, plen, cache, steps, _ in cases:
+        t0 = time.perf_counter()
+        mesh = make_local_mesh(model=grid[1])
+        if model is None or model[0] != (arch, layers):
+            model = None            # the last model freed before the next
+            model = ((arch, layers), *serve_shard_model(arch, layers, device))
+        _, cfg, whole = model
+        layout = st.serving_layout(cfg, mesh, rule)
+        params = ws.cut(whole, layout)
+        seq = st.cache_seq_axis(cfg, mesh, layout, 1, cache)
+        caches = []
+        for c in counters:
+            c.reset()
+        logits, tokens = serve_shard_steps(
+            cfg, params, split_prompt(cfg, plen, device), steps, mesh=mesh,
+            layout=layout, cache=cache, seq_axis=seq, out_caches=caches)
+        out[label] = {
+            "logits": logits.numpy(), "tokens": tokens.numpy(),
+            "seq": None if seq is None else [
+                next(a for a in ("batch", "data", "model")
+                     if getattr(mesh, a) is seq), seq.index, seq.size],
+            "launches": {c.name: c.count for c in counters},
+            "shapes": {c.name: {"x".join(map(str, k)): v
+                                for k, v in c.shapes.items()}
+                       for c in counters},
+            "kv_bytes": sum(x.numel() * x.element_size() for c in caches
+                            if type(c).__name__ == "KVCache" for x in c),
+            "seconds": time.perf_counter() - t0}
+        del params, caches
+    del model
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_prompt(cfg, n, device):
+    """Phase 57's prompt: (1, n) int32 tokens from seed 0."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    return torch.randint(4, cfg.vocab, (1, n), generator=g,
+                         dtype=torch.int32).to(device)
+
+
+def phase_serve_split(ranks, device="cuda", cases=SPLIT_CASES):
+    """Phase 57's checks on phase 56's world's records (``ranks``: each
+    rank's ``serve_split_rank`` records): each case against the one-rank
+    whole-weight steps on the plain path (attention 'chunked', the
+    einsum decode, the scan's plain version; on the card for Llama, on
+    the CPU for smoke Jamba) fed the same greedy tokens. Every rank's
+    logits within SERVE_SHARD_TOL of the plain step's largest |logit|,
+    greedy tokens alike on both ranks and equal to the plain step's
+    wherever its top-2 gap exceeds the error, the sequence over both ranks
+    (rank r holding slice r of 2), a rank's KV bytes half the whole
+    cache's, and every rank launched the flash and decode kernels, the
+    decode kernel at the slice's length (and the scan, for Jamba), read
+    from the launch counters' shapes. ``device`` 'cpu' (a rehearsal with
+    smoke ``cases``) checks no launch. Returns the records by label."""
+    import torch
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    out = {}
+    for label, arch, layers, rule, grid, plen, cache, steps, plain in cases:
+        recs = [dict(r[label], **{k: torch.from_numpy(r[label][k])
+                                  for k in ("logits", "tokens")})
+                for r in ranks]
+        on = plain if device == "cuda" else "cpu"
+        cfg, whole = serve_shard_model(arch, layers, device)
+        whole = tree_map(lambda x: x.to(on), whole)
+        tw = time.perf_counter()
+        kept = []
+        want, _ = serve_shard_steps(
+            dataclasses.replace(cfg, attn_impl="chunked"), whole,
+            split_prompt(cfg, plen, on), steps, feed=recs[0]["tokens"],
+            cache=cache, out_caches=kept)
+        want_s = time.perf_counter() - tw
+        kv_whole = sum(x.numel() * x.element_size() for c in kept
+                       if type(c).__name__ == "KVCache" for x in c)
+        del whole, kept
+        if on == "cuda":
+            torch.cuda.empty_cache()
+        scale = want.abs().max().item()
+        errs = [(r["logits"] - want).abs().max().item() for r in recs]
+        sep = top2_gap(want) > max(errs)
+        flips = [int(((r["tokens"] != want.argmax(-1)) & sep).sum())
+                 for r in recs]
+        t_slice = cache // 2
+        seen = [{int(k.split("x")[3]) for k in r["shapes"]["decode_attention"]}
+                for r in recs]
+        rec = out[label] = {
+            "max_logit_diff": errs, "max_abs_logit": scale,
+            "greedy_flips": flips,
+            "ranks_tokens_equal": bool(torch.equal(recs[0]["tokens"],
+                                                   recs[1]["tokens"])),
+            "seq": [r["seq"] for r in recs],
+            "kv_bytes": [r["kv_bytes"] for r in recs],
+            "kv_bytes_whole": kv_whole,
+            "launches": [r["launches"] for r in recs],
+            "decode_t": [sorted(x) for x in seen],
+            "rank_seconds": [r["seconds"] for r in recs],
+            "plain_seconds": want_s}
+        print(f"sequence split {label} ({cfg.name}, {cfg.n_layers} layers, "
+              f"f32, b 1 x {plen}, a cache of {cache}, {steps} steps, "
+              f"sequence over {rec['seq']}): max |logit diff| vs one rank's "
+              f"plain path on the {on} ({want_s:.1f} s) {errs} (tol "
+              f"{SERVE_SHARD_TOL} x {scale:.4g}); greedy flips past the "
+              f"error {flips}; ranks' tokens equal "
+              f"{rec['ranks_tokens_equal']}; KV bytes a rank "
+              f"{rec['kv_bytes']} of {kv_whole}; launches per rank "
+              f"{rec['launches']}; decode t per rank {rec['decode_t']}; "
+              f"seconds a rank {[round(x, 2) for x in rec['rank_seconds']]}",
+              flush=True)
+        placed = all(r["seq"] is not None and r["seq"][1:] == [i, 2]
+                     for i, r in enumerate(recs)) and all(
+            2 * b == kv_whole for b in rec["kv_bytes"])
+        launched = device == "cpu" or all(
+            r["launches"]["flash_fwd"] > 0
+            and r["launches"]["decode_attention"] > 0 and got == {t_slice}
+            and (cfg.ssm is None or r["launches"]["ssd_scan"] > 0)
+            for r, got in zip(recs, seen))
+        if not (max(errs) <= SERVE_SHARD_TOL * scale and not any(flips)
+                and rec["ranks_tokens_equal"] and placed and launched):
+            raise AssertionError(f"sequence split {label}: {rec}")
+    world_s = max(sum(x["seconds"] for x in r.values()) for r in ranks)
+    print(f"phase 57 sequence split: {time.perf_counter() - t0:.1f} s here "
+          f"+ {world_s:.1f} s in the world of 2", flush=True)
+    return out
+
+
+def phase_split_lse():
+    """Phase 57's kernel records: the decode kernel with ``return_lse`` at
+    the slice shapes of ``SPLIT_LSE`` against its plain version (the
+    output per ``dec_limit``, the lse within SPLIT_LSE_TOL, -1e30 exactly
+    and zeros on a row with no valid key), its output bit-equal to the
+    call without the lse, timed (events and profiler device time), its
+    plain version and SDPA (``enable_gqa``) over the valid keys timed, and
+    the bound of the valid entries. Returns the records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import (
+        NEG_INF, decode_attention_ref)
+    recs = []
+    for i, (label, b, h, kv, t, d, dt, n) in enumerate(SPLIT_LSE):
+        dtype = getattr(torch, dt)
+        q, k, v = decode_inputs(b, h, kv, t, d, dtype, 140 + i)
+        valid = (torch.arange(t, device="cuda") < n)[None].expand(b, t)
+        out, lse = dec_ops.decode_attention(q, k, v, valid, return_lse=True)
+        ref, ref_lse = decode_attention_ref(q, k, v, valid, return_lse=True)
+        bare = dec_ops.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ok = bool((err <= dec_limit(ref)).all()) and torch.equal(out, bare)
+        if n == 0:
+            ok = ok and bool((lse == NEG_INF).all()) and bool(
+                (out == 0).all())
+        else:
+            ok = ok and lse_err <= SPLIT_LSE_TOL
+        if not ok:
+            raise AssertionError(f"decode_attention lse {label} {dt}: max "
+                                 f"out err {err.max().item():.3g}, lse err "
+                                 f"{lse_err:.3g}, equal without the lse "
+                                 f"{torch.equal(out, bare)}")
+        call = lambda: dec_ops.decode_attention(q, k, v, valid,
+                                                return_lse=True)
+        ms = time_ms(call)
+        dev_ms, per_call = device_ms(call, WRAPPER_KERNELS["decode_attention"])
+        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, valid,
+                                                        return_lse=True))
+        lib_ms = lib_dev_ms = None
+        if n:
+            kn, vn = k[:, :, :n], v[:, :, :n]
+            library = lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kn, vn, enable_gqa=True)
+            lib_ms = time_ms(library)
+            lib_dev_ms, _ = device_ms(library)
+        item = torch.finfo(dtype).bits // 8
+        bound_ms, bound_by = bound(
+            *decode_work(b, h, kv, t, d, item, b * n, lse=True), dt)
+        rec = {"shape": f"b={b} h={h} kv={kv} t={t} d={d} {dt}, {label}: "
+                        f"{b * n} valid entries, with lse",
+               "plan": dec_ops.launch_plan(q, k)._asdict(),
+               "max_abs_err": err.max().item(), "lse_max_abs_err": lse_err,
+               "ms": ms, "device_ms": dev_ms,
+               "device_kernels_per_call": per_call, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        recs.append(rec)
+        print(f"decode_attention {rec['shape']}: max err "
+              f"{rec['max_abs_err']:.3g}, lse err {lse_err:.3g} (tol "
+              f"{SPLIT_LSE_TOL}), output "
+              f"equal to the call without the lse; kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms, {per_call:g} device kernels per "
+              f"call), plain {plain_ms:.4f} ms, sdpa over the valid keys "
+              f"{lib_ms} ms (device {lib_dev_ms} ms), bound {bound_ms:.4f} "
+              f"ms ({bound_by})", flush=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -6864,6 +7145,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     gqa7_flash, gqa7_decode = phase_gqa7_kernels()
     serve_tp_kernels = phase_serve_shard_kernels()
+    split_lse = phase_split_lse()
     torch.cuda.empty_cache()
     hubert = phase_hubert_train()
     torch.cuda.empty_cache()
@@ -6894,6 +7176,8 @@ def main() -> int:
     ws, ws_lm, ws_ssm, ws_serving = phase_weight_sharding()
     torch.cuda.empty_cache()
     serve_shard = phase_serve_shard(ws_serving)
+    torch.cuda.empty_cache()
+    split = phase_serve_split([r["split"] for r in ws_serving])
     torch.cuda.empty_cache()
     tooling = phase_tooling(dry_runs)
     torch.cuda.empty_cache()
@@ -7058,6 +7342,20 @@ def main() -> int:
                 {k: r[k] for k in ("shape", "max_abs_err", *timing,
                                    "device_ms") if k in r} for r in recs]}
 
+    def split_of(name, recs=None):
+        """The kernel's launches on each rank of phase 57's sequence-split
+        cases, where it ran there, and (``recs``) its records with the
+        lse at a rank's slice shapes."""
+        out = {"sequence_split_launches_per_rank": {
+            label: [lc[name] for lc in r["launches"]]
+            for label, r in split.items() if r["launches"][0][name]}}
+        if recs is not None:
+            out["sequence_split_lse"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "lse_max_abs_err",
+                                   *timing, "device_ms",
+                                   "library_device_ms")} for r in recs]
+        return out
+
     def recipe_of(name):
         """The kernel's launches in each part of the recipe phase."""
         return {part: counts[name]
@@ -7120,7 +7418,8 @@ def main() -> int:
          **families_of("fwd", fa_ops.COUNTER.name),
          **arctic_of(fa_ops.COUNTER.name, "per_prefill"),
          **dist_of(fa_ops.COUNTER.name),
-         **serving_of(fa_ops.COUNTER.name, serve_tp_kernels[0])},
+         **serving_of(fa_ops.COUNTER.name, serve_tp_kernels[0]),
+         **split_of(fa_ops.COUNTER.name)},
         {"name": topk_ops.COUNTER.name, "route": "cuda",
          "source": TOPK_SOURCE, "replaces": TOPK_REPLACES,
          "launches": launches[topk_ops.COUNTER.name],
@@ -7210,7 +7509,8 @@ def main() -> int:
              "max_logit_diff"],
          **arctic_of(dec_ops.COUNTER.name, "per_step"),
          "arctic_parity_max_logit_diff": arctic_parity["max_logit_diff"],
-         **serving_of(dec_ops.COUNTER.name, serve_tp_kernels[1])},
+         **serving_of(dec_ops.COUNTER.name, serve_tp_kernels[1]),
+         **split_of(dec_ops.COUNTER.name, split_lse)},
         {"name": ssd_ops.COUNTER.name, "route": "cuda",
          "source": SSD_SOURCE, "replaces": SSD_REPLACES,
          "launches": ssm_launches[ssd_ops.COUNTER.name],
@@ -7243,7 +7543,8 @@ def main() -> int:
          "jamba_smoke_train_parity_launches": hybrid_train["launches"][
              ssd_ops.COUNTER.name],
          **ssd_tp_of(ssd_ops.COUNTER.name),
-         **serving_of(ssd_ops.COUNTER.name, serve_tp_kernels[2])},
+         **serving_of(ssd_ops.COUNTER.name, serve_tp_kernels[2]),
+         **split_of(ssd_ops.COUNTER.name)},
         {"name": ssd_ops.BWD_COUNTER.name, "route": "cuda",
          "source": SSD_BWD_SOURCE, "replaces": SSD_BWD_REPLACES,
          "launches": ssm_train_launches[ssd_ops.BWD_COUNTER.name],

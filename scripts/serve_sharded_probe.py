@@ -5,17 +5,22 @@ on a rank's parts of the weights (``steps.make_prefill_step`` /
     torchrun --nproc-per-node 4 scripts/serve_sharded_probe.py
     torchrun --nproc-per-node 2 scripts/serve_sharded_probe.py \\
         --device cpu --smoke             # the same runs on gloo ranks
+    torchrun --nproc-per-node 4 scripts/serve_sharded_probe.py \\
+        --grid 1,4 --batch 1 --prompt 4096 --cache 524288 \\
+        --runs jamba-1.5-large-398b:basic_ws:8   # a KV cache split 4 ways
 
 Each run of ``--runs`` (``arch:rule[:layers]``, a comma list; the rule
 ``tp``, ``basic_ws`` or ``one``, one card alone: rank 0 serves the whole
 model while the others wait; ``layers`` cuts the model to its first ones
 at full width: Jamba-1.5-Large runs its first period of 8 of 72 layers,
 4 of each MoE layer's 16 experts a card under ``tp``) places the weights
-by ``steps.serving_layout`` on the (1, R) mesh of the R ranks (under
-``tp`` the leaves a block uses whole are held whole, so a step gathers
-only the logits) and serves one lockstep greedy batch: ``--batch`` prompts of
-``--prompt`` random tokens, prefilled into a linear cache of ``--cache``
-slots (``collect_cache_len``), then ``--new`` decode steps, each feeding
+by ``steps.serving_layout`` on the (D, M) mesh of ``--grid`` (default (1,
+R) over the R ranks; under ``tp`` the leaves a block uses whole are held
+whole, so a step gathers only the logits) and serves one lockstep greedy
+batch: ``--batch`` prompts of ``--prompt`` random tokens (a rank serves
+its data shard's rows, ``steps.batch_rows``), prefilled into a cache of
+``--cache`` slots (``collect_cache_len``: linear, or the window's ring
+when it equals the window), then ``--new`` decode steps, each feeding
 the last step's argmax back (the prefill runs twice: the first, cold,
 warms the libraries and the collectives up, the second is timed; two
 decode steps after the timed ones run in ``chip_smoke``'s profiler
@@ -30,10 +35,16 @@ their plain versions on the CPU. Rank 0 prints, per run, the prefill's
 milliseconds, the decode step's median and p90 (host clock around a
 synchronized step, argmax included), tokens a second over the steps,
 each rank's peak GiB (``max_memory_allocated`` since before its weights
-were placed), its params and cache bytes, its kernel launches, and the
-bytes it handed to ``launch/mesh.py``'s collectives in the prefill and
-in a decode step, by operation (``launch.roofline.CollectiveBytes``);
-every rank's tokens must be rank 0's. A ``one`` run after a sharded run of
+were placed), its params, cache and KV cache bytes, its kernel launches
+(by the shapes the wrappers saw), and the bytes it handed to
+``launch/mesh.py``'s collectives in the prefill and in a decode step, by
+operation (``launch.roofline.CollectiveBytes``). The KV caches lie where
+``steps.cache_seq_axis`` places them for the global batch and the cache
+length (the reference's ``cache_specs``): a rank then holds its slice of
+each cache's sequence, and each decode step merges the slices' partial
+attentions (``seq`` in the report: the mesh axis and its ranks). Every
+rank's tokens must be those of rank 0 of the ranks that serve the same
+rows. A ``one`` run after a sharded run of
 the same arch also gives the largest |logit| difference of the sharded
 prefill from the one-card prefill (rank 0's rows) and the share of greedy
 tokens both runs chose alike.
@@ -94,6 +105,9 @@ def parse_args(argv=None):
                     help="comma list of arch:rule[:layers], the rule tp, "
                          "basic_ws or one (rank 0 alone, the whole model), "
                          "layers a cut to the first ones")
+    ap.add_argument("--grid", default=None,
+                    help="D,M: the (data, model) mesh of the ranks "
+                         "(default 1,R)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=512)
     ap.add_argument("--cache", type=int, default=4096)
@@ -223,10 +237,11 @@ def profiled(step, n, counters):
 
 
 def serve_once(cfg, params, layout, mesh, prompt, args, device,
-               counters=()):
+               counters=(), seq_axis=None):
     """The prefill and ``--new`` greedy decode steps of one lockstep batch
     on this rank (``counters``: the launch counters the profiled window
-    checks): returns (report, prefill logits, tokens (b, new + 1))."""
+    checks; ``seq_axis``: the ranks the KV caches' sequence lies over):
+    returns (report, prefill logits, tokens (b, new + 1))."""
     import torch
 
     from repro_torch.launch import steps as st
@@ -236,7 +251,7 @@ def serve_once(cfg, params, layout, mesh, prompt, args, device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     kw = dict(precision="bf16" if args.dtype == "bf16" else "f32",
-              mesh=mesh, layout=layout)
+              mesh=mesh, layout=layout, seq_axis=seq_axis)
     prefill = st.make_prefill_step(cfg, collect_cache_len=args.cache, **kw)
     serve = st.make_serve_step(cfg, **kw)
     with torch.no_grad():
@@ -272,6 +287,8 @@ def serve_once(cfg, params, layout, mesh, prompt, args, device,
                             PROFILED_STEPS, counters)
     cache_bytes = sum(x.numel() * x.element_size() for c in caches
                       for x in c)
+    kv_bytes = sum(x.numel() * x.element_size() for c in caches
+                   if type(c).__name__ == "KVCache" for x in c)
     del caches
     steps = sorted(secs)
     if prof is not None:
@@ -286,7 +303,8 @@ def serve_once(cfg, params, layout, mesh, prompt, args, device,
            "step_p90_ms": steps[min(len(steps) - 1,
                                     int(0.9 * len(steps)))] * 1e3,
            "tokens_per_s": prompt.shape[0] * len(secs) / sum(secs),
-           "cache_bytes": cache_bytes, "finite": finite,
+           "cache_bytes": cache_bytes, "kv_cache_bytes": kv_bytes,
+           "finite": finite,
            "prefill_collective_bytes": dict(pre_moved.bytes),
            "prefill_collective_calls": dict(pre_moved.calls),
            "step_collective_bytes": {k: v / len(secs)
@@ -312,13 +330,18 @@ def run(argv=None) -> dict:
     from repro_torch.tree import tree_leaves
     args = parse_args(argv)
     rank, world = dist.get_rank(), dist.get_world_size()
+    data, model = ((1, world) if args.grid is None
+                   else tuple(int(n) for n in args.grid.split(",")))
+    if data * model != world:
+        raise ValueError(f"--grid {data},{model} does not cover the "
+                         f"{world} ranks")
     device = resolve_device(args.device or "cuda")
     on_card = device.type == "cuda"
     if on_card:             # one card a rank
         device = torch.device("cuda", int(os.environ.get(
             "LOCAL_RANK", rank)) % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    mesh = make_local_mesh(model=world)
+    mesh = make_local_mesh(model=model)
     counters = (fa_ops.COUNTER, dec_ops.COUNTER, ssd_ops.COUNTER)
     if on_card:
         from repro_torch.kernels import build as kbuild
@@ -346,6 +369,13 @@ def run(argv=None) -> dict:
                                                         "model": 1})
             layout = None if rule == "one" else st.serving_layout(
                 cfg, mesh, rule)
+            n = st.batch_rows(args.batch, run_mesh, layout)
+            first = (run_mesh.data_index * n) % args.batch
+            seq = (None if rule == "one" else st.cache_seq_axis(
+                cfg, mesh, layout, args.batch, args.cache))
+            seq_rec = None if seq is None else [
+                next(a for a in ("batch", "data", "model")
+                     if getattr(mesh, a) is seq), seq.size]
             for c in counters:
                 c.reset()
             if on_card:
@@ -354,38 +384,50 @@ def run(argv=None) -> dict:
             t0 = time.perf_counter()
             params = place_params(cfg, layout, dtype, args.seed, device)
             place_s = time.perf_counter() - t0
-            rep, first, tokens = serve_once(cfg, params, layout, run_mesh,
-                                            prompt, args, device, counters)
+            rep, logits0, tokens = serve_once(
+                cfg, params, layout, run_mesh, prompt[first:first + n], args,
+                device, counters, seq)
             rec = dict(rep, place_s=place_s, params_bytes=sum(
                 x.numel() * x.element_size() for x in tree_leaves(params)),
                 peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                           if on_card else None),
                 launches={c.name: c.count for c in counters},
-                tokens=tokens.tolist())
+                launch_shapes={c.name: {"x".join(map(str, k)): v
+                                        for k, v in c.shapes.items()}
+                               for c in counters},
+                rows=[first, n], seq=seq_rec, tokens=tokens.tolist())
             del params
             if rule == "one" and arch in firsts:
+                f, m, sharded, sharded_tokens = firsts[arch]
                 rec["max_logit_diff_vs_sharded"] = float(
-                    (first - firsts[arch][0]).abs().max())
-                rec["max_abs_logit"] = float(first.abs().max())
+                    (logits0[f:f + m] - sharded).abs().max())
+                rec["max_abs_logit"] = float(logits0.abs().max())
                 rec["tokens_equal_vs_sharded"] = float(
-                    (tokens == firsts[arch][1]).float().mean())
+                    (tokens[f:f + m] == sharded_tokens).float().mean())
             elif rule != "one":
-                firsts.setdefault(arch, (first, tokens))
+                firsts.setdefault(arch, (first, n, logits0, tokens))
         everyone = [None] * world
         dist.all_gather_object(everyone, rec)
         ranks = [r for r in everyone if r is not None]
+        # every rank's tokens against those of the first rank serving the
+        # same rows
+        lead = {}
+        for r in ranks:
+            lead.setdefault(tuple(r["rows"]), r["tokens"])
         out = {"arch": arch, "rule": rule, "layers": cfg.n_layers,
-               "grid": [1, world] if rule != "one" else [1, 1],
+               "grid": [data, model] if rule != "one" else [1, 1],
                "dtype": args.dtype, "batch": args.batch,
                "prompt": args.prompt, "cache": args.cache, "new": args.new,
-               "ranks_agree": all(r["tokens"] == ranks[0]["tokens"]
+               "seq": ranks[0]["seq"],
+               "ranks_agree": all(r["tokens"] == lead[tuple(r["rows"])]
                                   for r in ranks),
                "finite": all(r["finite"] for r in ranks),
                **{k: ranks[0][k] for k in (
                    "prefill_ms", "cold_prefill_ms", "step_median_ms",
                    "step_p90_ms", "tokens_per_s", "place_s", "profile")},
                **{k: [r[k] for r in ranks] for k in (
-                   "peak_gib", "params_bytes", "cache_bytes", "launches",
+                   "rows", "peak_gib", "params_bytes", "cache_bytes",
+                   "kv_cache_bytes", "launches", "launch_shapes",
                    "prefill_collective_bytes", "prefill_collective_calls",
                    "step_collective_bytes", "step_collective_calls")},
                **{k: ranks[0][k] for k in (

@@ -7,7 +7,11 @@
 // cache of t keys under a per-key validity mask, out = softmax(q·kᵀ·d^-1/2
 // masked)·v in fp32, with NEG_INF = -1e30 scores and p set to exactly 0 at
 // masked keys, and a max(l, 1e-30) guard so that a row with no valid key
-// gives exact zeros. The output is in q's dtype.
+// gives exact zeros. The output is in q's dtype. On request the merge also
+// writes each row's fp32 log-sum-exp of its scaled valid scores (-1e30 for
+// a row with none): a rank holding a slice of a cache's sequence merges
+// its partial with the other ranks' through it (models/attention.py,
+// merge_partials). The lse store is the only work the request adds.
 //
 // What bounds it on this card: device-memory bandwidth, over the keys the
 // mask leaves. Each row reads its valid keys and values once and does
@@ -500,13 +504,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // shared memory first, and only the chunks with a valid key (l != 0; the
 // acc of the others was never written) are read, several loads in flight
 // per thread. All chunks empty: L = 0, acc = 0, so the output is
-// 0 / 1e-30 = 0.
+// 0 / 1e-30 = 0. A non-null lse also takes the row's log-sum-exp of its
+// scaled valid scores, M + log L, or kNegInf where L = 0 (no valid key).
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
 decode_merge_kernel(const float* __restrict__ part_m,
                     const float* __restrict__ part_l,
                     const float* __restrict__ part_acc, T* __restrict__ out,
-                    int G, int n_chunks) {
+                    float* __restrict__ lse, int G, int n_chunks) {
   __shared__ float Wt[kMaxChunks];
   __shared__ float Lc[kMaxChunks];
   __shared__ int live[kMaxChunks];
@@ -543,6 +548,9 @@ decode_merge_kernel(const float* __restrict__ part_m,
     }
     ML[1] = lsum;
     n_live = nl;
+    if (lse != nullptr)
+      lse[(size_t)row * G + gi] =
+          lsum > 0.f ? ML[0] + logf(lsum) : kNegInf;
   }
   __syncthreads();
   const float* acc = part_acc + base * D + c;
@@ -579,9 +587,9 @@ cudaError_t allow_smem() {
 
 template <typename T, int D, int GP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* valid, void* out, float* part, int bkv, int g,
-                   int t, int mask_div, int chunk_len, int n_chunks, int C,
-                   float scale, cudaStream_t stream) {
+                   const void* valid, void* out, float* lse, float* part,
+                   int bkv, int g, int t, int mask_div, int chunk_len,
+                   int n_chunks, int C, float scale, cudaStream_t stream) {
   constexpr size_t smem = DecLayout<T, D, GP>::bytes;
   cudaError_t err = allow_smem<T, D, GP>();
   if (err != cudaSuccess) return err;
@@ -595,7 +603,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<T, D><<<dim3(bkv, g), D, 0, stream>>>(
-      part, part + ml, part + 2 * ml, static_cast<T*>(out), g, n_chunks);
+      part, part + ml, part + 2 * ml, static_cast<T*>(out), lse, g,
+      n_chunks);
   return cudaGetLastError();
 }
 
@@ -632,14 +641,15 @@ cudaError_t dispatch(int dtype, int d, int gp, F&& f) {
 struct LaunchArgs {
   const void *q, *k, *v, *valid;
   void* out;
+  float* lse;
   float* part;
   int bkv, g, t, mask_div, chunk_len, n_chunks, C;
   float scale;
   cudaStream_t stream;
   template <typename T, int D, int GP>
   cudaError_t run() {
-    return launch<T, D, GP>(q, k, v, valid, out, part, bkv, g, t, mask_div,
-                            chunk_len, n_chunks, C, scale, stream);
+    return launch<T, D, GP>(q, k, v, valid, out, lse, part, bkv, g, t,
+                            mask_div, chunk_len, n_chunks, C, scale, stream);
   }
 };
 
@@ -656,7 +666,9 @@ struct OccupancyArgs {
 // q (bkv, g, d); k/v (bkv, t, d); valid: bool bytes, one row of t shared
 // by every cache row (mask_div = 0) or one row per group of mask_div
 // consecutive cache rows (row r reads mask row r / mask_div); out
-// (bkv, g, d) in q's dtype; part: fp32 scratch, m and l (bkv, g, n_chunks)
+// (bkv, g, d) in q's dtype; lse: null, or fp32 (bkv, g), each row's
+// log-sum-exp of its scaled valid scores (-1e30 where it has none); part:
+// fp32 scratch, m and l (bkv, g, n_chunks)
 // each, then acc (bkv, g, n_chunks, d). Keys [c·chunk_len,
 // (c+1)·chunk_len) go to chunk c; a CTA takes chunks y, y + C, ... of its
 // row, at most kMaxWords·32 keys in all. group: query heads per CTA (4, 8
@@ -664,7 +676,8 @@ struct OccupancyArgs {
 // the launches (0 on success).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* valid,
-                                      void* out, void* part, int dtype,
+                                      void* out, void* lse, void* part,
+                                      int dtype,
                                       int bkv, int g, int t, int d,
                                       int mask_div, int chunk_len,
                                       int n_chunks, int ctas_per_row,
@@ -678,8 +691,9 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
           (long long)kMaxWords * 32 ||
       (g + group - 1) / group > 65535)
     return (int)cudaErrorInvalidValue;
-  LaunchArgs a{q, k, v, valid, out, static_cast<float*>(part), bkv, g, t,
-               mask_div, chunk_len, n_chunks, C, scale,
+  LaunchArgs a{q, k, v, valid, out, static_cast<float*>(lse),
+               static_cast<float*>(part), bkv, g, t, mask_div, chunk_len,
+               n_chunks, C, scale,
                static_cast<cudaStream_t>(stream)};
   return (int)dispatch(dtype, d, group, a);
 }

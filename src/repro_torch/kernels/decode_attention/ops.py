@@ -21,10 +21,13 @@ a function of t alone, and a second kernel merges the chunks in order.
 ``decode_plan`` sizes the rest of the launch: the query heads a CTA takes
 (4, 8 or 16), and how many CTAs share a row's chunks so that the grid
 fills the card once. A CTA skips every chunk and 16-key unit that the mask
-kills. On a CPU tensor the plain version in ``ref.py`` runs instead; on a
-CUDA tensor the kernels launch or it raises. On a ``meta`` (or fake)
-tensor nothing launches: the wrapper returns the output's shape and
-records the kernel's work over the whole cache
+kills. With ``return_lse`` the merge kernel also writes each row's
+log-sum-exp, which a rank holding a slice of a cache's sequence merges
+its partial through (``models.attention.merge_partials``). On a CPU
+tensor the plain version in ``ref.py`` runs instead; on a CUDA tensor the
+kernels launch or it raises. On a ``meta`` (or fake) tensor nothing
+launches: the wrapper returns the outputs' shapes and records the
+kernel's work over the whole cache
 (``kernels.build.record_work``; the per-stream scratch it keeps between
 calls is not a call's allocation).
 """
@@ -57,7 +60,7 @@ LIB = KernelLibrary(
     "decode_attention",
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                  "decode.cu"),
-    {"repro_decode_attention": (_I, [_P] * 6 + [_I] * 10
+    {"repro_decode_attention": (_I, [_P] * 7 + [_I] * 10
                                 + [ctypes.c_float, _P]),
      "repro_decode_blocks_per_sm": (_I, [_I, _I, _I,
                                          ctypes.POINTER(ctypes.c_int)])})
@@ -172,18 +175,21 @@ def _check_inputs(q, k, v, valid):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, return_lse: bool = False):
     """q: (b, h, d); k/v: (b, kv, t, d); valid: (t,) bool shared by every
     row, or (b, t) bool per slot. Returns (b, h, d) in q's dtype; rows
-    with no valid key are zeros.
+    with no valid key are zeros. With ``return_lse`` returns (out, lse):
+    lse (b, h) fp32, each row's log-sum-exp of its scaled valid scores
+    (q·k·d^-1/2), -1e30 where it has none.
 
     The kernel takes f32 or bf16 q and cache of one dtype, head dims 64
     and 128, any GQA group and 1 <= t <= ``MAX_T``, with contiguous q and
-    cache. One call launches two device kernels (split and merge)."""
+    cache. One call launches two device kernels (split and merge), with
+    or without the lse."""
     _check_inputs(q, k, v, valid)
     abstract = is_abstract(q)
     if q.device.type == "cpu" and not abstract:
-        return decode_attention_ref(q, k, v, valid)
+        return decode_attention_ref(q, k, v, valid, return_lse)
     if q.device.type != "cuda" and not abstract:
         raise ValueError(f"decode_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -208,24 +214,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def work():
         # the kernel skips masked chunks: the mask's count is on the
         # device, so the whole cache is recorded (an upper bound)
-        return decode_work(b, h, kv, t, d, q.element_size())
+        return decode_work(b, h, kv, t, d, q.element_size(),
+                           lse=return_lse)
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if abstract:
         record_work(COUNTER.name, work)
-        return torch.empty_like(q)
+        return (out, lse) if return_lse else out
     g = h // kv
     valid = valid.contiguous()
     plan = launch_plan(q, k)
     stream = torch.cuda.current_stream(q.device)
     part, _ = SCRATCH.get(stream, plan.scratch_floats, 0)
-    out = torch.empty_like(q)
     with device_scope(q.device):
         rc = LIB.lib().repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), part.data_ptr(), _DTYPES[q.dtype], b * kv, g, t, d,
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            part.data_ptr(), _DTYPES[q.dtype], b * kv, g, t, d,
             kv if valid.dim() == 2 else 0, plan.chunk_len, plan.n_chunks,
             plan.ctas_per_row, plan.group, float(d ** -0.5),
             stream.cuda_stream)
     check(rc, "decode_attention launch")
     COUNTER.add(shape=(b, h, kv, t, d))
     record_work(COUNTER.name, work)
-    return out
+    return (out, lse) if return_lse else out

@@ -12,12 +12,14 @@ NEG_INF = -1e30
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         valid: torch.Tensor) -> torch.Tensor:
+                         valid: torch.Tensor, return_lse: bool = False):
     """q: (b, h, d) one query per head; k/v: (b, kv, t, d) cache; valid:
     (t,) bool mask of live cache slots, or (b, t) bool per slot. Scores,
     mask and softmax in fp32 (``NEG_INF`` at masked keys), then the
     weighted sum. Rows whose mask is all False (an empty slot) return
-    exact zeros. Returns (b, h, d) in q's dtype."""
+    exact zeros. Returns (b, h, d) in q's dtype; with ``return_lse`` also
+    each row's fp32 log-sum-exp of its masked scaled scores (b, h),
+    ``NEG_INF`` where the row has no valid key."""
     b, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
     g = h // kv
@@ -28,6 +30,12 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,bktd->bkgd", w, v.float())
-    out = torch.where(valid.any(dim=1)[:, None, None, None], out,
+    live = valid.any(dim=1)[:, None, None]
+    out = torch.where(live[..., None], out,
                       torch.zeros((), dtype=out.dtype, device=out.device))
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(live, torch.logsumexp(s, dim=-1),
+                      torch.full((), NEG_INF, device=s.device))
+    return out, lse.reshape(b, h)

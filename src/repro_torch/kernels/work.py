@@ -68,12 +68,13 @@ def contrastive_bwd_work(bx: int, by: int, d: int, item: int):
 
 
 def decode_work(b: int, h: int, kv: int, t: int, d: int, item: int,
-                n_valid: Optional[int] = None):
+                n_valid: Optional[int] = None, lse: bool = False):
     """(bytes, FLOP) of ``decode_attention``: q and out (b, h, d), the
     bool mask (b, t), and the k and v rows of the ``n_valid`` valid cache
-    entries (all b·t by default); 4·d FLOP a query head an entry."""
+    entries (all b·t by default); 4·d FLOP a query head an entry. With
+    ``lse`` the (b, h) fp32 log-sum-exps written too."""
     n_valid = b * t if n_valid is None else n_valid
-    fixed = 2 * b * h * d * item + b * t
+    fixed = 2 * b * h * d * item + b * t + (4 * b * h if lse else 0)
     return (fixed + 2 * kv * d * item * n_valid,
             4.0 * (h // kv) * d * kv * n_valid)
 

@@ -35,9 +35,11 @@ count the kernels' work. The prefill and decode shapes trace a rank's
 serving step on its parts and its rows' caches, as the train shapes
 trace its training step (``steps.shardings_for``: under ``tp`` it
 computes with the parts and holds its kv and SSD heads' caches, under
-``basic_ws`` it gathers each layer on use and holds its rows' caches
-whole); ``memory`` records the rank's params bytes and, for decode, its
-cache bytes. A combo that fails (a shape the port's step
+``basic_ws`` it gathers each layer on use and holds its rows' SSM caches
+whole; under either its slice of each KV cache's sequence where the
+reference's ``cache_specs`` split it, ``steps.cache_seq_axis``, the
+decode step merging the ranks' partial attentions); ``memory`` records
+the rank's params bytes and, for decode, its cache bytes. A combo that fails (a shape the port's step
 refuses, a data-dependent shape under ``meta``) writes ``ok: false``
 with the error, and the exit code counts it.
 """
@@ -58,6 +60,7 @@ from repro_torch.launch import memstats
 from repro_torch.launch import roofline as rf
 from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import fake_world
+from repro_torch.models.attention import kv_cache_len
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -111,8 +114,10 @@ def lm_step(cfg, shape: InputShape, mesh, *, sharding="basic_ws",
     if shape.kind == "prefill":
         return st.make_prefill_step(cfg, moe_args=margs, mesh=mesh,
                                     layout=layout), inputs
+    seq = st.cache_seq_axis(cfg, mesh, layout, shape.global_batch,
+                            kv_cache_len(cfg, shape.seq_len))
     return st.make_serve_step(cfg, moe_args=serve_margs, mesh=mesh,
-                              layout=layout), inputs
+                              layout=layout, seq_axis=seq), inputs
 
 
 def contrastive_step(dual_cfg, shape: InputShape, mesh, *,

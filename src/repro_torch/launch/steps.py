@@ -27,7 +27,9 @@ over the data axis; a whole leaf's is summed over every rank. Under a
 compute with the parts, the batch is split over the data axis only, and
 every gradient is summed over the data axis. The prefill and decode
 steps run on a rank's parts under either rule (``shardings_for``): the
-reference's sharded serving steps, one program a rank.
+reference's sharded serving steps, one program a rank, each rank holding
+its part of every KV cache where the reference's ``cache_specs`` place
+one (``cache_seq_axis``).
 """
 from __future__ import annotations
 
@@ -218,9 +220,8 @@ def serving_layout(cfg: ArchConfig, mesh, mode: str):
 
 def _serving_layout(mesh, layout):
     """``layout``, after checking that it lies over ``mesh``'s model axis
-    (a serving step issues collectives over that axis alone: a rank
-    computes its own rows). The mesh's data axis is not used yet: the
-    sequence split of the caches over it (ROADMAP) will be."""
+    (a serving step's weights live there; its caches' sequence may lie
+    over other ranks of ``mesh``, ``cache_seq_axis``)."""
     if layout is not None and mesh is not None and \
             layout.axis.size != mesh.model_size:
         raise ValueError(f"the layout splits over {layout.axis.size} model "
@@ -230,7 +231,7 @@ def _serving_layout(mesh, layout):
 
 def make_prefill_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
                       precision="bf16", collect_cache_len=None, mesh=None,
-                      layout=None):
+                      layout=None, seq_axis=None):
     """The prefill step: prefill_step(params, batch) -> the last position's
     logits (b, 1, vocab), or with ``collect_cache_len`` (logits, the
     decode caches built from the prompt); ``moe_args`` default to
@@ -238,29 +239,32 @@ def make_prefill_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
     ``layout`` (``serving_layout``, as ``shardings_for`` places them) the
     step is one rank's on its parts, its caches the rank's, its logits
     the whole vocab (``transformer.prefill``); it issues collectives over
-    the layout's model group alone, and ``mesh`` is checked against it
-    (``mesh`` is kept, as ``make_train_step`` has it, for the data axis
-    the caches' sequence split will need)."""
+    the layout's model group alone, and ``mesh`` is checked against it.
+    ``seq_axis``: the ranks of ``mesh`` the KV caches' sequence lies over
+    (``cache_seq_axis`` of ``collect_cache_len``); the rank builds its
+    slice of each alone."""
     margs = DEFAULT_MOE_ARGS if moe_args is None else moe_args
     layout = _serving_layout(mesh, layout)
 
     def prefill_step(params, batch):
         return tf.prefill(cfg, params, batch, precision=precision,
                           moe_args=margs, collect_cache_len=collect_cache_len,
-                          layout=layout)
+                          layout=layout, seq_axis=seq_axis)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
-                    precision="bf16", mesh=None, layout=None):
+                    precision="bf16", mesh=None, layout=None, seq_axis=None):
     """The single-token decode step: serve_step(params, caches, token, pos)
     -> (logits (b, 1, vocab), caches), the caches written in place.
     ``moe_args`` default to ``DEFAULT_MOE_ARGS`` with dense dispatch (the
     reference's default for one token a row: exact, every expert on every
     token). With a ``mesh`` and a ``layout`` as in ``make_prefill_step``:
     the rank's parts, the rank's caches (``transformer.init_caches(...,
-    layout=)``), the whole logits."""
+    layout=, seq_axis=)``), the whole logits; with ``seq_axis`` (the
+    caches' placement, ``cache_seq_axis``) each layer's partial attentions
+    over the ranks' slices are merged over it."""
     margs = (dict(DEFAULT_MOE_ARGS, dispatch="dense") if moe_args is None
              else dict(moe_args))
     layout = _serving_layout(mesh, layout)
@@ -268,23 +272,25 @@ def make_serve_step(cfg: ArchConfig, *, moe_args: Optional[dict] = None,
     def serve_step(params, caches, token, pos):
         return tf.decode_step(cfg, params, token, pos, caches,
                               precision=precision, moe_args=margs,
-                              layout=layout)
+                              layout=layout, seq_axis=seq_axis)
 
     return serve_step
 
 
 def input_specs(cfg: ArchConfig, shape: InputShape, *,
-                dtype=torch.bfloat16, layout=None) -> dict:
+                dtype=torch.bfloat16, layout=None, seq_axis=None) -> dict:
     """``meta`` stand-ins for every model input of ``shape``: a train or
     prefill batch (``frontends.train_inputs_spec``), or for decode the
-    caches (one rank's under a 'tp' ``layout``), the token (b, 1) int32
-    and the position () int32."""
+    caches (one rank's under a 'tp' ``layout`` and a ``seq_axis``,
+    ``transformer.init_caches``), the token (b, 1) int32 and the position
+    () int32."""
     if shape.kind in ("train", "prefill"):
         return frontends.train_inputs_spec(cfg, shape, dtype=dtype)
     b = shape.global_batch
     return {
         "caches": tf.init_caches(cfg, b, shape.seq_len, dtype,
-                                 device="meta", layout=layout),
+                                 device="meta", layout=layout,
+                                 seq_axis=seq_axis),
         "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
         "pos": torch.empty((), dtype=torch.int32, device="meta"),
     }
@@ -325,6 +331,54 @@ def batch_rows(global_batch: int, mesh, layout=None,
     return global_batch // n
 
 
+def cache_seq_axis(cfg: ArchConfig, mesh, layout, global_batch: int,
+                   cache_len: int):
+    """The ranks of ``mesh`` a serving step's KV caches' sequence is split
+    over (an ``Axis`` of ``mesh``, its ranks in slice order), or None
+    where each rank holds its rows' slots whole: the one place the rule
+    lives. It reads the reference's ``cache_specs``
+    (``core.sharding.cache_specs``) for a KV leaf (layers, ``global_batch``,
+    kv heads, ``cache_len``, head dim), whose batch lies over the data
+    axes where it divides (``batch_rows``) and whose longest other dim
+    lies over the model axis, or, where the batch does not divide, over
+    the data and model axes together:
+
+    - a sequence over the model axis: ``mesh.model`` under any rule but
+      'tp'; under a 'tp' ``layout`` None, the kv heads lying over the
+      model axis instead (Megatron attends a rank's heads), the same
+      bytes a rank;
+    - a sequence over the data and model axes: ``mesh.batch`` (every
+      rank, data-major, as the reference orders them), or under 'tp'
+      ``mesh.data`` beside the heads' split over the model axis;
+    - a leaf whose head dim is longest (a cache shorter than a head) or
+      whose sequence does not divide: None, the rows' slots whole (the
+      reference splits the head dim there, or nothing).
+
+    SSM caches keep their placement (``transformer.init_caches``).
+    ``cache_len`` is the cache's length as built: ``collect_cache_len``
+    for a prefill, ``attention.kv_cache_len`` of the positions for
+    ``init_caches``. None without a mesh, or for a model without
+    attention."""
+    from repro_torch.core import sharding as shd
+    if mesh is None or "attn" not in cfg.layer_kinds():
+        return None
+    leaf = torch.empty((1, global_batch, cfg.n_kv_heads, cache_len,
+                        cfg.resolved_head_dim), device="meta")
+    part = shd.cache_specs({"k": leaf}, mesh)["k"][3]
+    names = () if part is None else (
+        part if isinstance(part, tuple) else (part,))
+    every = (*shd.data_axes(mesh), shd.MODEL)
+    if tp.active(layout):
+        axis = mesh.data if names == every else None
+    elif names == (shd.MODEL,):
+        axis = mesh.model
+    elif names == every:
+        axis = mesh.batch
+    else:
+        axis = None
+    return axis if axis is not None and axis.size > 1 else None
+
+
 def shardings_for(cfg, shape: InputShape, mesh, mode: str, params_abs,
                   opt_abs=None, *, dtype=torch.bfloat16,
                   batch_over: str = "data"):
@@ -345,12 +399,14 @@ def shardings_for(cfg, shape: InputShape, mesh, mode: str, params_abs,
     batch (``batch_rows``). A train or contrastive step takes (params,
     opt_state, batch), prefill (params, batch), decode (params, caches,
     token, pos), pos the rows' positions (b,) int32, and the caches the
-    rank's rows' (``transformer.init_caches(..., layout=)``: under 'tp'
-    its KV/M kv heads and H/M SSD heads, else whole). So under 'tp' a
-    rank's cache bytes are 1/M of its rows' (the SSD conv window keeps all
-    of B and C); the reference's ``cache_specs`` split the sequence or
-    state axis over the model axis instead, and under ``basic_ws`` a rank
-    here holds its rows' caches whole, M times the reference's bytes.
+    rank's (``transformer.init_caches(..., layout=, seq_axis=)``): its
+    rows', under 'tp' its KV/M kv heads and H/M SSD heads, and its slice
+    of each KV cache's sequence where ``cache_seq_axis`` places one. So a
+    rank's KV cache bytes are the reference's ``cache_specs`` bytes under
+    every rule; its SSM state is 1/M of its rows' under 'tp' and whole
+    under any other rule, and its SSD conv window keeps all of B and C,
+    where the reference splits the state and the window's channels
+    evenly (give the step that ``cache_seq_axis`` as its ``seq_axis``).
 
     Returns (layouts, inputs): the (params, opt_state) weight-sharding
     layouts (None where every leaf is whole, and the state's for a
@@ -367,7 +423,11 @@ def shardings_for(cfg, shape: InputShape, mesh, mode: str, params_abs,
         shape.global_batch, mesh, layout, batch_over))
     params = ws.cut(params_abs, layout)
     if serving:
-        ins = input_specs(cfg, rows, dtype=dtype, layout=layout)
+        from repro_torch.models.attention import kv_cache_len
+        seq = cache_seq_axis(cfg, mesh, layout, shape.global_batch,
+                             kv_cache_len(cfg, shape.seq_len))
+        ins = input_specs(cfg, rows, dtype=dtype, layout=layout,
+                          seq_axis=seq)
         if shape.kind == "prefill":
             return (layout, None), (params, ins)
         # per-slot positions (the continuous engine's), which a trace on

@@ -33,6 +33,16 @@ Under a model axis (``--sharding tp``, ``core.tensor_parallel``) a rank's
 cache holds its KV/M kv heads: prefill gives the rank's k/v and decode
 attends its H/M query heads over them, on the same kernels.
 
+Over a sequence axis (``seq_axis``, the ranks ``launch.steps.cache_seq_axis``
+places a cache's sequence over, as the reference's ``cache_specs`` does
+for a cache longer than a head) rank r of P holds slots [r·T/P,
+(r+1)·T/P) of the T slots: prefill builds that slice alone, decode writes
+the new k/v only where its slot falls in the slice, attends over the
+slice (the kernel's or the einsum's partial and its log-sum-exp) and
+merges the ranks' partials (``merge_partials``). The reference gets the
+same function from GSPMD, which partitions its softmax over the sharded
+cache.
+
 A linear cache longer than the window is a reference behaviour the port
 reproduces: prefill honours the window, decode masks only ``idx <= pos``
 and so attends past it (``repro/models/attention.py:356``).
@@ -64,11 +74,61 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def is_ring(cfg: ArchConfig, cache: KVCache) -> bool:
-    """True when the cache is ring-addressed: the arch slides a window and
-    the cache length equals it."""
-    return (cfg.sliding_window is not None
-            and cache.k.shape[2] == cfg.sliding_window)
+def is_ring(cfg: ArchConfig, cache_len: int) -> bool:
+    """True when a cache of ``cache_len`` slots (the whole cache's, not a
+    rank's slice of it) is ring-addressed: the arch slides a window and
+    the length equals it."""
+    return cfg.sliding_window is not None and cache_len == cfg.sliding_window
+
+
+def kv_cache_len(cfg: ArchConfig, seq_len: int) -> int:
+    """Slots of the decode cache ``init_kv_cache`` makes for ``seq_len``
+    positions: the window when it fits (a ring), else ``seq_len``."""
+    ring = cfg.sliding_window is not None and cfg.sliding_window <= seq_len
+    return cfg.sliding_window if ring else seq_len
+
+
+def _slice_of(seq_axis, cache_len: int):
+    """(first slot, slots) of this rank's slice of a cache of
+    ``cache_len`` slots split over ``seq_axis`` (None: the whole)."""
+    if seq_axis is None or seq_axis.size == 1:
+        return 0, cache_len
+    if cache_len % seq_axis.size:
+        raise ValueError(f"a cache of {cache_len} slots does not split over "
+                         f"{seq_axis.size} ranks")
+    n = cache_len // seq_axis.size
+    return seq_axis.index * n, n
+
+
+def _span(cache: KVCache, seq_axis):
+    """(first slot, slots held, the whole cache's slots) of ``cache``, this
+    rank's slice of a cache split over ``seq_axis`` (None: the whole)."""
+    n = cache.k.shape[2]
+    if seq_axis is None:
+        return 0, n, n
+    return seq_axis.index * n, n, n * seq_axis.size
+
+
+def merge_partials(out, lse, axis):
+    """The attention over a cache split over the ranks of ``axis`` (a
+    ``launch.mesh.Axis``), from this rank's partial over its slice: out
+    (b, h, d) and its fp32 log-sum-exp lse (b, h) (-1e30 and zeros where
+    the slice has no valid key). One all-gather of the packed (b, h, d +
+    1) fp32 partials, then in rank order: m = max lse, w_r = exp(lse_r −
+    m), out = Σ w_r·out_r / Σ w_r. A row empty on every rank gives zeros.
+    Every rank computes the same sum from the same gathered tensor, so
+    every rank ends with the same bits. Returns (b, h, d) in out's
+    dtype."""
+    d = out.shape[-1]
+    every = axis.all_gather(torch.cat([out.float(), lse[..., None].float()],
+                                      dim=-1))
+    lses = every[..., d]
+    w = torch.exp(lses - lses.max(dim=0).values)
+    num, den = every[0, ..., :d] * w[0, ..., None], w[0]
+    for r in range(1, every.shape[0]):
+        num = num + every[r, ..., :d] * w[r, ..., None]
+        den = den + w[r]
+    return (num / den[..., None]).to(out.dtype)
 
 
 def init_attn_params(cfg: ArchConfig, generator: torch.Generator, extra=(),
@@ -265,28 +325,31 @@ def attention(p, cfg: ArchConfig, x, positions, return_kv: bool = False,
 
 
 def cache_from_prefill(cfg: ArchConfig, k, v, cache_len: int,
-                       dtype=None) -> KVCache:
+                       dtype=None, seq_axis=None) -> KVCache:
     """A decode cache from prefill k/v ((b, s, kv, hd), RoPE applied).
 
     Linear cache: positions [0, min(s, cache_len)) at their own slots, the
     rest zeros. Ring (the window equals ``cache_len``) with s >= cache_len:
     the last ``cache_len`` positions at their ``pos % cache_len`` slots, so
-    decode writes continue the ring."""
+    decode writes continue the ring. With ``seq_axis`` only this rank's
+    slice of the slots is built (``_slice_of``): the whole cache is never
+    allocated."""
     b, s, kvh, hd = k.shape
     dtype = dtype or k.dtype
-    k = k.transpose(1, 2).to(dtype)                       # (b, kv, s, hd)
-    v = v.transpose(1, 2).to(dtype)
-    ring = cfg.sliding_window is not None and cache_len == cfg.sliding_window
-    if ring and s >= cache_len:
+    lo, n = _slice_of(seq_axis, cache_len)
+    k = k.transpose(1, 2)                                 # (b, kv, s, hd)
+    v = v.transpose(1, 2)
+    if is_ring(cfg, cache_len) and s >= cache_len:
         src = np.arange(s - cache_len, s)                 # source positions
         order = src[np.argsort(src % cache_len)]          # slot i <- order[i]
-        idx = torch.from_numpy(order).to(k.device)
-        return KVCache(k=k.index_select(2, idx), v=v.index_select(2, idx))
-    n = min(s, cache_len)
-    ck = torch.zeros((b, kvh, cache_len, hd), dtype=dtype, device=k.device)
+        idx = torch.from_numpy(order[lo:lo + n]).to(k.device)
+        return KVCache(k=k.index_select(2, idx).to(dtype),
+                       v=v.index_select(2, idx).to(dtype))
+    m = max(0, min(s, cache_len, lo + n) - lo)            # prompt slots held
+    ck = torch.zeros((b, kvh, n, hd), dtype=dtype, device=k.device)
     cv = torch.zeros_like(ck)
-    ck[:, :, :n] = k[:, :, :n]
-    cv[:, :, :n] = v[:, :, :n]
+    ck[:, :, :m] = k[:, :, lo:lo + m]
+    cv[:, :, :m] = v[:, :, lo:lo + m]
     return KVCache(k=ck, v=cv)
 
 
@@ -296,13 +359,13 @@ def cache_from_prefill(cfg: ArchConfig, k, v, cache_len: int,
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int,
-                  dtype=torch.bfloat16, *, device) -> KVCache:
+                  dtype=torch.bfloat16, *, device, seq_axis=None) -> KVCache:
     """Zeroed decode cache on ``device`` (required): ring-sized when the
-    window fits in ``seq_len``, else ``seq_len`` long."""
+    window fits in ``seq_len``, else ``seq_len`` long (``kv_cache_len``);
+    with ``seq_axis`` this rank's slice of its slots."""
     hd = cfg.resolved_head_dim
-    ring = cfg.sliding_window is not None and cfg.sliding_window <= seq_len
-    clen = cfg.sliding_window if ring else seq_len
-    shape = (batch, cfg.n_kv_heads, clen, hd)
+    _, n = _slice_of(seq_axis, kv_cache_len(cfg, seq_len))
+    shape = (batch, cfg.n_kv_heads, n, hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -331,25 +394,33 @@ def resolve_decode_backend(impl: Optional[str], device: torch.device) -> str:
 
 
 def _write_cache(cfg: ArchConfig, cache: KVCache, k_new, v_new, pos,
-                 per_slot: bool):
+                 per_slot: bool, seq_axis=None):
     """Write one token's k/v rows ((b, kv, hd)) into ``cache`` in place:
     slot ``pos % clen`` on a ring, else ``pos``. Past the end of a linear
     cache the reference's semantics hold: a scalar position clamps to the
-    last slot (``dynamic_update_slice``), a per-slot one writes nothing."""
-    clen = cache.k.shape[2]
+    last slot (``dynamic_update_slice``), a per-slot one writes nothing.
+    With ``seq_axis`` ``cache`` is this rank's slice of a cache of
+    ``clen`` = its length × the axis's size, addressed as that whole
+    cache, and a row is written only where its slot falls in the slice."""
+    lo, n, clen = _span(cache, seq_axis)
+    ring = is_ring(cfg, clen)
     kn = k_new.to(cache.k.dtype)
     vn = v_new.to(cache.v.dtype)
     if not per_slot:
-        slot = pos % clen if is_ring(cfg, cache) else min(pos, clen - 1)
-        cache.k[:, :, slot] = kn
-        cache.v[:, :, slot] = vn
+        slot = pos % clen if ring else min(pos, clen - 1)
+        if lo <= slot < lo + n:
+            cache.k[:, :, slot - lo] = kn
+            cache.v[:, :, slot - lo] = vn
         return
     rows = torch.arange(pos.shape[0], device=pos.device)
-    if is_ring(cfg, cache):
-        slot = pos % clen
-    else:
-        slot = pos.clamp(max=clen - 1)
-        inside = (pos < clen)[:, None, None]
+    slot = pos % clen if ring else pos.clamp(max=clen - 1)
+    inside = None if ring else pos < clen
+    if n < clen:
+        mine = (slot >= lo) & (slot < lo + n)
+        inside = mine if inside is None else inside & mine
+        slot = (slot - lo).clamp(0, n - 1)
+    if inside is not None:
+        inside = inside[:, None, None]
         kn = torch.where(inside, kn, cache.k[rows, :, slot])
         vn = torch.where(inside, vn, cache.v[rows, :, slot])
     cache.k[rows, :, slot] = kn
@@ -357,7 +428,7 @@ def _write_cache(cfg: ArchConfig, cache: KVCache, k_new, v_new, pos,
 
 
 def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
-                     impl: Optional[str] = None, axis=None):
+                     impl: Optional[str] = None, axis=None, seq_axis=None):
     """One-token decode. x: (b, 1, d); pos: an int (every row at one
     position, the lockstep engine) or a (b,) integer tensor of per-slot
     positions (the continuous engine: write, RoPE and length mask per
@@ -371,7 +442,11 @@ def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
     this rank's column parts and ``wo`` its row part, as in
     ``attention``: ``cache`` holds the rank's KV/M kv heads, the rank
     attends its H/M query heads over them (the group count unchanged),
-    and the output is summed over the group."""
+    and the output is summed over the group. With ``seq_axis`` ``cache``
+    is this rank's slice of the sequence (``_write_cache``): the mask
+    covers the slice's global slots, the kernel (or the einsum) gives the
+    slice's partial and log-sum-exp, and ``merge_partials`` joins the
+    ranks' partials before ``wo``."""
     b = x.shape[0]
     if axis is not None:
         cfg = tp.local_heads(cfg, axis.size)
@@ -386,25 +461,30 @@ def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
         positions = torch.full((b, 1), pos, dtype=torch.long,
                                device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    _write_cache(cfg, cache, k_new[:, 0], v_new[:, 0], pos, per_slot)
+    _write_cache(cfg, cache, k_new[:, 0], v_new[:, 0], pos, per_slot,
+                 seq_axis)
 
-    clen = cache.k.shape[2]
-    ring = is_ring(cfg, cache)
-    idx = torch.arange(clen, device=x.device)
+    lo, n, clen = _span(cache, seq_axis)
+    split = n < clen
+    ring = is_ring(cfg, clen)
+    idx = torch.arange(lo, lo + n, device=x.device)
     if per_slot:
-        valid = idx[None, :] <= pos[:, None]                # (b, clen)
+        valid = idx[None, :] <= pos[:, None]                # (b, n)
         if ring:
             # once pos >= clen the ring is full: every slot is in-window
             valid = valid | (pos >= clen)[:, None]
     else:
-        valid = idx <= pos                                  # (clen,)
+        valid = idx <= pos                                  # (n,)
         if ring and pos >= clen:
             valid = torch.ones_like(valid)
 
     impl = resolve_decode_backend(
         impl if impl is not None else cfg.attn_impl, x.device)
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    if impl == "decode":
+    if impl == "decode" and split:
+        out, lse = dec_ops.decode_attention(q.reshape(b, h, hd), cache.k,
+                                            cache.v, valid, return_lse=True)
+    elif impl == "decode":
         out = dec_ops.decode_attention(q.reshape(b, h, hd), cache.k,
                                        cache.v, valid)
     else:
@@ -415,8 +495,18 @@ def decode_attention(p, cfg: ArchConfig, x, cache: KVCache, pos,
         qh = q.reshape(b, kv, h // kv, hd)
         scores = torch.einsum("bkgd,bktd->bkgt", qh,
                               cache.k.to(qh.dtype)) * (hd ** -0.5)
-        w = torch.softmax(scores.float() + mask, dim=-1).to(q.dtype)
+        scores = scores.float() + mask
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.einsum("bkgt,bktd->bkgd", w, cache.v.to(w.dtype))
+        if split:
+            # a slice with no valid key: zeros and -1e30, as the kernel
+            live = valid.any(dim=-1)
+            live = live[:, None, None] if per_slot else live
+            lse = torch.where(live, torch.logsumexp(scores, dim=-1), neg)
+            out = torch.where(live[..., None], out, zero.to(out.dtype))
+    if split:
+        out = merge_partials(out.reshape(b, h, hd), lse.reshape(b, h),
+                             seq_axis)
     out = L.dense(out.reshape(b, 1, h * hd), p["wo"])
     if axis is not None:
         out = tp.reduce_from_model(out, axis)

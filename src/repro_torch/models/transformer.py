@@ -25,11 +25,11 @@ Entry points:
   init_params(cfg, generator, device, experts)   -> params dict
   lm_loss(cfg, params, batch, moe_args)          -> (loss, metrics)
   encode(cfg, params, batch)                     -> pooled (b, d_model)
-  prefill(cfg, params, batch, moe_args, collect_cache_len, layout)
-                                                 -> logits [, caches]
-  decode_step(cfg, params, token, pos, caches, moe_args, layout)
+  prefill(cfg, params, batch, moe_args, collect_cache_len, layout,
+          seq_axis)                              -> logits [, caches]
+  decode_step(cfg, params, token, pos, caches, moe_args, layout, seq_axis)
                                                  -> (logits, caches)
-  init_caches(cfg, batch, seq_len, device=..., layout=...)
+  init_caches(cfg, batch, seq_len, device=..., layout=..., seq_axis=...)
                                                  -> zeroed caches
 
 ``forward`` and ``encode`` take a ``remat_policy`` (``core.remat``) that
@@ -42,7 +42,11 @@ layer's weights inside the function remat wraps, and the embedding, the
 LM head and the vision frontend are gathered where they are used; under
 a 'tp' layout each block computes with its parts
 (``core.tensor_parallel``), and a serving step holds the rank's caches
-and returns the whole logits on every rank. ``decode_step`` writes each
+and returns the whole logits on every rank. A serving step's
+``seq_axis`` (``launch.steps.cache_seq_axis``) names the ranks its KV
+caches' sequence is split over: each rank holds its slice of every KV
+cache, and decode merges the ranks' partial attentions
+(``attention.merge_partials``). ``decode_step`` writes each
 layer's new k/v (or SSD state and conv window) into the caches in place
 and returns the same objects. ``moe_args`` (``dispatch``, ``group``,
 ``capacity_factor`` and the expert share ``experts``) go to every MoE
@@ -145,12 +149,14 @@ def _layer(tree, i: int):
 
 def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
                  cache=None, decode=False, collect_cache_len=None,
-                 moe_args=None, axis=None):
+                 moe_args=None, axis=None, seq_axis=None):
     """Pre-norm block: attention or the Mamba-2 mixer (by the block's
     leaves), then, outside the SSM family, a pre-norm SwiGLU or MoE FFN.
     ``axis``: the model axis when ``p`` holds this rank's Megatron parts
     (``core.tensor_parallel.block_params``); a cache is then the rank's
-    (its kv heads, or its SSD heads and conv channels). Returns (h, the
+    (its kv heads, or its SSD heads and conv channels). ``seq_axis``: the
+    ranks a KV cache's sequence is split over (``attention``'s
+    ``_slice_of``), an SSM cache being whole along it. Returns (h, the
     layer's cache: the one given, written in place, when decoding; one
     built from the prompt with ``collect_cache_len``; else None, the MoE
     load-balance term or None)."""
@@ -167,12 +173,14 @@ def _apply_block(cfg: ArchConfig, p, h, positions, key_mask=None,
                 new_cache = None
     elif decode:
         mix, new_cache = attn_lib.decode_attention(p["attn"], cfg, hn, cache,
-                                                   positions, axis=axis)
+                                                   positions, axis=axis,
+                                                   seq_axis=seq_axis)
     elif collect_cache_len is not None:
         mix, (k, v) = attn_lib.attention(p["attn"], cfg, hn, positions,
                                          return_kv=True, key_mask=key_mask,
                                          axis=axis)
-        new_cache = attn_lib.cache_from_prefill(cfg, k, v, collect_cache_len)
+        new_cache = attn_lib.cache_from_prefill(cfg, k, v, collect_cache_len,
+                                                seq_axis=seq_axis)
     else:
         mix = attn_lib.attention(p["attn"], cfg, hn, positions,
                                  key_mask=key_mask, axis=axis)
@@ -214,7 +222,8 @@ def _layers(cfg: ArchConfig, params):
 
 def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
             remat_policy=None, caches=None, decode=False,
-            collect_cache_len=None, moe_args=None, layout=None):
+            collect_cache_len=None, moe_args=None, layout=None,
+            seq_axis=None):
     """Run the block stack. h: (b, s, d); key_mask: optional (b, s) bool
     padding mask threaded into attention; remat_policy: optional
     ``core.remat`` policy applied per block (not while decoding or
@@ -231,7 +240,8 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
     decode and cache-building passes run each layer the same way: under
     'tp' on its parts, with the rank's caches (``init_caches(...,
     layout=)``), under any other layout on its leaves gathered whole for
-    that layer alone.
+    that layer alone; with ``seq_axis`` on the rank's slice of every KV
+    cache's sequence (``_apply_block``).
 
     Returns (h, caches, aux): the caches given (written in place), the
     ones built, or None; aux the sum of the MoE load-balance terms (an
@@ -245,7 +255,8 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
             p, margs, axis = _megatron_block(cfg, p, lays[r], moe_args)
             h, _, aux = _apply_block(cfg, p, h, positions,
                                      cache=type(c)(*(x[j] for x in c)),
-                                     decode=True, moe_args=margs, axis=axis)
+                                     decode=True, moe_args=margs, axis=axis,
+                                     seq_axis=seq_axis)
             terms.append(aux)
         out_caches = caches
     elif collect_cache_len is not None:
@@ -254,7 +265,8 @@ def forward(cfg: ArchConfig, params, h, positions, key_mask=None,
             p, margs, axis = _megatron_block(cfg, p, lays[r], moe_args)
             h, c, aux = _apply_block(cfg, p, h, positions, key_mask=key_mask,
                                      collect_cache_len=collect_cache_len,
-                                     moe_args=margs, axis=axis)
+                                     moe_args=margs, axis=axis,
+                                     seq_axis=seq_axis)
             built[r].append(c)
             terms.append(aux)
         out_caches = [type(b[0])(*(torch.stack(leaf) for leaf in zip(*b)))
@@ -431,7 +443,8 @@ def lm_loss(cfg: ArchConfig, params, batch, *, dtype=torch.float32,
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
-                dtype=torch.bfloat16, *, device, layout=None) -> list:
+                dtype=torch.bfloat16, *, device, layout=None,
+                seq_axis=None) -> list:
     """Zeroed decode caches on ``device`` (required), stacked over the
     layers: a list with one entry per period position, by its layers'
     kind: a ``KVCache`` of (n_layers // period, batch, kv_heads,
@@ -440,7 +453,10 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
     ``seq_len``. Under a 'tp' ``layout`` of M model ranks they are one
     rank's: KV/M kv heads, and the state of H/M SSD heads with the conv
     window of their x channels (``ssm.init_ssm_cache``); under any other
-    layout whole."""
+    layout whole in heads. With ``seq_axis`` (the placement
+    ``launch.steps.cache_seq_axis`` gives, as the reference's
+    ``cache_specs`` places a cache's sequence) a KV cache holds the rank's
+    cache_len / P of the slots; an SSM cache is whole along it."""
     period = period_of(cfg)
     n = cfg.n_layers // period
     m = layout.axis.size if tp.active(layout) else 1
@@ -449,7 +465,7 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
         if kind == "attn":
             one = attn_lib.init_kv_cache(
                 cfg if m == 1 else tp.local_heads(cfg, m), batch, seq_len,
-                dtype, device=device)
+                dtype, device=device, seq_axis=seq_axis)
         else:
             one = ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device,
                                          model=m)
@@ -469,7 +485,7 @@ def _served_logits(cfg: ArchConfig, params, h, pol, layout):
 
 def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
             precision=None, moe_args=None, collect_cache_len=None,
-            layout=None):
+            layout=None, seq_axis=None):
     """Forward over ``batch['tokens']`` (b, s) emitting the last position's
     logits (b, 1, vocab); with ``collect_cache_len`` also builds the decode
     caches (serving prefill) and returns (logits, caches). ``precision``
@@ -477,12 +493,14 @@ def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
     is bf16, as in the reference; ``moe_args`` go to every MoE FFN.
     ``layout``: the params are this rank's parts (``forward``); the
     caches built are then the rank's (``init_caches``' shapes) and the
-    logits are the whole vocab on every rank."""
+    logits are the whole vocab on every rank. ``seq_axis``: the KV caches
+    built are the rank's slice of the sequence, the whole cache never
+    allocated (``attention.cache_from_prefill``)."""
     pol = prec_lib.resolve(precision, dtype)
     h, pos, _ = embed_inputs(cfg, params, batch, pol.compute_dtype, layout)
     h, caches, _ = forward(cfg, params, h, pos, moe_args=moe_args,
                            collect_cache_len=collect_cache_len,
-                           layout=layout)
+                           layout=layout, seq_axis=seq_axis)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _served_logits(cfg, params, h[:, -1:, :], pol, layout)
     if collect_cache_len is not None:
@@ -492,7 +510,7 @@ def prefill(cfg: ArchConfig, params, batch, *, dtype=torch.bfloat16,
 
 def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
                 dtype=torch.bfloat16, precision=None, moe_args=None,
-                layout=None):
+                layout=None, seq_axis=None):
     """One decode step. token: (b, 1) integer tensor; pos: an int (every
     row at one position, the lockstep engine) or a (b,) integer tensor of
     per-slot positions (the continuous engine; Mamba layers ignore it).
@@ -503,11 +521,14 @@ def decode_step(cfg: ArchConfig, params, token, pos, caches, *,
     reference's behaviour). ``layout``: the params are this rank's parts
     and ``caches`` the rank's (``init_caches(..., layout=)``); the token
     is embedded vocab-parallel under 'tp' (``tensor_parallel.vocab_embed``)
-    and the logits are the whole vocab on every rank."""
+    and the logits are the whole vocab on every rank. ``seq_axis``: the KV
+    caches are the rank's slices of the sequence (``init_caches(...,
+    seq_axis=)``), each layer's partial attentions merged over it."""
     pol = prec_lib.resolve(precision, dtype)
     h = tp.vocab_embed(params["embed"], ws.sub(layout, "embed"), token,
                        pol.compute_dtype)
     h, caches, _ = forward(cfg, params, h, pos, caches=caches, decode=True,
-                           moe_args=moe_args, layout=layout)
+                           moe_args=moe_args, layout=layout,
+                           seq_axis=seq_axis)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _served_logits(cfg, params, h, pol, layout), caches

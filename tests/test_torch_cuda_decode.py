@@ -20,6 +20,11 @@ Tolerances, each with its reason:
   entries past each length, and the batch a row sits in change nothing,
   bit for bit. The kernel skips the 16-key units and the chunks that the
   mask kills; skipping them changes no bit.
+- The log-sum-exp (``return_lse``): 2e-5 abs against the plain version's
+  fp32 log-sum-exp of the same scores (fp32 sums of exponentials in
+  another order; bf16 products are exact in fp32), -1e30 exactly on a row
+  with no valid key, and the output with it the output without it, bit for
+  bit.
 """
 import numpy as np
 import pytest
@@ -161,6 +166,34 @@ def test_decode_kernel_refuses_what_it_does_not_take(gen):
     q, k, v = _qkv(gen, 2, 4, 2, 64, 32, torch.float32)
     with pytest.raises(ValueError, match="head dims"):
         dec_ops.decode_attention(q, k, v, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,t,d", [
+    (1, 32, 8, 4096, 64),     # Llama-3.2-1B's slice of its ring over 2
+    (2, 64, 8, 8192, 128),    # Jamba's heads, a shorter slice
+    (8, 16, 4, 1000, 64),     # ragged t, group 4
+])
+def test_decode_kernel_lse_matches_plain(gen, b, h, kv, t, d, dtype):
+    q, k, v = _qkv(gen, b, h, kv, t, d, dtype)
+    valid, _ = _lengths_mask(b, t)
+    if b == 1:                    # a slice past the row's keys, then some
+        valid = torch.zeros_like(valid)
+    out, lse = dec_ops.decode_attention(q, k, v, valid, return_lse=True)
+    ref, ref_lse = decode_attention_ref(q, k, v, valid, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dec_ops.decode_attention(q, k, v, valid))
+    _assert_close(out, ref)
+    live = valid.any(-1)
+    assert bool((lse[~live] == -1e30).all())
+    if bool(live.any()):
+        assert float((lse - ref_lse)[live].abs().max()) <= 2e-5
+    if b == 1:
+        valid[0, :t // 3] = True
+        out, lse = dec_ops.decode_attention(q, k, v, valid, return_lse=True)
+        ref, ref_lse = decode_attention_ref(q, k, v, valid, return_lse=True)
+        _assert_close(out, ref)
+        assert float((lse - ref_lse).abs().max()) <= 2e-5
 
 
 def test_continuous_engine_matches_lockstep_on_the_kernel_path(gen):

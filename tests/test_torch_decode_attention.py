@@ -6,6 +6,15 @@ Tolerances: f32 2e-5 and bf16 5e-2, the reference's own
 (tests/test_decode_kernel.py); the port's plain version and the
 reference's oracle sum in fp32 in another order. A length-0 row is exactly
 zero, and stale entries past each length move nothing, bit for bit.
+
+The log-sum-exp the wrapper returns on request (``return_lse``), which a
+rank holding a slice of a cache's sequence merges its partial through: the
+plain version's against a float64 log-sum-exp of the masked scores (1e-5,
+fp32 scores), -1e30 on a row with no valid key; and a cache cut into P =
+2, 3 and 4 slices, each through the plain version and then
+``models.attention.merge_partials``, equal to the whole call within 1e-6
+(f32), with slices and a whole row without a valid key, under (t,) and
+(b, t) masks.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +24,9 @@ import torch
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (NEG_INF,
+                                                      decode_attention_ref)
+from repro_torch.models.attention import merge_partials
 
 torch.set_num_threads(1)
 
@@ -177,3 +188,80 @@ def test_dead_chunks_and_units_match_reference(dtype, ring):
                   interpret=True), rtol=TOL[dtype], atol=TOL[dtype])
     if not ring:
         np.testing.assert_array_equal(got[0], np.zeros((h, d), np.float32))
+
+
+# (t,) or (b, t) masks; per slot: no valid key, one, a few in the first
+# slice alone, and a full row
+LSE_MASKS = {"shared": np.arange(96) < 37,
+             "per_slot": np.arange(96)[None, :] < np.array([0, 1, 5, 96])[
+                 :, None]}
+
+
+@pytest.mark.parametrize("mask", sorted(LSE_MASKS))
+def test_plain_lse_is_the_float64_log_sum_exp(mask):
+    b, h, kv, t, d = 4, 8, 2, 96, 64
+    q, k, v = _inputs(b, h, kv, t, d, 31)
+    valid = LSE_MASKS[mask]
+    tq, tk, tv, tm = (torch.tensor(x) for x in (q, k, v, valid))
+    out, lse = dec_ops.decode_attention(tq, tk, tv, tm, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(out, dec_ops.decode_attention(tq, tk, tv, tm))
+    s = np.einsum("bkgd,bktd->bkgt", q.reshape(b, kv, h // kv, d).astype(
+        np.float64), k.astype(np.float64)) * d ** -0.5
+    m = np.broadcast_to(valid, (b, t))[:, None, None, :]
+    s = np.where(m, s, -np.inf)
+    top = s.max(-1, keepdims=True)
+    with np.errstate(invalid="ignore"):
+        want = (top[..., 0] + np.log(np.exp(s - top).sum(-1))).reshape(b, h)
+    live = np.broadcast_to(valid, (b, t)).any(-1)
+    np.testing.assert_allclose(lse.numpy()[live], want[live], rtol=0,
+                               atol=1e-5)
+    assert (lse.numpy()[~live] == NEG_INF).all()
+    assert (out.numpy()[~live] == 0).all()
+
+
+class _Gathered:
+    """A stand-in for the axis of ``parts`` ranks: ``all_gather`` checks
+    that it is handed rank ``index``'s packed partial and returns every
+    rank's, stacked in rank order."""
+
+    def __init__(self, packed, index):
+        self.packed, self.index, self.size = packed, index, len(packed)
+
+    def all_gather(self, t):
+        assert torch.equal(t, self.packed[self.index])
+        return torch.stack(self.packed)
+
+
+@pytest.mark.parametrize("mask", sorted(LSE_MASKS))
+@pytest.mark.parametrize("parts", [2, 3, 4])
+def test_a_split_cache_merges_to_the_whole_call(parts, mask):
+    b, h, kv, t, d = 4, 8, 2, 96, 64
+    q, k, v = (torch.tensor(x) for x in _inputs(b, h, kv, t, d, 32))
+    valid = torch.tensor(LSE_MASKS[mask])
+    whole = dec_ops.decode_attention(q, k, v, valid)
+    n = t // parts
+    got = []
+    for r in range(parts):
+        cut = slice(r * n, (r + 1) * n)
+        got.append(dec_ops.decode_attention(
+            q, k[:, :, cut].contiguous(), v[:, :, cut].contiguous(),
+            valid[..., cut], return_lse=True))
+    packed = [torch.cat([o, l[..., None]], dim=-1) for o, l in got]
+    # a row's slice without a valid key: zeros and -1e30 (every case has
+    # some: the shared mask ends in the first half, rows 0 and 2 of the
+    # per-slot one hold 0 and 5 keys)
+    empty = 0
+    for r, (o, l) in enumerate(got):
+        dead = ~valid[..., r * n:(r + 1) * n].expand(b, n).any(-1)
+        assert (l[dead] == NEG_INF).all() and (o[dead] == 0).all()
+        empty += int(dead.sum())
+    assert empty > 0
+    merged = [merge_partials(o, l, _Gathered(packed, r))
+              for r, (o, l) in enumerate(got)]
+    for m in merged:            # every rank ends with the same bits
+        assert torch.equal(m, merged[0])
+    np.testing.assert_allclose(merged[0].numpy(), whole.numpy(), rtol=0,
+                               atol=1e-6)
+    if mask == "per_slot":      # no valid key on any rank: zeros
+        assert (merged[0][0] == 0).all()

@@ -10,7 +10,14 @@ step of an (arch × input shape × mesh) traced on ``meta`` tensors over a
   ``replicated`` (smoke BASIC-S); so do a serving step's params (smoke
   Llama-3.2-1B's prefill and decode under ``tp`` and ``basic_ws`` at (1,
   2)), whose peak is below the whole-weight trace's and whose decode
-  caches are the rank's kv heads' under ``tp``.
+  caches are the rank's kv heads' under ``tp`` and its half of the
+  sequence under ``basic_ws`` (the reference's ``cache_specs`` split a
+  ring of 64 slots, the head dim's length, on its sequence).
+- Llama-3.2-1B's ``long_500k`` decode (b 1) on a (4, 2) mesh under
+  ``tp`` and ``basic_ws`` holds the rank's slice of the KV caches, 1/8 of
+  them as the reference's ``cache_specs`` place them; under ``tp`` the
+  step merges the slices' partial attentions with one all-gather a
+  layer.
 - Llama-3.2-1B's ``prefill_32k`` and ``decode_32k`` under ``tp`` and
   ``basic_ws`` on a (16, 8) mesh trace a rank's parts; a ``tp`` decode
   step's collectives are two all-reduces a block, the embedding's, and
@@ -133,9 +140,9 @@ def test_parts_bytes_equal_a_gloo_worlds(grid, sharding, kind, gloo_bytes):
         assert ranks[0][0] == whole["params_bytes_per_device"]
     else:
         assert ranks[0][0] < whole["params_bytes_per_device"]
-    if kind == "decode":        # tp: the rank's kv heads; basic_ws: whole
-        share = 2 if sharding == "tp" else 1
-        assert r["caches_bytes_per_device"] * share == \
+    if kind == "decode":
+        # tp: the rank's kv heads; basic_ws: its half of the sequence
+        assert r["caches_bytes_per_device"] * 2 == \
             whole["caches_bytes_per_device"]
 
 
@@ -171,6 +178,25 @@ def test_serving_combos_trace_a_ranks_parts(shape, sharding):
         assert c["all-reduce"] == (2 * n + 1) * rows * d * 2
         assert c["all-gather"] == rows * cfg.vocab // 8 * 4
         assert c["count"] == 2 * n + 2
+
+
+@pytest.mark.parametrize("sharding", ["tp", "basic_ws"])
+def test_long_500k_decode_holds_the_ranks_slice(sharding):
+    cfg = get_arch("llama3.2-1b")
+    r = dryrun.run_one("llama3.2-1b", "long_500k", mesh=(4, 2),
+                       sharding=sharding, verbose=False)
+    assert r["ok"], r.get("error")
+    # the ring of the 8192-token window, b 1, bf16 k and v, over 8 ranks
+    whole = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.sliding_window * \
+        cfg.resolved_head_dim * 2
+    assert r["memory"]["caches_bytes_per_device"] * 8 == whole
+    if sharding == "tp":
+        # a layer hands the all-gather its packed (b, 16 heads, d + 1) f32
+        # partial, beside two all-reduces; then the logits' vocab slice
+        n, c = cfg.n_layers, r["collectives"]
+        assert c["all-gather"] == n * cfg.n_heads // 2 * (
+            cfg.resolved_head_dim + 1) * 4 + cfg.vocab // 2 * 4
+        assert c["count"] == 3 * n + 2
 
 
 def test_a_flash_call_counts_as_the_kernels_work():

@@ -12,11 +12,25 @@ tp tests' tolerance).
   (2, 2) and under ``basic_ws`` at (1, 2), smoke
   Mixtral-8x22B under ``tp`` (experts split, dense dispatch), smoke
   Mamba-2-130M and smoke Jamba under ``tp``, smoke InternVL2 from image
-  patches and tokens under ``tp``.
+  patches and tokens under ``tp``; these caches (48 slots) are shorter
+  than a head (64), where the reference's ``cache_specs`` split the head
+  dim, and their sequence stays whole.
+- The sequence split (context-parallel decode, ``steps.cache_seq_axis``)
+  on caches of 128 slots, or a ring of 64 (the window), whose sequence
+  ``cache_specs`` split: smoke Llama under ``basic_ws`` at (1, 2), b 1,
+  lockstep (over the model ranks), under ``tp`` at (2, 2), b 1 (kv heads
+  over the model ranks, the sequence over the data ranks), on a wrapped
+  ring split over 2, and per-slot at (1, 2) with every row empty on rank
+  1's slice; smoke Jamba under ``basic_ws`` at (1, 2), b 1 (its KV cache
+  split, its SSM state whole). Each split lies where the reference's
+  ``cache_specs`` put it, and a rank's prefill makes no tensor of the
+  whole cache's length (rank 1 of 2 on 4096 slots, smoke Llama and
+  Jamba), its KV caches the unsplit caches' second half.
 - Every rank's logits are the whole vocab and the reference's; its caches
   after the prefill and after the last step are its rows' and, under
   ``tp``, its kv heads' (or SSD heads' and their conv channels') slice of
-  the reference's caches.
+  the reference's caches, and its slice of a KV cache's sequence where it
+  is split.
 - Under ``tp`` no rank gathers a weight: the params are placed by
   ``steps.serving_layout``, which holds the norm scales, the mixer's B, C
   and conv weights and the vision frontend whole, and every expert
@@ -27,17 +41,19 @@ tp tests' tolerance).
   collectives 2 all-reduces a block and the embedding's, and all-gathers
   the logits alone.
 - A rank's params and cache bytes follow the rule (under ``tp`` the
-  leaves held whole, whole); against the
-  reference's ``cache_specs`` at full size they are equal under ``tp``
-  where the batch splits over the data axes (the SSD conv window keeps
-  all of B and C), M times under ``basic_ws``, and at ``long_500k`` (b 1)
-  the data ranks repeat the row (the differences by design).
+  leaves held whole, whole); against the reference's ``cache_specs`` at
+  full size its KV cache bytes are equal under ``tp`` and ``basic_ws``
+  (``long_500k`` at b 1 included), its SSM state is equal under ``tp``
+  where the batch splits over the data axes and whole otherwise, and its
+  SSD conv window keeps all of B and C.
 """
+import dataclasses
 import functools
 import math
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +61,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import AbstractMesh
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_arch as jax_get_arch
 from repro.configs import smoke_variant as jax_smoke_variant
@@ -69,15 +86,48 @@ from torch_spawn import worker_serve_probe, worker_tp_serve  # noqa: E402
 RTOL, ATOL = 1e-5, 1e-6
 DENSE = {"dispatch": "dense"}
 PROMPT, CACHE_LEN, STEPS = 32, 48, 4
-# name: (arch, sharding, (data, model), per-slot positions)
+
+
+class Case(NamedTuple):
+    """A served case: the arch, its rule, the (data, model) grid, per-slot
+    positions or lockstep, the global batch (None: 2 rows a data shard),
+    the prompt's tokens, the cache's slots, and the mesh axis its KV
+    caches' sequence lies over (None: whole)."""
+    arch: str
+    sharding: str
+    grid: tuple
+    slots: bool
+    batch: Optional[int] = None
+    prompt: int = PROMPT
+    cache: int = CACHE_LEN
+    seq: Optional[str] = None
+
+
 CASES = {
-    "llama-tp-1x2": ("llama3.2-1b", "tp", (1, 2), False),
-    "llama-tp-2x2-slots": ("llama3.2-1b", "tp", (2, 2), True),
-    "llama-basic_ws-1x2-slots": ("llama3.2-1b", "basic_ws", (1, 2), True),
-    "mixtral-tp-1x2-slots": ("mixtral-8x22b", "tp", (1, 2), True),
-    "mamba2-tp-1x2": ("mamba2-130m", "tp", (1, 2), False),
-    "jamba-tp-1x2-slots": ("jamba-1.5-large-398b", "tp", (1, 2), True),
-    "internvl2-tp-1x2": ("internvl2-76b", "tp", (1, 2), False),
+    "llama-tp-1x2": Case("llama3.2-1b", "tp", (1, 2), False),
+    "llama-tp-2x2-slots": Case("llama3.2-1b", "tp", (2, 2), True),
+    "llama-basic_ws-1x2-slots": Case("llama3.2-1b", "basic_ws", (1, 2),
+                                     True),
+    "mixtral-tp-1x2-slots": Case("mixtral-8x22b", "tp", (1, 2), True),
+    "mamba2-tp-1x2": Case("mamba2-130m", "tp", (1, 2), False),
+    "jamba-tp-1x2-slots": Case("jamba-1.5-large-398b", "tp", (1, 2), True),
+    "internvl2-tp-1x2": Case("internvl2-76b", "tp", (1, 2), False),
+    # the sequence split: 128 slots (twice the smoke head dim) past a
+    # 68-token prompt, so both slices hold prompt keys
+    "llama-basic_ws-1x2-b1-seq": Case("llama3.2-1b", "basic_ws", (1, 2),
+                                      False, 1, 68, 128, "model"),
+    "llama-tp-2x2-b1-seq": Case("llama3.2-1b", "tp", (2, 2), False, 1, 68,
+                                128, "data"),
+    # the window's ring of 64 slots, wrapped by a 100-token prompt (its
+    # length ties the head dim; cache_specs take the sequence)
+    "llama-ring-1x2-seq": Case("llama3.2-1b", "basic_ws", (1, 2), False, 2,
+                               100, 64, "model"),
+    # every row's keys on rank 0's slice: rank 1 sweeps none
+    "llama-basic_ws-1x2-slots-seq": Case("llama3.2-1b", "basic_ws", (1, 2),
+                                         True, 2, 32, 128, "model"),
+    # a prompt of whole scan chunks (32)
+    "jamba-basic_ws-1x2-b1-seq": Case("jamba-1.5-large-398b", "basic_ws",
+                                      (1, 2), False, 1, 96, 128, "model"),
 }
 
 
@@ -92,25 +142,25 @@ def _weights(arch):
 def _case(name):
     """The worker's case of ``name``: the reference's smoke weights, a
     numpy batch (2 rows a data shard), the decode tokens and positions."""
-    arch, sharding, (data, _), slots = CASES[name]
-    jcfg = jax_smoke_variant(jax_get_arch(arch))
-    weights = _weights(arch)
+    c = CASES[name]
+    jcfg = jax_smoke_variant(jax_get_arch(c.arch))
+    weights = _weights(c.arch)
     rng = np.random.default_rng(len(name))
-    b = 2 * data
+    b = 2 * c.grid[0] if c.batch is None else c.batch
     if jcfg.family == "vlm":     # 16 patches, then 16 tokens
-        full = jax.device_get(jfe.synthetic_inputs(jcfg, b, PROMPT, rng))
+        full = jax.device_get(jfe.synthetic_inputs(jcfg, b, c.prompt, rng))
         batch = {k: np.asarray(full[k]) for k in ("image", "tokens")}
     else:
-        batch = {"tokens": rng.integers(0, jcfg.vocab, (b, PROMPT)).astype(
+        batch = {"tokens": rng.integers(0, jcfg.vocab, (b, c.prompt)).astype(
             np.int32)}
-    start = PROMPT
+    slots, start = c.slots, c.prompt
     # per-slot: each row at its own depth, writing over the prompt's tail
     positions = (start - np.arange(b, dtype=np.int64) % 3 if slots
                  else start)
     tokens = rng.integers(0, jcfg.vocab, (STEPS, b, 1)).astype(np.int32)
-    return {"arch": arch, "sharding": sharding, "weights": weights,
+    return {"arch": c.arch, "sharding": c.sharding, "weights": weights,
             "batch": batch, "tokens": tokens, "positions": positions,
-            "cache_len": CACHE_LEN, "moe_args": DENSE}
+            "cache_len": c.cache, "moe_args": DENSE}
 
 
 @pytest.fixture(scope="module")
@@ -119,18 +169,18 @@ def served(tmp_path_factory):
     spawned worlds, one per grid running its cases, start at once in
     threads, so the reference's steps in this process overlap them."""
     cases = {n: _case(n) for n in CASES}
-    grids = sorted({c[2] for c in CASES.values()})
+    grids = sorted({c.grid for c in CASES.values()})
     pool = ThreadPoolExecutor(len(grids))
     worlds = {}
     for grid in grids:
-        names = [n for n, c in CASES.items() if c[2] == grid]
+        names = [n for n, c in CASES.items() if c.grid == grid]
         worlds[grid] = names, pool.submit(
             run_world, worker_tp_serve, grid[0] * grid[1],
             str(tmp_path_factory.mktemp("rdv")), grid[1],
             [cases[n] for n in names], timeout=240)
 
     def get(name):
-        names, world = worlds[CASES[name][2]]
+        names, world = worlds[CASES[name].grid]
         return cases[name], [r[names.index(name)] for r in world.result()]
     yield get
     pool.shutdown()
@@ -211,15 +261,30 @@ def _one_rank(case):
     return logits, pre, interop.caches_to_numpy(caches)
 
 
-def _rank_slice(cfg, cache, rows, model, index, tp):
+def _seq_slice(case, rank):
+    """(the rank's slice index, the slice count) of a KV cache's sequence
+    in ``case`` on rank ``rank`` of its (data, model) grid, or None."""
+    data, model = case.grid
+    return {"model": (rank % model, model), "data": (rank // model, data),
+            "batch": (rank, data * model), None: None}[case.seq]
+
+
+def _rank_slice(cfg, cache, rows, model, index, tp, seq=None):
     """The reference cache's leaves (L, b, ...) that rank ``index`` of
     ``model`` holds: its rows and, under tp, its kv heads, or its SSD
-    heads and the conv window of its x channels and all of B and C."""
+    heads and the conv window of its x channels and all of B and C; with
+    ``seq`` (its slice index, the slice count) its slots of a KV cache's
+    sequence."""
     first, n = rows
     out = [np.asarray(x)[:, first:first + n] for x in cache]
+    kv_cache = type(cache).__name__ == "KVCache"
+    if kv_cache and seq is not None:
+        at, parts = seq
+        t = out[0].shape[3] // parts
+        out = [x[:, :, :, at * t:(at + 1) * t] for x in out]
     if not tp or model == 1:
         return out
-    if type(cache).__name__ == "KVCache":
+    if kv_cache:
         kv = cfg.n_kv_heads // model
         return [x[:, :, index * kv:(index + 1) * kv] for x in out]
     d_in, heads, _ = ssm_lib.dims(cfg)
@@ -236,8 +301,12 @@ def test_sharded_steps_are_the_references(served, name):
     tolerance, or the SSM families' own) and against the one-rank port's
     (at the tp tolerance, where the sharding's rounding alone shows)."""
     case, ranks = served(name)
-    arch, sharding, (_, model), _ = CASES[name]
-    cfg = smoke_variant(get_arch(arch))
+    c = CASES[name]
+    model = c.grid[1]
+    cfg = smoke_variant(get_arch(c.arch))
+    for r, rec in enumerate(ranks):
+        seq = _seq_slice(c, r)
+        assert rec["seq"] == (None if seq is None else (c.seq, *seq)), rec
     for against, (logits, pre, post), family in (
             ("reference", _reference(case), cfg.family),
             ("one rank", _one_rank(case), None)):
@@ -253,19 +322,19 @@ def test_sharded_steps_are_the_references(served, name):
                 for j, (g, w) in enumerate(zip(got, want)):
                     for k, (gl, wl) in enumerate(zip(g, _rank_slice(
                             cfg, w, rec["rows"], model, r % model,
-                            sharding == "tp"))):
+                            c.sharding == "tp", _seq_slice(c, r)))):
                         _close(gl, wl, f"{against}: rank {r} {what} cache "
                                f"{j} leaf {k}", cache=True, family=family)
 
 
-TP = [n for n, c in CASES.items() if c[1] == "tp"]
+TP = [n for n, c in CASES.items() if c.sharding == "tp"]
 
 
 @pytest.mark.parametrize("name", TP)
 def test_no_rank_gathers_a_block_weight_under_tp(served, name):
     _, ranks = served(name)
-    cfg = smoke_variant(get_arch(CASES[name][0]))
-    model = CASES[name][2][1]
+    cfg = smoke_variant(get_arch(CASES[name].arch))
+    model = CASES[name].grid[1]
     for rec in ranks:
         # the leaves a block uses whole are held whole where they are
         # placed: no step makes a leaf whole
@@ -298,16 +367,20 @@ def _params_bytes(cfg, grid, sharding):
                for p, x in leaves(whole))
 
 
-def _rank_caches(cfg, batch, model):
-    """A rank's f32 caches of ``batch`` rows at ``CACHE_LEN`` on ``meta``
-    under 'tp' at (1, ``model``) (whole at 1)."""
+def _rank_caches(cfg, batch, model, cache_len=CACHE_LEN, parts=1):
+    """A rank's f32 caches of ``batch`` rows on ``meta`` under 'tp' at (1,
+    ``model``) (whole at 1), a KV cache ``cache_len`` slots long (a linear
+    cache: the prefill's, whatever the window) cut into ``parts`` slices
+    of its sequence."""
     from repro_torch.core import tensor_parallel as tp
+    from repro_torch.launch.mesh import Axis
     from repro_torch.models import transformer as ttf
     lay = None if model == 1 else tp.layout(
         cfg, init_params(cfg, torch.Generator(), "meta"),
         Mesh({"data": 1, "model": model}))
-    return ttf.init_caches(cfg, batch, CACHE_LEN, torch.float32,
-                           device="meta", layout=lay)
+    return ttf.init_caches(dataclasses.replace(cfg, sliding_window=None),
+                           batch, cache_len, torch.float32, device="meta",
+                           layout=lay, seq_axis=Axis(size=parts))
 
 
 def _nbytes(tree):
@@ -317,17 +390,98 @@ def _nbytes(tree):
 @pytest.mark.parametrize("name", list(CASES))
 def test_rank_bytes_follow_the_rule(served, name):
     _, ranks = served(name)
-    arch, sharding, grid, _ = CASES[name]
-    cfg = smoke_variant(get_arch(arch))
-    for rec in ranks:
+    c = CASES[name]
+    grid = c.grid
+    cfg = smoke_variant(get_arch(c.arch))
+    for r, rec in enumerate(ranks):
         n = rec["rows"][1]
-        whole = _nbytes(_rank_caches(cfg, n, 1))
-        want = whole if sharding != "tp" else _nbytes(
-            _rank_caches(cfg, n, grid[1]))
-        assert rec["params_bytes"] == _params_bytes(cfg, grid, sharding)
+        parts = 1 if c.seq is None else _seq_slice(c, r)[1]
+        whole = _nbytes(_rank_caches(cfg, n, 1, c.cache))
+        want = _nbytes(_rank_caches(cfg, n, grid[1] if c.sharding == "tp"
+                                    else 1, c.cache, parts))
+        assert rec["params_bytes"] == _params_bytes(cfg, grid, c.sharding)
         assert rec["cache_bytes"] == want
-        if sharding == "tp" and cfg.ssm is None:
-            assert want * grid[1] == whole
+        if cfg.ssm is None:
+            split = (grid[1] if c.sharding == "tp" else 1) * parts
+            assert want * split == whole
+
+
+# the cases with a KV cache
+ATTN = [n for n, c in CASES.items() if c.arch != "mamba2-130m"]
+
+
+@pytest.mark.parametrize("name", ATTN)
+def test_the_sequence_lies_where_the_references_cache_specs_put_it(name):
+    """The sequence dim of the reference's KV caches of the case under its
+    ``cache_specs`` on the case's grid: over the model axis where the
+    port splits it over the model ranks, over the data and model axes
+    where the port splits it over every rank, or, under 'tp', the data
+    ranks (the kv heads lying over the model ranks); unsplit or its head
+    dim split where the port keeps it whole."""
+    c = CASES[name]
+    jcfg = jax_smoke_variant(jax_get_arch(c.arch))
+    b = 2 * c.grid[0] if c.batch is None else c.batch
+    caches = jax.eval_shape(lambda: jtf.init_caches(
+        dataclasses.replace(jcfg, sliding_window=None), b, c.cache,
+        jnp.float32))
+    mesh = AbstractMesh(c.grid, ("data", "model"))
+    kv = [spec for cache, spec in zip(caches, jshd.cache_specs(caches, mesh))
+          if type(cache).__name__ == "KVCache"]
+    for spec in kv:
+        parts = tuple(spec.k) + (None,) * (5 - len(spec.k))
+        seq = parts[3] if isinstance(parts[3], tuple) else (parts[3],)
+        if c.seq is None:
+            # under tp the kv heads lie over the model ranks instead
+            assert seq == (None,) or (c.sharding == "tp"
+                                      and seq == ("model",)), spec
+        elif c.seq == "model":
+            assert seq == ("model",), spec
+        else:
+            assert seq == ("data", "model") and (
+                c.seq == "batch" or c.sharding == "tp"), spec
+
+
+class _Shapes(TorchDispatchMode):
+    """Records the shape of every tensor an operation returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.shapes += [tuple(t.shape) for t in tree_leaves(out)
+                        if isinstance(t, torch.Tensor)]
+        return out
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "jamba-1.5-large-398b"])
+def test_a_ranks_prefill_builds_its_slice_alone(arch):
+    """The prefill of rank 1 of 2 along a cache's sequence (b 1, a linear
+    cache of 4096 slots after 64 tokens) makes no tensor with the whole
+    cache's 4096 slots, where the unsplit prefill does, and its KV caches
+    are the unsplit caches' second half."""
+    from repro_torch.launch.mesh import Axis
+    cfg = smoke_variant(get_arch(arch))
+    p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (1, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    t = 4096
+    built = {}
+    for parts in (1, 2):
+        step = st.make_prefill_step(cfg, precision="f32", collect_cache_len=t,
+                                    seq_axis=Axis(size=parts, index=1))
+        with torch.no_grad(), _Shapes() as seen:
+            _, built[parts] = step(p, {"tokens": tokens})
+        whole = [sh for sh in seen.shapes if t in sh]
+        assert bool(whole) == (parts == 1), whole
+    for one, half in zip(*built.values()):
+        if type(one).__name__ == "KVCache":
+            for a, b in zip(one, half):
+                assert torch.equal(a[..., t // 2:, :], b)
+        else:
+            for a, b in zip(one, half):
+                assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +533,7 @@ def _port_bytes(arch, shape, grid, sharding):
 BYTES = [("llama3.2-1b", "decode_32k", (4, 2)),
          ("llama3.2-1b", "long_500k", (4, 2)),
          ("jamba-1.5-large-398b", "decode_32k", (2, 4)),
+         ("jamba-1.5-large-398b", "long_500k", (2, 4)),
          ("mamba2-130m", "long_500k", (2, 4))]
 
 
@@ -393,14 +548,16 @@ def test_cache_bytes_against_the_references_cache_specs(arch, shape, grid,
     got = _port_bytes(arch, shape, grid, sharding)
     assert set(got) == set(ref)
     cfg = get_arch(arch)
-    # the ranks the reference spreads a row's cache over that the port
+    # a KV cache lies as the reference places it (steps.cache_seq_axis)
+    if "kv" in ref:
+        assert got["kv"] == ref["kv"], (got, ref)
+    # the ranks the reference spreads a row's SSM state over that the port
     # does not: the data ranks when the batch does not split over them,
     # and under basic_ws the model ranks too
     spread = (1 if shape.global_batch % data == 0 else data) * (
         model if sharding == "basic_ws" else 1)
-    for kind in ("kv", "ssm"):
-        if kind in ref:
-            assert got[kind] == spread * ref[kind], (kind, got, ref)
+    if "ssm" in ref:
+        assert got["ssm"] == spread * ref["ssm"], (got, ref)
     if "conv" in ref:
         # the conv window of the rank's x channels and all of B and C
         # (under basic_ws all channels), where the reference splits the

@@ -571,7 +571,12 @@ def worker_tp_serve(rank, world, model, cases):
     (b,) numpy array of per-slot positions, a step each). Under 'tp'
     ``weight_sharding``'s gather is refused but through
     ``tensor_parallel.gathered``; every leaf made whole is recorded by its
-    path. Returns per case {rows: the rank's first row and count, logits:
+    path. The KV caches' sequence lies where ``steps.cache_seq_axis``
+    places it for the case's global batch and ``cache_len``, and the steps
+    take that ``seq_axis``. Returns per case {rows: the rank's first row
+    and count, seq: None or the mesh axis the sequence lies over ('batch',
+    'data' or 'model') with the rank's slice index and the slice count,
+    logits:
     the prefill's and each step's, prefill_caches and caches (after the
     last step) as numpy lists, params_bytes, cache_bytes, whole and
     gathered: the paths made whole, experts: the expert count of each
@@ -598,6 +603,10 @@ def worker_tp_serve(rank, world, model, cases):
         first = (mesh.data_index * n) % b
         batch = {k: torch.from_numpy(v[first:first + n])
                  for k, v in case["batch"].items()}
+        seq = st.cache_seq_axis(cfg, mesh, lay, b, case["cache_len"])
+        seq_rec = None if seq is None else (
+            next(a for a in ("batch", "data", "model")
+                 if getattr(mesh, a) is seq), seq.index, seq.size)
         rec = {"whole": set(), "gathered": set(), "experts": []}
         real = (tp.whole, tp.gathered, moe._experts, ws._Gather.apply)
 
@@ -623,7 +632,7 @@ def worker_tp_serve(rank, world, model, cases):
         if tp.active(lay):
             ws._Gather.apply = refused
         kw = dict(precision="f32", moe_args=case["moe_args"], mesh=mesh,
-                  layout=lay)
+                  layout=lay, seq_axis=seq)
         try:
             with torch.no_grad(), _scan_heads() as heads:
                 logits, caches = st.make_prefill_step(
@@ -643,7 +652,7 @@ def worker_tp_serve(rank, world, model, cases):
                     got.append(logits.numpy())
         finally:
             tp.whole, tp.gathered, moe._experts, ws._Gather.apply = real
-        out.append({"rows": (first, n), "logits": got,
+        out.append({"rows": (first, n), "seq": seq_rec, "logits": got,
                     "prefill_caches": pre,
                     "caches": interop.caches_to_numpy(caches),
                     "params_bytes": sum(x.numel() * x.element_size()
