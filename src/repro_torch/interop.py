@@ -82,11 +82,12 @@ def to_numpy(tree):
 
 
 def cut_experts(tree, experts):
-    """The parameter tree of an LM (the reference's as numpy, or the
-    port's) cut to the expert share ``experts`` = (first, count): ``wi``,
-    ``wg`` and ``wo`` of every ``moe`` subtree sliced along the expert
-    axis, the one after the layer axis; every other leaf as it is (not
-    copied)."""
+    """The parameter tree of an LM, or a tree laid out as one (its
+    gradients, an optimizer slot shaped like the params), the reference's
+    as numpy or the port's, cut to the expert share ``experts`` = (first,
+    count): ``wi``, ``wg`` and ``wo`` of every ``moe`` subtree sliced
+    along the expert axis, the one after the layer axis; every other leaf
+    as it is (not copied)."""
     first, count = (int(v) for v in experts)
 
     def cut(name, x):

@@ -315,7 +315,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bh // bias.shape[0] if bias is not None else 1, int(causal),
             window if window is not None else -1, float(d ** -0.5), stream)
     check(rc, "flash_bwd launch")
-    BWD_COUNTER.add()
+    BWD_COUNTER.add(shape=(bh, k.shape[0], s, t, d))
     record_work(BWD_COUNTER.name, work)
     return dq, dk, dv
 

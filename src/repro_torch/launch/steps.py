@@ -194,7 +194,9 @@ def make_train_step(cfg: ArchConfig, *, remat: Optional[str] = "basic",
                     mesh=None, layout=None):
     """The LM train step: ``transformer.lm_loss`` under the ``precision``
     policy (default bf16) with the ``remat`` policy per block (default
-    'basic') and ``moe_args`` (default ``DEFAULT_MOE_ARGS``), then
+    'basic') and ``moe_args`` (default ``DEFAULT_MOE_ARGS``; with
+    ``experts`` the params hold that share of every MoE layer, and the
+    forward, its remat recompute and so the backward compute it), then
     ``make_optimizer``'s AdaFactorW. The attention backend is
     ``cfg.attn_impl`` ('pallas' runs the flash kernels). With a ``mesh``
     and a weight-sharding ``layout`` the step is one rank's, as in

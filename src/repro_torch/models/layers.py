@@ -42,10 +42,11 @@ def swiglu(x, wi, wg, wo, axis=None):
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Rotary base frequencies for half the head dim, fp32."""
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+    """Rotary base frequencies for half the head dim, fp32: computed in
+    float64 and rounded once, as a compiled step folds them."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float64,
                             device=device) / head_dim
-    return 1.0 / (theta ** exponent)
+    return (1.0 / (theta ** exponent)).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float

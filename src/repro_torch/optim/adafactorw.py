@@ -15,8 +15,10 @@ opt.apply(grads, state, params, lr)``: the same numbers.
 Second moments of matrices (ndim >= 2, both trailing dims >=
 factored_threshold) are stored as row/column running means; smaller
 tensors keep a full second moment. Updates are RMS-clipped, then the
-decoupled weight decay is added. Nothing is updated in place: ``update``
-returns fresh trees, as the reference does.
+decoupled weight decay is added. The clip's RMS is over the leaf as it is
+given: a layer's experts cut to a share (``models.moe``) are clipped by
+the share's RMS, not the whole layer's. Nothing is updated in place:
+``update`` returns fresh trees, as the reference does.
 
 ``update_from_microbatches`` wires in ``core/moment_accum.py``: the
 microbatch gradient stream is folded straight into the moment slots (paper

@@ -14,6 +14,12 @@ a fixture, never at import). Run them on the card with
 - One Mixtral layer's ``moe_ffn`` at full width (d 6144, d_ff 16384, 8
   experts, top-2) on the card in f32 against the same call on the CPU in
   float64, dense and capacity dispatch.
+- One f32 ``make_train_step`` (remat 'basic', capacity dispatch) of smoke
+  Arctic with Arctic's GQA group of 7 (14 query heads over 2 kv heads)
+  under the expert share (1, 2) of its 4 experts, on the kernel path
+  (the flash kernels) against the plain path (chunked attention): the
+  loss, every gradient leaf and every updated leaf; both flash kernels
+  launched, the backward at group 7.
 
 Tolerances, each with its reason:
 - flash f32 5e-5 abs on out and lse (the kernel's products split 3×TF32:
@@ -21,6 +27,9 @@ Tolerances, each with its reason:
   ulp at |out| < 2 where both sides round the same fp32 value).
 - decode f32 2e-5 abs (the reference's); bf16 per element 2 bf16 ulps of
   |ref| plus 1e-3 of max |ref| (tests/test_torch_cuda_decode.py).
+- The Arctic step (``chip_smoke.py``'s f32 training limits): the loss
+  within 1e-4, each gradient leaf within 1e-3 of its largest entry, each
+  updated leaf within 1e-3 of the change the step made.
 - MoE f32 vs float64: 1e-5 of max |ref|. fp32 sums of 6144 and 16384
   products carry ~sqrt(K)·2^-24 ≈ 1e-5 relative error of the row's
   magnitude at worst in practice; a bf16 computation (2^-8) or TF32
@@ -130,3 +139,46 @@ def test_moe_ffn_full_width_matches_float64(mixtral_layer, opts):
     assert float(err.max()) <= 1e-5 * float(ref.abs().max()), float(
         err.max())
     assert abs(float(aux) - float(ref_aux)) <= 1e-5 * float(ref_aux)
+
+
+def test_arctic_share_f32_step_kernel_path_matches_plain(gen):
+    from repro_torch import interop
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves
+    share = (1, 2)
+    cfg = dataclasses.replace(smoke_variant(get_arch("arctic-480b")),
+                              n_heads=14, n_kv_heads=2)
+    params = interop.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(3), "cuda",
+        experts=share)
+    assert params["blocks"][0]["moe"]["wi"].shape[1] == 2
+    batch = {"tokens": torch.randint(4, cfg.vocab, (2, 128), generator=gen,
+                                     device="cuda")}
+    margs = dict(steps.DEFAULT_MOE_ARGS, group=64, experts=share)
+    out = {}
+    for path, attn in (("kernel", "pallas"), ("plain", "chunked")):
+        pcfg = dataclasses.replace(cfg, attn_impl=attn)
+        for c in (fa_ops.COUNTER, fa_ops.BWD_COUNTER):
+            c.reset()
+        loss, _, grads = steps.value_and_grad(
+            lambda p: transformer.lm_loss(pcfg, p, batch, precision="f32",
+                                          moe_args=margs), params)
+        step, opt = steps.make_train_step(pcfg, precision="f32",
+                                          moe_args=margs)
+        new, _, _, _ = step(params, opt.init(params), batch)
+        out[path] = (float(loss), dict(leaves(grads)), dict(leaves(new)),
+                     fa_ops.COUNTER.count, fa_ops.BWD_COUNTER.shapes)
+    (lk, gk, nk, fk, bk), (lp, gp, np_, fp, bp) = out["kernel"], out["plain"]
+    # value_and_grad: 2 + 2; the train step (remat 'basic'): 4 + 2
+    assert (fk, sum(bk.values()), fp, bp) == (6, 4, 0, {})
+    assert set(bk) == {(28, 4, 128, 128, 64)}           # 28 / 4: group 7
+    assert abs(lk - lp) <= 1e-4
+    init = dict(leaves(params))
+    for path, g in gp.items():
+        assert float((gk[path] - g).abs().max()) <= 1e-3 * float(
+            g.abs().max()), path
+        step_p = float((np_[path] - init[path]).norm())
+        assert float((nk[path] - np_[path]).norm()) <= 1e-3 * step_p, path

@@ -35,6 +35,7 @@ import torch
 from repro import checkpoint as jckpt
 from repro.configs import get_arch as jax_get_arch
 from repro.configs import smoke_variant as jax_smoke
+from repro.launch import steps as jsteps
 from repro.models import moe as jmoe
 from repro.models import transformer as jtf
 from repro.serving import ContinuousEngine as JaxContinuousEngine
@@ -49,6 +50,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.serving import ContinuousEngine, Engine
 from repro_torch.tree import leaves
 from test_torch_checkpoint import _assert_trees_equal, _meta_like, _np_bits
+from test_torch_lm_train import _assert_change_close, _paths
 
 torch.set_num_threads(1)
 
@@ -542,3 +544,183 @@ def test_moe_checkpoint_crosses_packages(tmp_path, shared):
     assert it["treedef"] == ij["treedef"] == \
         str(jax.tree_util.tree_structure(jp))
     assert "'moe'" in it["treedef"] and it["leaves"] == ij["leaves"]
+
+
+# ---------------------------------------------------------------------------
+# Arctic's training: the dense residual's gradients, and the expert share
+# ---------------------------------------------------------------------------
+
+EXPERT_LEAVES = ("wi", "wg", "wo")
+
+
+@pytest.fixture(scope="module")
+def arctic_whole():
+    """(reference cfg, port cfg, reference params, the same params in the
+    port) of Arctic's smoke variant, every expert held; the weights are
+    ``arctic_share``'s before its cut and its silencing."""
+    jcfg, tcfg = _pair("arctic-480b")
+    jp, tp = _lm_weights(jcfg, seed=6)
+    return jcfg, tcfg, jp, tp
+
+
+ARCTIC_MODELS = ["arctic_whole", "arctic_share"]
+
+
+def _arctic(model, request):
+    """The fixture ``model`` and its share (None for the whole layer)."""
+    share = ARCTIC_SHARE if model == "arctic_share" else None
+    return (*request.getfixturevalue(model), share)
+
+
+def _cut(tree, share):
+    """A reference tree (numpy) cut to ``share``; as it is without one."""
+    return tree if share is None else interop.cut_experts(tree, share)
+
+
+def _is_expert(path):
+    return "/moe/" in path and path.rsplit("/", 1)[-1] in EXPERT_LEAVES
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "capacity"])
+@pytest.mark.parametrize("model", ARCTIC_MODELS, ids=["whole", "share"])
+def test_arctic_lm_loss_and_grads_match_reference(model, dispatch, request):
+    """Arctic's ``lm_loss`` and every gradient leaf, the dense residual's
+    included, against the reference's ``jax.value_and_grad``; under the
+    share the port's gradients against the reference's cut to it (its
+    silenced experts' ``wi`` and ``wg`` get no gradient, their ``wo`` do:
+    the cut drops both), every leaf outside the experts (router,
+    attention, dense residual, norms, embedding, head) whole."""
+    jcfg, tcfg, jp, tp, share = _arctic(model, request)
+    toks = np.random.default_rng(2).integers(4, tcfg.vocab, (2, 32)).astype(
+        np.int32)
+    margs = {"dispatch": dispatch, "group": 32, "capacity_factor": 1.25}
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: jtf.lm_loss(jcfg, p, {"tokens": jnp.asarray(toks)},
+                              moe_args=margs), has_aux=True)(jp)
+    targs = margs if share is None else dict(margs, experts=share)
+    tl, tm, tg = tsteps.value_and_grad(
+        lambda p: ttf.lm_loss(tcfg, p, {"tokens": torch.from_numpy(toks)},
+                              moe_args=targs), tp)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(float(tm["xent"]), float(jm["xent"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(tm["aux"]), float(jm["aux"]),
+                               rtol=1e-5)
+    got = _grad_paths(tg)
+    want = _grad_paths(_cut(jax.device_get(jg), share))
+    assert sorted(got) == sorted(want)
+    for path, g in got.items():
+        w = np.asarray(want[path])
+        assert g.shape == w.shape, path
+        err = np.abs(g.numpy() - w).max()
+        assert err <= GRAD_REL * np.abs(w).max(), (path, err)
+    held = ARCTIC_SHARE[1] if share else tcfg.moe.num_experts
+    for i, block in enumerate(tg["blocks"]):
+        assert block["moe"]["wi"].shape[1] == held
+        for name in ("dense_wi", "dense_wg", "dense_wo", "router"):
+            assert float(block["moe"][name].abs().max()) > 0, (i, name)
+
+
+def _first_update(opt, grads, params, lr):
+    """The reference's AdaFactorW update of ``params`` (numpy) from fresh
+    slots by ``grads``: the new params, numpy."""
+    jparams = jax.tree.map(jnp.asarray, params)
+    upd, _ = opt.update(jax.tree.map(jnp.asarray, grads), opt.init(jparams),
+                        jparams, 1e-3)
+    return jax.device_get(jax.tree.map(lambda p, u: p + u, jparams, upd))
+
+
+def _update_rms(grads, params):
+    """Per expert leaf path, the RMS of the reference's first AdaFactorW
+    update before its clip (``clip_threshold`` 1, which divides the update
+    by max(1, RMS)): the update taken with the clip off, less its weight
+    decay, over lr."""
+    from repro.optim.adafactorw import AdaFactorW as JaxAdaFactorW
+    wd = 0.0025
+    unclipped = _first_update(JaxAdaFactorW(beta1=0.9, beta2=0.99,
+                                            weight_decay=wd,
+                                            clip_threshold=np.inf),
+                              grads, params, 1e-3)
+    new, old = _grad_paths(unclipped), _grad_paths(params)
+    return {path: float(np.sqrt(np.mean(
+        ((new[path] - old[path]) / -1e-3 - wd * old[path]) ** 2)))
+        for path in new if _is_expert(path)}
+
+
+@pytest.mark.parametrize("model", ARCTIC_MODELS, ids=["whole", "share"])
+def test_arctic_make_train_step_f32_matches_reference(model, request,
+                                                      monkeypatch):
+    """One f32 ``make_train_step`` of smoke Arctic (capacity dispatch,
+    remat 'basic') against the reference's: the loss, and every updated
+    leaf within 1e-3 of the change the step made. The share reaches every
+    MoE call, the remat recompute's included.
+
+    Under the share, by design: AdaFactorW clips each update by its RMS
+    over the whole leaf, and a share's ``wi``, ``wg``, ``wo`` hold 2 of the
+    4 experts (the reference's silenced two give ``wi`` and ``wg`` zero
+    updates, ``wo`` updates of their own). So the expert leaves are held
+    to the reference's AdaFactorW on the reference's gradients cut to the
+    share, and the reference's own whole-leaf update, cut, differs from it
+    by the ratio of the two clips, max(1, RMS over the share) / max(1, RMS
+    over the whole leaf), which this pins."""
+    jcfg, tcfg, jp, tp, share = _arctic(model, request)
+    toks = np.random.default_rng(3).integers(4, tcfg.vocab, (2, 32)).astype(
+        np.int32)
+    jbatch = {"tokens": jnp.asarray(toks)}
+    jstep, jopt = jsteps.make_train_step(jcfg, remat="basic",
+                                         precision="f32")
+    jparams = jax.tree.map(jnp.asarray, jp)
+    jnew, _, jl, _ = jax.jit(jstep)(jparams, jopt.init(jparams), jbatch)
+    seen = []
+    ffn = tmoe.moe_ffn
+
+    def recorded(*args, **kw):
+        seen.append(kw.get("experts"))
+        return ffn(*args, **kw)
+    monkeypatch.setattr(tmoe, "moe_ffn", recorded)
+    margs = None if share is None else dict(tsteps.DEFAULT_MOE_ARGS,
+                                            experts=share)
+    step, opt = tsteps.make_train_step(tcfg, precision="f32", moe_args=margs)
+    new, _, loss, _ = step(tp, opt.init(tp),
+                           {"tokens": torch.from_numpy(toks)})
+    # each layer's forward, then its recompute in the backward
+    assert seen == [share] * (2 * tcfg.n_layers)
+    assert float(loss) == pytest.approx(float(jl), rel=1e-5)
+    got = _paths(new)
+    ref = _grad_paths(_cut(jax.device_get(jnew), share))
+    init = _grad_paths(_cut(jp, share))
+    outside = {p for p in got if not _is_expert(p)}
+    assert len(outside) < len(got)
+    _assert_change_close({p: got[p] for p in outside},
+                         {p: ref[p] for p in outside},
+                         {p: init[p] for p in outside}, 1e-3)
+    experts = set(got) - outside
+    if share is None:
+        _assert_change_close({p: got[p] for p in experts},
+                             {p: ref[p] for p in experts}, init, 1e-3)
+        return
+    (_, _), jg = jax.value_and_grad(
+        lambda p: jtf.lm_loss(jcfg, p, jbatch, precision="f32",
+                              moe_args=tsteps.DEFAULT_MOE_ARGS),
+        has_aux=True)(jparams)
+    grads = jax.device_get(jg)
+    cut_g, cut_p = _cut(grads, share), _cut(jp, share)
+    want = _grad_paths(_first_update(jopt, cut_g, cut_p, 1e-3))
+    _assert_change_close({p: got[p] for p in experts},
+                         {p: want[p] for p in experts}, init, 1e-3)
+    # the reference's whole leaf against the share: the clips' ratio
+    rms_share, rms_whole = _update_rms(cut_g, cut_p), _update_rms(grads, jp)
+    # on this step the clip binds over the share: the difference shows
+    assert max(rms_share.values()) > 1 + 1e-2
+    for path in experts:
+        ratio = max(1.0, rms_share[path]) / max(1.0, rms_whole[path])
+        step_share = want[path] - init[path]
+        # the share's step with its update scaled by the ratio, its weight
+        # decay (-lr·wd·p) as it is
+        decay = -1e-3 * 0.0025 * init[path]
+        rebuilt = init[path] + (step_share - decay) * ratio + decay
+        gap = np.linalg.norm(ref[path] - rebuilt)
+        assert gap <= 1e-3 * np.linalg.norm(ref[path] - init[path]), path
+        print(f"{path}: update RMS over the share {rms_share[path]:.6f}, "
+              f"over the whole leaf {rms_whole[path]:.6f}, clip ratio "
+              f"{ratio:.6f}")

@@ -113,10 +113,10 @@ CASES = {
     "jamba-tp-1x2-slots": Case("jamba-1.5-large-398b", "tp", (1, 2), True),
     "internvl2-tp-1x2": Case("internvl2-76b", "tp", (1, 2), False),
     # the sequence split: 128 slots (twice the smoke head dim) past a
-    # 68-token prompt, so both slices hold prompt keys
+    # 80-token prompt, so both slices hold prompt keys
     "llama-basic_ws-1x2-b1-seq": Case("llama3.2-1b", "basic_ws", (1, 2),
-                                      False, 1, 68, 128, "model"),
-    "llama-tp-2x2-b1-seq": Case("llama3.2-1b", "tp", (2, 2), False, 1, 68,
+                                      False, 1, 80, 128, "model"),
+    "llama-tp-2x2-b1-seq": Case("llama3.2-1b", "tp", (2, 2), False, 1, 80,
                                 128, "data"),
     # the window's ring of 64 slots, wrapped by a 100-token prompt (its
     # length ties the head dim; cache_specs take the sequence)
@@ -295,15 +295,37 @@ def _rank_slice(cfg, cache, rows, model, index, tp, seq=None):
                             conv[..., d_in:]], axis=-1)]
 
 
+def _close_or_reference_farther(got, want, exact, what):
+    """``_close`` of a smoke Llama rank's logits against the reference's;
+    where that fails, a float64 plain path (``exact()``: the case's
+    logits, ``_f64_steps``) decides each element past the tolerance: the
+    rank is within the tolerance of float64 there, and the reference is
+    the one farther from float64."""
+    try:
+        _close(got, want, what)
+        return
+    except AssertionError:
+        pass
+    want, exact = np.asarray(want), exact()
+    tol = RTOL * np.abs(want) + ATOL * max(1.0, float(np.abs(want).max()))
+    past = np.abs(got - want) > tol
+    d_got, d_want = (np.abs(x - exact)[past] for x in (got, want))
+    assert (d_got <= tol[past]).all() and (d_got < d_want).all(), (
+        what, d_got, d_want, tol[past])
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_steps_are_the_references(served, name):
     """Every rank's logits and caches against the reference's (at the tp
     tolerance, or the SSM families' own) and against the one-rank port's
-    (at the tp tolerance, where the sharding's rounding alone shows)."""
+    (at the tp tolerance, where the sharding's rounding alone shows). A
+    smoke Llama rank's logits past the tolerance of the reference's are
+    held to a float64 plain path (``_close_or_reference_farther``)."""
     case, ranks = served(name)
     c = CASES[name]
     model = c.grid[1]
     cfg = smoke_variant(get_arch(c.arch))
+    f64 = functools.lru_cache(maxsize=None)(lambda: _f64_steps(case))
     for r, rec in enumerate(ranks):
         seq = _seq_slice(c, r)
         assert rec["seq"] == (None if seq is None else (c.seq, *seq)), rec
@@ -315,8 +337,13 @@ def test_sharded_steps_are_the_references(served, name):
             assert len(rec["logits"]) == STEPS + 1
             for i, (got, want) in enumerate(zip(rec["logits"], logits)):
                 assert got.shape == (n, 1, cfg.vocab)
-                _close(got, want[first:first + n],
-                       f"{against}: rank {r} logits {i}", family=family)
+                what = f"{against}: rank {r} logits {i}"
+                if against == "reference" and c.arch == "llama3.2-1b":
+                    _close_or_reference_farther(
+                        got, want[first:first + n],
+                        lambda: f64()[i][first:first + n], what)
+                else:
+                    _close(got, want[first:first + n], what, family=family)
             for what, got, want in (("prefill", rec["prefill_caches"], pre),
                                     ("last step", rec["caches"], post)):
                 for j, (g, w) in enumerate(zip(got, want)):
@@ -583,3 +610,104 @@ def test_the_probe_serves_one_ranks_tokens_on_gloo_ranks(tmp_path):
     for calls in tp_run["step_collective_calls"]:
         assert calls == {"all_reduce": 2 * n + 1, "all_gather": 1,
                          "reduce_scatter": 0}
+
+
+# The lockstep Llama split cases run 80-token prompts. With fp32 RoPE
+# frequencies rounded at run time the one-rank port was 1.3e-6 of the
+# largest logit off the reference at 80 tokens, past ATOL. Both packages
+# are held here to a float64 plain path on those cases' draws.
+F64_CASES = ["llama-basic_ws-1x2-b1-seq", "llama-tp-2x2-b1-seq"]
+# each package's largest |logit − float64| over the largest |logit|: an
+# fp32 evaluation of the smoke model sits ~1e-6 from float64
+F64_REL = 2e-6
+
+
+def _llama_f64(cfg, weights, tokens, prompt):
+    """Logits (b, n, vocab) of smoke Llama in float64, numpy, from the
+    reference's numpy weights, for tokens (b, n) of which the first
+    ``prompt`` are the prefill: a prefill position attends its window,
+    a decode position every earlier one (a linear cache longer than the
+    window, as ``decode_step`` masks it)."""
+    def f64(x):
+        return np.asarray(x, np.float64)
+
+    hd, heads, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    n = tokens.shape[1]
+    pos = np.arange(n)
+    ang = pos[:, None] / cfg.rope_theta ** (np.arange(0, hd, 2) / hd)
+    sin, cos = np.sin(ang)[:, None], np.cos(ang)[:, None]
+
+    def rope(x):
+        x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
+        return np.concatenate([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                              axis=-1)
+
+    def norm(x, scale):
+        return x / np.sqrt(np.mean(x * x, -1, keepdims=True)
+                           + cfg.norm_eps) * f64(scale)
+
+    i, j = pos[:, None], pos[None, :]
+    seen = (j <= i) & ((i >= prompt) | (i - j < cfg.sliding_window))
+    h = f64(weights["embed"])[tokens]
+    blk = weights["blocks"][0]
+    for layer in range(cfg.n_layers):
+        attn = {k: f64(v[layer]) for k, v in blk["attn"].items()}
+        ffn = {k: f64(v[layer]) for k, v in blk["ffn"].items()}
+        x = norm(h, blk["ln1"][layer])
+        b = x.shape[0]
+        q = rope((x @ attn["wq"]).reshape(b, n, heads, hd))
+        k = rope((x @ attn["wk"]).reshape(b, n, kv, hd))
+        v = (x @ attn["wv"]).reshape(b, n, kv, hd)
+        k, v = (np.repeat(t, heads // kv, axis=2) for t in (k, v))
+        sc = np.einsum("bihd,bjhd->bhij", q, k) / np.sqrt(hd)
+        sc = np.where(seen, sc, -np.inf)
+        w = np.exp(sc - sc.max(-1, keepdims=True))
+        w /= w.sum(-1, keepdims=True)
+        o = np.einsum("bhij,bjhd->bihd", w, v).reshape(b, n, heads * hd)
+        h = h + o @ attn["wo"]
+        x = norm(h, blk["ln2"][layer])
+        g = x @ ffn["wg"]
+        h = h + ((x @ ffn["wi"]) * g / (1 + np.exp(-g))) @ ffn["wo"]
+    return norm(h, weights["final_norm"]) @ f64(weights["embed"]).T
+
+
+def _f64_steps(case):
+    """A smoke Llama case's logits in float64 (``_llama_f64``), laid out
+    as ``_reference`` returns them, each (b, 1, vocab): the prefill's at
+    the prompt's last token, then each decode step's at its position. A
+    row at position p sees the prompt's first p tokens and the decode
+    tokens after them (a slot's steps write over the prompt's tail)."""
+    cfg = smoke_variant(get_arch(case["arch"]))
+    w, prompt = case["weights"], case["batch"]["tokens"]
+    b, n = prompt.shape
+    dec = case["tokens"][:, :, 0].T
+    pos = np.broadcast_to(case["positions"], (b,))
+    rows = [_llama_f64(cfg, w, np.concatenate([prompt[r, :p], dec[r]])[None],
+                       p)[0] for r, p in enumerate(pos)]
+    return [_llama_f64(cfg, w, prompt, n)[:, n - 1:n]] + [
+        np.stack([rows[r][p + i] for r, p in enumerate(pos)])[:, None]
+        for i in range(dec.shape[1])]
+
+
+@pytest.mark.parametrize("name", F64_CASES)
+def test_one_rank_at_80_tokens_against_float64(name):
+    """One rank, no split, ``name``'s case (an 80-token prompt): the
+    port's and the reference's prefill and decode logits
+    against a float64 plain path built from the same numpy weights
+    (``_f64_steps``). Each is within ``F64_REL`` of the largest |logit|,
+    the port no farther than twice the reference's distance on any step
+    (the rule of the f32 training parities, ``chip_smoke.fp64_distances``),
+    and the port is the reference's at the tests' tolerance (``ATOL``
+    1e-6)."""
+    case = _case(name)
+    ref, _, _ = _reference(case)
+    port, _, _ = _one_rank(case)
+    f64 = _f64_steps(case)
+    assert len(port) == len(ref) == len(f64) == STEPS + 1
+    for i, (got, want, exact) in enumerate(zip(port, ref, f64)):
+        top = np.abs(exact).max()
+        d_port = np.abs(got - exact).max() / top
+        d_ref = np.abs(want - exact).max() / top
+        assert d_port <= F64_REL and d_ref <= F64_REL, (i, d_port, d_ref)
+        assert d_port <= 2 * d_ref, (i, d_port, d_ref)
+        _close(got, want, f"one rank: logits {i}")
